@@ -1,0 +1,38 @@
+"""nvtabular_tpu_torch — the PyTorch and CUDA port of nvtabular_tpu.
+
+Fits and transforms tabular feature-engineering workflows on an NVIDIA GPU
+(Hopper, sm_90a): the device transform's lookup and continuous-chain kernels
+are hand-written CUDA (``csrc/``), each beside a plain PyTorch version that
+the CPU runs. Entry points run on ``cuda:0`` unless the caller passes
+``device="cpu"``. The JAX package ``nvtabular_tpu`` is the reference this
+port is held against; nothing here imports it or JAX.
+"""
+
+__version__ = "0.1.0"
+
+from . import dtypes, ops
+from .convert import fitted_state, load_fitted_state
+from .dag import ColumnSelector, Graph, Node
+from .io import Dataset
+from .schema import ColumnSchema, Schema
+from .table import Column, TableBatch
+from .tags import Tags, TagSet
+from .workflow import Workflow
+
+__all__ = [
+    "Column",
+    "ColumnSchema",
+    "ColumnSelector",
+    "Dataset",
+    "Graph",
+    "Node",
+    "Schema",
+    "TableBatch",
+    "TagSet",
+    "Tags",
+    "Workflow",
+    "dtypes",
+    "fitted_state",
+    "load_fitted_state",
+    "ops",
+]

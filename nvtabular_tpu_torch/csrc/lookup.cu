@@ -1,0 +1,210 @@
+// Column-batched Categorify lookups for Hopper (sm_90a): kernels K1-K3 with
+// the Categorify epilogue K4 fused into each.
+//
+// Each kernel reads the stacked int32 values of C columns ([C, N], row-major)
+// and writes their final codes ([C, N] int32):
+//   hit  -> the code stored in the column's table (2 + num_buckets + rank)
+//   miss -> OOV_INDEX (2; only num_buckets == 1 is ported)
+//   validity[c, r] == 0 -> NULL_INDEX (1)
+//   then + col_off[c] (the single_table offset).
+// This is nvtabular_tpu/ops/categorify.py:1666-1684 (_encode_batched_device's
+// null/offset/cast epilogue, with _Vocab._oov_codes_dev at :628-634) fused
+// into the lookup, so one launch per table kind writes final codes.
+//
+// sel[c] picks the table row of value row c (joint vocabularies share one).
+// Every entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() so the Python wrapper can raise.
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kNullIndex = 1;
+constexpr int kOovIndex = 2;
+constexpr int kTinyMax = 4096;
+constexpr int kThreads = 256;
+constexpr int kTinyRowsPerBlock = 4096;
+
+__device__ __forceinline__ int32_t epilogue(int32_t code, bool hit, const uint8_t* valid,
+                                            int64_t i, int32_t off) {
+  int32_t out = hit ? code : kOovIndex;
+  if (valid != nullptr && valid[i] == 0) out = kNullIndex;
+  return out + off;
+}
+
+// K1: tiny vocabularies. Replaces BatchedTiny.encode_dev
+// (nvtabular_tpu/ops/lookup.py:157-167), which compares every value with
+// every key of its column and max-reduces the matching code.
+//
+// Bound: the value reads and code writes (8 B per value); the bin itself is
+// a few KB per column. A compare against all <= 4096 keys would make it
+// compute-bound (4096 compares per value), so instead each block stages its
+// column's keys and codes in shared memory (<= 32 KB, under the 48 KB static
+// limit) and each thread binary-searches its value: <= 12 shared-memory
+// probes. Vocabulary keys are unique, so the result equals the max-reduce.
+// The bin pads each row past lens[b] with the row's FIRST key, so that tail
+// is not sorted: the search covers [0, lens[b]) only.
+// Grid: (row blocks of kTinyRowsPerBlock rows, C).
+__global__ void __launch_bounds__(kThreads)
+tiny_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
+                   const int32_t* __restrict__ keys, const int32_t* __restrict__ codes,
+                   const int32_t* __restrict__ lens, const int32_t* __restrict__ sel,
+                   const int32_t* __restrict__ col_off, int32_t* __restrict__ out,
+                   int64_t n, int vmax) {
+  __shared__ int32_t s_keys[kTinyMax];
+  __shared__ int32_t s_codes[kTinyMax];
+  const int c = blockIdx.y;
+  const int b = sel[c];
+  const int len = lens[b];
+  const int32_t* k = keys + static_cast<int64_t>(b) * vmax;
+  const int32_t* cd = codes + static_cast<int64_t>(b) * vmax;
+  for (int j = threadIdx.x; j < len; j += blockDim.x) {
+    s_keys[j] = k[j];
+    s_codes[j] = cd[j];
+  }
+  __syncthreads();
+  const int32_t off = col_off[c];
+  const int64_t base = static_cast<int64_t>(c) * n;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTinyRowsPerBlock;
+  const int64_t stop = start + kTinyRowsPerBlock < n ? start + kTinyRowsPerBlock : n;
+  for (int64_t r = start + threadIdx.x; r < stop; r += blockDim.x) {
+    const int64_t i = base + r;
+    const int32_t v = values[i];
+    int lo = 0, hi = len;  // first slot whose key is >= v
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_keys[mid] < v) lo = mid + 1; else hi = mid;
+    }
+    const bool hit = lo < len && s_keys[lo] == v;
+    out[i] = epilogue(hit ? s_codes[lo] : 0, hit, valid, i, off);
+  }
+}
+
+// K2: direct (dense) map. Replaces BatchedDirect.encode_dev
+// (nvtabular_tpu/ops/lookup.py:585-601), which on the TPU gathers an 8-lane
+// row and selects a lane; here one 4-byte load per value.
+//
+// Bound: bytes. Values and codes stream (8 B per value); each table read is
+// one random 32-byte sector unless L2 (50 MB) holds it. One thread per value.
+// v - min is computed in int64: in int32 it overflows for keys far from min.
+// The hit test uses v itself, so the codes equal the reference's.
+// Grid: (ceil(N / kThreads), C).
+__global__ void __launch_bounds__(kThreads)
+direct_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
+                     const int32_t* __restrict__ table, const int32_t* __restrict__ mins,
+                     const int32_t* __restrict__ maxs, const int64_t* __restrict__ lens,
+                     const int64_t* __restrict__ table_off, const int32_t* __restrict__ sel,
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int c = blockIdx.y;
+  const int b = sel[c];
+  const int64_t i = static_cast<int64_t>(c) * n + r;
+  const int32_t v = values[i];
+  const int32_t mn = mins[b];
+  const int32_t mx = maxs[b];
+  int64_t idx = static_cast<int64_t>(v) - mn;
+  idx = idx < 0 ? 0 : (idx > lens[b] - 1 ? lens[b] - 1 : idx);
+  const int32_t code = __ldg(table + table_off[b] + idx);
+  const bool hit = v >= mn && v <= mx && code >= 0;
+  out[i] = epilogue(code, hit, valid, i, col_off[c]);
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ void probe(const int4& k, const int4& v, int32_t key, int32_t& code,
+                                      bool& hit) {
+  // the reference's override order (lookup.py:702-707): slot 0..3, later wins;
+  // a key lives in one slot only, so the order never changes a code
+  if (k.x == key && v.x >= 0) { code = v.x; hit = true; }
+  if (k.y == key && v.y >= 0) { code = v.y; hit = true; }
+  if (k.z == key && v.z >= 0) { code = v.z; hit = true; }
+  if (k.w == key && v.w >= 0) { code = v.w; hit = true; }
+}
+
+// K3: two-choice, 4-slot bucketed cuckoo. Replaces BatchedCuckoo.encode_dev
+// (nvtabular_tpu/ops/lookup.py:693-708).
+//
+// Bound: bytes, dominated by two random 32-byte buckets per value from a
+// table of ~200 MB at the Criteo-TB profile (four times L2). A bucket row
+// [k0..k3, v0..v3] is exactly one 32-byte sector, read as two aligned int4
+// loads; both buckets' loads are issued before any compare so their
+// latencies overlap. One thread per value.
+// Buckets: b = fmix32(u32(v) ^ seed) % nbs[b] + row_off[b], seeds 0 and
+// 0x9E3779B9, all in uint32 as in the reference.
+// Grid: (ceil(N / kThreads), C).
+__global__ void __launch_bounds__(kThreads)
+cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
+                     const int4* __restrict__ table, const int64_t* __restrict__ nbs,
+                     const int64_t* __restrict__ row_off, const int32_t* __restrict__ sel,
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int c = blockIdx.y;
+  const int b = sel[c];
+  const int64_t i = static_cast<int64_t>(c) * n + r;
+  const int32_t v = values[i];
+  const uint32_t u = static_cast<uint32_t>(v);
+  const uint32_t nb = static_cast<uint32_t>(nbs[b]);
+  const int64_t ro = row_off[b];
+  const int64_t b0 = ro + fmix32(u) % nb;
+  const int64_t b1 = ro + fmix32(u ^ 0x9E3779B9u) % nb;
+  const int4 k0 = __ldg(table + 2 * b0);
+  const int4 v0 = __ldg(table + 2 * b0 + 1);
+  const int4 k1 = __ldg(table + 2 * b1);
+  const int4 v1 = __ldg(table + 2 * b1 + 1);
+  int32_t code = kOovIndex;
+  bool hit = false;
+  probe(k0, v0, v, code, hit);
+  probe(k1, v1, v, code, hit);
+  out[i] = epilogue(code, hit, valid, i, col_off[c]);
+}
+
+inline unsigned int blocks_for(int64_t n, int64_t per_block) {
+  return static_cast<unsigned int>((n + per_block - 1) / per_block);
+}
+
+}  // namespace
+
+extern "C" int nvt_tiny_lookup(const int32_t* values, const uint8_t* valid, const int32_t* keys,
+                               const int32_t* codes, const int32_t* lens, const int32_t* sel,
+                               const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
+                               int vmax, void* stream) {
+  if (vmax > kTinyMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_cols == 0 || n == 0) return 0;
+  dim3 grid(blocks_for(n, kTinyRowsPerBlock), num_cols);
+  tiny_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      values, valid, keys, codes, lens, sel, col_off, out, n, vmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nvt_direct_lookup(const int32_t* values, const uint8_t* valid, const int32_t* table,
+                                 const int32_t* mins, const int32_t* maxs, const int64_t* lens,
+                                 const int64_t* table_off, const int32_t* sel,
+                                 const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
+                                 void* stream) {
+  if (num_cols == 0 || n == 0) return 0;
+  dim3 grid(blocks_for(n, kThreads), num_cols);
+  direct_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      values, valid, table, mins, maxs, lens, table_off, sel, col_off, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nvt_cuckoo_lookup(const int32_t* values, const uint8_t* valid, const int32_t* table,
+                                 const int64_t* nbs, const int64_t* row_off, const int32_t* sel,
+                                 const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
+                                 void* stream) {
+  if (num_cols == 0 || n == 0) return 0;
+  dim3 grid(blocks_for(n, kThreads), num_cols);
+  cuckoo_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      values, valid, reinterpret_cast<const int4*>(table), nbs, row_off, sel, col_off, out, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,283 @@
+"""Executors: op-by-op evaluation, the device executor, the fit engine.
+
+Counterpart of ``nvtabular_tpu/dag/executor.py``:
+
+* ``LocalExecutor`` — evaluates the DAG op by op on whatever device the
+  batch's tensors live on.
+* ``TorchExecutor`` — counterpart of ``JitExecutor`` (executor.py:103-331,
+  689-764): runs the whole DAG per batch on its device. It stacks
+  same-dtype host columns into pinned buffers for one host-to-device copy per
+  dtype (``_stack_batch``, executor.py:777-796), fuses continuous chains into
+  one cont_chain launch (dag/device_fuse.py), and keeps the schema's column
+  order for its outputs. PyTorch has no compile cache to bound, so there is
+  no power-of-two row padding.
+* ``FitEngine`` — the phased statistics scan (executor.py:903-1104), single
+  process: one pass over the dataset per phase feeds every stat op of it.
+
+Both executors cache each op's device tables keyed on that op's
+``fit_generation``, so a refit can never serve stale tables (the round-2
+refit-staleness rule of the JAX package).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from ..schema import Schema
+from ..table import UNSUPPORTED_LISTS, Column, TableBatch, concat_columns
+from .device_fuse import ChainSpec, extract_chain
+from .graph import Graph, postorder_iter_nodes
+from .node import Node
+from .ops import ConcatColumns
+
+
+class LocalExecutor:
+    """Op-by-op DAG evaluation on the batch's own device."""
+
+    def __init__(self):
+        # id(op) → (op, (fit_generation, device), tables): holding the op
+        # keeps its id from being recycled into a false cache hit
+        self._state_cache: Dict[int, Tuple[Any, Tuple, Any]] = {}
+
+    def transform_batch(self, batch: TableBatch, output_node: Node) -> TableBatch:
+        return self._eval(output_node, batch, {})
+
+    def _eval(self, node: Node, root_batch: TableBatch, memo: Dict[int, TableBatch]) -> TableBatch:
+        if id(node) in memo:
+            return memo[id(node)]
+        if isinstance(node.op, ConcatColumns):
+            out = concat_columns(
+                [self._eval(p, root_batch, memo) for p in node.parents_with_dependencies]
+            )
+        elif not node.parents_with_dependencies:
+            out = self._apply(node, root_batch)
+        else:
+            out = self._apply(node, self.compute_node_input(node, root_batch, memo))
+        if node.output_schema is not None:
+            out = conform_to_schema(out, node.output_schema, node)
+        out.row_offset = root_batch.row_offset
+        memo[id(node)] = out
+        return out
+
+    def compute_node_input(self, node: Node, root_batch: TableBatch, memo) -> TableBatch:
+        """Evaluate everything upstream of `node` and return its input batch."""
+        if not node.parents_with_dependencies:
+            return root_batch
+        return concat_columns(
+            [self._eval(p, root_batch, memo) for p in node.parents]
+            + [self._eval(d, root_batch, memo) for d in node.dependencies]
+        )
+
+    def _apply(self, node: Node, batch: TableBatch) -> TableBatch:
+        op = node.op
+        if op.has_device_state:
+            return op.transform(node.selector, batch, state=self.op_state(op, batch.device))
+        return op.transform(node.selector, batch)
+
+    def op_state(self, op, device):
+        """The op's device tables on ``device``, rebuilt after every refit."""
+        key = (op.fit_generation, torch.device(device))
+        entry = self._state_cache.get(id(op))
+        if entry is None or entry[0] is not op or entry[1] != key:
+            entry = (op, key, op.device_state(device))
+            self._state_cache[id(op)] = entry
+        return entry[2]
+
+
+class TorchExecutor(LocalExecutor):
+    """Whole-DAG transform per batch on one device (cuda:N, or cpu)."""
+
+    def __init__(self, device="cuda:0"):
+        super().__init__()
+        self.device = torch.device(device)
+        # id(node) → (node, fit generations, ChainSpec or None)
+        self._chains: Dict[int, Tuple[Node, tuple, Optional[ChainSpec]]] = {}
+        # (dtype, shape) → [pinned buffer, event of its last copy] × 2, used in turn
+        self._pinned: Dict[Tuple, List[List]] = {}
+        self._turn = 0
+
+    def transform_batch(self, batch: TableBatch, output_node: Node) -> TableBatch:
+        return self._eval(output_node, self.stage(batch), {})
+
+    # --- host → device --------------------------------------------------------
+    def stage(self, batch: TableBatch) -> TableBatch:
+        """The batch on this executor's device. From the host, same-dtype
+        columns (and all validity masks) go in ONE copy per dtype through a
+        pinned staging buffer."""
+        for col in batch.columns.values():
+            if col.is_list:
+                raise NotImplementedError(UNSUPPORTED_LISTS)
+        if all(c.device == self.device for c in batch.columns.values()):
+            return batch
+        if self.device.type != "cuda":
+            return batch.to(self.device)
+        groups: Dict[torch.dtype, List[Tuple[str, str]]] = {}
+        for name, col in batch.columns.items():
+            groups.setdefault(col.values.dtype, []).append((name, "values"))
+            if col.validity is not None:
+                groups.setdefault(torch.bool, []).append((name, "validity"))
+        n = batch.num_rows
+        placed: Dict[Tuple[str, str], torch.Tensor] = {}
+        self._turn ^= 1
+        for dtype, keys in groups.items():
+            parts = [getattr(batch[name], field) for name, field in keys]
+            dev = self._copy_stacked(parts, dtype, n)
+            for i, key in enumerate(keys):
+                placed[key] = dev[i]
+        out = TableBatch()
+        out.row_offset = batch.row_offset
+        for name in batch.column_names:
+            out.columns[name] = Column(placed[(name, "values")], None, placed.get((name, "validity")))
+        return out
+
+    def _copy_stacked(self, parts: List[torch.Tensor], dtype: torch.dtype, n: int) -> torch.Tensor:
+        key = (dtype, len(parts), n)
+        ring = self._pinned.get(key)
+        if ring is None:
+            ring = self._pinned[key] = [[None, None], [None, None]]
+        slot = ring[self._turn]
+        if slot[0] is None:
+            slot[0] = torch.empty((len(parts), n), dtype=dtype, pin_memory=True)
+            slot[1] = torch.cuda.Event()
+        else:
+            slot[1].synchronize()  # the copy from this buffer two batches ago is done
+        torch.stack([p.cpu() for p in parts], out=slot[0])
+        dev = slot[0].to(self.device, non_blocking=True)
+        slot[1].record(torch.cuda.current_stream(self.device))
+        return dev
+
+    # --- fused continuous chains ------------------------------------------------
+    def _eval(self, node: Node, root_batch: TableBatch, memo: Dict[int, TableBatch]) -> TableBatch:
+        if id(node) in memo:
+            return memo[id(node)]
+        spec = self._chain(node)
+        if spec is not None:
+            out = self._run_chain(spec, node, root_batch, memo)
+            if out is not None:
+                out.row_offset = root_batch.row_offset
+                memo[id(node)] = out
+                return out
+        return super()._eval(node, root_batch, memo)
+
+    def _chain(self, node: Node) -> Optional[ChainSpec]:
+        # keyed on fit generations: the spec snapshots fitted means/stds
+        gens = fit_generations(node)
+        entry = self._chains.get(id(node))
+        if entry is None or entry[0] is not node or entry[1] != gens:
+            entry = (node, gens, extract_chain(node))
+            self._chains[id(node)] = entry
+        return entry[2]
+
+    def _run_chain(self, spec: ChainSpec, node: Node, root_batch, memo) -> Optional[TableBatch]:
+        inp = self._eval(spec.head_parent, root_batch, memo)
+        cols = [inp.columns.get(n) for n in spec.names]
+        if any(
+            c is None or c.is_list or c.values.dtype != torch.float32 or c.device != self.device
+            for c in cols
+        ):
+            return None  # outside the kernel's contract: op by op
+        from ..kernels.cont_chain import cont_chain
+
+        x = torch.stack([c.values for c in cols])
+        validity = None
+        if any(c.validity is not None for c in cols):
+            validity = torch.stack(
+                [c.validity if c.validity is not None else torch.ones_like(c.values, dtype=torch.bool)
+                 for c in cols]
+            )
+        params, flags = spec.kernel_args(self.device)
+        y = cont_chain(x, validity, params, flags)
+        out = TableBatch()
+        for i, (name, col) in enumerate(zip(spec.names, cols)):
+            out.columns[name] = Column(y[i], None, None if spec.has_fill else col.validity)
+        if node.output_schema is not None:
+            out = conform_to_schema(out, node.output_schema, node)
+        return out
+
+
+def fit_generations(output_node: Node) -> tuple:
+    return tuple(n.op.fit_generation for n in postorder_iter_nodes(output_node))
+
+
+class FitEngine:
+    """Phased streaming statistics pass over a Dataset. Each batch goes to
+    the executor's device first; stat-op inputs evaluate op by op there."""
+
+    def __init__(self, executor: LocalExecutor):
+        self.executor = executor
+        self._input_executor = LocalExecutor()
+        self.last_fit_stats: Dict[str, float] = {}
+
+    def fit(self, dataset, graph: Graph) -> None:
+        if graph.output_schema is None:
+            graph.construct_schema(dataset.schema)
+        stats = {"scan_seconds": 0.0, "finalize_seconds": 0.0, "rows_scanned": 0}
+        self.last_fit_stats = stats
+        stage = getattr(self.executor, "stage", lambda b: b)
+        for phase_idx, phase_nodes in enumerate(graph.stat_phases()):
+            nodes = [n for n in phase_nodes if not n.op.fitted]
+            if not nodes:
+                continue
+            states = {id(n): n.op.fit_init(n.selector, n.input_schema) for n in nodes}
+            scan_start = time.perf_counter()
+            for batch in dataset.to_batches(columns=self._phase_columns(nodes)):
+                dev_batch = stage(batch)
+                memo: Dict[int, TableBatch] = {}
+                for n in nodes:
+                    inp = self._input_executor.compute_node_input(n, dev_batch, memo)
+                    states[id(n)] = n.op.fit_batch(n.selector, inp, states[id(n)])
+                if phase_idx == 0:
+                    stats["rows_scanned"] += batch.num_rows
+            stats["scan_seconds"] += time.perf_counter() - scan_start
+            finalize_start = time.perf_counter()
+            for n in nodes:
+                n.op.fit_finalize(states[id(n)])
+                n.op.mark_fitted()
+            stats["finalize_seconds"] += time.perf_counter() - finalize_start
+        # final schema pass: downstream schemas see fitted properties
+        graph.construct_schema(dataset.schema)
+
+    @staticmethod
+    def _phase_columns(nodes: List[Node]) -> Optional[List[str]]:
+        """Union of root columns needed by the upstream closure of the phase."""
+        needed = set()
+        stack, seen = list(nodes), set()
+        while stack:
+            n = stack.pop()
+            if id(n) in seen:
+                continue
+            seen.add(id(n))
+            if not n.parents_with_dependencies and n.selector is not None:
+                needed.update(n.selector.names)
+            stack.extend(n.parents_with_dependencies)
+        return sorted(needed) if needed else None
+
+
+def conform_to_schema(batch: TableBatch, schema: Schema, node: Node) -> TableBatch:
+    """Order columns per schema."""
+    out = TableBatch()
+    out.row_offset = batch.row_offset
+    for cs in schema:
+        if cs.name not in batch:
+            raise RuntimeError(
+                f"Operator {node.op.label} promised column {cs.name!r} "
+                f"but produced {batch.column_names}"
+            )
+        out.columns[cs.name] = batch[cs.name]
+    return out
+
+
+def enforce_dtypes(batch: TableBatch, output_dtypes: Dict[str, Any]) -> TableBatch:
+    """Cast columns to their schema dtypes (executor.py:1168)."""
+    from ..table import to_torch_dtype
+
+    out = batch.copy()
+    for name, dtype in output_dtypes.items():
+        if name in out:
+            want = to_torch_dtype(dtype)
+            if out[name].values.dtype != want:
+                out.columns[name] = out[name].astype(want)
+    return out

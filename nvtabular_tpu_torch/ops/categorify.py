@@ -1,0 +1,349 @@
+"""Categorify — dictionary-encode integer categorical columns.
+
+Counterpart of ``nvtabular_tpu/ops/categorify.py`` for joint and
+single-column encoding of integer columns. Same encoding layout: code 0 is
+padding, 1 null, 2 the out-of-vocabulary bucket, then vocabulary ids in
+descending-frequency order from 3; ``single_table`` shifts each vocabulary
+into one global index space.
+
+* Fit counts values on the device the batch lives on (``torch.unique`` per
+  batch, partials merged) and orders the vocabulary by (-count, value) — the
+  JAX fit's order element for element (categorify.py:249, 306-309), then
+  applies ``freq_threshold`` and the ``max_size`` budget (:1067-1072).
+* Transform is the column-batched device path (``_encode_batched_device``,
+  :1614-1685): one kernel launch per table kind (tiny, direct, cuckoo) over
+  the stacked [C, N] int32 values, with the null/OOV/offset epilogue fused.
+
+Not ported yet (raise NotImplementedError): ``encode_type="combo"``,
+``num_buckets > 1``, non-integer or list columns, keys outside int32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import dtypes as md
+from ..selector import ColumnSelector
+from ..table import UNSUPPORTED_LISTS, Column, TableBatch
+from ..tags import Tags
+from .lookup import BATCHED, UNSUPPORTED_WIDE_KEYS, build_cuckoo, build_lookup, kind_of
+from .stat_operator import StatOperator
+
+OOV_OFFSET = 2  # codes 0 pad, 1 null, 2 out-of-vocabulary (kernels/lookup.py)
+_REAGG_ROWS = 1 << 24  # merge partial counts past this many entries
+_LONE_TINY_MAX = 512  # categorify.py:1513-1522
+
+UNSUPPORTED_COMBO = "Categorify(encode_type='combo') is not ported yet (ROADMAP.md queue 1)"
+UNSUPPORTED_BUCKETS = (
+    "Categorify(num_buckets > 1) is not ported yet "
+    "(ROADMAP.md queue 1: num_buckets > 1 with kernel K7)"
+)
+UNSUPPORTED_KEYS = (
+    "Categorify of non-integer columns is not ported yet "
+    "(ROADMAP.md queue 1: strings and hybrid execution)"
+)
+
+
+def _per_column(option, key, default):
+    """dict-or-scalar option pattern."""
+    if option is None:
+        return default
+    if isinstance(option, dict):
+        return option.get(key, default)
+    return option
+
+
+def _emb_sz_rule(n_cat: int, minimum_size=16, maximum_size=512) -> Tuple[int, int]:
+    return n_cat, min(max(minimum_size, round(1.6 * n_cat**0.56)), maximum_size)
+
+
+class _VocabAccum:
+    """Streaming (value, count) accumulator on the batch's device."""
+
+    def __init__(self):
+        self.partials: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.rows = 0
+
+    def update(self, values: torch.Tensor, validity: Optional[torch.Tensor]):
+        if values.is_floating_point() or values.dtype == torch.bool:
+            raise NotImplementedError(UNSUPPORTED_KEYS)
+        if validity is not None:
+            values = values[validity]
+        if values.numel() == 0:
+            return
+        uniq, counts = torch.unique(values, return_counts=True)
+        self.partials.append((uniq, counts))
+        self.rows += uniq.numel()
+        if self.rows > _REAGG_ROWS:
+            self._merge()
+
+    def _merge(self):
+        dtype = self.partials[0][0].dtype
+        for v, _ in self.partials[1:]:
+            dtype = torch.promote_types(dtype, v.dtype)
+        values = torch.cat([v.to(dtype) for v, _ in self.partials])
+        counts = torch.cat([c for _, c in self.partials])
+        uniq, inverse = torch.unique(values, return_inverse=True)
+        merged = torch.zeros(uniq.numel(), dtype=counts.dtype, device=counts.device)
+        merged.scatter_add_(0, inverse, counts)
+        self.partials = [(uniq, merged)]
+        self.rows = uniq.numel()
+
+    def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (values sorted by (-count, value), counts) as numpy."""
+        if not self.partials:
+            return np.array([], dtype=np.int64), np.array([], dtype=np.int64)
+        if len(self.partials) > 1:
+            self._merge()
+        values, counts = self.partials[0]  # values ascending
+        order = torch.argsort(counts, descending=True, stable=True)
+        return values[order].cpu().numpy(), counts[order].cpu().numpy()
+
+
+class _Vocab:
+    """A fitted vocabulary: values in code order (frequency-descending)."""
+
+    __slots__ = ("values_by_code", "counts", "num_buckets", "start_index", "offset", "_lookup")
+
+    def __init__(self, values_by_code: np.ndarray, counts: np.ndarray, num_buckets: int = 1):
+        if num_buckets != 1:
+            raise NotImplementedError(UNSUPPORTED_BUCKETS)
+        self.values_by_code = np.asarray(values_by_code)
+        self.counts = counts
+        self.num_buckets = 1
+        self.start_index = OOV_OFFSET + self.num_buckets
+        self.offset = 0  # single_table shift
+        self._lookup = None
+
+    @property
+    def size(self) -> int:
+        """Total domain size including pad/null/OOV."""
+        return self.start_index + len(self.values_by_code)
+
+    def lookup_struct(self):
+        """Host-built tiny/direct/cuckoo table (ops/lookup.py), built once."""
+        if self._lookup is None:
+            codes = np.arange(len(self.values_by_code), dtype=np.int64) + self.start_index
+            self._lookup = build_lookup(self.values_by_code, codes)
+        return self._lookup
+
+
+class Categorify(StatOperator):
+    has_device_state = True
+
+    def __init__(
+        self,
+        freq_threshold: Union[int, Dict[str, int]] = 0,
+        encode_type: str = "joint",
+        max_size: Union[int, Dict[str, int]] = 0,
+        num_buckets: Union[None, int, Dict[str, int]] = None,
+        single_table: bool = False,
+    ):
+        super().__init__()
+        if encode_type == "combo":
+            raise NotImplementedError(UNSUPPORTED_COMBO)
+        if encode_type != "joint":
+            raise ValueError(f"encode_type must be 'joint' or 'combo', got {encode_type!r}")
+        buckets = num_buckets.values() if isinstance(num_buckets, dict) else [num_buckets]
+        if any(nb not in (None, 0, 1) for nb in buckets):
+            raise NotImplementedError(UNSUPPORTED_BUCKETS)
+        self.freq_threshold = freq_threshold
+        self.max_size = max_size
+        self.single_table = single_table
+        self.vocabs: Dict[str, _Vocab] = {}
+        self._batched_cache = None  # (vocab identity token, {kind: (batched, row_index)})
+
+    # --- groups ------------------------------------------------------------
+    def _groups(self, col_selector: ColumnSelector) -> List[Tuple[str, List[str]]]:
+        """→ [(vocab key, member columns)]: joint subgroups share one vocab."""
+        groups = []
+        for entry in col_selector.grouped_names:
+            if isinstance(entry, tuple):
+                groups.append(("_".join(entry), list(entry)))
+            else:
+                groups.append((entry, [entry]))
+        return groups
+
+    def column_mapping(self, col_selector: ColumnSelector) -> Dict[str, List[str]]:
+        return {m: [m] for _, members in self._groups(col_selector) for m in members}
+
+    # --- fit -----------------------------------------------------------------
+    def fit_init(self, col_selector: ColumnSelector, input_schema):
+        return {key: _VocabAccum() for key, _ in self._groups(col_selector)}
+
+    def fit_batch(self, col_selector, batch: TableBatch, state):
+        for key, members in self._groups(col_selector):
+            for mcol in members:
+                col = batch[mcol]
+                if col.is_list:
+                    raise NotImplementedError(UNSUPPORTED_LISTS)
+                state[key].update(col.values, col.validity)
+        return state
+
+    def fit_finalize(self, state):
+        for key, accum in state.items():
+            values, counts = accum.finalize()
+            ft = _per_column(self.freq_threshold, key, 0)
+            mx = _per_column(self.max_size, key, 0)
+            if ft > 0:
+                keep = counts >= ft
+                values, counts = values[keep], counts[keep]
+            if mx and mx > 0:
+                budget = max(0, mx - (OOV_OFFSET + 1))
+                values, counts = values[:budget], counts[:budget]
+            self.vocabs[key] = _Vocab(values, counts)
+        self.set_offsets()
+        self._get_batched()  # build the host tables now, as the reference does
+
+    def set_offsets(self):
+        """single_table: one contiguous index space (categorify.py:1104-1109)."""
+        if self.single_table:
+            offset = 0
+            for key in sorted(self.vocabs):
+                self.vocabs[key].offset = offset
+                offset += self.vocabs[key].size
+
+    def clear(self):
+        super().clear()
+        self.vocabs = {}
+        self._batched_cache = None
+
+    # --- device tables ---------------------------------------------------------
+    def _get_batched(self):
+        """{kind: (Batched* table on the host, {vocab key: row})}, one table per
+        kind over every vocabulary, built once per fitted state."""
+        token = tuple(sorted((k, id(v)) for k, v in self.vocabs.items()))
+        if self._batched_cache is not None and self._batched_cache[0] == token:
+            return self._batched_cache[1]
+        by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": []}
+        for vkey in sorted(self.vocabs):
+            lut = self.vocabs[vkey].lookup_struct()
+            by_kind[kind_of(lut)].append((vkey, lut))
+        if len(by_kind["tiny"]) == 1 and len(by_kind["tiny"][0][1].keys) > _LONE_TINY_MAX:
+            # a lone large compare column has no batch to share a launch
+            # with: it takes the cuckoo table (categorify.py:1513-1522)
+            vkey, lut = by_kind["tiny"].pop()
+            by_kind["cuckoo"].append((vkey, build_cuckoo(lut.keys, lut.codes)))
+        out = {}
+        for kind, entries in by_kind.items():
+            if entries:
+                out[kind] = (
+                    BATCHED[kind]([lut for _, lut in entries]),
+                    {vkey: i for i, (vkey, _) in enumerate(entries)},
+                )
+        self._batched_cache = (token, out)
+        return out
+
+    def device_state(self, device):
+        return {
+            "tables": {
+                kind: (blut.to(device), row_index)
+                for kind, (blut, row_index) in self._get_batched().items()
+            },
+            "args": {},  # (kind, names) → (sel, col_offsets) on the device
+        }
+
+    # --- transform ---------------------------------------------------------------
+    def transform(self, col_selector: ColumnSelector, batch: TableBatch, state=None) -> TableBatch:
+        if state is None:
+            state = self.device_state(batch.device)
+        codes = {}
+        for job in self.lookup_jobs(col_selector, batch, state):
+            out = job["table"].encode(job["values"], job["validity"], job["sel"], job["col_offsets"])
+            for i, name in enumerate(job["names"]):
+                codes[name] = out[i]
+        result = TableBatch()
+        for name in self.column_mapping(col_selector):
+            result[name] = Column(codes[name])
+        return result
+
+    def lookup_jobs(self, col_selector: ColumnSelector, batch: TableBatch, state):
+        """One dict per table kind present — the arguments of its single
+        kernel launch: the kind's ``table`` and the stacked ``values``
+        [C, N] int32, ``validity`` (or None), ``sel`` and ``col_offsets`` of
+        its C columns, named in ``names``."""
+        jobs = [
+            (mcol, key if len(members) > 1 else mcol)
+            for key, members in self._groups(col_selector)
+            for mcol in members
+        ]
+        for kind, (blut, row_index) in state["tables"].items():
+            items = [(name, vkey) for name, vkey in jobs if vkey in row_index]
+            if not items:
+                continue
+            cols = [batch[name] for name, _ in items]
+            values = torch.stack([_int32_values(c) for c in cols])
+            validity = None
+            if any(c.validity is not None for c in cols):
+                validity = torch.stack(
+                    [c.validity if c.validity is not None else torch.ones_like(c.values, dtype=torch.bool)
+                     for c in cols]
+                )
+            sel, col_offsets = self._launch_args(state, kind, items, row_index, values.device)
+            yield {
+                "kind": kind,
+                "table": blut,
+                "values": values,
+                "validity": validity,
+                "sel": sel,
+                "col_offsets": col_offsets,
+                "names": [name for name, _ in items],
+            }
+
+    def _launch_args(self, state, kind, items, row_index, device):
+        key = (kind, tuple(items))
+        args = state["args"].get(key)
+        if args is None:
+            sel = [row_index[vkey] for _, vkey in items]
+            offs = [self.vocabs[vkey].offset for _, vkey in items]
+            args = (
+                torch.tensor(sel, dtype=torch.int32, device=device),
+                torch.tensor(offs, dtype=torch.int32, device=device),
+            )
+            state["args"][key] = args
+        return args
+
+    # --- schema ------------------------------------------------------------------
+    @property
+    def output_dtype(self):
+        return md.int32
+
+    @property
+    def output_tags(self):
+        return [Tags.CATEGORICAL]
+
+    def _compute_properties(self, col_schema, input_schema):
+        vocab = self.vocabs.get(col_schema.name)
+        if vocab is None:
+            return col_schema.with_properties({})
+        card, dim = _emb_sz_rule(vocab.size)
+        key = col_schema.name
+        return col_schema.with_properties(
+            {
+                "num_buckets": None,
+                "freq_threshold": _per_column(self.freq_threshold, key, 0),
+                "max_size": _per_column(self.max_size, key, 0),
+                "domain": {"min": 0, "max": vocab.size - 1 + vocab.offset, "name": key},
+                "embedding_sizes": {"cardinality": card, "dimension": dim},
+            }
+        )
+
+
+def _int32_values(col: Column) -> torch.Tensor:
+    """A column's values as int32 for the lookup kernels; raises on what
+    the slice does not cover (lists, floats, values outside int32)."""
+    if col.is_list:
+        raise NotImplementedError(UNSUPPORTED_LISTS)
+    v = col.values
+    if v.is_floating_point() or v.dtype == torch.bool:
+        raise NotImplementedError(UNSUPPORTED_KEYS)
+    if v.dtype == torch.int32:
+        return v
+    if v.dtype == torch.int64 and v.numel():
+        lo, hi = torch.aminmax(v)
+        if int(lo) < -(2**31) or int(hi) > 2**31 - 1:
+            raise NotImplementedError(UNSUPPORTED_WIDE_KEYS)
+    return v.to(torch.int32)

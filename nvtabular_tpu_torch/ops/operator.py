@@ -1,0 +1,12 @@
+"""Public Operator base class (counterpart of nvtabular_tpu/ops/operator.py)."""
+
+from __future__ import annotations
+
+from ..dag.base_operator import BaseOperator
+from ..selector import ColumnSelector
+
+__all__ = ["Operator", "ColumnSelector"]
+
+
+class Operator(BaseOperator):
+    pass
