@@ -1,17 +1,19 @@
 """nvtabular_tpu_torch — the PyTorch and CUDA port of nvtabular_tpu.
 
 Fits and transforms tabular feature-engineering workflows on an NVIDIA GPU
-(Hopper, sm_90a): the device transform's lookup and continuous-chain kernels
-are hand-written CUDA (``csrc/``), each beside a plain PyTorch version that
-the CPU runs. Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``. The JAX package ``nvtabular_tpu`` is the reference this
+(Hopper, sm_90a), and feeds the transformed data through ``loader.DeviceLoader``
+into DLRM training (``models``): the device transform's lookup and
+continuous-chain kernels, the loader's row permutation, and DLRM's embedding
+gather and dot interaction (forward and backward) are hand-written CUDA
+(``csrc/``), each beside a plain PyTorch version that the CPU runs. Entry
+points run on ``cuda:0`` unless the caller passes ``device="cpu"``. The JAX package ``nvtabular_tpu`` is the reference this
 port is held against; nothing here imports it or JAX.
 """
 
 __version__ = "0.1.0"
 
 from . import dtypes, ops
-from .convert import fitted_state, load_fitted_state
+from .convert import dlrm_params, fitted_state, load_dlrm_params, load_fitted_state
 from .dag import ColumnSelector, Graph, Node
 from .io import Dataset
 from .schema import ColumnSchema, Schema
@@ -31,8 +33,10 @@ __all__ = [
     "TagSet",
     "Tags",
     "Workflow",
+    "dlrm_params",
     "dtypes",
     "fitted_state",
+    "load_dlrm_params",
     "load_fitted_state",
     "ops",
 ]

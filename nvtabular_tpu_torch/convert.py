@@ -1,4 +1,4 @@
-"""Carry fitted state across workflows as plain numpy arrays and floats.
+"""Carry fitted state and model parameters across as plain numpy arrays.
 
 The counterpart of carrying weights across: with identical fitted state,
 two transforms must agree. The state is a dict
@@ -8,15 +8,23 @@ two transforms must agree. The state is a dict
      "normalize": {column: {"mean": float, "std": float}}}
 
 which a caller can extract from the JAX package's fitted ops (the tests do)
-or from this package's own (``fitted_state``). Nothing here imports the JAX
+or from this package's own (``fitted_state``).
+
+DLRM parameters travel as the JAX package's pytree of numpy arrays,
+
+    {"tables": {col: [V, D]}, "bottom": [{"w": [in, out], "b": [out]}, ...],
+     "top": [...]}
+
+(``load_dlrm_params`` / ``dlrm_params``). Nothing here imports the JAX
 package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from .ops.categorify import Categorify, _Vocab
 from .ops.normalize import Normalize
@@ -65,3 +73,49 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
             for name in op.means:
                 state["normalize"][name] = {"mean": op.means[name], "std": op.stds[name]}
     return state
+
+
+def _dlrm_tensors(model, tree):
+    """(parameter, numpy value) pairs of ``model`` for a pytree in the
+    format above; the tables are concatenated in sorted column order."""
+    tables = tree["tables"]
+    if sorted(tables) != model.names:
+        raise ValueError(f"tables {sorted(tables)} do not match the model's {model.names}")
+    if tree.get("mh_tables"):
+        raise NotImplementedError("multihot tables are not ported yet (ROADMAP.md queue 2, K13c)")
+    pairs = [(model.table, np.concatenate([np.asarray(tables[n]) for n in model.names]))]
+    for mlp, layers in ((model.bottom, tree["bottom"]), (model.top, tree["top"])):
+        if len(layers) != len(mlp.weights):
+            raise ValueError(f"{len(layers)} layers given, the model has {len(mlp.weights)}")
+        for w, b, layer in zip(mlp.weights, mlp.biases, layers):
+            pairs += [(w, np.asarray(layer["w"])), (b, np.asarray(layer["b"]))]
+    return pairs
+
+
+@torch.no_grad()
+def load_dlrm_params(model, params: Dict[str, Any], optimizer=None,
+                     sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
+    """Set the port's ``DLRM`` to the JAX parameter pytree ``params`` (numpy
+    arrays) and, when given, ``optimizer``'s accumulators to optax's
+    ``sum_of_squares`` pytree of the same structure."""
+    for p, value in _dlrm_tensors(model, params):
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"shape {tuple(value.shape)} does not match the parameter's {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+    if sum_of_squares is not None:
+        for p, value in _dlrm_tensors(model, sum_of_squares):
+            optimizer.accumulator(p).copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+
+def dlrm_params(model) -> Dict[str, Any]:
+    """The port's ``DLRM`` parameters as the JAX pytree of numpy arrays."""
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "tables": {n: host(model.table_rows(n)) for n in model.names},
+        "mh_tables": {},
+        "bottom": [{"w": host(w), "b": host(b)} for w, b in zip(model.bottom.weights, model.bottom.biases)],
+        "top": [{"w": host(w), "b": host(b)} for w, b in zip(model.top.weights, model.top.biases)],
+    }

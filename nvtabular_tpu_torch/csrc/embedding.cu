@@ -1,0 +1,160 @@
+// Embedding gather and its transpose for Hopper (sm_90a): kernel K13a.
+//
+// Replaces nvtabular_tpu/models/layers.py:70-72 (embedding_lookup,
+// jnp.take(table, ids, axis=0)) as DLRM calls it once per table
+// (nvtabular_tpu/models/dlrm.py:123-124), followed by the jnp.stack of the
+// features (:133), and the transpose XLA derives for it: a scatter-add of
+// the feature gradient into a dense table gradient.
+//
+// The tables live in one concatenated float32 [sum V, D] array; column c
+// owns rows [offset[c], offset[c] + size[c]). Ids follow jnp.take's
+// defaults: a negative id wraps once (id + size), and an id still outside
+// [0, size) reads a NaN row in the forward and is dropped from the
+// gradient. No id reads or writes outside its column's rows.
+//
+// nvt_embedding_gather: out[b, c, :] = table[offset[c] + id_c[b], :], where
+// `out` is a strided view (row stride out_row_stride floats, column stride
+// D): DLRM passes features slots 1..C of its [B, 1 + C, D] buffer, so no
+// stack follows. One thread copies VEC floats (a float4 when D % 4 == 0 and
+// the pointers are 16-byte aligned); consecutive threads write consecutive
+// addresses. Bound: bytes — the ids (4 B each), each distinct table row the
+// batch touches (D * 4 B), and the output (D * 4 B per id) once each.
+//
+// nvt_embedding_scatter_grad: dtable[offset[c] + id_c[b], :] += grad[b, c, :]
+// into a gradient the wrapper has zeroed, with one fire-and-forget atomic
+// reduction per float4 (Hopper's vector atomicAdd) or per float where D is
+// not a multiple of 4. Skewed columns send many rows of a
+// batch to the same few table rows, and those atomics serialize at L2; a
+// later version can pre-reduce in shared memory or sort the ids. Atomics
+// make the summation order, and so the last bits, vary from run to run.
+// Bound: bytes — the zeroed dense gradient written once (sum V * D * 4 B),
+// the ids and the feature gradient read once.
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxCols = 64;
+
+struct Columns {
+  const int32_t* ids[kMaxCols];  // [B] each
+  int64_t offset[kMaxCols];
+  int64_t size[kMaxCols];
+};
+
+// Row of the concatenated table for id b of column col, or -1 when the id
+// is outside the column's table after jnp.take's wrap of negative ids.
+__device__ __forceinline__ int64_t table_row(const Columns& c, int col, int b) {
+  int64_t id = c.ids[col][b];
+  const int64_t size = c.size[col];
+  if (id < 0) id += size;
+  return (id >= 0 && id < size) ? c.offset[col] + id : -1;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const __grid_constant__ Columns c, int num_cols, const float* __restrict__ table,
+              int D, int B, float* __restrict__ out, int64_t out_row_stride) {
+  const int per_row = D / VEC;
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // the wrapper keeps B * C * per_row < 2^31
+  if (t >= B * num_cols * per_row) return;
+  const int rc = t / per_row;
+  const int q = t - rc * per_row;
+  const int b = rc / num_cols;
+  const int col = rc - b * num_cols;
+  const int64_t row = table_row(c, col, b);
+  float* dst = out + b * out_row_stride + static_cast<int64_t>(col) * D + q * VEC;
+  if constexpr (VEC == 4) {
+    const float nan = __int_as_float(0x7fc00000);
+    float4 v = make_float4(nan, nan, nan, nan);
+    if (row >= 0) v = *reinterpret_cast<const float4*>(table + row * D + q * 4);
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    *dst = row >= 0 ? table[row * D + q] : __int_as_float(0x7fc00000);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+scatter_grad_kernel(const __grid_constant__ Columns c, int num_cols, const float* __restrict__ grad,
+                    int64_t grad_row_stride, int D, int B, float* __restrict__ dtable) {
+  const int per_row = D / VEC;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= B * num_cols * per_row) return;
+  const int rc = t / per_row;
+  const int q = t - rc * per_row;
+  const int b = rc / num_cols;
+  const int col = rc - b * num_cols;
+  const int64_t row = table_row(c, col, b);
+  if (row < 0) return;
+  const float* src = grad + b * grad_row_stride + static_cast<int64_t>(col) * D + q * VEC;
+  float* dst = dtable + row * D + q * VEC;
+  if constexpr (VEC == 4) {
+    // one vector reduction (red.global.add.v4.f32, compute capability 9.x)
+    atomicAdd(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(src));
+  } else {
+    atomicAdd(dst, *src);
+  }
+}
+
+int fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
+                 int num_cols) {
+  if (num_cols < 0 || num_cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < num_cols; ++k) {
+    c->ids[k] = static_cast<const int32_t*>(ids[k]);
+    c->offset[k] = offsets[k];
+    c->size[k] = sizes[k];
+  }
+  return 0;
+}
+
+bool bad_shape(int num_cols, int D, int64_t B, int vec) {
+  return D <= 0 || B < 0 || (vec != 1 && vec != 4) || D % vec != 0 ||
+         B * num_cols * (D / vec) > INT32_MAX;
+}
+
+}  // namespace
+
+extern "C" int nvt_embedding_gather(const void* const* ids, const int64_t* offsets,
+                                    const int64_t* sizes, int num_cols, const float* table, int D,
+                                    int64_t B, float* out, int64_t out_row_stride, int vec,
+                                    void* stream) {
+  Columns c;
+  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
+  if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = B * num_cols * (D / vec);
+  if (total == 0) return 0;
+  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    gather_kernel<4><<<blocks, kThreads, 0, s>>>(c, num_cols, table, D, static_cast<int>(B), out,
+                                                 out_row_stride);
+  } else {
+    gather_kernel<1><<<blocks, kThreads, 0, s>>>(c, num_cols, table, D, static_cast<int>(B), out,
+                                                 out_row_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nvt_embedding_scatter_grad(const void* const* ids, const int64_t* offsets,
+                                          const int64_t* sizes, int num_cols, const float* grad,
+                                          int64_t grad_row_stride, int D, int64_t B,
+                                          float* dtable, int vec, void* stream) {
+  Columns c;
+  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
+  if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = B * num_cols * (D / vec);
+  if (total == 0) return 0;
+  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    scatter_grad_kernel<4><<<blocks, kThreads, 0, s>>>(c, num_cols, grad, grad_row_stride, D,
+                                                       static_cast<int>(B), dtable);
+  } else {
+    scatter_grad_kernel<1><<<blocks, kThreads, 0, s>>>(c, num_cols, grad, grad_row_stride, D,
+                                                       static_cast<int>(B), dtable);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -19,6 +19,11 @@ LAUNCHES: Dict[str, int] = {
     "direct_lookup": 0,
     "cuckoo_lookup": 0,
     "cont_chain": 0,
+    "permute_rows": 0,
+    "embedding_gather": 0,
+    "embedding_scatter_grad": 0,
+    "interaction_fwd": 0,
+    "interaction_bwd": 0,
 }
 
 

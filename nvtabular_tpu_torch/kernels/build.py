@@ -25,6 +25,9 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "lookup": _PKG / "csrc" / "lookup.cu",
     "cont_chain": _PKG / "csrc" / "cont_chain.cu",
+    "permute": _PKG / "csrc" / "permute.cu",
+    "embedding": _PKG / "csrc" / "embedding.cu",
+    "interaction": _PKG / "csrc" / "interaction.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

@@ -24,8 +24,8 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "Workflow runs on cuda:0 by default and no CUDA device is available; "
-                "pass device='cpu' to run the plain PyTorch versions on the CPU"
+                "nvtabular_tpu_torch runs on cuda:0 by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch versions on the CPU"
             )
         return torch.device("cuda:0")
     return torch.device(device)
@@ -118,6 +118,11 @@ class TransformedDataset:
     def __init__(self, base: Dataset, workflow: Workflow):
         self._base = base
         self._workflow = workflow
+
+    @property
+    def schema(self) -> Optional[Schema]:
+        """The workflow's output schema (what a loader selects columns by)."""
+        return self._workflow.output_schema
 
     def to_batches(self, host: bool = True):
         """Transformed batches, moved to the CPU unless ``host=False``."""

@@ -21,6 +21,9 @@ from nvtabular_tpu.selector import ColumnSelector as JSelector
 from nvtabular_tpu.table import Column as JColumn
 from nvtabular_tpu.table import TableBatch as JTableBatch
 from nvtabular_tpu_torch.kernels import LAUNCHES, cont_chain as kcc, lookup as klk
+from nvtabular_tpu_torch.kernels import embedding as kemb
+from nvtabular_tpu_torch.kernels import interaction as kint
+from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.ops import lookup as plookup
 
 I32_MAX = 2**31 - 1
@@ -218,3 +221,50 @@ def test_cpu_wrappers_launch_nothing():
     luts = [plookup.TinyLookup(np.array([5, 9], dtype=np.int32), np.array([3, 4], dtype=np.int32))]
     plookup.BatchedTiny(luts).encode(*_inputs(np.array([[5, 9, 1]], np.int32), None, [0], [0]))
     assert LAUNCHES == before
+
+
+def test_permute_rows_plain_edge_cases():
+    """Empty arrays, 2-d rows, int32 permutations; wrong shapes raise."""
+    empty = kperm.permute_rows({"a": torch.zeros(0, dtype=torch.int32)}, torch.zeros(0, dtype=torch.int64))
+    assert empty["a"].shape == (0,)
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    got = kperm.permute_rows({"x": x}, torch.tensor([3, 0, 2, 1], dtype=torch.int32))["x"]
+    assert torch.equal(got, x[[3, 0, 2, 1]])
+    with pytest.raises(ValueError, match="rows"):
+        kperm.permute_rows({"x": x}, torch.tensor([0, 1]))
+    with pytest.raises(TypeError, match="perm"):
+        kperm.permute_rows({"x": x}, torch.tensor([0.0, 1.0, 2.0, 3.0]))
+
+
+def test_embedding_plain_edge_cases():
+    """Ids outside a column's rows never read a neighbour's rows: a NaN row
+    and no gradient, as jnp.take; a zero-size column reads only NaN."""
+    table = torch.arange(10, dtype=torch.float32)[:, None].repeat(1, 4)  # row r holds r
+    offsets, sizes = [0, 3, 9], [3, 6, 0]
+    ids = [torch.tensor(v, dtype=torch.int32) for v in ([0, -1, 3], [5, -6, 6], [0, -1, 5])]
+    got = kemb.embedding_gather(table, ids, offsets, sizes)
+    nan = float("nan")
+    want = [[0.0, 8.0, nan], [2.0, 3.0, nan], [nan, nan, nan]]  # [b, column]
+    torch.testing.assert_close(got[:, :, 0], torch.tensor(want), equal_nan=True)
+    grad = torch.ones((3, 3, 4))
+    dtable = kemb.embedding_scatter_grad(grad, ids, offsets, sizes, 10)
+    assert dtable[:, 0].tolist() == [1.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    with pytest.raises(ValueError, match="outside the table"):
+        kemb.embedding_gather(table, ids, [0, 3, 8], [3, 6, 3])
+    with pytest.raises(TypeError, match="int32"):
+        kemb.embedding_gather(table, [ids[0].long()], [0], [3])
+
+
+def test_interaction_plain_edge_cases():
+    """One feature has no pairs; the pair order is np.tril_indices(F, -1)."""
+    assert kint.interaction_fwd(torch.ones((2, 1, 3))).shape == (2, 0)
+    x = torch.zeros((1, 4, 2))
+    x[0, :, 0] = torch.tensor([1.0, 2.0, 3.0, 5.0])
+    got = kint.interaction_fwd(x)[0].tolist()
+    rows, cols = np.tril_indices(4, -1)
+    assert got == [float(x[0, i, 0] * x[0, j, 0]) for i, j in zip(rows, cols)]
+    buf = torch.full((1, 2 + 6), -1.0)
+    kint.interaction_fwd(x, out=buf[:, 2:])
+    assert buf[0, :2].tolist() == [-1.0, -1.0] and buf[0, 2:].tolist() == got
+    with pytest.raises(ValueError, match="expected float32"):
+        kint.interaction_fwd(x, out=torch.empty((1, 5)))

@@ -39,6 +39,14 @@ wf = nvt.Workflow(cats + conts + ["label"], device="cpu")
 out = list(wf.fit_transform(nvt.Dataset(parts)).to_batches())
 assert len(out) == 3 and out[0].column_names == ["tiny", "direct", "wide", "x", "label"]
 assert int(out[0]["wide"].values.min()) >= 3
+from nvtabular_tpu_torch import models
+from nvtabular_tpu_torch.loader import DeviceLoader
+loader = DeviceLoader(wf.transform(nvt.Dataset(parts)), 1000, cat_names=["tiny", "direct", "wide"],
+                      cont_names=["x"], label_names=["label"], device="cpu")
+config = models.DLRMConfig.from_schema(wf.output_schema, embedding_dim=4, bottom_mlp=(8,), top_mlp=(8,))
+model = models.DLRM(config, device="cpu")
+losses = models.train_chunk(model, models.Adagrad(model.parameters()), next(loader.chunks()), 1000)
+assert losses.shape == (4,) and bool(losses.isfinite().all())
 assert not any(m == "jax" or m.startswith(("jax.", "nvtabular_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("STANDALONE_OK")
