@@ -43,7 +43,20 @@ a nonzero exit:
    embedding_gather, embedding_scatter_grad, interaction_fwd and
    interaction_bwd — each against its plain version on the card, timed
    beside its bound and, where one PyTorch call computes the same function,
-   that call.
+   that call;
+9. the advanced MovieLens path (BASELINE config 2, bench/movielens_bench.py:
+   73-85) at ml-25m size — 162,000 users, 62,000 movies, 50 partitions of
+   500,000 rows made by the bench's generator — through TargetEncoding
+   ("rating", kfold=3, p_smooth=20) on userId and movieId, JoinGroupby on
+   movieId (mean and count of ts_delta), LambdaOp(np.log1p) >> Bucketize on
+   ts_delta and HashedCross(10_000) of userId and movieId: Workflow.fit, then
+   Workflow.transform of every batch on cuda, the counters zeroed before
+   each and read after it; batch 0 against the CPU run (codes, counts,
+   cross and bucket ids exact, floats within rtol=1e-6, atol=1e-7); rows/s
+   with and without the host-to-device copy and the UDF's host handoff per
+   batch; hashed_cross, fold_ids, te_encode, stat_gather and bucketize at
+   the path's shapes against their plain versions on the card (bucketize on
+   raw ts_delta, where all six buckets fill), timed beside their bounds.
 
 The line before the last is {"kernels": [...]} with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -54,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +96,13 @@ TRAIN_PARTS, TRAIN_BS, TRAIN_STEPS, TRAIN_REPEATS, TRAIN_DIM = 4, 65536, 64, 3, 
 # same, and a hidden value that close to a rounding boundary may round the
 # other way on the two paths, moving what it feeds by up to 2**-8 relative.
 STEP_TOL = {"float32": (1e-5, 1e-4, 1e-4), "bfloat16": (1e-5, 1e-3, 1e-3)}
+
+# bench/movielens_bench.py:30-52 at ml-25m size: 25M ratings in the bench's
+# 500K-row partitions; config 2's Bucketize boundaries
+ML_USERS, ML_MOVIES, ML_GENRES = 162_000, 62_000, 20
+ML_ROWS_PER_PART, ML_PARTS = 500_000, 50
+TS_BOUNDS = [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
+ML_TOL = dict(rtol=1e-6, atol=1e-7)  # card vs CPU: TE and stat columns
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -126,6 +147,24 @@ def make_compact_part(seed: int) -> dict:
     }
 
 
+def make_movielens_part(seed: int) -> dict:
+    """One partition as bench/movielens_bench.py:make_part draws it, without
+    its genres list column (config 2 never reads it; it is still drawn, so
+    the later columns are the bench's)."""
+    rng = np.random.default_rng(seed)
+    rows = ML_ROWS_PER_PART
+    users = rng.zipf(1.2, rows).clip(1, ML_USERS).astype(np.int64)
+    movies = rng.zipf(1.1, rows).clip(1, ML_MOVIES).astype(np.int64)
+    lengths = rng.integers(1, 5, rows)
+    rng.integers(1, ML_GENRES + 1, int(lengths.sum()))  # genres
+    return {
+        "userId": users,
+        "movieId": movies,
+        "rating": (rng.integers(1, 11, rows) / 2.0).astype(np.float32),
+        "ts_delta": rng.exponential(86400.0, rows).astype(np.float32),
+    }
+
+
 def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS) -> float:
     """Median over ``repeats`` CUDA-event windows of the mean device time of
     ``iters`` back-to-back calls (the L2 cache is not flushed between calls).
@@ -157,7 +196,7 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_outputs(got, want, conts, what):
+def compare_outputs(got, want, conts, what, tol=CPU_TOL):
     if got.column_names != want.column_names:
         fail(f"{what}: columns {got.column_names} != {want.column_names}")
     for name in want.column_names:
@@ -165,7 +204,7 @@ def compare_outputs(got, want, conts, what):
         if g.dtype != w.dtype:
             fail(f"{what}: {name} dtype {g.dtype} != {w.dtype}")
         if name in conts:
-            if not torch.allclose(g, w, **CPU_TOL):
+            if not torch.allclose(g, w, **tol):
                 fail(f"{what}: {name} differs, max abs {float((g - w).abs().max())}")
         elif not torch.equal(g, w):
             fail(f"{what}: {name} codes differ in {int((g != w).sum())} rows")
@@ -422,7 +461,9 @@ def training_kernel_records(nvt, wf, parts, train) -> dict:
     rec = {
         "max_abs_err": 0, "shape": [len(arrays), n], "bytes": 2 * n * row_bytes + n * perm.element_size(),
         "ms": time_ms(lambda: kperm.permute_rows(arrays, perm)),
-        "plain_ms": time_ms(lambda: kperm.permute_rows_plain(arrays, perm)), "library_ms": None,
+        "plain_ms": time_ms(lambda: kperm.permute_rows_plain(arrays, perm)),
+        # 28 calls: one index_select per array
+        "library_ms": time_ms(lambda: [torch.index_select(v, 0, perm) for v in arrays.values()]),
     }
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
     records["permute_rows"] = rec
@@ -521,6 +562,213 @@ def training_kernel_records(nvt, wf, parts, train) -> dict:
     return records
 
 
+def movielens_graph(ops):
+    """BASELINE config 2 (bench/movielens_bench.py:73-85)."""
+    te = ["userId", "movieId"] >> ops.TargetEncoding("rating", kfold=3, p_smooth=20)
+    jg = ["movieId"] >> ops.JoinGroupby(cont_cols=["ts_delta"], stats=["mean", "count"])
+    lam = ["ts_delta"] >> ops.LambdaOp(np.log1p) >> ops.Bucketize({"ts_delta": TS_BOUNDS})
+    cross = ["userId", "movieId"] >> ops.HashedCross(10_000)
+    return te + jg + lam + cross + ["rating"]
+
+
+def check_launches(launches, want, what):
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
+
+
+def movielens_path(nvt, dev, profile: bool) -> dict:
+    """Phase 9: the advanced MovieLens workflow at ml-25m size, then its
+    kernels at the path's shapes against their plain versions."""
+    from nvtabular_tpu_torch import kernels, ops
+    from nvtabular_tpu_torch.kernels import bucketize as kbkt
+    from nvtabular_tpu_torch.kernels import groupby as kgb
+    from nvtabular_tpu_torch.kernels import hash as khash
+    from nvtabular_tpu_torch.ops.lookup import kind_of
+
+    phase_t0 = t0 = time.perf_counter()
+    parts = [nvt.TableBatch.from_pydict(make_movielens_part(s)) for s in range(ML_PARTS)]
+    dataset = nvt.Dataset(parts)
+    batches = list(dataset.to_batches())  # each with its global row offset
+    rows_total = ML_PARTS * ML_ROWS_PER_PART
+    log(f"movielens: data {ML_PARTS} x {ML_ROWS_PER_PART} rows in {time.perf_counter() - t0:.1f} s")
+
+    # fit: only the fold ids of TargetEncoding run a kernel, once a batch
+    wf = nvt.Workflow(movielens_graph(ops), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    wf.fit(dataset)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(kernels.LAUNCHES)
+    check_launches(fit_launches, {"fold_ids": ML_PARTS}, "movielens fit")
+    te = next(n for n in wf.graph.nodes if isinstance(n.op, ops.TargetEncoding))
+    jg = next(n for n in wf.graph.nodes if isinstance(n.op, ops.JoinGroupby))
+    keyed = {f"te:{t}": k for t, k in te.op.overall_stats.items()}
+    keyed.update({f"join:{t}": k for t, k in jg.op.keyed.items()})
+    groups = {name: k.num_groups for name, k in keyed.items()}
+    index_kinds = [kind_of(k.lookup_struct()) for k in keyed.values()]
+    if set(index_kinds) != {"direct"}:
+        fail(f"movielens: expected direct-map group indexes (dense ids), got {index_kinds}")
+    log(
+        f"movielens: fit {fit_s:.2f} s (scan {wf.last_fit_stats['scan_seconds']:.2f} s, finalize "
+        f"{wf.last_fit_stats['finalize_seconds']:.2f} s), groups {groups}, "
+        f"TE fold groups {sum(k.num_groups for k in te.op.fold_stats.values())}, launches {fit_launches}"
+    )
+
+    # transform: per batch, one lookup per group index (TE's two, JoinGroupby's
+    # one), one TE epilogue, one stat gather, one cross, one bucketize
+    ex = wf.executor
+    kernels.reset_launches()
+    handoffs0 = ex.host_handoffs
+    t0 = time.perf_counter()
+    outs = [wf.transform(b) for b in batches]
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    per_batch = {"direct_lookup": len(index_kinds), "te_encode": 1, "stat_gather": 1, "hashed_cross": 1,
+                 "bucketize": 1}
+    check_launches(launches, {k: v * ML_PARTS for k, v in per_batch.items()}, "movielens transform")
+    if ex.host_handoffs - handoffs0 != ML_PARTS:
+        fail(f"movielens: {ex.host_handoffs - handoffs0} host handoffs over {ML_PARTS} batches, expected one each")
+    floats = {"TE_userId_rating", "TE_movieId_rating", "movieId_ts_delta_mean", "rating"}
+    for out in outs:
+        for name, col in out.columns.items():
+            if col.device != dev or col.values.shape[0] != ML_ROWS_PER_PART:
+                fail(f"movielens: output {name} has shape {tuple(col.values.shape)} on {col.device}")
+            if name in floats and not bool(torch.isfinite(col.values).all()):
+                fail(f"movielens: output {name} holds non-finite values")
+    buckets = torch.bincount(outs[0]["ts_delta"].values.long(), minlength=len(TS_BOUNDS) + 1).tolist()
+    log(f"movielens: first transform pass {first_pass_s:.2f} s, launches {launches}, "
+        f"columns {outs[0].column_names}, batch 0 bucket counts {buckets}")
+    cpu_wf = nvt.Workflow(movielens_graph(ops), device="cpu")
+    nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+    compare_outputs(outs[0], cpu_wf.transform(batches[0]), floats, "movielens vs cpu", ML_TOL)
+    log("movielens: batch 0 equals the CPU run (codes, counts, cross and bucket ids exact, "
+        "floats within rtol=1e-6, atol=1e-7)")
+    del outs
+
+    # throughput, and the UDF's host handoff (both copies and np.log1p)
+    def run_all(bs):
+        for b in bs:
+            wf.transform(b)
+        torch.cuda.synchronize()
+
+    def rates(bs):
+        out, handoff_ms = [], []
+        for _ in range(REPEATS):
+            h0, s0 = ex.host_handoffs, ex.host_handoff_seconds
+            t0 = time.perf_counter()
+            run_all(bs)
+            out.append(rows_total / (time.perf_counter() - t0))
+            handoff_ms.append(1e3 * (ex.host_handoff_seconds - s0) / (ex.host_handoffs - h0))
+        return sorted(out), float(np.median(handoff_ms))
+
+    with_h2d_all, handoff_ms = rates(batches)
+    on_card = [ex.stage(b) for b in batches]
+    torch.cuda.synchronize()
+    without_h2d_all, handoff_card_ms = rates(on_card)
+    rec = {
+        "fit_s": fit_s, "fit_stats": dict(wf.last_fit_stats), "groups": groups, "fit_launches": fit_launches,
+        "first_pass_s": first_pass_s, "launches": launches, "rows": rows_total,
+        "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+        "handoff_ms_per_batch": handoff_ms, "handoff_ms_per_batch_on_card": handoff_card_ms,
+        "bucket_counts_batch0": buckets,
+    }
+    if profile:
+        rec["profile"] = {
+            "with_h2d": profile_pass(lambda: run_all(batches[:4])),
+            "without_h2d": profile_pass(lambda: run_all(on_card[:4])),
+        }
+        for what, p in rec["profile"].items():
+            log(f"profile movielens {what}: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+                f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+    log(
+        f"movielens: transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s "
+        f"(min {with_h2d_all[0]:,.0f}, max {with_h2d_all[-1]:,.0f}) with the host-to-device copy, "
+        f"{float(np.median(without_h2d_all)):,.0f} rows/s (min {without_h2d_all[0]:,.0f}, max "
+        f"{without_h2d_all[-1]:,.0f}) from batches on the card; UDF host handoff {handoff_ms:.3f} ms a batch "
+        f"({handoff_card_ms:.3f} ms from batches on the card)"
+    )
+
+    # the kernels at the path's shapes, on batch 0 as staged on the card
+    staged = on_card[0]
+    n = ML_ROWS_PER_PART
+    records = {}
+
+    def record(name, got, want, fn, plain_fn, nbytes, ops, library_fn=None, exact=True, **extra):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            if exact and not torch.equal(g, w):
+                fail(f"{name} kernel differs from plain in {int((g != w).sum())} entries")
+            if not exact and not torch.allclose(g, w, **ML_TOL, equal_nan=True):
+                fail(f"{name} kernel differs from plain: max abs {float((g - w).abs().max())}")
+        err = max(float((g.double() - w.double()).abs().nan_to_num(0.0).max()) if g.numel() else 0.0
+                  for g, w in pairs)
+        rec = {"max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
+               "library_ms": None if library_fn is None else time_ms(library_fn), "bytes": nbytes, **extra}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+        records[name] = rec
+
+    # K7: the cross of the two id columns, and the fold ids of one batch
+    cols = [staged["movieId"].values, staged["userId"].values]
+    record("hashed_cross", khash.hashed_cross(cols, 10_000), khash.hashed_cross_plain(cols, 10_000),
+           lambda: khash.hashed_cross(cols, 10_000), lambda: khash.hashed_cross_plain(cols, 10_000),
+           n * (8 + 8 + 4), n * 2 * 30, shape=[2, n])
+    off = batches[-1].row_offset
+    record("fold_ids", khash.fold_ids(off, n, 3, 42, dev), khash.fold_ids_plain(off, n, 3, 42, dev),
+           lambda: khash.fold_ids(off, n, 3, 42, dev), lambda: khash.fold_ids_plain(off, n, 3, 42, dev),
+           n * 4, n * 30, shape=[n], row_offset=off)
+
+    # K10a: TargetEncoding's epilogue over its two group indexes; JoinGroupby's gathers
+    state = ex.op_state(te.op, dev)
+    gidx = torch.stack([state["index"][t](staged[t]) for t in state["tags"]])
+    st = state["te"]
+    G, T = gidx.shape[0], st.means.shape[0]
+    fold = khash.fold_ids(0, n, st.kfold, st.fold_seed, dev).long()
+    touched = sum(
+        int(torch.unique(gidx[g]).numel()) + int(torch.unique(fold * int(st.strides[g]) + gidx[g]).numel())
+        for g in range(G)
+    )
+    record("te_encode", kgb.te_encode(gidx, st, 0), kgb.te_encode_plain(gidx, st, 0),
+           lambda: kgb.te_encode(gidx, st, 0), lambda: kgb.te_encode_plain(gidx, st, 0),
+           G * n * 4 + G * T * n * 4 + touched * T * 8, G * T * n * 10 + G * n * 30, exact=False,
+           shape=[G, n], stat_entries_touched=touched * T * 2)
+    jstate = ex.op_state(jg.op, dev)
+    jidx = torch.stack([jstate["index"][t](staged[t]) for t in jstate["names"]])
+    gs = jstate["gather"]
+    K = int(gs.groups.shape[0])
+    distinct = int(torch.unique(jidx).numel())
+    ioff, foff = int(gs.offs[0]), int(gs.offs[gs.ki])
+    record("stat_gather", kgb.stat_gather(jidx, gs), kgb.stat_gather_plain(jidx, gs),
+           lambda: kgb.stat_gather(jidx, gs), lambda: kgb.stat_gather_plain(jidx, gs),
+           n * 4 + K * n * 4 + K * distinct * 4, 0,
+           # two calls: one index_select per output column
+           library_fn=lambda: (torch.index_select(gs.itable[ioff:], 0, jidx[0]),
+                               torch.index_select(gs.ftable[foff:], 0, jidx[0])),
+           shape=[K, n], distinct_groups=distinct)
+
+    # K12b on raw ts_delta, where all six buckets fill, with values on the
+    # boundaries and NaN
+    x = staged["ts_delta"].values.clone()
+    bounds = torch.tensor(TS_BOUNDS, dtype=torch.float32, device=dev)
+    x[: len(TS_BOUNDS)] = bounds
+    x[len(TS_BOUNDS)] = float("nan")
+    got = kbkt.bucketize(x, bounds)
+    if set(torch.unique(got).tolist()) != set(range(len(TS_BOUNDS) + 1)):
+        fail(f"bucketize: raw ts_delta fills buckets {torch.unique(got).tolist()}, not all six")
+    record("bucketize", got, kbkt.bucketize_plain(x, bounds), lambda: kbkt.bucketize(x, bounds),
+           lambda: kbkt.bucketize_plain(x, bounds), n * 8 + len(TS_BOUNDS) * 4,
+           n * math.ceil(math.log2(len(TS_BOUNDS) + 1)), library_fn=lambda: torch.bucketize(x, bounds, right=True),
+           shape=[n])
+    rec["kernels"] = records
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"movielens: phase 9 took {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -532,6 +780,7 @@ def main():
     opts = parser.parse_args()
 
     # --- 1. device -------------------------------------------------------------
+    run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
     import nvtabular_tpu_torch as nvt
@@ -735,6 +984,16 @@ def main():
     # --- 8. the training path's kernels at its shapes -----------------------------------
     records.update(training_kernel_records(nvt, wf, parts, train))
     train_launches = train["launches"]
+    train_record = {k: v for k, v in train.items() if k not in ("model", "staged", "loader")}
+    del train
+
+    # --- 9. the advanced MovieLens path and its kernels ------------------------------------
+    movielens = movielens_path(nvt, dev, opts.profile)
+    records.update(movielens.pop("kernels"))
+    ml_launches = movielens["launches"]
+    ml_launches["fold_ids"] = movielens["fit_launches"]["fold_ids"]
+    # the direct map runs on phase 6's path and as phase 9's group indexes
+    direct_launches["direct_lookup"] += ml_launches["direct_lookup"]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -747,6 +1006,11 @@ def main():
         "embedding_scatter_grad": ("embedding.cu", "nvtabular_tpu/models/layers.py:70", train_launches),
         "interaction_fwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", train_launches),
         "interaction_bwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", train_launches),
+        "hashed_cross": ("hash.cu", "nvtabular_tpu/ops/hashed_cross.py:38", ml_launches),
+        "fold_ids": ("hash.cu", "nvtabular_tpu/ops/target_encoding.py:39", ml_launches),
+        "te_encode": ("groupby.cu", "nvtabular_tpu/ops/target_encoding.py:307", ml_launches),
+        "stat_gather": ("groupby.cu", "nvtabular_tpu/ops/join_groupby.py:255", ml_launches),
+        "bucketize": ("bucketize.cu", "nvtabular_tpu/ops/bucketize.py:36", ml_launches),
     }
     line = []
     for name, (source, replaces, launches) in meta.items():
@@ -785,7 +1049,8 @@ def main():
                                "rows_per_s_without_h2d": without_h2d_all, "vocab_keys": vocab_keys,
                                "columns_per_kind": kinds, "fit_stats": wf.last_fit_stats},
                     "compact": {"fit_s": dfit_s, "vocab_keys": keys},
-                    "train": {k: v for k, v in train.items() if k not in ("model", "staged", "loader")},
+                    "train": train_record,
+                    "movielens": movielens,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,
@@ -793,6 +1058,7 @@ def main():
                 f,
                 indent=1,
             )
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - run_t0:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

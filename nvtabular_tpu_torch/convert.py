@@ -5,10 +5,17 @@ two transforms must agree. The state is a dict
 
     {"categorify": {vocab_key: {"values_by_code": ndarray,
                                 "num_buckets": int, "offset": int}},
-     "normalize": {column: {"mean": float, "std": float}}}
+     "normalize": {column: {"mean": float, "std": float}},
+     "target_encoding": {group_tag: {"means": {target: float},
+                                     "fold_stats": keyed, "overall_stats": keyed}},
+     "join_groupby": {group_name: keyed}}
 
-which a caller can extract from the JAX package's fitted ops (the tests do)
-or from this package's own (``fitted_state``).
+with ``keyed = {"key_cols": [...], "key_arrays": {column: ndarray},
+"stats": {name: ndarray}}`` — a fitted ``KeyedStats``. Group stats are keyed
+by group, as the reference names its stat files (``te_stats.{tag}``,
+``cat_stats.{name}``). A caller can extract the state from the JAX package's
+fitted ops (the tests do) or from this package's own (``fitted_state``),
+e.g. to carry a workflow fitted on the card to one on the CPU.
 
 DLRM parameters travel as the JAX package's pytree of numpy arrays,
 
@@ -27,14 +34,32 @@ import numpy as np
 import torch
 
 from .ops.categorify import Categorify, _Vocab
+from .ops.groupby_stats import KeyedStats, single_key_groups
+from .ops.join_groupby import JoinGroupby
 from .ops.normalize import Normalize
+from .ops.target_encoding import TargetEncoding
+
+
+def _keyed(entry: Dict[str, Any]) -> KeyedStats:
+    return KeyedStats(
+        list(entry["key_cols"]),
+        {k: np.asarray(v) for k, v in entry["stats"].items()},
+        {k: np.asarray(v) for k, v in entry["key_arrays"].items()},
+    )
+
+
+def _keyed_state(keyed: KeyedStats) -> Dict[str, Any]:
+    return {"key_cols": list(keyed.key_cols), "key_arrays": dict(keyed.key_arrays), "stats": dict(keyed.stats)}
 
 
 def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
-    """Set every Categorify and Normalize op of ``workflow`` to ``state``;
-    each op counts as freshly fitted (its device tables are rebuilt)."""
+    """Set every Categorify, Normalize, TargetEncoding and JoinGroupby op of
+    ``workflow`` to ``state``; each op counts as freshly fitted (its device
+    tables are rebuilt)."""
     cats = state.get("categorify", {})
     norms = state.get("normalize", {})
+    tes = state.get("target_encoding", {})
+    joins = state.get("join_groupby", {})
     for node in workflow.graph.nodes:
         op = node.op
         if isinstance(op, Categorify):
@@ -55,11 +80,24 @@ def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
                 op.means[name] = float(norms[name]["mean"])
                 op.stds[name] = float(norms[name]["std"])
             op.mark_fitted()
+        elif isinstance(op, TargetEncoding):
+            op.clear()
+            for group in single_key_groups(node.selector):
+                entry = tes[op._group_tag(group)]
+                op.means.update({t: float(m) for t, m in entry["means"].items()})
+                op.fold_stats[op._group_tag(group)] = _keyed(entry["fold_stats"])
+                op.overall_stats[op._group_tag(group)] = _keyed(entry["overall_stats"])
+            op.mark_fitted()
+        elif isinstance(op, JoinGroupby):
+            op.clear()
+            for group in single_key_groups(node.selector):
+                op.keyed[op._group_name(group)] = _keyed(joins[op._group_name(group)])
+            op.mark_fitted()
 
 
 def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
     """The fitted state of this package's ``workflow`` in the format above."""
-    state: Dict[str, Dict[str, Any]] = {"categorify": {}, "normalize": {}}
+    state: Dict[str, Dict[str, Any]] = {"categorify": {}, "normalize": {}, "target_encoding": {}, "join_groupby": {}}
     for node in workflow.graph.nodes:
         op = node.op
         if isinstance(op, Categorify):
@@ -72,6 +110,16 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
         elif isinstance(op, Normalize):
             for name in op.means:
                 state["normalize"][name] = {"mean": op.means[name], "std": op.stds[name]}
+        elif isinstance(op, TargetEncoding):
+            for tag, overall in op.overall_stats.items():
+                state["target_encoding"][tag] = {
+                    "means": dict(op.means),
+                    "fold_stats": _keyed_state(op.fold_stats[tag]),
+                    "overall_stats": _keyed_state(overall),
+                }
+        elif isinstance(op, JoinGroupby):
+            for name, keyed in op.keyed.items():
+                state["join_groupby"][name] = _keyed_state(keyed)
     return state
 
 

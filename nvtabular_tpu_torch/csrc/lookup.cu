@@ -3,10 +3,16 @@
 //
 // Each kernel reads the stacked int32 values of C columns ([C, N], row-major)
 // and writes their final codes ([C, N] int32):
-//   hit  -> the code stored in the column's table (2 + num_buckets + rank)
-//   miss -> OOV_INDEX (2; only num_buckets == 1 is ported)
-//   validity[c, r] == 0 -> NULL_INDEX (1)
-//   then + col_off[c] (the single_table offset).
+//   hit  -> the code stored in the column's table
+//   miss -> miss_code
+//   validity[c, r] == 0 -> null_code
+//   then + col_off[c].
+// Categorify passes miss 2 (OOV_INDEX; only num_buckets == 1 is ported) and
+// null 1 (NULL_INDEX); its codes are 2 + num_buckets + rank and col_off the
+// single_table offset. A TargetEncoding or JoinGroupby group index
+// (nvtabular_tpu/ops/groupby_stats.py:590-610) passes num_groups for both
+// and col_off 0: its codes are group rows, and misses and nulls read the
+// pad slot.
 // This is nvtabular_tpu/ops/categorify.py:1666-1684 (_encode_batched_device's
 // null/offset/cast epilogue, with _Vocab._oov_codes_dev at :628-634) fused
 // into the lookup, so one launch per table kind writes final codes.
@@ -18,18 +24,23 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "hash.cuh"
+
 namespace {
 
-constexpr int kNullIndex = 1;
-constexpr int kOovIndex = 2;
 constexpr int kTinyMax = 4096;
 constexpr int kThreads = 256;
 constexpr int kTinyRowsPerBlock = 4096;
 
+struct Epilogue {
+  int32_t miss;
+  int32_t null;
+};
+
 __device__ __forceinline__ int32_t epilogue(int32_t code, bool hit, const uint8_t* valid,
-                                            int64_t i, int32_t off) {
-  int32_t out = hit ? code : kOovIndex;
-  if (valid != nullptr && valid[i] == 0) out = kNullIndex;
+                                            int64_t i, int32_t off, Epilogue e) {
+  int32_t out = hit ? code : e.miss;
+  if (valid != nullptr && valid[i] == 0) out = e.null;
   return out + off;
 }
 
@@ -51,7 +62,7 @@ tiny_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict
                    const int32_t* __restrict__ keys, const int32_t* __restrict__ codes,
                    const int32_t* __restrict__ lens, const int32_t* __restrict__ sel,
                    const int32_t* __restrict__ col_off, int32_t* __restrict__ out,
-                   int64_t n, int vmax) {
+                   int64_t n, int vmax, Epilogue e) {
   __shared__ int32_t s_keys[kTinyMax];
   __shared__ int32_t s_codes[kTinyMax];
   const int c = blockIdx.y;
@@ -77,7 +88,7 @@ tiny_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict
       if (s_keys[mid] < v) lo = mid + 1; else hi = mid;
     }
     const bool hit = lo < len && s_keys[lo] == v;
-    out[i] = epilogue(hit ? s_codes[lo] : 0, hit, valid, i, off);
+    out[i] = epilogue(hit ? s_codes[lo] : 0, hit, valid, i, off, e);
   }
 }
 
@@ -95,7 +106,8 @@ direct_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
                      const int32_t* __restrict__ table, const int32_t* __restrict__ mins,
                      const int32_t* __restrict__ maxs, const int64_t* __restrict__ lens,
                      const int64_t* __restrict__ table_off, const int32_t* __restrict__ sel,
-                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n) {
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n,
+                     Epilogue e) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int c = blockIdx.y;
@@ -108,16 +120,7 @@ direct_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
   idx = idx < 0 ? 0 : (idx > lens[b] - 1 ? lens[b] - 1 : idx);
   const int32_t code = __ldg(table + table_off[b] + idx);
   const bool hit = v >= mn && v <= mx && code >= 0;
-  out[i] = epilogue(code, hit, valid, i, col_off[c]);
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
+  out[i] = epilogue(code, hit, valid, i, col_off[c], e);
 }
 
 __device__ __forceinline__ void probe(const int4& k, const int4& v, int32_t key, int32_t& code,
@@ -145,7 +148,8 @@ __global__ void __launch_bounds__(kThreads)
 cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
                      const int4* __restrict__ table, const int64_t* __restrict__ nbs,
                      const int64_t* __restrict__ row_off, const int32_t* __restrict__ sel,
-                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n) {
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n,
+                     Epilogue e) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const int c = blockIdx.y;
@@ -155,17 +159,17 @@ cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
   const uint32_t u = static_cast<uint32_t>(v);
   const uint32_t nb = static_cast<uint32_t>(nbs[b]);
   const int64_t ro = row_off[b];
-  const int64_t b0 = ro + fmix32(u) % nb;
-  const int64_t b1 = ro + fmix32(u ^ 0x9E3779B9u) % nb;
+  const int64_t b0 = ro + nvt::fmix32(u) % nb;
+  const int64_t b1 = ro + nvt::fmix32(u ^ 0x9E3779B9u) % nb;
   const int4 k0 = __ldg(table + 2 * b0);
   const int4 v0 = __ldg(table + 2 * b0 + 1);
   const int4 k1 = __ldg(table + 2 * b1);
   const int4 v1 = __ldg(table + 2 * b1 + 1);
-  int32_t code = kOovIndex;
+  int32_t code = 0;
   bool hit = false;
   probe(k0, v0, v, code, hit);
   probe(k1, v1, v, code, hit);
-  out[i] = epilogue(code, hit, valid, i, col_off[c]);
+  out[i] = epilogue(code, hit, valid, i, col_off[c], e);
 }
 
 inline unsigned int blocks_for(int64_t n, int64_t per_block) {
@@ -177,12 +181,12 @@ inline unsigned int blocks_for(int64_t n, int64_t per_block) {
 extern "C" int nvt_tiny_lookup(const int32_t* values, const uint8_t* valid, const int32_t* keys,
                                const int32_t* codes, const int32_t* lens, const int32_t* sel,
                                const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
-                               int vmax, void* stream) {
+                               int vmax, int miss_code, int null_code, void* stream) {
   if (vmax > kTinyMax) return static_cast<int>(cudaErrorInvalidValue);
   if (num_cols == 0 || n == 0) return 0;
   dim3 grid(blocks_for(n, kTinyRowsPerBlock), num_cols);
   tiny_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, keys, codes, lens, sel, col_off, out, n, vmax);
+      values, valid, keys, codes, lens, sel, col_off, out, n, vmax, Epilogue{miss_code, null_code});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,21 +194,23 @@ extern "C" int nvt_direct_lookup(const int32_t* values, const uint8_t* valid, co
                                  const int32_t* mins, const int32_t* maxs, const int64_t* lens,
                                  const int64_t* table_off, const int32_t* sel,
                                  const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
-                                 void* stream) {
+                                 int miss_code, int null_code, void* stream) {
   if (num_cols == 0 || n == 0) return 0;
   dim3 grid(blocks_for(n, kThreads), num_cols);
   direct_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, table, mins, maxs, lens, table_off, sel, col_off, out, n);
+      values, valid, table, mins, maxs, lens, table_off, sel, col_off, out, n,
+      Epilogue{miss_code, null_code});
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nvt_cuckoo_lookup(const int32_t* values, const uint8_t* valid, const int32_t* table,
                                  const int64_t* nbs, const int64_t* row_off, const int32_t* sel,
                                  const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
-                                 void* stream) {
+                                 int miss_code, int null_code, void* stream) {
   if (num_cols == 0 || n == 0) return 0;
   dim3 grid(blocks_for(n, kThreads), num_cols);
   cuckoo_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, reinterpret_cast<const int4*>(table), nbs, row_off, sel, col_off, out, n);
+      values, valid, reinterpret_cast<const int4*>(table), nbs, row_off, sel, col_off, out, n,
+      Epilogue{miss_code, null_code});
   return static_cast<int>(cudaGetLastError());
 }

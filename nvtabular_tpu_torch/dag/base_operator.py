@@ -25,6 +25,9 @@ from ..table import TableBatch
 class BaseOperator:
     # True for ops whose transform takes executor-cached device tables
     has_device_state: bool = False
+    # True for ops that run user code on the host (UDF): the executors hand
+    # them host columns and put the result back on the batch's device
+    runs_on_host: bool = False
     # bumped by every fit (FitEngine, convert.load_fitted_state): keys the
     # executor's device-table cache so a refit never serves stale tables
     fit_generation: int = 0

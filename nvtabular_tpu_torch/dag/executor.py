@@ -3,7 +3,11 @@
 Counterpart of ``nvtabular_tpu/dag/executor.py``:
 
 * ``LocalExecutor`` — evaluates the DAG op by op on whatever device the
-  batch's tensors live on.
+  batch's tensors live on. An op that runs user code (``runs_on_host``, the
+  UDF / LambdaOp) gets its columns on the host and its result goes back to
+  the batch's device, as the reference's hybrid executor runs host ops
+  (executor.py:205-257); ``host_handoffs`` and ``host_handoff_seconds``
+  count those round trips.
 * ``TorchExecutor`` — counterpart of ``JitExecutor`` (executor.py:103-331,
   689-764): runs the whole DAG per batch on its device. It stacks
   same-dtype host columns into pinned buffers for one host-to-device copy per
@@ -41,6 +45,8 @@ class LocalExecutor:
         # id(op) → (op, (fit_generation, device), tables): holding the op
         # keeps its id from being recycled into a false cache hit
         self._state_cache: Dict[int, Tuple[Any, Tuple, Any]] = {}
+        self.host_handoffs = 0
+        self.host_handoff_seconds = 0.0
 
     def transform_batch(self, batch: TableBatch, output_node: Node) -> TableBatch:
         return self._eval(output_node, batch, {})
@@ -73,9 +79,24 @@ class LocalExecutor:
 
     def _apply(self, node: Node, batch: TableBatch) -> TableBatch:
         op = node.op
+        if op.runs_on_host and batch.device.type != "cpu":
+            return self._apply_on_host(node, batch)
         if op.has_device_state:
             return op.transform(node.selector, batch, state=self.op_state(op, batch.device))
         return op.transform(node.selector, batch)
+
+    def _apply_on_host(self, node: Node, batch: TableBatch) -> TableBatch:
+        """Run a host op on the host copy of its columns; its result goes back
+        to the batch's device. The time covers both copies and the op, not
+        the device work queued before it."""
+        if batch.device.type == "cuda":
+            torch.cuda.synchronize(batch.device)
+        t0 = time.perf_counter()
+        host = batch.select(node.op.host_inputs(node.selector, batch)).to("cpu")
+        out = node.op.transform(node.selector, host).to(batch.device)
+        self.host_handoffs += 1
+        self.host_handoff_seconds += time.perf_counter() - t0
+        return out
 
     def op_state(self, op, device):
         """The op's device tables on ``device``, rebuilt after every refit."""

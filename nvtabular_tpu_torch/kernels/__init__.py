@@ -24,6 +24,11 @@ LAUNCHES: Dict[str, int] = {
     "embedding_scatter_grad": 0,
     "interaction_fwd": 0,
     "interaction_bwd": 0,
+    "hashed_cross": 0,
+    "fold_ids": 0,
+    "te_encode": 0,
+    "stat_gather": 0,
+    "bucketize": 0,
 }
 
 

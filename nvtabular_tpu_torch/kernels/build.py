@@ -4,7 +4,8 @@ Each source under ``nvtabular_tpu_torch/csrc/`` has a plain C interface and
 compiles with ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Builds start all together (one ``nvcc`` per source) at first use
 and land in ``build/nvt_torch_kernels/`` at the root of the checkout, named by
-a hash of the source and flags, so an unchanged source is never rebuilt.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an unchanged source is never rebuilt.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
@@ -28,6 +29,9 @@ SOURCES = {
     "permute": _PKG / "csrc" / "permute.cu",
     "embedding": _PKG / "csrc" / "embedding.cu",
     "interaction": _PKG / "csrc" / "interaction.cu",
+    "hash": _PKG / "csrc" / "hash.cu",
+    "groupby": _PKG / "csrc" / "groupby.cu",
+    "bucketize": _PKG / "csrc" / "bucketize.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [
@@ -55,6 +59,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"libnvt_{name}_{digest.hexdigest()[:16]}.so"
 
 

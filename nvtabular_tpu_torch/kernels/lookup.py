@@ -4,10 +4,15 @@ fused, their wrappers and their plain PyTorch versions.
 All three take the stacked values of C columns as ``values`` [C, N] int32
 and write final codes [C, N] int32:
 
-* a hit gives the vocabulary code stored in the table;
-* a miss gives ``OOV_INDEX`` (2, the single out-of-vocabulary bucket);
-* a row whose ``validity`` is False gives ``NULL_INDEX`` (1);
+* a hit gives the code stored in the table;
+* a miss gives ``miss`` (default ``OOV_INDEX``, 2: Categorify's single
+  out-of-vocabulary bucket);
+* a row whose ``validity`` is False gives ``null`` (default ``NULL_INDEX``, 1);
 * then the column's ``col_offsets`` entry (the single_table shift) is added.
+
+A group index of TargetEncoding or JoinGroupby passes ``num_groups`` as both
+``miss`` and ``null`` and zero offsets: misses and null keys read the pad
+slot of the group's stat arrays.
 
 ``sel`` [C] int32 picks, for each value row, its row of the bin's tables
 (columns sharing a joint vocabulary share a row). Kernels are in
@@ -22,22 +27,22 @@ import torch
 
 from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
+from .hash import M32, fmix32_plain
 
 NULL_INDEX = 1
 OOV_INDEX = 2
 TINY_MAX = 4096
 BUCKET_SLOTS = 4
 SEEDS = (0, 0x9E3779B9)
-_M32 = 0xFFFFFFFF
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # values, validity, keys, codes, lens, sel, col_offsets, out, C, N, vmax, stream
-    "nvt_tiny_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P],
-    # values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets, out, C, N, stream
-    "nvt_direct_lookup": [_P] * 10 + [ctypes.c_int, ctypes.c_int64, _P],
-    # values, validity, table, nbs, row_offsets, sel, col_offsets, out, C, N, stream
-    "nvt_cuckoo_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64, _P],
+    # values, validity, keys, codes, lens, sel, col_offsets, out, C, N, vmax, miss, null, stream
+    "nvt_tiny_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 3 + [_P],
+    # values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets, out, C, N, miss, null, stream
+    "nvt_direct_lookup": [_P] * 10 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P],
+    # values, validity, table, nbs, row_offsets, sel, col_offsets, out, C, N, miss, null, stream
+    "nvt_cuckoo_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P],
 }
 
 
@@ -59,14 +64,14 @@ def _check_common(values, validity, sel, col_offsets):
     check(col_offsets, "col_offsets", torch.int32, dev, (values.shape[0],))
 
 
-def _epilogue(code, hit, validity, col_offsets):
-    out = torch.where(hit, code, OOV_INDEX)
+def _epilogue(code, hit, validity, col_offsets, miss, null):
+    out = torch.where(hit, code, miss)
     if validity is not None:
-        out = torch.where(validity, out, NULL_INDEX)
+        out = torch.where(validity, out, null)
     return (out + col_offsets[:, None]).to(torch.int32)
 
 
-def _launch(name, values, args):
+def _launch(name, values, args, miss, null):
     """Allocate the output and launch ``nvt_<name>`` on the current stream."""
     C, N = values.shape
     out = torch.empty((C, N), dtype=torch.int32, device=values.device)
@@ -74,14 +79,14 @@ def _launch(name, values, args):
         return out
     fn = _fn(f"nvt_{name}")
     head, tail = args
-    rc = fn(*[ptr(t) for t in head], ptr(out), C, N, *tail, stream_ptr(values.device))
+    rc = fn(*[ptr(t) for t in head], ptr(out), C, N, *tail, miss, null, stream_ptr(values.device))
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     return out
 
 
 # --- K1 + K4: tiny vocabularies (≤ 4096 keys) --------------------------------
-def tiny_lookup(values, validity, keys, codes, lens, sel, col_offsets) -> torch.Tensor:
+def tiny_lookup(values, validity, keys, codes, lens, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
     """Replaces ``BatchedTiny.encode_dev`` (nvtabular_tpu/ops/lookup.py:157).
 
     keys/codes [B, vmax] int32: row b holds its ``lens[b]`` keys sorted
@@ -94,15 +99,17 @@ def tiny_lookup(values, validity, keys, codes, lens, sel, col_offsets) -> torch.
     if keys.shape[1] > TINY_MAX:
         raise ValueError(f"tiny bin holds at most {TINY_MAX} keys per column, got {keys.shape[1]}")
     if not use_kernel(values):
-        return tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets)
+        return tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets, miss, null)
     return _launch(
         "tiny_lookup",
         values,
         ([values, validity, keys, codes, lens, sel, col_offsets], [keys.shape[1]]),
+        miss,
+        null,
     )
 
 
-def tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets) -> torch.Tensor:
+def tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
     s = sel.long()
     k, c, n = keys[s], codes[s], lens[s].long()
     # only [0, lens) of a row is sorted (the pad repeats the FIRST key):
@@ -113,11 +120,12 @@ def tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets) -> 
     pos = torch.searchsorted(k, values)  # first slot with key >= value
     pos_c = torch.minimum(pos, last)
     hit = (pos < n[:, None]) & (torch.gather(k, 1, pos_c) == values)
-    return _epilogue(torch.gather(c, 1, pos_c), hit, validity, col_offsets)
+    return _epilogue(torch.gather(c, 1, pos_c), hit, validity, col_offsets, miss, null)
 
 
 # --- K2 + K4: direct (dense) map ----------------------------------------------
-def direct_lookup(values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets):
+def direct_lookup(values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets,
+                  miss=OOV_INDEX, null=NULL_INDEX):
     """Replaces ``BatchedDirect.encode_dev`` (nvtabular_tpu/ops/lookup.py:585).
 
     table [T] int32: the concat of the per-column dense tables, -1 = empty;
@@ -133,27 +141,30 @@ def direct_lookup(values, validity, table, mins, maxs, lens, table_offsets, sel,
     check(table_offsets, "table_offsets", torch.int64, dev, (B,))
     if not use_kernel(values):
         return direct_lookup_plain(
-            values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets
+            values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets, miss, null
         )
     return _launch(
         "direct_lookup",
         values,
         ([values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets], []),
+        miss,
+        null,
     )
 
 
-def direct_lookup_plain(values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets):
+def direct_lookup_plain(values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets,
+                        miss=OOV_INDEX, null=NULL_INDEX):
     s = sel.long()
     v = values.long()  # v - min overflows int32 for keys far from min
     mn, mx = mins[s].long()[:, None], maxs[s].long()[:, None]
     idx = torch.minimum((v - mn).clamp(min=0), lens[s][:, None] - 1) + table_offsets[s][:, None]
     code = table[idx]
     hit = (v >= mn) & (v <= mx) & (code >= 0)
-    return _epilogue(code, hit, validity, col_offsets)
+    return _epilogue(code, hit, validity, col_offsets, miss, null)
 
 
 # --- K3 + K4: two-choice 4-slot bucketed cuckoo --------------------------------
-def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets):
+def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
     """Replaces ``BatchedCuckoo.encode_dev`` (nvtabular_tpu/ops/lookup.py:693).
 
     table [R, 8] int32: bucket rows ``[k0..k3, v0..v3]`` (v = -1: empty);
@@ -168,35 +179,22 @@ def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets):
     check(nbs, "nbs", torch.int64, dev, (B,))
     check(row_offsets, "row_offsets", torch.int64, dev, (B,))
     if not use_kernel(values):
-        return cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offsets)
+        return cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offsets, miss, null)
     if table.data_ptr() % 16:
         raise ValueError("cuckoo table must be 16-byte aligned for int4 bucket loads")
     return _launch(
         "cuckoo_lookup",
         values,
         ([values, validity, table, nbs, row_offsets, sel, col_offsets], []),
+        miss,
+        null,
     )
 
 
-def _mul32(h, c: int):
-    """(h * c) mod 2**32 for h in [0, 2**32) held in int64, without int64
-    overflow: PyTorch on the CPU has no uint32 ``*``/``>>``/``%``."""
-    return ((h & 0xFFFF) * c + (((h >> 16) * c) & 0xFFFF) * 65536) & _M32
-
-
-def fmix32_plain(h):
-    """Murmur3 finalizer over uint32 values held in int64 lanes."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offsets):
+def cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
     s = sel.long()
     nb, ro = nbs[s][:, None], row_offsets[s][:, None]
-    code = torch.full_like(values, OOV_INDEX)
+    code = torch.zeros_like(values)
     hit = torch.zeros(values.shape, dtype=torch.bool, device=values.device)
     for seed in SEEDS:
         rows = table[bucket_index_plain(values, nb, seed) + ro]  # [C, N, 8]
@@ -204,11 +202,11 @@ def cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offs
             h = (rows[..., slot] == values) & (rows[..., BUCKET_SLOTS + slot] >= 0)
             code = torch.where(h, rows[..., BUCKET_SLOTS + slot], code)
             hit |= h
-    return _epilogue(code, hit, validity, col_offsets)
+    return _epilogue(code, hit, validity, col_offsets, miss, null)
 
 
 def bucket_index_plain(values: torch.Tensor, nb, seed: int) -> torch.Tensor:
     """Bucket of each int32 key under ``seed`` among ``nb`` buckets (an int
     or a tensor broadcasting against ``values``); the key's uint32 bit
     pattern is what the kernel hashes."""
-    return fmix32_plain((values.long() & _M32) ^ seed) % nb
+    return fmix32_plain((values.long() & M32) ^ seed) % nb

@@ -1,21 +1,31 @@
 """Operators ported so far (counterpart of nvtabular_tpu/ops/__init__.py)."""
 
 from ..selector import ColumnSelector
+from .bucketize import Bucketize
 from .categorify import Categorify
 from .clip import Clip
 from .fill import FillMissing
+from .hashed_cross import HashedCross
+from .join_groupby import JoinGroupby
+from .lambdaop import LambdaOp
 from .logop import LogOp
 from .normalize import Normalize
 from .operator import Operator
 from .stat_operator import StatOperator
+from .target_encoding import TargetEncoding
 
 __all__ = [
+    "Bucketize",
     "Categorify",
     "Clip",
     "ColumnSelector",
     "FillMissing",
+    "HashedCross",
+    "JoinGroupby",
+    "LambdaOp",
     "LogOp",
     "Normalize",
     "Operator",
     "StatOperator",
+    "TargetEncoding",
 ]

@@ -29,7 +29,7 @@ from .. import dtypes as md
 from ..selector import ColumnSelector
 from ..table import UNSUPPORTED_LISTS, Column, TableBatch
 from ..tags import Tags
-from .lookup import BATCHED, UNSUPPORTED_WIDE_KEYS, build_cuckoo, build_lookup, kind_of
+from .lookup import BATCHED, build_cuckoo, build_lookup, int32_keys, kind_of
 from .stat_operator import StatOperator
 
 OOV_OFFSET = 2  # codes 0 pad, 1 null, 2 out-of-vocabulary (kernels/lookup.py)
@@ -275,7 +275,7 @@ class Categorify(StatOperator):
             if not items:
                 continue
             cols = [batch[name] for name, _ in items]
-            values = torch.stack([_int32_values(c) for c in cols])
+            values = torch.stack([int32_keys(c) for c in cols])
             validity = None
             if any(c.validity is not None for c in cols):
                 validity = torch.stack(
@@ -331,19 +331,3 @@ class Categorify(StatOperator):
             }
         )
 
-
-def _int32_values(col: Column) -> torch.Tensor:
-    """A column's values as int32 for the lookup kernels; raises on what
-    the slice does not cover (lists, floats, values outside int32)."""
-    if col.is_list:
-        raise NotImplementedError(UNSUPPORTED_LISTS)
-    v = col.values
-    if v.is_floating_point() or v.dtype == torch.bool:
-        raise NotImplementedError(UNSUPPORTED_KEYS)
-    if v.dtype == torch.int32:
-        return v
-    if v.dtype == torch.int64 and v.numel():
-        lo, hi = torch.aminmax(v)
-        if int(lo) < -(2**31) or int(hi) > 2**31 - 1:
-            raise NotImplementedError(UNSUPPORTED_WIDE_KEYS)
-    return v.to(torch.int32)

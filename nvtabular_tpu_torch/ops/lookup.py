@@ -3,7 +3,9 @@
 Counterpart of ``nvtabular_tpu/ops/lookup.py``. The kind choice is the
 reference's (``build_lookup``, lookup.py:711-742):
 
-* ``TinyLookup`` for vocabularies of at most ``TINY_MAX`` (4096) keys;
+* ``TinyLookup`` for vocabularies of at most ``tiny_max`` keys (``TINY_MAX``,
+  4096, for Categorify; 512 for the group indexes of TargetEncoding and
+  JoinGroupby, which the reference probes one column at a time);
 * ``DirectLookup`` (a dense int32 map) when the key range is at most
   ``max(DIRECT_MAX_RANGE, 8 * keys)``;
 * ``CuckooLookup`` (two-choice, 4-slot buckets ``[k0..k3, v0..v3]``)
@@ -19,25 +21,32 @@ kernel launch (kernels/lookup.py).
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.lookup import (
     BUCKET_SLOTS,
+    NULL_INDEX,
+    OOV_INDEX,
     SEEDS,
     TINY_MAX,
     cuckoo_lookup,
     direct_lookup,
     tiny_lookup,
 )
+from ..table import UNSUPPORTED_LISTS, Column
 
 DIRECT_MAX_RANGE = 1 << 22
 CUCKOO_LOAD = 0.8  # 10 B per key; two-choice 4-slot placement holds to ~0.97
 EMPTY = -1  # empty slot marker in a value lane (codes are >= 2)
 UNSUPPORTED_WIDE_KEYS = (
     "vocabulary keys outside int32 are not ported yet "
+    "(ROADMAP.md queue 1: strings and hybrid execution)"
+)
+UNSUPPORTED_KEYS = (
+    "lookups of non-integer keys are not ported yet "
     "(ROADMAP.md queue 1: strings and hybrid execution)"
 )
 _MAX_EVICTION_ROUNDS = 4000
@@ -179,16 +188,31 @@ def _try_build_cuckoo(keys: np.ndarray, vals: np.ndarray, nb: int, seed: int = 0
     return np.concatenate([bkeys, bvals], axis=1)
 
 
-def build_lookup(values: np.ndarray, codes: np.ndarray):
-    """Tiny, direct or cuckoo table for integer keys (see module docstring)."""
+def int32_keys(col: Column) -> torch.Tensor:
+    """A key column's values as int32 for the lookup kernels; raises on what
+    the port does not cover (lists, floats, values outside int32)."""
+    if col.is_list:
+        raise NotImplementedError(UNSUPPORTED_LISTS)
+    v = col.values
+    if v.is_floating_point() or v.dtype == torch.bool:
+        raise NotImplementedError(UNSUPPORTED_KEYS)
+    if v.dtype == torch.int32:
+        return v
+    if v.dtype == torch.int64 and v.numel():
+        lo, hi = torch.aminmax(v)
+        if int(lo) < -(2**31) or int(hi) > 2**31 - 1:
+            raise NotImplementedError(UNSUPPORTED_WIDE_KEYS)
+    return v.to(torch.int32)
+
+
+def build_lookup(values: np.ndarray, codes: np.ndarray, tiny_max: Optional[int] = None):
+    """Tiny, direct or cuckoo table for integer keys (see module docstring);
+    ``tiny_max`` defaults to ``TINY_MAX``."""
     if values.dtype.kind not in ("i", "u"):
-        raise NotImplementedError(
-            "non-integer Categorify keys are not ported yet "
-            "(ROADMAP.md queue 1: strings and hybrid execution)"
-        )
+        raise NotImplementedError(UNSUPPORTED_KEYS)
     if not fits_int32(values):
         raise NotImplementedError(UNSUPPORTED_WIDE_KEYS)
-    if len(values) <= TINY_MAX:
+    if len(values) <= (TINY_MAX if tiny_max is None else tiny_max):
         return TinyLookup(values.astype(np.int32), codes.astype(np.int32))
     direct = build_direct(values, codes)
     if direct is not None:
@@ -233,8 +257,8 @@ class BatchedTiny(_Batched):
         self.codes = torch.from_numpy(codes)
         self.lens = torch.tensor([len(l.keys) for l in luts], dtype=torch.int32)
 
-    def encode(self, values, validity, sel, col_offsets):
-        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets)
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
+        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets, miss, null)
 
 
 class BatchedDirect(_Batched):
@@ -250,9 +274,10 @@ class BatchedDirect(_Batched):
         self.lens = torch.from_numpy(lens)
         self.offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
         return direct_lookup(
-            values, validity, self.table, self.mins, self.maxs, self.lens, self.offsets, sel, col_offsets
+            values, validity, self.table, self.mins, self.maxs, self.lens, self.offsets, sel, col_offsets,
+            miss, null,
         )
 
 
@@ -267,8 +292,10 @@ class BatchedCuckoo(_Batched):
         self.nbs = torch.from_numpy(nbs)
         self.row_offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(nbs)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets):
-        return cuckoo_lookup(values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets)
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
+        return cuckoo_lookup(
+            values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets, miss, null
+        )
 
 
 BATCHED = {"tiny": BatchedTiny, "direct": BatchedDirect, "cuckoo": BatchedCuckoo}

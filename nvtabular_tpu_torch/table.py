@@ -121,6 +121,15 @@ class Column:
 
         return Column(move(self.values), move(self.offsets), move(self.validity))
 
+    def __array__(self, dtype=None, copy=None):
+        """numpy interop on the host: a Column reads as its (flat) values, so
+        numpy ufuncs apply directly (the UDF / LambdaOp contract). A column
+        on another device raises rather than copy behind the caller's back."""
+        if self.device.type != "cpu":
+            raise TypeError(f"numpy reads host columns only; this one is on {self.device}")
+        arr = self.values.numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
     def __repr__(self):
         kind = "list" if self.is_list else "scalar"
         return f"Column({kind}, {self.dtype.name}, n={len(self)}, device={self.device})"

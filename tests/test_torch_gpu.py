@@ -13,8 +13,11 @@ import torch
 
 import nvtabular_tpu_torch as nvt
 from nvtabular_tpu_torch import kernels, models, ops
+from nvtabular_tpu_torch.kernels import bucketize as kbkt
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
 from nvtabular_tpu_torch.kernels import embedding as kemb
+from nvtabular_tpu_torch.kernels import groupby as kgb
+from nvtabular_tpu_torch.kernels import hash as khash
 from nvtabular_tpu_torch.kernels import interaction as kint
 from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.loader import DeviceLoader
@@ -58,20 +61,24 @@ def _tables(rng):
     return [(tiny, tiny_keys), (direct, direct_keys), (cuckoo, wide)]
 
 
+@pytest.mark.parametrize("codes", [(2, 1), (123_457, 123_457)], ids=["categorify", "group_index"])
 @pytest.mark.parametrize("with_validity", [False, True])
-def test_lookup_kernels_match_plain(with_validity):
+def test_lookup_kernels_match_plain(with_validity, codes):
+    """Categorify's miss and null codes, and a group index's (num_groups
+    for both, no column offsets)."""
     _require_cuda()
     rng = np.random.default_rng(6)
+    miss, null = codes
     for blut, keysets in _tables(rng):
         sel = list(range(len(keysets))) + [0]
         values = _queries(rng, [keysets[s] for s in sel], 100_003)
         validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
         sel_t = torch.tensor(sel, dtype=torch.int32)
-        offs = torch.tensor([7 * i for i in range(len(sel))], dtype=torch.int32)
-        want = blut.encode(values, validity, sel_t, offs)
+        offs = torch.tensor([7 * i if miss == 2 else 0 for i in range(len(sel))], dtype=torch.int32)
+        want = blut.encode(values, validity, sel_t, offs, miss, null)
         dev = blut.to("cuda")
         got = dev.encode(
-            values.cuda(), None if validity is None else validity.cuda(), sel_t.cuda(), offs.cuda()
+            values.cuda(), None if validity is None else validity.cuda(), sel_t.cuda(), offs.cuda(), miss, null
         )
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), type(blut).__name__
@@ -297,3 +304,199 @@ def test_device_loader_on_cuda_permutes_each_chunk_once():
     assert kernels.LAUNCHES["permute_rows"] == 3
     assert rows.device.type == "cuda" and rows.numel() == 15_000 // 2048 * 2048
     assert torch.unique(rows).numel() == rows.numel()
+
+
+def _hash_columns(n, seed):
+    r = np.random.default_rng(seed)
+    f = r.normal(0.0, 1e4, n).astype(np.float32)
+    f[:5] = [np.nan, np.inf, -0.0, 0.0, -np.inf]
+    return {
+        "int32": r.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32),
+        "int64_in": r.integers(I32_MIN, I32_MAX, n, dtype=np.int64),
+        "int64_wide": r.integers(-(2**62), 2**62, n, dtype=np.int64),
+        "float32": f,
+        "bool": r.random(n) < 0.5,
+    }
+
+
+@pytest.mark.parametrize("num_buckets", [10_000, 2**32 - 1, None])
+def test_hashed_cross_kernel_matches_plain(num_buckets):
+    """Bit-identical: integer arithmetic only; every column kind in one
+    launch, and each alone."""
+    _require_cuda()
+    cols = {k: torch.from_numpy(v) for k, v in _hash_columns(100_003, 9).items()}
+    for group in (list(cols.values()), *[[c] for c in cols.values()]):
+        want = khash.hashed_cross(group, num_buckets, seed=7)
+        kernels.reset_launches()
+        got = khash.hashed_cross([c.cuda() for c in group], num_buckets, seed=7)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["hashed_cross"] == 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("row_offset", [0, 2**32 - 50_000, 3 * 2**40 + 17])
+@pytest.mark.parametrize("kfold", [3, 5])
+def test_fold_ids_kernel_matches_plain(row_offset, kfold):
+    """Across the 2**32 boundary of the row index (the reference's 32-bit
+    carry)."""
+    _require_cuda()
+    want = khash.fold_ids(row_offset, 100_003, kfold, 42, "cpu")
+    got = khash.fold_ids(row_offset, 100_003, kfold, 42, "cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_new_kernels_take_empty_inputs_and_the_current_stream():
+    _require_cuda()
+    kernels.reset_launches()
+    empty_i, empty_f = torch.zeros(0, dtype=torch.int32, device="cuda"), torch.zeros(0, device="cuda")
+    assert khash.hashed_cross([empty_i, empty_f], 10).shape == (0,)
+    assert khash.fold_ids(5, 0, 3, 42, "cuda").shape == (0,)
+    assert kbkt.bucketize(empty_f, torch.tensor([1.0], device="cuda")).shape == (0,)
+    assert sum(kernels.LAUNCHES.values()) == 0  # nothing to launch
+    x = torch.randn(300_001, device="cuda") * 10
+    bounds = torch.tensor([-5.0, 0.0, 5.0], device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kbkt.bucketize(x, bounds)
+        codes = khash.hashed_cross([x], 97)
+    side.synchronize()
+    assert torch.equal(got.cpu(), kbkt.bucketize(x.cpu(), bounds.cpu()))
+    assert torch.equal(codes.cpu(), khash.hashed_cross([x.cpu()], 97))
+
+
+def _te_state(rng, sizes, T, kfold):
+    """Random flat TE stats for groups of ``sizes`` groups each."""
+    sums, counts, fs, fc, stat_off, fold_off = [], [], [], [], [], []
+    at = fat = 0
+    for ng in sizes:
+        for _ in range(T):
+            c = rng.integers(0, 50, ng + 1).astype(np.float32)
+            c[-1] = 0
+            sums.append((c * rng.random(ng + 1) * 5).astype(np.float32))
+            counts.append(c)
+            stat_off.append(at)
+            at += ng + 1
+            part = np.floor(c[None, :] * rng.random((kfold, ng + 1)) / kfold).astype(np.float32)
+            fs.append((part * 2.5).reshape(-1))
+            fc.append(part.reshape(-1))
+            fold_off.append(fat)
+            fat += kfold * (ng + 1)
+    return kgb.TEState(
+        sums=torch.from_numpy(np.concatenate(sums)), counts=torch.from_numpy(np.concatenate(counts)),
+        stat_off=torch.tensor(stat_off), fsums=torch.from_numpy(np.concatenate(fs)),
+        fcnts=torch.from_numpy(np.concatenate(fc)), fold_off=torch.tensor(fold_off),
+        strides=torch.tensor([ng + 1 for ng in sizes]),
+        means=torch.from_numpy(rng.random(T).astype(np.float32) * 4), p_smooth=0.0, kfold=kfold, fold_seed=42,
+    )
+
+
+@pytest.mark.parametrize("kfold", [3, 1])
+@pytest.mark.parametrize("p_smooth", [20.0, 0.0])
+def test_te_encode_kernel_matches_plain(kfold, p_smooth):
+    """Bit-identical: each product and sum rounds on its own on both sides
+    (no FMA in the kernel), and the division is IEEE on both."""
+    _require_cuda()
+    rng = np.random.default_rng(10)
+    sizes, T, n = [161_999, 300, 0], 2, 100_003
+    st = _te_state(rng, sizes, T, kfold)
+    st.p_smooth = p_smooth
+    gidx = torch.from_numpy(np.stack([rng.integers(0, ng + 1, n) for ng in sizes]).astype(np.int32))
+    want = kgb.te_encode(gidx, st, 2**32 - 7)
+    kernels.reset_launches()
+    got = kgb.te_encode(gidx.cuda(), st.to("cuda"), 2**32 - 7)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["te_encode"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_stat_gather_kernel_matches_plain():
+    _require_cuda()
+    rng = np.random.default_rng(11)
+    n, sizes = 100_003, [62_000, 40]
+    gidx = torch.from_numpy(np.stack([rng.integers(0, ng + 1, n) for ng in sizes]).astype(np.int32))
+    ints = [rng.integers(0, 2**31 - 1, ng + 1).astype(np.int32) for ng in sizes]
+    floats = [rng.normal(0, 1, ng + 1).astype(np.float32) for ng in sizes for _ in range(2)]
+    floats[0][-1] = np.nan
+    st = kgb.GatherState(
+        itable=torch.from_numpy(np.concatenate(ints)), ftable=torch.from_numpy(np.concatenate(floats)),
+        groups=torch.tensor([0, 1, 0, 0, 1, 1], dtype=torch.int32),
+        offs=torch.tensor([0, sizes[0] + 1, 0, sizes[0] + 1, 2 * sizes[0] + 2, 2 * sizes[0] + sizes[1] + 3]),
+        ki=2,
+    )
+    want = kgb.stat_gather(gidx, st)
+    kernels.reset_launches()
+    got = kgb.stat_gather(gidx.cuda(), st.to("cuda"))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stat_gather"] == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu().view(torch.int32), want[1].view(torch.int32))  # NaN pad slots too
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32, torch.int64])
+def test_bucketize_kernel_matches_plain(dtype):
+    """Values on the bounds, NaN and infinities included."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(12)
+    x = (torch.rand(200_003, generator=g, dtype=torch.float64) * 1.2e6 - 1e5)
+    bounds = torch.tensor([60.0, 3600.0, 43200.0, 86400.0, 604800.0], dtype=torch.float64)
+    x[:5] = bounds
+    if dtype.is_floating_point:
+        x[5:8] = torch.tensor([float("nan"), float("inf"), -float("inf")], dtype=torch.float64)
+    x, bounds = x.to(dtype), bounds.to(dtype)
+    want = kbkt.bucketize(x, bounds)
+    kernels.reset_launches()
+    got = kbkt.bucketize(x.cuda(), bounds.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucketize"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert set(got.unique().tolist()) == set(range(6))
+
+
+def _movielens_part(seed, n=40_000):
+    r = np.random.default_rng(seed)
+    users = r.zipf(1.2, n).clip(1, 20_000).astype(np.int64)
+    return {
+        "userId": users,
+        "movieId": r.zipf(1.1, n).clip(1, 300).astype(np.int64),
+        "rating": (r.integers(1, 11, n) / 2.0).astype(np.float32),
+        "ts_delta": r.exponential(86400.0, n).astype(np.float32),
+    }
+
+
+def _movielens_graph():
+    te = ["userId", "movieId"] >> ops.TargetEncoding("rating", kfold=3, p_smooth=20)
+    jg = ["movieId"] >> ops.JoinGroupby(cont_cols=["ts_delta"], stats=["mean", "count", "std"])
+    lam = ["ts_delta"] >> ops.LambdaOp(np.log1p) >> ops.Bucketize([1.0, 8.0, 11.0, 12.0])
+    cross = ["userId", "movieId"] >> ops.HashedCross(10_000)
+    return te + jg + lam + cross + ["rating"]
+
+
+def test_movielens_workflow_on_cuda_matches_cpu_and_counts_launches():
+    """The advanced MovieLens workflow fitted on the card, carried to the CPU
+    by convert: codes, counts and buckets exact, floats within rtol=1e-6."""
+    _require_cuda()
+    parts = [_movielens_part(s) for s in range(3)]
+    gpu = nvt.Workflow(_movielens_graph())
+    gpu.fit(nvt.Dataset(parts))
+    cpu = nvt.Workflow(_movielens_graph(), device="cpu")
+    nvt.load_fitted_state(cpu, nvt.fitted_state(gpu))
+    batch = nvt.TableBatch.from_pydict(_movielens_part(9))
+    batch.row_offset = 2**32 - 1000
+    kernels.reset_launches()
+    got = gpu.transform(batch)
+    torch.cuda.synchronize()
+    # userId's keys take a direct map, movieId's (<= 512) a tiny table: TE
+    # indexes both groups, JoinGroupby movieId again
+    want = {"direct_lookup": 1, "tiny_lookup": 2, "te_encode": 1, "stat_gather": 1, "hashed_cross": 1, "bucketize": 1}
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    assert gpu.executor.host_handoffs == 1
+    ref = cpu.transform(batch)
+    assert got.column_names == ref.column_names
+    for name in ref.column_names:
+        g, w = got[name].values.cpu(), ref[name].values
+        if w.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7, equal_nan=True)
+        else:
+            assert torch.equal(g, w), name

@@ -25,6 +25,7 @@ from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import interaction as kint
 from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.ops import lookup as plookup
+from nvtabular_tpu_torch.table import Column as PColumn
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -268,3 +269,105 @@ def test_interaction_plain_edge_cases():
     assert buf[0, :2].tolist() == [-1.0, -1.0] and buf[0, 2:].tolist() == got
     with pytest.raises(ValueError, match="expected float32"):
         kint.interaction_fwd(x, out=torch.empty((1, 5)))
+
+
+@pytest.mark.parametrize("kind", ["tiny", "direct", "cuckoo"])
+def test_group_index_plain_matches_jax(kind):
+    """K1-K3 with a group index's codes: hits give the group row, misses and
+    null keys the pad slot num_groups (KeyedStats.device_group_index,
+    nvtabular_tpu/ops/groupby_stats.py:590-610)."""
+    from nvtabular_tpu.ops.groupby_stats import KeyedStats as JKeyed
+    from nvtabular_tpu_torch.ops.groupby_stats import KeyedStats as PKeyed
+
+    rng = np.random.default_rng(15)
+    size = {"tiny": 300, "direct": 5000, "cuckoo": 5000}[kind]
+    if kind == "cuckoo":
+        keys = np.unique(rng.integers(I32_MIN, I32_MAX, 2 * size, dtype=np.int64))[:size]
+    else:
+        keys = rng.choice(np.arange(-1000, 20_000, dtype=np.int64), size, replace=False)
+    keys = rng.permutation(keys)
+    stats = {"x.sum": rng.random(size)}
+    ported = PKeyed(["k"], stats, {"k": keys})
+    assert plookup.kind_of(ported.lookup_struct()) == kind
+    queries = _values(rng, [keys], 4000, EXTREMES)[0]
+    validity = rng.random(len(queries)) > 0.1
+    got = ported.group_index("cpu")(PColumn(queries, None, validity)).numpy()
+    ref = JKeyed(["k"], stats, keys, {"k": keys}).device_group_index(
+        "test", [JColumn(jnp.asarray(queries), None, jnp.asarray(validity))]
+    )
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert (got[~validity] == size).all()
+
+
+def test_te_encode_plain_edge_cases():
+    """The pad slot and a group whose out-of-fold count is 0 read the target
+    mean when p_smooth is 0; no group or no row gives an empty result."""
+    from nvtabular_tpu_torch.kernels import groupby as kgb
+
+    st = kgb.TEState(
+        sums=torch.tensor([6.0, 4.0, 0.0]), counts=torch.tensor([3.0, 2.0, 0.0]),
+        stat_off=torch.tensor([0]), fsums=torch.tensor([6.0, 0.0, 0.0, 0.0, 4.0, 0.0]),
+        fcnts=torch.tensor([3.0, 0.0, 0.0, 0.0, 2.0, 0.0]), fold_off=torch.tensor([0]),
+        strides=torch.tensor([3]), means=torch.tensor([1.5]), p_smooth=0.0, kfold=2, fold_seed=42,
+    )
+    gidx = torch.tensor([[0, 1, 2, 0, 1, 2]], dtype=torch.int32)
+    folds = kgb.fold_ids_plain(0, 6, 2, 42).tolist()
+    want = []
+    for g, f in zip([0, 1, 2, 0, 1, 2], folds):
+        c = [3.0, 2.0, 0.0][g] - (3.0 if (f, g) == (0, 0) else 2.0 if (f, g) == (1, 1) else 0.0)
+        s = [6.0, 4.0, 0.0][g] - (6.0 if (f, g) == (0, 0) else 4.0 if (f, g) == (1, 1) else 0.0)
+        want.append(s / c if c > 0 else 1.5)
+    assert kgb.te_encode(gidx, st, 0)[0].tolist() == want
+    assert kgb.te_encode(gidx[:, :0], st, 0).shape == (1, 0)
+    with pytest.raises(ValueError, match="row_offset"):
+        kgb.te_encode(gidx, st, -1)
+
+
+def test_stat_gather_plain_edge_cases():
+    from nvtabular_tpu_torch.kernels import groupby as kgb
+
+    gidx = torch.tensor([[0, 2, 1], [1, 1, 0]], dtype=torch.int32)
+    st = kgb.GatherState(
+        itable=torch.tensor([7, 8, 0], dtype=torch.int32), ftable=torch.tensor([0.5, 1.5, float("nan"), 9.0, 9.5]),
+        groups=torch.tensor([0, 0, 1], dtype=torch.int32), offs=torch.tensor([0, 0, 3]), ki=1,
+    )
+    ints, floats = kgb.stat_gather(gidx, st)
+    assert ints.tolist() == [[7, 0, 8]]
+    torch.testing.assert_close(floats, torch.tensor([[0.5, float("nan"), 1.5], [9.5, 9.5, 9.0]]), equal_nan=True)
+    none = kgb.GatherState(st.itable, st.ftable, st.groups[:0], st.offs[:0], 0)
+    assert [t.shape for t in kgb.stat_gather(gidx, none)] == [(0, 3), (0, 3)]
+    with pytest.raises(ValueError, match="ki"):
+        kgb.stat_gather(gidx, kgb.GatherState(st.itable, st.ftable, st.groups, st.offs, 4))
+
+
+def test_hash_and_bucketize_plain_edge_cases():
+    """hashed_cross widens bools and small ints to int32 and narrows float64
+    to float32 (the reference's device lanes); ``num_buckets`` must fit
+    uint32. No bound puts every value in bucket 0."""
+    from nvtabular_tpu_torch.kernels import bucketize as kbkt
+    from nvtabular_tpu_torch.kernels import hash as khash
+
+    b = torch.tensor([True, False, True])
+    assert torch.equal(khash.hashed_cross([b], 97), khash.hashed_cross([b.to(torch.int32)], 97))
+    x = torch.tensor([0.1, -2.5, 1e30], dtype=torch.float64)
+    assert torch.equal(khash.hashed_cross([x], None), khash.hashed_cross([x.float()], None))
+    assert khash.hashed_cross([b], None).dtype == torch.int64
+    with pytest.raises(ValueError, match="num_buckets"):
+        khash.hashed_cross([b], 2**32)
+    with pytest.raises(ValueError, match="at least one"):
+        khash.hashed_cross([], 5)
+    assert kbkt.bucketize(x, torch.zeros(0, dtype=torch.float64)).tolist() == [0, 0, 0]
+    with pytest.raises(TypeError):
+        kbkt.bucketize(x, torch.zeros(1))
+
+
+def test_new_cpu_wrappers_launch_nothing():
+    from nvtabular_tpu_torch.kernels import bucketize as kbkt
+    from nvtabular_tpu_torch.kernels import hash as khash
+
+    before = dict(LAUNCHES)
+    x = torch.arange(10, dtype=torch.float32)
+    khash.hashed_cross([x], 7)
+    khash.fold_ids(0, 10, 3, 42, "cpu")
+    kbkt.bucketize(x, torch.tensor([3.0]))
+    assert LAUNCHES == before

@@ -47,6 +47,17 @@ config = models.DLRMConfig.from_schema(wf.output_schema, embedding_dim=4, bottom
 model = models.DLRM(config, device="cpu")
 losses = models.train_chunk(model, models.Adagrad(model.parameters()), next(loader.chunks()), 1000)
 assert losses.shape == (4,) and bool(losses.isfinite().all())
+for p in parts:
+    p["rating"] = (p["label"] + p["x"]).astype(np.float32)
+te = ["tiny", "direct"] >> ops.TargetEncoding("rating", kfold=3, p_smooth=20)
+jg = ["wide"] >> ops.JoinGroupby(cont_cols=["x"], stats=["mean", "count"])
+lam = ["x"] >> ops.LambdaOp(np.abs) >> ops.Bucketize([0.5, 1.0, 2.0])
+cross = ["tiny", "direct"] >> ops.HashedCross(100)
+adv = nvt.Workflow(te + jg + lam + cross, device="cpu")
+out = list(adv.fit_transform(nvt.Dataset(parts)).to_batches())
+assert out[2].column_names == ["TE_tiny_rating", "TE_direct_rating", "wide_x_mean", "wide_count", "x",
+                               "direct_X_tiny"]
+assert int(out[2]["direct_X_tiny"].values.max()) < 100 and int(out[2]["x"].values.max()) <= 3
 assert not any(m == "jax" or m.startswith(("jax.", "nvtabular_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("STANDALONE_OK")
