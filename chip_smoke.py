@@ -56,7 +56,24 @@ a nonzero exit:
    with and without the host-to-device copy and the UDF's host handoff per
    batch; hashed_cross, fold_ids, te_encode, stat_gather and bucketize at
    the path's shapes against their plain versions on the card (bucketize on
-   raw ts_delta, where all six buckets fill), timed beside their bounds.
+   raw ts_delta, where all six buckets fill), timed beside their bounds;
+10. the MovieLens multihot path (BASELINE config 1, bench/movielens_bench.py:
+   62-70, its rating binarized by a LambdaOp) on phase 9's partitions, with
+   the genres list column (1-4 ids of 20 a row): Categorify of userId,
+   movieId and genres, LogOp >> Normalize of ts_delta; Workflow.fit and
+   Workflow.transform of every batch, counters zeroed before each; batch 0
+   against the CPU run (codes and offsets exact); rows/s with and without
+   the copy; then the transform of the first MH_TRAIN_PARTS partitions
+   through DeviceLoader(sparse_max={"genres": 4}), which pads genres (K11)
+   and permutes each chunk (K14), into TabularMLP (1041 -> 512 -> 256 -> 1,
+   tables at the fitted cardinalities) with Adagrad(1e-2): a warm-up chunk,
+   then TRAIN_REPEATS timed passes of MH_STEPS steps, counters read after;
+   one step through the kernels against the plain versions on the card in
+   bfloat16 and float32; and ListSlice(0, 3, pad=True) of the genres codes
+   over every batch (K11's slice);
+11. ragged_to_padded, ragged_slice_padded, embedding_bag_fwd and
+   embedding_bag_bwd at phase 10's shapes against their plain versions on
+   the card, timed beside their bounds and the library calls.
 
 The line before the last is {"kernels": [...]} with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -103,6 +120,9 @@ ML_USERS, ML_MOVIES, ML_GENRES = 162_000, 62_000, 20
 ML_ROWS_PER_PART, ML_PARTS = 500_000, 50
 TS_BOUNDS = [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
 ML_TOL = dict(rtol=1e-6, atol=1e-7)  # card vs CPU: TE and stat columns
+# the multihot path: its training feed (8 chunks of 7 full batches) and the
+# loader's padded length of genres (1-4 ids a row)
+MH_TRAIN_PARTS, MH_STEPS, MH_SPARSE_MAX = 8, 56, 4
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -148,21 +168,30 @@ def make_compact_part(seed: int) -> dict:
 
 
 def make_movielens_part(seed: int) -> dict:
-    """One partition as bench/movielens_bench.py:make_part draws it, without
-    its genres list column (config 2 never reads it; it is still drawn, so
-    the later columns are the bench's)."""
+    """One partition as bench/movielens_bench.py:make_part draws it; the
+    genres list column is its (values, int64 offsets) pair."""
     rng = np.random.default_rng(seed)
     rows = ML_ROWS_PER_PART
     users = rng.zipf(1.2, rows).clip(1, ML_USERS).astype(np.int64)
     movies = rng.zipf(1.1, rows).clip(1, ML_MOVIES).astype(np.int64)
     lengths = rng.integers(1, 5, rows)
-    rng.integers(1, ML_GENRES + 1, int(lengths.sum()))  # genres
+    offsets = np.zeros(rows + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
     return {
         "userId": users,
         "movieId": movies,
+        "genres": (rng.integers(1, ML_GENRES + 1, int(offsets[-1])).astype(np.int64), offsets),
         "rating": (rng.integers(1, 11, rows) / 2.0).astype(np.float32),
         "ts_delta": rng.exponential(86400.0, rows).astype(np.float32),
     }
+
+
+def movielens_table(nvt, part: dict, columns=None):
+    """A partition as a TableBatch of ``columns`` (all by default)."""
+    names = list(part) if columns is None else columns
+    return nvt.TableBatch(
+        {k: nvt.Column(*part[k]) if isinstance(part[k], tuple) else nvt.Column(part[k]) for k in names}
+    )
 
 
 def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS) -> float:
@@ -208,6 +237,9 @@ def compare_outputs(got, want, conts, what, tol=CPU_TOL):
                 fail(f"{what}: {name} differs, max abs {float((g - w).abs().max())}")
         elif not torch.equal(g, w):
             fail(f"{what}: {name} codes differ in {int((g != w).sum())} rows")
+        go, wo = got[name].offsets, want[name].offsets
+        if (go is None) != (wo is None) or (wo is not None and not torch.equal(go.cpu(), wo)):
+            fail(f"{what}: {name} list offsets differ")
 
 
 def drive(nvt, wf, parts, conts, kernels_on_path, what):
@@ -311,17 +343,16 @@ def step_grads(model, forward, batch):
     return logits.detach(), loss.detach(), grads
 
 
-def check_step_parity(model, batch) -> dict:
+def check_step_parity(model, batch, reference, mlps) -> dict:
     """One step's loss, logits and gradients through the kernels against the
-    plain versions (models.reference_forward) on the card, from the same
-    state, in the trained bfloat16 compute and in float32."""
-    from nvtabular_tpu_torch import models
-
+    plain versions (``reference(model, batch)``) on the card, from the same
+    state, in the trained bfloat16 compute and in float32 (set on ``mlps``)."""
     errs = {}
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        model.bottom.compute_dtype = model.top.compute_dtype = dtype
+        for mlp in mlps:
+            mlp.compute_dtype = dtype
         k_logits, k_loss, k_grads = step_grads(model, model, batch)
-        p_logits, p_loss, p_grads = step_grads(model, lambda b: models.reference_forward(model, b), batch)
+        p_logits, p_loss, p_grads = step_grads(model, lambda b: reference(model, b), batch)
         loss_rtol, logit_atol, grad_rel = STEP_TOL[name]
         loss_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
         logit_err = float((k_logits - p_logits).abs().max())
@@ -333,7 +364,8 @@ def check_step_parity(model, batch) -> dict:
         if not (loss_err <= loss_rtol and logit_err <= logit_atol and max(grad_errs) <= grad_rel):
             fail(f"training step ({name}): kernels vs plain differ: {errs[name]} (limits {STEP_TOL[name]})")
         del k_grads, p_grads
-    model.bottom.compute_dtype = model.top.compute_dtype = torch.bfloat16
+    for mlp in mlps:
+        mlp.compute_dtype = torch.bfloat16
     return errs
 
 
@@ -408,7 +440,7 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
     )
 
     batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
-    rec["parity"] = check_step_parity(model, batch)
+    rec["parity"] = check_step_parity(model, batch, models.reference_forward, [model.bottom, model.top])
     log(f"train: one step through the kernels equals the plain versions on the card: {rec['parity']}")
     if profile:
 
@@ -577,7 +609,28 @@ def check_launches(launches, want, what):
             fail(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
 
 
-def movielens_path(nvt, dev, profile: bool) -> dict:
+def transform_all(wf, batches):
+    for b in batches:
+        wf.transform(b)
+    torch.cuda.synchronize()
+
+
+def transform_rates(wf, batches, rows_total):
+    """rows/s of REPEATS passes over ``batches``, each ended by a
+    synchronize, sorted; and the median over the passes of the host
+    handoff's ms a batch (0 without a host op)."""
+    ex = wf.executor
+    out, handoff_ms = [], []
+    for _ in range(REPEATS):
+        h0, s0 = ex.host_handoffs, ex.host_handoff_seconds
+        t0 = time.perf_counter()
+        transform_all(wf, batches)
+        out.append(rows_total / (time.perf_counter() - t0))
+        handoff_ms.append(1e3 * (ex.host_handoff_seconds - s0) / max(ex.host_handoffs - h0, 1))
+    return sorted(out), float(np.median(handoff_ms))
+
+
+def movielens_path(nvt, dev, ml_parts, profile: bool) -> dict:
     """Phase 9: the advanced MovieLens workflow at ml-25m size, then its
     kernels at the path's shapes against their plain versions."""
     from nvtabular_tpu_torch import kernels, ops
@@ -586,12 +639,11 @@ def movielens_path(nvt, dev, profile: bool) -> dict:
     from nvtabular_tpu_torch.kernels import hash as khash
     from nvtabular_tpu_torch.ops.lookup import kind_of
 
-    phase_t0 = t0 = time.perf_counter()
-    parts = [nvt.TableBatch.from_pydict(make_movielens_part(s)) for s in range(ML_PARTS)]
-    dataset = nvt.Dataset(parts)
+    phase_t0 = time.perf_counter()
+    # config 2 never reads the genres list column
+    dataset = nvt.Dataset([movielens_table(nvt, p, ["userId", "movieId", "rating", "ts_delta"]) for p in ml_parts])
     batches = list(dataset.to_batches())  # each with its global row offset
     rows_total = ML_PARTS * ML_ROWS_PER_PART
-    log(f"movielens: data {ML_PARTS} x {ML_ROWS_PER_PART} rows in {time.perf_counter() - t0:.1f} s")
 
     # fit: only the fold ids of TargetEncoding run a kernel, once a batch
     wf = nvt.Workflow(movielens_graph(ops), device=dev)
@@ -650,25 +702,10 @@ def movielens_path(nvt, dev, profile: bool) -> dict:
     del outs
 
     # throughput, and the UDF's host handoff (both copies and np.log1p)
-    def run_all(bs):
-        for b in bs:
-            wf.transform(b)
-        torch.cuda.synchronize()
-
-    def rates(bs):
-        out, handoff_ms = [], []
-        for _ in range(REPEATS):
-            h0, s0 = ex.host_handoffs, ex.host_handoff_seconds
-            t0 = time.perf_counter()
-            run_all(bs)
-            out.append(rows_total / (time.perf_counter() - t0))
-            handoff_ms.append(1e3 * (ex.host_handoff_seconds - s0) / (ex.host_handoffs - h0))
-        return sorted(out), float(np.median(handoff_ms))
-
-    with_h2d_all, handoff_ms = rates(batches)
+    with_h2d_all, handoff_ms = transform_rates(wf, batches, rows_total)
     on_card = [ex.stage(b) for b in batches]
     torch.cuda.synchronize()
-    without_h2d_all, handoff_card_ms = rates(on_card)
+    without_h2d_all, handoff_card_ms = transform_rates(wf, on_card, rows_total)
     rec = {
         "fit_s": fit_s, "fit_stats": dict(wf.last_fit_stats), "groups": groups, "fit_launches": fit_launches,
         "first_pass_s": first_pass_s, "launches": launches, "rows": rows_total,
@@ -678,8 +715,8 @@ def movielens_path(nvt, dev, profile: bool) -> dict:
     }
     if profile:
         rec["profile"] = {
-            "with_h2d": profile_pass(lambda: run_all(batches[:4])),
-            "without_h2d": profile_pass(lambda: run_all(on_card[:4])),
+            "with_h2d": profile_pass(lambda: transform_all(wf, batches[:4])),
+            "without_h2d": profile_pass(lambda: transform_all(wf, on_card[:4])),
         }
         for what, p in rec["profile"].items():
             log(f"profile movielens {what}: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
@@ -767,6 +804,319 @@ def movielens_path(nvt, dev, profile: bool) -> dict:
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"movielens: phase 9 took {rec['phase_s']:.1f} s")
     return rec
+
+
+def binarize_rating(col):
+    """The getting-started ETL's label: rating > 3."""
+    return (np.asarray(col) > 3).astype(np.float32)
+
+
+def config1_graph(ops):
+    """BASELINE config 1 (bench/movielens_bench.py:62-70), its rating
+    binarized."""
+    cats = ["userId", "movieId", "genres"] >> ops.Categorify()
+    conts = ["ts_delta"] >> ops.LogOp() >> ops.Normalize()
+    return cats + conts + (["rating"] >> ops.LambdaOp(binarize_rating))
+
+
+def multihot_train(nvt, wf, batches, profile: bool) -> dict:
+    """Phase 10's training: the transform of the first MH_TRAIN_PARTS
+    partitions through DeviceLoader(sparse_max) into the tabular MLP."""
+    from nvtabular_tpu_torch import kernels, models, ops
+    from nvtabular_tpu_torch.loader import DeviceLoader
+
+    cat_names = ["userId", "movieId", "genres"]
+    loader = DeviceLoader(
+        wf.transform(nvt.Dataset(batches[:MH_TRAIN_PARTS])), batch_size=TRAIN_BS, shuffle=True, seed=0,
+        drop_last=True, sparse_max={"genres": MH_SPARSE_MAX}, cat_names=cat_names, cont_names=["ts_delta"],
+        label_names=["rating"], device=DEVICE,
+    )
+    single, multi = ops.get_embedding_sizes(wf)
+    config = models.TabularMLPConfig(embedding_sizes=single, num_continuous=1, multihot_embedding_sizes=multi)
+    if multi != {"genres": (ML_GENRES + 3, 16)} or config.input_dim != 1041:
+        fail(f"multihot: unexpected embedding sizes {single}, {multi} (MLP input {config.input_dim})")
+    model = models.TabularMLP(config, seed=0, device=DEVICE)
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    cards = {**{k: v[0] for k, v in single.items()}, **{k: v[0] for k, v in multi.items()}}
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    handoffs0 = wf.executor.host_handoffs
+    t0 = time.perf_counter()
+    staged = list(loader.chunks())
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    for chunk in staged:
+        chunk["continuous"] = chunk.pop("dense")  # the tabular MLP's name for the dense features
+        for name in cat_names:
+            codes = chunk[f"{name}__values" if name in multi else name]
+            lo, hi = (int(v) for v in torch.aminmax(codes))
+            if lo < 0 or hi >= cards[name]:
+                fail(f"multihot train: {name} codes span [{lo}, {hi}], its table has {cards[name]} rows")
+    t0 = time.perf_counter()
+    losses = [models.train_chunk(model, opt, staged[0], TRAIN_BS, models.tabular_mlp_loss)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pass_s = []
+    i = 0
+    for _ in range(TRAIN_REPEATS):
+        steps = 0
+        t0 = time.perf_counter()
+        while steps < MH_STEPS:
+            losses.append(models.train_chunk(model, opt, staged[i % len(staged)], TRAIN_BS, models.tabular_mlp_loss))
+            steps += losses[-1].numel()
+            i += 1
+        torch.cuda.synchronize()
+        pass_s.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+
+    total_steps = sum(int(l.numel()) for l in losses)
+    per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
+    # a gather and a scatter per id table, a bag and its gradient per step
+    per_step = {"embedding_gather": len(model.tables), "embedding_scatter_grad": len(model.tables),
+                "embedding_bag_fwd": 1, "embedding_bag_bwd": 1}
+    check_launches(launches, {**{k: len(staged) for k in per_chunk},
+                              **{k: n * total_steps for k, n in per_step.items()}}, "multihot train")
+    if wf.executor.host_handoffs - handoffs0 != len(staged):
+        fail(f"multihot train: {wf.executor.host_handoffs - handoffs0} host handoffs for {len(staged)} chunks")
+    all_losses = torch.cat(losses)
+    if not bool(torch.isfinite(all_losses).all()):
+        fail(f"multihot train: non-finite losses {all_losses.tolist()}")
+    step_s = float(np.median(pass_s)) / MH_STEPS
+    table_bytes = sum(p.numel() * 4 for p in [*model.tables, *model.mh_tables])
+    rec = {
+        "stage_s": stage_s, "warm_chunk_s": warm_s, "pass_s": pass_s, "steps": total_steps,
+        "steps_per_s": 1.0 / step_s, "examples_per_s": TRAIN_BS / step_s,
+        "first_loss": float(all_losses[0]), "last_loss": float(all_losses[-1]), "launches": launches,
+        "chunks": len(staged), "chunk_rows": int(staged[0]["label"].shape[0]),
+        "embedding_sizes": {"single": single, "multihot": multi}, "table_bytes": table_bytes,
+    }
+    log(
+        f"multihot train: staged {len(staged)} chunks of {rec['chunk_rows']} rows in {stage_s:.3f} s; "
+        f"{MH_STEPS} steps of {TRAIN_BS}: median of {TRAIN_REPEATS} passes {rec['steps_per_s']:.2f} steps/s, "
+        f"{rec['examples_per_s']:,.0f} examples/s (passes {[round(s, 4) for s in pass_s]} s); "
+        f"loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f} over {total_steps} steps; "
+        f"tables {single} + {multi} = {table_bytes:,} bytes; launches {launches}"
+    )
+
+    batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
+    rec["parity"] = check_step_parity(model, batch, models.tabular_reference_forward, [model.mlp])
+    log(f"multihot train: one step through the kernels equals the plain versions on the card: {rec['parity']}")
+    if profile:
+
+        def train_two_chunks():
+            for c in staged[:2]:
+                models.train_chunk(model, opt, c, TRAIN_BS, models.tabular_mlp_loss)
+            torch.cuda.synchronize()
+
+        rec["profile"] = profile_pass(train_two_chunks)
+        p = rec["profile"]
+        log(f"profile multihot train (14 steps): wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+
+    def fwd_bwd():
+        opt.zero_grad()
+        models.tabular_mlp_loss(model, batch).backward()
+
+    rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
+    rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    log(f"multihot train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
+        f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
+    rec.update(model=model, batch=batch)
+    return rec
+
+
+def multihot_path(nvt, dev, ml_parts, profile: bool) -> dict:
+    """Phase 10: the MovieLens multihot path at ml-25m size — fit, device
+    transform, training and ListSlice."""
+    from nvtabular_tpu_torch import kernels, ops
+
+    phase_t0 = time.perf_counter()
+    dataset = nvt.Dataset([movielens_table(nvt, p) for p in ml_parts])
+    batches = list(dataset.to_batches())
+    rows_total = ML_PARTS * ML_ROWS_PER_PART
+
+    wf = nvt.Workflow(config1_graph(ops), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    wf.fit(dataset)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check_launches(dict(kernels.LAUNCHES), {}, "multihot fit")  # the fit counts on the card with torch.unique
+    cat = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Categorify))
+    kinds = {k: sorted(row_index) for k, (_, row_index) in cat._get_batched().items()}
+    if kinds != {"direct": ["movieId", "userId"], "tiny": ["genres"]}:
+        fail(f"multihot: expected direct maps for the ids and a tiny table for genres, got {kinds}")
+    log(f"multihot: fit {fit_s:.2f} s (scan {wf.last_fit_stats['scan_seconds']:.2f} s, finalize "
+        f"{wf.last_fit_stats['finalize_seconds']:.2f} s), vocabularies "
+        f"{ {k: len(v.values_by_code) for k, v in cat.vocabs.items()} }, tables {kinds}")
+
+    # transform: per batch one direct lookup (both ids), one tiny lookup (the
+    # genres' flat values), one continuous chain, one host handoff (the label)
+    ex = wf.executor
+    kernels.reset_launches()
+    handoffs0 = ex.host_handoffs
+    t0 = time.perf_counter()
+    outs = [wf.transform(b) for b in batches]
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, {"direct_lookup": ML_PARTS, "tiny_lookup": ML_PARTS, "cont_chain": ML_PARTS},
+                   "multihot transform")
+    if ex.host_handoffs - handoffs0 != ML_PARTS:
+        fail(f"multihot: {ex.host_handoffs - handoffs0} host handoffs over {ML_PARTS} batches, expected one each")
+    genre_card = ML_GENRES + 3
+    for b, out in zip(batches, outs):
+        for name, col in out.columns.items():
+            if col.device != dev or len(col) != ML_ROWS_PER_PART:
+                fail(f"multihot: output {name} has {len(col)} rows on {col.device}")
+        g = out["genres"]
+        if not torch.equal(g.offsets.cpu(), b["genres"].offsets) or int(g.values.max()) >= genre_card:
+            fail(f"multihot: genres codes reach {int(g.values.max())} (table of {genre_card}) or lost their offsets")
+        if not bool(torch.isfinite(out["ts_delta"].values).all()):
+            fail("multihot: ts_delta holds non-finite values")
+    cpu_wf = nvt.Workflow(config1_graph(ops), device="cpu")
+    nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+    compare_outputs(outs[0], cpu_wf.transform(batches[0]), {"ts_delta"}, "multihot vs cpu")
+    log(f"multihot: first transform pass {first_pass_s:.2f} s, launches {launches}; batch 0 equals the CPU run "
+        f"(codes, genres offsets and labels exact, ts_delta within rtol=1e-5, atol=1e-5)")
+
+    with_h2d_all, handoff_ms = transform_rates(wf, batches, rows_total)
+    on_card = [ex.stage(b) for b in batches]
+    torch.cuda.synchronize()
+    without_h2d_all, handoff_card_ms = transform_rates(wf, on_card, rows_total)
+    del on_card
+    log(
+        f"multihot: transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s "
+        f"(min {with_h2d_all[0]:,.0f}, max {with_h2d_all[-1]:,.0f}) with the host-to-device copy, "
+        f"{float(np.median(without_h2d_all)):,.0f} rows/s (min {without_h2d_all[0]:,.0f}, max "
+        f"{without_h2d_all[-1]:,.0f}) from batches on the card; label handoff {handoff_ms:.3f} ms a batch "
+        f"({handoff_card_ms:.3f} ms from batches on the card)"
+    )
+    rec = {
+        "fit_s": fit_s, "fit_stats": dict(wf.last_fit_stats), "first_pass_s": first_pass_s, "launches": launches,
+        "rows": rows_total, "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+        "handoff_ms_per_batch": handoff_ms, "handoff_ms_per_batch_on_card": handoff_card_ms,
+    }
+    rec["train"] = multihot_train(nvt, wf, batches, profile)
+
+    # ListSlice(0, 3, pad=True) of the genres codes: K11's slice once a batch
+    def slice_graph():
+        return ["genres"] >> ops.Categorify() >> ops.ListSlice(0, 3, pad=True)
+
+    genres = nvt.Dataset([movielens_table(nvt, p, ["genres"]) for p in ml_parts])
+    swf = nvt.Workflow(slice_graph(), device=dev)
+    swf.fit(genres)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    souts = [swf.transform(b) for b in genres.to_batches()]
+    torch.cuda.synchronize()
+    slice_s = time.perf_counter() - t0
+    rec["slice_launches"] = dict(kernels.LAUNCHES)
+    check_launches(rec["slice_launches"], {"tiny_lookup": ML_PARTS, "ragged_slice_padded": ML_PARTS}, "list slice")
+    width = 3 * ML_ROWS_PER_PART
+    if any(o["genres"].values.shape[0] != width or int(o["genres"].offsets[-1]) != width for o in souts):
+        fail("list slice: a batch's genres are not 3 padded slots a row")
+    cpu_swf = nvt.Workflow(slice_graph(), device="cpu")
+    nvt.load_fitted_state(cpu_swf, nvt.fitted_state(swf))
+    compare_outputs(souts[0], cpu_swf.transform(next(genres.to_batches())), set(), "list slice vs cpu")
+    log(f"multihot: ListSlice(0, 3, pad=True) over {ML_PARTS} batches in {slice_s:.2f} s, launches "
+        f"{rec['slice_launches']}; batch 0 equals the CPU run")
+    rec["genres_batch0"] = outs[0]["genres"]
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"multihot: phase 10 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def multihot_kernel_records(mh: dict) -> dict:
+    """Phase 11: K11 and K13c at phase 10's shapes against their plain
+    versions on the card, timed beside their bounds and library calls."""
+    from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+    from nvtabular_tpu_torch.kernels import ragged as kragged
+
+    records = {}
+
+    def record(name, got, want, fn, plain_fn, nbytes, ops, library_fn=None, **extra):
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                fail(f"{name} kernel differs from plain in {int((g != w).sum())} entries")
+        rec = {"max_abs_err": 0, "ms": time_ms(fn), "plain_ms": time_ms(plain_fn),
+               "library_ms": None if library_fn is None else time_ms(library_fn), "bytes": nbytes, **extra}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+        records[name] = rec
+
+    # K11 on batch 0's genres codes as Categorify leaves them on the card
+    genres = mh["genres_batch0"]
+    values, offsets = genres.values, genres.offsets
+    R, L = offsets.shape[0] - 1, MH_SPARSE_MAX
+    lengths = offsets[1:] - offsets[:-1]
+    read = int(lengths.clamp(max=L).sum())
+    record("ragged_to_padded", kragged.ragged_to_padded(values, offsets, L),
+           kragged.ragged_to_padded_plain(values, offsets, L),
+           lambda: kragged.ragged_to_padded(values, offsets, L), lambda: kragged.ragged_to_padded_plain(values, offsets, L),
+           (R + 1) * 8 + read * 4 + R * L * 8, 0,
+           # the padded values alone (no mask), on the same bits viewed as float32
+           library_fn=lambda: torch.ops.aten._jagged_to_padded_dense_forward(
+               values.view(torch.float32)[:, None], [offsets], [L], 0.0),
+           shape=[R, L], values=int(values.shape[0]))
+    got = kragged.ragged_slice_padded(values, offsets, 0, 3, 3)
+    sliced = int(got[1].sum())
+    record("ragged_slice_padded", got, kragged.ragged_slice_padded_plain(values, offsets, 0, 3, 3),
+           lambda: kragged.ragged_slice_padded(values, offsets, 0, 3, 3),
+           lambda: kragged.ragged_slice_padded_plain(values, offsets, 0, 3, 3),
+           (R + 1) * 8 + sliced * 4 + R * 3 * 4 + R * 8, 0,
+           # the padded values alone (no lengths): slice (0, 3) is the first 3 of each row
+           library_fn=lambda: torch.ops.aten._jagged_to_padded_dense_forward(
+               values.view(torch.float32)[:, None], [offsets], [3], 0.0),
+           shape=[R, 3], values=int(values.shape[0]))
+
+    # K13c on a training batch's padded genres, its output and gradient a
+    # slot of the MLP's [B, 1044] input, as the model passes them
+    model, batch = mh["train"]["model"], mh["train"]["batch"]
+    table = model.mh_tables[0].detach()
+    ids, mask = batch["genres__values"], batch["genres__mask"]
+    (B, L), (V, D) = ids.shape, table.shape
+    start = model.layout.bags[0][2]
+    buf = torch.empty((B, model.layout.width), device=table.device)
+    out = buf[:, start : start + D]
+    kbag.embedding_bag_fwd(table, ids, mask, out=out)
+    cnt = mask.sum(1, keepdim=True).clamp(min=1.0)
+    weights = (mask / cnt).contiguous()
+    distinct = int(torch.unique(ids).numel())
+    record("embedding_bag_fwd", (out,), (kbag.embedding_bag_fwd_plain(table, ids, mask),),
+           lambda: kbag.embedding_bag_fwd(table, ids, mask, out=out),
+           lambda: kbag.embedding_bag_fwd_plain(table, ids, mask),
+           B * L * 8 + distinct * D * 4 + B * D * 4, B * L * D * 2 + B * D,
+           library_fn=lambda: torch.nn.functional.embedding_bag(ids, table, per_sample_weights=weights, mode="sum"),
+           shape=[B, L, V, D], distinct_rows=distinct)
+
+    gbuf = torch.randn((B, model.layout.width), device=table.device,
+                       generator=torch.Generator(device=table.device).manual_seed(4))
+    grad = gbuf[:, start : start + D]
+    got = kbag.embedding_bag_bwd(grad, ids, mask, V)
+    want = kbag.embedding_bag_bwd_plain(grad, ids, mask, V)
+    magnitude = kbag.embedding_bag_bwd_plain(grad.abs(), ids, mask, V)
+    torch.cuda.synchronize()
+    # 65,536 x 4 terms on 23 rows, summed in a varying order: 1e-5 of the
+    # sum of their magnitudes, as for K13a's scatter
+    if not bool(((got - want).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+        fail(f"embedding_bag_bwd kernel differs from plain: max abs {float((got - want).abs().max())}")
+    terms = ((grad / cnt)[:, None, :] * mask[..., None]).reshape(-1, D).contiguous()
+    flat = ids.reshape(-1).long()
+    rec = {
+        "max_abs_err": float((got - want).abs().max()), "shape": [B, L, V, D],
+        "bytes": B * L * 8 + B * D * 4 + V * D * 4,
+        "ms": time_ms(lambda: kbag.embedding_bag_bwd(grad, ids, mask, V)),
+        "plain_ms": time_ms(lambda: kbag.embedding_bag_bwd_plain(grad, ids, mask, V)),
+        # the terms precomputed outside the timing
+        "library_ms": time_ms(lambda: torch.zeros((V, D), device=table.device).index_add_(0, flat, terms)),
+        "hottest_row_hits": int(torch.bincount(flat[mask.reshape(-1) > 0]).max()),
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * L * D * 2 + B * D)
+    records["embedding_bag_bwd"] = rec
+    return records
 
 
 def main():
@@ -906,32 +1256,17 @@ def main():
 
     # --- 5. throughput, with and without the host-to-device copy --------------------
     rows_total = NUM_PARTS * ROWS_PER_PART
-
-    def run_all(batches):
-        for b in batches:
-            wf.transform(b)
-        torch.cuda.synchronize()
-
-    def rates(batches):
-        """rows/s of REPEATS passes over ``batches``, each ended by a sync."""
-        out = []
-        for _ in range(REPEATS):
-            t0 = time.perf_counter()
-            run_all(batches)
-            out.append(rows_total / (time.perf_counter() - t0))
-        return sorted(out)
-
-    run_all(parts[:2])
-    with_h2d_all = rates(parts)
+    transform_all(wf, parts[:2])
+    with_h2d_all, _ = transform_rates(wf, parts, rows_total)
     on_card = [wf.executor.stage(b) for b in parts]
     torch.cuda.synchronize()
-    without_h2d_all = rates(on_card)
+    without_h2d_all, _ = transform_rates(wf, on_card, rows_total)
     with_h2d, without_h2d = float(np.median(with_h2d_all)), float(np.median(without_h2d_all))
     profiles = {}
     if opts.profile:
         profiles = {
-            "with_h2d": profile_pass(lambda: run_all(parts[:4])),
-            "without_h2d": profile_pass(lambda: run_all(on_card[:4])),
+            "with_h2d": profile_pass(lambda: transform_all(wf, parts[:4])),
+            "without_h2d": profile_pass(lambda: transform_all(wf, on_card[:4])),
         }
         for what, p in profiles.items():
             log(f"profile {what}: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
@@ -988,12 +1323,31 @@ def main():
     del train
 
     # --- 9. the advanced MovieLens path and its kernels ------------------------------------
-    movielens = movielens_path(nvt, dev, opts.profile)
+    t0 = time.perf_counter()
+    ml_parts = [make_movielens_part(s) for s in range(ML_PARTS)]
+    log(f"movielens: data {ML_PARTS} x {ML_ROWS_PER_PART} rows in {time.perf_counter() - t0:.1f} s")
+    movielens = movielens_path(nvt, dev, ml_parts, opts.profile)
     records.update(movielens.pop("kernels"))
     ml_launches = movielens["launches"]
     ml_launches["fold_ids"] = movielens["fit_launches"]["fold_ids"]
     # the direct map runs on phase 6's path and as phase 9's group indexes
     direct_launches["direct_lookup"] += ml_launches["direct_lookup"]
+
+    # --- 10. the MovieLens multihot path: lists, the multihot loader, the tabular MLP ---------
+    multihot = multihot_path(nvt, dev, ml_parts, opts.profile)
+    del ml_parts
+
+    # --- 11. its new kernels at its shapes -------------------------------------------------------
+    records.update(multihot_kernel_records(multihot))
+    mh_train = multihot.pop("train")
+    del mh_train["model"], mh_train["batch"], multihot["genres_batch0"]
+    multihot["train"] = mh_train
+    # every launch of phase 10's path: its transform, its loader and training, its ListSlice
+    mh_launches = {k: multihot["launches"][k] + mh_train["launches"][k] + multihot["slice_launches"][k]
+                   for k in multihot["launches"]}
+    for shared in (main_launches, direct_launches, train_launches):
+        for k in shared:
+            shared[k] += mh_launches[k]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -1011,6 +1365,10 @@ def main():
         "te_encode": ("groupby.cu", "nvtabular_tpu/ops/target_encoding.py:307", ml_launches),
         "stat_gather": ("groupby.cu", "nvtabular_tpu/ops/join_groupby.py:255", ml_launches),
         "bucketize": ("bucketize.cu", "nvtabular_tpu/ops/bucketize.py:36", ml_launches),
+        "ragged_to_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:22", mh_launches),
+        "ragged_slice_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:35", mh_launches),
+        "embedding_bag_fwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
+        "embedding_bag_bwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
     }
     line = []
     for name, (source, replaces, launches) in meta.items():
@@ -1051,6 +1409,7 @@ def main():
                     "compact": {"fit_s": dfit_s, "vocab_keys": keys},
                     "train": train_record,
                     "movielens": movielens,
+                    "multihot": multihot,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

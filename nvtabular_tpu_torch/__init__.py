@@ -14,7 +14,14 @@ port is held against; nothing here imports it or JAX.
 __version__ = "0.1.0"
 
 from . import dtypes, ops
-from .convert import dlrm_params, fitted_state, load_dlrm_params, load_fitted_state
+from .convert import (
+    dlrm_params,
+    fitted_state,
+    load_dlrm_params,
+    load_fitted_state,
+    load_tabular_mlp_params,
+    tabular_mlp_params,
+)
 from .dag import ColumnSelector, Graph, Node
 from .io import Dataset
 from .schema import ColumnSchema, Schema
@@ -39,5 +46,7 @@ __all__ = [
     "fitted_state",
     "load_dlrm_params",
     "load_fitted_state",
+    "load_tabular_mlp_params",
     "ops",
+    "tabular_mlp_params",
 ]

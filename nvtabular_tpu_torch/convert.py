@@ -22,8 +22,13 @@ DLRM parameters travel as the JAX package's pytree of numpy arrays,
     {"tables": {col: [V, D]}, "bottom": [{"w": [in, out], "b": [out]}, ...],
      "top": [...]}
 
-(``load_dlrm_params`` / ``dlrm_params``). Nothing here imports the JAX
-package.
+(``load_dlrm_params`` / ``dlrm_params``), and tabular MLP parameters as
+
+    {"tables": {col: [V, D]}, "mh_tables": {col: [V, D]},
+     "mlp": [{"w": [in, out], "b": [out]}, ...]}
+
+(``load_tabular_mlp_params`` / ``tabular_mlp_params``). Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -126,33 +131,67 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
 def _dlrm_tensors(model, tree):
     """(parameter, numpy value) pairs of ``model`` for a pytree in the
     format above; the tables are concatenated in sorted column order."""
+    if tree.get("mh_tables"):
+        raise NotImplementedError(
+            "DLRM multihot tables are not ported yet (ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
+        )
     tables = tree["tables"]
     if sorted(tables) != model.names:
         raise ValueError(f"tables {sorted(tables)} do not match the model's {model.names}")
-    if tree.get("mh_tables"):
-        raise NotImplementedError("multihot tables are not ported yet (ROADMAP.md queue 2, K13c)")
     pairs = [(model.table, np.concatenate([np.asarray(tables[n]) for n in model.names]))]
     for mlp, layers in ((model.bottom, tree["bottom"]), (model.top, tree["top"])):
-        if len(layers) != len(mlp.weights):
-            raise ValueError(f"{len(layers)} layers given, the model has {len(mlp.weights)}")
-        for w, b, layer in zip(mlp.weights, mlp.biases, layers):
-            pairs += [(w, np.asarray(layer["w"])), (b, np.asarray(layer["b"]))]
+        pairs += _mlp_tensors(mlp, layers)
     return pairs
 
 
+def _mlp_tensors(mlp, layers):
+    if len(layers) != len(mlp.weights):
+        raise ValueError(f"{len(layers)} layers given, the model has {len(mlp.weights)}")
+    pairs = []
+    for w, b, layer in zip(mlp.weights, mlp.biases, layers):
+        pairs += [(w, np.asarray(layer["w"])), (b, np.asarray(layer["b"]))]
+    return pairs
+
+
+def _tabular_tensors(model, tree):
+    """(parameter, numpy value) pairs of a ``TabularMLP`` for a pytree in the
+    format above: one parameter a table, in sorted column order."""
+    tables, mh = tree["tables"], tree.get("mh_tables", {})
+    if sorted(tables) != model.names or sorted(mh) != model.mh_names:
+        raise ValueError(
+            f"tables {sorted(tables)} and {sorted(mh)} do not match the model's {model.names} and {model.mh_names}"
+        )
+    pairs = [(p, np.asarray(tables[n])) for p, n in zip(model.tables, model.names)]
+    pairs += [(p, np.asarray(mh[n])) for p, n in zip(model.mh_tables, model.mh_names)]
+    return pairs + _mlp_tensors(model.mlp, tree["mlp"])
+
+
 @torch.no_grad()
+def _load(pairs, optimizer, sos_pairs) -> None:
+    for p, value in pairs:
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"shape {tuple(value.shape)} does not match the parameter's {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+    for p, value in sos_pairs:
+        optimizer.accumulator(p).copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+
 def load_dlrm_params(model, params: Dict[str, Any], optimizer=None,
                      sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
     """Set the port's ``DLRM`` to the JAX parameter pytree ``params`` (numpy
     arrays) and, when given, ``optimizer``'s accumulators to optax's
     ``sum_of_squares`` pytree of the same structure."""
-    for p, value in _dlrm_tensors(model, params):
-        if tuple(value.shape) != tuple(p.shape):
-            raise ValueError(f"shape {tuple(value.shape)} does not match the parameter's {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
-    if sum_of_squares is not None:
-        for p, value in _dlrm_tensors(model, sum_of_squares):
-            optimizer.accumulator(p).copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+    sos = [] if sum_of_squares is None else _dlrm_tensors(model, sum_of_squares)
+    _load(_dlrm_tensors(model, params), optimizer, sos)
+
+
+def load_tabular_mlp_params(model, params: Dict[str, Any], optimizer=None,
+                            sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
+    """Set the port's ``TabularMLP`` to the JAX parameter pytree ``params``
+    (numpy arrays) and, when given, ``optimizer``'s accumulators to optax's
+    ``sum_of_squares`` pytree of the same structure."""
+    sos = [] if sum_of_squares is None else _tabular_tensors(model, sum_of_squares)
+    _load(_tabular_tensors(model, params), optimizer, sos)
 
 
 def dlrm_params(model) -> Dict[str, Any]:
@@ -166,4 +205,17 @@ def dlrm_params(model) -> Dict[str, Any]:
         "mh_tables": {},
         "bottom": [{"w": host(w), "b": host(b)} for w, b in zip(model.bottom.weights, model.bottom.biases)],
         "top": [{"w": host(w), "b": host(b)} for w, b in zip(model.top.weights, model.top.biases)],
+    }
+
+
+def tabular_mlp_params(model) -> Dict[str, Any]:
+    """The port's ``TabularMLP`` parameters as the JAX pytree of numpy arrays."""
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "tables": {n: host(p) for n, p in zip(model.names, model.tables)},
+        "mh_tables": {n: host(p) for n, p in zip(model.mh_names, model.mh_tables)},
+        "mlp": [{"w": host(w), "b": host(b)} for w, b in zip(model.mlp.weights, model.mlp.biases)],
     }

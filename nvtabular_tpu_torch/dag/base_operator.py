@@ -99,7 +99,8 @@ class BaseOperator:
             col_schema = ColumnSchema(col_name)
         col_schema = self._compute_dtype(col_schema, input_schema)
         col_schema = self._compute_tags(col_schema, input_schema)
-        return self._compute_properties(col_schema, input_schema)
+        col_schema = self._compute_properties(col_schema, input_schema)
+        return self._compute_shape(col_schema, input_schema)
 
     def _compute_dtype(self, col_schema: ColumnSchema, input_schema: Schema) -> ColumnSchema:
         if self.output_dtype is not None:
@@ -121,6 +122,9 @@ class BaseOperator:
         return col_schema
 
     def _compute_properties(self, col_schema: ColumnSchema, input_schema: Schema) -> ColumnSchema:
+        return col_schema
+
+    def _compute_shape(self, col_schema: ColumnSchema, input_schema: Schema) -> ColumnSchema:
         return col_schema
 
     @property

@@ -9,9 +9,9 @@ Counterpart of ``nvtabular_tpu/dag/executor.py``:
   (executor.py:205-257); ``host_handoffs`` and ``host_handoff_seconds``
   count those round trips.
 * ``TorchExecutor`` — counterpart of ``JitExecutor`` (executor.py:103-331,
-  689-764): runs the whole DAG per batch on its device. It stacks
-  same-dtype host columns into pinned buffers for one host-to-device copy per
-  dtype (``_stack_batch``, executor.py:777-796), fuses continuous chains into
+  689-764): runs the whole DAG per batch on its device. It stacks host
+  tensors of one dtype and length into pinned buffers for one host-to-device
+  copy per group (``_stack_batch``, executor.py:777-796), fuses continuous chains into
   one cont_chain launch (dag/device_fuse.py), and keeps the schema's column
   order for its outputs. PyTorch has no compile cache to bound, so there is
   no power-of-two row padding.
@@ -31,11 +31,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..schema import Schema
-from ..table import UNSUPPORTED_LISTS, Column, TableBatch, concat_columns
+from ..table import Column, TableBatch, concat_columns
 from .device_fuse import ChainSpec, extract_chain
 from .graph import Graph, postorder_iter_nodes
 from .node import Node
 from .ops import ConcatColumns
+
+
+_FIELDS = ("values", "offsets", "validity")  # Column's tensors, in its constructor's order
 
 
 class LocalExecutor:
@@ -125,48 +128,51 @@ class TorchExecutor(LocalExecutor):
 
     # --- host → device --------------------------------------------------------
     def stage(self, batch: TableBatch) -> TableBatch:
-        """The batch on this executor's device. From the host, same-dtype
-        columns (and all validity masks) go in ONE copy per dtype through a
-        pinned staging buffer."""
-        for col in batch.columns.values():
-            if col.is_list:
-                raise NotImplementedError(UNSUPPORTED_LISTS)
+        """The batch on this executor's device. From the host, the tensors of
+        one dtype and length — the columns' values and validity masks, a list
+        column's flat values and its offsets — go in ONE copy per (dtype,
+        length) through a pinned staging buffer."""
         if all(c.device == self.device for c in batch.columns.values()):
             return batch
         if self.device.type != "cuda":
             return batch.to(self.device)
-        groups: Dict[torch.dtype, List[Tuple[str, str]]] = {}
+        groups: Dict[Tuple[torch.dtype, int], List[Tuple[str, str]]] = {}
         for name, col in batch.columns.items():
-            groups.setdefault(col.values.dtype, []).append((name, "values"))
-            if col.validity is not None:
-                groups.setdefault(torch.bool, []).append((name, "validity"))
-        n = batch.num_rows
+            for field in _FIELDS:
+                t = getattr(col, field)
+                if t is not None:
+                    groups.setdefault((t.dtype, t.shape[0]), []).append((name, field))
         placed: Dict[Tuple[str, str], torch.Tensor] = {}
         self._turn ^= 1
-        for dtype, keys in groups.items():
+        for (dtype, length), keys in groups.items():
             parts = [getattr(batch[name], field) for name, field in keys]
-            dev = self._copy_stacked(parts, dtype, n)
+            dev = self._copy_stacked(parts, dtype, length, tuple(keys))
             for i, key in enumerate(keys):
                 placed[key] = dev[i]
         out = TableBatch()
         out.row_offset = batch.row_offset
         for name in batch.column_names:
-            out.columns[name] = Column(placed[(name, "values")], None, placed.get((name, "validity")))
+            out.columns[name] = Column(*(placed.get((name, field)) for field in _FIELDS))
         return out
 
-    def _copy_stacked(self, parts: List[torch.Tensor], dtype: torch.dtype, n: int) -> torch.Tensor:
-        key = (dtype, len(parts), n)
-        ring = self._pinned.get(key)
+    def _copy_stacked(self, parts: List[torch.Tensor], dtype: torch.dtype, length: int, keys: tuple) -> torch.Tensor:
+        """``parts`` stacked into [len(parts), length] on the device. Each
+        group of tensors (``keys``) keeps two pinned buffers, used in turn,
+        that grow to the longest batch seen (a list column's flat length
+        changes from batch to batch)."""
+        ring = self._pinned.get(keys)
         if ring is None:
-            ring = self._pinned[key] = [[None, None], [None, None]]
+            ring = self._pinned[keys] = [[None, None], [None, None]]
         slot = ring[self._turn]
-        if slot[0] is None:
-            slot[0] = torch.empty((len(parts), n), dtype=dtype, pin_memory=True)
-            slot[1] = torch.cuda.Event()
-        else:
+        numel = len(parts) * length
+        if slot[1] is not None:
             slot[1].synchronize()  # the copy from this buffer two batches ago is done
-        torch.stack([p.cpu() for p in parts], out=slot[0])
-        dev = slot[0].to(self.device, non_blocking=True)
+        if slot[0] is None or slot[0].dtype != dtype or slot[0].numel() < numel:
+            slot[0] = torch.empty(numel, dtype=dtype, pin_memory=True)
+            slot[1] = torch.cuda.Event()
+        host = slot[0][:numel].view(len(parts), length)
+        torch.stack([p.cpu() for p in parts], out=host)
+        dev = host.to(self.device, non_blocking=True)
         slot[1].record(torch.cuda.current_stream(self.device))
         return dev
 

@@ -29,6 +29,10 @@ LAUNCHES: Dict[str, int] = {
     "te_encode": 0,
     "stat_gather": 0,
     "bucketize": 0,
+    "ragged_to_padded": 0,
+    "ragged_slice_padded": 0,
+    "embedding_bag_fwd": 0,
+    "embedding_bag_bwd": 0,
 }
 
 

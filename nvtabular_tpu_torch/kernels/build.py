@@ -32,6 +32,8 @@ SOURCES = {
     "hash": _PKG / "csrc" / "hash.cu",
     "groupby": _PKG / "csrc" / "groupby.cu",
     "bucketize": _PKG / "csrc" / "bucketize.cu",
+    "ragged": _PKG / "csrc" / "ragged.cu",
+    "embedding_bag": _PKG / "csrc" / "embedding_bag.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

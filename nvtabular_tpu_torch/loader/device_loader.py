@@ -5,7 +5,11 @@ dataset's batches stay on the workflow's device (``to_batches(host=False)``);
 each chunk is shuffled by one ``torch.randperm`` drawn from a generator on
 the loader's device (seeded ``seed + epoch``) and one launch of kernel K14
 (``kernels.permute.permute_rows``) that permutes every array of the chunk;
-batches are contiguous slices. The JAX loader draws its permutations from
+batches are contiguous slices. A list (multihot) categorical column is
+padded to ``sparse_max[col]`` slots by one launch of kernel K11
+(``kernels.ragged.ragged_to_padded``) per chunk, as
+``<col>__values`` [n, L] and ``<col>__mask`` float32 [n, L], which K14 then
+permutes with the other arrays. The JAX loader draws its permutations from
 ``jax.random``, so shuffled orders differ between the two; unshuffled
 batches are identical.
 """
@@ -17,13 +21,9 @@ from typing import Dict, Iterator, List, Optional
 import torch
 
 from ..kernels.permute import permute_rows
+from ..kernels.ragged import ragged_to_padded
 from ..tags import Tags
 from ..workflow.workflow import TransformedDataset, resolve_device
-
-UNSUPPORTED_LISTS = (
-    "DeviceLoader does not support list (multihot) columns yet: their padding "
-    "needs kernel K11 ragged_to_padded (ROADMAP.md queue 2, K11)"
-)
 
 
 class DeviceLoader:
@@ -31,8 +31,12 @@ class DeviceLoader:
     batching on ``device`` (``cuda:0`` unless the caller passes another).
     Batch layout as the JAX loader's: one [B] tensor per categorical column
     (its dtype kept, int32 codes from Categorify), ``dense`` float32
-    [B, len(cont_names)] stacked in ``cont_names`` order, and ``label``
-    float32 [B] (one key per label column when there are several)."""
+    [B, len(cont_names)] stacked in ``cont_names`` order, ``<col>__values``
+    [B, L] and ``<col>__mask`` float32 [B, L] for a list categorical column
+    padded to ``L = sparse_max[col]`` (taken from the schema's
+    ``value_count`` max where ``sparse_max`` does not name the column), and
+    ``label`` float32 [B] (one key per label column when there are
+    several)."""
 
     def __init__(
         self,
@@ -44,6 +48,7 @@ class DeviceLoader:
         shuffle: bool = True,
         seed: int = 0,
         drop_last: bool = True,
+        sparse_max: Optional[Dict[str, int]] = None,
         device=None,
     ):
         self.dataset = dataset
@@ -51,6 +56,7 @@ class DeviceLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.sparse_max = dict(sparse_max or {})
         self.device = resolve_device(device)
         schema = dataset.schema
         self.cat_names = (
@@ -62,6 +68,11 @@ class DeviceLoader:
         self.label_names = (
             list(label_names) if label_names is not None else [cs.name for cs in schema if Tags.TARGET in cs.tags]
         )
+        for cs in schema:
+            if cs.is_list and cs.name not in self.sparse_max:
+                vc = cs.properties.get("value_count") or {}
+                if vc.get("max"):
+                    self.sparse_max[cs.name] = int(vc["max"])
         self._epoch = 0
 
     def _generator(self) -> torch.Generator:
@@ -111,14 +122,31 @@ class DeviceLoader:
         """A TableBatch (on any device) → the flat dict of the batch layout
         on the loader's device."""
         out: Dict[str, torch.Tensor] = {}
-        for name in self.cont_names + self.cat_names:
+        for name in self.cont_names:
             if chunk[name].is_list:
-                raise NotImplementedError(f"{UNSUPPORTED_LISTS}; column {name!r} is a list")
+                raise NotImplementedError(
+                    f"DeviceLoader does not support list-valued continuous column {name!r}; use the host "
+                    f"Loader (pad_lists) or pre-aggregate it"
+                )
         dense = [chunk[name].values.to(self.device, torch.float32) for name in self.cont_names]
         if dense:
             out["dense"] = torch.stack(dense, dim=1)
         for name in self.cat_names:
-            out[name] = chunk[name].values.to(self.device).contiguous()
+            col = chunk[name]
+            if not col.is_list:
+                out[name] = col.values.to(self.device).contiguous()
+                continue
+            max_len = self.sparse_max.get(name)
+            if max_len is None:
+                raise ValueError(
+                    f"multihot column {name!r} needs a static max length on device: pass "
+                    f"sparse_max={{'{name}': L}} or set a value_count on the schema (silent truncation is "
+                    f"not acceptable)"
+                )
+            out[f"{name}__values"], out[f"{name}__mask"] = ragged_to_padded(
+                col.values.to(self.device).contiguous(), col.offsets.to(self.device, torch.int64).contiguous(),
+                max_len,
+            )
         for name in self.label_names:
             key = "label" if len(self.label_names) == 1 else name
             out[key] = chunk[name].values.to(self.device, torch.float32).contiguous()

@@ -88,7 +88,8 @@ class DLRM(nn.Module):
         super().__init__()
         if config.multihot_cardinalities:
             raise NotImplementedError(
-                "DLRM with multihot tables is not ported yet (ROADMAP.md queue 2, K13c)"
+                "DLRM with multihot tables is not ported yet "
+                "(ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
             )
         if config.vocab_pad_multiple != 1:
             raise NotImplementedError(

@@ -3,12 +3,13 @@
 * ``MLP`` — ``mlp_init`` / ``mlp_apply`` (:30-67) as an ``nn.Module`` whose
   weights keep JAX's ``[in, out]`` layout (``h @ w + b``), so parameters
   carry across without transposes.
-* ``embedding_lookup`` and ``dot_product_interaction`` over the hand-written
-  kernels K13a and K13b (``kernels/embedding.py``, ``kernels/interaction.py``).
+* ``embedding_lookup``, ``multihot_embedding_lookup`` and
+  ``dot_product_interaction`` over the hand-written kernels K13a, K13c and
+  K13b (``kernels/embedding.py``, ``kernels/embedding_bag.py``,
+  ``kernels/interaction.py``).
 * ``bce_with_logits`` with the same stable expression (:144-150).
 
-``multihot_embedding_lookup`` (K13c) and ``xdeepfm_outer_product`` (K13d)
-are not ported yet and raise.
+``xdeepfm_outer_product`` (K13d) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from ..kernels.embedding import embedding_features
+from ..kernels.embedding_bag import embedding_bag
 from ..kernels.interaction import dot_interaction
 
 
@@ -98,10 +100,13 @@ def dot_product_interaction(features: torch.Tensor, self_interaction: bool = Fal
     return dot_interaction(features)
 
 
-def multihot_embedding_lookup(table, values, mask, combiner: str = "mean"):
-    raise NotImplementedError(
-        "multihot_embedding_lookup is not ported yet (ROADMAP.md queue 2, K13c)"
-    )
+def multihot_embedding_lookup(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                              combiner: str = "mean") -> torch.Tensor:
+    """EmbeddingBag over padded multihot values: table [V, D], int32 values
+    [B, L] and float32 mask [B, L] (1 = a real value) → [B, D], the masked
+    sum of the rows divided by ``max(sum(mask), 1)`` for ``"mean"``, with
+    ``jnp.take``'s out-of-range rules. Through kernel K13c."""
+    return embedding_bag(table, values, mask, combiner)
 
 
 def xdeepfm_outer_product(x_k, x_0, w):

@@ -5,12 +5,14 @@ rate), not ``torch.optim.Adagrad``: the accumulator starts at 0.1 rather
 than 0, and eps sits inside the square root. ``train_step`` and ``train_chunk`` stand in for
 ``make_step_fns`` and ``make_chunk_train_fn``; ``train_chunk`` is a Python
 loop over the chunk's batches that leaves every loss on the device (no host
-sync per step). ``process_epoch`` and ``roc_auc`` are copies.
+sync per step). Each takes the loss function, ``loss_fn(model, batch)``, as
+``make_step_fns(loss_fn, optimizer)`` does (``dlrm_loss`` by default).
+``process_epoch`` and ``roc_auc`` are copies.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -65,17 +67,21 @@ class Adagrad:
             p.add_(scale.mul_(g), alpha=-self.lr)
 
 
-def train_step(model, optimizer: Adagrad, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One optimizer step of ``dlrm_loss`` on ``batch`` → the loss before it
+LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor]], torch.Tensor]
+
+
+def train_step(model, optimizer: Adagrad, batch: Dict[str, torch.Tensor], loss_fn: LossFn = dlrm_loss) -> torch.Tensor:
+    """One optimizer step of ``loss_fn`` on ``batch`` → the loss before it
     (a 0-d tensor on the model's device)."""
     optimizer.zero_grad()
-    loss = dlrm_loss(model, batch)
+    loss = loss_fn(model, batch)
     loss.backward()
     optimizer.step()
     return loss.detach()
 
 
-def train_chunk(model, optimizer: Adagrad, chunk: Dict[str, torch.Tensor], batch_size: int) -> torch.Tensor:
+def train_chunk(model, optimizer: Adagrad, chunk: Dict[str, torch.Tensor], batch_size: int,
+                loss_fn: LossFn = dlrm_loss) -> torch.Tensor:
     """Trains over every full batch of a chunk's arrays in order → losses
     [n // batch_size] on the device (rows past the last full batch are
     dropped, as a drop_last loader would)."""
@@ -83,24 +89,24 @@ def train_chunk(model, optimizer: Adagrad, chunk: Dict[str, torch.Tensor], batch
     losses = []
     for start in range(0, n // batch_size * batch_size, batch_size):
         batch = {k: v[start : start + batch_size] for k, v in chunk.items()}
-        losses.append(train_step(model, optimizer, batch))
+        losses.append(train_step(model, optimizer, batch, loss_fn))
     if not losses:
         return torch.empty(0)
     return torch.stack(losses)
 
 
 def process_epoch(loader: Iterable[Dict[str, torch.Tensor]], model,
-                  optimizer: Optional[Adagrad] = None) -> Dict[str, float]:
+                  optimizer: Optional[Adagrad] = None, loss_fn: LossFn = dlrm_loss) -> Dict[str, float]:
     """One pass over the loader. With ``optimizer``: train, and report the
     mean loss. Without: evaluate, and report AUC and logloss."""
     losses = []
     logits_all, labels_all = [], []
     for batch in loader:
         if optimizer is not None:
-            losses.append(train_step(model, optimizer, batch))
+            losses.append(train_step(model, optimizer, batch, loss_fn))
         else:
             with torch.no_grad():
-                logits_all.append(model(batch).float().cpu().numpy())
+                logits_all.append(model(batch).float().reshape(-1).cpu().numpy())
             labels_all.append(batch["label"].float().cpu().numpy())
     metrics: Dict[str, float] = {}
     if losses:

@@ -2,12 +2,13 @@
 
 from ..selector import ColumnSelector
 from .bucketize import Bucketize
-from .categorify import Categorify
+from .categorify import Categorify, get_embedding_sizes
 from .clip import Clip
 from .fill import FillMissing
 from .hashed_cross import HashedCross
 from .join_groupby import JoinGroupby
 from .lambdaop import LambdaOp
+from .list_slice import ListSlice
 from .logop import LogOp
 from .normalize import Normalize
 from .operator import Operator
@@ -23,9 +24,11 @@ __all__ = [
     "HashedCross",
     "JoinGroupby",
     "LambdaOp",
+    "ListSlice",
     "LogOp",
     "Normalize",
     "Operator",
     "StatOperator",
     "TargetEncoding",
+    "get_embedding_sizes",
 ]

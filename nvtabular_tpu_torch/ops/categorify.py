@@ -13,9 +13,13 @@ into one global index space.
 * Transform is the column-batched device path (``_encode_batched_device``,
   :1614-1685): one kernel launch per table kind (tiny, direct, cuckoo) over
   the stacked [C, N] int32 values, with the null/OOV/offset epilogue fused.
+* A list (multihot) column counts its flat values in the fit, with no
+  validity (:848-857); at transform its flat values take a launch of their
+  own per table kind, without the null epilogue, and its codes keep the
+  column's offsets (:1456-1458, :1631-1669).
 
 Not ported yet (raise NotImplementedError): ``encode_type="combo"``,
-``num_buckets > 1``, non-integer or list columns, keys outside int32.
+``num_buckets > 1``, non-integer columns, keys outside int32.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from .. import dtypes as md
 from ..selector import ColumnSelector
-from ..table import UNSUPPORTED_LISTS, Column, TableBatch
+from ..table import Column, TableBatch
 from ..tags import Tags
 from .lookup import BATCHED, build_cuckoo, build_lookup, int32_keys, kind_of
 from .stat_operator import StatOperator
@@ -178,9 +182,8 @@ class Categorify(StatOperator):
         for key, members in self._groups(col_selector):
             for mcol in members:
                 col = batch[mcol]
-                if col.is_list:
-                    raise NotImplementedError(UNSUPPORTED_LISTS)
-                state[key].update(col.values, col.validity)
+                # multihots count their flat values (categorify.py:848-857)
+                state[key].update(col.values, None if col.is_list else col.validity)
         return state
 
     def fit_finalize(self, state):
@@ -257,14 +260,16 @@ class Categorify(StatOperator):
                 codes[name] = out[i]
         result = TableBatch()
         for name in self.column_mapping(col_selector):
-            result[name] = Column(codes[name])
+            result[name] = Column(codes[name], batch[name].offsets)  # a list keeps its offsets
         return result
 
     def lookup_jobs(self, col_selector: ColumnSelector, batch: TableBatch, state):
-        """One dict per table kind present — the arguments of its single
-        kernel launch: the kind's ``table`` and the stacked ``values``
-        [C, N] int32, ``validity`` (or None), ``sel`` and ``col_offsets`` of
-        its C columns, named in ``names``."""
+        """One dict per kernel launch: per table kind present, one for its
+        scalar columns and one for each of its list columns (whose flat
+        values have a length of their own). Each holds the kind's ``table``
+        and the stacked ``values`` [C, N] int32, ``validity`` (or None: a
+        list's flat values carry none), ``sel`` and ``col_offsets`` of its C
+        columns, named in ``names``."""
         jobs = [
             (mcol, key if len(members) > 1 else mcol)
             for key, members in self._groups(col_selector)
@@ -272,26 +277,27 @@ class Categorify(StatOperator):
         ]
         for kind, (blut, row_index) in state["tables"].items():
             items = [(name, vkey) for name, vkey in jobs if vkey in row_index]
-            if not items:
-                continue
-            cols = [batch[name] for name, _ in items]
-            values = torch.stack([int32_keys(c) for c in cols])
-            validity = None
-            if any(c.validity is not None for c in cols):
-                validity = torch.stack(
-                    [c.validity if c.validity is not None else torch.ones_like(c.values, dtype=torch.bool)
-                     for c in cols]
-                )
-            sel, col_offsets = self._launch_args(state, kind, items, row_index, values.device)
-            yield {
-                "kind": kind,
-                "table": blut,
-                "values": values,
-                "validity": validity,
-                "sel": sel,
-                "col_offsets": col_offsets,
-                "names": [name for name, _ in items],
-            }
+            scalars = [item for item in items if not batch[item[0]].is_list]
+            launches = ([scalars] if scalars else []) + [[item] for item in items if batch[item[0]].is_list]
+            for group in launches:
+                cols = [batch[name] for name, _ in group]
+                values = torch.stack([int32_keys(c) for c in cols])
+                validity = None
+                if not cols[0].is_list and any(c.validity is not None for c in cols):
+                    validity = torch.stack(
+                        [c.validity if c.validity is not None else torch.ones_like(c.values, dtype=torch.bool)
+                         for c in cols]
+                    )
+                sel, col_offsets = self._launch_args(state, kind, group, row_index, values.device)
+                yield {
+                    "kind": kind,
+                    "table": blut,
+                    "values": values,
+                    "validity": validity,
+                    "sel": sel,
+                    "col_offsets": col_offsets,
+                    "names": [name for name, _ in group],
+                }
 
     def _launch_args(self, state, kind, items, row_index, device):
         key = (kind, tuple(items))
@@ -331,3 +337,17 @@ class Categorify(StatOperator):
             }
         )
 
+
+
+def get_embedding_sizes(source):
+    """(cardinality, dimension) of each Categorify output column of a fitted
+    Workflow (or node), from its output schema (categorify.py:1847-1873):
+    ``{col: (card, dim)}``, or the pair ``(single, multihot)`` when a list
+    column is present."""
+    single: Dict[str, Tuple[int, int]] = {}
+    multihot: Dict[str, Tuple[int, int]] = {}
+    for cs in getattr(source, "output_schema", None) or []:
+        emb = cs.properties.get("embedding_sizes")
+        if emb:
+            (multihot if cs.is_list else single)[cs.name] = (emb["cardinality"], emb["dimension"])
+    return (single, multihot) if multihot else single

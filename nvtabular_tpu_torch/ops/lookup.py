@@ -36,7 +36,7 @@ from ..kernels.lookup import (
     direct_lookup,
     tiny_lookup,
 )
-from ..table import UNSUPPORTED_LISTS, Column
+from ..table import Column
 
 DIRECT_MAX_RANGE = 1 << 22
 CUCKOO_LOAD = 0.8  # 10 B per key; two-choice 4-slot placement holds to ~0.97
@@ -189,10 +189,9 @@ def _try_build_cuckoo(keys: np.ndarray, vals: np.ndarray, nb: int, seed: int = 0
 
 
 def int32_keys(col: Column) -> torch.Tensor:
-    """A key column's values as int32 for the lookup kernels; raises on what
-    the port does not cover (lists, floats, values outside int32)."""
-    if col.is_list:
-        raise NotImplementedError(UNSUPPORTED_LISTS)
+    """A key column's values (a list column's flat values) as int32 for the
+    lookup kernels; raises on what the port does not cover (floats, values
+    outside int32)."""
     v = col.values
     if v.is_floating_point() or v.dtype == torch.bool:
         raise NotImplementedError(UNSUPPORTED_KEYS)

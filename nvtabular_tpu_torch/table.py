@@ -41,7 +41,7 @@ UNSUPPORTED_STRINGS = (
     "(ROADMAP.md queue 1: strings and hybrid execution)"
 )
 UNSUPPORTED_LISTS = (
-    "list columns are not ported yet (ROADMAP.md queue 1: lists with kernel K11)"
+    "list columns are not ported for this op yet (ROADMAP.md queue 1 item 5: lists)"
 )
 
 

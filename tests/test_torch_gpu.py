@@ -16,10 +16,12 @@ from nvtabular_tpu_torch import kernels, models, ops
 from nvtabular_tpu_torch.kernels import bucketize as kbkt
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
 from nvtabular_tpu_torch.kernels import embedding as kemb
+from nvtabular_tpu_torch.kernels import embedding_bag as kbag
 from nvtabular_tpu_torch.kernels import groupby as kgb
 from nvtabular_tpu_torch.kernels import hash as khash
 from nvtabular_tpu_torch.kernels import interaction as kint
 from nvtabular_tpu_torch.kernels import permute as kperm
+from nvtabular_tpu_torch.kernels import ragged as kragged
 from nvtabular_tpu_torch.loader import DeviceLoader
 from nvtabular_tpu_torch.ops import lookup as plookup
 
@@ -500,3 +502,209 @@ def test_movielens_workflow_on_cuda_matches_cpu_and_counts_launches():
             torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7, equal_nan=True)
         else:
             assert torch.equal(g, w), name
+
+
+def _ragged(seed, rows=100_003, max_len=9, dtype=torch.int32):
+    """Rows of 0..max_len values: the first row empty, the last one ending
+    the values."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(0, max_len + 1, (rows,), generator=g)
+    lengths[0], lengths[-1] = 0, max_len
+    offsets = torch.zeros(rows + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(lengths, 0)
+    values = torch.randint(-(2**31), 2**31 - 1, (int(offsets[-1]),), generator=g)
+    return values.to(dtype) if dtype != torch.float32 else torch.randn(values.shape, generator=g), offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+@pytest.mark.parametrize("L", [4, 12], ids=["cut", "longer_than_every_row"])
+def test_ragged_to_padded_kernel_matches_plain(L, dtype):
+    """Bit-identical padded values and mask; rows longer than L are cut."""
+    _require_cuda()
+    values, offsets = _ragged(3, dtype=dtype)
+    want, want_mask = kragged.ragged_to_padded_plain(values, offsets, L, -5)
+    kernels.reset_launches()
+    got, mask = kragged.ragged_to_padded(values.cuda(), offsets.cuda(), L, -5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_to_padded"] == 1
+    assert got.dtype == dtype and mask.dtype == torch.float32
+    assert torch.equal(got.cpu(), want) and torch.equal(mask.cpu(), want_mask)
+
+
+@pytest.mark.parametrize("start,end,pad_len", [(0, 3, 3), (1, 4, 3), (-2, 0, 2), (-3, -1, 2), (-3, 2, 5), (2, 7, 5)])
+def test_ragged_slice_padded_kernel_matches_plain(start, end, pad_len):
+    _require_cuda()
+    values, offsets = _ragged(4)
+    want, want_len = kragged.ragged_slice_padded_plain(values, offsets, start, end, pad_len, 7)
+    kernels.reset_launches()
+    got, new_len = kragged.ragged_slice_padded(values.cuda(), offsets.cuda(), start, end, pad_len, 7)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_slice_padded"] == 1
+    assert torch.equal(got.cpu(), want) and torch.equal(new_len.cpu(), want_len)
+
+
+def _bag(g, B, L, V, D):
+    """Padded ids under a mask, an all-masked row, negative ids in real
+    slots, out-of-range ids in a real and a masked slot."""
+    values = torch.randint(0, V, (B, L), generator=g, dtype=torch.int32)
+    mask = (torch.arange(L)[None, :] < torch.randint(0, L + 1, (B, 1), generator=g)).float()
+    mask[0] = 0.0
+    mask[1:4] = 1.0
+    values[1, :2] = torch.tensor([-1, -V], dtype=torch.int32)
+    values[2, 1] = V
+    mask[4, :] = torch.tensor([1.0] + [0.0] * (L - 1))
+    values[4, L - 1] = -V - 1
+    return torch.randn((V, D), generator=g), values, mask, torch.randn((B, D), generator=g)
+
+
+@pytest.mark.parametrize("combiner", ["mean", "sum"])
+@pytest.mark.parametrize("V,D", [(23, 16), (5000, 16), (23, 6)], ids=["shared_contended", "global", "scalar"])
+def test_embedding_bag_kernels_match_plain(V, D, combiner):
+    """The forward bit for bit (NaN rows included), written into a slot of a
+    wider buffer; the backward within 1e-5 of the sum of its terms'
+    magnitudes (atomics sum in a varying order). 23 rows of 16 take the
+    shared-memory backward under full contention (65,536 x 4 ids on 23
+    rows), 5,000 rows the global atomics."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(5)
+    B, L = 65_536, 4
+    table, values, mask, grad = _bag(g, B, L, V, D)
+    dt, dv, dm = table.cuda(), values.cuda(), mask.cuda()
+    want = kbag.embedding_bag_fwd_plain(dt, dv, dm, combiner)
+    buf = torch.zeros((B, D + 8), device="cuda")
+    gbuf = torch.zeros((B, D + 8), device="cuda")
+    gbuf[:, 4 : 4 + D] = grad.cuda()
+    kernels.reset_launches()
+    kbag.embedding_bag_fwd(dt, dv, dm, combiner, out=buf[:, 4 : 4 + D])
+    got_grad = kbag.embedding_bag_bwd(gbuf[:, 4 : 4 + D], dv, dm, V, combiner)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag_fwd"] == 1 and kernels.LAUNCHES["embedding_bag_bwd"] == 1
+    got = buf[:, 4 : 4 + D]
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got[:, 0].isnan()[[2, 4]].all())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.equal(buf[:, :4], torch.zeros(B, 4, device="cuda"))
+    want_grad = kbag.embedding_bag_bwd_plain(grad.cuda(), dv, dm, V, combiner)
+    magnitude = kbag.embedding_bag_bwd_plain(grad.cuda().abs(), dv, dm, V, combiner)
+    assert bool(((got_grad - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
+
+
+def test_ragged_and_bag_kernels_take_empty_inputs_and_the_current_stream():
+    _require_cuda()
+    kernels.reset_launches()
+    empty_i = torch.zeros(0, dtype=torch.int32, device="cuda")
+    one = torch.zeros(1, dtype=torch.int64, device="cuda")
+    padded, mask = kragged.ragged_to_padded(empty_i, one, 4)
+    assert padded.shape == (0, 4) and mask.shape == (0, 4)
+    assert kragged.ragged_slice_padded(empty_i, one, 0, 3, 3)[0].shape == (0, 3)
+    table = torch.randn((23, 16), device="cuda")
+    ids, m = torch.zeros((0, 4), dtype=torch.int32, device="cuda"), torch.zeros((0, 4), device="cuda")
+    assert kbag.embedding_bag_fwd(table, ids, m).shape == (0, 16)
+    assert torch.equal(kbag.embedding_bag_bwd(torch.zeros((0, 16), device="cuda"), ids, m, 23),
+                       torch.zeros((23, 16), device="cuda"))
+    assert sum(kernels.LAUNCHES.values()) == 0  # nothing to launch
+    empty_rows = torch.zeros(5, dtype=torch.int64, device="cuda")  # four empty rows over no values
+    padded, mask = kragged.ragged_to_padded(empty_i, empty_rows, 4, 9)
+    assert torch.equal(padded.cpu(), torch.full((4, 4), 9, dtype=torch.int32)) and not bool(mask.any())
+    values, offsets = _ragged(6)
+    g = torch.Generator().manual_seed(6)
+    _, bv, bm, _ = _bag(g, 50_000, 4, 23, 16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got, _ = kragged.ragged_to_padded(values.cuda(), offsets.cuda(), 4)
+        bag = kbag.embedding_bag_fwd(table, bv.cuda(), bm.cuda())
+    side.synchronize()
+    assert torch.equal(got.cpu(), kragged.ragged_to_padded_plain(values, offsets, 4)[0])
+    want = kbag.embedding_bag_fwd_plain(table.cpu(), bv, bm)
+    assert torch.equal(torch.nan_to_num(bag.cpu()), torch.nan_to_num(want))
+
+
+def _multihot_part(seed, n=40_000):
+    r = np.random.default_rng(seed)
+    lengths = r.integers(1, 5, n)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    return {
+        "userId": nvt.Column(r.zipf(1.2, n).clip(1, 20_000).astype(np.int64)),
+        "movieId": nvt.Column(r.zipf(1.1, n).clip(1, 3_000).astype(np.int64)),
+        "genres": nvt.Column(r.integers(1, 21, int(offsets[-1])), offsets),
+        "rating": nvt.Column((r.integers(1, 11, n) / 2.0).astype(np.float32)),
+        "ts_delta": nvt.Column(r.exponential(86400.0, n).astype(np.float32)),
+    }
+
+
+def _multihot_graph():
+    cats = ["userId", "movieId", "genres"] >> ops.Categorify()
+    conts = ["ts_delta"] >> ops.LogOp() >> ops.Normalize()
+    label = ["rating"] >> ops.LambdaOp(lambda col: (np.asarray(col) > 3).astype(np.float32))
+    return cats + conts + label
+
+
+def test_multihot_path_on_cuda_matches_cpu_and_counts_launches():
+    """The MovieLens multihot path at a small size: the config-1 workflow
+    fitted on the card and carried to the CPU (codes, offsets and labels
+    exact, ts_delta within log1p ULPs), the loader's padding, one tabular
+    MLP step through the kernels against the plain versions in float32, and
+    ListSlice(0, 3, pad=True) through K11's slice."""
+    _require_cuda()
+    tables = [nvt.TableBatch(_multihot_part(s)) for s in range(3)]
+    gpu = nvt.Workflow(_multihot_graph())
+    gpu.fit(nvt.Dataset(tables))
+    cpu = nvt.Workflow(_multihot_graph(), device="cpu")
+    nvt.load_fitted_state(cpu, nvt.fitted_state(gpu))
+    probe = nvt.TableBatch(_multihot_part(9))
+    kernels.reset_launches()
+    got = gpu.transform(probe)
+    torch.cuda.synchronize()
+    # userId takes a direct map; movieId (<= 4096 keys) and genres (20) tiny
+    # tables, the scalar column and the list's flat values in a launch each
+    want_launches = {"direct_lookup": 1, "tiny_lookup": 2, "cont_chain": 1}
+    assert kernels.LAUNCHES == {k: want_launches.get(k, 0) for k in kernels.LAUNCHES}
+    assert gpu.executor.host_handoffs == 1
+    want = cpu.transform(probe)
+    assert got.column_names == want.column_names == ["userId", "movieId", "genres", "ts_delta", "rating"]
+    for name in want.column_names:
+        g, w = got[name], want[name]
+        if name == "ts_delta":
+            torch.testing.assert_close(g.values.cpu(), w.values, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(g.values.cpu(), w.values), name
+    assert torch.equal(got["genres"].offsets.cpu(), want["genres"].offsets)
+
+    loader = DeviceLoader(gpu.transform(nvt.Dataset(tables)), 8192, cat_names=["userId", "movieId", "genres"],
+                          cont_names=["ts_delta"], label_names=["rating"], sparse_max={"genres": 4})
+    kernels.reset_launches()
+    chunks = list(loader.chunks())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_to_padded"] == kernels.LAUNCHES["permute_rows"] == 3
+    single, multi = ops.get_embedding_sizes(gpu)
+    config = models.TabularMLPConfig(single, 1, layer_sizes=(256, 128), multihot_embedding_sizes=multi)
+    model = models.TabularMLP(config, seed=1, compute_dtype=torch.float32)
+    batch = {k: v[:8192] for k, v in chunks[0].items()}
+    batch["continuous"] = batch.pop("dense")
+    assert int(batch["genres__values"].max()) < multi["genres"][0]
+    kernels.reset_launches()
+    loss = models.tabular_mlp_loss(model, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    # one gather and one scatter per id table, one bag and its gradient for genres
+    want_launches = {"embedding_gather": 2, "embedding_scatter_grad": 2, "embedding_bag_fwd": 1,
+                     "embedding_bag_bwd": 1}
+    assert {k: kernels.LAUNCHES[k] for k in want_launches} == want_launches
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    ref = models.bce_with_logits(models.tabular_reference_forward(model, batch).reshape(-1), batch["label"])
+    ref.backward()
+    torch.testing.assert_close(loss, ref, rtol=1e-4, atol=1e-6)
+    for g, p in zip(grads, model.parameters()):
+        assert float((g - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max())
+
+    sliced = nvt.Workflow(["genres"] >> ops.Categorify() >> ops.ListSlice(0, 3, pad=True))
+    sliced.fit(nvt.Dataset(tables))
+    kernels.reset_launches()
+    out = sliced.transform(probe)["genres"]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_slice_padded"] == 1 and kernels.LAUNCHES["tiny_lookup"] == 1
+    cpu_sliced = nvt.Workflow(["genres"] >> ops.Categorify() >> ops.ListSlice(0, 3, pad=True), device="cpu")
+    nvt.load_fitted_state(cpu_sliced, nvt.fitted_state(sliced))
+    ref = cpu_sliced.transform(probe)["genres"]
+    assert torch.equal(out.values.cpu(), ref.values) and torch.equal(out.offsets.cpu(), ref.offsets)

@@ -260,10 +260,19 @@ def test_slice_whole_etl_loader_dlrm_adagrad(workflows, parts):
 
 
 def test_list_columns_raise():
+    """Where the JAX loader raises on a list column, so does the port (it
+    pads list categoricals given their length: test_torch_lists.py): a list
+    continuous column, and a list categorical with no sparse_max and no
+    value_count in the schema."""
     ds = pnvt.Dataset({"a": [[1, 2], [3]], "x": np.array([0.5, 1.0], dtype=np.float32)})
-    loader = DeviceLoader(ds, 1, cat_names=["a"], cont_names=["x"], label_names=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="K11"):
+    loader = DeviceLoader(ds, 1, cat_names=[], cont_names=["a"], label_names=[], device="cpu")
+    with pytest.raises(NotImplementedError, match="list-valued continuous column 'a'"):
         list(loader)
+    jds = jnvt.Dataset(jnvt.TableBatch.from_pydict({"a": [[1, 2], [3]], "x": np.array([0.5, 1.0], dtype=np.float32)}))
+    for make, data in ((DeviceLoader, ds), (JDeviceLoader, jds)):
+        kwargs = {"device": "cpu"} if make is DeviceLoader else {}
+        with pytest.raises(ValueError, match=r"needs a static max length on device: pass sparse_max=\{'a': L\}"):
+            list(make(data, 1, cat_names=["a"], cont_names=["x"], label_names=[], **kwargs))
 
 
 def test_loader_default_device_is_cuda():

@@ -328,7 +328,11 @@ def test_train_chunk_equals_train_steps():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: pmodels.multihot_embedding_lookup(None, None, None),
+        # multihot_embedding_lookup is ported (test_torch_tabular.py); a DLRM
+        # pytree with multihot tables is not
+        lambda: pnvt.load_dlrm_params(
+            pmodels.DLRM(_config_pair()[1], device="cpu"), {"tables": {}, "mh_tables": {"m": np.zeros((4, 64))}}
+        ),
         lambda: pmodels.xdeepfm_outer_product(None, None, None),
         lambda: pmodels.deepfm_init(None, None),
         lambda: pmodels.dot_product_interaction(torch.zeros(2, 3, 4), self_interaction=True),

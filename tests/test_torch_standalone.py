@@ -58,6 +58,28 @@ out = list(adv.fit_transform(nvt.Dataset(parts)).to_batches())
 assert out[2].column_names == ["TE_tiny_rating", "TE_direct_rating", "wide_x_mean", "wide_count", "x",
                                "direct_X_tiny"]
 assert int(out[2]["direct_X_tiny"].values.max()) < 100 and int(out[2]["x"].values.max()) <= 3
+for s, p in enumerate(parts):
+    r = np.random.default_rng(10 + s)
+    offsets = np.concatenate([[0], np.cumsum(r.integers(0, 5, 4000))])
+    p["genres"] = nvt.Column(r.integers(1, 21, int(offsets[-1])), offsets)
+tables = [nvt.TableBatch(p) for p in parts]
+cats = ["tiny", "direct", "genres"] >> ops.Categorify()
+label = ["rating"] >> ops.LambdaOp(lambda col: (np.asarray(col) > 1).astype(np.float32))
+mh = nvt.Workflow(cats + (["x"] >> ops.FillMissing() >> ops.Clip(min_value=0.0) >> ops.LogOp() >> ops.Normalize())
+                  + label, device="cpu")
+mh.fit(nvt.Dataset(tables))
+loader = DeviceLoader(mh.transform(nvt.Dataset(tables)), 1000, cat_names=["tiny", "direct", "genres"],
+                      cont_names=["x"], label_names=["rating"], sparse_max={"genres": 4}, device="cpu")
+single, multi = ops.get_embedding_sizes(mh)
+model = models.TabularMLP(models.TabularMLPConfig(single, 1, layer_sizes=(8,), multihot_embedding_sizes=multi),
+                          device="cpu")
+chunk = next(loader.chunks())
+chunk["continuous"] = chunk.pop("dense")
+losses = models.train_chunk(model, models.Adagrad(model.parameters()), chunk, 1000, models.tabular_mlp_loss)
+assert losses.shape == (4,) and bool(losses.isfinite().all()) and multi == {"genres": (23, 16)}
+sliced = nvt.Workflow(["genres"] >> ops.Categorify() >> ops.ListSlice(0, 3, pad=True), device="cpu")
+out = list(sliced.fit_transform(nvt.Dataset(tables)).to_batches())
+assert out[0]["genres"].values.shape == (12000,) and int(out[0]["genres"].offsets[-1]) == 12000
 assert not any(m == "jax" or m.startswith(("jax.", "nvtabular_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("STANDALONE_OK")
