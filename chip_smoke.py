@@ -73,7 +73,24 @@ a nonzero exit:
    over every batch (K11's slice);
 11. ragged_to_padded, ragged_slice_padded, embedding_bag_fwd and
    embedding_bag_bwd at phase 10's shapes against their plain versions on
-   the card, timed beside their bounds and the library calls.
+   the card, timed beside their bounds and the library calls;
+12. crossed features on phase 3's partitions (Criteo's low-cardinality
+   fields): TargetEncoding("label", kfold=5, p_smooth=20) on the groups
+   (C5, C8), (C12, C16, C18) and (C15, C24), JoinGroupby (count and mean of
+   I0) on (C5, C8) and (C15, C24), Categorify(encode_type="combo") of
+   (C8, C15) and (C12, C25), HashBucket(10_000_000) of C0, C9 and C19:
+   Workflow.fit (every group's verified hash pair built, no collision among
+   the fitted tuples' h1), then Workflow.transform of every batch, the
+   counters zeroed before each; batch 0 against the CPU run (counts, combo
+   codes and bucket ids exact, TE and stat columns within rtol=1e-6,
+   atol=1e-7); rows/s with and without the host-to-device copy;
+13. sessions on phase 9's partitions, each stably sorted by userId:
+   DifferenceLag("userId", shift=[1, -1]) of rating and ts_delta, one K12a
+   launch a batch; batch 0 bit-equal to the CPU run (NaN for NaN); rows/s;
+14. hash_pair and hash_pair_verify (K10b on TE's (C15, C24) group, K9 on
+   the combo (C8, C15)), HashBucket's K7 and difference_lag at phases
+   12-13's shapes against their plain versions on the card, timed beside
+   their bounds.
 
 The line before the last is {"kernels": [...]} with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -83,6 +100,8 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import math
 import subprocess
@@ -1119,6 +1138,329 @@ def multihot_kernel_records(mh: dict) -> dict:
     return records
 
 
+def crossed_graph(ops):
+    """Crossed features on Criteo's low-cardinality fields: multi-column
+    TargetEncoding and JoinGroupby groups, combo Categorify, and HashBucket on
+    the three largest fields (the hashing trick in place of a vocabulary)."""
+    te = [["C5", "C8"], ["C12", "C16", "C18"], ["C15", "C24"]] >> ops.TargetEncoding("label", kfold=5, p_smooth=20)
+    jg = [["C5", "C8"], ["C15", "C24"]] >> ops.JoinGroupby(cont_cols=["I0"], stats=["count", "mean"])
+    combo = [["C8", "C15"], ["C12", "C25"]] >> ops.Categorify(encode_type="combo")
+    hb = ["C0", "C9", "C19"] >> ops.HashBucket(10_000_000)
+    return te + jg + combo + hb + ["label"]
+
+
+CROSSED_COLUMNS = ["C0", "C5", "C8", "C9", "C12", "C15", "C16", "C18", "C19", "C24", "C25", "I0", "label"]
+
+
+@contextlib.contextmanager
+def plain_calls_on_card(what: str):
+    """Fail if any kernel module's plain version is called with a tensor on
+    the card inside the block: the path must launch the kernels."""
+    from nvtabular_tpu_torch import kernels
+
+    calls, saved = [], []
+
+    def on_card(args):
+        for a in args:
+            if isinstance(a, (list, tuple)) and on_card(a):
+                return True
+            if isinstance(a, torch.Tensor) and a.is_cuda:
+                return True
+        return False
+
+    for name in kernels.build.SOURCES:
+        mod = importlib.import_module(f"nvtabular_tpu_torch.kernels.{name}")
+        for attr, fn in list(vars(mod).items()):
+            if attr.endswith("_plain") and callable(fn):
+                def spy(*a, _fn=fn, _attr=attr, **k):
+                    if on_card(list(a) + list(k.values())):
+                        calls.append(_attr)
+                    return _fn(*a, **k)
+
+                saved.append((mod, attr, fn))
+                setattr(mod, attr, spy)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    if calls:
+        fail(f"{what}: plain versions ran on the card: {sorted(set(calls))}")
+
+
+def nan_equal(got, want) -> bool:
+    """Equal, NaN where NaN (a NaN's bits may differ)."""
+    return got.shape == want.shape and bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def crossed_path(nvt, dev, parts, profile: bool) -> dict:
+    """Phase 12: the crossed-feature workflow on phase 3's partitions."""
+    from nvtabular_tpu_torch import kernels, ops
+    from nvtabular_tpu_torch.ops.lookup import kind_of
+
+    phase_t0 = time.perf_counter()
+    dataset = nvt.Dataset([nvt.TableBatch({c: p[c] for c in CROSSED_COLUMNS}) for p in parts])
+    batches = list(dataset.to_batches())
+    rows_total = NUM_PARTS * ROWS_PER_PART
+
+    # fit: TargetEncoding's fold ids are its one kernel, once a batch
+    wf = nvt.Workflow(crossed_graph(ops), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls_on_card("crossed fit"):
+        wf.fit(dataset)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(kernels.LAUNCHES)
+    check_launches(fit_launches, {"fold_ids": NUM_PARTS}, "crossed fit")
+    te = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.TargetEncoding))
+    jg = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.JoinGroupby))
+    cat = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Categorify))
+    # every group's verified hash pair, built on the host: raises on a
+    # collision among the fitted tuples' h1
+    pairs = {f"te:{t}": k.hashed_lookup_struct() for t, k in te.overall_stats.items()}
+    pairs.update({f"join:{t}": k.hashed_lookup_struct() for t, k in jg.keyed.items()})
+    pairs.update({f"combo:{t}": v.lookup_struct() for t, v in cat.vocabs.items()})
+    groups = {name: len(pair[1]) - 1 for name, pair in pairs.items()}
+    kinds = {name: kind_of(pair[0]) for name, pair in pairs.items()}
+    want_kinds = {"te:C5_C8": "tiny", "te:C12_C16_C18": "cuckoo", "te:C15_C24": "cuckoo", "join:C5_C8": "tiny",
+                  "join:C15_C24": "cuckoo", "combo:C8_C15": "cuckoo", "combo:C12_C25": "tiny"}
+    if kinds != want_kinds:
+        fail(f"crossed: h1 tables {kinds}, expected {want_kinds}")
+    log(
+        f"crossed: fit {fit_s:.2f} s (scan {wf.last_fit_stats['scan_seconds']:.2f} s, finalize "
+        f"{wf.last_fit_stats['finalize_seconds']:.2f} s), fitted tuples {groups} (no h1 collision), h1 tables "
+        f"{kinds}, launches {fit_launches}"
+    )
+
+    # transform: per group a hash pair, a probe of h1 and a verify (TE 3, JoinGroupby
+    # 2, combo 2); one TE epilogue, one stat gather, a HashBucket column each
+    ex = wf.executor
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls_on_card("crossed transform"):
+        outs = [wf.transform(b) for b in batches]
+        torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    kinds_list = list(kinds.values())
+    per_batch = {"hash_pair": 7, "hash_pair_verify": 7, "tiny_lookup": kinds_list.count("tiny"),
+                 "cuckoo_lookup": kinds_list.count("cuckoo"), "te_encode": 1, "stat_gather": 1, "hashed_cross": 3}
+    check_launches(launches, {k: v * NUM_PARTS for k, v in per_batch.items()}, "crossed transform")
+    te_cols = ["TE_C5_C8_label", "TE_C12_C16_C18_label", "TE_C15_C24_label"]
+    stat_cols = ["C5_C8_I0_mean", "C15_C24_I0_mean"]
+    cards = {"C8_C15": cat.vocabs["C8_C15"].size, "C12_C25": cat.vocabs["C12_C25"].size}
+    for out in outs:
+        for name, col in out.columns.items():
+            if col.device != dev or col.values.shape[0] != ROWS_PER_PART:
+                fail(f"crossed: output {name} has shape {tuple(col.values.shape)} on {col.device}")
+        for name in te_cols:
+            if not bool(torch.isfinite(out[name].values).all()):
+                fail(f"crossed: {name} holds non-finite values")
+        for name, card in cards.items():
+            lo, hi = (int(v) for v in torch.aminmax(out[name].values))
+            if lo < 3 or hi >= card:  # every tuple of the fitted data is in the vocabulary
+                fail(f"crossed: {name} codes span [{lo}, {hi}], vocabulary size {card}")
+        for name in ("C0", "C9", "C19"):
+            lo, hi = (int(v) for v in torch.aminmax(out[name].values))
+            if lo < 0 or hi >= 10_000_000:
+                fail(f"crossed: {name} buckets span [{lo}, {hi}]")
+    log(f"crossed: first transform pass {first_pass_s:.2f} s, launches {launches} (no plain version on the card "
+        f"in the fit or the transform), columns {outs[0].column_names}")
+    cpu_wf = nvt.Workflow(crossed_graph(ops), device="cpu")
+    nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+    compare_outputs(outs[0], cpu_wf.transform(batches[0]), set(te_cols + stat_cols), "crossed vs cpu",
+                    dict(ML_TOL, equal_nan=True))
+    log("crossed: batch 0 equals the CPU run (group counts, combo codes and bucket ids exact, TE and stat "
+        "columns within rtol=1e-6, atol=1e-7)")
+    del outs
+
+    with_h2d_all, _ = transform_rates(wf, batches, rows_total)
+    on_card = [ex.stage(b) for b in batches]
+    torch.cuda.synchronize()
+    without_h2d_all, _ = transform_rates(wf, on_card, rows_total)
+    rec = {
+        "fit_s": fit_s, "fit_stats": dict(wf.last_fit_stats), "fitted_tuples": groups, "h1_tables": kinds,
+        "fit_launches": fit_launches, "first_pass_s": first_pass_s, "launches": launches, "rows": rows_total,
+        "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+    }
+    if profile:
+        rec["profile"] = {
+            "with_h2d": profile_pass(lambda: transform_all(wf, batches[:4])),
+            "without_h2d": profile_pass(lambda: transform_all(wf, on_card[:4])),
+        }
+        for what, p in rec["profile"].items():
+            log(f"profile crossed {what}: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+                f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+    log(
+        f"crossed: transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s "
+        f"(min {with_h2d_all[0]:,.0f}, max {with_h2d_all[-1]:,.0f}) with the host-to-device copy, "
+        f"{float(np.median(without_h2d_all)):,.0f} rows/s (min {without_h2d_all[0]:,.0f}, max "
+        f"{without_h2d_all[-1]:,.0f}) from batches on the card"
+    )
+    rec.update(wf=wf, staged=on_card[0], te=te, cat=cat)
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"crossed: phase 12 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def sessions_graph(ops):
+    """Each rating's change from the user's previous rating and to the next."""
+    diffs = ["rating", "ts_delta"] >> ops.DifferenceLag("userId", shift=[1, -1])
+    return diffs + ["userId"]
+
+
+def sessions_path(nvt, dev, ml_parts, profile: bool) -> dict:
+    """Phase 13: DifferenceLag over phase 9's partitions, each stably sorted
+    by userId as ml-25m's ratings.csv is ordered by user."""
+    from nvtabular_tpu_torch import kernels, ops
+
+    phase_t0 = time.perf_counter()
+    tables = []
+    for p in ml_parts:
+        order = np.argsort(p["userId"], kind="stable")
+        tables.append(nvt.TableBatch({k: nvt.Column(p[k][order]) for k in ("userId", "rating", "ts_delta")}))
+    dataset = nvt.Dataset(tables)
+    batches = list(dataset.to_batches())
+    rows_total = ML_PARTS * ML_ROWS_PER_PART
+    wf = nvt.Workflow(sessions_graph(ops), device=dev)
+    wf.fit(dataset)  # no statistics: builds the schema
+    ex = wf.executor
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls_on_card("sessions transform"):
+        outs = [wf.transform(b) for b in batches]
+        torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, {"difference_lag": ML_PARTS}, "sessions transform")
+    names = ["rating_difference_lag_1", "ts_delta_difference_lag_1", "rating_difference_lag_-1",
+             "ts_delta_difference_lag_-1", "userId"]
+    nan_share = {}
+    for out in outs:
+        if out.column_names != names:
+            fail(f"sessions: columns {out.column_names}, expected {names}")
+        for name in names[:4]:
+            col = out[name].values
+            if col.device != dev or col.shape[0] != ML_ROWS_PER_PART or col.dtype != torch.float32:
+                fail(f"sessions: output {name} has shape {tuple(col.shape)} {col.dtype} on {col.device}")
+        # a lag is NaN exactly where the previous row is another user's (no NaN in the inputs)
+        first = torch.ones(ML_ROWS_PER_PART, dtype=torch.bool, device=dev)
+        uid = out["userId"].values
+        first[1:] = uid[1:] != uid[:-1]
+        if not torch.equal(torch.isnan(out["rating_difference_lag_1"].values), first):
+            fail("sessions: rating's lag is not NaN exactly at each user's first rating")
+    for name in names[:4]:
+        nan_share[name] = float(torch.isnan(outs[0][name].values).float().mean())
+    cpu_wf = nvt.Workflow(sessions_graph(ops), device="cpu")
+    cpu_wf.fit(dataset)
+    want = cpu_wf.transform(batches[0])
+    for name in names:
+        if not nan_equal(outs[0][name].values.cpu(), want[name].values):
+            fail(f"sessions vs cpu: {name} is not bit-equal to the CPU run")
+    log(f"sessions: first transform pass {first_pass_s:.2f} s, launches {launches} (no plain version on the "
+        f"card); batch 0 bit-equal to the CPU "
+        f"run (NaN for NaN); NaN share of batch 0 {nan_share}")
+    del outs
+
+    with_h2d_all, _ = transform_rates(wf, batches, rows_total)
+    on_card = [ex.stage(b) for b in batches]
+    torch.cuda.synchronize()
+    without_h2d_all, _ = transform_rates(wf, on_card, rows_total)
+    rec = {
+        "first_pass_s": first_pass_s, "launches": launches, "rows": rows_total, "nan_share_batch0": nan_share,
+        "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+    }
+    if profile:
+        rec["profile"] = {"without_h2d": profile_pass(lambda: transform_all(wf, on_card[:4]))}
+        p = rec["profile"]["without_h2d"]
+        log(f"profile sessions without_h2d: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+    log(
+        f"sessions: transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s "
+        f"(min {with_h2d_all[0]:,.0f}, max {with_h2d_all[-1]:,.0f}) with the host-to-device copy, "
+        f"{float(np.median(without_h2d_all)):,.0f} rows/s (min {without_h2d_all[0]:,.0f}, max "
+        f"{without_h2d_all[-1]:,.0f}) from batches on the card"
+    )
+    rec["staged"] = on_card[0]
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"sessions: phase 13 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def crossed_kernel_records(dev, crossed: dict, sessions: dict) -> dict:
+    """Phase 14: K10b / K9 (hash_pair, hash_pair_verify), K12a
+    (difference_lag) and HashBucket's K7 at phases 12-13's shapes against
+    their plain versions on the card, timed beside their bounds."""
+    from nvtabular_tpu_torch.kernels import difference_lag as kdl
+    from nvtabular_tpu_torch.kernels import hash as khash
+    from nvtabular_tpu_torch.kernels import hash_pair as khp
+
+    records = {}
+    staged = crossed["staged"]
+    n = ROWS_PER_PART
+
+    def record(name, got, want, fn, plain_fn, nbytes, ops, **extra):
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            if not nan_equal(g, w):
+                fail(f"{name} kernel differs from plain in {int(((g != w) & ~(g.isnan() & w.isnan())).sum())} entries")
+        rec = {"max_abs_err": 0, "ms": time_ms(fn), "plain_ms": time_ms(plain_fn), "library_ms": None,
+               "bytes": nbytes, **extra}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
+        records[name] = rec
+
+    def group_records(suffix, members, index, hit_offset, oov, null):
+        """hash_pair and hash_pair_verify of one group on batch 0 as staged."""
+        cols = [staged[c].values for c in members]
+        k = len(cols)
+        h1, h2 = khp.hash_pair(cols)
+        record(f"hash_pair{suffix}", (h1, h2), khp.hash_pair_plain(cols), lambda: khp.hash_pair(cols),
+               lambda: khp.hash_pair_plain(cols), n * 4 * k + n * 8, n * k * 60, shape=[k, n])
+        misses = index.misses
+        idx = index.table.encode(h1[None], None, index.zero, index.zero, misses, misses)[0]
+        hits = int(torch.unique(idx).numel())
+        args = (idx, h2, index.h2, [], misses, hit_offset, oov, null)
+        record(f"hash_pair_verify{suffix}", khp.hash_pair_verify(*args), khp.hash_pair_verify_plain(*args),
+               lambda: khp.hash_pair_verify(*args), lambda: khp.hash_pair_verify_plain(*args),
+               n * 12 + hits * 4, n * 6, shape=[n], groups=misses, distinct_rows=hits)
+
+    # K10b on TargetEncoding's (C15, C24) group: 16,740 fitted tuples, a cuckoo table
+    ex = crossed["wf"].executor
+    te_state = ex.op_state(crossed["te"], dev)
+    index = te_state["index"]["C15_C24"].pair
+    G = index.misses
+    group_records("", ["C15", "C24"], index, 0, G, G)
+    # K9 on the combo (C8, C15): the same two kernels with Categorify's codes
+    cat = crossed["cat"]
+    vocab = cat.vocabs["C8_C15"]
+    combo = ex.op_state(cat, dev)["combo"]["C8_C15"]
+    group_records(":combo", ["C8", "C15"], combo, vocab.start_index, 2, 1)
+    # dispatch.hash_lanes (not on the path) against its plain version
+    lo, hi = (staged[c].values.long() & 0xFFFFFFFF for c in ("C15", "C24"))
+    if not torch.equal(khp.hash_lanes(lo, hi, 17), khp.hash_lanes_plain(lo, hi, 17)):
+        fail("hash_lanes kernel differs from plain")
+
+    # K7 as HashBucket: the largest Criteo field into 10M buckets
+    col = [staged["C19"].values]
+    record("hashed_cross:hash_bucket", khash.hashed_cross(col, 10_000_000), khash.hashed_cross_plain(col, 10_000_000),
+           lambda: khash.hashed_cross(col, 10_000_000), lambda: khash.hashed_cross_plain(col, 10_000_000),
+           n * 8, n * 30, shape=[n])
+
+    # K12a on phase 13's batch 0: userId keys, rating and ts_delta, shifts 1 and -1
+    s = sessions["staged"]
+    keys, values, shifts = [s["userId"].values], [s["rating"].values, s["ts_delta"].values], [1, -1]
+    m = ML_ROWS_PER_PART
+    S, C = len(shifts), len(values)
+    record("difference_lag", kdl.difference_lag(keys, values, shifts), kdl.difference_lag_plain(keys, values, shifts),
+           lambda: kdl.difference_lag(keys, values, shifts), lambda: kdl.difference_lag_plain(keys, values, shifts),
+           m * 8 + C * m * 4 + S * C * m * 4, S * C * m + S * m, shape=[S, C, m])
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -1335,7 +1677,6 @@ def main():
 
     # --- 10. the MovieLens multihot path: lists, the multihot loader, the tabular MLP ---------
     multihot = multihot_path(nvt, dev, ml_parts, opts.profile)
-    del ml_parts
 
     # --- 11. its new kernels at its shapes -------------------------------------------------------
     records.update(multihot_kernel_records(multihot))
@@ -1348,6 +1689,27 @@ def main():
     for shared in (main_launches, direct_launches, train_launches):
         for k in shared:
             shared[k] += mh_launches[k]
+
+    # --- 12. crossed features on phase 3's partitions ----------------------------------------------
+    crossed = crossed_path(nvt, dev, parts, opts.profile)
+
+    # --- 13. sessions: DifferenceLag on phase 9's partitions ---------------------------------------
+    sessions = sessions_path(nvt, dev, ml_parts, opts.profile)
+    del ml_parts
+
+    # --- 14. their kernels at their shapes -------------------------------------------------------------
+    records.update(crossed_kernel_records(dev, crossed, sessions))
+    for key in ("wf", "staged", "te", "cat"):
+        del crossed[key]
+    del sessions["staged"]
+    # every launch of phases 12-13: the group indexes' probes count with K1/K3,
+    # the TE fold ids (fit), epilogue and stat gathers with K7/K10a
+    new_launches = {k: crossed["launches"][k] + sessions["launches"][k] for k in crossed["launches"]}
+    for k in ("tiny_lookup", "cuckoo_lookup"):
+        main_launches[k] += new_launches[k]
+    for k in ("te_encode", "stat_gather", "hashed_cross"):
+        ml_launches[k] += new_launches[k]
+    ml_launches["fold_ids"] += crossed["fit_launches"]["fold_ids"]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -1369,16 +1731,20 @@ def main():
         "ragged_slice_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:35", mh_launches),
         "embedding_bag_fwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
         "embedding_bag_bwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
+        "hash_pair": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:53", new_launches),
+        "hash_pair_verify": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:611", new_launches),
+        "difference_lag": ("difference_lag.cu", "nvtabular_tpu/ops/difference_lag.py:79", new_launches),
     }
     line = []
-    for name, (source, replaces, launches) in meta.items():
-        rec = records[name]
+    for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         log(
             f"kernel {name} {rec['shape']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
             f"library {lib}, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
             f"({rec['bytes']} bytes over 3.35 TB/s), max abs err {rec['max_abs_err']}"
         )
+    for name, (source, replaces, launches) in meta.items():
+        rec = records[name]
         line.append(
             {
                 "name": name,
@@ -1410,6 +1776,8 @@ def main():
                     "train": train_record,
                     "movielens": movielens,
                     "multihot": multihot,
+                    "crossed": crossed,
+                    "sessions": sessions,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

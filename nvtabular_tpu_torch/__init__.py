@@ -2,11 +2,11 @@
 
 Fits and transforms tabular feature-engineering workflows on an NVIDIA GPU
 (Hopper, sm_90a), and feeds the transformed data through ``loader.DeviceLoader``
-into DLRM training (``models``): the device transform's lookup,
-continuous-chain, hash, group-stat and bucketize kernels, the loader's row
-permutation, and DLRM's embedding gather and dot interaction (forward and
-backward) are hand-written CUDA (``csrc/``), each beside a plain PyTorch
-version that the CPU runs. Entry
+into DLRM and tabular-MLP training (``models``): the device transform's
+lookup, continuous-chain, hash, hash-pair, group-stat, bucketize, shift and
+ragged kernels, the loader's row permutation, and the models' embedding
+gathers, bags and dot interaction (forward and backward) are hand-written
+CUDA (``csrc/``), each beside a plain PyTorch version that the CPU runs. Entry
 points run on ``cuda:0`` unless the caller passes ``device="cpu"``. The JAX package ``nvtabular_tpu`` is the reference this
 port is held against; nothing here imports it or JAX.
 """

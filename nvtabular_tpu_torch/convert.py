@@ -11,7 +11,11 @@ two transforms must agree. The state is a dict
      "join_groupby": {group_name: keyed}}
 
 with ``keyed = {"key_cols": [...], "key_arrays": {column: ndarray},
-"stats": {name: ndarray}}`` — a fitted ``KeyedStats``. Group stats are keyed
+"stats": {name: ndarray}}`` — a fitted ``KeyedStats`` (a multi-column group
+has one key array a column). A combo group's ``values_by_code`` are its
+member tuples, int [V, k], in code order; the JAX package's, the members
+joined by "_" as strings (``categorify.py:1827-1840``), are parsed into
+that form. Group stats are keyed
 by group, as the reference names its stat files (``te_stats.{tag}``,
 ``cat_stats.{name}``). A caller can extract the state from the JAX package's
 fitted ops (the tests do) or from this package's own (``fitted_state``),
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from .ops.categorify import Categorify, _Vocab
-from .ops.groupby_stats import KeyedStats, single_key_groups
+from .ops.groupby_stats import KeyedStats, key_groups
 from .ops.join_groupby import JoinGroupby
 from .ops.normalize import Normalize
 from .ops.target_encoding import TargetEncoding
@@ -57,6 +61,17 @@ def _keyed_state(keyed: KeyedStats) -> Dict[str, Any]:
     return {"key_cols": list(keyed.key_cols), "key_arrays": dict(keyed.key_arrays), "stats": dict(keyed.stats)}
 
 
+def _combo_tuples(values: np.ndarray, width: int) -> np.ndarray:
+    """A combo vocabulary as int64 [V, width] tuples: kept if it is one,
+    parsed from "_"-joined strings otherwise."""
+    if values.ndim == 2:
+        return values.astype(np.int64)
+    parts = [str(v).split("_") for v in values]
+    if any(len(p) != width for p in parts):
+        raise ValueError(f"combo values {values[:3]!r} are not {width} '_'-joined integers")
+    return np.array(parts, dtype=np.int64).reshape(len(parts), width)
+
+
 def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
     """Set every Categorify, Normalize, TargetEncoding and JoinGroupby op of
     ``workflow`` to ``state``; each op counts as freshly fitted (its device
@@ -69,10 +84,13 @@ def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
         op = node.op
         if isinstance(op, Categorify):
             op.clear()
-            for key, _ in op._groups(node.selector):
+            for key, members in op._groups(node.selector):
                 entry = cats[key]
+                values = np.asarray(entry["values_by_code"])
+                if op._is_combo(members):
+                    values = _combo_tuples(values, len(members))
                 vocab = _Vocab(
-                    np.asarray(entry["values_by_code"]),
+                    values,
                     np.zeros(len(entry["values_by_code"]), dtype=np.int64),
                     int(entry.get("num_buckets", 1)),
                 )
@@ -87,7 +105,7 @@ def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
             op.mark_fitted()
         elif isinstance(op, TargetEncoding):
             op.clear()
-            for group in single_key_groups(node.selector):
+            for group in key_groups(node.selector):
                 entry = tes[op._group_tag(group)]
                 op.means.update({t: float(m) for t, m in entry["means"].items()})
                 op.fold_stats[op._group_tag(group)] = _keyed(entry["fold_stats"])
@@ -95,7 +113,7 @@ def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
             op.mark_fitted()
         elif isinstance(op, JoinGroupby):
             op.clear()
-            for group in single_key_groups(node.selector):
+            for group in key_groups(node.selector):
                 op.keyed[op._group_name(group)] = _keyed(joins[op._group_name(group)])
             op.mark_fitted()
 

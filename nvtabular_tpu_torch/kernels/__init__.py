@@ -33,6 +33,10 @@ LAUNCHES: Dict[str, int] = {
     "ragged_slice_padded": 0,
     "embedding_bag_fwd": 0,
     "embedding_bag_bwd": 0,
+    "hash_pair": 0,
+    "hash_pair_verify": 0,
+    "hash_lanes": 0,
+    "difference_lag": 0,
 }
 
 

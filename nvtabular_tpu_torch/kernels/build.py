@@ -34,6 +34,8 @@ SOURCES = {
     "bucketize": _PKG / "csrc" / "bucketize.cu",
     "ragged": _PKG / "csrc" / "ragged.cu",
     "embedding_bag": _PKG / "csrc" / "embedding_bag.cu",
+    "hash_pair": _PKG / "csrc" / "hash_pair.cu",
+    "difference_lag": _PKG / "csrc" / "difference_lag.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

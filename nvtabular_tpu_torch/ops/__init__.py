@@ -4,7 +4,9 @@ from ..selector import ColumnSelector
 from .bucketize import Bucketize
 from .categorify import Categorify, get_embedding_sizes
 from .clip import Clip
+from .difference_lag import DifferenceLag
 from .fill import FillMissing
+from .hash_bucket import HashBucket
 from .hashed_cross import HashedCross
 from .join_groupby import JoinGroupby
 from .lambdaop import LambdaOp
@@ -20,7 +22,9 @@ __all__ = [
     "Categorify",
     "Clip",
     "ColumnSelector",
+    "DifferenceLag",
     "FillMissing",
+    "HashBucket",
     "HashedCross",
     "JoinGroupby",
     "LambdaOp",

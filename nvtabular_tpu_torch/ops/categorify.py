@@ -17,9 +17,17 @@ into one global index space.
   validity (:848-857); at transform its flat values take a launch of their
   own per table kind, without the null epilogue, and its codes keep the
   column's offsets (:1456-1458, :1631-1669).
+* ``encode_type="combo"``: a subgroup ``("a", "b")`` is one crossed output
+  column ``a_b`` (joined by ``name_sep``, :709-729). The fit counts the
+  member tuples on the card (a row with a null member is null, not a
+  tuple); the finalize orders them by (-count, the members joined by "_"
+  as strings), the reference's order over its string keys (:306-308,
+  1827-1840). The vocabulary holds the tuples, int64 [V, k], in code order.
+  The transform maps each row's tuple through the verified hash pair (K9,
+  ``groupby_stats.PairIndex``, :1322-1410).
 
-Not ported yet (raise NotImplementedError): ``encode_type="combo"``,
-``num_buckets > 1``, non-integer columns, keys outside int32.
+Not ported yet (raise NotImplementedError): ``num_buckets > 1``,
+non-integer columns, keys outside int32.
 """
 
 from __future__ import annotations
@@ -30,9 +38,11 @@ import numpy as np
 import torch
 
 from .. import dtypes as md
+from ..kernels.lookup import NULL_INDEX
 from ..selector import ColumnSelector
 from ..table import Column, TableBatch
 from ..tags import Tags
+from .groupby_stats import PairIndex, build_hash_pair
 from .lookup import BATCHED, build_cuckoo, build_lookup, int32_keys, kind_of
 from .stat_operator import StatOperator
 
@@ -40,7 +50,6 @@ OOV_OFFSET = 2  # codes 0 pad, 1 null, 2 out-of-vocabulary (kernels/lookup.py)
 _REAGG_ROWS = 1 << 24  # merge partial counts past this many entries
 _LONE_TINY_MAX = 512  # categorify.py:1513-1522
 
-UNSUPPORTED_COMBO = "Categorify(encode_type='combo') is not ported yet (ROADMAP.md queue 1)"
 UNSUPPORTED_BUCKETS = (
     "Categorify(num_buckets > 1) is not ported yet "
     "(ROADMAP.md queue 1: num_buckets > 1 with kernel K7)"
@@ -107,8 +116,65 @@ class _VocabAccum:
         return values[order].cpu().numpy(), counts[order].cpu().numpy()
 
 
+class _ComboAccum:
+    """Streaming (member tuple, count) accumulator of a combo group on the
+    batch's device."""
+
+    def __init__(self, width: int):
+        self.width = width
+        self.partials: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.rows = 0
+
+    def update(self, cols: List[Column]):
+        for c in cols:
+            if c.values.is_floating_point() or c.values.dtype == torch.bool or c.is_list:
+                raise NotImplementedError(UNSUPPORTED_KEYS)
+        keys = torch.stack([c.values.long() for c in cols], dim=1)
+        valid = None
+        for c in cols:  # a null member makes the row null (_combo_values, :1827-1840)
+            if c.validity is not None:
+                valid = c.validity if valid is None else valid & c.validity
+        if valid is not None:
+            keys = keys[valid]
+        if keys.shape[0] == 0:
+            return
+        self.partials.append(torch.unique(keys, dim=0, return_counts=True))
+        self.rows += self.partials[-1][1].numel()
+        if self.rows > _REAGG_ROWS:
+            self._merge()
+
+    def _merge(self):
+        keys = torch.cat([k for k, _ in self.partials])
+        counts = torch.cat([c for _, c in self.partials])
+        uniq, inverse = torch.unique(keys, dim=0, return_inverse=True)
+        merged = torch.zeros(uniq.shape[0], dtype=counts.dtype, device=counts.device).scatter_add_(0, inverse, counts)
+        self.partials = [(uniq, merged)]
+        self.rows = uniq.shape[0]
+
+    def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (tuples int64 [V, width], counts), by (-count, joined string)."""
+        if not self.partials:
+            return np.zeros((0, self.width), dtype=np.int64), np.array([], dtype=np.int64)
+        if len(self.partials) > 1:
+            self._merge()
+        keys, counts = (t.cpu().numpy() for t in self.partials[0])
+        order = np.lexsort((combo_strings(keys), -counts))
+        return keys[order], counts[order]
+
+
+def combo_strings(tuples: np.ndarray) -> np.ndarray:
+    """Each member tuple as the reference's combo key: its values joined by
+    "_" (categorify.py:1834-1839)."""
+    parts = tuples.astype(str)
+    out = parts[:, 0]
+    for i in range(1, parts.shape[1]):
+        out = np.char.add(np.char.add(out, "_"), parts[:, i])
+    return out
+
+
 class _Vocab:
-    """A fitted vocabulary: values in code order (frequency-descending)."""
+    """A fitted vocabulary in code order (frequency-descending): values, or
+    for a combo group the member tuples, int64 [V, k]."""
 
     __slots__ = ("values_by_code", "counts", "num_buckets", "start_index", "offset", "_lookup")
 
@@ -127,9 +193,18 @@ class _Vocab:
         """Total domain size including pad/null/OOV."""
         return self.start_index + len(self.values_by_code)
 
+    @property
+    def is_combo(self) -> bool:
+        return self.values_by_code.ndim == 2
+
     def lookup_struct(self):
-        """Host-built tiny/direct/cuckoo table (ops/lookup.py), built once."""
-        if self._lookup is None:
+        """Host-built tiny/direct/cuckoo table (ops/lookup.py), built once;
+        for a combo vocabulary its verified hash pair over the tuples (None
+        when empty)."""
+        if self._lookup is None and self.is_combo:
+            if len(self.values_by_code):
+                self._lookup = build_hash_pair(list(self.values_by_code.T))
+        elif self._lookup is None:
             codes = np.arange(len(self.values_by_code), dtype=np.int64) + self.start_index
             self._lookup = build_lookup(self.values_by_code, codes)
         return self._lookup
@@ -145,11 +220,10 @@ class Categorify(StatOperator):
         max_size: Union[int, Dict[str, int]] = 0,
         num_buckets: Union[None, int, Dict[str, int]] = None,
         single_table: bool = False,
+        name_sep: str = "_",
     ):
         super().__init__()
-        if encode_type == "combo":
-            raise NotImplementedError(UNSUPPORTED_COMBO)
-        if encode_type != "joint":
+        if encode_type not in ("joint", "combo"):
             raise ValueError(f"encode_type must be 'joint' or 'combo', got {encode_type!r}")
         buckets = num_buckets.values() if isinstance(num_buckets, dict) else [num_buckets]
         if any(nb not in (None, 0, 1) for nb in buckets):
@@ -157,29 +231,47 @@ class Categorify(StatOperator):
         self.freq_threshold = freq_threshold
         self.max_size = max_size
         self.single_table = single_table
+        self.encode_type = encode_type
+        self.name_sep = name_sep
         self.vocabs: Dict[str, _Vocab] = {}
         self._batched_cache = None  # (vocab identity token, {kind: (batched, row_index)})
 
     # --- groups ------------------------------------------------------------
     def _groups(self, col_selector: ColumnSelector) -> List[Tuple[str, List[str]]]:
-        """→ [(vocab key, member columns)]: joint subgroups share one vocab."""
+        """→ [(vocab key, member columns)]: joint subgroups share one vocab;
+        combo subgroups form one crossed column."""
         groups = []
         for entry in col_selector.grouped_names:
             if isinstance(entry, tuple):
-                groups.append(("_".join(entry), list(entry)))
+                groups.append((self.name_sep.join(entry), list(entry)))
             else:
                 groups.append((entry, [entry]))
         return groups
 
+    def _is_combo(self, members: List[str]) -> bool:
+        return len(members) > 1 and self.encode_type == "combo"
+
     def column_mapping(self, col_selector: ColumnSelector) -> Dict[str, List[str]]:
-        return {m: [m] for _, members in self._groups(col_selector) for m in members}
+        mapping: Dict[str, List[str]] = {}
+        for key, members in self._groups(col_selector):
+            if self._is_combo(members):
+                mapping[key] = members
+            else:
+                mapping.update({m: [m] for m in members})
+        return mapping
 
     # --- fit -----------------------------------------------------------------
     def fit_init(self, col_selector: ColumnSelector, input_schema):
-        return {key: _VocabAccum() for key, _ in self._groups(col_selector)}
+        return {
+            key: _ComboAccum(len(members)) if self._is_combo(members) else _VocabAccum()
+            for key, members in self._groups(col_selector)
+        }
 
     def fit_batch(self, col_selector, batch: TableBatch, state):
         for key, members in self._groups(col_selector):
+            if self._is_combo(members):
+                state[key].update([batch[m] for m in members])
+                continue
             for mcol in members:
                 col = batch[mcol]
                 # multihots count their flat values (categorify.py:848-857)
@@ -223,6 +315,8 @@ class Categorify(StatOperator):
             return self._batched_cache[1]
         by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": []}
         for vkey in sorted(self.vocabs):
+            if self.vocabs[vkey].is_combo:
+                continue
             lut = self.vocabs[vkey].lookup_struct()
             by_kind[kind_of(lut)].append((vkey, lut))
         if len(by_kind["tiny"]) == 1 and len(by_kind["tiny"][0][1].keys) > _LONE_TINY_MAX:
@@ -247,7 +341,21 @@ class Categorify(StatOperator):
                 for kind, (blut, row_index) in self._get_batched().items()
             },
             "args": {},  # (kind, names) → (sel, col_offsets) on the device
+            "combo": {
+                key: PairIndex(vocab.lookup_struct(), device, len(vocab.values_by_code))
+                for key, vocab in self.vocabs.items() if vocab.is_combo
+            },
         }
+
+    def encode_combo(self, key: str, cols: List[Column], state) -> torch.Tensor:
+        """int32 codes of a combo group's crossed column (the reference's
+        ``_encode_combo_device``, categorify.py:1381-1410): a verified hit →
+        its code from ``start_index``, a miss → the OOV code, a row with a
+        null member → the null code, each shifted by the vocabulary's
+        single_table offset."""
+        vocab = self.vocabs[key]
+        off = vocab.offset
+        return state["combo"][key](cols, vocab.start_index + off, OOV_OFFSET + off, NULL_INDEX + off)
 
     # --- transform ---------------------------------------------------------------
     def transform(self, col_selector: ColumnSelector, batch: TableBatch, state=None) -> TableBatch:
@@ -259,8 +367,11 @@ class Categorify(StatOperator):
             for i, name in enumerate(job["names"]):
                 codes[name] = out[i]
         result = TableBatch()
-        for name in self.column_mapping(col_selector):
-            result[name] = Column(codes[name], batch[name].offsets)  # a list keeps its offsets
+        for name, members in self.column_mapping(col_selector).items():
+            if self._is_combo(members):
+                result[name] = Column(self.encode_combo(name, [batch[m] for m in members], state))
+            else:
+                result[name] = Column(codes[name], batch[name].offsets)  # a list keeps its offsets
         return result
 
     def lookup_jobs(self, col_selector: ColumnSelector, batch: TableBatch, state):
@@ -273,6 +384,7 @@ class Categorify(StatOperator):
         jobs = [
             (mcol, key if len(members) > 1 else mcol)
             for key, members in self._groups(col_selector)
+            if not self._is_combo(members)
             for mcol in members
         ]
         for kind, (blut, row_index) in state["tables"].items():

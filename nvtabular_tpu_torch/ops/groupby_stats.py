@@ -1,7 +1,7 @@
 """Per-key aggregation shared by TargetEncoding and JoinGroupby.
 
 Counterpart of ``nvtabular_tpu/ops/groupby_stats.py`` (:53-189, 364-378,
-529-547, 590-610, 629-660) without pyarrow:
+529-627, 629-660) without pyarrow:
 
 * ``GroupbyStatsAccum`` aggregates each batch on the batch's device
   (``torch.unique`` sorted with ``return_inverse``, then ``index_add_`` and
@@ -13,9 +13,14 @@ Counterpart of ``nvtabular_tpu/ops/groupby_stats.py`` (:53-189, 364-378,
   ``sum`` and ``count`` but its row counts in ``__rows``.
 * ``KeyedStats`` holds the fitted stats as numpy arrays (nothing is written
   to parquet: that waits for save/load) and maps a batch's keys to stat rows
-  on the device with the Categorify lookup kernels (``GroupIndex``).
+  on the device (``GroupIndex``): one key column through the Categorify
+  lookup kernels (K10a); a group of several columns through the verified
+  hash pair (K10b, ``build_hash_pair``): h1 probes a K1/K3 table built over
+  the fitted tuples' h1, and the tuple's h2 must match the row's.
 
-Multi-key groups (the reference's hash-pair branch, :549-588, 611-627) raise.
+A multi-column group whose pair cannot be built (keys outside int32, or a
+collision among the fitted tuples' h1) raises; the reference joins it on the
+host.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ import numpy as np
 import torch
 
 from ..dispatch import hash_array, hash_lanes
+from ..kernels.hash_pair import hash_pair, hash_pair_verify
 from ..table import Column
-from .lookup import BATCHED, build_lookup, int32_keys, kind_of
+from .lookup import BATCHED, build_lookup, fits_int32, int32_keys, kind_of
 
 _AGG_NEEDS = {
     "count": ("count",),
@@ -41,9 +47,9 @@ _AGG_NEEDS = {
 _REAGG_ROWS = 4_000_000
 GROUP_TINY_MAX = 512  # group indexes probe one column a launch (groupby_stats.py:541-544)
 
-UNSUPPORTED_MULTI_KEY = (
-    "multi-column groups of TargetEncoding and JoinGroupby are not ported yet "
-    "(ROADMAP.md queue 2: K10b, the multi-key hash-pair index)"
+UNSUPPORTED_PAIR = (
+    "the verified hash pair of a multi-column group cannot be built ({}): the reference joins such "
+    "a group on the host, which is not ported yet (ROADMAP.md queue 1 item 4: strings and hybrid execution)"
 )
 UNSUPPORTED_ARTIFACTS = (
     "the parquet stat artifacts (out_path) are not ported yet: the port keeps fitted "
@@ -51,23 +57,39 @@ UNSUPPORTED_ARTIFACTS = (
 )
 
 
-def single_key_groups(col_selector) -> List[List[str]]:
-    """The selector's key groups, one column each; a multi-column group raises."""
-    groups = []
-    for entry in col_selector.grouped_names:
-        if isinstance(entry, tuple):
-            raise NotImplementedError(UNSUPPORTED_MULTI_KEY)
-        groups.append([entry])
-    return groups
+def key_groups(col_selector) -> List[List[str]]:
+    """The selector's key groups: a column alone, or a tuple's columns."""
+    return [list(e) if isinstance(e, tuple) else [e] for e in col_selector.grouped_names]
 
 
 def hash_multi_key(arrays: Sequence[torch.Tensor], seed: int) -> torch.Tensor:
     """The reference's combined 32-bit hash of int key columns
-    (groupby_stats.py:53-62), held in int64."""
+    (groupby_stats.py:53-62), held in int64. The group indexes compute it
+    with ``kernels.hash_pair`` (both seeds in one launch)."""
     h = hash_array(arrays[0], seed=seed)
     for i, a in enumerate(arrays[1:], start=1):
         h = hash_lanes(h, hash_array(a, seed=seed + 31 * i), seed=seed + 17)
     return h
+
+
+def build_hash_pair(arrays: Sequence[np.ndarray]):
+    """(table h1 → fitted row, int32 [G + 1] h2 of each fitted tuple then a
+    0 pad) over the fitted tuples ``arrays`` (one array a key column; the
+    reference's hashed_lookup_struct, groupby_stats.py:549-588, and
+    _combo_device_struct, categorify.py:1322-1379). h1 is wrapped to int32
+    and the table built with ``tiny_max`` 512. Raises NotImplementedError
+    for keys outside int32 and for a collision among the fitted h1."""
+    for a in arrays:
+        if a.dtype.kind not in ("i", "u"):
+            raise NotImplementedError(UNSUPPORTED_PAIR.format("non-integer keys"))
+        if not fits_int32(a):
+            raise NotImplementedError(UNSUPPORTED_PAIR.format("keys outside int32"))
+    h1, h2 = hash_pair([torch.from_numpy(np.asarray(a).astype(np.int64)) for a in arrays])
+    h1 = h1.numpy()
+    if len(np.unique(h1)) != len(h1):
+        raise NotImplementedError(UNSUPPORTED_PAIR.format("the fitted tuples' 32-bit h1 collide"))
+    lut = build_lookup(h1, np.arange(len(h1), dtype=np.int32), tiny_max=GROUP_TINY_MAX)
+    return lut, np.append(h2.numpy(), np.int32(0))
 
 
 def _partial_names(needs: Dict[str, set]) -> List[Tuple[str, str]]:
@@ -206,25 +228,60 @@ def _numpy_dtype(dtype: torch.dtype):
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
+class PairIndex:
+    """A verified hash pair on a device (``build_hash_pair``'s table and
+    fitted h2): a row's key tuple → its fitted row, in three launches (K10b
+    and K9): ``hash_pair``, the K1/K3 probe of h1 with the miss code
+    ``misses`` (the number of fitted tuples), ``hash_pair_verify``. With no
+    fitted tuple (``pair`` None) every row misses."""
+
+    def __init__(self, pair, device, misses: int):
+        self.misses = misses
+        self.table = None if pair is None else BATCHED[kind_of(pair[0])]([pair[0]]).to(device)
+        h2 = np.zeros(1, dtype=np.int32) if pair is None else pair[1]
+        self.h2 = torch.from_numpy(h2).to(device)
+        self.zero = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def __call__(self, cols: Sequence[Column], hit_offset: int, oov: int, null: int) -> torch.Tensor:
+        """int32 [N]: a verified hit → its row + ``hit_offset``; a miss →
+        ``oov``; a row with a null member → ``null``."""
+        if self.table is None:
+            idx = torch.full_like(cols[0].values, self.misses, dtype=torch.int32)
+            h2 = torch.zeros_like(idx)
+        else:
+            h1, h2 = hash_pair([c.values for c in cols])
+            idx = self.table.encode(h1[None], None, self.zero, self.zero, self.misses, self.misses)[0]
+        validity = [c.validity for c in cols if c.validity is not None]
+        return hash_pair_verify(idx, h2, self.h2, validity, self.misses, hit_offset, oov, null)
+
+
 class GroupIndex:
-    """One group's key → stat-row table on a device: a batch's key column
-    maps to its group row, a miss or a null key to the pad slot num_groups
-    (the reference's ``device_group_index``, groupby_stats.py:590-610)."""
+    """One group's key → stat-row table on a device: a batch's key columns
+    map to their group row, a miss or a null key to the pad slot num_groups
+    (the reference's ``device_group_index``, groupby_stats.py:590-627)."""
 
     def __init__(self, keyed: "KeyedStats", device):
-        self.num_groups = keyed.num_groups
-        lut = keyed.lookup_struct()
+        G = self.num_groups = keyed.num_groups
+        self.pair = None
+        lut = None
+        if len(keyed.key_cols) == 1:
+            lut = keyed.lookup_struct()
+        elif G:
+            self.pair = PairIndex(keyed.hashed_lookup_struct(), device, G)
         self.table = None if lut is None else BATCHED[kind_of(lut)]([lut]).to(device)
         self.zero = torch.zeros(1, dtype=torch.int32, device=device)
 
-    def __call__(self, col: Column) -> torch.Tensor:
-        """int32 [N] group rows of the key column ``col``."""
-        values = int32_keys(col)
+    def __call__(self, *cols: Column) -> torch.Tensor:
+        """int32 [N] group rows of the key columns ``cols`` (in the group's
+        key order)."""
+        G = self.num_groups
+        if self.pair is not None:
+            return self.pair(cols, 0, G, G)
         if self.table is None:  # nothing fitted: every row reads the pad slot 0
-            return torch.zeros_like(values)
+            return torch.zeros(cols[0].values.shape[0], dtype=torch.int32, device=cols[0].values.device)
+        col = cols[0]
         validity = None if col.validity is None else col.validity[None]
-        out = self.table.encode(values[None], validity, self.zero, self.zero, self.num_groups, self.num_groups)
-        return out[0]
+        return self.table.encode(int32_keys(col)[None], validity, self.zero, self.zero, G, G)[0]
 
 
 class KeyedStats:
@@ -236,34 +293,57 @@ class KeyedStats:
         self.stats = stats
         self.key_arrays = key_arrays
         self._lut = None
+        self._pair = None
         self._padded: Dict[tuple, np.ndarray] = {}
 
     @property
     def num_groups(self) -> int:
         return len(self.key_arrays[self.key_cols[0]]) if self.key_cols else 0
 
-    def _single_key(self) -> np.ndarray:
-        if len(self.key_cols) != 1:
-            raise NotImplementedError(UNSUPPORTED_MULTI_KEY)
-        return np.asarray(self.key_arrays[self.key_cols[0]])
+    def _keys(self) -> List[np.ndarray]:
+        return [np.asarray(self.key_arrays[k]) for k in self.key_cols]
 
-    def row_indices(self, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Host join of one key column → (stat row, found) per entry."""
-        fitted = self._single_key()
+    def row_indices(self, key_arrays: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """Exact host join of key tuples (one array a key column, in
+        ``key_cols`` order) → (stat row, found) per entry."""
+        n = len(key_arrays[0])
         if self.num_groups == 0:
-            return np.zeros(len(keys), dtype=np.int64), np.zeros(len(keys), dtype=bool)
-        order = np.argsort(fitted, kind="stable")
-        pos = np.minimum(np.searchsorted(fitted[order], keys), self.num_groups - 1)
-        found = fitted[order][pos] == keys
-        return np.where(found, order[pos], 0), found
+            return np.zeros(n, dtype=np.int64), np.zeros(n, dtype=bool)
+        if len(self.key_cols) == 1:
+            fitted, keys = self._keys()[0], np.asarray(key_arrays[0])
+            order = np.argsort(fitted, kind="stable")
+            pos = np.minimum(np.searchsorted(fitted[order], keys), self.num_groups - 1)
+            found = fitted[order][pos] == keys
+            return np.where(found, order[pos], 0), found
+        fitted = np.stack([a.astype(np.int64) for a in self._keys()], axis=1)
+        queries = np.stack([np.asarray(a).astype(np.int64) for a in key_arrays], axis=1)
+        _, inv = np.unique(np.concatenate([fitted, queries]), axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        row_of = np.full(int(inv.max()) + 1, -1, dtype=np.int64)
+        row_of[inv[: self.num_groups]] = np.arange(self.num_groups)
+        rows = row_of[inv[self.num_groups :]]
+        found = rows >= 0
+        return np.where(found, rows, 0), found
 
     def lookup_struct(self):
-        """Tiny, direct or cuckoo table key → stat row (``tiny_max`` 512,
-        groupby_stats.py:529-547), or None with no fitted group."""
-        keys = self._single_key()
+        """The table a group index probes, or None with no fitted group: one
+        key column's tiny, direct or cuckoo table key → stat row (``tiny_max``
+        512, groupby_stats.py:529-547); for several columns the table over
+        the fitted tuples' h1 (``hashed_lookup_struct``)."""
+        if len(self.key_cols) != 1:
+            pair = self.hashed_lookup_struct()
+            return None if pair is None else pair[0]
+        keys = self._keys()[0]
         if self._lut is None and len(keys):
             self._lut = build_lookup(keys, np.arange(len(keys), dtype=np.int32), tiny_max=GROUP_TINY_MAX)
         return self._lut
+
+    def hashed_lookup_struct(self):
+        """(h1 table, h2 of each fitted tuple + pad) of a multi-column group
+        (``build_hash_pair``), or None with no fitted group."""
+        if self._pair is None and self.num_groups:
+            self._pair = build_hash_pair(self._keys())
+        return self._pair
 
     def group_index(self, device) -> GroupIndex:
         return GroupIndex(self, device)

@@ -8,9 +8,11 @@ dtypes follow ``AGG_DTYPES`` (float32 otherwise).
 * Transform maps each group's keys to stat rows (the lookup kernels; misses
   and null keys read the pad slot: count 0, stats NaN), then one launch of
   kernel K10a (``kernels.groupby.stat_gather``) writes every output column.
+  A group of several key columns is indexed through the verified hash pair
+  (K10b, ``groupby_stats.GroupIndex``).
 
-Not ported yet (raise NotImplementedError): multi-column groups (K10b), the
-parquet artifacts (``out_path``).
+Not ported yet (raises NotImplementedError): the parquet artifacts
+(``out_path``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from .. import dtypes as md
 from ..kernels.groupby import GatherState, stat_gather
 from ..selector import ColumnSelector
 from ..table import Column, TableBatch
-from .groupby_stats import UNSUPPORTED_ARTIFACTS, GroupbyStatsAccum, KeyedStats, single_key_groups
+from .groupby_stats import UNSUPPORTED_ARTIFACTS, GroupbyStatsAccum, KeyedStats, key_groups
 from .stat_operator import StatOperator
 
 AGG_DTYPES = {
@@ -88,7 +90,7 @@ class JoinGroupby(StatOperator):
     def column_mapping(self, col_selector: ColumnSelector):
         return {
             out_name: ([] if cont is None else [cont]) + list(group)
-            for group in single_key_groups(col_selector)
+            for group in key_groups(col_selector)
             for out_name, _, cont in self._outputs(group)
         }
 
@@ -96,7 +98,7 @@ class JoinGroupby(StatOperator):
     def fit_init(self, col_selector, input_schema):
         non_count = [s for s in self.stats if s != "count"]
         agg_specs = {cont: non_count for cont in self.cont_names} if non_count else {}
-        return {self._group_name(g): GroupbyStatsAccum(g, agg_specs) for g in single_key_groups(col_selector)}
+        return {self._group_name(g): GroupbyStatsAccum(g, agg_specs) for g in key_groups(col_selector)}
 
     def fit_batch(self, col_selector, batch: TableBatch, state):
         conts = {}
@@ -104,7 +106,7 @@ class JoinGroupby(StatOperator):
             col = batch[c]
             vals = col.values.to(torch.float64)
             conts[c] = vals if col.validity is None else torch.where(col.validity, vals, float("nan"))
-        for group in single_key_groups(col_selector):
+        for group in key_groups(col_selector):
             state[self._group_name(group)].update([batch[k].values for k in group], conts)
         return state
 
@@ -154,10 +156,10 @@ class JoinGroupby(StatOperator):
     def transform(self, col_selector: ColumnSelector, batch: TableBatch, state=None) -> TableBatch:
         if state is None:
             state = self.device_state(batch.device)
-        groups = single_key_groups(col_selector)
+        groups = key_groups(col_selector)
         if [self._group_name(g) for g in groups] != state["names"]:
             raise ValueError(f"JoinGroupby was fitted on groups {state['names']}, not {groups}")
-        gidx = torch.stack([state["index"][self._group_name(g)](batch[g[0]]) for g in groups])
+        gidx = torch.stack([state["index"][self._group_name(g)](*[batch[k] for k in g]) for g in groups])
         iout, fout = stat_gather(gidx, state["gather"])
         cols = list(iout) + list(fout)
         out = TableBatch()

@@ -12,9 +12,12 @@ Counterpart of ``nvtabular_tpu/ops/target_encoding.py`` (:32-50, 53-362):
   and null keys to the pad slot), then one launch of kernel K10a
   (``kernels.groupby.te_encode``) writes every TE column, hashing the folds
   itself. ``drop_folds=False`` adds the ``__fold__`` column (K7).
+* A group of several key columns (``[["a", "b"]] >> TargetEncoding(...)``)
+  is indexed through the verified hash pair (K10b,
+  ``groupby_stats.GroupIndex``); its output is ``TE_a_b_<target>``.
 
-Not ported yet (raise NotImplementedError): multi-column groups (K10b), the
-parquet artifacts (``out_path``).
+Not ported yet (raises NotImplementedError): the parquet artifacts
+(``out_path``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from .groupby_stats import (
     UNSUPPORTED_ARTIFACTS,
     GroupbyStatsAccum,
     KeyedStats,
-    single_key_groups,
+    key_groups,
     sum_over_folds,
 )
 from .stat_operator import StatOperator
@@ -100,7 +103,7 @@ class TargetEncoding(StatOperator):
 
     def column_mapping(self, col_selector: ColumnSelector):
         mapping = {}
-        for gi, group in enumerate(single_key_groups(col_selector)):
+        for gi, group in enumerate(key_groups(col_selector)):
             for ti, t in enumerate(self.target):
                 mapping[self._te_name(gi, group, ti, t)] = [*group, t]
         if self.kfold > 1 and not self.drop_folds:
@@ -113,7 +116,7 @@ class TargetEncoding(StatOperator):
         folds = [self.fold_name] if self.kfold > 1 else []
         return {
             "groups": {
-                self._group_tag(g): GroupbyStatsAccum(folds + g, agg_specs) for g in single_key_groups(col_selector)
+                self._group_tag(g): GroupbyStatsAccum(folds + g, agg_specs) for g in key_groups(col_selector)
             },
             "sum": {t: 0.0 for t in self.target},
             "cnt": {t: 0 for t in self.target},
@@ -134,7 +137,7 @@ class TargetEncoding(StatOperator):
         folds = []
         if self.kfold > 1:
             folds = [fold_ids(batch.row_offset, batch.num_rows, self.kfold, self.fold_seed, batch.device).long()]
-        for group in single_key_groups(col_selector):
+        for group in key_groups(col_selector):
             keys = folds + [batch[k].values for k in group]
             state["groups"][self._group_tag(group)].update(keys, targets)
         return state
@@ -160,7 +163,7 @@ class TargetEncoding(StatOperator):
         overall, fkeyed = self.overall_stats[tag], self.fold_stats[tag]
         mat = np.zeros((self.kfold, overall.num_groups + 1), dtype=np.float32)
         folds = np.asarray(fkeyed.key_arrays[self.fold_name]).astype(np.int64)
-        idx, found = overall.row_indices(np.asarray(fkeyed.key_arrays[overall.key_cols[0]]))
+        idx, found = overall.row_indices([fkeyed.key_arrays[k] for k in overall.key_cols])
         mat[folds[found], idx[found]] = np.asarray(fkeyed.stats[stat_key], dtype=np.float64)[found]
         return mat
 
@@ -203,10 +206,10 @@ class TargetEncoding(StatOperator):
     def transform(self, col_selector: ColumnSelector, batch: TableBatch, state=None) -> TableBatch:
         if state is None:
             state = self.device_state(batch.device)
-        groups = single_key_groups(col_selector)
+        groups = key_groups(col_selector)
         if [self._group_tag(g) for g in groups] != state["tags"]:
             raise ValueError(f"TargetEncoding was fitted on groups {state['tags']}, not {groups}")
-        gidx = torch.stack([state["index"][self._group_tag(g)](batch[g[0]]) for g in groups])
+        gidx = torch.stack([state["index"][self._group_tag(g)](*[batch[k] for k in g]) for g in groups])
         te = te_encode(gidx, state["te"], batch.row_offset)
         dtype = to_torch_dtype(self.out_dtype) if self.out_dtype else torch.float32
         out = TableBatch()

@@ -15,15 +15,18 @@ import nvtabular_tpu_torch as nvt
 from nvtabular_tpu_torch import kernels, models, ops
 from nvtabular_tpu_torch.kernels import bucketize as kbkt
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
+from nvtabular_tpu_torch.kernels import difference_lag as kdl
 from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import embedding_bag as kbag
 from nvtabular_tpu_torch.kernels import groupby as kgb
 from nvtabular_tpu_torch.kernels import hash as khash
+from nvtabular_tpu_torch.kernels import hash_pair as khp
 from nvtabular_tpu_torch.kernels import interaction as kint
 from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.kernels import ragged as kragged
 from nvtabular_tpu_torch.loader import DeviceLoader
 from nvtabular_tpu_torch.ops import lookup as plookup
+from nvtabular_tpu_torch.ops.lookup import kind_of
 
 I32_MAX, I32_MIN = 2**31 - 1, -(2**31)
 EXTREMES = np.array([I32_MAX, I32_MIN, I32_MIN + 1, -I32_MAX, 0, -1], dtype=np.int32)
@@ -708,3 +711,226 @@ def test_multihot_path_on_cuda_matches_cpu_and_counts_launches():
     nvt.load_fitted_state(cpu_sliced, nvt.fitted_state(sliced))
     ref = cpu_sliced.transform(probe)["genres"]
     assert torch.equal(out.values.cpu(), ref.values) and torch.equal(out.offsets.cpu(), ref.offsets)
+
+
+def _nan_equal(got, want):
+    """Equal, NaN where NaN (its bits may differ)."""
+    return got.shape == want.shape and bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+@pytest.mark.parametrize("kinds", [["int32", "int32"], ["int64", "int32", "int64"], ["int64"] * 4, ["int32"]])
+def test_hash_pair_kernel_matches_plain(kinds):
+    """Both hashes bit for bit, int64 keys inside and outside int32."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(13)
+    cols = [torch.randint(-(2**62), 2**62, (100_003,), generator=g, dtype=torch.int64) for _ in kinds]
+    cols = [c.to(torch.int32) if k == "int32" else c for c, k in zip(cols, kinds)]
+    want = khp.hash_pair(cols)
+    kernels.reset_launches()
+    got = khp.hash_pair([c.cuda() for c in cols])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hash_pair"] == 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("codes", [(0, 500, 500), (13, 2 + 10, 1 + 10)], ids=["group_index", "combo"])
+def test_hash_pair_verify_kernel_matches_plain(codes):
+    """K10b's codes (hit → row, else num_groups) and K9's (hit → row +
+    start + offset, miss → OOV + offset, null member → NULL + offset), with
+    null members in two columns and h2 mismatches on hits."""
+    _require_cuda()
+    hit_offset, oov, null = codes
+    g = torch.Generator().manual_seed(14)
+    n, G = 100_003, 500
+    h2_by_group = torch.randint(-(2**31), 2**31 - 1, (G + 1,), generator=g, dtype=torch.int32)
+    h2_by_group[-1] = 0
+    idx = torch.randint(0, G + 1, (n,), generator=g, dtype=torch.int32)
+    h2 = h2_by_group[idx.long()].clone()
+    flip = torch.rand(n, generator=g) < 0.1
+    h2[flip] ^= 1
+    masks = [torch.rand(n, generator=g) > 0.1, torch.rand(n, generator=g) > 0.2]
+    want = khp.hash_pair_verify(idx, h2, h2_by_group, masks, G, hit_offset, oov, null)
+    kernels.reset_launches()
+    got = khp.hash_pair_verify(idx.cuda(), h2.cuda(), h2_by_group.cuda(), [m.cuda() for m in masks], G,
+                               hit_offset, oov, null)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hash_pair_verify"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert set(want.unique().tolist()) >= {oov, null, hit_offset + 1}
+
+
+def test_hash_lanes_kernel_matches_plain():
+    _require_cuda()
+    g = torch.Generator().manual_seed(15)
+    lo, hi = (torch.randint(0, 2**32, (100_003,), generator=g, dtype=torch.int64) for _ in range(2))
+    want = khp.hash_lanes(lo, hi, 9)
+    kernels.reset_launches()
+    got = khp.hash_lanes(lo.cuda(), hi.cuda(), 9)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["hash_lanes"] == 1 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shifts", [[1, -1], [1, -1, 2, 0, -7], [-3]])
+@pytest.mark.parametrize("key_kinds", [["int64"], ["int64", "int32"], ["float32"], []])
+def test_difference_lag_kernel_matches_plain(key_kinds, shifts):
+    """Bit-equal (any NaN for NaN): int64, int32 and NaN float keys,
+    negative shifts, NaN values."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(16)
+    n = 100_003
+    keys = []
+    for kind in key_kinds:
+        k = torch.sort(torch.randint(0, n // 5, (n,), generator=g)).values
+        if kind == "float32":
+            k = k.to(torch.float32)
+            k[torch.rand(n, generator=g) < 0.05] = float("nan")
+        keys.append(k.to(torch.int32) if kind == "int32" else k)
+    values = [torch.randn(n, generator=g) * 1e3 for _ in range(2)]
+    values[0][torch.rand(n, generator=g) < 0.05] = float("nan")
+    want = kdl.difference_lag(keys, values, shifts)
+    kernels.reset_launches()
+    got = kdl.difference_lag([k.cuda() for k in keys], [v.cuda() for v in values], shifts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["difference_lag"] == 1
+    assert _nan_equal(got.cpu(), want)
+
+
+def test_hash_pair_and_lag_kernels_take_empty_inputs_and_the_current_stream():
+    _require_cuda()
+    kernels.reset_launches()
+    empty_i, empty_l = torch.zeros(0, dtype=torch.int32, device="cuda"), torch.zeros(0, dtype=torch.int64, device="cuda")
+    h1, h2 = khp.hash_pair([empty_i, empty_l])
+    assert h1.shape == h2.shape == (0,)
+    table = torch.zeros(4, dtype=torch.int32, device="cuda")
+    assert khp.hash_pair_verify(empty_i, empty_i, table, [], 3, 0, 3, 3).shape == (0,)
+    assert khp.hash_lanes(empty_l, empty_l).shape == (0,)
+    assert kdl.difference_lag([empty_l], [torch.zeros(0, device="cuda")], [1, -1]).shape == (2, 1, 0)
+    assert sum(kernels.LAUNCHES.values()) == 0  # nothing to launch
+    g = torch.Generator().manual_seed(17)
+    keys = [torch.randint(0, 50, (300_001,), generator=g), torch.randint(0, 3, (300_001,), generator=g)]
+    x = torch.randn(300_001, generator=g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair = khp.hash_pair([k.cuda() for k in keys])
+        lag = kdl.difference_lag([keys[0].cuda()], [x.cuda()], [2, -1])
+    side.synchronize()
+    want = khp.hash_pair(keys)
+    assert torch.equal(pair[0].cpu(), want[0]) and torch.equal(pair[1].cpu(), want[1])
+    assert _nan_equal(lag.cpu(), kdl.difference_lag([keys[0]], [x], [2, -1]))
+
+
+@pytest.fixture
+def no_plain_on_cuda(monkeypatch):
+    """Every kernel module's plain version raises when handed a CUDA tensor:
+    the path under test must launch the kernels."""
+    import nvtabular_tpu_torch.kernels as kpkg
+
+    mods = [kbkt, kcc, kdl, kemb, kbag, kgb, khash, khp, kint, kperm, kragged]
+    from nvtabular_tpu_torch.kernels import lookup as klookup
+
+    mods.append(klookup)
+
+    def guard(fn):
+        def wrapped(*args, **kw):
+            flat = list(args) + list(kw.values())
+            for a in list(flat):
+                if isinstance(a, (list, tuple)):
+                    flat.extend(a)
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in flat):
+                raise AssertionError(f"{fn.__name__} called on the card")
+            return fn(*args, **kw)
+
+        return wrapped
+
+    for mod in mods:
+        for name in dir(mod):
+            if name.endswith("_plain") and callable(getattr(mod, name)):
+                monkeypatch.setattr(mod, name, guard(getattr(mod, name)))
+    yield kpkg
+
+
+def _criteo_part(seed, n=30_000):
+    cards = {"C0": 227605432, "C5": 3, "C8": 63, "C9": 130229467, "C12": 10, "C15": 155, "C16": 4, "C18": 14,
+             "C19": 292775614, "C24": 108, "C25": 36}
+    r = np.random.default_rng(seed)
+    data = {}
+    for name, card in cards.items():
+        raw = (card * r.random(n) ** 2.5).astype(np.int64)
+        data[name] = ((raw * np.int64(2654435761)) % np.int64(2**31)).astype(np.int32)
+    x = r.normal(1.0, 3.0, n).astype(np.float32)
+    x[r.random(n) < 0.05] = np.nan
+    data["I0"] = x
+    data["label"] = r.integers(0, 2, n).astype(np.int32)
+    return data
+
+
+def _crossed_graph():
+    te = [["C5", "C8"], ["C12", "C16", "C18"], ["C15", "C24"]] >> ops.TargetEncoding("label", kfold=5, p_smooth=20)
+    jg = [["C5", "C8"], ["C15", "C24"]] >> ops.JoinGroupby(cont_cols=["I0"], stats=["count", "mean"])
+    combo = [["C8", "C15"], ["C12", "C25"]] >> ops.Categorify(encode_type="combo")
+    hb = ["C0", "C9", "C19"] >> ops.HashBucket(10_000_000)
+    return te + jg + combo + hb + ["label"]
+
+
+def test_crossed_workflow_on_cuda_matches_cpu_and_counts_launches(no_plain_on_cuda):
+    """chip_smoke.py phase 12's workflow at a small size, fitted on the card
+    and carried to the CPU: group indexes, combo codes and bucket ids exact,
+    TE and stat columns within rtol=1e-6; a hash pair, a probe and a verify
+    per group, no plain version on the card."""
+    _require_cuda()
+    gpu = nvt.Workflow(_crossed_graph())
+    gpu.fit(nvt.Dataset([_criteo_part(s) for s in range(3)]))
+    cpu = nvt.Workflow(_crossed_graph(), device="cpu")
+    nvt.load_fitted_state(cpu, nvt.fitted_state(gpu))
+    probe = nvt.TableBatch.from_pydict(_criteo_part(9))
+    probe.row_offset = 2**32 - 1000
+    kernels.reset_launches()
+    got = gpu.transform(probe)
+    torch.cuda.synchronize()
+    te = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.TargetEncoding))
+    jg = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.JoinGroupby))
+    cat = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.Categorify))
+    luts = [k.lookup_struct() for k in [*te.overall_stats.values(), *jg.keyed.values()]]
+    luts += [v.lookup_struct()[0] for v in cat.vocabs.values()]
+    kinds = [kind_of(lut) for lut in luts]
+    want = {"hash_pair": 7, "hash_pair_verify": 7, "tiny_lookup": kinds.count("tiny"),
+            "cuckoo_lookup": kinds.count("cuckoo"), "te_encode": 1, "stat_gather": 1, "hashed_cross": 3}
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    ref = cpu.transform(probe)
+    assert got.column_names == ref.column_names
+    for name in ref.column_names:
+        g, w = got[name].values.cpu(), ref[name].values
+        if w.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7, equal_nan=True)
+        else:
+            assert torch.equal(g, w), name
+
+
+def test_sessions_workflow_on_cuda_launches_once_a_batch(no_plain_on_cuda):
+    """DifferenceLag over userId-sorted batches: one K12a launch a batch,
+    bit-equal to the CPU run (NaN for NaN)."""
+    _require_cuda()
+
+    def part(seed, n=50_000):
+        r = np.random.default_rng(seed)
+        return {
+            "userId": np.sort(r.zipf(1.2, n).clip(1, 20_000)).astype(np.int64),
+            "rating": (r.integers(1, 11, n) / 2.0).astype(np.float32),
+            "ts_delta": r.exponential(86400.0, n).astype(np.float32),
+        }
+
+    def graph():
+        return (["rating", "ts_delta"] >> ops.DifferenceLag("userId", shift=[1, -1])) + ["userId"]
+
+    parts = [part(s) for s in range(3)]
+    gpu, cpu = nvt.Workflow(graph()), nvt.Workflow(graph(), device="cpu")
+    kernels.reset_launches()
+    outs = [gpu.transform(nvt.TableBatch.from_pydict(p)) for p in parts]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {k: 3 * (k == "difference_lag") for k in kernels.LAUNCHES}
+    for p, out in zip(parts, outs):
+        ref = cpu.transform(nvt.TableBatch.from_pydict(p))
+        assert out.column_names == ref.column_names
+        for name in ref.column_names:
+            assert _nan_equal(out[name].values.cpu(), ref[name].values), name

@@ -414,6 +414,27 @@ def _fit_group_op(make, data):
     pnvt.Workflow(make(), device="cpu").fit(pnvt.Dataset(data))
 
 
+def _transform_group_op(make, data):
+    wf = pnvt.Workflow(make(), device="cpu")
+    wf.fit(pnvt.Dataset(data))
+    wf.transform(pnvt.TableBatch.from_pydict(data))
+
+
+def _transform_colliding_pair(make, data):
+    """Every tuple hashes to one h1: the pair cannot be built."""
+    real = pgs.hash_pair
+
+    def colliding(cols):
+        h1, h2 = real(cols)
+        return torch.zeros_like(h1), h2
+
+    pgs.hash_pair = colliding
+    try:
+        _transform_group_op(make, data)
+    finally:
+        pgs.hash_pair = real
+
+
 def _transform_wide_keys(make, data):
     wf = pnvt.Workflow(make(), device="cpu")
     wf.fit(pnvt.Dataset(data))
@@ -427,8 +448,9 @@ _STRINGS = dict(_DATA, a=np.array([f"s{i}" for i in range(10)], dtype=object))
 @pytest.mark.parametrize(
     "make, run, data, match",
     [
-        (lambda: [["a", "b"]] >> pops.TargetEncoding("y"), _fit_group_op, _DATA, "queue 2: K10b"),
-        (lambda: [["a", "b"]] >> pops.JoinGroupby(cont_cols=["y"]), _fit_group_op, _DATA, "queue 2: K10b"),
+        (lambda: [["a", "b"]] >> pops.TargetEncoding("y"), _transform_group_op, dict(_DATA, b=np.arange(10) << 32),
+         "queue 1 item 4"),
+        (lambda: [["a", "b"]] >> pops.JoinGroupby(cont_cols=["y"]), _transform_colliding_pair, _DATA, "queue 1 item 4"),
         (lambda: ["a"] >> pops.TargetEncoding("y"), _fit_group_op, _STRINGS, "queue 1: strings"),
         (lambda: ["a"] >> pops.JoinGroupby(cont_cols=["y"]), _transform_wide_keys, _DATA, "queue 1: strings"),
         (lambda: pops.TargetEncoding("y", out_path="x"), None, None, "queue 1: save/load"),
@@ -437,7 +459,9 @@ _STRINGS = dict(_DATA, a=np.array([f"s{i}" for i in range(10)], dtype=object))
     ids=["te_multi_key", "join_multi_key", "string_keys", "wide_keys", "te_out_path", "join_out_path"],
 )
 def test_unported_paths_raise(make, run, data, match):
-    """Multi-key groups, string keys, keys outside int32 at a group index and
-    the parquet artifacts raise, naming their ROADMAP.md item."""
+    """A multi-key group whose verified hash pair cannot be built (keys
+    outside int32; a collision among the fitted tuples' h1), string keys,
+    keys outside int32 at a group index and the parquet artifacts raise,
+    naming their ROADMAP.md item."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
         make() if run is None else run(make, data)

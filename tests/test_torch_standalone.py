@@ -80,6 +80,16 @@ assert losses.shape == (4,) and bool(losses.isfinite().all()) and multi == {"gen
 sliced = nvt.Workflow(["genres"] >> ops.Categorify() >> ops.ListSlice(0, 3, pad=True), device="cpu")
 out = list(sliced.fit_transform(nvt.Dataset(tables)).to_batches())
 assert out[0]["genres"].values.shape == (12000,) and int(out[0]["genres"].offsets[-1]) == 12000
+crossed = ([["tiny", "wide"]] >> ops.TargetEncoding("rating", kfold=3)) + \
+    ([["tiny", "direct"]] >> ops.JoinGroupby(cont_cols=["x"], stats=["count"])) + \
+    ([["tiny", "direct"]] >> ops.Categorify(encode_type="combo")) + (["wide"] >> ops.HashBucket(1000)) + \
+    (["x", "rating"] >> ops.DifferenceLag("tiny", shift=[1, -1]))
+cw = nvt.Workflow(crossed, device="cpu")
+out = list(cw.fit_transform(nvt.Dataset(parts)).to_batches())
+assert out[0].column_names == ["TE_tiny_wide_rating", "tiny_direct_count", "tiny_direct", "wide",
+                               "x_difference_lag_1", "rating_difference_lag_1", "x_difference_lag_-1",
+                               "rating_difference_lag_-1"], out[0].column_names
+assert int(out[0]["tiny_direct"].values.min()) >= 3 and int(out[0]["wide"].values.max()) < 1000
 assert not any(m == "jax" or m.startswith(("jax.", "nvtabular_tpu.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("STANDALONE_OK")

@@ -285,7 +285,7 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: pops.Categorify(encode_type="combo"),
+        lambda: pops.Categorify(encode_type="combo", num_buckets=4),
         lambda: pops.Categorify(num_buckets=4),
         lambda: pops.Categorify(num_buckets={"a": 3}),
     ],
