@@ -90,7 +90,21 @@ a nonzero exit:
 14. hash_pair and hash_pair_verify (K10b on TE's (C15, C24) group, K9 on
    the combo (C8, C15)), HashBucket's K7 and difference_lag at phases
    12-13's shapes against their plain versions on the card, timed beside
-   their bounds.
+   their bounds;
+15. Categorify's hashed OOV buckets and float keys on phase 3's partitions:
+   the 26 ids through Categorify(freq_threshold=2, max_size=10_000_000,
+   num_buckets=1000) and the 13 dense features as float keys through
+   Categorify(freq_threshold=2, num_buckets=1000); Workflow.fit, then
+   Workflow.transform of every batch, the counters zeroed before each (one
+   launch a batch of each integer table kind and of sorted_lookup, no plain
+   version on the card); codes within each vocabulary's domain, every one
+   of the 1,000 buckets hit by the ids; batch 0 against the CPU run (codes
+   exact); the share of rows in OOV buckets; rows/s with and without the
+   host-to-device copy; then sorted_lookup (K8) on [13, 262144] float32 and
+   the integer lookups with hashed misses, each against its plain version
+   on the card, timed beside its bound (K8's library yardstick: one
+   torch.searchsorted over the vocabularies padded with +inf, positions
+   only).
 
 The line before the last is {"kernels": [...]} with each kernel's launches,
 error, times and bound; the last line is {"ok": true, "device": {...}}.
@@ -1461,6 +1475,241 @@ def crossed_kernel_records(dev, crossed: dict, sessions: dict) -> dict:
     return records
 
 
+BUCKETS = 1000  # not a power of two: a hash reduced by a mask would miss buckets
+LIBRARY_WHAT = {"sorted_lookup": "positions only"}
+
+
+def buckets_graph(ops, cat_names, cont_names):
+    """Categorify with hashed OOV buckets: the Criteo ids at the benchmark's
+    frequency threshold (bench/criteo_bench.py:57, 133-134), and the 13
+    dense features used as categories (float keys)."""
+    cats = cat_names >> ops.Categorify(freq_threshold=2, max_size=10_000_000, num_buckets=BUCKETS)
+    conts = cont_names >> ops.Categorify(freq_threshold=2, num_buckets=BUCKETS)
+    return cats + conts + ["label"]
+
+
+def buckets_path(nvt, dev, parts, cat_names, cont_names, profile: bool) -> dict:
+    """Phase 15: Categorify's hashed OOV buckets and float keys on phase 3's
+    partitions."""
+    from nvtabular_tpu_torch import kernels, ops
+
+    phase_t0 = time.perf_counter()
+    dataset = nvt.Dataset(parts)
+    batches = list(dataset.to_batches())
+    rows_total = NUM_PARTS * ROWS_PER_PART
+
+    def graph():
+        return buckets_graph(ops, cat_names, cont_names)
+
+    wf = nvt.Workflow(graph(), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls_on_card("buckets fit"):
+        wf.fit(dataset)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check_launches(kernels.LAUNCHES, {}, "buckets fit")  # counting is torch.unique on the card
+    nodes = [n for n in wf.graph.nodes if isinstance(n.op, ops.Categorify)]
+    int_node = next(n for n in nodes if cat_names[0] in n.op.vocabs)
+    float_node = next(n for n in nodes if cont_names[0] in n.op.vocabs)
+    kept = {g: sum(len(n.op.vocabs[c].values_by_code) for c in names)
+            for g, n, names in (("int", int_node, cat_names), ("float", float_node, cont_names))}
+    int_kinds = sorted(k for k in int_node.op._get_batched() if k != "sorted")
+    if sorted(float_node.op._get_batched()) != ["sorted"]:
+        fail(f"buckets: float columns took tables {sorted(float_node.op._get_batched())}")
+    log(
+        f"buckets: fit {fit_s:.2f} s (scan {wf.last_fit_stats['scan_seconds']:.2f} s, finalize "
+        f"{wf.last_fit_stats['finalize_seconds']:.2f} s), keys kept at freq_threshold=2 {kept}, int tables "
+        f"{int_kinds}"
+    )
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with plain_calls_on_card("buckets transform"):
+        outs = [wf.transform(b) for b in batches]
+        torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    per_batch = {f"{k}_lookup": 1 for k in int_kinds}
+    per_batch["sorted_lookup"] = 1
+    check_launches(launches, {k: v * NUM_PARTS for k, v in per_batch.items()}, "buckets transform")
+    hits = {g: torch.zeros(BUCKETS, dtype=torch.int64, device=dev) for g in ("int", "float")}
+    rows = {g: 0 for g in hits}
+    nulls = {g: 0 for g in hits}
+    for out in outs:
+        for g, node, names in (("int", int_node, cat_names), ("float", float_node, cont_names)):
+            for name in names:
+                codes = out[name].values
+                if codes.device != dev or codes.shape[0] != ROWS_PER_PART or codes.dtype != torch.int32:
+                    fail(f"buckets: output {name} has shape {tuple(codes.shape)} {codes.dtype} on {codes.device}")
+                lo, hi = (int(v) for v in torch.aminmax(codes))
+                if lo < 1 or hi >= node.op.vocabs[name].size:
+                    fail(f"buckets: {name} codes span [{lo}, {hi}], vocabulary size {node.op.vocabs[name].size}")
+                oov = codes[(codes >= 2) & (codes < 2 + BUCKETS)] - 2
+                hits[g] += torch.bincount(oov.long(), minlength=BUCKETS)
+                rows[g] += codes.numel()
+                nulls[g] += int((codes == 1).sum())
+    oov_share = {g: int(hits[g].sum()) / rows[g] for g in hits}
+    buckets_hit = {g: int((hits[g] > 0).sum()) for g in hits}
+    if buckets_hit["int"] != BUCKETS:
+        fail(f"buckets: the integer columns' misses hit {buckets_hit['int']} of {BUCKETS} buckets")
+    log(f"buckets: first transform pass {first_pass_s:.2f} s, launches {launches} (no plain version on the card "
+        f"in the fit or the transform); share of rows in OOV buckets {oov_share}, buckets hit {buckets_hit}, "
+        f"null rows {nulls}")
+    cpu_wf = nvt.Workflow(graph(), device="cpu")
+    nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+    compare_outputs(outs[0], cpu_wf.transform(batches[0]), set(), "buckets vs cpu")
+    log("buckets: batch 0 equals the CPU run (codes exact)")
+    del outs
+
+    ex = wf.executor
+    with_h2d_all, _ = transform_rates(wf, batches, rows_total)
+    on_card = [ex.stage(b) for b in batches]
+    torch.cuda.synchronize()
+    without_h2d_all, _ = transform_rates(wf, on_card, rows_total)
+    rec = {
+        "fit_s": fit_s, "fit_stats": dict(wf.last_fit_stats), "keys_kept": kept, "int_tables": int_kinds,
+        "first_pass_s": first_pass_s, "launches": launches, "rows": rows_total, "oov_share": oov_share,
+        "buckets_hit": buckets_hit, "null_rows": nulls,
+        "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+    }
+    if profile:
+        rec["profile"] = {"without_h2d": profile_pass(lambda: transform_all(wf, on_card[:4]))}
+        p = rec["profile"]["without_h2d"]
+        log(f"profile buckets without_h2d: wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+    log(
+        f"buckets: transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s "
+        f"(min {with_h2d_all[0]:,.0f}, max {with_h2d_all[-1]:,.0f}) with the host-to-device copy, "
+        f"{float(np.median(without_h2d_all)):,.0f} rows/s (min {without_h2d_all[0]:,.0f}, max "
+        f"{without_h2d_all[-1]:,.0f}) from batches on the card"
+    )
+    rec.update(wf=wf, staged=on_card[0], nodes=(int_node, float_node))
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"buckets: phase 15 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def search_probes(values, keys, starts, lens, sel):
+    """(distinct key entries read, distinct codes read, probes) of K8's
+    searches over ``values`` [C, N] float32: the kernel's lower-bound loop
+    run on the card in PyTorch, recording every index it reads."""
+    from nvtabular_tpu_torch.kernels.lookup import flush_subnormals
+
+    s = sel.long()
+    start, n = starts[s][:, None], lens[s][:, None].expand(values.shape)
+    x = flush_subnormals(values)
+    active = ~torch.isnan(values)
+    lo, hi = torch.zeros_like(n), torch.where(active, n, torch.zeros_like(n))
+    read, probes = [], 0
+    while True:
+        live = lo < hi
+        count = int(live.sum())
+        if count == 0:
+            break
+        probes += count
+        mid = (lo + hi) >> 1
+        idx = (start + mid)[live]
+        read.append(idx)
+        less = torch.zeros_like(live)
+        less[live] = keys[idx] < x[live]
+        lo = torch.where(live & less, mid + 1, lo)
+        hi = torch.where(live & ~less, mid, hi)
+    last = active & (lo < n)
+    final = (start + lo)[last]
+    hit = keys[final] == x[last]
+    key_reads = torch.unique(torch.cat(read + [final])).numel() if read or final.numel() else 0
+    return key_reads, int(torch.unique(final[hit]).numel()), probes + int(last.sum())
+
+
+def buckets_kernel_records(dev, rec) -> dict:
+    """Phase 15's kernels at its shapes: sorted_lookup (K8) over the 13
+    float columns, and the integer lookups with hashed misses (K4's hashed
+    branch in K1-K3), each against its plain version on the card, timed
+    beside its bound."""
+    from nvtabular_tpu_torch.kernels import lookup as klk
+
+    records = {}
+    ex, staged = rec["wf"].executor, rec["staged"]
+    n = ROWS_PER_PART
+    jobs = {}
+    for node in rec["nodes"]:
+        state = ex.op_state(node.op, dev)
+        jobs.update({j["kind"]: j for j in node.op.lookup_jobs(node.selector, staged, state)})
+    if jobs.get("sorted") is None or jobs["sorted"]["nbuckets"] is None:
+        fail(f"buckets: expected a sorted job with hashed misses, got {sorted(jobs)}")
+
+    # K8 over [13, 262144] float32 values
+    j = jobs["sorted"]
+    t = j["table"]
+    args = (j["values"], j["validity"], t.keys, t.codes, t.starts, t.lens, j["sel"], j["col_offsets"], 2, 1,
+            j["nbuckets"])
+    r = lookup_record(j, klk.sorted_lookup_plain, args, lambda: klk.sorted_lookup(*args))
+    C = j["values"].shape[0]
+    key_reads, code_reads, probes = search_probes(j["values"], t.keys, t.starts, t.lens, j["sel"])
+    codes = klk.sorted_lookup_plain(*args)
+    misses = int(((codes >= 2) & (codes < 2 + BUCKETS)).sum())
+    rows, _ = klk.padded_keys(t.keys, t.starts, t.lens)
+    rows = rows[j["sel"].long()].contiguous()
+    r["library_ms"] = time_ms(lambda: torch.searchsorted(rows, j["values"]))
+    r.update(shape=[C, n], bytes=C * n * 8 + key_reads * 4 + code_reads * 4, table_keys=int(t.keys.numel()),
+             probes=probes, distinct_keys_read=key_reads, library_what=LIBRARY_WHAT["sorted_lookup"])
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], probes * 2 + misses * 12)
+    records["sorted_lookup"] = r
+
+    # K1 / K2 / K3 with hashed misses over the Criteo ids
+    for kind, j in jobs.items():
+        if kind == "sorted":
+            continue
+        t = j["table"]
+        s = j["sel"].long()
+        C = j["values"].shape[0]
+        if kind == "tiny":
+            args = (j["values"], j["validity"], t.keys, t.codes, t.lens, j["sel"], j["col_offsets"], 2, 1,
+                    j["nbuckets"])
+            r = lookup_record(j, klk.tiny_lookup_plain, args, lambda a=args: klk.tiny_lookup(*a))
+            table_bytes = int(t.lens[torch.unique(s)].sum()) * 8
+            ops = int(torch.log2(t.lens[s].float() + 1).ceil().sum()) * n * 2
+        elif kind == "cuckoo":
+            args = (j["values"], j["validity"], t.table, t.nbs, t.row_offsets, j["sel"], j["col_offsets"], 2, 1,
+                    j["nbuckets"])
+            r = lookup_record(j, klk.cuckoo_lookup_plain, args, lambda a=args: klk.cuckoo_lookup(*a))
+            buckets = torch.cat([
+                (klk.bucket_index_plain(j["values"], t.nbs[s][:, None], seed) + t.row_offsets[s][:, None]).flatten()
+                for seed in klk.SEEDS
+            ])
+            table_bytes = int(torch.unique(buckets).numel()) * 32
+            ops = C * n * 40
+        else:
+            args = (j["values"], j["validity"], t.table, t.mins, t.maxs, t.lens, t.offsets, j["sel"],
+                    j["col_offsets"], 2, 1, j["nbuckets"])
+            r = lookup_record(j, klk.direct_lookup_plain, args, lambda a=args: klk.direct_lookup(*a))
+            idx = torch.minimum((j["values"].long() - t.mins[s].long()[:, None]).clamp(min=0),
+                                t.lens[s][:, None] - 1) + t.offsets[s][:, None]
+            table_bytes = int(torch.unique(idx // 8).numel()) * 32
+            ops = C * n * 10
+        plain, kernel = {"tiny": (klk.tiny_lookup_plain, klk.tiny_lookup),
+                         "cuckoo": (klk.cuckoo_lookup_plain, klk.cuckoo_lookup),
+                         "direct": (klk.direct_lookup_plain, klk.direct_lookup)}[kind]
+        codes = plain(*args)
+        misses = int(((codes >= 2) & (codes < 2 + BUCKETS)).sum())
+        # the batch's ids may all hit (the tiny columns do at freq_threshold=2): hold the hashed
+        # branch against its plain version on the same ids moved out of the vocabularies as well
+        moved = (j["values"] ^ 0x5A5A5A5A,) + args[1:]
+        want = plain(*moved)
+        torch.cuda.synchronize()
+        if not torch.equal(kernel(*moved), want):
+            fail(f"{kind} lookup kernel with hashed misses differs from plain on the moved ids")
+        moved_misses = int(((want >= 2) & (want < 2 + BUCKETS)).sum())
+        if moved_misses == 0:
+            fail(f"{kind} lookup: the moved ids took no hashed bucket")
+        r.update(shape=[C, n], bytes=C * n * 8 + table_bytes, misses=misses, moved_misses=moved_misses)
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], ops + misses * 12)
+        records[f"{kind}_lookup:hashed"] = r
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -1711,11 +1960,23 @@ def main():
         ml_launches[k] += new_launches[k]
     ml_launches["fold_ids"] += crossed["fit_launches"]["fold_ids"]
 
+    # --- 15. Categorify's hashed OOV buckets and float keys on phase 3's partitions ---------------------
+    buckets = buckets_path(nvt, dev, parts, cat_names, cont_names, opts.profile)
+    records.update(buckets_kernel_records(dev, buckets))
+    for key in ("wf", "staged", "nodes"):
+        del buckets[key]
+    del parts
+    buckets_launches = buckets["launches"]
+    for k in ("tiny_lookup", "cuckoo_lookup"):
+        main_launches[k] += buckets_launches[k]
+    direct_launches["direct_lookup"] += buckets_launches["direct_lookup"]
+
     # --- kernels line and result ---------------------------------------------------
     meta = {
         "tiny_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:157", main_launches),
         "direct_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:585", direct_launches),
         "cuckoo_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:693", main_launches),
+        "sorted_lookup": ("lookup.cu", "nvtabular_tpu/ops/categorify.py:570", buckets_launches),
         "cont_chain": ("cont_chain.cu", "nvtabular_tpu/ops/normalize.py:67", main_launches),
         "permute_rows": ("permute.cu", "nvtabular_tpu/loader/device_loader.py:21", train_launches),
         "embedding_gather": ("embedding.cu", "nvtabular_tpu/models/layers.py:70", train_launches),
@@ -1738,6 +1999,8 @@ def main():
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        if name in LIBRARY_WHAT:
+            lib += f" ({LIBRARY_WHAT[name]})"
         log(
             f"kernel {name} {rec['shape']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
             f"library {lib}, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
@@ -1778,6 +2041,7 @@ def main():
                     "multihot": multihot,
                     "crossed": crossed,
                     "sessions": sessions,
+                    "buckets": buckets,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

@@ -18,6 +18,7 @@ LAUNCHES: Dict[str, int] = {
     "tiny_lookup": 0,
     "direct_lookup": 0,
     "cuckoo_lookup": 0,
+    "sorted_lookup": 0,
     "cont_chain": 0,
     "permute_rows": 0,
     "embedding_gather": 0,

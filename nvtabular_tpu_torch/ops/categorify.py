@@ -1,18 +1,26 @@
-"""Categorify — dictionary-encode integer categorical columns.
+"""Categorify — dictionary-encode integer and float categorical columns.
 
 Counterpart of ``nvtabular_tpu/ops/categorify.py`` for joint and
-single-column encoding of integer columns. Same encoding layout: code 0 is
-padding, 1 null, 2 the out-of-vocabulary bucket, then vocabulary ids in
-descending-frequency order from 3; ``single_table`` shifts each vocabulary
-into one global index space.
+single-column encoding of integer and float columns. Same encoding layout:
+code 0 is padding, 1 null, then ``num_buckets`` out-of-vocabulary buckets
+from 2 (one by default), then vocabulary ids in descending-frequency order
+from ``2 + num_buckets``; ``single_table`` shifts each vocabulary into one
+global index space. With ``num_buckets`` nb > 1 a miss takes bucket
+``2 + hash_array(v) % nb`` (categorify.py:628-634).
 
 * Fit counts values on the device the batch lives on (``torch.unique`` per
   batch, partials merged) and orders the vocabulary by (-count, value) — the
   JAX fit's order element for element (categorify.py:249, 306-309), then
-  applies ``freq_threshold`` and the ``max_size`` budget (:1067-1072).
+  applies ``freq_threshold`` and the ``max_size`` budget, ``max_size - (2 +
+  nb)`` keys (:1065-1072). Floats drop NaN as null (:155-159) and count by
+  bit pattern, as arrow's ``value_counts`` does: -0.0 and 0.0 are two keys.
 * Transform is the column-batched device path (``_encode_batched_device``,
   :1614-1685): one kernel launch per table kind (tiny, direct, cuckoo) over
-  the stacked [C, N] int32 values, with the null/OOV/offset epilogue fused.
+  the stacked [C, N] int32 values, with the null/OOV/offset epilogue fused,
+  and one launch of the sorted table (K8) over the stacked float columns as
+  float32 — the reference encodes each float column alone through
+  ``encode_device``'s searchsorted (:1453, :570-576); one launch over the
+  stacked columns gives the same codes.
 * A list (multihot) column counts its flat values in the fit, with no
   validity (:848-857); at transform its flat values take a launch of their
   own per table kind, without the null epilogue, and its codes keep the
@@ -26,13 +34,17 @@ into one global index space.
   The transform maps each row's tuple through the verified hash pair (K9,
   ``groupby_stats.PairIndex``, :1322-1410).
 
-Not ported yet (raise NotImplementedError): ``num_buckets > 1``,
-non-integer columns, keys outside int32.
+Not ported yet (raise NotImplementedError, naming the ROADMAP item):
+string and bool columns and keys outside int32 (item 4), combo columns with
+``num_buckets > 1`` (item 4, the reference's host path), ``out_path``
+artifacts (item 2), and ``cat_cache`` tiers other than "host", ``dtype``,
+``vocabs`` and ``cardinality_memory_limit`` (item 14).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+import warnings
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,13 +62,23 @@ OOV_OFFSET = 2  # codes 0 pad, 1 null, 2 out-of-vocabulary (kernels/lookup.py)
 _REAGG_ROWS = 1 << 24  # merge partial counts past this many entries
 _LONE_TINY_MAX = 512  # categorify.py:1513-1522
 
-UNSUPPORTED_BUCKETS = (
-    "Categorify(num_buckets > 1) is not ported yet "
-    "(ROADMAP.md queue 1: num_buckets > 1 with kernel K7)"
+UNSUPPORTED_COMBO_BUCKETS = (
+    "Categorify(encode_type='combo', num_buckets > 1) runs on the reference's host path, "
+    "which is not ported yet (ROADMAP.md queue 1 item 4: strings and hybrid execution)"
 )
 UNSUPPORTED_KEYS = (
-    "Categorify of non-integer columns is not ported yet "
-    "(ROADMAP.md queue 1: strings and hybrid execution)"
+    "Categorify of string, object or bool columns is not ported yet "
+    "(ROADMAP.md queue 1 item 4: strings and hybrid execution)"
+)
+UNSUPPORTED_MIXED = (
+    "Categorify of {} is not ported yet (ROADMAP.md queue 1 item 4: strings and hybrid execution)"
+)
+UNSUPPORTED_ARTIFACTS = (
+    "Categorify(out_path=...): the parquet vocabulary artifacts are not ported yet: the port "
+    "keeps vocabularies in memory (ROADMAP.md queue 1 item 2: save/load)"
+)
+UNSUPPORTED_MEMORY = (
+    "Categorify({}) is not ported yet (ROADMAP.md queue 1 item 14: memory-limited vocabularies)"
 )
 
 
@@ -73,18 +95,40 @@ def _emb_sz_rule(n_cat: int, minimum_size=16, maximum_size=512) -> Tuple[int, in
     return n_cat, min(max(minimum_size, round(1.6 * n_cat**0.56)), maximum_size)
 
 
+_INT64_MAX = torch.iinfo(torch.int64).max
+
+
+def _order_keys(values: torch.Tensor) -> torch.Tensor:
+    """Floats → int64 keys in the same order, one per bit pattern (-0.0 just
+    below 0.0): the float64 bits, negatives flipped (float32 widens
+    exactly). The map is its own inverse (``_from_order_keys``)."""
+    bits = values.to(torch.float64).view(torch.int64)
+    return torch.where(bits < 0, bits ^ _INT64_MAX, bits)
+
+
+def _from_order_keys(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.where(keys < 0, keys ^ _INT64_MAX, keys).view(torch.float64).to(dtype)
+
+
 class _VocabAccum:
-    """Streaming (value, count) accumulator on the batch's device."""
+    """Streaming (value, count) accumulator on the batch's device. Floats
+    count by bit pattern (``_order_keys``), NaN dropped as null."""
 
     def __init__(self):
         self.partials: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self.rows = 0
+        self.dtype: Optional[torch.dtype] = None  # of every column seen, empty batches too
 
     def update(self, values: torch.Tensor, validity: Optional[torch.Tensor]):
-        if values.is_floating_point() or values.dtype == torch.bool:
+        if values.dtype == torch.bool:
             raise NotImplementedError(UNSUPPORTED_KEYS)
+        if self.dtype is not None and self.dtype.is_floating_point != values.is_floating_point():
+            raise NotImplementedError(UNSUPPORTED_MIXED.format("a joint group of integer and float columns"))
+        self.dtype = values.dtype if self.dtype is None else torch.promote_types(self.dtype, values.dtype)
         if validity is not None:
             values = values[validity]
+        if values.is_floating_point():
+            values = _order_keys(values[~torch.isnan(values)])
         if values.numel() == 0:
             return
         uniq, counts = torch.unique(values, return_counts=True)
@@ -94,10 +138,8 @@ class _VocabAccum:
             self._merge()
 
     def _merge(self):
-        dtype = self.partials[0][0].dtype
-        for v, _ in self.partials[1:]:
-            dtype = torch.promote_types(dtype, v.dtype)
-        values = torch.cat([v.to(dtype) for v, _ in self.partials])
+        values = torch.cat([v.to(torch.int64 if self.dtype.is_floating_point else self.dtype)
+                            for v, _ in self.partials])
         counts = torch.cat([c for _, c in self.partials])
         uniq, inverse = torch.unique(values, return_inverse=True)
         merged = torch.zeros(uniq.numel(), dtype=counts.dtype, device=counts.device)
@@ -107,13 +149,17 @@ class _VocabAccum:
 
     def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
         """→ (values sorted by (-count, value), counts) as numpy."""
+        dtype = self.dtype or torch.int64
         if not self.partials:
-            return np.array([], dtype=np.int64), np.array([], dtype=np.int64)
+            return torch.empty(0, dtype=dtype).numpy(), np.array([], dtype=np.int64)
         if len(self.partials) > 1:
             self._merge()
         values, counts = self.partials[0]  # values ascending
         order = torch.argsort(counts, descending=True, stable=True)
-        return values[order].cpu().numpy(), counts[order].cpu().numpy()
+        values = values[order]
+        if dtype.is_floating_point:
+            values = _from_order_keys(values, dtype)
+        return values.cpu().numpy(), counts[order].cpu().numpy()
 
 
 class _ComboAccum:
@@ -174,16 +220,17 @@ def combo_strings(tuples: np.ndarray) -> np.ndarray:
 
 class _Vocab:
     """A fitted vocabulary in code order (frequency-descending): values, or
-    for a combo group the member tuples, int64 [V, k]."""
+    for a combo group the member tuples, int64 [V, k]. Codes start at
+    ``start_index`` = 2 + ``num_buckets`` (categorify.py:350-354)."""
 
     __slots__ = ("values_by_code", "counts", "num_buckets", "start_index", "offset", "_lookup")
 
     def __init__(self, values_by_code: np.ndarray, counts: np.ndarray, num_buckets: int = 1):
-        if num_buckets != 1:
-            raise NotImplementedError(UNSUPPORTED_BUCKETS)
         self.values_by_code = np.asarray(values_by_code)
         self.counts = counts
-        self.num_buckets = 1
+        self.num_buckets = max(1, int(num_buckets))
+        if self.is_combo and self.num_buckets > 1:
+            raise NotImplementedError(UNSUPPORTED_COMBO_BUCKETS)
         self.start_index = OOV_OFFSET + self.num_buckets
         self.offset = 0  # single_table shift
         self._lookup = None
@@ -198,15 +245,19 @@ class _Vocab:
         return self.values_by_code.ndim == 2
 
     def lookup_struct(self):
-        """Host-built tiny/direct/cuckoo table (ops/lookup.py), built once;
-        for a combo vocabulary its verified hash pair over the tuples (None
-        when empty)."""
+        """Host-built tiny/direct/cuckoo table of integer keys or sorted
+        table of float keys (ops/lookup.py), built once; for a combo
+        vocabulary its verified hash pair over the tuples (None when
+        empty)."""
         if self._lookup is None and self.is_combo:
             if len(self.values_by_code):
                 self._lookup = build_hash_pair(list(self.values_by_code.T))
         elif self._lookup is None:
             codes = np.arange(len(self.values_by_code), dtype=np.int64) + self.start_index
-            self._lookup = build_lookup(self.values_by_code, codes)
+            values = self.values_by_code
+            if len(values) == 0 and values.dtype.kind not in ("i", "u", "f"):
+                values = values.astype(np.int64)  # the JAX fit's empty vocabulary is an object array
+            self._lookup = build_lookup(values, codes)
         return self._lookup
 
 
@@ -216,20 +267,52 @@ class Categorify(StatOperator):
     def __init__(
         self,
         freq_threshold: Union[int, Dict[str, int]] = 0,
+        out_path: Optional[str] = None,
+        cat_cache: Union[str, Dict[str, str]] = "host",
+        dtype=None,
+        on_host: bool = True,
         encode_type: str = "joint",
+        vocabs: Optional[Dict[str, Any]] = None,
         max_size: Union[int, Dict[str, int]] = 0,
         num_buckets: Union[None, int, Dict[str, int]] = None,
         single_table: bool = False,
+        search_sorted: bool = False,
+        split_out=None,
+        split_every=None,
+        cardinality_memory_limit=None,
         name_sep: str = "_",
+        **kwargs,
     ):
+        """The reference's signature (categorify.py:638-656). ``on_host``,
+        ``split_out``, ``split_every`` and other keywords are accepted and
+        ignored, as there; ``search_sorted=True`` warns and is ignored."""
         super().__init__()
         if encode_type not in ("joint", "combo"):
             raise ValueError(f"encode_type must be 'joint' or 'combo', got {encode_type!r}")
+        if out_path is not None:
+            raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
+        tiers = cat_cache.values() if isinstance(cat_cache, dict) else [cat_cache]
+        for name, unported in (
+            ("cat_cache other than 'host'", any(t != "host" for t in tiers)),
+            ("dtype=...", dtype is not None),
+            ("vocabs=...", vocabs is not None),
+            ("cardinality_memory_limit=...", cardinality_memory_limit is not None),
+        ):
+            if unported:
+                raise NotImplementedError(UNSUPPORTED_MEMORY.format(name))
         buckets = num_buckets.values() if isinstance(num_buckets, dict) else [num_buckets]
-        if any(nb not in (None, 0, 1) for nb in buckets):
-            raise NotImplementedError(UNSUPPORTED_BUCKETS)
+        if encode_type == "combo" and any((nb or 1) > 1 for nb in buckets):
+            raise NotImplementedError(UNSUPPORTED_COMBO_BUCKETS)
+        if search_sorted:
+            warnings.warn(
+                "Categorify(search_sorted=True) has no effect in nvtabular_tpu_torch: integer keys take "
+                "its hash and direct tables, float keys its sorted table, with the same codes",
+                UserWarning,
+                stacklevel=2,
+            )
         self.freq_threshold = freq_threshold
         self.max_size = max_size
+        self.num_buckets = num_buckets
         self.single_table = single_table
         self.encode_type = encode_type
         self.name_sep = name_sep
@@ -282,14 +365,15 @@ class Categorify(StatOperator):
         for key, accum in state.items():
             values, counts = accum.finalize()
             ft = _per_column(self.freq_threshold, key, 0)
+            nb = _per_column(self.num_buckets, key, 1) or 1
             mx = _per_column(self.max_size, key, 0)
             if ft > 0:
                 keep = counts >= ft
                 values, counts = values[keep], counts[keep]
             if mx and mx > 0:
-                budget = max(0, mx - (OOV_OFFSET + 1))
+                budget = max(0, mx - (OOV_OFFSET + nb))
                 values, counts = values[:budget], counts[:budget]
-            self.vocabs[key] = _Vocab(values, counts)
+            self.vocabs[key] = _Vocab(values, counts, nb)
         self.set_offsets()
         self._get_batched()  # build the host tables now, as the reference does
 
@@ -309,21 +393,31 @@ class Categorify(StatOperator):
     # --- device tables ---------------------------------------------------------
     def _get_batched(self):
         """{kind: (Batched* table on the host, {vocab key: row})}, one table per
-        kind over every vocabulary, built once per fitted state."""
+        kind over every vocabulary, built once per fitted state. An empty
+        vocabulary is a row of the tiny table and of the sorted one: every
+        value misses, and the column's dtype picks the launch."""
         token = tuple(sorted((k, id(v)) for k, v in self.vocabs.items()))
         if self._batched_cache is not None and self._batched_cache[0] == token:
             return self._batched_cache[1]
-        by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": []}
+        by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": [], "sorted": []}
+        empty = []
         for vkey in sorted(self.vocabs):
-            if self.vocabs[vkey].is_combo:
+            vocab = self.vocabs[vkey]
+            if vocab.is_combo:
                 continue
-            lut = self.vocabs[vkey].lookup_struct()
+            if len(vocab.values_by_code) == 0:
+                empty.append(vkey)
+                continue
+            lut = vocab.lookup_struct()
             by_kind[kind_of(lut)].append((vkey, lut))
         if len(by_kind["tiny"]) == 1 and len(by_kind["tiny"][0][1].keys) > _LONE_TINY_MAX:
             # a lone large compare column has no batch to share a launch
             # with: it takes the cuckoo table (categorify.py:1513-1522)
             vkey, lut = by_kind["tiny"].pop()
             by_kind["cuckoo"].append((vkey, build_cuckoo(lut.keys, lut.codes)))
+        for vkey in empty:
+            by_kind["tiny"].append((vkey, build_lookup(np.zeros(0, np.int32), np.zeros(0, np.int32))))
+            by_kind["sorted"].append((vkey, build_lookup(np.zeros(0, np.float32), np.zeros(0, np.int32))))
         out = {}
         for kind, entries in by_kind.items():
             if entries:
@@ -340,7 +434,7 @@ class Categorify(StatOperator):
                 kind: (blut.to(device), row_index)
                 for kind, (blut, row_index) in self._get_batched().items()
             },
-            "args": {},  # (kind, names) → (sel, col_offsets) on the device
+            "args": {},  # (kind, names) → (sel, col_offsets, nbuckets) on the device
             "combo": {
                 key: PairIndex(vocab.lookup_struct(), device, len(vocab.values_by_code))
                 for key, vocab in self.vocabs.items() if vocab.is_combo
@@ -363,7 +457,9 @@ class Categorify(StatOperator):
             state = self.device_state(batch.device)
         codes = {}
         for job in self.lookup_jobs(col_selector, batch, state):
-            out = job["table"].encode(job["values"], job["validity"], job["sel"], job["col_offsets"])
+            out = job["table"].encode(
+                job["values"], job["validity"], job["sel"], job["col_offsets"], nbuckets=job["nbuckets"]
+            )
             for i, name in enumerate(job["names"]):
                 codes[name] = out[i]
         result = TableBatch()
@@ -377,18 +473,31 @@ class Categorify(StatOperator):
     def lookup_jobs(self, col_selector: ColumnSelector, batch: TableBatch, state):
         """One dict per kernel launch: per table kind present, one for its
         scalar columns and one for each of its list columns (whose flat
-        values have a length of their own). Each holds the kind's ``table``
-        and the stacked ``values`` [C, N] int32, ``validity`` (or None: a
-        list's flat values carry none), ``sel`` and ``col_offsets`` of its C
-        columns, named in ``names``."""
+        values have a length of their own). Integer columns take the tiny,
+        direct and cuckoo tables, float columns the sorted one. Each holds
+        the kind's ``table`` and the stacked ``values`` [C, N] (int32, or
+        float32 for the sorted table), ``validity`` (or None: a list's flat
+        values carry none), ``sel``, ``col_offsets`` and ``nbuckets`` (None
+        when every column has one OOV bucket) of its C columns, named in
+        ``names``."""
         jobs = [
             (mcol, key if len(members) > 1 else mcol)
             for key, members in self._groups(col_selector)
             if not self._is_combo(members)
             for mcol in members
         ]
-        for kind, (blut, row_index) in state["tables"].items():
-            items = [(name, vkey) for name, vkey in jobs if vkey in row_index]
+        tables = state["tables"]
+        for name, vkey in jobs:
+            is_float = batch[name].values.is_floating_point()
+            if not any(vkey in rows for kind, (_, rows) in tables.items() if (kind == "sorted") == is_float):
+                what = "a float column against an integer vocabulary" if is_float else \
+                    "an integer column against a float vocabulary"
+                raise NotImplementedError(UNSUPPORTED_MIXED.format(what))
+        for kind, (blut, row_index) in tables.items():
+            items = [
+                (name, vkey) for name, vkey in jobs
+                if vkey in row_index and batch[name].values.is_floating_point() == (kind == "sorted")
+            ]
             scalars = [item for item in items if not batch[item[0]].is_list]
             launches = ([scalars] if scalars else []) + [[item] for item in items if batch[item[0]].is_list]
             for group in launches:
@@ -400,7 +509,7 @@ class Categorify(StatOperator):
                         [c.validity if c.validity is not None else torch.ones_like(c.values, dtype=torch.bool)
                          for c in cols]
                     )
-                sel, col_offsets = self._launch_args(state, kind, group, row_index, values.device)
+                sel, col_offsets, nbuckets = self._launch_args(state, kind, group, row_index, values.device)
                 yield {
                     "kind": kind,
                     "table": blut,
@@ -408,6 +517,7 @@ class Categorify(StatOperator):
                     "validity": validity,
                     "sel": sel,
                     "col_offsets": col_offsets,
+                    "nbuckets": nbuckets,
                     "names": [name for name, _ in group],
                 }
 
@@ -415,11 +525,12 @@ class Categorify(StatOperator):
         key = (kind, tuple(items))
         args = state["args"].get(key)
         if args is None:
-            sel = [row_index[vkey] for _, vkey in items]
-            offs = [self.vocabs[vkey].offset for _, vkey in items]
+            vocabs = [self.vocabs[vkey] for _, vkey in items]
             args = (
-                torch.tensor(sel, dtype=torch.int32, device=device),
-                torch.tensor(offs, dtype=torch.int32, device=device),
+                torch.tensor([row_index[vkey] for _, vkey in items], dtype=torch.int32, device=device),
+                torch.tensor([v.offset for v in vocabs], dtype=torch.int32, device=device),
+                None if all(v.num_buckets == 1 for v in vocabs)
+                else torch.tensor([v.num_buckets for v in vocabs], dtype=torch.int32, device=device),
             )
             state["args"][key] = args
         return args
@@ -441,7 +552,7 @@ class Categorify(StatOperator):
         key = col_schema.name
         return col_schema.with_properties(
             {
-                "num_buckets": None,
+                "num_buckets": vocab.num_buckets if vocab.num_buckets > 1 else None,
                 "freq_threshold": _per_column(self.freq_threshold, key, 0),
                 "max_size": _per_column(self.max_size, key, 0),
                 "domain": {"min": 0, "max": vocab.size - 1 + vocab.offset, "name": key},

@@ -26,7 +26,7 @@ from .. import dtypes as md
 from ..kernels.groupby import GatherState, stat_gather
 from ..selector import ColumnSelector
 from ..table import Column, TableBatch
-from .groupby_stats import UNSUPPORTED_ARTIFACTS, GroupbyStatsAccum, KeyedStats, key_groups
+from .groupby_stats import UNSUPPORTED_ARTIFACTS, UNSUPPORTED_CAT_CACHE, GroupbyStatsAccum, KeyedStats, key_groups
 from .stat_operator import StatOperator
 
 AGG_DTYPES = {
@@ -42,10 +42,26 @@ _SUPPORTED = ("count", "sum", "mean", "std", "var", "min", "max")
 class JoinGroupby(StatOperator):
     has_device_state = True
 
-    def __init__(self, cont_cols=None, stats=("count",), out_path=None, name_sep="_"):
+    def __init__(
+        self,
+        cont_cols=None,
+        stats=("count",),
+        split_out=None,
+        split_every=None,
+        cat_cache="host",
+        out_path=None,
+        on_host=True,
+        name_sep="_",
+        **kwargs,
+    ):
+        """The reference's signature (join_groupby.py:33-44): ``split_out``,
+        ``split_every``, ``on_host`` and other keywords are accepted and
+        ignored, as there."""
         super().__init__()
         if out_path is not None:
             raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
+        if cat_cache != "host":
+            raise NotImplementedError(UNSUPPORTED_CAT_CACHE)
         self.name_sep = name_sep
         self.stats = list(stats)
         for s in self.stats:

@@ -1,7 +1,7 @@
-"""Exact integer lookups for Categorify: host-built tables, column-batched.
+"""Exact lookups for Categorify: host-built tables, column-batched.
 
-Counterpart of ``nvtabular_tpu/ops/lookup.py``. The kind choice is the
-reference's (``build_lookup``, lookup.py:711-742):
+Counterpart of ``nvtabular_tpu/ops/lookup.py``. For integer keys the kind
+choice is the reference's (``build_lookup``, lookup.py:711-742):
 
 * ``TinyLookup`` for vocabularies of at most ``tiny_max`` keys (``TINY_MAX``,
   4096, for Categorify; 512 for the group indexes of TargetEncoding and
@@ -10,6 +10,11 @@ reference's (``build_lookup``, lookup.py:711-742):
   ``max(DIRECT_MAX_RANGE, 8 * keys)``;
 * ``CuckooLookup`` (two-choice, 4-slot buckets ``[k0..k3, v0..v3]``)
   otherwise.
+
+Float keys take a ``SortedLookup``: the keys ascending (sorted in their own
+precision, then narrowed to float32) with their codes, searched on the card
+(K8), as the reference's ``_Vocab.device_arrays`` (categorify.py:517-537)
+and the searchsorted branch of ``encode_device`` (:570-576).
 
 Codes depend only on the vocabulary, so the table layouts are this port's
 own: one concatenated table per kind, a flat int32 direct table, no padding
@@ -34,6 +39,7 @@ from ..kernels.lookup import (
     TINY_MAX,
     cuckoo_lookup,
     direct_lookup,
+    sorted_lookup,
     tiny_lookup,
 )
 from ..table import Column
@@ -46,8 +52,8 @@ UNSUPPORTED_WIDE_KEYS = (
     "(ROADMAP.md queue 1: strings and hybrid execution)"
 )
 UNSUPPORTED_KEYS = (
-    "lookups of non-integer keys are not ported yet "
-    "(ROADMAP.md queue 1: strings and hybrid execution)"
+    "lookups of string, object or bool keys are not ported yet "
+    "(ROADMAP.md queue 1 item 4: strings and hybrid execution)"
 )
 _MAX_EVICTION_ROUNDS = 4000
 
@@ -76,6 +82,19 @@ class TinyLookup:
     def __init__(self, keys: np.ndarray, codes: np.ndarray):
         order = np.argsort(keys, kind="stable")
         self.keys = keys[order].astype(np.int32)
+        self.codes = codes[order].astype(np.int32)
+
+
+class SortedLookup:
+    """Float keys ascending as float32, with their int32 codes. Subnormal
+    keys are held as 0.0: the search compares as XLA's flush to zero does."""
+
+    __slots__ = ("keys", "codes")
+
+    def __init__(self, keys: np.ndarray, codes: np.ndarray):
+        order = np.argsort(keys, kind="stable")  # in the keys' own precision
+        self.keys = keys[order].astype(np.float32)
+        self.keys[np.abs(self.keys) < np.finfo(np.float32).tiny] = 0.0
         self.codes = codes[order].astype(np.int32)
 
 
@@ -190,10 +209,13 @@ def _try_build_cuckoo(keys: np.ndarray, vals: np.ndarray, nb: int, seed: int = 0
 
 def int32_keys(col: Column) -> torch.Tensor:
     """A key column's values (a list column's flat values) as int32 for the
-    lookup kernels; raises on what the port does not cover (floats, values
-    outside int32)."""
+    integer lookup kernels, or float32 for the sorted one (float keys, as the
+    reference's device path narrows them); raises on what the port does not
+    cover (bools, values outside int32)."""
     v = col.values
-    if v.is_floating_point() or v.dtype == torch.bool:
+    if v.is_floating_point():
+        return v.to(torch.float32)
+    if v.dtype == torch.bool:
         raise NotImplementedError(UNSUPPORTED_KEYS)
     if v.dtype == torch.int32:
         return v
@@ -205,8 +227,11 @@ def int32_keys(col: Column) -> torch.Tensor:
 
 
 def build_lookup(values: np.ndarray, codes: np.ndarray, tiny_max: Optional[int] = None):
-    """Tiny, direct or cuckoo table for integer keys (see module docstring);
-    ``tiny_max`` defaults to ``TINY_MAX``."""
+    """Tiny, direct or cuckoo table for integer keys, a sorted table for
+    float keys (see module docstring); ``tiny_max`` defaults to
+    ``TINY_MAX``."""
+    if values.dtype.kind == "f":
+        return SortedLookup(values, codes)
     if values.dtype.kind not in ("i", "u"):
         raise NotImplementedError(UNSUPPORTED_KEYS)
     if not fits_int32(values):
@@ -256,8 +281,8 @@ class BatchedTiny(_Batched):
         self.codes = torch.from_numpy(codes)
         self.lens = torch.tensor([len(l.keys) for l in luts], dtype=torch.int32)
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
-        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets, miss, null)
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets, miss, null, nbuckets)
 
 
 class BatchedDirect(_Batched):
@@ -273,10 +298,10 @@ class BatchedDirect(_Batched):
         self.lens = torch.from_numpy(lens)
         self.offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
         return direct_lookup(
             values, validity, self.table, self.mins, self.maxs, self.lens, self.offsets, sel, col_offsets,
-            miss, null,
+            miss, null, nbuckets,
         )
 
 
@@ -291,16 +316,37 @@ class BatchedCuckoo(_Batched):
         self.nbs = torch.from_numpy(nbs)
         self.row_offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(nbs)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
         return cuckoo_lookup(
-            values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets, miss, null
+            values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets, miss, null, nbuckets
         )
 
 
-BATCHED = {"tiny": BatchedTiny, "direct": BatchedDirect, "cuckoo": BatchedCuckoo}
+class BatchedSorted(_Batched):
+    """Every sorted float vocabulary concatenated: keys [K] float32 and codes
+    [K] int32; row b spans ``starts[b] : starts[b] + lens[b]``."""
+
+    _tensors = ("keys", "codes", "starts", "lens")
+
+    def __init__(self, luts: List[SortedLookup]):
+        self.keys = torch.from_numpy(np.concatenate([np.zeros(0, np.float32)] + [l.keys for l in luts]))
+        self.codes = torch.from_numpy(np.concatenate([np.zeros(0, np.int32)] + [l.codes for l in luts]))
+        lens = np.array([len(l.keys) for l in luts], dtype=np.int64)
+        self.lens = torch.from_numpy(lens)
+        self.starts = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
+
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+        return sorted_lookup(
+            values, validity, self.keys, self.codes, self.starts, self.lens, sel, col_offsets, miss, null, nbuckets
+        )
+
+
+BATCHED = {"tiny": BatchedTiny, "direct": BatchedDirect, "cuckoo": BatchedCuckoo, "sorted": BatchedSorted}
 
 
 def kind_of(lut) -> str:
     if isinstance(lut, TinyLookup):
         return "tiny"
+    if isinstance(lut, SortedLookup):
+        return "sorted"
     return "direct" if isinstance(lut, DirectLookup) else "cuckoo"

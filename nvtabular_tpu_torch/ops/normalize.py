@@ -5,6 +5,7 @@ is plain torch on any device with the reference's float32 expressions
 (normalize.py:61-74): ``(x - mean) / std``, or ``x - mean`` when std == 0.
 On the device executor, a FillMissing → Clip → LogOp → Normalize chain runs
 as one launch of the cont_chain kernel instead (dag/device_fuse.py).
+``out_dtype`` is not ported yet (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ def _f32(x: float, device) -> torch.Tensor:
 class Normalize(StatOperator):
     """(x - mean) / std."""
 
-    def __init__(self):
+    def __init__(self, out_dtype=None):
         super().__init__()
+        if out_dtype is not None:
+            raise NotImplementedError(
+                "Normalize(out_dtype=...) is not ported yet (ROADMAP.md queue 1 item 13: the rest of the op library)"
+            )
         self.means: Dict[str, float] = {}
         self.stds: Dict[str, float] = {}
 

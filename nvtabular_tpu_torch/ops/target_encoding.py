@@ -35,6 +35,7 @@ from ..table import Column, TableBatch, to_torch_dtype
 from ..tags import Tags
 from .groupby_stats import (
     UNSUPPORTED_ARTIFACTS,
+    UNSUPPORTED_CAT_CACHE,
     GroupbyStatsAccum,
     KeyedStats,
     key_groups,
@@ -57,13 +58,23 @@ class TargetEncoding(StatOperator):
         p_smooth=20,
         out_col=None,
         out_dtype=None,
+        split_out=None,
+        split_every=None,
+        cat_cache="host",
         out_path=None,
+        on_host=True,
         name_sep="_",
         drop_folds=True,
+        **kwargs,
     ):
+        """The reference's signature (target_encoding.py:56-73): ``split_out``,
+        ``split_every``, ``on_host`` and other keywords are accepted and
+        ignored, as there."""
         super().__init__()
         if out_path is not None:
             raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
+        if cat_cache != "host":
+            raise NotImplementedError(UNSUPPORTED_CAT_CACHE)
         if isinstance(target, str):
             target = [target]
         if isinstance(target, ColumnSelector):

@@ -3,7 +3,9 @@
 Counterpart of ``nvtabular_tpu/workflow/workflow.py``. ``Workflow(node)``
 runs on ``cuda:0``; with no CUDA device it raises rather than move to the
 CPU. ``Workflow(node, device="cpu")`` runs every kernel's plain PyTorch
-version instead. Save and load are not ported yet (ROADMAP.md queue 1).
+version instead. Save, load and the rest of the reference's facade raise
+NotImplementedError (ROADMAP.md queue 1 item 2), as do the parquet writer
+and ``num_rows`` of a transformed dataset (item 1).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from ..dag.executor import FitEngine, TorchExecutor, enforce_dtypes
 from ..io.dataset import Dataset
 from ..schema import Schema
 from ..table import TableBatch
+
+UNSUPPORTED_FACADE = "Workflow.{} is not ported yet (ROADMAP.md queue 1 item 2: save/load and the Workflow facade)"
+UNSUPPORTED_WRITER = "TransformedDataset.{} is not ported yet (ROADMAP.md queue 1 item 1: parquet I/O)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -111,6 +116,30 @@ class Workflow:
     def output_dtypes(self):
         return self.graph.output_dtypes
 
+    # --- the reference's facade, not ported yet ------------------------------------
+    @property
+    def input_schema(self):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("input_schema"))
+
+    def fit_schema(self, input_schema):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("fit_schema"))
+
+    def remove_inputs(self, input_cols):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("remove_inputs"))
+
+    def get_subworkflow(self, name):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("get_subworkflow"))
+
+    def clear_stats(self):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("clear_stats"))
+
+    def save(self, path):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("save"))
+
+    @classmethod
+    def load(cls, path, client=None):
+        raise NotImplementedError(UNSUPPORTED_FACADE.format("load"))
+
 
 class TransformedDataset:
     """Lazy transform plan: batches stream through the workflow's executor."""
@@ -130,6 +159,13 @@ class TransformedDataset:
         for batch in self._base.to_batches(columns=wf._input_columns or None):
             out = wf._transform_batch(batch)
             yield out.to("cpu") if host else out
+
+    @property
+    def num_rows(self) -> int:
+        raise NotImplementedError(UNSUPPORTED_WRITER.format("num_rows"))
+
+    def to_parquet(self, output_path, *args, **kwargs):
+        raise NotImplementedError(UNSUPPORTED_WRITER.format("to_parquet"))
 
 
 def _as_dataset(data) -> Dataset:

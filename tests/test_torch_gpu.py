@@ -934,3 +934,132 @@ def test_sessions_workflow_on_cuda_launches_once_a_batch(no_plain_on_cuda):
         assert out.column_names == ref.column_names
         for name in ref.column_names:
             assert _nan_equal(out[name].values.cpu(), ref[name].values), name
+
+
+# --- K4's hashed branch and K8 (Categorify's OOV buckets and float keys) ----------------
+@pytest.mark.parametrize("with_validity", [False, True])
+def test_lookup_kernels_hashed_miss_match_plain(with_validity):
+    """K1-K3 with a per-column ``nbuckets``: 1 (the scalar miss), 1000 (not a
+    power of two: a mask would differ from the modulo) and 2**31 - 1."""
+    _require_cuda()
+    rng = np.random.default_rng(16)
+    for blut, keysets in _tables(rng):
+        sel = list(range(len(keysets))) + [0]
+        values = _queries(rng, [keysets[s] for s in sel], 100_003)
+        validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+        sel_t = torch.tensor(sel, dtype=torch.int32)
+        offs = torch.tensor([11 * i for i in range(len(sel))], dtype=torch.int32)
+        nbs = torch.tensor(([1000, 1, 2**31 - 1] * 2)[: len(sel)], dtype=torch.int32)
+        want = blut.encode(values, validity, sel_t, offs, nbuckets=nbs)
+        got = blut.to("cuda").encode(values.cuda(), None if validity is None else validity.cuda(), sel_t.cuda(),
+                                     offs.cuda(), nbuckets=nbs.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), type(blut).__name__
+        misses = want[0][(want[0] >= 2) & (want[0] < 1002)]
+        assert len(torch.unique(misses)) > 900, type(blut).__name__
+
+
+def _float_probe(rng, keys, n):
+    miss = rng.normal(0.0, 50.0, n).astype(np.float32)
+    v = np.where(rng.random(n) < 0.3, miss, rng.choice(keys, n) if len(keys) else miss).astype(np.float32)
+    special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e-40, -1e-40, np.float32(-1e30), np.float32(1e30)]
+    v[: len(special)] = special
+    if len(keys):
+        v[len(special):len(special) + 2] = [np.min(keys), np.max(keys)]
+        v[len(special) + 2:len(special) + 4] = [np.nextafter(np.min(keys), -np.inf), np.nextafter(np.max(keys), np.inf)]
+    return v
+
+
+@pytest.mark.parametrize("nb", [1, 1000])
+@pytest.mark.parametrize("with_validity", [False, True])
+def test_sorted_lookup_kernel_matches_plain(with_validity, nb):
+    """K8 against its plain version: NaN, ±inf, signed zeros, subnormals,
+    values below the smallest key and above the largest, vocabularies of
+    length 0, 1 and many (one with ±inf and both zeros among its keys)."""
+    _require_cuda()
+    rng = np.random.default_rng(17)
+    vocabs = [
+        np.unique(rng.normal(0.0, 30.0, 20_000).round(2)),
+        np.zeros(0),
+        np.array([0.5]),
+        np.array([np.inf, -np.inf, 0.0, -0.0, 1.0, 1.0 + 2.0**-40, 1e-40, 3.5]),
+    ]
+    luts = [plookup.SortedLookup(rng.permutation(v), np.arange(len(v)) + 2 + nb) for v in vocabs]
+    table = plookup.BatchedSorted(luts)
+    sel = [0, 1, 2, 3, 0]
+    values = torch.from_numpy(np.stack([_float_probe(rng, vocabs[s].astype(np.float32), 100_003) for s in sel]))
+    validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+    sel_t = torch.tensor(sel, dtype=torch.int32)
+    offs = torch.tensor([5 * i for i in range(len(sel))], dtype=torch.int32)
+    nbs = torch.full((len(sel),), nb, dtype=torch.int32)
+    want = table.encode(values, validity, sel_t, offs, nbuckets=nbs)
+    got = table.to("cuda").encode(values.cuda(), None if validity is None else validity.cuda(), sel_t.cuda(),
+                                  offs.cuda(), nbuckets=nbs.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert (want[1] < 2 + nb + 5).all()  # the empty vocabulary: OOV or null only
+    assert (want[:, 0] == torch.tensor([1 + 5 * i for i in range(len(sel))], dtype=torch.int32)).all()  # NaN
+
+
+def test_sorted_lookup_takes_empty_inputs_and_the_current_stream():
+    _require_cuda()
+    table = plookup.BatchedSorted([plookup.SortedLookup(np.array([1.0, 2.0]), np.array([3, 4]))]).to("cuda")
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.reset_launches()
+    assert table.encode(torch.zeros((1, 0), device="cuda"), None, one, one).shape == (1, 0)
+    assert kernels.LAUNCHES["sorted_lookup"] == 0
+    x = torch.randn((1, 300_001), device="cuda").round()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = table.encode(x, None, one, one, nbuckets=one + 7)
+    side.synchronize()
+    cpu = plookup.BatchedSorted([plookup.SortedLookup(np.array([1.0, 2.0]), np.array([3, 4]))])
+    z = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(got.cpu(), cpu.encode(x.cpu(), None, z, z, nbuckets=z + 7))
+    with pytest.raises(TypeError):
+        table.encode(x.double(), None, one, one)
+
+
+def test_buckets_workflow_on_cuda_matches_cpu_and_counts_launches(no_plain_on_cuda):
+    """chip_smoke.py phase 15's workflow at a small size: Criteo-shaped int
+    columns and float columns through Categorify(freq_threshold=2,
+    num_buckets=1000), fitted on the card and carried to the CPU; one launch
+    a table kind for the ints, one sorted_lookup for the floats, codes
+    exact, no plain version on the card."""
+    _require_cuda()
+
+    def part(seed, n=30_000):
+        data = _criteo_part(seed, n)
+        r = np.random.default_rng(100 + seed)
+        for i in range(3):
+            x = r.normal(1.0, 3.0, n).astype(np.float32)
+            x[r.random(n) < 0.05] = np.nan
+            data[f"F{i}"] = x
+        return data
+
+    ints = ["C0", "C5", "C8", "C9", "C12", "C15", "C19"]
+    floats = ["F0", "F1", "F2"]
+
+    def graph():
+        cats = ints >> ops.Categorify(freq_threshold=2, max_size=10_000_000, num_buckets=1000)
+        conts = floats >> ops.Categorify(freq_threshold=2, num_buckets=1000)
+        return cats + conts + ["label"]
+
+    gpu = nvt.Workflow(graph())
+    gpu.fit(nvt.Dataset([part(s) for s in range(3)]))
+    cpu = nvt.Workflow(graph(), device="cpu")
+    nvt.load_fitted_state(cpu, nvt.fitted_state(gpu))
+    probe = nvt.TableBatch.from_pydict(part(9))
+    kernels.reset_launches()
+    got = gpu.transform(probe)
+    torch.cuda.synchronize()
+    cat = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.Categorify) and "C0" in n.op.vocabs)
+    want = {f"{k}_lookup": 1 for k in cat._get_batched() if k != "sorted"} | {"sorted_lookup": 1}
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    ref = cpu.transform(probe)
+    for name in ref.column_names:
+        assert torch.equal(got[name].values.cpu(), ref[name].values), name
+    for name in ["C0", "C9", "C19"] + floats:  # the long tails miss the vocabulary
+        codes = ref[name].values
+        assert ((codes >= 2) & (codes < 1002)).any(), name

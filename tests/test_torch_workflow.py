@@ -8,6 +8,9 @@ PyTorch versions; the reference runs its device path on CPU-JAX
 (``JitExecutor(jit_min_rows=0)``: smaller batches would take its host path).
 """
 
+import inspect
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -286,10 +289,8 @@ def test_default_device_is_cuda():
     "make",
     [
         lambda: pops.Categorify(encode_type="combo", num_buckets=4),
-        lambda: pops.Categorify(num_buckets=4),
-        lambda: pops.Categorify(num_buckets={"a": 3}),
     ],
-    ids=["combo", "num_buckets", "num_buckets_per_column"],
+    ids=["combo"],
 )
 def test_unported_options_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -300,12 +301,107 @@ def test_unported_options_raise(make):
     "data",
     [
         {"a": np.array(["x", "y"], dtype=object)},
-        {"a": np.array([0.5, 1.5])},
         {"a": np.array([1, 2**40], dtype=np.int64)},
         {"a": [[1, 2**40], [3]]},  # list columns are ported (test_torch_lists.py); their wide keys are not
     ],
-    ids=["strings", "floats", "wide_keys", "lists"],
+    ids=["strings", "wide_keys", "lists"],
 )
 def test_unported_columns_raise(data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pnvt.Workflow(["a"] >> pops.Categorify(), device="cpu").fit(pnvt.Dataset(data))
+
+
+# --- the reference's constructor signatures and its facade ----------------------------
+OPS_IN_BOTH = sorted(
+    n for n in set(pops.__all__) & set(jops.__all__) if isinstance(getattr(pops, n), type) and n != "ColumnSelector"
+)
+REQUIRED = {"Bucketize": [[1.0]], "DifferenceLag": ["a"], "HashBucket": [10], "HashedCross": [10],
+            "LambdaOp": [abs], "ListSlice": [0], "TargetEncoding": ["y"]}
+NOT_DEFAULT = {"Clip": {"min_value": 0.0}}  # both packages refuse a Clip with neither bound
+
+
+def test_op_signatures_match_jax():
+    """Every op both packages export takes the reference's parameters: the
+    same names, kinds, order and defaults."""
+    assert len(OPS_IN_BOTH) >= 14
+    for name in OPS_IN_BOTH:
+        want = inspect.signature(getattr(jops, name).__init__).parameters.values()
+        got = inspect.signature(getattr(pops, name).__init__).parameters.values()
+        assert [(p.name, p.kind, p.default) for p in got] == [(p.name, p.kind, p.default) for p in want], name
+
+
+@pytest.mark.parametrize("name", OPS_IN_BOTH)
+def test_ops_take_every_jax_keyword_at_its_default(name):
+    """Each keyword of the reference's constructor, passed by name at the
+    reference's default, constructs the port's op."""
+    params = inspect.signature(getattr(jops, name).__init__).parameters.values()
+    kwargs = {p.name: p.default for p in params if p.default is not inspect.Parameter.empty}
+    getattr(pops, name)(*REQUIRED.get(name, []), **dict(kwargs, **NOT_DEFAULT.get(name, {})))
+
+
+# (op, keywords, what the port does: "accept", "warn" or the ROADMAP item it names)
+JAX_OPTIONS = [
+    ("Categorify", {"out_path": "cats"}, "item 2"),
+    ("Categorify", {"cat_cache": "device"}, "item 14"),
+    ("Categorify", {"cat_cache": {"a": "disk"}}, "item 14"),
+    ("Categorify", {"dtype": "int64"}, "item 14"),
+    ("Categorify", {"vocabs": {"a": [1, 2]}}, "item 14"),
+    ("Categorify", {"cardinality_memory_limit": 1 << 20}, "item 14"),
+    ("Categorify", {"encode_type": "combo", "num_buckets": 4}, "item 4"),
+    ("Categorify", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
+    ("Categorify", {"cat_cache": {"a": "host"}, "num_buckets": {"a": 8}, "single_table": True}, "accept"),
+    ("Categorify", {"search_sorted": True}, "warn"),
+    ("TargetEncoding", {"out_path": "stats"}, "item 2"),
+    ("TargetEncoding", {"cat_cache": "device"}, "item 14"),
+    ("TargetEncoding", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
+    ("JoinGroupby", {"out_path": "stats"}, "item 2"),
+    ("JoinGroupby", {"cat_cache": "disk"}, "item 14"),
+    ("JoinGroupby", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
+    ("FillMissing", {"add_binary_cols": True}, "item 13"),
+    ("Normalize", {"out_dtype": "float16"}, "item 13"),
+]
+
+
+@pytest.mark.parametrize("name, kwargs, outcome", JAX_OPTIONS,
+                         ids=[f"{n}-{'-'.join(k)}" for n, k, _ in JAX_OPTIONS])
+def test_jax_only_options(name, kwargs, outcome):
+    """An option the reference acts on and the port does not raises
+    NotImplementedError naming its ROADMAP item; one the reference accepts
+    and ignores is accepted (``search_sorted`` warns, as there)."""
+    make = lambda: getattr(pops, name)(*REQUIRED.get(name, []), **kwargs)  # noqa: E731
+    if outcome == "accept":
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            make()
+    elif outcome == "warn":
+        with pytest.warns(UserWarning, match="no effect"):
+            make()
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {outcome}:"):
+            make()
+
+
+@pytest.mark.parametrize(
+    "call, item",
+    [
+        (lambda wf, ds: wf.save("wf"), "item 2"),
+        (lambda wf, ds: type(wf).load("wf"), "item 2"),
+        (lambda wf, ds: wf.fit_schema(ds.schema), "item 2"),
+        (lambda wf, ds: wf.remove_inputs(["a"]), "item 2"),
+        (lambda wf, ds: wf.get_subworkflow("a"), "item 2"),
+        (lambda wf, ds: wf.clear_stats(), "item 2"),
+        (lambda wf, ds: wf.input_schema, "item 2"),
+        (lambda wf, ds: wf.transform(ds).to_parquet("out"), "item 1"),
+        (lambda wf, ds: wf.transform(ds).num_rows, "item 1"),
+    ],
+    ids=["save", "load", "fit_schema", "remove_inputs", "get_subworkflow", "clear_stats", "input_schema",
+         "to_parquet", "num_rows"],
+)
+def test_jax_only_methods_raise(call, item):
+    """The reference's Workflow and TransformedDataset methods the port has
+    not ported raise NotImplementedError naming their ROADMAP item, never
+    AttributeError."""
+    ds = pnvt.Dataset({"a": np.array([1, 2, 2], dtype=np.int32)})
+    wf = pnvt.Workflow(["a"] >> pops.Categorify(), device="cpu").fit(ds)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}:"):
+        call(wf, ds)
