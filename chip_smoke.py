@@ -104,10 +104,32 @@ a nonzero exit:
    the integer lookups with hashed misses, each against its plain version
    on the card, timed beside its bound (K8's library yardstick: one
    torch.searchsorted over the vocabularies padded with +inf, positions
-   only).
+   only);
+16. DeepFM and DCN-v2 training on phase 7's feed: the loader staged anew
+   (DeviceLoader(65536, shuffle=True, seed=0, drop_last=True) over the
+   first 4 transformed partitions) into each model in turn, at the JAX
+   configs' defaults over phase 7's 26 tables (22,343,004 rows, dim 16)
+   and 13 dense features — DeepFM (deep tower 429 -> 256 -> 128 -> 1, the
+   FM terms through K16) and DCN-v2 (3 cross layers of [429, 429] through
+   K17, deep tower 429 -> 256 -> 128, output 557 -> 1) — with
+   Adagrad(1e-2): one warm-up chunk, then TRAIN_REPEATS timed passes of
+   64 steps beside phase 7's DLRM step, the launch counters zeroed before
+   the staging and read after the last step (a gather, a scatter and
+   DeepFM's fm_fwd and fm_bwd, or DCN's three cross_fwd and three
+   cross_bwd, each step; no plain version on the card); every loss
+   finite; one batch's loss, logits and gradients through the kernels
+   held against the reference forward on the card in bfloat16 and
+   float32 (DeepFM's gradients for the plain path's logits gradient:
+   its FM terms sum in another order, check_step_parity); each model and
+   its optimizer freed before the next;
+17. fm_fwd, fm_bwd, cross_fwd and cross_bwd at phase 16's shapes against
+   their plain versions on the card (the FM output and the scatter and
+   column sums within 1e-5 of their terms' magnitudes; the cross epilogue
+   and its elementwise gradients bit-equal), timed beside their bounds.
 
-The line before the last is {"kernels": [...]} with each kernel's launches,
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]} with the 26 kernels'
+launches, error, times and bound; the last line is {"ok": true,
+"device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
 
@@ -363,38 +385,59 @@ def profile_pass(fn) -> dict:
     }
 
 
-def step_grads(model, forward, batch):
-    """Logits, loss and every parameter's gradient of one batch."""
+def step_grads(model, forward, batch, dz=None):
+    """Logits, loss and every parameter's gradient of one batch: of the
+    loss, or, given ``dz``, of the logits for the output gradient ``dz``."""
     from nvtabular_tpu_torch import models
 
     model.zero_grad(set_to_none=True)
     logits = forward(batch)
     loss = models.bce_with_logits(logits, batch["label"])
-    loss.backward()
+    if dz is None:
+        loss.backward()
+    else:
+        logits.backward(dz)
     grads = [p.grad for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     return logits.detach(), loss.detach(), grads
 
 
-def check_step_parity(model, batch, reference, mlps) -> dict:
+def check_step_parity(model, batch, reference, mlps, same_output_grad=False) -> dict:
     """One step's loss, logits and gradients through the kernels against the
     plain versions (``reference(model, batch)``) on the card, from the same
-    state, in the trained bfloat16 compute and in float32 (set on ``mlps``)."""
+    state, in the trained bfloat16 compute and in float32 (set on ``mlps``).
+
+    With ``same_output_grad`` both paths' gradients are taken for one output
+    gradient, the plain path's dloss/dlogits: where a kernel sums the
+    forward in another order (DeepFM's FM terms), each logit moves by an
+    ULP or so of its partial sums, and a gradient that is a sum over the
+    batch cancelling to a fraction of its terms (the output bias's) moves by
+    far more than that relative to itself, though every term agrees. The
+    logits themselves are held to the same limits either way."""
+    from nvtabular_tpu_torch import models
+
+    names = [name for name, _ in model.named_parameters()]
     errs = {}
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         for mlp in mlps:
             mlp.compute_dtype = dtype
-        k_logits, k_loss, k_grads = step_grads(model, model, batch)
         p_logits, p_loss, p_grads = step_grads(model, lambda b: reference(model, b), batch)
+        dz = None
+        if same_output_grad:
+            z = p_logits.clone().requires_grad_(True)
+            (dz,) = torch.autograd.grad(models.bce_with_logits(z, batch["label"]), z)
+            p_grads = step_grads(model, lambda b: reference(model, b), batch, dz)[2]
+        k_logits, k_loss, k_grads = step_grads(model, model, batch, dz)
         loss_rtol, logit_atol, grad_rel = STEP_TOL[name]
         loss_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
         logit_err = float((k_logits - p_logits).abs().max())
         grad_errs = [
             float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30) for k, p in zip(k_grads, p_grads)
         ]
-        errs[name] = {"loss_rel": loss_err, "logits_abs": logit_err, "grads_rel_max": max(grad_errs),
-                      "table_grad_rel": grad_errs[0]}
-        if not (loss_err <= loss_rtol and logit_err <= logit_atol and max(grad_errs) <= grad_rel):
+        worst = int(np.argmax(grad_errs))
+        errs[name] = {"loss_rel": loss_err, "logits_abs": logit_err, "grads_rel_max": grad_errs[worst],
+                      "worst_grad": names[worst], "table_grad_rel": grad_errs[0]}
+        if not (loss_err <= loss_rtol and logit_err <= logit_atol and grad_errs[worst] <= grad_rel):
             fail(f"training step ({name}): kernels vs plain differ: {errs[name]} (limits {STEP_TOL[name]})")
         del k_grads, p_grads
     for mlp in mlps:
@@ -1710,6 +1753,215 @@ def buckets_kernel_records(dev, rec) -> dict:
     return records
 
 
+def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: bool) -> dict:
+    """Phase 16 for DeepFM or DCN-v2 at the JAX configs' defaults over phase
+    7's tables, the model and its optimizer freed on return: the loader
+    staged anew and one warm-up chunk, then TRAIN_REPEATS timed passes of
+    TRAIN_STEPS steps, the launch counters zeroed before the staging and
+    read after the last step, no plain version on the card; one step held
+    against the plain versions; and the inputs of phase 17's kernels kept."""
+    from nvtabular_tpu_torch import kernels, models
+    from nvtabular_tpu_torch.models.layers import _round_to
+
+    phase_t0 = time.perf_counter()
+    if family == "deepfm":
+        model = models.DeepFM(models.DeepFMConfig(cards, NUM_CONTS, embedding_dim=TRAIN_DIM), seed=0, device=DEVICE)
+        loss_fn, reference, mlps = models.deepfm_loss, models.deepfm_reference_forward, [model.deep]
+        own = {"fm_fwd": 1, "fm_bwd": 1}  # launches a step of the model's own kernels
+    else:
+        model = models.DCN(models.DCNConfig(cards, NUM_CONTS, embedding_dim=TRAIN_DIM), seed=0, device=DEVICE)
+        loss_fn, reference, mlps = models.dcn_loss, models.dcn_reference_forward, [model.cross, model.deep, model.out]
+        own = {"cross_fwd": model.config.num_cross_layers, "cross_bwd": model.config.num_cross_layers}
+    if model.config.input_dim != NUM_CATS * TRAIN_DIM + NUM_CONTS:
+        fail(f"{family}: input width {model.config.input_dim}, expected {NUM_CATS * TRAIN_DIM + NUM_CONTS}")
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    with plain_calls_on_card(f"{family} training"):
+        staged = list(loader.chunks())
+        t0 = time.perf_counter()
+        losses = [models.train_chunk(model, opt, staged[0], TRAIN_BS, loss_fn)]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        pass_s, i = [], 1
+        for _ in range(TRAIN_REPEATS):
+            steps = 0
+            t0 = time.perf_counter()
+            while steps < TRAIN_STEPS:
+                losses.append(models.train_chunk(model, opt, staged[i % len(staged)], TRAIN_BS, loss_fn))
+                steps += losses[-1].numel()
+                i += 1
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    total_steps = sum(int(l.numel()) for l in losses)
+    per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
+    per_step = {"embedding_gather": 1, "embedding_scatter_grad": 1, **own}
+    for name, count in launches.items():
+        want = len(staged) if name in per_chunk else total_steps * per_step.get(name, 0)
+        if count != want:
+            fail(f"{family}: {name} launched {count} times, expected {want}")
+    all_losses = torch.cat(losses)
+    if not bool(torch.isfinite(all_losses).all()):
+        fail(f"{family}: non-finite losses {all_losses.tolist()}")
+    step_s = float(np.median(pass_s)) / TRAIN_STEPS
+    rec = {
+        "warm_chunk_s": warm_s, "pass_s": pass_s, "steps": total_steps, "step_ms": 1e3 * step_s,
+        "steps_per_s": 1.0 / step_s, "examples_per_s": TRAIN_BS / step_s,
+        "first_loss": float(all_losses[0]), "last_loss": float(all_losses[-1]), "launches": launches,
+        "params": sum(p.numel() for p in model.parameters()),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(
+        f"{family}: {TRAIN_STEPS} steps of {TRAIN_BS}: median of {TRAIN_REPEATS} passes {rec['step_ms']:.3f} ms a step, "
+        f"{rec['examples_per_s']:,.0f} examples/s (passes {[round(s, 4) for s in pass_s]} s; phase 7's DLRM "
+        f"{dlrm_step_ms:.3f} ms); loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f} over {total_steps} steps; "
+        f"{rec['params']:,} parameters, peak {rec['peak_gb']:.2f} GB; launches {launches}; {smi}"
+    )
+
+    batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
+    # DCN's forward is bit-equal through its kernels, DeepFM's FM sums in another order
+    rec["parity"] = check_step_parity(model, batch, reference, mlps, same_output_grad=family == "deepfm")
+    log(f"{family}: one step through the kernels equals the plain versions on the card: {rec['parity']}")
+    if profile:
+
+        def train_two_chunks():
+            for c in staged[:2]:
+                models.train_chunk(model, opt, c, TRAIN_BS, loss_fn)
+            torch.cuda.synchronize()
+
+        rec["profile"] = p = profile_pass(train_two_chunks)
+        log(f"profile {family} (8 steps): wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+
+    def fwd_bwd():
+        opt.zero_grad()
+        loss_fn(model, batch).backward()
+
+    rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
+    rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    log(f"{family}: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
+        f"(device time per step); {smi}")
+
+    # phase 17's inputs: the trained state on one batch, as the main path hands it to the kernels
+    with torch.no_grad():
+        x = model.features(batch)
+        if family == "deepfm":
+            rec["kernel_inputs"] = dict(x=x, ids=model.ids(batch), offsets=model.offsets, sizes=model.sizes,
+                                        linear=model.linear.detach().clone(), dense_w=model.dense_w.detach().clone())
+        else:  # the second cross layer: x_1 from the first, its product and bias
+            cross, cdt = model.cross, torch.bfloat16
+            x1 = (_round_to(x, cdt) @ _round_to(cross.weights[0], cdt)).add_(cross.biases[0]).mul_(x).add_(x)
+            xw1 = _round_to(x1, cdt) @ _round_to(cross.weights[1], cdt)
+            rec["kernel_inputs"] = dict(xw=xw1, b=cross.biases[1].detach().clone(), x0=x, x=x1)
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"{family}: phase 16 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def factorized_kernel_records(recs) -> dict:
+    """Phase 17: fm_fwd, fm_bwd (K16), cross_fwd and cross_bwd (K17) at
+    phase 16's shapes against their plain versions on the card, timed
+    beside their bounds."""
+    from nvtabular_tpu_torch.kernels import cross as kcross
+    from nvtabular_tpu_torch.kernels import fm as kfm
+    from nvtabular_tpu_torch.kernels.embedding import table_rows
+
+    records = {}
+    k = recs["deepfm"].pop("kernel_inputs")
+    x, ids, offsets, sizes, linear, dense_w = (k[n] for n in ("x", "ids", "offsets", "sizes", "linear", "dense_w"))
+    B, F, D, nd = x.shape[0], len(ids), TRAIN_DIM, NUM_CONTS
+    dev = x.device
+    v, dense = x[:, : F * D].unflatten(1, (F, D)), x[:, F * D :]
+    got = kfm.fm_fwd(v, dense, ids, offsets, sizes, linear, dense_w)
+    want = kfm.fm_fwd_plain(v, dense, ids, offsets, sizes, linear, dense_w)
+    rows, valid = table_rows(ids, offsets, sizes)
+    s, q = v.sum(1), (v * v).sum(1)
+    scale = (s * s + q).sum(1) + torch.where(valid, linear[rows].abs(), 0.0).sum(1) + (dense * dense_w).abs().sum(1)
+    torch.cuda.synchronize()
+    # the second order's two sums cancel: allow 1e-5 of the magnitudes they sum, not of the result
+    if not bool(((got - want).abs() <= SUM_TOL["rtol"] * scale + SUM_TOL["atol"]).all()):
+        fail(f"fm_fwd kernel differs from plain: max abs {float((got - want).abs().max())}")
+    distinct = int(torch.unique(rows[valid]).numel())
+    row_bytes = B * (F * D + nd) * 4
+    rec = {
+        "max_abs_err": float((got - want).abs().max()), "shape": [B, F, D], "distinct_linear": distinct,
+        "bytes": row_bytes + B * F * 4 + distinct * 4 + nd * 4 + B * 4,
+        "ms": time_ms(lambda: kfm.fm_fwd(v, dense, ids, offsets, sizes, linear, dense_w)),
+        "plain_ms": time_ms(lambda: kfm.fm_fwd_plain(v, dense, ids, offsets, sizes, linear, dense_w)),
+        "library_ms": None,
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * (3 * F * D + 2 * D + F + 2 * nd))
+    records["fm_fwd"] = rec
+
+    g = torch.randn(B, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    num_rows = linear.shape[0]
+    dx = torch.empty_like(x)
+    dv_out, ddense_out = dx[:, : F * D].unflatten(1, (F, D)), dx[:, F * D :]
+
+    def bwd():
+        return kfm.fm_bwd(v, dense, ids, offsets, sizes, dense_w, g, num_rows, dv_out=dv_out, ddense_out=ddense_out)
+
+    got = [t.clone() for t in bwd()]
+    want = kfm.fm_bwd_plain(v, dense, ids, offsets, sizes, dense_w, g, num_rows)
+    mag = kfm.fm_bwd_plain(v, dense.abs(), ids, offsets, sizes, dense_w, g.abs(), num_rows)
+    sv = g.abs()[:, None, None] * v.abs().sum(1, keepdim=True)
+    torch.cuda.synchronize()
+    limits = (sv, torch.zeros_like(want[1]), mag[2], mag[3])  # dv, ddense (one product: exact), dlinear, ddense_w
+    for what, a, b, m in zip(("dv", "ddense", "dlinear", "ddense_w"), got, want, limits):
+        if not bool(((a - b).abs() <= SUM_TOL["rtol"] * m + (SUM_TOL["atol"] if what != "ddense" else 0.0)).all()):
+            fail(f"fm_bwd kernel differs from plain in {what}: max abs {float((a - b).abs().max())}")
+    rec = {
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)), "shape": [B, F, D],
+        "bytes": 2 * row_bytes + B * F * 4 + B * 4 + num_rows * 4 + 2 * nd * 4,
+        "ms": time_ms(bwd),
+        "plain_ms": time_ms(lambda: kfm.fm_bwd_plain(v, dense, ids, offsets, sizes, dense_w, g, num_rows)),
+        "library_ms": None,
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * (3 * F * D + F + 3 * nd))
+    records["fm_bwd"] = rec
+    del k, x, v, dense, got, want, mag, sv, dx, linear
+
+    k = recs["dcn"].pop("kernel_inputs")
+    xw, b, x0, xl = k["xw"], k["b"], k["x0"], k["x"]
+    B, N = xw.shape
+    got = kcross.cross_fwd(xw, b, x0, xl)
+    want = kcross.cross_fwd_plain(xw, b, x0, xl)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):  # the same rounded operations
+        fail(f"cross_fwd kernel differs from plain: max abs {float((got - want).abs().max())}")
+    rec = {
+        "max_abs_err": 0.0, "shape": [B, N], "bytes": 4 * B * N * 4 + N * 4,
+        "ms": time_ms(lambda: kcross.cross_fwd(xw, b, x0, xl)),
+        "plain_ms": time_ms(lambda: kcross.cross_fwd_plain(xw, b, x0, xl)),
+        "library_ms": None,
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 3 * B * N)
+    records["cross_fwd"] = rec
+
+    g = torch.randn((B, N), device=xw.device, generator=torch.Generator(device=xw.device).manual_seed(5))
+    got = kcross.cross_bwd(g, xw, b, x0)
+    want = kcross.cross_bwd_plain(g, xw, b, x0)
+    magnitude = (g * x0).abs().sum(0)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail("cross_bwd kernel differs from plain in dxw or dx0")
+    # a column sum of 65,536 products in a varying order: 1e-5 of the sum of their magnitudes
+    if not bool(((got[2] - want[2]).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+        fail(f"cross_bwd kernel differs from plain in db: max abs {float((got[2] - want[2]).abs().max())}")
+    rec = {
+        "max_abs_err": float((got[2] - want[2]).abs().max()), "shape": [B, N], "bytes": 5 * B * N * 4 + 2 * N * 4,
+        "ms": time_ms(lambda: kcross.cross_bwd(g, xw, b, x0)),
+        "plain_ms": time_ms(lambda: kcross.cross_bwd_plain(g, xw, b, x0)),
+        "library_ms": None,
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 4 * B * N)
+    records["cross_bwd"] = rec
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -1725,7 +1977,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA GPU")
     import nvtabular_tpu_torch as nvt
-    from nvtabular_tpu_torch import ops
+    from nvtabular_tpu_torch import models, ops
     from nvtabular_tpu_torch.dag.device_fuse import extract_chain
     from nvtabular_tpu_torch.kernels import build as kbuild
     from nvtabular_tpu_torch.kernels import cont_chain as kcc
@@ -1911,6 +2163,7 @@ def main():
     records.update(training_kernel_records(nvt, wf, parts, train))
     train_launches = train["launches"]
     train_record = {k: v for k, v in train.items() if k not in ("model", "staged", "loader")}
+    feed = train["loader"]  # phase 16 trains DeepFM and DCN-v2 on it
     del train
 
     # --- 9. the advanced MovieLens path and its kernels ------------------------------------
@@ -1971,6 +2224,20 @@ def main():
         main_launches[k] += buckets_launches[k]
     direct_launches["direct_lookup"] += buckets_launches["direct_lookup"]
 
+    # --- 16. DeepFM and DCN-v2 training on phase 7's feed --------------------------------------------------
+    cards = models.DLRMConfig.from_schema(wf.output_schema).cardinalities
+    dlrm_step_ms = 1e3 / train_record["steps_per_s"]
+    factorized = {f: train_family(f, feed, cards, dlrm_step_ms, smi, opts.profile) for f in ("deepfm", "dcn")}
+    del feed
+
+    # --- 17. their kernels at their shapes -----------------------------------------------------------------------
+    records.update(factorized_kernel_records(factorized))
+    fm_launches = {k: sum(r["launches"][k] for r in factorized.values()) for k in factorized["deepfm"]["launches"]}
+    for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
+        main_launches[k] += fm_launches[k]
+    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad"):
+        train_launches[k] += fm_launches[k]
+
     # --- kernels line and result ---------------------------------------------------
     meta = {
         "tiny_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:157", main_launches),
@@ -1995,6 +2262,10 @@ def main():
         "hash_pair": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:53", new_launches),
         "hash_pair_verify": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:611", new_launches),
         "difference_lag": ("difference_lag.cu", "nvtabular_tpu/ops/difference_lag.py:79", new_launches),
+        "fm_fwd": ("fm.cu", "nvtabular_tpu/models/deepfm.py:64", fm_launches),
+        "fm_bwd": ("fm.cu", "nvtabular_tpu/models/deepfm.py:64", fm_launches),
+        "cross_fwd": ("cross.cu", "nvtabular_tpu/models/deepfm.py:134", fm_launches),
+        "cross_bwd": ("cross.cu", "nvtabular_tpu/models/deepfm.py:134", fm_launches),
     }
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
@@ -2042,6 +2313,7 @@ def main():
                     "crossed": crossed,
                     "sessions": sessions,
                     "buckets": buckets,
+                    "factorized": factorized,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

@@ -31,8 +31,19 @@ DLRM parameters travel as the JAX package's pytree of numpy arrays,
     {"tables": {col: [V, D]}, "mh_tables": {col: [V, D]},
      "mlp": [{"w": [in, out], "b": [out]}, ...]}
 
-(``load_tabular_mlp_params`` / ``tabular_mlp_params``). Nothing here
-imports the JAX package.
+(``load_tabular_mlp_params`` / ``tabular_mlp_params``), DeepFM parameters as
+
+    {"tables": {col: [V, D]}, "linear": {col: [V]}, "dense_w": [num_dense],
+     "deep": [{"w", "b"}, ...], "bias": []}
+
+(``load_deepfm_params`` / ``deepfm_params``) and DCN-v2 parameters as
+
+    {"tables": {col: [V, D]}, "cross": [{"w": [N, N], "b": [N]}, ...],
+     "deep": [...], "out": [...]}
+
+(``load_dcn_params`` / ``dcn_params``); the port concatenates each of
+``tables`` and ``linear`` into one parameter in sorted column order. Nothing
+here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -146,6 +157,13 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
     return state
 
 
+def _concatenated(model, param, per_column, what="tables"):
+    """(param, the per-column arrays concatenated in the model's column order)."""
+    if sorted(per_column) != model.names:
+        raise ValueError(f"{what} {sorted(per_column)} do not match the model's {model.names}")
+    return [(param, np.concatenate([np.asarray(per_column[n]) for n in model.names]))]
+
+
 def _dlrm_tensors(model, tree):
     """(parameter, numpy value) pairs of ``model`` for a pytree in the
     format above; the tables are concatenated in sorted column order."""
@@ -153,10 +171,7 @@ def _dlrm_tensors(model, tree):
         raise NotImplementedError(
             "DLRM multihot tables are not ported yet (ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
         )
-    tables = tree["tables"]
-    if sorted(tables) != model.names:
-        raise ValueError(f"tables {sorted(tables)} do not match the model's {model.names}")
-    pairs = [(model.table, np.concatenate([np.asarray(tables[n]) for n in model.names]))]
+    pairs = _concatenated(model, model.table, tree["tables"])
     for mlp, layers in ((model.bottom, tree["bottom"]), (model.top, tree["top"])):
         pairs += _mlp_tensors(mlp, layers)
     return pairs
@@ -182,6 +197,21 @@ def _tabular_tensors(model, tree):
     pairs = [(p, np.asarray(tables[n])) for p, n in zip(model.tables, model.names)]
     pairs += [(p, np.asarray(mh[n])) for p, n in zip(model.mh_tables, model.mh_names)]
     return pairs + _mlp_tensors(model.mlp, tree["mlp"])
+
+
+def _deepfm_tensors(model, tree):
+    pairs = _concatenated(model, model.table, tree["tables"]) + _concatenated(model, model.linear, tree["linear"], "linear")
+    pairs += [(model.dense_w, np.asarray(tree["dense_w"])), (model.bias, np.asarray(tree["bias"]))]
+    return pairs + _mlp_tensors(model.deep, tree["deep"])
+
+
+def _dcn_tensors(model, tree):
+    if len(tree["cross"]) != len(model.cross.weights):
+        raise ValueError(f"{len(tree['cross'])} cross layers given, the model has {len(model.cross.weights)}")
+    pairs = _concatenated(model, model.table, tree["tables"])
+    for w, b, layer in zip(model.cross.weights, model.cross.biases, tree["cross"]):
+        pairs += [(w, np.asarray(layer["w"])), (b, np.asarray(layer["b"]))]
+    return pairs + _mlp_tensors(model.deep, tree["deep"]) + _mlp_tensors(model.out, tree["out"])
 
 
 @torch.no_grad()
@@ -212,28 +242,67 @@ def load_tabular_mlp_params(model, params: Dict[str, Any], optimizer=None,
     _load(_tabular_tensors(model, params), optimizer, sos)
 
 
+def load_deepfm_params(model, params: Dict[str, Any], optimizer=None,
+                       sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
+    """Set the port's ``DeepFM`` to the JAX parameter pytree ``params``
+    (numpy arrays) and, when given, ``optimizer``'s accumulators to optax's
+    ``sum_of_squares`` pytree of the same structure."""
+    sos = [] if sum_of_squares is None else _deepfm_tensors(model, sum_of_squares)
+    _load(_deepfm_tensors(model, params), optimizer, sos)
+
+
+def load_dcn_params(model, params: Dict[str, Any], optimizer=None,
+                    sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
+    """Set the port's ``DCN`` to the JAX parameter pytree ``params`` (numpy
+    arrays) and, when given, ``optimizer``'s accumulators to optax's
+    ``sum_of_squares`` pytree of the same structure."""
+    sos = [] if sum_of_squares is None else _dcn_tensors(model, sum_of_squares)
+    _load(_dcn_tensors(model, params), optimizer, sos)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _mlp_params(mlp):
+    return [{"w": _host(w), "b": _host(b)} for w, b in zip(mlp.weights, mlp.biases)]
+
+
+def deepfm_params(model) -> Dict[str, Any]:
+    """The port's ``DeepFM`` parameters as the JAX pytree of numpy arrays."""
+    return {
+        "tables": {n: _host(model.table_rows(n)) for n in model.names},
+        "linear": {n: _host(model.linear[o : o + s]) for n, o, s in zip(model.names, model.offsets, model.sizes)},
+        "dense_w": _host(model.dense_w),
+        "deep": _mlp_params(model.deep),
+        "bias": _host(model.bias),
+    }
+
+
+def dcn_params(model) -> Dict[str, Any]:
+    """The port's ``DCN`` parameters as the JAX pytree of numpy arrays."""
+    return {
+        "tables": {n: _host(model.table_rows(n)) for n in model.names},
+        "cross": [{"w": _host(w), "b": _host(b)} for w, b in zip(model.cross.weights, model.cross.biases)],
+        "deep": _mlp_params(model.deep),
+        "out": _mlp_params(model.out),
+    }
+
+
 def dlrm_params(model) -> Dict[str, Any]:
     """The port's ``DLRM`` parameters as the JAX pytree of numpy arrays."""
-
-    def host(t):
-        return t.detach().cpu().numpy()
-
     return {
-        "tables": {n: host(model.table_rows(n)) for n in model.names},
+        "tables": {n: _host(model.table_rows(n)) for n in model.names},
         "mh_tables": {},
-        "bottom": [{"w": host(w), "b": host(b)} for w, b in zip(model.bottom.weights, model.bottom.biases)],
-        "top": [{"w": host(w), "b": host(b)} for w, b in zip(model.top.weights, model.top.biases)],
+        "bottom": _mlp_params(model.bottom),
+        "top": _mlp_params(model.top),
     }
 
 
 def tabular_mlp_params(model) -> Dict[str, Any]:
     """The port's ``TabularMLP`` parameters as the JAX pytree of numpy arrays."""
-
-    def host(t):
-        return t.detach().cpu().numpy()
-
     return {
-        "tables": {n: host(p) for n, p in zip(model.names, model.tables)},
-        "mh_tables": {n: host(p) for n, p in zip(model.mh_names, model.mh_tables)},
-        "mlp": [{"w": host(w), "b": host(b)} for w, b in zip(model.mlp.weights, model.mlp.biases)],
+        "tables": {n: _host(p) for n, p in zip(model.names, model.tables)},
+        "mh_tables": {n: _host(p) for n, p in zip(model.mh_names, model.mh_tables)},
+        "mlp": _mlp_params(model.mlp),
     }

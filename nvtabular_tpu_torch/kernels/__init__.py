@@ -38,6 +38,10 @@ LAUNCHES: Dict[str, int] = {
     "hash_pair_verify": 0,
     "hash_lanes": 0,
     "difference_lag": 0,
+    "fm_fwd": 0,
+    "fm_bwd": 0,
+    "cross_fwd": 0,
+    "cross_bwd": 0,
 }
 
 
@@ -69,6 +73,15 @@ def check(t: Optional[torch.Tensor], what: str, dtype, device, shape=None, optio
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def check_rows(t: torch.Tensor, what: str, shape, device) -> None:
+    """A float32 [B, W] view whose rows may be strided (a slot of a wider
+    buffer) but whose W floats are contiguous."""
+    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected float32 {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if shape[0] and shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{what}: each row's floats must be contiguous, strides {t.stride()}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -36,6 +36,8 @@ SOURCES = {
     "embedding_bag": _PKG / "csrc" / "embedding_bag.cu",
     "hash_pair": _PKG / "csrc" / "hash_pair.cu",
     "difference_lag": _PKG / "csrc" / "difference_lag.cu",
+    "fm": _PKG / "csrc" / "fm.cu",
+    "cross": _PKG / "csrc" / "cross.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

@@ -48,7 +48,7 @@ def _check_columns(table: torch.Tensor, ids: Sequence[torch.Tensor], offsets, si
     return B
 
 
-def _check_view(t: torch.Tensor, what: str, shape: Tuple[int, ...], device) -> None:
+def check_view(t: torch.Tensor, what: str, shape: Tuple[int, ...], device) -> None:
     """A float32 [B, C, D] view whose rows may be strided (slots of a wider
     buffer) but whose [C, D] block is contiguous."""
     if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape):
@@ -63,7 +63,7 @@ def _vec(D: int, *tensors: torch.Tensor) -> int:
     return 4 if D % 4 == 0 and aligned else 1
 
 
-def _c_columns(ids, offsets, sizes):
+def c_columns(ids, offsets, sizes):
     k = len(ids)
     return (
         (ctypes.c_void_p * k)(*[v.data_ptr() for v in ids]),
@@ -93,7 +93,7 @@ def embedding_gather(
     C, D = len(ids), table.shape[1]
     if out is None:
         out = torch.empty((B, C, D), dtype=torch.float32, device=table.device)
-    _check_view(out, "out", (B, C, D), table.device)
+    check_view(out, "out", (B, C, D), table.device)
     if not use_kernel(table):
         out.copy_(embedding_gather_plain(table, ids, offsets, sizes))
         return out
@@ -104,7 +104,7 @@ def embedding_gather(
     if fn.argtypes is None:
         fn.argtypes = _GATHER_ARGTYPES
         fn.restype = ctypes.c_int
-    c_ids, c_offs, c_sizes = _c_columns(ids, offsets, sizes)
+    c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(table), D, B, ptr(out), out.stride(0),
             _vec(D, table, out), stream_ptr(table.device))
     raise_on_error(rc, "embedding_gather")
@@ -132,7 +132,7 @@ def embedding_scatter_grad(
         check(v, f"ids[{c}]", torch.int32, dev, (B,))
         if off < 0 or size < 0 or off + size > num_rows:
             raise ValueError(f"column {c}: rows [{off}, {off + size}) outside the table's {num_rows}")
-    _check_view(grad, "grad", (B, C, D), dev)
+    check_view(grad, "grad", (B, C, D), dev)
     if not use_kernel(grad):
         return embedding_scatter_grad_plain(grad, ids, offsets, sizes, num_rows)
     _check_kernel_limits(B, C, D)
@@ -143,7 +143,7 @@ def embedding_scatter_grad(
     if fn.argtypes is None:
         fn.argtypes = _SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
-    c_ids, c_offs, c_sizes = _c_columns(ids, offsets, sizes)
+    c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
             _vec(D, grad, dtable), stream_ptr(dev))
     raise_on_error(rc, "embedding_scatter_grad")
@@ -206,3 +206,42 @@ class EmbeddingFeatures(torch.autograd.Function):
 
 def embedding_features(lead, table, ids, offsets, sizes) -> torch.Tensor:
     return EmbeddingFeatures.apply(lead, table, tuple(offsets), tuple(sizes), *ids)
+
+
+class EmbeddingRow(torch.autograd.Function):
+    """``[table rows of column 0, ..., column C-1, trail]`` → float32
+    [B, C*D + W]: each row's gathered fields flattened into its first C*D
+    columns, then an optional trailing [B, W] block (the dense features),
+    as DeepFM's and DCN's ``jnp.concatenate`` of their features
+    (nvtabular_tpu/models/deepfm.py:71, :123). The gather writes into the
+    buffer through its [B, C, D] view (row stride C*D + W); the backward
+    hands the table the scatter-add of the same view of the gradient and the
+    trail its slice."""
+
+    @staticmethod
+    def forward(ctx, trail, table, offsets, sizes, *ids):
+        B, C, D = ids[0].shape[0], len(ids), table.shape[1]
+        W = 0 if trail is None else trail.shape[1]
+        x = torch.empty((B, C * D + W), dtype=torch.float32, device=table.device)
+        embedding_gather(table, ids, offsets, sizes, out=x[:, : C * D].unflatten(1, (C, D)))
+        if W:
+            x[:, C * D :].copy_(trail)
+        ctx.save_for_backward(*ids)
+        ctx.meta = (D, tuple(offsets), tuple(sizes), table.shape[0])
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        D, offsets, sizes, num_rows = ctx.meta
+        ids = ctx.saved_tensors
+        CD = len(ids) * D
+        grad = grad.contiguous()
+        d_trail = grad[:, CD:] if ctx.needs_input_grad[0] else None
+        d_table = None
+        if ctx.needs_input_grad[1]:
+            d_table = embedding_scatter_grad(grad[:, :CD].unflatten(1, (len(ids), D)), ids, offsets, sizes, num_rows)
+        return (d_trail, d_table, None, None) + (None,) * len(ids)
+
+
+def embedding_row(table, ids, offsets, sizes, trail=None) -> torch.Tensor:
+    return EmbeddingRow.apply(trail, table, tuple(offsets), tuple(sizes), *ids)

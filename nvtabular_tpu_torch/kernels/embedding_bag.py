@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
+from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 from .embedding import _vec  # float4 accesses where rows are 16-byte aligned
 
@@ -44,15 +44,6 @@ def _check_bag(values: torch.Tensor, mask: torch.Tensor, combiner: str, device) 
     return values.shape
 
 
-def _check_rows(t: torch.Tensor, what: str, shape, device) -> None:
-    """A float32 [B, D] view whose rows may be strided (a slot of a wider
-    buffer) but whose D floats are contiguous."""
-    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: expected float32 {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if shape[0] and shape[1] > 1 and t.stride(1) != 1:
-        raise ValueError(f"{what}: each row's floats must be contiguous, strides {t.stride()}")
-
-
 def _check_limits(B: int, L: int, D: int) -> None:
     if B * L * D >= 2**31:
         raise ValueError(f"[{B}, {L}, {D}] exceeds the embedding bag kernels' int32 index")
@@ -69,7 +60,7 @@ def embedding_bag_fwd(table: torch.Tensor, values: torch.Tensor, mask: torch.Ten
     V, D = table.shape
     if out is None:
         out = torch.empty((B, D), dtype=torch.float32, device=table.device)
-    _check_rows(out, "out", (B, D), table.device)
+    check_rows(out, "out", (B, D), table.device)
     if not use_kernel(table):
         out.copy_(embedding_bag_fwd_plain(table, values, mask, combiner))
         return out
@@ -96,7 +87,7 @@ def embedding_bag_bwd(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tens
         raise ValueError(f"grad must be [B, D], got shape {tuple(grad.shape)}")
     B, L = _check_bag(values, mask, combiner, grad.device)
     D = grad.shape[1]
-    _check_rows(grad, "grad", (B, D), grad.device)
+    check_rows(grad, "grad", (B, D), grad.device)
     if not use_kernel(grad):
         return embedding_bag_bwd_plain(grad, values, mask, num_rows, combiner)
     _check_limits(B, L, D)

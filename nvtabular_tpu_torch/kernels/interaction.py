@@ -14,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
+from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
 SMEM_LIMIT = 48 * 1024  # static-launch shared memory, no opt-in attribute
@@ -42,14 +42,6 @@ def _samples_per_block(F: int, D: int, backward: bool) -> int:
     return min(MAX_SAMPLES_PER_BLOCK, SMEM_LIMIT // per_sample)
 
 
-def _check_rows(t: torch.Tensor, what: str, shape, device) -> None:
-    """float32 [B, P] whose rows may be strided (a slice of a wider buffer)."""
-    if t.dtype != torch.float32 or t.device != device or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: expected float32 {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if shape[0] and shape[1] and t.stride(1) != 1:
-        raise ValueError(f"{what}: each row must be contiguous, strides {t.stride()}")
-
-
 def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """float32 [B, F, D] → [B, P]. ``out`` may be a column slice of a wider
     [B, W] buffer (rows strided, each row contiguous)."""
@@ -60,7 +52,7 @@ def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torc
     P = num_pairs(F)
     if out is None:
         out = torch.empty((B, P), dtype=torch.float32, device=x.device)
-    _check_rows(out, "out", (B, P), x.device)
+    check_rows(out, "out", (B, P), x.device)
     if not use_kernel(x):
         out.copy_(interaction_fwd_plain(x))
         return out
@@ -85,7 +77,7 @@ def interaction_bwd(x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     B, F, D = x.shape
     check(x, "x", torch.float32, x.device)
     P = num_pairs(F)
-    _check_rows(grad, "grad", (B, P), x.device)
+    check_rows(grad, "grad", (B, P), x.device)
     if not use_kernel(x):
         return interaction_bwd_plain(x, grad)
     if B == 0 or P == 0:

@@ -1,10 +1,20 @@
-"""Model side (counterpart of nvtabular_tpu/models/): DLRM, the tabular MLP
-and their training.
+"""Model side (counterpart of nvtabular_tpu/models/): DLRM, DeepFM, DCN-v2,
+the tabular MLP and their training. Each model is an ``nn.Module`` with a
+loss function ``*_loss(model, batch)`` that ``train_step`` and
+``train_chunk`` take, and a reference forward through the kernels' plain
+versions."""
 
-DeepFM and DCN-v2 are not ported yet (ROADMAP.md queue 1 item 9); their
-entry points raise.
-"""
-
+from .deepfm import (
+    DCN,
+    CrossNetwork,
+    DCNConfig,
+    DeepFM,
+    DeepFMConfig,
+    dcn_loss,
+    dcn_reference_forward,
+    deepfm_loss,
+    deepfm_reference_forward,
+)
 from .dlrm import DLRM, DLRMConfig, dlrm_loss, make_synthetic_batch, reference_forward
 from .layers import (
     MLP,
@@ -17,25 +27,23 @@ from .layers import (
 from .tabular_mlp import TabularMLP, TabularMLPConfig, tabular_mlp_loss, tabular_reference_forward
 from .training import Adagrad, process_epoch, roc_auc, train_chunk, train_step
 
-
-def _not_ported(*args, **kwargs):
-    raise NotImplementedError("DeepFM and DCN-v2 are not ported yet (ROADMAP.md queue 1 item 9)")
-
-
-deepfm_init = deepfm_forward = dcn_init = dcn_forward = _not_ported
-
 __all__ = [
     "Adagrad",
+    "CrossNetwork",
+    "DCN",
+    "DCNConfig",
     "DLRM",
     "DLRMConfig",
+    "DeepFM",
+    "DeepFMConfig",
     "MLP",
     "TabularMLP",
     "TabularMLPConfig",
     "bce_with_logits",
-    "dcn_forward",
-    "dcn_init",
-    "deepfm_forward",
-    "deepfm_init",
+    "dcn_loss",
+    "dcn_reference_forward",
+    "deepfm_loss",
+    "deepfm_reference_forward",
     "dlrm_loss",
     "dot_product_interaction",
     "embedding_lookup",

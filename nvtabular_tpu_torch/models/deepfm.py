@@ -1,0 +1,213 @@
+"""DeepFM and DCN-v2: the counterpart of ``nvtabular_tpu/models/deepfm.py``.
+
+Both read DLRM's batch (``dense`` float32 [B, num_dense], one int32 [B]
+code tensor per categorical column, ``label``) and keep their embedding
+tables in one concatenated float32 ``[sum V, D]`` parameter in sorted
+column order, as ``DLRM`` does. Their features are one [B, F*D + num_dense]
+row: kernel K13a gathers the F tables straight into its first F*D columns
+and the dense features fill the rest (``embedding_row``), the JAX forwards'
+``jnp.concatenate``.
+
+* ``DeepFM`` (Guo et al. 2017): that row is the deep tower's input; its
+  [B, F, D] view and dense block are the input of kernel K16, the FM's
+  first- and second-order terms (``kernels/fm.py``), whose first-order
+  weights of every table live in one [sum V] parameter ``linear``.
+* ``DCN`` (DCN-v2, Wang et al. 2021): the row is x0; each cross layer is
+  ``x0 * (bf16(x) @ bf16(W) + b) + x``, the product a plain ``torch.matmul``
+  of bfloat16-rounded float32 values (``MLP``'s numerics) and the rest
+  kernel K17 (``kernels/cross.py``); the deep tower reads x0, and the
+  output layer the cross output and the tower's side by side.
+
+``compute_dtype`` (bfloat16 by default, as the JAX code) covers the MLPs
+and the cross products. ``vocab_pad_multiple > 1`` (row-sharded tables) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.cross import cross_fwd_plain, cross_layer
+from ..kernels.embedding import embedding_gather_plain, embedding_row
+from ..kernels.fm import fm_fwd_plain, fm_terms
+from ..workflow.workflow import resolve_device
+from .layers import MLP, _round_to, bce_with_logits
+
+
+class _TableConfig:
+    """What both configs share: the padded vocabulary size and the width
+    of the feature row (the gathered fields, then the dense features)."""
+
+    def padded_cardinality(self, n: int) -> int:
+        m = self.vocab_pad_multiple
+        return ((n + m - 1) // m) * m
+
+    @property
+    def input_dim(self) -> int:
+        return len(self.cardinalities) * self.embedding_dim + self.num_dense
+
+
+@dataclass
+class DeepFMConfig(_TableConfig):
+    cardinalities: Dict[str, int]
+    num_dense: int
+    embedding_dim: int = 16
+    deep_mlp: Tuple[int, ...] = (256, 128)
+    vocab_pad_multiple: int = 1
+
+
+@dataclass
+class DCNConfig(_TableConfig):
+    cardinalities: Dict[str, int]
+    num_dense: int
+    embedding_dim: int = 16
+    num_cross_layers: int = 3
+    deep_mlp: Tuple[int, ...] = (256, 128)
+    vocab_pad_multiple: int = 1
+
+
+class _Tables(nn.Module):
+    """The concatenated embedding tables and the feature row of a batch."""
+
+    def _init_tables(self, config, seed, device) -> torch.Generator:
+        if config.vocab_pad_multiple != 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} with vocab_pad_multiple > 1 (row-sharded tables) is not ported yet "
+                "(ROADMAP.md queue 1 item 10)"
+            )
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        d = config.embedding_dim
+        self.config = config
+        self.names = sorted(config.cardinalities)
+        self.sizes = [int(config.cardinalities[n]) for n in self.names]
+        self.offsets = [int(o) for o in np.concatenate([[0], np.cumsum(self.sizes)[:-1]])] if self.sizes else []
+        rows = sum(self.sizes)
+        self.table = nn.Parameter(torch.randn((rows, d), generator=gen, device=dev).mul_(1.0 / math.sqrt(d)))
+        return gen
+
+    def table_rows(self, name: str) -> torch.Tensor:
+        """The rows of column ``name``'s table: a view of ``self.table``."""
+        i = self.names.index(name)
+        return self.table[self.offsets[i] : self.offsets[i] + self.sizes[i]]
+
+    def ids(self, batch):
+        return [batch[name] for name in self.names]
+
+    def features(self, batch) -> torch.Tensor:
+        """[B, F*D + num_dense]: the gathered fields, then the dense features."""
+        dense = batch["dense"].to(torch.float32)
+        return embedding_row(self.table, self.ids(batch), self.offsets, self.sizes, dense)
+
+    def reference_features(self, batch) -> torch.Tensor:
+        """The same row through K13a's plain version and ``torch.cat``."""
+        emb = embedding_gather_plain(self.table, self.ids(batch), self.offsets, self.sizes)
+        return torch.cat([emb.flatten(1), batch["dense"].to(torch.float32)], dim=1)
+
+
+class DeepFM(_Tables):
+    """``forward(batch)`` is ``deepfm_forward``: logits [B]. Parameters are
+    drawn on ``device`` (``cuda:0`` unless the caller passes another) from a
+    ``torch.Generator`` seeded with ``seed``, with ``deepfm_init``'s
+    distributions: tables ``N(0, 1) / sqrt(D)``, ``linear`` zeros,
+    ``dense_w`` ``N(0, 1) * 0.01``, the deep tower He normal, ``bias`` 0."""
+
+    def __init__(self, config: DeepFMConfig, seed: int = 0, device=None, compute_dtype=torch.bfloat16):
+        super().__init__()
+        gen = self._init_tables(config, seed, device)
+        dev = self.table.device
+        self.linear = nn.Parameter(torch.zeros(self.table.shape[0], device=dev))
+        self.dense_w = nn.Parameter(torch.randn(config.num_dense, generator=gen, device=dev).mul_(0.01))
+        self.deep = MLP(
+            [config.input_dim, *config.deep_mlp, 1], compute_dtype=compute_dtype, generator=gen, device=dev,
+        )
+        self.bias = nn.Parameter(torch.zeros((), device=dev))
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = self.features(batch)
+        fm = fm_terms(x, self.linear, self.dense_w, self.ids(batch), self.offsets, self.sizes,
+                      self.config.embedding_dim)
+        return fm + self.deep(x).reshape(-1) + self.bias
+
+
+def deepfm_reference_forward(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``model``'s forward through the plain versions of K13a and K16, with
+    autograd through plain PyTorch operations, on any device: what the
+    kernel path is held against on the card."""
+    x = model.reference_features(batch)
+    FD = len(model.names) * model.config.embedding_dim
+    v, dense = x[:, :FD].unflatten(1, (len(model.names), model.config.embedding_dim)), x[:, FD:]
+    fm = fm_fwd_plain(v, dense, model.ids(batch), model.offsets, model.sizes, model.linear, model.dense_w)
+    return fm + model.deep(x).reshape(-1) + model.bias
+
+
+def deepfm_loss(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return bce_with_logits(model(batch), batch["label"])
+
+
+class CrossNetwork(nn.Module):
+    """The DCN-v2 cross stack: ``num_layers`` layers of W [N, N] (init
+    ``N(0, 1) / sqrt(N)``) and b [N] (zeros). Each product multiplies the
+    ``compute_dtype``-rounded x and W as float32 tensors (TF32 off), as
+    ``MLP`` does, giving JAX's ``preferred_element_type=float32`` result;
+    autograd of the casts rounds the gradients where JAX's transposes round."""
+
+    def __init__(self, dim: int, num_layers: int, compute_dtype=torch.bfloat16, generator=None, device=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weights = nn.ParameterList(
+            nn.Parameter(torch.randn((dim, dim), generator=generator, device=device).mul_(1.0 / math.sqrt(dim)))
+            for _ in range(num_layers)
+        )
+        self.biases = nn.ParameterList(nn.Parameter(torch.zeros(dim, device=device)) for _ in range(num_layers))
+
+    def forward(self, x0: torch.Tensor, epilogue=cross_layer) -> torch.Tensor:
+        x = x0
+        for w, b in zip(self.weights, self.biases):
+            xw = _round_to(x, self.compute_dtype) @ _round_to(w, self.compute_dtype)
+            x = epilogue(xw, b, x0, x)
+        return x
+
+
+class DCN(_Tables):
+    """``forward(batch)`` is ``dcn_forward``: logits [B]. Parameters are
+    drawn as in ``DeepFM`` with ``dcn_init``'s distributions: tables
+    ``N(0, 1) / sqrt(D)``, the cross layers as ``CrossNetwork`` says, the
+    deep tower and the output layer He normal."""
+
+    def __init__(self, config: DCNConfig, seed: int = 0, device=None, compute_dtype=torch.bfloat16):
+        super().__init__()
+        gen = self._init_tables(config, seed, device)
+        dev = self.table.device
+        dim = config.input_dim
+        self.cross = CrossNetwork(dim, config.num_cross_layers, compute_dtype, generator=gen, device=dev)
+        self.deep = MLP(
+            [dim, *config.deep_mlp], final_activation=True, compute_dtype=compute_dtype, generator=gen, device=dev,
+        )
+        out_in = dim + (config.deep_mlp[-1] if config.deep_mlp else 0)
+        self.out = MLP([out_in, 1], compute_dtype=compute_dtype, generator=gen, device=dev)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x0 = self.features(batch)
+        return self._head(x0, self.cross(x0))
+
+    def _head(self, x0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return self.out(torch.cat([x, self.deep(x0)], dim=1)).reshape(-1)
+
+
+def dcn_reference_forward(model: DCN, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``model``'s forward through the plain versions of K13a and K17, with
+    autograd through plain PyTorch operations, on any device."""
+    x0 = model.reference_features(batch)
+    return model._head(x0, model.cross(x0, epilogue=cross_fwd_plain))
+
+
+def dcn_loss(model: DCN, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return bce_with_logits(model(batch), batch["label"])

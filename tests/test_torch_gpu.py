@@ -15,9 +15,11 @@ import nvtabular_tpu_torch as nvt
 from nvtabular_tpu_torch import kernels, models, ops
 from nvtabular_tpu_torch.kernels import bucketize as kbkt
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
+from nvtabular_tpu_torch.kernels import cross as kcross
 from nvtabular_tpu_torch.kernels import difference_lag as kdl
 from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+from nvtabular_tpu_torch.kernels import fm as kfm
 from nvtabular_tpu_torch.kernels import groupby as kgb
 from nvtabular_tpu_torch.kernels import hash as khash
 from nvtabular_tpu_torch.kernels import hash_pair as khp
@@ -826,7 +828,7 @@ def no_plain_on_cuda(monkeypatch):
     the path under test must launch the kernels."""
     import nvtabular_tpu_torch.kernels as kpkg
 
-    mods = [kbkt, kcc, kdl, kemb, kbag, kgb, khash, khp, kint, kperm, kragged]
+    mods = [kbkt, kcc, kcross, kdl, kemb, kbag, kfm, kgb, khash, khp, kint, kperm, kragged]
     from nvtabular_tpu_torch.kernels import lookup as klookup
 
     mods.append(klookup)
@@ -1063,3 +1065,162 @@ def test_buckets_workflow_on_cuda_matches_cpu_and_counts_launches(no_plain_on_cu
     for name in ["C0", "C9", "C19"] + floats:  # the long tails miss the vocabulary
         codes = ref[name].values
         assert ((codes >= 2) & (codes < 1002)).any(), name
+
+
+def _fm_case(g, B, F, D, nd, out_of_range):
+    sizes = [int(v) for v in torch.randint(1, 5000, (F,), generator=g)]
+    offsets = [0]
+    for v in sizes[:-1]:
+        offsets.append(offsets[-1] + v)
+    ids = _columns(g, B, sizes, False)
+    if out_of_range:  # in every other column, column 0 included
+        for c in range(0, F, 2):
+            v = sizes[c]
+            ids[c][:6] = torch.tensor([v, v + 5, -1, -v, -v - 1, 2**31 - 1], dtype=torch.int32)
+    return sizes, offsets, ids, torch.randn(sum(sizes), generator=g), torch.randn(nd, generator=g)
+
+
+def _wide(t, pad, device="cpu"):
+    """``t`` [B, ...] copied into the first columns of a [B, width + pad]
+    buffer on ``device``: a strided view, each row contiguous."""
+    B = t.shape[0]
+    flat = t.reshape(B, -1)
+    buf = torch.zeros((B, flat.shape[1] + pad), device=device)
+    buf[:, : flat.shape[1]] = flat.to(device)
+    return buf[:, : flat.shape[1]].unflatten(1, t.shape[1:]) if t.dim() > 2 else buf[:, : flat.shape[1]]
+
+
+@pytest.mark.parametrize(
+    "B,F,D,strided,out_of_range",
+    [(65_537, 26, 16, True, False), (1001, 26, 8, False, True), (1001, 1, 16, True, True), (4099, 1, 8, False, False),
+     (1001, 5, 6, True, True)],
+    ids=["criteo_strided", "d8_out_of_range", "one_field", "one_field_d8", "d6_generic"],
+)
+def test_fm_kernels_match_plain(B, F, D, strided, out_of_range):
+    """K16 against its plain versions. Forward: 1e-5 of the sum of its
+    terms' magnitudes (sum_d (s_d^2 + sum_f v_fd^2), the linear weights and
+    the dense products), NaN where an id is out of range. Backward: dv =
+    g (s - v) within 1e-5 of |g| sum_f |v_fd|; ddense = g w exact; the
+    linear scatter and the dense_w column sums in a varying order, within
+    1e-5 of the sums of their terms' magnitudes."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(11)
+    nd = 13
+    sizes, offsets, ids, linear, dense_w = _fm_case(gen, B, F, D, nd, out_of_range)
+    v, dense, g = torch.randn((B, F, D), generator=gen), torch.randn((B, nd), generator=gen), torch.randn(B, generator=gen)
+    want = kfm.fm_fwd(v, dense, ids, offsets, sizes, linear, dense_w)
+    want_b = kfm.fm_bwd(v, dense, ids, offsets, sizes, dense_w, g, linear.shape[0])
+    pad = 5 if strided else 0
+    vc, dc = (_wide(v, pad, "cuda"), _wide(dense, pad, "cuda")) if strided else (v.cuda(), dense.cuda())
+    cids = [i.cuda() for i in ids]
+    dvbuf = torch.full((B, F * D + nd + 2), 7.0, device="cuda")
+    kernels.reset_launches()
+    got = kfm.fm_fwd(vc, dc, cids, offsets, sizes, linear.cuda(), dense_w.cuda())
+    dv, ddense, dlinear, ddense_w = kfm.fm_bwd(
+        vc, dc, cids, offsets, sizes, dense_w.cuda(), g.cuda(), linear.shape[0],
+        dv_out=dvbuf[:, : F * D].unflatten(1, (F, D)), ddense_out=dvbuf[:, F * D : F * D + nd],
+    )
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_fwd"] == 1 and kernels.LAUNCHES["fm_bwd"] == 1
+    s, q = v.sum(1), (v * v).sum(1)
+    rows, valid = kemb.table_rows(ids, offsets, sizes)
+    scale = (s * s + q).sum(1) + torch.where(valid, linear[rows].abs(), 0.0).sum(1) + (dense * dense_w).abs().sum(1)
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(want).any()) == out_of_range
+    ok = ~torch.isnan(want)
+    assert bool(((got - want).abs()[ok] <= 1e-5 * scale[ok] + 1e-6).all())
+    ga = g.abs()
+    assert bool(((dv.cpu() - want_b[0]).abs() <= 1e-5 * ga[:, None, None] * v.abs().sum(1, keepdim=True) + 1e-6).all())
+    assert torch.equal(ddense.cpu(), want_b[1])
+    assert bool((dvbuf[:, F * D + nd :] == 7.0).all())  # the buffer's other columns untouched
+    mag = kfm.fm_bwd_plain(v, dense.abs(), ids, offsets, sizes, dense_w, ga, linear.shape[0])
+    assert bool(((dlinear.cpu() - want_b[2]).abs() <= 1e-5 * mag[2] + 1e-6).all())
+    assert bool(((ddense_w.cpu() - want_b[3]).abs() <= 1e-5 * mag[3] + 1e-6).all())
+
+
+@pytest.mark.parametrize("B,N,strided", [(65_537, 429, True), (1001, 29, False), (5, 1, False)])
+def test_cross_kernels_match_plain(B, N, strided):
+    """K17 against its plain versions: the forward and the elementwise
+    gradients are the same rounded operations, bit-equal; db sums B
+    products in a varying order, within 1e-5 of the sum of their
+    magnitudes."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(12)
+    xw, x0, x, g = (torch.randn((B, N), generator=gen) for _ in range(4))
+    b = torch.randn(N, generator=gen)
+    want = kcross.cross_fwd(xw, b, x0, x)
+    want_dxw, want_dx0, want_db = kcross.cross_bwd(g, xw, b, x0)
+    cuda = (lambda a: _wide(a, 3, "cuda")) if strided else (lambda a: a.cuda())
+    xwc, x0c, xc, gc = cuda(xw), cuda(x0), cuda(x), cuda(g)
+    kernels.reset_launches()
+    got = kcross.cross_fwd(xwc, b.cuda(), x0c, xc)
+    dxw, dx0, db = kcross.cross_bwd(gc, xwc, b.cuda(), x0c)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cross_fwd"] == 1 and kernels.LAUNCHES["cross_bwd"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(dxw.cpu(), want_dxw) and torch.equal(dx0.cpu(), want_dx0)
+    assert bool(((db.cpu() - want_db).abs() <= 1e-5 * (g * x0).abs().sum(0) + 1e-6).all())
+
+
+def test_fm_and_cross_kernels_take_empty_inputs_and_the_current_stream():
+    _require_cuda()
+    kernels.reset_launches()
+    z = torch.zeros((0, 2, 8), device="cuda")
+    ids = [torch.zeros(0, dtype=torch.int32, device="cuda")] * 2
+    lin, w = torch.zeros(6, device="cuda"), torch.zeros(3, device="cuda")
+    dense = torch.zeros((0, 3), device="cuda")
+    assert kfm.fm_fwd(z, dense, ids, [0, 3], [3, 3], lin, w).shape == (0,)
+    _, _, dlinear, dw = kfm.fm_bwd(z, dense, ids, [0, 3], [3, 3], w, torch.zeros(0, device="cuda"), 6)
+    assert dlinear.shape == (6,) and float(dlinear.abs().sum()) == 0.0 and dw.shape == (3,)
+    e = torch.zeros((0, 7), device="cuda")
+    assert kcross.cross_fwd(e, torch.zeros(7, device="cuda"), e, e).shape == (0, 7)
+    assert sum(kernels.LAUNCHES.values()) == 0  # nothing to launch
+    gen = torch.Generator().manual_seed(13)
+    xw, x0 = torch.randn((3000, 45), generator=gen), torch.randn((3000, 45), generator=gen)
+    b = torch.randn(45, generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xwc, bc, x0c = xw.cuda(), b.cuda(), x0.cuda()
+        got = kcross.cross_fwd(xwc, bc, x0c, x0c)
+    side.synchronize()
+    assert torch.equal(got.cpu(), kcross.cross_fwd(xw, b, x0, x0))
+
+
+@pytest.mark.parametrize("family", ["deepfm", "dcn"])
+def test_deepfm_and_dcn_steps_through_kernels_match_plain_reference(family):
+    """One loss and gradient through the kernels against the reference
+    forward (the plain versions, autograd through PyTorch) on the card, in
+    float32 compute: only summation orders differ (rtol 1e-4 on the loss
+    and the logits; gradients within 1e-4 of their largest entry)."""
+    _require_cuda()
+    cards = {"a": 3, "b": 500, "c": 40_000}
+    if family == "deepfm":
+        model = models.DeepFM(models.DeepFMConfig(cards, num_dense=13), seed=1, compute_dtype=torch.float32)
+        reference, want = models.deepfm_reference_forward, {"fm_fwd": 1, "fm_bwd": 1}
+    else:
+        model = models.DCN(models.DCNConfig(cards, num_dense=13), seed=1, compute_dtype=torch.float32)
+        reference, want = models.dcn_reference_forward, {"cross_fwd": 3, "cross_bwd": 3}
+    batch = {
+        k: torch.from_numpy(v).cuda()
+        for k, v in models.make_synthetic_batch(models.DLRMConfig(cards, num_dense=13), 4096, seed=2).items()
+    }
+    with torch.no_grad():  # a trained-looking state: every parameter nonzero
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3)) * 0.01)
+    kernels.reset_launches()
+    logits = model(batch)
+    loss = models.bce_with_logits(logits, batch["label"])
+    loss.backward()
+    torch.cuda.synchronize()
+    want |= {"embedding_gather": 1, "embedding_scatter_grad": 1}
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    ref_logits = reference(model, batch)
+    ref_loss = models.bce_with_logits(ref_logits, batch["label"])
+    ref_loss.backward()
+    torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
+    for (name, p), got in zip(model.named_parameters(), grads):
+        assert float((got - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max()), name

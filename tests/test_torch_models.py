@@ -334,12 +334,11 @@ def test_train_chunk_equals_train_steps():
             pmodels.DLRM(_config_pair()[1], device="cpu"), {"tables": {}, "mh_tables": {"m": np.zeros((4, 64))}}
         ),
         lambda: pmodels.xdeepfm_outer_product(None, None, None),
-        lambda: pmodels.deepfm_init(None, None),
         lambda: pmodels.dot_product_interaction(torch.zeros(2, 3, 4), self_interaction=True),
         lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, multihot_cardinalities={"m": 4}), device="cpu"),
         lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, vocab_pad_multiple=8), device="cpu"),
     ],
-    ids=["multihot", "xdeepfm", "deepfm", "self_interaction", "dlrm_multihot", "vocab_pad_multiple"],
+    ids=["multihot", "xdeepfm", "self_interaction", "dlrm_multihot", "vocab_pad_multiple"],
 )
 def test_unported_model_parts_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
