@@ -125,9 +125,25 @@ a nonzero exit:
 17. fm_fwd, fm_bwd, cross_fwd and cross_bwd at phase 16's shapes against
    their plain versions on the card (the FM output and the scatter and
    column sums within 1e-5 of their terms' magnitudes; the cross epilogue
-   and its elementwise gradients bit-equal), timed beside their bounds.
+   and its elementwise gradients bit-equal), timed beside their bounds;
+18. the multi-GPU fit on a one-rank NCCL group (one card): phase 3's
+   workflow fitted by Workflow(executor=TorchExecutor(mesh=local_mesh())),
+   its 26 columns counted through K15a (route, all_to_all, radix sort),
+   every vocabulary's SHA-256 equal to phase 3's, Normalize within
+   rtol=1e-6, batch 0's codes equal; sharded_embedding_lookup and
+   sharded_embedding_bag over phase 7's 26 tables (22,343,004 x 16) against
+   K13a's gather (bit-equal) and K13c's bag (SUM_TOL); sharded_moments of
+   the 13 LogOp outputs against float64 numpy (count, min, max exact; mean
+   and var within rtol=1e-5); launch counters zeroed before each entry
+   point and read after it;
+19. the K15 kernels against their plain versions on the card: K15a's route
+   at 1, 2, 4 and 8 owners on phase 3's two largest columns (bit-equal send
+   buffers and overflow), four ranks composed on the card (route, the
+   all_to_all's transpose, sort, run-length encode; the overflow retry on
+   the most skewed column) giving phase 18's counts; K15b on model shard 1
+   of 4; K15c on [262144, 13]; each timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 26 kernels'
+The line before the last is {"kernels": [...]} with the 31 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -137,12 +153,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib
 import json
 import math
+import os
+import pkgutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -178,6 +198,10 @@ ML_TOL = dict(rtol=1e-6, atol=1e-7)  # card vs CPU: TE and stat columns
 # the multihot path: its training feed (8 chunks of 7 full batches) and the
 # loader's padded length of genres (1-4 ids a row)
 MH_TRAIN_PARTS, MH_STEPS, MH_SPARSE_MAX = 8, 56, 4
+
+# phases 18-19: the multi-GPU fit's exchange capacity (sharded_vocab.py:48),
+# the ranks of phase 19's composition, and its row-sharded table's shards
+CAPACITY_FACTOR, COMPOSE_RANKS, MODEL_SHARDS = 2.5, 4, 4
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -1225,8 +1249,8 @@ def plain_calls_on_card(what: str):
                 return True
         return False
 
-    for name in kernels.build.SOURCES:
-        mod = importlib.import_module(f"nvtabular_tpu_torch.kernels.{name}")
+    for info in pkgutil.iter_modules(kernels.__path__):
+        mod = importlib.import_module(f"nvtabular_tpu_torch.kernels.{info.name}")
         for attr, fn in list(vars(mod).items()):
             if attr.endswith("_plain") and callable(fn):
                 def spy(*a, _fn=fn, _attr=attr, **k):
@@ -1519,7 +1543,13 @@ def crossed_kernel_records(dev, crossed: dict, sessions: dict) -> dict:
 
 
 BUCKETS = 1000  # not a power of two: a hash reduced by a mask would miss buckets
-LIBRARY_WHAT = {"sorted_lookup": "positions only"}
+LIBRARY_WHAT = {
+    "sorted_lookup": "positions only",
+    "exchange_route": "no PyTorch call routes keys to owners by a hash at a stable rank",
+    "embedding_range_gather": "index_select of the clamped local rows, no zeros for other shards' rows",
+    "embedding_range_bag": "embedding_bag of the clamped local rows, weights mask * in_range",
+    "column_moments": "no one PyTorch call gives count, mean, M2, min and max with NaN as null",
+}
 
 
 def buckets_graph(ops, cat_names, cont_names):
@@ -1962,6 +1992,301 @@ def factorized_kernel_records(recs) -> dict:
     return records
 
 
+def vocab_digest(vocab) -> str:
+    """SHA-256 of a fitted vocabulary: values in code order, counts, and its
+    start index and single_table offset."""
+    h = hashlib.sha256()
+    for part in (vocab.values_by_code, vocab.counts, [vocab.start_index, vocab.offset]):
+        h.update(np.ascontiguousarray(np.asarray(part, dtype=np.int64)).tobytes())
+    return h.hexdigest()
+
+
+def column_keys(parts, name: str, dev) -> torch.Tensor:
+    """A column of every partition, concatenated on the card."""
+    return torch.cat([p[name].values for p in parts]).to(dev)
+
+
+def pad_split(keys: torch.Tensor, ndev: int, factor: float):
+    """The reference's padding and split (sharded_vocab.py:84-90): each
+    device's keys, and the send capacity."""
+    from nvtabular_tpu_torch.kernels.exchange import PAD
+
+    per = -(-keys.numel() // ndev)
+    padded = torch.full((per * ndev,), PAD, dtype=torch.int32, device=keys.device)
+    padded[: keys.numel()] = keys
+    return list(padded.view(ndev, per)), max(int(np.ceil(per * factor / ndev)), 8)
+
+
+def sharded_fit_path(nvt, ops, dev, wf, parts, criteo_graph, cat_names, cont_names) -> dict:
+    """Phase 18: the multi-GPU fit's entry points on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import kernels, parallel
+    from nvtabular_tpu_torch.dag.executor import TorchExecutor
+    from nvtabular_tpu_torch.kernels import embedding as kemb
+    from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+
+    phase_t0 = time.perf_counter()
+    store = Path("build") / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    parallel.initialize_distributed("nccl", f"file://{store.resolve()}", rank=0, world_size=1, timeout=300)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    try:
+        mesh = parallel.local_mesh()
+        rec["mesh"] = {axis: mesh.get_group(axis).size() for axis in ("data", "model")}
+
+        # the Criteo workflow of phase 3, its vocabularies counted with K15a
+        swf = nvt.Workflow(criteo_graph(), executor=TorchExecutor(dev, mesh=mesh))
+        dataset = nvt.Dataset(parts)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with plain_calls_on_card("sharded fit"):
+            swf.fit(dataset)
+            torch.cuda.synchronize()
+        rec["fit_s"] = time.perf_counter() - t0
+        rec["fit_launches"] = dict(kernels.LAUNCHES)
+        check_launches(rec["fit_launches"], {"exchange_route": NUM_CATS, "radix_sort": NUM_CATS}, "sharded fit")
+        rec["fit_stats"] = swf.last_fit_stats
+        want_cat = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Categorify))
+        got_cat = next(n.op for n in swf.graph.nodes if isinstance(n.op, ops.Categorify))
+        if sorted(got_cat.vocabs) != sorted(want_cat.vocabs):
+            fail(f"sharded fit: vocabularies {sorted(got_cat.vocabs)} != {sorted(want_cat.vocabs)}")
+        for key, vocab in want_cat.vocabs.items():
+            if vocab_digest(got_cat.vocabs[key]) != vocab_digest(vocab):
+                fail(f"sharded fit: vocabulary {key} differs from phase 3's (SHA-256 of values, counts, offsets)")
+        want_norm = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Normalize))
+        got_norm = next(n.op for n in swf.graph.nodes if isinstance(n.op, ops.Normalize))
+        for name in cont_names:
+            for what in ("means", "stds"):
+                g, w = getattr(got_norm, what)[name], getattr(want_norm, what)[name]
+                if not math.isclose(g, w, rel_tol=1e-6):
+                    fail(f"sharded fit: Normalize {what}[{name}] {g} != phase 3's {w}")
+        out = swf.transform(parts[0])
+        want_out = wf.transform(parts[0])
+        for name in cat_names:
+            if not torch.equal(out[name].values, want_out[name].values):
+                fail(f"sharded fit: {name} codes of batch 0 differ from phase 3's")
+        rec["vocab_keys"] = sum(len(v.values_by_code) for v in got_cat.vocabs.values())
+        rec["vocabs"] = {k: (v.values_by_code, v.counts) for k, v in got_cat.vocabs.items()}
+        log(
+            f"sharded fit: one-rank {rec['backend']} group, mesh {rec['mesh']}; fit {rec['fit_s']:.2f} s (scan "
+            f"{rec['fit_stats']['scan_seconds']:.2f}, reduce {rec['fit_stats']['reduce_seconds']:.2f}, finalize "
+            f"{rec['fit_stats']['finalize_seconds']:.2f}) against phase 3's {wf.last_fit_stats['scan_seconds']:.2f} / "
+            f"{wf.last_fit_stats['finalize_seconds']:.2f} s; {NUM_CATS} columns through K15a, {rec['vocab_keys']} "
+            f"keys: every vocabulary's SHA-256 equals phase 3's, Normalize within rtol=1e-6, batch 0's codes equal"
+        )
+
+        # the row-sharded lookups over phase 7's 26 tables (22,343,004 rows, dim 16)
+        cards = [want_cat.vocabs[name].size for name in cat_names]
+        offsets = np.concatenate([[0], np.cumsum(cards)[:-1]]).tolist()
+        table = torch.randn((sum(cards), TRAIN_DIM), device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        ids = [out[name].values[:TRAIN_BS].contiguous() for name in cat_names]
+        values = (torch.stack([v.long() for v in ids], 1) + torch.tensor(offsets, device=dev)).to(torch.int32)
+        mask = (torch.rand(values.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(6)) < 0.7).float()
+        flat = values.reshape(-1)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with plain_calls_on_card("sharded lookups"):
+            looked = parallel.sharded_embedding_lookup(table, flat, mesh)
+            bagged = parallel.sharded_embedding_bag(table, values, mask, mesh)
+            torch.cuda.synchronize()
+        rec["lookup_launches"] = dict(kernels.LAUNCHES)
+        check_launches(rec["lookup_launches"], {"embedding_range_gather": 1, "embedding_range_bag": 1}, "sharded lookups")
+        gathered = kemb.embedding_gather(table, ids, offsets, cards)
+        pooled = kbag.embedding_bag_fwd(table, values, mask, "mean")
+        torch.cuda.synchronize()
+        if not torch.equal(looked, gathered.reshape(-1, TRAIN_DIM)):
+            fail("sharded_embedding_lookup differs from K13a's gather over the same ids")
+        if not torch.allclose(bagged, pooled, **SUM_TOL):
+            fail(f"sharded_embedding_bag differs from K13c's bag: max abs {float((bagged - pooled).abs().max())}")
+        rec["bag_max_abs_err"] = float((bagged - pooled).abs().max())
+        rec.update(table=table, flat=flat, values=values, mask=mask, table_rows=int(table.shape[0]))
+        log(f"sharded lookups: [{TRAIN_BS} x {NUM_CATS}] ids of batch 0 over {table.shape[0]} rows: the lookup equals "
+            f"K13a's gather, the bag K13c's within SUM_TOL (max abs {rec['bag_max_abs_err']})")
+
+        # sharded moments of the 13 LogOp outputs of every partition
+        lwf = nvt.Workflow(cont_names >> ops.FillMissing() >> ops.Clip(min_value=0.0) >> ops.LogOp(), device=dev)
+        x = torch.cat([torch.stack([lwf.transform(p)[c].values for c in cont_names], 1) for p in parts])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with plain_calls_on_card("sharded moments"):
+            mom = parallel.sharded_moments(x, mesh)
+            torch.cuda.synchronize()
+        rec["moments_launches"] = dict(kernels.LAUNCHES)
+        check_launches(rec["moments_launches"], {"column_moments": 1}, "sharded moments")
+        x64 = x.cpu().numpy().astype(np.float64)
+        want = {"count": (~np.isnan(x64)).sum(0), "min": np.nanmin(x64, 0), "max": np.nanmax(x64, 0),
+                "mean": np.nanmean(x64, 0), "var": np.nanvar(x64, 0, ddof=1)}
+        for k in ("count", "min", "max"):
+            if not np.array_equal(mom[k], want[k]):
+                fail(f"sharded_moments {k} differs from float64 numpy: {mom[k]} != {want[k]}")
+        for k in ("mean", "var"):
+            if not np.allclose(mom[k], want[k], rtol=1e-5, atol=0):
+                fail(f"sharded_moments {k} differs from float64 numpy beyond rtol=1e-5: {mom[k]} != {want[k]}")
+        rec["moments_rel_err"] = {k: float(np.max(np.abs(mom[k] - want[k]) / np.abs(want[k]))) for k in ("mean", "var")}
+        rec["x0"] = x[:ROWS_PER_PART].contiguous()
+        log(f"sharded moments: [{x.shape[0]}, {x.shape[1]}] LogOp outputs; count, min and max equal float64 numpy, "
+            f"mean and var within rtol=1e-5 (largest relative errors {rec['moments_rel_err']})")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"sharded: phase 18 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def sharded_kernel_records(dev, parts, cat_names, sharded: dict) -> dict:
+    """Phase 19: each K15 kernel against its plain version on the card; the
+    four-rank exchange composed on one card; times beside bounds."""
+    import torch.nn.functional as F
+
+    from nvtabular_tpu_torch.kernels import embedding as kemb
+    from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+    from nvtabular_tpu_torch.kernels import exchange as kex
+    from nvtabular_tpu_torch.kernels import moments as kmom
+    from nvtabular_tpu_torch.parallel.sharded_vocab import _owned_counts
+
+    phase_t0 = time.perf_counter()
+    records, compose = {}, {}
+    vocabs = sharded["vocabs"]
+    largest = sorted(cat_names, key=lambda c: -len(vocabs[c][0]))[:2]
+    # the column whose most frequent key holds the largest share of the rows
+    skewed = max(cat_names, key=lambda c: vocabs[c][1].max() / vocabs[c][1].sum())
+
+    def check_route(local, ndev, cap):
+        send, overflow = kex.exchange_route(local, ndev, cap)
+        want_send, want_overflow = kex.exchange_route_plain(local, ndev, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(send, want_send) and torch.equal(overflow, want_overflow)):
+            fail(f"exchange_route differs from plain at ndev {ndev}, cap {cap}")
+        return send, int(overflow[0])
+
+    def check_sort(keys):
+        got = kex.radix_sort(keys)
+        if not torch.equal(got, kex.radix_sort_plain(keys)):
+            fail(f"radix_sort differs from plain on {keys.numel()} keys")
+        return got
+
+    for col in largest + [skewed]:
+        keys = column_keys(parts, col, dev)
+        if col in largest:
+            for ndev in (1, 2, 4, 8):
+                shards, cap = pad_split(keys, ndev, CAPACITY_FACTOR)
+                for local in shards:
+                    check_route(local, ndev, cap)
+        # four ranks on one card: route each shard, exchange as all_to_all
+        # does (recv[d] = every source's send[d]), sort each owner's keys;
+        # an overflow doubles the capacity, as sharded_value_counts_arrays does
+        factor, overflows = CAPACITY_FACTOR, []
+        while True:
+            shards, cap = pad_split(keys, COMPOSE_RANKS, factor)
+            routed = [check_route(local, COMPOSE_RANKS, cap) for local in shards]
+            overflows.append(sum(o for _, o in routed))
+            if overflows[-1] == 0:
+                break
+            if len(overflows) > 6:
+                fail(f"compose {col}: still overflowing at capacity factor {factor}")
+            factor *= 2
+        recv = torch.stack([send for send, _ in routed]).transpose(0, 1).reshape(COMPOSE_RANKS, -1)
+        owned = [_owned_counts(check_sort(recv[d].contiguous())) for d in range(COMPOSE_RANKS)]
+        vals = np.concatenate([v for v, _ in owned])
+        cnts = np.concatenate([c for _, c in owned])
+        order = np.argsort(vals)
+        want_vals, want_cnts = (np.asarray(a, dtype=np.int64) for a in vocabs[col])
+        want_order = np.argsort(want_vals)
+        if not (np.array_equal(vals[order], want_vals[want_order]) and np.array_equal(cnts[order], want_cnts[want_order])):
+            fail(f"compose {col}: the four ranks' counts differ from phase 18's vocabulary")
+        compose[col] = {"keys": int(keys.numel()), "overflows": overflows, "factor": factor, "cap": cap,
+                        "owned": [len(v) for v, _ in owned]}
+        log(f"compose {col}: {keys.numel()} keys over {COMPOSE_RANKS} ranks on the card, overflow per pass "
+            f"{overflows} (capacity factor {factor}, cap {cap}), owners hold {compose[col]['owned']} keys; "
+            f"the counts equal phase 18's")
+    if compose[skewed]["overflows"][0] == 0:
+        fail(f"compose {skewed}: its skew should overflow the first capacity at {COMPOSE_RANKS} ranks")
+
+    # K15a at phase 18's shapes: the largest column routed to one owner, the received keys sorted
+    keys = column_keys(parts, largest[0], dev)
+    n = keys.numel()
+    cap = max(int(np.ceil(n * CAPACITY_FACTOR)), 8)
+    send, _ = check_route(keys, 1, cap)
+    recv = send.reshape(-1)
+    check_sort(recv)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": 0, "shape": [n, 1, cap], "bytes": n * 4 + cap * 4,
+           "ms": time_ms(lambda: kex.exchange_route(keys, 1, cap)),
+           "plain_ms": time_ms(lambda: kex.exchange_route_plain(keys, 1, cap)), "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * 12)
+    records["exchange_route"] = rec
+    N = recv.numel()
+    rec = {"max_abs_err": 0, "shape": [N], "bytes": 2 * N * 4,
+           "ms": time_ms(lambda: kex.radix_sort(recv)), "plain_ms": time_ms(lambda: kex.radix_sort_plain(recv)),
+           "library_ms": time_ms(lambda: torch.sort(recv))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
+    records["radix_sort"] = rec
+    del keys, send, recv
+
+    # K15b with the rows of model shard 1 of 4
+    table, flat, values, mask = (sharded[k] for k in ("table", "flat", "values", "mask"))
+    rows = table.shape[0] // MODEL_SHARDS
+    start = rows
+    local = table[start: start + rows]
+    D = table.shape[1]
+    got = kemb.embedding_range_gather(local, flat, start)
+    if not torch.equal(got, kemb.embedding_range_gather_plain(local, flat, start)):
+        fail("embedding_range_gather differs from plain")
+    local_ids = flat.long() - start
+    hit = (local_ids >= 0) & (local_ids < rows)
+    distinct = int(torch.unique(local_ids[hit]).numel())
+    safe = local_ids.clamp(0, rows - 1)
+    rec = {"max_abs_err": 0, "shape": [flat.numel(), rows, D], "distinct_rows": distinct, "in_range": int(hit.sum()),
+           "bytes": flat.numel() * 4 + distinct * D * 4 + flat.numel() * D * 4,
+           "ms": time_ms(lambda: kemb.embedding_range_gather(local, flat, start)),
+           "plain_ms": time_ms(lambda: kemb.embedding_range_gather_plain(local, flat, start)),
+           # the clamped local rows, without the zeros for other shards' rows
+           "library_ms": time_ms(lambda: torch.index_select(local, 0, safe))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
+    records["embedding_range_gather"] = rec
+
+    B, L = values.shape
+    got = kbag.embedding_range_bag(local, values, mask, start)
+    want = kbag.embedding_range_bag_plain(local, values, mask, start)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, **SUM_TOL):
+        fail(f"embedding_range_bag differs from plain: max abs {float((got - want).abs().max())}")
+    bag_ids = values.long() - start
+    bag_hit = (bag_ids >= 0) & (bag_ids < rows)
+    weights = (mask * bag_hit.float()).contiguous()
+    bag_safe = bag_ids.clamp(0, rows - 1)
+    bag_distinct = int(torch.unique(bag_ids[bag_hit]).numel())
+    rec = {"max_abs_err": float((got - want).abs().max()), "shape": [B, L, rows, D], "distinct_rows": bag_distinct,
+           "bytes": B * L * 8 + bag_distinct * D * 4 + B * D * 4,
+           "ms": time_ms(lambda: kbag.embedding_range_bag(local, values, mask, start)),
+           "plain_ms": time_ms(lambda: kbag.embedding_range_bag_plain(local, values, mask, start)),
+           "library_ms": time_ms(lambda: F.embedding_bag(bag_safe, local, per_sample_weights=weights, mode="sum"))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * L * D * 2)
+    records["embedding_range_bag"] = rec
+
+    # K15c on one partition's LogOp outputs
+    x = sharded["x0"]
+    R, C = x.shape
+    got = kmom.column_moments(x)
+    want = kmom.column_moments_plain(x)
+    torch.cuda.synchronize()
+    for i, what in enumerate(("count", "mean", "m2", "min", "max")):
+        exact = what in ("count", "min", "max")
+        if not (torch.equal(got[i], want[i]) if exact else torch.allclose(got[i], want[i], rtol=1e-5, atol=0)):
+            fail(f"column_moments {what} differs from plain: {got[i].tolist()} != {want[i].tolist()}")
+    rec = {"max_abs_err": max(float((got[i] - want[i]).abs().max()) for i in (1, 2)), "shape": [R, C],
+           "bytes": R * C * 4 + C * 5 * 4,
+           "ms": time_ms(lambda: kmom.column_moments(x)), "plain_ms": time_ms(lambda: kmom.column_moments_plain(x)),
+           "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], R * C * 6)
+    records["column_moments"] = rec
+    log(f"sharded kernels: phase 19 took {time.perf_counter() - phase_t0:.1f} s")
+    return records, compose
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -2218,7 +2543,6 @@ def main():
     records.update(buckets_kernel_records(dev, buckets))
     for key in ("wf", "staged", "nodes"):
         del buckets[key]
-    del parts
     buckets_launches = buckets["launches"]
     for k in ("tiny_lookup", "cuckoo_lookup"):
         main_launches[k] += buckets_launches[k]
@@ -2237,6 +2561,21 @@ def main():
         main_launches[k] += fm_launches[k]
     for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad"):
         train_launches[k] += fm_launches[k]
+
+    # --- 18. the multi-GPU fit on a one-rank NCCL group, at full width -------------------------------
+    sharded = sharded_fit_path(nvt, ops, dev, wf, parts, criteo_graph, cat_names, cont_names)
+    sharded_launches = {
+        k: sharded[w][k] for w in ("fit_launches", "lookup_launches", "moments_launches") for k in sharded[w]
+        if sharded[w][k]
+    }
+
+    # --- 19. the K15 kernels against their plain versions; four ranks composed on the card -----------
+    sharded_records, compose = sharded_kernel_records(dev, parts, cat_names, sharded)
+    records.update(sharded_records)
+    for key in ("table", "flat", "values", "mask", "x0", "vocabs"):
+        del sharded[key]
+    sharded["compose"] = compose
+    del parts
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -2266,6 +2605,11 @@ def main():
         "fm_bwd": ("fm.cu", "nvtabular_tpu/models/deepfm.py:64", fm_launches),
         "cross_fwd": ("cross.cu", "nvtabular_tpu/models/deepfm.py:134", fm_launches),
         "cross_bwd": ("cross.cu", "nvtabular_tpu/models/deepfm.py:134", fm_launches),
+        "exchange_route": ("exchange.cu", "nvtabular_tpu/parallel/sharded_vocab.py:100", sharded_launches),
+        "radix_sort": ("exchange.cu", "nvtabular_tpu/parallel/sharded_vocab.py:118", sharded_launches),
+        "embedding_range_gather": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:40", sharded_launches),
+        "embedding_range_bag": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:73", sharded_launches),
+        "column_moments": ("moments.cu", "nvtabular_tpu/parallel/stats.py:50", sharded_launches),
     }
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
@@ -2314,6 +2658,7 @@ def main():
                     "sessions": sessions,
                     "buckets": buckets,
                     "factorized": factorized,
+                    "sharded": sharded,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

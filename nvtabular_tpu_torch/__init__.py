@@ -24,6 +24,7 @@ from .convert import (
     load_deepfm_params,
     load_dlrm_params,
     load_fitted_state,
+    load_sharded_table,
     load_tabular_mlp_params,
     tabular_mlp_params,
 )
@@ -55,6 +56,7 @@ __all__ = [
     "load_deepfm_params",
     "load_dlrm_params",
     "load_fitted_state",
+    "load_sharded_table",
     "load_tabular_mlp_params",
     "ops",
     "tabular_mlp_params",

@@ -44,6 +44,12 @@ DLRM parameters travel as the JAX package's pytree of numpy arrays,
 (``load_dcn_params`` / ``dcn_params``); the port concatenates each of
 ``tables`` and ``linear`` into one parameter in sorted column order. Nothing
 here imports the JAX package.
+
+A vocabulary fitted by the JAX package's multi-process or mesh fit is an
+ordinary fitted vocabulary and loads through ``load_fitted_state``. A table
+that the JAX package shards by rows over its mesh's ``model`` axis
+(``parallel/embeddings.py``) loads one rank's row range at a time
+(``load_sharded_table``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,21 @@ from .ops.groupby_stats import KeyedStats, key_groups
 from .ops.join_groupby import JoinGroupby
 from .ops.normalize import Normalize
 from .ops.target_encoding import TargetEncoding
+
+
+def load_sharded_table(table: np.ndarray, model_rank: int, model_size: int, device=None) -> torch.Tensor:
+    """Rows ``[model_rank * V / model_size, (model_rank + 1) * V / model_size)``
+    of a [V, D] table as a float32 tensor: model shard ``model_rank``, as
+    the JAX package's ``P(model_axis, None)`` splits it (V divisible by
+    ``model_size``). On ``cuda:0`` unless ``device`` says otherwise."""
+    table = np.asarray(table)
+    if table.ndim != 2 or table.shape[0] % model_size:
+        raise ValueError(f"a [V, D] table with V divisible by {model_size} is needed, got {table.shape}")
+    if not 0 <= model_rank < model_size:
+        raise ValueError(f"model_rank must be in [0, {model_size}), got {model_rank}")
+    rows = table.shape[0] // model_size
+    local = np.ascontiguousarray(table[model_rank * rows: (model_rank + 1) * rows], dtype=np.float32)
+    return torch.from_numpy(local).to(torch.device("cuda:0") if device is None else torch.device(device))
 
 
 def _keyed(entry: Dict[str, Any]) -> KeyedStats:

@@ -174,6 +174,10 @@ class StatOperator(BaseOperator):
     def fit_finalize(self, state) -> None:
         raise NotImplementedError
 
+    def fit_merge(self, states):
+        """One state from every rank's (a multi-process fit)."""
+        raise NotImplementedError(f"{self.label} cannot merge the fit states of several processes")
+
     def mark_fitted(self) -> None:
         self.fitted = True
         self.fit_generation += 1

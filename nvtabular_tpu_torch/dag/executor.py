@@ -15,8 +15,11 @@ Counterpart of ``nvtabular_tpu/dag/executor.py``:
   one cont_chain launch (dag/device_fuse.py), and keeps the schema's column
   order for its outputs. PyTorch has no compile cache to bound, so there is
   no power-of-two row padding.
-* ``FitEngine`` — the phased statistics scan (executor.py:903-1104), single
-  process: one pass over the dataset per phase feeds every stat op of it.
+* ``FitEngine`` — the phased statistics scan (executor.py:903-1104): one
+  pass over the dataset per phase feeds every stat op of it. In a process
+  group of several ranks each rank scans its round-robin shard of the
+  partitions and the ops' states are reduced across ranks; with a mesh,
+  Categorify counts its single integer columns on the mesh (kernel K15a).
 
 Both executors cache each op's device tables keyed on that op's
 ``fit_generation``, so a refit can never serve stale tables (the round-2
@@ -25,6 +28,7 @@ refit-staleness rule of the JAX package).
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -112,11 +116,15 @@ class LocalExecutor:
 
 
 class TorchExecutor(LocalExecutor):
-    """Whole-DAG transform per batch on one device (cuda:N, or cpu)."""
+    """Whole-DAG transform per batch on one device (cuda:N, or cpu). With a
+    ``mesh`` (``parallel.make_mesh``) the fit counts vocabularies over its
+    ``data`` axis (``FitEngine``)."""
 
-    def __init__(self, device="cuda:0"):
+    def __init__(self, device="cuda:0", mesh=None):
         super().__init__()
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.data_axis = "data"
         # id(node) → (node, fit generations, ChainSpec or None)
         self._chains: Dict[int, Tuple[Node, tuple, Optional[ChainSpec]]] = {}
         # (dtype, shape) → [pinned buffer, event of its last copy] × 2, used in turn
@@ -231,39 +239,78 @@ def fit_generations(output_node: Node) -> tuple:
 
 class FitEngine:
     """Phased streaming statistics pass over a Dataset. Each batch goes to
-    the executor's device first; stat-op inputs evaluate op by op there."""
+    the executor's device first; stat-op inputs evaluate op by op there.
+
+    Multi-process (executor.py:933-1080): in a process group of several ranks
+    each rank streams its round-robin shard of the partitions, then each op's
+    state is reduced across ranks — through the op's
+    ``fit_reduce_multihost`` where it has one (an all_to_all of large keyed
+    tables), else ``fit_merge`` of every rank's state — so every rank ends
+    with the same fitted state. With a mesh on the executor, an op with a
+    ``fit_mesh_plan`` (Categorify's single integer columns) keeps its
+    columns' values during the scan and counts them on the mesh in
+    ``fit_mesh``; ``NVT_MESH_FIT=0`` turns that off."""
 
     def __init__(self, executor: LocalExecutor):
         self.executor = executor
         self._input_executor = LocalExecutor()
         self.last_fit_stats: Dict[str, float] = {}
 
-    def fit(self, dataset, graph: Graph) -> None:
+    def fit(self, dataset, graph: Graph, shard=None) -> None:
+        from ..parallel.multihost import allgather_pyobj, process_count, process_index
+
         if graph.output_schema is None:
             graph.construct_schema(dataset.schema)
-        stats = {"scan_seconds": 0.0, "finalize_seconds": 0.0, "rows_scanned": 0}
+        world = process_count()
+        if shard is None and world > 1:
+            shard = (process_index(), world)
+        stats = {"scan_seconds": 0.0, "finalize_seconds": 0.0, "reduce_seconds": 0.0, "rows_scanned": 0}
         self.last_fit_stats = stats
         stage = getattr(self.executor, "stage", lambda b: b)
+        mesh = getattr(self.executor, "mesh", None)
+        mesh_axis = getattr(self.executor, "data_axis", "data")
         for phase_idx, phase_nodes in enumerate(graph.stat_phases()):
             nodes = [n for n in phase_nodes if not n.op.fitted]
             if not nodes:
                 continue
-            states = {id(n): n.op.fit_init(n.selector, n.input_schema) for n in nodes}
+            mesh_plans: Dict[int, List[str]] = {}
+            if mesh is not None and os.environ.get("NVT_MESH_FIT", "1") != "0":
+                for n in nodes:
+                    plan_fn = getattr(n.op, "fit_mesh_plan", None)
+                    plan = plan_fn(n.selector, n.input_schema) if plan_fn is not None else None
+                    if plan:
+                        mesh_plans[id(n)] = plan
+            buffers = {nid: {c: [] for c in cols} for nid, cols in mesh_plans.items()}
+            states = {id(n): n.op.fit_init(n.selector, n.input_schema) for n in nodes if id(n) not in mesh_plans}
             scan_start = time.perf_counter()
-            for batch in dataset.to_batches(columns=self._phase_columns(nodes)):
+            for batch in dataset.to_batches(columns=self._phase_columns(nodes), shard=shard):
                 dev_batch = stage(batch)
                 memo: Dict[int, TableBatch] = {}
                 for n in nodes:
                     inp = self._input_executor.compute_node_input(n, dev_batch, memo)
+                    if id(n) in mesh_plans:
+                        for name in mesh_plans[id(n)]:
+                            col = inp[name]  # a list counts its flat values
+                            buffers[id(n)][name].append((col.values, None if col.is_list else col.validity))
+                        continue
                     states[id(n)] = n.op.fit_batch(n.selector, inp, states[id(n)])
                 if phase_idx == 0:
                     stats["rows_scanned"] += batch.num_rows
-            stats["scan_seconds"] += time.perf_counter() - scan_start
-            finalize_start = time.perf_counter()
             for n in nodes:
-                n.op.fit_finalize(states[id(n)])
+                if id(n) in mesh_plans:
+                    states[id(n)] = n.op.fit_mesh(buffers.pop(id(n)), mesh, mesh_axis)
+            stats["scan_seconds"] += time.perf_counter() - scan_start
+            for n in nodes:
+                state = states[id(n)]
+                if shard is not None and world > 1:
+                    reduce_start = time.perf_counter()
+                    reducer = getattr(n.op, "fit_reduce_multihost", None)
+                    state = reducer(state) if reducer is not None else n.op.fit_merge(allgather_pyobj(state))
+                    stats["reduce_seconds"] += time.perf_counter() - reduce_start
+                finalize_start = time.perf_counter()
+                n.op.fit_finalize(state)
                 n.op.mark_fitted()
-            stats["finalize_seconds"] += time.perf_counter() - finalize_start
+                stats["finalize_seconds"] += time.perf_counter() - finalize_start
         # final schema pass: downstream schemas see fitted properties
         graph.construct_schema(dataset.schema)
 

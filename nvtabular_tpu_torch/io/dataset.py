@@ -7,7 +7,7 @@ reading are not ported yet (ROADMAP.md queue 1: parquet I/O).
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 from ..schema import Schema
 from ..table import TableBatch
@@ -43,11 +43,17 @@ class Dataset:
             self._schema = self._partitions[0].infer_schema() if self._partitions else Schema()
         return self._schema
 
-    def to_batches(self, columns: Optional[List[str]] = None) -> Iterator[TableBatch]:
-        """Stream partitions; each batch carries its global ``row_offset``."""
+    def to_batches(
+        self, columns: Optional[List[str]] = None, shard: Optional[Tuple[int, int]] = None
+    ) -> Iterator[TableBatch]:
+        """Stream partitions; each batch carries its global ``row_offset``.
+        ``shard=(rank, world)`` deals the partitions round robin and streams
+        rank's share (io/dataset.py:446-470); row offsets stay global, so a
+        row's fold and position are those of the unsharded stream."""
         offset = 0
-        for part in self._partitions:
-            batch = part.select([c for c in columns if c in part]) if columns else part.copy()
-            batch.row_offset = offset
+        for i, part in enumerate(self._partitions):
+            if shard is None or i % shard[1] == shard[0]:
+                batch = part.select([c for c in columns if c in part]) if columns else part.copy()
+                batch.row_offset = offset
+                yield batch
             offset += part.num_rows
-            yield batch

@@ -42,6 +42,11 @@ LAUNCHES: Dict[str, int] = {
     "fm_bwd": 0,
     "cross_fwd": 0,
     "cross_bwd": 0,
+    "exchange_route": 0,
+    "radix_sort": 0,
+    "embedding_range_gather": 0,
+    "embedding_range_bag": 0,
+    "column_moments": 0,
 }
 
 

@@ -38,6 +38,9 @@ SOURCES = {
     "difference_lag": _PKG / "csrc" / "difference_lag.cu",
     "fm": _PKG / "csrc" / "fm.cu",
     "cross": _PKG / "csrc" / "cross.cu",
+    "exchange": _PKG / "csrc" / "exchange.cu",
+    "moments": _PKG / "csrc" / "moments.cu",
+    "sharded_embedding": _PKG / "csrc" / "sharded_embedding.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

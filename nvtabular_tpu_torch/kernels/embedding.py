@@ -6,6 +6,11 @@ The embedding tables of a model live in one concatenated float32
 follow ``jnp.take``'s defaults (``nvtabular_tpu/models/layers.py:70-72``): a
 negative id wraps once, an id still out of range reads a NaN row and its
 gradient is dropped. The kernels are ``csrc/embedding.cu``.
+
+``embedding_range_gather`` is the per-rank half of the row-sharded lookup
+(kernel K15b, ``nvtabular_tpu/parallel/embeddings.py:40-50``): a rank's rows
+``[start, start + rows_local)`` of a table, global ids, and zeros for the rows
+another rank holds. Its kernel is ``csrc/sharded_embedding.cu``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,11 @@ MAX_COLUMNS = 64  # csrc/embedding.cu kMaxCols
 _GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p,
+]
+# table, rows_local, start, D, ids, n, out, vec, stream
+_RANGE_GATHER_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 _SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
@@ -149,6 +159,47 @@ def embedding_scatter_grad(
     raise_on_error(rc, "embedding_scatter_grad")
     LAUNCHES["embedding_scatter_grad"] += 1
     return dtable
+
+
+def check_range_table(table: torch.Tensor, start: int) -> None:
+    """A rank's rows of a row-sharded table: float32 [rows_local >= 1, D]."""
+    if table.dim() != 2 or table.shape[0] == 0:
+        raise ValueError(f"table must be [rows_local >= 1, D], got shape {tuple(table.shape)}")
+    check(table, "table", torch.float32, table.device)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
+
+
+def embedding_range_gather(table: torch.Tensor, ids: torch.Tensor, start: int) -> torch.Tensor:
+    """``out[i] = table[ids[i] - start]`` where that row is one of the
+    table's, zeros elsewhere → float32 [n, D]."""
+    check_range_table(table, start)
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be 1-d, got shape {tuple(ids.shape)}")
+    check(ids, "ids", torch.int32, table.device)
+    if not use_kernel(table):
+        return embedding_range_gather_plain(table, ids, start)
+    n, D = ids.shape[0], table.shape[1]
+    out = torch.empty((n, D), dtype=torch.float32, device=table.device)
+    if n == 0 or D == 0:
+        return out
+    fn = library("sharded_embedding").nvt_range_gather
+    if fn.argtypes is None:
+        fn.argtypes = _RANGE_GATHER_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(ptr(table), table.shape[0], start, D, ptr(ids), n, ptr(out), _vec(D, table, out),
+            stream_ptr(table.device))
+    raise_on_error(rc, "embedding_range_gather")
+    LAUNCHES["embedding_range_gather"] += 1
+    return out
+
+
+def embedding_range_gather_plain(table, ids, start) -> torch.Tensor:
+    """embeddings.py:40-50 before the psum."""
+    local = ids.long() - start
+    in_range = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return torch.where(in_range[:, None], rows, 0.0)
 
 
 def table_rows(ids, offsets, sizes) -> Tuple[torch.Tensor, torch.Tensor]:

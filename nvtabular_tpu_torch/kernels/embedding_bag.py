@@ -8,6 +8,11 @@ for ``"mean"``, over DeviceLoader's padded ``values`` int32 [B, L] and
 negative id wraps once, an id still out of range reads a NaN row (and NaN
 times a 0 mask is NaN) and its gradient is dropped. The kernels are
 ``csrc/embedding_bag.cu``.
+
+``embedding_range_bag`` is the per-rank half of the row-sharded bag (kernel
+K15b, ``nvtabular_tpu/parallel/embeddings.py:73-81``): the weighted sums over
+a rank's rows ``[start, start + rows_local)`` of a table, with global ids and
+weights ``mask * in_range``. Its kernel is ``csrc/sharded_embedding.cu``.
 """
 
 from __future__ import annotations
@@ -20,12 +25,18 @@ import torch
 from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 from .embedding import _vec  # float4 accesses where rows are 16-byte aligned
+from .embedding import check_range_table
 
 COMBINERS = ("mean", "sum")
 
 _FWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+]
+# table, rows_local, start, D, values, mask, B, L, out, vec, stream
+_RANGE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
 _BWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
@@ -103,6 +114,41 @@ def embedding_bag_bwd(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tens
     raise_on_error(rc, "embedding_bag_bwd")
     LAUNCHES["embedding_bag_bwd"] += 1
     return dtable
+
+
+def embedding_range_bag(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, start: int) -> torch.Tensor:
+    """→ float32 [B, D]: ``sum_l table[clip(values - start)] * (mask *
+    in_range)``, summed in l order; a row outside the table's range weighs
+    zero."""
+    check_range_table(table, start)
+    B, L = _check_bag(values, mask, "sum", table.device)
+    if not use_kernel(table):
+        return embedding_range_bag_plain(table, values, mask, start)
+    D = table.shape[1]
+    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
+    if B == 0 or D == 0:
+        return out
+    fn = library("sharded_embedding").nvt_range_bag
+    if fn.argtypes is None:
+        fn.argtypes = _RANGE_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(ptr(table), table.shape[0], start, D, ptr(values), ptr(mask), B, L, ptr(out), _vec(D, table, out),
+            stream_ptr(table.device))
+    raise_on_error(rc, "embedding_range_bag")
+    LAUNCHES["embedding_range_bag"] += 1
+    return out
+
+
+def embedding_range_bag_plain(table, values, mask, start) -> torch.Tensor:
+    """embeddings.py:73-81 before the psum, summed in l order."""
+    local = values.long() - start
+    in_range = (local >= 0) & (local < table.shape[0])
+    emb = table[local.clamp(0, table.shape[0] - 1)]  # [B, L, D]
+    w = mask * in_range.to(mask.dtype)
+    s = torch.zeros((values.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    for l in range(values.shape[1]):
+        s = s + emb[:, l] * w[:, l, None]
+    return s
 
 
 def bag_rows(values: torch.Tensor, num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,6 +25,15 @@ global index space. With ``num_buckets`` nb > 1 a miss takes bucket
   validity (:848-857); at transform its flat values take a launch of their
   own per table kind, without the null epilogue, and its codes keep the
   column's offsets (:1456-1458, :1631-1669).
+* Multi-process and mesh fits (categorify.py:749-1060): ``fit_mesh``
+  counts each single integer column of the phase on the mesh's data axis
+  (kernel K15a: route, all_to_all, sort; ``parallel/sharded_vocab.py``),
+  keys outside int32 or equal to its pad on the host counter;
+  ``fit_reduce_multihost`` reduces large integer vocabularies of several
+  ranks through an all_to_all of (key, count) pairs
+  (``exchange_partial_counts``; ``NVT_VOCAB_EXCHANGE_MIN`` unique keys,
+  65536 by default) and the rest through ``fit_merge`` of every rank's
+  accumulators.
 * ``encode_type="combo"``: a subgroup ``("a", "b")`` is one crossed output
   column ``a_b`` (joined by ``name_sep``, :709-729). The fit counts the
   member tuples on the card (a row with a null member is null, not a
@@ -43,6 +52,7 @@ artifacts (item 2), and ``cat_cache`` tiers other than "host", ``dtype``,
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -110,6 +120,15 @@ def _from_order_keys(keys: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(keys < 0, keys ^ _INT64_MAX, keys).view(torch.float64).to(dtype)
 
 
+def _on_device_of(mine: List[Tuple[torch.Tensor, torch.Tensor]], theirs):
+    """``theirs`` partials on the device of ``mine`` (as they are when
+    ``mine`` is empty)."""
+    if not mine:
+        return list(theirs)
+    dev = mine[0][0].device
+    return [(a.to(dev), b.to(dev)) for a, b in theirs]
+
+
 class _VocabAccum:
     """Streaming (value, count) accumulator on the batch's device. Floats
     count by bit pattern (``_order_keys``), NaN dropped as null."""
@@ -136,6 +155,38 @@ class _VocabAccum:
         self.rows += uniq.numel()
         if self.rows > _REAGG_ROWS:
             self._merge()
+
+    def merge(self, other: "_VocabAccum") -> "_VocabAccum":
+        """Another rank's accumulator added to this one (on this one's device)."""
+        if other.dtype is not None:
+            if self.dtype is not None and self.dtype.is_floating_point != other.dtype.is_floating_point:
+                raise NotImplementedError(UNSUPPORTED_MIXED.format("a joint group of integer and float columns"))
+            self.dtype = other.dtype if self.dtype is None else torch.promote_types(self.dtype, other.dtype)
+        self.partials.extend(_on_device_of(self.partials, other.partials))
+        self.rows += other.rows
+        return self
+
+    @classmethod
+    def from_counts(cls, values: np.ndarray, counts: np.ndarray, dtype, device) -> "_VocabAccum":
+        """The accumulator of (integer value, count) pairs with distinct
+        values, in any order; ``dtype`` is the columns' integer dtype."""
+        accum = cls()
+        accum.dtype = dtype
+        if len(values):
+            order = np.argsort(values, kind="stable")
+            keys = torch.from_numpy(np.ascontiguousarray(values[order])).to(device=device, dtype=dtype)
+            accum.partials = [(keys, torch.from_numpy(np.ascontiguousarray(counts[order])).to(device))]
+            accum.rows = len(values)
+        return accum
+
+    def counts(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(values ascending, counts) of an integer accumulator, int64 on the host."""
+        if len(self.partials) > 1:
+            self._merge()
+        if not self.partials:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        values, counts = self.partials[0]
+        return values.cpu().numpy().astype(np.int64), counts.cpu().numpy().astype(np.int64)
 
     def _merge(self):
         values = torch.cat([v.to(torch.int64 if self.dtype.is_floating_point else self.dtype)
@@ -188,6 +239,12 @@ class _ComboAccum:
         self.rows += self.partials[-1][1].numel()
         if self.rows > _REAGG_ROWS:
             self._merge()
+
+    def merge(self, other: "_ComboAccum") -> "_ComboAccum":
+        """Another rank's accumulator added to this one (on this one's device)."""
+        self.partials.extend(_on_device_of(self.partials, other.partials))
+        self.rows += other.rows
+        return self
 
     def _merge(self):
         keys = torch.cat([k for k, _ in self.partials])
@@ -360,6 +417,109 @@ class Categorify(StatOperator):
                 # multihots count their flat values (categorify.py:848-857)
                 state[key].update(col.values, None if col.is_list else col.validity)
         return state
+
+    def fit_mesh_plan(self, col_selector: ColumnSelector, input_schema) -> Optional[List[str]]:
+        """The columns this op counts on the mesh (categorify.py:749-773):
+        every group a single integer column, or None."""
+        cols: List[str] = []
+        for key, members in self._groups(col_selector):
+            if len(members) > 1:
+                return None  # joint and combo groups mix columns
+            col_schema = input_schema.get(members[0]) if input_schema else None
+            if col_schema is None or col_schema.dtype is None:
+                return None
+            if np.dtype(md.to_numpy(col_schema.dtype)).kind not in ("i", "u"):
+                return None
+            cols.append(members[0])
+        return cols or None
+
+    def fit_mesh(self, buffers: Dict[str, List], mesh, axis: str = "data"):
+        """Each column's keys counted over the mesh's ``axis``
+        (categorify.py:775-839): one exchange (K15a's route, one
+        all_to_all, K15a's sort) a column, the host run-length-encoding the
+        keys this rank owns. A column with keys outside int32 or equal to
+        the exchange's pad on any rank takes the host counter instead.
+        ``buffers``: {column: [(values, validity or None), ...]}, gathered by
+        the FitEngine's scan. Returns the usual fit state: each rank holds
+        the counts of the keys it owns, which ``fit_reduce_multihost``
+        merges."""
+        from ..kernels.exchange import PAD
+        from ..parallel.mesh import all_reduce, comm_device
+        from ..parallel.sharded_vocab import owned_value_counts
+
+        group = mesh.get_group(axis)
+        state: Dict[str, _VocabAccum] = {}
+        for name, parts in buffers.items():
+            accum = _VocabAccum()
+            chunks = []
+            for vals, validity in parts:
+                accum.dtype = vals.dtype if accum.dtype is None else torch.promote_types(accum.dtype, vals.dtype)
+                chunks.append(vals if validity is None else vals[validity])
+            keys = torch.cat(chunks) if chunks else torch.empty(0, dtype=torch.int32)
+            in_range = keys.numel() == 0 or (int(keys.min()) >= -(2**31) and int(keys.max()) < PAD)
+            flag = torch.tensor([int(in_range)], dtype=torch.int32, device=comm_device(group))
+            if not int(all_reduce(flag, group, torch.distributed.ReduceOp.MIN).item()):
+                for vals, validity in parts:  # the same exact counts, on the host counter
+                    accum.update(vals, validity)
+                state[name] = accum
+                continue
+            values, counts = owned_value_counts(keys.to(torch.int32), mesh, axis)
+            dtype = accum.dtype or torch.int64
+            state[name] = _VocabAccum.from_counts(values, counts, dtype, keys.device)
+        return state
+
+    def fit_merge(self, states):
+        out = states[0]
+        for s in states[1:]:
+            for key in out:
+                out[key].merge(s[key])
+        return out
+
+    def fit_reduce_multihost(self, state):
+        """The rank's accumulators reduced with every other rank's
+        (categorify.py:884-1060). Integer vocabularies with at least
+        ``NVT_VOCAB_EXCHANGE_MIN`` unique keys on some rank exchange their
+        (key, count) pairs through one all_to_all, each pair sent to its
+        key's owner once (``exchange_partial_counts``), and every rank
+        gathers the owners' disjoint merged shards; the rest take the
+        allgather of whole accumulators. The route is decided from
+        allgathered metadata, so every rank issues the same collectives."""
+        from ..parallel.multihost import allgather_pyobj
+        from ..parallel.sharded_vocab import exchange_partial_counts
+
+        threshold = int(os.environ.get("NVT_VOCAB_EXCHANGE_MIN", 65536))
+        local_meta = {}
+        for key in sorted(state):
+            accum = state[key]
+            if isinstance(accum, _VocabAccum) and accum.dtype is None:
+                local_meta[key] = ("empty", 0, None)
+            elif isinstance(accum, _VocabAccum) and not accum.dtype.is_floating_point:
+                if len(accum.partials) > 1:
+                    accum._merge()
+                local_meta[key] = ("int", accum.rows, accum.dtype)
+            else:
+                local_meta[key] = ("other", accum.rows, None)
+        all_meta = allgather_pyobj(local_meta)
+        exchange, gather = [], []
+        for key in sorted(state):
+            flavors = {m[key][0] for m in all_meta}
+            large = max(m[key][1] for m in all_meta) >= threshold
+            (exchange if "int" in flavors and flavors <= {"int", "empty"} and large else gather).append(key)
+        out = {}
+        for key in exchange:
+            owned = exchange_partial_counts(*state[key].counts())
+            shards = allgather_pyobj(owned)
+            dtypes = [m[key][2] for m in all_meta if m[key][2] is not None]
+            dtype = dtypes[0]
+            for d in dtypes[1:]:
+                dtype = torch.promote_types(dtype, d)
+            out[key] = _VocabAccum.from_counts(
+                np.concatenate([s[0] for s in shards]), np.concatenate([s[1] for s in shards]), dtype, "cpu"
+            )
+        if gather:
+            out.update(self.fit_merge(allgather_pyobj({key: state[key] for key in gather})))
+        self.last_fit_reduce = {"exchange": exchange, "gather": gather}
+        return out
 
     def fit_finalize(self, state):
         for key, accum in state.items():

@@ -18,6 +18,13 @@ Counterpart of ``nvtabular_tpu/ops/groupby_stats.py`` (:53-189, 364-378,
   hash pair (K10b, ``build_hash_pair``): h1 probes a K1/K3 table built over
   the fitted tuples' h1, and the tuple's h2 must match the row's.
 
+A multi-process fit reduces the accumulators of every rank
+(``reduce_accums_multihost``, groupby_stats.py:192-346): large tables
+(``NVT_GROUPBY_EXCHANGE_MIN`` groups, 65536 by default) send each partial
+row to the owner of its key tuple through one all_to_all and the owners
+aggregate what they receive with the same sort-based group-by, by the full
+key tuple; small ones take the allgather of whole accumulators.
+
 A multi-column group whose pair cannot be built (keys outside int32, or a
 collision among the fitted tuples' h1) raises; the reference joins it on the
 host.
@@ -26,6 +33,8 @@ host.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import os
 
 import numpy as np
 import torch
@@ -179,8 +188,11 @@ class GroupbyStatsAccum:
             self._reaggregate()
 
     def _reaggregate(self):
-        if len(self.partials) <= 1:
-            return
+        if len(self.partials) > 1:
+            self._group()
+
+    def _group(self):
+        """The partials as one, grouped by the full key tuple."""
         keys, inv = _unique_rows(torch.cat([k for k, _ in self.partials]))
         payload = {
             name: _combine(inv, keys.shape[0], torch.cat([p[name] for _, p in self.partials]), how)
@@ -190,7 +202,16 @@ class GroupbyStatsAccum:
         self.rows = keys.shape[0]
 
     def merge(self, other: "GroupbyStatsAccum") -> "GroupbyStatsAccum":
-        self.partials.extend(other.partials)
+        """Another rank's accumulator added to this one (on this one's device)."""
+        if other.key_dtypes is not None:
+            self.key_dtypes = other.key_dtypes if self.key_dtypes is None else [
+                torch.promote_types(a, b) for a, b in zip(self.key_dtypes, other.key_dtypes)
+            ]
+        dev = self.partials[0][0].device if self.partials else None
+        for keys, payload in other.partials:
+            if dev is not None:
+                keys, payload = keys.to(dev), {k: v.to(dev) for k, v in payload.items()}
+            self.partials.append((keys, payload))
         self.rows += other.rows
         return self
 
@@ -225,6 +246,107 @@ class GroupbyStatsAccum:
                     else:  # min, max
                         stats[key] = raw[f"{cont}__{a}"]
         return KeyedStats(self.key_cols, stats, key_arrays)
+
+
+def _h64_multi_key(arrays: Sequence[torch.Tensor]) -> np.ndarray:
+    """64-bit composite hash of int key tuples (groupby_stats.py:45-50): the
+    hash pair's two 32-bit hashes in one int64; it places a tuple on its
+    owner process, nothing more."""
+    h1 = hash_multi_key(arrays, seed=0xA1).numpy().astype(np.uint64)
+    h2 = hash_multi_key(arrays, seed=0xB7).numpy().astype(np.uint64)
+    return ((h1 << np.uint64(32)) | h2).view(np.int64)
+
+
+def _accum_lane_spec(accum: GroupbyStatsAccum):
+    """(name, dtype) of the lanes a partial row travels in (groupby_stats.py:
+    192-212): the key columns as int64, then the payloads in the
+    accumulator's order. Derived from the op's configuration alone, so every
+    process computes the same layout."""
+    keys = [(k, np.int64) for k in accum.key_cols]
+    payloads = [(name, np.int64 if name == "__rows" or name.endswith("__cnt") else np.float64)
+                for name, _ in accum._parts]
+    return keys, payloads
+
+
+def _exchange_accum(accum: GroupbyStatsAccum, key_dtypes) -> GroupbyStatsAccum:
+    """One accumulator reduced over every process through the all_to_all
+    row exchange (groupby_stats.py:215-272): each partial row goes to the
+    owner of its key tuple, owners group what they receive by the full key
+    tuple (exact under hash collisions: the hash only places a row), and
+    the owners' disjoint tables are gathered by every process. The result
+    lies on the host."""
+    from ..parallel.multihost import allgather_pyobj, process_count
+    from ..parallel.sharded_vocab import _owner_of_int64, exchange_keyed_rows, pack_i64_lanes, unpack_i64_lanes
+
+    accum._reaggregate()
+    keys_spec, payload_spec = _accum_lane_spec(accum)
+    width = 2 * (len(keys_spec) + len(payload_spec))
+    if accum.partials:
+        keys, payload = accum.partials[0]
+        keys = keys.cpu()
+        cols = [keys[:, i].numpy() for i in range(keys.shape[1])]
+        cols += [payload[name].cpu().numpy().astype(dt) for name, dt in payload_spec]
+        lanes = np.hstack([pack_i64_lanes(np.ascontiguousarray(c)) for c in cols])
+        key64 = _h64_multi_key([keys[:, i].contiguous() for i in range(keys.shape[1])]) if keys.shape[1] > 1 else cols[0]
+        owner = _owner_of_int64(key64, process_count())
+    else:
+        lanes, owner = np.empty((0, width), dtype=np.int32), np.empty(0, dtype=np.int64)
+    recv = exchange_keyed_rows(lanes, owner)
+    owned = GroupbyStatsAccum(accum.key_cols, accum.agg_specs)
+    owned.key_dtypes = list(key_dtypes)
+    if len(recv):
+        nk = len(keys_spec)
+        rkeys = np.stack([unpack_i64_lanes(recv[:, 2 * j: 2 * j + 2], np.int64) for j in range(nk)], axis=1)
+        rpayload = {
+            name: torch.from_numpy(unpack_i64_lanes(recv[:, 2 * (nk + j): 2 * (nk + j) + 2], dt))
+            for j, (name, dt) in enumerate(payload_spec)
+        }
+        owned.partials = [(torch.from_numpy(rkeys), rpayload)]
+        owned._group()
+    merged = GroupbyStatsAccum(accum.key_cols, accum.agg_specs)
+    merged.key_dtypes = list(key_dtypes)
+    for shard in allgather_pyobj(owned):
+        merged.partials.extend(shard.partials)
+        merged.rows += shard.rows
+    return merged
+
+
+def reduce_accums_multihost(accums: Dict[str, GroupbyStatsAccum], threshold: Optional[int] = None):
+    """Multi-process reduction of a dict of accumulators (groupby_stats.py:
+    275-331): those with at least ``threshold`` groups on some process ride
+    the all_to_all row exchange, the others the allgather of whole
+    accumulators. The route is decided from allgathered metadata, so every
+    process issues the same collectives. Returns (merged accumulators,
+    {"exchange": [tags], "gather": [tags]})."""
+    from ..parallel.multihost import allgather_pyobj, process_count
+
+    if process_count() == 1:
+        return accums, {"exchange": [], "gather": sorted(accums)}
+    if threshold is None:
+        threshold = int(os.environ.get("NVT_GROUPBY_EXCHANGE_MIN", 65536))
+    local_meta = {}
+    for tag in sorted(accums):
+        a = accums[tag]
+        a._reaggregate()
+        local_meta[tag] = (a.rows, a.key_dtypes)
+    all_meta = allgather_pyobj(local_meta)
+    exchange_tags = [t for t in sorted(accums) if max(m[t][0] for m in all_meta) >= threshold]
+    gather_tags = [t for t in sorted(accums) if t not in exchange_tags]
+    out = {}
+    for tag in exchange_tags:
+        key_dtypes = None
+        for _, kd in (m[tag] for m in all_meta):
+            if kd is not None:
+                key_dtypes = kd if key_dtypes is None else [torch.promote_types(a, b) for a, b in zip(key_dtypes, kd)]
+        out[tag] = _exchange_accum(accums[tag], key_dtypes or [torch.int64] * len(accums[tag].key_cols))
+    if gather_tags:
+        gathered = allgather_pyobj({t: accums[t] for t in gather_tags})
+        merged = gathered[0]
+        for other in gathered[1:]:
+            for t in merged:
+                merged[t].merge(other[t])
+        out.update(merged)
+    return out, {"exchange": exchange_tags, "gather": gather_tags}
 
 
 def _numpy_dtype(dtype: torch.dtype):

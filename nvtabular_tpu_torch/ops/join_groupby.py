@@ -126,6 +126,21 @@ class JoinGroupby(StatOperator):
             state[self._group_name(group)].update([batch[k].values for k in group], conts)
         return state
 
+    def fit_merge(self, states):
+        out = states[0]
+        for s in states[1:]:
+            for name in out:
+                out[name].merge(s[name])
+        return out
+
+    def fit_reduce_multihost(self, state):
+        """Large group tables ride the all_to_all row exchange
+        (``groupby_stats.reduce_accums_multihost``; join_groupby.py:149-156)."""
+        from .groupby_stats import reduce_accums_multihost
+
+        merged, self.last_fit_reduce = reduce_accums_multihost(state)
+        return merged
+
     def fit_finalize(self, state):
         for name, accum in state.items():
             self.keyed[name] = accum.finalize()

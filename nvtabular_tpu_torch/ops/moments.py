@@ -62,6 +62,12 @@ class MomentsState:
         self._acc = acc if self._acc is None else self._acc + acc
         return self
 
+    def merge(self, other: "MomentsState") -> "MomentsState":
+        """Another rank's sums added to these (a multi-process fit)."""
+        if other._acc is not None:
+            self._acc = other._acc if self._acc is None else self._acc + other._acc.to(self._acc.device)
+        return self
+
     @property
     def columns(self) -> Dict[str, ColumnMoments]:
         if self._acc is None:

@@ -46,6 +46,12 @@ class Normalize(StatOperator):
     def fit_batch(self, col_selector, batch, state: MomentsState):
         return state.update_batch(batch)
 
+    def fit_merge(self, states):
+        out = states[0]
+        for s in states[1:]:
+            out = out.merge(s)
+        return out
+
     def fit_finalize(self, state: MomentsState):
         for name, mom in state.columns.items():
             self.means[name] = mom.mean

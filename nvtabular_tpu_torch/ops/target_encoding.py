@@ -153,6 +153,31 @@ class TargetEncoding(StatOperator):
             state["groups"][self._group_tag(group)].update(keys, targets)
         return state
 
+    def fit_merge(self, states):
+        out = states[0]
+        for s in states[1:]:
+            for tag in out["groups"]:
+                out["groups"][tag].merge(s["groups"][tag])
+            for t in self.target:
+                out["sum"][t] = float(out["sum"][t]) + float(s["sum"][t])
+                out["cnt"][t] = float(out["cnt"][t]) + float(s["cnt"][t])
+        return out
+
+    def fit_reduce_multihost(self, state):
+        """The (fold, key) tables ride the all_to_all row exchange
+        (``groupby_stats.reduce_accums_multihost``); the target sums are
+        scalars and take the allgather (target_encoding.py:192-207)."""
+        from ..parallel.multihost import allgather_pyobj
+        from .groupby_stats import reduce_accums_multihost
+
+        scalars = allgather_pyobj({k: {t: float(state[k][t]) for t in self.target} for k in ("sum", "cnt")})
+        groups, self.last_fit_reduce = reduce_accums_multihost(state["groups"])
+        return {
+            "groups": groups,
+            "sum": {t: sum(s["sum"][t] for s in scalars) for t in self.target},
+            "cnt": {t: sum(s["cnt"][t] for s in scalars) for t in self.target},
+        }
+
     def fit_finalize(self, state):
         for t in self.target:
             if t not in self.means:

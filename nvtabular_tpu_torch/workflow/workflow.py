@@ -37,15 +37,25 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Workflow:
-    def __init__(self, output_node: Node, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, output_node: Node, device=None, executor: Optional[TorchExecutor] = None):
+        """``executor`` (the JAX package's keyword, workflow.py:33) fixes the
+        device, and a ``TorchExecutor(device, mesh=...)`` fits on a mesh;
+        ``device`` must then be None or the executor's."""
+        if executor is None:
+            executor = TorchExecutor(resolve_device(device))
+        elif device is not None and torch.device(device) != executor.device:
+            raise ValueError(f"device {device} differs from the executor's {executor.device}")
+        self.device = executor.device
         self.graph = Graph(output_node)
-        self.executor = TorchExecutor(self.device)
+        self.executor = executor
         self._fit_engine = FitEngine(self.executor)
 
     # --- fitting ---------------------------------------------------------------
     def fit(self, dataset) -> "Workflow":
-        """Fit every stat op from scratch (a refit replaces earlier stats)."""
+        """Fit every stat op from scratch (a refit replaces earlier stats).
+        In a process group of several ranks each rank fits on its
+        round-robin shard of the partitions and every rank ends with the
+        same state."""
         for node in self.graph.nodes:
             if isinstance(node.op, StatOperator) and node.op.fitted:
                 node.op.clear()

@@ -19,11 +19,13 @@ from nvtabular_tpu_torch.kernels import cross as kcross
 from nvtabular_tpu_torch.kernels import difference_lag as kdl
 from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+from nvtabular_tpu_torch.kernels import exchange as kex
 from nvtabular_tpu_torch.kernels import fm as kfm
 from nvtabular_tpu_torch.kernels import groupby as kgb
 from nvtabular_tpu_torch.kernels import hash as khash
 from nvtabular_tpu_torch.kernels import hash_pair as khp
 from nvtabular_tpu_torch.kernels import interaction as kint
+from nvtabular_tpu_torch.kernels import moments as kmom
 from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.kernels import ragged as kragged
 from nvtabular_tpu_torch.loader import DeviceLoader
@@ -1224,3 +1226,161 @@ def test_deepfm_and_dcn_steps_through_kernels_match_plain_reference(family):
     torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
     for (name, p), got in zip(model.named_parameters(), grads):
         assert float((got - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max()), name
+
+
+# --- K15: the sharded vocabulary count, moments and row-sharded lookups ------------------
+def _exchange_keys(n, seed):
+    """Power-law int32 ids with pads and the int32 extremes among them."""
+    rng = np.random.default_rng(seed)
+    keys = ((rng.zipf(1.2, n) * 2654435761) % (1 << 31)).astype(np.int64) - (1 << 30)
+    keys = keys.astype(np.int32)
+    if n >= 64:
+        keys[rng.choice(n, 16, replace=False)] = kex.PAD
+        keys[:4] = [I32_MIN, I32_MAX - 1, -1, 0]
+    return torch.from_numpy(keys)
+
+
+@pytest.mark.parametrize("n", [0, 5, 1024, 300_007])
+@pytest.mark.parametrize("ndev", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("factor", [2.5, 0.2], ids=["fits", "overflows"])
+def test_exchange_route_matches_plain(ndev, n, factor):
+    """K15a's routing: the send buffer and the overflow bit-equal to the
+    plain version, a forced overflow included (factor 0.2)."""
+    _require_cuda()
+    keys = _exchange_keys(n, seed=ndev)
+    cap = max(int(np.ceil(n * factor / ndev)), 8)
+    kernels.reset_launches()
+    send, overflow = kex.exchange_route(keys.cuda(), ndev, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["exchange_route"] == 1
+    want_send, want_over = kex.exchange_route_plain(keys, ndev, cap)
+    assert torch.equal(send.cpu(), want_send)
+    assert int(overflow[0]) == int(want_over[0])
+    if factor < 1 and n > 1000:
+        assert int(want_over[0]) > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 3])
+def test_radix_sort_matches_plain(n):
+    _require_cuda()
+    keys = _exchange_keys(n, seed=n)
+    kernels.reset_launches()
+    got = kex.radix_sort(keys.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["radix_sort"] == (1 if n else 0)
+    assert torch.equal(got.cpu(), kex.radix_sort_plain(keys))
+    assert torch.equal(got.cpu(), torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("D", [16, 5])
+def test_range_gather_and_bag_match_plain(D):
+    """K15b on model shard 1 of 4 of a [4000, D] table (float4 and scalar
+    accesses): the gather bit-equal, the bag bit-equal (the same roundings
+    in the same order)."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(D)
+    table = torch.randn((4000, D), generator=gen)
+    local, start = table[1000:2000].contiguous(), 1000
+    ids = torch.randint(-5, 4005, (70_001,), generator=gen, dtype=torch.int32)
+    values = torch.randint(-5, 4005, (20_001, 6), generator=gen, dtype=torch.int32)
+    mask = (torch.rand((20_001, 6), generator=gen) < 0.7).float()
+    kernels.reset_launches()
+    got = kemb.embedding_range_gather(local.cuda(), ids.cuda(), start)
+    got_bag = kbag.embedding_range_bag(local.cuda(), values.cuda(), mask.cuda(), start)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_range_gather"] == 1 and kernels.LAUNCHES["embedding_range_bag"] == 1
+    assert torch.equal(got.cpu(), kemb.embedding_range_gather_plain(local, ids, start))
+    assert torch.equal(got_bag.cpu(), kbag.embedding_range_bag_plain(local, values, mask, start))
+
+
+@pytest.mark.parametrize("rows", [0, 1, 262_144])
+def test_column_moments_match_plain(rows):
+    """K15c: count, min and max exact; mean and M2 within rtol 1e-5 (float64
+    sums against float32 ones); an all-NaN column gives count 0, mean 0 and
+    +inf / -inf."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, 13), generator=gen) * 3.0 + 1.0
+    x[torch.rand((rows, 13), generator=gen) < 0.05] = float("nan")
+    x[:, 12] = float("nan")
+    kernels.reset_launches()
+    got = kmom.column_moments(x.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["column_moments"] == 1
+    want = kmom.column_moments_plain(x)
+    for i in (0, 3, 4):
+        assert torch.equal(got[i].cpu(), want[i])
+    for i in (1, 2):
+        torch.testing.assert_close(got[i].cpu(), want[i], rtol=1e-5, atol=1e-6)
+    assert int(got[0][12]) == 0 and float(got[1][12]) == 0.0
+
+
+def test_categorify_fit_mesh_on_one_rank_nccl_matches_single_process(tmp_path):
+    """A 1-rank NCCL group on the card: Categorify counts its columns with
+    K15a (route, all_to_all, sort) and fits the vocabularies of the
+    single-process fit, value for value and count for count."""
+    _require_cuda()
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch.dag.executor import TorchExecutor
+    from nvtabular_tpu_torch.parallel import initialize_distributed, local_mesh
+
+    rng = np.random.default_rng(8)
+    parts = [
+        nvt.TableBatch.from_pydict({
+            "a": ((rng.zipf(1.2, 50_000) * 2654435761) % (1 << 31)).astype(np.int32),
+            "b": rng.integers(0, 40, 50_000).astype(np.int32),
+        })
+        for _ in range(3)
+    ]
+    initialize_distributed("nccl", f"file://{tmp_path / 'store'}", 0, 1, timeout=120)
+    try:
+        mesh_wf = nvt.Workflow(["a", "b"] >> ops.Categorify(), executor=TorchExecutor("cuda:0", mesh=local_mesh()))
+        kernels.reset_launches()
+        mesh_wf.fit(nvt.Dataset(parts))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["exchange_route"] == 2 and kernels.LAUNCHES["radix_sort"] == 2
+    finally:
+        dist.destroy_process_group()
+    wf = nvt.Workflow(["a", "b"] >> ops.Categorify())
+    wf.fit(nvt.Dataset(parts))
+    got = next(n.op for n in mesh_wf.graph.nodes if isinstance(n.op, ops.Categorify)).vocabs
+    want = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Categorify)).vocabs
+    for key in ("a", "b"):
+        np.testing.assert_array_equal(got[key].values_by_code, want[key].values_by_code)
+        np.testing.assert_array_equal(got[key].counts, want[key].counts)
+
+
+def test_multiprocess_fit_across_cards_matches_one_process(tmp_path):
+    """An NCCL group of one rank a card, on every card of the machine: the
+    Criteo-shaped workflow of test_torch_multiprocess_fit.py fitted through
+    the exchange routes and the allgather ones (K15a over NCCL's all_to_all,
+    the keyed-row exchange, pickled states gathered across cards) gives the
+    vocabularies and group tables of one process's fit on the card, and the
+    ranks' transforms equal one process's."""
+    _require_cuda()
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more (NCCL refuses two ranks on one device)")
+    import test_torch_multiprocess_fit as mp
+
+    from torch_groups import run_group
+
+    parts = mp.port_parts()
+    wf = nvt.Workflow(mp.graph(ops))
+    wf.fit(nvt.Dataset(parts))
+    want, want_outs = mp.port_digests(wf), mp.transform_parts(wf, parts, range(mp.PARTS))
+    results = run_group(mp.fit_worker, world, tmp_path, "cuda", backend="nccl", timeout=300)
+    got_outs = {}
+    for res in results:
+        for route in ("exchange", "gather"):
+            mp._assert_same_fit(res[route]["digests"], want)
+        assert res["exchange"]["reduce"]["Categorify"] == {"exchange": mp.CATS, "gather": []}
+        got_outs.update(res["outs"])
+    assert sorted(got_outs) == list(range(mp.PARTS))
+    for i, outs in want_outs.items():
+        for name, w in outs.items():
+            if name in mp.CONTS:
+                np.testing.assert_allclose(got_outs[i][name], w, **mp.OUT_TOL, err_msg=name)
+            else:
+                np.testing.assert_array_equal(got_outs[i][name], w, err_msg=name)
