@@ -141,9 +141,28 @@ a nonzero exit:
    buffers and overflow), four ranks composed on the card (route, the
    all_to_all's transpose, sort, run-length encode; the overflow retry on
    the most skewed column) giving phase 18's counts; K15b on model shard 1
-   of 4; K15c on [262144, 13]; each timed beside its bound.
+   of 4; K15c on [262144, 13]; each timed beside its bound;
+20. DLRM training on row-sharded tables on a one-rank NCCL group (one
+   card): phase 7's feed (DeviceLoader(65536, shuffle=True, seed=0,
+   drop_last=True) over the first 4 transformed partitions) staged anew into
+   DLRMConfig.from_schema(..., embedding_dim=16, vocab_pad_multiple=4) (26
+   tables, 22,343,004 rows before padding) placed by parallel.shard_params
+   over local_mesh(), each batch by shard_batch, stepped by make_train_step
+   with Adagrad(1e-2); first the sharded model and an unsharded DLRM of the
+   same padded config and parameters take 8 steps each on the same batches
+   (losses within STEP_TOL, tables within SUM_TOL), then one warm-up chunk
+   and TRAIN_REPEATS timed passes of 64 steps beside phase 7's; the launch
+   counters zeroed before the staging and read after the last step (one
+   range_gather_columns and one range_scatter_grad a sharded step, K13a
+   only in the 8 unsharded steps, no plain version on the card); every
+   loss finite;
+21. K15d's range_gather_columns and range_scatter_grad on model shard 1 of
+   4 of phase 20's padded tables with [65536, 26] ids of its first batch
+   and D = 16, each against its plain version on the card and timed beside
+   its bound (index_select and zeros + index_add_ of the clamped shard rows
+   as the library calls).
 
-The line before the last is {"kernels": [...]} with the 31 kernels'
+The line before the last is {"kernels": [...]} with the 33 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -202,6 +221,9 @@ MH_TRAIN_PARTS, MH_STEPS, MH_SPARSE_MAX = 8, 56, 4
 # phases 18-19: the multi-GPU fit's exchange capacity (sharded_vocab.py:48),
 # the ranks of phase 19's composition, and its row-sharded table's shards
 CAPACITY_FACTOR, COMPOSE_RANKS, MODEL_SHARDS = 2.5, 4, 4
+# phase 20: the padding of the sharded tables (a multiple of MODEL_SHARDS,
+# so phase 21's shards are equal) and the steps held against the unsharded DLRM
+SHARD_PAD, SHARD_PARITY_STEPS = 4, 8
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -1549,6 +1571,8 @@ LIBRARY_WHAT = {
     "embedding_range_gather": "index_select of the clamped local rows, no zeros for other shards' rows",
     "embedding_range_bag": "embedding_bag of the clamped local rows, weights mask * in_range",
     "column_moments": "no one PyTorch call gives count, mean, M2, min and max with NaN as null",
+    "range_gather_columns": "index_select of each id's row clamped into its column's shard, no zeros or NaN",
+    "range_scatter_grad": "zeros + index_add_ of the held ids' rows",
 }
 
 
@@ -2287,6 +2311,195 @@ def sharded_kernel_records(dev, parts, cat_names, sharded: dict) -> dict:
     return records, compose
 
 
+def sharded_train_path(feed, schema, dlrm_steps_per_s: float, smi: str, profile: bool) -> dict:
+    """Phase 20: DLRM on row-sharded tables through shard_params, shard_batch
+    and make_train_step on a one-rank NCCL group, phase 7's feed staged anew."""
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import kernels, models, parallel
+
+    phase_t0 = time.perf_counter()
+    config = models.DLRMConfig.from_schema(schema, embedding_dim=TRAIN_DIM, vocab_pad_multiple=SHARD_PAD)
+    rows = sum(config.cardinalities.values())
+    store = Path("build") / f"nccl_store_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    parallel.initialize_distributed("nccl", f"file://{store.resolve()}", rank=0, world_size=1, timeout=300)
+    rec = {"backend": dist.get_backend(), "world": dist.get_world_size(), "rows": rows}
+    try:
+        mesh = parallel.local_mesh()
+        model = models.DLRM(config, seed=0, device=DEVICE)
+        ref = models.DLRM(config, seed=0, device=DEVICE)
+        p_specs, b_specs = models.dlrm_param_specs(model), models.batch_specs(config)
+        parallel.shard_params(model, p_specs, mesh)
+        if model.shard is None or not torch.equal(model.table, ref.table):
+            fail("sharded train: shard_params on a one-rank mesh must keep every row")
+        rec["padded_rows"] = int(model.table.shape[0])
+        opt, ref_opt = models.Adagrad(model.parameters(), lr=1e-2), models.Adagrad(ref.parameters(), lr=1e-2)
+        step = parallel.make_train_step(models.dlrm_loss, opt, mesh=mesh, param_specs=p_specs, batch_specs=b_specs)
+
+        def train(chunk):
+            n = chunk["label"].shape[0] // TRAIN_BS * TRAIN_BS
+            batches = [{k: v[s : s + TRAIN_BS] for k, v in chunk.items()} for s in range(0, n, TRAIN_BS)]
+            return torch.stack([step(model, opt, parallel.shard_batch(b, b_specs, mesh)) for b in batches])
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with plain_calls_on_card("sharded training"):
+            staged = list(feed.chunks())
+            # the sharded step against the unsharded one, from the same parameters on the same batches
+            parity = [{k: v[s : s + TRAIN_BS] for k, v in c.items()} for c in staged
+                      for s in range(0, c["label"].shape[0] - TRAIN_BS + 1, TRAIN_BS)][:SHARD_PARITY_STEPS]
+            got = torch.stack([step(model, opt, parallel.shard_batch(b, b_specs, mesh)) for b in parity])
+            want = torch.stack([models.train_step(ref, ref_opt, b) for b in parity])
+            torch.cuda.synchronize()
+            loss_rtol = STEP_TOL["bfloat16"][0]
+            rec["parity_loss_rel"] = float(((got - want).abs() / want.abs()).max())
+            table_err = (model.table.detach() - ref.table.detach()).abs()
+            rec["parity_table_abs"] = float(table_err.max())
+            if rec["parity_loss_rel"] > loss_rtol:
+                fail(f"sharded train: losses {got.tolist()} differ from the unsharded {want.tolist()} beyond rtol {loss_rtol}")
+            if not bool((table_err <= SUM_TOL["rtol"] * ref.table.detach().abs() + SUM_TOL["atol"]).all()):
+                fail(f"sharded train: tables differ from the unsharded DLRM's by up to {rec['parity_table_abs']}")
+            del ref, ref_opt, table_err
+            torch.cuda.empty_cache()
+            losses = [got]
+            t0 = time.perf_counter()
+            losses.append(train(staged[0]))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            pass_s, i = [], 1
+            for _ in range(TRAIN_REPEATS):
+                steps = 0
+                t0 = time.perf_counter()
+                while steps < TRAIN_STEPS:
+                    losses.append(train(staged[i % len(staged)]))
+                    steps += losses[-1].numel()
+                    i += 1
+                torch.cuda.synchronize()
+                pass_s.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        sharded_steps = sum(int(l.numel()) for l in losses)
+        per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
+        want_launches = {k: len(staged) for k in per_chunk}
+        want_launches.update(range_gather_columns=sharded_steps, range_scatter_grad=sharded_steps,
+                             embedding_gather=len(parity), embedding_scatter_grad=len(parity),
+                             interaction_fwd=sharded_steps + len(parity), interaction_bwd=sharded_steps + len(parity))
+        check_launches(launches, want_launches, "sharded train")
+        all_losses = torch.cat(losses)
+        if not bool(torch.isfinite(all_losses).all()):
+            fail(f"sharded train: non-finite losses {all_losses.tolist()}")
+        step_s = float(np.median(pass_s)) / TRAIN_STEPS
+        rec.update(
+            warm_chunk_s=warm_s, pass_s=pass_s, steps=sharded_steps, parity_steps=len(parity),
+            step_ms=1e3 * step_s, steps_per_s=1.0 / step_s, examples_per_s=TRAIN_BS / step_s,
+            dlrm_steps_per_s=dlrm_steps_per_s, first_loss=float(all_losses[0]), last_loss=float(all_losses[-1]),
+            launches=launches,
+        )
+        log(
+            f"sharded train: one-rank {rec['backend']} group; {rows} rows padded to {rec['padded_rows']}; "
+            f"{len(parity)} steps equal the unsharded DLRM's (losses within rtol {rec['parity_loss_rel']:.2e}, "
+            f"tables within {rec['parity_table_abs']:.2e}); {TRAIN_STEPS} steps of {TRAIN_BS}: median of "
+            f"{TRAIN_REPEATS} passes {rec['steps_per_s']:.2f} steps/s ({rec['step_ms']:.3f} ms a step; phase 7's "
+            f"DLRM {dlrm_steps_per_s:.2f} steps/s), {rec['examples_per_s']:,.0f} examples/s (passes "
+            f"{[round(x, 4) for x in pass_s]} s); loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f} over "
+            f"{sharded_steps} steps; launches {launches}; {smi}"
+        )
+        batch = parallel.shard_batch({k: v[:TRAIN_BS] for k, v in staged[0].items()}, b_specs, mesh)
+        if profile:
+
+            def train_two_chunks():
+                for c in staged[:2]:
+                    train(c)
+                torch.cuda.synchronize()
+
+            rec["profile"] = p = profile_pass(train_two_chunks)
+            log(f"profile sharded train (8 steps): wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+                f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+
+        def fwd_bwd():
+            opt.zero_grad()
+            models.dlrm_loss(model, batch).backward()
+
+        rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
+        rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+        log(f"sharded train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
+            f"(device time per step; the gradients' data-axis sums and the loss's add the rest)")
+        rec["ids"] = [batch[name] for name in model.names]
+        rec["padded"] = list(model.shard.padded)
+        del model, opt, staged
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"sharded train: phase 20 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def sharded_step_kernel_records(dev, sharded_train: dict) -> dict:
+    """Phase 21: K15d's two kernels on model shard 1 of MODEL_SHARDS of phase
+    20's padded tables, with its first batch's ids, against their plain
+    versions on the card; times beside bounds."""
+    from nvtabular_tpu_torch.kernels import embedding as kemb
+
+    phase_t0 = time.perf_counter()
+    ids, padded = sharded_train["ids"], sharded_train["padded"]
+    m = 1
+    sizes = [vp // MODEL_SHARDS for vp in padded]
+    starts = [m * s for s in sizes]
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+    cols = (offsets, sizes, starts, padded)
+    rows = sum(sizes)
+    local = torch.randn((rows, TRAIN_DIM), device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    B, C, D = ids[0].shape[0], len(ids), TRAIN_DIM
+    records = {}
+
+    got = kemb.range_gather_columns(local, ids, *cols, m)
+    want = kemb.range_gather_columns_plain(local, ids, *cols, m)
+    torch.cuda.synchronize()
+    if not nan_equal(got, want):
+        fail("range_gather_columns differs from plain")
+    shard_row, mine, _ = kemb.shard_rows(ids, *cols)
+    held = int(mine.sum())
+    held_rows = shard_row[mine]
+    distinct = int(torch.unique(held_rows).numel())
+    # each id's row clamped into its column's shard rows, as phase 19's yardstick
+    idx = torch.stack([v.long() for v in ids], 1)
+    vp, st = torch.tensor(padded, device=dev), torch.tensor(starts, device=dev)
+    local_ids = torch.where(idx < 0, idx + vp, idx) - st
+    top = torch.tensor(sizes, device=dev) - 1
+    flat = (torch.minimum(local_ids.clamp(min=0), top) + torch.tensor(offsets, device=dev)).reshape(-1)
+    rec = {"max_abs_err": 0, "shape": [B, C, rows, D], "in_range": held, "distinct_rows": distinct,
+           "bytes": B * C * 4 + distinct * D * 4 + B * C * D * 4,
+           "ms": time_ms(lambda: kemb.range_gather_columns(local, ids, *cols, m)),
+           "plain_ms": time_ms(lambda: kemb.range_gather_columns_plain(local, ids, *cols, m)),
+           "library_ms": time_ms(lambda: torch.index_select(local, 0, flat))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
+    records["range_gather_columns"] = rec
+
+    gbuf = torch.randn((B, 1 + C, D), device=dev, generator=torch.Generator(device=dev).manual_seed(8))
+    grad = gbuf[:, 1:]
+    got = kemb.range_scatter_grad(grad, ids, *cols, rows)
+    want = kemb.range_scatter_grad_plain(grad, ids, *cols, rows)
+    # a hot row sums many terms in a varying order: 1e-5 of their magnitudes
+    magnitude = kemb.range_scatter_grad_plain(grad.abs(), ids, *cols, rows)
+    torch.cuda.synchronize()
+    if not bool(((got - want).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+        fail(f"range_scatter_grad differs from plain: max abs {float((got - want).abs().max())}")
+    del magnitude
+    grad_held = grad[mine].contiguous()  # the same function: the held ids' rows only
+    rec = {"max_abs_err": float((got - want).abs().max()), "shape": [B, C, rows, D], "in_range": held,
+           "distinct_rows": distinct, "bytes": rows * D * 4 + B * C * 4 + held * D * 4,
+           "ms": time_ms(lambda: kemb.range_scatter_grad(grad, ids, *cols, rows)),
+           "plain_ms": time_ms(lambda: kemb.range_scatter_grad_plain(grad, ids, *cols, rows)),
+           "library_ms": time_ms(lambda: torch.zeros((rows, D), device=dev).index_add_(0, held_rows, grad_held))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], held * D)
+    records["range_scatter_grad"] = rec
+    log(f"sharded step kernels: shard {m} of {MODEL_SHARDS} ({rows} rows), {held} of {B * C} ids held, "
+        f"{distinct} distinct rows; phase 21 took {time.perf_counter() - phase_t0:.1f} s")
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -2552,7 +2765,6 @@ def main():
     cards = models.DLRMConfig.from_schema(wf.output_schema).cardinalities
     dlrm_step_ms = 1e3 / train_record["steps_per_s"]
     factorized = {f: train_family(f, feed, cards, dlrm_step_ms, smi, opts.profile) for f in ("deepfm", "dcn")}
-    del feed
 
     # --- 17. their kernels at their shapes -----------------------------------------------------------------------
     records.update(factorized_kernel_records(factorized))
@@ -2576,6 +2788,19 @@ def main():
         del sharded[key]
     sharded["compose"] = compose
     del parts
+
+    # --- 20. DLRM training on row-sharded tables on a one-rank NCCL group -----------------------------
+    sharded_train = sharded_train_path(feed, wf.output_schema, train_record["steps_per_s"], smi, opts.profile)
+    del feed
+    st_launches = sharded_train["launches"]
+    for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
+        main_launches[k] += st_launches[k]
+    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd"):
+        train_launches[k] += st_launches[k]
+
+    # --- 21. K15d against its plain versions on model shard 1 of 4 ------------------------------------
+    records.update(sharded_step_kernel_records(dev, sharded_train))
+    del sharded_train["ids"]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -2610,6 +2835,8 @@ def main():
         "embedding_range_gather": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:40", sharded_launches),
         "embedding_range_bag": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:73", sharded_launches),
         "column_moments": ("moments.cu", "nvtabular_tpu/parallel/stats.py:50", sharded_launches),
+        "range_gather_columns": ("sharded_embedding.cu", "nvtabular_tpu/parallel/train.py:39", st_launches),
+        "range_scatter_grad": ("sharded_embedding.cu", "nvtabular_tpu/parallel/train.py:39", st_launches),
     }
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
@@ -2659,6 +2886,7 @@ def main():
                     "buckets": buckets,
                     "factorized": factorized,
                     "sharded": sharded,
+                    "sharded_train": sharded_train,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

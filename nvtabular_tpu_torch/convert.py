@@ -26,7 +26,9 @@ DLRM parameters travel as the JAX package's pytree of numpy arrays,
     {"tables": {col: [V, D]}, "bottom": [{"w": [in, out], "b": [out]}, ...],
      "top": [...]}
 
-(``load_dlrm_params`` / ``dlrm_params``), and tabular MLP parameters as
+(``load_dlrm_params`` / ``dlrm_params``; on a DLRM whose tables are
+row-sharded, ``shard_params``, each table loads and reads as the rank's rows
+of it), and tabular MLP parameters as
 
     {"tables": {col: [V, D]}, "mh_tables": {col: [V, D]},
      "mlp": [{"w": [in, out], "b": [out]}, ...]}
@@ -178,11 +180,23 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
     return state
 
 
+def _held_rows(model, i: int, value: np.ndarray) -> np.ndarray:
+    """The rows of column ``i``'s whole table that ``model`` holds: all of
+    them, or the rank's rows where the tables are row-sharded."""
+    shard = getattr(model, "shard", None)
+    if shard is None:
+        return value
+    if value.shape[0] != shard.padded[i]:
+        raise ValueError(f"{model.names[i]}: {value.shape[0]} rows given, its padded table has {shard.padded[i]}")
+    return value[shard.starts[i] : shard.starts[i] + shard.sizes[i]]
+
+
 def _concatenated(model, param, per_column, what="tables"):
-    """(param, the per-column arrays concatenated in the model's column order)."""
+    """(param, the per-column arrays, or the rank's rows of each, concatenated
+    in the model's column order)."""
     if sorted(per_column) != model.names:
         raise ValueError(f"{what} {sorted(per_column)} do not match the model's {model.names}")
-    return [(param, np.concatenate([np.asarray(per_column[n]) for n in model.names]))]
+    return [(param, np.concatenate([_held_rows(model, i, np.asarray(per_column[n])) for i, n in enumerate(model.names)]))]
 
 
 def _dlrm_tensors(model, tree):
@@ -249,7 +263,9 @@ def load_dlrm_params(model, params: Dict[str, Any], optimizer=None,
                      sum_of_squares: Optional[Dict[str, Any]] = None) -> None:
     """Set the port's ``DLRM`` to the JAX parameter pytree ``params`` (numpy
     arrays) and, when given, ``optimizer``'s accumulators to optax's
-    ``sum_of_squares`` pytree of the same structure."""
+    ``sum_of_squares`` pytree of the same structure. A row-sharded model
+    takes the rank's rows of each whole table (``load_sharded_table``'s
+    split), and its accumulators likewise."""
     sos = [] if sum_of_squares is None else _dlrm_tensors(model, sum_of_squares)
     _load(_dlrm_tensors(model, params), optimizer, sos)
 
@@ -311,7 +327,9 @@ def dcn_params(model) -> Dict[str, Any]:
 
 
 def dlrm_params(model) -> Dict[str, Any]:
-    """The port's ``DLRM`` parameters as the JAX pytree of numpy arrays."""
+    """The port's ``DLRM`` parameters as the JAX pytree of numpy arrays;
+    for a row-sharded model each table is the rank's rows (stack the ranks'
+    in model-rank order for the whole table)."""
     return {
         "tables": {n: _host(model.table_rows(n)) for n in model.names},
         "mh_tables": {},

@@ -46,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "radix_sort": 0,
     "embedding_range_gather": 0,
     "embedding_range_bag": 0,
+    "range_gather_columns": 0,
+    "range_scatter_grad": 0,
     "column_moments": 0,
 }
 

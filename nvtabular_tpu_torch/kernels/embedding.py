@@ -11,12 +11,21 @@ gradient is dropped. The kernels are ``csrc/embedding.cu``.
 (kernel K15b, ``nvtabular_tpu/parallel/embeddings.py:40-50``): a rank's rows
 ``[start, start + rows_local)`` of a table, global ids, and zeros for the rows
 another rank holds. Its kernel is ``csrc/sharded_embedding.cu``.
+
+``range_gather_columns`` and ``range_scatter_grad`` are kernel K15d, the
+lookup and its gradient in the sharded DLRM train step
+(``nvtabular_tpu/parallel/train.py:39-81``): a rank's rows of C row-sharded
+tables in one concatenated shard (``RowShard``), ids with ``jnp.take``'s
+semantics on each whole padded table. ``ShardedEmbeddingFeatures`` wraps them
+with the model group's sum, as ``EmbeddingFeatures`` wraps K13a. Their
+kernels are ``csrc/sharded_embedding.cu`` too.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +45,16 @@ _RANGE_GATHER_ARGTYPES = [
 ]
 _SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
+]
+# ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, vec, stream
+_RANGE_COLUMNS_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p,
+]
+# ids, offsets, sizes, starts, padded, C, grad, grad row stride, D, B, dtable, rows_local, vec, stream
+_RANGE_SCATTER_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p,
 ]
 
@@ -202,6 +221,153 @@ def embedding_range_gather_plain(table, ids, start) -> torch.Tensor:
     return torch.where(in_range[:, None], rows, 0.0)
 
 
+@dataclass(frozen=True)
+class RowShard:
+    """A rank's rows of C row-sharded tables, concatenated in column order.
+
+    Column ``c`` holds the global rows ``[starts[c], starts[c] + sizes[c])``
+    of its table of ``padded[c]`` rows, from row ``offsets[c]`` of the
+    shard. ``reduce`` sums a tensor over the model group in place (the
+    group's ``all_reduce``); ``model_rank`` is this rank's index in it."""
+
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    starts: Tuple[int, ...]
+    padded: Tuple[int, ...]
+    model_rank: int
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+    def columns(self):
+        return self.offsets, self.sizes, self.starts, self.padded
+
+
+def _check_range_columns(num_rows: int, ids, offsets, sizes, starts, padded, dev) -> int:
+    """Validates a shard's columns and their ids; returns the batch size B."""
+    if not (len(ids) == len(offsets) == len(sizes) == len(starts) == len(padded)):
+        raise ValueError(f"{len(ids)} id columns for {len(offsets)} offsets, {len(sizes)} sizes, "
+                         f"{len(starts)} starts and {len(padded)} padded sizes")
+    if not ids:
+        raise ValueError("at least one id column is required")
+    B = ids[0].shape[0] if ids[0].dim() == 1 else -1
+    for c, (v, off, size, start, vp) in enumerate(zip(ids, offsets, sizes, starts, padded)):
+        check(v, f"ids[{c}]", torch.int32, dev, (B,))
+        if off < 0 or size < 0 or off + size > num_rows:
+            raise ValueError(f"column {c}: shard rows [{off}, {off + size}) outside the shard's {num_rows}")
+        if start < 0 or start + size > vp:
+            raise ValueError(f"column {c}: global rows [{start}, {start + size}) outside its table's {vp}")
+    return B
+
+
+def _c_range_columns(ids, offsets, sizes, starts, padded):
+    c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
+    k = len(ids)
+    return (c_ids, c_offs, c_sizes, (ctypes.c_int64 * k)(*[int(s) for s in starts]),
+            (ctypes.c_int64 * k)(*[int(p) for p in padded]))
+
+
+def range_gather_columns(
+    table: torch.Tensor,
+    ids: Sequence[torch.Tensor],
+    offsets: Sequence[int],
+    sizes: Sequence[int],
+    starts: Sequence[int],
+    padded: Sequence[int],
+    model_rank: int,
+) -> torch.Tensor:
+    """K15d forward: ``out[b, c] = table[offsets[c] + id - starts[c]]`` for
+    the ids (wrapped by ``padded[c]`` when negative) this rank holds, zeros
+    for another rank's, NaN on model rank 0 (zeros elsewhere) for ids no
+    rank holds → contiguous float32 [B, C, D]."""
+    if table.dim() != 2:
+        raise ValueError(f"table must be [rows_local, D], got shape {tuple(table.shape)}")
+    check(table, "table", torch.float32, table.device)
+    B = _check_range_columns(table.shape[0], ids, offsets, sizes, starts, padded, table.device)
+    if not use_kernel(table):
+        return range_gather_columns_plain(table, ids, offsets, sizes, starts, padded, model_rank)
+    C, D = len(ids), table.shape[1]
+    _check_kernel_limits(B, C, D)
+    out = torch.empty((B, C, D), dtype=torch.float32, device=table.device)
+    if B == 0 or D == 0:
+        return out
+    fn = library("sharded_embedding").nvt_range_gather_columns
+    if fn.argtypes is None:
+        fn.argtypes = _RANGE_COLUMNS_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(table), D, B, int(model_rank), ptr(out),
+            _vec(D, table, out), stream_ptr(table.device))
+    raise_on_error(rc, "range_gather_columns")
+    LAUNCHES["range_gather_columns"] += 1
+    return out
+
+
+def range_scatter_grad(
+    grad: torch.Tensor,
+    ids: Sequence[torch.Tensor],
+    offsets: Sequence[int],
+    sizes: Sequence[int],
+    starts: Sequence[int],
+    padded: Sequence[int],
+    num_rows: int,
+) -> torch.Tensor:
+    """K15d backward, the transpose of ``range_gather_columns``: the dense
+    float32 [num_rows, D] gradient of the shard from the gradient [B, C, D]
+    of the gathered rows (a view whose rows may be strided, as
+    ``embedding_scatter_grad`` takes it); only the ids this rank holds add."""
+    if grad.dim() != 3:
+        raise ValueError(f"grad must be [B, C, D], got shape {tuple(grad.shape)}")
+    B, C, D = grad.shape
+    dev = grad.device
+    if _check_range_columns(num_rows, ids, offsets, sizes, starts, padded, dev) != B or len(ids) != C:
+        raise ValueError(f"grad [{B}, {C}, {D}] does not match {len(ids)} id columns of {ids[0].shape[0]} ids")
+    check_view(grad, "grad", (B, C, D), dev)
+    if not use_kernel(grad):
+        return range_scatter_grad_plain(grad, ids, offsets, sizes, starts, padded, num_rows)
+    _check_kernel_limits(B, C, D)
+    dtable = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
+    if D == 0:
+        return dtable
+    fn = library("sharded_embedding").nvt_range_scatter_grad
+    if fn.argtypes is None:
+        fn.argtypes = _RANGE_SCATTER_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
+            num_rows, _vec(D, grad, dtable), stream_ptr(dev))
+    raise_on_error(rc, "range_scatter_grad")
+    LAUNCHES["range_scatter_grad"] += 1
+    return dtable
+
+
+def shard_rows(ids, offsets, sizes, starts, padded) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """int64 [B, C] rows of the shard, the [B, C] mask of the ids this rank
+    holds and the [B, C] mask of the ids no rank holds, after jnp.take's
+    wrap of negatives by the padded size."""
+    idx = torch.stack([v.long() for v in ids], dim=1)
+
+    def col(values):
+        return torch.tensor(list(values), dtype=torch.int64, device=idx.device)
+
+    vp = col(padded)
+    idx = torch.where(idx < 0, idx + vp, idx)
+    valid = (idx >= 0) & (idx < vp)
+    local = idx - col(starts)
+    mine = valid & (local >= 0) & (local < col(sizes))
+    return torch.where(mine, local + col(offsets), 0), mine, ~valid
+
+
+def range_gather_columns_plain(table, ids, offsets, sizes, starts, padded, model_rank) -> torch.Tensor:
+    rows, mine, no_rank = shard_rows(ids, offsets, sizes, starts, padded)
+    out = torch.where(mine[..., None], table[rows], 0.0)
+    if model_rank == 0:
+        out = torch.where(no_rank[..., None], float("nan"), out)
+    return out
+
+
+def range_scatter_grad_plain(grad, ids, offsets, sizes, starts, padded, num_rows) -> torch.Tensor:
+    rows, mine, _ = shard_rows(ids, offsets, sizes, starts, padded)
+    dtable = torch.zeros((num_rows, grad.shape[2]), dtype=torch.float32, device=grad.device)
+    return dtable.index_add_(0, rows[mine], grad[mine])
+
+
 def table_rows(ids, offsets, sizes) -> Tuple[torch.Tensor, torch.Tensor]:
     """int64 [B, C] rows of the concatenated table and the [B, C] mask of
     ids inside their column's table, after jnp.take's wrap of negatives."""
@@ -296,3 +462,44 @@ class EmbeddingRow(torch.autograd.Function):
 
 def embedding_row(table, ids, offsets, sizes, trail=None) -> torch.Tensor:
     return EmbeddingRow.apply(trail, table, tuple(offsets), tuple(sizes), *ids)
+
+
+class ShardedEmbeddingFeatures(torch.autograd.Function):
+    """``[lead, the model group's rows of column 0, ..., column C-1]`` →
+    float32 [b, 1 + C, D]: ``EmbeddingFeatures`` over row-sharded tables.
+    K15d gathers this rank's rows into a contiguous [b, C, D] buffer, the
+    shard's ``reduce`` sums it over the model group in place (exactly one
+    rank holds each row; model rank 0 alone writes the NaN rows), and the
+    sum lands in slots 1..C after the lead, which stays out of the sum.
+
+    Every rank of the model group holds the same sum, so the sum's
+    transpose is the identity: the backward scatter-adds the features'
+    gradient into this rank's rows (K15d's backward) with no collective, and
+    hands the lead its slot."""
+
+    @staticmethod
+    def forward(ctx, lead, table, shard, *ids):
+        emb = range_gather_columns(table, ids, *shard.columns(), shard.model_rank)
+        shard.reduce(emb)
+        B, C, D = emb.shape
+        feats = torch.empty((B, 1 + C, D), dtype=torch.float32, device=table.device)
+        feats[:, 0].copy_(lead)
+        feats[:, 1:].copy_(emb)
+        ctx.save_for_backward(*ids)
+        ctx.meta = (shard, table.shape[0])
+        return feats
+
+    @staticmethod
+    def backward(ctx, grad):
+        shard, num_rows = ctx.meta
+        ids = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_lead = grad[:, 0] if ctx.needs_input_grad[0] else None
+        d_table = None
+        if ctx.needs_input_grad[1]:
+            d_table = range_scatter_grad(grad[:, 1:], ids, *shard.columns(), num_rows)
+        return (d_lead, d_table, None) + (None,) * len(ids)
+
+
+def sharded_embedding_features(lead, table, ids, shard: RowShard) -> torch.Tensor:
+    return ShardedEmbeddingFeatures.apply(lead, table, shard, *ids)

@@ -15,7 +15,15 @@ from .deepfm import (
     deepfm_loss,
     deepfm_reference_forward,
 )
-from .dlrm import DLRM, DLRMConfig, dlrm_loss, make_synthetic_batch, reference_forward
+from .dlrm import (
+    DLRM,
+    DLRMConfig,
+    batch_specs,
+    dlrm_loss,
+    dlrm_param_specs,
+    make_synthetic_batch,
+    reference_forward,
+)
 from .layers import (
     MLP,
     bce_with_logits,
@@ -39,12 +47,14 @@ __all__ = [
     "MLP",
     "TabularMLP",
     "TabularMLPConfig",
+    "batch_specs",
     "bce_with_logits",
     "dcn_loss",
     "dcn_reference_forward",
     "deepfm_loss",
     "deepfm_reference_forward",
     "dlrm_loss",
+    "dlrm_param_specs",
     "dot_product_interaction",
     "embedding_lookup",
     "make_synthetic_batch",

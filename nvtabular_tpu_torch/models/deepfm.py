@@ -19,8 +19,9 @@ and the dense features fill the rest (``embedding_row``), the JAX forwards'
   output layer the cross output and the tower's side by side.
 
 ``compute_dtype`` (bfloat16 by default, as the JAX code) covers the MLPs
-and the cross products. ``vocab_pad_multiple > 1`` (row-sharded tables) is
-not ported yet.
+and the cross products. Each table (and each ``linear`` block) has
+``padded_cardinality`` rows, as ``deepfm_init`` and ``dcn_init`` pad them;
+the JAX package shards neither family's tables, and neither does the port.
 """
 
 from __future__ import annotations
@@ -76,18 +77,13 @@ class _Tables(nn.Module):
     """The concatenated embedding tables and the feature row of a batch."""
 
     def _init_tables(self, config, seed, device) -> torch.Generator:
-        if config.vocab_pad_multiple != 1:
-            raise NotImplementedError(
-                f"{type(self).__name__} with vocab_pad_multiple > 1 (row-sharded tables) is not ported yet "
-                "(ROADMAP.md queue 1 item 10)"
-            )
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         d = config.embedding_dim
         self.config = config
         self.names = sorted(config.cardinalities)
-        self.sizes = [int(config.cardinalities[n]) for n in self.names]
+        self.sizes = [config.padded_cardinality(int(config.cardinalities[n])) for n in self.names]
         self.offsets = [int(o) for o in np.concatenate([[0], np.cumsum(self.sizes)[:-1]])] if self.sizes else []
         rows = sum(self.sizes)
         self.table = nn.Parameter(torch.randn((rows, d), generator=gen, device=dev).mul_(1.0 / math.sqrt(d)))

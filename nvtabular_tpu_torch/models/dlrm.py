@@ -8,21 +8,25 @@ feature order of ``dlrm_forward``), which the gather kernel K13a indexes
 through per-column row offsets; the gathered rows land in slots 1..C of the
 [B, 1 + C, D] features after the bottom MLP's output, and the interaction
 kernel K13b writes its pair dots after the bottom output in the top MLP's
-input. Multihot tables and ``vocab_pad_multiple > 1`` (row sharding) are not
-ported yet.
+input. Each table has ``padded_cardinality`` rows, as ``dlrm_init`` pads it
+(``vocab_pad_multiple``). ``shard_tables`` keeps a rank's rows of every
+table for training on row-sharded tables (``parallel.shard_params``); the
+lookup then goes through kernel K15d and the model group's sum, and
+``dlrm_param_specs`` / ``batch_specs`` give the JAX package's shardings as
+axis tuples. Multihot tables are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.embedding import embedding_features, embedding_gather_plain
+from ..kernels.embedding import RowShard, embedding_features, embedding_gather_plain, sharded_embedding_features
 from ..kernels.interaction import dot_interaction, interaction_fwd_plain
 from ..workflow.workflow import resolve_device
 from .layers import MLP, bce_with_logits
@@ -47,6 +51,10 @@ class DLRMConfig:
     @property
     def num_features(self) -> int:
         return 1 + len(self.cardinalities) + len(self.multihot_cardinalities)
+
+    def padded_cardinality(self, n: int) -> int:
+        m = self.vocab_pad_multiple
+        return ((n + m - 1) // m) * m
 
     @property
     def interaction_dim(self) -> int:
@@ -82,7 +90,8 @@ class DLRM(nn.Module):
     drawn on ``device`` (``cuda:0`` unless the caller passes another) from a
     ``torch.Generator`` seeded with ``seed``, with ``dlrm_init``'s
     distributions: tables ``N(0, 1) / sqrt(D)``, MLPs He normal. The MLPs
-    compute in ``compute_dtype`` as ``mlp_apply`` does (bfloat16 by default)."""
+    compute in ``compute_dtype`` as ``mlp_apply`` does (bfloat16 by default).
+    Each table has ``config.padded_cardinality(V)`` rows."""
 
     def __init__(self, config: DLRMConfig, seed: int = 0, device=None, compute_dtype=torch.bfloat16):
         super().__init__()
@@ -90,11 +99,6 @@ class DLRM(nn.Module):
             raise NotImplementedError(
                 "DLRM with multihot tables is not ported yet "
                 "(ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
-            )
-        if config.vocab_pad_multiple != 1:
-            raise NotImplementedError(
-                "DLRM with vocab_pad_multiple > 1 (row-sharded tables) is not ported yet "
-                "(ROADMAP.md queue 1 item 10)"
             )
         if config.self_interaction:
             raise NotImplementedError(
@@ -106,7 +110,8 @@ class DLRM(nn.Module):
         d = config.embedding_dim
         self.config = config
         self.names = sorted(config.cardinalities)
-        self.sizes = [int(config.cardinalities[n]) for n in self.names]
+        self.sizes = [config.padded_cardinality(int(config.cardinalities[n])) for n in self.names]
+        self.shard: Optional[RowShard] = None
         self.offsets = [int(o) for o in np.concatenate([[0], np.cumsum(self.sizes)[:-1]])] if self.sizes else []
         rows = sum(self.sizes)
         self.table = nn.Parameter(torch.randn((rows, d), generator=gen, device=dev).mul_(1.0 / math.sqrt(d)))
@@ -120,14 +125,44 @@ class DLRM(nn.Module):
         )
 
     def table_rows(self, name: str) -> torch.Tensor:
-        """The rows of column ``name``'s table: a view of ``self.table``."""
+        """The rows of column ``name``'s table this model holds (a rank's
+        rows once sharded): a view of ``self.table``."""
         i = self.names.index(name)
         return self.table[self.offsets[i] : self.offsets[i] + self.sizes[i]]
+
+    def shard_tables(self, model_rank: int, model_size: int, reduce: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """Keep model shard ``model_rank`` of ``model_size`` of every table,
+        rows ``[m * Vp / M, (m + 1) * Vp / M)`` as ``P("model", None)``
+        splits it, concatenated in column order into a new ``self.table``;
+        ``offsets`` and ``sizes`` become the shard's, ``shard`` keeps each
+        table's global start and padded size. ``reduce`` sums a tensor over
+        the model group in place. Make the optimizer afterwards."""
+        if self.shard is not None:
+            raise ValueError("the tables are sharded already")
+        if not 0 <= model_rank < model_size:
+            raise ValueError(f"model_rank must be in [0, {model_size}), got {model_rank}")
+        bad = [n for n, v in zip(self.names, self.sizes) if v % model_size]
+        if bad:
+            raise ValueError(
+                f"tables {bad} have padded sizes not divisible by the model axis's {model_size} ranks: "
+                "set vocab_pad_multiple to a multiple of it"
+            )
+        sizes = [v // model_size for v in self.sizes]
+        starts = [model_rank * s for s in sizes]
+        with torch.no_grad():
+            local = torch.cat([self.table[o + st : o + st + s] for o, st, s in zip(self.offsets, starts, sizes)])
+        offsets = [int(o) for o in np.concatenate([[0], np.cumsum(sizes)[:-1]])] if sizes else []
+        self.shard = RowShard(tuple(offsets), tuple(sizes), tuple(starts), tuple(self.sizes), model_rank, reduce)
+        self.offsets, self.sizes = offsets, sizes
+        self.table = nn.Parameter(local.contiguous())
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         bottom_out = self.bottom(batch["dense"])  # [B, D]
         ids = [batch[name] for name in self.names]
-        feats = embedding_features(bottom_out, self.table, ids, self.offsets, self.sizes)  # [B, F, D]
+        if self.shard is None:
+            feats = embedding_features(bottom_out, self.table, ids, self.offsets, self.sizes)  # [B, F, D]
+        else:
+            feats = sharded_embedding_features(bottom_out, self.table, ids, self.shard)
         top_in = dot_interaction(feats, bottom_out)  # [B, D + F(F-1)/2]
         return self.top(top_in).reshape(-1)
 
@@ -135,7 +170,9 @@ class DLRM(nn.Module):
 def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``model``'s forward through the plain versions of K13a and K13b, with
     autograd through plain PyTorch operations, on any device: what the
-    kernel path is held against on the card."""
+    kernel path is held against on the card. Not for sharded tables."""
+    if model.shard is not None:
+        raise ValueError("reference_forward takes a model whose tables are not sharded")
     bottom_out = model.bottom(batch["dense"])
     ids = [batch[name] for name in model.names]
     emb = embedding_gather_plain(model.table, ids, model.offsets, model.sizes)
@@ -146,6 +183,34 @@ def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tens
 
 def dlrm_loss(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return bce_with_logits(model(batch), batch["label"])
+
+
+def dlrm_param_specs(model: DLRM, model_axis: str = "model") -> Dict[str, object]:
+    """The JAX package's ``dlrm_param_specs`` as axis tuples, in the shape of
+    its parameter pytree: each table row-sharded over ``model_axis``
+    (``(model_axis, None)``), the MLPs replicated (``()``)."""
+
+    def mlp(m):
+        return [{"w": (), "b": ()} for _ in m.weights]
+
+    return {
+        "tables": {n: (model_axis, None) for n in model.names},
+        "mh_tables": {},
+        "bottom": mlp(model.bottom),
+        "top": mlp(model.top),
+    }
+
+
+def batch_specs(config: DLRMConfig, data_axis: str = "data") -> Dict[str, Tuple]:
+    """The JAX package's ``batch_specs`` as axis tuples: every input split
+    on its leading (batch) dimension over ``data_axis``."""
+    specs: Dict[str, Tuple] = {"dense": (data_axis, None), "label": (data_axis,)}
+    for name in config.cardinalities:
+        specs[name] = (data_axis,)
+    for name in config.multihot_cardinalities:
+        specs[f"{name}__values"] = (data_axis, None)
+        specs[f"{name}__mask"] = (data_axis, None)
+    return specs
 
 
 def make_synthetic_batch(config: DLRMConfig, batch_size: int, seed: int = 0) -> Dict[str, np.ndarray]:

@@ -1,4 +1,4 @@
-"""Row-sharded embedding lookups over the mesh, forward.
+"""Row-sharded embedding lookups over the mesh.
 
 Counterpart of ``nvtabular_tpu/parallel/embeddings.py:22-87``. Each rank of
 the ``model`` axis holds a contiguous row range of a [V, D] table (model
@@ -7,6 +7,13 @@ shard ``m`` of ``M`` holds rows ``[m * V / M, (m + 1) * V / M)``; see
 the ids. Kernel K15b gathers (or bags) the local rows for every id, zeros
 for the rows another rank holds, and one ``all_reduce`` over the model
 axis's group assembles the embeddings: exactly one rank owns each row.
+
+``sharded_embedding_lookup`` is differentiable in ``table``, the transpose
+of the JAX ``shard_map``: each rank scatter-adds the output's gradient of
+the ids it holds into its rows (K15d's backward with one column), and no
+collective runs, since the summed output is the same on every rank of the
+model axis. ``sharded_embedding_bag`` is forward-only (its gradient waits
+for DLRM's multihot tables, ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.embedding import embedding_range_gather
+from ..kernels.embedding import embedding_range_gather, range_scatter_grad
 from ..kernels.embedding_bag import COMBINERS, embedding_range_bag
 from .mesh import all_reduce, mesh_device
 
@@ -31,13 +38,37 @@ def _local(table, mesh, model_axis: str):
     return table, mesh.get_local_rank(model_axis) * table.shape[0]
 
 
+class _RangeLookup(torch.autograd.Function):
+    """The lookup summed over the model group; the backward scatter-adds the
+    gradient of the ids in ``[start, start + rows_local)`` into the rows."""
+
+    @staticmethod
+    def forward(ctx, table, ids, start, group):
+        ctx.save_for_backward(ids)
+        ctx.meta = (start, table.shape[0], group.size())
+        return all_reduce(embedding_range_gather(table, ids, start), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        start, rows, model_size = ctx.meta
+        padded = rows * model_size
+        # the shard_map reads zeros for every id outside [0, V): no wrap of negatives
+        ids = ids.masked_fill(ids < 0, padded)
+        d_table = range_scatter_grad(grad.contiguous()[:, None], [ids], [0], [rows], [start], [padded], rows)
+        return d_table, None, None, None
+
+
 def sharded_embedding_lookup(table, indices, mesh, model_axis: str = "model", data_axis: str = "data"):
     """``table``: this rank's rows of the [V, D] table (its model shard);
     ``indices``: this rank's data shard of global row ids, int [b].
-    → float32 [b, D], the same on every rank of the model axis."""
+    → float32 [b, D], the same on every rank of the model axis; ids outside
+    [0, V) read zeros. Differentiable in ``table`` (a tensor that requires
+    grad): its gradient covers this rank's ids, so a data-parallel caller
+    sums it over the data axis, as the JAX transpose does."""
     table, start = _local(table, mesh, model_axis)
     ids = _tensor(indices, torch.int32, table.device)
-    return all_reduce(embedding_range_gather(table, ids, start), mesh.get_group(model_axis))
+    return _RangeLookup.apply(table, ids, start, mesh.get_group(model_axis))
 
 
 def sharded_embedding_bag(

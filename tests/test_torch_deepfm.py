@@ -524,15 +524,6 @@ def test_init_distributions(family):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_vocab_pad_multiple_raises(family):
-    fam = Family(family)
-    _, pconfig = fam.configs(vocab_pad_multiple=8)
-    assert pconfig.padded_cardinality(7) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        fam.model(pconfig, device="cpu")
-
-
-@pytest.mark.parametrize("family", FAMILIES)
 def test_default_device_is_cuda(family):
     fam = Family(family)
     _, pconfig = fam.configs()

@@ -1384,3 +1384,164 @@ def test_multiprocess_fit_across_cards_matches_one_process(tmp_path):
                 np.testing.assert_allclose(got_outs[i][name], w, **mp.OUT_TOL, err_msg=name)
             else:
                 np.testing.assert_array_equal(got_outs[i][name], w, err_msg=name)
+
+
+def _shard_columns(g, B, cards, M, m, D):
+    """Tables padded to multiples of M, shard m of M of each concatenated,
+    the shard's columns and ids with the edge cases in every other column:
+    a padding row, -1 (wraps to it), -Vp (wraps to row 0), and ids no rank
+    holds."""
+    padded = [-(-v // M) * M for v in cards]
+    sizes = [vp // M for vp in padded]
+    starts = [m * s for s in sizes]
+    offsets = [0]
+    for s in sizes[:-1]:
+        offsets.append(offsets[-1] + s)
+    local = torch.randn((sum(sizes), D), generator=g)
+    ids = []
+    for c, (v, vp) in enumerate(zip(cards, padded)):
+        i = (torch.rand(B, generator=g) ** 2.5 * v).to(torch.int32)
+        if c % 2:
+            i[:7] = torch.tensor([v, -1, -vp, vp, -vp - 1, 2**31 - 1, vp - 1], dtype=torch.int32)
+        ids.append(i)
+    return local, ids, offsets, sizes, starts, padded
+
+
+@pytest.mark.parametrize("model_rank", [0, 1])
+@pytest.mark.parametrize("D", [16, 5])
+def test_range_column_kernels_match_plain(D, model_rank):
+    """K15d on model shard 1 of 4 (and shard 0, which writes the NaN rows)
+    of 26 padded tables, with float4 (D = 16) and scalar (D = 5) accesses:
+    the gather bit-equal to its plain version, NaN where it has NaN; the
+    scatter-add within 1e-5 of the sum of its terms' magnitudes (atomics
+    sum in a varying order), from a strided view of the gradient."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(D + model_rank)
+    cards = [3, 40, 1001, 7, 60_000, 5, 200, 12_345] * 3 + [4, 90]
+    B = 4099
+    local, ids, offsets, sizes, starts, padded = _shard_columns(g, B, cards, 4, model_rank, D)
+    cols = (offsets, sizes, starts, padded)
+    dev_ids = [i.cuda() for i in ids]
+    grad = torch.randn((B, len(cards), D), generator=g)
+    gbuf = torch.zeros((B, 1 + len(cards), D), device="cuda")
+    gbuf[:, 1:] = grad.cuda()
+    kernels.reset_launches()
+    got = kemb.range_gather_columns(local.cuda(), dev_ids, *cols, model_rank)
+    got_grad = kemb.range_scatter_grad(gbuf[:, 1:], dev_ids, *cols, local.shape[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["range_gather_columns"] == 1 and kernels.LAUNCHES["range_scatter_grad"] == 1
+    want = kemb.range_gather_columns_plain(local, ids, *cols, model_rank)
+    assert got.is_contiguous() and torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+    assert torch.isnan(want).any() == (model_rank == 0)
+    assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(want))
+    want_grad = kemb.range_scatter_grad_plain(grad, ids, *cols, local.shape[0])
+    magnitude = kemb.range_scatter_grad_plain(grad.abs(), ids, *cols, local.shape[0])
+    assert bool(((got_grad.cpu() - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
+
+
+def test_range_column_kernels_take_empty_inputs_and_the_current_stream():
+    """No ids: an empty gather and a zero gradient; on a side stream the
+    kernels follow the stream they are launched on (the gather bit-equal,
+    the scatter within 1e-5 of its terms' magnitudes: atomics)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(3)
+    local, ids, offsets, sizes, starts, padded = _shard_columns(g, 20_001, [50, 3000, 9], 2, 1, 8)
+    cols = (offsets, sizes, starts, padded)
+    empty = [torch.zeros(0, dtype=torch.int32, device="cuda")] * 3
+    assert kemb.range_gather_columns(local.cuda(), empty, *cols, 1).shape == (0, 3, 8)
+    zero = kemb.range_scatter_grad(torch.zeros((0, 3, 8), device="cuda"), empty, *cols, local.shape[0])
+    assert zero.shape == local.shape and not bool(zero.any())
+    side = torch.cuda.Stream()
+    grad = torch.randn((20_001, 3, 8), generator=g)
+    dl, di, dg = local.cuda(), [i.cuda() for i in ids], grad.cuda()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        got = kemb.range_gather_columns(dl, di, *cols, 1)
+        got_grad = kemb.range_scatter_grad(dg, di, *cols, local.shape[0])
+    side.synchronize()
+    assert torch.equal(got.cpu(), kemb.range_gather_columns_plain(local, ids, *cols, 1))
+    want_grad = kemb.range_scatter_grad_plain(grad, ids, *cols, local.shape[0])
+    magnitude = kemb.range_scatter_grad_plain(grad.abs(), ids, *cols, local.shape[0])
+    assert bool(((got_grad.cpu() - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
+
+
+def test_sharded_step_on_one_rank_nccl_matches_unsharded(tmp_path):
+    """A one-rank NCCL group on the card: shard_params, shard_batch and
+    make_train_step over a (1, 1) mesh take three Adagrad steps through
+    K15d (one range_gather_columns and one range_scatter_grad a step, no
+    K13a) from the parameters of an unsharded DLRM, which takes the same
+    steps through K13a: losses within rtol 1e-5, tables and MLPs within
+    1e-5 (the scatters' atomics sum in varying orders)."""
+    _require_cuda()
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import parallel
+
+    config = models.DLRMConfig({"a": 1001, "b": 499, "c": 7}, num_dense=13, embedding_dim=16, vocab_pad_multiple=4)
+    batch = {k: torch.from_numpy(v) for k, v in models.make_synthetic_batch(config, 4096, seed=2).items()}
+    batch["a"][:2] = torch.tensor([1001, -1], dtype=torch.int32)  # padding rows
+    want_model = models.DLRM(config, seed=1)
+    want_opt = models.Adagrad(want_model.parameters())
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    want = [float(models.train_step(want_model, want_opt, dev_batch)) for _ in range(3)]
+    parallel.initialize_distributed("nccl", f"file://{tmp_path / 'store'}", 0, 1, timeout=120)
+    try:
+        mesh = parallel.local_mesh()
+        model = models.DLRM(config, seed=1)
+        p_specs, b_specs = models.dlrm_param_specs(model), models.batch_specs(config)
+        parallel.shard_params(model, p_specs, mesh)
+        opt = models.Adagrad(model.parameters())
+        step = parallel.make_train_step(models.dlrm_loss, opt, mesh=mesh, param_specs=p_specs, batch_specs=b_specs)
+        local = parallel.shard_batch(batch, b_specs, mesh)
+        kernels.reset_launches()
+        got = [float(step(model, opt, local)) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["range_gather_columns"] == 3 and kernels.LAUNCHES["range_scatter_grad"] == 3
+        assert kernels.LAUNCHES["embedding_gather"] == 0 and kernels.LAUNCHES["embedding_scatter_grad"] == 0
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for p, q in zip(model.parameters(), want_model.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_train_step_across_cards_matches_one_process(tmp_path):
+    """An NCCL group of one rank a card on every card of the machine (data
+    2 x model 2 on four; model 2 on two): three sharded Adagrad steps of one
+    global batch give one process's unsharded steps on a card from the same
+    parameters — every rank's losses and the tables stacked from the ranks
+    within 1e-5 (atomics and the data axis's sums in other orders), the MLPs
+    within 1e-5 on one data rank and within STEPS * lr * 2**-8 on two (each
+    data rank's weight gradient rounds to bfloat16 before their sum, one
+    process's once: test_torch_sharded_train.py) — and the MLP replicas are
+    bit-equal across the ranks."""
+    _require_cuda()
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more (NCCL refuses two ranks on one device)")
+    import test_torch_sharded_train as st
+
+    from torch_groups import run_group
+
+    model_size = 2 if world % 2 == 0 else 1
+    config = models.DLRMConfig(st.CARDS, st.NUM_DENSE, **st.MODEL_KW)
+    params = nvt.dlrm_params(models.DLRM(config, seed=5, device="cpu"))
+    batch = st.step_batch()
+    ref = models.DLRM(config, device="cuda:0")
+    nvt.load_dlrm_params(ref, params)
+    opt = models.Adagrad(ref.parameters(), lr=st.LR)
+    want = [float(models.train_step(ref, opt, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
+            for _ in range(st.STEPS)]
+    want_params = nvt.dlrm_params(ref)
+    ranks = run_group(st.train_worker, world, tmp_path, model_size, params, batch, backend="nccl", timeout=300)
+    tables = st._stacked(ranks, model_size, "params")
+    mlp_tol = dict(rtol=1e-5, atol=1e-5) if world == model_size else dict(rtol=0, atol=st.STEPS * st.LR * 2**-8)
+    for res in ranks:
+        np.testing.assert_allclose(res["losses"], want, rtol=1e-5)
+        for side in ("bottom", "top"):
+            for got, w, first in zip(res["params"][side], want_params[side], ranks[0]["params"][side]):
+                for k in ("w", "b"):
+                    np.testing.assert_allclose(got[k], w[k], **mlp_tol)
+                    assert np.array_equal(got[k].view(np.int32), first[k].view(np.int32))
+    for n in st.CARDS:
+        np.testing.assert_allclose(tables[n], want_params["tables"][n], rtol=1e-5, atol=1e-5, err_msg=n)

@@ -20,6 +20,7 @@ import nvtabular_tpu_torch as pnvt
 from nvtabular_tpu.models import dlrm as jdlrm
 from nvtabular_tpu.models import layers as jlayers
 from nvtabular_tpu_torch import models as pmodels
+from nvtabular_tpu_torch import parallel as par
 from nvtabular_tpu_torch.kernels import LAUNCHES
 from nvtabular_tpu_torch.kernels.embedding import embedding_features
 from nvtabular_tpu_torch.kernels.interaction import dot_interaction
@@ -336,9 +337,12 @@ def test_train_chunk_equals_train_steps():
         lambda: pmodels.xdeepfm_outer_product(None, None, None),
         lambda: pmodels.dot_product_interaction(torch.zeros(2, 3, 4), self_interaction=True),
         lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, multihot_cardinalities={"m": 4}), device="cpu"),
-        lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, vocab_pad_multiple=8), device="cpu"),
+        # vocab_pad_multiple and row-sharded training are ported (test_torch_sharded_train.py);
+        # row-sharded multihot tables are not
+        lambda: par.shard_params(pmodels.DLRM(_config_pair()[1], device="cpu"),
+                                 {"tables": {}, "mh_tables": {"m": ("model", None)}}, None),
     ],
-    ids=["multihot", "xdeepfm", "self_interaction", "dlrm_multihot", "vocab_pad_multiple"],
+    ids=["multihot", "xdeepfm", "self_interaction", "dlrm_multihot", "sharded_multihot"],
 )
 def test_unported_model_parts_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -350,12 +350,6 @@ def test_default_backend_needs_cuda(monkeypatch):
         par.initialize_distributed()
 
 
-@pytest.mark.parametrize("name", ["make_train_step", "shard_params", "shard_batch"])
-def test_sharded_training_is_not_ported(name):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(par, name)()
-
-
 def test_string_exchange_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 4"):
         sharded_vocab.exchange_partial_string_counts(np.array(["a"], dtype=object), np.array([1]))
