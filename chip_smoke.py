@@ -160,9 +160,31 @@ a nonzero exit:
    4 of phase 20's padded tables with [65536, 26] ids of its first batch
    and D = 16, each against its plain version on the card and timed beside
    its bound (index_select and zeros + index_add_ of the clamped shard rows
-   as the library calls).
+   as the library calls);
+22. DLRM with the genres multihot table on phase 10's feed (its loader,
+   staged anew: 8 partitions through DeviceLoader(sparse_max={"genres":
+   4})), DLRMConfig.from_schema(num_dense=1) at the JAX config's defaults
+   (dim 64, bottom and top MLPs 512-256; 2 tables, the 23-row genres
+   multihot table, 4 features), Adagrad(1e-2), batch 65,536: a warm-up
+   chunk and TRAIN_REPEATS timed passes of MH_STEPS steps (one K13a gather
+   and scatter, one K13c bag forward and backward, one K13b forward and
+   backward a step), one step kernels-vs-plain; then the same model with
+   vocab_pad_multiple=4 through shard_params / shard_batch /
+   make_train_step on a one-rank NCCL group: 8 steps beside an unsharded
+   DLRM (losses within STEP_TOL, both tables within SUM_TOL) and timed
+   passes (one range_gather_columns, range_scatter_grad, range_bag and
+   range_bag_grad a step);
+23. the layer entry points: dot_product_interaction(self_interaction=True)
+   on [65536, 27, 16] and a two-layer CIN (xdeepfm_outer_product, 26
+   fields of dim 16, 200 maps) at batch 8,192, forward and backward, held
+   against the plain layers; then K15d's bag (forward in take mode and its
+   gradient) on model shard 1 of 4 of phase 22's padded genres table with
+   its first batch's [65536, 4] values at dim 64, K13b's self mode at
+   [65536, 27, 16] -> 378 and K13d at xDeepFM's layer 1 ([65536, 26, 16]
+   twice -> 200) and layer 2 ([8192, 200, 16] x [8192, 26, 16] -> 200),
+   each against its plain version on the card and timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 33 kernels'
+The line before the last is {"kernels": [...]} with the 39 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -224,6 +246,11 @@ CAPACITY_FACTOR, COMPOSE_RANKS, MODEL_SHARDS = 2.5, 4, 4
 # phase 20: the padding of the sharded tables (a multiple of MODEL_SHARDS,
 # so phase 21's shards are equal) and the steps held against the unsharded DLRM
 SHARD_PAD, SHARD_PARITY_STEPS = 4, 8
+# phase 23: K13b's self-interaction on phase 7's 27 features of dim 16, and
+# xDeepFM's CIN in its Criteo setting (arXiv:1803.05170: 26 fields of dim 16,
+# 200 feature maps a layer); layer 2 at a smaller batch (the plain version
+# stores the [B, 200 * 26, 16] outer product)
+SELF_FEATURES, CIN_FIELDS, CIN_DIM, CIN_MAPS, CIN_L2_BATCH = 27, 26, 16, 200, 8192
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -1044,7 +1071,7 @@ def multihot_train(nvt, wf, batches, profile: bool) -> dict:
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
     log(f"multihot train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
-    rec.update(model=model, batch=batch)
+    rec.update(model=model, batch=batch, loader=loader)
     return rec
 
 
@@ -1146,6 +1173,7 @@ def multihot_path(nvt, dev, ml_parts, profile: bool) -> dict:
     log(f"multihot: ListSlice(0, 3, pad=True) over {ML_PARTS} batches in {slice_s:.2f} s, launches "
         f"{rec['slice_launches']}; batch 0 equals the CPU run")
     rec["genres_batch0"] = outs[0]["genres"]
+    rec["schema"] = wf.output_schema
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"multihot: phase 10 took {rec['phase_s']:.1f} s")
     return rec
@@ -1218,8 +1246,8 @@ def multihot_kernel_records(mh: dict) -> dict:
                        generator=torch.Generator(device=table.device).manual_seed(4))
     grad = gbuf[:, start : start + D]
     got = kbag.embedding_bag_bwd(grad, ids, mask, V)
-    want = kbag.embedding_bag_bwd_plain(grad, ids, mask, V)
-    magnitude = kbag.embedding_bag_bwd_plain(grad.abs(), ids, mask, V)
+    want = kbag.range_bag_grad_plain(grad, ids, mask, 0, V, V)
+    magnitude = kbag.range_bag_grad_plain(grad.abs(), ids, mask, 0, V, V)
     torch.cuda.synchronize()
     # 65,536 x 4 terms on 23 rows, summed in a varying order: 1e-5 of the
     # sum of their magnitudes, as for K13a's scatter
@@ -1231,7 +1259,7 @@ def multihot_kernel_records(mh: dict) -> dict:
         "max_abs_err": float((got - want).abs().max()), "shape": [B, L, V, D],
         "bytes": B * L * 8 + B * D * 4 + V * D * 4,
         "ms": time_ms(lambda: kbag.embedding_bag_bwd(grad, ids, mask, V)),
-        "plain_ms": time_ms(lambda: kbag.embedding_bag_bwd_plain(grad, ids, mask, V)),
+        "plain_ms": time_ms(lambda: kbag.range_bag_grad_plain(grad, ids, mask, 0, V, V)),
         # the terms precomputed outside the timing
         "library_ms": time_ms(lambda: torch.zeros((V, D), device=table.device).index_add_(0, flat, terms)),
         "hottest_row_hits": int(torch.bincount(flat[mask.reshape(-1) > 0]).max()),
@@ -2500,6 +2528,377 @@ def sharded_step_kernel_records(dev, sharded_train: dict) -> dict:
     return records
 
 
+def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
+    """Phase 22: DLRM with the genres multihot table on phase 10's feed
+    (DeviceLoader(sparse_max={"genres": 4}) over the first MH_TRAIN_PARTS
+    transformed partitions, staged anew) at the JAX config's defaults, then
+    the same model row-sharded on a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import kernels, models, parallel
+
+    phase_t0 = time.perf_counter()
+    config = models.DLRMConfig.from_schema(schema, num_dense=1)
+    shape = (len(config.cardinalities), dict(config.multihot_cardinalities), config.num_features, config.embedding_dim)
+    if shape != (2, {"genres": ML_GENRES + 3}, 4, 64):
+        fail(f"multihot dlrm: unexpected config (tables, multihot, features, dim) {shape}")
+    model = models.DLRM(config, seed=0, device=DEVICE)
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    table_bytes = sum(p.numel() * 4 for p in [model.table, *model.mh_tables])
+    torch.cuda.synchronize()
+
+    def run_passes(train, staged, steps_each):
+        """A warm-up chunk, then TRAIN_REPEATS timed passes of steps_each steps."""
+        t0 = time.perf_counter()
+        losses = [train(staged[0])]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        pass_s, i = [], 1
+        for _ in range(TRAIN_REPEATS):
+            steps = 0
+            t0 = time.perf_counter()
+            while steps < steps_each:
+                losses.append(train(staged[i % len(staged)]))
+                steps += losses[-1].numel()
+                i += 1
+            torch.cuda.synchronize()
+            pass_s.append(time.perf_counter() - t0)
+        return losses, warm_s, pass_s
+
+    kernels.reset_launches()
+    with plain_calls_on_card("multihot dlrm"):
+        t0 = time.perf_counter()
+        staged = list(feed.chunks())
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        losses, warm_s, pass_s = run_passes(lambda c: models.train_chunk(model, opt, c, TRAIN_BS), staged, MH_STEPS)
+    launches = dict(kernels.LAUNCHES)
+    total_steps = sum(int(l.numel()) for l in losses)
+    per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
+    per_step = {"embedding_gather", "embedding_scatter_grad", "embedding_bag_fwd", "embedding_bag_bwd",
+                "interaction_fwd", "interaction_bwd"}
+    check_launches(launches, {**{k: len(staged) for k in per_chunk}, **{k: total_steps for k in per_step}},
+                   "multihot dlrm")
+    all_losses = torch.cat(losses)
+    if not bool(torch.isfinite(all_losses).all()):
+        fail(f"multihot dlrm: non-finite losses {all_losses.tolist()}")
+    step_s = float(np.median(pass_s)) / MH_STEPS
+    rec = {
+        "config": {"cardinalities": dict(config.cardinalities), "multihot": dict(config.multihot_cardinalities),
+                   "embedding_dim": config.embedding_dim, "bottom": list(config.bottom_mlp),
+                   "top": list(config.top_mlp)},
+        "stage_s": stage_s, "warm_chunk_s": warm_s, "pass_s": pass_s, "steps": total_steps,
+        "step_ms": 1e3 * step_s, "steps_per_s": 1.0 / step_s, "examples_per_s": TRAIN_BS / step_s,
+        "first_loss": float(all_losses[0]), "last_loss": float(all_losses[-1]), "launches": launches,
+        "chunks": len(staged), "table_bytes": table_bytes,
+    }
+    log(
+        f"multihot dlrm: {shape[0]} tables {config.cardinalities} + multihot {config.multihot_cardinalities}, "
+        f"dim {config.embedding_dim}, {table_bytes:,} table bytes; staged {len(staged)} chunks in {stage_s:.3f} s; "
+        f"{MH_STEPS} steps of {TRAIN_BS}: median of {TRAIN_REPEATS} passes {rec['steps_per_s']:.2f} steps/s "
+        f"({rec['step_ms']:.3f} ms a step), {rec['examples_per_s']:,.0f} examples/s (passes "
+        f"{[round(x, 4) for x in pass_s]} s); loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f} over "
+        f"{total_steps} steps; launches {launches}; {smi}"
+    )
+    batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
+    rec["parity"] = check_step_parity(model, batch, models.reference_forward, [model.bottom, model.top])
+    log(f"multihot dlrm: one step through the kernels equals the plain versions on the card: {rec['parity']}")
+    if profile:
+
+        def train_two_chunks():
+            for c in staged[:2]:
+                models.train_chunk(model, opt, c, TRAIN_BS)
+            torch.cuda.synchronize()
+
+        rec["profile"] = p = profile_pass(train_two_chunks)
+        log(f"profile multihot dlrm (14 steps): wall {p['wall_ms']:.2f} ms, device busy {p['device_ms']:.2f} ms "
+            f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
+
+    def fwd_bwd():
+        opt.zero_grad()
+        models.dlrm_loss(model, batch).backward()
+
+    rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
+    rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    log(f"multihot dlrm: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
+        f"(device time per step)")
+    del model, opt
+
+    # the same model on row-sharded tables: a one-rank NCCL group
+    pconfig = models.DLRMConfig.from_schema(schema, num_dense=1, vocab_pad_multiple=SHARD_PAD)
+    store = Path("build") / f"nccl_store_mh_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    parallel.initialize_distributed("nccl", f"file://{store.resolve()}", rank=0, world_size=1, timeout=300)
+    try:
+        mesh = parallel.local_mesh()
+        smodel = models.DLRM(pconfig, seed=0, device=DEVICE)
+        ref = models.DLRM(pconfig, seed=0, device=DEVICE)
+        p_specs, b_specs = models.dlrm_param_specs(smodel), models.batch_specs(pconfig)
+        parallel.shard_params(smodel, p_specs, mesh)
+        if smodel.shard is None or smodel.shard.bag_padded != (24,) or not torch.equal(smodel.mh_tables[0],
+                                                                                        ref.mh_tables[0]):
+            fail("multihot dlrm: shard_params on a one-rank mesh must keep every row of the padded genres table")
+        sopt, ref_opt = models.Adagrad(smodel.parameters(), lr=1e-2), models.Adagrad(ref.parameters(), lr=1e-2)
+        step = parallel.make_train_step(models.dlrm_loss, sopt, mesh=mesh, param_specs=p_specs, batch_specs=b_specs)
+
+        def train(chunk):
+            n = chunk["label"].shape[0] // TRAIN_BS * TRAIN_BS
+            return torch.stack([step(smodel, sopt, parallel.shard_batch({k: v[s : s + TRAIN_BS] for k, v in
+                                                                        chunk.items()}, b_specs, mesh))
+                                for s in range(0, n, TRAIN_BS)])
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with plain_calls_on_card("multihot dlrm, sharded"):
+            parity = [{k: v[s : s + TRAIN_BS] for k, v in c.items()} for c in staged
+                      for s in range(0, c["label"].shape[0] - TRAIN_BS + 1, TRAIN_BS)][:SHARD_PARITY_STEPS]
+            got = torch.stack([step(smodel, sopt, parallel.shard_batch(b, b_specs, mesh)) for b in parity])
+            want = torch.stack([models.train_step(ref, ref_opt, b) for b in parity])
+            torch.cuda.synchronize()
+            rec["sharded_parity_loss_rel"] = float(((got - want).abs() / want.abs()).max())
+            errs = []
+            for a, b in ((smodel.table, ref.table), (smodel.mh_tables[0], ref.mh_tables[0])):
+                err = (a.detach() - b.detach()).abs()
+                errs.append(float(err.max()))
+                if not bool((err <= SUM_TOL["rtol"] * b.detach().abs() + SUM_TOL["atol"]).all()):
+                    fail(f"multihot dlrm, sharded: tables differ from the unsharded DLRM's by up to {errs[-1]}")
+            rec["sharded_parity_table_abs"], rec["sharded_parity_mh_table_abs"] = errs
+            if rec["sharded_parity_loss_rel"] > STEP_TOL["bfloat16"][0]:
+                fail(f"multihot dlrm, sharded: losses {got.tolist()} differ from the unsharded {want.tolist()}")
+            del ref, ref_opt
+            slosses, swarm_s, spass_s = run_passes(train, staged, MH_STEPS)
+        slaunches = dict(kernels.LAUNCHES)
+        sharded_steps = len(parity) + sum(int(l.numel()) for l in slosses)
+        check_launches(slaunches, {
+            "range_gather_columns": sharded_steps, "range_scatter_grad": sharded_steps, "range_bag": sharded_steps,
+            "range_bag_grad": sharded_steps, "embedding_gather": len(parity), "embedding_scatter_grad": len(parity),
+            "embedding_bag_fwd": len(parity), "embedding_bag_bwd": len(parity),
+            "interaction_fwd": sharded_steps + len(parity), "interaction_bwd": sharded_steps + len(parity),
+        }, "multihot dlrm, sharded")
+        all_s = torch.cat([got, *slosses])
+        if not bool(torch.isfinite(all_s).all()):
+            fail(f"multihot dlrm, sharded: non-finite losses {all_s.tolist()}")
+        sstep_s = float(np.median(spass_s)) / MH_STEPS
+        rec.update(sharded_pass_s=spass_s, sharded_step_ms=1e3 * sstep_s, sharded_steps=sharded_steps,
+                   sharded_launches=slaunches, parity_steps=len(parity))
+        log(
+            f"multihot dlrm, sharded: one-rank {dist.get_backend()} group, vocab_pad_multiple={SHARD_PAD}; "
+            f"{len(parity)} steps equal the unsharded DLRM's (losses within rtol "
+            f"{rec['sharded_parity_loss_rel']:.2e}, tables within {errs[0]:.2e}, genres within {errs[1]:.2e}); "
+            f"{MH_STEPS} steps: median of {TRAIN_REPEATS} passes {rec['sharded_step_ms']:.3f} ms a step (passes "
+            f"{[round(x, 4) for x in spass_s]} s; unsharded {rec['step_ms']:.3f} ms in this run); launches {slaunches}"
+        )
+        sbatch = parallel.shard_batch(batch, b_specs, mesh)
+        rec["values"], rec["mask"] = sbatch["genres__values"], sbatch["genres__mask"]
+        rec["padded"] = smodel.shard.bag_padded[0]
+        del smodel, sopt, staged
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"multihot dlrm: phase 22 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def layer_entry_path(dev) -> dict:
+    """Phase 23's entry points: dot_product_interaction(self_interaction=True)
+    on [TRAIN_BS, 27, 16] features and a two-layer CIN (xdeepfm_outer_product,
+    26 fields of dim 16, 200 maps a layer) at batch CIN_L2_BATCH, forward and
+    backward through autograd, held against the plain layers on the card."""
+    from nvtabular_tpu_torch import kernels, models
+    from nvtabular_tpu_torch.kernels import cin as kcin
+    from nvtabular_tpu_torch.kernels import interaction as kint
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((TRAIN_BS, SELF_FEATURES, TRAIN_DIM), device=dev, generator=gen)
+    x0 = torch.randn((CIN_L2_BATCH, CIN_FIELDS, CIN_DIM), device=dev, generator=gen)
+    w1 = torch.randn((CIN_FIELDS * CIN_FIELDS, CIN_MAPS), device=dev, generator=gen) / CIN_FIELDS
+    w2 = torch.randn((CIN_MAPS * CIN_FIELDS, CIN_MAPS), device=dev, generator=gen) / (CIN_MAPS * CIN_FIELDS) ** 0.5
+    leaves = [t.clone().requires_grad_(True) for t in (x, x0, w1, w2)]
+
+    def forward(fns, xs):
+        inter, cin = fns
+        xi, xz, a, b = xs
+        h1 = cin(xz, xz, a)
+        h2 = cin(h1, xz, b)
+        return inter(xi).sum() + h1.sum(dim=2).square().mean() + h2.sum(dim=2).square().mean()
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_calls_on_card("layer entry points"):
+        loss = forward((lambda f: models.dot_product_interaction(f, self_interaction=True),
+                        models.xdeepfm_outer_product), leaves)
+        loss.backward()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, {"interaction_self_fwd": 1, "interaction_self_bwd": 1, "cin_fwd": 2, "cin_bwd": 2},
+                   "layer entry points")
+    plain = [t.clone().requires_grad_(True) for t in (x, x0, w1, w2)]
+    want = forward((lambda f: kint.interaction_fwd_plain(f, True), kcin.cin_fwd_plain), plain)
+    want.backward()
+    rel = {"loss": abs(float(loss.detach()) - float(want.detach())) / abs(float(want.detach()))}
+    for name, got, ref in zip(("x", "x0", "w1", "w2"), leaves, plain):
+        if not bool(torch.isfinite(got.grad).all()):
+            fail(f"layer entry points: non-finite gradient of {name}")
+        rel[name] = float((got.grad - ref.grad).abs().max()) / float(ref.grad.abs().max())
+    if not (rel["loss"] <= 1e-5 and max(rel[k] for k in ("x", "x0", "w1", "w2")) <= 1e-4):
+        fail(f"layer entry points: kernels vs plain layers differ: {rel} (limits 1e-5 loss, 1e-4 of each "
+             "gradient's largest entry)")
+    log(f"layer entry points: self-interaction and a two-layer CIN through the kernels equal the plain layers "
+        f"(relative errors {rel}); launches {launches}")
+    return {"launches": launches, "rel_err": rel}
+
+
+def layer_kernel_records(dev, mh: dict) -> dict:
+    """Phase 23: K15d's bag on model shard 1 of MODEL_SHARDS of phase 22's
+    padded genres table with its first batch's values, K13b's self mode at
+    [TRAIN_BS, 27, 16] and K13d at xDeepFM's layers 1 and 2, each against
+    its plain version on the card, timed beside its bound."""
+    from nvtabular_tpu_torch.kernels import cin as kcin
+    from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+    from nvtabular_tpu_torch.kernels import interaction as kint
+
+    phase_t0 = time.perf_counter()
+    records = {}
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    # K15d's bag: the genres shard's rows, the [B, 3, 64] buffer's bag slot as the sharded step passes it
+    values, mask, vp = mh["values"], mh["mask"], mh["padded"]
+    (B, L), D, m = values.shape, 64, 1
+    rows = vp // MODEL_SHARDS
+    start = m * rows
+    local = torch.randn((rows, D), device=dev, generator=gen)
+    buf = torch.zeros((B, 3, D), device=dev)
+    out = buf[:, 2]
+    got = kbag.range_bag(local, values, mask, start, vp, m, out=out)
+    want = kbag.range_bag_plain(local, values, mask, start, vp, m)
+    torch.cuda.synchronize()
+    if not nan_equal(got, want):
+        fail("range_bag differs from plain")
+    shard_row, mine, _ = kbag.bag_shard_rows(values, start, rows, vp)
+    held = int(mine.sum())
+    weights = (mask * mine).contiguous()
+    distinct = int(torch.unique(shard_row[mine]).numel())
+    rec = {"max_abs_err": 0, "shape": [B, L, rows, D], "in_range": held, "distinct_rows": distinct,
+           "bytes": B * L * 8 + distinct * D * 4 + B * D * 4,
+           "ms": time_ms(lambda: kbag.range_bag(local, values, mask, start, vp, m, out=out)),
+           "plain_ms": time_ms(lambda: kbag.range_bag_plain(local, values, mask, start, vp, m)),
+           "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(shard_row, local, per_sample_weights=weights,
+                                                                          mode="sum"))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], held * D * 2)
+    records["range_bag"] = rec
+
+    gbuf = torch.randn((B, 3, D), device=dev, generator=gen)
+    grad = gbuf[:, 2]
+    got = kbag.range_bag_grad(grad, values, mask, start, rows, vp)
+    want = kbag.range_bag_grad_plain(grad, values, mask, start, rows, vp)
+    magnitude = kbag.range_bag_grad_plain(grad.abs(), values, mask, start, rows, vp)
+    torch.cuda.synchronize()
+    # 65,536 x 4 terms on 6 rows, summed in a varying order: 1e-5 of their magnitudes
+    if not bool(((got - want).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+        fail(f"range_bag_grad differs from plain: max abs {float((got - want).abs().max())}")
+    cnt = kbag.bag_counts(mask)[:, None]
+    terms = ((grad / cnt)[:, None, :] * mask[..., None])[mine].contiguous()
+    held_rows = shard_row[mine]
+    rec = {"max_abs_err": float((got - want).abs().max()), "shape": [B, L, rows, D], "in_range": held,
+           "bytes": rows * D * 4 + B * L * 8 + B * D * 4,
+           "ms": time_ms(lambda: kbag.range_bag_grad(grad, values, mask, start, rows, vp)),
+           "plain_ms": time_ms(lambda: kbag.range_bag_grad_plain(grad, values, mask, start, rows, vp)),
+           # the held ids' weighted terms precomputed outside the timing
+           "library_ms": time_ms(lambda: torch.zeros((rows, D), device=dev).index_add_(0, held_rows, terms)),
+           "hottest_row_hits": int(torch.bincount(held_rows[mask[mine] > 0]).max())}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], held * D * 3)
+    records["range_bag_grad"] = rec
+    del terms, magnitude
+
+    # K13b's self mode on DLRM's 27 features of dim 16, written after the bottom output
+    F, Dx = SELF_FEATURES, TRAIN_DIM
+    P = F * (F + 1) // 2
+    x = torch.randn((TRAIN_BS, F, Dx), device=dev, generator=gen)
+    obuf = torch.empty((TRAIN_BS, Dx + P), device=dev)
+    got = kint.interaction_fwd(x, out=obuf[:, Dx:], self_interaction=True)
+    want = kint.interaction_fwd_plain(x, True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):  # the same roundings in the same order
+        fail(f"interaction self fwd differs from plain: max abs {float((got - want).abs().max())}")
+    rec = {"max_abs_err": 0, "shape": [TRAIN_BS, F, Dx, P],
+           "bytes": TRAIN_BS * (F * Dx + P) * 4,
+           "ms": time_ms(lambda: kint.interaction_fwd(x, out=obuf[:, Dx:], self_interaction=True)),
+           "plain_ms": time_ms(lambda: kint.interaction_fwd_plain(x, True)),
+           "library_ms": time_ms(lambda: torch.bmm(x, x.transpose(1, 2)))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], TRAIN_BS * P * Dx * 2)
+    records["interaction_self_fwd"] = rec
+    gbuf = torch.randn((TRAIN_BS, Dx + P), device=dev, generator=gen)
+    g = gbuf[:, Dx:]
+    got = kint.interaction_bwd(x, g, self_interaction=True)
+    want = kint.interaction_bwd_plain(x, g, True)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, **SUM_TOL):
+        fail(f"interaction self bwd differs from plain: max abs {float((got - want).abs().max())}")
+    # the library call: the symmetric [F, F] gradient (built outside the timing) times x
+    rows_i, cols_i = np.tril_indices(F, 0)
+    gsym = torch.zeros((TRAIN_BS, F, F), device=dev)
+    gsym[:, rows_i, cols_i] = g
+    gsym = gsym + gsym.transpose(1, 2)
+    rec = {"max_abs_err": float((got - want).abs().max()), "shape": [TRAIN_BS, F, Dx, P],
+           "bytes": TRAIN_BS * (2 * F * Dx + P) * 4,
+           "ms": time_ms(lambda: kint.interaction_bwd(x, g, self_interaction=True)),
+           "plain_ms": time_ms(lambda: kint.interaction_bwd_plain(x, g, True)),
+           "library_ms": time_ms(lambda: torch.bmm(gsym, x))}
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], TRAIN_BS * F * F * Dx * 2)
+    records["interaction_self_bwd"] = rec
+    del x, obuf, gbuf, gsym
+
+    # K13d at xDeepFM's layers 1 and 2
+    for layer, (Bc, Hk) in enumerate(((TRAIN_BS, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
+        F, Dc, Hn = CIN_FIELDS, CIN_DIM, CIN_MAPS
+        x0 = torch.randn((Bc, F, Dc), device=dev, generator=gen)
+        xk = x0 if layer == 1 else torch.randn((Bc, Hk, Dc), device=dev, generator=gen)
+        w = torch.randn((Hk * F, Hn), device=dev, generator=gen) / (Hk * F) ** 0.5
+        gout = torch.randn((Bc, Hn, Dc), device=dev, generator=gen)
+        N, K = Bc * Dc, Hk * F
+        got = kcin.cin_fwd(xk, x0, w)
+        want = kcin.cin_fwd_plain(xk, x0, w)
+        magnitude = kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs())
+        torch.cuda.synchronize()
+        if not bool(((got - want).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+            fail(f"cin_fwd (layer {layer}) differs from plain: max abs {float((got - want).abs().max())}")
+        suffix = "" if layer == 1 else "_layer2"
+        w3 = w.view(Hk, F, Hn)
+        in_bytes = (xk.numel() + (0 if xk is x0 else x0.numel()) + w.numel()) * 4  # layer 1's x_k is x_0
+        rec = {"max_abs_err": float((got - want).abs().max()), "shape": [Bc, Hk, F, Dc, Hn],
+               "bytes": in_bytes + Bc * Hn * Dc * 4,
+               "ms": time_ms(lambda: kcin.cin_fwd(xk, x0, w), iters=5),
+               "plain_ms": time_ms(lambda: kcin.cin_fwd_plain(xk, x0, w), iters=5),
+               "library_ms": time_ms(lambda: torch.einsum("bid,bjd,ijh->bhd", xk, x0, w3), iters=5)}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (2 * Hn + 1))
+        records["cin_fwd" + suffix] = rec
+        del got, want, magnitude
+        grads = kcin.cin_bwd(xk, x0, w, gout)
+        wants = kcin.cin_bwd_plain(xk, x0, w, gout)
+        mags = kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), gout.abs())
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want, mag in zip(("dx_k", "dx_0", "dw"), grads, wants, mags):
+            errs.append(float((got - want).abs().max()))
+            if not bool(((got - want).abs() <= SUM_TOL["rtol"] * mag + SUM_TOL["atol"]).all()):
+                fail(f"cin_bwd (layer {layer}) {name} differs from plain: max abs {errs[-1]}")
+        del grads, wants, mags
+        rec = {"max_abs_err": max(errs), "shape": [Bc, Hk, F, Dc, Hn],
+               # the inputs and g read, dx_k, dx_0 and dw written
+               "bytes": in_bytes + Bc * Hn * Dc * 4 + (xk.numel() + x0.numel() + w.numel()) * 4,
+               "ms": time_ms(lambda: kcin.cin_bwd(xk, x0, w, gout), iters=5),
+               "plain_ms": time_ms(lambda: kcin.cin_bwd_plain(xk, x0, w, gout), iters=5),
+               "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (4 * Hn + 5))
+        records["cin_bwd" + suffix] = rec
+        del x0, xk, w, gout
+        torch.cuda.empty_cache()
+    log(f"layer kernels: phase 23 took {time.perf_counter() - phase_t0:.1f} s")
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -2721,6 +3120,7 @@ def main():
     # --- 11. its new kernels at its shapes -------------------------------------------------------
     records.update(multihot_kernel_records(multihot))
     mh_train = multihot.pop("train")
+    mh_feed, mh_schema = mh_train.pop("loader"), multihot.pop("schema")  # phase 22 trains DLRM on them
     del mh_train["model"], mh_train["batch"], multihot["genres_batch0"]
     multihot["train"] = mh_train
     # every launch of phase 10's path: its transform, its loader and training, its ListSlice
@@ -2802,6 +3202,29 @@ def main():
     records.update(sharded_step_kernel_records(dev, sharded_train))
     del sharded_train["ids"]
 
+    # --- 22. DLRM with the genres multihot table on phase 10's feed, whole and row-sharded -------------
+    mh_dlrm = multihot_dlrm_path(mh_feed, mh_schema, smi, opts.profile)
+    del mh_feed
+    for launches in (mh_dlrm["launches"], mh_dlrm["sharded_launches"]):
+        for k in ("direct_lookup",):
+            direct_launches[k] += launches[k]
+        for k in ("tiny_lookup", "cont_chain"):
+            main_launches[k] += launches[k]
+        for k in ("ragged_to_padded", "embedding_bag_fwd", "embedding_bag_bwd"):
+            mh_launches[k] += launches[k]
+        for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd"):
+            train_launches[k] += launches[k]
+        for k in ("range_gather_columns", "range_scatter_grad"):
+            st_launches[k] += launches[k]
+    mh_dlrm_launches = mh_dlrm["sharded_launches"]
+
+    # --- 23. the layer entry points, and K15d's bag, K13b's self mode and K13d at their shapes -------
+    entry = layer_entry_path(dev)
+    records.update(layer_kernel_records(dev, mh_dlrm))
+    for key in ("values", "mask"):
+        del mh_dlrm[key]
+    entry_launches = entry["launches"]
+
     # --- kernels line and result ---------------------------------------------------
     meta = {
         "tiny_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:157", main_launches),
@@ -2822,7 +3245,7 @@ def main():
         "ragged_to_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:22", mh_launches),
         "ragged_slice_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:35", mh_launches),
         "embedding_bag_fwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
-        "embedding_bag_bwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
+        "embedding_bag_bwd": ("sharded_embedding.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
         "hash_pair": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:53", new_launches),
         "hash_pair_verify": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:611", new_launches),
         "difference_lag": ("difference_lag.cu", "nvtabular_tpu/ops/difference_lag.py:79", new_launches),
@@ -2837,6 +3260,12 @@ def main():
         "column_moments": ("moments.cu", "nvtabular_tpu/parallel/stats.py:50", sharded_launches),
         "range_gather_columns": ("sharded_embedding.cu", "nvtabular_tpu/parallel/train.py:39", st_launches),
         "range_scatter_grad": ("sharded_embedding.cu", "nvtabular_tpu/parallel/train.py:39", st_launches),
+        "range_bag": ("sharded_embedding.cu", "nvtabular_tpu/models/dlrm.py:127", mh_dlrm_launches),
+        "range_bag_grad": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:73", mh_dlrm_launches),
+        "interaction_self_fwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "interaction_self_bwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
+        "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
     }
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
@@ -2887,6 +3316,8 @@ def main():
                     "factorized": factorized,
                     "sharded": sharded,
                     "sharded_train": sharded_train,
+                    "multihot_dlrm": mh_dlrm,
+                    "layer_entry": entry,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

@@ -199,14 +199,27 @@ def _concatenated(model, param, per_column, what="tables"):
     return [(param, np.concatenate([_held_rows(model, i, np.asarray(per_column[n])) for i, n in enumerate(model.names)]))]
 
 
+def _held_bag_rows(model, k: int, value: np.ndarray) -> np.ndarray:
+    """The rows of multihot table ``k``'s whole table that ``model`` holds."""
+    shard = model.shard
+    if shard is None:
+        return value
+    if value.shape[0] != shard.bag_padded[k]:
+        raise ValueError(f"{model.mh_names[k]}: {value.shape[0]} rows given, its padded table has {shard.bag_padded[k]}")
+    return value[shard.bag_starts[k] : shard.bag_starts[k] + model.mh_tables[k].shape[0]]
+
+
 def _dlrm_tensors(model, tree):
     """(parameter, numpy value) pairs of ``model`` for a pytree in the
-    format above; the tables are concatenated in sorted column order."""
-    if tree.get("mh_tables"):
-        raise NotImplementedError(
-            "DLRM multihot tables are not ported yet (ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
-        )
+    format above; the tables are concatenated in sorted column order, each
+    multihot table its own parameter (a rank's rows of each where the model
+    is row-sharded)."""
+    mh = tree.get("mh_tables", {})
+    if sorted(mh) != model.mh_names:
+        raise ValueError(f"mh_tables {sorted(mh)} do not match the model's {model.mh_names}")
     pairs = _concatenated(model, model.table, tree["tables"])
+    pairs += [(p, _held_bag_rows(model, k, np.asarray(mh[n]))) for k, (p, n) in enumerate(zip(model.mh_tables,
+                                                                                            model.mh_names))]
     for mlp, layers in ((model.bottom, tree["bottom"]), (model.top, tree["top"])):
         pairs += _mlp_tensors(mlp, layers)
     return pairs
@@ -328,11 +341,12 @@ def dcn_params(model) -> Dict[str, Any]:
 
 def dlrm_params(model) -> Dict[str, Any]:
     """The port's ``DLRM`` parameters as the JAX pytree of numpy arrays;
-    for a row-sharded model each table is the rank's rows (stack the ranks'
-    in model-rank order for the whole table)."""
+    for a row-sharded model each table, single-hot or multihot, is the
+    rank's rows (stack the ranks' in model-rank order for the whole
+    table)."""
     return {
         "tables": {n: _host(model.table_rows(n)) for n in model.names},
-        "mh_tables": {},
+        "mh_tables": {n: _host(t) for n, t in zip(model.mh_names, model.mh_tables)},
         "bottom": _mlp_params(model.bottom),
         "top": _mlp_params(model.top),
     }

@@ -1,4 +1,4 @@
-// Multihot embedding bag and its transpose for Hopper (sm_90a): kernel K13c.
+// Multihot embedding bag for Hopper (sm_90a): kernel K13c's forward.
 //
 // Replaces nvtabular_tpu/models/layers.py:75-94 (multihot_embedding_lookup,
 // the same function as nvtabular_tpu/kernels/ragged.py:73-83
@@ -21,23 +21,16 @@
 // (__fmul_rn, __fadd_rn, __fdiv_rn), as the plain version's separate
 // PyTorch operations round them: the two agree bit for bit.
 //
-// nvt_embedding_bag_bwd: dtable[v[b, l]] += (g[b] / cnt[b]) * m[b, l] (g[b]
-// * m[b, l] for "sum"), for in-range ids, into a gradient the wrapper has
-// zeroed. Every one of the B * L * D terms lands on one of V * D addresses
-// — 368 for the genres table of 23 rows and 16 dims, against 4.2M terms a
-// step — so global atomics would serialize in L2. When the table fits in
-// shared memory (V * D * 4 <= 48 KB), a fixed grid of blocks each sums its
-// share of the terms into a shared copy of the table (consecutive threads on
-// consecutive dims, so a warp's atomics hit distinct banks) and adds that
-// copy to the gradient once: V * D global atomics per block. A larger table
-// takes one float4 global atomic per term group, as K13a's scatter does.
-// Atomics make the summation order, and so the last bits, vary from run to
-// run.
+// The transpose, dtable[v[b, l]] += (g[b] / cnt[b]) * m[b, l] for in-range
+// ids, is K15d bag's gradient kernel nvt_range_bag_grad
+// (csrc/sharded_embedding.cu) on the whole table: rows [0, V) of V, with
+// negatives wrapped by V, exactly the ids this file's bag_row keeps. Its
+// shared-memory sum per block takes the contention of a small table (65,536
+// x 4 ids on the 23 rows of genres).
 //
-// Bound: bytes. Forward: the values and mask (8 B a slot), the distinct
-// table rows touched and the output once. Backward: the same inputs, the
-// output gradient, and the dense table gradient written once. Both are a few
-// MB at the training shapes: launch-scale.
+// Bound: bytes: the values and mask (8 B a slot), the distinct table rows
+// touched and the output once; a few MB at the training shapes:
+// launch-scale.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -45,20 +38,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSharedBlocks = 264;  // two blocks of kThreads on each of the H100's 132 SMs
-constexpr int64_t kSharedBytes = 48 * 1024;
 
 // The table row of an id after jnp.take's wrap of negatives, or -1.
 __device__ __forceinline__ int64_t bag_row(int32_t id, int64_t V) {
   const int64_t row = id < 0 ? static_cast<int64_t>(id) + V : static_cast<int64_t>(id);
   return (row >= 0 && row < V) ? row : -1;
-}
-
-// max(sum_l m[l], 1), summed in l order as the forward sums it.
-__device__ __forceinline__ float bag_count(const float* __restrict__ m, int L) {
-  float cnt = 0.0f;
-  for (int l = 0; l < L; ++l) cnt = __fadd_rn(cnt, m[l]);
-  return fmaxf(cnt, 1.0f);
 }
 
 template <int VEC>
@@ -104,59 +88,6 @@ bag_fwd_kernel(const float* __restrict__ table, int64_t V, int D, const int32_t*
   }
 }
 
-// One term (b, l, d) per loop step, d fastest; a grid of kSharedBlocks
-// blocks strides over all B * L * D of them.
-__global__ void __launch_bounds__(kThreads)
-bag_bwd_shared_kernel(const float* __restrict__ grad, int64_t grad_row_stride, const int32_t* __restrict__ values,
-                      const float* __restrict__ mask, int B, int L, int D, int64_t V, int mean,
-                      float* __restrict__ dtable) {
-  extern __shared__ float acc[];  // [V, D]
-  const int cells = static_cast<int>(V) * D;
-  for (int i = threadIdx.x; i < cells; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-  const int total = B * L * D;  // the wrapper keeps it < 2^31
-  for (int t = blockIdx.x * kThreads + threadIdx.x; t < total; t += gridDim.x * kThreads) {
-    const int bl = t / D;
-    const int d = t - bl * D;
-    const int64_t row = bag_row(values[bl], V);
-    if (row < 0) continue;
-    const int b = bl / L;
-    float g = grad[b * grad_row_stride + d];
-    if (mean) g = __fdiv_rn(g, bag_count(mask + static_cast<int64_t>(b) * L, L));
-    atomicAdd(&acc[row * D + d], __fmul_rn(g, mask[bl]));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += kThreads) atomicAdd(&dtable[i], acc[i]);
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
-bag_bwd_global_kernel(const float* __restrict__ grad, int64_t grad_row_stride, const int32_t* __restrict__ values,
-                      const float* __restrict__ mask, int B, int L, int D, int64_t V, int mean,
-                      float* __restrict__ dtable) {
-  const int per_row = D / VEC;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= B * L * per_row) return;
-  const int bl = t / per_row;
-  const int q = t - bl * per_row;
-  const int64_t row = bag_row(values[bl], V);
-  if (row < 0) return;
-  const int b = bl / L;
-  const float m = mask[bl];
-  const float cnt = mean ? bag_count(mask + static_cast<int64_t>(b) * L, L) : 1.0f;
-  const float* src = grad + b * grad_row_stride + q * VEC;
-  float term[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) term[k] = __fmul_rn(mean ? __fdiv_rn(src[k], cnt) : src[k], m);
-  float* dst = dtable + row * D + q * VEC;
-  if constexpr (VEC == 4) {
-    // one vector reduction (red.global.add.v4.f32, compute capability 9.x)
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(term[0], term[1], term[2], term[3]));
-  } else {
-    atomicAdd(dst, term[0]);
-  }
-}
-
 bool bad_shape(int64_t V, int D, int64_t B, int L, int vec) {
   return V < 0 || D <= 0 || B < 0 || L < 0 || (vec != 1 && vec != 4) || D % vec != 0 ||
          B * L * D > INT32_MAX || B * D > INT32_MAX;
@@ -178,33 +109,6 @@ extern "C" int nvt_embedding_bag_fwd(const float* table, int64_t V, int D, const
   } else {
     bag_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(table, V, D, values, mask, static_cast<int>(B), L, mean, out,
                                                   out_row_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nvt_embedding_bag_bwd(const float* grad, int64_t grad_row_stride, const int32_t* values,
-                                     const float* mask, int64_t B, int L, int D, int64_t V, int mean,
-                                     float* dtable, int vec, void* stream) {
-  if (bad_shape(V, D, B, L, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = B * L * D;
-  if (total == 0 || V == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t shared = V * D * static_cast<int64_t>(sizeof(float));
-  if (shared <= kSharedBytes) {
-    const int64_t needed = (total + kThreads - 1) / kThreads;
-    const unsigned int blocks = static_cast<unsigned int>(needed < kSharedBlocks ? needed : kSharedBlocks);
-    bag_bwd_shared_kernel<<<blocks, kThreads, static_cast<size_t>(shared), s>>>(
-        grad, grad_row_stride, values, mask, static_cast<int>(B), L, D, V, mean, dtable);
-  } else {
-    const int64_t threads = B * L * (D / vec);
-    const unsigned int blocks = static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-    if (vec == 4) {
-      bag_bwd_global_kernel<4><<<blocks, kThreads, 0, s>>>(grad, grad_row_stride, values, mask,
-                                                          static_cast<int>(B), L, D, V, mean, dtable);
-    } else {
-      bag_bwd_global_kernel<1><<<blocks, kThreads, 0, s>>>(grad, grad_row_stride, values, mask,
-                                                          static_cast<int>(B), L, D, V, mean, dtable);
-    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,11 +14,39 @@
 // nvt_range_bag: out[b] = sum_l table_local[clip(v[b, l] - start)] *
 // (m[b, l] * in_range), summed in l order: K13c's bag (csrc/embedding_bag.cu)
 // with a row range. A row outside the range reads the clipped row times a
-// zero weight, as the reference's jnp.take of the clipped index does. It
-// writes the sum; the mean divides after the sum over the model axis, by
-// the mask counts (embeddings.py:84-87). Products and sums are rounded one
-// by one (__fmul_rn, __fadd_rn), as the plain version's separate PyTorch
-// operations round them.
+// zero weight, as the reference's jnp.take of the clipped index does (the
+// zero rule). It writes the sum; the mean divides after the sum over the
+// model axis, by the mask counts (embeddings.py:84-87). Products and sums
+// are rounded one by one (__fmul_rn, __fadd_rn), as the plain version's
+// separate PyTorch operations round them.
+//
+// In take mode it is the forward of K15d's bag, the multihot lookup of the
+// sharded DLRM step (dlrm.py:125-132 on P("model", None) tables): ids
+// follow jnp.take on the whole padded table of Vp rows, as K15d's gather
+// does. A negative id wraps once by Vp; an id still outside [0, Vp) is held
+// by no rank and makes its bag NaN (NaN times any mask, 0 included) on
+// model rank 0 only, so the model group's sum is NaN exactly where the
+// unsharded bag is; the ids another rank holds add nothing. On one rank it
+// is K13c's forward sum bit for bit. `out` may be a strided view (a slot of
+// the [b, C + M, D] buffer that the group's all_reduce sums).
+//
+// nvt_range_bag_grad: the transpose of either rule's bag for this rank's
+// rows, dtable[v - start] += (g[b] / cnt[b]) * m[b, l] for each id it holds
+// (cnt = max(sum_l m, 1) in l order for the mean, 1 for the sum; negatives
+// wrapped by Vp in take mode, not in the zero rule), into a gradient zeroed
+// here; ids outside the table add nothing. No collective: every rank of the
+// model group holds the same pooled bags, so the sum's transpose is the
+// identity. A genres shard holds a few rows that every id of the batch
+// falls on (6 rows x 64 dims for 262,144 ids at shard 1 of 4), so where
+// the shard's gradient fits 48 KB of shared memory a fixed grid of blocks
+// each sums its share of the terms into a shared copy (consecutive threads
+// on consecutive dims, so a warp's atomics hit distinct banks) and adds it
+// to the gradient once; a larger shard takes one global atomic per float4 of
+// a term. Atomics make the summation order, and so the last bits, vary from
+// run to run. On the whole table (start 0, rows_local = padded = V, wrap) it
+// is also K13c's backward, the transpose of csrc/embedding_bag.cu's bag.
+// Bound: bytes — the zero fill, the values, mask and gradient rows, once
+// each.
 //
 // One thread copies or sums VEC floats of an output row (a float4 when
 // D % 4 == 0 and the pointers are 16-byte aligned); consecutive threads
@@ -38,7 +66,8 @@
 // the ids this rank holds, zeros for another rank's, and NaN for ids no
 // rank holds on model rank 0 only (zeros on the others): the sum over the
 // model group then gives jnp.take's rows, NaN included. The output is a
-// contiguous [B, C, D] buffer that the group's all_reduce takes in place.
+// [B, C, D] view whose rows may be strided (the first C slots of the
+// [B, C + M, D] buffer that the group's all_reduce takes in place).
 // K13a's gather (csrc/embedding.cu) with a row range per column.
 //
 // nvt_range_scatter_grad: the dense [rows_local, D] gradient of the shard,
@@ -56,6 +85,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int64_t kElsewhere = -1;  // a row another rank holds
+constexpr int64_t kNoRank = -2;     // an id outside [-Vp, Vp): no rank holds it
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* __restrict__ src, float (&v)[VEC]) {
@@ -96,11 +127,22 @@ range_gather_kernel(const float* __restrict__ table, int64_t rows_local, int64_t
   store_vec<VEC>(out + i * D + q * VEC, v);
 }
 
+// The shard row of a bag's id under jnp.take's rule on a table of Vp rows
+// (wrap: negatives wrap once by Vp), or kElsewhere / kNoRank.
+__device__ __forceinline__ int64_t bag_shard_row(int32_t v, int64_t start, int64_t rows_local, int64_t padded,
+                                                 int wrap) {
+  int64_t id = v;
+  if (wrap && id < 0) id += padded;
+  if (id < 0 || id >= padded) return kNoRank;
+  const int64_t local = id - start;
+  return (local >= 0 && local < rows_local) ? local : kElsewhere;
+}
+
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_bag_kernel(const float* __restrict__ table, int64_t rows_local, int64_t start, int D,
-                 const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L,
-                 float* __restrict__ out) {
+                 const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L, int take,
+                 int64_t padded, int write_nan, float* __restrict__ out, int64_t out_row_stride) {
   const int per_row = D / VEC;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= B * per_row) return;
@@ -109,24 +151,103 @@ range_bag_kernel(const float* __restrict__ table, int64_t rows_local, int64_t st
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
+  bool no_rank = false;
   for (int l = 0; l < L; ++l) {
-    int64_t local = static_cast<int64_t>(values[b * L + l]) - start;
-    const bool in_range = local >= 0 && local < rows_local;
-    const float w = __fmul_rn(mask[b * L + l], in_range ? 1.0f : 0.0f);
-    local = local < 0 ? 0 : (local >= rows_local ? rows_local - 1 : local);
     float v[VEC];
-    load_vec<VEC>(table + local * D + q * VEC, v);
+    float w;
+    if (take) {
+      const int64_t row = bag_shard_row(values[b * L + l], start, rows_local, padded, 1);
+      no_rank |= row == kNoRank;
+      if (row < 0) continue;  // another rank's row, or no rank's
+      w = mask[b * L + l];
+      load_vec<VEC>(table + row * D + q * VEC, v);
+    } else {
+      int64_t local = static_cast<int64_t>(values[b * L + l]) - start;
+      const bool in_range = local >= 0 && local < rows_local;
+      w = __fmul_rn(mask[b * L + l], in_range ? 1.0f : 0.0f);
+      local = local < 0 ? 0 : (local >= rows_local ? rows_local - 1 : local);
+      load_vec<VEC>(table + local * D + q * VEC, v);
+    }
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(v[k], w));
   }
-  store_vec<VEC>(out + b * D + q * VEC, acc);
+  if (no_rank && write_nan) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] = __int_as_float(0x7fc00000);
+  }
+  store_vec<VEC>(out + b * out_row_stride + q * VEC, acc);
+}
+
+// max(sum_l m[l], 1), summed in l order as the forward's counts are.
+__device__ __forceinline__ float bag_count(const float* __restrict__ m, int L) {
+  float cnt = 0.0f;
+  for (int l = 0; l < L; ++l) cnt = __fadd_rn(cnt, m[l]);
+  return fmaxf(cnt, 1.0f);
+}
+
+constexpr int kSharedBlocks = 264;  // two blocks of kThreads on each of the H100's 132 SMs
+constexpr int64_t kSharedBytes = 48 * 1024;
+
+// One term (b, l, d) per loop step, d fastest; a grid of kSharedBlocks
+// blocks strides over all B * L * D of them. nvt_range_bag_grad keeps that
+// count and a grid's stride past it below 2^31, so a term's index and
+// its divisions are 32-bit, and a shard held in shared memory has fewer
+// than 2^31 cells.
+__global__ void __launch_bounds__(kThreads)
+range_bag_grad_shared_kernel(const float* __restrict__ grad, int64_t grad_row_stride,
+                             const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L,
+                             int D, int64_t start, int64_t rows_local, int64_t padded, int wrap, int mean,
+                             float* __restrict__ dtable) {
+  extern __shared__ float acc[];  // [rows_local, D]
+  const int cells = static_cast<int>(rows_local) * D;
+  for (int i = threadIdx.x; i < cells; i += kThreads) acc[i] = 0.0f;
+  __syncthreads();
+  const int total = static_cast<int>(B * L * D);
+  for (int t = blockIdx.x * kThreads + threadIdx.x; t < total; t += gridDim.x * kThreads) {
+    const int bl = t / D;
+    const int d = t - bl * D;
+    const int row = static_cast<int>(bag_shard_row(values[bl], start, rows_local, padded, wrap));
+    if (row < 0) continue;
+    const int b = bl / L;
+    float g = grad[b * grad_row_stride + d];
+    if (mean) g = __fdiv_rn(g, bag_count(mask + static_cast<int64_t>(b) * L, L));
+    atomicAdd(&acc[row * D + d], __fmul_rn(g, mask[bl]));
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += kThreads) atomicAdd(&dtable[i], acc[i]);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+range_bag_grad_global_kernel(const float* __restrict__ grad, int64_t grad_row_stride,
+                             const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L,
+                             int D, int64_t start, int64_t rows_local, int64_t padded, int wrap, int mean,
+                             float* __restrict__ dtable) {
+  const int per_row = D / VEC;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= B * L * per_row) return;
+  const int bl = static_cast<int>(t) / per_row;  // B * L * D < 2^31: 32-bit divisions
+  const int q = static_cast<int>(t) - bl * per_row;
+  const int64_t row = bag_shard_row(values[bl], start, rows_local, padded, wrap);
+  if (row < 0) return;
+  const int b = bl / L;
+  const float m = mask[bl];
+  const float cnt = mean ? bag_count(mask + static_cast<int64_t>(b) * L, L) : 1.0f;
+  const float* src = grad + b * grad_row_stride + q * VEC;
+  float term[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) term[k] = __fmul_rn(mean ? __fdiv_rn(src[k], cnt) : src[k], m);
+  float* dst = dtable + row * D + q * VEC;
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(term[0], term[1], term[2], term[3]));
+  } else {
+    atomicAdd(dst, term[0]);
+  }
 }
 
 unsigned blocks_for(int64_t threads) { return static_cast<unsigned>((threads + kThreads - 1) / kThreads); }
 
 constexpr int kMaxCols = 64;
-constexpr int64_t kElsewhere = -1;  // a row another rank holds
-constexpr int64_t kNoRank = -2;     // an id outside [-Vp, Vp): no rank holds it
 
 struct RangeColumns {
   const int32_t* ids[kMaxCols];  // [B] each
@@ -149,7 +270,7 @@ __device__ __forceinline__ int64_t shard_row(const RangeColumns& c, int col, int
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_gather_columns_kernel(const __grid_constant__ RangeColumns c, int num_cols, const float* __restrict__ table,
-                            int D, int64_t B, int write_nan, float* __restrict__ out) {
+                            int D, int64_t B, int write_nan, float* __restrict__ out, int64_t out_row_stride) {
   const int per_row = D / VEC;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= B * num_cols * per_row) return;
@@ -166,7 +287,7 @@ range_gather_columns_kernel(const __grid_constant__ RangeColumns c, int num_cols
 #pragma unroll
     for (int k = 0; k < VEC; ++k) v[k] = fill;
   }
-  store_vec<VEC>(out + rc * D + q * VEC, v);
+  store_vec<VEC>(out + b * out_row_stride + static_cast<int64_t>(col) * D + q * VEC, v);
 }
 
 template <int VEC>
@@ -224,27 +345,66 @@ extern "C" int nvt_range_gather(const float* table, int64_t rows_local, int64_t 
 }
 
 // table float32 [rows_local, D] (rows_local >= 1), values int32 [B, L], mask
-// float32 [B, L] → out float32 [B, D], the weighted sums
+// float32 [B, L] → out float32 [B, D] (rows out_row_stride floats apart), the
+// weighted sums; take = 0: the zero rule, take = 1: jnp.take's rule on the
+// padded table of `padded` rows, NaN bags written when write_nan.
 extern "C" int nvt_range_bag(const float* table, int64_t rows_local, int64_t start, int D, const int32_t* values,
-                             const float* mask, int64_t B, int L, float* out, int vec, void* stream_ptr) {
+                             const float* mask, int64_t B, int L, int take, int64_t padded, int write_nan, float* out,
+                             int64_t out_row_stride, int vec, void* stream_ptr) {
   if (B == 0 || D == 0) return 0;
+  if (bad_range_shape(D, B, vec) || L < 0 || (take && start + rows_local > padded))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (vec == 4)
     range_bag_kernel<4><<<blocks_for(B * (D / 4)), kThreads, 0, stream>>>(table, rows_local, start, D, values, mask,
-                                                                         B, L, out);
+                                                                         B, L, take, padded, write_nan, out,
+                                                                         out_row_stride);
   else
     range_bag_kernel<1><<<blocks_for(B * D), kThreads, 0, stream>>>(table, rows_local, start, D, values, mask, B, L,
-                                                                    out);
+                                                                    take, padded, write_nan, out, out_row_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad float32 [B, D] (rows grad_row_stride floats apart), values int32
+// [B, L], mask float32 [B, L] → dtable float32 [rows_local, D], zeroed here,
+// then the held ids' terms.
+extern "C" int nvt_range_bag_grad(const float* grad, int64_t grad_row_stride, const int32_t* values, const float* mask,
+                                  int64_t B, int L, int D, int64_t start, int64_t rows_local, int64_t padded, int wrap,
+                                  int mean, float* dtable, int vec, void* stream_ptr) {
+  if (bad_range_shape(D, B, vec) || L < 0 || rows_local < 0 || start < 0 || start + rows_local > padded ||
+      B * L * D > INT32_MAX - kSharedBlocks * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (rows_local > 0) {
+    const cudaError_t err = cudaMemsetAsync(dtable, 0, static_cast<size_t>(rows_local) * D * sizeof(float), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t total = B * L * D;
+  if (total == 0 || rows_local == 0) return 0;
+  const int64_t shared = rows_local * D * static_cast<int64_t>(sizeof(float));
+  if (shared <= kSharedBytes) {
+    const int64_t needed = (total + kThreads - 1) / kThreads;
+    const unsigned blocks = static_cast<unsigned>(needed < kSharedBlocks ? needed : kSharedBlocks);
+    range_bag_grad_shared_kernel<<<blocks, kThreads, static_cast<size_t>(shared), stream>>>(
+        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+  } else if (vec == 4) {
+    range_bag_grad_global_kernel<4><<<blocks_for(B * L * (D / 4)), kThreads, 0, stream>>>(
+        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+  } else {
+    range_bag_grad_global_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(
+        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ids: C int32 [B] columns; offsets, sizes, starts, padded: int64 [C];
-// table float32 [rows_local, D] → out float32 [B, C, D], contiguous.
+// table float32 [rows_local, D] → out float32 [B, C, D] with rows
+// out_row_stride floats apart (each row's [C, D] block contiguous).
 // model_rank 0 writes NaN for the ids no rank holds.
 extern "C" int nvt_range_gather_columns(const void* const* ids, const int64_t* offsets, const int64_t* sizes,
                                         const int64_t* starts, const int64_t* padded, int num_cols,
-                                        const float* table, int D, int64_t B, int model_rank, float* out, int vec,
-                                        void* stream_ptr) {
+                                        const float* table, int D, int64_t B, int model_rank, float* out,
+                                        int64_t out_row_stride, int vec, void* stream_ptr) {
   RangeColumns c;
   if (int rc = fill_range_columns(&c, ids, offsets, sizes, starts, padded, num_cols)) return rc;
   if (bad_range_shape(D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
@@ -254,10 +414,10 @@ extern "C" int nvt_range_gather_columns(const void* const* ids, const int64_t* o
   const int write_nan = model_rank == 0;
   if (vec == 4)
     range_gather_columns_kernel<4><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, table, D, B, write_nan,
-                                                                              out);
+                                                                              out, out_row_stride);
   else
     range_gather_columns_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, table, D, B, write_nan,
-                                                                              out);
+                                                                              out, out_row_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,6 +25,8 @@ LAUNCHES: Dict[str, int] = {
     "embedding_scatter_grad": 0,
     "interaction_fwd": 0,
     "interaction_bwd": 0,
+    "interaction_self_fwd": 0,
+    "interaction_self_bwd": 0,
     "hashed_cross": 0,
     "fold_ids": 0,
     "te_encode": 0,
@@ -48,7 +50,11 @@ LAUNCHES: Dict[str, int] = {
     "embedding_range_bag": 0,
     "range_gather_columns": 0,
     "range_scatter_grad": 0,
+    "range_bag": 0,
+    "range_bag_grad": 0,
     "column_moments": 0,
+    "cin_fwd": 0,
+    "cin_bwd": 0,
 }
 
 
@@ -89,6 +95,21 @@ def check_rows(t: torch.Tensor, what: str, shape, device) -> None:
         raise ValueError(f"{what}: expected float32 {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if shape[0] and shape[1] > 1 and t.stride(1) != 1:
         raise ValueError(f"{what}: each row's floats must be contiguous, strides {t.stride()}")
+
+
+def vec_width(D: int, *tensors: torch.Tensor) -> int:
+    """4 (float4 accesses) when D and every row start are 16-byte aligned, else 1."""
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 for t in tensors)
+    return 4 if D % 4 == 0 and aligned else 1
+
+
+def check_range_table(table: torch.Tensor, start: int) -> None:
+    """A rank's rows of a row-sharded table: float32 [rows_local >= 1, D]."""
+    if table.dim() != 2 or table.shape[0] == 0:
+        raise ValueError(f"table must be [rows_local >= 1, D], got shape {tuple(table.shape)}")
+    check(table, "table", torch.float32, table.device)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

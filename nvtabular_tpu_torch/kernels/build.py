@@ -41,6 +41,7 @@ SOURCES = {
     "exchange": _PKG / "csrc" / "exchange.cu",
     "moments": _PKG / "csrc" / "moments.cu",
     "sharded_embedding": _PKG / "csrc" / "sharded_embedding.cu",
+    "cin": _PKG / "csrc" / "cin.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

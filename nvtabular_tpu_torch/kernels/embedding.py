@@ -17,8 +17,9 @@ lookup and its gradient in the sharded DLRM train step
 (``nvtabular_tpu/parallel/train.py:39-81``): a rank's rows of C row-sharded
 tables in one concatenated shard (``RowShard``), ids with ``jnp.take``'s
 semantics on each whole padded table. ``ShardedEmbeddingFeatures`` wraps them
-with the model group's sum, as ``EmbeddingFeatures`` wraps K13a. Their
-kernels are ``csrc/sharded_embedding.cu`` too.
+and K15d's bag (``kernels/embedding_bag.py``) with the model group's sum, as
+``EmbeddingFeatures`` wraps K13a and the multihot bag K13c. Their kernels
+are ``csrc/sharded_embedding.cu`` too.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
+from . import LAUNCHES, check, check_range_table, ptr, raise_on_error, stream_ptr, use_kernel, vec_width
 from .build import library
+from .embedding_bag import bag_counts, embedding_bag_bwd, embedding_bag_fwd, range_bag, range_bag_grad
 
 MAX_COLUMNS = 64  # csrc/embedding.cu kMaxCols
 
@@ -47,10 +49,10 @@ _SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p,
 ]
-# ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, vec, stream
+# ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, out row stride, vec, stream
 _RANGE_COLUMNS_ARGTYPES = [ctypes.c_void_p] * 5 + [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 # ids, offsets, sizes, starts, padded, C, grad, grad row stride, D, B, dtable, rows_local, vec, stream
 _RANGE_SCATTER_ARGTYPES = [ctypes.c_void_p] * 5 + [
@@ -84,12 +86,6 @@ def check_view(t: torch.Tensor, what: str, shape: Tuple[int, ...], device) -> No
         raise ValueError(f"{what}: expected float32 {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if shape[0] and (t.stride(2) != 1 or t.stride(1) != shape[2]):
         raise ValueError(f"{what}: the [C, D] block of each row must be contiguous, strides {t.stride()}")
-
-
-def _vec(D: int, *tensors: torch.Tensor) -> int:
-    """4 (float4 accesses) when D and every row start are 16-byte aligned."""
-    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 for t in tensors)
-    return 4 if D % 4 == 0 and aligned else 1
 
 
 def c_columns(ids, offsets, sizes):
@@ -135,7 +131,7 @@ def embedding_gather(
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(table), D, B, ptr(out), out.stride(0),
-            _vec(D, table, out), stream_ptr(table.device))
+            vec_width(D, table, out), stream_ptr(table.device))
     raise_on_error(rc, "embedding_gather")
     LAUNCHES["embedding_gather"] += 1
     return out
@@ -174,19 +170,10 @@ def embedding_scatter_grad(
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
-            _vec(D, grad, dtable), stream_ptr(dev))
+            vec_width(D, grad, dtable), stream_ptr(dev))
     raise_on_error(rc, "embedding_scatter_grad")
     LAUNCHES["embedding_scatter_grad"] += 1
     return dtable
-
-
-def check_range_table(table: torch.Tensor, start: int) -> None:
-    """A rank's rows of a row-sharded table: float32 [rows_local >= 1, D]."""
-    if table.dim() != 2 or table.shape[0] == 0:
-        raise ValueError(f"table must be [rows_local >= 1, D], got shape {tuple(table.shape)}")
-    check(table, "table", torch.float32, table.device)
-    if start < 0:
-        raise ValueError(f"start must be >= 0, got {start}")
 
 
 def embedding_range_gather(table: torch.Tensor, ids: torch.Tensor, start: int) -> torch.Tensor:
@@ -206,7 +193,7 @@ def embedding_range_gather(table: torch.Tensor, ids: torch.Tensor, start: int) -
     if fn.argtypes is None:
         fn.argtypes = _RANGE_GATHER_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(table), table.shape[0], start, D, ptr(ids), n, ptr(out), _vec(D, table, out),
+    rc = fn(ptr(table), table.shape[0], start, D, ptr(ids), n, ptr(out), vec_width(D, table, out),
             stream_ptr(table.device))
     raise_on_error(rc, "embedding_range_gather")
     LAUNCHES["embedding_range_gather"] += 1
@@ -223,12 +210,15 @@ def embedding_range_gather_plain(table, ids, start) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class RowShard:
-    """A rank's rows of C row-sharded tables, concatenated in column order.
+    """A rank's rows of C row-sharded tables, concatenated in column order,
+    and of M multihot tables, one tensor each.
 
     Column ``c`` holds the global rows ``[starts[c], starts[c] + sizes[c])``
     of its table of ``padded[c]`` rows, from row ``offsets[c]`` of the
-    shard. ``reduce`` sums a tensor over the model group in place (the
-    group's ``all_reduce``); ``model_rank`` is this rank's index in it."""
+    shard; multihot table ``k`` its rows from ``bag_starts[k]`` of its
+    ``bag_padded[k]``. ``reduce`` sums a tensor over the model group in
+    place (the group's ``all_reduce``); ``model_rank`` is this rank's index
+    in it."""
 
     offsets: Tuple[int, ...]
     sizes: Tuple[int, ...]
@@ -236,6 +226,8 @@ class RowShard:
     padded: Tuple[int, ...]
     model_rank: int
     reduce: Callable[[torch.Tensor], torch.Tensor]
+    bag_starts: Tuple[int, ...] = ()
+    bag_padded: Tuple[int, ...] = ()
 
     def columns(self):
         return self.offsets, self.sizes, self.starts, self.padded
@@ -273,20 +265,26 @@ def range_gather_columns(
     starts: Sequence[int],
     padded: Sequence[int],
     model_rank: int,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K15d forward: ``out[b, c] = table[offsets[c] + id - starts[c]]`` for
     the ids (wrapped by ``padded[c]`` when negative) this rank holds, zeros
     for another rank's, NaN on model rank 0 (zeros elsewhere) for ids no
-    rank holds → contiguous float32 [B, C, D]."""
+    rank holds → float32 [B, C, D]. ``out`` may be a view into a wider
+    buffer (rows strided, each row's [C, D] block contiguous); it is
+    allocated contiguous when not given."""
     if table.dim() != 2:
         raise ValueError(f"table must be [rows_local, D], got shape {tuple(table.shape)}")
     check(table, "table", torch.float32, table.device)
     B = _check_range_columns(table.shape[0], ids, offsets, sizes, starts, padded, table.device)
-    if not use_kernel(table):
-        return range_gather_columns_plain(table, ids, offsets, sizes, starts, padded, model_rank)
     C, D = len(ids), table.shape[1]
+    if out is None:
+        out = torch.empty((B, C, D), dtype=torch.float32, device=table.device)
+    check_view(out, "out", (B, C, D), table.device)
+    if not use_kernel(table):
+        out.copy_(range_gather_columns_plain(table, ids, offsets, sizes, starts, padded, model_rank))
+        return out
     _check_kernel_limits(B, C, D)
-    out = torch.empty((B, C, D), dtype=torch.float32, device=table.device)
     if B == 0 or D == 0:
         return out
     fn = library("sharded_embedding").nvt_range_gather_columns
@@ -294,7 +292,7 @@ def range_gather_columns(
         fn.argtypes = _RANGE_COLUMNS_ARGTYPES
         fn.restype = ctypes.c_int
     rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(table), D, B, int(model_rank), ptr(out),
-            _vec(D, table, out), stream_ptr(table.device))
+            out.stride(0), vec_width(D, table, out), stream_ptr(table.device))
     raise_on_error(rc, "range_gather_columns")
     LAUNCHES["range_gather_columns"] += 1
     return out
@@ -331,7 +329,7 @@ def range_scatter_grad(
         fn.argtypes = _RANGE_SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
     rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
-            num_rows, _vec(D, grad, dtable), stream_ptr(dev))
+            num_rows, vec_width(D, grad, dtable), stream_ptr(dev))
     raise_on_error(rc, "range_scatter_grad")
     LAUNCHES["range_scatter_grad"] += 1
     return dtable
@@ -391,38 +389,52 @@ def embedding_scatter_grad_plain(grad, ids, offsets, sizes, num_rows) -> torch.T
 
 
 class EmbeddingFeatures(torch.autograd.Function):
-    """``[lead, table rows of column 0, ..., column C-1]`` → float32
-    [B, (lead is not None) + C, D]: the gathered rows written straight after
-    an optional leading [B, D] feature (DLRM's bottom-MLP output), as the
-    JAX forward's ``jnp.stack`` of its features. The backward hands the
-    lead its slice of the gradient and the table the dense scatter-add."""
+    """``[lead, table rows of column 0, ..., column C-1, bag 0, ..., bag
+    M-1]`` → float32 [B, (lead is not None) + C + M, D]: the gathered rows
+    (kernel K13a) and the multihot bags (kernel K13c, ``"mean"``) written
+    straight into their slots after an optional leading [B, D] feature
+    (DLRM's bottom-MLP output), as the JAX forward's ``jnp.stack`` of its
+    features. The backward hands the lead its slot of the gradient, the
+    concatenated table the dense scatter-add and each bag's table its bag
+    gradient, each read in place from its slot."""
 
     @staticmethod
-    def forward(ctx, lead, table, offsets, sizes, *ids):
-        B, D = ids[0].shape[0], table.shape[1]
-        L = 0 if lead is None else 1
-        feats = torch.empty((B, L + len(ids), D), dtype=torch.float32, device=table.device)
+    def forward(ctx, lead, table, offsets, sizes, num_ids, *args):
+        ids, bags = args[:num_ids], args[num_ids:]
+        B, D, L, C, M = ids[0].shape[0], table.shape[1], int(lead is not None), len(ids), len(bags) // 3
+        feats = torch.empty((B, L + C + M, D), dtype=torch.float32, device=table.device)
         if lead is not None:
             feats[:, 0].copy_(lead)
-        embedding_gather(table, ids, offsets, sizes, out=feats[:, L:])
-        ctx.save_for_backward(*ids)
-        ctx.meta = (L, tuple(offsets), tuple(sizes), table.shape[0])
+        embedding_gather(table, ids, offsets, sizes, out=feats[:, L : L + C])
+        for k in range(M):
+            embedding_bag_fwd(*bags[3 * k : 3 * k + 3], "mean", out=feats[:, L + C + k])
+        ctx.save_for_backward(*ids, *bags[1::3], *bags[2::3])
+        ctx.meta = (L, C, M, tuple(offsets), tuple(sizes), table.shape[0], tuple(t.shape[0] for t in bags[::3]))
         return feats
 
     @staticmethod
     def backward(ctx, grad):
-        L, offsets, sizes, num_rows = ctx.meta
-        ids = ctx.saved_tensors
+        L, C, M, offsets, sizes, num_rows, bag_rows = ctx.meta
+        saved = ctx.saved_tensors
+        ids, values, masks = saved[:C], saved[C : C + M], saved[C + M :]
         grad = grad.contiguous()
         d_lead = grad[:, 0] if L and ctx.needs_input_grad[0] else None
         d_table = None
         if ctx.needs_input_grad[1]:
-            d_table = embedding_scatter_grad(grad[:, L:], ids, offsets, sizes, num_rows)
-        return (d_lead, d_table, None, None) + (None,) * len(ids)
+            d_table = embedding_scatter_grad(grad[:, L : L + C], ids, offsets, sizes, num_rows)
+        d_bags = []
+        for k in range(M):
+            wanted = ctx.needs_input_grad[5 + C + 3 * k]
+            d_bags += [embedding_bag_bwd(grad[:, L + C + k], values[k], masks[k], bag_rows[k], "mean")
+                       if wanted else None, None, None]
+        return (d_lead, d_table, None, None, None) + (None,) * C + tuple(d_bags)
 
 
-def embedding_features(lead, table, ids, offsets, sizes) -> torch.Tensor:
-    return EmbeddingFeatures.apply(lead, table, tuple(offsets), tuple(sizes), *ids)
+def embedding_features(lead, table, ids, offsets, sizes, bags=()) -> torch.Tensor:
+    """``bags``: (table [V, D], int32 values [B, L], float32 mask [B, L]) of
+    each multihot column, in feature order."""
+    return EmbeddingFeatures.apply(lead, table, tuple(offsets), tuple(sizes), len(ids), *ids,
+                                   *[t for bag in bags for t in bag])
 
 
 class EmbeddingRow(torch.autograd.Function):
@@ -465,41 +477,59 @@ def embedding_row(table, ids, offsets, sizes, trail=None) -> torch.Tensor:
 
 
 class ShardedEmbeddingFeatures(torch.autograd.Function):
-    """``[lead, the model group's rows of column 0, ..., column C-1]`` →
-    float32 [b, 1 + C, D]: ``EmbeddingFeatures`` over row-sharded tables.
-    K15d gathers this rank's rows into a contiguous [b, C, D] buffer, the
-    shard's ``reduce`` sums it over the model group in place (exactly one
-    rank holds each row; model rank 0 alone writes the NaN rows), and the
-    sum lands in slots 1..C after the lead, which stays out of the sum.
+    """``[lead, the model group's rows of column 0, ..., column C-1, bag 0,
+    ..., bag M-1]`` → float32 [b, 1 + C + M, D]: ``EmbeddingFeatures`` over
+    row-sharded tables. K15d gathers this rank's rows and K15d's bag sums
+    this rank's share of each bag into one contiguous [b, C + M, D] buffer,
+    the shard's ``reduce`` sums it over the model group in place (one
+    ``all_reduce`` a step: exactly one rank holds each row; model rank 0
+    alone writes the NaN rows and bags), each bag is then divided by its
+    count, max(sum(mask), 1), and the result lands in slots 1.. after the
+    lead, which stays out of the sum.
 
     Every rank of the model group holds the same sum, so the sum's
     transpose is the identity: the backward scatter-adds the features'
-    gradient into this rank's rows (K15d's backward) with no collective, and
-    hands the lead its slot."""
+    gradient into this rank's rows (K15d's backward and its bag's) with no
+    collective, and hands the lead its slot."""
 
     @staticmethod
-    def forward(ctx, lead, table, shard, *ids):
-        emb = range_gather_columns(table, ids, *shard.columns(), shard.model_rank)
+    def forward(ctx, lead, table, shard, num_ids, *args):
+        ids, bags = args[:num_ids], args[num_ids:]
+        B, D, C, M = lead.shape[0], table.shape[1], len(ids), len(bags) // 3
+        emb = torch.empty((B, C + M, D), dtype=torch.float32, device=table.device)
+        range_gather_columns(table, ids, *shard.columns(), shard.model_rank, out=emb[:, :C])
+        for k in range(M):
+            range_bag(*bags[3 * k : 3 * k + 3], shard.bag_starts[k], shard.bag_padded[k], shard.model_rank,
+                      out=emb[:, C + k])
         shard.reduce(emb)
-        B, C, D = emb.shape
-        feats = torch.empty((B, 1 + C, D), dtype=torch.float32, device=table.device)
+        for k in range(M):  # the mean after the model group's sum
+            emb[:, C + k].div_(bag_counts(bags[3 * k + 2])[:, None])
+        feats = torch.empty((B, 1 + C + M, D), dtype=torch.float32, device=table.device)
         feats[:, 0].copy_(lead)
         feats[:, 1:].copy_(emb)
-        ctx.save_for_backward(*ids)
-        ctx.meta = (shard, table.shape[0])
+        ctx.save_for_backward(*ids, *bags[1::3], *bags[2::3])
+        ctx.meta = (shard, C, M, table.shape[0], tuple(t.shape[0] for t in bags[::3]))
         return feats
 
     @staticmethod
     def backward(ctx, grad):
-        shard, num_rows = ctx.meta
-        ids = ctx.saved_tensors
+        shard, C, M, num_rows, bag_rows = ctx.meta
+        saved = ctx.saved_tensors
+        ids, values, masks = saved[:C], saved[C : C + M], saved[C + M :]
         grad = grad.contiguous()
         d_lead = grad[:, 0] if ctx.needs_input_grad[0] else None
         d_table = None
         if ctx.needs_input_grad[1]:
-            d_table = range_scatter_grad(grad[:, 1:], ids, *shard.columns(), num_rows)
-        return (d_lead, d_table, None) + (None,) * len(ids)
+            d_table = range_scatter_grad(grad[:, 1 : 1 + C], ids, *shard.columns(), num_rows)
+        d_bags = []
+        for k in range(M):
+            wanted = ctx.needs_input_grad[4 + C + 3 * k]
+            d_bags += [range_bag_grad(grad[:, 1 + C + k], values[k], masks[k], shard.bag_starts[k], bag_rows[k],
+                                      shard.bag_padded[k], "mean") if wanted else None, None, None]
+        return (d_lead, d_table, None, None) + (None,) * C + tuple(d_bags)
 
 
-def sharded_embedding_features(lead, table, ids, shard: RowShard) -> torch.Tensor:
-    return ShardedEmbeddingFeatures.apply(lead, table, shard, *ids)
+def sharded_embedding_features(lead, table, ids, shard: RowShard, bags=()) -> torch.Tensor:
+    """``bags``: (this rank's rows of the table, int32 values [b, L], float32
+    mask [b, L]) of each multihot column, in feature order."""
+    return ShardedEmbeddingFeatures.apply(lead, table, shard, len(ids), *ids, *[t for bag in bags for t in bag])

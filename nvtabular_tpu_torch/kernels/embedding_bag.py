@@ -6,13 +6,20 @@ the masked sum of a row's table entries, divided by ``max(sum(mask), 1)``
 for ``"mean"``, over DeviceLoader's padded ``values`` int32 [B, L] and
 ``mask`` float32 [B, L]. Ids follow ``jnp.take``'s defaults as K13a's do: a
 negative id wraps once, an id still out of range reads a NaN row (and NaN
-times a 0 mask is NaN) and its gradient is dropped. The kernels are
-``csrc/embedding_bag.cu``.
+times a 0 mask is NaN) and its gradient is dropped. The forward's kernel
+is ``csrc/embedding_bag.cu``; the backward is ``range_bag_grad``'s kernel
+on the whole table.
 
 ``embedding_range_bag`` is the per-rank half of the row-sharded bag (kernel
 K15b, ``nvtabular_tpu/parallel/embeddings.py:73-81``): the weighted sums over
 a rank's rows ``[start, start + rows_local)`` of a table, with global ids and
-weights ``mask * in_range``. Its kernel is ``csrc/sharded_embedding.cu``.
+weights ``mask * in_range`` (the zero rule: an id no rank holds reads
+zeros). ``range_bag`` is the same kernel in take mode, the forward of K15d's
+bag in the sharded DLRM step: ids follow ``jnp.take`` on the whole padded
+table, and an id no rank holds makes its bag NaN on model rank 0 only.
+``range_bag_grad`` is its transpose for either rule, this rank's rows of the
+table's gradient (no collective). Their kernels are
+``csrc/sharded_embedding.cu``.
 """
 
 from __future__ import annotations
@@ -22,10 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
+from . import LAUNCHES, check, check_range_table, check_rows, ptr, raise_on_error, stream_ptr, use_kernel, vec_width
 from .build import library
-from .embedding import _vec  # float4 accesses where rows are 16-byte aligned
-from .embedding import check_range_table
 
 COMBINERS = ("mean", "sum")
 
@@ -33,14 +38,17 @@ _FWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
 ]
-# table, rows_local, start, D, values, mask, B, L, out, vec, stream
+# table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out row stride, vec, stream
 _RANGE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+# grad, grad row stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable, vec, stream
+_RANGE_GRAD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p,
 ]
 
 
@@ -58,6 +66,18 @@ def _check_bag(values: torch.Tensor, mask: torch.Tensor, combiner: str, device) 
 def _check_limits(B: int, L: int, D: int) -> None:
     if B * L * D >= 2**31:
         raise ValueError(f"[{B}, {L}, {D}] exceeds the embedding bag kernels' int32 index")
+
+
+def _check_bag_grad(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                    combiner: str) -> Tuple[int, int, int]:
+    """Validates a bag gradient [B, D] (rows may be strided) and its ids;
+    returns (B, L, D)."""
+    if grad.dim() != 2:
+        raise ValueError(f"grad must be [B, D], got shape {tuple(grad.shape)}")
+    B, L = _check_bag(values, mask, combiner, grad.device)
+    D = grad.shape[1]
+    check_rows(grad, "grad", (B, D), grad.device)
+    return B, L, D
 
 
 def embedding_bag_fwd(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, combiner: str = "mean",
@@ -83,7 +103,7 @@ def embedding_bag_fwd(table: torch.Tensor, values: torch.Tensor, mask: torch.Ten
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
     rc = fn(ptr(table), V, D, ptr(values), ptr(mask), B, L, int(combiner == "mean"), ptr(out), out.stride(0),
-            _vec(D, table, out), stream_ptr(table.device))
+            vec_width(D, table, out), stream_ptr(table.device))
     raise_on_error(rc, "embedding_bag_fwd")
     LAUNCHES["embedding_bag_fwd"] += 1
     return out
@@ -93,27 +113,31 @@ def embedding_bag_bwd(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tens
                       combiner: str = "mean") -> torch.Tensor:
     """The transpose of ``embedding_bag_fwd``: the dense float32 [num_rows, D]
     gradient of the table, given the gradient [B, D] of the bags (a view, as
-    ``out`` above)."""
-    if grad.dim() != 2:
-        raise ValueError(f"grad must be [B, D], got shape {tuple(grad.shape)}")
-    B, L = _check_bag(values, mask, combiner, grad.device)
-    D = grad.shape[1]
-    check_rows(grad, "grad", (B, D), grad.device)
+    ``out`` above). It is ``range_bag_grad``'s kernel on the whole table
+    (rows ``[0, num_rows)``, negatives wrapped by ``num_rows``), counted as
+    ``embedding_bag_bwd``."""
+    B, L, D = _check_bag_grad(grad, values, mask, combiner)
     if not use_kernel(grad):
-        return embedding_bag_bwd_plain(grad, values, mask, num_rows, combiner)
-    _check_limits(B, L, D)
-    dtable = torch.zeros((num_rows, D), dtype=torch.float32, device=grad.device)
+        return range_bag_grad_plain(grad, values, mask, 0, num_rows, num_rows, combiner)
     if B == 0 or L == 0 or D == 0 or num_rows == 0:
-        return dtable
-    fn = library("embedding_bag").nvt_embedding_bag_bwd
+        return torch.zeros((num_rows, D), dtype=torch.float32, device=grad.device)
+    return _launch_range_bag_grad("embedding_bag_bwd", grad, values, mask, 0, num_rows, num_rows, combiner, True)
+
+
+def _launch_range_bag(name, table, values, mask, start, take, padded, write_nan, out) -> None:
+    B, L = values.shape
+    D = table.shape[1]
+    _check_limits(B, L, D)
+    if B == 0 or D == 0:
+        return
+    fn = library("sharded_embedding").nvt_range_bag
     if fn.argtypes is None:
-        fn.argtypes = _BWD_ARGTYPES
+        fn.argtypes = _RANGE_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(grad), grad.stride(0), ptr(values), ptr(mask), B, L, D, num_rows, int(combiner == "mean"),
-            ptr(dtable), _vec(D, grad, dtable), stream_ptr(grad.device))
-    raise_on_error(rc, "embedding_bag_bwd")
-    LAUNCHES["embedding_bag_bwd"] += 1
-    return dtable
+    rc = fn(ptr(table), table.shape[0], start, D, ptr(values), ptr(mask), B, L, int(take), padded, int(write_nan),
+            ptr(out), out.stride(0), vec_width(D, table, out), stream_ptr(table.device))
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
 
 
 def embedding_range_bag(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, start: int) -> torch.Tensor:
@@ -124,19 +148,102 @@ def embedding_range_bag(table: torch.Tensor, values: torch.Tensor, mask: torch.T
     B, L = _check_bag(values, mask, "sum", table.device)
     if not use_kernel(table):
         return embedding_range_bag_plain(table, values, mask, start)
-    D = table.shape[1]
-    out = torch.empty((B, D), dtype=torch.float32, device=table.device)
-    if B == 0 or D == 0:
-        return out
-    fn = library("sharded_embedding").nvt_range_bag
-    if fn.argtypes is None:
-        fn.argtypes = _RANGE_ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(ptr(table), table.shape[0], start, D, ptr(values), ptr(mask), B, L, ptr(out), _vec(D, table, out),
-            stream_ptr(table.device))
-    raise_on_error(rc, "embedding_range_bag")
-    LAUNCHES["embedding_range_bag"] += 1
+    out = torch.empty((B, table.shape[1]), dtype=torch.float32, device=table.device)
+    _launch_range_bag("embedding_range_bag", table, values, mask, start, False, 0, False, out)
     return out
+
+
+def _check_shard(rows: int, start: int, padded: int) -> None:
+    if start < 0 or rows < 0 or start + rows > padded:
+        raise ValueError(f"shard rows [{start}, {start + rows}) outside the padded table's {padded}")
+
+
+def range_bag(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, start: int, padded: int,
+              model_rank: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K15d bag forward → float32 [B, D]: ``sum_l table[id - start] *
+    mask`` over the ids (negatives wrapped by ``padded``) this rank holds,
+    summed in l order; on model rank 0 a NaN bag where an id lies outside
+    ``[-padded, padded)``, masked or not. ``table`` is this rank's rows
+    ``[start, start + rows_local)`` of the padded table. ``out`` may be a
+    view into a wider buffer (rows strided, each row contiguous)."""
+    check_range_table(table, start)
+    _check_shard(table.shape[0], start, padded)
+    B, L = _check_bag(values, mask, "sum", table.device)
+    if out is None:
+        out = torch.empty((B, table.shape[1]), dtype=torch.float32, device=table.device)
+    check_rows(out, "out", (B, table.shape[1]), table.device)
+    if not use_kernel(table):
+        out.copy_(range_bag_plain(table, values, mask, start, padded, model_rank))
+        return out
+    _launch_range_bag("range_bag", table, values, mask, start, True, padded, model_rank == 0, out)
+    return out
+
+
+def range_bag_grad(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tensor, start: int, rows_local: int,
+                   padded: int, combiner: str = "mean", wrap: bool = True) -> torch.Tensor:
+    """The transpose of this rank's part of the sharded bag: the dense
+    float32 [rows_local, D] gradient of its rows ``[start, start +
+    rows_local)``, given the gradient [B, D] of the pooled bags (a view, rows
+    strided): ``(g[b] / count[b]) * mask[b, l]`` added at ``id - start`` for
+    each id it holds (``count`` = max(sum(mask), 1) for ``"mean"``, 1 for
+    ``"sum"``). ``wrap`` wraps negatives by ``padded`` (``range_bag``'s
+    take rule); without it (``embedding_range_bag``'s zero rule) they are
+    no row's. Ids outside the table add nothing."""
+    _check_bag_grad(grad, values, mask, combiner)
+    _check_shard(rows_local, start, padded)
+    if not use_kernel(grad):
+        return range_bag_grad_plain(grad, values, mask, start, rows_local, padded, combiner, wrap)
+    return _launch_range_bag_grad("range_bag_grad", grad, values, mask, start, rows_local, padded, combiner, wrap)
+
+
+def _launch_range_bag_grad(name, grad, values, mask, start, rows_local, padded, combiner, wrap) -> torch.Tensor:
+    B, L = values.shape
+    D = grad.shape[1]
+    _check_limits(B, L, D)
+    dtable = torch.empty((rows_local, D), dtype=torch.float32, device=grad.device)
+    if D == 0:
+        return dtable
+    fn = library("sharded_embedding").nvt_range_bag_grad
+    if fn.argtypes is None:
+        fn.argtypes = _RANGE_GRAD_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(ptr(grad), grad.stride(0), ptr(values), ptr(mask), B, L, D, start, rows_local, padded, int(wrap),
+            int(combiner == "mean"), ptr(dtable), vec_width(D, grad, dtable), stream_ptr(grad.device))
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
+    return dtable
+
+
+def bag_shard_rows(values: torch.Tensor, start: int, rows_local: int, padded: int, wrap: bool = True):
+    """int64 [B, L] rows of the shard (0 where not held), the [B, L] mask of
+    the ids this rank holds and the [B, L] mask of the ids no rank holds
+    (outside ``[0, padded)`` after the wrap of negatives, when ``wrap``)."""
+    idx = values.long()
+    if wrap:
+        idx = torch.where(idx < 0, idx + padded, idx)
+    valid = (idx >= 0) & (idx < padded)
+    local = idx - start
+    mine = valid & (local >= 0) & (local < rows_local)
+    return torch.where(mine, local, 0), mine, ~valid
+
+
+def range_bag_plain(table, values, mask, start, padded, model_rank) -> torch.Tensor:
+    rows, mine, no_rank = bag_shard_rows(values, start, table.shape[0], padded)
+    emb = table[rows]  # [B, L, D]
+    s = torch.zeros((values.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
+    for l in range(values.shape[1]):  # in l order; another rank's ids add nothing
+        s = s + torch.where(mine[:, l, None], emb[:, l] * mask[:, l, None], 0.0)
+    if model_rank == 0:
+        s = torch.where(no_rank.any(dim=1)[:, None], float("nan"), s)
+    return s
+
+
+def range_bag_grad_plain(grad, values, mask, start, rows_local, padded, combiner="mean", wrap=True) -> torch.Tensor:
+    rows, mine, _ = bag_shard_rows(values, start, rows_local, padded, wrap)
+    scaled = grad / bag_counts(mask)[:, None] if combiner == "mean" else grad
+    terms = scaled[:, None, :] * mask[..., None]  # [B, L, D]
+    dtable = torch.zeros((rows_local, grad.shape[1]), dtype=torch.float32, device=grad.device)
+    return dtable.index_add_(0, rows[mine], terms[mine])
 
 
 def embedding_range_bag_plain(table, values, mask, start) -> torch.Tensor:
@@ -160,7 +267,7 @@ def bag_rows(values: torch.Tensor, num_rows: int) -> Tuple[torch.Tensor, torch.T
     return torch.where(valid, idx, 0), valid
 
 
-def _counts(mask: torch.Tensor) -> torch.Tensor:
+def bag_counts(mask: torch.Tensor) -> torch.Tensor:
     """max(sum_l mask, 1), summed in l order as the kernel sums it."""
     cnt = torch.zeros(mask.shape[0], dtype=torch.float32, device=mask.device)
     for l in range(mask.shape[1]):
@@ -175,15 +282,7 @@ def embedding_bag_fwd_plain(table, values, mask, combiner="mean") -> torch.Tenso
     s = torch.zeros((values.shape[0], table.shape[1]), dtype=torch.float32, device=table.device)
     for l in range(values.shape[1]):  # in l order, one rounding per product and per sum
         s = s + emb[:, l] * mask[:, l, None]
-    return s / _counts(mask)[:, None] if combiner == "mean" else s
-
-
-def embedding_bag_bwd_plain(grad, values, mask, num_rows, combiner="mean") -> torch.Tensor:
-    rows, valid = bag_rows(values, num_rows)
-    scaled = grad / _counts(mask)[:, None] if combiner == "mean" else grad
-    terms = scaled[:, None, :] * mask[..., None]  # [B, L, D]
-    dtable = torch.zeros((num_rows, grad.shape[1]), dtype=torch.float32, device=grad.device)
-    return dtable.index_add_(0, rows[valid], terms[valid])
+    return s / bag_counts(mask)[:, None] if combiner == "mean" else s
 
 
 class EmbeddingBag(torch.autograd.Function):

@@ -2,7 +2,10 @@
 
 For features ``x`` float32 [B, F, D], the interaction is the P = F (F - 1) / 2
 dot products of distinct feature pairs in ``np.tril_indices(F, -1)`` order,
-as ``nvtabular_tpu/models/layers.py:97-117`` computes them. The kernels are
+as ``nvtabular_tpu/models/layers.py:97-117`` computes them; with
+``self_interaction`` the P = F (F + 1) / 2 pairs of ``np.tril_indices(F, 0)``,
+each feature's dot with itself included (a mode of both kernels, counted
+apart as ``interaction_self_fwd`` / ``_bwd``). The kernels are
 ``csrc/interaction.cu``.
 """
 
@@ -20,21 +23,23 @@ from .build import library
 SMEM_LIMIT = 48 * 1024  # static-launch shared memory, no opt-in attribute
 MAX_SAMPLES_PER_BLOCK = 8
 
-_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+# x, B, F, D, G, self_mode, out, out row stride, stream
+_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+# x, g, g row stride, B, F, D, G, self_mode, dx, stream
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def num_pairs(f: int) -> int:
-    return f * (f - 1) // 2
+def num_pairs(f: int, self_interaction: bool = False) -> int:
+    return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
 
 
-def _samples_per_block(F: int, D: int, backward: bool) -> int:
+def _samples_per_block(F: int, D: int, backward: bool, self_interaction: bool) -> int:
     """Samples a block stages (csrc/interaction.cu smem_bytes: rows padded to
     D + 1 floats, or D + 4 in the backward when D % 4 == 0)."""
     if backward:
-        per_sample = (F * (D + 4 if D % 4 == 0 else D + 1) + num_pairs(F)) * 4
+        per_sample = (F * (D + 4 if D % 4 == 0 else D + 1) + num_pairs(F, self_interaction)) * 4
     else:
         per_sample = F * (D + 1) * 4
     if per_sample > SMEM_LIMIT:
@@ -42,73 +47,93 @@ def _samples_per_block(F: int, D: int, backward: bool) -> int:
     return min(MAX_SAMPLES_PER_BLOCK, SMEM_LIMIT // per_sample)
 
 
-def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """float32 [B, F, D] → [B, P]. ``out`` may be a column slice of a wider
-    [B, W] buffer (rows strided, each row contiguous)."""
+def _check_x(x: torch.Tensor):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, F, D], got shape {tuple(x.shape)}")
-    B, F, D = x.shape
     check(x, "x", torch.float32, x.device)
-    P = num_pairs(F)
+    return x.shape
+
+
+def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                    self_interaction: bool = False) -> torch.Tensor:
+    """float32 [B, F, D] → [B, P]. ``out`` may be a column slice of a wider
+    [B, W] buffer (rows strided, each row contiguous)."""
+    B, F, D = _check_x(x)
+    P = num_pairs(F, self_interaction)
     if out is None:
         out = torch.empty((B, P), dtype=torch.float32, device=x.device)
     check_rows(out, "out", (B, P), x.device)
     if not use_kernel(x):
-        out.copy_(interaction_fwd_plain(x))
+        out.copy_(interaction_fwd_plain(x, self_interaction))
         return out
     if B == 0 or P == 0:
         return out
-    G = _samples_per_block(F, D, backward=False)
+    G = _samples_per_block(F, D, False, self_interaction)
     fn = library("interaction").nvt_interaction_fwd
     if fn.argtypes is None:
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(x), B, F, D, G, ptr(out), out.stride(0), stream_ptr(x.device))
-    raise_on_error(rc, "interaction_fwd")
-    LAUNCHES["interaction_fwd"] += 1
+    rc = fn(ptr(x), B, F, D, G, int(self_interaction), ptr(out), out.stride(0), stream_ptr(x.device))
+    name = "interaction_self_fwd" if self_interaction else "interaction_fwd"
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
-def interaction_bwd(x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+def interaction_bwd(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
     """The gradient of ``interaction_fwd`` at ``x`` for the output gradient
     ``grad`` [B, P] (rows may be strided) → float32 [B, F, D]."""
-    if x.dim() != 3:
-        raise ValueError(f"x must be [B, F, D], got shape {tuple(x.shape)}")
-    B, F, D = x.shape
-    check(x, "x", torch.float32, x.device)
-    P = num_pairs(F)
+    B, F, D = _check_x(x)
+    P = num_pairs(F, self_interaction)
     check_rows(grad, "grad", (B, P), x.device)
     if not use_kernel(x):
-        return interaction_bwd_plain(x, grad)
+        return interaction_bwd_plain(x, grad, self_interaction)
     if B == 0 or P == 0:
         return torch.zeros_like(x)
     dx = torch.empty_like(x)
-    G = _samples_per_block(F, D, backward=True)
+    G = _samples_per_block(F, D, True, self_interaction)
     fn = library("interaction").nvt_interaction_bwd
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, ptr(dx), stream_ptr(x.device))
-    raise_on_error(rc, "interaction_bwd")
-    LAUNCHES["interaction_bwd"] += 1
+    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, int(self_interaction), ptr(dx), stream_ptr(x.device))
+    name = "interaction_self_bwd" if self_interaction else "interaction_bwd"
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
     return dx
 
 
-def _pair_index(f: int, device) -> torch.Tensor:
-    rows, cols = np.tril_indices(f, k=-1)
-    return torch.from_numpy(rows * f + cols).to(device)
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fmaf(a, b, c)``: the product of two float32 values is exact
+    in float64, so one float64 sum and its rounding to float32 give it (a
+    double rounding differs from fmaf's single one about once in 2^29)."""
+    return (a.double() * b.double() + c.double()).float()
 
 
-def interaction_fwd_plain(x: torch.Tensor) -> torch.Tensor:
-    B, F, _ = x.shape
-    inter = torch.bmm(x, x.transpose(1, 2))  # [B, F, F]
-    return inter.reshape(B, F * F)[:, _pair_index(F, x.device)]
+def interaction_fwd_plain(x: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
+    """The pair dots as the kernel sums them: over d in order, one fmaf a
+    step."""
+    B, F, D = x.shape
+    rows, cols = (torch.from_numpy(a).to(x.device) for a in np.tril_indices(F, k=0 if self_interaction else -1))
+    out = torch.zeros((B, rows.numel()), dtype=x.dtype, device=x.device)
+    for d in range(D):
+        xd = x[:, :, d]
+        out = _fma(xd[:, rows], xd[:, cols], out)
+    return out
 
 
-def interaction_bwd_plain(x: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-    with torch.enable_grad():
-        leaf = x.detach().requires_grad_(True)
-        (dx,) = torch.autograd.grad(interaction_fwd_plain(leaf), leaf, grad)
+def interaction_bwd_plain(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
+    """dX[b, i] = sum_j w[b, i, j] X[b, j] as the kernel sums it: over j in
+    order, one fmaf a step, w the pairs' gradient as a symmetric [F, F]
+    matrix (2 g_ii on its diagonal in the self mode, 0 in the strict one)."""
+    B, F, D = x.shape
+    rows, cols = (torch.from_numpy(a).to(x.device) for a in np.tril_indices(F, k=0 if self_interaction else -1))
+    w = torch.zeros((B, F, F), dtype=x.dtype, device=x.device)
+    w[:, rows, cols] = grad
+    w = w + w.transpose(1, 2)
+    dx = torch.zeros_like(x)
+    for j in range(F):
+        dx = _fma(w[:, :, j, None], x[:, None, j, :], dx)
     return dx
 
 
@@ -119,26 +144,48 @@ class DotInteraction(torch.autograd.Function):
     by the kernel."""
 
     @staticmethod
-    def forward(ctx, x, lead):
+    def forward(ctx, x, lead, self_interaction):
         B, F, _ = x.shape
         W = 0 if lead is None else lead.shape[1]
-        out = torch.empty((B, W + num_pairs(F)), dtype=torch.float32, device=x.device)
+        out = torch.empty((B, W + num_pairs(F, self_interaction)), dtype=torch.float32, device=x.device)
         if lead is not None:
             out[:, :W].copy_(lead)
-        interaction_fwd(x, out=out[:, W:])
+        interaction_fwd(x, out=out[:, W:], self_interaction=self_interaction)
         ctx.save_for_backward(x)
-        ctx.width = W
+        ctx.meta = (W, self_interaction)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        W = ctx.width
+        W, self_interaction = ctx.meta
         grad = grad.contiguous()
-        dx = interaction_bwd(x, grad[:, W:]) if ctx.needs_input_grad[0] else None
+        dx = interaction_bwd(x, grad[:, W:], self_interaction) if ctx.needs_input_grad[0] else None
         d_lead = grad[:, :W] if W and ctx.needs_input_grad[1] else None
-        return dx, d_lead
+        return dx, d_lead, None
 
 
-def dot_interaction(x: torch.Tensor, lead: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return DotInteraction.apply(x, lead)
+def dot_interaction(x: torch.Tensor, lead: Optional[torch.Tensor] = None,
+                    self_interaction: bool = False) -> torch.Tensor:
+    return DotInteraction.apply(x, lead, self_interaction)
+
+
+class PlainInteraction(torch.autograd.Function):
+    """``interaction_fwd_plain`` with ``interaction_bwd_plain`` as its
+    backward, on any device: the reference a model's forward through the
+    kernels is held against, with the kernels' fmaf steps in their order."""
+
+    @staticmethod
+    def forward(ctx, x, self_interaction):
+        ctx.save_for_backward(x)
+        ctx.self_interaction = self_interaction
+        return interaction_fwd_plain(x, self_interaction)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return interaction_bwd_plain(x, grad.contiguous(), ctx.self_interaction), None
+
+
+def dot_interaction_plain(x: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
+    return PlainInteraction.apply(x, self_interaction)

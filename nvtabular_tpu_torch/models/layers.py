@@ -3,13 +3,12 @@
 * ``MLP`` — ``mlp_init`` / ``mlp_apply`` (:30-67) as an ``nn.Module`` whose
   weights keep JAX's ``[in, out]`` layout (``h @ w + b``), so parameters
   carry across without transposes.
-* ``embedding_lookup``, ``multihot_embedding_lookup`` and
-  ``dot_product_interaction`` over the hand-written kernels K13a, K13c and
-  K13b (``kernels/embedding.py``, ``kernels/embedding_bag.py``,
-  ``kernels/interaction.py``).
+* ``embedding_lookup``, ``multihot_embedding_lookup``,
+  ``dot_product_interaction`` and ``xdeepfm_outer_product`` over the
+  hand-written kernels K13a, K13c, K13b and K13d (``kernels/embedding.py``,
+  ``kernels/embedding_bag.py``, ``kernels/interaction.py``,
+  ``kernels/cin.py``).
 * ``bce_with_logits`` with the same stable expression (:144-150).
-
-``xdeepfm_outer_product`` (K13d) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..kernels.cin import cin
 from ..kernels.embedding import embedding_features
 from ..kernels.embedding_bag import embedding_bag
 from ..kernels.interaction import dot_interaction
@@ -90,14 +90,11 @@ def embedding_lookup(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor
 
 def dot_product_interaction(features: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
     """features [B, F, D] float32 → [B, F*(F-1)/2]: the dot products of the
-    distinct feature pairs in ``np.tril_indices(F, -1)`` order. Through
-    kernel K13b."""
-    if self_interaction:
-        raise NotImplementedError(
-            "dot_product_interaction(self_interaction=True) is not ported yet: kernel K13b "
-            "computes the strict lower triangle (ROADMAP.md queue 1 item 9)"
-        )
-    return dot_interaction(features)
+    distinct feature pairs in ``np.tril_indices(F, -1)`` order; with
+    ``self_interaction`` → [B, F*(F+1)/2], the pairs of
+    ``np.tril_indices(F, 0)``, each feature's dot with itself included.
+    Through kernel K13b."""
+    return dot_interaction(features, self_interaction=self_interaction)
 
 
 def multihot_embedding_lookup(table: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
@@ -109,8 +106,13 @@ def multihot_embedding_lookup(table: torch.Tensor, values: torch.Tensor, mask: t
     return embedding_bag(table, values, mask, combiner)
 
 
-def xdeepfm_outer_product(x_k, x_0, w):
-    raise NotImplementedError("xdeepfm_outer_product is not ported yet (ROADMAP.md queue 2, K13d)")
+def xdeepfm_outer_product(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """xDeepFM's Compressed Interaction Network layer: x_k [B, H_k, D] (the
+    current layer), x_0 [B, F, D] (the raw embeddings; may be x_k itself)
+    and w [H_k * F, H_next] → [B, H_next, D], ``sum_{i, j} w[i * F + j, h] *
+    x_k[b, i, d] * x_0[b, j, d]``. float32; other dtypes raise
+    NotImplementedError. Through kernel K13d."""
+    return cin(x_k, x_0, w)
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -8,12 +8,11 @@ the ids. Kernel K15b gathers (or bags) the local rows for every id, zeros
 for the rows another rank holds, and one ``all_reduce`` over the model
 axis's group assembles the embeddings: exactly one rank owns each row.
 
-``sharded_embedding_lookup`` is differentiable in ``table``, the transpose
-of the JAX ``shard_map``: each rank scatter-adds the output's gradient of
-the ids it holds into its rows (K15d's backward with one column), and no
-collective runs, since the summed output is the same on every rank of the
-model axis. ``sharded_embedding_bag`` is forward-only (its gradient waits
-for DLRM's multihot tables, ROADMAP.md queue 1 item 9).
+Both are differentiable in ``table``, the transpose of the JAX
+``shard_map``: each rank scatter-adds the output's gradient of the ids it
+holds into its rows (K15d's backward with one column; K15d's bag backward,
+``range_bag_grad``, with the zero rule), and no collective runs, since the
+summed output is the same on every rank of the model axis.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import numpy as np
 import torch
 
 from ..kernels.embedding import embedding_range_gather, range_scatter_grad
-from ..kernels.embedding_bag import COMBINERS, embedding_range_bag
+from ..kernels.embedding_bag import COMBINERS, embedding_range_bag, range_bag_grad
 from .mesh import all_reduce, mesh_device
 
 
@@ -71,18 +70,39 @@ def sharded_embedding_lookup(table, indices, mesh, model_axis: str = "model", da
     return _RangeLookup.apply(table, ids, start, mesh.get_group(model_axis))
 
 
+class _RangeBag(torch.autograd.Function):
+    """The weighted sums over this rank's rows summed over the model group;
+    the backward adds ``g[b] * mask[b, l]`` at each id in ``[start, start +
+    rows_local)`` (no wrap of negatives: the shard_map reads zeros for every
+    id outside its rows)."""
+
+    @staticmethod
+    def forward(ctx, table, values, mask, start, group):
+        ctx.save_for_backward(values, mask)
+        ctx.meta = (start, table.shape[0], group.size())
+        return all_reduce(embedding_range_bag(table, values, mask, start), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        values, mask = ctx.saved_tensors
+        start, rows, model_size = ctx.meta
+        d_table = range_bag_grad(grad.contiguous(), values, mask, start, rows, rows * model_size, "sum", wrap=False)
+        return d_table, None, None, None, None
+
+
 def sharded_embedding_bag(
     table, values, mask, mesh, model_axis: str = "model", data_axis: str = "data", combiner: str = "mean"
 ):
     """The multihot form: ``values`` int [b, L] and ``mask`` [b, L] (this
     rank's data shard) → pooled float32 [b, D]. ``mean`` divides the sum
-    over the model axis by max(sum(mask), 1), after the sum."""
+    over the model axis by max(sum(mask), 1), after the sum. Differentiable
+    in ``table``, as ``sharded_embedding_lookup``."""
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be one of {COMBINERS}, got {combiner!r}")
     table, start = _local(table, mesh, model_axis)
     vals = _tensor(values, torch.int32, table.device)
     m = _tensor(mask, torch.float32, table.device)
-    pooled = all_reduce(embedding_range_bag(table, vals, m, start), mesh.get_group(model_axis))
+    pooled = _RangeBag.apply(table, vals, m, start, mesh.get_group(model_axis))
     if combiner == "sum":
         return pooled
     return pooled / torch.clamp(m.sum(dim=1), min=1.0)[:, None]

@@ -10,12 +10,15 @@ None)``), a replica of the MLPs, and data shard ``d`` of each batch (rows
 
 A step:
 
-1. the forward gathers this rank's rows (kernel K15d) and sums them over the
-   model group (``kernels.embedding.ShardedEmbeddingFeatures``);
+1. the forward gathers this rank's rows (kernel K15d) and its share of each
+   multihot bag (K15d's bag) into one buffer and sums it over the model
+   group, then divides each bag by its count
+   (``kernels.embedding.ShardedEmbeddingFeatures``);
 2. the backward scatter-adds the features' gradient into this rank's rows
-   (K15d's backward) with no collective: every rank of a model group holds
-   the same features, so their sum's transpose is the identity;
-3. the gradients are averaged over the data group, the table's in place and
+   (K15d's backward and its bag's) with no collective: every rank of a
+   model group holds the same features, so their sum's transpose is the
+   identity;
+3. the gradients are averaged over the data group, the tables' in place and
    the MLPs' through one flat buffer, so the replicas stay bit-equal;
 4. ``Adagrad`` updates in place: each rank its own rows and its replica.
 
@@ -37,7 +40,7 @@ from .mesh import all_reduce, mesh_device
 
 def _table_axis(specs) -> str:
     """The one mesh axis that ``specs`` row-shards every table over."""
-    axes = {tuple(s) for s in specs["tables"].values()}
+    axes = {tuple(s) for s in (*specs["tables"].values(), *specs.get("mh_tables", {}).values())}
     if len(axes) != 1 or len(next(iter(axes))) != 2 or next(iter(axes))[1] is not None:
         raise ValueError(f"every table must be row-sharded over one axis, as (axis, None); got {sorted(axes)}")
     return next(iter(axes))[0]
@@ -52,16 +55,14 @@ def _replicated(specs, what: str) -> None:
 
 def shard_params(model, specs: Dict[str, Any], mesh):
     """Place ``model`` (a ``DLRM``) on the mesh per ``specs``
-    (``dlrm_param_specs``): this rank keeps its model shard of every table
-    and looks its rows up through the sharded lookup; the MLPs stay whole.
-    The model moves to this rank's device. Returns the model. Make the
-    optimizer afterwards, as optax's state is made from sharded params."""
-    if specs.get("mh_tables"):
-        raise NotImplementedError(
-            "DLRM multihot tables are not ported yet (ROADMAP.md queue 1 item 9: DLRM multihot tables through K13c)"
-        )
-    if sorted(specs["tables"]) != model.names:
-        raise ValueError(f"table specs {sorted(specs['tables'])} do not match the model's {model.names}")
+    (``dlrm_param_specs``): this rank keeps its model shard of every table,
+    single-hot and multihot, and looks its rows up through the sharded
+    lookup and bag; the MLPs stay whole. The model moves to this rank's
+    device. Returns the model. Make the optimizer afterwards, as optax's
+    state is made from sharded params."""
+    if sorted(specs["tables"]) != model.names or sorted(specs.get("mh_tables", {})) != model.mh_names:
+        raise ValueError(f"table specs {sorted(specs['tables'])} and {sorted(specs.get('mh_tables', {}))} do not "
+                         f"match the model's {model.names} and {model.mh_names}")
     axis = _table_axis(specs)
     _replicated(specs["bottom"], "bottom")
     _replicated(specs["top"], "top")
@@ -155,9 +156,12 @@ def make_train_step(
         opt.zero_grad()
         loss = loss_fn(model, batch)
         loss.backward()
-        if model.table.grad is not None:
-            _mean(model.table.grad, group, n)
-        _average([p.grad for p in model.parameters() if p is not model.table and p.grad is not None], group, n)
+        tables = [model.table, *model.mh_tables]
+        for t in tables:
+            if t.grad is not None:
+                _mean(t.grad, group, n)
+        _average([p.grad for p in model.parameters() if all(p is not t for t in tables) and p.grad is not None],
+                 group, n)
         opt.step()
         return _mean(loss.detach().clone(), group, n)
 

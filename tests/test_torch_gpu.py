@@ -14,6 +14,7 @@ import torch
 import nvtabular_tpu_torch as nvt
 from nvtabular_tpu_torch import kernels, models, ops
 from nvtabular_tpu_torch.kernels import bucketize as kbkt
+from nvtabular_tpu_torch.kernels import cin as kcin
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
 from nvtabular_tpu_torch.kernels import cross as kcross
 from nvtabular_tpu_torch.kernels import difference_lag as kdl
@@ -590,8 +591,8 @@ def test_embedding_bag_kernels_match_plain(V, D, combiner):
     assert torch.equal(got.isnan(), want.isnan()) and bool(got[:, 0].isnan()[[2, 4]].all())
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
     assert torch.equal(buf[:, :4], torch.zeros(B, 4, device="cuda"))
-    want_grad = kbag.embedding_bag_bwd_plain(grad.cuda(), dv, dm, V, combiner)
-    magnitude = kbag.embedding_bag_bwd_plain(grad.cuda().abs(), dv, dm, V, combiner)
+    want_grad = kbag.range_bag_grad_plain(grad.cuda(), dv, dm, 0, V, V, combiner)
+    magnitude = kbag.range_bag_grad_plain(grad.cuda().abs(), dv, dm, 0, V, V, combiner)
     assert bool(((got_grad - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
 
 
@@ -1508,9 +1509,10 @@ def test_sharded_step_on_one_rank_nccl_matches_unsharded(tmp_path):
 def test_sharded_train_step_across_cards_matches_one_process(tmp_path):
     """An NCCL group of one rank a card on every card of the machine (data
     2 x model 2 on four; model 2 on two): three sharded Adagrad steps of one
-    global batch give one process's unsharded steps on a card from the same
-    parameters — every rank's losses and the tables stacked from the ranks
-    within 1e-5 (atomics and the data axis's sums in other orders), the MLPs
+    global batch of a DLRM with two tables and two multihot tables give one
+    process's unsharded steps on a card from the same parameters — every
+    rank's losses and both kinds of tables stacked from the ranks within
+    1e-5 (atomics and the data axis's sums in other orders), the MLPs
     within 1e-5 on one data rank and within STEPS * lr * 2**-8 on two (each
     data rank's weight gradient rounds to bfloat16 before their sum, one
     process's once: test_torch_sharded_train.py) — and the MLP replicas are
@@ -1519,23 +1521,21 @@ def test_sharded_train_step_across_cards_matches_one_process(tmp_path):
     world = torch.cuda.device_count()
     if world < 2:
         pytest.skip("needs two CUDA devices or more (NCCL refuses two ranks on one device)")
-    import test_torch_sharded_train as st
+    import test_torch_dlrm_multihot as mh
 
     from torch_groups import run_group
 
     model_size = 2 if world % 2 == 0 else 1
-    config = models.DLRMConfig(st.CARDS, st.NUM_DENSE, **st.MODEL_KW)
-    params = nvt.dlrm_params(models.DLRM(config, seed=5, device="cpu"))
-    batch = st.step_batch()
-    ref = models.DLRM(config, device="cuda:0")
+    params = nvt.dlrm_params(models.DLRM(mh.config(), seed=5, device="cpu"))
+    batch = mh.step_batch()
+    ref = models.DLRM(mh.config(), device="cuda:0")
     nvt.load_dlrm_params(ref, params)
-    opt = models.Adagrad(ref.parameters(), lr=st.LR)
+    opt = models.Adagrad(ref.parameters(), lr=mh.LR)
     want = [float(models.train_step(ref, opt, {k: torch.from_numpy(v).cuda() for k, v in batch.items()}))
-            for _ in range(st.STEPS)]
+            for _ in range(mh.STEPS)]
     want_params = nvt.dlrm_params(ref)
-    ranks = run_group(st.train_worker, world, tmp_path, model_size, params, batch, backend="nccl", timeout=300)
-    tables = st._stacked(ranks, model_size, "params")
-    mlp_tol = dict(rtol=1e-5, atol=1e-5) if world == model_size else dict(rtol=0, atol=st.STEPS * st.LR * 2**-8)
+    ranks = run_group(mh.train_worker, world, tmp_path, model_size, params, batch, backend="nccl", timeout=300)
+    mlp_tol = dict(rtol=1e-5, atol=1e-5) if world == model_size else dict(rtol=0, atol=mh.STEPS * mh.LR * 2**-8)
     for res in ranks:
         np.testing.assert_allclose(res["losses"], want, rtol=1e-5)
         for side in ("bottom", "top"):
@@ -1543,5 +1543,277 @@ def test_sharded_train_step_across_cards_matches_one_process(tmp_path):
                 for k in ("w", "b"):
                     np.testing.assert_allclose(got[k], w[k], **mlp_tol)
                     assert np.array_equal(got[k].view(np.int32), first[k].view(np.int32))
-    for n in st.CARDS:
-        np.testing.assert_allclose(tables[n], want_params["tables"][n], rtol=1e-5, atol=1e-5, err_msg=n)
+    for kind in ("tables", "mh_tables"):
+        tables = mh._stacked(ranks, model_size, kind)
+        for n, w in want_params[kind].items():
+            np.testing.assert_allclose(tables[n], w, rtol=1e-5, atol=1e-5, err_msg=n)
+
+
+# --- K15d's bag, K13b's self-interaction mode and K13d ------------------------------------
+def _bag_shard(g, B, L, vp, M, m, D):
+    """Shard m of M of a padded [vp, D] multihot table, ids over [-vp - 3,
+    vp + 3) (negatives wrap, a few outside the table, some masked) and a
+    mask with an all-masked row."""
+    rows = vp // M
+    local = torch.randn((rows, D), generator=g)
+    values = torch.randint(-vp - 3, vp + 3, (B, L), generator=g, dtype=torch.int32)
+    mask = (torch.rand((B, L), generator=g) < 0.8).float()
+    mask[0] = 0.0
+    values[1, 0], mask[1, 0] = vp, 0.0  # masked, no rank's: NaN on model rank 0
+    return local, values, mask, m * rows
+
+
+@pytest.mark.parametrize("combiner", ["mean", "sum"])
+@pytest.mark.parametrize("model_rank", [0, 1])
+@pytest.mark.parametrize("vp,D", [(24, 64), (24, 5), (40_000, 16)], ids=["genres_shared", "scalar", "global"])
+def test_range_bag_kernels_match_plain(vp, D, model_rank, combiner):
+    """K15d's bag on model shard model_rank of 4: the take-mode forward
+    bit-equal to its plain version (NaN bags on model rank 0 alone),
+    written into a slot of a wider buffer; the backward within 1e-5 of the
+    sum of its terms' magnitudes (atomics), from a strided gradient, with
+    the take rule and the zero rule. 24 rows of 64 take the shared-memory
+    sums under full contention (65,536 x 4 ids on 6 rows), 40,000 rows the
+    global atomics."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(vp + D + model_rank)
+    B, L = 65_536, 4
+    local, values, mask, start = _bag_shard(g, B, L, vp, 4, model_rank, D)
+    dl, dv, dm = local.cuda(), values.cuda(), mask.cuda()
+    buf = torch.zeros((B, 3, D), device="cuda")
+    gbuf = torch.zeros((B, 3, D), device="cuda")
+    grad = torch.randn((B, D), generator=g)
+    gbuf[:, 1] = grad.cuda()
+    kernels.reset_launches()
+    kbag.range_bag(dl, dv, dm, start, vp, model_rank, out=buf[:, 1])
+    got_grads = {wrap: kbag.range_bag_grad(gbuf[:, 1], dv, dm, start, local.shape[0], vp, combiner, wrap)
+                 for wrap in (True, False)}
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["range_bag"] == 1 and kernels.LAUNCHES["range_bag_grad"] == 2
+    want = kbag.range_bag_plain(local, values, mask, start, vp, model_rank)
+    got = buf[:, 1].cpu()
+    assert torch.equal(got.isnan(), want.isnan()) and bool(want[:, 0].isnan().any()) == (model_rank == 0)
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert not bool(buf[:, [0, 2]].any())
+    for wrap, got_grad in got_grads.items():
+        want_grad = kbag.range_bag_grad_plain(grad, values, mask, start, local.shape[0], vp, combiner, wrap)
+        magnitude = kbag.range_bag_grad_plain(grad.abs(), values, mask, start, local.shape[0], vp, combiner, wrap)
+        assert bool(((got_grad.cpu() - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all()), wrap
+
+
+def test_range_bag_on_one_rank_is_the_whole_bag_bit_for_bit():
+    """On one model rank the take-mode bag sums the whole padded table's rows
+    in K13c's order and roundings: bit-equal to embedding_bag_fwd's sum."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(11)
+    local, values, mask, _ = _bag_shard(g, 50_001, 4, 24, 1, 0, 64)
+    dl, dv, dm = local.cuda(), values.cuda(), mask.cuda()
+    got = kbag.range_bag(dl, dv, dm, 0, 24, 0)
+    want = kbag.embedding_bag_fwd(dl, dv, dm, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("F,D", [(27, 16), (5, 8), (1, 3), (4, 5)])
+def test_interaction_self_mode_kernels_match_plain(F, D):
+    """K13b's self-interaction mode: P = F (F + 1) / 2 dots within one ULP of
+    the plain version (the same fmaf steps in the same order, which the
+    plain version rounds twice, through float64, about once in 2^29),
+    written after a lead, and the backward (2 g_ii x_i on the diagonal) from
+    a strided gradient (rtol 1e-5, atol 1e-5); counted apart from the strict
+    mode."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(F + D)
+    B, P = 1001, F * (F + 1) // 2
+    x = torch.randn((B, F, D), generator=g)
+    grad = torch.randn((B, P), generator=g)
+    xc = x.cuda()
+    buf = torch.zeros((B, D + P), device="cuda")
+    gbuf = torch.zeros((B, D + P), device="cuda")
+    gbuf[:, D:] = grad.cuda()
+    kernels.reset_launches()
+    kint.interaction_fwd(xc, out=buf[:, D:], self_interaction=True)
+    got_dx = kint.interaction_bwd(xc, gbuf[:, D:], self_interaction=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["interaction_self_fwd"] == 1 and kernels.LAUNCHES["interaction_self_bwd"] == 1
+    assert kernels.LAUNCHES["interaction_fwd"] == 0 and kernels.LAUNCHES["interaction_bwd"] == 0
+    torch.testing.assert_close(buf[:, D:].cpu(), kint.interaction_fwd_plain(x, True), rtol=2**-23, atol=0)
+    assert not bool(buf[:, :D].any())
+    torch.testing.assert_close(got_dx.cpu(), kint.interaction_bwd_plain(x, grad, True), rtol=1e-5, atol=1e-5)
+
+
+def _cin_inputs(g, B, Hk, F, D, Hn, same):
+    x0 = torch.randn((B, F, D), generator=g)
+    xk = x0 if same else torch.randn((B, Hk, D), generator=g)
+    w = torch.randn((Hk * F, Hn), generator=g) / (Hk * F) ** 0.5
+    return xk, x0, w, torch.randn((B, Hn, D), generator=g)
+
+
+def _within_terms(got, want, magnitude, rtol=1e-5, atol=1e-6) -> bool:
+    return bool(((got - want).abs() <= rtol * magnitude + atol).all())
+
+
+@pytest.mark.parametrize(
+    "B,Hk,F,D,Hn,same",
+    [(2053, 26, 26, 16, 200, True), (517, 200, 26, 16, 200, False), (301, 7, 5, 5, 9, False), (64, 3, 2, 4, 1, False)],
+    ids=["layer1", "layer2", "odd", "tiny"],
+)
+def test_cin_kernels_match_plain(B, Hk, F, D, Hn, same):
+    """K13d against its plain version on the card: out, dx_k, dx_0 and dw
+    each within 1e-5 of the sum of their terms' magnitudes plus 1e-6
+    (float32 sums over Hk * F pairs, Hn maps or B * D columns in another
+    order, and atomics in the backward); x_k may be x_0 itself."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(B)
+    xk, x0, w, grad = (t.cuda() for t in _cin_inputs(g, B, Hk, F, D, Hn, same))
+    kernels.reset_launches()
+    out = kcin.cin_fwd(xk, x0, w)
+    dxk, dx0, dw = kcin.cin_bwd(xk, x0, w, grad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd"] == 1 and kernels.LAUNCHES["cin_bwd"] == 1
+    want = kcin.cin_fwd_plain(xk, x0, w)
+    assert _within_terms(out, want, kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
+    wants = kcin.cin_bwd_plain(xk, x0, w, grad)
+    mags = kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), grad.abs())
+    for name, got, want, mag in zip(("dx_k", "dx_0", "dw"), (dxk, dx0, dw), wants, mags):
+        assert _within_terms(got, want, mag), (name, float((got - want).abs().max()))
+
+
+def test_cin_layer_autograd_sums_both_gradients_when_x_k_is_x_0():
+    """xdeepfm_outer_product(x, x, w) through the kernels: x's gradient is
+    dx_k + dx_0 (the plain layer's autograd on the same inputs, 1e-5 of the
+    terms' magnitudes)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(3)
+    x, _, w, grad = (t.cuda() for t in _cin_inputs(g, 999, 6, 6, 8, 12, True))
+    x, w = x.requires_grad_(True), w.requires_grad_(True)
+    kernels.reset_launches()
+    models.xdeepfm_outer_product(x, x, w).backward(grad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd"] == 1 and kernels.LAUNCHES["cin_bwd"] == 1
+    xp, wp = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    kcin.cin_fwd_plain(xp, xp, wp).backward(grad)
+    xm, wm = x.detach().abs().requires_grad_(True), w.detach().abs().requires_grad_(True)
+    kcin.cin_fwd_plain(xm, xm, wm).backward(grad.abs())
+    assert _within_terms(x.grad, xp.grad, xm.grad) and _within_terms(w.grad, wp.grad, wm.grad)
+
+
+def test_new_layer_kernels_take_empty_inputs_and_the_current_stream():
+    """No rows: empty outputs and zero gradients, nothing launched where
+    there is nothing to launch; on a side stream the kernels follow the
+    stream they are launched on."""
+    _require_cuda()
+    kernels.reset_launches()
+    empty_v, empty_m = torch.zeros((0, 4), dtype=torch.int32, device="cuda"), torch.zeros((0, 4), device="cuda")
+    local = torch.randn((6, 64), device="cuda")
+    assert kbag.range_bag(local, empty_v, empty_m, 6, 24, 1).shape == (0, 64)
+    assert not bool(kbag.range_bag_grad(torch.zeros((0, 64), device="cuda"), empty_v, empty_m, 6, 6, 24).any())
+    assert kint.interaction_fwd(torch.zeros((0, 5, 8), device="cuda"), self_interaction=True).shape == (0, 15)
+    xk, x0, w = torch.zeros((0, 3, 4), device="cuda"), torch.zeros((0, 2, 4), device="cuda"), torch.ones((6, 5), device="cuda")
+    assert kcin.cin_fwd(xk, x0, w).shape == (0, 5, 4)
+    dxk, dx0, dw = kcin.cin_bwd(xk, x0, w, torch.zeros((0, 5, 4), device="cuda"))
+    assert dxk.shape == (0, 3, 4) and dx0.shape == (0, 2, 4) and not bool(dw.any())
+    torch.cuda.synchronize()
+    assert sum(v for k, v in kernels.LAUNCHES.items() if k not in ("range_bag_grad", "cin_bwd")) == 0
+    g = torch.Generator().manual_seed(9)
+    local, values, mask, start = _bag_shard(g, 40_001, 4, 24, 4, 1, 64)
+    xk, x0, w, grad = _cin_inputs(g, 777, 9, 7, 16, 33, False)
+    bag_grad = torch.randn((40_001, 64), generator=g)
+    dev = [t.cuda() for t in (local, values, mask, xk, x0, w, grad, bag_grad)]
+    x = torch.randn((3001, 27, 16), generator=g)
+    dx_in = x.cuda()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        bag = kbag.range_bag(dev[0], dev[1], dev[2], start, 24, 1)
+        bgrad = kbag.range_bag_grad(dev[7], dev[1], dev[2], start, 6, 24)
+        inter = kint.interaction_fwd(dx_in, self_interaction=True)
+        out = kcin.cin_fwd(dev[3], dev[4], dev[5])
+        cgrads = kcin.cin_bwd(dev[3], dev[4], dev[5], dev[6])
+    side.synchronize()
+    assert torch.equal(bag.cpu(), kbag.range_bag_plain(local, values, mask, start, 24, 1))
+    want_bgrad = kbag.range_bag_grad_plain(bag_grad, values, mask, start, 6, 24)
+    assert _within_terms(bgrad.cpu(), want_bgrad, kbag.range_bag_grad_plain(bag_grad.abs(), values, mask, start, 6, 24))
+    torch.testing.assert_close(inter.cpu(), kint.interaction_fwd_plain(x, True), rtol=1e-5, atol=1e-5)
+    assert _within_terms(out.cpu(), kcin.cin_fwd_plain(xk, x0, w), kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
+    mags = kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), grad.abs())
+    for got, want, mag in zip(cgrads, kcin.cin_bwd_plain(xk, x0, w, grad), mags):
+        assert _within_terms(got.cpu(), want, mag)
+
+
+def _multihot_dlrm(seed=1, **kw):
+    config = models.DLRMConfig({"a": 3, "b": 500, "c": 40_000}, num_dense=13, embedding_dim=16,
+                               multihot_cardinalities={"g": 23, "m": 5000}, multihot_max_len=4, **kw)
+    batch = {k: torch.from_numpy(v) for k, v in models.make_synthetic_batch(config, 4096, seed=2).items()}
+    batch["g__values"][:2, 0] = torch.tensor([-1, -23], dtype=torch.int32)  # wraps
+    return config, batch
+
+
+def test_multihot_dlrm_step_through_kernels_matches_plain_reference():
+    """One DLRM loss and gradient with two multihot tables through the
+    kernels (one K13a gather and scatter, one K13c bag forward and backward
+    per multihot table, K13b once each) against models.reference_forward on
+    the card, in float32 compute: only summation orders differ (rtol 1e-4 on
+    the loss and the logits; gradients within 1e-4 of their largest
+    entry)."""
+    _require_cuda()
+    config, batch = _multihot_dlrm()
+    model = models.DLRM(config, seed=1, compute_dtype=torch.float32)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    kernels.reset_launches()
+    logits = model(batch)
+    loss = models.bce_with_logits(logits, batch["label"])
+    loss.backward()
+    torch.cuda.synchronize()
+    want = {"embedding_gather": 1, "embedding_scatter_grad": 1, "embedding_bag_fwd": 2, "embedding_bag_bwd": 2,
+            "interaction_fwd": 1, "interaction_bwd": 1}
+    assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    ref_logits = models.reference_forward(model, batch)
+    ref_loss = models.bce_with_logits(ref_logits, batch["label"])
+    ref_loss.backward()
+    torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
+    for (name, p), got in zip(model.named_parameters(), grads):
+        assert float((got - p.grad).abs().max()) <= 1e-4 * float(p.grad.abs().max()), name
+
+
+def test_sharded_multihot_step_on_one_rank_nccl_matches_unsharded(tmp_path):
+    """A one-rank NCCL group on the card: shard_params, shard_batch and
+    make_train_step take three Adagrad steps of a DLRM with two multihot
+    tables through K15d and its bag (one range_gather_columns,
+    range_scatter_grad a step, one range_bag and range_bag_grad a multihot
+    table a step, no K13a or K13c) from the parameters of an unsharded DLRM
+    that takes the same steps through K13a and K13c: losses within rtol
+    1e-5, tables and MLPs within 1e-5 (atomics in varying orders)."""
+    _require_cuda()
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import parallel
+
+    config, batch = _multihot_dlrm(vocab_pad_multiple=4)
+    want_model = models.DLRM(config, seed=1)
+    want_opt = models.Adagrad(want_model.parameters())
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    want = [float(models.train_step(want_model, want_opt, dev_batch)) for _ in range(3)]
+    parallel.initialize_distributed("nccl", f"file://{tmp_path / 'store'}", 0, 1, timeout=120)
+    try:
+        mesh = parallel.local_mesh()
+        model = models.DLRM(config, seed=1)
+        p_specs, b_specs = models.dlrm_param_specs(model), models.batch_specs(config)
+        parallel.shard_params(model, p_specs, mesh)
+        opt = models.Adagrad(model.parameters())
+        step = parallel.make_train_step(models.dlrm_loss, opt, mesh=mesh, param_specs=p_specs, batch_specs=b_specs)
+        local = parallel.shard_batch(batch, b_specs, mesh)
+        kernels.reset_launches()
+        got = [float(step(model, opt, local)) for _ in range(3)]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    assert launches == {**{k: 0 for k in launches}, "range_gather_columns": 3, "range_scatter_grad": 3,
+                        "range_bag": 6, "range_bag_grad": 6, "interaction_fwd": 3, "interaction_bwd": 3}
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), want_model.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5, msg=name)

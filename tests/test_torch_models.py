@@ -329,23 +329,15 @@ def test_train_chunk_equals_train_steps():
 @pytest.mark.parametrize(
     "call",
     [
-        # multihot_embedding_lookup is ported (test_torch_tabular.py); a DLRM
-        # pytree with multihot tables is not
-        lambda: pnvt.load_dlrm_params(
-            pmodels.DLRM(_config_pair()[1], device="cpu"), {"tables": {}, "mh_tables": {"m": np.zeros((4, 64))}}
-        ),
-        lambda: pmodels.xdeepfm_outer_product(None, None, None),
-        lambda: pmodels.dot_product_interaction(torch.zeros(2, 3, 4), self_interaction=True),
-        lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, multihot_cardinalities={"m": 4}), device="cpu"),
-        # vocab_pad_multiple and row-sharded training are ported (test_torch_sharded_train.py);
-        # row-sharded multihot tables are not
-        lambda: par.shard_params(pmodels.DLRM(_config_pair()[1], device="cpu"),
-                                 {"tables": {}, "mh_tables": {"m": ("model", None)}}, None),
+        # the reference's own dlrm_forward fails for self_interaction=True;
+        # multihot tables, their sharding, the self-interaction layer and the
+        # CIN layer are ported (test_torch_dlrm_multihot.py, test_torch_layers.py)
+        lambda: pmodels.DLRM(_config_pair()[1].__class__({"a": 3}, 1, self_interaction=True), device="cpu"),
     ],
-    ids=["multihot", "xdeepfm", "self_interaction", "dlrm_multihot", "sharded_multihot"],
+    ids=["dlrm_self_interaction"],
 )
 def test_unported_model_parts_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="reference's own dlrm_forward fails.*ROADMAP.md §3"):
         call()
 
 
