@@ -182,9 +182,34 @@ a nonzero exit:
    its first batch's [65536, 4] values at dim 64, K13b's self mode at
    [65536, 27, 16] -> 378 and K13d at xDeepFM's layer 1 ([65536, 26, 16]
    twice -> 200) and layer 2 ([8192, 200, 16] x [8192, 26, 16] -> 200),
-   each against its plain version on the card and timed beside its bound.
+   each against its plain version on the card and timed beside its bound;
+24. Criteo's alternative continuous chain on phase 3's partitions, as two
+   workflows: 24a, the 13 dense columns through FillMedian >> Clip(min=0) >>
+   LogOp >> NormalizeMinMax(out_dtype="float16") (one K5 launch a batch:
+   median fill, min-max and a float16 store) and the fields with under
+   2,000 values through Categorify >> DropLowCardinality(4) >>
+   ReduceDtypeSize >> AddTags; 24b, the dense columns through
+   FillMissing(add_binary_cols=True) (one K5 launch a batch, writing the
+   _filled masks); each fitted and transformed with the counters zeroed
+   before and read after, batch 0 against the CPU run on the same fitted
+   state (codes, masks, dtypes and kept columns exact, float16 within two
+   ULPs: log1p's float32 ULP can move the cast one), rows/s with and
+   without the copy;
+25. sessions on phase 9's partitions with ~1% of ts_delta NaN:
+   Dataset.shuffle_by_keys(["userId"]) (K7 on the card; the partitions
+   equal the CPU shuffle's), then Dropna >> Filter(rating >= 3) >>
+   Groupby("userId", sort_cols=["ts_delta"]) >> ValueCount and
+   ListSlice(-20, pad=True) of the movie lists (K11b), and K11c
+   (ragged_segment_reduce) of each partition's rating lists for sum, mean,
+   min and max, held against Groupby's own columns (min and max exact, sum
+   and mean within 1e-5 of the rows' |v| sums); every partition equal to
+   the CPU run; shuffle seconds, rows/s, host handoff ms a batch;
+26. K5's 16-bit and mask modes on phase 24's [13, 262144] batch, and K11c
+   on all of phase 25's rating lists at once (the zipf head user among
+   them), against their plain versions on the card, timed beside their
+   bound and beside torch.segment_reduce.
 
-The line before the last is {"kernels": [...]} with the 39 kernels'
+The line before the last is {"kernels": [...]} with the 42 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -2899,6 +2924,340 @@ def layer_kernel_records(dev, mh: dict) -> dict:
     return records
 
 
+# phase 24: the Criteo fields with under 2,000 distinct values in bench.py:99's profile
+SMALL_CAT_LIMIT = 2000
+# float16 card vs CPU: log1p's float32 ULP between CUDA's log1pf and the CPU's
+# can move the cast input one float16 ULP, and the division rounds again
+F16_ULPS = 2
+# phase 25: ~1% of ts_delta NaN; Groupby's aggregations; ListSlice's last 20 movies
+SESSION_NAN_SHARE, SESSION_SLICE = 0.01, 20
+SESSION_AGGS = {"movieId": ["list", "count"], "rating": ["list", "sum", "mean", "min", "max"],
+                "ts_delta": ["first", "last"]}
+SESSION_COLUMNS = ["userId", "movieId_list", "movieId_count", "rating_list", "rating_sum", "rating_mean",
+                   "rating_min", "rating_max", "ts_delta_first", "ts_delta_last"]
+# K11c's float32 sums against float64 ones: relative to the row's sum of |v|
+SEGMENT_SUM_TOL = 1e-5
+
+
+def alt_graphs(ops, cat_names, cont_names):
+    """Phase 24's two workflows: Criteo's alternative continuous chain with
+    the small categoricals (24a), and the missing-value indicators (24b)."""
+    small = [c for c, card in zip(cat_names, CRITEO_TB_CARDINALITIES) if card < SMALL_CAT_LIMIT]
+
+    def dense():
+        return (cont_names >> ops.FillMedian() >> ops.Clip(min_value=0.0) >> ops.LogOp()
+                >> ops.NormalizeMinMax(out_dtype="float16"))
+
+    def graph_a():
+        cats = (small >> ops.Categorify() >> ops.DropLowCardinality(min_cardinality=4) >> ops.ReduceDtypeSize()
+                >> ops.AddTags(["criteo_small"]))
+        return dense() + cats
+
+    def graph_b():
+        return cont_names >> ops.FillMissing(add_binary_cols=True)
+
+    return small, graph_a, graph_b
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Float16 or bfloat16 values apart in ULPs (0 where both are NaN)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    dist = (ordered(a) - ordered(b)).abs()
+    return torch.where(a.isnan() & b.isnan(), 0, dist)
+
+
+def compare_16bit(got, want, what) -> dict:
+    """Card against CPU: column names and dtypes equal, integer and bool
+    columns exact, float32 within CPU_TOL, 16-bit floats within F16_ULPS
+    ULPs; the count of 16-bit values at each distance."""
+    if got.column_names != want.column_names:
+        fail(f"{what}: columns {got.column_names} != {want.column_names}")
+    counts = {}
+    for name in want.column_names:
+        g, w = got[name].values.cpu(), want[name].values
+        if g.dtype != w.dtype:
+            fail(f"{what}: {name} dtype {g.dtype} != {w.dtype}")
+        if g.dtype in (torch.float16, torch.bfloat16):
+            dist = ulp_distance(g, w)
+            for d, c in zip(*torch.unique(dist, return_counts=True)):
+                counts[int(d)] = counts.get(int(d), 0) + int(c)
+            if int(dist.max()) > F16_ULPS:
+                fail(f"{what}: {name} differs by {int(dist.max())} ULPs")
+        elif g.is_floating_point():
+            if not torch.allclose(g, w, **CPU_TOL, equal_nan=True):
+                fail(f"{what}: {name} differs, max abs {float((g - w).abs().nan_to_num().max())}")
+        elif not torch.equal(g, w):
+            fail(f"{what}: {name} differs in {int((g != w).sum())} rows")
+    return counts
+
+
+def alt_criteo_path(nvt, dev, parts, cat_names, cont_names) -> dict:
+    """Phase 24: Criteo's alternative continuous chain (FillMedian → Clip →
+    LogOp → NormalizeMinMax(float16): one K5 launch a batch), the small
+    categoricals (Categorify → DropLowCardinality → ReduceDtypeSize →
+    AddTags) and the missing-value indicators (FillMissing(add_binary_cols):
+    K5's mask, one launch a batch) on phase 3's partitions."""
+    from nvtabular_tpu_torch import kernels, ops
+
+    phase_t0 = time.perf_counter()
+    small, graph_a, graph_b = alt_graphs(ops, cat_names, cont_names)
+    rows_total = NUM_PARTS * ROWS_PER_PART
+    rec = {"small_columns": small}
+    for key, make_graph, want in [
+        ("a", graph_a, {"cont_chain_16": NUM_PARTS, "tiny_lookup": 2 * NUM_PARTS}),
+        ("b", graph_b, {"cont_chain_mask": NUM_PARTS}),
+    ]:
+        wf = nvt.Workflow(make_graph(), device=dev)
+        dataset = nvt.Dataset(parts)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with plain_calls_on_card(f"phase 24{key}"):
+            wf.fit(dataset)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            outs = [wf.transform(b) for b in dataset.to_batches()]
+            torch.cuda.synchronize()
+        first_pass_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        log(f"phase 24{key}: fit {fit_s:.2f} s, first transform pass {first_pass_s:.2f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        # 24a's tiny lookups: ReduceDtypeSize's fit reads Categorify's codes, then the transform
+        check_launches(launches, want, f"phase 24{key}")
+        cpu_wf = nvt.Workflow(make_graph(), device="cpu")
+        nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+        ulps = compare_16bit(outs[0], cpu_wf.transform(parts[0]), f"phase 24{key} vs cpu")
+        schema = {cs.name: cs.dtype.name for cs in wf.output_schema}
+        for out in outs:
+            for name, col in out.columns.items():
+                if col.values.shape[0] != ROWS_PER_PART or col.device != dev:
+                    fail(f"phase 24{key}: {name} has shape {tuple(col.values.shape)} on {col.device}")
+        with_h2d_all, _ = transform_rates(wf, parts, rows_total)
+        on_card = [wf.executor.stage(b) for b in parts]
+        torch.cuda.synchronize()
+        without_h2d_all, _ = transform_rates(wf, on_card, rows_total)
+        rec[key] = {"fit_s": fit_s, "first_pass_s": first_pass_s, "launches": launches, "dtypes": schema,
+                    "rows_per_s_with_h2d": with_h2d_all, "rows_per_s_without_h2d": without_h2d_all,
+                    "f16_ulps_vs_cpu": ulps, "wf": wf, "staged": on_card[0]}
+        log(f"phase 24{key}: no plain version on the card; batch 0 equals the CPU run (codes, masks and dtypes "
+            f"exact, float16 values by ULPs apart {ulps}); output dtypes {schema}; "
+            f"transform median of {REPEATS} passes {float(np.median(with_h2d_all)):,.0f} rows/s with the "
+            f"host-to-device copy, {float(np.median(without_h2d_all)):,.0f} rows/s from batches on the card")
+        del outs, on_card
+    kept = [c for c in small if c in rec["a"]["dtypes"]]
+    log(f"phase 24a: small categoricals {small}, kept by DropLowCardinality {kept}")
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 24 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def session_graph(ops):
+    """Phase 25: sessions — Dropna → Filter(rating >= 3) → Groupby by user,
+    sorted by ts_delta; ValueCount of the lists; the last 20 movies padded."""
+    g = (["userId", "movieId", "rating", "ts_delta"] >> ops.Dropna()
+         >> ops.Filter(lambda b: np.asarray(b["rating"]) >= 3.0)
+         >> ops.Groupby("userId", sort_cols=["ts_delta"], aggs=SESSION_AGGS))
+    vc = g[SESSION_COLUMNS] >> ops.ValueCount()
+    rest = [c for c in SESSION_COLUMNS if c != "movieId_list"]
+    return vc[rest] + (vc["movieId_list"] >> ops.ListSlice(-SESSION_SLICE, pad=True))
+
+
+def session_tables(nvt, ml_parts):
+    """Phase 9's partitions with ~1% of ts_delta NaN, drawn from the seed."""
+    tables = []
+    for s, p in enumerate(ml_parts):
+        ts = p["ts_delta"].copy()
+        ts[np.random.default_rng(20_000 + s).random(len(ts)) < SESSION_NAN_SHARE] = np.nan
+        tables.append(nvt.TableBatch({"userId": nvt.Column(p["userId"]), "movieId": nvt.Column(p["movieId"]),
+                                      "rating": nvt.Column(p["rating"]), "ts_delta": nvt.Column(ts)}))
+    return tables
+
+
+def check_segment_reduce(got, lists, ref, combiner, what):
+    """K11c against Groupby's own column: min and max exact, sum and mean
+    within SEGMENT_SUM_TOL of the row's float64 sum (mean) of |v|."""
+    if combiner in ("min", "max"):
+        if not torch.equal(got, ref):
+            fail(f"{what}: {combiner} differs from Groupby's in {int((got != ref).sum())} rows")
+        return 0.0
+    from nvtabular_tpu_torch.kernels import ragged as kragged
+
+    scale = kragged.ragged_segment_reduce_plain(lists.values.abs(), lists.offsets, len(lists), combiner).double()
+    err = (got.double() - ref.double()).abs()
+    if not bool((err <= SEGMENT_SUM_TOL * scale + 1e-6).all()):
+        fail(f"{what}: {combiner} beyond {SEGMENT_SUM_TOL} of the rows' |v| sums, max err {float(err.max())}")
+    return float(err.max())
+
+
+def session_path(nvt, dev, ml_parts) -> dict:
+    """Phase 25: shuffle_by_keys(["userId"]) on the card (K7), then each
+    partition through session_graph (host ops; K11b's ListSlice on the
+    card), then K11c over each partition's rating_list, held against
+    Groupby's own sum / mean / min / max and every partition against the CPU
+    run."""
+    from nvtabular_tpu_torch import kernels, ops
+    from nvtabular_tpu_torch.kernels import ragged as kragged
+
+    phase_t0 = time.perf_counter()
+    tables = session_tables(nvt, ml_parts)
+    rows_total = sum(t.num_rows for t in tables)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_calls_on_card("phase 25"):
+        t0 = time.perf_counter()
+        shuffled = nvt.Dataset(tables).shuffle_by_keys(["userId"], device=dev)
+        torch.cuda.synchronize()
+        shuffle_s = time.perf_counter() - t0
+        wf = nvt.Workflow(session_graph(ops), device=dev)
+        t0 = time.perf_counter()
+        wf.fit(shuffled)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        ex = wf.executor
+        h0, s0 = ex.host_handoffs, ex.host_handoff_seconds
+        t0 = time.perf_counter()
+        outs = [wf.transform(b) for b in shuffled.to_batches()]
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t0
+        handoff_ms = 1e3 * (ex.host_handoff_seconds - s0) / max(ex.host_handoffs - h0, 1)
+        reduced = []
+        for out in outs:
+            lists = out["rating_list"]
+            reduced.append({c: kragged.ragged_segment_reduce(lists.values, lists.offsets, len(lists), c)
+                            for c in ("sum", "mean", "min", "max")})
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    nparts = shuffled.npartitions
+    check_launches(launches, {"hashed_cross": ML_PARTS, "ragged_slice_padded": nparts,
+                              "ragged_segment_reduce": 4 * nparts}, "phase 25")
+    # every user in one partition, every row kept by the shuffle
+    users = [set(b["userId"].values.tolist()) for b in shuffled.to_batches()]
+    if sum(len(u) for u in users) != len(set().union(*users)) or shuffled.num_rows != rows_total:
+        fail("phase 25: the shuffle split a user over partitions or lost rows")
+    cpu_shuffled = nvt.Dataset(tables).shuffle_by_keys(["userId"], device="cpu")
+    for got, want in zip(shuffled.to_batches(), cpu_shuffled.to_batches()):
+        for name in want.column_names:
+            if not nan_equal(got[name].values, want[name].values):
+                fail(f"phase 25: shuffled partitions differ from the CPU shuffle in {name}")
+    cpu_wf = nvt.Workflow(session_graph(ops), device="cpu")
+    nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+    groups = 0
+    max_err = {"sum": 0.0, "mean": 0.0, "min": 0.0, "max": 0.0}
+    for i, (batch, out, red) in enumerate(zip(cpu_shuffled.to_batches(), outs, reduced)):
+        want = cpu_wf.transform(batch)
+        if out.column_names != want.column_names:
+            fail(f"phase 25: columns {out.column_names} != {want.column_names}")
+        for name in want.column_names:
+            g, w = out[name], want[name]
+            if g.values.dtype != w.values.dtype or not nan_equal(g.values.cpu().double(), w.values.double()):
+                fail(f"phase 25 partition {i}: {name} differs from the CPU run")
+            if (g.offsets is None) != (w.offsets is None) or (
+                    w.offsets is not None and not torch.equal(g.offsets.cpu(), w.offsets)):
+                fail(f"phase 25 partition {i}: {name} offsets differ from the CPU run")
+        groups += out.num_rows
+        lists = want["rating_list"]
+        for c, got in red.items():
+            err = check_segment_reduce(got.cpu(), lists, want[f"rating_{c}"].values, c, f"phase 25 partition {i}")
+            max_err[c] = max(max_err[c], err)
+    lengths = torch.cat([o["rating_list"].row_lengths for o in outs])
+    rec = {
+        "shuffle_s": shuffle_s, "fit_s": fit_s, "transform_s": transform_s, "rows": rows_total,
+        "partitions": nparts, "groups": groups, "rows_per_s": rows_total / transform_s,
+        "handoff_ms_a_batch": handoff_ms, "launches": launches, "k11c_vs_groupby_max_err": max_err,
+        "longest_list": int(lengths.max()), "values_in_lists": int(lengths.sum()),
+        "lists": [o["rating_list"] for o in outs],
+    }
+    log(f"phase 25: shuffle_by_keys {shuffle_s:.2f} s into {nparts} partitions, fit {fit_s:.2f} s, transform "
+        f"{transform_s:.2f} s ({rec['rows_per_s']:,.0f} rows/s, host handoff {handoff_ms:.2f} ms a batch), "
+        f"{groups} sessions, {rec['values_in_lists']} ratings in lists (longest {rec['longest_list']}); "
+        f"launches { {k: v for k, v in launches.items() if v} } (no plain version on the card); every partition "
+        f"equals the CPU run (keys, offsets, lists, counts exact, floats bit-equal); K11c against Groupby: min "
+        f"and max exact, sum and mean within {SEGMENT_SUM_TOL} of the rows' |v| (max err {max_err})")
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"phase 25 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def slice11_kernel_records(dev, alt: dict, sess: dict) -> dict:
+    """Phase 26: K5's 16-bit and mask modes on phase 24's [13, 262144]
+    batch and K11c on all of phase 25's rating lists at once (the zipf head
+    user's row among them), each against its plain version on the card."""
+    from nvtabular_tpu_torch.dag.device_fuse import extract_chain
+    from nvtabular_tpu_torch.kernels import cont_chain as kcc
+    from nvtabular_tpu_torch.kernels import ragged as kragged
+
+    phase_t0 = time.perf_counter()
+    records = {}
+    for key, mode in (("a", "cont_chain_16"), ("b", "cont_chain_mask")):
+        wf, staged = alt[key]["wf"], alt[key]["staged"]
+        tail = next(n for n in wf.graph.nodes if type(n.op).__name__ in ("NormalizeMinMax", "FillMissing"))
+        spec = extract_chain(tail)
+        params, flags = spec.kernel_args(dev)
+        x = torch.stack([staged[c].values for c in spec.names])
+        run = lambda: kcc.cont_chain(x, None, params, flags, spec.out_dtype, spec.mask)  # noqa: E731
+        plain = lambda: kcc.cont_chain_plain(x, None, params, flags, spec.out_dtype, spec.mask)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if spec.mask:
+            if not torch.equal(got[1], want[1]) or not torch.equal(got[0], want[0]):
+                fail("cont_chain_mask: the kernel differs from its plain version")
+            err = 0.0
+        else:  # the plain version's log1p on the card is CUDA's log1pf too
+            err = float((got.float() - want.float()).abs().nan_to_num().max())
+            if int(ulp_distance(got, want).max()) > F16_ULPS:
+                fail(f"cont_chain_16: the kernel differs from its plain version by over {F16_ULPS} ULPs")
+        C, n = x.shape
+        out_bytes = C * n * (2 if spec.out_dtype != torch.float32 else 4) + (C * n if spec.mask else 0)
+        rec = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain), "library_ms": None,
+               "shape": [C, n], "bytes": C * n * 4 + out_bytes}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], C * n * 14)
+        records[mode] = rec
+
+    lists = [l.to(dev) for l in sess["lists"]]
+    values = torch.cat([l.values for l in lists])
+    ends = torch.cumsum(torch.tensor([len(l.values) for l in lists], device=dev), 0)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), ends[:-1]])
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev)]
+                        + [l.offsets[1:] + s for l, s in zip(lists, starts)])
+    R = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    timings = {}
+    for combiner in ("sum", "mean", "min", "max"):
+        run = lambda c=combiner: kragged.ragged_segment_reduce(values, offsets, R, c)  # noqa: E731
+        plain = lambda c=combiner: kragged.ragged_segment_reduce_plain(values, offsets, R, c)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if combiner in ("min", "max"):
+            if not torch.equal(got, want):
+                fail(f"ragged_segment_reduce {combiner}: the kernel differs from its plain version")
+            err = 0.0
+        else:
+            # each within SEGMENT_SUM_TOL of the float64 sum, so within twice that of each other
+            scale = kragged.ragged_segment_reduce_plain(values.abs(), offsets, R, combiner).double()
+            diff = (got.double() - want.double()).abs()
+            err = float(diff.max())
+            if not bool((diff <= 2 * SEGMENT_SUM_TOL * scale + 1e-6).all()):
+                fail(f"ragged_segment_reduce {combiner}: kernel and plain beyond the tolerance, max abs {err}")
+        lib_ms = None
+        if hasattr(torch, "segment_reduce"):
+            lib_ms = time_ms(lambda c=combiner: torch.segment_reduce(values, c, lengths=lengths))
+        timings[combiner] = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain), "library_ms": lib_ms}
+    rec = dict(timings["sum"], shape=[int(values.shape[0]), R], bytes=int(values.shape[0]) * 4 + (R + 1) * 8 + R * 4,
+               combiners=timings, head_row=int(lengths.max()))
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], int(values.shape[0]))
+    records["ragged_segment_reduce"] = rec
+    log(f"phase 26: K11c over {values.shape[0]} values in {R} rows (the longest {rec['head_row']}): "
+        + ", ".join(f"{c} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+                    f"{'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')})"
+                    for c, t in timings.items()))
+    log(f"phase 26 took {time.perf_counter() - phase_t0:.1f} s")
+    return records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -3135,7 +3494,6 @@ def main():
 
     # --- 13. sessions: DifferenceLag on phase 9's partitions ---------------------------------------
     sessions = sessions_path(nvt, dev, ml_parts, opts.profile)
-    del ml_parts
 
     # --- 14. their kernels at their shapes -------------------------------------------------------------
     records.update(crossed_kernel_records(dev, crossed, sessions))
@@ -3187,7 +3545,6 @@ def main():
     for key in ("table", "flat", "values", "mask", "x0", "vocabs"):
         del sharded[key]
     sharded["compose"] = compose
-    del parts
 
     # --- 20. DLRM training on row-sharded tables on a one-rank NCCL group -----------------------------
     sharded_train = sharded_train_path(feed, wf.output_schema, train_record["steps_per_s"], smi, opts.profile)
@@ -3225,6 +3582,26 @@ def main():
         del mh_dlrm[key]
     entry_launches = entry["launches"]
 
+    # --- 24. Criteo's alternative continuous chain, its indicators and its small categoricals ---------
+    alt = alt_criteo_path(nvt, dev, parts, cat_names, cont_names)
+    del parts
+    main_launches["tiny_lookup"] += alt["a"]["launches"]["tiny_lookup"]
+    alt_launches = {"cont_chain_16": alt["a"]["launches"]["cont_chain_16"],
+                    "cont_chain_mask": alt["b"]["launches"]["cont_chain_mask"]}
+
+    # --- 25. sessions: shuffle_by_keys, Dropna, Filter, Groupby, ValueCount, ListSlice, K11c ---------
+    sess = session_path(nvt, dev, ml_parts)
+    del ml_parts
+    sess_launches = sess["launches"]
+    ml_launches["hashed_cross"] += sess_launches["hashed_cross"]
+    mh_launches["ragged_slice_padded"] += sess_launches["ragged_slice_padded"]
+
+    # --- 26. K5's new modes and K11c at their paths' shapes ------------------------------------------------
+    records.update(slice11_kernel_records(dev, alt, sess))
+    for key in ("a", "b"):
+        del alt[key]["wf"], alt[key]["staged"]
+    del sess["lists"]
+
     # --- kernels line and result ---------------------------------------------------
     meta = {
         "tiny_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:157", main_launches),
@@ -3232,6 +3609,8 @@ def main():
         "cuckoo_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:693", main_launches),
         "sorted_lookup": ("lookup.cu", "nvtabular_tpu/ops/categorify.py:570", buckets_launches),
         "cont_chain": ("cont_chain.cu", "nvtabular_tpu/ops/normalize.py:67", main_launches),
+        "cont_chain_16": ("cont_chain.cu", "nvtabular_tpu/ops/normalize.py:140", alt_launches),
+        "cont_chain_mask": ("cont_chain.cu", "nvtabular_tpu/ops/fill.py:54", alt_launches),
         "permute_rows": ("permute.cu", "nvtabular_tpu/loader/device_loader.py:21", train_launches),
         "embedding_gather": ("embedding.cu", "nvtabular_tpu/models/layers.py:70", train_launches),
         "embedding_scatter_grad": ("embedding.cu", "nvtabular_tpu/models/layers.py:70", train_launches),
@@ -3244,6 +3623,7 @@ def main():
         "bucketize": ("bucketize.cu", "nvtabular_tpu/ops/bucketize.py:36", ml_launches),
         "ragged_to_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:22", mh_launches),
         "ragged_slice_padded": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:35", mh_launches),
+        "ragged_segment_reduce": ("ragged.cu", "nvtabular_tpu/kernels/ragged.py:51", sess_launches),
         "embedding_bag_fwd": ("embedding_bag.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
         "embedding_bag_bwd": ("sharded_embedding.cu", "nvtabular_tpu/models/layers.py:75", mh_launches),
         "hash_pair": ("hash_pair.cu", "nvtabular_tpu/ops/groupby_stats.py:53", new_launches),
@@ -3318,6 +3698,8 @@ def main():
                     "sharded_train": sharded_train,
                     "multihot_dlrm": mh_dlrm,
                     "layer_entry": entry,
+                    "alt_criteo": alt,
+                    "session": sess,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

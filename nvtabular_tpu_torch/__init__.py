@@ -29,11 +29,11 @@ from .convert import (
     tabular_mlp_params,
 )
 from .dag import ColumnSelector, Graph, Node
-from .io import Dataset
+from .io import Dataset, Shuffle
 from .schema import ColumnSchema, Schema
 from .table import Column, TableBatch
 from .tags import Tags, TagSet
-from .workflow import Workflow
+from .workflow import Workflow, WorkflowNode
 
 __all__ = [
     "Column",
@@ -43,10 +43,12 @@ __all__ = [
     "Graph",
     "Node",
     "Schema",
+    "Shuffle",
     "TableBatch",
     "TagSet",
     "Tags",
     "Workflow",
+    "WorkflowNode",
     "dcn_params",
     "deepfm_params",
     "dlrm_params",

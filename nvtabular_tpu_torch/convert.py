@@ -8,7 +8,12 @@ two transforms must agree. The state is a dict
      "normalize": {column: {"mean": float, "std": float}},
      "target_encoding": {group_tag: {"means": {target: float},
                                      "fold_stats": keyed, "overall_stats": keyed}},
-     "join_groupby": {group_name: keyed}}
+     "join_groupby": {group_name: keyed},
+     "fill_median": {column: float},
+     "normalize_minmax": {column: {"min": float, "max": float}},
+     "reduce_dtype_size": {column: {"range": [min, max], "dtype": str}},
+     "value_count": {column: {"min": int, "max": int}},
+     "data_stats": {column: {statistic: value}}}
 
 with ``keyed = {"key_cols": [...], "key_arrays": {column: ndarray},
 "stats": {name: ndarray}}`` — a fitted ``KeyedStats`` (a multi-column group
@@ -62,10 +67,14 @@ import numpy as np
 import torch
 
 from .ops.categorify import Categorify, _Vocab
+from .ops.data_stats import DataStats
+from .ops.fill import FillMedian
 from .ops.groupby_stats import KeyedStats, key_groups
 from .ops.join_groupby import JoinGroupby
-from .ops.normalize import Normalize
+from .ops.normalize import Normalize, NormalizeMinMax
+from .ops.reduce_dtype_size import ReduceDtypeSize
 from .ops.target_encoding import TargetEncoding
+from .ops.value_counts import ValueCount
 
 
 def load_sharded_table(table: np.ndarray, model_rank: int, model_size: int, device=None) -> torch.Tensor:
@@ -106,10 +115,35 @@ def _combo_tuples(values: np.ndarray, width: int) -> np.ndarray:
     return np.array(parts, dtype=np.int64).reshape(len(parts), width)
 
 
+def _load_column_state(op, names, entries: Dict[str, Any]) -> None:
+    """The column-keyed fitted state of a FillMedian, NormalizeMinMax,
+    ReduceDtypeSize, ValueCount or DataStats op."""
+    for name in names:
+        entry = entries.get(name)
+        if entry is None:  # nothing fitted for the column (no values)
+            continue
+        if isinstance(op, FillMedian):
+            op.medians[name] = float(entry)
+        elif isinstance(op, NormalizeMinMax):
+            op.mins[name], op.maxs[name] = float(entry["min"]), float(entry["max"])
+        elif isinstance(op, ReduceDtypeSize):
+            op.ranges[name] = tuple(float(v) for v in entry["range"])
+            op._dtypes[name] = np.dtype(entry["dtype"])
+        elif isinstance(op, ValueCount):
+            op.stats[name] = {"min": int(entry["min"]), "max": int(entry["max"])}
+        else:
+            op.output[name] = dict(entry)
+
+
+_COLUMN_STATE = {FillMedian: "fill_median", NormalizeMinMax: "normalize_minmax", ReduceDtypeSize: "reduce_dtype_size",
+                 ValueCount: "value_count", DataStats: "data_stats"}
+
+
 def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
-    """Set every Categorify, Normalize, TargetEncoding and JoinGroupby op of
-    ``workflow`` to ``state``; each op counts as freshly fitted (its device
-    tables are rebuilt)."""
+    """Set every Categorify, Normalize, TargetEncoding, JoinGroupby,
+    FillMedian, NormalizeMinMax, ReduceDtypeSize, ValueCount and DataStats
+    op of ``workflow`` to ``state``; each op counts as freshly fitted (its
+    device tables are rebuilt)."""
     cats = state.get("categorify", {})
     norms = state.get("normalize", {})
     tes = state.get("target_encoding", {})
@@ -150,11 +184,17 @@ def load_fitted_state(workflow, state: Dict[str, Dict[str, Any]]) -> None:
             for group in key_groups(node.selector):
                 op.keyed[op._group_name(group)] = _keyed(joins[op._group_name(group)])
             op.mark_fitted()
+        elif type(op) in _COLUMN_STATE:
+            op.clear()
+            _load_column_state(op, node.selector.names, state.get(_COLUMN_STATE[type(op)], {}))
+            op.mark_fitted()
 
 
 def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
     """The fitted state of this package's ``workflow`` in the format above."""
-    state: Dict[str, Dict[str, Any]] = {"categorify": {}, "normalize": {}, "target_encoding": {}, "join_groupby": {}}
+    state: Dict[str, Dict[str, Any]] = {
+        key: {} for key in ("categorify", "normalize", "target_encoding", "join_groupby", *_COLUMN_STATE.values())
+    }
     for node in workflow.graph.nodes:
         op = node.op
         if isinstance(op, Categorify):
@@ -177,6 +217,17 @@ def fitted_state(workflow) -> Dict[str, Dict[str, Any]]:
         elif isinstance(op, JoinGroupby):
             for name, keyed in op.keyed.items():
                 state["join_groupby"][name] = _keyed_state(keyed)
+        elif isinstance(op, FillMedian):
+            state["fill_median"].update(op.medians)
+        elif isinstance(op, NormalizeMinMax):
+            state["normalize_minmax"].update({n: {"min": op.mins[n], "max": op.maxs[n]} for n in op.mins})
+        elif isinstance(op, ReduceDtypeSize):
+            state["reduce_dtype_size"].update(
+                {n: {"range": list(op.ranges[n]), "dtype": op._dtypes[n].name} for n in op._dtypes})
+        elif isinstance(op, ValueCount):
+            state["value_count"].update(op.stats)
+        elif isinstance(op, DataStats):
+            state["data_stats"].update(op.output)
     return state
 
 

@@ -2,10 +2,11 @@
 (counterpart of nvtabular_tpu/dag/)."""
 
 from ..selector import ColumnSelector
-from .base_operator import BaseOperator, StatOperator
-from .graph import Graph, postorder_iter_nodes
+from ..unported import stubs
+from .base_operator import BaseOperator, StatOperator, Supports
+from .graph import Graph, iter_nodes, postorder_iter_nodes
 from .node import Node
-from .ops import ConcatColumns, SelectionOp, SubsetColumns
+from .ops import UDF, ConcatColumns, SelectionOp, SubsetColumns
 
 __all__ = [
     "BaseOperator",
@@ -16,5 +17,9 @@ __all__ = [
     "SelectionOp",
     "StatOperator",
     "SubsetColumns",
+    "Supports",
+    "UDF",
+    "iter_nodes",
     "postorder_iter_nodes",
 ]
+__getattr__ = stubs(__name__, {"Subgraph": 2})

@@ -14,12 +14,22 @@ with ``device_state(device)`` and caches them per ``fit_generation``.
 
 from __future__ import annotations
 
+import enum
 from typing import Any, Dict, List, Optional
 
 from .. import dtypes as md
 from ..schema import ColumnSchema, Schema
 from ..selector import ColumnSelector
 from ..table import TableBatch
+
+
+class Supports(enum.Flag):
+    """Data formats an operator can accept (nvtabular_tpu/dag/base_operator.py:33)."""
+
+    CPU_DATAFRAME = 1
+    GPU_DATAFRAME = 2
+    CPU_DICT_ARRAY = 4
+    GPU_DICT_ARRAY = 8
 
 
 class BaseOperator:

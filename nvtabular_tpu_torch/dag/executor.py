@@ -71,18 +71,36 @@ class LocalExecutor:
             out = self._apply(node, self.compute_node_input(node, root_batch, memo))
         if node.output_schema is not None:
             out = conform_to_schema(out, node.output_schema, node)
-        out.row_offset = root_batch.row_offset
+        if out.num_rows == root_batch.num_rows:  # a row-changing op keeps its own (the reference's :89)
+            out.row_offset = root_batch.row_offset
         memo[id(node)] = out
         return out
 
     def compute_node_input(self, node: Node, root_batch: TableBatch, memo) -> TableBatch:
-        """Evaluate everything upstream of `node` and return its input batch."""
+        """Evaluate everything upstream of `node` and return its input batch.
+
+        Where an op upstream changed the row count (Dropna, Filter, Groupby),
+        a dependency evaluated on the root batch no longer lines up with the
+        parents' rows: its columns are then taken from the parents, which
+        must hold them. (The reference concatenates them anyway, so a
+        Groupby after a Filter groups misaligned rows; ROADMAP.md queue 3.)"""
         if not node.parents_with_dependencies:
             return root_batch
-        return concat_columns(
-            [self._eval(p, root_batch, memo) for p in node.parents]
-            + [self._eval(d, root_batch, memo) for d in node.dependencies]
-        )
+        parents = [self._eval(p, root_batch, memo) for p in node.parents]
+        rows = parents[0].num_rows if parents else None
+        inputs = list(parents)
+        for d in node.dependencies:
+            dep = self._eval(d, root_batch, memo)
+            if rows is not None and dep.num_rows != rows:
+                missing = [c for c in dep.column_names if not any(c in p for p in parents)]
+                if missing:
+                    raise ValueError(
+                        f"{node.op.label}: dependency columns {missing} have {dep.num_rows} rows, its input "
+                        f"{rows}: an op upstream changed the row count"
+                    )
+                continue
+            inputs.append(dep)
+        return concat_columns(inputs)
 
     def _apply(self, node: Node, batch: TableBatch) -> TableBatch:
         op = node.op
@@ -192,7 +210,8 @@ class TorchExecutor(LocalExecutor):
         if spec is not None:
             out = self._run_chain(spec, node, root_batch, memo)
             if out is not None:
-                out.row_offset = root_batch.row_offset
+                if out.num_rows == root_batch.num_rows:
+                    out.row_offset = root_batch.row_offset
                 memo[id(node)] = out
                 return out
         return super()._eval(node, root_batch, memo)
@@ -224,10 +243,13 @@ class TorchExecutor(LocalExecutor):
                  for c in cols]
             )
         params, flags = spec.kernel_args(self.device)
-        y = cont_chain(x, validity, params, flags)
+        y = cont_chain(x, validity, params, flags, spec.out_dtype, spec.mask)
+        y, mask = y if spec.mask else (y, None)
         out = TableBatch()
         for i, (name, col) in enumerate(zip(spec.names, cols)):
             out.columns[name] = Column(y[i], None, None if spec.has_fill else col.validity)
+            if mask is not None:
+                out.columns[f"{name}_filled"] = Column(mask[i])
         if node.output_schema is not None:
             out = conform_to_schema(out, node.output_schema, node)
         return out

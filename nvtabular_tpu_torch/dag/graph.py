@@ -13,6 +13,19 @@ from ..selector import ColumnSelector
 from .node import Node
 
 
+def iter_nodes(nodes: List[Node]):
+    """Breadth first over ``nodes`` and everything upstream of them."""
+    queue = list(nodes)
+    seen: Set[int] = set()
+    while queue:
+        node = queue.pop(0)
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        yield node
+        queue.extend(node.parents_with_dependencies)
+
+
 def postorder_iter_nodes(output_node: Node) -> List[Node]:
     """Topological order: every node after all of its inputs."""
     order: List[Node] = []
@@ -40,6 +53,21 @@ class Graph:
         for node in postorder_iter_nodes(self.output_node):
             node.compute_schemas(root_schema)
         return self
+
+    @property
+    def input_schema(self) -> Optional[Schema]:
+        leaves = self.leaf_nodes
+        if not leaves or any(n.input_schema is None for n in leaves):
+            return None
+        out = Schema()
+        for n in leaves:
+            out = out + n.input_schema
+        return out
+
+    @property
+    def input_dtypes(self):
+        schema = self.input_schema
+        return {cs.name: cs.dtype for cs in schema} if schema else {}
 
     @property
     def output_schema(self) -> Optional[Schema]:

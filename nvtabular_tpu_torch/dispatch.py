@@ -23,6 +23,12 @@ def hash_lanes(lo: torch.Tensor, hi: torch.Tensor, seed: int = 0) -> torch.Tenso
     return khp.hash_lanes(lo, hi, seed)
 
 
-def hash_array(values: torch.Tensor, seed: int = 0) -> torch.Tensor:
-    """Deterministic per-element hash of a 1-d numeric tensor."""
+def hash_array(values: torch.Tensor, seed: int = 0, float_bits: int = 32) -> torch.Tensor:
+    """Deterministic per-element hash of a 1-d numeric tensor. Floats hash
+    the bits of their float32 value, as the reference's device path does,
+    or with ``float_bits=64`` those of their float64 value, as its host path
+    does (``Dataset.shuffle_by_keys`` and DataStats run there)."""
+    if float_bits == 64 and values.is_floating_point():
+        bits = values.to(torch.float64).view(torch.int64)
+        return hash_lanes(bits & 0xFFFFFFFF, (bits >> 32) & 0xFFFFFFFF, seed)
     return hashed_cross([values], None, seed)

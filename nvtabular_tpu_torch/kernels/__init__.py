@@ -20,6 +20,8 @@ LAUNCHES: Dict[str, int] = {
     "cuckoo_lookup": 0,
     "sorted_lookup": 0,
     "cont_chain": 0,
+    "cont_chain_16": 0,
+    "cont_chain_mask": 0,
     "permute_rows": 0,
     "embedding_gather": 0,
     "embedding_scatter_grad": 0,
@@ -34,6 +36,7 @@ LAUNCHES: Dict[str, int] = {
     "bucketize": 0,
     "ragged_to_padded": 0,
     "ragged_slice_padded": 0,
+    "ragged_segment_reduce": 0,
     "embedding_bag_fwd": 0,
     "embedding_bag_bwd": 0,
     "hash_pair": 0,
@@ -123,3 +126,12 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 def raise_on_error(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+# the reference's public kernels (nvtabular_tpu/kernels/__init__.py); the
+# padded bag is K13c's
+from .embedding_bag import embedding_bag as padded_embedding_bag  # noqa: E402
+from .ragged import ragged_segment_reduce, ragged_slice_padded, ragged_to_padded  # noqa: E402
+
+__all__ = ["LAUNCHES", "padded_embedding_bag", "ragged_segment_reduce", "ragged_slice_padded", "ragged_to_padded",
+           "reset_launches"]

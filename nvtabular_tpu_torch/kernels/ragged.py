@@ -1,4 +1,5 @@
-"""Ragged → padded rows: CUDA kernel K11, its wrappers and plain versions.
+"""Ragged (values, offsets) columns: CUDA kernels K11a-c, their wrappers
+and plain versions.
 
 A list column is flat ``values`` [T] and int64 ``offsets`` [R + 1]; row
 ``r`` holds ``values[offsets[r]:offsets[r + 1]]``.
@@ -11,8 +12,16 @@ A list column is flat ``values`` [T] and int64 ``offsets`` [R + 1]; row
   [R, pad_len], new_len int64 [R]): the python slice ``[start:end]`` of each
   row (negative bounds count from the row's end), ``ragged.py:35-48``.
 
-Both launch the one kernel of ``csrc/ragged.cu`` (``ragged_to_padded`` is
-the slice ``[0, L)``) and count their launches apart.
+Both launch the one padding kernel of ``csrc/ragged.cu``
+(``ragged_to_padded`` is the slice ``[0, L)``) and count their launches
+apart.
+
+* ``ragged_segment_reduce(values, offsets, num_rows, combiner)`` → float32
+  [num_rows]: the sum, mean, min or max of each row of a float32 column,
+  ``ragged.py:51-70`` (K11c), with its edge cases: a value belongs to the
+  row counted by the offsets[1:] at or below its position, rows from
+  ``num_rows`` on are dropped, an empty row gives 0, +inf or -inf, NaN
+  propagates through min and max, and a mean needs ``num_rows == R``.
 """
 
 from __future__ import annotations
@@ -32,6 +41,10 @@ _ARGTYPES = [
     ctypes.c_void_p,
 ]
 _UINT = {4: np.uint32, 8: np.uint64}
+COMBINERS = {"sum": 0, "mean": 1, "min": 2, "max": 3}
+_REDUCE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p]
+_INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 
 
 def _check(values: torch.Tensor, offsets: torch.Tensor, pad_len: int) -> int:
@@ -120,3 +133,69 @@ def ragged_slice_padded_plain(values, offsets, start, end, pad_len, pad_value=0)
     new_len = (e - s).clamp(max=pad_len)
     padded, _ = _gather_padded(values, offsets, s, new_len, pad_len, pad_value)
     return padded, new_len
+
+
+def _check_reduce(values: torch.Tensor, offsets: torch.Tensor, num_rows: int, combiner: str) -> int:
+    """Validates K11c's arguments; returns the offsets' row count R."""
+    if values.dim() != 1 or offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError(f"values must be [T] and offsets [R + 1], got {tuple(values.shape)}, {tuple(offsets.shape)}")
+    check(values, "values", torch.float32, values.device)
+    check(offsets, "offsets", torch.int64, values.device)
+    if combiner not in COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}")
+    if num_rows < 0:
+        raise ValueError(f"num_rows must be >= 0, got {num_rows}")
+    rows = offsets.shape[0] - 1
+    if combiner == "mean" and num_rows != rows:
+        # the reference divides [num_rows] sums by [R] lengths: a shape error
+        raise ValueError(f"a mean needs num_rows == len(offsets) - 1 ({rows}), got {num_rows}")
+    return rows
+
+
+def ragged_segment_reduce(values: torch.Tensor, offsets: torch.Tensor, num_rows: int,
+                          combiner: str = "sum") -> torch.Tensor:
+    """Per-row ``combiner`` of a ragged float32 column → float32 [num_rows]."""
+    rows = _check_reduce(values, offsets, num_rows, combiner)
+    if not use_kernel(values):
+        return ragged_segment_reduce_plain(values, offsets, num_rows, combiner)
+    out = torch.empty(num_rows, dtype=torch.float32, device=values.device)
+    fn = library("ragged").nvt_ragged_segment_reduce
+    if fn.argtypes is None:
+        fn.argtypes = _REDUCE_ARGTYPES
+        fn.restype = ctypes.c_int
+    rc = fn(ptr(values), values.shape[0], ptr(offsets), rows, num_rows, COMBINERS[combiner], ptr(out),
+            stream_ptr(values.device))
+    raise_on_error(rc, "ragged_segment_reduce")
+    LAUNCHES["ragged_segment_reduce"] += 1
+    return out
+
+
+def _ordered_keys(values: torch.Tensor, nan_key: int) -> torch.Tensor:
+    """int64 keys whose order is the float32 values' order (-0.0 below 0.0),
+    NaN given ``nan_key``: the kernel's min / max keys."""
+    b = values.contiguous().view(torch.int32).to(torch.int64)
+    keys = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(values), nan_key, keys)
+
+
+def _float_of_keys(keys: torch.Tensor) -> torch.Tensor:
+    bits = (keys ^ ((keys >> 31) & 0x7FFFFFFF)).to(torch.int32).view(torch.float32)
+    return torch.where((keys == _INT32_MIN) | (keys == _INT32_MAX), float("nan"), bits)
+
+
+def ragged_segment_reduce_plain(values, offsets, num_rows, combiner="sum") -> torch.Tensor:
+    rows = offsets.shape[0] - 1
+    dev = values.device
+    row = torch.searchsorted(offsets[1:], torch.arange(values.shape[0], device=dev), right=True)
+    keep = row < num_rows
+    row, vals = row[keep], values[keep]
+    if combiner in ("sum", "mean"):
+        out = torch.zeros(num_rows, dtype=torch.float32, device=dev).index_add_(0, row, vals)
+        if combiner == "mean":
+            out = out / (offsets[1:] - offsets[:-1]).clamp(min=1).to(torch.float32)
+        return out
+    lo = combiner == "min"
+    identity = _ordered_keys(torch.tensor([float("inf") if lo else float("-inf")], device=dev), 0)
+    keys = torch.full((num_rows,), int(identity), dtype=torch.int64, device=dev)
+    keys.scatter_reduce_(0, row, _ordered_keys(vals, _INT32_MIN if lo else _INT32_MAX), "amin" if lo else "amax")
+    return _float_of_keys(keys)

@@ -32,6 +32,7 @@ from .layers import (
     multihot_embedding_lookup,
     xdeepfm_outer_product,
 )
+from ..unported import stubs
 from .tabular_mlp import TabularMLP, TabularMLPConfig, tabular_mlp_loss, tabular_reference_forward
 from .training import Adagrad, process_epoch, roc_auc, train_chunk, train_step
 
@@ -68,3 +69,9 @@ __all__ = [
     "train_step",
     "xdeepfm_outer_product",
 ]
+
+# the reference's functional names: the port's models are nn.Modules
+__getattr__ = stubs(__name__, {name: 9 for name in (
+    "dcn_forward", "dcn_init", "deepfm_forward", "deepfm_init", "dlrm_forward", "dlrm_init", "make_step_fns",
+    "mlp_apply", "mlp_init", "tabular_mlp_forward", "tabular_mlp_init",
+)})

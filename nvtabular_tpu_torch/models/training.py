@@ -96,9 +96,11 @@ def train_chunk(model, optimizer: Adagrad, chunk: Dict[str, torch.Tensor], batch
 
 
 def process_epoch(loader: Iterable[Dict[str, torch.Tensor]], model,
-                  optimizer: Optional[Adagrad] = None, loss_fn: LossFn = dlrm_loss) -> Dict[str, float]:
+                  optimizer: Optional[Adagrad] = None, loss_fn: LossFn = dlrm_loss,
+                  label_key: str = "label") -> Dict[str, float]:
     """One pass over the loader. With ``optimizer``: train, and report the
-    mean loss. Without: evaluate, and report AUC and logloss."""
+    mean loss. Without: evaluate, and report AUC and logloss against
+    ``batch[label_key]`` (JAX training.py:85)."""
     losses = []
     logits_all, labels_all = [], []
     for batch in loader:
@@ -107,7 +109,7 @@ def process_epoch(loader: Iterable[Dict[str, torch.Tensor]], model,
         else:
             with torch.no_grad():
                 logits_all.append(model(batch).float().reshape(-1).cpu().numpy())
-            labels_all.append(batch["label"].float().cpu().numpy())
+            labels_all.append(batch[label_key].float().cpu().numpy())
     metrics: Dict[str, float] = {}
     if losses:
         metrics["loss"] = float(torch.stack(losses).float().mean())

@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-from ..dag.base_operator import BaseOperator
+from ..dag.base_operator import BaseOperator, Supports
 from ..selector import ColumnSelector
 
-__all__ = ["Operator", "ColumnSelector"]
+__all__ = ["Operator", "ColumnSelector", "Supports"]
 
 
 class Operator(BaseOperator):

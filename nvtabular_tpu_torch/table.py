@@ -53,6 +53,8 @@ def to_torch_dtype(dtype) -> torch.dtype:
     """Any dtype-like (torch, numpy, md.DType, str) → torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if md.normalize(dtype).name == "bfloat16":  # numpy has no bfloat16
+        return torch.bfloat16
     npd = md.to_numpy(dtype)
     if npd not in _NUMPY_TO_TORCH:
         raise NotImplementedError(f"dtype {npd} has no torch counterpart in this port")
@@ -89,6 +91,8 @@ class Column:
 
     @property
     def dtype(self) -> md.DType:
+        if self.values.dtype == torch.bfloat16:
+            return md.bfloat16
         return md.normalize(torch_to_numpy_dtype(self.values.dtype))
 
     @property
@@ -114,6 +118,26 @@ class Column:
 
     def astype(self, dtype) -> "Column":
         return Column(self.values.to(to_torch_dtype(dtype)), self.offsets, self.validity)
+
+    @property
+    def row_lengths(self) -> torch.Tensor:
+        """int64 length of each row of a list column."""
+        return self.offsets[1:] - self.offsets[:-1]
+
+    def take(self, indices) -> "Column":
+        """Rows gathered by index (table.py:140 of the JAX package). A list
+        column gathers each row's values and rebuilds its offsets from 0."""
+        idx = as_tensor(indices).to(device=self.device, dtype=torch.int64)
+        valid = self.validity[idx] if self.validity is not None else None
+        if not self.is_list:
+            return Column(self.values[idx], None, valid)
+        lengths = self.row_lengths[idx]
+        offsets = torch.zeros(idx.shape[0] + 1, dtype=torch.int64, device=self.device)
+        torch.cumsum(lengths, 0, out=offsets[1:])
+        total = int(offsets[-1])
+        flat = torch.repeat_interleave(self.offsets[:-1][idx] - offsets[:-1], lengths, output_size=total)
+        flat += torch.arange(total, dtype=torch.int64, device=self.device)
+        return Column(self.values[flat], offsets, valid)
 
     def to(self, device) -> "Column":
         def move(t):
@@ -219,6 +243,21 @@ class TableBatch:
             out._columns[n] = c.to(device)
         return out
 
+    def take(self, indices) -> "TableBatch":
+        """Rows gathered by index from every column (table.py:356)."""
+        out = TableBatch()
+        out.row_offset = self.row_offset
+        for n, c in self._columns.items():
+            out._columns[n] = c.take(indices)
+        return out
+
+    def filter(self, mask) -> "TableBatch":
+        """The rows where the bool ``mask`` is True, in order (table.py:370)."""
+        mask = as_tensor(mask).to(self.device)
+        if mask.dtype != torch.bool:
+            raise TypeError(f"filter takes a bool mask, got {mask.dtype}")
+        return self.take(torch.nonzero(mask).reshape(-1))
+
     def to_host(self) -> Dict[str, np.ndarray]:
         """numpy view of the batch: ``name`` → values, plus ``name__offsets``
         and ``name__validity`` where a column has them."""
@@ -251,6 +290,38 @@ class TableBatch:
             f"{n}:{c.dtype.name}{'[list]' if c.is_list else ''}" for n, c in self._columns.items()
         )
         return f"TableBatch(rows={self.num_rows}, device={self.device}, [{cols}])"
+
+
+def concat_rows(batches: Sequence[TableBatch]) -> TableBatch:
+    """Batches stacked row-wise, on the first batch's device (table.py:596):
+    empty batches are skipped, list offsets continue from the rows before,
+    and a validity mask is all True where a batch has none."""
+    batches = [b for b in batches if b.num_rows > 0] or list(batches[:1])
+    if len(batches) == 1:
+        return batches[0]
+    device = batches[0].device
+    out = TableBatch()
+    for name in batches[0].column_names:
+        cols = [b[name].to(device) for b in batches]
+        validity = None
+        if any(c.validity is not None for c in cols):
+            validity = torch.cat(
+                [c.validity if c.validity is not None else torch.ones(len(c), dtype=torch.bool, device=device)
+                 for c in cols]
+            )
+        offsets = None
+        if cols[0].is_list:
+            parts, total = [cols[0].offsets], cols[0].offsets[-1]
+            for c in cols[1:]:
+                parts.append(c.offsets[1:] - c.offsets[0] + total)
+                total = parts[-1][-1]
+            offsets = torch.cat(parts)
+            values = torch.cat([c.values[int(c.offsets[0]) : int(c.offsets[-1])] for c in cols])
+            offsets = offsets - offsets[0]
+        else:
+            values = torch.cat([c.values for c in cols])
+        out._columns[name] = Column(values, offsets, validity)
+    return out
 
 
 def concat_columns(batches: Sequence[TableBatch]) -> TableBatch:

@@ -20,6 +20,7 @@ from ..dag.executor import FitEngine, TorchExecutor, enforce_dtypes
 from ..io.dataset import Dataset
 from ..schema import Schema
 from ..table import TableBatch
+from ..unported import message
 
 UNSUPPORTED_FACADE = "Workflow.{} is not ported yet (ROADMAP.md queue 1 item 2: save/load and the Workflow facade)"
 UNSUPPORTED_WRITER = "TransformedDataset.{} is not ported yet (ROADMAP.md queue 1 item 1: parquet I/O)"
@@ -126,6 +127,14 @@ class Workflow:
     def output_dtypes(self):
         return self.graph.output_dtypes
 
+    @property
+    def input_dtypes(self):
+        return self.graph.input_dtypes
+
+    @property
+    def output_node(self) -> Node:
+        return self.graph.output_node
+
     # --- the reference's facade, not ported yet ------------------------------------
     @property
     def input_schema(self):
@@ -163,11 +172,21 @@ class TransformedDataset:
         """The workflow's output schema (what a loader selects columns by)."""
         return self._workflow.output_schema
 
-    def to_batches(self, host: bool = True):
-        """Transformed batches, moved to the CPU unless ``host=False``."""
+    def infer_schema(self) -> Optional[Schema]:
+        return self._workflow.output_schema
+
+    def to_batches(self, columns=None, prefetch: int = 2, shard=None, host: bool = True, hetero=None):
+        """Transformed batches (JAX workflow.py:258-283), moved to the CPU
+        unless ``host=False``: ``columns`` selects output columns, ``shard=
+        (rank, world)`` streams that rank's partitions of the base dataset.
+        ``prefetch`` is accepted; the partitions are in memory already."""
+        if hetero:
+            raise NotImplementedError(message("TransformedDataset.to_batches(hetero=...)", 11))
         wf = self._workflow
-        for batch in self._base.to_batches(columns=wf._input_columns or None):
+        for batch in self._base.to_batches(columns=wf._input_columns or None, prefetch=prefetch, shard=shard):
             out = wf._transform_batch(batch)
+            if columns:
+                out = out.select([c for c in columns if c in out])
             yield out.to("cpu") if host else out
 
     @property

@@ -1817,3 +1817,231 @@ def test_sharded_multihot_step_on_one_rank_nccl_matches_unsharded(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5)
     for (name, p), q in zip(model.named_parameters(), want_model.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# --- K5's new modes, K11c and the session path ---------------------------------------------
+def _chain_inputs(rng, n=100_003):
+    x = rng.normal(1.0, 3.0, (5, n)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    x[:, :4] = [65504.0, 1e-8, -0.0, np.inf]  # float16's largest, a subnormal, -0, inf
+    params = torch.tensor([[0.25, 0.0, 70000.0, 0.4375, 1.5]] * 4 + [[0.0, 0.0, 0.0, 0.0, 0.0]], dtype=torch.float32)
+    return torch.from_numpy(x), params
+
+
+@pytest.mark.parametrize("log", [False, True], ids=["no_log", "log1p"])
+@pytest.mark.parametrize("store", [torch.float16, torch.bfloat16, torch.float32])
+def test_cont_chain_16bit_store_and_zero_span_match_plain(store, log):
+    """Median fill, clip, optional log1p, then min-max with a 16-bit store
+    (the last column a zero span: all zeros, NaN included). Without log1p
+    the kernel equals its plain version on the card bit for bit; with it,
+    within the store type's relative spacing (one to two ULPs: the kernel's
+    log1pf and PyTorch's log1p may differ by a float32 ULP before the cast)."""
+    _require_cuda()
+    x, params = _chain_inputs(np.random.default_rng(31))
+    flags = [kcc.FILL | kcc.LO | kcc.HI | (kcc.LOG if log else 0) | kcc.NORM] * 4 + [kcc.FILL | kcc.ZERO]
+    flags = torch.tensor(flags, dtype=torch.int32).cuda()
+    xc, pc = x.cuda(), params.cuda()
+    kernels.reset_launches()
+    got = kcc.cont_chain(xc, None, pc, flags, store)
+    want = kcc.cont_chain_plain(xc, None, pc, flags, store)
+    torch.cuda.synchronize()
+    assert got.dtype == store and kernels.LAUNCHES["cont_chain_16" if store != torch.float32 else "cont_chain"] == 1
+    assert bool((got[4] == 0).all())
+    if not log:
+        assert torch.equal(got.float().isnan(), want.float().isnan())
+        assert torch.equal(torch.nan_to_num(got.float()), torch.nan_to_num(want.float()))
+    else:
+        ulp = {torch.float16: 2.0**-10, torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}[store]
+        torch.testing.assert_close(got.float(), want.float(), rtol=ulp, atol=1e-7, equal_nan=True)
+
+
+@pytest.mark.parametrize("with_validity", [False, True])
+def test_cont_chain_mask_matches_plain(with_validity):
+    _require_cuda()
+    rng = np.random.default_rng(32)
+    x, params = _chain_inputs(rng)
+    validity = torch.from_numpy(rng.random(x.shape) > 0.1).cuda() if with_validity else None
+    flags = torch.full((5,), kcc.FILL, dtype=torch.int32).cuda()
+    xc, pc = x.cuda(), params.cuda()
+    kernels.reset_launches()
+    got, got_mask = kcc.cont_chain(xc, validity, pc, flags, with_mask=True)
+    want, want_mask = kcc.cont_chain_plain(xc, validity, pc, flags, with_mask=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cont_chain_mask"] == 1 and got_mask.dtype == torch.bool
+    assert torch.equal(got_mask, want_mask) and torch.equal(got, want)
+
+
+def _ragged_case(rng, rows, total, head_share, empty_share=0.1):
+    """Row lengths with one row holding ``head_share`` of ``total`` values
+    and ``empty_share`` of the rows empty."""
+    weights = rng.pareto(1.2, rows) * (rng.random(rows) > empty_share)
+    weights[rows // 3] = 0.0
+    lengths = np.floor(weights / max(weights.sum(), 1e-9) * total * (1 - head_share)).astype(np.int64)
+    lengths[rows // 3] = int(total * head_share)
+    offsets = np.zeros(rows + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    values = (rng.integers(1, 11, int(offsets[-1])) / 2.0).astype(np.float32)
+    values[rng.random(len(values)) < 1e-4] *= -1.0
+    return values, offsets
+
+
+def _float64_reduce(values, offsets, num_rows, combiner):
+    v, off = torch.from_numpy(values.astype(np.float64)), torch.from_numpy(offsets)
+    row = torch.searchsorted(off[1:], torch.arange(len(v)), right=True)
+    keep = row < num_rows
+    s = torch.zeros(num_rows, dtype=torch.float64).index_add_(0, row[keep], v[keep])
+    a = torch.zeros(num_rows, dtype=torch.float64).index_add_(0, row[keep], v[keep].abs())
+    if combiner == "mean":
+        n = (off[1:] - off[:-1]).clamp(min=1).double()
+        return s / n, a / n
+    return s, a
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "min", "max"])
+@pytest.mark.parametrize(
+    "case", ["head_row_holds_most", "many_short_rows", "nan_and_tails"],
+)
+def test_ragged_segment_reduce_matches_plain(case, combiner):
+    """min and max bit for bit (NaN where the row holds one, ±inf for an
+    empty row); sum and mean within 1e-5 of the float64 sum of |v| of the
+    row (float32 sums, each in its own order: the kernel's tree of 8-value
+    runs, block scans and one atomic a block, the plain version's
+    index_add_)."""
+    _require_cuda()
+    rng = np.random.default_rng({"head_row_holds_most": 40, "many_short_rows": 41, "nan_and_tails": 42}[case])
+    if case == "head_row_holds_most":
+        values, offsets = _ragged_case(rng, 5_000, 3_000_000, 0.8)
+    elif case == "many_short_rows":
+        values, offsets = _ragged_case(rng, 400_000, 1_200_000, 0.0, empty_share=0.3)
+    else:
+        values, offsets = _ragged_case(rng, 3_000, 200_000, 0.2)
+        values[rng.random(len(values)) < 1e-3] = np.nan
+        values = np.concatenate([values, np.ones(5000, np.float32)])  # past offsets[-1]
+    rows = len(offsets) - 1
+    num_rows = rows + 1 if case == "nan_and_tails" and combiner != "mean" else rows
+    v, off = torch.from_numpy(values).cuda(), torch.from_numpy(offsets).cuda()
+    kernels.reset_launches()
+    got = kragged.ragged_segment_reduce(v, off, num_rows, combiner)
+    want = kragged.ragged_segment_reduce_plain(v, off, num_rows, combiner)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_segment_reduce"] == 1 and got.shape == (num_rows,)
+    if combiner in ("min", "max"):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got, posinf=1e30, neginf=-1e30),
+                           torch.nan_to_num(want, posinf=1e30, neginf=-1e30))
+        return
+    exact, scale = _float64_reduce(values, offsets, num_rows, combiner)
+    nan = torch.isnan(exact)
+    for out in (got.cpu().double(), want.cpu().double()):
+        assert torch.equal(out.isnan(), nan)
+        assert bool(((out - exact).abs()[~nan] <= 1e-5 * scale[~nan] + 1e-6).all())
+
+
+def test_ragged_segment_reduce_takes_empty_inputs():
+    _require_cuda()
+    kernels.reset_launches()
+    empty = torch.empty(0, dtype=torch.float32, device="cuda")
+    out = kragged.ragged_segment_reduce(empty, torch.zeros(4, dtype=torch.int64, device="cuda"), 3, "min")
+    assert torch.equal(out.cpu(), torch.full((3,), float("inf")))
+    out = kragged.ragged_segment_reduce(torch.ones(5, device="cuda"), torch.zeros(1, dtype=torch.int64,
+                                                                                   device="cuda"), 0, "sum")
+    assert out.shape == (0,)
+
+
+def _session_parts(n_parts=3, rows=20_000):
+    parts = []
+    for seed in range(n_parts):
+        r = np.random.default_rng(50 + seed)
+        ts = r.exponential(86400.0, rows).astype(np.float32)
+        ts[r.random(rows) < 0.01] = np.nan
+        parts.append({
+            "userId": r.zipf(1.2, rows).clip(1, 5000).astype(np.int64),
+            "movieId": r.zipf(1.1, rows).clip(1, 9000).astype(np.int64),
+            "rating": (r.integers(1, 11, rows) / 2.0).astype(np.float32),
+            "ts_delta": ts,
+        })
+    return parts
+
+
+def _session_graph():
+    aggs = {"movieId": ["list", "count"], "rating": ["list", "sum", "mean", "min", "max"],
+            "ts_delta": ["first", "last"]}
+    g = (["userId", "movieId", "rating", "ts_delta"] >> ops.Dropna()
+         >> ops.Filter(lambda b: np.asarray(b["rating"]) >= 3.0)
+         >> ops.Groupby("userId", sort_cols=["ts_delta"], aggs=aggs))
+    names = ["userId", "movieId_list", "movieId_count", "rating_list", "rating_sum", "rating_mean", "rating_min",
+             "rating_max", "ts_delta_first", "ts_delta_last"]
+    vc = g[names] >> ops.ValueCount()
+    return vc[[c for c in names if c != "movieId_list"]] + (vc["movieId_list"] >> ops.ListSlice(-20, pad=True))
+
+
+def test_session_path_on_cuda_matches_cpu():
+    """shuffle_by_keys (K7 on the card) → Dropna → Filter → Groupby →
+    ValueCount → ListSlice(-20, pad=True) (K11b): every partition equal to
+    the CPU run, floats included (both are the same host numpy)."""
+    _require_cuda()
+    parts = _session_parts()
+    kernels.reset_launches()
+    shuffled = nvt.Dataset(parts).shuffle_by_keys(["userId"])
+    assert kernels.LAUNCHES["hashed_cross"] == len(parts)
+    cpu_shuffled = nvt.Dataset(parts).shuffle_by_keys(["userId"], device="cpu")
+    wf = nvt.Workflow(_session_graph())
+    outs = list(wf.fit_transform(shuffled).to_batches())
+    cpu_wf = nvt.Workflow(_session_graph(), device="cpu")
+    cpu_outs = list(cpu_wf.fit_transform(cpu_shuffled).to_batches())
+    assert len(outs) == len(cpu_outs) == len(parts)
+    for got, want in zip(outs, cpu_outs):
+        assert got.column_names == want.column_names
+        for name in want.column_names:
+            g, w = got[name], want[name]
+            assert torch.equal(g.values.isnan() if g.values.is_floating_point() else g.values,
+                               w.values.isnan() if w.values.is_floating_point() else w.values), name
+            assert torch.equal(torch.nan_to_num(g.values.float()), torch.nan_to_num(w.values.float())), name
+            assert (g.offsets is None) == (w.offsets is None)
+            assert g.offsets is None or torch.equal(g.offsets, w.offsets), name
+    for got in outs:
+        lists = got["rating_list"]
+        for combiner in ("sum", "mean", "min", "max"):
+            red = kragged.ragged_segment_reduce(lists.values.cuda(), lists.offsets.cuda(), len(lists), combiner)
+            ref = got[f"rating_{combiner}"].values
+            if combiner in ("min", "max"):
+                assert torch.equal(red.cpu(), ref), combiner
+            else:
+                torch.testing.assert_close(red.cpu(), ref, rtol=1e-6, atol=1e-5)
+
+
+def test_new_chains_on_cuda_count_one_launch_a_batch():
+    """FillMedian → Clip → LogOp → NormalizeMinMax(float16) is one
+    cont_chain_16 launch a batch; FillMissing(add_binary_cols=True) one
+    cont_chain_mask launch a batch; the outputs match the CPU run (float16
+    within rtol=2^-10, one to two ULPs; masks exact)."""
+    _require_cuda()
+    rng = np.random.default_rng(33)
+    parts = []
+    for _ in range(3):
+        x = rng.normal(1.0, 3.0, (3, 30_000)).astype(np.float32)
+        x[rng.random(x.shape) < 0.05] = np.nan
+        parts.append({f"I{i}": x[i] for i in range(3)})
+    conts = ["I0", "I1", "I2"]
+    for graph, mode in [
+        (lambda: conts >> ops.FillMedian() >> ops.Clip(min_value=0.0) >> ops.LogOp()
+         >> ops.NormalizeMinMax(out_dtype="float16"), "cont_chain_16"),
+        (lambda: conts >> ops.FillMissing(add_binary_cols=True), "cont_chain_mask"),
+    ]:
+        wf = nvt.Workflow(graph())
+        wf.fit(nvt.Dataset(parts))
+        kernels.reset_launches()
+        outs = [wf.transform(nvt.TableBatch.from_pydict(p)) for p in parts]
+        torch.cuda.synchronize()
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {mode: len(parts)}
+        cpu_wf = nvt.Workflow(graph(), device="cpu")
+        nvt.load_fitted_state(cpu_wf, nvt.fitted_state(wf))
+        want = cpu_wf.transform(nvt.TableBatch.from_pydict(parts[0]))
+        assert outs[0].column_names == want.column_names
+        for name in want.column_names:
+            g, w = outs[0][name].values.cpu(), want[name].values
+            assert g.dtype == w.dtype
+            if g.dtype == torch.bool:
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g.float(), w.float(), rtol=2.0**-10, atol=1e-7, equal_nan=True)

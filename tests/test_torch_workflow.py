@@ -316,8 +316,11 @@ OPS_IN_BOTH = sorted(
     n for n in set(pops.__all__) & set(jops.__all__) if isinstance(getattr(pops, n), type) and n != "ColumnSelector"
 )
 REQUIRED = {"Bucketize": [[1.0]], "DifferenceLag": ["a"], "HashBucket": [10], "HashedCross": [10],
-            "LambdaOp": [abs], "ListSlice": [0], "TargetEncoding": ["y"]}
-NOT_DEFAULT = {"Clip": {"min_value": 0.0}}  # both packages refuse a Clip with neither bound
+            "LambdaOp": [abs], "ListSlice": [0], "TargetEncoding": ["y"], "Filter": [abs],
+            "ColumnSimilarity": [(np.array([0, 1]), np.array([0]), np.array([1.0]))],
+            "JoinExternal": [{"a": np.array([1], dtype=np.int32)}, "a"]}
+# both packages refuse a Clip with neither bound, and a Rename with no new name
+NOT_DEFAULT = {"Clip": {"min_value": 0.0}, "Rename": {"postfix": "_x"}}
 
 
 def test_op_signatures_match_jax():
@@ -357,8 +360,8 @@ JAX_OPTIONS = [
     ("JoinGroupby", {"out_path": "stats"}, "item 2"),
     ("JoinGroupby", {"cat_cache": "disk"}, "item 14"),
     ("JoinGroupby", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
-    ("FillMissing", {"add_binary_cols": True}, "item 13"),
-    ("Normalize", {"out_dtype": "float16"}, "item 13"),
+    ("FillMissing", {"add_binary_cols": True}, "accept"),
+    ("Normalize", {"out_dtype": "float16"}, "accept"),
 ]
 
 

@@ -67,3 +67,14 @@ def run_group(fn, world: int, tmp_path, *args, timeout: float = 55.0, backend: s
     if errors or any(c != 0 for c in codes):
         raise RuntimeError(f"group of {world} failed (exit codes {codes}):\n" + "\n".join(errors))
     return [pickle.loads(Path(o).read_bytes()) for o in outs]
+
+
+def fill_median_worker(rank, world, parts, columns):
+    """FillMedian fitted by the multi-process FitEngine on this rank's
+    round-robin shard of ``parts``; the rank's medians."""
+    import nvtabular_tpu_torch as nvt
+    from nvtabular_tpu_torch import ops
+
+    wf = nvt.Workflow(columns >> ops.FillMedian(), device="cpu")
+    wf.fit(nvt.Dataset(parts))
+    return next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.FillMedian)).medians
