@@ -207,9 +207,34 @@ a nonzero exit:
 26. K5's 16-bit and mask modes on phase 24's [13, 262144] batch, and K11c
    on all of phase 25's rating lists at once (the zipf head user among
    them), against their plain versions on the card, timed beside their
-   bound and beside torch.segment_reduce.
+   bound and beside torch.segment_reduce;
+27. Criteo through parquet, at full width, under build/chip_smoke_parquet/
+   (deleted at the end): 27a prints g++'s version, whether zstd.h was found
+   (compression "auto" if so, else "none") and whether pyarrow is
+   importable (it is not used); 27b writes phase 3's 16 partitions with
+   Dataset.to_parquet(output_files=16) and reads them back with
+   Dataset(dir), every value's bits equal, write and read rows/s; 27c
+   transforms the file Dataset with phase 3's fitted workflow and writes it
+   with to_parquet(shuffle=PER_WORKER, out_files_per_proc=max(2, min(8,
+   cpus))) (bench.py:337): seconds, rows/s, bytes a row, the card's busy
+   share in the transform; the rows equal phase 3's transformed rows as a
+   multiset, bit for bit; then Dataset(out) feeds DeviceLoader(65536,
+   shuffle=True) into DLRM (dim 16) for 16 steps, one step held against
+   the plain versions (STEP_TOL); 27d fits and transforms the 16 files with
+   Categorify(max_size=10_000_000, cat_cache=...) with the 16 smallest
+   vocabularies on the disk tier (K1 or K3 solo, the counters zeroed
+   before and read after) and the rest on the device tier, codes equal
+   phase 3's, reload and table-build ms a batch; phase 6's compact keys on
+   the disk tier take K2 solo, codes equal phase 6's; 27e encodes with
+   Categorify(vocabs=phase 3's vocabularies, cardinality_memory_limit=half
+   of their resident host_nbytes): every column solo, the first
+   BUDGET_FILES files (a depth cut), codes equal phase 3's, releases and
+   reloads a batch, seconds a batch split into reload, table build and the
+   rest; then tiny_lookup_solo, direct_lookup_solo and cuckoo_lookup_solo
+   at the largest vocabulary of their kind, each against its plain version
+   on the card, timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 42 kernels'
+The line before the last is {"kernels": [...]} with the 45 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -221,6 +246,7 @@ import argparse
 import contextlib
 import hashlib
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -3258,6 +3284,372 @@ def slice11_kernel_records(dev, alt: dict, sess: dict) -> dict:
     return records
 
 
+# --- phase 27: Criteo through parquet -------------------------------------------------------------
+PARQUET_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parquet"
+# 27d: the columns on the disk tier; 27e: the transform's depth (files)
+DISK_COLUMNS, BUDGET_FILES = 16, 2
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes: NaN for NaN, -0.0 apart from 0.0."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = torch.int32 if a.element_size() == 4 else torch.int64
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def row_hashes(batch, names) -> torch.Tensor:
+    """A 64-bit hash of each row's bits over ``names``, on the card."""
+    h = torch.zeros(batch.num_rows, dtype=torch.int64, device=DEVICE)
+    for name in names:
+        v = batch[name].values.to(DEVICE)
+        b = v.view(torch.int32 if v.element_size() == 4 else torch.int64).to(torch.int64)
+        h = (h * 0x100000001B3 + b) ^ ((h >> 29) & 0x7FFFFFFFF)
+    return h
+
+
+@contextlib.contextmanager
+def timed_methods(owner, names, into: dict):
+    """Add each call's seconds of ``owner.<name>`` to ``into[name]``."""
+    saved = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                into[name] += time.perf_counter() - t0
+
+        return timed
+
+    for n in names:
+        setattr(owner, n, wrap(n, saved[n]))
+    try:
+        yield into
+    finally:
+        for n, fn in saved.items():
+            setattr(owner, n, fn)
+
+
+def solo_counts(launches) -> dict:
+    return {k: launches[k] for k in ("tiny_lookup_solo", "direct_lookup_solo", "cuckoo_lookup_solo")}
+
+
+def parquet_path(nvt, ops, dev, wf, parts, cat_names, cont_names, compact, dwf, smi: str) -> dict:
+    """Phase 27: phase 3's partitions as parquet files, the transformed
+    stream's shuffled write, the loader over the written files, and
+    Categorify's disk tier and memory budget (K8's solo-table branch)."""
+    import shutil
+
+    from nvtabular_tpu_torch import kernels, models
+    from nvtabular_tpu_torch.io import Shuffle, native_parquet
+    from nvtabular_tpu_torch.kernels import build as kbuild
+    from nvtabular_tpu_torch.loader import DeviceLoader
+    from nvtabular_tpu_torch.ops import categorify as pcat
+    from nvtabular_tpu_torch.ops.lookup import kind_of
+
+    phase_t0 = time.perf_counter()
+    rec = {}
+    shutil.rmtree(PARQUET_DIR, ignore_errors=True)
+    PARQUET_DIR.mkdir(parents=True)
+    in_dir, out_dir = str(PARQUET_DIR / "input"), str(PARQUET_DIR / "output")
+
+    # 27a: the toolchain
+    zstd = native_parquet.has_zstd()
+    rec["toolchain"] = {"gxx": kbuild.gxx_version(), "zstd_h": zstd,
+                        "pyarrow_importable": importlib.util.find_spec("pyarrow") is not None}
+    compression = "auto" if zstd else "none"
+    rec["compression"] = compression
+    log(f"parquet: {rec['toolchain']['gxx']}; zstd.h found: {zstd}; pyarrow importable (unused): "
+        f"{rec['toolchain']['pyarrow_importable']}; compression {compression}")
+    rows_total = sum(p.num_rows for p in parts)
+
+    # 27b: the input as files, read back bit for bit
+    t0 = time.perf_counter()
+    nvt.Dataset(parts).to_parquet(in_dir, output_files=NUM_PARTS, compression=compression)
+    rec["write_s"] = time.perf_counter() - t0
+    in_bytes = sum(os.path.getsize(os.path.join(in_dir, f)) for f in os.listdir(in_dir))
+    files = nvt.Dataset(in_dir)
+    by_file = {os.path.basename(p.path): i for i, p in enumerate(files._partitions)}
+    order = [by_file[f"part_{i}.parquet"] for i in range(NUM_PARTS)]  # file i holds partition i
+    t0 = time.perf_counter()
+    loaded = list(files.to_batches())
+    rec["read_s"] = time.perf_counter() - t0
+    for i, part in enumerate(parts):
+        got = loaded[order[i]]
+        for name in part.column_names:
+            if not bits_equal(got[name].values, part[name].values):
+                fail(f"parquet: input file {i} column {name} differs from its partition")
+    del loaded
+    rec.update(write_rows_per_s=rows_total / rec["write_s"], read_rows_per_s=rows_total / rec["read_s"],
+               input_bytes_per_row=in_bytes / rows_total)
+    log(f"parquet: 27b wrote {NUM_PARTS} files ({in_bytes:,} bytes, {rec['input_bytes_per_row']:.2f} B/row) at "
+        f"{rec['write_rows_per_s']:,.0f} rows/s, read them back at {rec['read_rows_per_s']:,.0f} rows/s, "
+        f"every value's bits equal; {smi}")
+
+    # 27c: the fitted workflow's transform of the files and the shuffled write
+    out_files = max(2, min(8, os.cpu_count() or 1))
+    tds = wf.transform(files)
+    busy = profile_pass(lambda: [torch.cuda.synchronize() for _ in tds.to_batches(host=False)])
+    rec["transform_busy_share"] = busy["busy_share"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tds.to_parquet(out_dir, shuffle=Shuffle.PER_WORKER, out_files_per_proc=out_files, compression=compression)
+    rec["transform_write_s"] = time.perf_counter() - t0
+    write_launches = dict(kernels.LAUNCHES)
+    for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
+        if write_launches[k] != NUM_PARTS:
+            fail(f"parquet: the transform launched {k} {write_launches[k]} times, expected {NUM_PARTS}")
+    out_bytes = sum(os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir) if f.endswith(".parquet"))
+    rec.update(out_files=out_files, write_rows_per_s_out=rows_total / rec["transform_write_s"],
+               output_bytes_per_row=out_bytes / rows_total,
+               main_launches={k: write_launches[k] for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain")})
+    written = nvt.Dataset(out_dir)
+    if written.num_rows != rows_total or written.npartitions != out_files:
+        fail(f"parquet: wrote {written.num_rows} rows in {written.npartitions} files")
+    names = wf.output_schema.column_names
+    want = torch.cat([row_hashes(wf.transform(p), names) for p in parts]).sort().values
+    got = torch.cat([row_hashes(b, names) for b in written.to_batches()]).sort().values
+    if not torch.equal(got, want):
+        fail("parquet: the written rows differ from phase 3's transformed rows as a multiset")
+    ref = nvt.Dataset([wf.transform(p).to("cpu") for p in parts]).to_table()
+    back = written.to_table()
+    for name in names:  # each column's multiset, bit for bit
+        g, w = back[name].values, ref[name].values
+        view = torch.int32 if g.element_size() == 4 else torch.int64
+        if not torch.equal(g.view(view).sort().values, w.view(view).sort().values):
+            fail(f"parquet: written column {name} differs from phase 3's as a multiset")
+    del ref, back
+    log(f"parquet: 27c transform + PER_WORKER write of {rows_total} rows into {out_files} files "
+        f"{rec['transform_write_s']:.2f} s ({rec['write_rows_per_s_out']:,.0f} rows/s, "
+        f"{rec['output_bytes_per_row']:.2f} B/row); card busy {rec['transform_busy_share']:.1%} of the transform; "
+        f"the rows equal phase 3's transformed rows as a multiset, bit for bit")
+
+    loader = DeviceLoader(written, batch_size=TRAIN_BS, shuffle=True, seed=0, drop_last=True, cat_names=cat_names,
+                          cont_names=cont_names, label_names=["label"], device=DEVICE)
+    config = models.DLRMConfig.from_schema(wf.output_schema, embedding_dim=TRAIN_DIM)
+    model = models.DLRM(config, seed=0, device=DEVICE)
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    chunks = -(-16 * TRAIN_BS // (rows_total // out_files))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = [c for _, c in zip(range(chunks), loader.chunks())]
+    torch.cuda.synchronize()
+    rec["stage_s"] = time.perf_counter() - t0
+    losses = [models.train_chunk(model, opt, staged[0], TRAIN_BS)]  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    for c in staged:
+        losses.append(models.train_chunk(model, opt, c, TRAIN_BS))
+        steps += losses[-1].numel()
+        if steps >= 16:
+            break
+    torch.cuda.synchronize()
+    rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    all_losses = torch.cat(losses)
+    if not bool(torch.isfinite(all_losses).all()):
+        fail(f"parquet: non-finite losses {all_losses.tolist()}")
+    batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
+    rec["parity"] = check_step_parity(model, batch, models.reference_forward, [model.bottom, model.top])
+    del model, opt, staged, loader, batch
+    torch.cuda.empty_cache()
+    log(f"parquet: the written files through DeviceLoader({TRAIN_BS}, shuffle=True): {chunks} chunks staged in "
+        f"{rec['stage_s']:.2f} s, DLRM {steps} steps at {rec['step_ms']:.2f} ms a step, loss "
+        f"{float(all_losses[0]):.5f} -> {float(all_losses[-1]):.5f}; one step equals the plain versions: "
+        f"{rec['parity']}")
+
+    # 27d: the disk tier on the 16 smallest vocabularies
+    cat_op = next(n.op for n in wf.graph.nodes if isinstance(n.op, ops.Categorify))
+    by_size = sorted(cat_names, key=lambda c: (len(cat_op.vocabs[c].values_by_code), c))
+    disk = by_size[:DISK_COLUMNS]
+    tiers = {c: ("disk" if c in disk else "device") for c in cat_names}
+    want_kinds = {c: kind_of(cat_op.vocabs[c].lookup_struct()) for c in disk}
+    op = ops.Categorify(max_size=10_000_000, out_path=str(PARQUET_DIR / "disk"), cat_cache=tiers)
+    dwf_disk = nvt.Workflow(cat_names >> op, device=dev)
+    t0 = time.perf_counter()
+    dwf_disk.fit(files)
+    rec["disk_fit_s"] = time.perf_counter() - t0
+    stats0 = dict(op.cache_stats)
+    spent = {"ensure_resident": 0.0, "lookup_struct": 0.0}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_methods(pcat._Vocab, spent, spent):
+        outs = [dwf_disk.transform(b) for b in files.to_batches()]
+        torch.cuda.synchronize()
+    rec["disk_transform_s"] = time.perf_counter() - t0
+    disk_launches = dict(kernels.LAUNCHES)
+    for i, part in enumerate(parts):
+        ref = wf.transform(part)
+        for c in cat_names:
+            if not torch.equal(outs[order[i]][c].values, ref[c].values):
+                fail(f"parquet: 27d's codes of {c} differ from phase 3's in batch {i}")
+    del outs
+    want = {f"{k}_lookup_solo": NUM_PARTS * sum(1 for c in disk if want_kinds[c] == k)
+            for k in ("tiny", "direct", "cuckoo")}
+    batched = {kind_of(cat_op.vocabs[c].lookup_struct()) for c in cat_names if c not in disk}
+    want.update({f"{k}_lookup": NUM_PARTS * (k in batched) for k in ("tiny", "direct", "cuckoo")})
+    if {k: disk_launches[k] for k in want} != want:
+        fail(f"parquet: 27d launched {disk_launches}, expected {want}")
+    for k in ("tiny_lookup", "cuckoo_lookup"):
+        rec["main_launches"][k] += disk_launches[k]
+    stats = {k: op.cache_stats[k] - stats0[k] for k in stats0}
+    rec["disk"] = {
+        "columns": disk, "kinds": want_kinds, "fit_s": rec["disk_fit_s"], "transform_s": rec["disk_transform_s"],
+        "cache_stats": dict(op.cache_stats), "reloads_per_batch": stats["reloads"] / NUM_PARTS,
+        "reload_ms_per_batch": 1e3 * spent["ensure_resident"] / NUM_PARTS,
+        "table_build_ms_per_batch": 1e3 * (spent["lookup_struct"]) / NUM_PARTS,
+        "launches": solo_counts(disk_launches),
+    }
+    log(f"parquet: 27d disk tier on {disk}: fit {rec['disk_fit_s']:.2f} s, transform {rec['disk_transform_s']:.2f} s "
+        f"({NUM_PARTS} batches), reload {rec['disk']['reload_ms_per_batch']:.2f} ms and table build "
+        f"{rec['disk']['table_build_ms_per_batch']:.2f} ms a batch, cache_stats {op.cache_stats}, solo launches "
+        f"{rec['disk']['launches']}; codes equal phase 3's")
+    del dwf_disk, op
+
+    # 27d: phase 6's compact keys on the disk tier take the direct map solo
+    op = ops.Categorify(out_path=str(PARQUET_DIR / "compact"), cat_cache="disk")
+    cwf = nvt.Workflow(list(compact[0].column_names) >> op, device=dev)
+    cwf.fit(nvt.Dataset(compact))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    couts = [cwf.transform(b) for b in compact]
+    torch.cuda.synchronize()
+    rec["compact_transform_s"] = time.perf_counter() - t0
+    compact_launches = dict(kernels.LAUNCHES)
+    for b, got in zip(compact, couts):
+        ref = dwf.transform(b)
+        for c in b.column_names:
+            if not torch.equal(got[c].values, ref[c].values):
+                fail(f"parquet: 27d's compact codes of {c} differ from phase 6's")
+    n_direct = len(compact) * len(compact[0].column_names)
+    if solo_counts(compact_launches) != {"tiny_lookup_solo": 0, "direct_lookup_solo": n_direct,
+                                         "cuckoo_lookup_solo": 0}:
+        fail(f"parquet: 27d's compact path launched {solo_counts(compact_launches)}, expected {n_direct} direct")
+    rec["compact"] = {"transform_s": rec["compact_transform_s"], "cache_stats": dict(op.cache_stats),
+                      "launches": solo_counts(compact_launches)}
+    direct_col = max(compact[0].column_names, key=lambda c: (op.vocabs[c].size, c))
+    direct_vocab = op.vocabs[direct_col]
+    direct_vocab.ensure_resident()
+    log(f"parquet: 27d compact keys on the disk tier: {solo_counts(compact_launches)}, cache_stats "
+        f"{op.cache_stats}; codes equal phase 6's")
+
+    # 27e: the budget, every column solo, phase 3's vocabularies supplied
+    resident = sum(v.host_nbytes() for v in cat_op.vocabs.values())
+    budget = resident // 2
+    t0 = time.perf_counter()
+    op = ops.Categorify(vocabs={c: cat_op.vocabs[c].values_by_code for c in cat_names},
+                        out_path=str(PARQUET_DIR / "budget"), cardinality_memory_limit=budget)
+    rec["budget_construct_s"] = time.perf_counter() - t0
+    bwf = nvt.Workflow(cat_names >> op, device=dev)
+    spent = {"ensure_resident": 0.0, "lookup_struct": 0.0}
+    first = [files._partitions[order[i]] for i in range(BUDGET_FILES)]
+    batches = [p.load() for p in first]
+    stats0 = dict(op.cache_stats)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_methods(pcat._Vocab, spent, spent):
+        bouts = []
+        for b in batches:
+            bouts.append(bwf.transform(b))
+            torch.cuda.synchronize()
+    budget_s = time.perf_counter() - t0
+    budget_launches = dict(kernels.LAUNCHES)
+    for i, got in enumerate(bouts):
+        ref = wf.transform(parts[i])
+        for c in cat_names:
+            if not torch.equal(got[c].values, ref[c].values):
+                fail(f"parquet: 27e's codes of {c} differ from phase 3's in batch {i}")
+    kinds = {c: kind_of(cat_op.vocabs[c].lookup_struct()) for c in cat_names}
+    want_solo = {f"{k}_lookup_solo": BUDGET_FILES * sum(1 for c in cat_names if kinds[c] == k)
+                 for k in ("tiny", "direct", "cuckoo")}
+    if solo_counts(budget_launches) != want_solo or budget_launches["cuckoo_lookup"] or budget_launches["tiny_lookup"]:
+        fail(f"parquet: 27e launched {budget_launches}, expected {want_solo} solo and no batched lookup")
+    stats = {k: op.cache_stats[k] - stats0[k] for k in stats0}
+    reload_s, build_s = spent["ensure_resident"], spent["lookup_struct"]
+    rec["budget"] = {
+        "budget_bytes": budget, "resident_bytes": resident, "files": BUDGET_FILES,
+        "construct_s": rec["budget_construct_s"], "cache_stats": dict(op.cache_stats),
+        "releases_per_batch": stats["releases"] / BUDGET_FILES, "reloads_per_batch": stats["reloads"] / BUDGET_FILES,
+        "s_per_batch": budget_s / BUDGET_FILES, "reload_s_per_batch": reload_s / BUDGET_FILES,
+        "table_build_s_per_batch": build_s / BUDGET_FILES,
+        "encode_s_per_batch": (budget_s - reload_s - build_s) / BUDGET_FILES,
+        "launches": solo_counts(budget_launches),
+    }
+    b = rec["budget"]
+    log(f"parquet: 27e budget {budget:,} of {resident:,} resident bytes, {BUDGET_FILES} files: "
+        f"{b['s_per_batch']:.2f} s a batch (reload {b['reload_s_per_batch']:.2f} s, table build "
+        f"{b['table_build_s_per_batch']:.2f} s, encode and the rest {b['encode_s_per_batch']:.2f} s), "
+        f"{b['releases_per_batch']:.1f} releases and {b['reloads_per_batch']:.1f} reloads a batch, cache_stats "
+        f"{op.cache_stats}, solo launches {b['launches']}; codes equal phase 3's")
+    launches = {k: rec["disk"]["launches"][k] + rec["compact"]["launches"][k] + b["launches"][k]
+                for k in b["launches"]}
+    rec["solo_inputs"] = {"criteo": parts[0], "compact": compact[0], "direct": (direct_col, direct_vocab),
+                          "vocabs": cat_op.vocabs, "kinds": kinds}
+    rec["launches"] = launches
+    del bwf, op, bouts, batches, tds, files, written
+    shutil.rmtree(PARQUET_DIR)  # the phase's files and vocabulary artifacts
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    log(f"parquet: phase 27 took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def solo_record(vocab, column, dev):
+    """One solo lookup (K8's solo-table branch) of ``column`` (values on the
+    host) through ``vocab``'s own table: kernel against plain on the card,
+    timed beside its bound."""
+    from nvtabular_tpu_torch.kernels import lookup as klk
+
+    values = column.values.to(dev)[None].to(torch.int32).contiguous()
+    kind, t = vocab.solo_table(dev, False)
+    sel = torch.zeros(1, dtype=torch.int32, device=dev)
+    off = torch.zeros(1, dtype=torch.int32, device=dev)
+    job = {"kind": kind}
+    n = values.shape[1]
+    if kind == "tiny":
+        args = (values, None, t.keys, t.codes, t.lens, sel, off)
+        rec = lookup_record(job, klk.tiny_lookup_plain, args, lambda: klk.tiny_lookup(*args))
+        v = int(t.lens[0])
+        rec.update(bytes=n * 8 + v * 8, table_keys=v)
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * math.ceil(math.log2(v + 1)) * 2)
+    elif kind == "direct":
+        args = (values, None, t.table, t.mins, t.maxs, t.lens, t.offsets, sel, off)
+        rec = lookup_record(job, klk.direct_lookup_plain, args, lambda: klk.direct_lookup(*args))
+        idx = (values.long() - t.mins[0].long()).clamp(min=0, max=int(t.lens[0]) - 1)
+        sectors = int(torch.unique(idx // 8).numel())
+        rec.update(bytes=n * 8 + sectors * 32, table_keys=vocab.size - vocab.start_index)
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * 10)
+    else:
+        args = (values, None, t.table, t.nbs, t.row_offsets, sel, off)
+        rec = lookup_record(job, klk.cuckoo_lookup_plain, args, lambda: klk.cuckoo_lookup(*args))
+        buckets = torch.cat([klk.bucket_index_plain(values, t.nbs[0], s).flatten() for s in klk.SEEDS])
+        sectors = int(torch.unique(buckets).numel())
+        rec.update(bytes=n * 8 + sectors * 32, table_keys=vocab.size - vocab.start_index)
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * 40)
+    rec["shape"] = [1, n]
+    return rec
+
+
+def solo_kernel_records(dev, pq_rec: dict) -> dict:
+    """The three solo launches at the largest vocabulary of their kind in
+    27d-27e: the largest tiny and cuckoo Criteo vocabularies on partition
+    0's column, the largest compact vocabulary (a direct map) on phase 6's
+    partition 0."""
+    inputs = pq_rec.pop("solo_inputs")
+    vocabs, kinds = inputs["vocabs"], inputs["kinds"]
+    out = {}
+    for kind in ("tiny", "cuckoo"):
+        col = max((c for c in vocabs if kinds[c] == kind), key=lambda c: (vocabs[c].size, c))
+        out[f"{kind}_lookup_solo"] = dict(solo_record(vocabs[col], inputs["criteo"][col], dev), column=col)
+    col, vocab = inputs["direct"]
+    out["direct_lookup_solo"] = dict(solo_record(vocab, inputs["compact"][col], dev), column=col)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record as JSON here")
@@ -3584,7 +3976,6 @@ def main():
 
     # --- 24. Criteo's alternative continuous chain, its indicators and its small categoricals ---------
     alt = alt_criteo_path(nvt, dev, parts, cat_names, cont_names)
-    del parts
     main_launches["tiny_lookup"] += alt["a"]["launches"]["tiny_lookup"]
     alt_launches = {"cont_chain_16": alt["a"]["launches"]["cont_chain_16"],
                     "cont_chain_mask": alt["b"]["launches"]["cont_chain_mask"]}
@@ -3601,6 +3992,14 @@ def main():
     for key in ("a", "b"):
         del alt[key]["wf"], alt[key]["staged"]
     del sess["lists"]
+
+    # --- 27. Criteo through parquet: files in, the shuffled write, the loader, the disk tier, the budget ------
+    pq_rec = parquet_path(nvt, ops, dev, wf, parts, cat_names, cont_names, compact, dwf, smi)
+    del parts
+    records.update(solo_kernel_records(dev, pq_rec))
+    solo_launches = pq_rec["launches"]
+    for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
+        main_launches[k] += pq_rec["main_launches"][k]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -3646,6 +4045,9 @@ def main():
         "interaction_self_bwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
         "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
+        "tiny_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:119", solo_launches),
+        "direct_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:196", solo_launches),
+        "cuckoo_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:261", solo_launches),
     }
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
@@ -3700,6 +4102,7 @@ def main():
                     "layer_entry": entry,
                     "alt_criteo": alt,
                     "session": sess,
+                    "parquet": pq_rec,
                     "profiles": profiles,
                     "kernels": records,
                     "ptxas": kbuild.PTXAS_REPORT,

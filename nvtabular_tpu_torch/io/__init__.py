@@ -1,8 +1,7 @@
-"""In-memory datasets (counterpart of nvtabular_tpu/io/)."""
+"""Datasets and parquet I/O (counterpart of nvtabular_tpu/io/)."""
 
-from ..unported import stubs
 from .dataset import Dataset
 from .shuffle import Shuffle
+from .writer import ParquetWriter
 
-__all__ = ["Dataset", "Shuffle"]
-__getattr__ = stubs(__name__, {"ParquetWriter": 1})
+__all__ = ["Dataset", "Shuffle", "ParquetWriter"]

@@ -7,6 +7,11 @@ and land in ``build/nvt_torch_kernels/`` at the root of the checkout, named by
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an unchanged source is never rebuilt.
 
+The parquet reader and writer (``csrc/parquet.cc``) are host C++: ``g++
+-O3 -std=c++17 -shared -fPIC``, linked with ``-lzstd`` only when ``zstd.h``
+is found (``host_library``), with no ``-march=native`` so that the library
+is the same on any host of a machine class.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
 """
@@ -107,3 +112,51 @@ def build_all(names: List[str] = None) -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     return lib if lib is not None else build_all([name])[name]
+
+
+# --- host C++ ------------------------------------------------------------------
+HOST_SOURCES = {"parquet": _PKG / "csrc" / "parquet.cc"}
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+def _gxx() -> str:
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if not gxx:
+        raise RuntimeError("g++ not found: the parquet reader and writer are host C++ built at first use")
+    return gxx
+
+
+def gxx_version() -> str:
+    return subprocess.run([_gxx(), "--version"], capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def zstd_header_found() -> bool:
+    probe = subprocess.run(
+        [_gxx(), "-E", "-x", "c++", "-", "-o", os.devnull], input="#include <zstd.h>\n",
+        capture_output=True, text=True,
+    )
+    return probe.returncode == 0
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """Build (once, by source hash) and load the host C++ library ``name``."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        zstd = zstd_header_found()
+        flags = HOST_FLAGS + (["-lzstd"] if zstd else [])
+        src = HOST_SOURCES[name]
+        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        target = BUILD_DIR / f"libnvt_{name}_{digest}.so"
+        if not target.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            # the library follows its source on the command line: -lzstd must come after
+            cmd = [_gxx(), *HOST_FLAGS, "-o", str(tmp), str(src)] + (["-lzstd"] if zstd else [])
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+        lib = _LIBS[name] = ctypes.CDLL(str(target))
+        return lib

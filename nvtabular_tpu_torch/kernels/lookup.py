@@ -90,8 +90,9 @@ def _epilogue(code, hit, validity, col_offsets, miss, null, values=None, nbucket
     return (out + col_offsets[:, None]).to(torch.int32)
 
 
-def _launch(name, values, args, miss, null, nbuckets):
-    """Allocate the output and launch ``nvt_<name>`` on the current stream."""
+def _launch(name, values, args, miss, null, nbuckets, counter=None):
+    """Allocate the output and launch ``nvt_<name>`` on the current stream;
+    the launch counts under ``counter`` (default ``name``)."""
     C, N = values.shape
     out = torch.empty((C, N), dtype=torch.int32, device=values.device)
     if C == 0 or N == 0:
@@ -100,14 +101,16 @@ def _launch(name, values, args, miss, null, nbuckets):
     head, tail = args
     rc = fn(*[ptr(t) for t in head], ptr(out), C, N, *tail, miss, null, ptr(nbuckets), stream_ptr(values.device))
     raise_on_error(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[counter or name] += 1
     return out
 
 
 # --- K1 + K4: tiny vocabularies (≤ 4096 keys) --------------------------------
 def tiny_lookup(values, validity, keys, codes, lens, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX,
-                nbuckets=None):
-    """Replaces ``BatchedTiny.encode_dev`` (nvtabular_tpu/ops/lookup.py:157).
+                nbuckets=None, counter=None):
+    """Replaces ``BatchedTiny.encode_dev`` (nvtabular_tpu/ops/lookup.py:157)
+    and, with one table row, ``TinyLookup.encode_dev`` (:119), K8's solo
+    branch (``counter="tiny_lookup_solo"``).
 
     keys/codes [B, vmax] int32: row b holds its ``lens[b]`` keys sorted
     ascending, then padding; lens [B] int32."""
@@ -127,6 +130,7 @@ def tiny_lookup(values, validity, keys, codes, lens, sel, col_offsets, miss=OOV_
         miss,
         null,
         nbuckets,
+        counter,
     )
 
 
@@ -147,8 +151,10 @@ def tiny_lookup_plain(values, validity, keys, codes, lens, sel, col_offsets, mis
 
 # --- K2 + K4: direct (dense) map ----------------------------------------------
 def direct_lookup(values, validity, table, mins, maxs, lens, table_offsets, sel, col_offsets,
-                  miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
-    """Replaces ``BatchedDirect.encode_dev`` (nvtabular_tpu/ops/lookup.py:585).
+                  miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None, counter=None):
+    """Replaces ``BatchedDirect.encode_dev`` (nvtabular_tpu/ops/lookup.py:585)
+    and, with one table row, ``DirectLookup.encode_dev`` (:196), K8's solo
+    branch (``counter="direct_lookup_solo"``).
 
     table [T] int32: the concat of the per-column dense tables, -1 = empty;
     row b spans ``table[table_offsets[b] : table_offsets[b] + lens[b]]`` and
@@ -172,6 +178,7 @@ def direct_lookup(values, validity, table, mins, maxs, lens, table_offsets, sel,
         miss,
         null,
         nbuckets,
+        counter,
     )
 
 
@@ -188,8 +195,10 @@ def direct_lookup_plain(values, validity, table, mins, maxs, lens, table_offsets
 
 # --- K3 + K4: two-choice 4-slot bucketed cuckoo --------------------------------
 def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX,
-                  nbuckets=None):
-    """Replaces ``BatchedCuckoo.encode_dev`` (nvtabular_tpu/ops/lookup.py:693).
+                  nbuckets=None, counter=None):
+    """Replaces ``BatchedCuckoo.encode_dev`` (nvtabular_tpu/ops/lookup.py:693)
+    and, with one table row, ``CuckooLookup.encode_dev`` (:261), K8's solo
+    branch (``counter="cuckoo_lookup_solo"``).
 
     table [R, 8] int32: bucket rows ``[k0..k3, v0..v3]`` (v = -1: empty);
     column row b owns rows ``row_offsets[b] : row_offsets[b] + nbs[b]``.
@@ -215,6 +224,7 @@ def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets, m
         miss,
         null,
         nbuckets,
+        counter,
     )
 
 

@@ -2,6 +2,9 @@
 
 Counterpart of ``nvtabular_tpu/loader/device_loader.py``. A transformed
 dataset's batches stay on the workflow's device (``to_batches(host=False)``);
+a plain Dataset's (the parquet files a shuffled write left, read by the
+port's reader with its partitions loaded ahead on a thread) go to the
+loader's device column by column;
 each chunk is shuffled by one ``torch.randperm`` drawn from a generator on
 the loader's device (seeded ``seed + epoch``) and one launch of kernel K14
 (``kernels.permute.permute_rows``) that permutes every array of the chunk;

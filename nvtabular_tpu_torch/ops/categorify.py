@@ -43,16 +43,39 @@ global index space. With ``num_buckets`` nb > 1 a miss takes bucket
   The transform maps each row's tuple through the verified hash pair (K9,
   ``groupby_stats.PairIndex``, :1322-1410).
 
+* Vocabulary artifacts and memory (categorify.py:413-471, 1110-1259): each
+  fitted vocabulary is written to ``<out_path>/categories/unique.<key>.parquet``
+  (its values and ``<key>_size`` counts) by the port's parquet writer.
+  ``cat_cache`` ("device", "host" or "disk", per column) and
+  ``cardinality_memory_limit`` (bytes or a size string) decide which
+  vocabularies stay resident: a disk-tier vocabulary is released after the
+  fit and after every transform, and an LRU over the columns releases the
+  least recently used past the budget (``cache_stats`` counts hits, reloads
+  and releases); a released vocabulary reloads from its artifact at its
+  next use. ``host_nbytes`` counts what the reference counts, less its C++
+  host table.
+* K8's solo-table branch (``encode_device``, :552-585): a disk-tier column,
+  and every column under a budget, encodes alone through its own tiny,
+  direct or cuckoo table (``build_lookup``'s default ``tiny_max``, no lone
+  tiny demotion), built once per resident vocabulary and launched with one
+  table row on K1, K2 or K3 (``*_lookup_solo`` launches); float
+  vocabularies take K8's sorted table the same way.
+* ``vocabs=`` (arrays, lists, Columns or parquet paths, :1735-1757) fits the
+  op at construction (``fit_generation`` 0, so ``Workflow.fit`` keeps it)
+  and writes its artifacts; ``dtype=`` casts the codes.
+
 Not ported yet (raise NotImplementedError, naming the ROADMAP item):
 string and bool columns and keys outside int32 (item 4), combo columns with
-``num_buckets > 1`` (item 4, the reference's host path), ``out_path``
-artifacts (item 2), and ``cat_cache`` tiers other than "host", ``dtype``,
-``vocabs`` and ``cardinality_memory_limit`` (item 14).
+``num_buckets > 1`` (item 4, the reference's host path). A combo group's
+tuples are strings in the reference's artifact: the port writes none for
+them (item 16), so a combo vocabulary is never released.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import threading
 import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -62,7 +85,7 @@ import torch
 from .. import dtypes as md
 from ..kernels.lookup import NULL_INDEX
 from ..selector import ColumnSelector
-from ..table import Column, TableBatch
+from ..table import Column, TableBatch, to_torch_dtype
 from ..tags import Tags
 from .groupby_stats import PairIndex, build_hash_pair
 from .lookup import BATCHED, build_cuckoo, build_lookup, int32_keys, kind_of
@@ -83,13 +106,8 @@ UNSUPPORTED_KEYS = (
 UNSUPPORTED_MIXED = (
     "Categorify of {} is not ported yet (ROADMAP.md queue 1 item 4: strings and hybrid execution)"
 )
-UNSUPPORTED_ARTIFACTS = (
-    "Categorify(out_path=...): the parquet vocabulary artifacts are not ported yet: the port "
-    "keeps vocabularies in memory (ROADMAP.md queue 1 item 2: save/load)"
-)
-UNSUPPORTED_MEMORY = (
-    "Categorify({}) is not ported yet (ROADMAP.md queue 1 item 14: memory-limited vocabularies)"
-)
+SOLO_COUNTERS = {"tiny": "tiny_lookup_solo", "direct": "direct_lookup_solo", "cuckoo": "cuckoo_lookup_solo"}
+LOG = logging.getLogger("nvtabular_tpu_torch")
 
 
 def _per_column(option, key, default):
@@ -99,6 +117,10 @@ def _per_column(option, key, default):
     if isinstance(option, dict):
         return option.get(key, default)
     return option
+
+
+def _safe_name(name: str) -> str:
+    return "".join(c if c.isalnum() or c in "._-" else "_" for c in name)
 
 
 def _emb_sz_rule(n_cat: int, minimum_size=16, maximum_size=512) -> Tuple[int, int]:
@@ -275,47 +297,116 @@ def combo_strings(tuples: np.ndarray) -> np.ndarray:
     return out
 
 
+def _artifact_dtype(dtype: np.dtype) -> np.dtype:
+    """The parquet column dtype a vocabulary's values are stored in."""
+    if dtype.kind == "f":
+        return np.dtype(np.float32 if dtype.itemsize <= 4 else np.float64)
+    return np.dtype(np.int32 if dtype.itemsize < 4 or (dtype.itemsize == 4 and dtype.kind == "i") else np.int64)
+
+
 class _Vocab:
     """A fitted vocabulary in code order (frequency-descending): values, or
     for a combo group the member tuples, int64 [V, k]. Codes start at
-    ``start_index`` = 2 + ``num_buckets`` (categorify.py:350-354)."""
+    ``start_index`` = 2 + ``num_buckets`` (categorify.py:350-354). Its
+    values can be released to its parquet artifact and reloaded from it
+    (categorify.py:408-471); size, offset and dtype survive a release."""
 
-    __slots__ = ("values_by_code", "counts", "num_buckets", "start_index", "offset", "_lookup")
+    __slots__ = ("values_by_code", "counts", "num_buckets", "start_index", "offset", "_lookup", "_sv", "_sc",
+                 "_solo", "_n_values", "dtype", "is_combo", "artifact_path")
 
     def __init__(self, values_by_code: np.ndarray, counts: np.ndarray, num_buckets: int = 1):
         self.values_by_code = np.asarray(values_by_code)
         self.counts = counts
         self.num_buckets = max(1, int(num_buckets))
+        self.is_combo = self.values_by_code.ndim == 2
         if self.is_combo and self.num_buckets > 1:
             raise NotImplementedError(UNSUPPORTED_COMBO_BUCKETS)
         self.start_index = OOV_OFFSET + self.num_buckets
         self.offset = 0  # single_table shift
+        self._n_values = len(self.values_by_code)
+        self.dtype = self.values_by_code.dtype
+        self.artifact_path: Optional[str] = None
         self._lookup = None
+        self._sv = self._sc = None  # values ascending and their codes, built with the lookup
+        self._solo = None  # (device, kind, one-row Batched* table on the device)
 
     @property
     def size(self) -> int:
         """Total domain size including pad/null/OOV."""
-        return self.start_index + len(self.values_by_code)
+        return self.start_index + self._n_values
 
     @property
-    def is_combo(self) -> bool:
-        return self.values_by_code.ndim == 2
+    def resident(self) -> bool:
+        return self.values_by_code is not None
 
     def lookup_struct(self):
         """Host-built tiny/direct/cuckoo table of integer keys or sorted
-        table of float keys (ops/lookup.py), built once; for a combo
-        vocabulary its verified hash pair over the tuples (None when
+        table of float keys (ops/lookup.py), built once from the values
+        ascending, as the reference's ``lookup_struct`` (:539-550); for a
+        combo vocabulary its verified hash pair over the tuples (None when
         empty)."""
         if self._lookup is None and self.is_combo:
-            if len(self.values_by_code):
+            if self._n_values:
                 self._lookup = build_hash_pair(list(self.values_by_code.T))
         elif self._lookup is None:
-            codes = np.arange(len(self.values_by_code), dtype=np.int64) + self.start_index
             values = self.values_by_code
             if len(values) == 0 and values.dtype.kind not in ("i", "u", "f"):
                 values = values.astype(np.int64)  # the JAX fit's empty vocabulary is an object array
-            self._lookup = build_lookup(values, codes)
+            order = np.argsort(values, kind="stable")
+            self._sv, self._sc = values[order], (order + self.start_index).astype(np.int64)
+            self._lookup = build_lookup(self._sv, self._sc)
         return self._lookup
+
+    def solo_table(self, device, is_float: bool):
+        """(kind, this vocabulary's one-row Batched* table on ``device``),
+        built once while the vocabulary is resident."""
+        if self._n_values == 0:  # every value misses: the column's dtype picks the launch
+            kind = "sorted" if is_float else "tiny"
+            empty = np.zeros(0, np.float32 if is_float else np.int32)
+            return kind, BATCHED[kind]([build_lookup(empty, np.zeros(0, np.int32))]).to(device)
+        if self._solo is None or self._solo[0] != device:
+            lut = self.lookup_struct()
+            self._solo = (device, kind_of(lut), BATCHED[kind_of(lut)]([lut]).to(device))
+        return self._solo[1], self._solo[2]
+
+    def host_nbytes(self) -> int:
+        """Bytes of host memory this vocabulary holds, counted as the
+        reference counts them (categorify.py:413-428): values, counts, the
+        ascending copy and its codes, and the lookup table; the reference's
+        C++ host table has no counterpart here."""
+        total = sum(a.nbytes for a in (self.values_by_code, self.counts, self._sv, self._sc) if a is not None)
+        lut = self._lookup
+        if lut is not None and not self.is_combo:
+            total += sum(getattr(lut, f).nbytes for f in _TABLE_FIELDS[kind_of(lut)])
+        return total
+
+    def release_host(self) -> int:
+        """Drop the values and every table built from them, the device copy
+        included; needs an artifact to reload from. Returns bytes released."""
+        if not self.resident or self.artifact_path is None:
+            return 0
+        freed = self.host_nbytes()
+        self.values_by_code = self.counts = self._sv = self._sc = self._lookup = self._solo = None
+        return freed
+
+    def ensure_resident(self) -> bool:
+        """Reload values and counts from the artifact if released; True when
+        a reload happened."""
+        if self.resident:
+            return False
+        if self.artifact_path is None:
+            raise RuntimeError("vocabulary released without a parquet artifact")
+        from ..io.native_parquet import read_row_groups
+
+        cols = list(read_row_groups(self.artifact_path).values())
+        self.values_by_code = cols[0].astype(self.dtype, copy=False)
+        self.counts = cols[1] if len(cols) > 1 else np.zeros(len(cols[0]), dtype=np.int64)
+        self._n_values = len(self.values_by_code)
+        return True
+
+
+# the arrays of each lookup kind that hold its table (host_nbytes)
+_TABLE_FIELDS = {"tiny": ("keys", "codes"), "direct": ("table",), "cuckoo": ("packed",), "sorted": ("keys", "codes")}
 
 
 class Categorify(StatOperator):
@@ -346,17 +437,6 @@ class Categorify(StatOperator):
         super().__init__()
         if encode_type not in ("joint", "combo"):
             raise ValueError(f"encode_type must be 'joint' or 'combo', got {encode_type!r}")
-        if out_path is not None:
-            raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
-        tiers = cat_cache.values() if isinstance(cat_cache, dict) else [cat_cache]
-        for name, unported in (
-            ("cat_cache other than 'host'", any(t != "host" for t in tiers)),
-            ("dtype=...", dtype is not None),
-            ("vocabs=...", vocabs is not None),
-            ("cardinality_memory_limit=...", cardinality_memory_limit is not None),
-        ):
-            if unported:
-                raise NotImplementedError(UNSUPPORTED_MEMORY.format(name))
         buckets = num_buckets.values() if isinstance(num_buckets, dict) else [num_buckets]
         if encode_type == "combo" and any((nb or 1) > 1 for nb in buckets):
             raise NotImplementedError(UNSUPPORTED_COMBO_BUCKETS)
@@ -368,13 +448,24 @@ class Categorify(StatOperator):
                 stacklevel=2,
             )
         self.freq_threshold = freq_threshold
+        self.out_path = out_path or "./categories"
+        self.cat_cache = cat_cache
+        self.dtype = dtype
         self.max_size = max_size
         self.num_buckets = num_buckets
         self.single_table = single_table
         self.encode_type = encode_type
         self.name_sep = name_sep
+        self.cardinality_memory_limit = cardinality_memory_limit
         self.vocabs: Dict[str, _Vocab] = {}
+        self.categories: Dict[str, str] = {}  # vocab key → its parquet artifact
         self._batched_cache = None  # (vocab identity token, {kind: (batched, row_index)})
+        # LRU over resident vocabularies (categorify.py:1215-1259)
+        self._lru: Dict[str, int] = {}
+        self._lru_tick = 0
+        self.cache_stats = {"hits": 0, "reloads": 0, "releases": 0}
+        if vocabs is not None:
+            self._load_supplied_vocabs(vocabs)
 
     # --- groups ------------------------------------------------------------
     def _groups(self, col_selector: ColumnSelector) -> List[Tuple[str, List[str]]]:
@@ -535,7 +626,16 @@ class Categorify(StatOperator):
                 values, counts = values[:budget], counts[:budget]
             self.vocabs[key] = _Vocab(values, counts, nb)
         self.set_offsets()
-        self._get_batched()  # build the host tables now, as the reference does
+        self._write_vocab_artifacts()
+        self._get_batched()  # build the host tables now
+        limit = self._memory_limit_bytes()
+        if limit is not None:
+            total = sum(v.host_nbytes() for v in self.vocabs.values())
+            if total > limit:
+                LOG.warning("categorify vocabularies use %d bytes (> %d budget); tables will spill to parquet "
+                            "under LRU", total, limit)
+        self._release_disk_tier()
+        self._enforce_memory_limit()
 
     def set_offsets(self):
         """single_table: one contiguous index space (categorify.py:1104-1109)."""
@@ -548,24 +648,152 @@ class Categorify(StatOperator):
     def clear(self):
         super().clear()
         self.vocabs = {}
+        self.categories = {}
         self._batched_cache = None
+        self._lru = {}
+        self._lru_tick = 0
+        self.cache_stats = {"hits": 0, "reloads": 0, "releases": 0}
+
+    def _load_supplied_vocabs(self, vocabs: Dict[str, Any]):
+        """Vocabularies given at construction (categorify.py:1735-1757): an
+        array, a list, a Column or a parquet path (its first column), each
+        in code order. The op is fitted with ``fit_generation`` 0, so
+        ``Workflow.fit`` keeps it, and its artifacts are written now."""
+        from ..io.native_parquet import read_row_groups
+
+        for key, vocab in vocabs.items():
+            if isinstance(vocab, str):
+                values = next(iter(read_row_groups(vocab).values()))
+            elif isinstance(vocab, Column):
+                values = vocab.values.cpu().numpy()
+            else:
+                values = np.asarray(vocab)
+            nb = _per_column(self.num_buckets, key, 1) or 1
+            self.vocabs[key] = _Vocab(values, np.zeros(len(values), dtype=np.int64), nb)
+        self.fitted = len(self.vocabs) > 0
+        self._write_vocab_artifacts()
+
+    def _write_vocab_artifacts(self):
+        """Each vocabulary as ``<out_path>/categories/unique.<key>.parquet``:
+        its values in code order and their counts as ``<key>_size``
+        (categorify.py:1124-1170), through the port's writer, several files
+        at once. A combo group's tuples are strings in the reference's
+        artifact, which the port's writer does not write (item 16): combo
+        vocabularies get none and stay resident."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..io.native_parquet import NativeParquetFile
+        from ..io.writer import _plan, resolve_compression
+
+        out_dir = os.path.join(self.out_path, "categories")
+        os.makedirs(out_dir, exist_ok=True)
+        plan = _plan(resolve_compression(None))
+
+        def write_one(item):
+            key, vocab = item
+            path = os.path.join(out_dir, f"unique.{_safe_name(key)}.parquet")
+            values = vocab.values_by_code.astype(_artifact_dtype(vocab.dtype), copy=False)
+            counts = np.asarray(vocab.counts, dtype=np.int64)
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+            f = NativeParquetFile(tmp, [(key, values.dtype), (f"{key}_size", counts.dtype)], plan=plan)
+            f.write_row_group([[values], [counts]], None, len(values))
+            f.close()
+            os.replace(tmp, path)  # a reader never sees a half-written artifact
+            return key, path
+
+        items = [(k, v) for k, v in self.vocabs.items() if not v.is_combo]
+        if len(items) >= 4:
+            with ThreadPoolExecutor(min(len(items), os.cpu_count() or 1)) as pool:
+                results = list(pool.map(write_one, items))
+        else:
+            results = [write_one(it) for it in items]
+        for key, path in results:
+            self.categories[key] = path
+            self.vocabs[key].artifact_path = path
+
+    # --- the vocabulary memory hierarchy (categorify.py:1201-1259) --------------------
+    def _tier(self, key: str) -> str:
+        tier = _per_column(self.cat_cache, key, "host")
+        return tier if tier in ("device", "host", "disk") else "host"
+
+    def _memory_limit_bytes(self) -> Optional[int]:
+        limit = self.cardinality_memory_limit
+        if limit is None:
+            return None
+        if isinstance(limit, str):
+            from ..io.dataset import parse_bytes
+
+            return parse_bytes(limit)
+        return int(limit)
+
+    def _resident_vocab(self, key: str) -> _Vocab:
+        """A vocabulary for use now: reloaded from its artifact if released,
+        touched in the LRU, and the least recently used others released
+        past the budget."""
+        vocab = self.vocabs[key]
+        if vocab.ensure_resident():
+            self.cache_stats["reloads"] += 1
+            LOG.info("categorify vocab %r reloaded from %s", key, vocab.artifact_path)
+        else:
+            self.cache_stats["hits"] += 1
+        self._lru_tick += 1
+        self._lru[key] = self._lru_tick
+        self._enforce_memory_limit(protect=key)
+        return vocab
+
+    def _enforce_memory_limit(self, protect: Optional[str] = None):
+        limit = self._memory_limit_bytes()
+        if limit is None:
+            return
+        resident = [
+            (self._lru.get(k, 0), k, v)
+            for k, v in self.vocabs.items()
+            if v.resident and v.artifact_path is not None and k != protect
+        ]
+        total = sum(v.host_nbytes() for _, _, v in resident)
+        if protect is not None and protect in self.vocabs:
+            total += self.vocabs[protect].host_nbytes()
+        for _, k, v in sorted(resident, key=lambda r: (r[0], r[1])):  # oldest LRU tick first
+            if total <= limit:
+                break
+            freed = v.release_host()
+            if freed:
+                total -= freed
+                self.cache_stats["releases"] += 1
+                LOG.info("categorify vocab %r released (%d bytes)", k, freed)
+
+    def _release_disk_tier(self):
+        """Disk-tier vocabularies do not stay resident between transforms."""
+        for key, vocab in self.vocabs.items():
+            if self._tier(key) == "disk" and vocab.release_host():
+                self.cache_stats["releases"] += 1
 
     # --- device tables ---------------------------------------------------------
+    def _solo_keys(self) -> set:
+        """Vocabulary keys that encode alone (K8's solo-table branch): the
+        disk tier, and every vocabulary under a memory budget (the batched
+        tables would duplicate every table, categorify.py:1484-1499)."""
+        if self._memory_limit_bytes() is not None:
+            return set(self.vocabs)
+        return {k for k in self.vocabs if self._tier(k) == "disk"}
+
     def _get_batched(self):
         """{kind: (Batched* table on the host, {vocab key: row})}, one table per
-        kind over every vocabulary, built once per fitted state. An empty
-        vocabulary is a row of the tiny table and of the sorted one: every
-        value misses, and the column's dtype picks the launch."""
+        kind over every vocabulary that does not encode solo, built once per
+        fitted state. An empty vocabulary is a row of the tiny table and of
+        the sorted one: every value misses, and the column's dtype picks the
+        launch."""
         token = tuple(sorted((k, id(v)) for k, v in self.vocabs.items()))
         if self._batched_cache is not None and self._batched_cache[0] == token:
             return self._batched_cache[1]
+        solo = self._solo_keys()
         by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": [], "sorted": []}
         empty = []
         for vkey in sorted(self.vocabs):
-            vocab = self.vocabs[vkey]
-            if vocab.is_combo:
+            if self.vocabs[vkey].is_combo or vkey in solo:
                 continue
-            if len(vocab.values_by_code) == 0:
+            vocab = self._resident_vocab(vkey)
+            if vocab.size == vocab.start_index:
                 empty.append(vkey)
                 continue
             lut = vocab.lookup_struct()
@@ -589,16 +817,27 @@ class Categorify(StatOperator):
         return out
 
     def device_state(self, device):
+        """The batched tables and the combo indexes on ``device``. A
+        vocabulary that encodes solo keeps its own table while it is
+        resident (``_Vocab.solo_table``); like the reference's
+        ``device_state`` (categorify.py:1261-1299), the non-disk ones are
+        made resident and their tables built here."""
+        solo = self._solo_keys()
+        for vkey in self.vocabs:
+            if vkey in solo and self._tier(vkey) != "disk":
+                self._resident_vocab(vkey).lookup_struct()
+        combo = {}
+        for key, vocab in self.vocabs.items():
+            if vocab.is_combo:
+                vocab.ensure_resident()
+                combo[key] = PairIndex(vocab.lookup_struct(), device, vocab.size - vocab.start_index)
         return {
             "tables": {
                 kind: (blut.to(device), row_index)
                 for kind, (blut, row_index) in self._get_batched().items()
             },
             "args": {},  # (kind, names) → (sel, col_offsets, nbuckets) on the device
-            "combo": {
-                key: PairIndex(vocab.lookup_struct(), device, len(vocab.values_by_code))
-                for key, vocab in self.vocabs.items() if vocab.is_combo
-            },
+            "combo": combo,
         }
 
     def encode_combo(self, key: str, cols: List[Column], state) -> torch.Tensor:
@@ -611,24 +850,68 @@ class Categorify(StatOperator):
         off = vocab.offset
         return state["combo"][key](cols, vocab.start_index + off, OOV_OFFSET + off, NULL_INDEX + off)
 
+    def encode_solo(self, vkey: str, col: Column) -> torch.Tensor:
+        """int32 codes of one column through its vocabulary's own table (K8's
+        solo-table branch, categorify.py:552-585): one launch of K1, K2 or
+        K3 (or K8's sorted search for float keys) with one table row and the
+        null, OOV and offset epilogue fused. A list column's flat values
+        take no validity."""
+        vocab = self._resident_vocab(vkey)
+        values = int32_keys(col)
+        kind, table = vocab.solo_table(values.device, values.is_floating_point())
+        if (kind == "sorted") != values.is_floating_point():
+            what = "a float column against an integer vocabulary" if values.is_floating_point() else \
+                "an integer column against a float vocabulary"
+            raise NotImplementedError(UNSUPPORTED_MIXED.format(what))
+        dev = values.device
+        validity = None if col.is_list or col.validity is None else col.validity[None]
+        nbuckets = None if vocab.num_buckets == 1 else torch.tensor([vocab.num_buckets], dtype=torch.int32,
+                                                                     device=dev)
+        return table.encode(
+            values[None], validity, torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.tensor([vocab.offset], dtype=torch.int32, device=dev), nbuckets=nbuckets,
+            counter=SOLO_COUNTERS.get(kind),
+        )[0]
+
     # --- transform ---------------------------------------------------------------
     def transform(self, col_selector: ColumnSelector, batch: TableBatch, state=None) -> TableBatch:
         if state is None:
             state = self.device_state(batch.device)
         codes = {}
         for job in self.lookup_jobs(col_selector, batch, state):
+            for name in job["names"]:
+                self._resident_vocab(job["vkeys"][name])  # touched in the LRU, as the reference does
             out = job["table"].encode(
                 job["values"], job["validity"], job["sel"], job["col_offsets"], nbuckets=job["nbuckets"]
             )
             for i, name in enumerate(job["names"]):
                 codes[name] = out[i]
+        solo = self._solo_keys()
         result = TableBatch()
-        for name, members in self.column_mapping(col_selector).items():
+        for name, members, vkey in self._columns(col_selector):
             if self._is_combo(members):
                 result[name] = Column(self.encode_combo(name, [batch[m] for m in members], state))
-            else:
-                result[name] = Column(codes[name], batch[name].offsets)  # a list keeps its offsets
+                continue
+            if vkey in solo:
+                codes[name] = self.encode_solo(vkey, batch[name])
+            result[name] = Column(codes[name], batch[name].offsets)  # a list keeps its offsets
+        self._release_disk_tier()
+        if self.dtype is not None:
+            out_dtype = to_torch_dtype(self.dtype)
+            for name in result.column_names:
+                col = result[name]
+                result[name] = Column(col.values.to(out_dtype), col.offsets)
         return result
+
+    def _columns(self, col_selector: ColumnSelector):
+        """(output column, group members, vocab key) in output order; a combo
+        group is one output column."""
+        for key, members in self._groups(col_selector):
+            if self._is_combo(members):
+                yield key, members, key
+            else:
+                for m in members:
+                    yield m, members, key if len(members) > 1 else m
 
     def lookup_jobs(self, col_selector: ColumnSelector, batch: TableBatch, state):
         """One dict per kernel launch: per table kind present, one for its
@@ -640,12 +923,9 @@ class Categorify(StatOperator):
         values carry none), ``sel``, ``col_offsets`` and ``nbuckets`` (None
         when every column has one OOV bucket) of its C columns, named in
         ``names``."""
-        jobs = [
-            (mcol, key if len(members) > 1 else mcol)
-            for key, members in self._groups(col_selector)
-            if not self._is_combo(members)
-            for mcol in members
-        ]
+        solo = self._solo_keys()
+        jobs = [(name, vkey) for name, members, vkey in self._columns(col_selector)
+                if not self._is_combo(members) and vkey not in solo]
         tables = state["tables"]
         for name, vkey in jobs:
             is_float = batch[name].values.is_floating_point()
@@ -679,6 +959,7 @@ class Categorify(StatOperator):
                     "col_offsets": col_offsets,
                     "nbuckets": nbuckets,
                     "names": [name for name, _ in group],
+                    "vkeys": dict(group),
                 }
 
     def _launch_args(self, state, kind, items, row_index, device):
@@ -698,7 +979,7 @@ class Categorify(StatOperator):
     # --- schema ------------------------------------------------------------------
     @property
     def output_dtype(self):
-        return md.int32
+        return md.normalize(self.dtype) if self.dtype is not None else md.int32
 
     @property
     def output_tags(self):

@@ -64,9 +64,6 @@ UNSUPPORTED_ARTIFACTS = (
     "the parquet stat artifacts (out_path) are not ported yet: the port keeps fitted "
     "stats in memory (ROADMAP.md queue 1 item 2: save/load)"
 )
-UNSUPPORTED_CAT_CACHE = (
-    "cat_cache other than 'host' is not ported yet (ROADMAP.md queue 1 item 14: memory-limited vocabularies)"
-)
 
 
 def key_groups(col_selector) -> List[List[str]]:

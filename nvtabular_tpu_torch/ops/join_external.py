@@ -2,8 +2,10 @@
 or inner join of each batch against an external table held on the host.
 
 The external table may be a ``TableBatch``, a dict of arrays, a port
-``Dataset`` or a pandas DataFrame; a path or a list of paths needs the
-parquet reader (ROADMAP.md queue 1 item 1). A batch's keys find their row
+``Dataset``, a pandas DataFrame, or a parquet path or a list of paths (a
+file, a directory or a glob), read through the port's parquet reader
+(``io/native_parquet.py``), as the reference reads them through its
+``Dataset`` (join_external.py:51-54). A batch's keys find their row
 by a sorted search that returns the first occurrence of a key, as the
 reference's ``pyarrow.compute.index_in`` does (join_external.py:72-87).
 Several key columns join on their "\\x1f"-joined strings, as there. A host
@@ -20,11 +22,6 @@ from ..schema import Schema
 from ..selector import ColumnSelector
 from ..table import Column, TableBatch, concat_rows
 from .operator import Operator
-
-UNSUPPORTED_PATHS = (
-    "JoinExternal from a path or a list of paths is not ported yet (ROADMAP.md queue 1 item 1: parquet I/O)"
-)
-
 
 def combine_keys(arrays: Sequence[np.ndarray]) -> np.ndarray:
     """Several key columns as one key: the reference's "\\x1f"-joined strings
@@ -68,8 +65,6 @@ class JoinExternal(Operator):
         super().__init__()
         if how not in ("left", "inner"):
             raise ValueError("how must be 'left' or 'inner'")
-        if isinstance(df_ext, (str, list, tuple)):
-            raise NotImplementedError(UNSUPPORTED_PATHS)
         self.on = [on] if isinstance(on, str) else list(on)
         self.on_ext = [on_ext] if isinstance(on_ext, str) else list(on_ext or self.on)
         self.how = how
@@ -85,6 +80,8 @@ class JoinExternal(Operator):
             from ..io.dataset import Dataset
 
             src = self._ext_source
+            if isinstance(src, (str, list, tuple)):
+                src = Dataset(src)
             if isinstance(src, Dataset):
                 ext = concat_rows(list(src.to_batches()))
             elif isinstance(src, TableBatch):

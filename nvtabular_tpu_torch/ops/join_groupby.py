@@ -26,7 +26,7 @@ from .. import dtypes as md
 from ..kernels.groupby import GatherState, stat_gather
 from ..selector import ColumnSelector
 from ..table import Column, TableBatch
-from .groupby_stats import UNSUPPORTED_ARTIFACTS, UNSUPPORTED_CAT_CACHE, GroupbyStatsAccum, KeyedStats, key_groups
+from .groupby_stats import UNSUPPORTED_ARTIFACTS, GroupbyStatsAccum, KeyedStats, key_groups
 from .stat_operator import StatOperator
 
 AGG_DTYPES = {
@@ -60,8 +60,7 @@ class JoinGroupby(StatOperator):
         super().__init__()
         if out_path is not None:
             raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
-        if cat_cache != "host":
-            raise NotImplementedError(UNSUPPORTED_CAT_CACHE)
+        self.cat_cache = cat_cache  # stored and unused, as in the reference
         self.name_sep = name_sep
         self.stats = list(stats)
         for s in self.stats:

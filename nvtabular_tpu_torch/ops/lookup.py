@@ -281,8 +281,10 @@ class BatchedTiny(_Batched):
         self.codes = torch.from_numpy(codes)
         self.lens = torch.tensor([len(l.keys) for l in luts], dtype=torch.int32)
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
-        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets, miss, null, nbuckets)
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
+               counter=None):
+        return tiny_lookup(values, validity, self.keys, self.codes, self.lens, sel, col_offsets, miss, null, nbuckets,
+                           counter)
 
 
 class BatchedDirect(_Batched):
@@ -298,10 +300,11 @@ class BatchedDirect(_Batched):
         self.lens = torch.from_numpy(lens)
         self.offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
+               counter=None):
         return direct_lookup(
             values, validity, self.table, self.mins, self.maxs, self.lens, self.offsets, sel, col_offsets,
-            miss, null, nbuckets,
+            miss, null, nbuckets, counter,
         )
 
 
@@ -316,9 +319,11 @@ class BatchedCuckoo(_Batched):
         self.nbs = torch.from_numpy(nbs)
         self.row_offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(nbs)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
+               counter=None):
         return cuckoo_lookup(
-            values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets, miss, null, nbuckets
+            values, validity, self.table, self.nbs, self.row_offsets, sel, col_offsets, miss, null, nbuckets,
+            counter,
         )
 
 
@@ -335,7 +340,10 @@ class BatchedSorted(_Batched):
         self.lens = torch.from_numpy(lens)
         self.starts = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
 
-    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
+               counter=None):
+        """``counter`` is accepted for a uniform interface; K8's launches
+        count as ``sorted_lookup``."""
         return sorted_lookup(
             values, validity, self.keys, self.codes, self.starts, self.lens, sel, col_offsets, miss, null, nbuckets
         )

@@ -35,7 +35,6 @@ from ..table import Column, TableBatch, to_torch_dtype
 from ..tags import Tags
 from .groupby_stats import (
     UNSUPPORTED_ARTIFACTS,
-    UNSUPPORTED_CAT_CACHE,
     GroupbyStatsAccum,
     KeyedStats,
     key_groups,
@@ -73,8 +72,7 @@ class TargetEncoding(StatOperator):
         super().__init__()
         if out_path is not None:
             raise NotImplementedError(UNSUPPORTED_ARTIFACTS)
-        if cat_cache != "host":
-            raise NotImplementedError(UNSUPPORTED_CAT_CACHE)
+        self.cat_cache = cat_cache  # stored and unused, as in the reference
         if isinstance(target, str):
             target = [target]
         if isinstance(target, ColumnSelector):

@@ -10,12 +10,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 ITEMS = {
-    1: "parquet I/O",
     2: "save/load and the Workflow facade",
     8: "the rest of the loader",
     9: "the rest of the models",
     11: "the hetero executor and its host engine",
     15: "tools, bridges and host helpers",
+    16: "parquet beyond the native subset",
 }
 
 

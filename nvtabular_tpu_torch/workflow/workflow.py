@@ -4,8 +4,9 @@ Counterpart of ``nvtabular_tpu/workflow/workflow.py``. ``Workflow(node)``
 runs on ``cuda:0``; with no CUDA device it raises rather than move to the
 CPU. ``Workflow(node, device="cpu")`` runs every kernel's plain PyTorch
 version instead. Save, load and the rest of the reference's facade raise
-NotImplementedError (ROADMAP.md queue 1 item 2), as do the parquet writer
-and ``num_rows`` of a transformed dataset (item 1).
+NotImplementedError (ROADMAP.md queue 1 item 2). A transformed dataset
+writes parquet in the reference's two-phase form: transform on the device,
+then the host writer (``io/writer.py``).
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ from ..dag.base_operator import StatOperator
 from ..dag.executor import FitEngine, TorchExecutor, enforce_dtypes
 from ..io.dataset import Dataset
 from ..schema import Schema
-from ..table import TableBatch
+from ..table import TableBatch, concat_rows
 from ..unported import message
 
 UNSUPPORTED_FACADE = "Workflow.{} is not ported yet (ROADMAP.md queue 1 item 2: save/load and the Workflow facade)"
-UNSUPPORTED_WRITER = "TransformedDataset.{} is not ported yet (ROADMAP.md queue 1 item 1: parquet I/O)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,12 +53,14 @@ class Workflow:
 
     # --- fitting ---------------------------------------------------------------
     def fit(self, dataset) -> "Workflow":
-        """Fit every stat op from scratch (a refit replaces earlier stats).
-        In a process group of several ranks each rank fits on its
-        round-robin shard of the partitions and every rank ends with the
-        same state."""
+        """Fit every stat op; a refit replaces the stats of earlier fits but
+        keeps state supplied at construction (``Categorify(vocabs=...)``,
+        fitted with ``fit_generation`` 0), as the reference does
+        (workflow.py:177-195). In a process group of several ranks each rank
+        fits on its round-robin shard of the partitions and every rank ends
+        with the same state."""
         for node in self.graph.nodes:
-            if isinstance(node.op, StatOperator) and node.op.fitted:
+            if isinstance(node.op, StatOperator) and node.op.fit_generation > 0:
                 node.op.clear()
         self._fit_engine.fit(_as_dataset(dataset), self.graph)
         return self
@@ -179,7 +181,7 @@ class TransformedDataset:
         """Transformed batches (JAX workflow.py:258-283), moved to the CPU
         unless ``host=False``: ``columns`` selects output columns, ``shard=
         (rank, world)`` streams that rank's partitions of the base dataset.
-        ``prefetch`` is accepted; the partitions are in memory already."""
+        ``prefetch`` loads file partitions of the base dataset ahead on a thread."""
         if hetero:
             raise NotImplementedError(message("TransformedDataset.to_batches(hetero=...)", 11))
         wf = self._workflow
@@ -191,10 +193,25 @@ class TransformedDataset:
 
     @property
     def num_rows(self) -> int:
-        raise NotImplementedError(UNSUPPORTED_WRITER.format("num_rows"))
+        return self._base.num_rows
 
-    def to_parquet(self, output_path, *args, **kwargs):
-        raise NotImplementedError(UNSUPPORTED_WRITER.format("to_parquet"))
+    @property
+    def npartitions(self) -> int:
+        return self._base.npartitions
+
+    def to_table(self, columns=None) -> TableBatch:
+        """Every transformed batch, on the host, as one batch."""
+        batches = list(self.to_batches(columns=columns))
+        return concat_rows(batches) if batches else TableBatch()
+
+    def to_parquet(self, output_path: str, shuffle=None, out_files_per_proc=None, output_files=None,
+                   row_group_size=None, compression=None, **kwargs):
+        """The transformed stream written to parquet in the reference's
+        two-phase form (workflow.py:291-352 with ``NVT_FUSED_WRITE=0``): each
+        batch transforms on the workflow's device, goes to the host, and the
+        file workers shuffle and encode it (``Dataset.to_parquet``)."""
+        Dataset.to_parquet(self, output_path, shuffle=shuffle, out_files_per_proc=out_files_per_proc,
+                           output_files=output_files, row_group_size=row_group_size, compression=compression)
 
 
 def _as_dataset(data) -> Dataset:

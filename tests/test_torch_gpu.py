@@ -2045,3 +2045,81 @@ def test_new_chains_on_cuda_count_one_launch_a_batch():
                 assert torch.equal(g, w)
             else:
                 torch.testing.assert_close(g.float(), w.float(), rtol=2.0**-10, atol=1e-7, equal_nan=True)
+
+
+# --- parquet I/O and K8's solo-table branch ----------------------------------------------------------
+def test_parquet_write_read_round_trip_on_the_card_machine(tmp_path):
+    """The host library builds on the card's machine (g++, zstd where
+    zstd.h is found, no pyarrow): CUDA batches written PER_WORKER and read
+    back hold every row, bit for bit as a multiset."""
+    _require_cuda()
+    from nvtabular_tpu_torch.io import Shuffle, native_parquet
+
+    rng = np.random.default_rng(40)
+    parts = [{"a": rng.integers(-(2**31), 2**31 - 1, 30_000).astype(np.int32), "b": rng.integers(0, 2**40, 30_000),
+              "x": rng.normal(size=30_000).astype(np.float32)} for _ in range(3)]
+    parts[0]["x"][:3] = [np.nan, -0.0, np.inf]
+    codec = "auto" if native_parquet.has_zstd() else "none"
+    data = nvt.Dataset([nvt.TableBatch.from_pydict(p).to("cuda") for p in parts])
+    data.to_parquet(str(tmp_path / "o"), shuffle=Shuffle.PER_WORKER, output_files=3, compression=codec)
+    back = nvt.Dataset(str(tmp_path / "o")).to_table()
+    for name in ("a", "b", "x"):
+        want = np.concatenate([p[name] for p in parts])
+        view = np.int32 if want.itemsize == 4 else np.int64
+        got = back[name].values.numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(np.sort(got.view(view)), np.sort(want.view(view)))
+
+
+@pytest.mark.parametrize("num_buckets", [1, 5])
+@pytest.mark.parametrize("kind", ["tiny", "direct", "cuckoo"])
+def test_solo_lookups_match_plain_on_card(tmp_path, kind, num_buckets):
+    """K8's solo-table branch: one column through its vocabulary's own table,
+    launched with one table row on K1, K2 or K3, against the same call on
+    the CPU (the plain version); one ``*_lookup_solo`` launch each."""
+    _require_cuda()
+    rng = np.random.default_rng(41)
+    vocab = {"tiny": rng.choice(np.arange(-2**31, 2**31 - 1, 7919, dtype=np.int64), 3000, replace=False),
+             "direct": rng.choice(np.arange(100_000, 160_000), 9000, replace=False),
+             "cuckoo": rng.choice(np.arange(-2**31, 2**31 - 1, 104729, dtype=np.int64), 20000,
+                                  replace=False)}[kind]
+    n = 100_000
+    values = np.where(rng.random(n) < 0.3, rng.integers(-2**31, 2**31 - 1, n), rng.choice(vocab, n)).astype(np.int32)
+    values[: len(EXTREMES)] = EXTREMES
+    validity = rng.random(n) > 0.1
+    op = ops.Categorify(vocabs={"k": vocab}, num_buckets=num_buckets, out_path=str(tmp_path), cat_cache="disk")
+    want = op.encode_solo("k", nvt.Column(values, None, validity))
+    kernels.reset_launches()
+    got = op.encode_solo("k", nvt.Column(values, None, validity).to("cuda"))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {f"{kind}_lookup_solo": 1}
+    assert torch.equal(got.cpu(), want)
+
+
+def test_disk_tier_and_budget_workflows_on_cuda_match_cpu(tmp_path):
+    """A workflow with disk-tier columns and one under a memory budget, on
+    cuda: the codes equal the CPU run's, the disk tier releases after each
+    batch, and the solo columns take only solo launches."""
+    _require_cuda()
+    rng = np.random.default_rng(42)
+    parts = [{f"c{i}": rng.integers(0, 2000 * (i + 1) ** 3, 20_000).astype(np.int32) for i in range(4)}
+             for _ in range(3)]
+    cols = [f"c{i}" for i in range(4)]
+    for kwargs, solo in [({"cat_cache": {"c0": "disk", "c3": "disk"}}, {"c0", "c3"}),
+                         ({"cardinality_memory_limit": 100_000}, set(cols))]:
+        gpu = nvt.Workflow(cols >> ops.Categorify(out_path=str(tmp_path / "g"), **kwargs))
+        cpu = nvt.Workflow(cols >> ops.Categorify(out_path=str(tmp_path / "c"), **kwargs), device="cpu")
+        gpu.fit(nvt.Dataset(parts))
+        cpu.fit(nvt.Dataset(parts))
+        kernels.reset_launches()
+        outs = [gpu.transform(nvt.TableBatch.from_pydict(p)) for p in parts]
+        torch.cuda.synchronize()
+        solo_launches = sum(v for k, v in kernels.LAUNCHES.items() if k.endswith("_solo"))
+        assert solo_launches == len(parts) * len(solo)
+        for out, p in zip(outs, parts):
+            want = cpu.transform(nvt.TableBatch.from_pydict(p))
+            for c in cols:
+                assert torch.equal(out[c].values.cpu(), want[c].values), c
+        op = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.Categorify))
+        if "cat_cache" in kwargs:
+            assert not op.vocabs["c0"].resident and op.vocabs["c1"].resident

@@ -598,15 +598,28 @@ def test_join_external_matches_jax(how, drop_duplicates_ext, on):
             np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
-def test_join_external_from_pandas_and_paths():
+def test_join_external_from_pandas_and_paths(tmp_path):
+    """A pandas DataFrame, a parquet path and a list of paths (read by the
+    port's reader) join as the reference joins the same table read by its
+    Dataset."""
     pd = pytest.importorskip("pandas")
-    data = {"key": np.array([1, 9], np.int64)}
-    out = pnvt.Workflow(["key"] >> pops.JoinExternal(pd.DataFrame(_ext()), on="key"), device="cpu").transform(
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    data = {"key": np.array([1, 9, 3, 4], np.int64)}
+    ext = _ext()
+    out = pnvt.Workflow(["key"] >> pops.JoinExternal(pd.DataFrame(ext), on="key"), device="cpu").transform(
         pnvt.TableBatch.from_pydict(data))
-    assert out["val"].values.tolist() == [11.0, 15.0]
-    for path in ("ext.parquet", ["a.parquet", "b.parquet"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1:"):
-            pops.JoinExternal(path, on="key")
+    assert out["val"].values.tolist()[:3] == [11.0, 15.0, 10.0]
+    whole, first, second = (str(tmp_path / f) for f in ("ext.parquet", "a.parquet", "b.parquet"))
+    pq.write_table(pa.table(ext), whole, use_dictionary=False, compression="NONE")
+    pq.write_table(pa.table({k: v[:3] for k, v in ext.items()}), first, use_dictionary=False, compression="zstd")
+    pq.write_table(pa.table({k: v[3:] for k, v in ext.items()}), second, use_dictionary=False, compression="NONE")
+    _, want = jax_run(["key"] >> jops.JoinExternal(whole, on="key"), [data], "local")
+    for path in (whole, [first, second]):
+        _, got = port_run(["key"] >> pops.JoinExternal(path, on="key"), [data])
+        assert_same(got[0], want[0])
+        np.testing.assert_array_equal(got[0]["val"].validity.numpy(), np.asarray(want[0]["val"].validity))
 
 
 @pytest.mark.parametrize("metric", ["inner", "cosine", "tfidf"])

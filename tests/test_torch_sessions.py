@@ -101,9 +101,27 @@ def test_shuffle_keeps_every_key_in_one_partition(parts):
     assert sum(b.num_rows for b in out) == PARTS * ROWS
 
 
-def test_shuffle_past_memory_limit_raises_naming_item_1(parts):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1:"):
-        port_dataset(parts).shuffle_by_keys(["userId"], memory_limit=1024, device="cpu")
+def test_shuffle_past_memory_limit_raises_naming_item_1(parts, tmp_path):
+    """Past its memory limit the shuffle spills each bucket to a parquet file
+    (once a raise naming item 1): the partitions equal the reference's spill
+    branch's row for row, one per bucket file, under ``spill_dir``. The
+    reference's arrow round trip turns a float NaN into a null (0.0, validity
+    False); the port keeps the NaN, which is its null: the null masks are
+    held equal, and the values where not null."""
+    want = list(jax_dataset(parts).shuffle_by_keys(["userId"], 5, memory_limit=1024).to_batches())
+    ds = port_dataset(parts).shuffle_by_keys(["userId"], 5, memory_limit=1024, spill_dir=str(tmp_path),
+                                             device="cpu")
+    assert ds.engine == "parquet" and len(list(tmp_path.glob("bucket_*.parquet"))) == ds.npartitions
+    got = list(ds.to_batches())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.column_names == w.column_names
+        for name in w.column_names:
+            gnull, wnull = g[name].is_null().numpy(), np.asarray(w[name].is_null())
+            np.testing.assert_array_equal(gnull, wnull, err_msg=name)
+            gv, wv = g[name].values.numpy(), np.asarray(w[name].values)
+            assert gv.dtype == wv.dtype, name
+            np.testing.assert_array_equal(gv[~gnull], wv[~wnull], err_msg=name)
 
 
 # --- Groupby --------------------------------------------------------------------------------------

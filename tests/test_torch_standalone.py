@@ -1,5 +1,6 @@
 """nvtabular_tpu_torch stands alone: it runs with JAX and the JAX package
-made unimportable, and neither its sources nor chip_smoke.py import them."""
+made unimportable, its parquet I/O with pyarrow unimportable too (the card's
+machine has none), and neither its sources nor chip_smoke.py import them."""
 
 import ast
 import os
@@ -105,6 +106,45 @@ def test_runs_with_jax_and_reference_blocked():
     assert "STANDALONE_OK" in proc.stdout
 
 
+PARQUET_BLOCKED_RUN = r"""
+import os, sys, tempfile
+for name in ("jax", "nvtabular_tpu", "pyarrow", "pandas"):
+    sys.modules[name] = None
+import numpy as np
+import nvtabular_tpu_torch as nvt
+from nvtabular_tpu_torch import ops
+from nvtabular_tpu_torch.io import Shuffle
+
+tmp = tempfile.mkdtemp()
+r = np.random.default_rng(0)
+parts = [{"a": r.integers(0, 5000, 20000).astype(np.int32), "x": r.normal(size=20000).astype(np.float32)}
+         for _ in range(3)]
+nvt.Dataset(parts).to_parquet(os.path.join(tmp, "in"))
+files = nvt.Dataset(os.path.join(tmp, "in"))
+assert files.num_rows == 60000 and files.npartitions == 3
+op = ops.Categorify(out_path=os.path.join(tmp, "cats"), cat_cache="disk")
+wf = nvt.Workflow((["a"] >> op) + ["x"], device="cpu")
+wf.fit(files)
+wf.transform(files).to_parquet(os.path.join(tmp, "out"), shuffle=Shuffle.PER_WORKER, out_files_per_proc=2)
+out = nvt.Dataset(os.path.join(tmp, "out")).to_table()
+assert out.num_rows == 60000 and int(out["a"].values.min()) >= 3 and not op.vocabs["a"].resident
+assert op.cache_stats["reloads"] == 3
+assert not any(m == "pyarrow" or m.startswith("pyarrow.") for m in sys.modules if sys.modules[m] is not None)
+print("PARQUET_STANDALONE_OK")
+"""
+
+
+def test_parquet_runs_with_pyarrow_blocked():
+    """Files in, the fit with the disk tier, the shuffled write and the read
+    back, with pyarrow (and pandas) unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", PARQUET_BLOCKED_RUN], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PARQUET_STANDALONE_OK" in proc.stdout
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -119,6 +159,6 @@ def _imported_modules(path: Path):
 def test_sources_import_neither_jax_nor_reference(path):
     bad = [
         m for m in _imported_modules(path)
-        if m == "jax" or m.startswith("jax.") or m == "nvtabular_tpu" or m.startswith("nvtabular_tpu.")
+        if m.split(".")[0] in ("jax", "nvtabular_tpu", "pyarrow")
     ]
     assert not bad, f"{path} imports {bad}"

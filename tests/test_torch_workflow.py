@@ -344,21 +344,21 @@ def test_ops_take_every_jax_keyword_at_its_default(name):
 
 # (op, keywords, what the port does: "accept", "warn" or the ROADMAP item it names)
 JAX_OPTIONS = [
-    ("Categorify", {"out_path": "cats"}, "item 2"),
-    ("Categorify", {"cat_cache": "device"}, "item 14"),
-    ("Categorify", {"cat_cache": {"a": "disk"}}, "item 14"),
-    ("Categorify", {"dtype": "int64"}, "item 14"),
-    ("Categorify", {"vocabs": {"a": [1, 2]}}, "item 14"),
-    ("Categorify", {"cardinality_memory_limit": 1 << 20}, "item 14"),
+    ("Categorify", {"out_path": "cats"}, "accept"),
+    ("Categorify", {"cat_cache": "device"}, "accept"),
+    ("Categorify", {"cat_cache": {"a": "disk"}}, "accept"),
+    ("Categorify", {"dtype": "int64"}, "accept"),
+    ("Categorify", {"vocabs": {"a": [1, 2]}}, "accept"),
+    ("Categorify", {"cardinality_memory_limit": 1 << 20}, "accept"),
     ("Categorify", {"encode_type": "combo", "num_buckets": 4}, "item 4"),
     ("Categorify", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
     ("Categorify", {"cat_cache": {"a": "host"}, "num_buckets": {"a": 8}, "single_table": True}, "accept"),
     ("Categorify", {"search_sorted": True}, "warn"),
     ("TargetEncoding", {"out_path": "stats"}, "item 2"),
-    ("TargetEncoding", {"cat_cache": "device"}, "item 14"),
+    ("TargetEncoding", {"cat_cache": "device"}, "accept"),
     ("TargetEncoding", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
     ("JoinGroupby", {"out_path": "stats"}, "item 2"),
-    ("JoinGroupby", {"cat_cache": "disk"}, "item 14"),
+    ("JoinGroupby", {"cat_cache": "disk"}, "accept"),
     ("JoinGroupby", {"on_host": False, "split_out": 4, "split_every": 2, "other": 1}, "accept"),
     ("FillMissing", {"add_binary_cols": True}, "accept"),
     ("Normalize", {"out_dtype": "float16"}, "accept"),
@@ -367,10 +367,13 @@ JAX_OPTIONS = [
 
 @pytest.mark.parametrize("name, kwargs, outcome", JAX_OPTIONS,
                          ids=[f"{n}-{'-'.join(k)}" for n, k, _ in JAX_OPTIONS])
-def test_jax_only_options(name, kwargs, outcome):
+def test_jax_only_options(name, kwargs, outcome, tmp_path, monkeypatch):
     """An option the reference acts on and the port does not raises
-    NotImplementedError naming its ROADMAP item; one the reference accepts
-    and ignores is accepted (``search_sorted`` warns, as there)."""
+    NotImplementedError naming its ROADMAP item; one the port acts on, or
+    the reference accepts and ignores, is accepted (``search_sorted`` warns,
+    as there). ``vocabs=`` writes its artifacts under the working directory's
+    ``./categories`` at construction, as the reference does."""
+    monkeypatch.chdir(tmp_path)
     make = lambda: getattr(pops, name)(*REQUIRED.get(name, []), **kwargs)  # noqa: E731
     if outcome == "accept":
         with warnings.catch_warnings():
@@ -394,17 +397,27 @@ def test_jax_only_options(name, kwargs, outcome):
         (lambda wf, ds: wf.get_subworkflow("a"), "item 2"),
         (lambda wf, ds: wf.clear_stats(), "item 2"),
         (lambda wf, ds: wf.input_schema, "item 2"),
-        (lambda wf, ds: wf.transform(ds).to_parquet("out"), "item 1"),
-        (lambda wf, ds: wf.transform(ds).num_rows, "item 1"),
+        (lambda wf, ds: wf.transform(ds).to_parquet("out"), None),
+        (lambda wf, ds: wf.transform(ds).num_rows, None),
     ],
     ids=["save", "load", "fit_schema", "remove_inputs", "get_subworkflow", "clear_stats", "input_schema",
          "to_parquet", "num_rows"],
 )
-def test_jax_only_methods_raise(call, item):
+def test_jax_only_methods_raise(call, item, tmp_path, monkeypatch):
     """The reference's Workflow and TransformedDataset methods the port has
     not ported raise NotImplementedError naming their ROADMAP item, never
-    AttributeError."""
+    AttributeError; those ported since (item None) give the reference's
+    result: ``num_rows`` counts the base rows, ``to_parquet`` writes the
+    transformed rows."""
+    monkeypatch.chdir(tmp_path)
     ds = pnvt.Dataset({"a": np.array([1, 2, 2], dtype=np.int32)})
     wf = pnvt.Workflow(["a"] >> pops.Categorify(), device="cpu").fit(ds)
+    if item is None:
+        result = call(wf, ds)
+        if result is None:
+            assert pnvt.Dataset("out")._partitions[0].load()["a"].values.tolist() == [4, 3, 3]
+        else:
+            assert result == 3
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}:"):
         call(wf, ds)
