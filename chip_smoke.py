@@ -23,7 +23,13 @@ a nonzero exit:
 4. kernels at main-path shapes: the tiny and cuckoo lookups on the fitted
    bins and the continuous chain on [13, 262144] float32, each against its
    plain version on the same card (codes bit-identical; the chain within
-   rtol=1e-5, atol=1e-6), timed with CUDA events;
+   rtol=1e-5, atol=1e-6), timed with CUDA events; then K6: stash tables
+   (build_stash, load 0.5) of the cuckoo job's vocabularies, built on the
+   host (only the largest if that passes 60 s), given to a Categorify of
+   the same vocabularies that transforms all 16 batches with the counters
+   zeroed before and read after (one stash_lookup a batch, codes equal
+   phase 3's), and stash_lookup on batch 0's job against its plain version
+   and against cuckoo_lookup's codes for the same keys;
 5. throughput: transform rows/s with and without the host-to-device copy;
 6. a second path, a compact-key workflow (4 columns of ~290K keys each,
    1M rows) whose Categorify takes the direct map, driven and checked the
@@ -234,7 +240,7 @@ a nonzero exit:
    at the largest vocabulary of their kind, each against its plain version
    on the card, timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 45 kernels'
+The line before the last is {"kernels": [...]} with the 46 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -470,6 +476,99 @@ def lookup_record(job, plain_fn, args, kernel_fn):
         "plain_ms": time_ms(lambda: plain_fn(*args)),
         "library_ms": None,
     }
+
+
+STASH_BUILD_BUDGET_S = 60.0  # host seconds for the stash tables before the path is cut to the largest
+
+
+def stash_path(nvt, ops, dev, cat_op, parts, outs, cuckoo_job) -> dict:
+    """Phase 4's K6: stash tables (build_stash at load 0.5) for the
+    vocabularies of phase 3's cuckoo job, largest first (only the largest
+    once the host build passes STASH_BUILD_BUDGET_S), given to a Categorify
+    of the same vocabularies; every batch transformed with the counters
+    zeroed before and read after (one stash_lookup launch a batch and no
+    other lookup), codes equal phase 3's; then the kernel on batch 0's job
+    against its plain version and against K3's codes for the same keys."""
+    from nvtabular_tpu_torch import kernels
+    from nvtabular_tpu_torch.kernels import lookup as klk
+    from nvtabular_tpu_torch.kernels.hash import M32, fmix32_plain
+    from nvtabular_tpu_torch.ops import lookup as plookup
+
+    names = sorted(cuckoo_job["names"], key=lambda c: -len(cat_op.vocabs[c].values_by_code))
+    luts, t0 = {}, time.perf_counter()
+    for c in names:
+        vocab = cat_op.vocabs[c]
+        lut = plookup.build_stash(vocab._sv, vocab._sc)
+        if lut is None:
+            fail(f"stash: build_stash failed for {c}")
+        luts[c] = lut
+        if time.perf_counter() - t0 > STASH_BUILD_BUDGET_S:
+            names = names[:1]
+            break
+    build_s = time.perf_counter() - t0
+    keys = sum(len(cat_op.vocabs[c].values_by_code) for c in names)
+    sop = ops.Categorify(vocabs={c: cat_op.vocabs[c].values_by_code for c in names})
+    for c in names:
+        sop.vocabs[c]._lookup = luts[c]
+    swf = nvt.Workflow(names >> sop, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    souts = [swf.transform(b) for b in parts]
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    for k, count in launches.items():
+        want = len(parts) if k == "stash_lookup" else 0
+        if count != want:
+            fail(f"stash: {k} launched {count} times, expected {want}")
+    for i, (got, want) in enumerate(zip(souts, outs)):
+        for c in names:
+            if not torch.equal(got[c].values, want[c].values):
+                fail(f"stash: the codes of {c} differ from phase 3's in batch {i}")
+    snode = next(nd for nd in swf.graph.nodes if isinstance(nd.op, ops.Categorify))
+    jobs = {j["kind"]: j for j in sop.lookup_jobs(snode.selector, swf.executor.stage(parts[0]),
+                                                 swf.executor.op_state(sop, dev))}
+    if set(jobs) != {"stash"}:
+        fail(f"stash: expected one stash table, got {sorted(jobs)}")
+    j, t = jobs["stash"], jobs["stash"]["table"]
+    args = (j["values"], j["validity"], t.table, t.nbps, t.row_offsets, t.stash, t.nbss, t.stash_offsets, j["sel"],
+            j["col_offsets"])
+    rec = lookup_record(j, klk.stash_lookup_plain, args, lambda: klk.stash_lookup(*args))
+    got = klk.stash_lookup(*args)
+    cargs = (cuckoo_job["values"], cuckoo_job["validity"], cuckoo_job["table"].table, cuckoo_job["table"].nbs,
+             cuckoo_job["table"].row_offsets, cuckoo_job["sel"], cuckoo_job["col_offsets"])
+    k3 = klk.cuckoo_lookup(*cargs)
+    for i, c in enumerate(j["names"]):
+        if not torch.equal(got[i], k3[cuckoo_job["names"].index(c)]):
+            fail(f"stash: stash_lookup's codes of {c} differ from cuckoo_lookup's")
+    # the sectors this batch reads: every primary bucket, and both stash buckets of a primary miss
+    values = j["values"]
+    s = j["sel"].long()
+    u = values.long() & M32
+    primary = (fmix32_plain(u) & (t.nbps[s][:, None] - 1)) + t.row_offsets[s][:, None]
+    rows = t.table[primary]
+    primary_hit = ((rows[..., :4] == values[..., None]) & (rows[..., 4:] >= 0)).any(-1)
+    probe = ~primary_hit & (t.nbss[s][:, None] > 0)
+    stash_rows = torch.cat([
+        ((fmix32_plain(u ^ seed) & (t.nbss[s][:, None] - 1).clamp(min=0)) + t.stash_offsets[s][:, None])[probe]
+        for seed in klk.STASH_SEEDS
+    ])
+    sectors = int(torch.unique(primary).numel()) + int(torch.unique(stash_rows).numel())
+    C, n = values.shape
+    rec.update(shape=[C, n], bytes=C * n * 8 + sectors * 32, table_bytes=t.nbytes,
+               primary_miss_share=float(probe.float().mean()))
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], C * n * 40)
+    info = {"columns": names, "keys": keys, "build_s": build_s, "transform_s": transform_s,
+            "stashed": sum(1 for c in names if luts[c].nbs > 0),
+            "stash_keys": sum(int((luts[c].packed[luts[c].nbp:, 4:] >= 0).sum()) for c in names),
+            "table_bytes": t.nbytes}
+    log(f"stash: {len(names)} columns, {keys} keys, built on the host in {build_s:.2f} s "
+        f"({info['stash_keys']} keys in {info['stashed']} stashes), {t.nbytes} table bytes; "
+        f"{len(parts)} batches in {transform_s:.2f} s, launches {{'stash_lookup': {launches['stash_lookup']}}}; "
+        f"codes equal phase 3's and cuckoo_lookup's; {rec['primary_miss_share']:.2%} of batch 0's values "
+        f"probe the stash")
+    return {"record": rec, "launches": launches, "info": info}
 
 
 def profile_pass(fn) -> dict:
@@ -783,12 +882,19 @@ def training_kernel_records(nvt, wf, parts, train) -> dict:
     torch.cuda.synchronize()
     if not torch.allclose(got, want, **SUM_TOL):
         fail(f"interaction_bwd kernel differs from plain: max abs {float((got - want).abs().max())}")
+    # the library call: the symmetric [F, F] pair gradient, zero on the diagonal (built outside the timing), times x
+    rows_i, cols_i = np.tril_indices(F, -1)
+    gsym = torch.zeros((B, F, F), device=dev)
+    gsym[:, rows_i, cols_i] = g
+    gsym = gsym + gsym.transpose(1, 2)
     rec = {
         "max_abs_err": float((got - want).abs().max()), "shape": [B, F, D],
         "bytes": 2 * B * F * D * 4 + B * P * 4,
         "ms": time_ms(lambda: kint.interaction_bwd(x, g)),
-        "plain_ms": time_ms(lambda: kint.interaction_bwd_plain(x, g)), "library_ms": None,
+        "plain_ms": time_ms(lambda: kint.interaction_bwd_plain(x, g)),
+        "library_ms": time_ms(lambda: torch.bmm(gsym, x)),
     }
+    del gsym
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 2 * B * F * (F - 1) * D)
     records["interaction_bwd"] = rec
     return records
@@ -1646,12 +1752,14 @@ def crossed_kernel_records(dev, crossed: dict, sessions: dict) -> dict:
 BUCKETS = 1000  # not a power of two: a hash reduced by a mask would miss buckets
 LIBRARY_WHAT = {
     "sorted_lookup": "positions only",
+    "stash_lookup": "no PyTorch call hashes",
     "exchange_route": "no PyTorch call routes keys to owners by a hash at a stable rank",
     "embedding_range_gather": "index_select of the clamped local rows, no zeros for other shards' rows",
     "embedding_range_bag": "embedding_bag of the clamped local rows, weights mask * in_range",
     "column_moments": "no one PyTorch call gives count, mean, M2, min and max with NaN as null",
     "range_gather_columns": "index_select of each id's row clamped into its column's shard, no zeros or NaN",
     "range_scatter_grad": "zeros + index_add_ of the held ids' rows",
+    "interaction_bwd": "bmm of the symmetric pair gradient, zero diagonal, built outside the timing",
 }
 
 
@@ -2239,7 +2347,7 @@ def sharded_fit_path(nvt, ops, dev, wf, parts, criteo_graph, cat_names, cont_nam
     return rec
 
 
-def sharded_kernel_records(dev, parts, cat_names, sharded: dict) -> dict:
+def sharded_kernel_records(dev, parts, cat_names, sharded: dict, profile: bool) -> dict:
     """Phase 19: each K15 kernel against its plain version on the card; the
     four-rank exchange composed on one card; times beside bounds."""
     import torch.nn.functional as F
@@ -2269,6 +2377,8 @@ def sharded_kernel_records(dev, parts, cat_names, sharded: dict) -> dict:
         got = kex.radix_sort(keys)
         if not torch.equal(got, kex.radix_sort_plain(keys)):
             fail(f"radix_sort differs from plain on {keys.numel()} keys")
+        if not torch.equal(got, torch.sort(keys).values):
+            fail(f"radix_sort differs from torch.sort on {keys.numel()} keys")
         return got
 
     for col in largest + [skewed]:
@@ -2324,9 +2434,15 @@ def sharded_kernel_records(dev, parts, cat_names, sharded: dict) -> dict:
     N = recv.numel()
     rec = {"max_abs_err": 0, "shape": [N], "bytes": 2 * N * 4,
            "ms": time_ms(lambda: kex.radix_sort(recv)), "plain_ms": time_ms(lambda: kex.radix_sort_plain(recv)),
-           "library_ms": time_ms(lambda: torch.sort(recv))}
+           "library_ms": time_ms(lambda: torch.sort(recv)), "pad_share": float((recv == kex.PAD).float().mean())}
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
     records["radix_sort"] = rec
+    log(f"radix_sort [{N}] ({rec['pad_share']:.1%} pads): {rec['ms']:.4f} ms (the four-launch passes it replaced: "
+        f"0.8040 ms), torch.sort {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+    if profile:
+        # device time by kernel of one sort: the scratch's zeroing, the histogram, the scan, the passes
+        rec["profile"] = profile_pass(lambda: kex.radix_sort(recv))["top"]
+        log(f"profile radix_sort: device time by kernel {rec['profile']}")
     del keys, send, recv
 
     # K15b with the rows of model shard 1 of 4
@@ -2925,6 +3041,9 @@ def layer_kernel_records(dev, mh: dict) -> dict:
                "library_ms": time_ms(lambda: torch.einsum("bid,bjd,ijh->bhd", xk, x0, w3), iters=5)}
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (2 * Hn + 1))
         records["cin_fwd" + suffix] = rec
+        log(f"cin_fwd layer {layer} {rec['shape']}: {rec['ms']:.4f} ms (the 64-row tiles it replaced: "
+            f"{(16.7022, 15.9164)[layer - 1]} ms), einsum {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"by operations ({N * K * 2 * Hn / rec['ms'] / 1e9:.1f} TFLOP/s of the products)")
         del got, want, magnitude
         grads = kcin.cin_bwd(xk, x0, w, gout)
         wants = kcin.cin_bwd_plain(xk, x0, w, gout)
@@ -3762,6 +3881,11 @@ def main():
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], C * n * 40)
     records["cuckoo_lookup"] = rec
 
+    # K6: the cuckoo job's vocabularies as stash tables, through a Categorify of their own
+    stash = stash_path(nvt, ops, dev, cat_op, parts, outs, jobs["cuckoo"])
+    records["stash_lookup"] = stash.pop("record")
+    stash_launches = stash["launches"]
+
     norm_node = next(nd for nd in wf.graph.nodes if isinstance(nd.op, ops.Normalize))
     spec = extract_chain(norm_node)
     if spec is None:
@@ -3932,7 +4056,7 @@ def main():
     }
 
     # --- 19. the K15 kernels against their plain versions; four ranks composed on the card -----------
-    sharded_records, compose = sharded_kernel_records(dev, parts, cat_names, sharded)
+    sharded_records, compose = sharded_kernel_records(dev, parts, cat_names, sharded, opts.profile)
     records.update(sharded_records)
     for key in ("table", "flat", "values", "mask", "x0", "vocabs"):
         del sharded[key]
@@ -4006,6 +4130,7 @@ def main():
         "tiny_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:157", main_launches),
         "direct_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:585", direct_launches),
         "cuckoo_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:693", main_launches),
+        "stash_lookup": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:632", stash_launches),
         "sorted_lookup": ("lookup.cu", "nvtabular_tpu/ops/categorify.py:570", buckets_launches),
         "cont_chain": ("cont_chain.cu", "nvtabular_tpu/ops/normalize.py:67", main_launches),
         "cont_chain_16": ("cont_chain.cu", "nvtabular_tpu/ops/normalize.py:140", alt_launches),
@@ -4089,6 +4214,7 @@ def main():
                                "rows_per_s_without_h2d": without_h2d_all, "vocab_keys": vocab_keys,
                                "columns_per_kind": kinds, "fit_stats": wf.last_fit_stats},
                     "compact": {"fit_s": dfit_s, "vocab_keys": keys},
+                    "stash": stash["info"],
                     "train": train_record,
                     "movielens": movielens,
                     "multihot": multihot,

@@ -15,22 +15,37 @@
 //   out[h, n] = sum_k w[k, h] * z[k, n]
 //
 // of M = Hn rows, depth K = Hk * F and N = B * D columns, whose right
-// operand z is never stored: each block builds its tile of z in shared
-// memory from x_k and x_0 as it goes (the reference materialises all of z,
-// 21.8 GB at [65536, 200 * 26, 16]).
+// operand z is never stored: each block builds its tiles of z in shared
+// memory as it goes (the reference materialises all of z, 21.8 GB at
+// [65536, 200 * 26, 16]). Each z value is rounded once (__fmul_rn), as the
+// reference's separate product rounds it; the sums run in float32 with fmaf,
+// in another order than XLA's.
 //
-// All three kernels are one tiled SIMT product: a block of 256 threads owns
-// a 64 x 64 tile of the result, steps through the depth 16 at a time with
-// both operands' tiles in shared memory, and each thread keeps a 4 x 4
-// register tile (float4 reads of shared memory). Each z value is rounded
-// once (__fmul_rn), as the reference's separate product rounds it; the sums
-// run in float32 with fmaf, in another order than XLA's.
+// Bound: operations. The forward is 2 * Hn * K * N flops (the backward twice
+// that), against float32 outside the tensor cores (67 TFLOP/s): 283 GFLOP,
+// 4.2 ms, at layer 1 of xDeepFM's Criteo setting ([65536, 26, 16] x
+// [65536, 26, 16] -> 200), against 0.4 GB of bytes.
 //
-// nvt_cin_fwd: out[b, h, d]. Grid: one block per (column tile, row tile),
-// the row tiles of one column tile adjacent, so x_k and x_0 of a column tile
-// are read from device memory once and from L2 for the other row tiles.
+// nvt_cin_fwd (cin_fwd_kernel): a block owns kFwdCols = 64 columns and every
+// output row, so each z tile is built once. Hn is cut into passes of at most
+// 256 rows (one pass up to Hn = 256; 200 rows stay 200, a multiple of 8),
+// and the block has 8 threads for each 8 rows: a thread keeps an 8 x 8
+// register tile (rows 8 ty .. 8 ty + 7; columns 4 tx .. 4 tx + 3 and 32 + 4
+// tx .. 32 + 4 tx + 3, so a quarter-warp's float4 reads of z are 128
+// consecutive bytes), 4 float4 reads of shared memory for 64 fmaf. At the
+// start the block stages x_k[b, :, d] and x_0[b, :, d] of its columns in
+// shared memory (Hk + F rows of 64), so a step's z tile is __fmul_rn of two
+// shared values: a step is one i and up to kFwdDepth consecutive j, and its
+// w rows k = i * F + j .. are one contiguous run of w. The w tiles are double
+// buffered and copied with cp.async: step s + 1's tile arrives while step s
+// multiplies, behind one __syncthreads a step. Shared memory: (Hk + F) * 256
+// B of staged inputs and 2 * 16 * rows * 4 B of w (91 KB at layer 2: two
+// blocks an SM).
 //
-// nvt_cin_bwd, for the output gradient g [B, Hn, D] (two kernels):
+// nvt_cin_bwd, for the output gradient g [B, Hn, D] (two kernels, one tiled
+// SIMT product each: a block of 256 threads owns a 64 x 64 tile of the
+// result, steps through the depth 16 at a time with both operands' tiles in
+// shared memory, and each thread keeps a 4 x 4 register tile):
 //   * cin_bwd_x: dz[k, n] = sum_h w[k, h] * g[h, n] tile by tile over all of
 //     K for one 64-column tile, then dx_k[i, n] += dz * x_0[j, n] and
 //     dx_0[j, n] += dz * x_k[i, n] into shared-memory sums (shared atomics;
@@ -42,17 +57,13 @@
 //     (zeroed first) with one global atomic per entry.
 // Shared and global atomics make the summation order, and so the last bits,
 // vary from run to run.
-//
-// Bound: operations. The product is 2 * Hn * K * N flops (forward; the
-// backward twice that), against float32 outside the tensor cores (67
-// TFLOP/s): 283 GFLOP, 4.2 ms, at layer 1 of xDeepFM's Criteo setting
-// ([65536, 26, 16] x [65536, 26, 16] -> 200), against 0.4 GB of bytes.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
+// the backward's tiles
 constexpr int kTile = 64;     // rows and columns of a block's tile
 constexpr int kDepth = 16;    // depth of one step
 constexpr int kThreads = 256; // 16 x 16 threads, a 4 x 4 register tile each
@@ -91,46 +102,160 @@ __device__ __forceinline__ float z_at(const float* __restrict__ xk, const float*
   return __fmul_rn(xk[(b * s.Hk + i) * s.D + d], x0[(b * s.F + j) * s.D + d]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-cin_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0, const float* __restrict__ w, Shape s,
-               float* __restrict__ out) {
-  __shared__ __align__(16) float ws[kDepth * kTile];  // ws[kk][m] = w[k0 + kk, h0 + m]
-  __shared__ __align__(16) float zs[kDepth * kTile];  // zs[kk][c] = z[k0 + kk, n0 + c]
-  const int h_tiles = (s.Hn + kTile - 1) / kTile;
-  const int h0 = static_cast<int>(blockIdx.x % h_tiles) * kTile;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x / h_tiles) * kTile;
-  const int64_t N = s.N();
-  const int K = s.K();
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // the column this thread stages (fixed over the depth): 4 rows of it, kk = row0 + 4 * t
-  const int col = threadIdx.x % kTile, row0 = threadIdx.x / kTile;
-  const int64_t n = n0 + col;
-  const int64_t b = n / s.D;
-  const int d = static_cast<int>(n - b * s.D);
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-#pragma unroll
-    for (int t = 0; t < kDepth / 4; ++t) {
-      const int kk = row0 + 4 * t;
-      const int k = k0 + kk;
-      ws[kk * kTile + col] = (k < K && h0 + col < s.Hn) ? w[static_cast<int64_t>(k) * s.Hn + h0 + col] : 0.0f;
-      zs[kk * kTile + col] = (k < K && n < N) ? z_at(xk, x0, s, k, b, d) : 0.0f;
+// --- the forward ----------------------------------------------------------------------
+constexpr int kFwdCols = 64;          // columns (b, d) of a block
+constexpr int kFwdDepth = 16;         // pairs k of a step: one i, up to 16 consecutive j
+constexpr int kFwdMaxGroups = 32;     // 8-row groups of a pass: at most 256 rows, 256 threads
+
+// Rows a pass covers (8 for each thread group of 8) and the block's shared memory.
+struct FwdLayout {
+  int rows;
+  size_t smem;
+};
+
+FwdLayout fwd_layout(const Shape& s) {
+  int groups = (s.Hn + 7) / 8;
+  if (groups > kFwdMaxGroups) groups = kFwdMaxGroups;
+  const int rows = 8 * groups;
+  const size_t smem = 3 * kFwdCols * sizeof(int64_t) +
+                      (static_cast<size_t>(s.Hk + s.F) * kFwdCols + 2 * kFwdDepth * (rows + kFwdCols)) * sizeof(float);
+  return {rows, smem};
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
+
+// dst[kk][m] = w[k0 + kk, h0 + m] for kk < depth and m < live, 0 for live
+// <= m < rows: a step's w tile, copied asynchronously. kVec: 16-byte copies
+// (Hn a multiple of 4, w 16-byte aligned); a thread copies chunk q of rows
+// kk0, kk0 + kk_step, ...; else 4-byte copies, a thread column m = q.
+template <bool kVec>
+__device__ __forceinline__ void load_w_tile(const float* __restrict__ w, int Hn, int k0, int depth, int h0,
+                                            int rows, int live, int q, int kk0, int kk_step,
+                                            float* __restrict__ dst) {
+  const int m = kVec ? 4 * q : q;
+  const float* src = w + static_cast<int64_t>(k0) * Hn + h0 + m;
+  for (int kk = kk0; kk < depth; kk += kk_step) {
+    float* d = dst + kk * rows + m;
+    if (kVec) {
+      if (m < live) cp_async16(d, src + static_cast<int64_t>(kk) * Hn);
+      else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      if (m < live) cp_async4(d, src + static_cast<int64_t>(kk) * Hn);
+      else *d = 0.0f;
     }
-    __syncthreads();
-    mma_step<kTile, kTile>(ws, zs, ty, tx, acc);
-    __syncthreads();
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int h = h0 + ty * 4 + r;
-    if (h >= s.Hn) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int64_t nc = n0 + tx * 4 + c;
-      if (nc >= N) continue;
-      const int64_t bc = nc / s.D;
-      out[(bc * s.Hn + h) * s.D + (nc - bc * s.D)] = acc[r][c];
+  cp_async_commit();
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(256, 2)
+cin_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0, const float* __restrict__ w, Shape s,
+               int rows, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  int64_t* base_xk = reinterpret_cast<int64_t*>(smem4);  // [kFwdCols]: a column's offset in x_k, -1 past N
+  int64_t* base_x0 = base_xk + kFwdCols;                  // ... in x_0
+  int64_t* base_out = base_x0 + kFwdCols;                 // ... in out
+  float* xks = reinterpret_cast<float*>(base_out + kFwdCols);  // [Hk][kFwdCols]
+  float* x0s = xks + s.Hk * kFwdCols;                          // [F][kFwdCols]
+  float* ws = x0s + s.F * kFwdCols;                            // [2][kFwdDepth][rows]
+  float* zs = ws + 2 * kFwdDepth * rows;                       // [2][kFwdDepth][kFwdCols]
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kFwdCols;
+  const int64_t N = s.N();
+  for (int c = tid; c < kFwdCols; c += T) {
+    const int64_t n = n0 + c;
+    if (n < N) {
+      const int64_t b = n / s.D;
+      const int64_t d = n - b * s.D;
+      base_xk[c] = b * s.Hk * s.D + d;
+      base_x0[c] = b * s.F * s.D + d;
+      base_out[c] = b * s.Hn * s.D + d;
+    } else {
+      base_xk[c] = base_x0[c] = base_out[c] = -1;
     }
+  }
+  __syncthreads();
+  for (int e = tid; e < s.Hk * kFwdCols; e += T) {
+    const int64_t o = base_xk[e % kFwdCols];
+    xks[e] = o >= 0 ? xk[o + static_cast<int64_t>(e / kFwdCols) * s.D] : 0.0f;
+  }
+  for (int e = tid; e < s.F * kFwdCols; e += T) {
+    const int64_t o = base_x0[e % kFwdCols];
+    x0s[e] = o >= 0 ? x0[o + static_cast<int64_t>(e / kFwdCols) * s.D] : 0.0f;
+  }
+  __syncthreads();
+
+  const int tx = tid % 8, ty = tid / 8;  // columns 4 tx + {0..3}, 32 + 4 tx + {0..3}; rows 8 ty + {0..7}
+  // this thread's share of a w tile's copy
+  const int chunks = kVec ? rows / 4 : rows;
+  const int q = tid % chunks, kk0 = tid / chunks, kk_step = T / chunks;
+  const int steps = s.Hk * ((s.F + kFwdDepth - 1) / kFwdDepth);
+  for (int h0 = 0; h0 < s.Hn; h0 += rows) {
+    const int live = s.Hn - h0 < rows ? s.Hn - h0 : rows;
+    float acc[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+    int i = 0, j0 = 0;  // the step's pairs: i, j0 .. j0 + depth - 1
+    load_w_tile<kVec>(w, s.Hn, 0, s.F < kFwdDepth ? s.F : kFwdDepth, h0, rows, live, q, kk0, kk_step, ws);
+    for (int step = 0; step < steps; ++step) {
+      const int buf = step & 1;
+      const int depth = s.F - j0 < kFwdDepth ? s.F - j0 : kFwdDepth;
+      float* zb = zs + buf * kFwdDepth * kFwdCols;
+      const float* xi = xks + i * kFwdCols;
+      const float* xj = x0s + j0 * kFwdCols;
+      for (int e = tid; e < depth * kFwdCols; e += T) zb[e] = __fmul_rn(xi[e % kFwdCols], xj[e]);
+      cp_async_wait_all();
+      __syncthreads();  // z and w of this step in place; every thread done with the other buffers
+      int ni = i, nj = j0 + kFwdDepth;
+      if (nj >= s.F) {
+        nj = 0;
+        ++ni;
+      }
+      if (step + 1 < steps)
+        load_w_tile<kVec>(w, s.Hn, ni * s.F + nj, s.F - nj < kFwdDepth ? s.F - nj : kFwdDepth, h0, rows, live, q,
+                          kk0, kk_step, ws + (buf ^ 1) * kFwdDepth * rows);
+      const float* wb = ws + buf * kFwdDepth * rows + ty * 8;
+      const float* zt = zb + tx * 4;
+#pragma unroll 2
+      for (int kk = 0; kk < depth; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(wb + kk * rows);
+        const float4 a1 = *reinterpret_cast<const float4*>(wb + kk * rows + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(zt + kk * kFwdCols);
+        const float4 b1 = *reinterpret_cast<const float4*>(zt + kk * kFwdCols + 32);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+      }
+      i = ni;
+      j0 = nj;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int h = h0 + ty * 8 + r;
+      if (h >= s.Hn) break;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int64_t o = base_out[(c < 4 ? 0 : 32) + tx * 4 + (c & 3)];
+        if (o >= 0) out[o + static_cast<int64_t>(h) * s.D] = acc[r][c];
+      }
+    }
+    __syncthreads();  // the next pass refills both buffers
   }
 }
 
@@ -274,6 +399,13 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 }  // namespace
 
+// Shared memory the forward needs for Hk, F and Hn (the wrapper refuses
+// above the card's 227 KB a block).
+extern "C" int64_t nvt_cin_fwd_smem(int Hk, int F, int Hn) {
+  const Shape s{0, Hk, F, 1, Hn};
+  return static_cast<int64_t>(fwd_layout(s).smem);
+}
+
 // x_k float32 [B, Hk, D], x_0 float32 [B, F, D], w float32 [Hk * F, Hn],
 // all contiguous → out float32 [B, Hn, D], contiguous.
 extern "C" int nvt_cin_fwd(const float* xk, const float* x0, const float* w, int64_t B, int Hk, int F, int D,
@@ -281,10 +413,23 @@ extern "C" int nvt_cin_fwd(const float* xk, const float* x0, const float* w, int
   const Shape s{B, Hk, F, D, Hn};
   if (bad_shape(s)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const int64_t blocks = ceil_div(s.N(), kTile) * ceil_div(Hn, kTile);
+  const int64_t blocks = ceil_div(s.N(), kFwdCols);
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cin_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      xk, x0, w, s, out);
+  const FwdLayout layout = fwd_layout(s);
+  const bool vec = Hn % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const void* kernel = vec ? reinterpret_cast<const void*>(cin_fwd_kernel<true>)
+                           : reinterpret_cast<const void*>(cin_fwd_kernel<false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(layout.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const unsigned threads = static_cast<unsigned>(layout.rows);  // 8 threads for each 8 rows
+  if (vec)
+    cin_fwd_kernel<true><<<static_cast<unsigned>(blocks), threads, layout.smem, stream>>>(xk, x0, w, s, layout.rows,
+                                                                                          out);
+  else
+    cin_fwd_kernel<false><<<static_cast<unsigned>(blocks), threads, layout.smem, stream>>>(xk, x0, w, s, layout.rows,
+                                                                                           out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
-// Column-batched Categorify lookups for Hopper (sm_90a): kernels K1-K3 and K8
-// with the Categorify epilogue K4 fused into each.
+// Column-batched Categorify lookups for Hopper (sm_90a): kernels K1-K3, K6
+// and K8 with the Categorify epilogue K4 fused into each.
 //
-// K1-K3 read the stacked int32 values of C columns ([C, N], row-major), K8
+// K1-K3 and K6 read the stacked int32 values of C columns ([C, N], row-major), K8
 // float32 values; each writes their final codes ([C, N] int32):
 //   hit  -> the code stored in the column's table
 //   miss -> miss_code, or where nbuckets[c] > 1 (K4's hashed branch,
@@ -192,6 +192,58 @@ cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
   out[i] = epilogue(code, hit, v, c, valid, i, col_off[c], e);
 }
 
+// K6: a single-hash primary and a two-choice stash. Replaces
+// BatchedStash.encode_dev (nvtabular_tpu/ops/lookup.py:632-669), which
+// gathers the primary bucket and both stash buckets of every value and lets
+// a later hit override.
+//
+// Bound: bytes. Values and codes stream (8 B per value); the primary bucket
+// is one random 32-byte sector (two aligned int4 loads). The stash's two
+// sectors are read only on a primary miss: at the build's primary load of
+// 0.5, the ~5% of keys that spilled and the values outside the vocabulary.
+// The tables must hold each key in exactly one of its three buckets, as
+// build_stash makes them: then the codes are the reference's, which always
+// probes all three and lets a later hit override. Buckets: primary
+// fmix32(u32(v)) & (nbps[b] - 1), stash fmix32(u32(v) ^ seed) & (nbss[b] -
+// 1) for the seeds 0x68E31DA4 and 0xB5297A4D (lookup.py:41-42; masks: both
+// counts are powers of two), each plus its row offset.
+// Grid: (ceil(N / kThreads), C).
+__global__ void __launch_bounds__(kThreads)
+stash_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
+                    const int4* __restrict__ table, const int64_t* __restrict__ nbps,
+                    const int64_t* __restrict__ row_off, const int4* __restrict__ stash,
+                    const int64_t* __restrict__ nbss, const int64_t* __restrict__ stash_off,
+                    const int32_t* __restrict__ sel, const int32_t* __restrict__ col_off,
+                    int32_t* __restrict__ out, int64_t n, Epilogue e) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int c = blockIdx.y;
+  const int b = sel[c];
+  const int64_t i = static_cast<int64_t>(c) * n + r;
+  const int32_t v = values[i];
+  const uint32_t u = static_cast<uint32_t>(v);
+  const int64_t p = row_off[b] + (nvt::fmix32(u) & static_cast<uint32_t>(nbps[b] - 1));
+  int32_t code = 0;
+  bool hit = false;
+  probe(__ldg(table + 2 * p), __ldg(table + 2 * p + 1), v, code, hit);
+  if (!hit) {
+    const int64_t nbs = nbss[b];
+    if (nbs > 0) {
+      const uint32_t mask = static_cast<uint32_t>(nbs - 1);
+      const int64_t so = stash_off[b];
+      const int64_t s0 = so + (nvt::fmix32(u ^ 0x68E31DA4u) & mask);
+      const int64_t s1 = so + (nvt::fmix32(u ^ 0xB5297A4Du) & mask);
+      const int4 k0 = __ldg(stash + 2 * s0);
+      const int4 v0 = __ldg(stash + 2 * s0 + 1);
+      const int4 k1 = __ldg(stash + 2 * s1);
+      const int4 v1 = __ldg(stash + 2 * s1 + 1);
+      probe(k0, v0, v, code, hit);
+      probe(k1, v1, v, code, hit);
+    }
+  }
+  out[i] = epilogue(code, hit, v, c, valid, i, col_off[c], e);
+}
+
 // K8: sorted float vocabularies. Replaces the searchsorted branch of
 // _Vocab.encode_device (nvtabular_tpu/ops/categorify.py:570-585), which XLA
 // lowers to a loop of gathers over one column's sorted float32 keys.
@@ -288,6 +340,19 @@ extern "C" int nvt_cuckoo_lookup(const int32_t* values, const uint8_t* valid, co
   cuckoo_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       values, valid, reinterpret_cast<const int4*>(table), nbs, row_off, sel, col_off, out, n,
       Epilogue{miss, null_code, nbuckets});
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nvt_stash_lookup(const int32_t* values, const uint8_t* valid, const int32_t* table,
+                                const int64_t* nbps, const int64_t* row_off, const int32_t* stash,
+                                const int64_t* nbss, const int64_t* stash_off, const int32_t* sel,
+                                const int32_t* col_off, int32_t* out, int num_cols, int64_t n, int miss,
+                                int null_code, const int32_t* nbuckets, void* stream) {
+  if (num_cols == 0 || n == 0) return 0;
+  dim3 grid(blocks_for(n, kThreads), num_cols);
+  stash_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      values, valid, reinterpret_cast<const int4*>(table), nbps, row_off, reinterpret_cast<const int4*>(stash),
+      nbss, stash_off, sel, col_off, out, n, Epilogue{miss, null_code, nbuckets});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ LAUNCHES: Dict[str, int] = {
     "tiny_lookup": 0,
     "direct_lookup": 0,
     "cuckoo_lookup": 0,
+    "stash_lookup": 0,
     # K8's solo-table branch: K1-K3 launched on one vocabulary's own table
     "tiny_lookup_solo": 0,
     "direct_lookup_solo": 0,

@@ -40,7 +40,7 @@ def _check(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor):
         if t.dtype != torch.float32:
             raise NotImplementedError(
                 f"xdeepfm_outer_product takes float32 only, got {what} {t.dtype} "
-                "(ROADMAP.md queue 2: K13d in bfloat16)"
+                "(ROADMAP.md queue 1 item 9: K13d in bfloat16)"
             )
     B, Hk, D = x_k.shape
     F = x_0.shape[1]
@@ -60,14 +60,19 @@ def cin_fwd(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor) -> torch.Tens
     B, Hk, F, D, Hn = _check(x_k, x_0, w)
     if not use_kernel(x_k):
         return cin_fwd_plain(x_k, x_0, w)
+    lib = library("cin")
+    if lib.nvt_cin_fwd.argtypes is None:
+        lib.nvt_cin_fwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.nvt_cin_fwd_smem.restype = ctypes.c_int64
+        lib.nvt_cin_fwd.argtypes = _FWD_ARGTYPES
+        lib.nvt_cin_fwd.restype = ctypes.c_int
+    smem = lib.nvt_cin_fwd_smem(Hk, F, Hn)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"cin_fwd: Hk + F = {Hk + F} needs {smem} B of shared memory a block, over {SMEM_LIMIT}")
     out = torch.empty((B, Hn, D), dtype=torch.float32, device=x_k.device)
     if B == 0:
         return out
-    fn = library("cin").nvt_cin_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _FWD_ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(ptr(x_k), ptr(x_0), ptr(w), B, Hk, F, D, Hn, ptr(out), stream_ptr(x_k.device))
+    rc = lib.nvt_cin_fwd(ptr(x_k), ptr(x_0), ptr(w), B, Hk, F, D, Hn, ptr(out), stream_ptr(x_k.device))
     raise_on_error(rc, "cin_fwd")
     LAUNCHES["cin_fwd"] += 1
     return out

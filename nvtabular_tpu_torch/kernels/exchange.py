@@ -23,22 +23,25 @@ from .hash import fmix32_plain
 PAD = int(np.iinfo(np.int32).max)  # sharded_vocab.py:31: routed to owner 0, never sent, sorts last
 TILE = 1024  # keys a warp counts (csrc/exchange.cu kTile)
 MAX_OWNERS = 1024  # counts of kWarps tiles in 48 KB of shared memory
-RADIX_BUCKETS = 256
+# a status word of the sort's look-back holds a 30-bit count (csrc/exchange.cu kMaxSortKeys)
+SORT_MAX_KEYS = 2**30 - 1
+SORT_TILE = 256 * 15  # keys a block of the sort ranks (csrc/exchange.cu kSortTile)
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # keys, n, ndev, cap, hist, totals, send, overflow, stream
-    "nvt_exchange_route": [_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P],
-    # keys, n, tmp, out, hist, totals, stream
-    "nvt_radix_sort_i32": [_P, ctypes.c_int64, _P, _P, _P, _P, _P],
+    # keys, n, ndev, cap, hist, send, overflow, stream
+    "nvt_exchange_route": ([_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P], ctypes.c_int),
+    # n
+    "nvt_radix_sort_scratch_words": ([ctypes.c_int64], ctypes.c_int64),
+    # keys, n, tmp, out, scratch, stream
+    "nvt_radix_sort_i32": ([_P, ctypes.c_int64, _P, _P, _P, _P], ctypes.c_int),
 }
 
 
 def _fn(name: str):
     fn = getattr(library("exchange"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = _ARGTYPES[name]
     return fn
 
 
@@ -72,18 +75,21 @@ def exchange_route(keys: torch.Tensor, ndev: int, cap: int) -> Tuple[torch.Tenso
     send = torch.empty((ndev, cap), dtype=torch.int32, device=dev)
     overflow = torch.empty(1, dtype=torch.int32, device=dev)
     hist = torch.empty(max(ndev * _tiles(n), 1), dtype=torch.int32, device=dev)
-    totals = torch.empty(ndev, dtype=torch.int32, device=dev)
-    rc = _fn("nvt_exchange_route")(ptr(keys), n, ndev, cap, ptr(hist), ptr(totals), ptr(send), ptr(overflow),
-                                   stream_ptr(dev))
+    rc = _fn("nvt_exchange_route")(ptr(keys), n, ndev, cap, ptr(hist), ptr(send), ptr(overflow), stream_ptr(dev))
     raise_on_error(rc, "exchange_route")
     LAUNCHES["exchange_route"] += 1
     return send, overflow
 
 
 def radix_sort(keys: torch.Tensor) -> torch.Tensor:
-    """int32 keys [n] → the same keys ascending, by an LSD radix sort of 4
-    passes of 8 bits over the keys with their sign bit flipped."""
+    """int32 keys [n] → the same keys ascending: an LSD radix sort of the
+    keys with their sign bit flipped, in four passes of 8-bit digits
+    (csrc/exchange.cu: one histogram launch, then one onesweep launch a
+    pass; a pass whose digit is one value for every key is skipped). At
+    most ``SORT_MAX_KEYS`` keys."""
     n = _check_keys(keys)
+    if n > SORT_MAX_KEYS:
+        raise ValueError(f"{n} keys exceed the sort's {SORT_MAX_KEYS} (a look-back status word's 30-bit count)")
     if not use_kernel(keys):
         return radix_sort_plain(keys)
     dev = keys.device
@@ -91,9 +97,9 @@ def radix_sort(keys: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     tmp = torch.empty_like(keys)
-    hist = torch.empty(RADIX_BUCKETS * _tiles(n), dtype=torch.int32, device=dev)
-    totals = torch.empty(RADIX_BUCKETS, dtype=torch.int32, device=dev)
-    rc = _fn("nvt_radix_sort_i32")(ptr(keys), n, ptr(tmp), ptr(out), ptr(hist), ptr(totals), stream_ptr(dev))
+    # digit counts, tile counters and look-back status words start at zero
+    scratch = torch.zeros(_fn("nvt_radix_sort_scratch_words")(n), dtype=torch.int32, device=dev)
+    rc = _fn("nvt_radix_sort_i32")(ptr(keys), n, ptr(tmp), ptr(out), ptr(scratch), stream_ptr(dev))
     raise_on_error(rc, "radix_sort")
     LAUNCHES["radix_sort"] += 1
     return out

@@ -1,7 +1,7 @@
-"""Column-batched Categorify lookups: CUDA kernels K1-K3 and K8 with the K4
-epilogue fused, their wrappers and their plain PyTorch versions.
+"""Column-batched Categorify lookups: CUDA kernels K1-K3, K6 and K8 with the
+K4 epilogue fused, their wrappers and their plain PyTorch versions.
 
-K1-K3 take the stacked values of C integer columns as ``values`` [C, N]
+K1-K3 and K6 take the stacked values of C integer columns as ``values`` [C, N]
 int32; K8 (``sorted_lookup``) takes C float columns as float32 [C, N]. All
 write final codes [C, N] int32:
 
@@ -40,6 +40,7 @@ TINY_MAX = 4096
 FLT32_MIN = 1.17549435e-38  # the smallest normal float32
 BUCKET_SLOTS = 4
 SEEDS = (0, 0x9E3779B9)
+STASH_SEEDS = (0x68E31DA4, 0xB5297A4D)  # the stash's two hashes (nvtabular_tpu/ops/lookup.py:41-42)
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -52,6 +53,9 @@ _ARGTYPES = {
     "nvt_cuckoo_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
     # values, validity, keys, codes, starts, lens, sel, col_offsets, out, C, N, miss, null, nbuckets, stream
     "nvt_sorted_lookup": [_P] * 9 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
+    # values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel, col_offsets, out, C, N, miss,
+    # null, nbuckets, stream
+    "nvt_stash_lookup": [_P] * 11 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
 }
 
 
@@ -235,12 +239,19 @@ def cuckoo_lookup_plain(values, validity, table, nbs, row_offsets, sel, col_offs
     code = torch.zeros_like(values)
     hit = torch.zeros(values.shape, dtype=torch.bool, device=values.device)
     for seed in SEEDS:
-        rows = table[bucket_index_plain(values, nb, seed) + ro]  # [C, N, 8]
-        for slot in range(BUCKET_SLOTS):
-            h = (rows[..., slot] == values) & (rows[..., BUCKET_SLOTS + slot] >= 0)
-            code = torch.where(h, rows[..., BUCKET_SLOTS + slot], code)
-            hit |= h
+        code, hit = _probe_plain(table[bucket_index_plain(values, nb, seed) + ro], values, code, hit)
     return _epilogue(code, hit, validity, col_offsets, miss, null, values, nbuckets)
+
+
+def _probe_plain(rows, values, code, hit, live=True):
+    """Compare ``values`` with the 4 slots of their bucket ``rows`` [..., 8]
+    in slot order, a later hit overriding (the reference's order); ``live``
+    masks the rows that exist."""
+    for slot in range(BUCKET_SLOTS):
+        h = (rows[..., slot] == values) & (rows[..., BUCKET_SLOTS + slot] >= 0) & live
+        code = torch.where(h, rows[..., BUCKET_SLOTS + slot], code)
+        hit = hit | h
+    return code, hit
 
 
 def bucket_index_plain(values: torch.Tensor, nb, seed: int) -> torch.Tensor:
@@ -248,6 +259,63 @@ def bucket_index_plain(values: torch.Tensor, nb, seed: int) -> torch.Tensor:
     or a tensor broadcasting against ``values``); the key's uint32 bit
     pattern is what the kernel hashes."""
     return fmix32_plain((values.long() & M32) ^ seed) % nb
+
+
+# --- K6 + K4: a single-hash primary and a two-choice stash ------------------------
+def stash_lookup(values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel, col_offsets,
+                 miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None, counter=None):
+    """Replaces ``BatchedStash.encode_dev`` (nvtabular_tpu/ops/lookup.py:
+    632) and, with one table row, ``StashLookup.encode_dev`` (:330).
+
+    table [R, 8] int32: the primaries' bucket rows ``[k0..k3, v0..v3]`` (v =
+    -1: empty), column row b owning ``nbps[b]`` rows (a power of two) from
+    ``row_offsets[b]``, probed at ``mix32(u, 0) & (nbps[b] - 1)``; stash
+    [S, 8]: the stashes, ``nbss[b]`` rows (a power of two, or 0) from
+    ``stash_offsets[b]``, probed at ``mix32(u, seed) & (nbss[b] - 1)`` for
+    the two ``STASH_SEEDS``. The kernel reads the stash only where the
+    primary misses. That gives the reference's codes (which probe all three
+    buckets, a later hit overriding) only for tables where each key sits in
+    one bucket, as ``build_stash`` makes them; the plain version follows the
+    reference's order. nbps, row_offsets, nbss, stash_offsets int64."""
+    _check_common(values, validity, sel, col_offsets, nbuckets)
+    dev = values.device
+    B = nbps.shape[0]
+    for t, what in ((table, "table"), (stash, "stash")):
+        check(t, what, torch.int32, dev)
+        if t.dim() != 2 or t.shape[1] != 2 * BUCKET_SLOTS:
+            raise ValueError(f"stash lookup {what} must be [R, 8], got {tuple(t.shape)}")
+    for t, what in ((nbps, "nbps"), (row_offsets, "row_offsets"), (nbss, "nbss"), (stash_offsets, "stash_offsets")):
+        check(t, what, torch.int64, dev, (B,))
+    if not use_kernel(values):
+        return stash_lookup_plain(values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel,
+                                  col_offsets, miss, null, nbuckets)
+    if table.data_ptr() % 16 or stash.data_ptr() % 16:
+        raise ValueError("stash lookup tables must be 16-byte aligned for int4 bucket loads")
+    return _launch(
+        "stash_lookup",
+        values,
+        ([values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel, col_offsets], []),
+        miss,
+        null,
+        nbuckets,
+        counter,
+    )
+
+
+def stash_lookup_plain(values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel, col_offsets,
+                       miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None):
+    s = sel.long()
+    u = values.long() & M32
+    miss_all = torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    primary = (fmix32_plain(u) & (nbps[s][:, None] - 1)) + row_offsets[s][:, None]
+    # the reference's order: the primary, then both stash buckets, a later hit overriding
+    code, hit = _probe_plain(table[primary], values, torch.zeros_like(values), miss_all)
+    nbs = nbss[s][:, None]
+    has = nbs > 0
+    for seed in STASH_SEEDS:
+        idx = torch.where(has, (fmix32_plain(u ^ seed) & (nbs - 1).clamp(min=0)) + stash_offsets[s][:, None], 0)
+        code, hit = _probe_plain(stash[idx], values, code, hit, has)
+    return _epilogue(code, hit, validity, col_offsets, miss, null, values, nbuckets)
 
 
 # --- K8 + K4: sorted float vocabularies, a binary search ------------------------

@@ -190,10 +190,13 @@ def ragged_segment_reduce_plain(values, offsets, num_rows, combiner="sum") -> to
     keep = row < num_rows
     row, vals = row[keep], values[keep]
     if combiner in ("sum", "mean"):
-        out = torch.zeros(num_rows, dtype=torch.float32, device=dev).index_add_(0, row, vals)
+        # float64 sums, rounded once: a float32 index_add_ on the card adds in
+        # its atomics' order, and over a row of millions of values its
+        # roundings drift past the kernel's own error
+        out = torch.zeros(num_rows, dtype=torch.float64, device=dev).index_add_(0, row, vals.double())
         if combiner == "mean":
-            out = out / (offsets[1:] - offsets[:-1]).clamp(min=1).to(torch.float32)
-        return out
+            out = out / (offsets[1:] - offsets[:-1]).clamp(min=1).to(torch.float64)
+        return out.float()
     lo = combiner == "min"
     identity = _ordered_keys(torch.tensor([float("inf") if lo else float("-inf")], device=dev), 0)
     keys = torch.full((num_rows,), int(identity), dtype=torch.int64, device=dev)

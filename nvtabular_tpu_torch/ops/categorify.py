@@ -406,7 +406,8 @@ class _Vocab:
 
 
 # the arrays of each lookup kind that hold its table (host_nbytes)
-_TABLE_FIELDS = {"tiny": ("keys", "codes"), "direct": ("table",), "cuckoo": ("packed",), "sorted": ("keys", "codes")}
+_TABLE_FIELDS = {"tiny": ("keys", "codes"), "direct": ("table",), "cuckoo": ("packed",), "stash": ("packed",),
+                 "sorted": ("keys", "codes")}
 
 
 class Categorify(StatOperator):
@@ -780,14 +781,16 @@ class Categorify(StatOperator):
     def _get_batched(self):
         """{kind: (Batched* table on the host, {vocab key: row})}, one table per
         kind over every vocabulary that does not encode solo, built once per
-        fitted state. An empty vocabulary is a row of the tiny table and of
-        the sorted one: every value misses, and the column's dtype picks the
-        launch."""
+        fitted state. The stash kind holds only vocabularies given a
+        ``StashLookup``: ``build_lookup`` never returns one, as in the
+        reference (categorify.py:1494-1527). An empty vocabulary is a row
+        of the tiny table and of the sorted one: every value misses, and the
+        column's dtype picks the launch."""
         token = tuple(sorted((k, id(v)) for k, v in self.vocabs.items()))
         if self._batched_cache is not None and self._batched_cache[0] == token:
             return self._batched_cache[1]
         solo = self._solo_keys()
-        by_kind: Dict[str, List] = {"tiny": [], "direct": [], "cuckoo": [], "sorted": []}
+        by_kind: Dict[str, List] = {"tiny": [], "direct": [], "stash": [], "cuckoo": [], "sorted": []}
         empty = []
         for vkey in sorted(self.vocabs):
             if self.vocabs[vkey].is_combo or vkey in solo:
@@ -917,7 +920,7 @@ class Categorify(StatOperator):
         """One dict per kernel launch: per table kind present, one for its
         scalar columns and one for each of its list columns (whose flat
         values have a length of their own). Integer columns take the tiny,
-        direct and cuckoo tables, float columns the sorted one. Each holds
+        direct, stash and cuckoo tables, float columns the sorted one. Each holds
         the kind's ``table`` and the stacked ``values`` [C, N] (int32, or
         float32 for the sorted table), ``validity`` (or None: a list's flat
         values carry none), ``sel``, ``col_offsets`` and ``nbuckets`` (None

@@ -11,6 +11,12 @@ choice is the reference's (``build_lookup``, lookup.py:711-742):
 * ``CuckooLookup`` (two-choice, 4-slot buckets ``[k0..k3, v0..v3]``)
   otherwise.
 
+``StashLookup`` (``build_stash``) is the reference's primary + stash table
+(lookup.py:277-397): a power-of-two primary of 4-slot buckets probed once,
+its overflow in a small two-choice cuckoo stash. ``build_lookup`` never
+returns one, in either package; a vocabulary given one encodes through
+``BatchedStash`` (K6).
+
 Float keys take a ``SortedLookup``: the keys ascending (sorted in their own
 precision, then narrowed to float32) with their codes, searched on the card
 (K8), as the reference's ``_Vocab.device_arrays`` (categorify.py:517-537)
@@ -36,10 +42,12 @@ from ..kernels.lookup import (
     NULL_INDEX,
     OOV_INDEX,
     SEEDS,
+    STASH_SEEDS,
     TINY_MAX,
     cuckoo_lookup,
     direct_lookup,
     sorted_lookup,
+    stash_lookup,
     tiny_lookup,
 )
 from ..table import Column
@@ -113,6 +121,122 @@ class CuckooLookup:
     def __init__(self, packed: np.ndarray, nb: int):
         self.packed = packed  # int32 [nb, 8] = [k0..k3, v0..v3]
         self.nb = nb
+
+
+class StashLookup:
+    """A single-hash primary of ``nbp`` 4-slot buckets (a power of two,
+    probed at ``mix32(u, 0) & (nbp - 1)``) and the keys that overflowed it
+    in a two-choice cuckoo stash of ``nbs`` buckets (a power of two, or 0;
+    probed at ``nbp + (mix32(u, seed) & (nbs - 1))`` for ``STASH_SEEDS``),
+    in one packed int32 array [nbp + nbs, 8]. Each key sits in exactly one
+    of its three buckets (``build_stash`` makes it so): the kernel reads the
+    stash only where the primary misses, which gives the codes of the
+    reference's three probes only on such tables."""
+
+    __slots__ = ("packed", "nbp", "nbs")
+
+    def __init__(self, packed: np.ndarray, nbp: int, nbs: int):
+        self.packed = packed
+        self.nbp = nbp
+        self.nbs = nbs
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def build_stash(values: np.ndarray, codes: np.ndarray, primary_load: float = 0.5) -> Optional[StashLookup]:
+    """The reference's primary-greedy + cuckoo-stash build (lookup.py:
+    334-375), bit for bit: keys take their primary bucket in arrival order
+    while it has a free slot; the rest go to a stash at load 0.5, doubled up
+    to three times on a failed build. None for keys outside int32 or a
+    stash that never builds."""
+    v64 = values.astype(np.int64)
+    if not fits_int32(v64):
+        return None
+    keys = np.ascontiguousarray(v64.astype(np.int32))
+    vals = codes.astype(np.int32)
+    n = len(keys)
+    nbp = max(_next_pow2(math.ceil(n / (BUCKET_SLOTS * primary_load)) or 1), 1)
+    b1 = (_mix32_np(keys.view(np.uint32), 0) & np.uint32(nbp - 1)).astype(np.int64)
+    bkeys = np.zeros((nbp, BUCKET_SLOTS), dtype=np.int32)
+    bvals = np.full((nbp, BUCKET_SLOTS), EMPTY, dtype=np.int32)
+    order = np.argsort(b1, kind="stable")
+    st = b1[order]
+    is_start = np.ones(len(st), dtype=bool)
+    is_start[1:] = st[1:] != st[:-1]
+    rank = np.arange(len(st)) - np.nonzero(is_start)[0][np.cumsum(is_start) - 1]
+    ok = rank < BUCKET_SLOTS
+    bkeys[st[ok], rank[ok]] = keys[order[ok]]
+    bvals[st[ok], rank[ok]] = vals[order[ok]]
+    primary = np.concatenate([bkeys, bvals], axis=1)
+    spill = order[~ok]
+    if len(spill) == 0:
+        return StashLookup(primary, nbp, 0)
+    nbs = max(_next_pow2(math.ceil(len(spill) / (BUCKET_SLOTS * 0.5)) or 1), 1)
+    for _ in range(4):
+        stash = _try_build_cuckoo_numpy(keys[spill], vals[spill], nbs, STASH_SEEDS)
+        if stash is not None:
+            return StashLookup(np.concatenate([primary, stash], axis=0), nbp, nbs)
+        nbs *= 2
+    return None
+
+
+def _try_build_cuckoo_numpy(keys: np.ndarray, vals: np.ndarray, nb: int, seeds) -> Optional[np.ndarray]:
+    """The reference's numpy cuckoo build (lookup.py:469-523), which the
+    stash takes: two greedy passes, then a sequential eviction loop with a
+    generator seeded 0 → packed [nb, 8], or None after 500 evictions of one
+    key."""
+    nbu = np.uint32(nb)
+    u = keys.view(np.uint32)
+    b1 = (_mix32_np(u, seeds[0]) % nbu).astype(np.int64)
+    b2 = (_mix32_np(u, seeds[1]) % nbu).astype(np.int64)
+    bkeys = np.zeros((nb, BUCKET_SLOTS), dtype=np.int32)
+    bvals = np.full((nb, BUCKET_SLOTS), EMPTY, dtype=np.int32)
+    fill = np.zeros(nb, dtype=np.int64)
+    pending = np.arange(len(keys))
+    for b in (b1, b2):
+        if len(pending) == 0:
+            break
+        tgt = b[pending]
+        order = np.argsort(tgt, kind="stable")
+        st = tgt[order]
+        is_start = np.ones(len(st), dtype=bool)
+        is_start[1:] = st[1:] != st[:-1]
+        rank = np.arange(len(st)) - np.nonzero(is_start)[0][np.cumsum(is_start) - 1]
+        slot = fill[st] + rank
+        ok = slot < BUCKET_SLOTS
+        items = pending[order[ok]]
+        bkeys[st[ok], slot[ok]] = keys[items]
+        bvals[st[ok], slot[ok]] = vals[items]
+        np.add.at(fill, st[ok], 1)
+        pending = pending[order[~ok]]
+    rng = np.random.default_rng(0)
+
+    def bucket(k: int, seed) -> int:
+        return int(_mix32_np(np.array([k], dtype=np.int32).view(np.uint32), seed)[0] % nbu)
+
+    for item in pending:
+        k, val = int(keys[item]), int(vals[item])
+        cb = int(b1[item])
+        for _ in range(500):
+            empty = np.nonzero(bvals[cb] == EMPTY)[0]
+            if len(empty):
+                bkeys[cb, empty[0]] = k
+                bvals[cb, empty[0]] = val
+                break
+            s = int(rng.integers(0, BUCKET_SLOTS))  # evict a random occupant
+            ek, ev = int(bkeys[cb, s]), int(bvals[cb, s])
+            bkeys[cb, s], bvals[cb, s] = k, val
+            k, val = ek, ev
+            h1, h2 = bucket(k, seeds[0]), bucket(k, seeds[1])
+            cb = h2 if cb == h1 else h1
+        else:
+            return None
+    return np.concatenate([bkeys, bvals], axis=1)
 
 
 def build_direct(values: np.ndarray, codes: np.ndarray, max_range: int = DIRECT_MAX_RANGE):
@@ -327,6 +451,34 @@ class BatchedCuckoo(_Batched):
         )
 
 
+class BatchedStash(_Batched):
+    """Every stash table, batched as the reference's ``BatchedStash``
+    (lookup.py:604-669): the primaries stacked into one [ΣNBP, 8] int32
+    ``table``, the stashes into a separate ``stash`` [ΣNBS, 8] (one empty
+    row when no column has a stash)."""
+
+    _tensors = ("table", "nbps", "row_offsets", "stash", "nbss", "stash_offsets")
+
+    def __init__(self, luts: List[StashLookup]):
+        self.table = torch.from_numpy(np.concatenate([l.packed[: l.nbp] for l in luts], axis=0))
+        stashes = [l.packed[l.nbp:] for l in luts if l.nbs]
+        self.stash = torch.from_numpy(
+            np.concatenate(stashes, axis=0) if stashes else np.full((1, 2 * BUCKET_SLOTS), EMPTY, dtype=np.int32)
+        )
+        nbps = np.array([l.nbp for l in luts], dtype=np.int64)
+        nbss = np.array([l.nbs for l in luts], dtype=np.int64)
+        self.nbps, self.nbss = torch.from_numpy(nbps), torch.from_numpy(nbss)
+        self.row_offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(nbps)[:-1]]).astype(np.int64))
+        self.stash_offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(nbss)[:-1]]).astype(np.int64))
+
+    def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
+               counter=None):
+        return stash_lookup(
+            values, validity, self.table, self.nbps, self.row_offsets, self.stash, self.nbss, self.stash_offsets,
+            sel, col_offsets, miss, null, nbuckets, counter,
+        )
+
+
 class BatchedSorted(_Batched):
     """Every sorted float vocabulary concatenated: keys [K] float32 and codes
     [K] int32; row b spans ``starts[b] : starts[b] + lens[b]``."""
@@ -349,7 +501,8 @@ class BatchedSorted(_Batched):
         )
 
 
-BATCHED = {"tiny": BatchedTiny, "direct": BatchedDirect, "cuckoo": BatchedCuckoo, "sorted": BatchedSorted}
+BATCHED = {"tiny": BatchedTiny, "direct": BatchedDirect, "cuckoo": BatchedCuckoo, "stash": BatchedStash,
+           "sorted": BatchedSorted}
 
 
 def kind_of(lut) -> str:
@@ -357,4 +510,6 @@ def kind_of(lut) -> str:
         return "tiny"
     if isinstance(lut, SortedLookup):
         return "sorted"
+    if isinstance(lut, StashLookup):
+        return "stash"
     return "direct" if isinstance(lut, DirectLookup) else "cuckoo"

@@ -1006,6 +1006,51 @@ def test_sorted_lookup_kernel_matches_plain(with_validity, nb):
     assert (want[:, 0] == torch.tensor([1 + 5 * i for i in range(len(sel))], dtype=torch.int32)).all()  # NaN
 
 
+def _stash_tables(rng):
+    """Stash tables over 200,000, 7 and 30,000 keys and one of 60,000 keys
+    whose primary is over-full (load 2): the first and the last spill."""
+    sizes_loads = [(200_000, 0.5), (7, 0.5), (30_000, 0.05), (60_000, 2.0)]
+    keysets = [rng.permutation(np.unique(rng.integers(I32_MIN, I32_MAX, n))).astype(np.int32)
+               for n, _ in sizes_loads]
+    luts = [plookup.build_stash(k, np.arange(len(k)) + 3, load) for k, (_, load) in zip(keysets, sizes_loads)]
+    assert [l.nbs > 0 for l in luts] == [True, False, False, True]
+    return keysets, luts
+
+
+@pytest.mark.parametrize("nb", [1, 1000])
+@pytest.mark.parametrize("with_validity", [False, True])
+def test_stash_lookup_kernel_matches_plain(with_validity, nb):
+    """K6 on stashed and stashless tables (sel repeats a row), every key of
+    each table among 200,003 values a column with misses and the int32
+    extremes, nulls, hashed OOV buckets and column offsets: bit-equal to the
+    plain version; one launch; a table alone (one row) as a solo vocabulary
+    encodes it."""
+    _require_cuda()
+    rng = np.random.default_rng(15)
+    keysets, luts = _stash_tables(rng)
+    sel = [3, 0, 1, 2, 0]
+    values = _queries(rng, [keysets[s] for s in sel], 200_003)
+    values[1, : len(keysets[0])] = torch.from_numpy(keysets[0])
+    validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+    args = (torch.tensor(sel, dtype=torch.int32), torch.tensor([0, 9, 200_000, 230_000, 5], dtype=torch.int32))
+    nbuckets = torch.tensor([nb, 1, nb, nb, 1], dtype=torch.int32)
+    blut = plookup.BatchedStash(luts)
+    want = blut.encode(values, validity, *args, nbuckets=nbuckets)
+    cuda = blut.to("cuda")
+    kernels.reset_launches()
+    got = cuda.encode(values.cuda(), None if validity is None else validity.cuda(), *(a.cuda() for a in args),
+                      nbuckets=nbuckets.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stash_lookup"] == 1 and sum(kernels.LAUNCHES.values()) == 1
+    assert torch.equal(got.cpu(), want)
+    solo = plookup.BatchedStash(luts[:1])
+    one = (torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
+    got = solo.to("cuda").encode(values[1:2].cuda(), None, *(a.cuda() for a in one))
+    assert torch.equal(got.cpu(), solo.encode(values[1:2], None, *one))
+    found = got.cpu()[0, : len(keysets[0])]
+    assert torch.equal(found.sort().values, torch.arange(len(keysets[0]), dtype=torch.int32) + 3)
+
+
 def test_sorted_lookup_takes_empty_inputs_and_the_current_stream():
     _require_cuda()
     table = plookup.BatchedSorted([plookup.SortedLookup(np.array([1.0, 2.0]), np.array([3, 4]))]).to("cuda")
@@ -1271,6 +1316,60 @@ def test_radix_sort_matches_plain(n):
     assert kernels.LAUNCHES["radix_sort"] == (1 if n else 0)
     assert torch.equal(got.cpu(), kex.radix_sort_plain(keys))
     assert torch.equal(got.cpu(), torch.sort(keys).values)
+
+
+def _sort_cases(n, case, rng):
+    """int32 keys for the onesweep sort's edge cases."""
+    if case == "power_law":
+        return _exchange_keys(n, seed=n)
+    if case == "equal":  # every pass trivial: the keys are copied
+        return torch.full((n,), -7, dtype=torch.int32)
+    if case == "extremes":
+        keys = rng.choice(np.array([I32_MIN, I32_MAX, I32_MIN + 1, I32_MAX - 1, 0, -1], np.int32), n)
+        return torch.from_numpy(keys.astype(np.int32))
+    if case == "pads":  # phase 19's buffer: 60% pads after random ids
+        keys = rng.integers(0, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+        keys[rng.random(n) < 0.6] = kex.PAD
+        return torch.from_numpy(keys)
+    if case == "low_digit":  # only the lowest pass runs
+        return torch.from_numpy(rng.integers(0, 200, n).astype(np.int32))
+    if case == "outer_digits":  # the lowest and the highest byte vary: two passes run at 8 bits
+        keys = rng.integers(0, 256, n) | (rng.integers(0, 256, n) << 24)
+        return torch.from_numpy(keys.astype(np.uint32).view(np.int32))
+    if case == "three_passes":  # byte 2 constant: three passes of 8 bits run, the first writes out
+        keys = rng.integers(0, 1 << 16, n) | (0x5A << 16) | (rng.integers(0, 256, n) << 24)
+        return torch.from_numpy(keys.astype(np.uint32).view(np.int32))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["power_law", "equal", "extremes", "pads", "low_digit", "outer_digits",
+                                  "three_passes"])
+@pytest.mark.parametrize("n", [1, 2, kex.SORT_TILE - 1, kex.SORT_TILE, kex.SORT_TILE + 1, (1 << 20) + 3])
+def test_onesweep_sort_matches_plain_and_torch_sort(n, case):
+    """The onesweep sort at a tile's edges and past a million keys: bit-equal
+    to the plain passes and to torch.sort, with passes skipped where one
+    digit holds every key (all, none, some)."""
+    _require_cuda()
+    keys = _sort_cases(n, case, np.random.default_rng(n + len(case)))
+    kernels.reset_launches()
+    got = kex.radix_sort(keys.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["radix_sort"] == 1
+    assert torch.equal(got.cpu(), kex.radix_sort_plain(keys))
+    assert torch.equal(got.cpu(), torch.sort(keys).values)
+
+
+def test_onesweep_sort_refuses_more_keys_than_a_status_word_counts():
+    """A look-back status word holds a 30-bit count: 2**30 keys raise, on
+    the card as on the CPU, before anything is allocated or launched."""
+    _require_cuda()
+    keys = torch.empty(kex.SORT_MAX_KEYS + 1, dtype=torch.int32, device="cuda")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="30-bit count"):
+        kex.radix_sort(keys)
+    assert kernels.LAUNCHES["radix_sort"] == 0
+    del keys
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("D", [16, 5])
@@ -1679,6 +1778,50 @@ def test_cin_kernels_match_plain(B, Hk, F, D, Hn, same):
         assert _within_terms(got, want, mag), (name, float((got - want).abs().max()))
 
 
+@pytest.mark.parametrize("Hn", [1, 9, 200, 257])
+@pytest.mark.parametrize(
+    "B,Hk,F,D,same,misaligned",
+    [(131, 5, 1, 1, False, False), (77, 26, 26, 3, True, False), (45, 30, 17, 16, False, True)],
+    ids=["F1_D1", "xk_is_x0", "w_misaligned"],
+)
+def test_cin_forward_matches_plain_at_every_row_count(B, Hk, F, D, same, misaligned, Hn):
+    """The forward with every Hn row in one block: one row, a partial
+    8-row group, 200 rows, and 257 (two passes over the rows); F = 1 and D =
+    1; B * D never a multiple of the 64-column tile; x_k the same tensor as
+    x_0; w 4 bytes off 16-byte alignment (4-byte copies). Within 1e-5 of
+    the terms' magnitudes."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(B + Hn)
+    xk, x0, w, _ = _cin_inputs(g, B, Hk, F, D, Hn, same)
+    assert (B * D) % 64
+    x0c = x0.cuda()
+    xkc = x0c if same else xk.cuda()
+    if misaligned:
+        wc = torch.empty(w.numel() + 1, device="cuda")[1:].view(w.shape)
+        wc.copy_(w)
+        assert wc.data_ptr() % 16
+    else:
+        wc = w.cuda()
+    kernels.reset_launches()
+    out = kcin.cin_fwd(xkc, x0c, wc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd"] == 1 and out.shape == (B, Hn, D)
+    assert _within_terms(out.cpu(), kcin.cin_fwd_plain(xk, x0, w), kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
+
+
+def test_cin_forward_refuses_what_does_not_fit_in_shared_memory():
+    """The forward stages Hk + F rows of 64 columns in shared memory: at Hk
+    + F = 926 that passes the card's 227 KB a block, and the wrapper raises
+    naming Hk + F before anything launches."""
+    _require_cuda()
+    xk, x0 = torch.zeros((2, 900, 4), device="cuda"), torch.zeros((2, 26, 4), device="cuda")
+    w = torch.zeros((900 * 26, 8), device="cuda")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="Hk \\+ F = 926"):
+        kcin.cin_fwd(xk, x0, w)
+    assert kernels.LAUNCHES["cin_fwd"] == 0
+
+
 def test_cin_layer_autograd_sums_both_gradients_when_x_k_is_x_0():
     """xdeepfm_outer_product(x, x, w) through the kernels: x's gradient is
     dx_k + dx_0 (the plain layer's autograd on the same inputs, 1e-5 of the
@@ -1904,9 +2047,9 @@ def _float64_reduce(values, offsets, num_rows, combiner):
 def test_ragged_segment_reduce_matches_plain(case, combiner):
     """min and max bit for bit (NaN where the row holds one, ±inf for an
     empty row); sum and mean within 1e-5 of the float64 sum of |v| of the
-    row (float32 sums, each in its own order: the kernel's tree of 8-value
-    runs, block scans and one atomic a block, the plain version's
-    index_add_)."""
+    row (the kernel's float32 sums in its own order: a tree of 8-value
+    runs, block scans and one atomic a block; the plain version's float64
+    index_add_, rounded once)."""
     _require_cuda()
     rng = np.random.default_rng({"head_row_holds_most": 40, "many_short_rows": 41, "nan_and_tails": 42}[case])
     if case == "head_row_holds_most":

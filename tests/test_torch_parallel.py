@@ -138,6 +138,42 @@ def test_radix_sort_plain_orders_extremes():
     np.testing.assert_array_equal(kex.radix_sort(keys).numpy(), np.sort(keys.numpy()))
 
 
+def _sort_edge_keys(case, n, rng):
+    if case == "equal":
+        return np.full(n, -7, dtype=np.int32)
+    if case == "extremes":
+        return rng.choice(np.array([-(2**31), 2**31 - 1, -(2**31) + 1, 2**31 - 2, 0, -1], np.int32), n)
+    if case == "pads":
+        keys = rng.integers(0, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+        keys[rng.random(n) < 0.6] = kex.PAD
+        return keys
+    if case == "low_digit":
+        return rng.integers(0, 200, n).astype(np.int32)
+    if case == "outer_digits":
+        return (rng.integers(0, 256, n) | (rng.integers(0, 256, n) << 24)).astype(np.uint32).view(np.int32)
+    return rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "equal", "extremes", "pads", "low_digit", "outer_digits"])
+@pytest.mark.parametrize("n", [0, 1, 2, kex.SORT_TILE - 1, kex.SORT_TILE + 1])
+def test_radix_sort_plain_edges_match_np_sort(n, case):
+    """The plain passes at a sort tile's edges, on one repeated key, the
+    int32 extremes, phase 19's 60% pads and keys whose middle digits are
+    one value (the kernel skips those passes): equal to np.sort."""
+    keys = _sort_edge_keys(case, n, np.random.default_rng(n))
+    got = kex.radix_sort_plain(torch.from_numpy(keys))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.sort(keys))
+
+
+def test_radix_sort_refuses_more_keys_than_a_status_word_counts():
+    """2**30 keys pass the look-back's 30-bit count: the wrapper raises on
+    any device (a meta tensor allocates nothing); 2**30 - 1 is the limit."""
+    assert kex.SORT_MAX_KEYS == 2**30 - 1
+    with pytest.raises(ValueError, match="30-bit count"):
+        kex.radix_sort(torch.empty(2**30, dtype=torch.int32, device="meta"))
+
+
 # --- K15b's plain versions against the reference's per-device bodies --------------------
 def _table_and_ids():
     rng = np.random.default_rng(3)
