@@ -110,7 +110,7 @@ a nonzero exit:
    the integer lookups with hashed misses, each against its plain version
    on the card, timed beside its bound (K8's library yardstick: one
    torch.searchsorted over the vocabularies padded with +inf, positions
-   only);
+   only; its record names the largest column's keys and window S);
 16. DeepFM and DCN-v2 training on phase 7's feed: the loader staged anew
    (DeviceLoader(65536, shuffle=True, seed=0, drop_last=True) over the
    first 4 transformed partitions) into each model in turn, at the JAX
@@ -166,7 +166,8 @@ a nonzero exit:
    4 of phase 20's padded tables with [65536, 26] ids of its first batch
    and D = 16, each against its plain version on the card and timed beside
    its bound (index_select and zeros + index_add_ of the clamped shard rows
-   as the library calls);
+   as the library calls), the scatter's record with the hits of the
+   hottest shard rows (--profile: its zero fill and kernel apart);
 22. DLRM with the genres multihot table on phase 10's feed (its loader,
    staged anew: 8 partitions through DeviceLoader(sparse_max={"genres":
    4})), DLRMConfig.from_schema(num_dense=1) at the JAX config's defaults
@@ -606,6 +607,17 @@ def profile_pass(fn) -> dict:
         "top": [(k[:70], round(ms, 3), n) for k, ms, n in kernels[:10]],
         "top_ops": [(k[:40], round(ms, 3), n) for k, ms, n in ops[:12]],
     }
+
+
+PROFILE_CALLS = 20  # a trace of a single short call can come back with no device events
+
+
+def profiled_calls(fn):
+    """``fn`` PROFILE_CALLS times, then a synchronize: a window for
+    ``profile_pass`` whose ``top`` counts each kernel PROFILE_CALLS times."""
+    for _ in range(PROFILE_CALLS):
+        fn()
+    torch.cuda.synchronize()
 
 
 def step_grads(model, forward, batch, dz=None):
@@ -1929,7 +1941,7 @@ def buckets_kernel_records(dev, rec) -> dict:
     t = j["table"]
     args = (j["values"], j["validity"], t.keys, t.codes, t.starts, t.lens, j["sel"], j["col_offsets"], 2, 1,
             j["nbuckets"])
-    r = lookup_record(j, klk.sorted_lookup_plain, args, lambda: klk.sorted_lookup(*args))
+    r = lookup_record(j, klk.sorted_lookup_plain, args, lambda: klk.sorted_lookup(*args, fences=t.fences))
     C = j["values"].shape[0]
     key_reads, code_reads, probes = search_probes(j["values"], t.keys, t.starts, t.lens, j["sel"])
     codes = klk.sorted_lookup_plain(*args)
@@ -1937,8 +1949,10 @@ def buckets_kernel_records(dev, rec) -> dict:
     rows, _ = klk.padded_keys(t.keys, t.starts, t.lens)
     rows = rows[j["sel"].long()].contiguous()
     r["library_ms"] = time_ms(lambda: torch.searchsorted(rows, j["values"]))
+    largest = int(t.lens.argmax())
     r.update(shape=[C, n], bytes=C * n * 8 + key_reads * 4 + code_reads * 4, table_keys=int(t.keys.numel()),
-             probes=probes, distinct_keys_read=key_reads, library_what=LIBRARY_WHAT["sorted_lookup"])
+             probes=probes, distinct_keys_read=key_reads, library_what=LIBRARY_WHAT["sorted_lookup"],
+             largest_column_keys=int(t.lens[largest]), largest_column_window=1 << int(t.fence_shifts[largest]))
     r["bound_ms"], r["bound_by"] = bound(r["bytes"], probes * 2 + misses * 12)
     records["sorted_lookup"] = r
 
@@ -2440,8 +2454,8 @@ def sharded_kernel_records(dev, parts, cat_names, sharded: dict, profile: bool) 
     log(f"radix_sort [{N}] ({rec['pad_share']:.1%} pads): {rec['ms']:.4f} ms (the four-launch passes it replaced: "
         f"0.8040 ms), torch.sort {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
     if profile:
-        # device time by kernel of one sort: the scratch's zeroing, the histogram, the scan, the passes
-        rec["profile"] = profile_pass(lambda: kex.radix_sort(recv))["top"]
+        # device time by kernel of PROFILE_CALLS sorts: the scratch's zeroing, the histogram, the scan, the passes
+        rec["profile"] = profile_pass(lambda: profiled_calls(lambda: kex.radix_sort(recv)))["top"]
         log(f"profile radix_sort: device time by kernel {rec['profile']}")
     del keys, send, recv
 
@@ -2631,10 +2645,12 @@ def sharded_train_path(feed, schema, dlrm_steps_per_s: float, smi: str, profile:
     return rec
 
 
-def sharded_step_kernel_records(dev, sharded_train: dict) -> dict:
+def sharded_step_kernel_records(dev, sharded_train: dict, profile: bool) -> dict:
     """Phase 21: K15d's two kernels on model shard 1 of MODEL_SHARDS of phase
     20's padded tables, with its first batch's ids, against their plain
-    versions on the card; times beside bounds."""
+    versions on the card; times beside bounds. The scatter's record counts
+    the hits of the hottest shard rows; ``profile`` adds torch.profiler's
+    split of PROFILE_CALLS scatters into the zero fill and the kernel."""
     from nvtabular_tpu_torch.kernels import embedding as kemb
 
     phase_t0 = time.perf_counter()
@@ -2689,9 +2705,20 @@ def sharded_step_kernel_records(dev, sharded_train: dict) -> dict:
            "plain_ms": time_ms(lambda: kemb.range_scatter_grad_plain(grad, ids, *cols, rows)),
            "library_ms": time_ms(lambda: torch.zeros((rows, D), device=dev).index_add_(0, held_rows, grad_held))}
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], held * D)
+    hits = torch.bincount(held_rows, minlength=rows).topk(5).values.tolist()
+    rec["hottest_row_hits"] = hits[0]
+    rec["top_row_hits"] = hits
     records["range_scatter_grad"] = rec
     log(f"sharded step kernels: shard {m} of {MODEL_SHARDS} ({rows} rows), {held} of {B * C} ids held, "
-        f"{distinct} distinct rows; phase 21 took {time.perf_counter() - phase_t0:.1f} s")
+        f"{distinct} distinct rows, the 5 hottest hit {hits} times; range_scatter_grad {rec['ms']:.4f} ms "
+        f"(zeros + index_add_ {rec['library_ms']:.4f}); phase 21 took {time.perf_counter() - phase_t0:.1f} s")
+    if profile:
+        # device time by kernel of PROFILE_CALLS scatters: the zero fill (a memset) and the reductions
+        def scatter():
+            return kemb.range_scatter_grad(grad, ids, *cols, rows)
+
+        rec["profile"] = profile_pass(lambda: profiled_calls(scatter))["top"]
+        log(f"profile range_scatter_grad: device time by kernel {rec['profile']}")
     return records
 
 
@@ -4072,7 +4099,7 @@ def main():
         train_launches[k] += st_launches[k]
 
     # --- 21. K15d against its plain versions on model shard 1 of 4 ------------------------------------
-    records.update(sharded_step_kernel_records(dev, sharded_train))
+    records.update(sharded_step_kernel_records(dev, sharded_train, opts.profile))
     del sharded_train["ids"]
 
     # --- 22. DLRM with the genres multihot table on phase 10's feed, whole and row-sharded -------------

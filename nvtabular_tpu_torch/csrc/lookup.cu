@@ -248,55 +248,150 @@ stash_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restric
 // _Vocab.encode_device (nvtabular_tpu/ops/categorify.py:570-585), which XLA
 // lowers to a loop of gathers over one column's sorted float32 keys.
 //
-// One thread per value runs a lower-bound search over its column's keys
-// [starts[b], starts[b] + lens[b]) of the concatenated table: the first key
-// >= v (float compares, so -0.0 and 0.0 find the same key), a hit when that
-// key equals v. An empty vocabulary takes the OOV code with no search; a NaN
-// or invalid row takes the null code whatever it would have found. XLA
-// flushes subnormals to zero on the reference's device path, so a subnormal
-// value searches as 0.0 (the table's keys are flushed when it is built); a
-// missed value hashes its own bits, as the reference's bitcast does.
+// Each value takes the lower bound of its column's keys [starts[b], starts[b]
+// + lens[b]) of the concatenated table: the first key >= v (float compares,
+// so -0.0 and 0.0 find the same key), a hit when that key equals v. An empty
+// vocabulary takes the OOV code with no search; a NaN or invalid row takes
+// the null code whatever it would have found. XLA flushes subnormals to zero
+// on the reference's device path, so a subnormal value searches as 0.0 (the
+// table's keys are flushed when it is built); a missed value hashes its own
+// bits, as the reference's bitcast does.
 //
-// Bound: bytes. Values and codes stream (8 B per value); the table is read
-// where the searches land: at Criteo's float columns, ~126K keys a column
-// (1 MB with their codes, ~13 MB for 13 columns), which L2 (50 MB) holds
-// after the first touches. The ~17 probes a value are dependent loads, so a
-// thread waits on L2 latency 17 times; the block is one column
-// (blockIdx.y), so its threads share the first probes' sectors in L1, and
-// the card keeps enough warps in flight to cover the rest. The hashed miss
-// uses the float32 bits, as the reference's device hash does.
-// Grid: (ceil(N / kThreads), C).
-__global__ void __launch_bounds__(kThreads)
+// Bound: bytes. Values and codes stream (8 B per value), and the table is
+// read where the searches land: at Criteo's float columns ~114K keys a
+// column, which L2 (50 MB) holds. A plain binary search makes ~17 dependent
+// L2 round trips a value, so the design keeps the search's top levels in
+// shared memory and touches L2 once or twice:
+//
+// * Windows and fences. Column b's keys are cut into windows of S = 2^shift
+//   slots from base = starts[b] & ~3 (so every window is 16-byte aligned;
+//   slots outside [starts[b], starts[b] + lens[b]) belong to no window's
+//   search). The fence of window j is its first key of the column,
+//   keys[max(base + j * S, starts[b])]. S is the least power of two >= 4
+//   that leaves at most kFenceMax windows, so the fences fit 128 KB.
+// * The fences are a complete binary search tree of 2^h - 1 nodes (h the
+//   bit length of the window count, +inf past the last fence) in Eytzinger
+//   (breadth-first) order, node k at tree[k], built once with the table
+//   (sorted_fences in kernels/lookup.py) from fence_starts[b], a multiple
+//   of 4 floats. Descending k = 2k + (tree[k] < x) for h steps ends at
+//   2^h + (the fences < x), and k >> ffs(~k) is the node of the first fence
+//   >= x. A level's lanes read nodes spread over all 32 banks; a sorted
+//   array searched by power-of-two steps would send every lane of a level
+//   to one bank (measured: 2.7x slower, PERF.md).
+// * A persistent grid (the blocks the card holds at once) splits the [C, N]
+//   values evenly; a block stages each column's tree it enters in shared
+//   memory with one run of 16-byte cp.async copies (twice at most at
+//   Criteo's shape) and walks its values kSortedIlp at a time.
+// * Window j, the last whose fence is < x, holds the first key >= x or
+//   ends just before it, so a run of equal keys that straddles a window
+//   edge is found at its first key. It is read with independent float4
+//   loads (one L2 round trip; one vector at S = 4) and its keys < x are
+//   counted without branches; the least key >= x among the window and the
+//   next fence is the key at the answer's slot. None of the fences < x:
+//   the first key is the answer. Only a hit reads its code.
+constexpr int kFenceMax = 32767;       // sorted_fences' FENCE_MAX: a tree of at most 32,768 floats
+constexpr int kTreeBytes = (kFenceMax + 1) * static_cast<int>(sizeof(float));
+constexpr int kSortedThreads = 1024;
+constexpr int kSortedIlp = 4;          // values a thread searches at once
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+// key k at slot t of a window whose column slots are [lo, hi): counted when
+// below x, else a candidate for the first key >= x
+__device__ __forceinline__ void tally(float k, int t, int lo, int hi, float x, int& less, float& first) {
+  const bool in = t >= lo && t < hi;
+  less += (in && k < x) ? 1 : 0;
+  first = (in && !(k < x)) ? fminf(first, k) : first;
+}
+
+// The code of value v of a column whose keys are [start, end) and whose
+// fence tree of 2^h - 1 nodes is in shared memory.
+__device__ __forceinline__ int32_t sorted_code(float v, const float* __restrict__ keys,
+                                               const int32_t* __restrict__ codes, const float* tree, int h,
+                                               int64_t start, int64_t end, int64_t base, int shift, int c,
+                                               const Epilogue& e) {
+  const float x = fabsf(v) < kFloatMinNormal ? 0.0f : v;
+  int k = 1;
+  for (int d = 0; d < h; ++d) k = 2 * k + (tree[k] < x ? 1 : 0);
+  const int below = k - (1 << h);  // fences < x
+  const int next = k >> __ffs(~k);  // the node of the first fence >= x; 0: none
+  float first = next ? tree[next] : __int_as_float(0x7fc00000);  // NaN compares unequal
+  int64_t pos = start;  // the first slot whose key is >= x
+  if (below > 0) {
+    const int64_t w0 = base + (static_cast<int64_t>(below - 1) << shift);
+    const int lo = static_cast<int>(start > w0 ? start - w0 : 0);  // the window's column slots [lo, hi)
+    const int64_t left = end - w0;
+    const int hi = static_cast<int>(left < (int64_t{1} << shift) ? left : (int64_t{1} << shift));
+    int less = 0;
+    for (int t = 0; t < hi; t += 4) {  // a vector past the column's last slot may lie past the table
+      const float4 q = __ldg(reinterpret_cast<const float4*>(keys + w0 + t));
+      tally(q.x, t, lo, hi, x, less, first);
+      tally(q.y, t + 1, lo, hi, x, less, first);
+      tally(q.z, t + 2, lo, hi, x, less, first);
+      tally(q.w, t + 3, lo, hi, x, less, first);
+    }
+    pos = w0 + lo + less;
+  }
+  return pos < end && first == x ? __ldg(codes + pos) : miss_code(__float_as_uint(v), 0u, c, e);
+}
+
+__global__ void __launch_bounds__(kSortedThreads)
 sorted_lookup_kernel(const float* __restrict__ values, const uint8_t* __restrict__ valid,
                      const float* __restrict__ keys, const int32_t* __restrict__ codes,
                      const int64_t* __restrict__ starts, const int64_t* __restrict__ lens,
-                     const int32_t* __restrict__ sel, const int32_t* __restrict__ col_off,
-                     int32_t* __restrict__ out, int64_t n, Epilogue e) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const int c = blockIdx.y;
-  const int64_t i = static_cast<int64_t>(c) * n + r;
-  const float v = values[i];
-  if (isnan(v) || (valid != nullptr && valid[i] == 0)) {
-    out[i] = e.null + col_off[c];
-    return;
+                     const float* __restrict__ fences, const int64_t* __restrict__ fence_starts,
+                     const int32_t* __restrict__ fence_shifts, const int32_t* __restrict__ sel,
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n, int num_cols,
+                     Epilogue e) {
+  extern __shared__ float4 s_tree4[];
+  const float* tree = reinterpret_cast<const float*>(s_tree4);
+  const int64_t total = n * num_cols;
+  const int64_t share_end = total * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t seg = total * blockIdx.x / gridDim.x; seg < share_end;) {
+    const int c = static_cast<int>(seg / n);
+    const int64_t seg_end = (c + 1) * n < share_end ? (c + 1) * n : share_end;
+    const int b = sel[c];
+    const int64_t start = starts[b];
+    const int64_t end = start + lens[b];
+    const int shift = fence_shifts[b];
+    const int64_t base = start & ~int64_t{3};
+    const int64_t windows = end > start ? (end - base + (int64_t{1} << shift) - 1) >> shift : 0;
+    const int h = windows > 0 ? 64 - __clzll(windows < kFenceMax ? windows : kFenceMax) : 0;
+    const float* f = fences + fence_starts[b];
+    __syncthreads();  // the previous column's searches are done with the tree
+    for (int q = threadIdx.x; q < (h > 0 ? ((1 << h) + 3) / 4 : 0); q += kSortedThreads) {
+      cp_async16(reinterpret_cast<float*>(s_tree4 + q), f + 4 * q);
+    }
+    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    const int32_t off = col_off[c];
+    for (int64_t i0 = seg + threadIdx.x; i0 < seg_end; i0 += kSortedThreads * kSortedIlp) {
+      float v[kSortedIlp];
+#pragma unroll
+      for (int u = 0; u < kSortedIlp; ++u) {
+        const int64_t i = i0 + u * kSortedThreads;
+        v[u] = i < seg_end ? values[i] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSortedIlp; ++u) {
+        const int64_t i = i0 + u * kSortedThreads;
+        if (i >= seg_end) break;
+        int32_t code;
+        if (isnan(v[u]) || (valid != nullptr && valid[i] == 0)) {
+          code = e.null;
+        } else if (h == 0) {
+          code = miss_code(__float_as_uint(v[u]), 0u, c, e);
+        } else {
+          code = sorted_code(v[u], keys, codes, tree, h, start, end, base, shift, c, e);
+        }
+        out[i] = code + off;
+      }
+    }
+    seg = seg_end;
   }
-  const int b = sel[c];
-  const float* k = keys + starts[b];
-  const int64_t len = lens[b];
-  const float x = fabsf(v) < kFloatMinNormal ? 0.0f : v;
-  int64_t lo = 0, hi = len;  // first slot whose key is >= x
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (__ldg(k + mid) < x) lo = mid + 1; else hi = mid;
-  }
-  int32_t code;
-  if (lo < len && __ldg(k + lo) == x) {
-    code = __ldg(codes + starts[b] + lo);
-  } else {
-    code = miss_code(__float_as_uint(v), 0u, c, e);
-  }
-  out[i] = code + col_off[c];
 }
 
 inline unsigned int blocks_for(int64_t n, int64_t per_block) {
@@ -358,12 +453,27 @@ extern "C" int nvt_stash_lookup(const int32_t* values, const uint8_t* valid, con
 
 extern "C" int nvt_sorted_lookup(const float* values, const uint8_t* valid, const float* keys,
                                  const int32_t* codes, const int64_t* starts, const int64_t* lens,
+                                 const float* fences, const int64_t* fence_starts, const int32_t* fence_shifts,
                                  const int32_t* sel, const int32_t* col_off, int32_t* out, int num_cols,
-                                 int64_t n, int miss, int null_code, const int32_t* nbuckets,
-                                 void* stream) {
+                                 int64_t n, int miss, int null_code, const int32_t* nbuckets, void* stream) {
   if (num_cols == 0 || n == 0) return 0;
-  dim3 grid(blocks_for(n, kThreads), num_cols);
-  sorted_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, keys, codes, starts, lens, sel, col_off, out, n, Epilogue{miss, null_code, nbuckets});
+  cudaError_t err =
+      cudaFuncSetAttribute(sorted_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTreeBytes);
+  static int resident = 0;  // blocks the card holds at once: the persistent grid
+  if (err == cudaSuccess && resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sorted_lookup_kernel, kSortedThreads, kTreeBytes);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = n * num_cols;
+  const int64_t needed = (total + kSortedThreads - 1) / kSortedThreads;
+  const unsigned grid = static_cast<unsigned>(needed < resident ? needed : resident);
+  sorted_lookup_kernel<<<grid, kSortedThreads, kTreeBytes, static_cast<cudaStream_t>(stream)>>>(
+      values, valid, keys, codes, starts, lens, fences, fence_starts, fence_shifts, sel, col_off, out, n, num_cols,
+      Epilogue{miss, null_code, nbuckets});
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,13 +71,25 @@
 // K13a's gather (csrc/embedding.cu) with a row range per column.
 //
 // nvt_range_scatter_grad: the dense [rows_local, D] gradient of the shard,
-// a zero fill (cudaMemsetAsync) then one atomic reduction per float4 (per
-// float where D % 4 != 0) for each id this rank holds; another rank's ids
-// and ids no rank holds add nothing. The gradient may be a strided view
-// (grad_row_stride floats between rows: slots 1..C of the [B, 1 + C, D]
-// features' gradient). Atomics make the summation order, and so the last
-// bits, vary from run to run. Bound: bytes — the zero fill of the shard's
-// gradient, the ids and the gradient rows this rank holds, once each.
+// a zero fill (cudaMemsetAsync, one pass at the memory's rate: the floor)
+// then the held ids' rows added; another rank's ids and ids no rank holds
+// add nothing. The gradient may be a strided view (grad_row_stride floats
+// between rows: slots 1..C of the [B, 1 + C, D] features' gradient). Bound:
+// bytes — the zero fill of the shard's gradient, the ids and the gradient
+// rows this rank holds, once each. At a quarter shard of Criteo's tables
+// only a quarter of the ids are held, and the small tables send most of a
+// column's ids to a few rows, whose atomics would serialize at their L2
+// slice. So a warp takes 32 consecutive ids of one column (one coalesced
+// load, each id read once), ballots the held ones, groups equal shard rows
+// with __match_any_sync and sums each group's gradient rows in registers by
+// a shuffle tree (log2 of the group's size steps, the same for every float4
+// of the row); the group's leader alone issues the reductions, one
+// red.global.add.v4.f32 per float4 (a float where D % 4 != 0 or a row is
+// not 16-byte aligned). A warp walks a contiguous run of such tiles and
+// carries one hot row's sum across them in shared memory, so a row that
+// takes most of a column's ids gets one reduction a float4 per warp, not
+// per tile. D <= kCarryMaxDim (1536). Atomics and the tree make the
+// summation order, and so the last bits, vary from run to run.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -257,14 +269,18 @@ struct RangeColumns {
   int64_t padded[kMaxCols];      // the table's padded global size Vp
 };
 
-// The shard row of id b of column col, or kElsewhere / kNoRank.
-__device__ __forceinline__ int64_t shard_row(const RangeColumns& c, int col, int64_t b) {
-  int64_t id = c.ids[col][b];
+// The shard row of column col's id, or kElsewhere / kNoRank.
+__device__ __forceinline__ int64_t shard_row_of(const RangeColumns& c, int col, int64_t id) {
   const int64_t vp = c.padded[col];
   if (id < 0) id += vp;
   if (id < 0 || id >= vp) return kNoRank;
   const int64_t local = id - c.start[col];
   return (local >= 0 && local < c.size[col]) ? c.offset[col] + local : kElsewhere;
+}
+
+// The shard row of id b of column col.
+__device__ __forceinline__ int64_t shard_row(const RangeColumns& c, int col, int64_t b) {
+  return shard_row_of(c, col, c.ids[col][b]);
 }
 
 template <int VEC>
@@ -290,27 +306,162 @@ range_gather_columns_kernel(const __grid_constant__ RangeColumns c, int num_cols
   store_vec<VEC>(out + b * out_row_stride + static_cast<int64_t>(col) * D + q * VEC, v);
 }
 
+constexpr unsigned kAllLanes = 0xffffffffu;
+constexpr int kTreeSteps = 5;  // log2(32): the most a warp's group of equal rows takes
+constexpr int kRowChunk = 4;   // vectors of a gradient row a lane holds at once
+constexpr int kWarps = kThreads / 32;
+constexpr int kCarryMaxDim = 48 * 1024 / (kWarps * static_cast<int>(sizeof(float)));  // 48 KB of carries a block
+
+// Warp w takes tiles [w * T / W, (w + 1) * T / W) of the T = C * ceil(B / 32)
+// 32-id tiles (column-major: a tile is 32 consecutive ids of one column),
+// so its tiles are consecutive ids of one column or two. Each warp carries
+// the sum of one shard row across its tiles in shared memory: the first
+// group of two or more equal rows it meets, and after that the largest
+// group of a tile that has none of the carried row (the carry is then
+// added to the gradient and restarts). A column whose ids fall on one row
+// then costs one reduction per float4 per warp, not per tile; the other
+// groups' leaders add their sums at once.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_scatter_grad_kernel(const __grid_constant__ RangeColumns c, int num_cols, const float* __restrict__ grad,
                           int64_t grad_row_stride, int D, int64_t B, float* __restrict__ dtable) {
+  extern __shared__ float carries[];  // [kWarps, D]
   const int per_row = D / VEC;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= B * num_cols * per_row) return;
-  const int64_t rc = t / per_row;
-  const int q = static_cast<int>(t - rc * per_row);
-  const int64_t b = rc / num_cols;
-  const int col = static_cast<int>(rc - b * num_cols);
-  const int64_t row = shard_row(c, col, b);
-  if (row < 0) return;
-  const float* src = grad + b * grad_row_stride + static_cast<int64_t>(col) * D + q * VEC;
-  float* dst = dtable + row * D + q * VEC;
-  if constexpr (VEC == 4) {
-    // one vector reduction (red.global.add.v4.f32, compute capability 9.x)
-    atomicAdd(reinterpret_cast<float4*>(dst), *reinterpret_cast<const float4*>(src));
-  } else {
-    atomicAdd(dst, *src);
+  const int lane = threadIdx.x & 31;
+  float* carry = carries + (threadIdx.x >> 5) * D;
+  for (int d = lane; d < D; d += 32) carry[d] = 0.0f;
+  __syncwarp();
+  const int64_t tiles = (B + 31) >> 5;
+  const int64_t total = tiles * num_cols;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  int64_t carry_row = -1;  // warp-uniform; -1: nothing carried
+
+  auto flush = [&]() {  // add the carried sum to the gradient and restart it
+    __syncwarp();
+    for (int q = lane; q < per_row; q += 32) {
+      float* d = dtable + carry_row * D + q * VEC;
+      if constexpr (VEC == 4) {
+        // one vector reduction (red.global.add.v4.f32, compute capability 9.x)
+        atomicAdd(reinterpret_cast<float4*>(d), *reinterpret_cast<const float4*>(carry + q * 4));
+        *reinterpret_cast<float4*>(carry + q * 4) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      } else {
+        atomicAdd(d, carry[q]);
+        carry[q] = 0.0f;
+      }
+    }
+    __syncwarp();
+  };
+
+  const int64_t w_end = total * (warp + 1) / warps;
+  auto id_of = [&](int64_t w) -> int32_t {  // lane's id of tile w (0 past the batch)
+    const int col = static_cast<int>(w / tiles);
+    const int64_t b = ((w - col * tiles) << 5) + lane;
+    return b < B ? c.ids[col][b] : 0;
+  };
+  int64_t w = total * warp / warps;
+  int32_t next_id = w < w_end ? id_of(w) : 0;  // the ids are read one tile ahead
+  for (; w < w_end; ++w) {
+    const int col = static_cast<int>(w / tiles);
+    const int64_t b = ((w - col * tiles) << 5) + lane;
+    const int32_t id = next_id;
+    if (w + 1 < w_end) next_id = id_of(w + 1);
+    const int64_t row = b < B ? shard_row_of(c, col, id) : kElsewhere;
+    const bool held = row >= 0;
+    if (__ballot_sync(kAllLanes, held) == 0) continue;
+    const float* src = grad + (held ? b * grad_row_stride + static_cast<int64_t>(col) * D : 0);
+    float v[kRowChunk][VEC];
+    auto load_chunk = [&](int q0) {  // vectors q0 .. q0 + kRowChunk - 1 of the lane's gradient row
+#pragma unroll
+      for (int k = 0; k < kRowChunk; ++k) {
+        if (held && q0 + k < per_row) {
+          load_vec<VEC>(src + (q0 + k) * VEC, v[k]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+        }
+      }
+    };
+    load_chunk(0);  // in flight while the warp groups its rows
+    const unsigned peers = __match_any_sync(kAllLanes, held ? row : kElsewhere);
+    const unsigned lower = peers & ((1u << lane) - 1u);
+    const bool leader = held && lower == 0;
+    // The tree's schedule: at step s a lane adds the partial sum of from[s],
+    // its next higher peer still live (-1: none); the lanes of odd rank among
+    // the live ones are then done, their sums taken by the lane below.
+    int from[kTreeSteps];
+    int steps = 0;
+    unsigned rest = held ? peers & (0xfffffffeu << lane) : 0u;
+    unsigned rank = __popc(lower);
+#pragma unroll
+    for (int s = 0; s < kTreeSteps; ++s) {
+      if (!__any_sync(kAllLanes, rest != 0)) break;
+      from[s] = __ffs(rest) - 1;
+      rest &= ~__ballot_sync(kAllLanes, held && (rank & 1u));
+      rank >>= 1;
+      steps = s + 1;
+    }
+    // the leader whose group joins the carry (-1: none)
+    const unsigned match = __ballot_sync(kAllLanes, leader && row == carry_row);
+    int keeper = __ffs(match) - 1;
+    if (match == 0) {
+      const unsigned best = __reduce_max_sync(kAllLanes, leader ? (__popc(peers) << 5) | lane : 0u);
+      if ((best >> 5) >= 2) {
+        if (carry_row >= 0) flush();
+        keeper = static_cast<int>(best & 31u);
+        carry_row = __shfl_sync(kAllLanes, row, keeper);
+      }
+    }
+    float* dst = dtable + (held ? row * D : 0);
+    for (int q0 = 0; q0 < per_row; q0 += kRowChunk) {
+      if (q0 > 0) load_chunk(q0);
+#pragma unroll
+      for (int s = 0; s < kTreeSteps; ++s) {
+        if (s < steps) {
+          const int f = from[s];
+#pragma unroll
+          for (int k = 0; k < kRowChunk; ++k) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const float t = __shfl_sync(kAllLanes, v[k][e], f < 0 ? lane : f);
+              if (f >= 0) v[k][e] += t;
+            }
+          }
+        }
+      }
+      if (leader) {
+#pragma unroll
+        for (int k = 0; k < kRowChunk; ++k) {
+          if (q0 + k >= per_row) break;
+          if (lane == keeper) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) carry[(q0 + k) * VEC + e] += v[k][e];
+          } else if constexpr (VEC == 4) {
+            atomicAdd(reinterpret_cast<float4*>(dst + (q0 + k) * 4), make_float4(v[k][0], v[k][1], v[k][2], v[k][3]));
+          } else {
+            atomicAdd(dst + q0 + k, v[k][0]);
+          }
+        }
+      }
+    }
   }
+  if (carry_row >= 0) flush();
+}
+
+// The grid-stride loop's grid: the blocks of range_scatter_grad_kernel<VEC>
+// the card holds at once with `smem` bytes of carries each.
+template <int VEC>
+int scatter_grid(int64_t tiles_total, int smem, unsigned* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, range_scatter_grad_kernel<VEC>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int64_t needed = (tiles_total + kWarps - 1) / kWarps;
+  *blocks = static_cast<unsigned>(needed < resident ? needed : resident);
+  return 0;
 }
 
 int fill_range_columns(RangeColumns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
@@ -436,13 +587,17 @@ extern "C" int nvt_range_scatter_grad(const void* const* ids, const int64_t* off
     const cudaError_t err = cudaMemsetAsync(dtable, 0, static_cast<size_t>(rows_local) * D * sizeof(float), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t total = B * num_cols * (D / vec);
-  if (total == 0) return 0;
-  if (vec == 4)
-    range_scatter_grad_kernel<4><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, grad, grad_row_stride, D,
-                                                                            B, dtable);
-  else
-    range_scatter_grad_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, grad, grad_row_stride, D,
-                                                                            B, dtable);
+  const int64_t tiles = (B + 31) / 32 * num_cols;
+  if (tiles == 0 || D == 0) return 0;
+  if (D > kCarryMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kWarps * D * static_cast<int>(sizeof(float));
+  unsigned blocks = 0;
+  if (vec == 4) {
+    if (int rc = scatter_grid<4>(tiles, smem, &blocks)) return rc;
+    range_scatter_grad_kernel<4><<<blocks, kThreads, smem, stream>>>(c, num_cols, grad, grad_row_stride, D, B, dtable);
+  } else {
+    if (int rc = scatter_grid<1>(tiles, smem, &blocks)) return rc;
+    range_scatter_grad_kernel<1><<<blocks, kThreads, smem, stream>>>(c, num_cols, grad, grad_row_stride, D, B, dtable);
+  }
   return static_cast<int>(cudaGetLastError());
 }

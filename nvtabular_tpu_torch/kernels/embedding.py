@@ -35,6 +35,7 @@ from .build import library
 from .embedding_bag import bag_counts, embedding_bag_bwd, embedding_bag_fwd, range_bag, range_bag_grad
 
 MAX_COLUMNS = 64  # csrc/embedding.cu kMaxCols
+SCATTER_MAX_DIM = 1536  # csrc/sharded_embedding.cu kCarryMaxDim: a warp's hot-row carry in 48 KB a block
 
 _GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -321,6 +322,8 @@ def range_scatter_grad(
     if not use_kernel(grad):
         return range_scatter_grad_plain(grad, ids, offsets, sizes, starts, padded, num_rows)
     _check_kernel_limits(B, C, D)
+    if D > SCATTER_MAX_DIM:
+        raise ValueError(f"range_scatter_grad takes D <= {SCATTER_MAX_DIM} on the card, got {D}")
     dtable = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
     if D == 0:
         return dtable

@@ -51,8 +51,9 @@ _ARGTYPES = {
     "nvt_direct_lookup": [_P] * 10 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
     # values, validity, table, nbs, row_offsets, sel, col_offsets, out, C, N, miss, null, nbuckets, stream
     "nvt_cuckoo_lookup": [_P] * 8 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
-    # values, validity, keys, codes, starts, lens, sel, col_offsets, out, C, N, miss, null, nbuckets, stream
-    "nvt_sorted_lookup": [_P] * 9 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
+    # values, validity, keys, codes, starts, lens, fence keys, fence starts, fence shifts, sel, col_offsets, out,
+    # C, N, miss, null, nbuckets, stream
+    "nvt_sorted_lookup": [_P] * 12 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
     # values, validity, table, nbps, row_offsets, stash, nbss, stash_offsets, sel, col_offsets, out, C, N, miss,
     # null, nbuckets, stream
     "nvt_stash_lookup": [_P] * 11 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 2 + [_P, _P],
@@ -318,9 +319,58 @@ def stash_lookup_plain(values, validity, table, nbps, row_offsets, stash, nbss, 
     return _epilogue(code, hit, validity, col_offsets, miss, null, values, nbuckets)
 
 
-# --- K8 + K4: sorted float vocabularies, a binary search ------------------------
+# --- K8 + K4: sorted float vocabularies: a fence tree in shared memory, one window ------
+FENCE_MAX = 32767  # windows a column may have: a tree of at most 32,768 floats, 128 KB (csrc/lookup.cu kFenceMax)
+FENCE_MIN_SHIFT = 2  # a window is at least one 16-byte vector of keys
+
+
+def sorted_fences(keys, starts, lens):
+    """K8's search index, built once with the table: (fence trees [F] float32,
+    tree starts [B] int64, window shifts [B] int32).
+
+    Row b's keys are cut into windows of S = 2**shift slots from base =
+    ``starts[b] - starts[b] % 4`` (16-byte aligned when ``keys`` is), S the
+    least power of two >= 4 that leaves at most ``FENCE_MAX`` windows; the
+    fence of window j is ``keys[max(base + j * S, starts[b])]``, the window's
+    first key of the row. The row's W fences (+inf past them) fill a
+    complete binary search tree of 2**h - 1 nodes, h = W's bit length, held
+    in Eytzinger order: node k (1-based, breadth first) at ``tree starts[b]
+    + k``, the entry before node 1 +inf. Each tree starts at a multiple of 4
+    floats (the pad +inf), so a block copies it in 16-byte pieces; an empty
+    row has none."""
+    trees, tree_starts, shifts = [], [], []
+    total = 0
+    for start, n in zip(starts.tolist(), lens.tolist()):
+        base = start - start % 4
+        shift = FENCE_MIN_SHIFT
+        while (start - base + n + (1 << shift) - 1) >> shift > FENCE_MAX:
+            shift += 1
+        count = (start - base + n + (1 << shift) - 1) >> shift if n else 0
+        tree_starts.append(total)
+        shifts.append(shift)
+        if count == 0:
+            continue
+        h = count.bit_length()
+        slots = torch.clamp(base + (torch.arange(count, device=keys.device) << shift), min=start)
+        ordered = torch.full((1 << h,), float("inf"), device=keys.device)
+        ordered[:count] = keys[slots]
+        # node k at depth d = floor(log2 k), p = k - 2**d, holds sorted entry (2p + 1) * 2**(h - 1 - d) - 1
+        node = torch.arange(1, 1 << h, device=keys.device)
+        depth = torch.tensor([k.bit_length() - 1 for k in range(1, 1 << h)], device=keys.device)
+        size = (1 << h) + -(1 << h) % 4
+        tree = torch.full((size,), float("inf"), device=keys.device)
+        tree[1 : 1 << h] = ordered[((2 * (node - (1 << depth)) + 1) << (h - 1 - depth)) - 1]
+        trees.append(tree)
+        total += size
+    return (
+        torch.cat(trees) if trees else torch.zeros(0, dtype=torch.float32, device=keys.device),
+        torch.tensor(tree_starts, dtype=torch.int64, device=keys.device),
+        torch.tensor(shifts, dtype=torch.int32, device=keys.device),
+    )
+
+
 def sorted_lookup(values, validity, keys, codes, starts, lens, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX,
-                  nbuckets=None):
+                  nbuckets=None, fences=None):
     """Replaces the searchsorted branch of ``_Vocab.encode_device``
     (nvtabular_tpu/ops/categorify.py:552-585, :570-576).
 
@@ -331,7 +381,11 @@ def sorted_lookup(values, validity, keys, codes, starts, lens, sel, col_offsets,
     two vocabulary keys that round to one float32 give the first one's code,
     and -0.0 and 0.0 find the same key. Subnormal values compare as zero, as
     XLA's flush to zero has them on the reference's device path (the table
-    holds its keys flushed); a missed value hashes its own bits."""
+    holds its keys flushed); a missed value hashes its own bits.
+
+    ``fences``: ``sorted_fences(keys, starts, lens)``, the table's search
+    index, which the kernel needs (``BatchedSorted`` builds it with the
+    table); the plain version does not read it."""
     _check_common(values, validity, sel, col_offsets, nbuckets, torch.float32)
     dev = values.device
     B = starts.shape[0]
@@ -341,10 +395,18 @@ def sorted_lookup(values, validity, keys, codes, starts, lens, sel, col_offsets,
     check(lens, "lens", torch.int64, dev, (B,))
     if not use_kernel(values):
         return sorted_lookup_plain(values, validity, keys, codes, starts, lens, sel, col_offsets, miss, null, nbuckets)
+    if fences is None:
+        raise ValueError("sorted_lookup on the card needs the table's fences: sorted_fences(keys, starts, lens)")
+    fence_keys, fence_starts, fence_shifts = fences
+    check(fence_keys, "fence keys", torch.float32, dev)
+    check(fence_starts, "fence starts", torch.int64, dev, (B,))
+    check(fence_shifts, "fence shifts", torch.int32, dev, (B,))
+    if keys.data_ptr() % 16 or fence_keys.data_ptr() % 16:
+        raise ValueError("sorted lookup keys and fences must be 16-byte aligned for float4 loads")
     return _launch(
         "sorted_lookup",
         values,
-        ([values, validity, keys, codes, starts, lens, sel, col_offsets], []),
+        ([values, validity, keys, codes, starts, lens, fence_keys, fence_starts, fence_shifts, sel, col_offsets], []),
         miss,
         null,
         nbuckets,

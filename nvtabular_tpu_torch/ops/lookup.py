@@ -46,6 +46,7 @@ from ..kernels.lookup import (
     TINY_MAX,
     cuckoo_lookup,
     direct_lookup,
+    sorted_fences,
     sorted_lookup,
     stash_lookup,
     tiny_lookup,
@@ -481,9 +482,11 @@ class BatchedStash(_Batched):
 
 class BatchedSorted(_Batched):
     """Every sorted float vocabulary concatenated: keys [K] float32 and codes
-    [K] int32; row b spans ``starts[b] : starts[b] + lens[b]``."""
+    [K] int32; row b spans ``starts[b] : starts[b] + lens[b]``. K8's search
+    index (``sorted_fences``: each row's window fences as a search tree) is
+    built here, once with the table."""
 
-    _tensors = ("keys", "codes", "starts", "lens")
+    _tensors = ("keys", "codes", "starts", "lens", "fence_keys", "fence_starts", "fence_shifts")
 
     def __init__(self, luts: List[SortedLookup]):
         self.keys = torch.from_numpy(np.concatenate([np.zeros(0, np.float32)] + [l.keys for l in luts]))
@@ -491,13 +494,19 @@ class BatchedSorted(_Batched):
         lens = np.array([len(l.keys) for l in luts], dtype=np.int64)
         self.lens = torch.from_numpy(lens)
         self.starts = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64))
+        self.fence_keys, self.fence_starts, self.fence_shifts = sorted_fences(self.keys, self.starts, self.lens)
+
+    @property
+    def fences(self):
+        return self.fence_keys, self.fence_starts, self.fence_shifts
 
     def encode(self, values, validity, sel, col_offsets, miss=OOV_INDEX, null=NULL_INDEX, nbuckets=None,
                counter=None):
         """``counter`` is accepted for a uniform interface; K8's launches
         count as ``sorted_lookup``."""
         return sorted_lookup(
-            values, validity, self.keys, self.codes, self.starts, self.lens, sel, col_offsets, miss, null, nbuckets
+            values, validity, self.keys, self.codes, self.starts, self.lens, sel, col_offsets, miss, null, nbuckets,
+            self.fences,
         )
 
 

@@ -357,3 +357,80 @@ def test_sorted_lookup_plain_edges():
     got = klk.sorted_lookup(vals, valid, t.keys, t.codes, t.starts, t.lens, torch.tensor([0, 1], dtype=torch.int32),
                             torch.tensor([0, 100], dtype=torch.int32))
     assert got.tolist() == [[2, 2, 1, 1], [103, 102, 101, 103]]
+
+
+def _fence_vocabs(sizes, seed=11):
+    r = np.random.default_rng(seed)
+    return [SortedLookup(np.unique(r.normal(0.0, 100.0, n * 2))[:n] if n else np.zeros(0), np.arange(n) + 3)
+            for n in sizes]
+
+
+def _in_order_tree(sorted_fences, h):
+    """The complete binary search tree of 2**h - 1 nodes over ``sorted_fences``
+    (+inf past them) in breadth-first order, node k at [k], by an in-order
+    walk."""
+    tree = np.full(1 << h, np.inf, np.float32)
+    entries = iter(np.concatenate([sorted_fences, np.full((1 << h) - 1 - len(sorted_fences), np.inf)]))
+
+    def walk(k):
+        if k < 1 << h:
+            walk(2 * k)
+            tree[k] = next(entries)
+            walk(2 * k + 1)
+
+    walk(1)
+    return tree
+
+
+@pytest.mark.parametrize("sizes", [[5], [0, 1, 7], [9_999, 0, 3, 70_000], [4 * klk.FENCE_MAX + 1, 2]],
+                         ids=["one-row", "tiny-rows", "mixed", "wide-windows"])
+def test_sorted_fences_are_each_windows_first_key(sizes):
+    """K8's fences, built with the table: row b's windows of S = 2**shift
+    slots start at base = starts[b] - starts[b] % 4; S is the least power of
+    two >= 4 that leaves at most FENCE_MAX windows; fence j is the row's
+    first key of window j (every S-th key from base, the first clamped to
+    the row's start); they fill a complete binary search tree in
+    breadth-first order from a multiple of 4 floats, +inf past them; an
+    empty vocabulary gets none."""
+    t = BatchedSorted(_fence_vocabs(sizes))
+    keys, trees = t.keys.numpy(), t.fence_keys.numpy()
+    assert t.fence_keys.dtype == torch.float32 and t.fence_starts.dtype == torch.int64
+    assert t.fence_shifts.dtype == torch.int32 and t.fences == (t.fence_keys, t.fence_starts, t.fence_shifts)
+    at = 0
+    for b, n in enumerate(sizes):
+        start, fs, shift = int(t.starts[b]), int(t.fence_starts[b]), int(t.fence_shifts[b])
+        base = start - start % 4
+        count = -(-(start - base + n) // (1 << shift)) if n else 0
+        assert fs == at and fs % 4 == 0
+        assert shift >= klk.FENCE_MIN_SHIFT and count <= klk.FENCE_MAX
+        assert shift == klk.FENCE_MIN_SHIFT or -(-(start - base + n) // (1 << (shift - 1))) > klk.FENCE_MAX
+        fences = keys[np.maximum(base + (np.arange(count) << shift), start)]
+        if start % 4 == 0:
+            np.testing.assert_array_equal(fences, keys[start : start + n : 1 << shift])
+        if count == 0:
+            continue
+        h = count.bit_length()
+        size = -(-(1 << h) // 4) * 4
+        np.testing.assert_array_equal(trees[fs : fs + (1 << h)], _in_order_tree(fences, h))
+        assert np.isposinf(trees[fs + (1 << h) : fs + size]).all()
+        at = fs + size
+    assert at == len(trees)
+
+
+def test_sorted_fences_of_empty_vocabularies_and_on_a_device():
+    """Empty vocabularies get no fences (an empty table none at all);
+    ``to(device)`` carries the fences with the keys; the plain version
+    takes the fences and gives the codes it gives without them."""
+    empty = BatchedSorted(_fence_vocabs([0, 0]))
+    assert empty.fence_keys.numel() == 0 and empty.fence_starts.tolist() == [0, 0]
+    t = BatchedSorted(_fence_vocabs([300, 0, 41]))
+    assert int(t.fence_starts[2]) == int(t.fence_starts[1])  # the empty row takes no room
+    moved = t.to("cpu")
+    for name in ("fence_keys", "fence_starts", "fence_shifts"):
+        assert torch.equal(getattr(moved, name), getattr(t, name))
+    vals = torch.from_numpy(np.concatenate([t.keys.numpy(), [np.nan, -5.0, 1e9]]).astype(np.float32))[None]
+    vals = vals.expand(3, -1).contiguous()
+    args = (vals, None, t.keys, t.codes, t.starts, t.lens, torch.arange(3, dtype=torch.int32),
+            torch.zeros(3, dtype=torch.int32))
+    assert torch.equal(klk.sorted_lookup(*args, fences=moved.fences), klk.sorted_lookup(*args))
+    assert torch.equal(moved.encode(*args[:1], None, args[6], args[7]), klk.sorted_lookup(*args))

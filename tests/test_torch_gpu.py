@@ -26,6 +26,7 @@ from nvtabular_tpu_torch.kernels import groupby as kgb
 from nvtabular_tpu_torch.kernels import hash as khash
 from nvtabular_tpu_torch.kernels import hash_pair as khp
 from nvtabular_tpu_torch.kernels import interaction as kint
+from nvtabular_tpu_torch.kernels import lookup as klk
 from nvtabular_tpu_torch.kernels import moments as kmom
 from nvtabular_tpu_torch.kernels import permute as kperm
 from nvtabular_tpu_torch.kernels import ragged as kragged
@@ -975,12 +976,30 @@ def _float_probe(rng, keys, n):
     return v
 
 
+def _fence_probes(table, b):
+    """Row b's fences (each window's first key) and the float32 values just
+    below and just above each."""
+    n = int(table.lens[b])
+    if n == 0:
+        return np.zeros(0, np.float32)
+    start, shift = int(table.starts[b]), int(table.fence_shifts[b])
+    base = start - start % 4
+    count = (start - base + n + (1 << shift) - 1) >> shift
+    f = table.keys.numpy()[np.maximum(base + (np.arange(count) << shift), start)]
+    return np.concatenate([f, np.nextafter(f, -np.inf), np.nextafter(f, np.inf)]).astype(np.float32)
+
+
 @pytest.mark.parametrize("nb", [1, 1000])
 @pytest.mark.parametrize("with_validity", [False, True])
 def test_sorted_lookup_kernel_matches_plain(with_validity, nb):
     """K8 against its plain version: NaN, ±inf, signed zeros, subnormals,
     values below the smallest key and above the largest, vocabularies of
-    length 0, 1 and many (one with ±inf and both zeros among its keys)."""
+    length 0, 1 and many (one with ±inf and both zeros among its keys);
+    a vocabulary of over 2M keys (past FENCE_MAX windows of 4: wider
+    windows), runs of equal float32 keys across window edges, -0.0 and 0.0
+    side by side at every offset from a window's edge, rows whose length is
+    no multiple of their window, and every fence with its float32
+    neighbours below and above as values."""
     _require_cuda()
     rng = np.random.default_rng(17)
     vocabs = [
@@ -988,22 +1007,41 @@ def test_sorted_lookup_kernel_matches_plain(with_validity, nb):
         np.zeros(0),
         np.array([0.5]),
         np.array([np.inf, -np.inf, 0.0, -0.0, 1.0, 1.0 + 2.0**-40, 1e-40, 3.5]),
-    ]
+        np.unique(rng.normal(0.0, 1e3, 2_100_000)),  # float64 keys: some share a float32
+        np.repeat(np.arange(3000.0), 6) + np.tile(np.arange(6) * 2.0**-40, 3000),  # runs of 6 equal float32
+    ] + [np.concatenate([-np.arange(1.0, 100.0 + r), [-0.0, 0.0], np.arange(1.0, 50.0)]) for r in range(8)]
     luts = [plookup.SortedLookup(rng.permutation(v), np.arange(len(v)) + 2 + nb) for v in vocabs]
     table = plookup.BatchedSorted(luts)
-    sel = [0, 1, 2, 3, 0]
-    values = torch.from_numpy(np.stack([_float_probe(rng, vocabs[s].astype(np.float32), 100_003) for s in sel]))
+    starts, lens, shifts = table.starts.numpy(), table.lens.numpy(), table.fence_shifts.numpy()
+    assert lens[4] > 2_000_000 and shifts[4] > klk.FENCE_MIN_SHIFT
+    assert any(n % (1 << k) for n, k in zip(lens, shifts) if n)
+    # the second zero's slot from its window's edge (windows start at base = start - start % 4)
+    zero_edges = [(starts[b] % 4 + 100 + r) % (1 << shifts[b]) for b, r in zip(range(6, 14), range(8))]
+    assert set(zero_edges) == {0, 1, 2, 3}  # the pair straddles a window edge in some rows
+    sel = [0, 1, 2, 3, 0] + list(range(4, 14))
+    n = 100_003
+    rows = []
+    for s in sel:
+        v = _float_probe(rng, vocabs[s].astype(np.float32), n)
+        fp = _fence_probes(table, s)[: n - 20]
+        v[20 : 20 + len(fp)] = fp
+        rows.append(v)
+    values = torch.from_numpy(np.stack(rows))
     validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
     sel_t = torch.tensor(sel, dtype=torch.int32)
     offs = torch.tensor([5 * i for i in range(len(sel))], dtype=torch.int32)
     nbs = torch.full((len(sel),), nb, dtype=torch.int32)
     want = table.encode(values, validity, sel_t, offs, nbuckets=nbs)
+    kernels.reset_launches()
     got = table.to("cuda").encode(values.cuda(), None if validity is None else validity.cuda(), sel_t.cuda(),
                                   offs.cuda(), nbuckets=nbs.cuda())
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sorted_lookup"] == 1
     assert torch.equal(got.cpu(), want)
     assert (want[1] < 2 + nb + 5).all()  # the empty vocabulary: OOV or null only
     assert (want[:, 0] == torch.tensor([1 + 5 * i for i in range(len(sel))], dtype=torch.int32)).all()  # NaN
+    hits = want - offs[:, None] >= 2 + nb
+    assert hits[5].sum() > 10_000 and hits[6].sum() > 10_000  # the long and the run vocabularies are hit
 
 
 def _stash_tables(rng):
@@ -1508,18 +1546,20 @@ def _shard_columns(g, B, cards, M, m, D):
 
 
 @pytest.mark.parametrize("model_rank", [0, 1])
-@pytest.mark.parametrize("D", [16, 5])
-def test_range_column_kernels_match_plain(D, model_rank):
+@pytest.mark.parametrize("D, B", [(16, 4099), (5, 4099), (16, 65536), (64, 65536)])
+def test_range_column_kernels_match_plain(D, B, model_rank):
     """K15d on model shard 1 of 4 (and shard 0, which writes the NaN rows)
-    of 26 padded tables, with float4 (D = 16) and scalar (D = 5) accesses:
-    the gather bit-equal to its plain version, NaN where it has NaN; the
+    of 26 padded tables, with float4 (D = 16, 64) and scalar (D = 5)
+    accesses, the last column's every id on one row of the shard: the
+    gather bit-equal to its plain version, NaN where it has NaN; the
     scatter-add within 1e-5 of the sum of its terms' magnitudes (atomics
-    sum in a varying order), from a strided view of the gradient."""
+    and the warps' sums of equal rows add in a varying order), from a
+    strided view of the gradient."""
     _require_cuda()
     g = torch.Generator().manual_seed(D + model_rank)
     cards = [3, 40, 1001, 7, 60_000, 5, 200, 12_345] * 3 + [4, 90]
-    B = 4099
     local, ids, offsets, sizes, starts, padded = _shard_columns(g, B, cards, 4, model_rank, D)
+    ids[-1][:] = starts[-1] + 3  # a row this rank holds, hit by every id of the column
     cols = (offsets, sizes, starts, padded)
     dev_ids = [i.cuda() for i in ids]
     grad = torch.randn((B, len(cards), D), generator=g)
