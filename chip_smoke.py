@@ -49,7 +49,7 @@ a nonzero exit:
    embedding_gather, embedding_scatter_grad, interaction_fwd and
    interaction_bwd — each against its plain version on the card, timed
    beside its bound and, where one PyTorch call computes the same function,
-   that call;
+   that call (--profile: interaction_bwd's device time by kernel);
 9. the advanced MovieLens path (BASELINE config 2, bench/movielens_bench.py:
    73-85) at ml-25m size — 162,000 users, 62,000 movies, 50 partitions of
    500,000 rows made by the bench's generator — through TargetEncoding
@@ -79,7 +79,8 @@ a nonzero exit:
    over every batch (K11's slice);
 11. ragged_to_padded, ragged_slice_padded, embedding_bag_fwd and
    embedding_bag_bwd at phase 10's shapes against their plain versions on
-   the card, timed beside their bounds and the library calls;
+   the card, timed beside their bounds and the library calls (--profile:
+   embedding_bag_bwd's zero fill and kernel apart);
 12. crossed features on phase 3's partitions (Criteo's low-cardinality
    fields): TargetEncoding("label", kfold=5, p_smooth=20) on the groups
    (C5, C8), (C12, C16, C18) and (C15, C24), JoinGroupby (count and mean of
@@ -189,7 +190,9 @@ a nonzero exit:
    its first batch's [65536, 4] values at dim 64, K13b's self mode at
    [65536, 27, 16] -> 378 and K13d at xDeepFM's layer 1 ([65536, 26, 16]
    twice -> 200) and layer 2 ([8192, 200, 16] x [8192, 26, 16] -> 200),
-   each against its plain version on the card and timed beside its bound;
+   each against its plain version on the card and timed beside its bound
+   (--profile: range_bag_grad's zero fill and kernel, and the self mode's
+   backward, apart);
 24. Criteo's alternative continuous chain on phase 3's partitions, as two
    workflows: 24a, the 13 dense columns through FillMedian >> Clip(min=0) >>
    LogOp >> NormalizeMinMax(out_dtype="float16") (one K5 launch a batch:
@@ -620,6 +623,13 @@ def profiled_calls(fn):
     torch.cuda.synchronize()
 
 
+def profile_split(rec: dict, name: str, fn) -> None:
+    """torch.profiler's device time by kernel over PROFILE_CALLS calls of
+    ``fn`` (its launches, and a memset where one runs) into ``rec``."""
+    rec["profile"] = profile_pass(lambda: profiled_calls(fn))["top"]
+    log(f"profile {name}: device time by kernel {rec['profile']}")
+
+
 def step_grads(model, forward, batch, dz=None):
     """Logits, loss and every parameter's gradient of one batch: of the
     loss, or, given ``dz``, of the logits for the output gradient ``dz``."""
@@ -779,9 +789,10 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
     return rec
 
 
-def training_kernel_records(nvt, wf, parts, train) -> dict:
+def training_kernel_records(nvt, wf, parts, train, profile: bool) -> dict:
     """Phase 8: each kernel of the training path at its main-path shapes
-    against its plain version on the card."""
+    against its plain version on the card; ``profile`` adds torch.profiler's
+    split of K13b's backward."""
     from nvtabular_tpu_torch.kernels import embedding as kemb
     from nvtabular_tpu_torch.kernels import interaction as kint
     from nvtabular_tpu_torch.kernels import permute as kperm
@@ -909,6 +920,8 @@ def training_kernel_records(nvt, wf, parts, train) -> dict:
     del gsym
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 2 * B * F * (F - 1) * D)
     records["interaction_bwd"] = rec
+    if profile:
+        profile_split(rec, "interaction_bwd", lambda: kint.interaction_bwd(x, g))
     return records
 
 
@@ -1348,9 +1361,10 @@ def multihot_path(nvt, dev, ml_parts, profile: bool) -> dict:
     return rec
 
 
-def multihot_kernel_records(mh: dict) -> dict:
+def multihot_kernel_records(mh: dict, profile: bool) -> dict:
     """Phase 11: K11 and K13c at phase 10's shapes against their plain
-    versions on the card, timed beside their bounds and library calls."""
+    versions on the card, timed beside their bounds and library calls;
+    ``profile`` adds torch.profiler's split of K13c's backward."""
     from nvtabular_tpu_torch.kernels import embedding_bag as kbag
     from nvtabular_tpu_torch.kernels import ragged as kragged
 
@@ -1435,6 +1449,8 @@ def multihot_kernel_records(mh: dict) -> dict:
     }
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * L * D * 2 + B * D)
     records["embedding_bag_bwd"] = rec
+    if profile:
+        profile_split(rec, "embedding_bag_bwd", lambda: kbag.embedding_bag_bwd(grad, ids, mask, V))
     return records
 
 
@@ -2712,13 +2728,8 @@ def sharded_step_kernel_records(dev, sharded_train: dict, profile: bool) -> dict
     log(f"sharded step kernels: shard {m} of {MODEL_SHARDS} ({rows} rows), {held} of {B * C} ids held, "
         f"{distinct} distinct rows, the 5 hottest hit {hits} times; range_scatter_grad {rec['ms']:.4f} ms "
         f"(zeros + index_add_ {rec['library_ms']:.4f}); phase 21 took {time.perf_counter() - phase_t0:.1f} s")
-    if profile:
-        # device time by kernel of PROFILE_CALLS scatters: the zero fill (a memset) and the reductions
-        def scatter():
-            return kemb.range_scatter_grad(grad, ids, *cols, rows)
-
-        rec["profile"] = profile_pass(lambda: profiled_calls(scatter))["top"]
-        log(f"profile range_scatter_grad: device time by kernel {rec['profile']}")
+    if profile:  # the zero fill (a memset) and the reductions
+        profile_split(rec, "range_scatter_grad", lambda: kemb.range_scatter_grad(grad, ids, *cols, rows))
     return records
 
 
@@ -2944,11 +2955,12 @@ def layer_entry_path(dev) -> dict:
     return {"launches": launches, "rel_err": rel}
 
 
-def layer_kernel_records(dev, mh: dict) -> dict:
+def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
     """Phase 23: K15d's bag on model shard 1 of MODEL_SHARDS of phase 22's
     padded genres table with its first batch's values, K13b's self mode at
     [TRAIN_BS, 27, 16] and K13d at xDeepFM's layers 1 and 2, each against
-    its plain version on the card, timed beside its bound."""
+    its plain version on the card, timed beside its bound; ``profile`` adds
+    torch.profiler's split of the bag's and the self mode's backward."""
     from nvtabular_tpu_torch.kernels import cin as kcin
     from nvtabular_tpu_torch.kernels import embedding_bag as kbag
     from nvtabular_tpu_torch.kernels import interaction as kint
@@ -3004,6 +3016,8 @@ def layer_kernel_records(dev, mh: dict) -> dict:
            "hottest_row_hits": int(torch.bincount(held_rows[mask[mine] > 0]).max())}
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], held * D * 3)
     records["range_bag_grad"] = rec
+    if profile:
+        profile_split(rec, "range_bag_grad", lambda: kbag.range_bag_grad(grad, values, mask, start, rows, vp))
     del terms, magnitude
 
     # K13b's self mode on DLRM's 27 features of dim 16, written after the bottom output
@@ -3042,6 +3056,8 @@ def layer_kernel_records(dev, mh: dict) -> dict:
            "library_ms": time_ms(lambda: torch.bmm(gsym, x))}
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], TRAIN_BS * F * F * Dx * 2)
     records["interaction_self_bwd"] = rec
+    if profile:
+        profile_split(rec, "interaction_self_bwd", lambda: kint.interaction_bwd(x, g, self_interaction=True))
     del x, obuf, gbuf, gsym
 
     # K13d at xDeepFM's layers 1 and 2
@@ -3999,7 +4015,7 @@ def main():
     train = train_path(nvt, wf, parts, cat_names, cont_names, opts.profile)
 
     # --- 8. the training path's kernels at its shapes -----------------------------------
-    records.update(training_kernel_records(nvt, wf, parts, train))
+    records.update(training_kernel_records(nvt, wf, parts, train, opts.profile))
     train_launches = train["launches"]
     train_record = {k: v for k, v in train.items() if k not in ("model", "staged", "loader")}
     feed = train["loader"]  # phase 16 trains DeepFM and DCN-v2 on it
@@ -4020,7 +4036,7 @@ def main():
     multihot = multihot_path(nvt, dev, ml_parts, opts.profile)
 
     # --- 11. its new kernels at its shapes -------------------------------------------------------
-    records.update(multihot_kernel_records(multihot))
+    records.update(multihot_kernel_records(multihot, opts.profile))
     mh_train = multihot.pop("train")
     mh_feed, mh_schema = mh_train.pop("loader"), multihot.pop("schema")  # phase 22 trains DLRM on them
     del mh_train["model"], mh_train["batch"], multihot["genres_batch0"]
@@ -4120,7 +4136,7 @@ def main():
 
     # --- 23. the layer entry points, and K15d's bag, K13b's self mode and K13d at their shapes -------
     entry = layer_entry_path(dev)
-    records.update(layer_kernel_records(dev, mh_dlrm))
+    records.update(layer_kernel_records(dev, mh_dlrm, opts.profile))
     for key in ("values", "mask"):
         del mh_dlrm[key]
     entry_launches = entry["launches"]

@@ -23,12 +23,22 @@
 // nvt_interaction_bwd: dX[b, i, d] = sum_{j != i} g[b, pair(i, j)] X[b, j, d]
 // (pair(i, j) = pair(j, i), both of X's operands being X); in self_mode the
 // diagonal pair adds 2 g[b, pair(i, i)] X[b, i, d], its product's two
-// factors both being X[b, i]. The block also stages the G samples' P
-// gradient values. One thread accumulates one float4 of a row i when
-// D % 4 == 0 (rows padded to D + 4 floats, 16-byte aligned), else one float
-// (rows padded to D + 1), over j in order with fmaf; the g values of j < i
-// (j <= i in self_mode) are the contiguous segment row_base(i) + j of the
-// sample's gradient. Threads of one sample read the same row j: broadcast.
+// factors both being X[b, i]. A persistent grid of kBwdThreads blocks (two
+// an SM at DLRM's [27, 16]) walks groups of G samples (16 there: the host's
+// plan). While a block computes one group, the tensor memory accelerator
+// copies the next one's X rows and the 16-byte-aligned bodies of its
+// gradient rows (rows of DLRM's [B, D + P] buffer, 4-byte aligned) into
+// the other stage, completing on an mbarrier; their first and last 0-3
+// floats go by 4-byte cp.async. A thread keeps the sums of kBwdRows rows and
+// C = 4 columns (1 where D % 4 != 0) of one sample in registers, over j in
+// order with fmaf, so one float4 read of an x_j chunk serves 8 rows (X is
+// read ceil(F / 8) times a sample, not F times). The weights' addresses
+// follow from j's range, so that no step chooses one: below the rows
+// w(i, j) sits at row_base(i) + j (8 steps at a time, unrolled: a pointer a
+// row plus a constant), in the diagonal block (unrolled) each row's form is
+// known at compile time, and above the rows it sits at row_base(j) + i. The
+// sums go back into the stage's X slots and leave by one bulk store a
+// sample.
 //
 // The plain versions (kernels/interaction.py) compute the same fmaf steps
 // in the same order, each exactly (the product and the sum in float64,
@@ -38,18 +48,20 @@
 //
 // Bound: bytes. The forward reads X (F * D * 4 B a sample) and writes P * 4
 // B; its 2 * P * D flops a sample are ~1/6 of the byte time at the float32
-// rate without tensor cores. The backward reads X and g and writes dX.
+// rate without tensor cores. The backward reads X and g and writes dX; its
+// F (F - 1) D fmaf a sample take about a quarter of the byte time, which
+// the double-buffered staging overlaps with the next group's copies.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemLimit = 48 * 1024;
-
-// Shared-memory row stride of the backward (the forward pads to D + 1).
-__host__ __device__ __forceinline__ int bwd_row_stride(int D) { return D % 4 == 0 ? D + 4 : D + 1; }
+constexpr int kThreads = 256;          // the forward's block
+constexpr int kSmemLimit = 48 * 1024;   // the forward's static-launch shared memory
+constexpr int kBwdThreads = 256;        // the backward's persistent block
+constexpr int kBwdRows = 8;             // rows of a sample a backward thread sums
+constexpr int kSmemOptIn = 227 * 1024;  // the shared memory an H100 block can opt into
 
 // The pair index of the triangle's row i: i (i - 1) / 2, or i (i + 1) / 2
 // with the diagonal.
@@ -103,78 +115,351 @@ interaction_fwd_kernel(const float* __restrict__ x, int64_t B, int F, int D, int
   }
 }
 
-template <int VEC, int SELF>
-__global__ void __launch_bounds__(kThreads)
-interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                       int64_t g_row_stride, int64_t B, int F, int D, int G,
-                       float* __restrict__ dx) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int stride = bwd_row_stride(D);
-  const int P = num_pairs(F, SELF);
-  float* gs = xs + G * F * stride;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * G;
-  const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
-  stage_rows(x, b0, ns, F, D, stride, xs);
-  for (int e = threadIdx.x; e < ns * P; e += blockDim.x) {
-    const int s = e / P;
-    gs[e] = g[(b0 + s) * g_row_stride + (e - s * P)];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+// A group's staging in shared memory: G samples' X rows, then their P
+// gradient values, each row in a 16-byte-aligned slot at a pad of 0-3 floats
+// that puts the row's 16-byte-aligned body on a 16-byte boundary
+// (RowSplit); a gradient slot keeps a float past the row for the reads of
+// rows clamped to F - 1. A warp's lanes take the D / C column chunks of
+// consecutive samples (the chunk fastest), so 8 lanes of a quarter-warp
+// read x from ceil(8 / chunks) samples: an X slot's stride in 16-byte units
+// is the chunks' count mod 8, which puts those reads in 8 distinct groups
+// of banks. A weight read is one address a sample, a broadcast to its
+// chunks' lanes; a gradient slot's odd stride in 16-byte units spreads 8
+// samples over 8 groups of banks.
+__host__ __device__ __forceinline__ int bwd_x_stride(int F, int D, int chunks) {
+  int units = (F * D + 3 + 3) / 4;
+  while ((units - chunks) % 8 != 0) ++units;
+  return 4 * units;
+}
+
+__host__ __device__ __forceinline__ int bwd_g_stride(int F, int self_mode) {
+  const int units = (num_pairs(F, self_mode) + 1 + 3 + 3) / 4;
+  return 4 * (units % 2 ? units : units + 1);
+}
+
+__host__ __device__ __forceinline__ int64_t bwd_stage_floats(int F, int D, int C, int G, int self_mode) {
+  return static_cast<int64_t>(G) * (bwd_x_stride(F, D, D / C) + bwd_g_stride(F, self_mode));
+}
+
+// A row of n floats at src (4-byte aligned): `head` floats up to the first
+// 16-byte boundary, a body of a multiple of 4 floats, then the rest; the
+// row sits in its slot at `pad` floats, so that its body is 16-byte
+// aligned there too.
+struct RowSplit {
+  int head, body, pad;
+  __device__ __forceinline__ RowSplit(const float* src, int n) {
+    const int h = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 4);
+    head = h < n ? h : n;
+    body = (n - head) & ~3;
+    pad = (4 - head) & 3;
   }
-  __syncthreads();
-  const int per_row = D / VEC;
-  for (int e = threadIdx.x; e < ns * F * per_row; e += blockDim.x) {
-    const int si = e / per_row;  // sample * F + i
-    const int q = e - si * per_row;
-    const int s = si / F;
-    const int i = si - s * F;
-    const float* xsamp = xs + s * F * stride + q * VEC;
-    const float* gsamp = gs + s * P;
-    const int below = row_base(i, SELF);  // g of pairs (i, j < i), and (i, i) in self_mode
-    float* dst = dx + (b0 + s) * F * D + i * D + q * VEC;
-    if constexpr (VEC == 4) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int j = 0; j < F; ++j) {
-        if (j == i && !SELF) continue;
-        const float w = j == i ? 2.0f * gsamp[below + i] : gsamp[j < i ? below + j : row_base(j, SELF) + i];
-        const float4 v = *reinterpret_cast<const float4*>(xsamp + j * stride);
-        acc.x = fmaf(w, v.x, acc.x);
-        acc.y = fmaf(w, v.y, acc.y);
-        acc.z = fmaf(w, v.z, acc.z);
-        acc.w = fmaf(w, v.w, acc.w);
-      }
-      *reinterpret_cast<float4*>(dst) = acc;
-    } else {
-      float acc = 0.0f;
-      for (int j = 0; j < F; ++j) {
-        if (j == i && !SELF) continue;
-        const float w = j == i ? 2.0f * gsamp[below + i] : gsamp[j < i ? below + j : row_base(j, SELF) + i];
-        acc = fmaf(w, xsamp[j * stride], acc);
-      }
-      *dst = acc;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One row into its slot: the body by one bulk copy of the tensor memory
+// accelerator, counted on `bar`; the head and the rest by 4-byte cp.async.
+__device__ __forceinline__ void stage_row(float* slot, const float* src, int n, uint64_t* bar) {
+  const RowSplit r(src, n);
+  float* dst = slot + r.pad;
+  for (int e = 0; e < r.head; ++e) cp_async4(dst + e, src + e);
+  if (r.body)
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 ::"r"(smem_addr(dst + r.head)), "l"(src + r.head), "r"(4 * r.body), "r"(smem_addr(bar))
+                 : "memory");
+  for (int e = r.head + r.body; e < n; ++e) cp_async4(dst + e, src + e);
+}
+
+// Warp 0 stages group grp into `stage` (lane l the samples l, l + 32, ...):
+// lane 0 arms `bar` with the bodies' bytes before any copy goes out; the
+// heads and rests are each lane's cp.async group.
+__device__ __forceinline__ void stage_bwd_group(const float* __restrict__ x, const float* __restrict__ g,
+                                                int64_t g_row_stride, int64_t B, int F, int D, int G, int P,
+                                                int xs, int gs, int64_t grp, float* stage, uint64_t* bar) {
+  const int64_t b0 = grp * G;
+  const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
+  const int lane = threadIdx.x;
+  int bytes = 0;
+  for (int s = lane; s < ns; s += 32)
+    bytes += 4 * (RowSplit(x + (b0 + s) * F * D, F * D).body + RowSplit(g + (b0 + s) * g_row_stride, P).body);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+  __syncwarp();
+  float* gst = stage + G * xs;
+  for (int s = lane; s < ns; s += 32) {
+    stage_row(stage + s * xs, x + (b0 + s) * F * D, F * D, bar);
+    stage_row(gst + s * gs, g + (b0 + s) * g_row_stride, P, bar);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// x_j's C floats of a thread's columns: a float4 (C = 4) or a float.
+template <int C>
+__device__ __forceinline__ void load_chunk(const float* p, float (&v)[C]) {
+  if constexpr (C == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// Step j's weights above the rows [i0, i0 + kBwdRows) (every row i < j:
+// w(i, j) at row_base(j) + i, consecutive in i) and x_j's chunk.
+template <int C, int SELF>
+__device__ __forceinline__ void fetch_above(const float* xcol, int D, const float* gsamp, int i0, int j,
+                                            float (&w)[kBwdRows], float (&v)[C]) {
+  load_chunk<C>(xcol + j * D, v);
+  const float* wj = gsamp + row_base(j, SELF) + i0;
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) w[r] = wj[r];
+}
+
+template <int C>
+__device__ __forceinline__ void step_sums(const float (&w)[kBwdRows], const float (&v)[C],
+                                          float (&acc)[kBwdRows][C]) {
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r)
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[r][k] = fmaf(w[r], v[k], acc[r][k]);
+}
+
+// The steps below the rows, j < i0, kBwdRows at a time (i0 is a multiple
+// of kBwdRows), unrolled: every row i > j, w(i, j) at row_base(i) + j, the
+// row's pointer plus a constant offset.
+template <int C>
+__device__ __forceinline__ void below_sums(const float* xcol, int D, int i0, const float* const (&rows)[kBwdRows],
+                                           float (&acc)[kBwdRows][C]) {
+  for (int j0 = 0; j0 < i0; j0 += kBwdRows) {
+#pragma unroll
+    for (int d = 0; d < kBwdRows; ++d) {
+      float w[kBwdRows], v[C];
+      load_chunk<C>(xcol + (j0 + d) * D, v);
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) w[r] = rows[r][j0 + d];
+      step_sums<C>(w, v, acc);
     }
   }
 }
 
-// Shared memory of one block: G samples' padded rows, and their gradient
-// values in the backward. The wrapper picks G so that this fits 48 KB.
-int64_t smem_bytes(int F, int D, int G, bool backward, int self_mode) {
-  const int64_t per_sample = backward ? F * bwd_row_stride(D) + num_pairs(F, self_mode) : F * (D + 1);
-  return G * per_sample * 4;
+// The diagonal block's steps j = i0 + d, unrolled: row r takes w(i, j) at
+// row_base(j) + i for r < d, 2 g_ii (self mode; the strict mode skips it) for
+// r == d, and its own row's w(i, j) for r > d.
+template <int C, int SELF>
+__device__ __forceinline__ void diagonal_sums(const float* xcol, int D, const float* gsamp, int F, int i0,
+                                              const float* const (&rows)[kBwdRows], float (&acc)[kBwdRows][C]) {
+#pragma unroll
+  for (int d = 0; d < kBwdRows; ++d) {
+    const int j = i0 + d;
+    if (j >= F) break;
+    float v[C];
+    load_chunk<C>(xcol + j * D, v);
+    const float* wj = gsamp + row_base(j, SELF) + i0;
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      if (r == d && !SELF) continue;
+      const float w = r < d ? wj[r] : (r == d ? 2.0f * wj[r] : rows[r][j]);
+#pragma unroll
+      for (int k = 0; k < C; ++k) acc[r][k] = fmaf(w, v[k], acc[r][k]);
+    }
+  }
 }
 
-bool bad_shape(int64_t B, int F, int D, int G, bool backward, int self_mode) {
-  return B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || G <= 0 || (self_mode != 0 && self_mode != 1) ||
-         smem_bytes(F, D, G, backward, self_mode) > kSmemLimit;
+// The steps above the rows, [j0, F), in order: step j + 1's reads issued
+// before step j's products, two steps a turn in two sets of registers.
+template <int C, int SELF>
+__device__ __forceinline__ void above_sums(const float* xcol, int D, const float* gsamp, int i0, int j0, int F,
+                                           float (&acc)[kBwdRows][C]) {
+  if (j0 >= F) return;
+  float wa[kBwdRows], va[C], wb[kBwdRows], vb[C];
+  fetch_above<C, SELF>(xcol, D, gsamp, i0, j0, wa, va);
+  int j = j0;
+  for (; j + 1 < F; j += 2) {
+    fetch_above<C, SELF>(xcol, D, gsamp, i0, j + 1, wb, vb);
+    step_sums<C>(wa, va, acc);
+    fetch_above<C, SELF>(xcol, D, gsamp, i0, j + 2 < F ? j + 2 : j + 1, wa, va);
+    step_sums<C>(wb, vb, acc);
+  }
+  if (j < F) step_sums<C>(wa, va, acc);
+}
+
+// A thread's work item: rows [i0, i0 + kBwdRows) (those below F) and C
+// columns of one sample; each row's sums run over j in order with fmaf.
+template <int C, int SELF>
+__device__ __forceinline__ void bwd_sums(const float* __restrict__ xcol, int D, const float* __restrict__ gsamp,
+                                         int F, int i0, float (&acc)[kBwdRows][C]) {
+  const float* rows[kBwdRows];  // each row's weights below it; rows past F clamped to F - 1 (their sums are not kept)
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) rows[r] = gsamp + row_base(i0 + r < F ? i0 + r : F - 1, SELF);
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r)
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[r][k] = 0.0f;
+  below_sums<C>(xcol, D, i0, rows, acc);
+  diagonal_sums<C, SELF>(xcol, D, gsamp, F, i0, rows, acc);
+  above_sums<C, SELF>(xcol, D, gsamp, i0, i0 + kBwdRows, F, acc);
+}
+
+// One group: step through the work items (one a thread at most: the plan
+// keeps G * items a sample <= kBwdThreads), their sums into the X slots,
+// then the slots to dx by bulk stores (C = 4) or one float a thread.
+template <int C, int SELF>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, int64_t g_row_stride, int64_t B,
+                       int F, int D, int G, float* __restrict__ dx) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t bars[2];  // the bulk copies of each stage
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int P = num_pairs(F, SELF);
+  const int chunks = D / C;
+  const int xs = bwd_x_stride(F, D, chunks), gs = bwd_g_stride(F, SELF);
+  const int stage_floats = static_cast<int>(bwd_stage_floats(F, D, C, G, SELF));
+  const int items = (F + kBwdRows - 1) / kBwdRows * G * chunks;  // row block, then sample, then chunk fastest
+  const int64_t groups = (B + G - 1) / G;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[0])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[1])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int64_t grp = blockIdx.x;
+  if (threadIdx.x < 32) {
+    stage_bwd_group(x, g, g_row_stride, B, F, D, G, P, xs, gs, grp, smem, &bars[0]);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  }
+  __syncthreads();
+  for (int iter = 0; grp < groups; grp += gridDim.x, ++iter) {
+    const int buf = iter & 1;
+    const int64_t next = grp + gridDim.x;
+    // the next group's copies go out before this group's are awaited, once
+    // the bulk stores of the group before have read that stage
+    if (threadIdx.x < 32 && next < groups) {
+      if constexpr (C == 4) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      stage_bwd_group(x, g, g_row_stride, B, F, D, G, P, xs, gs, next, smem + (buf ^ 1) * stage_floats,
+                      &bars[buf ^ 1]);
+    }
+    mbar_wait(&bars[buf], (iter >> 1) & 1);
+    float* xst = smem + buf * stage_floats;
+    const float* gst = xst + G * xs;
+    const int64_t b0 = grp * G;
+    const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
+    const int it = threadIdx.x;
+    const int c = it % chunks;
+    const int blk = it / chunks / G;
+    const int s = it / chunks - blk * G;
+    const bool active = it < items && s < ns;
+    float acc[kBwdRows][C];
+    float* xslot = xst + s * xs;
+    if (active) {
+      xslot += RowSplit(x + (b0 + s) * F * D, F * D).pad;
+      bwd_sums<C, SELF>(xslot + c * C, D, gst + s * gs + RowSplit(g + (b0 + s) * g_row_stride, P).pad, F,
+                        blk * kBwdRows, acc);
+    }
+    __syncthreads();  // every thread is done reading the group's X rows, which the sums overwrite
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) {
+        if (blk * kBwdRows + r >= F) break;
+        float* o = xslot + (blk * kBwdRows + r) * D + c * C;
+        if constexpr (C == 4) {
+          *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        } else {
+          *o = acc[r][0];
+        }
+      }
+    }
+    // the sums' generic writes come before the bulk stores' reads, and this
+    // stage's reads before the bulk copies that refill it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // the group's sums are in the X slots
+    float* out = dx + b0 * F * D;
+    const int n = F * D;
+    if constexpr (C == 4) {  // a sample's dX rows a bulk store
+      if (threadIdx.x < 32) {
+        for (int t = threadIdx.x; t < ns; t += 32)
+          asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                       ::"l"(out + t * n), "r"(smem_addr(xst + t * xs)), "r"(4 * n) : "memory");
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+    } else {
+      for (int e = threadIdx.x; e < ns * n; e += kBwdThreads) {
+        const int t = e / n;
+        out[e] = xst[t * xs + RowSplit(x + (b0 + t) * n, n).pad + (e - t * n)];
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    if (threadIdx.x < 32) asm volatile("cp.async.wait_group 0;" ::: "memory");  // the next group's heads and rests
+    __syncthreads();
+  }
+  if (C == 4 && threadIdx.x < 32) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Shared memory of one forward block: G samples' rows padded to D + 1
+// floats. The wrapper picks G so that this fits 48 KB.
+int64_t fwd_smem_bytes(int F, int D, int G) { return static_cast<int64_t>(G) * F * (D + 1) * 4; }
+
+bool bad_shape(int64_t B, int F, int D, int G, int self_mode) {
+  return B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || G <= 0 || (self_mode != 0 && self_mode != 1);
+}
+
+// The backward's persistent grid: as many blocks as the card holds at once
+// with `smem` bytes each, at most one a group.
+template <int C, int SELF>
+int launch_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F, int D, int G, float* dx,
+               cudaStream_t stream) {
+  const int smem = static_cast<int>(2 * bwd_stage_floats(F, D, C, G, SELF) * sizeof(float));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(interaction_bwd_kernel<C, SELF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, interaction_bwd_kernel<C, SELF>, kBwdThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t groups = (B + G - 1) / G;
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned blocks = static_cast<unsigned>(groups < resident ? groups : resident);
+  interaction_bwd_kernel<C, SELF><<<blocks, kBwdThreads, smem, stream>>>(x, g, g_row_stride, B, F, D, G, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SELF>
+int launch_bwd_cols(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F, int D, int G, int cols,
+                    float* dx, cudaStream_t stream) {
+  return cols == 4 ? launch_bwd<4, SELF>(x, g, g_row_stride, B, F, D, G, dx, stream)
+                   : launch_bwd<1, SELF>(x, g, g_row_stride, B, F, D, G, dx, stream);
 }
 
 }  // namespace
 
 extern "C" int nvt_interaction_fwd(const float* x, int64_t B, int F, int D, int G, int self_mode, float* out,
                                    int64_t out_row_stride, void* stream) {
-  if (bad_shape(B, F, D, G, false, self_mode)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, F, D, G, self_mode) || fwd_smem_bytes(F, D, G) > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const unsigned int blocks = static_cast<unsigned int>((B + G - 1) / G);
-  const size_t smem = static_cast<size_t>(smem_bytes(F, D, G, false, self_mode));
+  const size_t smem = static_cast<size_t>(fwd_smem_bytes(F, D, G));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (self_mode) {
     interaction_fwd_kernel<1><<<blocks, kThreads, smem, s>>>(x, B, F, D, G, out, out_row_stride);
@@ -184,21 +469,17 @@ extern "C" int nvt_interaction_fwd(const float* x, int64_t B, int F, int D, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// G samples a group and `cols` columns a thread (4: D a multiple of 4 and x,
+// dx 16-byte aligned; or 1), both from the wrapper's plan.
 extern "C" int nvt_interaction_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B,
-                                   int F, int D, int G, int self_mode, float* dx, void* stream) {
-  if (bad_shape(B, F, D, G, true, self_mode)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int F, int D, int G, int cols, int self_mode, float* dx, void* stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  if (bad_shape(B, F, D, G, self_mode) || !(cols == 1 || (cols == 4 && vec)) || D % cols != 0 ||
+      (F + kBwdRows - 1) / kBwdRows * (D / cols) * G > kBwdThreads ||
+      2 * bwd_stage_floats(F, D, cols, G, self_mode) * 4 + 16 > kSmemOptIn)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const unsigned int blocks = static_cast<unsigned int>((B + G - 1) / G);
-  const size_t smem = static_cast<size_t>(smem_bytes(F, D, G, true, self_mode));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 4 == 0 && self_mode) {
-    interaction_bwd_kernel<4, 1><<<blocks, kThreads, smem, s>>>(x, g, g_row_stride, B, F, D, G, dx);
-  } else if (D % 4 == 0) {
-    interaction_bwd_kernel<4, 0><<<blocks, kThreads, smem, s>>>(x, g, g_row_stride, B, F, D, G, dx);
-  } else if (self_mode) {
-    interaction_bwd_kernel<1, 1><<<blocks, kThreads, smem, s>>>(x, g, g_row_stride, B, F, D, G, dx);
-  } else {
-    interaction_bwd_kernel<1, 0><<<blocks, kThreads, smem, s>>>(x, g, g_row_stride, B, F, D, G, dx);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return self_mode ? launch_bwd_cols<1>(x, g, g_row_stride, B, F, D, G, cols, dx, s)
+                   : launch_bwd_cols<0>(x, g, g_row_stride, B, F, D, G, cols, dx, s);
 }

@@ -37,16 +37,19 @@
 // here; ids outside the table add nothing. No collective: every rank of the
 // model group holds the same pooled bags, so the sum's transpose is the
 // identity. A genres shard holds a few rows that every id of the batch
-// falls on (6 rows x 64 dims for 262,144 ids at shard 1 of 4), so where
-// the shard's gradient fits 48 KB of shared memory a fixed grid of blocks
-// each sums its share of the terms into a shared copy (consecutive threads
-// on consecutive dims, so a warp's atomics hit distinct banks) and adds it
-// to the gradient once; a larger shard takes one global atomic per float4 of
-// a term. Atomics make the summation order, and so the last bits, vary from
-// run to run. On the whole table (start 0, rows_local = padded = V, wrap) it
-// is also K13c's backward, the transpose of csrc/embedding_bag.cu's bag.
-// Bound: bytes — the zero fill, the values, mask and gradient rows, once
-// each.
+// falls on (6 rows x 64 dims for 262,144 ids at shard 1 of 4), so where a
+// block's private copies of the shard's gradient fit its shared memory
+// (the wrapper's plan) every group of lanes that takes a bag sums its terms
+// into a copy of its own, with no atomics, the count and g / cnt once a
+// bag; then each block of a grid the card holds at once adds its copies'
+// sum with one atomic a cell to the gradient, zeroed by a memset (on an
+// H100 at 700 W, a second pass that summed the blocks' partials in block
+// order took 0.0175 ms against this 0.0165 at phase 23's shape). A larger
+// shard takes one global atomic per float4 of a held id. The atomics make
+// the summation order, and so the last bits, vary from run to run. On the
+// whole table (start 0, rows_local = padded = V, wrap) it is also K13c's
+// backward, the transpose of csrc/embedding_bag.cu's bag. Bound: bytes —
+// the values, mask and gradient rows once each, and the gradient written.
 //
 // One thread copies or sums VEC floats of an output row (a float4 when
 // D % 4 == 0 and the pointers are 16-byte aligned); consecutive threads
@@ -97,6 +100,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBagThreads = 512;        // range_bag_grad's shared path
+constexpr int kSmemOptIn = 227 * 1024;  // the shared memory an H100 block can opt into
 constexpr int64_t kElsewhere = -1;  // a row another rank holds
 constexpr int64_t kNoRank = -2;     // an id outside [-Vp, Vp): no rank holds it
 
@@ -197,38 +202,120 @@ __device__ __forceinline__ float bag_count(const float* __restrict__ m, int L) {
   return fmaxf(cnt, 1.0f);
 }
 
-constexpr int kSharedBlocks = 264;  // two blocks of kThreads on each of the H100's 132 SMs
-constexpr int64_t kSharedBytes = 48 * 1024;
+// A bag's ids and mask: one 16-byte load each where L == 4 (kVecIds), else
+// one load an id; its shard rows (< 0: not this rank's) and the divisor of
+// its gradient (the mask count for the mean, else 1).
+template <bool kVecIds>
+struct BagIds {
+  int row[kVecIds ? 4 : 1];
+  float m[kVecIds ? 4 : 1];
+  float cnt;
 
-// One term (b, l, d) per loop step, d fastest; a grid of kSharedBlocks
-// blocks strides over all B * L * D of them. nvt_range_bag_grad keeps that
-// count and a grid's stride past it below 2^31, so a term's index and
-// its divisions are 32-bit, and a shard held in shared memory has fewer
-// than 2^31 cells.
-__global__ void __launch_bounds__(kThreads)
-range_bag_grad_shared_kernel(const float* __restrict__ grad, int64_t grad_row_stride,
+  __device__ __forceinline__ void load(const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t b,
+                                       int L, int64_t start, int64_t rows_local, int64_t padded, int wrap, int mean) {
+    if constexpr (kVecIds) {
+      const int4 v = reinterpret_cast<const int4*>(values)[b];
+      const float4 w = reinterpret_cast<const float4*>(mask)[b];
+      const int32_t vs[4] = {v.x, v.y, v.z, v.w};
+      m[0] = w.x; m[1] = w.y; m[2] = w.z; m[3] = w.w;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) row[l] = static_cast<int>(bag_shard_row(vs[l], start, rows_local, padded, wrap));
+      cnt = mean ? fmaxf(__fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(0.0f, m[0]), m[1]), m[2]), m[3]), 1.0f) : 1.0f;
+    } else {
+      cnt = mean ? bag_count(mask + b * L, L) : 1.0f;
+    }
+  }
+};
+
+// Shared path: a bag is taken by a group of S lanes (S the least power of
+// two >= D / VEC, at most 32), each lane VEC floats of every S-th chunk of
+// the row, and each group sums its terms into a private [rows_local, D]
+// copy in shared memory with plain loads and stores: the lanes of a group
+// write distinct chunks and no two groups share a copy, so no atomics. The
+// count and g / cnt are taken once a bag and chunk; the gradient row is
+// read whether or not the bag holds an id, so that its load does not wait
+// on the ids'. Then the block sums its copies in copy order and adds each
+// cell's sum to the zeroed gradient with one atomic.
+template <int VEC, bool kVecIds>
+__global__ void __launch_bounds__(kBagThreads)
+range_bag_grad_copies_kernel(const float* __restrict__ grad, int64_t grad_row_stride,
                              const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L,
-                             int D, int64_t start, int64_t rows_local, int64_t padded, int wrap, int mean,
+                             int D, int64_t start, int64_t rows_local, int64_t padded, int wrap, int mean, int S,
                              float* __restrict__ dtable) {
-  extern __shared__ float acc[];  // [rows_local, D]
+  extern __shared__ float4 copies4[];
+  float* copies = reinterpret_cast<float*>(copies4);
   const int cells = static_cast<int>(rows_local) * D;
-  for (int i = threadIdx.x; i < cells; i += kThreads) acc[i] = 0.0f;
+  const int groups = kBagThreads / S;  // copies of the block
+  for (int i = threadIdx.x; i < groups * cells; i += kBagThreads) copies[i] = 0.0f;
   __syncthreads();
-  const int total = static_cast<int>(B * L * D);
-  for (int t = blockIdx.x * kThreads + threadIdx.x; t < total; t += gridDim.x * kThreads) {
-    const int bl = t / D;
-    const int d = t - bl * D;
-    const int row = static_cast<int>(bag_shard_row(values[bl], start, rows_local, padded, wrap));
-    if (row < 0) continue;
-    const int b = bl / L;
-    float g = grad[b * grad_row_stride + d];
-    if (mean) g = __fdiv_rn(g, bag_count(mask + static_cast<int64_t>(b) * L, L));
-    atomicAdd(&acc[row * D + d], __fmul_rn(g, mask[bl]));
+  const int group = threadIdx.x / S;
+  const int lane = threadIdx.x - group * S;
+  float* copy = copies + group * cells;
+  const int per_row = D / VEC;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * groups;
+  for (int64_t b = static_cast<int64_t>(blockIdx.x) * groups + group; b < B; b += stride) {
+    BagIds<kVecIds> bag;
+    bag.load(values, mask, b, L, start, rows_local, padded, wrap, mean);
+    for (int q = lane; q < per_row; q += S) {
+      float g[VEC];
+      load_vec<VEC>(grad + b * grad_row_stride + q * VEC, g);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) g[k] = mean ? __fdiv_rn(g[k], bag.cnt) : g[k];
+      auto add = [&](int row, float m) {
+        if (row < 0) return;
+        float* dst = copy + row * D + q * VEC;
+        float t[VEC];
+        load_vec<VEC>(dst, t);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) t[k] += __fmul_rn(g[k], m);
+        store_vec<VEC>(dst, t);
+      };
+      if constexpr (kVecIds) {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) add(bag.row[l], bag.m[l]);
+      } else {
+        for (int l = 0; l < L; ++l)
+          add(static_cast<int>(bag_shard_row(values[b * L + l], start, rows_local, padded, wrap)), mask[b * L + l]);
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += kThreads) atomicAdd(&dtable[i], acc[i]);
+  for (int c = threadIdx.x; c < cells; c += kBagThreads) {
+    float sum = 0.0f;
+    for (int k = 0; k < groups; ++k) sum += copies[k * cells + c];
+    atomicAdd(dtable + c, sum);
+  }
 }
 
+// One launch of range_bag_grad_copies_kernel<VEC, kVecIds>, above 48 KB of
+// shared memory by the opt-in attribute.
+struct CopiesLaunch {
+  const float* grad;
+  int64_t grad_row_stride;
+  const int32_t* values;
+  const float* mask;
+  int64_t B;
+  int L, D;
+  int64_t start, rows_local, padded;
+  int wrap, mean, S;
+  float* dtable;
+  int blocks, smem;
+  cudaStream_t stream;
+
+  template <int VEC, bool kVecIds>
+  cudaError_t run() const {
+    const cudaError_t err = cudaFuncSetAttribute(range_bag_grad_copies_kernel<VEC, kVecIds>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    range_bag_grad_copies_kernel<VEC, kVecIds><<<blocks, kBagThreads, smem, stream>>>(
+        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, S, dtable);
+    return cudaGetLastError();
+  }
+};
+
+// Global path (a shard too large for a block's copies): a thread a (bag,
+// VEC floats of its row) takes the count and g / cnt once, then one atomic
+// (a float4 reduction where VEC == 4) a held id into the zeroed gradient.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_bag_grad_global_kernel(const float* __restrict__ grad, int64_t grad_row_stride,
@@ -237,23 +324,25 @@ range_bag_grad_global_kernel(const float* __restrict__ grad, int64_t grad_row_st
                              float* __restrict__ dtable) {
   const int per_row = D / VEC;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= B * L * per_row) return;
-  const int bl = static_cast<int>(t) / per_row;  // B * L * D < 2^31: 32-bit divisions
-  const int q = static_cast<int>(t) - bl * per_row;
-  const int64_t row = bag_shard_row(values[bl], start, rows_local, padded, wrap);
-  if (row < 0) return;
-  const int b = bl / L;
-  const float m = mask[bl];
-  const float cnt = mean ? bag_count(mask + static_cast<int64_t>(b) * L, L) : 1.0f;
-  const float* src = grad + b * grad_row_stride + q * VEC;
-  float term[VEC];
+  if (t >= B * per_row) return;
+  const int64_t b = t / per_row;
+  const int q = static_cast<int>(t - b * per_row);
+  const float cnt = mean ? bag_count(mask + b * L, L) : 1.0f;
+  float g[VEC];
+  load_vec<VEC>(grad + b * grad_row_stride + q * VEC, g);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) term[k] = __fmul_rn(mean ? __fdiv_rn(src[k], cnt) : src[k], m);
-  float* dst = dtable + row * D + q * VEC;
-  if constexpr (VEC == 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(term[0], term[1], term[2], term[3]));
-  } else {
-    atomicAdd(dst, term[0]);
+  for (int k = 0; k < VEC; ++k) g[k] = mean ? __fdiv_rn(g[k], cnt) : g[k];
+  for (int l = 0; l < L; ++l) {
+    const int64_t row = bag_shard_row(values[b * L + l], start, rows_local, padded, wrap);
+    if (row < 0) continue;
+    const float m = mask[b * L + l];
+    float* dst = dtable + row * D + q * VEC;
+    if constexpr (VEC == 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst),
+                make_float4(__fmul_rn(g[0], m), __fmul_rn(g[1], m), __fmul_rn(g[2], m), __fmul_rn(g[3], m)));
+    } else {
+      atomicAdd(dst, __fmul_rn(g[0], m));
+    }
   }
 }
 
@@ -518,34 +607,40 @@ extern "C" int nvt_range_bag(const float* table, int64_t rows_local, int64_t sta
 
 // grad float32 [B, D] (rows grad_row_stride floats apart), values int32
 // [B, L], mask float32 [B, L] → dtable float32 [rows_local, D], zeroed here,
-// then the held ids' terms.
+// then the held ids' terms. S 0: the global path; else the shared path by
+// the wrapper's plan, `blocks` blocks of kBagThreads in groups of S lanes,
+// each group a private copy of rows_local * D floats in shared memory.
 extern "C" int nvt_range_bag_grad(const float* grad, int64_t grad_row_stride, const int32_t* values, const float* mask,
                                   int64_t B, int L, int D, int64_t start, int64_t rows_local, int64_t padded, int wrap,
-                                  int mean, float* dtable, int vec, void* stream_ptr) {
+                                  int mean, float* dtable, int vec, int S, int blocks, void* stream_ptr) {
   if (bad_range_shape(D, B, vec) || L < 0 || rows_local < 0 || start < 0 || start + rows_local > padded ||
-      B * L * D > INT32_MAX - kSharedBlocks * kThreads)
+      B * L * D > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (rows_local > 0) {
-    const cudaError_t err = cudaMemsetAsync(dtable, 0, static_cast<size_t>(rows_local) * D * sizeof(float), stream);
+  const int64_t cells = rows_local * D;
+  if (cells > 0) {
+    const cudaError_t err = cudaMemsetAsync(dtable, 0, static_cast<size_t>(cells) * sizeof(float), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t total = B * L * D;
-  if (total == 0 || rows_local == 0) return 0;
-  const int64_t shared = rows_local * D * static_cast<int64_t>(sizeof(float));
-  if (shared <= kSharedBytes) {
-    const int64_t needed = (total + kThreads - 1) / kThreads;
-    const unsigned blocks = static_cast<unsigned>(needed < kSharedBlocks ? needed : kSharedBlocks);
-    range_bag_grad_shared_kernel<<<blocks, kThreads, static_cast<size_t>(shared), stream>>>(
-        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
-  } else if (vec == 4) {
-    range_bag_grad_global_kernel<4><<<blocks_for(B * L * (D / 4)), kThreads, 0, stream>>>(
-        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
-  } else {
-    range_bag_grad_global_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(
-        grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+  if (B * L == 0 || cells == 0) return 0;
+  if (S == 0) {
+    const int64_t n = B * (D / vec);
+    if (vec == 4)
+      range_bag_grad_global_kernel<4><<<blocks_for(n), kThreads, 0, stream>>>(
+          grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+    else
+      range_bag_grad_global_kernel<1><<<blocks_for(n), kThreads, 0, stream>>>(
+          grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t smem = kBagThreads / S * cells * static_cast<int64_t>(sizeof(float));
+  if (S > 32 || (S & (S - 1)) || blocks < 1 || smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_ids = L == 4 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+  const CopiesLaunch launch{grad, grad_row_stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, S,
+                            dtable, blocks, static_cast<int>(smem), stream};
+  return static_cast<int>(vec == 4 ? (vec_ids ? launch.run<4, true>() : launch.run<4, false>())
+                                   : (vec_ids ? launch.run<1, true>() : launch.run<1, false>()));
 }
 
 // ids: C int32 [B] columns; offsets, sizes, starts, padded: int64 [C];

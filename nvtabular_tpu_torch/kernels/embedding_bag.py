@@ -25,6 +25,7 @@ table's gradient (no collective). Their kernels are
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -44,12 +45,35 @@ _RANGE_ARGTYPES = [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p,
 ]
-# grad, grad row stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable, vec, stream
+# grad, grad row stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable, vec, S, blocks,
+# stream
 _RANGE_GRAD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+SMEM_OPT_IN = 227 * 1024  # the shared memory an H100 block can opt into
+SMEM_PER_SM = 228 * 1024  # an H100 SM's, 1 KB of it reserved a block
+BAG_GRAD_THREADS = 512  # csrc/sharded_embedding.cu kBagThreads
+H100_SMS = 132
+
+
+def bag_grad_plan(B: int, D: int, rows_local: int, vec: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """(S, blocks) of range_bag_grad's shared path, or (0, 0) for its global
+    path. A bag takes S lanes (the least power of two >= D / vec, at most
+    32) and each group of S lanes a private copy of the [rows_local, D]
+    gradient: a block of BAG_GRAD_THREADS needs BAG_GRAD_THREADS / S copies
+    within SMEM_OPT_IN. The grid is as many blocks as ``sms`` SMs hold at
+    once, by threads and by shared memory, at most one a group of bags."""
+    S = 1
+    while S < min(D // vec, 32):
+        S *= 2
+    groups = BAG_GRAD_THREADS // S
+    smem = groups * rows_local * D * 4
+    if smem > SMEM_OPT_IN:
+        return 0, 0
+    per_sm = min(2048 // BAG_GRAD_THREADS, SMEM_PER_SM // (smem + 1024))
+    return S, max(1, min(sms * per_sm, -(-B // groups)))
 
 
 def _check_bag(values: torch.Tensor, mask: torch.Tensor, combiner: str, device) -> Tuple[int, int]:
@@ -203,15 +227,22 @@ def _launch_range_bag_grad(name, grad, values, mask, start, rows_local, padded, 
     dtable = torch.empty((rows_local, D), dtype=torch.float32, device=grad.device)
     if D == 0:
         return dtable
+    vec = vec_width(D, grad, dtable)
+    S, blocks = bag_grad_plan(B, D, rows_local, vec, _sm_count(grad.device))
     fn = library("sharded_embedding").nvt_range_bag_grad
     if fn.argtypes is None:
         fn.argtypes = _RANGE_GRAD_ARGTYPES
         fn.restype = ctypes.c_int
     rc = fn(ptr(grad), grad.stride(0), ptr(values), ptr(mask), B, L, D, start, rows_local, padded, int(wrap),
-            int(combiner == "mean"), ptr(dtable), vec_width(D, grad, dtable), stream_ptr(grad.device))
+            int(combiner == "mean"), ptr(dtable), vec, S, blocks, stream_ptr(grad.device))
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     return dtable
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def bag_shard_rows(values: torch.Tensor, start: int, rows_local: int, padded: int, wrap: bool = True):

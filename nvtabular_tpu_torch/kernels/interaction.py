@@ -20,31 +20,69 @@ import torch
 from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-SMEM_LIMIT = 48 * 1024  # static-launch shared memory, no opt-in attribute
-MAX_SAMPLES_PER_BLOCK = 8
+SMEM_LIMIT = 48 * 1024  # the forward's static-launch shared memory, no opt-in attribute
+MAX_SAMPLES_PER_BLOCK = 8  # the forward's
+SMEM_OPT_IN = 227 * 1024  # the shared memory an H100 block can opt into: the backward's two stages
+BWD_THREADS = 256  # csrc/interaction.cu kBwdThreads
+BWD_ROWS = 8  # csrc/interaction.cu kBwdRows: rows of a sample a backward thread sums
 
 # x, B, F, D, G, self_mode, out, out row stride, stream
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-# x, g, g row stride, B, F, D, G, self_mode, dx, stream
+# x, g, g row stride, B, F, D, G, cols, self_mode, dx, stream
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def num_pairs(f: int, self_interaction: bool = False) -> int:
     return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
 
 
-def _samples_per_block(F: int, D: int, backward: bool, self_interaction: bool) -> int:
-    """Samples a block stages (csrc/interaction.cu smem_bytes: rows padded to
-    D + 1 floats, or D + 4 in the backward when D % 4 == 0)."""
-    if backward:
-        per_sample = (F * (D + 4 if D % 4 == 0 else D + 1) + num_pairs(F, self_interaction)) * 4
-    else:
-        per_sample = F * (D + 1) * 4
+def _fwd_samples_per_block(F: int, D: int) -> int:
+    """Samples a forward block stages (csrc/interaction.cu fwd_smem_bytes:
+    rows padded to D + 1 floats)."""
+    per_sample = F * (D + 1) * 4
     if per_sample > SMEM_LIMIT:
         raise ValueError(f"interaction kernels: one sample of [{F}, {D}] needs {per_sample} B of shared memory")
     return min(MAX_SAMPLES_PER_BLOCK, SMEM_LIMIT // per_sample)
+
+
+def bwd_columns(D: int, aligned: bool) -> int:
+    """Columns of a row one backward thread sums: 4 (float4 reads) when D is
+    a multiple of 4 and x is 16-byte aligned, else 1."""
+    return 4 if aligned and D % 4 == 0 else 1
+
+
+def bwd_smem_bytes(F: int, D: int, cols: int, G: int, self_interaction: bool) -> int:
+    """The backward block's shared memory (csrc/interaction.cu
+    bwd_stage_floats): two stages of G samples' X and gradient slots, and
+    the stages' two 8-byte barriers. An X slot holds F * D floats at a pad
+    of up to 3, in a number of 16-byte units equal to the row's column
+    chunks mod 8; a gradient slot P + 1 floats at a pad of up to 3, in an
+    odd number of 16-byte units."""
+    chunks = D // cols
+    x_units = (F * D + 6) // 4
+    while (x_units - chunks) % 8:
+        x_units += 1
+    g_units = (num_pairs(F, self_interaction) + 7) // 4
+    g_units += 1 - g_units % 2
+    return 2 * G * (x_units + g_units) * 16 + 16
+
+
+def bwd_plan(F: int, D: int, cols: int, self_interaction: bool) -> int:
+    """Samples G of a backward group. A thread takes BWD_ROWS rows and
+    ``cols`` columns of a sample, at most one such item a group: G =
+    BWD_THREADS // items a sample (16 at DLRM's [27, 16]), less where two
+    stages would not fit SMEM_OPT_IN."""
+    items = -(-F // BWD_ROWS) * (D // cols)
+    G = BWD_THREADS // items
+    while G > 0 and bwd_smem_bytes(F, D, cols, G, self_interaction) > SMEM_OPT_IN:
+        G -= 1
+    if G == 0:
+        raise ValueError(f"interaction_bwd: a sample of [{F}, {D}] is {items} items of {BWD_ROWS} rows and {cols} "
+                         f"columns, over {BWD_THREADS}, or its two stages need "
+                         f"{bwd_smem_bytes(F, D, cols, 1, self_interaction)} B of shared memory, over {SMEM_OPT_IN}")
+    return G
 
 
 def _check_x(x: torch.Tensor):
@@ -68,7 +106,7 @@ def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None,
         return out
     if B == 0 or P == 0:
         return out
-    G = _samples_per_block(F, D, False, self_interaction)
+    G = _fwd_samples_per_block(F, D)
     fn = library("interaction").nvt_interaction_fwd
     if fn.argtypes is None:
         fn.argtypes = _FWD_ARGTYPES
@@ -91,12 +129,14 @@ def interaction_bwd(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool 
     if B == 0 or P == 0:
         return torch.zeros_like(x)
     dx = torch.empty_like(x)
-    G = _samples_per_block(F, D, True, self_interaction)
+    cols = bwd_columns(D, x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0)
+    G = bwd_plan(F, D, cols, self_interaction)
     fn = library("interaction").nvt_interaction_bwd
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, int(self_interaction), ptr(dx), stream_ptr(x.device))
+    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, cols, int(self_interaction), ptr(dx),
+            stream_ptr(x.device))
     name = "interaction_self_bwd" if self_interaction else "interaction_bwd"
     raise_on_error(rc, name)
     LAUNCHES[name] += 1

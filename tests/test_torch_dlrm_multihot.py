@@ -540,6 +540,45 @@ def test_range_bag_grad_plain_matches_jax_vjp(model_size, combiner):
     np.testing.assert_allclose(torch.cat(full).numpy(), np.asarray(want) + lone, **BAG_TOL)
 
 
+@pytest.mark.parametrize("combiner", ["mean", "sum"])
+@pytest.mark.parametrize("vp,dim,b,hot", [(112, 64, 301, False), (116, 64, 301, False), (24, 16, 509, True)],
+                         ids=["copies_at_limit", "global_past_limit", "one_hot_row"])
+def test_range_bag_grad_plain_matches_jax_vjp_at_plan_edges(vp, dim, b, hot, combiner):
+    """The four shards' bag gradients, stacked, against jax.vjp of
+    multihot_embedding_lookup where the kernel's plan changes path (shards of
+    28 and 29 rows of 64 floats: private copies, then global atomics,
+    ``bag_grad_plan``), and with one row taking every id in range; rows 6-11
+    are all-masked bags. Within 1e-5 of the sum of the terms' magnitudes
+    (jax.vjp of |cotangent|): a hot row sums hundreds of terms in another
+    order."""
+    import jax
+    import jax.numpy as jnp
+
+    from nvtabular_tpu.models.layers import multihot_embedding_lookup
+
+    table, values, mask, ct = _bags(seed=2, b=b, dim=dim, vp=vp)
+    rows = vp // 4
+    if hot:  # every id in range on one row of shard 1, half of them through its negative alias
+        hot_row = rows + 1
+        values = np.where(np.abs(values) < vp, np.where(values < 0, hot_row - vp, hot_row), values).astype(np.int32)
+    mask[6:12] = 0.0
+    assert bool(kbag.bag_grad_plan(b, dim, rows, 4)[0]) == (rows * dim <= 28 * 64)
+    keep = np.ones(b, bool)
+    keep[[4, 5]] = False  # NaN bags, as above
+    v, m = jnp.asarray(values[keep]), jnp.asarray(mask[keep])
+    _, vjp = jax.vjp(lambda tab: multihot_embedding_lookup(tab, v, m, combiner), jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(ct[keep]))
+    (magnitude,) = vjp(jnp.abs(jnp.asarray(ct[keep])))
+    buf = torch.zeros((b, 2 * dim + 3))
+    buf[:, 3 : 3 + dim] = t(ct)  # a strided view at a 4-byte offset
+    got = torch.cat([kbag.range_bag_grad(buf[keep][:, 3 : 3 + dim], t(values[keep]), t(mask[keep]), k * rows, rows,
+                                         vp, combiner) for k in range(4)]).numpy()
+    assert got.shape == table.shape
+    assert (np.abs(got - np.asarray(want)) <= 1e-5 * np.asarray(magnitude) + 1e-6).all()
+    if hot:
+        assert np.abs(got).sum(axis=1).argmax() == hot_row
+
+
 def _two_rank_bag_grads():
     """ShardedEmbeddingFeatures with a model group of two simulated in one
     process (a single-hot column and a multihot table): each rank's bag

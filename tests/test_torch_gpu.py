@@ -247,13 +247,22 @@ def test_embedding_kernels_match_plain(D, out_of_range):
     assert bool(((got_grad.cpu() - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
 
 
-@pytest.mark.parametrize("F,D", [(27, 16), (5, 8), (2, 3)])
-def test_interaction_kernels_match_plain(F, D):
+@pytest.mark.parametrize(
+    "F,D,B,lead",
+    [(27, 16, 1001, 16), (5, 8, 1001, 8), (2, 3, 1001, 3), (27, 16, 65_537, 3), (28, 12, 4099, 5), (26, 20, 999, 1),
+     (4, 64, 70_001, 64), (33, 24, 2053, 7)],
+    ids=["27-16", "5-8", "2-3", "dlrm_many_groups_odd_offset", "f28_d12", "f26_d20", "f4_d64", "f33_d24"],
+)
+def test_interaction_kernels_match_plain(F, D, B, lead):
     """rtol 1e-5, atol 1e-5: float32 sums of D (forward) or F - 1 (backward)
-    products in another order than cuBLAS's and autograd's."""
+    products in another order than cuBLAS's and autograd's. B is no multiple
+    of the backward's samples a group or of its persistent grid's groups;
+    the gradient rows follow a lead of `lead` floats (4-byte aligned where
+    it is odd, as in DLRM's [B, D + P] buffer); D takes 4 columns a thread
+    or the scalar path, F one to five row blocks of 8, and G (bwd_plan) 21,
+    12 and 8 samples, no multiple of a warp's."""
     _require_cuda()
     g = torch.Generator().manual_seed(2)
-    B = 1001  # not a multiple of the samples per block
     P = F * (F - 1) // 2
     x = torch.randn((B, F, D), generator=g)
     grad = torch.randn((B, P), generator=g)
@@ -263,9 +272,9 @@ def test_interaction_kernels_match_plain(F, D):
     buf = torch.zeros((B, D + P), device="cuda")
     kernels.reset_launches()
     kint.interaction_fwd(xc, out=buf[:, D:])
-    gbuf = torch.zeros((B, D + P), device="cuda")
-    gbuf[:, D:] = grad.cuda()
-    got_dx = kint.interaction_bwd(xc, gbuf[:, D:])
+    gbuf = torch.zeros((B, lead + P), device="cuda")
+    gbuf[:, lead:] = grad.cuda()
+    got_dx = kint.interaction_bwd(xc, gbuf[:, lead:])
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["interaction_fwd"] == 1 and kernels.LAUNCHES["interaction_bwd"] == 1
     torch.testing.assert_close(buf[:, D:].cpu(), want, rtol=1e-5, atol=1e-5)
@@ -1689,34 +1698,49 @@ def test_sharded_train_step_across_cards_matches_one_process(tmp_path):
 
 
 # --- K15d's bag, K13b's self-interaction mode and K13d ------------------------------------
-def _bag_shard(g, B, L, vp, M, m, D):
+def _bag_shard(g, B, L, vp, M, m, D, hot=False):
     """Shard m of M of a padded [vp, D] multihot table, ids over [-vp - 3,
     vp + 3) (negatives wrap, a few outside the table, some masked) and a
-    mask with an all-masked row."""
+    mask with all-masked rows; `hot`: every id in range is one row of the
+    shard, half of them as its negative alias."""
     rows = vp // M
     local = torch.randn((rows, D), generator=g)
     values = torch.randint(-vp - 3, vp + 3, (B, L), generator=g, dtype=torch.int32)
+    if hot:
+        row = m * rows + rows // 2
+        values = torch.where(values.abs() < vp, torch.where(values < 0, row - vp, row), values).to(torch.int32)
     mask = (torch.rand((B, L), generator=g) < 0.8).float()
     mask[0] = 0.0
+    mask[5:9] = 0.0
     values[1, 0], mask[1, 0] = vp, 0.0  # masked, no rank's: NaN on model rank 0
     return local, values, mask, m * rows
 
 
 @pytest.mark.parametrize("combiner", ["mean", "sum"])
 @pytest.mark.parametrize("model_rank", [0, 1])
-@pytest.mark.parametrize("vp,D", [(24, 64), (24, 5), (40_000, 16)], ids=["genres_shared", "scalar", "global"])
-def test_range_bag_kernels_match_plain(vp, D, model_rank, combiner):
+@pytest.mark.parametrize(
+    "vp,D,B,hot",
+    [(24, 64, 65_536, False), (24, 5, 65_536, False), (40_000, 16, 65_536, False), (112, 64, 4099, False),
+     (116, 64, 4099, False), (112, 16, 65_536, False), (24, 64, 65_536, True), (8, 16, 3, False)],
+    ids=["genres_shared", "scalar", "global", "copies_at_limit", "global_past_limit", "copies_at_limit_d16",
+         "one_hot_row", "three_bags"],
+)
+def test_range_bag_kernels_match_plain(vp, D, B, hot, model_rank, combiner):
     """K15d's bag on model shard model_rank of 4: the take-mode forward
     bit-equal to its plain version (NaN bags on model rank 0 alone),
     written into a slot of a wider buffer; the backward within 1e-5 of the
-    sum of its terms' magnitudes (atomics), from a strided gradient, with
-    the take rule and the zero rule. 24 rows of 64 take the shared-memory
-    sums under full contention (65,536 x 4 ids on 6 rows), 40,000 rows the
-    global atomics."""
+    sum of its terms' magnitudes (summed in another order), from a strided
+    gradient, with the take rule and the zero rule. Shards of 28 rows (of
+    64 or 16 floats) take the largest private copies a block holds
+    (bag_grad_plan), 29 rows of 64 and 10,000 rows of 16 the global atomics;
+    one row takes every id in `one_hot_row`; B is no multiple of the grid's
+    stride over bags."""
     _require_cuda()
     g = torch.Generator().manual_seed(vp + D + model_rank)
-    B, L = 65_536, 4
-    local, values, mask, start = _bag_shard(g, B, L, vp, 4, model_rank, D)
+    L = 4
+    local, values, mask, start = _bag_shard(g, B, L, vp, 4, model_rank, D, hot)
+    vec = 4 if D % 4 == 0 else 1
+    assert bool(kbag.bag_grad_plan(B, D, local.shape[0], vec)[0]) == (local.shape[0] * D <= 28 * 64)
     dl, dv, dm = local.cuda(), values.cuda(), mask.cuda()
     buf = torch.zeros((B, 3, D), device="cuda")
     gbuf = torch.zeros((B, 3, D), device="cuda")
@@ -1753,26 +1777,31 @@ def test_range_bag_on_one_rank_is_the_whole_bag_bit_for_bit():
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
-@pytest.mark.parametrize("F,D", [(27, 16), (5, 8), (1, 3), (4, 5)])
-def test_interaction_self_mode_kernels_match_plain(F, D):
+@pytest.mark.parametrize(
+    "F,D,B,lead",
+    [(27, 16, 1001, 16), (5, 8, 1001, 8), (1, 3, 1001, 3), (4, 5, 1001, 5), (27, 16, 65_537, 1), (1, 16, 4099, 3),
+     (28, 12, 3001, 16)],
+    ids=["27-16", "5-8", "1-3", "4-5", "many_groups_odd_offset", "one_feature_d16", "f28_d12"],
+)
+def test_interaction_self_mode_kernels_match_plain(F, D, B, lead):
     """K13b's self-interaction mode: P = F (F + 1) / 2 dots within one ULP of
     the plain version (the same fmaf steps in the same order, which the
     plain version rounds twice, through float64, about once in 2^29),
     written after a lead, and the backward (2 g_ii x_i on the diagonal) from
-    a strided gradient (rtol 1e-5, atol 1e-5); counted apart from the strict
-    mode."""
+    a strided gradient (rtol 1e-5, atol 1e-5), its rows after a lead of
+    `lead` floats; counted apart from the strict mode."""
     _require_cuda()
     g = torch.Generator().manual_seed(F + D)
-    B, P = 1001, F * (F + 1) // 2
+    P = F * (F + 1) // 2
     x = torch.randn((B, F, D), generator=g)
     grad = torch.randn((B, P), generator=g)
     xc = x.cuda()
     buf = torch.zeros((B, D + P), device="cuda")
-    gbuf = torch.zeros((B, D + P), device="cuda")
-    gbuf[:, D:] = grad.cuda()
+    gbuf = torch.zeros((B, lead + P), device="cuda")
+    gbuf[:, lead:] = grad.cuda()
     kernels.reset_launches()
     kint.interaction_fwd(xc, out=buf[:, D:], self_interaction=True)
-    got_dx = kint.interaction_bwd(xc, gbuf[:, D:], self_interaction=True)
+    got_dx = kint.interaction_bwd(xc, gbuf[:, lead:], self_interaction=True)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["interaction_self_fwd"] == 1 and kernels.LAUNCHES["interaction_self_bwd"] == 1
     assert kernels.LAUNCHES["interaction_fwd"] == 0 and kernels.LAUNCHES["interaction_bwd"] == 0

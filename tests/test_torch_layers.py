@@ -44,10 +44,12 @@ def assert_within_terms(got, want, magnitude):
 
 
 # --- K13b with self_interaction=True ------------------------------------------------------
-@pytest.mark.parametrize("F,D", [(5, 8), (1, 3), (27, 16)])
+@pytest.mark.parametrize("F,D", [(5, 8), (1, 3), (27, 16), (1, 16), (28, 12)])
 def test_self_interaction_and_grad_match_jax(F, D):
     """F (F + 1) / 2 dots in np.tril_indices(F, 0) order, the diagonal's
-    gradient 2 g_ii x_i; F = 1 has the one self pair."""
+    gradient 2 g_ii x_i; F = 1 has the one self pair ((1, 16): one row of
+    a row block of 8 in the backward kernel's plan); (28, 12) takes four
+    blocks."""
     rng = np.random.default_rng(F)
     B = 37
     x = rng.normal(size=(B, F, D)).astype(np.float32)

@@ -91,9 +91,11 @@ def test_embedding_features_match_jax_stack(out_of_range):
     np.testing.assert_allclose(n(pt.grad), np.concatenate([np.asarray(g) for g in want_grads[1:]]), **F32_TOL)
 
 
-@pytest.mark.parametrize("f,d", [(5, 8), (27, 16)])
+@pytest.mark.parametrize("f,d", [(5, 8), (27, 16), (28, 12), (2, 64)])
 def test_dot_product_interaction_and_vjp_match_jax(f, d):
-    """rtol 1e-5: float32 dots of d terms summed in another order."""
+    """rtol 1e-5: float32 dots of d terms summed in another order. (28, 12)
+    and (2, 64) are where the backward kernel's plan takes four row blocks
+    of 8 and 3 column chunks, or one block and 16 chunks (bwd_plan)."""
     rng = np.random.default_rng(2)
     b = 96
     x = rng.normal(size=(b, f, d)).astype(np.float32)
