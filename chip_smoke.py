@@ -191,8 +191,8 @@ a nonzero exit:
    [65536, 27, 16] -> 378 and K13d at xDeepFM's layer 1 ([65536, 26, 16]
    twice -> 200) and layer 2 ([8192, 200, 16] x [8192, 26, 16] -> 200),
    each against its plain version on the card and timed beside its bound
-   (--profile: range_bag_grad's zero fill and kernel, and the self mode's
-   backward, apart);
+   (--profile: range_bag_grad's zero fill and kernel, the self mode's
+   backward, and K13d's backward kernels, apart);
 24. Criteo's alternative continuous chain on phase 3's partitions, as two
    workflows: 24a, the 13 dense columns through FillMedian >> Clip(min=0) >>
    LogOp >> NormalizeMinMax(out_dtype="float16") (one K5 launch a batch:
@@ -2960,7 +2960,8 @@ def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
     padded genres table with its first batch's values, K13b's self mode at
     [TRAIN_BS, 27, 16] and K13d at xDeepFM's layers 1 and 2, each against
     its plain version on the card, timed beside its bound; ``profile`` adds
-    torch.profiler's split of the bag's and the self mode's backward."""
+    torch.profiler's split of the bag's, the self mode's and K13d's
+    backward."""
     from nvtabular_tpu_torch.kernels import cin as kcin
     from nvtabular_tpu_torch.kernels import embedding_bag as kbag
     from nvtabular_tpu_torch.kernels import interaction as kint
@@ -3106,6 +3107,8 @@ def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
                "library_ms": None}
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (4 * Hn + 5))
         records["cin_bwd" + suffix] = rec
+        if profile:  # cin_bwd_x (dz, dx_k, dx_0), cin_bwd_w (dw) and dw's memset apart
+            profile_split(rec, f"cin_bwd layer {layer}", lambda: kcin.cin_bwd(xk, x0, w, gout))
         del x0, xk, w, gout
         torch.cuda.empty_cache()
     log(f"layer kernels: phase 23 took {time.perf_counter() - phase_t0:.1f} s")

@@ -29,9 +29,16 @@
 // make the summation order, and so the last bits, vary from run to run.
 // Bound: bytes — the zeroed dense gradient written once (sum V * D * 4 B),
 // the ids and the feature gradient read once.
+//
+// A launch takes the tables of up to kMaxCols columns by value in a
+// __grid_constant__ argument (1.5 KB); a call of more columns launches once
+// for each chunk of kMaxCols (chunks.cuh), the output and gradient
+// pointers moved to the chunk's first column.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "chunks.cuh"
 
 namespace {
 
@@ -99,62 +106,61 @@ scatter_grad_kernel(const __grid_constant__ Columns c, int num_cols, const float
   }
 }
 
-int fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
-                 int num_cols) {
-  if (num_cols < 0 || num_cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
-  for (int k = 0; k < num_cols; ++k) {
-    c->ids[k] = static_cast<const int32_t*>(ids[k]);
-    c->offset[k] = offsets[k];
-    c->size[k] = sizes[k];
+// Columns [c0, c0 + n) of the call's tables (a chunk: the columns are
+// independent).
+void fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes, int c0,
+                  int n) {
+  for (int k = 0; k < n; ++k) {
+    c->ids[k] = static_cast<const int32_t*>(ids[c0 + k]);
+    c->offset[k] = offsets[c0 + k];
+    c->size[k] = sizes[c0 + k];
   }
-  return 0;
 }
 
 bool bad_shape(int num_cols, int D, int64_t B, int vec) {
-  return D <= 0 || B < 0 || (vec != 1 && vec != 4) || D % vec != 0 ||
-         B * num_cols * (D / vec) > INT32_MAX;
+  return num_cols < 0 || D <= 0 || B < 0 || B > INT32_MAX || (vec != 1 && vec != 4) || D % vec != 0 ||
+         B * nvt::chunk_size(num_cols, 0, kMaxCols) * (D / vec) > INT32_MAX;
 }
 
 }  // namespace
 
+// *launches: the kernel launches made, one for each chunk of kMaxCols columns.
 extern "C" int nvt_embedding_gather(const void* const* ids, const int64_t* offsets,
                                     const int64_t* sizes, int num_cols, const float* table, int D,
                                     int64_t B, float* out, int64_t out_row_stride, int vec,
-                                    void* stream) {
-  Columns c;
-  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
+                                    int* launches, void* stream) {
   if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = B * num_cols * (D / vec);
-  if (total == 0) return 0;
-  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    gather_kernel<4><<<blocks, kThreads, 0, s>>>(c, num_cols, table, D, static_cast<int>(B), out,
-                                                 out_row_stride);
-  } else {
-    gather_kernel<1><<<blocks, kThreads, 0, s>>>(c, num_cols, table, D, static_cast<int>(B), out,
-                                                 out_row_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+    Columns c;
+    fill_columns(&c, ids, offsets, sizes, c0, n);
+    const unsigned int blocks = static_cast<unsigned int>((B * n * (D / vec) + kThreads - 1) / kThreads);
+    float* o = out + static_cast<int64_t>(c0) * D;
+    if (vec == 4)
+      gather_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, table, D, static_cast<int>(B), o, out_row_stride);
+    else
+      gather_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, table, D, static_cast<int>(B), o, out_row_stride);
+    return nvt::launched(launches);
+  });
 }
 
 extern "C" int nvt_embedding_scatter_grad(const void* const* ids, const int64_t* offsets,
                                           const int64_t* sizes, int num_cols, const float* grad,
                                           int64_t grad_row_stride, int D, int64_t B,
-                                          float* dtable, int vec, void* stream) {
-  Columns c;
-  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
+                                          float* dtable, int vec, int* launches, void* stream) {
   if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = B * num_cols * (D / vec);
-  if (total == 0) return 0;
-  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    scatter_grad_kernel<4><<<blocks, kThreads, 0, s>>>(c, num_cols, grad, grad_row_stride, D,
-                                                       static_cast<int>(B), dtable);
-  } else {
-    scatter_grad_kernel<1><<<blocks, kThreads, 0, s>>>(c, num_cols, grad, grad_row_stride, D,
-                                                       static_cast<int>(B), dtable);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+    Columns c;
+    fill_columns(&c, ids, offsets, sizes, c0, n);
+    const unsigned int blocks = static_cast<unsigned int>((B * n * (D / vec) + kThreads - 1) / kThreads);
+    const float* g = grad + static_cast<int64_t>(c0) * D;
+    if (vec == 4)
+      scatter_grad_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, static_cast<int>(B), dtable);
+    else
+      scatter_grad_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, static_cast<int>(B), dtable);
+    return nvt::launched(launches);
+  });
 }

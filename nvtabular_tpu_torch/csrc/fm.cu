@@ -35,6 +35,11 @@
 // atomic per block and column. Atomics make the summation order, and so
 // the last bits, vary from run to run.
 //
+// A launch of at most kMaxCols fields takes their tables by value in a
+// __grid_constant__ argument; more fields read a [3, F] int64 table on the
+// card (the ids' pointers, the offsets and the sizes, copied there by the
+// wrapper), so any F is one launch and the row's sums keep their order.
+//
 // Bound: bytes. The forward reads v, the ids, the linear entries the batch
 // touches and the dense features once; its ~3 F D flops a row are ~1/20 of
 // the byte time at the float32 rate. The backward reads v, ids, g and the
@@ -58,13 +63,26 @@ struct Columns {
   int64_t size[kMaxCols];
 };
 
+// The same tables on the card: rows ids' pointers, offsets, sizes.
+struct ColumnTable {
+  const int64_t* t;  // [3, F]
+  int F;
+};
+
+__device__ __forceinline__ int64_t wrap_row(int64_t id, int64_t offset, int64_t size) {
+  if (id < 0) id += size;
+  return (id >= 0 && id < size) ? offset + id : -1;
+}
+
 // Entry of the concatenated linear weights for id b of column col, or -1
 // when the id is outside the column's table after jnp.take's wrap.
 __device__ __forceinline__ int64_t table_row(const Columns& c, int col, int64_t b) {
-  int64_t id = c.ids[col][b];
-  const int64_t size = c.size[col];
-  if (id < 0) id += size;
-  return (id >= 0 && id < size) ? c.offset[col] + id : -1;
+  return wrap_row(c.ids[col][b], c.offset[col], c.size[col]);
+}
+
+__device__ __forceinline__ int64_t table_row(const ColumnTable& c, int col, int64_t b) {
+  const int32_t* ids = reinterpret_cast<const int32_t*>(c.t[col]);
+  return wrap_row(ids[b], c.t[c.F + col], c.t[2 * c.F + col]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -79,9 +97,9 @@ __device__ __forceinline__ float packed_field_sum(float v, int D) {
   return v;
 }
 
-template <bool PACKED>
+template <bool PACKED, class Cols>
 __global__ void __launch_bounds__(kThreads)
-fm_fwd_kernel(const __grid_constant__ Columns c, int F, int D, const float* __restrict__ v,
+fm_fwd_kernel(const __grid_constant__ Cols c, int F, int D, const float* __restrict__ v,
               int64_t v_row_stride, const float* __restrict__ dense, int64_t dense_row_stride,
               int nd, const float* __restrict__ linear, const float* __restrict__ dense_w, int64_t B,
               float* __restrict__ out) {
@@ -126,9 +144,9 @@ fm_fwd_kernel(const __grid_constant__ Columns c, int F, int D, const float* __re
   }
 }
 
-template <bool PACKED>
+template <bool PACKED, class Cols>
 __global__ void __launch_bounds__(kThreads)
-fm_bwd_kernel(const __grid_constant__ Columns c, int F, int D, const float* __restrict__ v,
+fm_bwd_kernel(const __grid_constant__ Cols c, int F, int D, const float* __restrict__ v,
               int64_t v_row_stride, const float* __restrict__ dense, int64_t dense_row_stride,
               int nd, const float* __restrict__ dense_w, const float* __restrict__ g, int64_t B,
               float* __restrict__ dv, int64_t dv_row_stride, float* __restrict__ ddense,
@@ -168,19 +186,16 @@ fm_bwd_kernel(const __grid_constant__ Columns c, int F, int D, const float* __re
   for (int j = threadIdx.x; j < nd; j += kThreads) atomicAdd(ddense_w + j, wsum[j]);
 }
 
-int fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
-                 int num_cols) {
-  if (num_cols <= 0 || num_cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+void fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes, int num_cols) {
   for (int k = 0; k < num_cols; ++k) {
     c->ids[k] = static_cast<const int32_t*>(ids[k]);
     c->offset[k] = offsets[k];
     c->size[k] = sizes[k];
   }
-  return 0;
 }
 
 bool bad_shape(int F, int D, int nd, int64_t B) {
-  return D <= 0 || nd < 0 || B < 0 || static_cast<int64_t>(nd) * 4 > kSmemLimit || F * D <= 0;
+  return F <= 0 || D <= 0 || nd < 0 || B < 0 || static_cast<int64_t>(nd) * 4 > kSmemLimit;
 }
 
 unsigned int blocks_for(int64_t B) {
@@ -188,48 +203,101 @@ unsigned int blocks_for(int64_t B) {
   return static_cast<unsigned int>(need < kMaxBlocks ? need : kMaxBlocks);
 }
 
+struct FwdArgs {
+  int F, D;
+  const float* v;
+  int64_t v_row_stride;
+  const float* dense;
+  int64_t dense_row_stride;
+  int nd;
+  const float* linear;
+  const float* dense_w;
+  int64_t B;
+  float* out;
+  cudaStream_t s;
+
+  template <class Cols>
+  int launch(const Cols& c) const {
+    if (32 % D == 0)
+      fm_fwd_kernel<true><<<blocks_for(B), kThreads, 0, s>>>(c, F, D, v, v_row_stride, dense, dense_row_stride, nd,
+                                                             linear, dense_w, B, out);
+    else
+      fm_fwd_kernel<false><<<blocks_for(B), kThreads, 0, s>>>(c, F, D, v, v_row_stride, dense, dense_row_stride, nd,
+                                                              linear, dense_w, B, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct BwdArgs {
+  int F, D;
+  const float* v;
+  int64_t v_row_stride;
+  const float* dense;
+  int64_t dense_row_stride;
+  int nd;
+  const float* dense_w;
+  const float* g;
+  int64_t B;
+  float* dv;
+  int64_t dv_row_stride;
+  float* ddense;
+  int64_t ddense_row_stride;
+  float* dlinear;
+  float* ddense_w;
+  cudaStream_t s;
+
+  template <class Cols>
+  int launch(const Cols& c) const {
+    const size_t smem = static_cast<size_t>(nd) * 4;
+    if (32 % D == 0)
+      fm_bwd_kernel<true><<<blocks_for(B), kThreads, smem, s>>>(c, F, D, v, v_row_stride, dense, dense_row_stride,
+                                                                nd, dense_w, g, B, dv, dv_row_stride, ddense,
+                                                                ddense_row_stride, dlinear, ddense_w);
+    else
+      fm_bwd_kernel<false><<<blocks_for(B), kThreads, smem, s>>>(c, F, D, v, v_row_stride, dense, dense_row_stride,
+                                                                 nd, dense_w, g, B, dv, dv_row_stride, ddense,
+                                                                 ddense_row_stride, dlinear, ddense_w);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The tables by value up to kMaxCols fields, else the card's copy
+// (col_table, int64 [3, F]; null where F <= kMaxCols).
+template <class Args>
+int launch_with_columns(const Args& a, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
+                        const int64_t* col_table) {
+  if (a.F <= kMaxCols) {
+    Columns c;
+    fill_columns(&c, ids, offsets, sizes, a.F);
+    return a.launch(c);
+  }
+  if (col_table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return a.launch(ColumnTable{col_table, a.F});
+}
+
 }  // namespace
 
 extern "C" int nvt_fm_fwd(const void* const* ids, const int64_t* offsets, const int64_t* sizes,
-                          int num_cols, int D, const float* v, int64_t v_row_stride,
+                          const int64_t* col_table, int num_cols, int D, const float* v, int64_t v_row_stride,
                           const float* dense, int64_t dense_row_stride, int nd,
                           const float* linear, const float* dense_w, int64_t B, float* out,
                           void* stream) {
-  Columns c;
-  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
   if (bad_shape(num_cols, D, nd, B)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (32 % D == 0) {
-    fm_fwd_kernel<true><<<blocks_for(B), kThreads, 0, s>>>(c, num_cols, D, v, v_row_stride, dense,
-                                                           dense_row_stride, nd, linear, dense_w, B, out);
-  } else {
-    fm_fwd_kernel<false><<<blocks_for(B), kThreads, 0, s>>>(c, num_cols, D, v, v_row_stride, dense,
-                                                            dense_row_stride, nd, linear, dense_w, B, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const FwdArgs a{num_cols, D, v, v_row_stride, dense, dense_row_stride, nd, linear, dense_w, B, out,
+                  static_cast<cudaStream_t>(stream)};
+  return launch_with_columns(a, ids, offsets, sizes, col_table);
 }
 
 extern "C" int nvt_fm_bwd(const void* const* ids, const int64_t* offsets, const int64_t* sizes,
-                          int num_cols, int D, const float* v, int64_t v_row_stride,
+                          const int64_t* col_table, int num_cols, int D, const float* v, int64_t v_row_stride,
                           const float* dense, int64_t dense_row_stride, int nd,
                           const float* dense_w, const float* g, int64_t B, float* dv,
                           int64_t dv_row_stride, float* ddense, int64_t ddense_row_stride,
                           float* dlinear, float* ddense_w, void* stream) {
-  Columns c;
-  if (int rc = fill_columns(&c, ids, offsets, sizes, num_cols)) return rc;
   if (bad_shape(num_cols, D, nd, B)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(nd) * 4;
-  if (32 % D == 0) {
-    fm_bwd_kernel<true><<<blocks_for(B), kThreads, smem, s>>>(
-        c, num_cols, D, v, v_row_stride, dense, dense_row_stride, nd, dense_w, g, B, dv, dv_row_stride,
-        ddense, ddense_row_stride, dlinear, ddense_w);
-  } else {
-    fm_bwd_kernel<false><<<blocks_for(B), kThreads, smem, s>>>(
-        c, num_cols, D, v, v_row_stride, dense, dense_row_stride, nd, dense_w, g, B, dv, dv_row_stride,
-        ddense, ddense_row_stride, dlinear, ddense_w);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BwdArgs a{num_cols, D, v, v_row_stride, dense, dense_row_stride, nd, dense_w, g, B, dv, dv_row_stride,
+                  ddense, ddense_row_stride, dlinear, ddense_w, static_cast<cudaStream_t>(stream)};
+  return launch_with_columns(a, ids, offsets, sizes, col_table);
 }

@@ -12,6 +12,8 @@
 
 #include <cstdint>
 
+#include "chunks.cuh"
+
 namespace nvt {
 
 constexpr uint32_t kHashC1 = 0xCC9E2D51u;
@@ -42,7 +44,10 @@ __device__ __forceinline__ int32_t fold_id(uint64_t row, uint32_t seed, uint32_t
 }
 
 // Up to kMaxCols columns of a launch, by value in a __grid_constant__
-// argument (nothing to copy to the card first).
+// argument (nothing to copy to the card first). A chain of more columns
+// launches once for each chunk of kMaxCols (chunks.cuh), each launch
+// carrying the running hash from the last through the output (hash.cu,
+// hash_pair.cu).
 constexpr int kMaxCols = 16;
 enum ColKind : int { kInt32 = 0, kInt64 = 1, kFloat32 = 2 };
 
@@ -52,14 +57,19 @@ struct Cols {
 };
 
 // The kinds travel from the host as ints: refuse what is not a column kind.
-inline bool fill_cols(Cols& cols, const void* const* ptrs, const int* kinds, int num_cols) {
-  if (num_cols < 1 || num_cols > kMaxCols) return false;
-  for (int k = 0; k < num_cols; ++k) {
+inline bool valid_kinds(const int* kinds, int num_cols) {
+  if (num_cols < 1) return false;
+  for (int k = 0; k < num_cols; ++k)
     if (kinds[k] < kInt32 || kinds[k] > kFloat32) return false;
-    cols.ptr[k] = ptrs[k];
-    cols.kind[k] = kinds[k];
-  }
   return true;
+}
+
+// Columns [c0, c0 + n) of a chain, n <= kMaxCols.
+inline void fill_cols(Cols& cols, const void* const* ptrs, const int* kinds, int c0, int n) {
+  for (int k = 0; k < n; ++k) {
+    cols.ptr[k] = ptrs[c0 + k];
+    cols.kind[k] = kinds[c0 + k];
+  }
 }
 
 // The lanes hash_array hashes (dispatch.py:51-85):

@@ -44,19 +44,30 @@ struct Masks {
   const uint8_t* ptr[nvt::kMaxCols];  // bool [n] each, or null: all valid
 };
 
+// Columns [c0, c0 + num_cols) of the key tuple; c0 > 0: the running hashes
+// of the columns before are h1_out[r] and h2_out[r] (a chunk's launch after
+// the first).
 __global__ void __launch_bounds__(kThreads)
-hash_pair_kernel(const __grid_constant__ nvt::Cols cols, int num_cols, int64_t n, uint32_t seed1,
+hash_pair_kernel(const __grid_constant__ nvt::Cols cols, int num_cols, int c0, int64_t n, uint32_t seed1,
                  uint32_t seed2, int32_t* __restrict__ h1_out, int32_t* __restrict__ h2_out) {
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; r < n;
        r += static_cast<int64_t>(gridDim.x) * kThreads) {
-    uint32_t lo, hi;
-    nvt::value_lanes(cols, 0, r, lo, hi);
-    uint32_t h1 = nvt::hash_lanes(lo, hi, seed1);
-    uint32_t h2 = nvt::hash_lanes(lo, hi, seed2);
-    for (int k = 1; k < num_cols; ++k) {
+    uint32_t lo, hi, h1, h2;
+    int k = 0;
+    if (c0 == 0) {
+      nvt::value_lanes(cols, 0, r, lo, hi);
+      h1 = nvt::hash_lanes(lo, hi, seed1);
+      h2 = nvt::hash_lanes(lo, hi, seed2);
+      k = 1;
+    } else {
+      h1 = static_cast<uint32_t>(h1_out[r]);
+      h2 = static_cast<uint32_t>(h2_out[r]);
+    }
+    for (; k < num_cols; ++k) {
+      const uint32_t col = static_cast<uint32_t>(c0 + k);
       nvt::value_lanes(cols, k, r, lo, hi);
-      h1 = nvt::hash_lanes(h1, nvt::hash_lanes(lo, hi, seed1 + 31u * k), seed1 + 17u);
-      h2 = nvt::hash_lanes(h2, nvt::hash_lanes(lo, hi, seed2 + 31u * k), seed2 + 17u);
+      h1 = nvt::hash_lanes(h1, nvt::hash_lanes(lo, hi, seed1 + 31u * col), seed1 + 17u);
+      h2 = nvt::hash_lanes(h2, nvt::hash_lanes(lo, hi, seed2 + 31u * col), seed2 + 17u);
     }
     h1_out[r] = static_cast<int32_t>(h1);
     h2_out[r] = static_cast<int32_t>(h2);
@@ -65,17 +76,22 @@ hash_pair_kernel(const __grid_constant__ nvt::Cols cols, int num_cols, int64_t n
 
 // idx: the probe's result, a fitted row in [0, miss) or miss. A hit whose h2
 // equals the fitted tuple's gives idx + hit_offset; a miss or a mismatch gives
-// oov; a row with any null member gives null_code.
+// oov; a row with any null member gives null_code. masks_only: a launch for
+// the masks past the first kMaxCols, over the codes already in out.
 __global__ void __launch_bounds__(kThreads)
 hash_pair_verify_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ h2,
                         const int32_t* __restrict__ h2_by_group, const __grid_constant__ Masks masks,
-                        int num_masks, int64_t n, int32_t miss, int32_t hit_offset, int32_t oov,
+                        int num_masks, int masks_only, int64_t n, int32_t miss, int32_t hit_offset, int32_t oov,
                         int32_t null_code, int32_t* __restrict__ out) {
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; r < n;
        r += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int32_t v = idx[r];
     int32_t code = oov;
-    if (v != miss && __ldg(h2_by_group + v) == h2[r]) code = v + hit_offset;
+    if (masks_only) {
+      code = out[r];
+    } else {
+      const int32_t v = idx[r];
+      if (v != miss && __ldg(h2_by_group + v) == h2[r]) code = v + hit_offset;
+    }
     for (int k = 0; k < num_masks; ++k) {
       if (masks.ptr[k] != nullptr && !masks.ptr[k][r]) code = null_code;
     }
@@ -101,31 +117,36 @@ inline unsigned int blocks_for(int64_t n) {
 
 }  // namespace
 
+// *launches: the kernel launches made, one for each chunk of kMaxCols columns.
 extern "C" int nvt_hash_pair(const void* const* ptrs, const int* kinds, int num_cols, int64_t n, uint32_t seed1,
-                             uint32_t seed2, int32_t* h1, int32_t* h2, void* stream) {
-  nvt::Cols cols;
-  if (n < 0 || !nvt::fill_cols(cols, ptrs, kinds, num_cols)) return static_cast<int>(cudaErrorInvalidValue);
+                             uint32_t seed2, int32_t* h1, int32_t* h2, int* launches, void* stream) {
+  if (n < 0 || !nvt::valid_kinds(kinds, num_cols)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  hash_pair_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      cols, num_cols, n, seed1, seed2, h1, h2);
-  return static_cast<int>(cudaGetLastError());
+  return nvt::for_each_chunk(num_cols, nvt::kMaxCols, [&](int c0, int k) {
+    nvt::Cols cols;
+    nvt::fill_cols(cols, ptrs, kinds, c0, k);
+    hash_pair_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(cols, k, c0, n, seed1,
+                                                                                          seed2, h1, h2);
+    return nvt::launched(launches);
+  });
 }
 
+// The codes and the first kMaxCols masks in one launch, then a launch for
+// each further chunk of masks; *launches counts them.
 extern "C" int nvt_hash_pair_verify(const int32_t* idx, const int32_t* h2, const int32_t* h2_by_group,
                                     const void* const* masks, int num_masks, int64_t n, int32_t miss,
                                     int32_t hit_offset, int32_t oov, int32_t null_code, int32_t* out,
-                                    void* stream) {
-  if (n < 0 || num_masks < 0 || num_masks > nvt::kMaxCols || miss < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                    int* launches, void* stream) {
+  if (n < 0 || num_masks < 0 || miss < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  Masks m;
-  for (int k = 0; k < nvt::kMaxCols; ++k) {
-    m.ptr[k] = k < num_masks ? static_cast<const uint8_t*>(masks[k]) : nullptr;
-  }
-  hash_pair_verify_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, h2, h2_by_group, m, num_masks, n, miss, hit_offset, oov, null_code, out);
-  return static_cast<int>(cudaGetLastError());
+  const auto verify = [&](int c0, int k) {
+    Masks m;
+    for (int j = 0; j < nvt::kMaxCols; ++j) m.ptr[j] = j < k ? static_cast<const uint8_t*>(masks[c0 + j]) : nullptr;
+    hash_pair_verify_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        idx, h2, h2_by_group, m, k, c0 > 0, n, miss, hit_offset, oov, null_code, out);
+    return nvt::launched(launches);
+  };
+  return num_masks == 0 ? verify(0, 0) : nvt::for_each_chunk(num_masks, nvt::kMaxCols, verify);
 }
 
 extern "C" int nvt_hash_lanes(const int64_t* lo, const int64_t* hi, int64_t n, uint32_t seed, int64_t* out,

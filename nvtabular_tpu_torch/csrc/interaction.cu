@@ -12,33 +12,52 @@
 // (nvtabular_tpu/models/dlrm.py:135); the forward writes straight into that
 // [B, D + P] buffer through a row stride.
 //
-// A block stages G samples' [F, D] rows in shared memory.
+// Both kernels run a persistent grid (as many blocks as the card holds at
+// once, each walking groups of G samples) and stage a group's rows in
+// shared memory by bulk copies of the tensor memory accelerator, which
+// complete on an mbarrier: the 16-byte-aligned body of a row goes by one
+// bulk copy, its first and last 0-3 floats by 4-byte cp.async. Two stages
+// where they fit, so that the next group's copies run while this group
+// computes, else one; the forward also takes one where two would leave an
+// SM few warps (phase 22's [4, 64]: 3 warps, against 6 blocks of one warp
+// with one stage each). The host's plan (kernels/interaction.py) picks G,
+// the block's threads and the stages.
 //
 // nvt_interaction_fwd: out[b, k] = sum_d X[b, i, d] * X[b, j, d] for the
-// P pairs only (not the F x F product). Rows are padded to D + 1 floats, so
-// the lanes of a warp, which read rows j, j + 1, ..., hit distinct banks.
-// Consecutive threads take consecutive pairs of a sample and write
-// consecutive outputs; the sum runs over d in order with fmaf.
+// P pairs only (not the F x F product). The triangle is cut into tiles of
+// 4 rows i x 4 rows j, T = nb (nb + 1) / 2 of them (nb = ceil(F / 4)); a
+// diagonal tile keeps i > j, or i >= j in the self mode. A thread takes a
+// tile of one sample and keeps its 16 sums in registers: a step reads the
+// 8 rows' float4 chunk of d (C = 4; one float where D % 4 != 0 or x is not
+// 16-byte aligned) and does 64 fmaf, over d in order, so each pair's sum is
+// the plain version's fmaf steps. Thread t = slot * G + s takes sample s:
+// the 8 lanes of a quarter-warp read 8 samples' slots, whose stride in
+// 16-byte units is odd, so 8 distinct groups of banks. A thread's tiles
+// are slot, slot + S, ... (S = threads / G), walked in the triangle's
+// order with no division. The sums land in the sample's output slot, at a
+// pad that puts the 16-byte-aligned body of its destination row on a
+// 16-byte boundary, and leave by one bulk store a sample; the 0-3 floats
+// at each end by 4-byte stores (DLRM's [B, D + P] rows are only 4-byte
+// aligned).
 //
 // nvt_interaction_bwd: dX[b, i, d] = sum_{j != i} g[b, pair(i, j)] X[b, j, d]
 // (pair(i, j) = pair(j, i), both of X's operands being X); in self_mode the
 // diagonal pair adds 2 g[b, pair(i, i)] X[b, i, d], its product's two
-// factors both being X[b, i]. A persistent grid of kBwdThreads blocks (two
-// an SM at DLRM's [27, 16]) walks groups of G samples (16 there: the host's
-// plan). While a block computes one group, the tensor memory accelerator
-// copies the next one's X rows and the 16-byte-aligned bodies of its
-// gradient rows (rows of DLRM's [B, D + P] buffer, 4-byte aligned) into
-// the other stage, completing on an mbarrier; their first and last 0-3
-// floats go by 4-byte cp.async. A thread keeps the sums of kBwdRows rows and
-// C = 4 columns (1 where D % 4 != 0) of one sample in registers, over j in
-// order with fmaf, so one float4 read of an x_j chunk serves 8 rows (X is
-// read ceil(F / 8) times a sample, not F times). The weights' addresses
-// follow from j's range, so that no step chooses one: below the rows
-// w(i, j) sits at row_base(i) + j (8 steps at a time, unrolled: a pointer a
-// row plus a constant), in the diagonal block (unrolled) each row's form is
-// known at compile time, and above the rows it sits at row_base(j) + i. The
-// sums go back into the stage's X slots and leave by one bulk store a
-// sample.
+// factors both being X[b, i]. Blocks of kBwdThreads (two an SM at DLRM's
+// [27, 16]) walk groups of G samples (16 there); a stage holds a group's X
+// rows and gradient rows (rows of DLRM's [B, D + P] buffer). A thread keeps
+// the sums of kBwdRows rows and C = 4 columns (1 where D % 4 != 0) of one
+// sample in registers, over j in order with fmaf, so one float4 read of an
+// x_j chunk serves 8 rows (X is read ceil(F / 8) times a sample, not F
+// times). The weights' addresses follow from j's range, so that no step
+// chooses one: below the rows w(i, j) sits at row_base(i) + j (8 steps at a
+// time, unrolled: a pointer a row plus a constant), in the diagonal block
+// (unrolled) each row's form is known at compile time, and above the rows
+// it sits at row_base(j) + i. The sums go back into the stage's X slots and
+// leave by one bulk store a sample. Where a sample's items (row blocks x
+// column chunks) outnumber the block's threads, a group is one sample, a
+// thread takes items t, t + kBwdThreads, ... and stores each item's sums
+// to dx directly.
 //
 // The plain versions (kernels/interaction.py) compute the same fmaf steps
 // in the same order, each exactly (the product and the sum in float64,
@@ -48,17 +67,18 @@
 //
 // Bound: bytes. The forward reads X (F * D * 4 B a sample) and writes P * 4
 // B; its 2 * P * D flops a sample are ~1/6 of the byte time at the float32
-// rate without tensor cores. The backward reads X and g and writes dX; its
-// F (F - 1) D fmaf a sample take about a quarter of the byte time, which
-// the double-buffered staging overlaps with the next group's copies.
+// rate without tensor cores, and its shared-memory reads half a float a
+// fmaf. The backward reads X and g and writes dX; its F (F - 1) D fmaf a
+// sample take about a quarter of the byte time, which the double-buffered
+// staging overlaps with the next group's copies.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;          // the forward's block
-constexpr int kSmemLimit = 48 * 1024;   // the forward's static-launch shared memory
+constexpr int kFwdMaxThreads = 256;     // the forward's block, at most
+constexpr int kFwdTile = 4;             // rows i and rows j of a forward tile
 constexpr int kBwdThreads = 256;        // the backward's persistent block
 constexpr int kBwdRows = 8;             // rows of a sample a backward thread sums
 constexpr int kSmemOptIn = 227 * 1024;  // the shared memory an H100 block can opt into
@@ -71,79 +91,9 @@ __host__ __device__ __forceinline__ int row_base(int i, int self_mode) {
 
 __host__ __device__ __forceinline__ int num_pairs(int F, int self_mode) { return row_base(F, self_mode); }
 
-__device__ __forceinline__ void pair_of(int k, int self_mode, int* i, int* j) {
-  int r = static_cast<int>((1.0f + sqrtf(1.0f + 8.0f * static_cast<float>(k))) * 0.5f);
-  while (row_base(r, self_mode) > k) --r;
-  while (row_base(r + 1, self_mode) <= k) ++r;
-  *i = r;
-  *j = k - row_base(r, self_mode);
-}
-
-// Copies samples [b0, b0 + ns) of X [B, F, D] into xs [ns * F][stride].
-__device__ __forceinline__ void stage_rows(const float* __restrict__ x, int64_t b0, int ns, int F,
-                                           int D, int stride, float* xs) {
-  const int per_sample = F * D;
-  const float* src = x + b0 * per_sample;
-  for (int e = threadIdx.x; e < ns * per_sample; e += blockDim.x) {
-    const int row = e / D;  // sample * F + feature
-    xs[row * stride + (e - row * D)] = src[e];
-  }
-}
-
-template <int SELF>
-__global__ void __launch_bounds__(kThreads)
-interaction_fwd_kernel(const float* __restrict__ x, int64_t B, int F, int D, int G,
-                       float* __restrict__ out, int64_t out_row_stride) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  const int stride = D + 1;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * G;
-  const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
-  stage_rows(x, b0, ns, F, D, stride, xs);
-  __syncthreads();
-  const int P = num_pairs(F, SELF);
-  for (int e = threadIdx.x; e < ns * P; e += blockDim.x) {
-    const int s = e / P;
-    const int k = e - s * P;
-    int i, j;
-    pair_of(k, SELF, &i, &j);
-    const float* xi = xs + (s * F + i) * stride;
-    const float* xj = xs + (s * F + j) * stride;
-    float acc = 0.0f;
-    for (int d = 0; d < D; ++d) acc = fmaf(xi[d], xj[d], acc);
-    out[(b0 + s) * out_row_stride + k] = acc;
-  }
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-
-// A group's staging in shared memory: G samples' X rows, then their P
-// gradient values, each row in a 16-byte-aligned slot at a pad of 0-3 floats
-// that puts the row's 16-byte-aligned body on a 16-byte boundary
-// (RowSplit); a gradient slot keeps a float past the row for the reads of
-// rows clamped to F - 1. A warp's lanes take the D / C column chunks of
-// consecutive samples (the chunk fastest), so 8 lanes of a quarter-warp
-// read x from ceil(8 / chunks) samples: an X slot's stride in 16-byte units
-// is the chunks' count mod 8, which puts those reads in 8 distinct groups
-// of banks. A weight read is one address a sample, a broadcast to its
-// chunks' lanes; a gradient slot's odd stride in 16-byte units spreads 8
-// samples over 8 groups of banks.
-__host__ __device__ __forceinline__ int bwd_x_stride(int F, int D, int chunks) {
-  int units = (F * D + 3 + 3) / 4;
-  while ((units - chunks) % 8 != 0) ++units;
-  return 4 * units;
-}
-
-__host__ __device__ __forceinline__ int bwd_g_stride(int F, int self_mode) {
-  const int units = (num_pairs(F, self_mode) + 1 + 3 + 3) / 4;
-  return 4 * (units % 2 ? units : units + 1);
-}
-
-__host__ __device__ __forceinline__ int64_t bwd_stage_floats(int F, int D, int C, int G, int self_mode) {
-  return static_cast<int64_t>(G) * (bwd_x_stride(F, D, D / C) + bwd_g_stride(F, self_mode));
 }
 
 // A row of n floats at src (4-byte aligned): `head` floats up to the first
@@ -186,6 +136,233 @@ __device__ __forceinline__ void stage_row(float* slot, const float* src, int n, 
                  ::"r"(smem_addr(dst + r.head)), "l"(src + r.head), "r"(4 * r.body), "r"(smem_addr(bar))
                  : "memory");
   for (int e = r.head + r.body; e < n; ++e) cp_async4(dst + e, src + e);
+}
+
+// --- the forward -----------------------------------------------------------------------
+
+// A slot of n floats at a pad of up to 3, in an odd number of 16-byte units.
+__host__ __device__ __forceinline__ int odd_slot(int n) {
+  const int units = (n + 3 + 3) / 4;
+  return 4 * (units % 2 ? units : units + 1);
+}
+
+// A forward stage: G X slots of F * D floats, then G output slots of P.
+__host__ __device__ __forceinline__ int64_t fwd_stage_floats(int F, int D, int G, int self_mode) {
+  return static_cast<int64_t>(G) * (odd_slot(F * D) + odd_slot(num_pairs(F, self_mode)));
+}
+
+// Warp 0 stages group grp's X rows into `stage` (lane l the samples l, l +
+// 32, ...): lane 0 arms `bar` with the bodies' bytes before any copy goes
+// out; the heads and rests are each lane's cp.async group.
+__device__ __forceinline__ void stage_fwd_group(const float* __restrict__ x, int64_t B, int F, int D, int G,
+                                                int xs, int64_t grp, float* stage, uint64_t* bar) {
+  const int64_t b0 = grp * G;
+  const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
+  const int lane = threadIdx.x;
+  const int n = F * D;
+  int bytes = 0;
+  for (int s = lane; s < ns; s += 32) bytes += 4 * RowSplit(x + (b0 + s) * n, n).body;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+  __syncwarp();
+  for (int s = lane; s < ns; s += 32) stage_row(stage + s * xs, x + (b0 + s) * n, n, bar);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The next tile of the triangle n tiles on: tile (I, J), J <= I, row by row.
+__device__ __forceinline__ void tile_advance(int n, int& I, int& J) {
+  J += n;
+  while (J > I) {
+    J -= I + 1;
+    ++I;
+  }
+}
+
+// One tile of one sample: rows i = 4 I + r and j = 4 J + q (clamped to F - 1
+// for the reads; those pairs are not kept), each pair's sum over d in order.
+template <int C>
+__device__ __forceinline__ void fwd_tile_sums(const float* __restrict__ xb, int F, int D, int I, int J,
+                                              float (&acc)[kFwdTile][kFwdTile]) {
+  const float* ri[kFwdTile];
+  const float* rj[kFwdTile];
+#pragma unroll
+  for (int r = 0; r < kFwdTile; ++r) {
+    const int i = kFwdTile * I + r, j = kFwdTile * J + r;
+    ri[r] = xb + (i < F ? i : F - 1) * D;
+    rj[r] = xb + (j < F ? j : F - 1) * D;
+  }
+#pragma unroll
+  for (int r = 0; r < kFwdTile; ++r)
+#pragma unroll
+    for (int q = 0; q < kFwdTile; ++q) acc[r][q] = 0.0f;
+  if constexpr (C == 4) {
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 a[kFwdTile], b[kFwdTile];
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r) a[r] = *reinterpret_cast<const float4*>(ri[r] + d);
+#pragma unroll
+      for (int q = 0; q < kFwdTile; ++q) b[q] = *reinterpret_cast<const float4*>(rj[q] + d);
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r)
+#pragma unroll
+        for (int q = 0; q < kFwdTile; ++q) {
+          float t = fmaf(a[r].x, b[q].x, acc[r][q]);
+          t = fmaf(a[r].y, b[q].y, t);
+          t = fmaf(a[r].z, b[q].z, t);
+          acc[r][q] = fmaf(a[r].w, b[q].w, t);
+        }
+    }
+  } else {
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[kFwdTile], b[kFwdTile];
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r) a[r] = ri[r][d];
+#pragma unroll
+      for (int q = 0; q < kFwdTile; ++q) b[q] = rj[q][d];
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r)
+#pragma unroll
+        for (int q = 0; q < kFwdTile; ++q) acc[r][q] = fmaf(a[r], b[q], acc[r][q]);
+    }
+  }
+}
+
+// The tile's kept pairs into the sample's output slot, at pair k.
+template <int SELF>
+__device__ __forceinline__ void fwd_tile_store(float* __restrict__ ob, int F, int I, int J,
+                                               const float (&acc)[kFwdTile][kFwdTile]) {
+#pragma unroll
+  for (int r = 0; r < kFwdTile; ++r) {
+    const int i = kFwdTile * I + r;
+    if (i >= F) break;
+    float* o = ob + row_base(i, SELF) + kFwdTile * J;
+#pragma unroll
+    for (int q = 0; q < kFwdTile; ++q) {
+      if (I == J && (SELF ? q > r : q >= r)) continue;
+      o[q] = acc[r][q];
+    }
+  }
+}
+
+// One group a turn: wait for its stage, the tiles' sums into the output
+// slots, then a bulk store of each sample's body and 4-byte stores of its
+// ends; the next group's copies go out at the turn's start (two stages) or
+// once this stage's X rows are read (one).
+template <int C, int SELF>
+__global__ void __launch_bounds__(kFwdMaxThreads, 2)
+interaction_fwd_kernel(const float* __restrict__ x, int64_t B, int F, int D, int G, int stages,
+                       float* __restrict__ out, int64_t out_row_stride) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t bars[2];  // the bulk copies of each stage
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int P = num_pairs(F, SELF);
+  const int xs = odd_slot(F * D), os = odd_slot(P);
+  const int stage_floats = static_cast<int>(fwd_stage_floats(F, D, G, SELF));
+  const int nb = (F + kFwdTile - 1) / kFwdTile;
+  const int S = blockDim.x / G;  // tile slots a sample
+  const int s = threadIdx.x % G, slot = threadIdx.x / G;
+  const int64_t groups = (B + G - 1) / G;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[0])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[1])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int64_t grp = blockIdx.x;
+  if (threadIdx.x < 32) {
+    stage_fwd_group(x, B, F, D, G, xs, grp, smem, &bars[0]);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  }
+  __syncthreads();
+  for (int iter = 0; grp < groups; grp += gridDim.x, ++iter) {
+    const int buf = stages == 2 ? iter & 1 : 0;
+    const int64_t next = grp + gridDim.x;
+    if (stages == 2 && threadIdx.x < 32 && next < groups)
+      stage_fwd_group(x, B, F, D, G, xs, next, smem + (buf ^ 1) * stage_floats, &bars[buf ^ 1]);
+    mbar_wait(&bars[buf], stages == 2 ? (iter >> 1) & 1 : iter & 1);
+    float* xst = smem + buf * stage_floats;
+    float* ost = xst + G * xs;
+    const int64_t b0 = grp * G;
+    const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
+    if (s < ns) {
+      const int n = F * D;
+      const float* xb = xst + s * xs + RowSplit(x + (b0 + s) * n, n).pad;
+      float* ob = ost + s * os + RowSplit(out + (b0 + s) * out_row_stride, P).pad;
+      int I = 0, J = 0;
+      tile_advance(slot, I, J);
+      for (; I < nb; tile_advance(S, I, J)) {
+        float acc[kFwdTile][kFwdTile];
+        fwd_tile_sums<C>(xb, F, D, I, J, acc);
+        fwd_tile_store<SELF>(ob, F, I, J, acc);
+      }
+    }
+    // the sums' generic writes come before the bulk stores' reads, and the
+    // X rows' reads before the bulk copies that refill the stage
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (stages == 1 && threadIdx.x < 32 && next < groups) {
+      if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      __syncwarp();
+      stage_fwd_group(x, B, F, D, G, xs, next, smem, &bars[0]);
+    }
+    for (int t = threadIdx.x; t < ns; t += blockDim.x) {  // each row's ends
+      float* dst = out + (b0 + t) * out_row_stride;
+      const RowSplit r(dst, P);
+      const float* src = ost + t * os + r.pad;
+      for (int e = 0; e < r.head; ++e) dst[e] = src[e];
+      for (int e = r.head + r.body; e < P; ++e) dst[e] = src[e];
+    }
+    if (threadIdx.x == 0) {  // each row's body a bulk store
+      for (int t = 0; t < ns; ++t) {
+        float* dst = out + (b0 + t) * out_row_stride;
+        const RowSplit r(dst, P);
+        if (r.body)
+          asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                       ::"l"(dst + r.head), "r"(smem_addr(ost + t * os + r.pad + r.head)), "r"(4 * r.body)
+                       : "memory");
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      // the stores of the group before have read their stage, which the next turn's sums overwrite
+      if (stages == 2) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      else asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+    if (threadIdx.x < 32) asm volatile("cp.async.wait_group 0;" ::: "memory");  // the next group's heads and rests
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// --- the backward ----------------------------------------------------------------------
+
+// A group's staging in shared memory: G samples' X rows, then their P
+// gradient values, each row in a 16-byte-aligned slot at a pad of 0-3 floats
+// that puts the row's 16-byte-aligned body on a 16-byte boundary
+// (RowSplit); a gradient slot keeps a float past the row for the reads of
+// rows clamped to F - 1. A warp's lanes take the D / C column chunks of
+// consecutive samples (the chunk fastest), so 8 lanes of a quarter-warp
+// read x from ceil(8 / chunks) samples: an X slot's stride in 16-byte units
+// is the chunks' count mod 8, which puts those reads in 8 distinct groups
+// of banks. A weight read is one address a sample, a broadcast to its
+// chunks' lanes; a gradient slot's odd stride in 16-byte units spreads 8
+// samples over 8 groups of banks.
+__host__ __device__ __forceinline__ int bwd_x_stride(int F, int D, int chunks) {
+  int units = (F * D + 3 + 3) / 4;
+  while ((units - chunks) % 8 != 0) ++units;
+  return 4 * units;
+}
+
+__host__ __device__ __forceinline__ int bwd_g_stride(int F, int self_mode) {
+  const int units = (num_pairs(F, self_mode) + 1 + 3 + 3) / 4;
+  return 4 * (units % 2 ? units : units + 1);
+}
+
+__host__ __device__ __forceinline__ int64_t bwd_stage_floats(int F, int D, int C, int G, int self_mode) {
+  return static_cast<int64_t>(G) * (bwd_x_stride(F, D, D / C) + bwd_g_stride(F, self_mode));
 }
 
 // Warp 0 stages group grp into `stage` (lane l the samples l, l + 32, ...):
@@ -321,13 +498,16 @@ __device__ __forceinline__ void bwd_sums(const float* __restrict__ xcol, int D, 
   above_sums<C, SELF>(xcol, D, gsamp, i0, i0 + kBwdRows, F, acc);
 }
 
-// One group: step through the work items (one a thread at most: the plan
-// keeps G * items a sample <= kBwdThreads), their sums into the X slots,
-// then the slots to dx by bulk stores (C = 4) or one float a thread.
+// One group a turn: the work items' sums over j, then dX. Where the items
+// fit the block (G * items a sample <= kBwdThreads: one a thread), the sums
+// go back into the X slots and leave by bulk stores (C = 4) or one float a
+// thread; else (direct: one sample a group) each thread takes items t, t +
+// kBwdThreads, ... and stores their sums to dx. The next group's copies go
+// out at the turn's start (two stages) or once this stage is read (one).
 template <int C, int SELF>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, int64_t g_row_stride, int64_t B,
-                       int F, int D, int G, float* __restrict__ dx) {
+                       int F, int D, int G, int stages, float* __restrict__ dx) {
   extern __shared__ float4 smem4[];
   __shared__ uint64_t bars[2];  // the bulk copies of each stage
   float* smem = reinterpret_cast<float*>(smem4);
@@ -336,6 +516,8 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int xs = bwd_x_stride(F, D, chunks), gs = bwd_g_stride(F, SELF);
   const int stage_floats = static_cast<int>(bwd_stage_floats(F, D, C, G, SELF));
   const int items = (F + kBwdRows - 1) / kBwdRows * G * chunks;  // row block, then sample, then chunk fastest
+  const bool direct = items > kBwdThreads;
+  const int n = F * D;
   const int64_t groups = (B + G - 1) / G;
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[0])) : "memory");
@@ -350,64 +532,91 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
   __syncthreads();
   for (int iter = 0; grp < groups; grp += gridDim.x, ++iter) {
-    const int buf = iter & 1;
+    const int buf = stages == 2 ? iter & 1 : 0;
     const int64_t next = grp + gridDim.x;
     // the next group's copies go out before this group's are awaited, once
     // the bulk stores of the group before have read that stage
-    if (threadIdx.x < 32 && next < groups) {
+    if (stages == 2 && threadIdx.x < 32 && next < groups) {
       if constexpr (C == 4) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
       stage_bwd_group(x, g, g_row_stride, B, F, D, G, P, xs, gs, next, smem + (buf ^ 1) * stage_floats,
                       &bars[buf ^ 1]);
     }
-    mbar_wait(&bars[buf], (iter >> 1) & 1);
+    mbar_wait(&bars[buf], stages == 2 ? (iter >> 1) & 1 : iter & 1);
     float* xst = smem + buf * stage_floats;
     const float* gst = xst + G * xs;
     const int64_t b0 = grp * G;
     const int ns = static_cast<int>(B - b0 < G ? B - b0 : G);
-    const int it = threadIdx.x;
-    const int c = it % chunks;
-    const int blk = it / chunks / G;
-    const int s = it / chunks - blk * G;
-    const bool active = it < items && s < ns;
-    float acc[kBwdRows][C];
-    float* xslot = xst + s * xs;
-    if (active) {
-      xslot += RowSplit(x + (b0 + s) * F * D, F * D).pad;
-      bwd_sums<C, SELF>(xslot + c * C, D, gst + s * gs + RowSplit(g + (b0 + s) * g_row_stride, P).pad, F,
-                        blk * kBwdRows, acc);
-    }
-    __syncthreads();  // every thread is done reading the group's X rows, which the sums overwrite
-    if (active) {
+    float* out = dx + b0 * n;
+    if (direct) {  // G == 1
+      const float* xslot = xst + RowSplit(x + b0 * n, n).pad;
+      const float* gsamp = gst + RowSplit(g + b0 * g_row_stride, P).pad;
+      for (int it = threadIdx.x; it < items; it += kBwdThreads) {
+        const int c = it % chunks, i0 = it / chunks * kBwdRows;
+        float acc[kBwdRows][C];
+        bwd_sums<C, SELF>(xslot + c * C, D, gsamp, F, i0, acc);
 #pragma unroll
-      for (int r = 0; r < kBwdRows; ++r) {
-        if (blk * kBwdRows + r >= F) break;
-        float* o = xslot + (blk * kBwdRows + r) * D + c * C;
-        if constexpr (C == 4) {
-          *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        } else {
-          *o = acc[r][0];
+        for (int r = 0; r < kBwdRows; ++r) {
+          if (i0 + r >= F) break;
+          float* o = out + (i0 + r) * D + c * C;
+          if constexpr (C == 4) {
+            *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          } else {
+            *o = acc[r][0];
+          }
         }
       }
-    }
-    // the sums' generic writes come before the bulk stores' reads, and this
-    // stage's reads before the bulk copies that refill it
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();  // the group's sums are in the X slots
-    float* out = dx + b0 * F * D;
-    const int n = F * D;
-    if constexpr (C == 4) {  // a sample's dX rows a bulk store
-      if (threadIdx.x < 32) {
-        for (int t = threadIdx.x; t < ns; t += 32)
-          asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                       ::"l"(out + t * n), "r"(smem_addr(xst + t * xs)), "r"(4 * n) : "memory");
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the X rows' reads before their refill
     } else {
-      for (int e = threadIdx.x; e < ns * n; e += kBwdThreads) {
-        const int t = e / n;
-        out[e] = xst[t * xs + RowSplit(x + (b0 + t) * n, n).pad + (e - t * n)];
+      const int it = threadIdx.x;
+      const int c = it % chunks;
+      const int blk = it / chunks / G;
+      const int s = it / chunks - blk * G;
+      const bool active = it < items && s < ns;
+      float acc[kBwdRows][C];
+      float* xslot = xst + s * xs;
+      if (active) {
+        xslot += RowSplit(x + (b0 + s) * n, n).pad;
+        bwd_sums<C, SELF>(xslot + c * C, D, gst + s * gs + RowSplit(g + (b0 + s) * g_row_stride, P).pad, F,
+                          blk * kBwdRows, acc);
       }
+      __syncthreads();  // every thread is done reading the group's X rows, which the sums overwrite
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < kBwdRows; ++r) {
+          if (blk * kBwdRows + r >= F) break;
+          float* o = xslot + (blk * kBwdRows + r) * D + c * C;
+          if constexpr (C == 4) {
+            *reinterpret_cast<float4*>(o) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          } else {
+            *o = acc[r][0];
+          }
+        }
+      }
+      // the sums' generic writes come before the bulk stores' reads, and this
+      // stage's reads before the bulk copies that refill it
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();  // the group's sums are in the X slots
+      if constexpr (C == 4) {  // a sample's dX rows a bulk store
+        if (threadIdx.x < 32) {
+          for (int t = threadIdx.x; t < ns; t += 32)
+            asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                         ::"l"(out + t * n), "r"(smem_addr(xst + t * xs)), "r"(4 * n) : "memory");
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
+      } else {
+        for (int e = threadIdx.x; e < ns * n; e += kBwdThreads) {
+          const int t = e / n;
+          out[e] = xst[t * xs + RowSplit(x + (b0 + t) * n, n).pad + (e - t * n)];
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      }
+    }
+    if (stages == 1 && next < groups) {  // refill the one stage once it is read
+      __syncthreads();
+      if (threadIdx.x < 32) {
+        if constexpr (C == 4) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        stage_bwd_group(x, g, g_row_stride, B, F, D, G, P, xs, gs, next, smem, &bars[0]);
+      }
     }
     if (threadIdx.x < 32) asm volatile("cp.async.wait_group 0;" ::: "memory");  // the next group's heads and rests
     __syncthreads();
@@ -415,71 +624,84 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   if (C == 4 && threadIdx.x < 32) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// Shared memory of one forward block: G samples' rows padded to D + 1
-// floats. The wrapper picks G so that this fits 48 KB.
-int64_t fwd_smem_bytes(int F, int D, int G) { return static_cast<int64_t>(G) * F * (D + 1) * 4; }
-
-bool bad_shape(int64_t B, int F, int D, int G, int self_mode) {
-  return B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || G <= 0 || (self_mode != 0 && self_mode != 1);
+bool bad_shape(int64_t B, int F, int D, int G, int stages, int self_mode) {
+  return B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || G <= 0 || (stages != 1 && stages != 2) ||
+         (self_mode != 0 && self_mode != 1);
 }
 
-// The backward's persistent grid: as many blocks as the card holds at once
-// with `smem` bytes each, at most one a group.
-template <int C, int SELF>
-int launch_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F, int D, int G, float* dx,
-               cudaStream_t stream) {
-  const int smem = static_cast<int>(2 * bwd_stage_floats(F, D, C, G, SELF) * sizeof(float));
+// A persistent grid of `threads`-thread blocks with `smem` bytes each: as
+// many blocks as the card holds at once, at most one a group.
+template <class Kernel>
+int persistent_blocks(Kernel kernel, int threads, int smem, int64_t groups, unsigned* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(interaction_bwd_kernel<C, SELF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, interaction_bwd_kernel<C, SELF>, kBwdThreads, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t groups = (B + G - 1) / G;
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned blocks = static_cast<unsigned>(groups < resident ? groups : resident);
-  interaction_bwd_kernel<C, SELF><<<blocks, kBwdThreads, smem, stream>>>(x, g, g_row_stride, B, F, D, G, dx);
+  *blocks = static_cast<unsigned>(groups < resident ? groups : resident);
+  return 0;
+}
+
+template <int C, int SELF>
+int launch_fwd(const float* x, int64_t B, int F, int D, int G, int threads, int stages, float* out,
+               int64_t out_row_stride, cudaStream_t stream) {
+  const int smem = static_cast<int>(stages * fwd_stage_floats(F, D, G, SELF) * sizeof(float));
+  unsigned blocks = 0;
+  if (int rc = persistent_blocks(interaction_fwd_kernel<C, SELF>, threads, smem, (B + G - 1) / G, &blocks)) return rc;
+  interaction_fwd_kernel<C, SELF><<<blocks, threads, smem, stream>>>(x, B, F, D, G, stages, out, out_row_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SELF>
-int launch_bwd_cols(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F, int D, int G, int cols,
-                    float* dx, cudaStream_t stream) {
-  return cols == 4 ? launch_bwd<4, SELF>(x, g, g_row_stride, B, F, D, G, dx, stream)
-                   : launch_bwd<1, SELF>(x, g, g_row_stride, B, F, D, G, dx, stream);
+template <int C, int SELF>
+int launch_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F, int D, int G, int stages,
+               float* dx, cudaStream_t stream) {
+  const int smem = static_cast<int>(stages * bwd_stage_floats(F, D, C, G, SELF) * sizeof(float));
+  unsigned blocks = 0;
+  if (int rc = persistent_blocks(interaction_bwd_kernel<C, SELF>, kBwdThreads, smem, (B + G - 1) / G, &blocks))
+    return rc;
+  interaction_bwd_kernel<C, SELF><<<blocks, kBwdThreads, smem, stream>>>(x, g, g_row_stride, B, F, D, G, stages, dx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int nvt_interaction_fwd(const float* x, int64_t B, int F, int D, int G, int self_mode, float* out,
-                                   int64_t out_row_stride, void* stream) {
-  if (bad_shape(B, F, D, G, self_mode) || fwd_smem_bytes(F, D, G) > kSmemLimit)
+// G samples a group, `threads` a block (a multiple of 32 and of G, at most
+// kFwdMaxThreads), `cols` columns a step (4: D a multiple of 4 and x
+// 16-byte aligned; or 1) and `stages` (1 or 2), from the wrapper's plan.
+extern "C" int nvt_interaction_fwd(const float* x, int64_t B, int F, int D, int G, int threads, int cols, int stages,
+                                   int self_mode, float* out, int64_t out_row_stride, void* stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (bad_shape(B, F, D, G, stages, self_mode) || threads < 32 || threads > kFwdMaxThreads || threads % 32 != 0 ||
+      threads % G != 0 || !(cols == 1 || (cols == 4 && vec && D % 4 == 0)) ||
+      stages * fwd_stage_floats(F, D, G, self_mode) * 4 + 16 > kSmemOptIn)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const unsigned int blocks = static_cast<unsigned int>((B + G - 1) / G);
-  const size_t smem = static_cast<size_t>(fwd_smem_bytes(F, D, G));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (self_mode) {
-    interaction_fwd_kernel<1><<<blocks, kThreads, smem, s>>>(x, B, F, D, G, out, out_row_stride);
-  } else {
-    interaction_fwd_kernel<0><<<blocks, kThreads, smem, s>>>(x, B, F, D, G, out, out_row_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (self_mode)
+    return cols == 4 ? launch_fwd<4, 1>(x, B, F, D, G, threads, stages, out, out_row_stride, s)
+                     : launch_fwd<1, 1>(x, B, F, D, G, threads, stages, out, out_row_stride, s);
+  return cols == 4 ? launch_fwd<4, 0>(x, B, F, D, G, threads, stages, out, out_row_stride, s)
+                   : launch_fwd<1, 0>(x, B, F, D, G, threads, stages, out, out_row_stride, s);
 }
 
-// G samples a group and `cols` columns a thread (4: D a multiple of 4 and x,
-// dx 16-byte aligned; or 1), both from the wrapper's plan.
+// G samples a group (1 where a sample's items pass kBwdThreads), `cols`
+// columns a thread (4: D a multiple of 4 and x, dx 16-byte aligned; or 1)
+// and `stages` (1 or 2), from the wrapper's plan.
 extern "C" int nvt_interaction_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B,
-                                   int F, int D, int G, int cols, int self_mode, float* dx, void* stream) {
+                                   int F, int D, int G, int cols, int stages, int self_mode, float* dx,
+                                   void* stream) {
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  if (bad_shape(B, F, D, G, self_mode) || !(cols == 1 || (cols == 4 && vec)) || D % cols != 0 ||
-      (F + kBwdRows - 1) / kBwdRows * (D / cols) * G > kBwdThreads ||
-      2 * bwd_stage_floats(F, D, cols, G, self_mode) * 4 + 16 > kSmemOptIn)
+  if (bad_shape(B, F, D, G, stages, self_mode) || !(cols == 1 || (cols == 4 && vec)) || D % cols != 0 ||
+      (G > 1 && (F + kBwdRows - 1) / kBwdRows * (D / cols) * G > kBwdThreads) ||
+      stages * bwd_stage_floats(F, D, cols, G, self_mode) * 4 + 16 > kSmemOptIn)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return self_mode ? launch_bwd_cols<1>(x, g, g_row_stride, B, F, D, G, cols, dx, s)
-                   : launch_bwd_cols<0>(x, g, g_row_stride, B, F, D, G, cols, dx, s);
+  if (self_mode)
+    return cols == 4 ? launch_bwd<4, 1>(x, g, g_row_stride, B, F, D, G, stages, dx, s)
+                     : launch_bwd<1, 1>(x, g, g_row_stride, B, F, D, G, stages, dx, s);
+  return cols == 4 ? launch_bwd<4, 0>(x, g, g_row_stride, B, F, D, G, stages, dx, s)
+                   : launch_bwd<1, 0>(x, g, g_row_stride, B, F, D, G, stages, dx, s);
 }

@@ -91,11 +91,16 @@
 // not 16-byte aligned). A warp walks a contiguous run of such tiles and
 // carries one hot row's sum across them in shared memory, so a row that
 // takes most of a column's ids gets one reduction a float4 per warp, not
-// per tile. D <= kCarryMaxDim (1536). Atomics and the tree make the
+// per tile. A launch takes at most kCarryMaxDim (1536) floats of each row
+// (its carries fill 48 KB a block): a wider D launches once for each chunk
+// of kCarryMaxDim columns, the gradient and its shard moved to the chunk's
+// first column. Atomics and the tree make the
 // summation order, and so the last bits, vary from run to run.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "chunks.cuh"
 
 namespace {
 
@@ -401,7 +406,8 @@ constexpr int kRowChunk = 4;   // vectors of a gradient row a lane holds at once
 constexpr int kWarps = kThreads / 32;
 constexpr int kCarryMaxDim = 48 * 1024 / (kWarps * static_cast<int>(sizeof(float)));  // 48 KB of carries a block
 
-// Warp w takes tiles [w * T / W, (w + 1) * T / W) of the T = C * ceil(B / 32)
+// Columns [0, width) of the rows (row length D: the chunk's), moved by the
+// caller to the chunk's first column. Warp w takes tiles [w * T / W, (w + 1) * T / W) of the T = C * ceil(B / 32)
 // 32-id tiles (column-major: a tile is 32 consecutive ids of one column),
 // so its tiles are consecutive ids of one column or two. Each warp carries
 // the sum of one shard row across its tiles in shared memory: the first
@@ -413,12 +419,12 @@ constexpr int kCarryMaxDim = 48 * 1024 / (kWarps * static_cast<int>(sizeof(float
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_scatter_grad_kernel(const __grid_constant__ RangeColumns c, int num_cols, const float* __restrict__ grad,
-                          int64_t grad_row_stride, int D, int64_t B, float* __restrict__ dtable) {
-  extern __shared__ float carries[];  // [kWarps, D]
-  const int per_row = D / VEC;
+                          int64_t grad_row_stride, int D, int width, int64_t B, float* __restrict__ dtable) {
+  extern __shared__ float carries[];  // [kWarps, width]
+  const int per_row = width / VEC;
   const int lane = threadIdx.x & 31;
-  float* carry = carries + (threadIdx.x >> 5) * D;
-  for (int d = lane; d < D; d += 32) carry[d] = 0.0f;
+  float* carry = carries + (threadIdx.x >> 5) * width;
+  for (int d = lane; d < width; d += 32) carry[d] = 0.0f;
   __syncwarp();
   const int64_t tiles = (B + 31) >> 5;
   const int64_t total = tiles * num_cols;
@@ -553,17 +559,18 @@ int scatter_grid(int64_t tiles_total, int smem, unsigned* blocks) {
   return 0;
 }
 
-int fill_range_columns(RangeColumns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
-                       const int64_t* starts, const int64_t* padded, int num_cols) {
-  if (num_cols < 1 || num_cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
-  for (int k = 0; k < num_cols; ++k) {
-    c->ids[k] = static_cast<const int32_t*>(ids[k]);
-    c->offset[k] = offsets[k];
-    c->size[k] = sizes[k];
-    c->start[k] = starts[k];
-    c->padded[k] = padded[k];
+// Columns [c0, c0 + n) of the call's tables: a launch takes at most
+// kMaxCols by value, and a call of more launches once for each chunk of
+// kMaxCols (chunks.cuh; the columns are independent).
+void fill_range_columns(RangeColumns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes,
+                        const int64_t* starts, const int64_t* padded, int c0, int n) {
+  for (int k = 0; k < n; ++k) {
+    c->ids[k] = static_cast<const int32_t*>(ids[c0 + k]);
+    c->offset[k] = offsets[c0 + k];
+    c->size[k] = sizes[c0 + k];
+    c->start[k] = starts[c0 + k];
+    c->padded[k] = padded[c0 + k];
   }
-  return 0;
 }
 
 bool bad_range_shape(int D, int64_t B, int vec) {
@@ -646,53 +653,64 @@ extern "C" int nvt_range_bag_grad(const float* grad, int64_t grad_row_stride, co
 // ids: C int32 [B] columns; offsets, sizes, starts, padded: int64 [C];
 // table float32 [rows_local, D] → out float32 [B, C, D] with rows
 // out_row_stride floats apart (each row's [C, D] block contiguous).
-// model_rank 0 writes NaN for the ids no rank holds.
+// model_rank 0 writes NaN for the ids no rank holds. *launches: the kernel
+// launches made, one for each chunk of kMaxCols columns.
 extern "C" int nvt_range_gather_columns(const void* const* ids, const int64_t* offsets, const int64_t* sizes,
                                         const int64_t* starts, const int64_t* padded, int num_cols,
                                         const float* table, int D, int64_t B, int model_rank, float* out,
-                                        int64_t out_row_stride, int vec, void* stream_ptr) {
-  RangeColumns c;
-  if (int rc = fill_range_columns(&c, ids, offsets, sizes, starts, padded, num_cols)) return rc;
-  if (bad_range_shape(D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = B * num_cols * (D / vec);
-  if (total == 0) return 0;
+                                        int64_t out_row_stride, int vec, int* launches, void* stream_ptr) {
+  if (num_cols < 1 || bad_range_shape(D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int write_nan = model_rank == 0;
-  if (vec == 4)
-    range_gather_columns_kernel<4><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, table, D, B, write_nan,
-                                                                              out, out_row_stride);
-  else
-    range_gather_columns_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(c, num_cols, table, D, B, write_nan,
-                                                                              out, out_row_stride);
-  return static_cast<int>(cudaGetLastError());
+  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+    const int64_t total = B * n * (D / vec);
+    RangeColumns c;
+    fill_range_columns(&c, ids, offsets, sizes, starts, padded, c0, n);
+    float* o = out + static_cast<int64_t>(c0) * D;
+    if (vec == 4)
+      range_gather_columns_kernel<4><<<blocks_for(total), kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o,
+                                                                                out_row_stride);
+    else
+      range_gather_columns_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o,
+                                                                                out_row_stride);
+    return nvt::launched(launches);
+  });
 }
 
 // grad float32 [B, C, D] with rows grad_row_stride floats apart (each
 // row's [C, D] block contiguous) → dtable float32 [rows_local, D], zeroed
-// here, then the atomics.
+// here, then the atomics: a launch for each chunk of kMaxCols columns and
+// kCarryMaxDim floats of a row, counted in *launches.
 extern "C" int nvt_range_scatter_grad(const void* const* ids, const int64_t* offsets, const int64_t* sizes,
                                       const int64_t* starts, const int64_t* padded, int num_cols, const float* grad,
                                       int64_t grad_row_stride, int D, int64_t B, float* dtable, int64_t rows_local,
-                                      int vec, void* stream_ptr) {
-  RangeColumns c;
-  if (int rc = fill_range_columns(&c, ids, offsets, sizes, starts, padded, num_cols)) return rc;
-  if (bad_range_shape(D, B, vec) || rows_local < 0) return static_cast<int>(cudaErrorInvalidValue);
+                                      int vec, int* launches, void* stream_ptr) {
+  if (num_cols < 1 || bad_range_shape(D, B, vec) || rows_local < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (rows_local > 0) {
     const cudaError_t err = cudaMemsetAsync(dtable, 0, static_cast<size_t>(rows_local) * D * sizeof(float), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int64_t tiles = (B + 31) / 32 * num_cols;
-  if (tiles == 0 || D == 0) return 0;
-  if (D > kCarryMaxDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kWarps * D * static_cast<int>(sizeof(float));
-  unsigned blocks = 0;
-  if (vec == 4) {
-    if (int rc = scatter_grid<4>(tiles, smem, &blocks)) return rc;
-    range_scatter_grad_kernel<4><<<blocks, kThreads, smem, stream>>>(c, num_cols, grad, grad_row_stride, D, B, dtable);
-  } else {
-    if (int rc = scatter_grid<1>(tiles, smem, &blocks)) return rc;
-    range_scatter_grad_kernel<1><<<blocks, kThreads, smem, stream>>>(c, num_cols, grad, grad_row_stride, D, B, dtable);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (B == 0) return 0;
+  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+    RangeColumns c;
+    fill_range_columns(&c, ids, offsets, sizes, starts, padded, c0, n);
+    const int64_t tiles = (B + 31) / 32 * n;
+    return nvt::for_each_chunk(D, kCarryMaxDim, [&](int d0, int width) {
+      const int smem = kWarps * width * static_cast<int>(sizeof(float));
+      const float* g = grad + static_cast<int64_t>(c0) * D + d0;
+      unsigned blocks = 0;
+      if (vec == 4) {
+        if (int rc = scatter_grid<4>(tiles, smem, &blocks)) return rc;
+        range_scatter_grad_kernel<4><<<blocks, kThreads, smem, stream>>>(c, n, g, grad_row_stride, D, width, B,
+                                                                         dtable + d0);
+      } else {
+        if (int rc = scatter_grid<1>(tiles, smem, &blocks)) return rc;
+        range_scatter_grad_kernel<1><<<blocks, kThreads, smem, stream>>>(c, n, g, grad_row_stride, D, width, B,
+                                                                         dtable + d0);
+      }
+      return nvt::launched(launches);
+    });
+  });
 }

@@ -23,12 +23,50 @@ import torch
 from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-SMEM_LIMIT = 227 * 1024  # the H100's shared memory a block can opt into
+SMEM_OPT_IN = 227 * 1024  # the H100's shared memory a block can opt into
+FWD_COLS, FWD_DEPTH = 64, 16  # csrc/cin.cu kFwdCols, kFwdDepth
+BX_COLS, BX_ROWS, BX_DEPTH, BX_CHUNK = 64, 256, 32, 128  # csrc/cin.cu kBxCols, kBxRows, kBxDepth, kBxChunk
 
-# x_k, x_0, w, B, Hk, F, D, Hn, out, stream
-_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-# x_k, x_0, w, g, B, Hk, F, D, Hn, dx_k, dx_0, dw, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+# x_k, x_0, w, B, Hk, F, D, Hn, ci, cj, out, stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+# x_k, x_0, w, g, B, Hk, F, D, Hn, jr, xk_rows, dx_k, dx_0, dw, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+
+
+def pass_rows(Hn: int) -> int:
+    """Rows h of a forward or dw pass (csrc/cin.cu fwd_rows): 8 for each 8
+    of Hn, at most 256 (the block's threads)."""
+    return 8 * min(32, -(-Hn // 8))
+
+
+def fwd_smem_bytes(rows: int, ci: int, cj: int) -> int:
+    """csrc/cin.cu fwd_smem: the columns' offsets, ci rows of x_k and cj of
+    x_0 (64 columns each), two buffers of w and z tiles."""
+    return 3 * FWD_COLS * 8 + ((ci + cj) * FWD_COLS + 2 * FWD_DEPTH * (rows + FWD_COLS)) * 4
+
+
+def fwd_plan(Hk: int, F: int, Hn: int):
+    """(rows, ci, cj): the forward stages all Hk + F rows where they fit
+    SMEM_OPT_IN, else x_k in chunks of ci rows beside x_0 (all F rows where
+    F leaves room for 16 rows of x_k, else halves of what fits)."""
+    rows = pass_rows(Hn)
+    if fwd_smem_bytes(rows, Hk, F) <= SMEM_OPT_IN:
+        return rows, Hk, F
+    room = (SMEM_OPT_IN - fwd_smem_bytes(rows, 0, 0)) // (FWD_COLS * 4)  # rows of x a block holds
+    cj = F if F + 16 <= room else room // 2
+    return rows, min(Hk, room - cj), cj
+
+
+def bwd_x_plan(F: int):
+    """(jr, xk_rows, smem) of cin_bwd_x (csrc/cin.cu bx_layout): x_0 in n =
+    ceil(F / BX_CHUNK) chunks of jr = ceil(F / n) rows, a pass's 256 pairs
+    spanning at most xk_rows rows of x_k in the narrowest chunk."""
+    n = -(-F // BX_CHUNK)
+    jr = -(-F // n)
+    narrowest = F - (n - 1) * jr
+    xk_rows = -(-(BX_ROWS - 1) // narrowest) + 1
+    floats = 2 * BX_ROWS * BX_DEPTH + 2 * BX_DEPTH * BX_COLS + 2 * jr * BX_COLS + xk_rows * BX_COLS
+    return jr, xk_rows, 3 * BX_COLS * 8 + 3 * BX_ROWS * 4 + floats * 4
 
 
 def _check(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor):
@@ -62,17 +100,13 @@ def cin_fwd(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor) -> torch.Tens
         return cin_fwd_plain(x_k, x_0, w)
     lib = library("cin")
     if lib.nvt_cin_fwd.argtypes is None:
-        lib.nvt_cin_fwd_smem.argtypes = [ctypes.c_int] * 3
-        lib.nvt_cin_fwd_smem.restype = ctypes.c_int64
         lib.nvt_cin_fwd.argtypes = _FWD_ARGTYPES
         lib.nvt_cin_fwd.restype = ctypes.c_int
-    smem = lib.nvt_cin_fwd_smem(Hk, F, Hn)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cin_fwd: Hk + F = {Hk + F} needs {smem} B of shared memory a block, over {SMEM_LIMIT}")
     out = torch.empty((B, Hn, D), dtype=torch.float32, device=x_k.device)
     if B == 0:
         return out
-    rc = lib.nvt_cin_fwd(ptr(x_k), ptr(x_0), ptr(w), B, Hk, F, D, Hn, ptr(out), stream_ptr(x_k.device))
+    _, ci, cj = fwd_plan(Hk, F, Hn)
+    rc = lib.nvt_cin_fwd(ptr(x_k), ptr(x_0), ptr(w), B, Hk, F, D, Hn, ci, cj, ptr(out), stream_ptr(x_k.device))
     raise_on_error(rc, "cin_fwd")
     LAUNCHES["cin_fwd"] += 1
     return out
@@ -87,17 +121,13 @@ def cin_bwd(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor, grad: torch.T
         return cin_bwd_plain(x_k, x_0, w, grad)
     lib = library("cin")
     if lib.nvt_cin_bwd.argtypes is None:
-        lib.nvt_cin_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.nvt_cin_bwd_smem.restype = ctypes.c_int64
         lib.nvt_cin_bwd.argtypes = _BWD_ARGTYPES
         lib.nvt_cin_bwd.restype = ctypes.c_int
-    smem = lib.nvt_cin_bwd_smem(Hk, F)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cin_bwd: Hk + F = {Hk + F} needs {smem} B of shared memory a block, over {SMEM_LIMIT}")
     dx_k, dx_0 = torch.empty_like(x_k), torch.empty_like(x_0)
     dw = torch.empty_like(w)
-    rc = lib.nvt_cin_bwd(ptr(x_k), ptr(x_0), ptr(w), ptr(grad), B, Hk, F, D, Hn, ptr(dx_k), ptr(dx_0), ptr(dw),
-                         stream_ptr(x_k.device))
+    jr, xk_rows, _ = bwd_x_plan(F)
+    rc = lib.nvt_cin_bwd(ptr(x_k), ptr(x_0), ptr(w), ptr(grad), B, Hk, F, D, Hn, jr, xk_rows, ptr(dx_k), ptr(dx_0),
+                         ptr(dw), stream_ptr(x_k.device))
     raise_on_error(rc, "cin_bwd")
     LAUNCHES["cin_bwd"] += 1
     return dx_k, dx_0, dw

@@ -34,31 +34,32 @@ from . import LAUNCHES, check, check_range_table, ptr, raise_on_error, stream_pt
 from .build import library
 from .embedding_bag import bag_counts, embedding_bag_bwd, embedding_bag_fwd, range_bag, range_bag_grad
 
-MAX_COLUMNS = 64  # csrc/embedding.cu kMaxCols
-SCATTER_MAX_DIM = 1536  # csrc/sharded_embedding.cu kCarryMaxDim: a warp's hot-row carry in 48 KB a block
+LAUNCH_COLUMNS = 64  # csrc/embedding.cu kMaxCols: the columns of one launch (a call of more launches in chunks)
 
+# ids, offsets, sizes, C, table, D, B, out, out row stride, vec, launches, stream
 _GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 # table, rows_local, start, D, ids, n, out, vec, stream
 _RANGE_GATHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
+# ids, offsets, sizes, C, grad, grad row stride, D, B, dtable, vec, launches, stream
 _SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
-# ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, out row stride, vec, stream
+# ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, out row stride, vec, launches, stream
 _RANGE_COLUMNS_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
-# ids, offsets, sizes, starts, padded, C, grad, grad row stride, D, B, dtable, rows_local, vec, stream
+# ids, offsets, sizes, starts, padded, C, grad, grad row stride, D, B, dtable, rows_local, vec, launches, stream
 _RANGE_SCATTER_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 
 
@@ -99,10 +100,8 @@ def c_columns(ids, offsets, sizes):
 
 
 def _check_kernel_limits(B: int, C: int, D: int) -> None:
-    if C > MAX_COLUMNS:
-        raise ValueError(f"the embedding kernels take at most {MAX_COLUMNS} columns, got {C}")
-    if B * C * D >= 2**31:
-        raise ValueError(f"[{B}, {C}, {D}] exceeds the embedding kernels' int32 index")
+    if B * min(C, LAUNCH_COLUMNS) * D >= 2**31:
+        raise ValueError(f"[{B}, {min(C, LAUNCH_COLUMNS)}, {D}] of one launch exceeds the embedding kernels' int32 index")
 
 
 def embedding_gather(
@@ -131,10 +130,11 @@ def embedding_gather(
         fn.argtypes = _GATHER_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
+    launched = ctypes.c_int(0)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(table), D, B, ptr(out), out.stride(0),
-            vec_width(D, table, out), stream_ptr(table.device))
+            vec_width(D, table, out), ctypes.byref(launched), stream_ptr(table.device))
     raise_on_error(rc, "embedding_gather")
-    LAUNCHES["embedding_gather"] += 1
+    LAUNCHES["embedding_gather"] += launched.value
     return out
 
 
@@ -170,10 +170,11 @@ def embedding_scatter_grad(
         fn.argtypes = _SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
+    launched = ctypes.c_int(0)
     rc = fn(c_ids, c_offs, c_sizes, C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
-            vec_width(D, grad, dtable), stream_ptr(dev))
+            vec_width(D, grad, dtable), ctypes.byref(launched), stream_ptr(dev))
     raise_on_error(rc, "embedding_scatter_grad")
-    LAUNCHES["embedding_scatter_grad"] += 1
+    LAUNCHES["embedding_scatter_grad"] += launched.value
     return dtable
 
 
@@ -292,10 +293,11 @@ def range_gather_columns(
     if fn.argtypes is None:
         fn.argtypes = _RANGE_COLUMNS_ARGTYPES
         fn.restype = ctypes.c_int
+    launched = ctypes.c_int(0)
     rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(table), D, B, int(model_rank), ptr(out),
-            out.stride(0), vec_width(D, table, out), stream_ptr(table.device))
+            out.stride(0), vec_width(D, table, out), ctypes.byref(launched), stream_ptr(table.device))
     raise_on_error(rc, "range_gather_columns")
-    LAUNCHES["range_gather_columns"] += 1
+    LAUNCHES["range_gather_columns"] += launched.value
     return out
 
 
@@ -322,8 +324,6 @@ def range_scatter_grad(
     if not use_kernel(grad):
         return range_scatter_grad_plain(grad, ids, offsets, sizes, starts, padded, num_rows)
     _check_kernel_limits(B, C, D)
-    if D > SCATTER_MAX_DIM:
-        raise ValueError(f"range_scatter_grad takes D <= {SCATTER_MAX_DIM} on the card, got {D}")
     dtable = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
     if D == 0:
         return dtable
@@ -331,10 +331,11 @@ def range_scatter_grad(
     if fn.argtypes is None:
         fn.argtypes = _RANGE_SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
+    launched = ctypes.c_int(0)
     rc = fn(*_c_range_columns(ids, offsets, sizes, starts, padded), C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
-            num_rows, vec_width(D, grad, dtable), stream_ptr(dev))
+            num_rows, vec_width(D, grad, dtable), ctypes.byref(launched), stream_ptr(dev))
     raise_on_error(rc, "range_scatter_grad")
-    LAUNCHES["range_scatter_grad"] += 1
+    LAUNCHES["range_scatter_grad"] += launched.value
     return dtable
 
 

@@ -24,15 +24,16 @@ import torch
 
 from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
-from .embedding import MAX_COLUMNS, c_columns, check_view, table_rows
+from .embedding import LAUNCH_COLUMNS, c_columns, check_view, table_rows
 
 SMEM_LIMIT = 48 * 1024  # the backward's nd partial sums, csrc/fm.cu kSmemLimit
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [
+# ids, offsets, sizes, the card's column table, F, D, ...
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
 ]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 3 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -61,10 +62,19 @@ def _check_inputs(v, dense, ids, offsets, sizes, num_rows: int, dense_w) -> Tupl
 
 
 def _check_kernel_limits(F: int, D: int, nd: int) -> None:
-    if not 1 <= F <= MAX_COLUMNS:
-        raise ValueError(f"the FM kernels take 1 to {MAX_COLUMNS} fields, got {F}")
-    if D < 1 or nd * 4 > SMEM_LIMIT:
-        raise ValueError(f"the FM kernels take D >= 1 and at most {SMEM_LIMIT // 4} dense features, got {D}, {nd}")
+    if F < 1 or D < 1 or nd * 4 > SMEM_LIMIT:
+        raise ValueError(f"the FM kernels take F, D >= 1 and at most {SMEM_LIMIT // 4} dense features, got {F}, {D}, "
+                         f"{nd}")
+
+
+def _column_table(ids, offsets, sizes, device) -> Optional[torch.Tensor]:
+    """Past LAUNCH_COLUMNS fields the kernels read the columns' id pointers,
+    offsets and sizes from an int64 [3, F] table on the card (None below:
+    they travel by value in the launch)."""
+    if len(ids) <= LAUNCH_COLUMNS:
+        return None
+    rows = [[v.data_ptr() for v in ids], [int(o) for o in offsets], [int(s) for s in sizes]]
+    return torch.tensor(rows, dtype=torch.int64).to(device)
 
 
 def fm_fwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], offsets: Sequence[int],
@@ -85,7 +95,8 @@ def fm_fwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], of
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
-    rc = fn(c_ids, c_offs, c_sizes, F, D, ptr(v), v.stride(0), ptr(dense), dense.stride(0), nd,
+    table = _column_table(ids, offsets, sizes, v.device)
+    rc = fn(c_ids, c_offs, c_sizes, ptr(table), F, D, ptr(v), v.stride(0), ptr(dense), dense.stride(0), nd,
             ptr(linear), ptr(dense_w), B, ptr(out), stream_ptr(v.device))
     raise_on_error(rc, "fm_fwd")
     LAUNCHES["fm_fwd"] += 1
@@ -124,7 +135,8 @@ def fm_bwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], of
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
-    rc = fn(c_ids, c_offs, c_sizes, F, D, ptr(v), v.stride(0), ptr(dense), dense.stride(0), nd, ptr(dense_w),
+    table = _column_table(ids, offsets, sizes, dev)
+    rc = fn(c_ids, c_offs, c_sizes, ptr(table), F, D, ptr(v), v.stride(0), ptr(dense), dense.stride(0), nd, ptr(dense_w),
             ptr(g), B, ptr(dv_out), dv_out.stride(0), ptr(ddense_out), ddense_out.stride(0), ptr(dlinear),
             ptr(ddense_w), stream_ptr(dev))
     raise_on_error(rc, "fm_bwd")

@@ -6,7 +6,7 @@ entry points launch ``csrc/hash.cu``:
 
 * ``hashed_cross(columns, num_buckets, seed)`` — HashedCross's
   ``h = h * 31 ^ hash(col)`` over the columns, then ``% num_buckets``, in
-  one launch (``num_buckets=None``: the uint32 hash itself);
+  one launch for each 16 columns (``num_buckets=None``: the uint32 hash itself);
 * ``fold_ids(row_offset, n, kfold, seed)`` — TargetEncoding's fold of each
   global row, ``hash_lanes(lo, hi, seed) % kfold``.
 
@@ -30,13 +30,13 @@ from .build import library
 
 M32 = 0xFFFFFFFF
 C1, C2 = 0xCC9E2D51, 0x1B873593
-MAX_COLUMNS = 16  # csrc/hash.cu kMaxCols
 _KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # ptrs, kinds, num_cols, n, seed, num_buckets, out, stream
-    "nvt_hash_columns": [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _P],
+    # ptrs, kinds, num_cols, n, seed, num_buckets, out, launches, stream
+    "nvt_hash_columns": [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P,
+                         ctypes.POINTER(ctypes.c_int), _P],
     # row_offset, n, seed, kfold, out, stream
     "nvt_fold_ids": [ctypes.c_uint64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _P],
 }
@@ -128,16 +128,16 @@ def hashed_cross(columns: Sequence[torch.Tensor], num_buckets: Optional[int], se
         raise ValueError(f"num_buckets must be in [1, 2**32), got {num_buckets}")
     if not use_kernel(cols[0]):
         return hashed_cross_plain(cols, num_buckets, seed)
-    if len(cols) > MAX_COLUMNS:
-        raise ValueError(f"hashed_cross takes at most {MAX_COLUMNS} columns, got {len(cols)}")
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         k = len(cols)
         ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
         kinds = (ctypes.c_int * k)(*[_KINDS[c.dtype] for c in cols])
-        rc = _fn("nvt_hash_columns")(ptrs, kinds, k, n, seed & M32, num_buckets or 0, ptr(out), stream_ptr(dev))
+        launched = ctypes.c_int(0)
+        rc = _fn("nvt_hash_columns")(ptrs, kinds, k, n, seed & M32, num_buckets or 0, ptr(out),
+                                     ctypes.byref(launched), stream_ptr(dev))
         raise_on_error(rc, "hashed_cross")
-        LAUNCHES["hashed_cross"] += 1
+        LAUNCHES["hashed_cross"] += launched.value
     return out.long() & M32 if num_buckets is None else out
 
 

@@ -27,16 +27,18 @@ import torch
 
 from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
-from .hash import _KINDS, M32, MAX_COLUMNS, hash_array_plain, hash_lanes_plain, hashable
+from .hash import _KINDS, M32, hash_array_plain, hash_lanes_plain, hashable
 
 H1_SEED, H2_SEED = 0xA1, 0xB7  # nvtabular_tpu/ops/groupby_stats.py:572, 575
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    # ptrs, kinds, num_cols, n, seed1, seed2, h1, h2, stream
-    "nvt_hash_pair": [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _P, _P],
-    # idx, h2, h2_by_group, masks, num_masks, n, miss, hit_offset, oov, null, out, stream
-    "nvt_hash_pair_verify": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64] + [ctypes.c_int32] * 4 + [_P, _P],
+    # ptrs, kinds, num_cols, n, seed1, seed2, h1, h2, launches, stream
+    "nvt_hash_pair": [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, _P, _P,
+                      ctypes.POINTER(ctypes.c_int), _P],
+    # idx, h2, h2_by_group, masks, num_masks, n, miss, hit_offset, oov, null, out, launches, stream
+    "nvt_hash_pair_verify": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int64] + [ctypes.c_int32] * 4 + [
+        _P, ctypes.POINTER(ctypes.c_int), _P],
     # lo, hi, n, seed, out, stream
     "nvt_hash_lanes": [_P, _P, ctypes.c_int64, ctypes.c_uint32, _P, _P],
 }
@@ -90,8 +92,6 @@ def hash_pair(columns: Sequence[torch.Tensor]):
     dev, n = cols[0].device, cols[0].shape[0]
     for i, c in enumerate(cols):
         check(c, f"column {i}", c.dtype, dev, (n,))
-    if len(cols) > MAX_COLUMNS:
-        raise ValueError(f"hash_pair takes at most {MAX_COLUMNS} columns, got {len(cols)}")
     if not use_kernel(cols[0]):
         return hash_pair_plain(cols)
     h1 = torch.empty(n, dtype=torch.int32, device=dev)
@@ -100,9 +100,11 @@ def hash_pair(columns: Sequence[torch.Tensor]):
         k = len(cols)
         ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
         kinds = (ctypes.c_int * k)(*[_KINDS[c.dtype] for c in cols])
-        rc = _fn("nvt_hash_pair")(ptrs, kinds, k, n, H1_SEED, H2_SEED, ptr(h1), ptr(h2), stream_ptr(dev))
+        launched = ctypes.c_int(0)
+        rc = _fn("nvt_hash_pair")(ptrs, kinds, k, n, H1_SEED, H2_SEED, ptr(h1), ptr(h2), ctypes.byref(launched),
+                                  stream_ptr(dev))
         raise_on_error(rc, "hash_pair")
-        LAUNCHES["hash_pair"] += 1
+        LAUNCHES["hash_pair"] += launched.value
     return h1, h2
 
 
@@ -124,20 +126,19 @@ def hash_pair_verify(idx: torch.Tensor, h2: torch.Tensor, h2_by_group: torch.Ten
     masks = list(validity or ())
     for i, v in enumerate(masks):
         check(v, f"validity {i}", torch.bool, dev, (n,))
-    if len(masks) > MAX_COLUMNS:
-        raise ValueError(f"hash_pair_verify takes at most {MAX_COLUMNS} masks, got {len(masks)}")
     if not use_kernel(idx):
         return hash_pair_verify_plain(idx, h2, h2_by_group, masks, miss, hit_offset, oov, null)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         k = len(masks)
         mptrs = (ctypes.c_void_p * max(k, 1))(*[m.data_ptr() for m in masks])
+        launched = ctypes.c_int(0)
         rc = _fn("nvt_hash_pair_verify")(
             ptr(idx), ptr(h2), ptr(h2_by_group), mptrs, k, n, miss, hit_offset, oov, null, ptr(out),
-            stream_ptr(dev),
+            ctypes.byref(launched), stream_ptr(dev),
         )
         raise_on_error(rc, "hash_pair_verify")
-        LAUNCHES["hash_pair_verify"] += 1
+        LAUNCHES["hash_pair_verify"] += launched.value
     return out
 
 

@@ -20,69 +20,133 @@ import torch
 from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-SMEM_LIMIT = 48 * 1024  # the forward's static-launch shared memory, no opt-in attribute
-MAX_SAMPLES_PER_BLOCK = 8  # the forward's
-SMEM_OPT_IN = 227 * 1024  # the shared memory an H100 block can opt into: the backward's two stages
+SMEM_OPT_IN = 227 * 1024  # the shared memory an H100 block can opt into
+SMEM_SM, SMEM_RESERVED = 228 * 1024, 1024  # an H100 SM's shared memory; what each resident block reserves of it
+SMEM_TWO_BLOCKS = SMEM_SM // 2 - SMEM_RESERVED  # a block's share where two fit an SM
+SM_THREADS, SM_BLOCKS = 2048, 32  # an H100 SM's resident threads and blocks, at most
+FWD_MIN_WARPS = 8  # the forward's resident warps an SM, below which one stage (more blocks) beats two
+FWD_MAX_THREADS = 256  # csrc/interaction.cu kFwdMaxThreads
+FWD_TILE = 4  # csrc/interaction.cu kFwdTile: a forward tile is 4 rows i x 4 rows j
 BWD_THREADS = 256  # csrc/interaction.cu kBwdThreads
 BWD_ROWS = 8  # csrc/interaction.cu kBwdRows: rows of a sample a backward thread sums
 
-# x, B, F, D, G, self_mode, out, out row stride, stream
-_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-# x, g, g row stride, B, F, D, G, cols, self_mode, dx, stream
-_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+# x, B, F, D, G, threads, cols, stages, self_mode, out, out row stride, stream
+_FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int64,
+                                                                          ctypes.c_void_p]
+# x, g, g row stride, B, F, D, G, cols, stages, self_mode, dx, stream
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_void_p]
 
 
 def num_pairs(f: int, self_interaction: bool = False) -> int:
     return f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
 
 
-def _fwd_samples_per_block(F: int, D: int) -> int:
-    """Samples a forward block stages (csrc/interaction.cu fwd_smem_bytes:
-    rows padded to D + 1 floats)."""
-    per_sample = F * (D + 1) * 4
-    if per_sample > SMEM_LIMIT:
-        raise ValueError(f"interaction kernels: one sample of [{F}, {D}] needs {per_sample} B of shared memory")
-    return min(MAX_SAMPLES_PER_BLOCK, SMEM_LIMIT // per_sample)
+def _odd_slot(n: int) -> int:
+    """csrc/interaction.cu odd_slot: n floats at a pad of up to 3, in an odd
+    number of 16-byte units (floats)."""
+    units = (n + 6) // 4
+    return 4 * (units if units % 2 else units + 1)
 
 
-def bwd_columns(D: int, aligned: bool) -> int:
-    """Columns of a row one backward thread sums: 4 (float4 reads) when D is
-    a multiple of 4 and x is 16-byte aligned, else 1."""
+def fwd_tiles(F: int) -> int:
+    """Tiles of 4 x 4 rows in the triangle (diagonal tiles included)."""
+    nb = -(-F // FWD_TILE)
+    return nb * (nb + 1) // 2
+
+
+def fwd_smem_bytes(F: int, D: int, G: int, self_interaction: bool, stages: int = 2) -> int:
+    """The forward block's shared memory (csrc/interaction.cu
+    fwd_stage_floats): `stages` stages of G samples' X slots (F * D floats)
+    and output slots (P floats), each at a pad of up to 3 in an odd number of
+    16-byte units, and the two 8-byte barriers."""
+    per_sample = _odd_slot(F * D) + _odd_slot(num_pairs(F, self_interaction))
+    return stages * G * per_sample * 4 + 16
+
+
+def _stages(fits, what: str, limit_bytes: int) -> int:
+    if fits(2):
+        return 2
+    if fits(1):
+        return 1
+    raise ValueError(f"{what}: one sample's stage needs {limit_bytes} B of shared memory, over {SMEM_OPT_IN} "
+                     "(ROADMAP.md queue 3)")
+
+
+def resident_warps(threads: int, smem: int) -> int:
+    """Warps an SM holds of blocks of ``threads`` threads and ``smem`` bytes
+    of shared memory (registers aside: the forward's stay within them)."""
+    return min(SMEM_SM // (smem + SMEM_RESERVED), SM_THREADS // threads, SM_BLOCKS) * threads // 32
+
+
+def fwd_plan(F: int, D: int, self_interaction: bool):
+    """(G, threads, stages) of the forward: G the least power of two >= 8
+    whose G * T tiles fill FWD_MAX_THREADS threads (16 at DLRM's [27, 16],
+    T = 28), at most 256; halved while two stages pass SMEM_TWO_BLOCKS
+    (down to 8) or SMEM_OPT_IN (down to 1); the block's threads G * T,
+    rounded up to a warp, at most FWD_MAX_THREADS (a multiple of G). Two
+    stages where they fit and leave an SM FWD_MIN_WARPS warps (16 at [27,
+    16]), else one (phase 22's [4, 64]: 6 warps, not 3; on an H100 80GB
+    HBM3 at 700 W, kernel_ab.py: 0.0397-0.0405 ms against 0.0437-0.0449,
+    while one stage at [27, 16] takes 0.0985-0.0990 against 0.0909-0.0917)."""
+    T = fwd_tiles(F)
+    G = 8
+    while G < 256 and G * T < FWD_MAX_THREADS:
+        G *= 2
+    while G > 8 and fwd_smem_bytes(F, D, G, self_interaction) > SMEM_TWO_BLOCKS:
+        G //= 2
+    while G > 1 and fwd_smem_bytes(F, D, G, self_interaction) > SMEM_OPT_IN:
+        G //= 2
+    threads = min(FWD_MAX_THREADS, -(-G * T // 32) * 32)
+
+    def fits(st):
+        smem = fwd_smem_bytes(F, D, G, self_interaction, st)
+        return smem <= SMEM_OPT_IN and (st == 1 or resident_warps(threads, smem) >= FWD_MIN_WARPS)
+
+    stages = _stages(fits, f"interaction_fwd [{F}, {D}]", fwd_smem_bytes(F, D, 1, self_interaction, 1))
+    return G, threads, stages
+
+
+def columns(D: int, aligned: bool) -> int:
+    """Columns of a row a thread reads at once in both kernels: 4 (float4
+    reads) when D is a multiple of 4 and x is 16-byte aligned, else 1."""
     return 4 if aligned and D % 4 == 0 else 1
 
 
-def bwd_smem_bytes(F: int, D: int, cols: int, G: int, self_interaction: bool) -> int:
+def bwd_smem_bytes(F: int, D: int, cols: int, G: int, self_interaction: bool, stages: int = 2) -> int:
     """The backward block's shared memory (csrc/interaction.cu
-    bwd_stage_floats): two stages of G samples' X and gradient slots, and
-    the stages' two 8-byte barriers. An X slot holds F * D floats at a pad
-    of up to 3, in a number of 16-byte units equal to the row's column
-    chunks mod 8; a gradient slot P + 1 floats at a pad of up to 3, in an
-    odd number of 16-byte units."""
+    bwd_stage_floats): `stages` stages of G samples' X and gradient slots,
+    and the two 8-byte barriers. An X slot holds F * D floats at a pad of
+    up to 3, in a number of 16-byte units equal to the row's column chunks
+    mod 8; a gradient slot P + 1 floats at a pad of up to 3, in an odd
+    number of 16-byte units."""
     chunks = D // cols
     x_units = (F * D + 6) // 4
     while (x_units - chunks) % 8:
         x_units += 1
     g_units = (num_pairs(F, self_interaction) + 7) // 4
     g_units += 1 - g_units % 2
-    return 2 * G * (x_units + g_units) * 16 + 16
+    return stages * G * (x_units + g_units) * 16 + 16
 
 
-def bwd_plan(F: int, D: int, cols: int, self_interaction: bool) -> int:
-    """Samples G of a backward group. A thread takes BWD_ROWS rows and
-    ``cols`` columns of a sample, at most one such item a group: G =
-    BWD_THREADS // items a sample (16 at DLRM's [27, 16]), less where two
-    stages would not fit SMEM_OPT_IN."""
-    items = -(-F // BWD_ROWS) * (D // cols)
-    G = BWD_THREADS // items
-    while G > 0 and bwd_smem_bytes(F, D, cols, G, self_interaction) > SMEM_OPT_IN:
+def bwd_items(F: int, D: int, cols: int) -> int:
+    """A sample's backward work items: BWD_ROWS rows x ``cols`` columns each."""
+    return -(-F // BWD_ROWS) * (D // cols)
+
+
+def bwd_plan(F: int, D: int, cols: int, self_interaction: bool):
+    """(G, stages) of the backward. A thread takes one item of a group:
+    G = BWD_THREADS // items a sample (16 at DLRM's [27, 16]), less where
+    two stages would not fit SMEM_OPT_IN; where a sample's items pass
+    BWD_THREADS, G = 1 and a thread takes several (the kernel's direct
+    path). Two stages where they fit SMEM_OPT_IN, else one; raises where
+    one stage of one sample does not fit."""
+    G = max(1, BWD_THREADS // bwd_items(F, D, cols))
+    while G > 1 and bwd_smem_bytes(F, D, cols, G, self_interaction) > SMEM_OPT_IN:
         G -= 1
-    if G == 0:
-        raise ValueError(f"interaction_bwd: a sample of [{F}, {D}] is {items} items of {BWD_ROWS} rows and {cols} "
-                         f"columns, over {BWD_THREADS}, or its two stages need "
-                         f"{bwd_smem_bytes(F, D, cols, 1, self_interaction)} B of shared memory, over {SMEM_OPT_IN}")
-    return G
+    stages = _stages(lambda st: bwd_smem_bytes(F, D, cols, G, self_interaction, st) <= SMEM_OPT_IN,
+                     f"interaction_bwd [{F}, {D}]", bwd_smem_bytes(F, D, cols, 1, self_interaction, 1))
+    return G, stages
 
 
 def _check_x(x: torch.Tensor):
@@ -106,12 +170,13 @@ def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None,
         return out
     if B == 0 or P == 0:
         return out
-    G = _fwd_samples_per_block(F, D)
+    G, threads, stages = fwd_plan(F, D, self_interaction)
     fn = library("interaction").nvt_interaction_fwd
     if fn.argtypes is None:
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(x), B, F, D, G, int(self_interaction), ptr(out), out.stride(0), stream_ptr(x.device))
+    rc = fn(ptr(x), B, F, D, G, threads, columns(D, x.data_ptr() % 16 == 0), stages, int(self_interaction), ptr(out),
+            out.stride(0), stream_ptr(x.device))
     name = "interaction_self_fwd" if self_interaction else "interaction_fwd"
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
@@ -129,13 +194,13 @@ def interaction_bwd(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool 
     if B == 0 or P == 0:
         return torch.zeros_like(x)
     dx = torch.empty_like(x)
-    cols = bwd_columns(D, x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0)
-    G = bwd_plan(F, D, cols, self_interaction)
+    cols = columns(D, x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0)
+    G, stages = bwd_plan(F, D, cols, self_interaction)
     fn = library("interaction").nvt_interaction_bwd
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, cols, int(self_interaction), ptr(dx),
+    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, cols, stages, int(self_interaction), ptr(dx),
             stream_ptr(x.device))
     name = "interaction_self_bwd" if self_interaction else "interaction_bwd"
     raise_on_error(rc, name)

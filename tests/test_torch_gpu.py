@@ -1879,16 +1879,19 @@ def test_cin_forward_matches_plain_at_every_row_count(B, Hk, F, D, same, misalig
 
 
 def test_cin_forward_refuses_what_does_not_fit_in_shared_memory():
-    """The forward stages Hk + F rows of 64 columns in shared memory: at Hk
-    + F = 926 that passes the card's 227 KB a block, and the wrapper raises
-    naming Hk + F before anything launches."""
+    """Hk + F = 926 rows of 64 columns pass the card's 227 KB a block: the
+    forward stages x_k in chunks of rows beside x_0 (kernels/cin.py
+    fwd_plan) and no longer refuses; it computes and matches the plain
+    version within 1e-5 of the terms' magnitudes."""
     _require_cuda()
-    xk, x0 = torch.zeros((2, 900, 4), device="cuda"), torch.zeros((2, 26, 4), device="cuda")
-    w = torch.zeros((900 * 26, 8), device="cuda")
+    g = torch.Generator().manual_seed(926)
+    xk, x0, w, _ = _cin_inputs(g, 5, 900, 26, 4, 8, False)
+    assert kcin.fwd_plan(900, 26, 8)[1] < 900
     kernels.reset_launches()
-    with pytest.raises(ValueError, match="Hk \\+ F = 926"):
-        kcin.cin_fwd(xk, x0, w)
-    assert kernels.LAUNCHES["cin_fwd"] == 0
+    out = kcin.cin_fwd(xk.cuda(), x0.cuda(), w.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd"] == 1
+    assert _within_terms(out.cpu(), kcin.cin_fwd_plain(xk, x0, w), kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
 
 
 def test_cin_layer_autograd_sums_both_gradients_when_x_k_is_x_0():
@@ -2335,3 +2338,167 @@ def test_disk_tier_and_budget_workflows_on_cuda_match_cpu(tmp_path):
         op = next(n.op for n in gpu.graph.nodes if isinstance(n.op, ops.Categorify))
         if "cat_cache" in kwargs:
             assert not op.vocabs["c0"].resident and op.vocabs["c1"].resident
+
+
+# --- the shapes past the kernels' old limits ----------------------------------------------------------
+WIDE_INTERACTIONS = [(27, 66), (27, 300), (65, 128), (27, 455)]
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to the card 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device="cuda")
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+@pytest.mark.parametrize("F,D", WIDE_INTERACTIONS, ids=[f"{f}-{d}" for f, d in WIDE_INTERACTIONS])
+def test_interaction_kernels_match_plain_past_the_old_limits(F, D, self_interaction, aligned):
+    """K13b at shapes the old plans refused: the forward (one item a
+    thread past 48 KB before) within one ULP of the plain version's fmaf
+    steps (which round twice, through float64, about once in 2^29), written
+    after a lead of 3 floats (4-byte aligned rows); the backward, its
+    sample's items more than a block's threads (one sample a group, several
+    items a thread), within rtol 1e-5, atol 1e-5 of the plain version's
+    steps, from a strided gradient; x 16-byte aligned or not (one column a
+    step)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(F * D)
+    B = 301
+    P = kint.num_pairs(F, self_interaction)
+    x = torch.randn((B, F, D), generator=g)
+    grad = torch.randn((B, P), generator=g)
+    xc = x.cuda() if aligned else _unaligned(x)
+    buf = torch.zeros((B, 3 + P), device="cuda")
+    gbuf = torch.zeros((B, 5 + P), device="cuda")
+    gbuf[:, 5:] = grad.cuda()
+    kernels.reset_launches()
+    kint.interaction_fwd(xc, out=buf[:, 3:], self_interaction=self_interaction)
+    got_dx = kint.interaction_bwd(xc, gbuf[:, 5:], self_interaction=self_interaction)
+    torch.cuda.synchronize()
+    mode = "interaction_self" if self_interaction else "interaction"
+    assert kernels.LAUNCHES[mode + "_fwd"] == 1 and kernels.LAUNCHES[mode + "_bwd"] == 1
+    torch.testing.assert_close(buf[:, 3:].cpu(), kint.interaction_fwd_plain(x, self_interaction), rtol=2**-23, atol=0)
+    assert not bool(buf[:, :3].any())
+    torch.testing.assert_close(got_dx.cpu(), kint.interaction_bwd_plain(x, grad, self_interaction), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("Hk", [412, 900], ids=["hk_f_438", "hk_f_926"])
+def test_cin_kernels_match_plain_past_the_old_limits(Hk):
+    """K13d at Hk + F = 438 (past the old backward's 437) and 926 (past the
+    old forward's 742), F = 26: out, dx_k, dx_0 and dw within 1e-5 of the
+    sums of their terms' magnitudes plus 1e-6."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(Hk)
+    xk, x0, w, grad = (t.cuda() for t in _cin_inputs(g, 67, Hk, 26, 4, 24, False))
+    kernels.reset_launches()
+    out = kcin.cin_fwd(xk, x0, w)
+    grads = kcin.cin_bwd(xk, x0, w, grad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd"] == 1 and kernels.LAUNCHES["cin_bwd"] == 1
+    assert _within_terms(out, kcin.cin_fwd_plain(xk, x0, w), kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
+    wants = kcin.cin_bwd_plain(xk, x0, w, grad)
+    mags = kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), grad.abs())
+    for name, got, want, mag in zip(("dx_k", "dx_0", "dw"), grads, wants, mags):
+        assert _within_terms(got, want, mag), (name, float((got - want).abs().max()))
+
+
+def test_range_scatter_grad_matches_plain_at_d_2048():
+    """K15d's backward past one launch's 1,536 floats a row: two launches
+    of column chunks (1,536 and 512), a row hit by every id of a column,
+    within 1e-5 of the terms' magnitudes."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(2048)
+    cards = [3, 40, 1001, 7]
+    local, ids, offsets, sizes, starts, padded = _shard_columns(g, 3001, cards, 4, 1, 2048)
+    ids[-1][:] = starts[-1] + 1
+    cols = (offsets, sizes, starts, padded)
+    grad = torch.randn((3001, len(cards), 2048), generator=g)
+    kernels.reset_launches()
+    got = kemb.range_scatter_grad(grad.cuda(), [i.cuda() for i in ids], *cols, local.shape[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["range_scatter_grad"] == 2  # the launches, one a chunk of the row
+    want = kemb.range_scatter_grad_plain(grad, ids, *cols, local.shape[0])
+    magnitude = kemb.range_scatter_grad_plain(grad.abs(), ids, *cols, local.shape[0])
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * magnitude + 1e-6).all())
+
+
+def test_embedding_and_fm_kernels_match_plain_at_70_columns():
+    """K13a and K16 past one launch's 64 columns: the gather bit-equal (NaN
+    rows included), its scatter-add within 1e-5 of the terms' magnitudes;
+    the FM output within 1e-5 of its terms' magnitudes, NaN where an id is
+    out of range, the row gradient's dv within 1e-5 of |g| sum_f |v|, the
+    linear scatter within 1e-5 of its terms' magnitudes."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(70)
+    B, C, D, nd = 2053, 70, 8, 13
+    sizes, offsets, ids, linear, dense_w = _fm_case(gen, B, C, D, nd, True)
+    table = torch.randn((sum(sizes), D), generator=gen)
+    cids = [i.cuda() for i in ids]
+    kernels.reset_launches()
+    got = kemb.embedding_gather(table.cuda(), cids, offsets, sizes)
+    grad = torch.randn((B, C, D), generator=gen)
+    got_grad = kemb.embedding_scatter_grad(grad.cuda(), cids, offsets, sizes, table.shape[0])
+    v, dense, g = torch.randn((B, C, D), generator=gen), torch.randn((B, nd), generator=gen), torch.randn(B, generator=gen)
+    out = kfm.fm_fwd(v.cuda(), dense.cuda(), cids, offsets, sizes, linear.cuda(), dense_w.cuda())
+    dv, _, dlinear, _ = kfm.fm_bwd(v.cuda(), dense.cuda(), cids, offsets, sizes, dense_w.cuda(), g.cuda(),
+                                   linear.shape[0])
+    torch.cuda.synchronize()
+    # K13a launches once for each 64 columns; K16 reads the column table on the card in one launch
+    for name, launches in (("embedding_gather", 2), ("embedding_scatter_grad", 2), ("fm_fwd", 1), ("fm_bwd", 1)):
+        assert kernels.LAUNCHES[name] == launches, name
+    want = kemb.embedding_gather_plain(table, ids, offsets, sizes)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    magnitude = kemb.embedding_scatter_grad_plain(grad.abs(), ids, offsets, sizes, table.shape[0])
+    want_grad = kemb.embedding_scatter_grad_plain(grad, ids, offsets, sizes, table.shape[0])
+    assert bool(((got_grad.cpu() - want_grad).abs() <= 1e-5 * magnitude + 1e-6).all())
+    want_out = kfm.fm_fwd_plain(v, dense, ids, offsets, sizes, linear, dense_w)
+    s, q = v.sum(1), (v * v).sum(1)
+    rows, valid = kemb.table_rows(ids, offsets, sizes)
+    scale = (s * s + q).sum(1) + torch.where(valid, linear[rows].abs(), 0.0).sum(1) + (dense * dense_w).abs().sum(1)
+    out = out.cpu()
+    assert torch.equal(torch.isnan(out), torch.isnan(want_out)) and bool(torch.isnan(want_out).any())
+    ok = ~torch.isnan(want_out)
+    assert bool(((out - want_out).abs()[ok] <= 1e-5 * scale[ok] + 1e-6).all())
+    want_b = kfm.fm_bwd_plain(v, dense, ids, offsets, sizes, dense_w, g, linear.shape[0])
+    ga = g.abs()
+    assert bool(((dv.cpu() - want_b[0]).abs() <= 1e-5 * ga[:, None, None] * v.abs().sum(1, keepdim=True) + 1e-6).all())
+    mag = kfm.fm_bwd_plain(v, dense.abs(), ids, offsets, sizes, dense_w, ga, linear.shape[0])
+    assert bool(((dlinear.cpu() - want_b[2]).abs() <= 1e-5 * mag[2] + 1e-6).all())
+
+
+def test_hash_kernels_match_plain_at_20_columns():
+    """HashedCross and the hash pair past one launch's 16 columns: the
+    second launch carries the chain's running hash (and the verify's codes
+    past 16 masks), bit for bit."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(20)
+    n = 50_003
+    kinds = [torch.int32, torch.int64, torch.float32, torch.int64] * 5
+    cols = []
+    for k in kinds:
+        c = torch.randint(-(2**62), 2**62, (n,), generator=g, dtype=torch.int64)
+        cols.append(c.to(torch.int32) if k == torch.int32 else (c.float() if k == torch.float32 else c))
+    kernels.reset_launches()
+    got = [khash.hashed_cross([c.cuda() for c in cols], nb, seed=5) for nb in (10_000, None)]
+    h1, h2 = khp.hash_pair([c.cuda() for c in cols])
+    G = 500
+    idx = torch.randint(0, G + 1, (n,), generator=g, dtype=torch.int32)
+    h2_by_group = torch.randint(-(2**31), 2**31 - 1, (G + 1,), generator=g, dtype=torch.int32)
+    hv = torch.where(torch.rand(n, generator=g) < 0.5, h2_by_group[idx.long()], idx)
+    masks = [torch.rand(n, generator=g) > 0.02 for _ in range(20)]
+    codes = khp.hash_pair_verify(idx.cuda(), hv.cuda(), h2_by_group.cuda(), [m.cuda() for m in masks], G, 7, 3, 1)
+    torch.cuda.synchronize()
+    # a launch for each 16 columns or masks: two calls of HashedCross, one of each hash-pair kernel
+    assert kernels.LAUNCHES["hashed_cross"] == 4 and kernels.LAUNCHES["hash_pair"] == 2
+    assert kernels.LAUNCHES["hash_pair_verify"] == 2
+    for nb, got_h in zip((10_000, None), got):
+        assert torch.equal(got_h.cpu(), khash.hashed_cross(cols, nb, seed=5)), nb
+    want = khp.hash_pair(cols)
+    assert torch.equal(h1.cpu(), want[0]) and torch.equal(h2.cpu(), want[1])
+    want_codes = khp.hash_pair_verify(idx, hv, h2_by_group, masks, G, 7, 3, 1)
+    assert torch.equal(codes.cpu(), want_codes) and bool((want_codes == 1).any())

@@ -44,12 +44,12 @@ def assert_within_terms(got, want, magnitude):
 
 
 # --- K13b with self_interaction=True ------------------------------------------------------
-@pytest.mark.parametrize("F,D", [(5, 8), (1, 3), (27, 16), (1, 16), (28, 12)])
+@pytest.mark.parametrize("F,D", [(5, 8), (1, 3), (27, 16), (1, 16), (28, 12), (27, 66)])
 def test_self_interaction_and_grad_match_jax(F, D):
     """F (F + 1) / 2 dots in np.tril_indices(F, 0) order, the diagonal's
     gradient 2 g_ii x_i; F = 1 has the one self pair ((1, 16): one row of
     a row block of 8 in the backward kernel's plan); (28, 12) takes four
-    blocks."""
+    blocks; (27, 66) more items a sample than the block has threads."""
     rng = np.random.default_rng(F)
     B = 37
     x = rng.normal(size=(B, F, D)).astype(np.float32)
@@ -101,10 +101,12 @@ CIN_CASES = [
     (29, 7, 5, 4, 9, False),
     (17, 3, 4, 5, 1, False),
     (0, 3, 4, 5, 2, False),
+    # Hk + F = 926: past what the forward stages whole (x_k in chunks on the card)
+    (3, 900, 26, 2, 3, False),
 ]
 
 
-@pytest.mark.parametrize("B,Hk,F,D,Hn,same", CIN_CASES, ids=["layer1_same", "hk_ne_f", "odd_d", "empty"])
+@pytest.mark.parametrize("B,Hk,F,D,Hn,same", CIN_CASES, ids=["layer1_same", "hk_ne_f", "odd_d", "empty", "hk_f_926"])
 def test_xdeepfm_outer_product_and_grads_match_jax(B, Hk, F, D, Hn, same):
     rng = np.random.default_rng(B + Hk)
     x0 = rng.normal(size=(B, F, D)).astype(np.float32)

@@ -91,11 +91,18 @@ def test_embedding_features_match_jax_stack(out_of_range):
     np.testing.assert_allclose(n(pt.grad), np.concatenate([np.asarray(g) for g in want_grads[1:]]), **F32_TOL)
 
 
-@pytest.mark.parametrize("f,d", [(5, 8), (27, 16), (28, 12), (2, 64)])
+@pytest.mark.parametrize("f,d", [(5, 8), (27, 16), (28, 12), (2, 64), (27, 66), (27, 300), (65, 128)])
 def test_dot_product_interaction_and_vjp_match_jax(f, d):
     """rtol 1e-5: float32 dots of d terms summed in another order. (28, 12)
     and (2, 64) are where the backward kernel's plan takes four row blocks
-    of 8 and 3 column chunks, or one block and 16 chunks (bwd_plan)."""
+    of 8 and 3 column chunks, or one block and 16 chunks (bwd_plan); (27,
+    66), (27, 300) and (65, 128) where a sample's items pass the block's
+    threads (one sample a group). Past 64 terms a dot the rounding of a
+    float32 sum of d unit-sized products reaches 1e-5 on its own (about
+    sqrt(d) 2**-24 sqrt(d) at d = 300), so those cases hold each entry
+    within 1e-5 of the sum of its terms' magnitudes plus 1e-6 (the same
+    inputs' absolute values through the reference), as the layer tests
+    do."""
     rng = np.random.default_rng(2)
     b = 96
     x = rng.normal(size=(b, f, d)).astype(np.float32)
@@ -106,8 +113,14 @@ def test_dot_product_interaction_and_vjp_match_jax(f, d):
     px = t(x).requires_grad_(True)
     got = pmodels.dot_product_interaction(px)
     got.backward(t(cot))
-    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(n(px.grad), np.asarray(want_dx), rtol=1e-5, atol=1e-5)
+    if d <= 64:
+        np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(n(px.grad), np.asarray(want_dx), rtol=1e-5, atol=1e-5)
+        return
+    mag, mvjp = jax.vjp(jlayers.dot_product_interaction, jnp.abs(jnp.asarray(x)))
+    (mag_dx,) = mvjp(jnp.abs(jnp.asarray(cot)))
+    assert (np.abs(n(got) - np.asarray(want)) <= 1e-5 * np.asarray(mag) + 1e-6).all()
+    assert (np.abs(n(px.grad) - np.asarray(want_dx)) <= 1e-5 * np.asarray(mag_dx) + 1e-6).all()
 
 
 def test_interaction_with_lead_matches_jax_concatenate():
