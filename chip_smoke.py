@@ -192,7 +192,12 @@ a nonzero exit:
    twice -> 200) and layer 2 ([8192, 200, 16] x [8192, 26, 16] -> 200),
    each against its plain version on the card and timed beside its bound
    (--profile: range_bag_grad's zero fill and kernel, the self mode's
-   backward, and K13d's backward kernels, apart);
+   backward, and K13d's backward kernels, apart); and K13b past 227 KB a
+   sample ([512, 120, 1024]: 480 KB of X), both modes, forward and
+   backward through dot_product_interaction with the counters zeroed
+   before and read after (its four streamed kernels, once each), held
+   against the plain layers, then each streamed kernel against its plain
+   version (SUM_TOL), timed beside its bound and bmm;
 24. Criteo's alternative continuous chain on phase 3's partitions, as two
    workflows: 24a, the 13 dense columns through FillMedian >> Clip(min=0) >>
    LogOp >> NormalizeMinMax(out_dtype="float16") (one K5 launch a batch:
@@ -204,7 +209,11 @@ a nonzero exit:
    before and read after, batch 0 against the CPU run on the same fitted
    state (codes, masks, dtypes and kept columns exact, float16 within two
    ULPs: log1p's float32 ULP can move the cast one), rows/s with and
-   without the copy;
+   without the copy; then 24a's output through DeviceLoader(65536,
+   shuffle=True, seed=0) for one chunk, the counters zeroed before and
+   read after (one K14 launch, its int8 and int16 codes copied in their
+   own widths), held against permute_rows_plain of the unshuffled chunk
+   by the loader's permutation, dtypes included;
 25. sessions on phase 9's partitions with ~1% of ts_delta NaN:
    Dataset.shuffle_by_keys(["userId"]) (K7 on the card; the partitions
    equal the CPU shuffle's), then Dropna >> Filter(rating >= 3) >>
@@ -244,7 +253,7 @@ a nonzero exit:
    at the largest vocabulary of their kind, each against its plain version
    on the card, timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 46 kernels'
+The line before the last is {"kernels": [...]} with the 50 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -312,6 +321,8 @@ SHARD_PAD, SHARD_PARITY_STEPS = 4, 8
 # 200 feature maps a layer); layer 2 at a smaller batch (the plain version
 # stores the [B, 200 * 26, 16] outer product)
 SELF_FEATURES, CIN_FIELDS, CIN_DIM, CIN_MAPS, CIN_L2_BATCH = 27, 26, 16, 200, 8192
+# phase 23: K13b past 227 KB a sample (480 KB of X at [120, 1024]), its streamed kernels
+STREAM_BATCH, STREAM_FEATURES, STREAM_DIM = 512, 120, 1024
 
 # bench.py:83-136: the Criteo 1TB click-log cardinalities, 16 x 256K rows
 NUM_CATS, NUM_CONTS = 26, 13
@@ -2952,7 +2963,95 @@ def layer_entry_path(dev) -> dict:
              "gradient's largest entry)")
     log(f"layer entry points: self-interaction and a two-layer CIN through the kernels equal the plain layers "
         f"(relative errors {rel}); launches {launches}")
-    return {"launches": launches, "rel_err": rel}
+    del leaves, plain, x, x0, w1, w2
+
+    # K13b past 227 KB a sample: the streamed kernels, both modes, through the same entry point
+    xs = torch.randn((STREAM_BATCH, STREAM_FEATURES, STREAM_DIM), device=dev, generator=gen)
+    leaves = [xs.clone().requires_grad_(True) for _ in range(2)]
+
+    def stream_loss(inter, a, b):
+        return inter(a, False).square().mean() + inter(b, True).square().mean()
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_calls_on_card("layer entry points, streamed"):
+        loss = stream_loss(lambda f, mode: models.dot_product_interaction(f, self_interaction=mode), *leaves)
+        loss.backward()
+        torch.cuda.synchronize()
+    streamed = dict(kernels.LAUNCHES)
+    check_launches(streamed, {"interaction_fwd_streamed": 1, "interaction_bwd_streamed": 1,
+                              "interaction_self_fwd_streamed": 1, "interaction_self_bwd_streamed": 1},
+                   "layer entry points, streamed")
+    plain = [xs.clone().requires_grad_(True) for _ in range(2)]
+    want = stream_loss(kint.dot_interaction_plain, *plain)
+    want.backward()
+    srel = {"loss": abs(float(loss.detach()) - float(want.detach())) / abs(float(want.detach()))}
+    for name, got, ref in zip(("strict", "self"), leaves, plain):
+        if not bool(torch.isfinite(got.grad).all()):
+            fail(f"layer entry points, streamed: non-finite gradient ({name})")
+        srel[name] = float((got.grad - ref.grad).abs().max()) / float(ref.grad.abs().max())
+    if not (srel["loss"] <= 1e-5 and max(srel["strict"], srel["self"]) <= 1e-4):
+        fail(f"layer entry points, streamed: kernels vs plain layers differ: {srel}")
+    log(f"layer entry points: K13b at [{STREAM_BATCH}, {STREAM_FEATURES}, {STREAM_DIM}] ({STREAM_FEATURES * STREAM_DIM * 4} "
+        f"B a sample) through the streamed kernels equals the plain layers (relative errors {srel}); launches "
+        f"{ {k: v for k, v in streamed.items() if v} }")
+    for k, v in streamed.items():
+        launches[k] += v
+    return {"launches": launches, "rel_err": rel, "streamed_rel_err": srel}
+
+
+def streamed_interaction_records(dev, gen) -> dict:
+    """K13b's streamed kernels (one sample past 227 KB) at [STREAM_BATCH,
+    STREAM_FEATURES, STREAM_DIM], both modes and directions, against their
+    plain versions on the card (the same fmaf steps in the same order),
+    timed beside their bounds and bmm. Both hold SUM_TOL: the plain
+    versions' float64 step rounds twice where fmaf rounds once, about once
+    in 2^29 steps, and these shapes take billions; the records count the
+    entries that are not bit-equal."""
+    from nvtabular_tpu_torch.kernels import interaction as kint
+
+    B, F, D = STREAM_BATCH, STREAM_FEATURES, STREAM_DIM
+    x = torch.randn((B, F, D), device=dev, generator=gen)
+    records = {}
+    for self_mode in (False, True):
+        prefix = "interaction_self" if self_mode else "interaction"
+        if kint.fwd_plan(F, D, self_mode)[2] != kint.STREAMED or kint.bwd_plan(F, D, 4, self_mode)[1] != kint.STREAMED:
+            fail(f"K13b at [{F}, {D}] does not take the streamed kernels")
+        P = kint.num_pairs(F, self_mode)
+        got = kint.interaction_fwd(x, self_interaction=self_mode)
+        want = kint.interaction_fwd_plain(x, self_mode)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **SUM_TOL):
+            fail(f"{prefix}_fwd_streamed differs from plain: max abs {float((got - want).abs().max())}")
+        rec = {"max_abs_err": float((got - want).abs().max()), "unequal": int((got != want).sum()),
+               "shape": [B, F, D, P], "bytes": B * (F * D + P) * 4,
+               "ms": time_ms(lambda: kint.interaction_fwd(x, self_interaction=self_mode), iters=5),
+               "plain_ms": time_ms(lambda: kint.interaction_fwd_plain(x, self_mode), iters=2),
+               "library_ms": time_ms(lambda: torch.bmm(x, x.transpose(1, 2)), iters=5)}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * P * D * 2)
+        records[prefix + "_fwd_streamed"] = rec
+        g = torch.randn((B, P), device=dev, generator=gen)
+        got = kint.interaction_bwd(x, g, self_mode)
+        want = kint.interaction_bwd_plain(x, g, self_mode)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **SUM_TOL):
+            fail(f"{prefix}_bwd_streamed differs from plain: max abs {float((got - want).abs().max())}")
+        err, unequal = float((got - want).abs().max()), int((got != want).sum())
+        rows_i, cols_i = np.tril_indices(F, 0 if self_mode else -1)
+        gsym = torch.zeros((B, F, F), device=dev)
+        gsym[:, rows_i, cols_i] = g
+        gsym = gsym + gsym.transpose(1, 2)
+        rec = {"max_abs_err": err, "unequal": unequal, "shape": [B, F, D, P], "bytes": B * (2 * F * D + P) * 4,
+               "ms": time_ms(lambda: kint.interaction_bwd(x, g, self_mode), iters=5),
+               "plain_ms": time_ms(lambda: kint.interaction_bwd_plain(x, g, self_mode), iters=2),
+               "library_ms": time_ms(lambda: torch.bmm(gsym, x), iters=5)}
+        # the strict mode skips j == i
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], B * F * (F - (0 if self_mode else 1)) * D * 2)
+        records[prefix + "_bwd_streamed"] = rec
+        log(f"{prefix} streamed [{B}, {F}, {D}]: fwd {records[prefix + '_fwd_streamed']['ms']:.4f} ms (bmm "
+            f"{records[prefix + '_fwd_streamed']['library_ms']:.4f}), bwd {rec['ms']:.4f} ms (bmm {rec['library_ms']:.4f})")
+        del g, gsym, got, want
+    return records
 
 
 def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
@@ -3060,6 +3159,7 @@ def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
     if profile:
         profile_split(rec, "interaction_self_bwd", lambda: kint.interaction_bwd(x, g, self_interaction=True))
     del x, obuf, gbuf, gsym
+    records.update(streamed_interaction_records(dev, gen))
 
     # K13d at xDeepFM's layers 1 and 2
     for layer, (Bc, Hk) in enumerate(((TRAIN_BS, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
@@ -3185,6 +3285,45 @@ def compare_16bit(got, want, what) -> dict:
     return counts
 
 
+def narrow_loader_chunk(nvt, dev, wf, parts, cats, cont_names) -> dict:
+    """Phase 24a's output (its codes int8 and int16 after ReduceDtypeSize)
+    through DeviceLoader(TRAIN_BS, shuffle=True, seed=0) for one chunk on the
+    card, the counters zeroed just before and read just after: K14 permutes
+    each array in its own width. Held against permute_rows_plain of the
+    unshuffled chunk by the loader's permutation (torch.randperm from its
+    generator, seeded 0), dtypes included."""
+    from nvtabular_tpu_torch import kernels
+    from nvtabular_tpu_torch.kernels import permute as kperm
+    from nvtabular_tpu_torch.loader import DeviceLoader
+
+    def loader(shuffle):
+        return DeviceLoader(wf.transform(nvt.Dataset(parts[:1])), batch_size=TRAIN_BS, cat_names=cats,
+                            cont_names=cont_names, label_names=[], shuffle=shuffle, seed=0, device=dev)
+
+    arrays = next(loader(False).chunks())
+    shuffled = loader(True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_calls_on_card("phase 24a loader"):
+        chunk = next(shuffled.chunks())
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, {"permute_rows": 1, "cont_chain_16": 1, "tiny_lookup": 1}, "phase 24a loader")
+    n = next(iter(arrays.values())).shape[0]
+    perm = torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    want = kperm.permute_rows_plain(arrays, perm)
+    widths = {k: v.element_size() for k, v in chunk.items()}
+    for k, v in want.items():
+        if chunk[k].dtype != v.dtype or not torch.equal(chunk[k], v):
+            fail(f"phase 24a loader: {k} ({chunk[k].dtype}) differs from permute_rows_plain ({v.dtype})")
+    if not any(w < 4 for w in widths.values()):
+        fail(f"phase 24a loader: no 1- or 2-byte array among {widths}")
+    dtypes = {k: str(v.dtype).replace("torch.", "") for k, v in chunk.items()}
+    log(f"phase 24a loader: one shuffled chunk of {n} rows through K14 equals permute_rows_plain (arrays {dtypes}); "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return {"rows": n, "dtypes": dtypes, "launches": launches}
+
+
 def alt_criteo_path(nvt, dev, parts, cat_names, cont_names) -> dict:
     """Phase 24: Criteo's alternative continuous chain (FillMedian → Clip →
     LogOp → NormalizeMinMax(float16): one K5 launch a batch), the small
@@ -3241,6 +3380,7 @@ def alt_criteo_path(nvt, dev, parts, cat_names, cont_names) -> dict:
         del outs, on_card
     kept = [c for c in small if c in rec["a"]["dtypes"]]
     log(f"phase 24a: small categoricals {small}, kept by DropLowCardinality {kept}")
+    rec["a"]["loader"] = narrow_loader_chunk(nvt, dev, rec["a"]["wf"], parts, kept, cont_names)
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"phase 24 took {rec['phase_s']:.1f} s")
     return rec
@@ -4147,7 +4287,10 @@ def main():
     # --- 24. Criteo's alternative continuous chain, its indicators and its small categoricals ---------
     alt = alt_criteo_path(nvt, dev, parts, cat_names, cont_names)
     main_launches["tiny_lookup"] += alt["a"]["launches"]["tiny_lookup"]
-    alt_launches = {"cont_chain_16": alt["a"]["launches"]["cont_chain_16"],
+    loader_launches = alt["a"]["loader"]["launches"]  # one shuffled chunk of phase 24a's narrow codes
+    main_launches["tiny_lookup"] += loader_launches["tiny_lookup"]
+    train_launches["permute_rows"] += loader_launches["permute_rows"]
+    alt_launches = {"cont_chain_16": alt["a"]["launches"]["cont_chain_16"] + loader_launches["cont_chain_16"],
                     "cont_chain_mask": alt["b"]["launches"]["cont_chain_mask"]}
 
     # --- 25. sessions: shuffle_by_keys, Dropna, Filter, Groupby, ValueCount, ListSlice, K11c ---------
@@ -4214,6 +4357,10 @@ def main():
         "range_bag_grad": ("sharded_embedding.cu", "nvtabular_tpu/parallel/embeddings.py:73", mh_dlrm_launches),
         "interaction_self_fwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
         "interaction_self_bwd": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "interaction_fwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "interaction_bwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "interaction_self_fwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
+        "interaction_self_bwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
         "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "tiny_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:119", solo_launches),

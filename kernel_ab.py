@@ -1,8 +1,31 @@
-"""Times K13b's forward and backward and K13d's forward on the card, from
-one or more checkouts of the port, so that two versions of a kernel are
-compared in one call at the shapes of chip_smoke.py's main paths:
+"""Times kernels of the port on the card from one or more checkouts, so
+that two versions of a kernel are compared in one call at the shapes of
+chip_smoke.py's main paths:
 
-    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--out FILE]
+    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--cases k16,k15d] [--out FILE]
+
+The cases, by group (``--cases``; all by default):
+
+- ``k13b``: K13b's forward and backward at DLRM's [65536, 27, 16] in both
+  modes and at the multihot DLRM's [65536, 4, 64];
+- ``k13d``: K13d's forward at xDeepFM's layers 1 and 2;
+- ``k16``: K16's forward and backward at phase 17's [65536, 26, 16] + 13
+  dense features, and the backward's split by inputs, never by a change of
+  source: its ids all out of range (no linear gradient), those ids and no
+  dense features (dv alone), each column's ids on distinct rows (the
+  linear gradient without hot rows), and the [sum V] zero fill alone;
+- ``k15d``: K15d's forward (``range_gather_columns``) on model shard 1 of 4
+  of phase 20's padded tables, phase 21's shape;
+- ``repairs``: the kernels whose limits were repaired at their main-path
+  shapes: K14 over phase 7's 28 arrays (and 26 int16 columns where the tree
+  takes them), K12b on [500000] with 5 bounds, K17 at [65536, 429], K13a's
+  gather and scatter at [65536, 26, 16] and K13c's forward at [65536, 4] of
+  [23, 16].
+
+The ids are Criteo-like codes made on the card: each column's 16 x 262,144
+draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
+count from 3, as Categorify codes them, and the batch the first 65,536 of
+them; the tables hold each column's distinct values and 3 reserved rows.
 
 A tree is the root of a checkout (the directory that holds
 ``nvtabular_tpu_torch/``). Each runs in a process of its own, in the order
@@ -11,11 +34,13 @@ given, and builds its kernels from its own ``csrc/`` into its own
 samples a group, T threads a block and S stages at [F, D] (several such
 plans joined by ``+``; the tree's ``interaction.fwd_plan`` elsewhere).
 Every case is first held against the tree's plain version on the same
-inputs (the self mode ``torch.equal``, the rest within 1e-5 of the terms'
-magnitudes + 1e-5); its time is the median of 5 CUDA-event windows of 25
-calls (5 for K13d) behind a device-side sleep, as chip_smoke.py times the
-kernels. Prints one JSON line a tree, then a table; ``--out`` writes the
-records as JSON. Imports no JAX.
+inputs (bit-equal where the kernel's operations are the plain version's,
+else within 1e-5 of the terms' magnitudes + 1e-5); its time is the median of
+5 CUDA-event windows of 25 calls (5 for K13d) behind a device-side sleep,
+as chip_smoke.py times the kernels. A case a tree's wrapper refuses (a
+shape past its limits: ValueError or NotImplementedError) is recorded with
+its error; a failed launch ends the run. Prints one JSON line a tree,
+then a table; ``--out`` writes the records as JSON. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -61,25 +86,72 @@ def within(got, want, magnitude) -> float:
     return float(err.max())
 
 
-def one_tree(tree: str, plans: dict) -> dict:
+CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
+    227605432, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 130229467,
+    3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 292775614,
+    40790948, 187188510, 590152, 12973, 108, 36,
+]
+FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
+PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
+GROUPS = ("k13b", "k13d", "k16", "k15d", "repairs")
+
+
+def criteo_ids(torch, dev, gen):
+    """Each column's batch of BATCH codes and its table's rows (the column's
+    distinct values of its FIT_ROWS draws and 3 reserved rows), codes by
+    descending count from 3 (ties by value)."""
+    ids, sizes = [], []
+    for card in CRITEO_TB_CARDINALITIES:
+        u = torch.rand(FIT_ROWS, device=dev, generator=gen, dtype=torch.float64)
+        raw = (card * u ** 2.5).long()
+        values, inverse, counts = torch.unique(raw, return_inverse=True, return_counts=True)
+        order = torch.argsort(-counts, stable=True)
+        code = torch.empty_like(order)
+        code[order] = torch.arange(order.numel(), device=dev)
+        ids.append((code[inverse[:BATCH]] + 3).int())
+        sizes.append(values.numel() + 3)
+    return ids, sizes
+
+
+def one_tree(tree: str, plans: dict, groups) -> dict:
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     import nvtabular_tpu_torch
     from nvtabular_tpu_torch.kernels import build
-    from nvtabular_tpu_torch.kernels import cin as kcin
-    from nvtabular_tpu_torch.kernels import interaction as kint
 
     if not Path(nvtabular_tpu_torch.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {nvtabular_tpu_torch.__file__}, not the package of {root}")
-    if plans:
-        tree_plan = kint.fwd_plan
-        kint.fwd_plan = lambda F, D, self_interaction: plans.get((F, D)) or tree_plan(F, D, self_interaction)
-    build.build_all(["interaction", "cin"])
+    build.build_all()
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(16)
     rec = {}
+
+    def case(name, fn, check=None, iters=TIMED_ITERS):
+        """Times fn after check() (the max abs error, raising where the
+        kernel differs); a tree whose wrapper refuses the case (ValueError,
+        NotImplementedError) records its refusal. A failed launch raises
+        RuntimeError, which ends the tree's process with its error."""
+        try:
+            err = check() if check else None
+            rec[name] = {"ms": time_ms(torch, fn, iters), "max_abs_err": err}
+        except (ValueError, NotImplementedError) as e:
+            rec[name] = {"ms": None, "error": f"{type(e).__name__}: {e}"[:300]}
+
+    def equal(got, want, what):
+        if not torch.equal(got, want):
+            raise SystemExit(f"{what} is not equal to its plain version")
+        return 0.0
+
+    if "k13b" in groups or "k13d" in groups:
+        from nvtabular_tpu_torch.kernels import cin as kcin
+        from nvtabular_tpu_torch.kernels import interaction as kint
+
+        if plans:
+            tree_plan = kint.fwd_plan
+            kint.fwd_plan = lambda F, D, self_interaction: plans.get((F, D)) or tree_plan(F, D, self_interaction)
 
     def interaction(F, D, lead, self_interaction):
         """K13b at [BATCH, F, D], its pairs after a lead-wide block of a row
@@ -93,34 +165,156 @@ def one_tree(tree: str, plans: dict) -> dict:
         got = kint.interaction_fwd(x, out=out, self_interaction=self_interaction)
         want = kint.interaction_fwd_plain(x, self_interaction)
         if self_interaction:
-            if not torch.equal(got, want):
-                raise SystemExit(f"interaction_fwd self [{F}, {D}] is not equal to its plain version")
-            err = 0.0
+            err = equal(got, want, f"interaction_fwd self [{F}, {D}]")
         else:
             err = within(got, want, kint.interaction_fwd_plain(x.abs()))
         rec[f"interaction_fwd {mode} [{BATCH}, {F}, {D}]"] = {
             "ms": time_ms(torch, lambda: kint.interaction_fwd(x, out=out, self_interaction=self_interaction)),
-            "max_abs_err": err, "plan": list(kint.fwd_plan(F, D, self_interaction)) if hasattr(kint, "fwd_plan")
-            else None}
+            "max_abs_err": err, "plan": list(kint.fwd_plan(F, D, self_interaction))}
         got = kint.interaction_bwd(x, g, self_interaction)
         err = within(got, kint.interaction_bwd_plain(x, g, self_interaction),
                      kint.interaction_bwd_plain(x.abs(), g.abs(), self_interaction))
         rec[f"interaction_bwd {mode} [{BATCH}, {F}, {D}]"] = {
             "ms": time_ms(torch, lambda: kint.interaction_bwd(x, g, self_interaction)), "max_abs_err": err}
 
-    interaction(27, 16, 16, False)  # DLRM's Criteo step (phases 7, 20)
-    interaction(27, 16, 16, True)   # phase 23's self mode
-    interaction(4, 64, 64, False)   # the multihot DLRM step (phase 22)
-    for layer, (Bc, Hk) in enumerate(((BATCH, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
-        x0 = torch.randn((Bc, CIN_FIELDS, CIN_DIM), device=dev, generator=gen)
-        xk = x0 if layer == 1 else torch.randn((Bc, Hk, CIN_DIM), device=dev, generator=gen)
-        w = torch.randn((Hk * CIN_FIELDS, CIN_MAPS), device=dev, generator=gen) / (Hk * CIN_FIELDS) ** 0.5
-        err = within(kcin.cin_fwd(xk, x0, w), kcin.cin_fwd_plain(xk, x0, w),
-                     kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
-        rec[f"cin_fwd layer {layer} [{Bc}, {Hk}, {CIN_FIELDS}, {CIN_DIM}, {CIN_MAPS}]"] = {
-            "ms": time_ms(torch, lambda: kcin.cin_fwd(xk, x0, w), iters=5), "max_abs_err": err}
-        del x0, xk, w
-        torch.cuda.empty_cache()
+    if "k13b" in groups:
+        interaction(27, 16, 16, False)  # DLRM's Criteo step (phases 7, 20)
+        interaction(27, 16, 16, True)   # phase 23's self mode
+        interaction(4, 64, 64, False)   # the multihot DLRM step (phase 22)
+    if "k13d" in groups:
+        for layer, (Bc, Hk) in enumerate(((BATCH, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
+            x0 = torch.randn((Bc, CIN_FIELDS, CIN_DIM), device=dev, generator=gen)
+            xk = x0 if layer == 1 else torch.randn((Bc, Hk, CIN_DIM), device=dev, generator=gen)
+            w = torch.randn((Hk * CIN_FIELDS, CIN_MAPS), device=dev, generator=gen) / (Hk * CIN_FIELDS) ** 0.5
+            err = within(kcin.cin_fwd(xk, x0, w), kcin.cin_fwd_plain(xk, x0, w),
+                         kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
+            rec[f"cin_fwd layer {layer} [{Bc}, {Hk}, {CIN_FIELDS}, {CIN_DIM}, {CIN_MAPS}]"] = {
+                "ms": time_ms(torch, lambda: kcin.cin_fwd(xk, x0, w), iters=5), "max_abs_err": err}
+            del x0, xk, w
+            torch.cuda.empty_cache()
+
+    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs"} & set(groups) else (None, None)
+    F, D, nd = len(CRITEO_TB_CARDINALITIES), TRAIN_DIM, NUM_CONTS
+    if "k16" in groups:
+        from nvtabular_tpu_torch.kernels import fm as kfm
+
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+        num_rows = sum(sizes)
+        x = torch.randn((BATCH, F * D + nd), device=dev, generator=gen)
+        v, dense = x[:, : F * D].unflatten(1, (F, D)), x[:, F * D:]
+        linear = torch.randn(num_rows, device=dev, generator=gen)
+        dense_w = torch.randn(nd, device=dev, generator=gen)
+        g = torch.randn(BATCH, device=dev, generator=gen)
+        shape = f"[{BATCH}, {F}, {D}] + {nd}"
+        rows, valid = kfm.table_rows(ids, offsets, sizes)
+        s2, q = v.sum(1), (v * v).sum(1)
+        # chip_smoke.py phase 17's magnitudes: the second order's two sums, the linear terms, the dense dot
+        fwd_mag = (s2 * s2 + q).sum(1) + torch.where(valid, linear[rows].abs(), 0.0).sum(1) + \
+            (dense * dense_w).abs().sum(1)
+        case(f"fm_fwd {shape}", lambda: kfm.fm_fwd(v, dense, ids, offsets, sizes, linear, dense_w),
+             lambda: within(kfm.fm_fwd(v, dense, ids, offsets, sizes, linear, dense_w),
+                            kfm.fm_fwd_plain(v, dense, ids, offsets, sizes, linear, dense_w), fwd_mag))
+        del rows, valid, s2, q, fwd_mag
+        dx = torch.empty_like(x)
+        dv_out, ddense_out = dx[:, : F * D].unflatten(1, (F, D)), dx[:, F * D:]
+
+        def bwd(ids_, dense_, dw_, dd_out):
+            return lambda: kfm.fm_bwd(v, dense_, ids_, offsets, sizes, dw_, g, num_rows, dv_out=dv_out,
+                                      ddense_out=dd_out)
+
+        def check_bwd():
+            got = [t.clone() for t in bwd(ids, dense, dense_w, ddense_out)()]
+            want = kfm.fm_bwd_plain(v, dense, ids, offsets, sizes, dense_w, g, num_rows)
+            mag = kfm.fm_bwd_plain(v, dense.abs(), ids, offsets, sizes, dense_w, g.abs(), num_rows)
+            limits = (g.abs()[:, None, None] * v.abs().sum(1, keepdim=True), want[1].abs(), mag[2], mag[3])
+            return max(within(a, b, m) for a, b, m in zip(got, want, limits))
+
+        case(f"fm_bwd {shape}", bwd(ids, dense, dense_w, ddense_out), check_bwd)
+        off = [torch.full_like(i, -2**31) for i in ids]  # no id in range: no linear gradient
+        none = x[:, F * D: F * D]
+        case(f"fm_bwd no linear {shape}", bwd(off, dense, dense_w, ddense_out))
+        case(f"fm_bwd dv only {shape}", bwd(off, none, dense_w[:0], dx[:, F * D: F * D]))
+        b = torch.arange(BATCH, device=dev)
+        distinct = [(b % s).int() for s in sizes]  # each column's ids on distinct rows where it has them
+        case(f"fm_bwd distinct ids {shape}", bwd(distinct, dense, dense_w, ddense_out))
+        dl = torch.empty(num_rows, device=dev)
+        case(f"zero fill of [{num_rows}]", dl.zero_)
+        del x, linear, dx, dl
+    if "k15d" in groups:
+        from nvtabular_tpu_torch.kernels import embedding as kemb
+
+        padded = [-(-s // SHARD_PAD) * SHARD_PAD for s in sizes]
+        shard = [p // MODEL_SHARDS for p in padded]
+        starts = [s * 1 for s in shard]
+        offs = np.concatenate([[0], np.cumsum(shard)[:-1]]).tolist()
+        cols = (offs, shard, starts, padded)
+        local = torch.randn((sum(shard), D), device=dev, generator=gen)
+        gbuf = torch.empty((BATCH, 1 + F, D), device=dev)
+        out = gbuf[:, 1:]
+
+        def check_gather(m):
+            got = kemb.range_gather_columns(local, ids, *cols, m, out=out)
+            want = kemb.range_gather_columns_plain(local, ids, *cols, m)
+            if not (torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())):
+                raise SystemExit("range_gather_columns differs from plain")
+            return 0.0
+
+        case(f"range_gather_columns shard 1 of {MODEL_SHARDS} [{BATCH}, {F}, {D}]",
+             lambda: kemb.range_gather_columns(local, ids, *cols, 1, out=out), lambda: check_gather(1))
+        case(f"range_gather_columns rank 0 [{BATCH}, {F}, {D}]",
+             lambda: kemb.range_gather_columns(local, ids, *cols, 0, out=out), lambda: check_gather(0))
+        del local, gbuf
+    if "repairs" in groups:
+        from nvtabular_tpu_torch.kernels import bucketize as kbk
+        from nvtabular_tpu_torch.kernels import cross as kcross
+        from nvtabular_tpu_torch.kernels import embedding as kemb
+        from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+        from nvtabular_tpu_torch.kernels import permute as kperm
+
+        n = PERMUTE_ROWS
+        arrays = {f"C{c}": torch.randint(0, 2**31 - 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+                  for c in range(F)}
+        arrays["dense"] = torch.randn((n, nd), device=dev, generator=gen)
+        arrays["label"] = torch.randn(n, device=dev, generator=gen)
+        perm = torch.randperm(n, device=dev, generator=gen)
+        narrow = {k: v.to(torch.int16) for k, v in arrays.items() if k.startswith("C")}
+        for what, arrs in (("28 arrays", arrays), ("26 int16 arrays", narrow)):
+            case(f"permute_rows {what} [{n}]", lambda a=arrs: kperm.permute_rows(a, perm),
+                 lambda a=arrs: max(equal(kperm.permute_rows(a, perm)[k], v[perm], f"permute_rows {k}")
+                                    for k, v in a.items()))
+        xb = (torch.rand(BUCKET_ROWS, device=dev, generator=gen) * 1e6).float()
+        bounds = torch.tensor(TS_BOUNDS, device=dev)
+        case(f"bucketize [{BUCKET_ROWS}], {len(TS_BOUNDS)} bounds", lambda: kbk.bucketize(xb, bounds),
+             lambda: equal(kbk.bucketize(xb, bounds), kbk.bucketize_plain(xb, bounds), "bucketize"))
+        N = F * D + nd
+        xw, x0, xl, gc = (torch.randn((BATCH, N), device=dev, generator=gen) for _ in range(4))
+        cb = torch.randn(N, device=dev, generator=gen)
+        case(f"cross_fwd [{BATCH}, {N}]", lambda: kcross.cross_fwd(xw, cb, x0, xl),
+             lambda: equal(kcross.cross_fwd(xw, cb, x0, xl), kcross.cross_fwd_plain(xw, cb, x0, xl), "cross_fwd"))
+        case(f"cross_bwd [{BATCH}, {N}]", lambda: kcross.cross_bwd(gc, xw, cb, x0),
+             lambda: within(kcross.cross_bwd(gc, xw, cb, x0)[2], kcross.cross_bwd_plain(gc, xw, cb, x0)[2],
+                            (gc * x0).abs().sum(0)))
+        del xw, x0, xl, gc
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+        table = torch.randn((sum(sizes), D), device=dev, generator=gen)
+        feats = torch.empty((BATCH, 1 + F, D), device=dev)
+        case(f"embedding_gather [{BATCH}, {F}, {D}]",
+             lambda: kemb.embedding_gather(table, ids, offsets, sizes, out=feats[:, 1:]),
+             lambda: equal(kemb.embedding_gather(table, ids, offsets, sizes, out=feats[:, 1:]),
+                           kemb.embedding_gather_plain(table, ids, offsets, sizes), "embedding_gather"))
+        ge = torch.randn((BATCH, 1 + F, D), device=dev, generator=gen)[:, 1:]
+        case(f"embedding_scatter_grad [{BATCH}, {F}, {D}]",
+             lambda: kemb.embedding_scatter_grad(ge, ids, offsets, sizes, table.shape[0]),
+             lambda: within(kemb.embedding_scatter_grad(ge, ids, offsets, sizes, table.shape[0]),
+                            kemb.embedding_scatter_grad_plain(ge, ids, offsets, sizes, table.shape[0]),
+                            kemb.embedding_scatter_grad_plain(ge.abs(), ids, offsets, sizes, table.shape[0])))
+        del table, feats, ge
+        tb = torch.randn((23, D), device=dev, generator=gen)
+        values = torch.randint(0, 23, (BATCH, 4), device=dev, generator=gen, dtype=torch.int32)
+        mask = (torch.rand((BATCH, 4), device=dev, generator=gen) < 0.7).float()
+        case(f"embedding_bag_fwd [{BATCH}, 4] of [23, {D}]", lambda: kbag.embedding_bag_fwd(tb, values, mask),
+             lambda: equal(kbag.embedding_bag_fwd(tb, values, mask), kbag.embedding_bag_fwd_plain(tb, values, mask),
+                           "embedding_bag_fwd"))
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
 
 
@@ -128,6 +322,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", required=True, help="a checkout's root, or DIR@F,D,G,T,S[+...]")
     ap.add_argument("--out", help="write the card and the trees' records here")
+    ap.add_argument("--cases", default=",".join(GROUPS), help=f"groups of cases, of {', '.join(GROUPS)}")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one is not None:
@@ -136,7 +331,7 @@ def main():
         for item in filter(None, spec.split("+")):
             F, D, *plan = (int(v) for v in item.split(","))
             plans[(F, D)] = tuple(plan)
-        print(json.dumps(one_tree(tree, plans)), flush=True)
+        print(json.dumps(one_tree(tree, plans, args.cases.split(","))), flush=True)
         return
     import torch
 
@@ -147,8 +342,8 @@ def main():
     print(smi, flush=True)
     recs = []
     for tree in args.tree:
-        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", tree], capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", tree, "--cases", args.cases],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{tree} failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
         recs.append({**json.loads(proc.stdout.strip().splitlines()[-1]), "tree": tree})
@@ -159,7 +354,8 @@ def main():
     width = max(len(n) for n in names)
     print(f"{'case':{width}}  " + "  ".join(r["tree"] for r in recs))
     for n in names:
-        print(f"{n:{width}}  " + "  ".join(f"{r['cases'][n]['ms']:.4f}" if n in r["cases"] else "-" for r in recs))
+        print(f"{n:{width}}  " + "  ".join(f"{r['cases'][n]['ms']:.4f}" if r["cases"].get(n, {}).get("ms") else "-"
+                                           for r in recs))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({"card": smi, "trees": recs}, indent=1))

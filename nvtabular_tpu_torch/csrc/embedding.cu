@@ -33,7 +33,11 @@
 // A launch takes the tables of up to kMaxCols columns by value in a
 // __grid_constant__ argument (1.5 KB); a call of more columns launches once
 // for each chunk of kMaxCols (chunks.cuh), the output and gradient
-// pointers moved to the chunk's first column.
+// pointers moved to the chunk's first column. A launch's flat index (rows x
+// columns x vectors a row) stays within int32: a larger batch launches once
+// for each chunk of rows (the host plans them: kernels/embedding.py
+// launch_rows), the ids, output and gradient moved to the chunk's first
+// row.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
 gather_kernel(const __grid_constant__ Columns c, int num_cols, const float* __restrict__ table,
               int D, int B, float* __restrict__ out, int64_t out_row_stride) {
   const int per_row = D / VEC;
-  const int t = blockIdx.x * kThreads + threadIdx.x;  // the wrapper keeps B * C * per_row < 2^31
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // a launch's B * C * per_row is below 2^31
   if (t >= B * num_cols * per_row) return;
   const int rc = t / per_row;
   const int q = t - rc * per_row;
@@ -106,61 +110,74 @@ scatter_grad_kernel(const __grid_constant__ Columns c, int num_cols, const float
   }
 }
 
-// Columns [c0, c0 + n) of the call's tables (a chunk: the columns are
-// independent).
+// Columns [c0, c0 + n) of the call's tables from row b0 (a chunk: the
+// columns and the rows are independent).
 void fill_columns(Columns* c, const void* const* ids, const int64_t* offsets, const int64_t* sizes, int c0,
-                  int n) {
+                  int n, int64_t b0) {
   for (int k = 0; k < n; ++k) {
-    c->ids[k] = static_cast<const int32_t*>(ids[c0 + k]);
+    c->ids[k] = static_cast<const int32_t*>(ids[c0 + k]) + b0;
     c->offset[k] = offsets[c0 + k];
     c->size[k] = sizes[c0 + k];
   }
 }
 
-bool bad_shape(int num_cols, int D, int64_t B, int vec) {
-  return num_cols < 0 || D <= 0 || B < 0 || B > INT32_MAX || (vec != 1 && vec != 4) || D % vec != 0 ||
-         B * nvt::chunk_size(num_cols, 0, kMaxCols) * (D / vec) > INT32_MAX;
+// rows: the rows of a launch, whose flat index over the widest chunk of
+// columns stays within int32.
+bool bad_shape(int num_cols, int D, int64_t B, int vec, int64_t rows) {
+  if (num_cols < 0 || D <= 0 || B < 0 || (vec != 1 && vec != 4) || D % vec != 0 || rows < 1) return true;
+  const int64_t per_row = static_cast<int64_t>(nvt::chunk_size(num_cols, 0, kMaxCols)) * (D / vec);
+  return per_row > 0 && rows > INT32_MAX / per_row;
+}
+
+// launch(c0, n, b0, m) for each chunk of kMaxCols columns and, in it, each
+// chunk of `rows` rows.
+template <class Launch>
+int for_each_launch(int num_cols, int64_t B, int64_t rows, Launch launch) {
+  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+    return nvt::for_each_chunk(B, rows, [&](int64_t b0, int64_t m) { return launch(c0, n, b0, static_cast<int>(m)); });
+  });
 }
 
 }  // namespace
 
-// *launches: the kernel launches made, one for each chunk of kMaxCols columns.
+// rows: the rows of a launch (the host's plan); *launches: the kernel
+// launches made, one for each chunk of kMaxCols columns and of rows.
 extern "C" int nvt_embedding_gather(const void* const* ids, const int64_t* offsets,
                                     const int64_t* sizes, int num_cols, const float* table, int D,
-                                    int64_t B, float* out, int64_t out_row_stride, int vec,
-                                    int* launches, void* stream) {
-  if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
+                                    int64_t B, int64_t rows_per_launch, float* out, int64_t out_row_stride,
+                                    int vec, int* launches, void* stream) {
+  if (bad_shape(num_cols, D, B, vec, rows_per_launch)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+  return for_each_launch(num_cols, B, rows_per_launch, [&](int c0, int n, int64_t b0, int rows) {
     Columns c;
-    fill_columns(&c, ids, offsets, sizes, c0, n);
-    const unsigned int blocks = static_cast<unsigned int>((B * n * (D / vec) + kThreads - 1) / kThreads);
-    float* o = out + static_cast<int64_t>(c0) * D;
+    fill_columns(&c, ids, offsets, sizes, c0, n, b0);
+    const unsigned int blocks = static_cast<unsigned int>((int64_t{rows} * n * (D / vec) + kThreads - 1) / kThreads);
+    float* o = out + b0 * out_row_stride + static_cast<int64_t>(c0) * D;
     if (vec == 4)
-      gather_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, table, D, static_cast<int>(B), o, out_row_stride);
+      gather_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, table, D, rows, o, out_row_stride);
     else
-      gather_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, table, D, static_cast<int>(B), o, out_row_stride);
+      gather_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, table, D, rows, o, out_row_stride);
     return nvt::launched(launches);
   });
 }
 
 extern "C" int nvt_embedding_scatter_grad(const void* const* ids, const int64_t* offsets,
                                           const int64_t* sizes, int num_cols, const float* grad,
-                                          int64_t grad_row_stride, int D, int64_t B,
+                                          int64_t grad_row_stride, int D, int64_t B, int64_t rows_per_launch,
                                           float* dtable, int vec, int* launches, void* stream) {
-  if (bad_shape(num_cols, D, B, vec)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(num_cols, D, B, vec, rows_per_launch)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
+  return for_each_launch(num_cols, B, rows_per_launch, [&](int c0, int n, int64_t b0, int rows) {
     Columns c;
-    fill_columns(&c, ids, offsets, sizes, c0, n);
-    const unsigned int blocks = static_cast<unsigned int>((B * n * (D / vec) + kThreads - 1) / kThreads);
-    const float* g = grad + static_cast<int64_t>(c0) * D;
+    fill_columns(&c, ids, offsets, sizes, c0, n, b0);
+    const unsigned int blocks = static_cast<unsigned int>((int64_t{rows} * n * (D / vec) + kThreads - 1) / kThreads);
+    const float* g = grad + b0 * grad_row_stride + static_cast<int64_t>(c0) * D;
     if (vec == 4)
-      scatter_grad_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, static_cast<int>(B), dtable);
+      scatter_grad_kernel<4><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, rows, dtable);
     else
-      scatter_grad_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, static_cast<int>(B), dtable);
+      scatter_grad_kernel<1><<<blocks, kThreads, 0, s>>>(c, n, g, grad_row_stride, D, rows, dtable);
     return nvt::launched(launches);
   });
 }

@@ -28,12 +28,19 @@
 // shared-memory sum per block takes the contention of a small table (65,536
 // x 4 ids on the 23 rows of genres).
 //
+// A launch's flat index (rows x vectors a row) stays within int32: a larger
+// batch launches once for each chunk of rows (chunks.cuh; the host plans
+// them: kernels/embedding_bag.py fwd_rows), the values, mask and output
+// moved to the chunk's first row, every launch counted.
+//
 // Bound: bytes: the values and mask (8 B a slot), the distinct table rows
 // touched and the output once; a few MB at the training shapes:
 // launch-scale.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "chunks.cuh"
 
 namespace {
 
@@ -51,7 +58,7 @@ bag_fwd_kernel(const float* __restrict__ table, int64_t V, int D, const int32_t*
                const float* __restrict__ mask, int B, int L, int mean, float* __restrict__ out,
                int64_t out_row_stride) {
   const int per_row = D / VEC;
-  const int t = blockIdx.x * kThreads + threadIdx.x;  // the wrapper keeps B * D < 2^31
+  const int t = blockIdx.x * kThreads + threadIdx.x;  // a launch's B * D / VEC is below 2^31
   if (t >= B * per_row) return;
   const int b = t / per_row;
   const int q = t - b * per_row;
@@ -89,26 +96,33 @@ bag_fwd_kernel(const float* __restrict__ table, int64_t V, int D, const int32_t*
 }
 
 bool bad_shape(int64_t V, int D, int64_t B, int L, int vec) {
-  return V < 0 || D <= 0 || B < 0 || L < 0 || (vec != 1 && vec != 4) || D % vec != 0 ||
-         B * L * D > INT32_MAX || B * D > INT32_MAX;
+  return V < 0 || D <= 0 || B < 0 || L < 0 || (vec != 1 && vec != 4) || D % vec != 0;
 }
 
 }  // namespace
 
+// rows_per_launch: the rows of a launch (the host's plan), whose flat index
+// stays within int32; *launches: the kernel launches made, one for each
+// chunk of rows.
 extern "C" int nvt_embedding_bag_fwd(const float* table, int64_t V, int D, const int32_t* values,
-                                     const float* mask, int64_t B, int L, int mean, float* out,
-                                     int64_t out_row_stride, int vec, void* stream) {
-  if (bad_shape(V, D, B, L, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = B * (D / vec);
-  if (total == 0) return 0;
-  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+                                     const float* mask, int64_t B, int L, int mean, int64_t rows_per_launch,
+                                     float* out, int64_t out_row_stride, int vec, int* launches, void* stream) {
+  if (bad_shape(V, D, B, L, vec) || rows_per_launch < 1 || rows_per_launch > INT32_MAX / (D / vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    bag_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(table, V, D, values, mask, static_cast<int>(B), L, mean, out,
-                                                  out_row_stride);
-  } else {
-    bag_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(table, V, D, values, mask, static_cast<int>(B), L, mean, out,
-                                                  out_row_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int per_row = D / vec;
+  return nvt::for_each_chunk(B, rows_per_launch, [&](int64_t b0, int64_t rows) {
+    const unsigned int blocks = static_cast<unsigned int>((rows * per_row + kThreads - 1) / kThreads);
+    const int32_t* v = values + b0 * L;
+    const float* m = mask + b0 * L;
+    float* o = out + b0 * out_row_stride;
+    if (vec == 4)
+      bag_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(table, V, D, v, m, static_cast<int>(rows), L, mean, o,
+                                                    out_row_stride);
+    else
+      bag_fwd_kernel<1><<<blocks, kThreads, 0, s>>>(table, V, D, v, m, static_cast<int>(rows), L, mean, o,
+                                                    out_row_stride);
+    return nvt::launched(launches);
+  });
 }

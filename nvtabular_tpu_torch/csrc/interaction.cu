@@ -59,6 +59,19 @@
 // thread takes items t, t + kBwdThreads, ... and stores each item's sums
 // to dx directly.
 //
+// Where one stage of one sample passes the 227 KB a block can opt into (at
+// [120, 1024] a sample's X alone is 480 KB), both directions take a
+// streamed path of their own, with the same sums in the same order: the
+// forward's block takes a sample and stages its rows in chunks of Dc columns
+// (the host's plan), a thread's 4 x 4 pair tile keeping its sums in
+// registers across the chunks, so each pair's fmaf steps run over d in
+// order (a sample's tiles past the block's threads take further rounds,
+// each streaming the chunks again), and the sums go to the output row
+// directly; the backward's block takes a sample and kStreamCols columns, a
+// thread kBwdRows rows of one column, and streams x_j's columns and the rows'
+// weights w(i, j) in chunks of kStreamRows steps j, in order (a sample's row
+// blocks past the block's warps take further rounds).
+//
 // The plain versions (kernels/interaction.py) compute the same fmaf steps
 // in the same order, each exactly (the product and the sum in float64,
 // rounded once to float32), so a model step through the kernels and
@@ -74,6 +87,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "chunks.cuh"
 
 namespace {
 
@@ -624,24 +639,144 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   if (C == 4 && threadIdx.x < 32) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// --- the streamed paths (one sample past 227 KB) ---------------------------------------
+
+constexpr int kStreamThreads = 256;  // both streamed kernels' block
+constexpr int kStreamCols = 32;      // the backward's columns a block (a warp's lanes)
+constexpr int kStreamRows = 64;      // the backward's steps j a chunk
+constexpr int kStreamRowBlocks = kStreamThreads / kStreamCols;  // row blocks of kBwdRows a round
+
+// A block a sample (samples strided by the grid): the sample's F rows in
+// chunks of Dc columns in shared memory ([F][ld], ld = Dc | 1 floats: a
+// warp's rows at one column in distinct banks); a thread a tile of 4 x 4
+// rows a round, its sums over every chunk in d order, then the tile's kept
+// pairs to the output row.
+template <int SELF>
+__global__ void __launch_bounds__(kStreamThreads)
+interaction_fwd_stream_kernel(const float* __restrict__ x, int64_t B, int F, int D, int Dc,
+                              float* __restrict__ out, int64_t out_row_stride) {
+  extern __shared__ float xs[];
+  const int ld = Dc | 1;
+  const int nb = (F + kFwdTile - 1) / kFwdTile;
+  const int tiles = nb * (nb + 1) / 2;
+  for (int64_t b = blockIdx.x; b < B; b += gridDim.x) {
+    const float* xb = x + b * F * D;
+    float* ob = out + b * out_row_stride;
+    for (int t0 = 0; t0 < tiles; t0 += kStreamThreads) {
+      int I = 0, J = 0;
+      tile_advance(t0 + threadIdx.x, I, J);
+      const bool active = I < nb;
+      int ri[kFwdTile], rj[kFwdTile];
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r) {
+        const int i = kFwdTile * I + r, j = kFwdTile * J + r;
+        ri[r] = (i < F ? i : F - 1) * ld;
+        rj[r] = (j < F ? j : F - 1) * ld;
+      }
+      float acc[kFwdTile][kFwdTile];
+#pragma unroll
+      for (int r = 0; r < kFwdTile; ++r)
+#pragma unroll
+        for (int q = 0; q < kFwdTile; ++q) acc[r][q] = 0.0f;
+      for (int d0 = 0; d0 < D; d0 += Dc) {
+        const int dc = D - d0 < Dc ? D - d0 : Dc;
+        __syncthreads();  // the chunk before is read
+        for (int e = threadIdx.x; e < F * dc; e += kStreamThreads) {
+          const int r = e / dc;
+          xs[r * ld + e - r * dc] = xb[static_cast<int64_t>(r) * D + d0 + e - r * dc];
+        }
+        __syncthreads();
+        if (active) {
+          for (int d = 0; d < dc; ++d) {
+            float a[kFwdTile], c[kFwdTile];
+#pragma unroll
+            for (int r = 0; r < kFwdTile; ++r) {
+              a[r] = xs[ri[r] + d];
+              c[r] = xs[rj[r] + d];
+            }
+#pragma unroll
+            for (int r = 0; r < kFwdTile; ++r)
+#pragma unroll
+              for (int q = 0; q < kFwdTile; ++q) acc[r][q] = fmaf(a[r], c[q], acc[r][q]);
+          }
+        }
+      }
+      if (active) fwd_tile_store<SELF>(ob, F, I, J, acc);
+    }
+  }
+}
+
+// The weight of step j for row i: g's pair (i, j) (either order), 2 g_ii on
+// the self mode's diagonal.
+template <int SELF>
+__device__ __forceinline__ float pair_weight(const float* __restrict__ gb, int i, int j) {
+  if (i == j) return SELF ? 2.0f * gb[row_base(i, SELF) + i] : 0.0f;
+  return i > j ? gb[row_base(i, SELF) + j] : gb[row_base(j, SELF) + i];
+}
+
+// A block a (sample, kStreamCols columns) work item (items strided by the
+// grid): a warp's lanes the columns, warp w the row blocks w, w +
+// kStreamRowBlocks, .. (a round each); in a round the steps j stream in
+// chunks of kStreamRows: x_j's columns and the round's rows' weights staged
+// in shared memory, each row's sum over j in order with fmaf (the strict
+// mode skips j == i, as the staged kernel does).
+template <int SELF>
+__global__ void __launch_bounds__(kStreamThreads)
+interaction_bwd_stream_kernel(const float* __restrict__ x, const float* __restrict__ g, int64_t g_row_stride,
+                              int64_t B, int F, int D, float* __restrict__ dx) {
+  constexpr int kRoundRows = kStreamRowBlocks * kBwdRows;
+  __shared__ float xs[kStreamRows][kStreamCols];
+  __shared__ float ws[kRoundRows][kStreamRows + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ctiles = (D + kStreamCols - 1) / kStreamCols;
+  const int nbi = (F + kBwdRows - 1) / kBwdRows;
+  for (int64_t item = blockIdx.x; item < B * ctiles; item += gridDim.x) {
+    const int64_t b = item / ctiles;
+    const int d0 = static_cast<int>(item - b * ctiles) * kStreamCols;
+    const int d = d0 + lane;
+    const float* xb = x + b * F * D;
+    const float* gb = g + b * g_row_stride;
+    for (int rb0 = 0; rb0 < nbi; rb0 += kStreamRowBlocks) {
+      const int i_base = rb0 * kBwdRows;
+      const int i0 = i_base + warp * kBwdRows;
+      float acc[kBwdRows];
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) acc[r] = 0.0f;
+      for (int j0 = 0; j0 < F; j0 += kStreamRows) {
+        const int jn = F - j0 < kStreamRows ? F - j0 : kStreamRows;
+        __syncthreads();  // the chunk before is read
+        for (int e = threadIdx.x; e < kStreamRows * kStreamCols; e += kStreamThreads) {
+          const int jj = e / kStreamCols, c = e - jj * kStreamCols;
+          xs[jj][c] = (jj < jn && d0 + c < D) ? xb[static_cast<int64_t>(j0 + jj) * D + d0 + c] : 0.0f;
+        }
+        for (int e = threadIdx.x; e < kRoundRows * kStreamRows; e += kStreamThreads) {
+          const int ri = e / kStreamRows, jj = e - ri * kStreamRows;
+          const int i = i_base + ri;
+          ws[ri][jj] = (i < F && jj < jn) ? pair_weight<SELF>(gb, i, j0 + jj) : 0.0f;
+        }
+        __syncthreads();
+        if (d < D && i0 < F) {
+          for (int jj = 0; jj < jn; ++jj) {
+            const float v = xs[jj][lane];
+            const int j = j0 + jj;
+#pragma unroll
+            for (int r = 0; r < kBwdRows; ++r)
+              if (SELF || i0 + r != j) acc[r] = fmaf(ws[warp * kBwdRows + r][jj], v, acc[r]);
+          }
+        }
+      }
+      if (d < D) {
+#pragma unroll
+        for (int r = 0; r < kBwdRows; ++r)
+          if (i0 + r < F) dx[(b * F + i0 + r) * D + d] = acc[r];
+      }
+    }
+  }
+}
+
 bool bad_shape(int64_t B, int F, int D, int G, int stages, int self_mode) {
   return B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || G <= 0 || (stages != 1 && stages != 2) ||
          (self_mode != 0 && self_mode != 1);
-}
-
-// A persistent grid of `threads`-thread blocks with `smem` bytes each: as
-// many blocks as the card holds at once, at most one a group.
-template <class Kernel>
-int persistent_blocks(Kernel kernel, int threads, int smem, int64_t groups, unsigned* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  *blocks = static_cast<unsigned>(groups < resident ? groups : resident);
-  return 0;
 }
 
 template <int C, int SELF>
@@ -649,7 +784,8 @@ int launch_fwd(const float* x, int64_t B, int F, int D, int G, int threads, int 
                int64_t out_row_stride, cudaStream_t stream) {
   const int smem = static_cast<int>(stages * fwd_stage_floats(F, D, G, SELF) * sizeof(float));
   unsigned blocks = 0;
-  if (int rc = persistent_blocks(interaction_fwd_kernel<C, SELF>, threads, smem, (B + G - 1) / G, &blocks)) return rc;
+  if (int rc = nvt::resident_blocks(interaction_fwd_kernel<C, SELF>, threads, smem, (B + G - 1) / G, &blocks))
+    return rc;
   interaction_fwd_kernel<C, SELF><<<blocks, threads, smem, stream>>>(x, B, F, D, G, stages, out, out_row_stride);
   return static_cast<int>(cudaGetLastError());
 }
@@ -659,7 +795,7 @@ int launch_bwd(const float* x, const float* g, int64_t g_row_stride, int64_t B, 
                float* dx, cudaStream_t stream) {
   const int smem = static_cast<int>(stages * bwd_stage_floats(F, D, C, G, SELF) * sizeof(float));
   unsigned blocks = 0;
-  if (int rc = persistent_blocks(interaction_bwd_kernel<C, SELF>, kBwdThreads, smem, (B + G - 1) / G, &blocks))
+  if (int rc = nvt::resident_blocks(interaction_bwd_kernel<C, SELF>, kBwdThreads, smem, (B + G - 1) / G, &blocks))
     return rc;
   interaction_bwd_kernel<C, SELF><<<blocks, kBwdThreads, smem, stream>>>(x, g, g_row_stride, B, F, D, G, stages, dx);
   return static_cast<int>(cudaGetLastError());
@@ -704,4 +840,49 @@ extern "C" int nvt_interaction_bwd(const float* x, const float* g, int64_t g_row
                      : launch_bwd<1, 1>(x, g, g_row_stride, B, F, D, G, stages, dx, s);
   return cols == 4 ? launch_bwd<4, 0>(x, g, g_row_stride, B, F, D, G, stages, dx, s)
                    : launch_bwd<1, 0>(x, g, g_row_stride, B, F, D, G, stages, dx, s);
+}
+
+// The streamed forward (one sample past 227 KB): a block a sample, its rows
+// in chunks of Dc columns (the wrapper's plan: F * (Dc | 1) floats within
+// the opt-in limit).
+extern "C" int nvt_interaction_fwd_stream(const float* x, int64_t B, int F, int D, int Dc, int self_mode,
+                                          float* out, int64_t out_row_stride, void* stream) {
+  const int64_t smem = static_cast<int64_t>(F) * (Dc | 1) * 4;
+  if (B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || Dc < 1 || Dc > D || smem > kSmemOptIn ||
+      (self_mode != 0 && self_mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned blocks = 0;
+  if (self_mode) {
+    if (int rc = nvt::resident_blocks(interaction_fwd_stream_kernel<1>, kStreamThreads, static_cast<int>(smem), B,
+                                      &blocks))
+      return rc;
+    interaction_fwd_stream_kernel<1><<<blocks, kStreamThreads, smem, s>>>(x, B, F, D, Dc, out, out_row_stride);
+  } else {
+    if (int rc = nvt::resident_blocks(interaction_fwd_stream_kernel<0>, kStreamThreads, static_cast<int>(smem), B,
+                                      &blocks))
+      return rc;
+    interaction_fwd_stream_kernel<0><<<blocks, kStreamThreads, smem, s>>>(x, B, F, D, Dc, out, out_row_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streamed backward: a block a (sample, kStreamCols columns) item.
+extern "C" int nvt_interaction_bwd_stream(const float* x, const float* g, int64_t g_row_stride, int64_t B, int F,
+                                          int D, int self_mode, float* dx, void* stream) {
+  if (B < 0 || F < (self_mode ? 1 : 2) || D <= 0 || (self_mode != 0 && self_mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t items = B * ((D + kStreamCols - 1) / kStreamCols);
+  unsigned blocks = 0;
+  if (self_mode) {
+    if (int rc = nvt::resident_blocks(interaction_bwd_stream_kernel<1>, kStreamThreads, 0, items, &blocks)) return rc;
+    interaction_bwd_stream_kernel<1><<<blocks, kStreamThreads, 0, s>>>(x, g, g_row_stride, B, F, D, dx);
+  } else {
+    if (int rc = nvt::resident_blocks(interaction_bwd_stream_kernel<0>, kStreamThreads, 0, items, &blocks)) return rc;
+    interaction_bwd_stream_kernel<0><<<blocks, kStreamThreads, 0, s>>>(x, g, g_row_stride, B, F, D, dx);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -70,8 +70,16 @@
 // rank holds on model rank 0 only (zeros on the others): the sum over the
 // model group then gives jnp.take's rows, NaN included. The output is a
 // [B, C, D] view whose rows may be strided (the first C slots of the
-// [B, C + M, D] buffer that the group's all_reduce takes in place).
-// K13a's gather (csrc/embedding.cu) with a row range per column.
+// [B, C + M, D] buffer that the group's all_reduce takes in place). Bound:
+// bytes — the output (three quarters of it another rank's zeros at a
+// quarter shard), the ids and the distinct held rows, once each. A
+// persistent grid's blocks walk tiles of rows: a tile's shard rows staged in
+// shared memory (each column's ranges read at one parameter index a warp,
+// each id once), then its output rows written whole by consecutive threads
+// with no 64-bit division a vector, the zero and NaN rows stored without a
+// table read (a thread a float4 with two 64-bit divisions and five
+// divergent parameter reads each took 0.0766 ms at phase 21's shape against
+// a bound of 0.0373 on an H100 80GB HBM3 at 700 W, kernel_ab.py).
 //
 // nvt_range_scatter_grad: the dense [rows_local, D] gradient of the shard,
 // a zero fill (cudaMemsetAsync, one pass at the memory's rate: the floor)
@@ -84,14 +92,13 @@
 // column's ids to a few rows, whose atomics would serialize at their L2
 // slice. So a warp takes 32 consecutive ids of one column (one coalesced
 // load, each id read once), ballots the held ones, groups equal shard rows
-// with __match_any_sync and sums each group's gradient rows in registers by
-// a shuffle tree (log2 of the group's size steps, the same for every float4
-// of the row); the group's leader alone issues the reductions, one
-// red.global.add.v4.f32 per float4 (a float where D % 4 != 0 or a row is
-// not 16-byte aligned). A warp walks a contiguous run of such tiles and
-// carries one hot row's sum across them in shared memory, so a row that
-// takes most of a column's ids gets one reduction a float4 per warp, not
-// per tile. A launch takes at most kCarryMaxDim (1536) floats of each row
+// and sums each group's gradient rows in registers (row_groups.cuh: one
+// shuffle tree, the same for every float4 of the row); the group's leader
+// alone issues the reductions, one red.global.add.v4.f32 per float4 (a
+// float where D % 4 != 0 or a row is not 16-byte aligned). A warp walks a
+// contiguous run of such tiles and carries one hot row's sum across them in
+// shared memory, so a row that takes most of a column's ids gets one
+// reduction a float4 per warp, not per tile. A launch takes at most kCarryMaxDim (1536) floats of each row
 // (its carries fill 48 KB a block): a wider D launches once for each chunk
 // of kCarryMaxDim columns, the gradient and its shard moved to the chunk's
 // first column. Atomics and the tree make the
@@ -101,6 +108,7 @@
 #include <cstdint>
 
 #include "chunks.cuh"
+#include "row_groups.cuh"
 
 namespace {
 
@@ -372,50 +380,85 @@ __device__ __forceinline__ int64_t shard_row_of(const RangeColumns& c, int col, 
   return (local >= 0 && local < c.size[col]) ? c.offset[col] + local : kElsewhere;
 }
 
-// The shard row of id b of column col.
-__device__ __forceinline__ int64_t shard_row(const RangeColumns& c, int col, int64_t b) {
-  return shard_row_of(c, col, c.ids[col][b]);
-}
+using nvt::kAllLanes;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGatherUnroll = 4;  // vectors a thread has in flight in range_gather_columns
+constexpr int kGatherRows = 32;   // rows of a range_gather_columns tile: a warp's lanes
 
+// A persistent grid's blocks walk tiles of kGatherRows rows (tile t: rows
+// [t kGatherRows, +kGatherRows) of every column of the launch), strided by
+// the grid. A tile first stages its shard rows in shared memory, [row][col]:
+// thread e takes column e / kGatherRows (the same in a warp's 32 lanes, so
+// the column's ranges are read at one index of the launch's parameters) and
+// row e % kGatherRows, each id read once, coalesced. Then the block copies
+// the tile's output rows in order, vector k by thread k % kThreads
+// (consecutive threads, consecutive addresses: each output row's [C, D]
+// block is written whole), kGatherUnroll vectors in flight a thread, with no
+// 64-bit division; a row no rank holds, or another rank's, is a fill stored
+// without a table read. Every store is a streaming one (on an H100 80GB HBM3
+// at 700 W, kernel_ab.py at phase 21's shape: 0.0585-0.0589 ms against
+// 0.0606-0.0608 with plain stores; 64-row tiles 0.0614, 16-row 0.0601; 8
+// vectors in flight 0.0728; the fills stored before the held rows
+// 0.0619-0.0621; the next tile's ids loaded during the copy 0.0583-0.0584).
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_gather_columns_kernel(const __grid_constant__ RangeColumns c, int num_cols, const float* __restrict__ table,
                             int D, int64_t B, int write_nan, float* __restrict__ out, int64_t out_row_stride) {
+  __shared__ int64_t rows[kGatherRows * kMaxCols];  // the tile's shard rows, [row][col]
   const int per_row = D / VEC;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= B * num_cols * per_row) return;
-  const int64_t rc = t / per_row;  // b * num_cols + col: out's row
-  const int q = static_cast<int>(t - rc * per_row);
-  const int64_t b = rc / num_cols;
-  const int col = static_cast<int>(rc - b * num_cols);
-  const int64_t row = shard_row(c, col, b);
-  float v[VEC];
-  if (row >= 0) {
-    load_vec<VEC>(table + row * D + q * VEC, v);
-  } else {
-    const float fill = (row == kNoRank && write_nan) ? __int_as_float(0x7fc00000) : 0.0f;
+  const int per_tile_row = num_cols * per_row;  // vectors of a row of the tile
+  const float nan = __int_as_float(0x7fc00000);
+  const int64_t tiles = (B + kGatherRows - 1) / kGatherRows;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t b0 = t * kGatherRows;
+    const int n = B - b0 < kGatherRows ? static_cast<int>(B - b0) : kGatherRows;
+    __syncthreads();  // the tile before is copied
+    for (int e = threadIdx.x; e < num_cols * kGatherRows; e += kThreads) {
+      const int col = e / kGatherRows, r = e - col * kGatherRows;
+      rows[r * num_cols + col] = r < n ? shard_row_of(c, col, c.ids[col][b0 + r]) : kElsewhere;
+    }
+    __syncthreads();
+    const int vectors = n * per_tile_row;
+    for (int k0 = threadIdx.x; k0 < vectors; k0 += kThreads * kGatherUnroll) {
+      float v[kGatherUnroll][VEC];
+      int64_t src[kGatherUnroll];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) v[k] = fill;
+      for (int u = 0; u < kGatherUnroll; ++u) {
+        const int k = k0 + u * kThreads;
+        const int rc = k / per_row;  // the tile's [row][col] entry
+        src[u] = k < vectors ? rows[rc] : kElsewhere;
+        if (src[u] >= 0) load_vec<VEC>(table + src[u] * D + (k - rc * per_row) * VEC, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherUnroll; ++u) {
+        const int k = k0 + u * kThreads;
+        if (k >= vectors) break;
+        const int r = k / per_tile_row;
+        float* o = out + (b0 + r) * out_row_stride + (k - r * per_tile_row) * VEC;
+        if (src[u] < 0) {
+          const float fill = (src[u] == kNoRank && write_nan) ? nan : 0.0f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[u][e] = fill;
+        }
+        if constexpr (VEC == 4) {
+          __stcs(reinterpret_cast<float4*>(o), make_float4(v[u][0], v[u][1], v[u][2], v[u][3]));
+        } else {
+          __stcs(o, v[u][0]);
+        }
+      }
+    }
   }
-  store_vec<VEC>(out + b * out_row_stride + static_cast<int64_t>(col) * D + q * VEC, v);
 }
 
-constexpr unsigned kAllLanes = 0xffffffffu;
-constexpr int kTreeSteps = 5;  // log2(32): the most a warp's group of equal rows takes
 constexpr int kRowChunk = 4;   // vectors of a gradient row a lane holds at once
-constexpr int kWarps = kThreads / 32;
 constexpr int kCarryMaxDim = 48 * 1024 / (kWarps * static_cast<int>(sizeof(float)));  // 48 KB of carries a block
 
 // Columns [0, width) of the rows (row length D: the chunk's), moved by the
 // caller to the chunk's first column. Warp w takes tiles [w * T / W, (w + 1) * T / W) of the T = C * ceil(B / 32)
 // 32-id tiles (column-major: a tile is 32 consecutive ids of one column),
 // so its tiles are consecutive ids of one column or two. Each warp carries
-// the sum of one shard row across its tiles in shared memory: the first
-// group of two or more equal rows it meets, and after that the largest
-// group of a tile that has none of the carried row (the carry is then
-// added to the gradient and restarts). A column whose ids fall on one row
-// then costs one reduction per float4 per warp, not per tile; the other
-// groups' leaders add their sums at once.
+// the sum of one shard row across its tiles in shared memory
+// (nvt::carry_keeper); the other groups' leaders add their sums at once.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 range_scatter_grad_kernel(const __grid_constant__ RangeColumns c, int num_cols, const float* __restrict__ grad,
@@ -478,52 +521,16 @@ range_scatter_grad_kernel(const __grid_constant__ RangeColumns c, int num_cols, 
       }
     };
     load_chunk(0);  // in flight while the warp groups its rows
-    const unsigned peers = __match_any_sync(kAllLanes, held ? row : kElsewhere);
-    const unsigned lower = peers & ((1u << lane) - 1u);
-    const bool leader = held && lower == 0;
-    // The tree's schedule: at step s a lane adds the partial sum of from[s],
-    // its next higher peer still live (-1: none); the lanes of odd rank among
-    // the live ones are then done, their sums taken by the lane below.
-    int from[kTreeSteps];
-    int steps = 0;
-    unsigned rest = held ? peers & (0xfffffffeu << lane) : 0u;
-    unsigned rank = __popc(lower);
-#pragma unroll
-    for (int s = 0; s < kTreeSteps; ++s) {
-      if (!__any_sync(kAllLanes, rest != 0)) break;
-      from[s] = __ffs(rest) - 1;
-      rest &= ~__ballot_sync(kAllLanes, held && (rank & 1u));
-      rank >>= 1;
-      steps = s + 1;
-    }
-    // the leader whose group joins the carry (-1: none)
-    const unsigned match = __ballot_sync(kAllLanes, leader && row == carry_row);
-    int keeper = __ffs(match) - 1;
-    if (match == 0) {
-      const unsigned best = __reduce_max_sync(kAllLanes, leader ? (__popc(peers) << 5) | lane : 0u);
-      if ((best >> 5) >= 2) {
-        if (carry_row >= 0) flush();
-        keeper = static_cast<int>(best & 31u);
-        carry_row = __shfl_sync(kAllLanes, row, keeper);
-      }
-    }
+    const nvt::RowGroups groups(held, row, lane);
+    const nvt::Carry joins = nvt::carry_keeper(groups, row, lane, carry_row);
+    if (joins.restart) flush();
+    carry_row = joins.row;
+    const int keeper = joins.lane;
+    const bool leader = groups.leader;
     float* dst = dtable + (held ? row * D : 0);
     for (int q0 = 0; q0 < per_row; q0 += kRowChunk) {
       if (q0 > 0) load_chunk(q0);
-#pragma unroll
-      for (int s = 0; s < kTreeSteps; ++s) {
-        if (s < steps) {
-          const int f = from[s];
-#pragma unroll
-          for (int k = 0; k < kRowChunk; ++k) {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-              const float t = __shfl_sync(kAllLanes, v[k][e], f < 0 ? lane : f);
-              if (f >= 0) v[k][e] += t;
-            }
-          }
-        }
-      }
+      groups.sum(v, lane);
       if (leader) {
 #pragma unroll
         for (int k = 0; k < kRowChunk; ++k) {
@@ -541,22 +548,6 @@ range_scatter_grad_kernel(const __grid_constant__ RangeColumns c, int num_cols, 
     }
   }
   if (carry_row >= 0) flush();
-}
-
-// The grid-stride loop's grid: the blocks of range_scatter_grad_kernel<VEC>
-// the card holds at once with `smem` bytes of carries each.
-template <int VEC>
-int scatter_grid(int64_t tiles_total, int smem, unsigned* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, range_scatter_grad_kernel<VEC>, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int64_t needed = (tiles_total + kWarps - 1) / kWarps;
-  *blocks = static_cast<unsigned>(needed < resident ? needed : resident);
-  return 0;
 }
 
 // Columns [c0, c0 + n) of the call's tables: a launch takes at most
@@ -620,8 +611,7 @@ extern "C" int nvt_range_bag(const float* table, int64_t rows_local, int64_t sta
 extern "C" int nvt_range_bag_grad(const float* grad, int64_t grad_row_stride, const int32_t* values, const float* mask,
                                   int64_t B, int L, int D, int64_t start, int64_t rows_local, int64_t padded, int wrap,
                                   int mean, float* dtable, int vec, int S, int blocks, void* stream_ptr) {
-  if (bad_range_shape(D, B, vec) || L < 0 || rows_local < 0 || start < 0 || start + rows_local > padded ||
-      B * L * D > INT32_MAX)
+  if (bad_range_shape(D, B, vec) || L < 0 || rows_local < 0 || start < 0 || start + rows_local > padded)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t cells = rows_local * D;
@@ -664,16 +654,18 @@ extern "C" int nvt_range_gather_columns(const void* const* ids, const int64_t* o
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int write_nan = model_rank == 0;
   return nvt::for_each_chunk(num_cols, kMaxCols, [&](int c0, int n) {
-    const int64_t total = B * n * (D / vec);
     RangeColumns c;
     fill_range_columns(&c, ids, offsets, sizes, starts, padded, c0, n);
     float* o = out + static_cast<int64_t>(c0) * D;
-    if (vec == 4)
-      range_gather_columns_kernel<4><<<blocks_for(total), kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o,
-                                                                                out_row_stride);
-    else
-      range_gather_columns_kernel<1><<<blocks_for(total), kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o,
-                                                                                out_row_stride);
+    const int64_t tiles = (B + kGatherRows - 1) / kGatherRows;  // a block a tile
+    unsigned blocks = 0;
+    if (vec == 4) {
+      if (int rc = nvt::resident_blocks(range_gather_columns_kernel<4>, kThreads, 0, tiles, &blocks)) return rc;
+      range_gather_columns_kernel<4><<<blocks, kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o, out_row_stride);
+    } else {
+      if (int rc = nvt::resident_blocks(range_gather_columns_kernel<1>, kThreads, 0, tiles, &blocks)) return rc;
+      range_gather_columns_kernel<1><<<blocks, kThreads, 0, stream>>>(c, n, table, D, B, write_nan, o, out_row_stride);
+    }
     return nvt::launched(launches);
   });
 }
@@ -697,16 +689,17 @@ extern "C" int nvt_range_scatter_grad(const void* const* ids, const int64_t* off
     RangeColumns c;
     fill_range_columns(&c, ids, offsets, sizes, starts, padded, c0, n);
     const int64_t tiles = (B + 31) / 32 * n;
+    const int64_t busy = (tiles + kWarps - 1) / kWarps;  // blocks with a tile a warp
     return nvt::for_each_chunk(D, kCarryMaxDim, [&](int d0, int width) {
       const int smem = kWarps * width * static_cast<int>(sizeof(float));
       const float* g = grad + static_cast<int64_t>(c0) * D + d0;
       unsigned blocks = 0;
       if (vec == 4) {
-        if (int rc = scatter_grid<4>(tiles, smem, &blocks)) return rc;
+        if (int rc = nvt::resident_blocks(range_scatter_grad_kernel<4>, kThreads, smem, busy, &blocks)) return rc;
         range_scatter_grad_kernel<4><<<blocks, kThreads, smem, stream>>>(c, n, g, grad_row_stride, D, width, B,
                                                                          dtable + d0);
       } else {
-        if (int rc = scatter_grid<1>(tiles, smem, &blocks)) return rc;
+        if (int rc = nvt::resident_blocks(range_scatter_grad_kernel<1>, kThreads, smem, busy, &blocks)) return rc;
         range_scatter_grad_kernel<1><<<blocks, kThreads, smem, stream>>>(c, n, g, grad_row_stride, D, width, B,
                                                                          dtable + d0);
       }

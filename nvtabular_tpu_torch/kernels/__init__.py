@@ -34,6 +34,11 @@ LAUNCHES: Dict[str, int] = {
     "interaction_bwd": 0,
     "interaction_self_fwd": 0,
     "interaction_self_bwd": 0,
+    # K13b where one sample passes a block's shared memory: the streamed kernels
+    "interaction_fwd_streamed": 0,
+    "interaction_bwd_streamed": 0,
+    "interaction_self_fwd_streamed": 0,
+    "interaction_self_bwd_streamed": 0,
     "hashed_cross": 0,
     "fold_ids": 0,
     "te_encode": 0,

@@ -3,7 +3,8 @@
 ``bucketize(x, bounds)`` is ``jnp.searchsorted(bounds, x, side="right")``
 as int32: the number of bounds at or below each value, NaN past the last
 bound. ``bounds`` must be ascending and of ``x``'s dtype (the op casts them).
-The kernel is ``csrc/bucketize.cu``.
+The kernel is ``csrc/bucketize.cu``: a block stages ``bound_chunk`` bounds
+at once, and past one chunk its one launch sums the chunks' counts.
 """
 
 from __future__ import annotations
@@ -15,9 +16,10 @@ import torch
 from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-MAX_BOUNDS = 4096  # csrc/bucketize.cu kMaxBounds
+BOUNDS_CHUNK = 4096  # csrc/bucketize.cu kMaxBounds: the bounds a block stages at once
 _KINDS = {torch.float32: 0, torch.float64: 1, torch.int32: 2, torch.int64: 3}
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def bucketize(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
@@ -31,18 +33,23 @@ def bucketize(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     check(bounds, "bounds", x.dtype, x.device)
     if not use_kernel(x):
         return bucketize_plain(x, bounds)
-    if bounds.shape[0] > MAX_BOUNDS:
-        raise ValueError(f"bucketize takes at most {MAX_BOUNDS} bounds, got {bounds.shape[0]}")
     out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     if x.shape[0]:
         fn = library("bucketize").nvt_bucketize
         if fn.argtypes is None:
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-        rc = fn(ptr(x), ptr(bounds), bounds.shape[0], x.shape[0], _KINDS[x.dtype], ptr(out), stream_ptr(x.device))
+        nb = bounds.shape[0]
+        rc = fn(ptr(x), ptr(bounds), nb, bound_chunk(nb), x.shape[0], _KINDS[x.dtype], ptr(out), stream_ptr(x.device))
         raise_on_error(rc, "bucketize")
         LAUNCHES["bucketize"] += 1
     return out
+
+
+def bound_chunk(nb: int) -> int:
+    """The bounds a block of the kernel stages in shared memory at once: all
+    ``nb`` up to BOUNDS_CHUNK, else chunks of BOUNDS_CHUNK."""
+    return min(nb, BOUNDS_CHUNK)
 
 
 def bucketize_plain(x: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:

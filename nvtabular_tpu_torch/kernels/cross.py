@@ -19,14 +19,15 @@ import torch
 from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-MAX_ROW_BLOCKS = 65535  # csrc/cross.cu: gridDim.y, 256 rows a block
+MAX_ROW_BLOCKS = 65535  # csrc/cross.cu kMaxRowBlocks: gridDim.y's limit
 ROWS_PER_BLOCK = 256
 
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _check(xw: torch.Tensor, b: torch.Tensor, x0: torch.Tensor) -> Tuple[int, int]:
@@ -37,9 +38,16 @@ def _check(xw: torch.Tensor, b: torch.Tensor, x0: torch.Tensor) -> Tuple[int, in
     check_rows(xw, "xw", (B, N), dev)
     check(b, "b", torch.float32, dev, (N,))
     check_rows(x0, "x0", (B, N), dev)
-    if use_kernel(xw) and (N < 1 or -(-B // ROWS_PER_BLOCK) > MAX_ROW_BLOCKS):
-        raise ValueError(f"the cross kernels take N >= 1 and at most {MAX_ROW_BLOCKS * ROWS_PER_BLOCK} rows, got [{B}, {N}]")
+    if use_kernel(xw) and N < 1:
+        raise ValueError(f"the cross kernels take N >= 1, got [{B}, {N}]")
     return B, N
+
+
+def row_blocks(B: int) -> int:
+    """The kernels' blocks in y (gridDim.y): one a range of ROWS_PER_BLOCK
+    rows up to MAX_ROW_BLOCKS, whose blocks then walk every
+    MAX_ROW_BLOCKS-th range."""
+    return max(1, min(-(-B // ROWS_PER_BLOCK), MAX_ROW_BLOCKS))
 
 
 def cross_fwd(xw: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +63,8 @@ def cross_fwd(xw: torch.Tensor, b: torch.Tensor, x0: torch.Tensor, x: torch.Tens
     if fn.argtypes is None:
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(xw), xw.stride(0), ptr(b), ptr(x0), x0.stride(0), ptr(x), x.stride(0), B, N, ptr(out),
-            stream_ptr(xw.device))
+    rc = fn(ptr(xw), xw.stride(0), ptr(b), ptr(x0), x0.stride(0), ptr(x), x.stride(0), B, N, row_blocks(B),
+            ptr(out), stream_ptr(xw.device))
     raise_on_error(rc, "cross_fwd")
     LAUNCHES["cross_fwd"] += 1
     return out
@@ -81,8 +89,8 @@ def cross_bwd(g: torch.Tensor, xw: torch.Tensor, b: torch.Tensor, x0: torch.Tens
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(g), g.stride(0), ptr(xw), xw.stride(0), ptr(b), ptr(x0), x0.stride(0), B, N, ptr(dxw), ptr(dx0),
-            ptr(db), stream_ptr(dev))
+    rc = fn(ptr(g), g.stride(0), ptr(xw), xw.stride(0), ptr(b), ptr(x0), x0.stride(0), B, N, row_blocks(B),
+            ptr(dxw), ptr(dx0), ptr(db), stream_ptr(dev))
     raise_on_error(rc, "cross_bwd")
     LAUNCHES["cross_bwd"] += 1
     return dxw, dx0, db

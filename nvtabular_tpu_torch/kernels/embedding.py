@@ -36,9 +36,9 @@ from .embedding_bag import bag_counts, embedding_bag_bwd, embedding_bag_fwd, ran
 
 LAUNCH_COLUMNS = 64  # csrc/embedding.cu kMaxCols: the columns of one launch (a call of more launches in chunks)
 
-# ids, offsets, sizes, C, table, D, B, out, out row stride, vec, launches, stream
+# ids, offsets, sizes, C, table, D, B, rows a launch, out, out row stride, vec, launches, stream
 _GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 # table, rows_local, start, D, ids, n, out, vec, stream
@@ -46,9 +46,9 @@ _RANGE_GATHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
 ]
-# ids, offsets, sizes, C, grad, grad row stride, D, B, dtable, vec, launches, stream
+# ids, offsets, sizes, C, grad, grad row stride, D, B, rows a launch, dtable, vec, launches, stream
 _SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 # ids, offsets, sizes, starts, padded, C, table, D, B, model_rank, out, out row stride, vec, launches, stream
@@ -99,9 +99,14 @@ def c_columns(ids, offsets, sizes):
     )
 
 
-def _check_kernel_limits(B: int, C: int, D: int) -> None:
-    if B * min(C, LAUNCH_COLUMNS) * D >= 2**31:
-        raise ValueError(f"[{B}, {min(C, LAUNCH_COLUMNS)}, {D}] of one launch exceeds the embedding kernels' int32 index")
+def launch_rows(B: int, C: int, D: int, vec: int) -> int:
+    """The rows of one K13a launch over [B, C, D] in vectors of ``vec``
+    floats: all B unless the flat index over a chunk of LAUNCH_COLUMNS
+    columns (rows x columns x vectors a row) would pass int32; the kernel
+    launches once for each chunk of columns and of these rows (at least
+    one)."""
+    per_row = min(C, LAUNCH_COLUMNS) * (D // vec)
+    return max(1, min(B, (2**31 - 1) // max(per_row, 1)))
 
 
 def embedding_gather(
@@ -122,7 +127,6 @@ def embedding_gather(
     if not use_kernel(table):
         out.copy_(embedding_gather_plain(table, ids, offsets, sizes))
         return out
-    _check_kernel_limits(B, C, D)
     if B == 0:
         return out
     fn = library("embedding").nvt_embedding_gather
@@ -130,9 +134,10 @@ def embedding_gather(
         fn.argtypes = _GATHER_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
+    vec = vec_width(D, table, out)
     launched = ctypes.c_int(0)
-    rc = fn(c_ids, c_offs, c_sizes, C, ptr(table), D, B, ptr(out), out.stride(0),
-            vec_width(D, table, out), ctypes.byref(launched), stream_ptr(table.device))
+    rc = fn(c_ids, c_offs, c_sizes, C, ptr(table), D, B, launch_rows(B, C, D, vec), ptr(out), out.stride(0), vec,
+            ctypes.byref(launched), stream_ptr(table.device))
     raise_on_error(rc, "embedding_gather")
     LAUNCHES["embedding_gather"] += launched.value
     return out
@@ -161,7 +166,6 @@ def embedding_scatter_grad(
     check_view(grad, "grad", (B, C, D), dev)
     if not use_kernel(grad):
         return embedding_scatter_grad_plain(grad, ids, offsets, sizes, num_rows)
-    _check_kernel_limits(B, C, D)
     dtable = torch.zeros((num_rows, D), dtype=torch.float32, device=dev)
     if B == 0:
         return dtable
@@ -170,9 +174,10 @@ def embedding_scatter_grad(
         fn.argtypes = _SCATTER_ARGTYPES
         fn.restype = ctypes.c_int
     c_ids, c_offs, c_sizes = c_columns(ids, offsets, sizes)
+    vec = vec_width(D, grad, dtable)
     launched = ctypes.c_int(0)
-    rc = fn(c_ids, c_offs, c_sizes, C, ptr(grad), grad.stride(0), D, B, ptr(dtable),
-            vec_width(D, grad, dtable), ctypes.byref(launched), stream_ptr(dev))
+    rc = fn(c_ids, c_offs, c_sizes, C, ptr(grad), grad.stride(0), D, B, launch_rows(B, C, D, vec), ptr(dtable), vec,
+            ctypes.byref(launched), stream_ptr(dev))
     raise_on_error(rc, "embedding_scatter_grad")
     LAUNCHES["embedding_scatter_grad"] += launched.value
     return dtable
@@ -286,7 +291,6 @@ def range_gather_columns(
     if not use_kernel(table):
         out.copy_(range_gather_columns_plain(table, ids, offsets, sizes, starts, padded, model_rank))
         return out
-    _check_kernel_limits(B, C, D)
     if B == 0 or D == 0:
         return out
     fn = library("sharded_embedding").nvt_range_gather_columns
@@ -323,7 +327,6 @@ def range_scatter_grad(
     check_view(grad, "grad", (B, C, D), dev)
     if not use_kernel(grad):
         return range_scatter_grad_plain(grad, ids, offsets, sizes, starts, padded, num_rows)
-    _check_kernel_limits(B, C, D)
     dtable = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
     if D == 0:
         return dtable

@@ -35,9 +35,11 @@ from .build import library
 
 COMBINERS = ("mean", "sum")
 
+# table, V, D, values, mask, B, L, mean, rows a launch, out, out row stride, vec, launches, stream
 _FWD_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
 # table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out row stride, vec, stream
 _RANGE_ARGTYPES = [
@@ -87,9 +89,12 @@ def _check_bag(values: torch.Tensor, mask: torch.Tensor, combiner: str, device) 
     return values.shape
 
 
-def _check_limits(B: int, L: int, D: int) -> None:
-    if B * L * D >= 2**31:
-        raise ValueError(f"[{B}, {L}, {D}] exceeds the embedding bag kernels' int32 index")
+def fwd_rows(B: int, D: int, vec: int) -> int:
+    """The rows of one K13c forward launch over B bags of D floats in
+    vectors of ``vec``: all B unless the flat index (rows x vectors a row)
+    would pass int32; the kernel launches once for each chunk of these rows
+    (at least one)."""
+    return max(1, min(B, (2**31 - 1) // max(D // vec, 1)))
 
 
 def _check_bag_grad(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
@@ -119,17 +124,18 @@ def embedding_bag_fwd(table: torch.Tensor, values: torch.Tensor, mask: torch.Ten
     if not use_kernel(table):
         out.copy_(embedding_bag_fwd_plain(table, values, mask, combiner))
         return out
-    _check_limits(B, L, D)
     if B == 0 or D == 0:
         return out
     fn = library("embedding_bag").nvt_embedding_bag_fwd
     if fn.argtypes is None:
         fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(table), V, D, ptr(values), ptr(mask), B, L, int(combiner == "mean"), ptr(out), out.stride(0),
-            vec_width(D, table, out), stream_ptr(table.device))
+    vec = vec_width(D, table, out)
+    launched = ctypes.c_int(0)
+    rc = fn(ptr(table), V, D, ptr(values), ptr(mask), B, L, int(combiner == "mean"), fwd_rows(B, D, vec), ptr(out),
+            out.stride(0), vec, ctypes.byref(launched), stream_ptr(table.device))
     raise_on_error(rc, "embedding_bag_fwd")
-    LAUNCHES["embedding_bag_fwd"] += 1
+    LAUNCHES["embedding_bag_fwd"] += launched.value
     return out
 
 
@@ -151,7 +157,6 @@ def embedding_bag_bwd(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tens
 def _launch_range_bag(name, table, values, mask, start, take, padded, write_nan, out) -> None:
     B, L = values.shape
     D = table.shape[1]
-    _check_limits(B, L, D)
     if B == 0 or D == 0:
         return
     fn = library("sharded_embedding").nvt_range_bag
@@ -223,7 +228,6 @@ def range_bag_grad(grad: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
 def _launch_range_bag_grad(name, grad, values, mask, start, rows_local, padded, combiner, wrap) -> torch.Tensor:
     B, L = values.shape
     D = grad.shape[1]
-    _check_limits(B, L, D)
     dtable = torch.empty((rows_local, D), dtype=torch.float32, device=grad.device)
     if D == 0:
         return dtable

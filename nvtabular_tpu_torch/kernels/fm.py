@@ -26,8 +26,6 @@ from . import LAUNCHES, check, check_rows, ptr, raise_on_error, stream_ptr, use_
 from .build import library
 from .embedding import LAUNCH_COLUMNS, c_columns, check_view, table_rows
 
-SMEM_LIMIT = 48 * 1024  # the backward's nd partial sums, csrc/fm.cu kSmemLimit
-
 # ids, offsets, sizes, the card's column table, F, D, ...
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -36,7 +34,7 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
 _BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
@@ -61,10 +59,9 @@ def _check_inputs(v, dense, ids, offsets, sizes, num_rows: int, dense_w) -> Tupl
     return B, F, D, nd
 
 
-def _check_kernel_limits(F: int, D: int, nd: int) -> None:
-    if F < 1 or D < 1 or nd * 4 > SMEM_LIMIT:
-        raise ValueError(f"the FM kernels take F, D >= 1 and at most {SMEM_LIMIT // 4} dense features, got {F}, {D}, "
-                         f"{nd}")
+def _check_kernel_limits(F: int, D: int) -> None:
+    if F < 1 or D < 1:
+        raise ValueError(f"the FM kernels take F, D >= 1, got {F}, {D}")
 
 
 def _column_table(ids, offsets, sizes, device) -> Optional[torch.Tensor]:
@@ -86,7 +83,7 @@ def fm_fwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], of
     B, F, D, nd = _check_inputs(v, dense, ids, offsets, sizes, linear.shape[0], dense_w)
     if not use_kernel(v):
         return fm_fwd_plain(v, dense, ids, offsets, sizes, linear, dense_w)
-    _check_kernel_limits(F, D, nd)
+    _check_kernel_limits(F, D)
     out = torch.empty(B, dtype=torch.float32, device=v.device)
     if B == 0:
         return out
@@ -125,11 +122,9 @@ def fm_bwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], of
         dv_out.copy_(dv)
         ddense_out.copy_(ddense)
         return dv_out, ddense_out, dlinear, ddense_w
-    _check_kernel_limits(F, D, nd)
-    dlinear = torch.zeros(num_rows, dtype=torch.float32, device=dev)
-    ddense_w = torch.zeros(nd, dtype=torch.float32, device=dev)
-    if B == 0:
-        return dv_out, ddense_out, dlinear, ddense_w
+    _check_kernel_limits(F, D)
+    dlinear = torch.empty(num_rows, dtype=torch.float32, device=dev)  # zeroed by the C entry
+    ddense_w = torch.empty(nd, dtype=torch.float32, device=dev)
     fn = library("fm").nvt_fm_bwd
     if fn.argtypes is None:
         fn.argtypes = _BWD_ARGTYPES
@@ -138,9 +133,9 @@ def fm_bwd(v: torch.Tensor, dense: torch.Tensor, ids: Sequence[torch.Tensor], of
     table = _column_table(ids, offsets, sizes, dev)
     rc = fn(c_ids, c_offs, c_sizes, ptr(table), F, D, ptr(v), v.stride(0), ptr(dense), dense.stride(0), nd, ptr(dense_w),
             ptr(g), B, ptr(dv_out), dv_out.stride(0), ptr(ddense_out), ddense_out.stride(0), ptr(dlinear),
-            ptr(ddense_w), stream_ptr(dev))
+            num_rows, ptr(ddense_w), stream_ptr(dev))
     raise_on_error(rc, "fm_bwd")
-    LAUNCHES["fm_bwd"] += 1
+    LAUNCHES["fm_bwd"] += int(B > 0)
     return dv_out, ddense_out, dlinear, ddense_w
 
 

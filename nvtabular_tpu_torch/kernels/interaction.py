@@ -6,7 +6,9 @@ as ``nvtabular_tpu/models/layers.py:97-117`` computes them; with
 ``self_interaction`` the P = F (F + 1) / 2 pairs of ``np.tril_indices(F, 0)``,
 each feature's dot with itself included (a mode of both kernels, counted
 apart as ``interaction_self_fwd`` / ``_bwd``). The kernels are
-``csrc/interaction.cu``.
+``csrc/interaction.cu``. Where one stage of one sample passes SMEM_OPT_IN
+(``fwd_plan`` and ``bwd_plan`` give 0 stages) both directions take their
+streamed kernels, counted apart as ``interaction[_self]_{fwd,bwd}_streamed``.
 """
 
 from __future__ import annotations
@@ -29,12 +31,21 @@ FWD_MAX_THREADS = 256  # csrc/interaction.cu kFwdMaxThreads
 FWD_TILE = 4  # csrc/interaction.cu kFwdTile: a forward tile is 4 rows i x 4 rows j
 BWD_THREADS = 256  # csrc/interaction.cu kBwdThreads
 BWD_ROWS = 8  # csrc/interaction.cu kBwdRows: rows of a sample a backward thread sums
+STREAM_THREADS = 256  # csrc/interaction.cu kStreamThreads: both streamed kernels' block
+STREAMED = 0  # the stages of a plan that streams one sample through shared memory
+STREAM_SMEM = SMEM_SM // 4 - SMEM_RESERVED  # the streamed forward's chunk where one fits: four blocks an SM
 
 # x, B, F, D, G, threads, cols, stages, self_mode, out, out row stride, stream
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int64,
                                                                           ctypes.c_void_p]
 # x, g, g row stride, B, F, D, G, cols, stages, self_mode, dx, stream
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_void_p]
+# x, B, F, D, Dc, self_mode, out, out row stride, stream
+_FWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int64,
+                                                                                ctypes.c_void_p]
+# x, g, g row stride, B, F, D, self_mode, dx, stream
+_BWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 3 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
 
@@ -64,13 +75,23 @@ def fwd_smem_bytes(F: int, D: int, G: int, self_interaction: bool, stages: int =
     return stages * G * per_sample * 4 + 16
 
 
-def _stages(fits, what: str, limit_bytes: int) -> int:
-    if fits(2):
-        return 2
-    if fits(1):
-        return 1
-    raise ValueError(f"{what}: one sample's stage needs {limit_bytes} B of shared memory, over {SMEM_OPT_IN} "
-                     "(ROADMAP.md queue 3)")
+def _stages(fits) -> int:
+    """2 or 1 where a plan's stages fit, else STREAMED."""
+    return 2 if fits(2) else 1 if fits(1) else STREAMED
+
+
+def stream_cols(F: int, D: int) -> int:
+    """The streamed forward's chunk of columns: the most, up to D, whose F
+    rows (each ``Dc | 1`` floats) fit STREAM_SMEM (four blocks an SM), else
+    SMEM_OPT_IN; raises where not one column of a sample fits (F past
+    58,112)."""
+    for budget in (STREAM_SMEM, SMEM_OPT_IN):
+        Dc = min(D, budget // (4 * F))
+        while Dc >= 1 and F * (Dc | 1) * 4 > budget:
+            Dc -= 1
+        if Dc >= 1:
+            return Dc
+    raise ValueError(f"interaction_fwd [{F}, {D}]: one column of a sample's {F} rows passes {SMEM_OPT_IN} B")
 
 
 def resident_warps(threads: int, smem: int) -> int:
@@ -88,7 +109,9 @@ def fwd_plan(F: int, D: int, self_interaction: bool):
     stages where they fit and leave an SM FWD_MIN_WARPS warps (16 at [27,
     16]), else one (phase 22's [4, 64]: 6 warps, not 3; on an H100 80GB
     HBM3 at 700 W, kernel_ab.py: 0.0397-0.0405 ms against 0.0437-0.0449,
-    while one stage at [27, 16] takes 0.0985-0.0990 against 0.0909-0.0917)."""
+    while one stage at [27, 16] takes 0.0985-0.0990 against 0.0909-0.0917).
+    Where one stage of one sample passes SMEM_OPT_IN: (1, STREAM_THREADS,
+    STREAMED), the streamed kernel (``stream_cols``)."""
     T = fwd_tiles(F)
     G = 8
     while G < 256 and G * T < FWD_MAX_THREADS:
@@ -103,8 +126,8 @@ def fwd_plan(F: int, D: int, self_interaction: bool):
         smem = fwd_smem_bytes(F, D, G, self_interaction, st)
         return smem <= SMEM_OPT_IN and (st == 1 or resident_warps(threads, smem) >= FWD_MIN_WARPS)
 
-    stages = _stages(fits, f"interaction_fwd [{F}, {D}]", fwd_smem_bytes(F, D, 1, self_interaction, 1))
-    return G, threads, stages
+    stages = _stages(fits)
+    return (G, threads, stages) if stages != STREAMED else (1, STREAM_THREADS, STREAMED)
 
 
 def columns(D: int, aligned: bool) -> int:
@@ -139,14 +162,12 @@ def bwd_plan(F: int, D: int, cols: int, self_interaction: bool):
     G = BWD_THREADS // items a sample (16 at DLRM's [27, 16]), less where
     two stages would not fit SMEM_OPT_IN; where a sample's items pass
     BWD_THREADS, G = 1 and a thread takes several (the kernel's direct
-    path). Two stages where they fit SMEM_OPT_IN, else one; raises where
-    one stage of one sample does not fit."""
+    path). Two stages where they fit SMEM_OPT_IN, else one; (1, STREAMED)
+    where one stage of one sample does not fit: the streamed kernel."""
     G = max(1, BWD_THREADS // bwd_items(F, D, cols))
     while G > 1 and bwd_smem_bytes(F, D, cols, G, self_interaction) > SMEM_OPT_IN:
         G -= 1
-    stages = _stages(lambda st: bwd_smem_bytes(F, D, cols, G, self_interaction, st) <= SMEM_OPT_IN,
-                     f"interaction_bwd [{F}, {D}]", bwd_smem_bytes(F, D, cols, 1, self_interaction, 1))
-    return G, stages
+    return G, _stages(lambda st: bwd_smem_bytes(F, D, cols, G, self_interaction, st) <= SMEM_OPT_IN)
 
 
 def _check_x(x: torch.Tensor):
@@ -171,13 +192,22 @@ def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None,
     if B == 0 or P == 0:
         return out
     G, threads, stages = fwd_plan(F, D, self_interaction)
-    fn = library("interaction").nvt_interaction_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _FWD_ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(ptr(x), B, F, D, G, threads, columns(D, x.data_ptr() % 16 == 0), stages, int(self_interaction), ptr(out),
-            out.stride(0), stream_ptr(x.device))
     name = "interaction_self_fwd" if self_interaction else "interaction_fwd"
+    if stages == STREAMED:
+        name += "_streamed"
+        fn = library("interaction").nvt_interaction_fwd_stream
+        if fn.argtypes is None:
+            fn.argtypes = _FWD_STREAM_ARGTYPES
+            fn.restype = ctypes.c_int
+        rc = fn(ptr(x), B, F, D, stream_cols(F, D), int(self_interaction), ptr(out), out.stride(0),
+                stream_ptr(x.device))
+    else:
+        fn = library("interaction").nvt_interaction_fwd
+        if fn.argtypes is None:
+            fn.argtypes = _FWD_ARGTYPES
+            fn.restype = ctypes.c_int
+        rc = fn(ptr(x), B, F, D, G, threads, columns(D, x.data_ptr() % 16 == 0), stages, int(self_interaction),
+                ptr(out), out.stride(0), stream_ptr(x.device))
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -196,13 +226,21 @@ def interaction_bwd(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool 
     dx = torch.empty_like(x)
     cols = columns(D, x.data_ptr() % 16 == 0 and dx.data_ptr() % 16 == 0)
     G, stages = bwd_plan(F, D, cols, self_interaction)
-    fn = library("interaction").nvt_interaction_bwd
-    if fn.argtypes is None:
-        fn.argtypes = _BWD_ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, cols, stages, int(self_interaction), ptr(dx),
-            stream_ptr(x.device))
     name = "interaction_self_bwd" if self_interaction else "interaction_bwd"
+    if stages == STREAMED:
+        name += "_streamed"
+        fn = library("interaction").nvt_interaction_bwd_stream
+        if fn.argtypes is None:
+            fn.argtypes = _BWD_STREAM_ARGTYPES
+            fn.restype = ctypes.c_int
+        rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, int(self_interaction), ptr(dx), stream_ptr(x.device))
+    else:
+        fn = library("interaction").nvt_interaction_bwd
+        if fn.argtypes is None:
+            fn.argtypes = _BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+        rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, G, cols, stages, int(self_interaction), ptr(dx),
+                stream_ptr(x.device))
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     return dx

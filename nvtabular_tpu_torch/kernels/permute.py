@@ -1,30 +1,49 @@
 """Row permutation of a chunk: CUDA kernel K14, its wrapper and plain version.
 
 ``permute_rows(arrays, perm)`` gathers the rows of every array of a dict by
-one permutation in one launch: the counterpart of the one jitted program of
-``nvtabular_tpu/loader/device_loader.py:21-31``. The kernel is
-``csrc/permute.cu``.
+one permutation: the counterpart of the one jitted program of
+``nvtabular_tpu/loader/device_loader.py:21-31``, which takes arrays of any
+dtype. The kernel is ``csrc/permute.cu``: one launch for up to MAX_ARRAYS
+arrays and ``launch_rows`` rows, each array copied in its own element width
+(``element_bytes``: 4, 2 or 1 bytes).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
 from . import LAUNCHES, check, ptr, raise_on_error, stream_ptr, use_kernel
 from .build import library
 
-MAX_ARRAYS = 64  # csrc/permute.cu kMaxArrays
+MAX_ARRAYS = 64  # csrc/permute.cu kMaxArrays: the arrays of one launch (more launch in chunks)
+MAX_INDEX = 2**31 - 1  # a launch's flat index: its rows times the widest row's elements
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+
+
+def element_bytes(row_bytes: int, *addresses: int) -> int:
+    """The element an array's copy moves: the widest of 4, 2 or 1 bytes that
+    divides its row width and each of its addresses."""
+    for width in (4, 2):
+        if row_bytes % width == 0 and all(a % width == 0 for a in addresses):
+            return width
+    return 1
+
+
+def launch_rows(n: int, row_elements: Sequence[int]) -> int:
+    """The rows of a launch: all ``n`` unless the widest row's elements times
+    the rows would pass the kernel's int32 index (at least one row)."""
+    widest = max(row_elements, default=1)
+    return max(1, min(n, MAX_INDEX // max(widest, 1)))
 
 
 def permute_rows(arrays: Dict[str, torch.Tensor], perm: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``{k: v[perm]}`` for arrays of ``n`` rows and a permutation of
-    ``range(n)`` (int64 or int32), all on one device. On CUDA every row must
-    be a multiple of 4 bytes wide."""
+    ``range(n)`` (int64 or int32), all on one device, of any dtype."""
     if perm.dim() != 1 or perm.dtype not in (torch.int64, torch.int32):
         raise TypeError(f"perm must be a 1-d int64 or int32 tensor, got {perm.dtype} {tuple(perm.shape)}")
     dev, n = perm.device, perm.shape[0]
@@ -35,28 +54,26 @@ def permute_rows(arrays: Dict[str, torch.Tensor], perm: torch.Tensor) -> Dict[st
             raise ValueError(f"{name}: expected {n} rows, got shape {tuple(v.shape)}")
     if not use_kernel(perm):
         return permute_rows_plain(arrays, perm)
-    if len(arrays) > MAX_ARRAYS:
-        raise ValueError(f"permute_rows takes at most {MAX_ARRAYS} arrays, got {len(arrays)}")
     out = {name: torch.empty_like(v) for name, v in arrays.items()}
-    row_bytes = [v[0].numel() * v.element_size() if n else 0 for v in arrays.values()]
-    bad = [name for name, w in zip(arrays, row_bytes) if n and w % 4]
-    if bad:
-        raise ValueError(f"permute_rows: rows of {bad} are not a multiple of 4 bytes wide")
-    if n == 0 or not arrays:
+    # rows of no bytes have nothing to copy
+    pairs = [(v, out[name], v[0].numel() * v.element_size()) for name, v in arrays.items() if n and v[0].numel()]
+    if not pairs:
         return out
-    if n * max(row_bytes) // 4 >= 2**31:
-        raise ValueError(f"permute_rows: {n} rows of up to {max(row_bytes)} bytes exceed the kernel's int32 index")
-    k = len(arrays)
-    src = (ctypes.c_void_p * k)(*[v.data_ptr() for v in arrays.values()])
-    dst = (ctypes.c_void_p * k)(*[v.data_ptr() for v in out.values()])
-    widths = (ctypes.c_int * k)(*row_bytes)
+    k = len(pairs)
+    row_bytes = [w for _, _, w in pairs]
+    elems = [element_bytes(w, v.data_ptr(), o.data_ptr()) for v, o, w in pairs]
+    rows = launch_rows(n, [w // e for w, e in zip(row_bytes, elems)])
+    src = (ctypes.c_void_p * k)(*[v.data_ptr() for v, _, _ in pairs])
+    dst = (ctypes.c_void_p * k)(*[o.data_ptr() for _, o, _ in pairs])
     fn = library("permute").nvt_permute_rows
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(src, dst, widths, k, ptr(perm), int(perm.dtype == torch.int64), n, stream_ptr(dev))
+    launched = ctypes.c_int(0)
+    rc = fn(src, dst, (ctypes.c_int64 * k)(*row_bytes), (ctypes.c_int * k)(*elems), k, ptr(perm),
+            int(perm.dtype == torch.int64), n, rows, ctypes.byref(launched), stream_ptr(dev))
     raise_on_error(rc, "permute_rows")
-    LAUNCHES["permute_rows"] += 1
+    LAUNCHES["permute_rows"] += launched.value
     return out
 
 

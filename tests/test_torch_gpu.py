@@ -2502,3 +2502,223 @@ def test_hash_kernels_match_plain_at_20_columns():
     assert torch.equal(h1.cpu(), want[0]) and torch.equal(h2.cpu(), want[1])
     want_codes = khp.hash_pair_verify(idx, hv, h2_by_group, masks, G, 7, 3, 1)
     assert torch.equal(codes.cpu(), want_codes) and bool((want_codes == 1).any())
+
+
+# --- the shape and dtype limits repaired last: narrow and many arrays, streamed samples, bound chunks ----------
+def test_permute_rows_kernel_copies_narrow_dtypes_in_their_own_width():
+    """K14 with 1- and 2-byte arrays (int8 and int16 codes after
+    ReduceDtypeSize, float16, bool), a 6-byte row and an array 2 bytes
+    past a 4-byte boundary, bit for bit, in one launch."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(8)
+    n = 70_001
+    arrays = {
+        "i8": torch.randint(-128, 127, (n,), dtype=torch.int8, generator=g),
+        "i16": torch.randint(-(2**15), 2**15 - 1, (n,), dtype=torch.int16, generator=g),
+        "f16": torch.randn((n, 3), generator=g).half(),
+        "flag": torch.rand(n, generator=g) < 0.3,
+        "u8x5": torch.randint(0, 255, (n, 5), dtype=torch.uint8, generator=g),
+        "dense": torch.randn((n, 13), generator=g),
+    }
+    perm = torch.randperm(n, generator=g)
+    on_card = {k: v.cuda() for k, v in arrays.items()}
+    buf = torch.zeros(2 * n + 1, dtype=torch.int16, device="cuda")
+    on_card["i16_off"] = buf[1 : n + 1]  # 2 bytes past a 4-byte boundary: copied in 2-byte elements
+    on_card["i16_off"].copy_(arrays["i16"].cuda())
+    assert [kperm.element_bytes(v[0].numel() * v.element_size(), v.data_ptr()) for v in on_card.values()] == \
+        [1, 2, 2, 1, 1, 4, 2]
+    kernels.reset_launches()
+    got = kperm.permute_rows(on_card, perm.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["permute_rows"] == 1
+    for k, v in on_card.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k].cpu(), v.cpu()[perm]), k
+
+
+def test_permute_rows_kernel_takes_70_arrays():
+    """Past one launch's 64 arrays: two launches, every array bit for bit."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(70)
+    n = 10_007
+    arrays = {f"c{i}": torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, generator=g) for i in range(68)}
+    arrays["dense"] = torch.randn((n, 13), generator=g)
+    arrays["small"] = arrays["c0"].to(torch.int8)
+    perm = torch.randperm(n, generator=g).to(torch.int32)
+    kernels.reset_launches()
+    got = kperm.permute_rows({k: v.cuda() for k, v in arrays.items()}, perm.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["permute_rows"] == 2
+    for k, v in arrays.items():
+        assert torch.equal(got[k].cpu(), v[perm]), k
+
+
+def test_permute_rows_kernel_past_2_31_elements():
+    """A uint8 array of 2^31 + 1,811,352 elements (1,051,000 rows of 2,045
+    bytes): two launches of row chunks, the permutation and the output moved
+    to the chunk's first row."""
+    _require_cuda()
+    n, w = 1_051_000, 2_045
+    assert n * w > 2**31
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, 256, (n, w), dtype=torch.uint8, device="cuda", generator=gen)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    kernels.reset_launches()
+    got = kperm.permute_rows({"x": x}, perm)["x"]
+    torch.cuda.synchronize()
+    assert kperm.launch_rows(n, [w]) == 1_050_114
+    assert kernels.LAUNCHES["permute_rows"] == 2
+    assert torch.equal(got, x[perm])
+
+
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_kernels_match_plain_past_227_kb_a_sample(self_interaction):
+    """K13b at [120, 1024] (480 KB of X a sample): the streamed kernels, the
+    forward after a lead of 3 floats (4-byte aligned rows), the backward
+    from a strided gradient, each within one ULP of the plain versions'
+    fmaf steps (which round twice, through float64, about once in 2^29) and
+    rtol 1e-5, atol 1e-5 for the backward; counted apart."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(120)
+    B, F, D = 6, 120, 1024
+    P = kint.num_pairs(F, self_interaction)
+    assert kint.fwd_plan(F, D, self_interaction)[2] == kint.bwd_plan(F, D, 4, self_interaction)[1] == kint.STREAMED
+    x = torch.randn((B, F, D), generator=g)
+    grad = torch.randn((B, P), generator=g)
+    buf = torch.zeros((B, 3 + P), device="cuda")
+    gbuf = torch.zeros((B, 5 + P), device="cuda")
+    gbuf[:, 5:] = grad.cuda()
+    kernels.reset_launches()
+    kint.interaction_fwd(x.cuda(), out=buf[:, 3:], self_interaction=self_interaction)
+    got_dx = kint.interaction_bwd(x.cuda(), gbuf[:, 5:], self_interaction=self_interaction)
+    torch.cuda.synchronize()
+    mode = "interaction_self" if self_interaction else "interaction"
+    assert kernels.LAUNCHES[mode + "_fwd_streamed"] == 1 and kernels.LAUNCHES[mode + "_bwd_streamed"] == 1
+    assert kernels.LAUNCHES[mode + "_fwd"] == 0 and kernels.LAUNCHES[mode + "_bwd"] == 0
+    torch.testing.assert_close(buf[:, 3:].cpu(), kint.interaction_fwd_plain(x, self_interaction), rtol=2**-23, atol=0)
+    assert not bool(buf[:, :3].any())
+    torch.testing.assert_close(got_dx.cpu(), kint.interaction_bwd_plain(x, grad, self_interaction), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bucketize_kernel_takes_5000_bounds():
+    """Past one block's 4,096 staged bounds: the count summed over two
+    chunks in one launch, NaN and infinities included, bit for bit."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(5000)
+    bounds = torch.sort(torch.randn(5000, generator=g, dtype=torch.float64) * 100).values.float()
+    x = torch.randn(20_003, generator=g) * 120
+    x[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0])
+    x[4:10] = bounds[[0, 4095, 4096, 4097, 4999, 2000]]
+    assert kbkt.bound_chunk(5000) == 4096
+    kernels.reset_launches()
+    got = kbkt.bucketize(x.cuda(), bounds.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bucketize"] == 1
+    want = kbkt.bucketize_plain(x, bounds)
+    assert torch.equal(got.cpu(), want) and int(want[0]) == 5000 and int(want[1]) == 5000 and int(want[2]) == 0
+
+
+def test_cross_kernels_past_16776960_rows():
+    """K17 at 16,777,217 rows of 2 columns, past gridDim.y's 65,535 blocks
+    of 256 rows: the last rows' blocks loop, bit for bit; db within 1e-5 of
+    the sum of its terms' magnitudes."""
+    _require_cuda()
+    B, N = 65_535 * 256 + 257, 2
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    xw, x0, x, g = (torch.randn((B, N), device="cuda", generator=gen) for _ in range(4))
+    b = torch.randn(N, device="cuda", generator=gen)
+    assert kcross.row_blocks(B) == 65_535
+    kernels.reset_launches()
+    got = kcross.cross_fwd(xw, b, x0, x)
+    dxw, dx0, db = kcross.cross_bwd(g, xw, b, x0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cross_fwd"] == 1 and kernels.LAUNCHES["cross_bwd"] == 1
+    assert torch.equal(got, kcross.cross_fwd_plain(xw, b, x0, x))
+    want = kcross.cross_bwd_plain(g, xw, b, x0)
+    assert torch.equal(dxw, want[0]) and torch.equal(dx0, want[1])
+    assert bool(((db - want[2]).abs() <= 1e-5 * (g * x0).abs().sum(0) + 1e-5).all())
+
+
+def test_fm_backward_with_a_hot_row_out_of_range_ids_and_13000_dense_features():
+    """K16's backward where a column's ids all fall on one row (its sum
+    carried across a warp's tiles), other columns with out-of-range ids and
+    13,000 dense features (past the old 12,288 of shared memory): dv within
+    1e-5 of |g| sum_f |v|, ddense exact, dlinear and ddense_w within 1e-5
+    of their terms' magnitudes."""
+    _require_cuda()
+    gen = torch.Generator().manual_seed(13_000)
+    B, F, D, nd = 4099, 26, 16, 13_000
+    sizes, offsets, ids, linear, dense_w = _fm_case(gen, B, F, D, nd, True)
+    hot = sizes[1] // 2
+    ids[1][:] = hot  # every id of column 1 on one row
+    ids[3][:] = torch.randint(0, 3, (B,), generator=gen, dtype=torch.int32) % sizes[3]  # at most three hot rows
+    v, dense, g = torch.randn((B, F, D), generator=gen), torch.randn((B, nd), generator=gen), torch.randn(B, generator=gen)
+    vc, dc = _wide(v, 3, "cuda"), _wide(dense, 1, "cuda")
+    kernels.reset_launches()
+    dv, ddense, dlinear, ddense_w = kfm.fm_bwd(vc, dc, [i.cuda() for i in ids], offsets, sizes, dense_w.cuda(),
+                                               g.cuda(), linear.shape[0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_bwd"] == 1
+    want = kfm.fm_bwd_plain(v, dense, ids, offsets, sizes, dense_w, g, linear.shape[0])
+    ga = g.abs()
+    assert bool(((dv.cpu() - want[0]).abs() <= 1e-5 * ga[:, None, None] * v.abs().sum(1, keepdim=True) + 1e-6).all())
+    assert torch.equal(ddense.cpu(), want[1])
+    mag = kfm.fm_bwd_plain(v, dense.abs(), ids, offsets, sizes, dense_w, ga, linear.shape[0])
+    assert bool(((dlinear.cpu() - want[2]).abs() <= 1e-5 * mag[2] + 1e-6).all())
+    assert bool(((ddense_w.cpu() - want[3]).abs() <= 1e-5 * mag[3] + 1e-6).all())
+    assert abs(float(dlinear[offsets[1] + hot]) - float(g.sum())) <= 1e-5 * float(ga.sum()) + 1e-6
+
+
+@pytest.mark.parametrize("model_rank", [0, 1])
+def test_range_gather_columns_matches_plain_at_70_columns_strided(model_rank):
+    """K15d's forward past one launch's 64 columns (two launches), into the
+    first 70 slots of a [B, 72, 16] buffer, bit for bit: held rows,
+    another rank's zeros, and NaN for ids no rank holds on model rank 0."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(71)
+    B, C, D = 4133, 70, 16
+    cards = [int(v) for v in torch.randint(1, 3000, (C,), generator=g)]
+    local, ids, offsets, sizes, starts, padded = _shard_columns(g, B, cards, 4, 1, D)
+    cols = (offsets, sizes, starts, padded)
+    buf = torch.full((B, C + 2, D), 7.0, device="cuda")
+    kernels.reset_launches()
+    got = kemb.range_gather_columns(local.cuda(), [i.cuda() for i in ids], *cols, model_rank, out=buf[:, :C])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["range_gather_columns"] == 2
+    want = kemb.range_gather_columns_plain(local, ids, *cols, model_rank)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)) or (
+        torch.equal(got.cpu().isnan(), want.isnan()) and torch.equal(got.cpu().nan_to_num(), want.nan_to_num()))
+    assert bool(want.isnan().any()) == (model_rank == 0)
+    assert bool((buf[:, C:] == 7.0).all())
+
+
+def test_embedding_gather_and_bag_past_2_31_elements():
+    """K13a's gather of [264,209, 64, 127] (2^31 + 7,104 floats, one a
+    thread) and K13c's forward of 2,100,000 bags of 1,023 floats (one a
+    thread): two launches of row chunks each, bit for bit against the plain
+    versions."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    B, C, D = 264_209, 64, 127
+    sizes = [1000] * C
+    offsets = [1000 * c for c in range(C)]
+    table = torch.randn((sum(sizes), D), device="cuda", generator=gen)
+    ids = [torch.randint(-5, 1005, (B,), device="cuda", generator=gen, dtype=torch.int32) for _ in range(C)]
+    assert B * C * D > 2**31 and kemb.launch_rows(B, C, D, 1) == 264_208
+    kernels.reset_launches()
+    got = kemb.embedding_gather(table, ids, offsets, sizes)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_gather"] == 2
+    assert torch.equal(got.view(torch.int32), kemb.embedding_gather_plain(table, ids, offsets, sizes).view(torch.int32))
+    del got, ids, table
+    torch.cuda.empty_cache()
+    Bb, Db = 2_100_000, 1023
+    tb = torch.randn((7, Db), device="cuda", generator=gen)
+    values = torch.randint(0, 7, (Bb, 1), device="cuda", generator=gen, dtype=torch.int32)
+    mask = torch.ones((Bb, 1), device="cuda")
+    assert kbag.fwd_rows(Bb, Db, 1) == 2_099_202
+    kernels.reset_launches()
+    got = kbag.embedding_bag_fwd(tb, values, mask, "sum")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_bag_fwd"] == 2
+    assert torch.equal(got, kbag.embedding_bag_fwd_plain(tb, values, mask, "sum"))

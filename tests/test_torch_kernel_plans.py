@@ -15,9 +15,13 @@ test_torch_gpu.py.
 
 import pytest
 
+from nvtabular_tpu_torch.kernels import bucketize as kbkt
 from nvtabular_tpu_torch.kernels import cin as kcin
+from nvtabular_tpu_torch.kernels import cross as kcross
+from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import embedding_bag as kbag
 from nvtabular_tpu_torch.kernels import interaction as kint
+from nvtabular_tpu_torch.kernels import permute as kperm
 
 # (F, D): DLRM's Criteo step, the multihot DLRM's, the GPU tests' shapes
 INTERACTION_SHAPES = [(27, 16), (4, 64), (5, 8), (2, 3), (28, 12), (26, 20), (33, 24), (9, 5), (2, 1)]
@@ -54,13 +58,14 @@ def test_interaction_bwd_plan_at_the_dlrm_step():
 
 @pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
 def test_interaction_bwd_plan_raises_when_one_sample_does_not_fit(self_interaction):
-    """Only where one stage of one sample passes the opt-in limit: [120,
-    1024] (122,880 floats of X). [33, 1024] (5 x 256 items) and [120, 256]
-    (two stages over 300 KB) now plan one sample a group, one stage, its
-    items several a thread."""
+    """Where one stage of one sample passes the opt-in limit, [120, 1024]
+    (122,880 floats of X), the plan is the streamed kernel's, (1, STREAMED),
+    and no longer raises. [33, 1024] (5 x 256 items) and [120, 256] (two
+    stages over 300 KB) still plan one sample a group, one stage, its items
+    several a thread."""
     assert kint.bwd_smem_bytes(120, 1024, 4, 1, self_interaction, stages=1) > kint.SMEM_OPT_IN
-    with pytest.raises(ValueError, match="shared memory"):
-        kint.bwd_plan(120, 1024, 4, self_interaction)
+    assert kint.bwd_plan(120, 1024, 4, self_interaction) == (1, kint.STREAMED) == (1, 0)
+    assert kint.bwd_plan(120, 1024, 1, self_interaction) == (1, kint.STREAMED)
     for F, D in ((33, 1024), (120, 256)):
         assert kint.bwd_plan(F, D, 4, self_interaction) == (1, 1)
         assert kint.bwd_smem_bytes(F, D, 4, 1, self_interaction, stages=1) <= kint.SMEM_OPT_IN
@@ -200,11 +205,30 @@ def test_interaction_fwd_plan_takes_one_stage_where_two_leave_few_warps(F, D, se
 
 
 def test_interaction_fwd_plan_raises_only_where_one_sample_does_not_fit():
-    """[120, 1024]: one stage of one sample passes the opt-in limit; [33,
-    1024] takes one stage of one sample."""
-    with pytest.raises(ValueError, match="ROADMAP.md queue 3"):
-        kint.fwd_plan(120, 1024, False)
+    """[120, 1024]: one stage of one sample passes the opt-in limit, so both
+    modes plan the streamed kernel, (1, STREAM_THREADS, STREAMED), its rows in
+    chunks of 119 columns (120 rows of 119 floats, 57,120 B: four blocks an
+    SM); [33, 1024] takes one stage of one sample. Only a sample whose one
+    column of F rows passes the opt-in limit raises (F past 58,112)."""
+    for self_interaction in (False, True):
+        assert kint.fwd_smem_bytes(120, 1024, 1, self_interaction, 1) > kint.SMEM_OPT_IN
+        assert kint.fwd_plan(120, 1024, self_interaction) == (1, kint.STREAM_THREADS, kint.STREAMED) == (1, 256, 0)
+    assert kint.stream_cols(120, 1024) == 119 and 120 * 119 * 4 == 57_120 <= kint.STREAM_SMEM
     assert kint.fwd_plan(33, 1024, False)[0::2] == (1, 1)
+    assert kint.stream_cols(58_112, 3) == 1
+    with pytest.raises(ValueError, match="one column"):
+        kint.stream_cols(58_113, 3)
+
+
+@pytest.mark.parametrize("F,D", [(120, 1024), (120, 64), (500, 3), (1000, 1024), (6000, 16), (20_000, 8)])
+def test_interaction_stream_cols_fit_the_block(F, D):
+    """The streamed forward's chunk of columns: at most D, its F rows of
+    ``Dc | 1`` floats within STREAM_SMEM where one column fits there (else
+    within SMEM_OPT_IN), and the most that fit."""
+    Dc = kint.stream_cols(F, D)
+    budget = kint.STREAM_SMEM if F * 4 <= kint.STREAM_SMEM else kint.SMEM_OPT_IN
+    assert 1 <= Dc <= D and F * (Dc | 1) * 4 <= budget
+    assert Dc == D or F * ((Dc + 1) | 1) * 4 > budget
 
 
 @pytest.mark.parametrize("total", [52, 226, 437, 438, 742, 926])
@@ -237,3 +261,79 @@ def test_cin_bwd_x_plan_fits_any_field_count(F):
     for p0 in range(0, 3 * kcin.BX_ROWS, 7):  # the rows of x_k a pass spans
         assert (p0 + kcin.BX_ROWS - 1) // narrowest - p0 // narrowest + 1 <= xk_rows
     assert smem <= kcin.SMEM_OPT_IN
+
+
+# --- K14's launch groups and element widths, K12b's bound chunks, K17's row ranges, K13a / K13c row chunks ---
+@pytest.mark.parametrize("row_bytes,addresses,elem", [
+    (4, (0, 256), 4), (52, (16, 64), 4), (1, (0, 0), 1), (2, (0, 0), 2), (6, (0, 0), 2), (5, (0, 0), 1),
+    (8, (2, 0), 2), (8, (0, 1), 1), (16, (4, 12), 4),
+])
+def test_permute_element_bytes(row_bytes, addresses, elem):
+    """K14 copies each array in the widest of 4, 2 or 1 bytes that divides
+    its row width and both its addresses: int8 codes byte by byte, int16 and
+    float16 in 2 bytes, a 4-byte-aligned row of 4-byte multiples in words."""
+    assert kperm.element_bytes(row_bytes, *addresses) == elem
+
+
+@pytest.mark.parametrize("num_arrays,n,widest,launches", [
+    (28, 262_144, 13, 1), (64, 1000, 1, 1), (65, 1000, 1, 2), (70, 10_007, 13, 2), (129, 5, 1, 3),
+    (1, 1_051_000, 2_045, 2), (70, 2**31, 1, 4), (1, 2**31 - 1, 1, 1), (3, 0, 4, 0),
+])
+def test_permute_launch_groups(num_arrays, n, widest, launches):
+    """One launch a chunk of MAX_ARRAYS arrays and of ``launch_rows`` rows
+    (the plan ``nvt_permute_rows`` takes and checks), whose widest row's
+    elements times the rows stay within int32."""
+    rows = kperm.launch_rows(n, [widest])
+    assert rows >= 1 and (n == 0 or rows * widest <= kperm.MAX_INDEX)
+    assert rows == min(n, kperm.MAX_INDEX // widest) or n == 0
+    assert kperm.MAX_ARRAYS == 64 and -(-num_arrays // 64) * -(-n // rows) == launches
+
+
+@pytest.mark.parametrize("nb,chunk,chunks", [(0, 0, 1), (5, 5, 1), (4096, 4096, 1), (4097, 4096, 2), (5000, 4096, 2),
+                                           (8192, 4096, 2), (8193, 4096, 3)])
+def test_bucketize_bound_chunks(nb, chunk, chunks):
+    """K12b's blocks stage ``bound_chunk`` bounds at once (the dynamic
+    shared memory ``nvt_bucketize`` takes and checks), all of them up to
+    4,096, and sum each chunk's count in one launch."""
+    got = kbkt.bound_chunk(nb)
+    assert kbkt.BOUNDS_CHUNK == 4096 and got == chunk
+    assert (1 if nb <= got else -(-nb // got)) == chunks
+
+
+@pytest.mark.parametrize("B,blocks,ranges", [(0, 1, 1), (65_536, 256, 1), (65_535 * 256, 65_535, 1),
+                                             (65_535 * 256 + 1, 65_535, 2), (65_535 * 512, 65_535, 2),
+                                             (65_535 * 512 + 1, 65_535, 3)])
+def test_cross_row_ranges_past_grid_y(B, blocks, ranges):
+    """K17's blocks of 256 rows: ``row_blocks`` in y (the gridDim.y that
+    ``nvt_cross_fwd`` / ``_bwd`` take and check), at most 65,535, the ranges
+    past them walked by the same blocks."""
+    got = kcross.row_blocks(B)
+    assert kcross.MAX_ROW_BLOCKS == 65_535 and got == blocks
+    assert max(1, -(-(-(-B // 256)) // got)) == ranges  # the ranges the busiest block walks
+
+
+@pytest.mark.parametrize("B,C,D,vec,launches", [
+    (65_536, 26, 16, 4, 1), (262_144, 64, 128, 4, 1), (264_209, 64, 127, 1, 2), (2053, 70, 8, 4, 2),
+    (1_048_577, 64, 128, 4, 2), (0, 26, 16, 4, 0),
+])
+def test_embedding_launch_count(B, C, D, vec, launches):
+    """K13a: a launch for each 64 columns and, in it, each chunk of
+    ``launch_rows`` rows (the plan ``nvt_embedding_gather`` /
+    ``_scatter_grad`` take and check), whose vectors stay within int32
+    ([262144, 64, 128] in float4 needs one; in floats, [264209, 64, 127],
+    two)."""
+    rows = kemb.launch_rows(B, C, D, vec)
+    per_row = min(C, 64) * (D // vec)
+    assert rows >= 1 and rows * per_row <= 2**31 - 1 and (rows == B or (rows + 1) * per_row > 2**31 - 1 or B == 0)
+    assert kemb.LAUNCH_COLUMNS == 64 and -(-C // 64) * -(-B // rows) == launches
+
+
+@pytest.mark.parametrize("B,D,vec,launches", [(65_536, 16, 4, 1), (2_100_000, 1023, 1, 2), (2**31, 4, 4, 2),
+                                              (0, 16, 4, 0)])
+def test_embedding_bag_fwd_launches(B, D, vec, launches):
+    """K13c's forward: a launch for each chunk of ``fwd_rows`` rows (the plan
+    ``nvt_embedding_bag_fwd`` takes and checks), whose vectors stay within
+    int32."""
+    rows = kbag.fwd_rows(B, D, vec)
+    assert rows >= 1 and rows * (D // vec) <= 2**31 - 1 and (rows == B or (rows + 1) * (D // vec) > 2**31 - 1 or B == 0)
+    assert -(-B // rows) == launches

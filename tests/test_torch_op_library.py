@@ -24,10 +24,12 @@ from nvtabular_tpu import ops as jops
 from nvtabular_tpu.dag.executor import FitEngine as JFitEngine
 from nvtabular_tpu.dag.executor import JitExecutor
 from nvtabular_tpu.dag.executor import LocalExecutor as JLocalExecutor
+from nvtabular_tpu.loader import DeviceLoader as JDeviceLoader
 from nvtabular_tpu.ops.moments import ReservoirSample as JReservoir
 from nvtabular_tpu_torch import ops as pops
 from nvtabular_tpu_torch.dag.device_fuse import extract_chain
 from nvtabular_tpu_torch.kernels import cont_chain as kcc
+from nvtabular_tpu_torch.loader import DeviceLoader as PDeviceLoader
 from nvtabular_tpu_torch.ops.moments import ReservoirSample as PReservoir
 from nvtabular_tpu_torch.ops.normalize import affine, round_to
 from torch_groups import fill_median_worker, run_group
@@ -659,6 +661,45 @@ def test_phase24_workflows_match_jax(parts, which, fitted_by):
         _, got = port_run(phase24_graphs(pops)[which], parts, jwf if fitted_by == "jax_state" else None)
         for g, w in zip(got, want):
             assert_same(g, w, conts=CONTS, ulp=F16_ULP["float16"] if which == 0 else None)
+
+
+@pytest.mark.parametrize("fitted_by", ["port", "jax_state"])
+def test_phase24a_codes_through_the_device_loader_match_jax(parts, fitted_by):
+    """Phase 24a's output, ReduceDtypeSize's int8 and int16 codes, through
+    the port's DeviceLoader(shuffle=False) and the JAX DeviceLoader: the
+    same batches, every array's dtype and shape equal, the codes exact, the
+    dense block within one to two float16 ULPs (both loaders stack the
+    float16 features as float32); the shuffled port loader gives each chunk
+    its arrays' rows permuted, dtypes kept (K14's plain version here)."""
+    jwf, _ = jax_run(phase24_graphs(jops)[0], parts)
+    pwf, _ = port_run(phase24_graphs(pops)[0], parts, jwf if fitted_by == "jax_state" else None)
+    cats = [c.name for c in pwf.output_schema if "criteo_small" in c.tags]
+    common = dict(batch_size=3000, cat_names=cats, cont_names=CONTS, label_names=[], drop_last=False)
+    jl = JDeviceLoader(jwf.transform(jnvt.Dataset(jax_batches(parts))), shuffle=False, **common)
+    pds = pwf.transform(pnvt.Dataset([pnvt.TableBatch.from_pydict(p) for p in parts]))
+    jb, pb = list(jl), list(PDeviceLoader(pds, shuffle=False, device="cpu", **common))
+    assert len(pb) == len(jb) == -(-PARTS * ROWS // 3000)
+    widths = set()
+    for got, want in zip(pb, jb):
+        assert list(got) == list(want) == ["dense"] + cats
+        for key, w in want.items():
+            g, w = got[key].numpy(), np.asarray(w)
+            assert g.dtype == w.dtype and g.shape == w.shape, key
+            widths.add(g.dtype.itemsize)
+            if key == "dense":
+                np.testing.assert_allclose(g, w, rtol=F16_ULP["float16"], atol=2.0**-24)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=key)
+    assert {1, 2} <= widths  # int8 and int16 codes
+    plain = list(PDeviceLoader(pds, batch_size=ROWS, cat_names=cats, cont_names=CONTS, label_names=[], shuffle=False,
+                               device="cpu").chunks())
+    shuffled = list(PDeviceLoader(pds, batch_size=ROWS, cat_names=cats, cont_names=CONTS, label_names=[],
+                                  shuffle=True, seed=3, device="cpu").chunks())
+    gen = torch.Generator().manual_seed(3)  # the loader's generator: seed + epoch 0
+    for a, b in zip(plain, shuffled):
+        perm = torch.randperm(ROWS, generator=gen)
+        for k, v in a.items():
+            assert b[k].dtype == v.dtype and torch.equal(b[k], v[perm]), k
 
 
 # --- the rest of the reference's surface (ROADMAP.md queue 3's faults) -------------------------------
