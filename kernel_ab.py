@@ -8,6 +8,10 @@ The cases, by group (``--cases``; all by default):
 
 - ``k13b``: K13b's forward and backward at DLRM's [65536, 27, 16] in both
   modes and at the multihot DLRM's [65536, 4, 64];
+- ``k13b_streamed``: K13b's streamed kernels (one sample past 227 KB) at
+  phase 23's [512, 120, 1024], both modes and directions, each beside
+  ``bmm``: the forward's full 120 x 120 product, the backward's of the
+  symmetric gradient matrix (built outside the timing);
 - ``k13d``: K13d's forward at xDeepFM's layers 1 and 2;
 - ``k16``: K16's forward and backward at phase 17's [65536, 26, 16] + 13
   dense features, and the backward's split by inputs, never by a change of
@@ -57,6 +61,7 @@ SLEEP_CYCLES = 100_000_000  # >= 50 ms at the H100's <= 1.98 GHz SM clock
 RTOL, ATOL = 1e-5, 1e-5
 BATCH = 65536  # chip_smoke.py TRAIN_BS
 CIN_L2_BATCH, CIN_FIELDS, CIN_MAPS, CIN_DIM = 8192, 26, 200, 16  # chip_smoke.py phase 23
+STREAM_BATCH, STREAM_FEATURES, STREAM_DIM = 512, 120, 1024  # chip_smoke.py phase 23
 
 
 def time_ms(torch, fn, iters=TIMED_ITERS) -> float:
@@ -93,7 +98,7 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 ]
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
-GROUPS = ("k13b", "k13d", "k16", "k15d", "repairs")
+GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs")
 
 
 def criteo_ids(torch, dev, gen):
@@ -145,7 +150,7 @@ def one_tree(tree: str, plans: dict, groups) -> dict:
             raise SystemExit(f"{what} is not equal to its plain version")
         return 0.0
 
-    if "k13b" in groups or "k13d" in groups:
+    if {"k13b", "k13b_streamed", "k13d"} & set(groups):
         from nvtabular_tpu_torch.kernels import cin as kcin
         from nvtabular_tpu_torch.kernels import interaction as kint
 
@@ -181,6 +186,32 @@ def one_tree(tree: str, plans: dict, groups) -> dict:
         interaction(27, 16, 16, False)  # DLRM's Criteo step (phases 7, 20)
         interaction(27, 16, 16, True)   # phase 23's self mode
         interaction(4, 64, 64, False)   # the multihot DLRM step (phase 22)
+    if "k13b_streamed" in groups:
+        B, F, D = STREAM_BATCH, STREAM_FEATURES, STREAM_DIM
+        x = torch.randn((B, F, D), device=dev, generator=gen)
+        for self_interaction in (False, True):
+            mode = "self" if self_interaction else "pair"
+            rows, cols = np.tril_indices(F, 0 if self_interaction else -1)
+            g = torch.randn((B, len(rows)), device=dev, generator=gen)
+            gsym = torch.zeros((B, F, F), device=dev)
+            gsym[:, rows, cols] = g
+            gsym = gsym + gsym.transpose(1, 2)
+            case(f"interaction_fwd streamed {mode} [{B}, {F}, {D}]",
+                 lambda m=self_interaction: kint.interaction_fwd(x, self_interaction=m),
+                 lambda m=self_interaction: within(kint.interaction_fwd(x, self_interaction=m),
+                                                   kint.interaction_fwd_plain(x, m),
+                                                   kint.interaction_fwd_plain(x.abs(), m)))
+            case(f"bmm {mode} [{B}, {F}, {D}] x its transpose", lambda: torch.bmm(x, x.transpose(1, 2)))
+            case(f"interaction_bwd streamed {mode} [{B}, {F}, {D}]",
+                 lambda m=self_interaction, g=g: kint.interaction_bwd(x, g, m),
+                 lambda m=self_interaction, g=g: within(kint.interaction_bwd(x, g, m),
+                                                        kint.interaction_bwd_plain(x, g, m),
+                                                        kint.interaction_bwd_plain(x.abs(), g.abs(), m)))
+            case(f"bmm {mode} symmetric gradient [{B}, {F}, {F}] x [{B}, {F}, {D}]",
+                 lambda s=gsym: torch.bmm(s, x))
+            del g, gsym
+        del x
+        torch.cuda.empty_cache()
     if "k13d" in groups:
         for layer, (Bc, Hk) in enumerate(((BATCH, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
             x0 = torch.randn((Bc, CIN_FIELDS, CIN_DIM), device=dev, generator=gen)

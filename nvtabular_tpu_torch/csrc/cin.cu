@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "async.cuh"
+
 namespace {
 
 constexpr int kSmemOptIn = 227 * 1024;  // the shared memory an H100 block can opt into
@@ -88,19 +90,6 @@ struct Shape {
   __host__ __device__ int64_t N() const { return B * D; }
   __host__ __device__ int K() const { return Hk * F; }
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
 
 // Each column's offset in x_k, x_0 and [B, Hn, D] (out or g) for the
 // columns [n0, n0 + count), -1 past N.
@@ -163,14 +152,14 @@ __device__ __forceinline__ void load_w_tile(const float* __restrict__ w, int Hn,
   for (int kk = kk0; kk < depth; kk += kk_step) {
     float* d = dst + kk * rows + m;
     if (kVec) {
-      if (m < live) cp_async16(d, src + static_cast<int64_t>(kk) * Hn);
+      if (m < live) nvt::cp_async16(d, src + static_cast<int64_t>(kk) * Hn);
       else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     } else {
-      if (m < live) cp_async4(d, src + static_cast<int64_t>(kk) * Hn);
+      if (m < live) nvt::cp_async4(d, src + static_cast<int64_t>(kk) * Hn);
       else *d = 0.0f;
     }
   }
-  cp_async_commit();
+  nvt::cp_async_commit();
 }
 
 template <bool kVec>
@@ -225,7 +214,7 @@ cin_fwd_kernel(const float* __restrict__ xk, const float* __restrict__ x0, const
           const float* xi = xks + (i - ic0) * kFwdCols;
           const float* xj = x0s + (j0 - jc0) * kFwdCols;
           for (int e = tid; e < depth * kFwdCols; e += T) zb[e] = __fmul_rn(xi[e % kFwdCols], xj[e]);
-          cp_async_wait_all();
+          nvt::cp_async_wait<0>();
           __syncthreads();  // z and w of this step in place; every thread done with the other buffers
           int ni = i, nj = j0 + kFwdDepth;
           if (nj >= j_end) {
@@ -327,10 +316,10 @@ __device__ __forceinline__ void bx_load_tiles(const float* __restrict__ w, const
     float* d = wd + m * kBxDepth + hh;
     const float* src = w + static_cast<int64_t>(k) * s.Hn + h0 + hh;
     if constexpr (kVecW) {
-      if (k >= 0 && hh < depth) cp_async16(d, src);
+      if (k >= 0 && hh < depth) nvt::cp_async16(d, src);
       else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     } else {
-      if (k >= 0 && hh < depth) cp_async4(d, src);
+      if (k >= 0 && hh < depth) nvt::cp_async4(d, src);
       else *d = 0.0f;
     }
   }
@@ -341,14 +330,14 @@ __device__ __forceinline__ void bx_load_tiles(const float* __restrict__ w, const
     float* d = gd + hh * kBxCols + c;
     const float* src = g + o + static_cast<int64_t>(h0 + hh) * s.D;
     if constexpr (kVecG) {
-      if (o >= 0 && hh < depth) cp_async16(d, src);
+      if (o >= 0 && hh < depth) nvt::cp_async16(d, src);
       else *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     } else {
-      if (o >= 0 && hh < depth) cp_async4(d, src);
+      if (o >= 0 && hh < depth) nvt::cp_async4(d, src);
       else *d = 0.0f;
     }
   }
-  cp_async_commit();
+  nvt::cp_async_commit();
 }
 
 // Each of this thread's 8 rows m: acc[r][c] * the shared row sel(m) of
@@ -420,7 +409,7 @@ cin_bwd_x_kernel(const float* __restrict__ xk, const float* __restrict__ x0, con
       bx_load_tiles<kVecW, kVecG>(w, g, base_g, rowk, s, 0, ws, gs);
       for (int step = 0; step < steps; ++step) {
         const int buf = step & 1;
-        cp_async_wait_all();
+        nvt::cp_async_wait<0>();
         __syncthreads();  // this step's tiles in place; every thread done with the other buffers
         if (step + 1 < steps)
           bx_load_tiles<kVecW, kVecG>(w, g, base_g, rowk, s, (step + 1) * kBxDepth,
@@ -536,7 +525,7 @@ __device__ __forceinline__ void bw_stage(const float* __restrict__ xk, const flo
     const float* gb = g + (b * s.Hn + h0) * s.D + d;
     for (int row = threadIdx.x / per_row; row < rows; row += step) {
       float* dst = gd + row * kBwDepth + nn;
-      if (live && h0 + row < s.Hn) cp_async16(dst, gb + static_cast<int64_t>(row) * s.D);
+      if (live && h0 + row < s.Hn) nvt::cp_async16(dst, gb + static_cast<int64_t>(row) * s.D);
       else *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     const float* xb = xk + b * s.Hk * s.D + d;
@@ -545,8 +534,8 @@ __device__ __forceinline__ void bw_stage(const float* __restrict__ xk, const flo
       float* dx = xd + kk * kBwDepth + nn;
       float* dy = yd + kk * kBwDepth + nn;
       if (live && ki[kk] >= 0) {
-        cp_async16(dx, xb + static_cast<int64_t>(ki[kk]) * s.D);
-        cp_async16(dy, yb + static_cast<int64_t>(kj[kk]) * s.D);
+        nvt::cp_async16(dx, xb + static_cast<int64_t>(ki[kk]) * s.D);
+        nvt::cp_async16(dy, yb + static_cast<int64_t>(kj[kk]) * s.D);
       } else {
         *reinterpret_cast<float4*>(dx) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         *reinterpret_cast<float4*>(dy) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -560,15 +549,15 @@ __device__ __forceinline__ void bw_stage(const float* __restrict__ xk, const flo
       column_of(s, n, b, d);
       if (row < rows) {
         const int h = h0 + row;
-        if (n < hi && h < s.Hn) cp_async4(gd + row * kBwDepth + nn, g + (b * s.Hn + h) * s.D + d);
+        if (n < hi && h < s.Hn) nvt::cp_async4(gd + row * kBwDepth + nn, g + (b * s.Hn + h) * s.D + d);
         else gd[row * kBwDepth + nn] = 0.0f;
       } else {
         const int kk = row - rows;
         float* dx = xd + kk * kBwDepth + nn;
         float* dy = yd + kk * kBwDepth + nn;
         if (n < hi && ki[kk] >= 0) {
-          cp_async4(dx, xk + (b * s.Hk + ki[kk]) * s.D + d);
-          cp_async4(dy, x0 + (b * s.F + kj[kk]) * s.D + d);
+          nvt::cp_async4(dx, xk + (b * s.Hk + ki[kk]) * s.D + d);
+          nvt::cp_async4(dy, x0 + (b * s.F + kj[kk]) * s.D + d);
         } else {
           *dx = 0.0f;
           *dy = 0.0f;
@@ -576,7 +565,7 @@ __device__ __forceinline__ void bw_stage(const float* __restrict__ xk, const flo
       }
     }
   }
-  cp_async_commit();
+  nvt::cp_async_commit();
 }
 
 template <bool kVec>
@@ -614,7 +603,7 @@ cin_bwd_w_kernel(const float* __restrict__ xk, const float* __restrict__ x0, con
     if (steps > 0) bw_stage<kVec>(xk, x0, g, s, ki, kj, h0, rows, lo, hi, gst, xst, yst);
     for (int step = 0; step < steps; ++step) {
       const int buf = step & 1;
-      cp_async_wait_all();
+      nvt::cp_async_wait<0>();
       __syncthreads();  // this step's staging in place; every thread done with the last step's z tile
       const float* xb = xst + buf * kBwCols * kBwDepth;
       const float* yb = yst + buf * kBwCols * kBwDepth;

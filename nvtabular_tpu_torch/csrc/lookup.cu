@@ -30,6 +30,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "async.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -294,11 +295,6 @@ constexpr int kTreeBytes = (kFenceMax + 1) * static_cast<int>(sizeof(float));
 constexpr int kSortedThreads = 1024;
 constexpr int kSortedIlp = 4;          // values a thread searches at once
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
-}
-
 // key k at slot t of a window whose column slots are [lo, hi): counted when
 // below x, else a candidate for the first key >= x
 __device__ __forceinline__ void tally(float k, int t, int lo, int hi, float x, int& less, float& first) {
@@ -363,9 +359,10 @@ sorted_lookup_kernel(const float* __restrict__ values, const uint8_t* __restrict
     const float* f = fences + fence_starts[b];
     __syncthreads();  // the previous column's searches are done with the tree
     for (int q = threadIdx.x; q < (h > 0 ? ((1 << h) + 3) / 4 : 0); q += kSortedThreads) {
-      cp_async16(reinterpret_cast<float*>(s_tree4 + q), f + 4 * q);
+      nvt::cp_async16(reinterpret_cast<float*>(s_tree4 + q), f + 4 * q);
     }
-    asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+    nvt::cp_async_commit();
+    nvt::cp_async_wait<0>();
     __syncthreads();
     const int32_t off = col_off[c];
     for (int64_t i0 = seg + threadIdx.x; i0 < seg_end; i0 += kSortedThreads * kSortedIlp) {

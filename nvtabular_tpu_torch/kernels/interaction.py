@@ -31,9 +31,16 @@ FWD_MAX_THREADS = 256  # csrc/interaction.cu kFwdMaxThreads
 FWD_TILE = 4  # csrc/interaction.cu kFwdTile: a forward tile is 4 rows i x 4 rows j
 BWD_THREADS = 256  # csrc/interaction.cu kBwdThreads
 BWD_ROWS = 8  # csrc/interaction.cu kBwdRows: rows of a sample a backward thread sums
-STREAM_THREADS = 256  # csrc/interaction.cu kStreamThreads: both streamed kernels' block
 STREAMED = 0  # the stages of a plan that streams one sample through shared memory
-STREAM_SMEM = SMEM_SM // 4 - SMEM_RESERVED  # the streamed forward's chunk where one fits: four blocks an SM
+STREAM_STAGES = 3  # csrc/interaction.cu kStreamStages: both streamed kernels' ring of chunks
+SF_THREADS = 128  # kSfThreads: the streamed forward's block, one 8 x 8 tile of pairs a thread
+SF_TILE = 8  # kSfTile
+SF_ROWS = 120  # kSfRows: a row block, whose triangle is 120 tiles
+SF_STRIP = 64  # kSfStrip: the columns of a strip below a row block (120 x 64 pairs: 120 tiles)
+SF_COLS = 32  # kSfCols: columns d of a chunk
+SB_STEPS = 16  # kSbSteps: steps j of a chunk
+SB_ROWS = 64  # Sb::kRows: rows of a tile of dX, 8 a warp
+SB_COLS = 256  # Sb::kCols: columns of a tile of dX, two float4 a lane
 
 # x, B, F, D, G, threads, cols, stages, self_mode, out, out row stride, stream
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int64,
@@ -41,12 +48,13 @@ _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes
 # x, g, g row stride, B, F, D, G, cols, stages, self_mode, dx, stream
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_void_p]
-# x, B, F, D, Dc, self_mode, out, out row stride, stream
-_FWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int64,
+# x, B, F, D, cols, rows, stages, items, self_mode, out, out row stride, stream
+_FWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                                                                ctypes.c_void_p, ctypes.c_int64,
                                                                                 ctypes.c_void_p]
-# x, g, g row stride, B, F, D, self_mode, dx, stream
-_BWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 3 + [
-    ctypes.c_void_p, ctypes.c_void_p]
+# x, g, g row stride, B, F, D, cols, stages, once, items, self_mode, dx, stream
+_BWD_STREAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def num_pairs(f: int, self_interaction: bool = False) -> int:
@@ -80,18 +88,53 @@ def _stages(fits) -> int:
     return 2 if fits(2) else 1 if fits(1) else STREAMED
 
 
-def stream_cols(F: int, D: int) -> int:
-    """The streamed forward's chunk of columns: the most, up to D, whose F
-    rows (each ``Dc | 1`` floats) fit STREAM_SMEM (four blocks an SM), else
-    SMEM_OPT_IN; raises where not one column of a sample fits (F past
-    58,112)."""
-    for budget in (STREAM_SMEM, SMEM_OPT_IN):
-        Dc = min(D, budget // (4 * F))
-        while Dc >= 1 and F * (Dc | 1) * 4 > budget:
-            Dc -= 1
-        if Dc >= 1:
-            return Dc
-    raise ValueError(f"interaction_fwd [{F}, {D}]: one column of a sample's {F} rows passes {SMEM_OPT_IN} B")
+def stream_fwd_items(F: int) -> int:
+    """A sample's items in the streamed forward: row block I (SF_ROWS rows)
+    is its diagonal item and ceil(120 I / 64) strips of SF_STRIP columns
+    below it, each at most 120 tiles of 8 x 8 pairs (csrc/interaction.cu
+    sf_items)."""
+    return sum(1 + -(-SF_ROWS * I // SF_STRIP) for I in range(-(-F // SF_ROWS)))
+
+
+def stream_fwd_plan(F: int):
+    """(rows, stages, items) of the streamed forward: the rows of a stage
+    (8 ceil(F / 8) where a sample is one diagonal item, F <= 120, else a
+    row block's 120 and a strip's 64; SF_COLS columns each), STREAM_STAGES,
+    and ``stream_fwd_items(F)`` items a sample. At phase 23's F = 120: 120
+    rows (15,360 B a stage, 46,080 B the ring: four blocks an SM), one item
+    a sample."""
+    rows = SF_TILE * -(-F // SF_TILE) if F <= SF_ROWS else SF_ROWS + SF_STRIP
+    return rows, STREAM_STAGES, stream_fwd_items(F)
+
+
+def stream_fwd_smem_bytes(F: int) -> int:
+    rows, stages, _ = stream_fwd_plan(F)
+    return stages * rows * SF_COLS * 4
+
+
+def _stream_bwd_smem(F: int, once: int) -> int:
+    w, x = SB_STEPS * (SB_ROWS + 4), SB_STEPS * SB_COLS  # a chunk's weights (rows + 4 floats a step) and x_j columns
+    return 4 * (-(-F // SB_STEPS) * w + STREAM_STAGES * x if once else STREAM_STAGES * (w + x))
+
+
+def stream_bwd_plan(F: int, D: int):
+    """(stages, once, items) of the streamed backward. A tile of a sample's
+    dX is SB_ROWS x SB_COLS (a warp's lanes 8 rows x 8 columns each);
+    STREAM_STAGES chunks of SB_STEPS steps j in the ring. ``once``: several
+    column blocks, at least 3 chunks, and a row block's weights beside the
+    ring within SMEM_TWO_BLOCKS (F <= 240): an item is a sample's row block,
+    its column blocks in turn, its weights staged once (ceil(F / 64) items a
+    sample: 2 at phase 23's [120, 1024]); else an item is a tile
+    (ceil(F / 64) x ceil(D / 256))."""
+    once = int(D > SB_COLS and -(-F // SB_STEPS) >= 3 and _stream_bwd_smem(F, 1) <= SMEM_TWO_BLOCKS)
+    return STREAM_STAGES, once, -(-F // SB_ROWS) * (1 if once else -(-D // SB_COLS))
+
+
+def stream_bwd_smem_bytes(F: int, D: int) -> int:
+    """The ring of x_j's columns, and the weights: a row block's all chunks
+    (once) or each stage's chunk."""
+    _, once, _ = stream_bwd_plan(F, D)
+    return _stream_bwd_smem(F, once)
 
 
 def resident_warps(threads: int, smem: int) -> int:
@@ -110,8 +153,8 @@ def fwd_plan(F: int, D: int, self_interaction: bool):
     16]), else one (phase 22's [4, 64]: 6 warps, not 3; on an H100 80GB
     HBM3 at 700 W, kernel_ab.py: 0.0397-0.0405 ms against 0.0437-0.0449,
     while one stage at [27, 16] takes 0.0985-0.0990 against 0.0909-0.0917).
-    Where one stage of one sample passes SMEM_OPT_IN: (1, STREAM_THREADS,
-    STREAMED), the streamed kernel (``stream_cols``)."""
+    Where one stage of one sample passes SMEM_OPT_IN: (1, SF_THREADS,
+    STREAMED), the streamed kernel (``stream_fwd_plan``)."""
     T = fwd_tiles(F)
     G = 8
     while G < 256 and G * T < FWD_MAX_THREADS:
@@ -127,7 +170,7 @@ def fwd_plan(F: int, D: int, self_interaction: bool):
         return smem <= SMEM_OPT_IN and (st == 1 or resident_warps(threads, smem) >= FWD_MIN_WARPS)
 
     stages = _stages(fits)
-    return (G, threads, stages) if stages != STREAMED else (1, STREAM_THREADS, STREAMED)
+    return (G, threads, stages) if stages != STREAMED else (1, SF_THREADS, STREAMED)
 
 
 def columns(D: int, aligned: bool) -> int:
@@ -163,7 +206,8 @@ def bwd_plan(F: int, D: int, cols: int, self_interaction: bool):
     two stages would not fit SMEM_OPT_IN; where a sample's items pass
     BWD_THREADS, G = 1 and a thread takes several (the kernel's direct
     path). Two stages where they fit SMEM_OPT_IN, else one; (1, STREAMED)
-    where one stage of one sample does not fit: the streamed kernel."""
+    where one stage of one sample does not fit: the streamed kernel
+    (``stream_bwd_plan``)."""
     G = max(1, BWD_THREADS // bwd_items(F, D, cols))
     while G > 1 and bwd_smem_bytes(F, D, cols, G, self_interaction) > SMEM_OPT_IN:
         G -= 1
@@ -199,8 +243,9 @@ def interaction_fwd(x: torch.Tensor, out: Optional[torch.Tensor] = None,
         if fn.argtypes is None:
             fn.argtypes = _FWD_STREAM_ARGTYPES
             fn.restype = ctypes.c_int
-        rc = fn(ptr(x), B, F, D, stream_cols(F, D), int(self_interaction), ptr(out), out.stride(0),
-                stream_ptr(x.device))
+        rows, st, items = stream_fwd_plan(F)
+        rc = fn(ptr(x), B, F, D, columns(D, x.data_ptr() % 16 == 0), rows, st, items, int(self_interaction),
+                ptr(out), out.stride(0), stream_ptr(x.device))
     else:
         fn = library("interaction").nvt_interaction_fwd
         if fn.argtypes is None:
@@ -233,7 +278,9 @@ def interaction_bwd(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool 
         if fn.argtypes is None:
             fn.argtypes = _BWD_STREAM_ARGTYPES
             fn.restype = ctypes.c_int
-        rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, int(self_interaction), ptr(dx), stream_ptr(x.device))
+        st, once, items = stream_bwd_plan(F, D)
+        rc = fn(ptr(x), ptr(grad), grad.stride(0), B, F, D, cols, st, once, items, int(self_interaction), ptr(dx),
+                stream_ptr(x.device))
     else:
         fn = library("interaction").nvt_interaction_bwd
         if fn.argtypes is None:

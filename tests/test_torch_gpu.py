@@ -2600,6 +2600,127 @@ def test_interaction_kernels_match_plain_past_227_kb_a_sample(self_interaction):
                                atol=1e-5)
 
 
+# K13b's streamed kernels at the edges of their tiles, one sample just past 227 KB: F = 57 (a diagonal
+# item's triangle short of its 15 rows), 121 (a second row block: a diagonal item of one row, two strips),
+# 1000 (nine row blocks, D = 60 in one column block), F = 2 and 1 (one tile) with D past one column block,
+# F = 241 (the backward's weights past the row block's staged-once tile: staged for each tile of dX)
+STREAM_EDGES = [(3, 57, 1021, False), (3, 57, 1021, True), (2, 121, 481, False), (2, 121, 481, True),
+                (2, 1000, 60, False), (2, 1000, 60, True), (2, 2, 29_100, False), (2, 2, 29_100, True),
+                (2, 1, 58_200, True), (2, 241, 257, False), (2, 241, 257, True)]
+
+
+@pytest.mark.parametrize("aligned", [False, True], ids=["lead1", "aligned"])
+@pytest.mark.parametrize("B,F,D,self_interaction", STREAM_EDGES,
+                         ids=[f"{f}-{d}-{'self' if m else 'strict'}" for _, f, d, m in STREAM_EDGES])
+def test_interaction_streamed_kernels_at_the_tiles_edges(B, F, D, self_interaction, aligned):
+    """The streamed kernels past 227 KB a sample, x after a 1-float lead
+    (4-byte aligned rows: 4-byte copies) or aligned (16-byte copies where D
+    % 4 == 0), the pairs into a strided [B, 3 + P] buffer, g from a strided
+    buffer: the forward within one ULP of the plain version's fmaf steps
+    (which round twice, through float64, about once in 2^29), the backward
+    within rtol 1e-5, atol 1e-5; counted apart."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(F * 31 + D)
+    P = kint.num_pairs(F, self_interaction)
+    assert kint.fwd_plan(F, D, self_interaction)[2] == kint.bwd_plan(F, D, 4, self_interaction)[1] == kint.STREAMED
+    lead = 0 if aligned else 1
+    x = torch.randn(B * F * D + lead, device="cuda", generator=g)[lead:].view(B, F, D)
+    buf = torch.zeros((B, 3 + P), device="cuda")
+    gbuf = torch.randn((B, 5 + P), device="cuda", generator=g)
+    kernels.reset_launches()
+    kint.interaction_fwd(x, out=buf[:, 3:], self_interaction=self_interaction)
+    got_dx = kint.interaction_bwd(x, gbuf[:, 5:], self_interaction=self_interaction)
+    torch.cuda.synchronize()
+    mode = "interaction_self" if self_interaction else "interaction"
+    assert kernels.LAUNCHES[mode + "_fwd_streamed"] == 1 and kernels.LAUNCHES[mode + "_bwd_streamed"] == 1
+    torch.testing.assert_close(buf[:, 3:], kint.interaction_fwd_plain(x, self_interaction), rtol=2**-23, atol=0)
+    assert not bool(buf[:, :3].any())
+    torch.testing.assert_close(got_dx, kint.interaction_bwd_plain(x, gbuf[:, 5:], self_interaction), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("aligned", [False, True], ids=["lead1", "aligned"])
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_streamed_kernels_skip_the_strict_diagonal(self_interaction, aligned):
+    """NaN and infinities in x at [2, 57, 1024] (233 KB a sample): both
+    kernels equal the plain versions, NaN where they have NaN, except at a
+    non-finite entry's own gradient in the strict mode. The strict backward
+    skips j == i (the mode has no pair (i, i)), where the plain version's
+    zero weight times the infinite x_i gives NaN: there the kernel is finite
+    and within 1e-5 of a float64 sum over j != i. The self mode weighs the
+    entry by 2 g_ii, so there the gradient is infinite or NaN."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(57)
+    B, F, D = 2, 57, 1024
+    P = kint.num_pairs(F, self_interaction)
+    lead = 0 if aligned else 1
+    x = torch.randn(B * F * D + lead, device="cuda", generator=g)[lead:].view(B, F, D)
+    x[0, 5, 3], x[0, 9, 7], x[1, 20, 100], x[1, 56, 1023] = float("inf"), -float("inf"), float("nan"), float("inf")
+    buf = torch.zeros((B, 3 + P), device="cuda")
+    grad = torch.randn((B, 5 + P), device="cuda", generator=g)[:, 5:]
+    kint.interaction_fwd(x, out=buf[:, 3:], self_interaction=self_interaction)
+    dx = kint.interaction_bwd(x, grad, self_interaction)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(buf[:, 3:], kint.interaction_fwd_plain(x, self_interaction), rtol=2**-23, atol=0,
+                               equal_nan=True)
+    own = ~torch.isfinite(x)
+    mask = ~own if not self_interaction else torch.ones_like(own)
+    torch.testing.assert_close(dx[mask], kint.interaction_bwd_plain(x, grad, self_interaction)[mask], rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+    assert bool(torch.isfinite(dx[own]).all()) != self_interaction
+    if not self_interaction:
+        rows, cols = (torch.from_numpy(a).cuda() for a in np.tril_indices(F, k=-1))
+        w = torch.zeros((B, F, F), dtype=torch.float64, device="cuda")
+        w[:, rows, cols] = grad.double()
+        w = w + w.transpose(1, 2)
+        for b, i, d in own.nonzero().tolist():
+            other = torch.arange(F, device="cuda") != i
+            terms = w[b, i, other] * x[b, other, d].double()
+            torch.testing.assert_close(dx[b, i, d].double(), terms.sum(), rtol=0,
+                                       atol=1e-5 * float(terms.abs().sum()))
+
+
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_streamed_kernels_past_int32_pair_offsets(self_interaction):
+    """B = 1, F = 60,000, D = 1: P = 1.8 billion pairs (7.2 GB of output, g
+    another 7.2 GB), so a row's pair offset i (i - 1) / 2 (i (i + 1) / 2 in
+    the self mode) passes int32 from row 46,342 (46,341). The forward's rows
+    around it and its last row equal x[i] * x[:i] (x[:i + 1]) bit for bit
+    (at D = 1 a pair is one fmaf from 0: the rounded product); the
+    backward's rows there, its first and its last within 1e-5 of a float64
+    sum over j (rtol against the sum of the terms' magnitudes)."""
+    _require_cuda()
+    F = 60_000
+    P = kint.num_pairs(F, self_interaction)
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    x = torch.randn((1, F, 1), device="cuda", generator=gen)
+    xv = x[0, :, 0]
+
+    def base(i):
+        return i * (i + 1) // 2 if self_interaction else i * (i - 1) // 2
+
+    rows = [0, 1, 46_339, 46_340, 46_341, 46_342, 46_343, 46_344, 46_345, F - 1]
+    kernels.reset_launches()
+    out = kint.interaction_fwd(x, self_interaction=self_interaction)
+    torch.cuda.synchronize()
+    for i in rows[1:]:
+        n = i + 1 if self_interaction else i
+        assert torch.equal(out[0, base(i): base(i) + n], xv[i] * xv[:n]), i
+    del out
+    grad = torch.randn((1, P), device="cuda", generator=gen)
+    dx = kint.interaction_bwd(x, grad, self_interaction)
+    torch.cuda.synchronize()
+    mode = "interaction_self" if self_interaction else "interaction"
+    assert kernels.LAUNCHES[mode + "_fwd_streamed"] == 1 and kernels.LAUNCHES[mode + "_bwd_streamed"] == 1
+    j = torch.arange(F, device="cuda")
+    for i in rows:
+        w = grad[0, torch.where(j < i, base(i) + j, base(j) + i).clamp(max=P - 1)].double()  # j == i set below
+        w[i] = 2 * grad[0, base(i) + i].double() if self_interaction else 0.0
+        terms = w * xv.double()
+        err = abs(float(dx[0, i, 0]) - float(terms.sum()))
+        assert err <= 1e-5 * float(terms.abs().sum()) + 1e-5, (i, err)
+
+
 def test_bucketize_kernel_takes_5000_bounds():
     """Past one block's 4,096 staged bounds: the count summed over two
     chunks in one launch, NaN and infinities included, bit for bit."""

@@ -204,31 +204,72 @@ def test_interaction_fwd_plan_takes_one_stage_where_two_leave_few_warps(F, D, se
     assert kint.resident_warps(threads, one) >= kint.resident_warps(threads, two)
 
 
-def test_interaction_fwd_plan_raises_only_where_one_sample_does_not_fit():
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_streamed_plans_at_phase_23(self_interaction):
     """[120, 1024]: one stage of one sample passes the opt-in limit, so both
-    modes plan the streamed kernel, (1, STREAM_THREADS, STREAMED), its rows in
-    chunks of 119 columns (120 rows of 119 floats, 57,120 B: four blocks an
-    SM); [33, 1024] takes one stage of one sample. Only a sample whose one
-    column of F rows passes the opt-in limit raises (F past 58,112)."""
-    for self_interaction in (False, True):
-        assert kint.fwd_smem_bytes(120, 1024, 1, self_interaction, 1) > kint.SMEM_OPT_IN
-        assert kint.fwd_plan(120, 1024, self_interaction) == (1, kint.STREAM_THREADS, kint.STREAMED) == (1, 256, 0)
-    assert kint.stream_cols(120, 1024) == 119 and 120 * 119 * 4 == 57_120 <= kint.STREAM_SMEM
-    assert kint.fwd_plan(33, 1024, False)[0::2] == (1, 1)
-    assert kint.stream_cols(58_112, 3) == 1
-    with pytest.raises(ValueError, match="one column"):
-        kint.stream_cols(58_113, 3)
+    directions plan the streamed kernels. The forward: (1, SF_THREADS,
+    STREAMED), one item a sample (its 120-row triangle: 120 tiles), a stage
+    of 120 rows x 32 columns, three stages in 46,080 B (four blocks an SM).
+    The backward: tiles of 64 rows x 256 columns, a row block's weights
+    staged once (2 items a sample: g read once, X twice):
+    8 chunks of weights (34,816 B) beside three stages of x_j (49,152 B), two
+    blocks an SM. [33, 1024] takes one stage of one sample."""
+    assert kint.fwd_smem_bytes(120, 1024, 1, self_interaction, 1) > kint.SMEM_OPT_IN
+    assert kint.fwd_plan(120, 1024, self_interaction) == (1, kint.SF_THREADS, kint.STREAMED) == (1, 128, 0)
+    assert kint.stream_fwd_plan(120) == (120, 3, 1)
+    assert kint.stream_fwd_smem_bytes(120) == 46_080
+    assert 4 * (46_080 + kint.SMEM_RESERVED) <= kint.SMEM_SM
+    assert kint.bwd_plan(120, 1024, 4, self_interaction) == (1, kint.STREAMED)
+    assert (kint.SB_ROWS, kint.SB_COLS) == (64, 256) and kint.stream_bwd_plan(120, 1024) == (3, 1, 2)
+    assert kint.stream_bwd_smem_bytes(120, 1024) == 34_816 + 49_152 <= kint.SMEM_TWO_BLOCKS
+    assert kint.fwd_plan(33, 1024, self_interaction)[0::2] == (1, 1)
 
 
-@pytest.mark.parametrize("F,D", [(120, 1024), (120, 64), (500, 3), (1000, 1024), (6000, 16), (20_000, 8)])
-def test_interaction_stream_cols_fit_the_block(F, D):
-    """The streamed forward's chunk of columns: at most D, its F rows of
-    ``Dc | 1`` floats within STREAM_SMEM where one column fits there (else
-    within SMEM_OPT_IN), and the most that fit."""
-    Dc = kint.stream_cols(F, D)
-    budget = kint.STREAM_SMEM if F * 4 <= kint.STREAM_SMEM else kint.SMEM_OPT_IN
-    assert 1 <= Dc <= D and F * (Dc | 1) * 4 <= budget
-    assert Dc == D or F * ((Dc + 1) | 1) * 4 > budget
+@pytest.mark.parametrize("F", [1, 2, 57, 120, 121, 241, 1000, 46_342, 60_000])
+def test_interaction_stream_fwd_items_tile_the_triangle(F):
+    """The streamed forward's items (row block I of 120 rows: its diagonal
+    triangle, then ceil(120 I / 64) strips of 64 columns, the last cut at
+    the block's first row) hold every pair once in both modes, each strip
+    below its row block, each item at most 120 tiles of 8 x 8 pairs for the
+    block's 128 threads."""
+    items, pairs = 0, {False: 0, True: 0}
+    for I in range(-(-F // kint.SF_ROWS)):
+        row0 = I * kint.SF_ROWS
+        nrow = min(kint.SF_ROWS, F - row0)
+        tiles = -(-nrow // kint.SF_TILE)
+        assert tiles * (tiles + 1) // 2 <= kint.SF_ROWS <= kint.SF_THREADS
+        items += 1
+        for self_interaction in pairs:
+            pairs[self_interaction] += kint.num_pairs(nrow, self_interaction)
+        for col0 in range(0, row0, kint.SF_STRIP):
+            ncol = min(kint.SF_STRIP, row0 - col0)
+            assert tiles * -(-ncol // kint.SF_TILE) <= kint.SF_ROWS
+            items += 1
+            for self_interaction in pairs:
+                pairs[self_interaction] += nrow * ncol
+    assert items == kint.stream_fwd_items(F) == kint.stream_fwd_plan(F)[2]
+    assert pairs == {False: kint.num_pairs(F, False), True: kint.num_pairs(F, True)}
+
+
+STREAM_SHAPES = [(1, 58_200), (2, 29_100), (57, 1021), (121, 481), (1000, 60), (60_000, 1), (5000, 33), (300, 32),
+                 (240, 257), (241, 257), (32, 1024), (33, 1024)]
+
+
+@pytest.mark.parametrize("F,D", STREAM_SHAPES, ids=[f"{f}-{d}" for f, d in STREAM_SHAPES])
+def test_interaction_stream_plans_fit_any_sample(F, D):
+    """Both streamed plans stay within the opt-in limit at any F (no column
+    of all F rows has to fit: the forward stages at most 184 rows a chunk);
+    the forward's stage is 8 ceil(F / 8) rows where F <= 120, else 184; the
+    backward stages a row block's weights once exactly where it spans
+    several column blocks, has 3 chunks or more and fits two blocks an SM
+    (F <= 240), and its 64 x 256 tiles cover dX."""
+    rows, stages, items = kint.stream_fwd_plan(F)
+    assert rows == (8 * -(-F // 8) if F <= 120 else 184) and stages == kint.STREAM_STAGES
+    assert items == kint.stream_fwd_items(F) and kint.stream_fwd_smem_bytes(F) <= kint.SMEM_OPT_IN
+    stages, once, items = kint.stream_bwd_plan(F, D)
+    assert stages == kint.STREAM_STAGES and once == (D > 256 and 33 <= F <= 240)
+    assert items == -(-F // 64) * (1 if once else -(-D // 256))
+    assert kint.stream_bwd_smem_bytes(F, D) <= (kint.SMEM_TWO_BLOCKS if once else kint.SMEM_OPT_IN)
 
 
 @pytest.mark.parametrize("total", [52, 226, 437, 438, 742, 926])
