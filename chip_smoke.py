@@ -23,7 +23,8 @@ a nonzero exit:
 4. kernels at main-path shapes: the tiny and cuckoo lookups on the fitted
    bins and the continuous chain on [13, 262144] float32, each against its
    plain version on the same card (codes bit-identical; the chain within
-   rtol=1e-5, atol=1e-6), timed with CUDA events; then K6: stash tables
+   rtol=1e-5, atol=1e-6), timed with CUDA events, the share of values the
+   cuckoo lookup's first bucket serves printed; then K6: stash tables
    (build_stash, load 0.5) of the cuckoo job's vocabularies, built on the
    host (only the largest if that passes 60 s), given to a Categorify of
    the same vocabularies that transforms all 16 batches with the counters
@@ -225,8 +226,9 @@ a nonzero exit:
    the CPU run; shuffle seconds, rows/s, host handoff ms a batch;
 26. K5's 16-bit and mask modes on phase 24's [13, 262144] batch, and K11c
    on all of phase 25's rating lists at once (the zipf head user among
-   them), against their plain versions on the card, timed beside their
-   bound and beside torch.segment_reduce;
+   them), against their plain versions on the card and each combiner
+   against a second run of itself (equal bits), timed beside their bound
+   and beside torch.segment_reduce;
 27. Criteo through parquet, at full width, under build/chip_smoke_parquet/
    (deleted at the end): 27a prints g++'s version, whether zstd.h was found
    (compression "auto" if so, else "none") and whether pyarrow is
@@ -491,6 +493,27 @@ def lookup_record(job, plain_fn, args, kernel_fn):
         "plain_ms": time_ms(lambda: plain_fn(*args)),
         "library_ms": None,
     }
+
+
+def cuckoo_probes(values, validity, t, sel) -> dict:
+    """The buckets K3 reads for a job: b0 of every valid value, b1 only of
+    those b0 misses (a key sits in one slot of its two buckets). Returns the
+    distinct sectors (the bound's table bytes), the share of values b0
+    serves, and the bytes the kernel moves (40 a value b0 serves, 72 a
+    value that reads both buckets, 8 an invalid one)."""
+    from nvtabular_tpu_torch.kernels import lookup as klk
+
+    s = sel.long()
+    nb, ro = t.nbs[s][:, None], t.row_offsets[s][:, None]
+    b0 = klk.bucket_index_plain(values, nb, klk.SEEDS[0]) + ro
+    rows = t.table[b0]
+    live = torch.ones(values.shape, dtype=torch.bool, device=values.device) if validity is None else validity
+    hit0 = ((rows[..., :4] == values[..., None]) & (rows[..., 4:] >= 0)).any(-1) & live
+    both = live & ~hit0
+    b1 = (klk.bucket_index_plain(values, nb, klk.SEEDS[1]) + ro)[both]
+    sectors = int(torch.unique(torch.cat([b0[live], b1])).numel())
+    return {"sectors": sectors, "b0_share": float(hit0.float().mean()),
+            "probe_bytes": values.numel() * 8 + 32 * (int(live.sum()) + int(both.sum()))}
 
 
 STASH_BUILD_BUDGET_S = 60.0  # host seconds for the stash tables before the path is cut to the largest
@@ -2000,11 +2023,9 @@ def buckets_kernel_records(dev, rec) -> dict:
             args = (j["values"], j["validity"], t.table, t.nbs, t.row_offsets, j["sel"], j["col_offsets"], 2, 1,
                     j["nbuckets"])
             r = lookup_record(j, klk.cuckoo_lookup_plain, args, lambda a=args: klk.cuckoo_lookup(*a))
-            buckets = torch.cat([
-                (klk.bucket_index_plain(j["values"], t.nbs[s][:, None], seed) + t.row_offsets[s][:, None]).flatten()
-                for seed in klk.SEEDS
-            ])
-            table_bytes = int(torch.unique(buckets).numel()) * 32
+            probes = cuckoo_probes(j["values"], j["validity"], t, j["sel"])
+            r.update(b0_share=probes["b0_share"], probe_bytes=probes["probe_bytes"])
+            table_bytes = probes["sectors"] * 32
             ops = C * n * 40
         else:
             args = (j["values"], j["validity"], t.table, t.mins, t.maxs, t.lens, t.offsets, j["sel"],
@@ -3560,8 +3581,10 @@ def slice11_kernel_records(dev, alt: dict, sess: dict) -> dict:
     for combiner in ("sum", "mean", "min", "max"):
         run = lambda c=combiner: kragged.ragged_segment_reduce(values, offsets, R, c)  # noqa: E731
         plain = lambda c=combiner: kragged.ragged_segment_reduce_plain(values, offsets, R, c)  # noqa: E731
-        got, want = run(), plain()
+        got, want, again = run(), plain(), run()
         torch.cuda.synchronize()
+        if not torch.equal(got.nan_to_num(), again.nan_to_num()) or not torch.equal(got.isnan(), again.isnan()):
+            fail(f"ragged_segment_reduce {combiner}: two runs differ")
         if combiner in ("min", "max"):
             if not torch.equal(got, want):
                 fail(f"ragged_segment_reduce {combiner}: the kernel differs from its plain version")
@@ -3576,12 +3599,14 @@ def slice11_kernel_records(dev, alt: dict, sess: dict) -> dict:
         lib_ms = None
         if hasattr(torch, "segment_reduce"):
             lib_ms = time_ms(lambda c=combiner: torch.segment_reduce(values, c, lengths=lengths))
-        timings[combiner] = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain), "library_ms": lib_ms}
+        timings[combiner] = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain), "library_ms": lib_ms,
+                             "run_to_run_equal": True}
     rec = dict(timings["sum"], shape=[int(values.shape[0]), R], bytes=int(values.shape[0]) * 4 + (R + 1) * 8 + R * 4,
                combiners=timings, head_row=int(lengths.max()))
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], int(values.shape[0]))
     records["ragged_segment_reduce"] = rec
-    log(f"phase 26: K11c over {values.shape[0]} values in {R} rows (the longest {rec['head_row']}): "
+    log(f"phase 26: K11c over {values.shape[0]} values in {R} rows (the longest {rec['head_row']}; every "
+        f"combiner equal from run to run): "
         + ", ".join(f"{c} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
                     f"{'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')})"
                     for c, t in timings.items()))
@@ -3931,9 +3956,9 @@ def solo_record(vocab, column, dev):
     else:
         args = (values, None, t.table, t.nbs, t.row_offsets, sel, off)
         rec = lookup_record(job, klk.cuckoo_lookup_plain, args, lambda: klk.cuckoo_lookup(*args))
-        buckets = torch.cat([klk.bucket_index_plain(values, t.nbs[0], s).flatten() for s in klk.SEEDS])
-        sectors = int(torch.unique(buckets).numel())
-        rec.update(bytes=n * 8 + sectors * 32, table_keys=vocab.size - vocab.start_index)
+        probes = cuckoo_probes(values, None, t, sel)
+        rec.update(bytes=n * 8 + probes["sectors"] * 32, table_keys=vocab.size - vocab.start_index,
+                   b0_share=probes["b0_share"], probe_bytes=probes["probe_bytes"])
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * 40)
     rec["shape"] = [1, n]
     return rec
@@ -4054,18 +4079,13 @@ def main():
     args = (j["values"], j["validity"], t.table, t.nbs, t.row_offsets, j["sel"], j["col_offsets"])
     rec = lookup_record(j, klk.cuckoo_lookup_plain, args, lambda: klk.cuckoo_lookup(*args))
     C = j["values"].shape[0]
-    s = j["sel"].long()
-    buckets = torch.cat(
-        [
-            (klk.bucket_index_plain(j["values"], t.nbs[s][:, None], seed) + t.row_offsets[s][:, None]).flatten()
-            for seed in klk.SEEDS
-        ]
-    )
-    sectors = int(torch.unique(buckets).numel())
-    rec.update(shape=[C, n], bytes=C * n * 8 + sectors * 32, table_bytes=t.nbytes,
-               probe_bytes=C * n * 8 + 2 * C * n * 32)
+    probes = cuckoo_probes(j["values"], j["validity"], t, j["sel"])
+    rec.update(shape=[C, n], bytes=C * n * 8 + probes["sectors"] * 32, table_bytes=t.nbytes,
+               probe_bytes=probes["probe_bytes"], b0_share=probes["b0_share"])
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], C * n * 40)
     records["cuckoo_lookup"] = rec
+    log(f"criteo: cuckoo_lookup over [{C}, {n}]: b0 serves {rec['b0_share']:.2%} of the values; "
+        f"{probes['probe_bytes']} bytes moved, {rec['bytes']} the bound's")
 
     # K6: the cuckoo job's vocabularies as stash tables, through a Categorify of their own
     stash = stash_path(nvt, ops, dev, cat_op, parts, outs, jobs["cuckoo"])

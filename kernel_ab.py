@@ -24,7 +24,18 @@ The cases, by group (``--cases``; all by default):
   shapes: K14 over phase 7's 28 arrays (and 26 int16 columns where the tree
   takes them), K12b on [500000] with 5 bounds, K17 at [65536, 429], K13a's
   gather and scatter at [65536, 26, 16] and K13c's forward at [65536, 4] of
-  [23, 16].
+  [23, 16];
+- ``k11c``: K11c (``ragged_segment_reduce``) for each combiner over lists
+  of phase 26's size: 12,372,651 ratings in the rows of the users that
+  zipf(1.2) draws among 162,000 (chip_smoke.py's MovieLens users; the
+  head user holds ~2.2M), rows in a seeded order;
+- ``k3``: K3 (``cuckoo_lookup``) on phase 3's cuckoo job (the 15 Criteo
+  columns past 4,096 keys, vocabularies of chip_smoke.py make_part's 16
+  partitions, batch 0), on the same job with 1,000 OOV buckets a column and
+  31% of the values moved out of the vocabularies (phase 15's miss share),
+  and on one table row (the solo branch, ``cuckoo_lookup_solo``) of the
+  largest vocabulary; the tables, built on the host by the tree's
+  ``build_cuckoo``, are cached in build/kernel_ab_k3.pt for the trees after.
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -43,8 +54,10 @@ else within 1e-5 of the terms' magnitudes + 1e-5); its time is the median of
 5 CUDA-event windows of 25 calls (5 for K13d) behind a device-side sleep,
 as chip_smoke.py times the kernels. A case a tree's wrapper refuses (a
 shape past its limits: ValueError or NotImplementedError) is recorded with
-its error; a failed launch ends the run. Prints one JSON line a tree,
-then a table; ``--out`` writes the records as JSON. Imports no JAX.
+its error; a failed launch ends the run. ``--split`` adds each case's
+device time a launch by kernel under torch.profiler (10 calls). Prints one JSON
+line a tree, then a table; ``--out`` writes the records as JSON. Imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -98,7 +111,9 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 ]
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
-GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs")
+GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3")
+ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
+K3_CACHE = Path("build") / "kernel_ab_k3.pt"
 
 
 def criteo_ids(torch, dev, gen):
@@ -118,7 +133,23 @@ def criteo_ids(torch, dev, gen):
     return ids, sizes
 
 
-def one_tree(tree: str, plans: dict, groups) -> dict:
+def device_split(torch, fn, calls=10) -> dict:
+    """Each kernel's mean device time a launch (microseconds) under
+    torch.profiler, over ``calls`` calls of ``fn`` after one more, and the
+    launches the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: [round(e.device_time_total / e.count, 2), e.count] for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import numpy as np
@@ -142,6 +173,8 @@ def one_tree(tree: str, plans: dict, groups) -> dict:
         try:
             err = check() if check else None
             rec[name] = {"ms": time_ms(torch, fn, iters), "max_abs_err": err}
+            if split:
+                rec[name]["device_us"] = device_split(torch, fn)
         except (ValueError, NotImplementedError) as e:
             rec[name] = {"ms": None, "error": f"{type(e).__name__}: {e}"[:300]}
 
@@ -346,7 +379,102 @@ def one_tree(tree: str, plans: dict, groups) -> dict:
         case(f"embedding_bag_fwd [{BATCH}, 4] of [23, {D}]", lambda: kbag.embedding_bag_fwd(tb, values, mask),
              lambda: equal(kbag.embedding_bag_fwd(tb, values, mask), kbag.embedding_bag_fwd_plain(tb, values, mask),
                            "embedding_bag_fwd"))
+    if "k11c" in groups:
+        from nvtabular_tpu_torch.kernels import ragged as kragged
+
+        rng = np.random.default_rng(26)
+        counts = np.bincount(rng.zipf(1.2, SESSION_VALUES).clip(1, ML_USERS))[1:]
+        lengths = rng.permutation(counts[counts > 0])
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)).to(dev)
+        values = torch.from_numpy((rng.integers(1, 11, SESSION_VALUES) / 2.0).astype(np.float32)).to(dev)
+        R = offsets.shape[0] - 1
+
+        def check_reduce(c):
+            got = kragged.ragged_segment_reduce(values, offsets, R, c)
+            want = kragged.ragged_segment_reduce_plain(values, offsets, R, c)
+            if c in ("min", "max"):
+                return equal(got, want, f"ragged_segment_reduce {c}")
+            return within(got.double(), want.double(),
+                          kragged.ragged_segment_reduce_plain(values.abs(), offsets, R, c).double())
+
+        for c in ("sum", "mean", "min", "max"):
+            case(f"ragged_segment_reduce {c} [{SESSION_VALUES}] in {R} rows (longest {int(lengths.max())})",
+                 lambda c=c: kragged.ragged_segment_reduce(values, offsets, R, c), lambda c=c: check_reduce(c))
+        del values, offsets
+    if "k3" in groups:
+        from nvtabular_tpu_torch.kernels import lookup as klk
+
+        job = k3_job(torch)
+        table, nbs, row_off, vals = (job[k].to(dev) for k in ("table", "nbs", "row_offsets", "values"))
+        C, n = vals.shape
+        sel = torch.arange(C, dtype=torch.int32, device=dev)
+        offs = torch.zeros(C, dtype=torch.int32, device=dev)
+        moved = torch.where(torch.rand(vals.shape, device=dev, generator=gen) < 0.31, vals ^ 0x5A5A5A5A, vals)
+        nbk = torch.full((C,), 1000, dtype=torch.int32, device=dev)
+        solo = job["solo"]
+        st, sn, sv = (solo[k].to(dev) for k in ("table", "nbs", "values"))
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        runs = {
+            f"cuckoo_lookup [{C}, {n}] (phase 3's job)": (vals, table, nbs, row_off, sel, offs, None, None),
+            f"cuckoo_lookup [{C}, {n}], 1,000 OOV buckets, 31% moved": (moved, table, nbs, row_off, sel, offs, nbk,
+                                                                       None),
+            f"cuckoo_lookup_solo [1, {sv.shape[1]}] of {int(sn[0])} buckets": (sv, st, sn, zero.long(), zero, zero,
+                                                                              None, "cuckoo_lookup_solo"),
+        }
+        for name, (v, t, nb, ro, sl, of, nk, counter) in runs.items():
+            def run(v=v, t=t, nb=nb, ro=ro, sl=sl, of=of, nk=nk, counter=counter):
+                return klk.cuckoo_lookup(v, None, t, nb, ro, sl, of, nbuckets=nk, counter=counter)
+
+            case(name, run, lambda v=v, t=t, nb=nb, ro=ro, sl=sl, of=of, nk=nk, run=run: equal(
+                run(), klk.cuckoo_lookup_plain(v, None, t, nb, ro, sl, of, nbuckets=nk), name))
+            rec[name].update(cuckoo_sectors(torch, klk, v, t, nb[sl.long()][:, None], ro[sl.long()][:, None]))
+        del table, vals, moved, st
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
+
+
+def cuckoo_sectors(torch, klk, values, table, nb, ro) -> dict:
+    """The distinct 32-byte buckets a lookup of ``values`` reads when it
+    probes both buckets of every value, and when it probes b1 only where b0
+    misses; the share of values b0 serves."""
+    b0 = klk.bucket_index_plain(values, nb, klk.SEEDS[0]) + ro
+    b1 = klk.bucket_index_plain(values, nb, klk.SEEDS[1]) + ro
+    rows = table[b0]
+    hit0 = ((rows[..., :4] == values[..., None]) & (rows[..., 4:] >= 0)).any(-1)
+    return {"sectors_both": int(torch.unique(torch.cat([b0.flatten(), b1.flatten()])).numel()),
+            "sectors_b0_first": int(torch.unique(torch.cat([b0.flatten(), b1[~hit0]])).numel()),
+            "b0_share": float(hit0.float().mean())}
+
+
+def k3_job(torch) -> dict:
+    """Phase 3's cuckoo job: the Criteo columns of chip_smoke.py make_part
+    past 4,096 distinct ids over its 16 partitions, each column's ids (codes
+    3, 4, ...) in a table of the tree's build_cuckoo, batched as
+    BatchedCuckoo stacks them; batch 0's ids [C, 262144]; and the largest
+    vocabulary alone with its column of batch 0 (the solo branch). Cached
+    in K3_CACHE (the build is the host's, unchanged between the trees)."""
+    if K3_CACHE.exists():
+        return torch.load(K3_CACHE)
+    import numpy as np
+
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from nvtabular_tpu_torch.ops import lookup as plookup
+
+    parts = [chip_smoke.make_part(s) for s in range(chip_smoke.NUM_PARTS)]
+    names = [f"C{i}" for i in range(chip_smoke.NUM_CATS)]
+    vocabs = {c: np.unique(np.concatenate([p[c] for p in parts])) for c in names}
+    cols = [c for c in names if len(vocabs[c]) > plookup.TINY_MAX]
+    luts = {c: plookup.build_cuckoo(vocabs[c], np.arange(len(vocabs[c])) + 3) for c in cols}
+    batched = plookup.BatchedCuckoo([luts[c] for c in cols])
+    big = max(cols, key=lambda c: len(vocabs[c]))
+    solo = plookup.BatchedCuckoo([luts[big]])
+    job = {"table": batched.table, "nbs": batched.nbs, "row_offsets": batched.row_offsets,
+           "values": torch.from_numpy(np.stack([parts[0][c] for c in cols])), "columns": cols,
+           "solo": {"table": solo.table, "nbs": solo.nbs, "values": torch.from_numpy(parts[0][big][None].copy()),
+                    "column": big}}
+    K3_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(job, K3_CACHE)
+    return job
 
 
 def main():
@@ -354,6 +482,7 @@ def main():
     ap.add_argument("--tree", action="append", required=True, help="a checkout's root, or DIR@F,D,G,T,S[+...]")
     ap.add_argument("--out", help="write the card and the trees' records here")
     ap.add_argument("--cases", default=",".join(GROUPS), help=f"groups of cases, of {', '.join(GROUPS)}")
+    ap.add_argument("--split", action="store_true", help="also each case's device time by kernel (torch.profiler)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one is not None:
@@ -362,7 +491,7 @@ def main():
         for item in filter(None, spec.split("+")):
             F, D, *plan = (int(v) for v in item.split(","))
             plans[(F, D)] = tuple(plan)
-        print(json.dumps(one_tree(tree, plans, args.cases.split(","))), flush=True)
+        print(json.dumps(one_tree(tree, plans, args.cases.split(","), args.split)), flush=True)
         return
     import torch
 
@@ -373,8 +502,8 @@ def main():
     print(smi, flush=True)
     recs = []
     for tree in args.tree:
-        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", tree, "--cases", args.cases],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", tree, "--cases", args.cases]
+                              + ["--split"] * args.split, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{tree} failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
         recs.append({**json.loads(proc.stdout.strip().splitlines()[-1]), "tree": tree})

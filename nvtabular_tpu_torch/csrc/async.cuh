@@ -1,6 +1,7 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80 and
 // later), shared by the kernels that stage their inputs in rings or double
-// buffers (interaction.cu, cin.cu, lookup.cu).
+// buffers (interaction.cu, cin.cu, lookup.cu) or a tile at a time
+// (ragged.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -84,10 +84,20 @@
 // rounded once to float32), so a model step through the kernels and
 // through the plain versions sees the same float32 values before its
 // bfloat16 casts, where a last-bit difference would become a bfloat16 step.
-// One difference: the strict backward's plain version takes the zero
-// weight of the absent pair (i, i), as the reference's autograd does, where
-// the kernels skip j == i; they differ only where x_i is not finite (0 * inf
-// is NaN).
+//
+// Non-finite x: the reference's autograd forms dX from two dense products
+// with the scattered [F, F] pair gradient, zeros included, so one
+// non-finite x[b, j, d] makes dX[b, i, d] NaN for every i != j (some zero
+// weight times inf), and, in the strict mode, for i == j too (the absent
+// pair (i, i) weighs 0); the self mode's own row of a lone inf keeps 2 g_ii
+// * inf + the rest. Both backward kernels and the plain version follow it.
+// A sum over j that takes x[b, j, d] with any weight is not finite where
+// x[b, j, d] is not (w * inf is +-inf, 0 * inf NaN, and neither goes back
+// to finite), so a work item tests one row's sums of its columns (the
+// strict mode, which skips j == i, two rows, or one row and its own x);
+// only where one is not finite does it scan the column for its non-finite
+// x and store NaN where the reference has it (column_nonfinite,
+// reference_value). Finite data pays a few isfinite tests an item.
 //
 // Bound: bytes for the staged kernels. The forward reads X (F * D * 4 B a
 // sample) and writes P * 4 B; its 2 * P * D flops a sample are ~1/6 of the
@@ -119,6 +129,28 @@ __host__ __device__ __forceinline__ int row_base(int i, int self_mode) {
 }
 
 __host__ __device__ __forceinline__ int num_pairs(int F, int self_mode) { return row_base(F, self_mode); }
+
+// The non-finite x of a column (xcol = x[b, 0, d], its rows D apart): -1
+// where there is none, -2 where there are several, else the row of the one.
+__device__ __noinline__ int column_nonfinite(const float* xcol, int64_t D, int F) {
+  int row = -1;
+  for (int j = 0; j < F; ++j) {
+    if (!isfinite(xcol[j * D])) {
+      if (row >= 0) return -2;
+      row = j;
+    }
+  }
+  return row;
+}
+
+// dX[b, i, d] as the reference gives it, from its sum s and its column's
+// column_nonfinite: NaN where some x[b, j != i, d] is not finite, and in the
+// strict mode also where x[b, i, d] itself is not; else s.
+template <int SELF>
+__device__ __forceinline__ float reference_value(float s, int nonfinite, int i) {
+  const bool nan = SELF ? nonfinite == -2 || (nonfinite >= 0 && nonfinite != i) : nonfinite != -1;
+  return nan ? __int_as_float(0x7fc00000) : s;
+}
 
 // A row of n floats at src (4-byte aligned): `head` floats up to the first
 // 16-byte boundary, a body of a multiple of 4 floats, then the rest; the
@@ -518,6 +550,35 @@ __device__ __forceinline__ void bwd_sums(const float* __restrict__ xcol, int D, 
   above_sums<C, SELF>(xcol, D, gsamp, i0, i0 + kBwdRows, F, acc);
 }
 
+// A work item's sums as the reference gives them at non-finite x (xcol:
+// the item's columns of the sample's staged X rows). Row i0's sums take
+// every x_j but x_i0 in the strict mode, so there row i0 + 1's, or x_i0
+// itself where the item has one row, are tested too.
+template <int C, int SELF>
+__device__ __forceinline__ void item_follow_reference(const float* xcol, int D, int F, int i0,
+                                                      float (&acc)[kBwdRows][C]) {
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < C; ++k) bad |= !isfinite(acc[0][k]);
+  if (!SELF) {
+    if (i0 + 1 < F) {
+#pragma unroll
+      for (int k = 0; k < C; ++k) bad |= !isfinite(acc[1][k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) bad |= !isfinite(xcol[i0 * D + k]);
+    }
+  }
+  if (bad) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int nonfinite = column_nonfinite(xcol + k, D, F);
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) acc[r][k] = reference_value<SELF>(acc[r][k], nonfinite, i0 + r);
+    }
+  }
+}
+
 // One group a turn: the work items' sums over j, then dX. Where the items
 // fit the block (G * items a sample <= kBwdThreads: one a thread), the sums
 // go back into the X slots and leave by bulk stores (C = 4) or one float a
@@ -574,6 +635,7 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
         const int c = it % chunks, i0 = it / chunks * kBwdRows;
         float acc[kBwdRows][C];
         bwd_sums<C, SELF>(xslot + c * C, D, gsamp, F, i0, acc);
+        item_follow_reference<C, SELF>(xslot + c * C, D, F, i0, acc);
 #pragma unroll
         for (int r = 0; r < kBwdRows; ++r) {
           if (i0 + r >= F) break;
@@ -598,6 +660,7 @@ interaction_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
         xslot += RowSplit(x + (b0 + s) * n, n).pad;
         bwd_sums<C, SELF>(xslot + c * C, D, gst + s * gs + RowSplit(g + (b0 + s) * g_row_stride, P).pad, F,
                           blk * kBwdRows, acc);
+        item_follow_reference<C, SELF>(xslot + c * C, D, F, blk * kBwdRows, acc);
       }
       __syncthreads();  // every thread is done reading the group's X rows, which the sums overwrite
       if (active) {
@@ -1013,6 +1076,38 @@ __device__ __forceinline__ void sb_chunk(const float* wst, const float* xs, int 
   }
 }
 
+// A thread's tile of dX as the reference gives it at non-finite x (xb: the
+// sample's X in global memory; rows r0 .., columns d0 + cloc[h] + 0..3):
+// item_follow_reference's tests on row r0 (and r0 + 1, or x_r0), then the
+// columns' scans where one fails.
+template <int SELF>
+__device__ __forceinline__ void tile_follow_reference(const float* __restrict__ xb, int D, int F, int r0, int d0,
+                                                      const int (&cloc)[Sb::kHalves],
+                                                      float (&acc)[Sb::kRowsT][4 * Sb::kHalves]) {
+  bool bad = false;
+#pragma unroll
+  for (int h = 0; h < Sb::kHalves; ++h)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int d = d0 + cloc[h] + k;
+      if (d >= D) continue;
+      bad |= !isfinite(acc[0][4 * h + k]);
+      if (!SELF) bad |= !isfinite(r0 + 1 < F ? acc[1][4 * h + k] : xb[static_cast<int64_t>(r0) * D + d]);
+    }
+  if (!bad) return;
+#pragma unroll
+  for (int h = 0; h < Sb::kHalves; ++h)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int d = d0 + cloc[h] + k;
+      if (d >= D) continue;
+      const int nonfinite = column_nonfinite(xb + d, D, F);
+#pragma unroll
+      for (int r = 0; r < Sb::kRowsT; ++r)
+        acc[r][4 * h + k] = reference_value<SELF>(acc[r][4 * h + k], nonfinite, r0 + r);
+    }
+}
+
 // Items: a sample's row block (its column blocks in turn; `once`), else
 // (sample, column block, row block), the row block fastest, so that the
 // row blocks of a column block run together and share x_j's columns in L2.
@@ -1085,6 +1180,7 @@ interaction_bwd_stream_kernel(const float* __restrict__ x, const float* __restri
                      F - j0 < kSbSteps ? F - j0 : kSbSteps, r0 - j0, acc);
     buf = buf == kStreamStages - 1 ? 0 : buf + 1;
     if (++c_c == chunks) {
+      if (live) tile_follow_reference<SELF>(x + c_b * F * D, D, F, r0, d0, cloc, acc);
       if (live) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {

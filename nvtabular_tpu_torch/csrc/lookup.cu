@@ -28,6 +28,7 @@
 // returns cudaGetLastError() so the Python wrapper can raise.
 
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 #include "async.cuh"
@@ -155,42 +156,193 @@ __device__ __forceinline__ void probe(const int4& k, const int4& v, int32_t key,
 }
 
 // K3: two-choice, 4-slot bucketed cuckoo. Replaces BatchedCuckoo.encode_dev
-// (nvtabular_tpu/ops/lookup.py:693-708).
+// (nvtabular_tpu/ops/lookup.py:693-708), which gathers both buckets of every
+// value and lets a hit in the second override one in the first.
 //
-// Bound: bytes, dominated by two random 32-byte buckets per value from a
-// table of ~200 MB at the Criteo-TB profile (four times L2). A bucket row
-// [k0..k3, v0..v3] is exactly one 32-byte sector, read as two aligned int4
-// loads; both buckets' loads are issued before any compare so their
-// latencies overlap. One thread per value.
-// Buckets: b = fmix32(u32(v) ^ seed) % nbs[b] + row_off[b], seeds 0 and
-// 0x9E3779B9, all in uint32 as in the reference.
-// Grid: (ceil(N / kThreads), C).
-__global__ void __launch_bounds__(kThreads)
+// Precondition: a key sits in at most one slot of its two buckets, as
+// build_cuckoo places every key exactly once (kernels/lookup.py's tables
+// come from ops/lookup.py:build_cuckoo). Under it the two buckets never both
+// hit, so probing b1 only where b0 misses gives the reference's codes.
+//
+// Bound: bytes, dominated by random 32-byte buckets from a table of ~200 MB
+// at the Criteo-TB profile (four times L2). A bucket row [k0..k3, v0..v3] is
+// exactly one 32-byte sector, read as two aligned int4 loads. The build
+// places by first choice first at load 0.8, so most keys sit in b0: a hit
+// there moves 40 B (value, code and one sector), not the 72 B of reading
+// both buckets; misses (out-of-vocabulary values) still read both.
+// Design:
+// * A persistent grid (the blocks the card holds at once) splits the flat
+//   [C, N] values evenly; a block walks its share column by column, each
+//   column's sel, nbs, row_off, col_off and nbuckets read once a segment
+//   into registers (a block's share spans one or two columns).
+// * A thread takes 4 consecutive values a turn: one 16-byte value load,
+//   the validity as one 32-bit word, one 16-byte code store, where the
+//   arrays are aligned (a segment's unaligned first and last 0-3 values go
+//   through the same code with scalar loads); rows marked invalid read no
+//   bucket.
+// * The four b0 buckets' loads go out before any compare, then the b1 loads
+//   of the values that missed, together; the thread's next 4 values are
+//   loaded before this turn's buckets. A random sector costs a round trip
+//   to device memory, so the kernel is bound by round trips in flight: 4
+//   blocks of 256 threads an SM (at most 64 registers), 4 values each.
+// * Bucket indexes fmix32(u32(v) ^ seed) % nbs[b] + row_off[b] (seeds 0 and
+//   0x9E3779B9, uint32 as in the reference) take Lemire's fastmod (a multiply
+//   by ceil(2^64 / nb) and a 64-bit multiply-high; exact for every 32-bit
+//   value and nb < 2^32), as does the hashed branch's % nbuckets[c].
+constexpr int kCuckooThreads = 256;
+constexpr int kCuckooVec = 4;  // values a thread a turn: one int4
+constexpr int kCuckooMinBlocks = 4;  // resident blocks an SM the registers must allow
+
+// Lemire, Kaser & Kurz, "Faster remainder by direct computation" (2019):
+// a % d = mulhi64((m * a) mod 2^64, d) for m = ceil(2^64 / d), every 32-bit a
+// and 0 < d < 2^32 (d = 1: m wraps to 0, and so does the remainder).
+__device__ __forceinline__ uint64_t fastmod_m(uint32_t d) { return ~uint64_t{0} / d + 1; }
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(m * a, d));
+}
+
+struct CuckooCol {  // one column's constants, in registers for its segment
+  int64_t row_off;
+  uint64_t m, mk;  // fastmod's multipliers of nb and nk
+  uint32_t nb, nk;  // buckets; OOV buckets (0: one, the Epilogue's miss)
+  int32_t col_off;
+};
+
+__device__ __forceinline__ int64_t cuckoo_bucket(uint32_t u, uint32_t seed, const CuckooCol& col) {
+  return col.row_off + fastmod(nvt::fmix32(u ^ seed), col.m, col.nb);
+}
+
+// A thread's turn: values [i0, i0 + cnt) of one column (cnt <= 4) and
+// whether each is a live (valid) row.
+struct CuckooUnit {
+  int32_t v[kCuckooVec];
+  bool live[kCuckooVec];
+};
+
+// The unit's values and validity: a 16-byte value load and a 4-byte
+// validity word where kVec (cnt == 4, aligned), else one at a time.
+template <bool kVec>
+__device__ __forceinline__ CuckooUnit cuckoo_load(const int32_t* __restrict__ values,
+                                                  const uint8_t* __restrict__ valid, int64_t i0, int cnt) {
+  CuckooUnit u;
+  if constexpr (kVec) {
+    const int4 q = __ldcs(reinterpret_cast<const int4*>(values + i0));
+    u.v[0] = q.x; u.v[1] = q.y; u.v[2] = q.z; u.v[3] = q.w;
+    const uint32_t w = valid != nullptr ? __ldcs(reinterpret_cast<const unsigned int*>(valid + i0)) : 0x01010101u;
+#pragma unroll
+    for (int q4 = 0; q4 < kCuckooVec; ++q4) u.live[q4] = ((w >> (8 * q4)) & 0xFFu) != 0;
+  } else {
+#pragma unroll
+    for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+      u.v[q4] = q4 < cnt ? values[i0 + q4] : 0;
+      u.live[q4] = q4 < cnt && (valid == nullptr || valid[i0 + q4] != 0);
+    }
+  }
+  return u;
+}
+
+// The unit's codes: every b0 bucket's loads go out before any compare, then
+// the b1 loads of the values b0 missed, together; a 16-byte code store where
+// kVec.
+template <bool kVec>
+__device__ __forceinline__ void cuckoo_codes(const CuckooUnit& u, const int4* __restrict__ table,
+                                             const CuckooCol& col, int32_t* __restrict__ out, int64_t i0, int cnt,
+                                             const Epilogue& e) {
+  int4 k[kCuckooVec], s[kCuckooVec];
+#pragma unroll
+  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+    if (u.live[q4]) {
+      const int64_t b0 = cuckoo_bucket(static_cast<uint32_t>(u.v[q4]), 0u, col);
+      k[q4] = __ldg(table + 2 * b0);
+      s[q4] = __ldg(table + 2 * b0 + 1);
+    }
+  }
+  int32_t code[kCuckooVec];
+  bool hit[kCuckooVec];
+#pragma unroll
+  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+    code[q4] = 0;
+    hit[q4] = false;
+    if (u.live[q4]) probe(k[q4], s[q4], u.v[q4], code[q4], hit[q4]);
+  }
+#pragma unroll
+  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+    if (u.live[q4] && !hit[q4]) {
+      const int64_t b1 = cuckoo_bucket(static_cast<uint32_t>(u.v[q4]), 0x9E3779B9u, col);
+      k[q4] = __ldg(table + 2 * b1);
+      s[q4] = __ldg(table + 2 * b1 + 1);
+    }
+  }
+  int32_t r[kCuckooVec];
+#pragma unroll
+  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+    if (u.live[q4] && !hit[q4]) probe(k[q4], s[q4], u.v[q4], code[q4], hit[q4]);
+    const uint32_t w = static_cast<uint32_t>(u.v[q4]);
+    const int32_t miss =
+        col.nk > 1
+            ? kOovIndex + static_cast<int32_t>(fastmod(nvt::hash_lanes(w, static_cast<uint32_t>(u.v[q4] >> 31), 0u),
+                                                       col.mk, col.nk))
+            : e.miss;
+    r[q4] = (u.live[q4] ? (hit[q4] ? code[q4] : miss) : e.null) + col.col_off;
+  }
+  if constexpr (kVec) {
+    __stcs(reinterpret_cast<int4*>(out + i0), make_int4(r[0], r[1], r[2], r[3]));
+  } else {
+#pragma unroll
+    for (int q4 = 0; q4 < kCuckooVec; ++q4)
+      if (q4 < cnt) out[i0 + q4] = r[q4];
+  }
+}
+
+// VEC: values and out 16-byte aligned, validity (if any) 4-byte aligned, so
+// a flat index that is a multiple of 4 aligns all three. A thread's next
+// unit's values are loaded before this unit's buckets are probed, so that a
+// unit waits for two round trips (b0, then b1 of its misses), not three.
+template <bool VEC>
+__global__ void __launch_bounds__(kCuckooThreads, kCuckooMinBlocks)
 cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
                      const int4* __restrict__ table, const int64_t* __restrict__ nbs,
                      const int64_t* __restrict__ row_off, const int32_t* __restrict__ sel,
-                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n,
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n, int num_cols,
                      Epilogue e) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const int c = blockIdx.y;
-  const int b = sel[c];
-  const int64_t i = static_cast<int64_t>(c) * n + r;
-  const int32_t v = values[i];
-  const uint32_t u = static_cast<uint32_t>(v);
-  const uint32_t nb = static_cast<uint32_t>(nbs[b]);
-  const int64_t ro = row_off[b];
-  const int64_t b0 = ro + nvt::fmix32(u) % nb;
-  const int64_t b1 = ro + nvt::fmix32(u ^ 0x9E3779B9u) % nb;
-  const int4 k0 = __ldg(table + 2 * b0);
-  const int4 v0 = __ldg(table + 2 * b0 + 1);
-  const int4 k1 = __ldg(table + 2 * b1);
-  const int4 v1 = __ldg(table + 2 * b1 + 1);
-  int32_t code = 0;
-  bool hit = false;
-  probe(k0, v0, v, code, hit);
-  probe(k1, v1, v, code, hit);
-  out[i] = epilogue(code, hit, v, c, valid, i, col_off[c], e);
+  constexpr int64_t kStride = kCuckooThreads * kCuckooVec;
+  const int64_t total = n * num_cols;
+  const int64_t share_end = total * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t seg = total * blockIdx.x / gridDim.x; seg < share_end;) {
+    const int c = static_cast<int>(seg / n);
+    const int64_t seg_end = (c + 1) * n < share_end ? (c + 1) * n : share_end;
+    const int b = sel[c];
+    CuckooCol col;
+    col.nb = static_cast<uint32_t>(nbs[b]);
+    col.m = fastmod_m(col.nb);
+    col.row_off = row_off[b];
+    col.col_off = col_off[c];
+    const int32_t nk = e.nbuckets != nullptr ? e.nbuckets[c] : 0;
+    col.nk = nk > 1 ? static_cast<uint32_t>(nk) : 0u;
+    col.mk = col.nk > 1 ? fastmod_m(col.nk) : 0;
+    // [a0, a1): whole units of 4 (from a multiple of 4 where VEC); the 0-3 values on either side alone
+    int64_t a0 = VEC ? (seg + 3) & ~int64_t{3} : seg;
+    if (a0 > seg_end) a0 = seg_end;
+    const int64_t a1 = a0 + (seg_end - a0) / kCuckooVec * kCuckooVec;
+    if (threadIdx.x == 0 && a0 > seg) {
+      const int cnt = static_cast<int>(a0 - seg);
+      cuckoo_codes<false>(cuckoo_load<false>(values, valid, seg, cnt), table, col, out, seg, cnt, e);
+    }
+    if (threadIdx.x == 1 && seg_end > a1) {
+      const int cnt = static_cast<int>(seg_end - a1);
+      cuckoo_codes<false>(cuckoo_load<false>(values, valid, a1, cnt), table, col, out, a1, cnt, e);
+    }
+    int64_t i = a0 + static_cast<int64_t>(threadIdx.x) * kCuckooVec;
+    CuckooUnit cur;
+    if (i < a1) cur = cuckoo_load<VEC>(values, valid, i, kCuckooVec);
+    for (; i < a1; i += kStride) {
+      CuckooUnit next;
+      if (i + kStride < a1) next = cuckoo_load<VEC>(values, valid, i + kStride, kCuckooVec);
+      cuckoo_codes<VEC>(cur, table, col, out, i, kCuckooVec, e);
+      cur = next;
+    }
+    seg = seg_end;
+  }
 }
 
 // K6: a single-hash primary and a two-choice stash. Replaces
@@ -391,6 +543,19 @@ sorted_lookup_kernel(const float* __restrict__ values, const uint8_t* __restrict
   }
 }
 
+// K3's persistent grid: the blocks the card holds at once (found at the first
+// launch: every launch at the solo branch's [1, 262144] is a few
+// microseconds), at most `needed`.
+template <bool VEC>
+int cuckoo_grid(int64_t needed, unsigned* blocks) {
+  static unsigned resident = 0;
+  if (resident == 0) {
+    if (int rc = nvt::resident_blocks(cuckoo_lookup_kernel<VEC>, kCuckooThreads, 0, INT64_MAX, &resident)) return rc;
+  }
+  *blocks = static_cast<unsigned>(needed < resident ? needed : resident);
+  return 0;
+}
+
 inline unsigned int blocks_for(int64_t n, int64_t per_block) {
   return static_cast<unsigned int>((n + per_block - 1) / per_block);
 }
@@ -428,10 +593,23 @@ extern "C" int nvt_cuckoo_lookup(const int32_t* values, const uint8_t* valid, co
                                  const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
                                  int miss, int null_code, const int32_t* nbuckets, void* stream) {
   if (num_cols == 0 || n == 0) return 0;
-  dim3 grid(blocks_for(n, kThreads), num_cols);
-  cuckoo_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, reinterpret_cast<const int4*>(table), nbs, row_off, sel, col_off, out, n,
-      Epilogue{miss, null_code, nbuckets});
+  const bool vec = reinterpret_cast<uintptr_t>(values) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(valid) % 4 == 0;
+  const int64_t units = (n * num_cols + kCuckooVec - 1) / kCuckooVec;
+  const int64_t needed = (units + kCuckooThreads - 1) / kCuckooThreads;
+  unsigned blocks = 0;
+  const Epilogue e{miss, null_code, nbuckets};
+  const int4* t4 = reinterpret_cast<const int4*>(table);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    if (int rc = cuckoo_grid<true>(needed, &blocks)) return rc;
+    cuckoo_lookup_kernel<true><<<blocks, kCuckooThreads, 0, s>>>(values, valid, t4, nbs, row_off, sel, col_off, out,
+                                                                n, num_cols, e);
+  } else {
+    if (int rc = cuckoo_grid<false>(needed, &blocks)) return rc;
+    cuckoo_lookup_kernel<false><<<blocks, kCuckooThreads, 0, s>>>(values, valid, t4, nbs, row_off, sel, col_off,
+                                                                 out, n, num_cols, e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -315,7 +315,11 @@ def interaction_fwd_plain(x: torch.Tensor, self_interaction: bool = False) -> to
 def interaction_bwd_plain(x: torch.Tensor, grad: torch.Tensor, self_interaction: bool = False) -> torch.Tensor:
     """dX[b, i] = sum_j w[b, i, j] X[b, j] as the kernel sums it: over j in
     order, one fmaf a step, w the pairs' gradient as a symmetric [F, F]
-    matrix (2 g_ii on its diagonal in the self mode, 0 in the strict one)."""
+    matrix (2 g_ii on its diagonal in the self mode, 0 in the strict one).
+    Then the reference's rule at non-finite x (its autograd's dense products
+    take every zero weight): NaN wherever another row's x[b, j, d] is not
+    finite; the strict mode's zero diagonal has made it NaN already where
+    x[b, i, d] itself is not."""
     B, F, D = x.shape
     rows, cols = (torch.from_numpy(a).to(x.device) for a in np.tril_indices(F, k=0 if self_interaction else -1))
     w = torch.zeros((B, F, F), dtype=x.dtype, device=x.device)
@@ -324,7 +328,9 @@ def interaction_bwd_plain(x: torch.Tensor, grad: torch.Tensor, self_interaction:
     dx = torch.zeros_like(x)
     for j in range(F):
         dx = _fma(w[:, :, j, None], x[:, None, j, :], dx)
-    return dx
+    bad = ~torch.isfinite(x)
+    others = bad.sum(1, keepdim=True) - bad.to(torch.int64) > 0
+    return dx.masked_fill(others, float("nan"))
 
 
 class DotInteraction(torch.autograd.Function):

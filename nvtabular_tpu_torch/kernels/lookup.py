@@ -207,7 +207,9 @@ def cuckoo_lookup(values, validity, table, nbs, row_offsets, sel, col_offsets, m
 
     table [R, 8] int32: bucket rows ``[k0..k3, v0..v3]`` (v = -1: empty);
     column row b owns rows ``row_offsets[b] : row_offsets[b] + nbs[b]``.
-    nbs/row_offsets int64 (nbs < 2**32)."""
+    nbs/row_offsets int64 (0 < nbs < 2**32). Each key sits in one slot of
+    its two buckets, as ``ops.lookup.build_cuckoo`` places it: the kernel
+    reads the second bucket only where the first misses."""
     _check_common(values, validity, sel, col_offsets, nbuckets)
     dev = values.device
     B = nbs.shape[0]
@@ -253,6 +255,19 @@ def _probe_plain(rows, values, code, hit, live=True):
         code = torch.where(h, rows[..., BUCKET_SLOTS + slot], code)
         hit = hit | h
     return code, hit
+
+
+def fastmod_multiplier(d: int) -> int:
+    """csrc/lookup.cu fastmod_m: ceil(2**64 / d) mod 2**64 for 0 < d < 2**32,
+    the multiplier K3 takes for each column's bucket count (Lemire, Kaser and
+    Kurz, "Faster remainder by direct computation", 2019)."""
+    return ((2**64 - 1) // d + 1) % 2**64
+
+
+def fastmod(a: int, m: int, d: int) -> int:
+    """csrc/lookup.cu fastmod: ``a % d`` for a 32-bit ``a`` as the kernel
+    computes it, the 64-bit multiply-high of ``(m * a) mod 2**64`` and d."""
+    return ((m * a) % 2**64 * d) >> 64
 
 
 def bucket_index_plain(values: torch.Tensor, nb, seed: int) -> torch.Tensor:

@@ -42,8 +42,11 @@ _ARGTYPES = [
 ]
 _UINT = {4: np.uint32, 8: np.uint64}
 COMBINERS = {"sum": 0, "mean": 1, "min": 2, "max": 3}
+# values, T, offsets, R, num_rows, combiner, tiles, scratch, out, stream
 _REDUCE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p]
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+SEG_THREADS, SEG_ITEMS = 256, 15  # csrc/ragged.cu kSegThreads, kSegItems: a tile's threads and a thread's items
+SEG_TILE = SEG_THREADS * SEG_ITEMS  # merge-path items (values and row ends) a tile
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
 
 
@@ -152,6 +155,15 @@ def _check_reduce(values: torch.Tensor, offsets: torch.Tensor, num_rows: int, co
     return rows
 
 
+def segment_plan(T: int, rows: int, num_rows: int) -> Tuple[int, int]:
+    """(tiles, scratch int64s) of K11c: the merge path of the row ends of
+    rows [0, min(num_rows, rows)) and the T values, in tiles of SEG_TILE
+    items; the scratch holds each tile boundary's row count (tiles + 1),
+    then each tile's head and tail carries (4 bytes each: tiles int64s)."""
+    tiles = -(-(min(num_rows, rows) + T) // SEG_TILE)
+    return tiles, 2 * tiles + 1
+
+
 def ragged_segment_reduce(values: torch.Tensor, offsets: torch.Tensor, num_rows: int,
                           combiner: str = "sum") -> torch.Tensor:
     """Per-row ``combiner`` of a ragged float32 column → float32 [num_rows]."""
@@ -159,12 +171,18 @@ def ragged_segment_reduce(values: torch.Tensor, offsets: torch.Tensor, num_rows:
     if not use_kernel(values):
         return ragged_segment_reduce_plain(values, offsets, num_rows, combiner)
     out = torch.empty(num_rows, dtype=torch.float32, device=values.device)
+    if num_rows == 0:
+        return out
+    tiles, words = segment_plan(values.shape[0], rows, num_rows)
+    if tiles >= 2**31:
+        raise ValueError(f"{values.shape[0]} values pass K11c's grid of {2**31 - 1} tiles")
+    scratch = torch.empty(words, dtype=torch.int64, device=values.device)
     fn = library("ragged").nvt_ragged_segment_reduce
     if fn.argtypes is None:
         fn.argtypes = _REDUCE_ARGTYPES
         fn.restype = ctypes.c_int
-    rc = fn(ptr(values), values.shape[0], ptr(offsets), rows, num_rows, COMBINERS[combiner], ptr(out),
-            stream_ptr(values.device))
+    rc = fn(ptr(values), values.shape[0], ptr(offsets), rows, num_rows, COMBINERS[combiner], tiles, ptr(scratch),
+            ptr(out), stream_ptr(values.device))
     raise_on_error(rc, "ragged_segment_reduce")
     LAUNCHES["ragged_segment_reduce"] += 1
     return out

@@ -2163,6 +2163,155 @@ def test_ragged_segment_reduce_takes_empty_inputs():
     assert out.shape == (0,)
 
 
+
+def _merge_path_case(case, rng):
+    """(values, offsets, num_rows) of a K11c edge case: rows of length 0, 1
+    and many; one row over hundreds of merge-path tiles (3,840 items each);
+    values before offsets[0] and past offsets[R]; rows dropped (num_rows <
+    R) and added (num_rows > R); T not a multiple of 4."""
+    if case == "lengths_0_1_many":
+        lengths = rng.choice([0, 1, 2, 7, 300], 20_001, p=[0.3, 0.3, 0.2, 0.15, 0.05])
+    elif case == "head_row_over_hundreds_of_tiles":
+        lengths = rng.integers(0, 40, 5_000)
+        lengths[1_234] = 900_001
+    else:
+        lengths = rng.integers(0, 60, 3_001)
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    pre, post = (13, 1_001) if case in ("before_and_past", "more_rows_than_offsets", "fewer_rows_kept") else (0, 0)
+    offsets += pre
+    T = int(offsets[-1]) + post
+    T += 3 - T % 4 if T % 4 == 0 else 0  # not a multiple of 4
+    values = (rng.integers(-4, 11, T) / 2.0).astype(np.float32)
+    values[rng.random(T) < 2e-3] = np.nan
+    R = len(lengths)
+    num_rows = {"fewer_rows_kept": R - 777, "more_rows_than_offsets": R + 5}.get(case, R)
+    return values, offsets, num_rows
+
+
+MERGE_PATH_CASES = ["lengths_0_1_many", "head_row_over_hundreds_of_tiles", "before_and_past", "fewer_rows_kept",
+                    "more_rows_than_offsets"]
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["aligned", "odd_offset"])
+@pytest.mark.parametrize("combiner", ["sum", "mean", "min", "max"])
+@pytest.mark.parametrize("case", MERGE_PATH_CASES)
+def test_ragged_segment_reduce_merge_path_edges(case, combiner, odd):
+    """K11c's merge path against the plain version at its edges, the values
+    also as a view one float past a 16-byte boundary (its staging's
+    unaligned head): min and max bit for bit, sum and mean within 1e-5 of
+    the float64 sum of |v| of the row; a mean takes num_rows == R."""
+    _require_cuda()
+    rng = np.random.default_rng(MERGE_PATH_CASES.index(case) + 60)
+    values, offsets, num_rows = _merge_path_case(case, rng)
+    if combiner == "mean":
+        num_rows = len(offsets) - 1
+    v = torch.from_numpy(np.concatenate([[7.0], values]).astype(np.float32)).cuda()[1:] if odd else \
+        torch.from_numpy(values).cuda()
+    assert (v.data_ptr() % 16 != 0) == odd
+    off = torch.from_numpy(offsets).cuda()
+    kernels.reset_launches()
+    got = kragged.ragged_segment_reduce(v, off, num_rows, combiner)
+    want = kragged.ragged_segment_reduce_plain(v, off, num_rows, combiner)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_segment_reduce"] == 1 and got.shape == (num_rows,)
+    if combiner in ("min", "max"):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got, posinf=1e30, neginf=-1e30),
+                           torch.nan_to_num(want, posinf=1e30, neginf=-1e30))
+        return
+    exact, scale = _float64_reduce(values, offsets, num_rows, combiner)
+    nan = torch.isnan(exact)
+    out = got.cpu().double()
+    assert torch.equal(out.isnan(), nan)
+    assert bool(((out - exact).abs()[~nan] <= 1e-5 * scale[~nan] + 1e-6).all())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_ragged_segment_reduce_sums_are_the_same_from_run_to_run(combiner):
+    """Every sum is taken in an order fixed by the shapes (no atomics): two
+    calls give equal bits, the head row over hundreds of tiles included."""
+    _require_cuda()
+    values, offsets, num_rows = _merge_path_case("head_row_over_hundreds_of_tiles", np.random.default_rng(66))
+    v, off = torch.from_numpy(values).cuda(), torch.from_numpy(offsets).cuda()
+    first = kragged.ragged_segment_reduce(v, off, num_rows, combiner)
+    second = kragged.ragged_segment_reduce(v, off, num_rows, combiner)
+    torch.cuda.synchronize()
+    assert torch.equal(first.isnan(), second.isnan())
+    assert torch.equal(first.nan_to_num(), second.nan_to_num())
+
+
+def _cuckoo_tables(rng, sizes):
+    """Cuckoo tables from build_cuckoo of ``sizes`` random int32 keys each
+    (codes 3, 4, ...), batched, with each column's keys."""
+    keysets = [rng.permutation(np.unique(rng.integers(I32_MIN, I32_MAX, int(n * 1.02))))[:n].astype(np.int32)
+               for n in sizes]
+    luts = [plookup.build_cuckoo(k, np.arange(len(k)) + 3) for k in keysets]
+    return plookup.BatchedCuckoo(luts), luts, keysets
+
+
+def _in_second_bucket(lut, keys):
+    """How many of ``keys`` sit in their second bucket (b1 != b0)."""
+    u = torch.from_numpy(keys)
+    b0, b1 = (klk.bucket_index_plain(u, lut.nb, seed).numpy() for seed in klk.SEEDS)
+    packed = lut.packed
+    in_b0 = ((packed[b0, :4] == keys[:, None]) & (packed[b0, 4:] >= 0)).any(1)
+    return int((~in_b0 & (b1 != b0)).sum())
+
+
+@pytest.mark.parametrize("layout", ["aligned", "odd_n", "unaligned_view"])
+@pytest.mark.parametrize("nbuckets", [False, True], ids=["one_oov", "hashed_oov"])
+@pytest.mark.parametrize("with_validity", [False, True])
+def test_cuckoo_lookup_probes_b1_only_on_a_b0_miss(with_validity, nbuckets, layout):
+    """K3 against its plain version (which probes both buckets, a later hit
+    overriding) on build_cuckoo tables of three sizes (1,000, 60,000 and
+    700,000 keys; some keys evicted into their second bucket): codes equal,
+    with misses (20%), invalid rows, several OOV buckets a column, N not a
+    multiple of 4, and the values as a view one int past a 16-byte boundary
+    (the kernel's scalar path)."""
+    _require_cuda()
+    rng = np.random.default_rng(70)
+    blut, luts, keysets = _cuckoo_tables(rng, [1_000, 60_000, 700_000])
+    assert all(_in_second_bucket(lut, k) > 0 for lut, k in zip(luts[1:], keysets[1:]))
+    sel = [0, 1, 2, 2, 1]
+    n = 100_003 if layout == "odd_n" else 100_000
+    values = _queries(rng, [keysets[s] for s in sel], n)
+    validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+    sel_t = torch.tensor(sel, dtype=torch.int32)
+    offs = torch.tensor([5 * i for i in range(len(sel))], dtype=torch.int32)
+    nb = torch.tensor([1, 1000, 3, 2**31 - 1, 7], dtype=torch.int32) if nbuckets else None
+    want = blut.encode(values, validity, sel_t, offs, nbuckets=nb)
+    dev = blut.to("cuda")
+    if layout == "unaligned_view":
+        vals = torch.cat([torch.zeros(1, dtype=torch.int32), values.flatten()]).cuda()[1:].view(values.shape)
+        assert vals.data_ptr() % 16 != 0
+    else:
+        vals = values.cuda()
+    kernels.reset_launches()
+    got = dev.encode(vals, None if validity is None else validity.cuda(), sel_t.cuda(), offs.cuda(),
+                     nbuckets=None if nb is None else nb.cuda())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cuckoo_lookup"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cuckoo_lookup_solo_branch():
+    """One table row (K8's solo branch, counted as cuckoo_lookup_solo) at
+    N = 262,147 over 200,000 keys, against the plain version."""
+    _require_cuda()
+    rng = np.random.default_rng(71)
+    blut, luts, keysets = _cuckoo_tables(rng, [200_000])
+    values = _queries(rng, keysets, 262_147)
+    zero = torch.zeros(1, dtype=torch.int32)
+    want = klk.cuckoo_lookup_plain(values, None, blut.table, blut.nbs, blut.row_offsets, zero, zero)
+    dev = blut.to("cuda")
+    kernels.reset_launches()
+    got = klk.cuckoo_lookup(values.cuda(), None, dev.table, dev.nbs, dev.row_offsets, zero.cuda(), zero.cuda(),
+                            counter="cuckoo_lookup_solo")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cuckoo_lookup_solo"] == 1 and kernels.LAUNCHES["cuckoo_lookup"] == 0
+    assert torch.equal(got.cpu(), want)
+
+
 def _session_parts(n_parts=3, rows=20_000):
     parts = []
     for seed in range(n_parts):
@@ -2639,23 +2788,24 @@ def test_interaction_streamed_kernels_at_the_tiles_edges(B, F, D, self_interacti
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("aligned", [False, True], ids=["lead1", "aligned"])
-@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
-def test_interaction_streamed_kernels_skip_the_strict_diagonal(self_interaction, aligned):
-    """NaN and infinities in x at [2, 57, 1024] (233 KB a sample): both
-    kernels equal the plain versions, NaN where they have NaN, except at a
-    non-finite entry's own gradient in the strict mode. The strict backward
-    skips j == i (the mode has no pair (i, i)), where the plain version's
-    zero weight times the infinite x_i gives NaN: there the kernel is finite
-    and within 1e-5 of a float64 sum over j != i. The self mode weighs the
-    entry by 2 g_ii, so there the gradient is infinite or NaN."""
-    _require_cuda()
-    g = torch.Generator(device="cuda").manual_seed(57)
-    B, F, D = 2, 57, 1024
-    P = kint.num_pairs(F, self_interaction)
-    lead = 0 if aligned else 1
+def _nonfinite_x(B, F, D, lead, seed):
+    """float32 [B, F, D] on the card (its data ``lead`` floats past a 16-byte
+    boundary) with inf, -inf and NaN: a lone one in a column, and two in one
+    column (a row's own and another's)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B * F * D + lead, device="cuda", generator=g)[lead:].view(B, F, D)
-    x[0, 5, 3], x[0, 9, 7], x[1, 20, 100], x[1, 56, 1023] = float("inf"), -float("inf"), float("nan"), float("inf")
+    x[0, 1, 3], x[0, F - 2, 7], x[1, F // 3, D - 1] = float("inf"), -float("inf"), float("nan")
+    x[1, 0, 0], x[1, F - 1, 0] = float("inf"), float("inf")
+    return x, g
+
+
+def _hold_nonfinite(x, g, self_interaction):
+    """Both kernels on x against the plain versions: the forward within one
+    ULP, the backward within 1e-5 (the plain version's fmaf rounds twice
+    about once in 2^29), NaN and inf exactly where the plain version (which
+    follows the reference, tests/test_torch_layers.py) has them."""
+    B, F, D = x.shape
+    P = kint.num_pairs(F, self_interaction)
     buf = torch.zeros((B, 3 + P), device="cuda")
     grad = torch.randn((B, 5 + P), device="cuda", generator=g)[:, 5:]
     kint.interaction_fwd(x, out=buf[:, 3:], self_interaction=self_interaction)
@@ -2663,21 +2813,41 @@ def test_interaction_streamed_kernels_skip_the_strict_diagonal(self_interaction,
     torch.cuda.synchronize()
     torch.testing.assert_close(buf[:, 3:], kint.interaction_fwd_plain(x, self_interaction), rtol=2**-23, atol=0,
                                equal_nan=True)
-    own = ~torch.isfinite(x)
-    mask = ~own if not self_interaction else torch.ones_like(own)
-    torch.testing.assert_close(dx[mask], kint.interaction_bwd_plain(x, grad, self_interaction)[mask], rtol=1e-5,
-                               atol=1e-5, equal_nan=True)
-    assert bool(torch.isfinite(dx[own]).all()) != self_interaction
-    if not self_interaction:
-        rows, cols = (torch.from_numpy(a).cuda() for a in np.tril_indices(F, k=-1))
-        w = torch.zeros((B, F, F), dtype=torch.float64, device="cuda")
-        w[:, rows, cols] = grad.double()
-        w = w + w.transpose(1, 2)
-        for b, i, d in own.nonzero().tolist():
-            other = torch.arange(F, device="cuda") != i
-            terms = w[b, i, other] * x[b, other, d].double()
-            torch.testing.assert_close(dx[b, i, d].double(), terms.sum(), rtol=0,
-                                       atol=1e-5 * float(terms.abs().sum()))
+    want = kint.interaction_bwd_plain(x, grad, self_interaction)
+    assert torch.equal(dx.isnan(), want.isnan()) and torch.equal(dx.isinf(), want.isinf())
+    assert int(want.isnan().sum()) >= 3 * (F - 1)
+    torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("aligned", [False, True], ids=["lead1", "aligned"])
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_streamed_kernels_skip_the_strict_diagonal(self_interaction, aligned):
+    """NaN and infinities in x at [2, 57, 1024] (233 KB a sample): both
+    streamed kernels equal the plain versions, NaN positions included. The
+    strict backward takes the absent pair (i, i)'s zero weight as the
+    reference does, so a non-finite x_i makes its own gradient NaN, and
+    every other row of its column is NaN (_hold_nonfinite)."""
+    _require_cuda()
+    x, g = _nonfinite_x(2, 57, 1024, 0 if aligned else 1, 57)
+    kernels.reset_launches()
+    _hold_nonfinite(x, g, self_interaction)
+    mode = "interaction_self" if self_interaction else "interaction"
+    assert kernels.LAUNCHES[mode + "_bwd_streamed"] == 1
+
+
+@pytest.mark.parametrize("aligned", [False, True], ids=["lead1", "aligned"])
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+def test_interaction_staged_kernels_follow_the_reference_at_nonfinite_x(self_interaction, aligned):
+    """The twin of the streamed test at DLRM's staged shape [2, 27, 16]
+    (float4 columns where aligned, one float where not), and at [2, 27, 66]
+    (more items a sample than the block has threads: the direct path)."""
+    _require_cuda()
+    for D in (16, 66):
+        x, g = _nonfinite_x(2, 27, D, 0 if aligned else 1, D)
+        kernels.reset_launches()
+        _hold_nonfinite(x, g, self_interaction)
+        mode = "interaction_self" if self_interaction else "interaction"
+        assert kernels.LAUNCHES[mode + "_bwd"] == 1
 
 
 @pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])

@@ -1,6 +1,6 @@
 """The host-side launch plans of K13b's forward and backward, of K13d's
-kernels and of ``range_bag_grad`` (K15d's bag gradient, also K13c's
-backward), on the CPU.
+kernels, of ``range_bag_grad`` (K15d's bag gradient, also K13c's
+backward), of K11c's merge-path tiles and K3's fastmod, on the CPU.
 
 Both CUDA kernels take their shapes of work from a plan the wrapper computes
 in Python: the samples a group of K13b's backward and the columns a thread
@@ -21,7 +21,9 @@ from nvtabular_tpu_torch.kernels import cross as kcross
 from nvtabular_tpu_torch.kernels import embedding as kemb
 from nvtabular_tpu_torch.kernels import embedding_bag as kbag
 from nvtabular_tpu_torch.kernels import interaction as kint
+from nvtabular_tpu_torch.kernels import lookup as klk
 from nvtabular_tpu_torch.kernels import permute as kperm
+from nvtabular_tpu_torch.kernels import ragged as kragged
 
 # (F, D): DLRM's Criteo step, the multihot DLRM's, the GPU tests' shapes
 INTERACTION_SHAPES = [(27, 16), (4, 64), (5, 8), (2, 3), (28, 12), (26, 20), (33, 24), (9, 5), (2, 1)]
@@ -378,3 +380,55 @@ def test_embedding_bag_fwd_launches(B, D, vec, launches):
     rows = kbag.fwd_rows(B, D, vec)
     assert rows >= 1 and rows * (D // vec) <= 2**31 - 1 and (rows == B or (rows + 1) * (D // vec) > 2**31 - 1 or B == 0)
     assert -(-B // rows) == launches
+
+
+# (T, R, num_rows, tiles): phase 26's lists, empty inputs, rows dropped or added
+SEGMENT_PLANS = [
+    (12_372_651, 146_994, 146_994, 3_261),
+    (0, 0, 3, 0),
+    (0, 3, 3, 1),
+    (3_840 - 5, 5, 5, 1),
+    (3_840 - 5, 5, 6, 1),
+    (3_840 - 4, 5, 5, 2),
+    (5, 0, 1, 1),
+    (100, 50, 10, 1),
+    (3_000_000, 5_000, 5_001, 783),
+]
+
+
+@pytest.mark.parametrize("T,R,num_rows,tiles", SEGMENT_PLANS)
+def test_segment_reduce_plan(T, R, num_rows, tiles):
+    """K11c's merge path holds the T values and the row ends of rows [0,
+    min(num_rows, R)) in tiles of SEG_TILE = 256 threads x 15 items (odd, so
+    that a warp's neighbouring runs of values start in other banks); the
+    scratch holds the tiles + 1 boundaries' row counts and each tile's two
+    4-byte carries."""
+    assert kragged.SEG_TILE == 3_840 and kragged.SEG_ITEMS % 2 == 1
+    assert kragged.segment_plan(T, R, num_rows) == (tiles, 2 * tiles + 1)
+    assert (tiles - 1) * kragged.SEG_TILE < min(num_rows, R) + T <= tiles * kragged.SEG_TILE
+
+
+def test_segment_reduce_constants_match_the_source():
+    """SEG_THREADS and SEG_ITEMS are csrc/ragged.cu's kSegThreads and kSegItems."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kragged.__file__).parent.parent / "csrc" / "ragged.cu").read_text()
+    assert int(re.search(r"kSegThreads = (\d+);", src).group(1)) == kragged.SEG_THREADS
+    assert int(re.search(r"kSegItems = (\d+);", src).group(1)) == kragged.SEG_ITEMS
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 1000, 2**31 + 11, 2**32 - 1, 262_147, 4_002_446 // 3 + 1])
+def test_cuckoo_fastmod_equals_the_remainder(d):
+    """K3's bucket index takes fastmod(a, m, d) for a % d: exact for every
+    32-bit a at each bucket count (edges, multiples of d, their neighbours,
+    and random words)."""
+    import numpy as np
+
+    m = klk.fastmod_multiplier(d)
+    rng = np.random.default_rng(d % 1_000_003)
+    edges = [0, 1, 2, d - 1, d, d + 1, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1]
+    multiples = [q * d + r for q in rng.integers(0, 2**32 // d, 200).tolist() for r in (-1, 0, 1)]
+    words = rng.integers(0, 2**32, 20_000, dtype=np.uint64).tolist()
+    for a in [a for a in edges + multiples + words if 0 <= a < 2**32]:
+        assert klk.fastmod(a, m, d) == a % d, (a, d)

@@ -94,6 +94,55 @@ def test_dlrm_interaction_with_a_lead_writes_after_it():
     torch.testing.assert_close(out[:, 8:], kint.interaction_fwd_plain(x, True), rtol=0, atol=0)
 
 
+
+INF, NAN = float("inf"), float("nan")
+NONFINITE_X = {
+    # (b, i, d, value): the entries of x set before the gradient
+    "inf": [(0, 5, 3, INF)],
+    "neg_inf": [(1, 9, 7, -INF)],
+    "nan": [(0, 26, 15, NAN)],
+    "inf_and_nan": [(0, 5, 3, INF), (1, 9, 7, NAN)],
+    "two_in_one_column": [(1, 4, 6, INF), (1, 20, 6, -INF)],
+}
+
+
+@pytest.mark.parametrize("self_interaction", [False, True], ids=["strict", "self"])
+@pytest.mark.parametrize("case", sorted(NONFINITE_X))
+def test_interaction_grad_follows_jax_at_nonfinite_x(case, self_interaction):
+    """The plain backward (which the kernels equal bit for bit) against
+    jax.vjp of dot_product_interaction where x has inf, -inf or NaN: the
+    reference's dense products take every zero weight of the scattered [F,
+    F] gradient, so dX[b, i, d] is NaN wherever another row's x[b, j, d] is
+    not finite, and in the strict mode also where x[b, i, d] itself is not;
+    the self mode's own row of a lone inf is +-inf (2 g_ii * inf). NaN and
+    inf positions exactly; finite entries within 1e-5 of their terms'
+    magnitudes + 1e-6."""
+    rng = np.random.default_rng(27)
+    B, F, D = 2, 27, 16
+    x = rng.normal(size=(B, F, D)).astype(np.float32)
+    for b, i, d, v in NONFINITE_X[case]:
+        x[b, i, d] = v
+    cot = rng.normal(size=(B, kint.num_pairs(F, self_interaction))).astype(np.float32)
+
+    def jfn(f):
+        return jlayers.dot_product_interaction(f, self_interaction=self_interaction)
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    finite_x = np.where(np.isfinite(x), x, 0.0).astype(np.float32)
+    _, mvjp = jax.vjp(jfn, jnp.abs(jnp.asarray(finite_x)))
+    mag = np.asarray(mvjp(jnp.abs(jnp.asarray(cot)))[0])
+    got = n(kint.interaction_bwd_plain(t(x), t(cot), self_interaction))
+
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    columns = {(b, d) for b, _, d, _ in NONFINITE_X[case]}
+    assert int(np.isnan(want).sum()) >= len(columns) * (F - 1)  # every other row of each such column
+    finite = np.isfinite(want)
+    assert_within_terms(got[finite], want[finite], mag[finite])
+
+
 # --- K13d: the xDeepFM CIN layer -----------------------------------------------------------
 CIN_CASES = [
     # (B, Hk, F, D, Hn, same): layer 1 (x_k is x_0), a deeper layer (Hk != F), odd D
