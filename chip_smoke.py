@@ -78,9 +78,11 @@ a nonzero exit:
    one step through the kernels against the plain versions on the card in
    bfloat16 and float32; and ListSlice(0, 3, pad=True) of the genres codes
    over every batch (K11's slice);
-11. ragged_to_padded, ragged_slice_padded, embedding_bag_fwd and
-   embedding_bag_bwd at phase 10's shapes against their plain versions on
-   the card, timed beside their bounds and the library calls (--profile:
+11. ragged_to_padded, ragged_slice_padded, permute_rows (the feed's first
+   chunk unpermuted, its [n, 4] lists and masks among its arrays),
+   embedding_bag_fwd and embedding_bag_bwd at phase 10's shapes against
+   their plain versions on the card, timed beside their bounds and the
+   library calls (--profile:
    embedding_bag_bwd's zero fill and kernel apart);
 12. crossed features on phase 3's partitions (Criteo's low-cardinality
    fields): TargetEncoding("label", kfold=5, p_smooth=20) on the groups
@@ -493,6 +495,15 @@ def lookup_record(job, plain_fn, args, kernel_fn):
         "plain_ms": time_ms(lambda: plain_fn(*args)),
         "library_ms": None,
     }
+
+
+def tiny_padded_rows(t, sel):
+    """The tiny bin's rows for each value row, sorted to the end: the slots
+    past a row's length hold INT32_MAX (the library call's yardstick,
+    torch.searchsorted, needs sorted rows; positions only)."""
+    j = torch.arange(t.keys.shape[1], device=t.keys.device)[None, :]
+    rows = torch.where(j < t.lens[:, None], t.keys, torch.iinfo(torch.int32).max)
+    return rows[sel.long()].contiguous()
 
 
 def cuckoo_probes(values, validity, t, sel) -> dict:
@@ -1396,10 +1407,11 @@ def multihot_path(nvt, dev, ml_parts, profile: bool) -> dict:
 
 
 def multihot_kernel_records(mh: dict, profile: bool) -> dict:
-    """Phase 11: K11 and K13c at phase 10's shapes against their plain
+    """Phase 11: K11, K14 and K13c at phase 10's shapes against their plain
     versions on the card, timed beside their bounds and library calls;
     ``profile`` adds torch.profiler's split of K13c's backward."""
     from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+    from nvtabular_tpu_torch.kernels import permute as kperm
     from nvtabular_tpu_torch.kernels import ragged as kragged
 
     records = {}
@@ -1438,6 +1450,27 @@ def multihot_kernel_records(mh: dict, profile: bool) -> dict:
            library_fn=lambda: torch.ops.aten._jagged_to_padded_dense_forward(
                values.view(torch.float32)[:, None], [offsets], [3], 0.0),
            shape=[R, 3], values=int(values.shape[0]))
+
+    # K14 on the multihot feed's first chunk unpermuted, as its loader hands
+    # it over: its [n, 4] genres lists and masks beside four columns
+    feed = mh["train"]["loader"]
+    arrays = feed._device_arrays(next(iter(feed._source())))
+    n = arrays["label"].shape[0]
+    perm = torch.randperm(n, device=feed.device, generator=torch.Generator(device=feed.device).manual_seed(1))
+    got = kperm.permute_rows(arrays, perm)
+    widths = {k: list(v.shape[1:]) for k, v in arrays.items()}
+    if widths["genres__values"] != [MH_SPARSE_MAX] or widths["genres__mask"] != [MH_SPARSE_MAX]:
+        fail(f"permute_rows: the multihot chunk's lists and masks are not {MH_SPARSE_MAX} wide: {widths}")
+    row_bytes = sum(v[0].numel() * v.element_size() for v in arrays.values())
+    want = kperm.permute_rows_plain(arrays, perm)
+    record("permute_rows:multihot", [got[k] for k in arrays], [want[k] for k in arrays],
+           lambda: kperm.permute_rows(arrays, perm), lambda: kperm.permute_rows_plain(arrays, perm),
+           2 * n * row_bytes + n * perm.element_size(), 0,
+           library_fn=lambda: [torch.index_select(v, 0, perm) for v in arrays.values()],
+           shape=[len(arrays), n], row_widths=widths)
+    log(f"permute_rows: the multihot chunk's {len(arrays)} arrays of {n} rows (row widths {widths}) equal "
+        f"permute_rows_plain")
+    del arrays, got, want
 
     # K13c on a training batch's padded genres, its output and gradient a
     # slot of the MLP's [B, 1044] input, as the model passes them
@@ -1814,6 +1847,8 @@ def crossed_kernel_records(dev, crossed: dict, sessions: dict) -> dict:
 BUCKETS = 1000  # not a power of two: a hash reduced by a mask would miss buckets
 LIBRARY_WHAT = {
     "sorted_lookup": "positions only",
+    "tiny_lookup": "positions only",
+    "tiny_lookup_solo": "positions only",
     "stash_lookup": "no PyTorch call hashes",
     "exchange_route": "no PyTorch call routes keys to owners by a hash at a stable rank",
     "embedding_range_gather": "index_select of the clamped local rows, no zeros for other shards' rows",
@@ -3944,7 +3979,9 @@ def solo_record(vocab, column, dev):
         args = (values, None, t.keys, t.codes, t.lens, sel, off)
         rec = lookup_record(job, klk.tiny_lookup_plain, args, lambda: klk.tiny_lookup(*args))
         v = int(t.lens[0])
-        rec.update(bytes=n * 8 + v * 8, table_keys=v)
+        rows = tiny_padded_rows(t, sel)
+        rec.update(bytes=n * 8 + v * 8, table_keys=v, library_what=LIBRARY_WHAT["tiny_lookup_solo"],
+                   library_ms=time_ms(lambda: torch.searchsorted(rows, values)))
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], n * math.ceil(math.log2(v + 1)) * 2)
     elif kind == "direct":
         args = (values, None, t.table, t.mins, t.maxs, t.lens, t.offsets, sel, off)
@@ -4070,7 +4107,9 @@ def main():
     rows = torch.unique(j["sel"].long())
     table_bytes = int(t.lens[rows].sum()) * 8
     probes = int(torch.log2(t.lens[j["sel"].long()].float() + 1).ceil().sum()) * n
-    rec.update(shape=[C, n], bytes=C * n * 8 + table_bytes)
+    rec.update(shape=[C, n], bytes=C * n * 8 + table_bytes, library_what=LIBRARY_WHAT["tiny_lookup"])
+    rows = tiny_padded_rows(t, j["sel"])
+    rec["library_ms"] = time_ms(lambda: torch.searchsorted(rows, j["values"]))
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], probes * 2)
     records["tiny_lookup"] = rec
 

@@ -21,10 +21,14 @@ The cases, by group (``--cases``; all by default):
 - ``k15d``: K15d's forward (``range_gather_columns``) on model shard 1 of 4
   of phase 20's padded tables, phase 21's shape;
 - ``repairs``: the kernels whose limits were repaired at their main-path
-  shapes: K14 over phase 7's 28 arrays (and 26 int16 columns where the tree
-  takes them), K12b on [500000] with 5 bounds, K17 at [65536, 429], K13a's
+  shapes: K12b on [500000] with 5 bounds, K17 at [65536, 429], K13a's
   gather and scatter at [65536, 26, 16] and K13c's forward at [65536, 4] of
   [23, 16];
+- ``k14``: K14 (``permute_rows``) over phase 8's 28 arrays (26 int32 codes,
+  the [n, 13] float32 dense block, the label) and phase 24a's 26 int16
+  columns, n = 262,144, one int64 permutation, and phase 8's 26 code columns
+  alone (the int16 case's random reads, twice its bytes), each also by the
+  identity permutation (the same bytes, read in order);
 - ``k11c``: K11c (``ragged_segment_reduce``) for each combiner over lists
   of phase 26's size: 12,372,651 ratings in the rows of the users that
   zipf(1.2) draws among 162,000 (chip_smoke.py's MovieLens users; the
@@ -35,7 +39,15 @@ The cases, by group (``--cases``; all by default):
   31% of the values moved out of the vocabularies (phase 15's miss share),
   and on one table row (the solo branch, ``cuckoo_lookup_solo``) of the
   largest vocabulary; the tables, built on the host by the tree's
-  ``build_cuckoo``, are cached in build/kernel_ab_k3.pt for the trees after.
+  ``build_cuckoo``, are cached in build/kernel_ab_k3.pt for the trees after;
+- ``k1``: K1 (``tiny_lookup``) on phase 4's tiny job (the 11 Criteo columns
+  of at most 4,096 keys, vocabularies of chip_smoke.py make_part's 16
+  partitions, batch 0's [11, 262144] ids), on the same job with 1,000 OOV
+  buckets a column and every value moved out of the vocabularies (K4's
+  hashed branch), and on one table row (the solo branch,
+  ``tiny_lookup_solo``) of the largest tiny vocabulary, each beside
+  ``torch.searchsorted`` over the padded rows (positions only). The job is
+  cached in build/kernel_ab_k1.pt.
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -68,6 +80,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 TIMED_ITERS, REPEATS, WARMUP_S = 25, 5, 0.3
 SLEEP_CYCLES = 100_000_000  # >= 50 ms at the H100's <= 1.98 GHz SM clock
@@ -111,9 +124,11 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 ]
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
-GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3")
+GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14")
 ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
+ML_MOVIES, ML_GENRES, ML_ROWS_PER_PART, MH_SPARSE_MAX = 62_000, 20, 500_000, 4  # chip_smoke.py
 K3_CACHE = Path("build") / "kernel_ab_k3.pt"
+K1_CACHE = Path("build") / "kernel_ab_k1.pt"
 
 
 def criteo_ids(torch, dev, gen):
@@ -333,19 +348,6 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
         from nvtabular_tpu_torch.kernels import cross as kcross
         from nvtabular_tpu_torch.kernels import embedding as kemb
         from nvtabular_tpu_torch.kernels import embedding_bag as kbag
-        from nvtabular_tpu_torch.kernels import permute as kperm
-
-        n = PERMUTE_ROWS
-        arrays = {f"C{c}": torch.randint(0, 2**31 - 1, (n,), device=dev, generator=gen, dtype=torch.int32)
-                  for c in range(F)}
-        arrays["dense"] = torch.randn((n, nd), device=dev, generator=gen)
-        arrays["label"] = torch.randn(n, device=dev, generator=gen)
-        perm = torch.randperm(n, device=dev, generator=gen)
-        narrow = {k: v.to(torch.int16) for k, v in arrays.items() if k.startswith("C")}
-        for what, arrs in (("28 arrays", arrays), ("26 int16 arrays", narrow)):
-            case(f"permute_rows {what} [{n}]", lambda a=arrs: kperm.permute_rows(a, perm),
-                 lambda a=arrs: max(equal(kperm.permute_rows(a, perm)[k], v[perm], f"permute_rows {k}")
-                                    for k, v in a.items()))
         xb = (torch.rand(BUCKET_ROWS, device=dev, generator=gen) * 1e6).float()
         bounds = torch.tensor(TS_BOUNDS, device=dev)
         case(f"bucketize [{BUCKET_ROWS}], {len(TS_BOUNDS)} bounds", lambda: kbk.bucketize(xb, bounds),
@@ -401,6 +403,78 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             case(f"ragged_segment_reduce {c} [{SESSION_VALUES}] in {R} rows (longest {int(lengths.max())})",
                  lambda c=c: kragged.ragged_segment_reduce(values, offsets, R, c), lambda c=c: check_reduce(c))
         del values, offsets
+    if "k14" in groups:
+        from nvtabular_tpu_torch.kernels import permute as kperm
+
+        n, m = PERMUTE_ROWS, ML_ROWS_PER_PART
+        arrays = {f"C{c}": torch.randint(0, 2**31 - 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+                  for c in range(F)}
+        arrays["dense"] = torch.randn((n, nd), device=dev, generator=gen)
+        arrays["label"] = torch.randn(n, device=dev, generator=gen)
+        perm = torch.randperm(n, device=dev, generator=gen)
+        codes = {k: v for k, v in arrays.items() if k.startswith("C")}
+        narrow = {k: v.to(torch.int16) for k, v in codes.items()}
+        # phase 10's feed: one MovieLens partition as DeviceLoader(sparse_max={"genres": 4}) hands it over
+        multihot = {
+            "dense": torch.randn((m, 1), device=dev, generator=gen),
+            "userId": torch.randint(3, ML_USERS + 3, (m,), device=dev, generator=gen, dtype=torch.int32),
+            "movieId": torch.randint(3, ML_MOVIES + 3, (m,), device=dev, generator=gen, dtype=torch.int32),
+            "genres__values": torch.randint(3, ML_GENRES + 3, (m, MH_SPARSE_MAX), device=dev, generator=gen,
+                                            dtype=torch.int32),
+            "genres__mask": (torch.rand((m, MH_SPARSE_MAX), device=dev, generator=gen) < 0.6).float(),
+            "label": torch.rand(m, device=dev, generator=gen) * 5,
+        }
+        mperm = torch.randperm(m, device=dev, generator=gen)
+        shapes = {"28 arrays": (arrays, perm), "26 int16 arrays": (narrow, perm), "26 int32 arrays": (codes, perm),
+                  "multihot chunk's 6 arrays": (multihot, mperm)}
+        for what, (arrs, p) in shapes.items():
+            rows = p.shape[0]
+            case(f"permute_rows {what} [{rows}]", lambda a=arrs, p=p: kperm.permute_rows(a, p),
+                 lambda a=arrs, p=p: max(equal(kperm.permute_rows(a, p)[k], v[p], f"permute_rows {k}")
+                                         for k, v in a.items()))
+            # the same bytes read in order: what random reads cost beside them
+            ident = torch.arange(rows, device=dev)
+            case(f"permute_rows {what} [{rows}], identity permutation",
+                 lambda a=arrs, i=ident: kperm.permute_rows(a, i))
+        # an independent random-gather rate: one index_select of the 26 columns' 6.8M values by a random
+        # permutation of them (int32 indexes), one random 4-byte or 2-byte read a value
+        flat = torch.cat(list(codes.values()))
+        idx = torch.randperm(flat.numel(), device=dev, generator=gen).int()
+        for dt in (torch.int32, torch.int16):
+            src = flat.to(dt)
+            case(f"index_select of {flat.numel()} {str(dt)[6:]} values by a random permutation",
+                 lambda s=src: torch.index_select(s, 0, idx))
+        del arrays, narrow, codes, multihot, flat, idx
+    if "k1" in groups:
+        from nvtabular_tpu_torch.kernels import lookup as klk
+
+        chip_smoke = smoke_module()
+        job = k1_job(torch)
+        keys, codes, lens, vals = (job[k].to(dev) for k in ("keys", "codes", "lens", "values"))
+        C, n = vals.shape
+        sel = torch.arange(C, dtype=torch.int32, device=dev)
+        offs = torch.zeros(C, dtype=torch.int32, device=dev)
+        moved = vals ^ 0x5A5A5A5A
+        nbk = torch.full((C,), 1000, dtype=torch.int32, device=dev)
+        big = int(job["largest"])
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        solo = tuple(t[big: big + 1].contiguous() for t in (keys, codes, lens))
+        runs = {
+            f"tiny_lookup [{C}, {n}] (phase 4's job)": (vals, (keys, codes, lens), sel, offs, None, None),
+            f"tiny_lookup [{C}, {n}], 1,000 OOV buckets, every value moved": (moved, (keys, codes, lens), sel, offs,
+                                                                               nbk, None),
+            f"tiny_lookup_solo [1, {n}] of {int(lens[big])} keys": (vals[big: big + 1].contiguous(), solo, zero,
+                                                                    zero, None, "tiny_lookup_solo"),
+        }
+        for name, (v, (k, cd, ln), sl, of, nk, counter) in runs.items():
+            def run(v=v, k=k, cd=cd, ln=ln, sl=sl, of=of, nk=nk, counter=counter):
+                return klk.tiny_lookup(v, None, k, cd, ln, sl, of, nbuckets=nk, counter=counter)
+
+            case(name, run, lambda v=v, k=k, cd=cd, ln=ln, sl=sl, of=of, nk=nk, run=run: equal(
+                run(), klk.tiny_lookup_plain(v, None, k, cd, ln, sl, of, nbuckets=nk), name))
+            rows = chip_smoke.tiny_padded_rows(SimpleNamespace(keys=k, lens=ln), sl)
+            case(f"searchsorted {name} (positions only)", lambda r=rows, v=v: torch.searchsorted(r, v))
+        del keys, codes, vals, moved
     if "k3" in groups:
         from nvtabular_tpu_torch.kernels import lookup as klk
 
@@ -445,6 +519,39 @@ def cuckoo_sectors(torch, klk, values, table, nb, ro) -> dict:
             "b0_share": float(hit0.float().mean())}
 
 
+def smoke_module():
+    """chip_smoke.py beside this script: its data makers and helpers."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def k1_job(torch) -> dict:
+    """Phase 4's tiny job: the Criteo columns of chip_smoke.py make_part of
+    at most TINY_MAX distinct ids over its 16 partitions, each column's ids
+    (codes 3, 4, ...) in the tree's BatchedTiny bin, batch 0's ids [C,
+    262144], and the row of the largest vocabulary. Cached in K1_CACHE."""
+    if K1_CACHE.exists():
+        return torch.load(K1_CACHE)
+    import numpy as np
+
+    from nvtabular_tpu_torch.ops import lookup as plookup
+
+    chip_smoke = smoke_module()
+    parts = [chip_smoke.make_part(s) for s in range(chip_smoke.NUM_PARTS)]
+    names = [f"C{i}" for i in range(chip_smoke.NUM_CATS)]
+    vocabs = {c: np.unique(np.concatenate([p[c] for p in parts])) for c in names}
+    cols = [c for c in names if len(vocabs[c]) <= plookup.TINY_MAX]
+    bin_ = plookup.BatchedTiny([plookup.TinyLookup(vocabs[c], np.arange(len(vocabs[c])) + 3) for c in cols])
+    job = {"keys": bin_.keys, "codes": bin_.codes, "lens": bin_.lens, "columns": cols,
+           "values": torch.from_numpy(np.stack([parts[0][c] for c in cols])),
+           "largest": int(bin_.lens.argmax())}
+    K1_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(job, K1_CACHE)
+    return job
+
+
 def k3_job(torch) -> dict:
     """Phase 3's cuckoo job: the Criteo columns of chip_smoke.py make_part
     past 4,096 distinct ids over its 16 partitions, each column's ids (codes
@@ -456,10 +563,9 @@ def k3_job(torch) -> dict:
         return torch.load(K3_CACHE)
     import numpy as np
 
-    sys.path.insert(1, str(Path(__file__).resolve().parent))
-    import chip_smoke
     from nvtabular_tpu_torch.ops import lookup as plookup
 
+    chip_smoke = smoke_module()
     parts = [chip_smoke.make_part(s) for s in range(chip_smoke.NUM_PARTS)]
     names = [f"C{i}" for i in range(chip_smoke.NUM_CATS)]
     vocabs = {c: np.unique(np.concatenate([p[c] for p in parts])) for c in names}

@@ -9,7 +9,7 @@
 // hash.cu, hash_pair.cu).
 //
 // Persistent grids: as many blocks as the card holds at once
-// (interaction.cu, fm.cu, sharded_embedding.cu).
+// (interaction.cu, fm.cu, sharded_embedding.cu, lookup.cu, permute.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,6 +51,26 @@ int resident_blocks(Kernel kernel, int threads, int smem, int64_t items, unsigne
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   *blocks = static_cast<unsigned>(items < resident ? items : resident);
+  return 0;
+}
+
+// A persistent grid's resident blocks, kept by its launcher (one for each
+// kernel) so that a launch finds them only at the first call and when its
+// dynamic shared memory changes: a launch at a solo shape takes a few
+// microseconds (lookup.cu, permute.cu).
+struct ResidentCache {
+  int smem = -1;
+  unsigned blocks = 0;
+};
+
+template <class Kernel>
+int cached_resident_blocks(ResidentCache& cache, Kernel kernel, int threads, int smem, int64_t items,
+                           unsigned* blocks) {
+  if (smem != cache.smem) {
+    if (int rc = resident_blocks(kernel, threads, smem, INT64_MAX, &cache.blocks)) return rc;
+    cache.smem = smem;
+  }
+  *blocks = static_cast<unsigned>(items < cache.blocks ? items : cache.blocks);
   return 0;
 }
 

@@ -38,7 +38,6 @@ namespace {
 
 constexpr int kTinyMax = 4096;
 constexpr int kThreads = 256;
-constexpr int kTinyRowsPerBlock = 4096;
 
 struct Epilogue {
   int32_t miss;
@@ -66,51 +65,259 @@ __device__ __forceinline__ int32_t epilogue(int32_t code, bool hit, int32_t v, i
   return out + off;
 }
 
+// Lemire, Kaser & Kurz, "Faster remainder by direct computation" (2019):
+// a % d = mulhi64((m * a) mod 2^64, d) for m = ceil(2^64 / d), every 32-bit a
+// and 0 < d < 2^32 (d = 1: m wraps to 0, and so does the remainder).
+__device__ __forceinline__ uint64_t fastmod_m(uint32_t d) { return ~uint64_t{0} / d + 1; }
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(m * a, d));
+}
+
+// The hashed branch's OOV code of int32 key v: 2 + hash_array(v) % nk, by
+// fastmod (nk > 1; mk its multiplier).
+__device__ __forceinline__ int32_t hashed_miss(int32_t v, uint32_t nk, uint64_t mk) {
+  return kOovIndex +
+         static_cast<int32_t>(fastmod(nvt::hash_lanes(static_cast<uint32_t>(v), static_cast<uint32_t>(v >> 31), 0u),
+                                      mk, nk));
+}
+
+// A thread's turn in K1 and K3: values [i0, i0 + cnt) of one column
+// (cnt <= kUnit) and whether each is a live (valid) row.
+constexpr int kUnit = 4;  // values a thread a turn: one int4
+struct ValueUnit {
+  int32_t v[kUnit];
+  bool live[kUnit];
+};
+
+// The unit's values and validity: a 16-byte value load and a 4-byte
+// validity word where kVec (cnt == 4, aligned), else one at a time.
+template <bool kVec>
+__device__ __forceinline__ ValueUnit load_unit(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
+                                               int64_t i0, int cnt) {
+  ValueUnit u;
+  if constexpr (kVec) {
+    const int4 q = __ldcs(reinterpret_cast<const int4*>(values + i0));
+    u.v[0] = q.x; u.v[1] = q.y; u.v[2] = q.z; u.v[3] = q.w;
+    const uint32_t w = valid != nullptr ? __ldcs(reinterpret_cast<const unsigned int*>(valid + i0)) : 0x01010101u;
+#pragma unroll
+    for (int q4 = 0; q4 < kUnit; ++q4) u.live[q4] = ((w >> (8 * q4)) & 0xFFu) != 0;
+  } else {
+#pragma unroll
+    for (int q4 = 0; q4 < kUnit; ++q4) {
+      u.v[q4] = q4 < cnt ? values[i0 + q4] : 0;
+      u.live[q4] = q4 < cnt && (valid == nullptr || valid[i0 + q4] != 0);
+    }
+  }
+  return u;
+}
+
+// The unit's codes r: a 16-byte streaming store where kVec, else one at a time.
+template <bool kVec>
+__device__ __forceinline__ void store_unit(int32_t* __restrict__ out, int64_t i0, int cnt, const int32_t (&r)[kUnit]) {
+  if constexpr (kVec) {
+    __stcs(reinterpret_cast<int4*>(out + i0), make_int4(r[0], r[1], r[2], r[3]));
+  } else {
+#pragma unroll
+    for (int q4 = 0; q4 < kUnit; ++q4)
+      if (q4 < cnt) out[i0 + q4] = r[q4];
+  }
+}
+
 // K1: tiny vocabularies. Replaces BatchedTiny.encode_dev
 // (nvtabular_tpu/ops/lookup.py:157-167), which compares every value with
 // every key of its column and max-reduces the matching code.
 //
-// Bound: the value reads and code writes (8 B per value); the bin itself is
-// a few KB per column. A compare against all <= 4096 keys would make it
-// compute-bound (4096 compares per value), so instead each block stages its
-// column's keys and codes in shared memory (<= 32 KB, under the 48 KB static
-// limit) and each thread binary-searches its value: <= 12 shared-memory
-// probes. Vocabulary keys are unique, so the result equals the max-reduce.
-// The bin pads each row past lens[b] with the row's FIRST key, so that tail
-// is not sorted: the search covers [0, lens[b]) only.
-// Grid: (row blocks of kTinyRowsPerBlock rows, C).
-__global__ void __launch_bounds__(kThreads)
+// Row b of the bin holds its lens[b] keys sorted, then repeats its first key
+// to vmax (so only [0, lens[b]) is searched); vmax <= 4096. Each value takes
+// the lower bound of its column's keys, a hit where the key there equals it.
+// Vocabulary keys are unique, so that equals the reference's max-reduce.
+//
+// Bound: the value reads and code writes (8 B per value) and, on the
+// operations side, one compare a search step; a table is a few KB. Each
+// search step is integer work (a compare and two adds) beside one
+// shared-memory probe, and Hopper issues integer instructions at half the
+// rate of float ones, so at Criteo's tables (6.6 steps a value on average,
+// 12 at 2,209 keys) the instructions and probes a value bound the batched
+// launch, and the staging and the chain of dependent probes a short one.
+// Design:
+// * A persistent grid (the blocks the card holds at once, at most one a
+//   turn of 1,024 values, so that the solo branch's [1, 262144] spreads over
+//   every SM) splits the flat [C, N] values evenly; a block walks its share
+//   column by column and stages a column's keys only when it enters it.
+// * Staging: the row's keys are read as 16-byte vectors from its
+//   16-byte-aligned floor, every load issued before the barrier, and each key
+//   is written to its node of an Eytzinger (breadth-first) tree of 2^h - 1
+//   nodes (h = bit_length(len), so 2^h - 1 >= len; the sorted slots past len
+//   hold INT32_MAX, which no key is below). A level's lanes read nodes spread
+//   over all 32 banks (a sorted array's power-of-two steps would send them to
+//   one). Codes are not staged: a hit reads its code through L1.
+// * A thread takes 4 consecutive values a turn (one 16-byte load, the
+//   validity as one word, one 16-byte store; scalar edges where a segment is
+//   unaligned or short), the first turn's values loaded before the staging
+//   barrier and each next turn's before this one's searches.
+// * The search has a fixed depth h, the same for every lane of a column, and
+//   interleaves the thread's 4 values, so their 4 probes of a level are in
+//   flight together: k = 2k + (tree[k] < x) from k = 1 ends at 2^h + (keys
+//   < x), the lower bound, and k >> ffs(~k) is the node of the first key >= x.
+//   It steps shared-memory addresses, not indexes: three integer
+//   instructions a level. The unit's 4 hit tests, then its hits' 4 code
+//   loads, all go out before any result is used.
+constexpr int kTinyThreads = 256;
+constexpr int kTinyMinBlocks = 4;  // resident blocks an SM the registers must allow
+constexpr int kTinyStageVecs = (kTinyMax + 6) / 4 / kTinyThreads + 1;  // a thread's 16-byte key loads, at most
+
+__device__ __forceinline__ int bit_length(int x) { return 32 - __clz(x); }
+
+// The Eytzinger node of sorted slot i in a tree of 2^h - 1 nodes: the slot
+// j = i + 1 = (2m + 1) 2^t sits at depth h - 1 - t, m-th of its level.
+__device__ __forceinline__ int tiny_node(int i, int h) {
+  const int j = i + 1;
+  const int t = __ffs(j) - 1;
+  return (1 << (h - 1 - t)) + (j >> (t + 1));
+}
+
+// The dynamic shared memory: the tree's 2^bit_length(vmax) int32 slots
+// (node 0 unused), at least 4.
+inline int tiny_smem_bytes(int vmax) {
+  int h = 0;
+  while (h < 31 && (1 << h) <= vmax) ++h;
+  return 4 * ((1 << h) > 4 ? (1 << h) : 4);
+}
+
+struct TinyCol {  // one column's table and constants, in registers for its segment
+  const int32_t* codes;
+  int len, h;
+  int32_t col_off;
+  uint32_t nk;  // OOV buckets (0: one, the Epilogue's miss)
+  uint64_t mk;
+};
+
+// Stage a row of len keys as an Eytzinger tree of depth h.
+__device__ __forceinline__ void tiny_stage(const int32_t* keys, int len, int h, int32_t* tree) {
+  __syncthreads();  // the previous column's searches are done with the tree
+  const int ko = static_cast<int>((reinterpret_cast<uintptr_t>(keys) & 15) >> 2);
+  const int4* kv = reinterpret_cast<const int4*>(keys - ko);
+  const int nk4 = (ko + len + 3) >> 2;
+  int4 q[kTinyStageVecs];
+#pragma unroll
+  for (int s = 0; s < kTinyStageVecs; ++s) {
+    const int v = threadIdx.x + s * kTinyThreads;
+    if (v < nk4) q[s] = __ldg(kv + v);
+  }
+  for (int i = len + threadIdx.x; i < (1 << h) - 1; i += kTinyThreads) tree[tiny_node(i, h)] = INT32_MAX;
+#pragma unroll
+  for (int s = 0; s < kTinyStageVecs; ++s) {
+    const int v = threadIdx.x + s * kTinyThreads;
+    if (v < nk4) {
+      const int32_t k4[4] = {q[s].x, q[s].y, q[s].z, q[s].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * v + e - ko;
+        if (i >= 0 && i < len) tree[tiny_node(i, h)] = k4[e];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// A 4-byte load from shared-memory address a.
+__device__ __forceinline__ int32_t lds(uint32_t a) {
+  int32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
+// The unit's codes: its 4 searches interleaved level by level. A search
+// holds the shared address of its node k, a = tree + 4k; its child's is
+// tree + 4 (2k + (key < x)) = 2a - tree, plus 4 where key < x: a compare, a
+// shift-add and a predicated add a level.
+template <bool kVec>
+__device__ __forceinline__ void tiny_codes(const ValueUnit& u, uint32_t tree, const TinyCol& col,
+                                           int32_t* __restrict__ out, int64_t i0, int cnt, const Epilogue& e) {
+  uint32_t a[kUnit];
+#pragma unroll
+  for (int q4 = 0; q4 < kUnit; ++q4) a[q4] = tree + 4u;
+  for (int d = 0; d < col.h; ++d) {
+#pragma unroll
+    for (int q4 = 0; q4 < kUnit; ++q4) {
+      const bool right = lds(a[q4]) < u.v[q4];
+      a[q4] = 2u * a[q4] - tree;
+      if (right) a[q4] += 4u;
+    }
+  }
+  // the 4 hit tests' probes, then the hits' 4 code loads, go out before any is used
+  int pos[kUnit];
+  bool hit[kUnit];
+#pragma unroll
+  for (int q4 = 0; q4 < kUnit; ++q4) {
+    const int k = static_cast<int>((a[q4] - tree) >> 2);  // 2^h + (keys < x)
+    pos[q4] = k - (1 << col.h);
+    hit[q4] = lds(tree + 4u * static_cast<uint32_t>(k >> __ffs(~k))) == u.v[q4] && pos[q4] < col.len;
+  }
+  int32_t code[kUnit];
+#pragma unroll
+  for (int q4 = 0; q4 < kUnit; ++q4) code[q4] = hit[q4] ? __ldg(col.codes + pos[q4]) : e.miss;
+  if (col.nk > 1) {
+#pragma unroll
+    for (int q4 = 0; q4 < kUnit; ++q4)
+      if (!hit[q4]) code[q4] = hashed_miss(u.v[q4], col.nk, col.mk);
+  }
+  int32_t r[kUnit];
+#pragma unroll
+  for (int q4 = 0; q4 < kUnit; ++q4) r[q4] = (u.live[q4] ? code[q4] : e.null) + col.col_off;
+  store_unit<kVec>(out, i0, cnt, r);
+}
+
+// VEC: values and out 16-byte aligned, validity (if any) 4-byte aligned, so
+// a flat index that is a multiple of 4 aligns all three.
+template <bool VEC>
+__global__ void __launch_bounds__(kTinyThreads, kTinyMinBlocks)
 tiny_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
                    const int32_t* __restrict__ keys, const int32_t* __restrict__ codes,
                    const int32_t* __restrict__ lens, const int32_t* __restrict__ sel,
                    const int32_t* __restrict__ col_off, int32_t* __restrict__ out,
-                   int64_t n, int vmax, Epilogue e) {
-  __shared__ int32_t s_keys[kTinyMax];
-  __shared__ int32_t s_codes[kTinyMax];
-  const int c = blockIdx.y;
-  const int b = sel[c];
-  const int len = lens[b];
-  const int32_t* k = keys + static_cast<int64_t>(b) * vmax;
-  const int32_t* cd = codes + static_cast<int64_t>(b) * vmax;
-  for (int j = threadIdx.x; j < len; j += blockDim.x) {
-    s_keys[j] = k[j];
-    s_codes[j] = cd[j];
-  }
-  __syncthreads();
-  const int32_t off = col_off[c];
-  const int64_t base = static_cast<int64_t>(c) * n;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kTinyRowsPerBlock;
-  const int64_t stop = start + kTinyRowsPerBlock < n ? start + kTinyRowsPerBlock : n;
-  for (int64_t r = start + threadIdx.x; r < stop; r += blockDim.x) {
-    const int64_t i = base + r;
-    const int32_t v = values[i];
-    int lo = 0, hi = len;  // first slot whose key is >= v
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_keys[mid] < v) lo = mid + 1; else hi = mid;
+                   int64_t n, int num_cols, int vmax, Epilogue e) {
+  extern __shared__ int4 s_tiny4[];
+  int32_t* tree = reinterpret_cast<int32_t*>(s_tiny4);
+  constexpr int64_t kStride = kTinyThreads * kUnit;
+  const int64_t total = n * num_cols;
+  const int64_t share_end = total * (blockIdx.x + 1) / gridDim.x;
+  for (int64_t seg = total * blockIdx.x / gridDim.x; seg < share_end;) {  // the same for every thread
+    const int c = static_cast<int>(seg / n);
+    const int64_t seg_end = (c + 1) * n < share_end ? (c + 1) * n : share_end;
+    const int b = sel[c];
+    TinyCol col;
+    col.len = lens[b] < 0 ? 0 : (lens[b] > vmax ? vmax : lens[b]);
+    col.h = col.len > 0 ? bit_length(col.len) : 0;
+    col.codes = codes + static_cast<int64_t>(b) * vmax;
+    col.col_off = col_off[c];
+    const int32_t nk = e.nbuckets != nullptr ? e.nbuckets[c] : 0;
+    col.nk = nk > 1 ? static_cast<uint32_t>(nk) : 0u;
+    col.mk = col.nk > 1 ? fastmod_m(col.nk) : 0;
+    // [a0, a1): whole units of 4 (from a multiple of 4 where VEC); the 0-3 values on either side alone
+    int64_t a0 = VEC ? (seg + 3) & ~int64_t{3} : seg;
+    if (a0 > seg_end) a0 = seg_end;
+    const int64_t a1 = a0 + (seg_end - a0) / kUnit * kUnit;
+    int64_t i = a0 + static_cast<int64_t>(threadIdx.x) * kUnit;
+    ValueUnit cur;
+    if (i < a1) cur = load_unit<VEC>(values, valid, i, kUnit);  // in flight while the tree stages
+    tiny_stage(keys + static_cast<int64_t>(b) * vmax, col.len, col.h, tree);
+    const uint32_t t = nvt::smem_addr(tree);
+    if (threadIdx.x == 0 && a0 > seg) {
+      const int cnt = static_cast<int>(a0 - seg);
+      tiny_codes<false>(load_unit<false>(values, valid, seg, cnt), t, col, out, seg, cnt, e);
     }
-    const bool hit = lo < len && s_keys[lo] == v;
-    out[i] = epilogue(hit ? s_codes[lo] : 0, hit, v, c, valid, i, off, e);
+    if (threadIdx.x == 1 && seg_end > a1) {
+      const int cnt = static_cast<int>(seg_end - a1);
+      tiny_codes<false>(load_unit<false>(values, valid, a1, cnt), t, col, out, a1, cnt, e);
+    }
+    for (; i < a1; i += kStride) {
+      ValueUnit next;
+      if (i + kStride < a1) next = load_unit<VEC>(values, valid, i + kStride, kUnit);
+      tiny_codes<VEC>(cur, t, col, out, i, kUnit, e);
+      cur = next;
+    }
+    seg = seg_end;
   }
 }
 
@@ -190,16 +397,7 @@ __device__ __forceinline__ void probe(const int4& k, const int4& v, int32_t key,
 //   by ceil(2^64 / nb) and a 64-bit multiply-high; exact for every 32-bit
 //   value and nb < 2^32), as does the hashed branch's % nbuckets[c].
 constexpr int kCuckooThreads = 256;
-constexpr int kCuckooVec = 4;  // values a thread a turn: one int4
 constexpr int kCuckooMinBlocks = 4;  // resident blocks an SM the registers must allow
-
-// Lemire, Kaser & Kurz, "Faster remainder by direct computation" (2019):
-// a % d = mulhi64((m * a) mod 2^64, d) for m = ceil(2^64 / d), every 32-bit a
-// and 0 < d < 2^32 (d = 1: m wraps to 0, and so does the remainder).
-__device__ __forceinline__ uint64_t fastmod_m(uint32_t d) { return ~uint64_t{0} / d + 1; }
-__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
-  return static_cast<uint32_t>(__umul64hi(m * a, d));
-}
 
 struct CuckooCol {  // one column's constants, in registers for its segment
   int64_t row_off;
@@ -212,86 +410,46 @@ __device__ __forceinline__ int64_t cuckoo_bucket(uint32_t u, uint32_t seed, cons
   return col.row_off + fastmod(nvt::fmix32(u ^ seed), col.m, col.nb);
 }
 
-// A thread's turn: values [i0, i0 + cnt) of one column (cnt <= 4) and
-// whether each is a live (valid) row.
-struct CuckooUnit {
-  int32_t v[kCuckooVec];
-  bool live[kCuckooVec];
-};
-
-// The unit's values and validity: a 16-byte value load and a 4-byte
-// validity word where kVec (cnt == 4, aligned), else one at a time.
-template <bool kVec>
-__device__ __forceinline__ CuckooUnit cuckoo_load(const int32_t* __restrict__ values,
-                                                  const uint8_t* __restrict__ valid, int64_t i0, int cnt) {
-  CuckooUnit u;
-  if constexpr (kVec) {
-    const int4 q = __ldcs(reinterpret_cast<const int4*>(values + i0));
-    u.v[0] = q.x; u.v[1] = q.y; u.v[2] = q.z; u.v[3] = q.w;
-    const uint32_t w = valid != nullptr ? __ldcs(reinterpret_cast<const unsigned int*>(valid + i0)) : 0x01010101u;
-#pragma unroll
-    for (int q4 = 0; q4 < kCuckooVec; ++q4) u.live[q4] = ((w >> (8 * q4)) & 0xFFu) != 0;
-  } else {
-#pragma unroll
-    for (int q4 = 0; q4 < kCuckooVec; ++q4) {
-      u.v[q4] = q4 < cnt ? values[i0 + q4] : 0;
-      u.live[q4] = q4 < cnt && (valid == nullptr || valid[i0 + q4] != 0);
-    }
-  }
-  return u;
-}
-
 // The unit's codes: every b0 bucket's loads go out before any compare, then
 // the b1 loads of the values b0 missed, together; a 16-byte code store where
 // kVec.
 template <bool kVec>
-__device__ __forceinline__ void cuckoo_codes(const CuckooUnit& u, const int4* __restrict__ table,
+__device__ __forceinline__ void cuckoo_codes(const ValueUnit& u, const int4* __restrict__ table,
                                              const CuckooCol& col, int32_t* __restrict__ out, int64_t i0, int cnt,
                                              const Epilogue& e) {
-  int4 k[kCuckooVec], s[kCuckooVec];
+  int4 k[kUnit], s[kUnit];
 #pragma unroll
-  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+  for (int q4 = 0; q4 < kUnit; ++q4) {
     if (u.live[q4]) {
       const int64_t b0 = cuckoo_bucket(static_cast<uint32_t>(u.v[q4]), 0u, col);
       k[q4] = __ldg(table + 2 * b0);
       s[q4] = __ldg(table + 2 * b0 + 1);
     }
   }
-  int32_t code[kCuckooVec];
-  bool hit[kCuckooVec];
+  int32_t code[kUnit];
+  bool hit[kUnit];
 #pragma unroll
-  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+  for (int q4 = 0; q4 < kUnit; ++q4) {
     code[q4] = 0;
     hit[q4] = false;
     if (u.live[q4]) probe(k[q4], s[q4], u.v[q4], code[q4], hit[q4]);
   }
 #pragma unroll
-  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+  for (int q4 = 0; q4 < kUnit; ++q4) {
     if (u.live[q4] && !hit[q4]) {
       const int64_t b1 = cuckoo_bucket(static_cast<uint32_t>(u.v[q4]), 0x9E3779B9u, col);
       k[q4] = __ldg(table + 2 * b1);
       s[q4] = __ldg(table + 2 * b1 + 1);
     }
   }
-  int32_t r[kCuckooVec];
+  int32_t r[kUnit];
 #pragma unroll
-  for (int q4 = 0; q4 < kCuckooVec; ++q4) {
+  for (int q4 = 0; q4 < kUnit; ++q4) {
     if (u.live[q4] && !hit[q4]) probe(k[q4], s[q4], u.v[q4], code[q4], hit[q4]);
-    const uint32_t w = static_cast<uint32_t>(u.v[q4]);
-    const int32_t miss =
-        col.nk > 1
-            ? kOovIndex + static_cast<int32_t>(fastmod(nvt::hash_lanes(w, static_cast<uint32_t>(u.v[q4] >> 31), 0u),
-                                                       col.mk, col.nk))
-            : e.miss;
+    const int32_t miss = col.nk > 1 ? hashed_miss(u.v[q4], col.nk, col.mk) : e.miss;
     r[q4] = (u.live[q4] ? (hit[q4] ? code[q4] : miss) : e.null) + col.col_off;
   }
-  if constexpr (kVec) {
-    __stcs(reinterpret_cast<int4*>(out + i0), make_int4(r[0], r[1], r[2], r[3]));
-  } else {
-#pragma unroll
-    for (int q4 = 0; q4 < kCuckooVec; ++q4)
-      if (q4 < cnt) out[i0 + q4] = r[q4];
-  }
+  store_unit<kVec>(out, i0, cnt, r);
 }
 
 // VEC: values and out 16-byte aligned, validity (if any) 4-byte aligned, so
@@ -305,7 +463,7 @@ cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
                      const int64_t* __restrict__ row_off, const int32_t* __restrict__ sel,
                      const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n, int num_cols,
                      Epilogue e) {
-  constexpr int64_t kStride = kCuckooThreads * kCuckooVec;
+  constexpr int64_t kStride = kCuckooThreads * kUnit;
   const int64_t total = n * num_cols;
   const int64_t share_end = total * (blockIdx.x + 1) / gridDim.x;
   for (int64_t seg = total * blockIdx.x / gridDim.x; seg < share_end;) {
@@ -323,22 +481,22 @@ cuckoo_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restri
     // [a0, a1): whole units of 4 (from a multiple of 4 where VEC); the 0-3 values on either side alone
     int64_t a0 = VEC ? (seg + 3) & ~int64_t{3} : seg;
     if (a0 > seg_end) a0 = seg_end;
-    const int64_t a1 = a0 + (seg_end - a0) / kCuckooVec * kCuckooVec;
+    const int64_t a1 = a0 + (seg_end - a0) / kUnit * kUnit;
     if (threadIdx.x == 0 && a0 > seg) {
       const int cnt = static_cast<int>(a0 - seg);
-      cuckoo_codes<false>(cuckoo_load<false>(values, valid, seg, cnt), table, col, out, seg, cnt, e);
+      cuckoo_codes<false>(load_unit<false>(values, valid, seg, cnt), table, col, out, seg, cnt, e);
     }
     if (threadIdx.x == 1 && seg_end > a1) {
       const int cnt = static_cast<int>(seg_end - a1);
-      cuckoo_codes<false>(cuckoo_load<false>(values, valid, a1, cnt), table, col, out, a1, cnt, e);
+      cuckoo_codes<false>(load_unit<false>(values, valid, a1, cnt), table, col, out, a1, cnt, e);
     }
-    int64_t i = a0 + static_cast<int64_t>(threadIdx.x) * kCuckooVec;
-    CuckooUnit cur;
-    if (i < a1) cur = cuckoo_load<VEC>(values, valid, i, kCuckooVec);
+    int64_t i = a0 + static_cast<int64_t>(threadIdx.x) * kUnit;
+    ValueUnit cur;
+    if (i < a1) cur = load_unit<VEC>(values, valid, i, kUnit);
     for (; i < a1; i += kStride) {
-      CuckooUnit next;
-      if (i + kStride < a1) next = cuckoo_load<VEC>(values, valid, i + kStride, kCuckooVec);
-      cuckoo_codes<VEC>(cur, table, col, out, i, kCuckooVec, e);
+      ValueUnit next;
+      if (i + kStride < a1) next = load_unit<VEC>(values, valid, i + kStride, kUnit);
+      cuckoo_codes<VEC>(cur, table, col, out, i, kUnit, e);
       cur = next;
     }
     seg = seg_end;
@@ -543,17 +701,22 @@ sorted_lookup_kernel(const float* __restrict__ values, const uint8_t* __restrict
   }
 }
 
-// K3's persistent grid: the blocks the card holds at once (found at the first
-// launch: every launch at the solo branch's [1, 262144] is a few
-// microseconds), at most `needed`.
 template <bool VEC>
-int cuckoo_grid(int64_t needed, unsigned* blocks) {
-  static unsigned resident = 0;
-  if (resident == 0) {
-    if (int rc = nvt::resident_blocks(cuckoo_lookup_kernel<VEC>, kCuckooThreads, 0, INT64_MAX, &resident)) return rc;
-  }
-  *blocks = static_cast<unsigned>(needed < resident ? needed : resident);
-  return 0;
+int launch_tiny(const int32_t* values, const uint8_t* valid, const int32_t* keys, const int32_t* codes,
+                const int32_t* lens, const int32_t* sel, const int32_t* col_off, int32_t* out, int num_cols,
+                int64_t n, int vmax, const Epilogue& e, cudaStream_t s) {
+  // The tree of the deepest column; at most one block a turn of
+  // kTinyThreads x kUnit values, so that a solo column of 262,144 values
+  // still spreads over 256 blocks.
+  const int smem = tiny_smem_bytes(vmax);
+  const int64_t needed = (num_cols * n + kTinyThreads * kUnit - 1) / (kTinyThreads * kUnit);
+  static nvt::ResidentCache cache;
+  unsigned blocks = 0;
+  if (int rc = nvt::cached_resident_blocks(cache, tiny_lookup_kernel<VEC>, kTinyThreads, smem, needed, &blocks))
+    return rc;
+  tiny_lookup_kernel<VEC><<<blocks, kTinyThreads, smem, s>>>(values, valid, keys, codes, lens, sel, col_off, out, n,
+                                                             num_cols, vmax, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline unsigned int blocks_for(int64_t n, int64_t per_block) {
@@ -565,14 +728,15 @@ inline unsigned int blocks_for(int64_t n, int64_t per_block) {
 extern "C" int nvt_tiny_lookup(const int32_t* values, const uint8_t* valid, const int32_t* keys,
                                const int32_t* codes, const int32_t* lens, const int32_t* sel,
                                const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
-                               int vmax, int miss, int null_code, const int32_t* nbuckets,
-                               void* stream) {
-  if (vmax > kTinyMax) return static_cast<int>(cudaErrorInvalidValue);
+                               int vmax, int miss, int null_code, const int32_t* nbuckets, void* stream) {
+  if (vmax < 0 || vmax > kTinyMax) return static_cast<int>(cudaErrorInvalidValue);
   if (num_cols == 0 || n == 0) return 0;
-  dim3 grid(blocks_for(n, kTinyRowsPerBlock), num_cols);
-  tiny_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, keys, codes, lens, sel, col_off, out, n, vmax, Epilogue{miss, null_code, nbuckets});
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = reinterpret_cast<uintptr_t>(values) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(valid) % 4 == 0;
+  const Epilogue e{miss, null_code, nbuckets};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch_tiny<true>(values, valid, keys, codes, lens, sel, col_off, out, num_cols, n, vmax, e, s)
+             : launch_tiny<false>(values, valid, keys, codes, lens, sel, col_off, out, num_cols, n, vmax, e, s);
 }
 
 extern "C" int nvt_direct_lookup(const int32_t* values, const uint8_t* valid, const int32_t* table,
@@ -595,18 +759,22 @@ extern "C" int nvt_cuckoo_lookup(const int32_t* values, const uint8_t* valid, co
   if (num_cols == 0 || n == 0) return 0;
   const bool vec = reinterpret_cast<uintptr_t>(values) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(valid) % 4 == 0;
-  const int64_t units = (n * num_cols + kCuckooVec - 1) / kCuckooVec;
+  const int64_t units = (n * num_cols + kUnit - 1) / kUnit;
   const int64_t needed = (units + kCuckooThreads - 1) / kCuckooThreads;
   unsigned blocks = 0;
   const Epilogue e{miss, null_code, nbuckets};
   const int4* t4 = reinterpret_cast<const int4*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static nvt::ResidentCache cache[2];  // by vec
   if (vec) {
-    if (int rc = cuckoo_grid<true>(needed, &blocks)) return rc;
+    if (int rc = nvt::cached_resident_blocks(cache[1], cuckoo_lookup_kernel<true>, kCuckooThreads, 0, needed, &blocks))
+      return rc;
     cuckoo_lookup_kernel<true><<<blocks, kCuckooThreads, 0, s>>>(values, valid, t4, nbs, row_off, sel, col_off, out,
                                                                 n, num_cols, e);
   } else {
-    if (int rc = cuckoo_grid<false>(needed, &blocks)) return rc;
+    if (int rc = nvt::cached_resident_blocks(cache[0], cuckoo_lookup_kernel<false>, kCuckooThreads, 0, needed,
+                                             &blocks))
+      return rc;
     cuckoo_lookup_kernel<false><<<blocks, kCuckooThreads, 0, s>>>(values, valid, t4, nbs, row_off, sel, col_off,
                                                                  out, n, num_cols, e);
   }

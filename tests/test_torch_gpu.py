@@ -3013,3 +3013,129 @@ def test_embedding_gather_and_bag_past_2_31_elements():
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["embedding_bag_fwd"] == 2
     assert torch.equal(got, kbag.embedding_bag_fwd_plain(tb, values, mask, "sum"))
+
+
+# --- K1's persistent search and K14's tiles of rows, at their edges ---------------------------------------------
+def _tiny_rows(rng):
+    """Tiny tables of 1, 2, 2,209 and 4,096 keys (INT32_MIN and INT32_MAX
+    among them) and an empty one, codes 3, 4, ..."""
+    big = [rng.permutation(np.unique(rng.integers(I32_MIN, I32_MAX, int(v * 1.05))))[:v].astype(np.int32)
+           for v in (2209, 4096)]
+    for k in big:
+        k[:2] = [I32_MIN, I32_MAX]
+    keysets = [np.array([5], np.int32), np.array([I32_MAX, I32_MIN], np.int32), *big, np.zeros(0, np.int32)]
+    return plookup.BatchedTiny([plookup.TinyLookup(k, np.arange(len(k)) + 3) for k in keysets]), keysets
+
+
+def _on_card(t, offset):
+    """``t`` on the card, as a view ``offset`` elements past an aligned start."""
+    if not offset:
+        return t.cuda()
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device="cuda")
+    view = buf[offset:].view(t.shape)
+    view.copy_(t.cuda())
+    return view
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned_view"])
+@pytest.mark.parametrize("nbuckets", [False, True], ids=["one_oov", "hashed_oov"])
+@pytest.mark.parametrize("with_validity", [False, True])
+@pytest.mark.parametrize("C,N", [(1, 262_147), (70, 30_001)], ids=["solo", "70_columns"])
+def test_tiny_lookup_kernel_matches_plain_at_its_edges(C, N, with_validity, nbuckets, layout):
+    """K1 against tiny_lookup_plain on the card: tables of 0, 1, 2, 2,209
+    and 4,096 keys, the one-key row shared by several columns, keys and
+    values at INT32_MIN and INT32_MAX, 20% misses, invalid rows, several OOV
+    buckets a column; one column (the solo branch's counter) or 70, N not a
+    multiple of 4 (every column but the first starts unaligned), and the
+    values and validity as views one element past an aligned start (the
+    kernel's scalar loads)."""
+    _require_cuda()
+    rng = np.random.default_rng(20 + C)
+    blut, keysets = _tiny_rows(rng)
+    sel = [3] if C == 1 else [0, 0, 1, 2, 0, 3, 4, 0][:C] * (C // 8) + [0, 2, 3, 1, 0, 4][: C % 8]
+    values = _queries(rng, [keysets[s] if len(keysets[s]) else np.array([7], np.int32) for s in sel], N)
+    validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+    offset = 1 if layout == "unaligned_view" else 0
+    v = _on_card(values, offset)
+    val = None if validity is None else _on_card(validity, offset)
+    if offset:
+        assert v.data_ptr() % 16 != 0 and (val is None or val.data_ptr() % 4 != 0)
+    sel_t = torch.tensor(sel, dtype=torch.int32, device="cuda")
+    offs = torch.arange(C, dtype=torch.int32, device="cuda") * 11
+    nb = torch.tensor(rng.choice([1, 1000, 7, 2**31 - 1], C), dtype=torch.int32, device="cuda") if nbuckets else None
+    dev = blut.to("cuda")
+    counter = "tiny_lookup_solo" if C == 1 else None
+    kernels.reset_launches()
+    got = klk.tiny_lookup(v, val, dev.keys, dev.codes, dev.lens, sel_t, offs, nbuckets=nb, counter=counter)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter or "tiny_lookup"] == 1
+    want = klk.tiny_lookup_plain(v, val, dev.keys, dev.codes, dev.lens, sel_t, offs, nbuckets=nb)
+    assert torch.equal(got, want)
+
+
+def _out_of_range(perm, n):
+    """``perm`` with entries outside [0, n) at a few rows, and the rows."""
+    bad = torch.tensor([0, 7, 1000, n - 1], device=perm.device)
+    hi = 2**40 if perm.dtype == torch.int64 else 2**31 - 1
+    perm = perm.clone()
+    perm[bad] = torch.tensor([-1, n, hi, -(2**31)], dtype=perm.dtype, device=perm.device)
+    return perm, bad
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned_views"])
+@pytest.mark.parametrize("perm_dtype", [torch.int64, torch.int32])
+def test_permute_rows_kernel_matches_plain_at_its_widths(perm_dtype, layout):
+    """K14 against permute_rows_plain: int8, int16, int32, float32 and int64
+    columns beside [n, 4] int32 (the multihot lists), [n, 2] int32, [n, 8]
+    float32, [n, 13] float32 and [n, 3] int16 blocks;
+    int32 and int64 permutations with entries outside [0, n) giving zero
+    rows; n not a multiple of the 4 rows a thread takes; every source and
+    the permutation as views one element past an aligned start (the
+    kernel's narrower elements, scalar permutation loads and stores)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(14)
+    n = 100_003
+    arrays = {
+        "i8": torch.randint(-128, 127, (n,), dtype=torch.int8, generator=g),
+        "i16": torch.randint(-(2**15), 2**15 - 1, (n,), dtype=torch.int16, generator=g),
+        "i32": torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, generator=g),
+        "f32": torch.randn(n, generator=g),
+        "i64": torch.randint(-(2**62), 2**62, (n,), generator=g),
+        "lists": torch.randint(-(2**31), 2**31 - 1, (n, 4), dtype=torch.int32, generator=g),
+        "pairs": torch.randint(-(2**31), 2**31 - 1, (n, 2), dtype=torch.int32, generator=g),
+        "wide8": torch.randn((n, 8), generator=g),
+        "dense": torch.randn((n, 13), generator=g),
+        "i16x3": torch.randint(-(2**15), 2**15 - 1, (n, 3), dtype=torch.int16, generator=g),
+    }
+    offset = 1 if layout == "unaligned_views" else 0
+    on_card = {k: _on_card(v, offset) for k, v in arrays.items()}
+    perm, bad = _out_of_range(torch.randperm(n, generator=g).to(perm_dtype).cuda(), n)
+    perm = _on_card(perm, offset)
+    elems = [kperm.element_bytes(v[0].numel() * v.element_size(), v.data_ptr()) for v in on_card.values()]
+    assert elems == [1, 2, 4, 4, 4, 4, 4, 4, 4, 2]
+    kernels.reset_launches()
+    got = kperm.permute_rows(on_card, perm)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["permute_rows"] == 1
+    inside = perm.clone()
+    inside[bad] = 0
+    want = kperm.permute_rows_plain(on_card, inside)
+    for k, w in want.items():
+        w[bad] = 0
+        assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+
+
+def test_permute_rows_kernel_tiles_every_row_count():
+    """Row counts around a thread's 4 rows and a block's tile of 1,024: 1,
+    3, 4, 5, 1,023, 1,024, 1,025, 4,099; every array bit for bit."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for n in (1, 3, 4, 5, 1023, 1024, 1025, 4099):
+        arrays = {"i16": torch.randint(-(2**15), 2**15 - 1, (n,), dtype=torch.int16, device="cuda", generator=g),
+                  "i32": torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device="cuda", generator=g),
+                  "dense": torch.randn((n, 13), device="cuda", generator=g)}
+        perm = torch.randperm(n, device="cuda", generator=g)
+        got = kperm.permute_rows(arrays, perm)
+        torch.cuda.synchronize()
+        for k, v in kperm.permute_rows_plain(arrays, perm).items():
+            assert torch.equal(got[k], v), (n, k)

@@ -1,6 +1,7 @@
 """The host-side launch plans of K13b's forward and backward, of K13d's
 kernels, of ``range_bag_grad`` (K15d's bag gradient, also K13c's
-backward), of K11c's merge-path tiles and K3's fastmod, on the CPU.
+backward), of K11c's merge-path tiles, K3's fastmod, K1's key bound, and
+K14's element widths, on the CPU.
 
 Both CUDA kernels take their shapes of work from a plan the wrapper computes
 in Python: the samples a group of K13b's backward and the columns a thread
@@ -309,13 +310,25 @@ def test_cin_bwd_x_plan_fits_any_field_count(F):
 # --- K14's launch groups and element widths, K12b's bound chunks, K17's row ranges, K13a / K13c row chunks ---
 @pytest.mark.parametrize("row_bytes,addresses,elem", [
     (4, (0, 256), 4), (52, (16, 64), 4), (1, (0, 0), 1), (2, (0, 0), 2), (6, (0, 0), 2), (5, (0, 0), 1),
-    (8, (2, 0), 2), (8, (0, 1), 1), (16, (4, 12), 4),
+    (8, (2, 0), 2), (8, (0, 1), 1), (16, (4, 12), 4), (16, (0, 512), 4), (16, (8, 0), 4), (32, (16, 48), 4),
+    (24, (0, 16), 4), (8, (8, 0), 4), (48, (0, 4), 4),
 ])
 def test_permute_element_bytes(row_bytes, addresses, elem):
     """K14 copies each array in the widest of 4, 2 or 1 bytes that divides
-    its row width and both its addresses: int8 codes byte by byte, int16 and
-    float16 in 2 bytes, a 4-byte-aligned row of 4-byte multiples in words."""
+    its row width and both its addresses: int8 codes byte by byte, int16
+    and float16 in 2 bytes, a 4-byte-aligned row of 4-byte multiples in
+    words, the multihot feed's [n, 4] int32 rows and int64 columns too."""
     assert kperm.element_bytes(row_bytes, *addresses) == elem
+
+
+def test_permute_max_arrays_matches_the_source():
+    """MAX_ARRAYS, the arrays of one launch in the wrapper's count, is
+    csrc/permute.cu's kMaxArrays."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kperm.__file__).parent.parent / "csrc" / "permute.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxArrays = (\d+);", src).group(1)) == kperm.MAX_ARRAYS
 
 
 @pytest.mark.parametrize("num_arrays,n,widest,launches", [
@@ -432,3 +445,47 @@ def test_cuckoo_fastmod_equals_the_remainder(d):
     words = rng.integers(0, 2**32, 20_000, dtype=np.uint64).tolist()
     for a in [a for a in edges + multiples + words if 0 <= a < 2**32]:
         assert klk.fastmod(a, m, d) == a % d, (a, d)
+
+
+# --- K1's bound on a column's keys -----------------------------------------------------------------------------
+def test_tiny_max_matches_the_source():
+    """TINY_MAX, the most keys the wrapper lets a tiny column hold, is
+    csrc/lookup.cu's kTinyMax, which sizes the kernel's staging."""
+    import re
+    from pathlib import Path
+
+    src = (Path(klk.__file__).parent.parent / "csrc" / "lookup.cu").read_text()
+    assert int(re.search(r"constexpr int kTinyMax = (\d+);", src).group(1)) == klk.TINY_MAX
+
+
+@pytest.mark.parametrize("lengths", [(1,), (2,), (5, 1), (2209,), (4096, 3, 1), (155, 1543, 2209)])
+def test_tiny_library_yardstick_finds_the_same_slots(lengths):
+    """chip_smoke.py times ``torch.searchsorted`` over ``tiny_padded_rows``
+    (each value row's keys, INT32_MAX past its length) as K1's library call:
+    the same search, positions only. Where tiny_lookup_plain finds a value,
+    the yardstick's position holds its code; where it does not, the
+    position holds another key or lies past the row's keys."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from nvtabular_tpu_torch.ops import lookup as plookup
+
+    rng = np.random.default_rng(sum(lengths))
+    keysets = [rng.permutation(np.unique(rng.integers(-(2**31), 2**31 - 1, 2 * v)))[:v].astype(np.int32)
+               for v in lengths]
+    t = plookup.BatchedTiny([plookup.TinyLookup(k, np.arange(len(k)) + 3) for k in keysets])
+    sel = torch.tensor([c % len(lengths) for c in range(len(lengths) + 1)], dtype=torch.int32)
+    n = 5000
+    values = torch.from_numpy(np.stack([np.where(rng.random(n) < 0.5, rng.choice(keysets[s], n),
+                                                 rng.integers(-(2**31), 2**31 - 1, n)).astype(np.int32)
+                                        for s in sel.tolist()]))
+    codes = klk.tiny_lookup_plain(values, None, t.keys, t.codes, t.lens, sel, torch.zeros(len(sel), dtype=torch.int32))
+    rows = chip_smoke.tiny_padded_rows(t, sel)
+    pos = torch.searchsorted(rows, values)
+    hit = codes >= 3
+    assert bool(hit.any()) and bool((~hit).any())
+    at = torch.gather(rows, 1, pos.clamp(max=rows.shape[1] - 1))
+    assert torch.equal(torch.gather(t.codes[sel.long()], 1, pos.clamp(max=rows.shape[1] - 1))[hit], codes[hit])
+    past = pos >= t.lens[sel.long()][:, None]
+    assert bool((past | (at != values))[~hit].all())
