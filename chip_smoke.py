@@ -63,7 +63,9 @@ a nonzero exit:
    with and without the host-to-device copy and the UDF's host handoff per
    batch; hashed_cross, fold_ids, te_encode, stat_gather and bucketize at
    the path's shapes against their plain versions on the card (bucketize on
-   raw ts_delta, where all six buckets fill), timed beside their bounds;
+   raw ts_delta, where all six buckets fill), and the direct lookup at the
+   largest group index (userId's [1, 500000], 150 of its launches are
+   phase 9's), timed beside their bounds;
 10. the MovieLens multihot path (BASELINE config 1, bench/movielens_bench.py:
    62-70, its rating binarized by a LambdaOp) on phase 9's partitions, with
    the genres list column (1-4 ids of 20 a row): Categorify of userId,
@@ -142,7 +144,8 @@ a nonzero exit:
    every vocabulary's SHA-256 equal to phase 3's, Normalize within
    rtol=1e-6, batch 0's codes equal; sharded_embedding_lookup and
    sharded_embedding_bag over phase 7's 26 tables (22,343,004 x 16) against
-   K13a's gather (bit-equal) and K13c's bag (SUM_TOL); sharded_moments of
+   K13a's gather (bit-equal) and K13c's bag (SUM_TOL), the bag's sums on
+   the whole table bit-equal to their plain version; sharded_moments of
    the 13 LogOp outputs against float64 numpy (count, min, max exact; mean
    and var within rtol=1e-5); launch counters zeroed before each entry
    point and read after it;
@@ -151,7 +154,8 @@ a nonzero exit:
    buffers and overflow), four ranks composed on the card (route, the
    all_to_all's transpose, sort, run-length encode; the overflow retry on
    the most skewed column) giving phase 18's counts; K15b on model shard 1
-   of 4; K15c on [262144, 13]; each timed beside its bound;
+   of 4 (the bag bit-equal); K15c on [262144, 13]; each timed beside its
+   bound;
 20. DLRM training on row-sharded tables on a one-rank NCCL group (one
    card): phase 7's feed (DeviceLoader(65536, shuffle=True, seed=0,
    drop_last=True) over the first 4 transformed partitions) staged anew into
@@ -184,7 +188,8 @@ a nonzero exit:
    make_train_step on a one-rank NCCL group: 8 steps beside an unsharded
    DLRM (losses within STEP_TOL, both tables within SUM_TOL) and timed
    passes (one range_gather_columns, range_scatter_grad, range_bag and
-   range_bag_grad a step);
+   range_bag_grad a step), the bag forward on a step's batch bit-equal to
+   its plain version;
 23. the layer entry points: dot_product_interaction(self_interaction=True)
    on [65536, 27, 16] and a two-layer CIN (xdeepfm_outer_product, 26
    fields of dim 16, 200 maps) at batch 8,192, forward and backward, held
@@ -1013,7 +1018,8 @@ def movielens_path(nvt, dev, ml_parts, profile: bool) -> dict:
     from nvtabular_tpu_torch.kernels import bucketize as kbkt
     from nvtabular_tpu_torch.kernels import groupby as kgb
     from nvtabular_tpu_torch.kernels import hash as khash
-    from nvtabular_tpu_torch.ops.lookup import kind_of
+    from nvtabular_tpu_torch.kernels import lookup as klk
+    from nvtabular_tpu_torch.ops.lookup import int32_keys, kind_of
 
     phase_t0 = time.perf_counter()
     # config 2 never reads the genres list column
@@ -1176,6 +1182,19 @@ def movielens_path(nvt, dev, ml_parts, profile: bool) -> dict:
            lambda: kbkt.bucketize_plain(x, bounds), n * 8 + len(TS_BOUNDS) * 4,
            n * math.ceil(math.log2(len(TS_BOUNDS) + 1)), library_fn=lambda: torch.bucketize(x, bounds, right=True),
            shape=[n])
+
+    # K2 at the largest group index (TE's userId): 150 of K2's launches are phase 9's group indexes
+    tag = max(state["tags"], key=lambda t: state["index"][t].num_groups)
+    gi = state["index"][tag]
+    t, zero, G = gi.table, gi.zero, gi.num_groups
+    keys = int32_keys(staged[tag])[None]
+    valid = None if staged[tag].validity is None else staged[tag].validity[None]
+    args = (keys, valid, t.table, t.mins, t.maxs, t.lens, t.offsets, zero, zero, G, G)
+    idx = (keys.long() - t.mins[0].long()).clamp(0, int(t.lens[0]) - 1)
+    sectors = int(torch.unique(idx // 8).numel())
+    record("direct_lookup:group_index", klk.direct_lookup(*args), klk.direct_lookup_plain(*args),
+           lambda: klk.direct_lookup(*args), lambda: klk.direct_lookup_plain(*args), n * 8 + sectors * 32, n * 10,
+           shape=[1, n], column=tag, groups=G, table_keys=int(t.lens[0]))
     rec["kernels"] = records
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"movielens: phase 9 took {rec['phase_s']:.1f} s")
@@ -2409,9 +2428,13 @@ def sharded_fit_path(nvt, ops, dev, wf, parts, criteo_graph, cat_names, cont_nam
         if not torch.allclose(bagged, pooled, **SUM_TOL):
             fail(f"sharded_embedding_bag differs from K13c's bag: max abs {float((bagged - pooled).abs().max())}")
         rec["bag_max_abs_err"] = float((bagged - pooled).abs().max())
+        if not nan_equal(kbag.embedding_range_bag(table, values, mask, 0),
+                         kbag.embedding_range_bag_plain(table, values, mask, 0)):
+            fail("sharded lookups: embedding_range_bag on the whole table differs from its plain version")
         rec.update(table=table, flat=flat, values=values, mask=mask, table_rows=int(table.shape[0]))
         log(f"sharded lookups: [{TRAIN_BS} x {NUM_CATS}] ids of batch 0 over {table.shape[0]} rows: the lookup equals "
-            f"K13a's gather, the bag K13c's within SUM_TOL (max abs {rec['bag_max_abs_err']})")
+            f"K13a's gather, the bag K13c's within SUM_TOL (max abs {rec['bag_max_abs_err']}), its sums "
+            f"embedding_range_bag_plain's bit for bit")
 
         # sharded moments of the 13 LogOp outputs of every partition
         lwf = nvt.Workflow(cont_names >> ops.FillMissing() >> ops.Clip(min_value=0.0) >> ops.LogOp(), device=dev)
@@ -2568,7 +2591,7 @@ def sharded_kernel_records(dev, parts, cat_names, sharded: dict, profile: bool) 
     got = kbag.embedding_range_bag(local, values, mask, start)
     want = kbag.embedding_range_bag_plain(local, values, mask, start)
     torch.cuda.synchronize()
-    if not torch.allclose(got, want, **SUM_TOL):
+    if not nan_equal(got, want):
         fail(f"embedding_range_bag differs from plain: max abs {float((got - want).abs().max())}")
     bag_ids = values.long() - start
     bag_hit = (bag_ids >= 0) & (bag_ids < rows)
@@ -2808,6 +2831,7 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
     import torch.distributed as dist
 
     from nvtabular_tpu_torch import kernels, models, parallel
+    from nvtabular_tpu_torch.kernels import embedding_bag as kbag
 
     phase_t0 = time.perf_counter()
     config = models.DLRMConfig.from_schema(schema, num_dense=1)
@@ -2963,6 +2987,11 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
         sbatch = parallel.shard_batch(batch, b_specs, mesh)
         rec["values"], rec["mask"] = sbatch["genres__values"], sbatch["genres__mask"]
         rec["padded"] = smodel.shard.bag_padded[0]
+        # the step's bag forward on this batch's genres, bit-equal to its plain version
+        bag_args = (smodel.mh_tables[0].detach(), rec["values"], rec["mask"], smodel.shard.bag_starts[0],
+                    rec["padded"], smodel.shard.model_rank)
+        if not nan_equal(kbag.range_bag(*bag_args), kbag.range_bag_plain(*bag_args)):
+            fail("multihot dlrm, sharded: range_bag differs from its plain version on a step's batch")
         del smodel, sopt, staged
     finally:
         dist.destroy_process_group()

@@ -2,7 +2,7 @@
 that two versions of a kernel are compared in one call at the shapes of
 chip_smoke.py's main paths:
 
-    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--cases k16,k15d] [--out FILE]
+    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--cases k2,bag] [--out FILE]
 
 The cases, by group (``--cases``; all by default):
 
@@ -47,7 +47,23 @@ The cases, by group (``--cases``; all by default):
   hashed branch), and on one table row (the solo branch,
   ``tiny_lookup_solo``) of the largest tiny vocabulary, each beside
   ``torch.searchsorted`` over the padded rows (positions only). The job is
-  cached in build/kernel_ab_k1.pt.
+  cached in build/kernel_ab_k1.pt;
+- ``k2``: K2 (``direct_lookup``) on phase 6's compact job (chip_smoke.py
+  make_compact_part's 4 columns of ~290K keys over its 4 partitions,
+  batch 0's [4, 262144] ids), on the same job with 1,000 OOV buckets a
+  column and every value moved out of the tables, on MovieLens ids as
+  chip_smoke.py make_movielens_part draws them (phase 9's [1, 500000]
+  group index of the userIds its 50 partitions hold, miss and null the
+  group count; phase 10's [2, 500000] movieId and userId pair), and on one
+  table row (the solo branch, ``direct_lookup_solo``) of the largest
+  compact table; the tables are cached in build/kernel_ab_k2.pt;
+- ``bag``: the range bag in take mode (``range_bag``, K15d's bag forward)
+  at phase 23's shape, [65536, 4] genres lists of 1-4 ids (DeviceLoader's
+  padding: id 0, mask 0) against shard 1 of 4 of the padded [24, 64]
+  genres table, written into a slot of a [65536, 3, 64] buffer; and in the
+  zero rule (``embedding_range_bag``, K15b) at phase 19's shape: phase
+  18's [65536, 26] Criteo ids (each column's codes moved by its table's
+  offset, mask 0.7) against shard 1 of 4 of the [sum V, 16] table.
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -57,9 +73,12 @@ them; the tables hold each column's distinct values and 3 reserved rows.
 A tree is the root of a checkout (the directory that holds
 ``nvtabular_tpu_torch/``). Each runs in a process of its own, in the order
 given, and builds its kernels from its own ``csrc/`` into its own
-``build/``. ``DIR@F,D,G,T,S`` runs a tree with K13b's forward planned as G
-samples a group, T threads a block and S stages at [F, D] (several such
-plans joined by ``+``; the tree's ``interaction.fwd_plan`` elsewhere).
+``build/``. ``DIR%kName=V[,kName=V]`` runs a variant of a tree: a copy of
+its package under build/ab/ in which each named ``constexpr`` of ``csrc/``
+(one definition each) is set to V, e.g. ``.%kBagLoads=8``.
+``DIR@F,D,G,T,S`` runs a tree with K13b's forward planned as G samples a
+group, T threads a block and S stages at [F, D] (several such plans joined
+by ``+``; the tree's ``interaction.fwd_plan`` elsewhere).
 Every case is first held against the tree's plain version on the same
 inputs (bit-equal where the kernel's operations are the plain version's,
 else within 1e-5 of the terms' magnitudes + 1e-5); its time is the median of
@@ -76,6 +95,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -124,11 +145,13 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 ]
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
-GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14")
+GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14", "k2", "bag")
 ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
 ML_MOVIES, ML_GENRES, ML_ROWS_PER_PART, MH_SPARSE_MAX = 62_000, 20, 500_000, 4  # chip_smoke.py
 K3_CACHE = Path("build") / "kernel_ab_k3.pt"
 K1_CACHE = Path("build") / "kernel_ab_k1.pt"
+K2_CACHE = Path("build") / "kernel_ab_k2.pt"
+GENRES_PADDED = 24  # phase 22's genres table: 20 genres and 3 reserved rows, padded to a multiple of SHARD_PAD
 
 
 def criteo_ids(torch, dev, gen):
@@ -272,7 +295,7 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             del x0, xk, w
             torch.cuda.empty_cache()
 
-    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs"} & set(groups) else (None, None)
+    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag"} & set(groups) else (None, None)
     F, D, nd = len(CRITEO_TB_CARDINALITIES), TRAIN_DIM, NUM_CONTS
     if "k16" in groups:
         from nvtabular_tpu_torch.kernels import fm as kfm
@@ -503,6 +526,71 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
                 run(), klk.cuckoo_lookup_plain(v, None, t, nb, ro, sl, of, nbuckets=nk), name))
             rec[name].update(cuckoo_sectors(torch, klk, v, t, nb[sl.long()][:, None], ro[sl.long()][:, None]))
         del table, vals, moved, st
+    if "k2" in groups:
+        from nvtabular_tpu_torch.kernels import lookup as klk
+
+        job = k2_job(torch)
+        for name, t in job["tables"].items():
+            job["tables"][name] = {k: v.to(dev) for k, v in t.items()}
+        vals = job["compact"].to(dev)
+        C, n = vals.shape
+        ml = job["movielens"].to(dev)  # [2, 500000]: movieId, userId of partition 0
+        big = int(job["largest"])
+        groups_ = int(job["user_groups"])
+        runs = {
+            f"direct_lookup [{C}, {n}] (phase 6's job)": (vals, "compact", list(range(C)), 2, 1, None, None),
+            f"direct_lookup [{C}, {n}], 1,000 OOV buckets, every value moved": (
+                vals ^ 0x5A5A5A5A, "compact", list(range(C)), 2, 1, 1000, None),
+            f"direct_lookup [1, {ml.shape[1]}] userId group index of {groups_} groups (phase 9)": (
+                ml[1:].contiguous(), "users", [0], groups_, groups_, None, None),
+            f"direct_lookup [2, {ml.shape[1]}] movieId, userId (phase 10)": (ml, "movielens", [0, 1], 2, 1, None,
+                                                                              None),
+            f"direct_lookup_solo [1, {n}] of {int(job['tables']['solo']['lens'][0])} keys": (
+                vals[big: big + 1].contiguous(), "solo", [0], 2, 1, None, "direct_lookup_solo"),
+        }
+        for name, (v, tab, sel_, miss, null, nb, counter) in runs.items():
+            t = job["tables"][tab]
+            sl = torch.tensor(sel_, dtype=torch.int32, device=dev)
+            of = torch.zeros(len(sel_), dtype=torch.int32, device=dev)
+            nk = None if nb is None else torch.full((len(sel_),), nb, dtype=torch.int32, device=dev)
+            args = (v, None, t["table"], t["mins"], t["maxs"], t["lens"], t["offsets"], sl, of, miss, null, nk)
+
+            def run(args=args, counter=counter):
+                return klk.direct_lookup(*args, counter=counter)
+
+            case(name, run, lambda args=args, run=run, name=name: equal(run(), klk.direct_lookup_plain(*args), name))
+        del vals, ml
+    if "bag" in groups:
+        from nvtabular_tpu_torch.kernels import embedding_bag as kbag
+
+        rows, Dg = GENRES_PADDED // MODEL_SHARDS, 64
+        lengths = torch.randint(1, MH_SPARSE_MAX + 1, (BATCH, 1), device=dev, generator=gen)
+        held = torch.arange(MH_SPARSE_MAX, device=dev)[None, :] < lengths
+        genres = torch.randint(3, ML_GENRES + 3, (BATCH, MH_SPARSE_MAX), device=dev, generator=gen, dtype=torch.int32)
+        gvals, gmask = torch.where(held, genres, 0).to(torch.int32), held.float()
+        glocal = torch.randn((rows, Dg), device=dev, generator=gen)
+        buf = torch.zeros((BATCH, 3, Dg), device=dev)
+        out = buf[:, 2]
+
+        def check_take():
+            got = kbag.range_bag(glocal, gvals, gmask, rows, GENRES_PADDED, 1, out=out)
+            want = kbag.range_bag_plain(glocal, gvals, gmask, rows, GENRES_PADDED, 1)
+            if not (torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(), want.nan_to_num())):
+                raise SystemExit("range_bag differs from plain")
+            return 0.0
+
+        case(f"range_bag [{BATCH}, {MH_SPARSE_MAX}] of shard 1 of {MODEL_SHARDS} [{rows}, {Dg}]",
+             lambda: kbag.range_bag(glocal, gvals, gmask, rows, GENRES_PADDED, 1, out=out), check_take)
+        offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]), device=dev)
+        cvals = (torch.stack([i.long() for i in ids], 1) + offsets).to(torch.int32)
+        cmask = (torch.rand(cvals.shape, device=dev, generator=gen) < 0.7).float()
+        crows = sum(sizes) // MODEL_SHARDS
+        clocal = torch.randn((crows, D), device=dev, generator=gen)
+        case(f"embedding_range_bag [{BATCH}, {F}] of shard 1 of {MODEL_SHARDS} [{crows}, {D}]",
+             lambda: kbag.embedding_range_bag(clocal, cvals, cmask, crows),
+             lambda: equal(kbag.embedding_range_bag(clocal, cvals, cmask, crows),
+                           kbag.embedding_range_bag_plain(clocal, cvals, cmask, crows), "embedding_range_bag"))
+        del buf, clocal
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
 
 
@@ -550,6 +638,65 @@ def k1_job(torch) -> dict:
     K1_CACHE.parent.mkdir(parents=True, exist_ok=True)
     torch.save(job, K1_CACHE)
     return job
+
+
+def k2_job(torch) -> dict:
+    """Phase 6's compact job and MovieLens ids: the tree's BatchedDirect
+    tables (codes 3, 4, ... by key) of chip_smoke.py make_compact_part's 4
+    columns over its 4 partitions, batch 0's ids [4, 262144] and the largest
+    table alone; the userId group index of make_movielens_part's ML_PARTS
+    partitions (codes 0 .. G - 1 by key) and the movieId and userId tables,
+    partition 0's [movieId, userId] ids. Cached in K2_CACHE."""
+    if K2_CACHE.exists():
+        return torch.load(K2_CACHE)
+    import numpy as np
+
+    from nvtabular_tpu_torch.ops import lookup as plookup
+
+    chip_smoke = smoke_module()
+
+    def tables(vocabs, codes):
+        b = plookup.BatchedDirect([plookup.build_direct(v, c) for v, c in zip(vocabs, codes)])
+        return {k: getattr(b, k) for k in ("table", "mins", "maxs", "lens", "offsets")}
+
+    parts = [chip_smoke.make_compact_part(s) for s in range(4)]
+    names = list(parts[0])
+    vocabs = [np.unique(np.concatenate([p[c] for p in parts])) for c in names]
+    big = int(np.argmax([len(v) for v in vocabs]))
+    ml = [chip_smoke.make_movielens_part(s) for s in range(chip_smoke.ML_PARTS)]
+    users = np.unique(np.concatenate([p["userId"] for p in ml]))
+    movies = np.unique(np.concatenate([p["movieId"] for p in ml]))
+    job = {"tables": {"compact": tables(vocabs, [np.arange(len(v)) + 3 for v in vocabs]),
+                      "solo": tables(vocabs[big: big + 1], [np.arange(len(vocabs[big])) + 3]),
+                      "users": tables([users], [np.arange(len(users))]),
+                      "movielens": tables([movies, users], [np.arange(len(movies)) + 3, np.arange(len(users)) + 3])},
+           "compact": torch.from_numpy(np.stack([parts[0][c] for c in names])), "largest": big,
+           "movielens": torch.from_numpy(np.stack([ml[0]["movieId"], ml[0]["userId"]]).astype(np.int32)),
+           "user_groups": len(users)}
+    K2_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(job, K2_CACHE)
+    return job
+
+
+def variant_tree(spec: str) -> str:
+    """DIR%kName=V[,kName=V]: a copy of DIR's package under build/ab/ with
+    each named constexpr of its csrc/ set to V; returns the copy's root."""
+    tree, _, assigns = spec.partition("%")
+    root = Path("build") / "ab" / ("variant_" + re.sub(r"[^\w]+", "_", spec).strip("_"))
+    if root.exists():
+        shutil.rmtree(root)
+    pkg = root / "nvtabular_tpu_torch"
+    shutil.copytree(Path(tree) / "nvtabular_tpu_torch", pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    sources = sorted((pkg / "csrc").glob("*.cu*"))
+    for assign in assigns.split(","):
+        name, _, value = assign.partition("=")
+        pattern = re.compile(rf"(constexpr\s+[\w:]+\s+{re.escape(name)}\s*=\s*)[^;]+;")
+        hits = [(f, f.read_text()) for f in sources if pattern.search(f.read_text())]
+        if len(hits) != 1 or len(pattern.findall(hits[0][1])) != 1:
+            raise SystemExit(f"{spec}: {name} is defined {sum(len(pattern.findall(t)) for _, t in hits)} times")
+        f, text = hits[0]
+        f.write_text(pattern.sub(lambda m: f"{m.group(1)}{value};", text))
+    return str(root)
 
 
 def k3_job(torch) -> dict:
@@ -608,7 +755,9 @@ def main():
     print(smi, flush=True)
     recs = []
     for tree in args.tree:
-        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", tree, "--cases", args.cases]
+        base, at, spec = tree.partition("@")
+        one = (variant_tree(base) if "%" in base else base) + at + spec
+        proc = subprocess.run([sys.executable, __file__, "--tree", tree, "--one", one, "--cases", args.cases]
                               + ["--split"] * args.split, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{tree} failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")

@@ -325,31 +325,79 @@ tiny_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict
 // (nvtabular_tpu/ops/lookup.py:585-601), which on the TPU gathers an 8-lane
 // row and selects a lane; here one 4-byte load per value.
 //
+// Semantics: idx = clip(v - min, 0, len - 1), taken in int64 (in int32 it
+// overflows for keys far from min), code = table[table_off + idx], and a hit
+// where min <= v <= max and code >= 0: the hit test uses v itself, so the
+// codes equal the reference's. A value outside [min, max] or a row marked
+// invalid reads no table entry (neither can hit).
+//
 // Bound: bytes. Values and codes stream (8 B per value); each table read is
-// one random 32-byte sector unless L2 (50 MB) holds it. One thread per value.
-// v - min is computed in int64: in int32 it overflows for keys far from min.
-// The hit test uses v itself, so the codes equal the reference's.
-// Grid: (ceil(N / kThreads), C).
+// one random 32-byte sector. The tables (62,000 to 300,000 keys a column,
+// 0.25-1.2 MB) sit in L2 but not in shared memory, so the rate of random
+// reads through L1 and L2 and the latency before them set the time, not the
+// bytes. Design:
+// * A block takes kThreads x 4 values of one column (blockIdx.y), a thread
+//   4 consecutive ones (K1's and K3's unit): one 16-byte value load, the
+//   validity as one word and one 16-byte streaming code store where the
+//   column is aligned and N a multiple of 4, else one at a time.
+// * The values' load goes out before the column's constants are read; the
+//   unit's table loads go out together, through L1 (__ldg).
+// * The hashed branch's 2 + hash % nbuckets[c] by fastmod, as K1 and K3.
+// On an H100 80GB HBM3 at 700 W, K3's persistent grid (the blocks the card
+// holds at once splitting the flat [C, N] values, each thread's next unit
+// loaded before this one's table reads) was slower than this grid at every
+// main-path shape; one value a thread took as long at phase 6's and the
+// solo branch's shapes, and longer at phase 9's and 10's and on misses.
+struct DirectCol {  // a column's table and constants
+  const int32_t* table;  // the column's row of the bin: table + table_off[b]
+  int64_t last;          // lens[b] - 1
+  int32_t mn, mx, col_off;
+  uint32_t nk;  // OOV buckets (0: one, the Epilogue's miss)
+  uint64_t mk;
+};
+
+// VEC: values and out 16-byte aligned, validity (if any) 4-byte aligned and
+// N a multiple of 4, so that every unit is whole and aligned.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 direct_lookup_kernel(const int32_t* __restrict__ values, const uint8_t* __restrict__ valid,
                      const int32_t* __restrict__ table, const int32_t* __restrict__ mins,
                      const int32_t* __restrict__ maxs, const int64_t* __restrict__ lens,
                      const int64_t* __restrict__ table_off, const int32_t* __restrict__ sel,
-                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n,
-                     Epilogue e) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+                     const int32_t* __restrict__ col_off, int32_t* __restrict__ out, int64_t n, Epilogue e) {
+  const int64_t r = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kUnit;
   if (r >= n) return;
   const int c = blockIdx.y;
+  const int64_t i0 = c * n + r;
+  const int cnt = n - r < kUnit ? static_cast<int>(n - r) : kUnit;
+  const ValueUnit u = load_unit<VEC>(values, valid, i0, cnt);
   const int b = sel[c];
-  const int64_t i = static_cast<int64_t>(c) * n + r;
-  const int32_t v = values[i];
-  const int32_t mn = mins[b];
-  const int32_t mx = maxs[b];
-  int64_t idx = static_cast<int64_t>(v) - mn;
-  idx = idx < 0 ? 0 : (idx > lens[b] - 1 ? lens[b] - 1 : idx);
-  const int32_t code = __ldg(table + table_off[b] + idx);
-  const bool hit = v >= mn && v <= mx && code >= 0;
-  out[i] = epilogue(code, hit, v, c, valid, i, col_off[c], e);
+  DirectCol col;
+  col.table = table + table_off[b];
+  col.last = lens[b] - 1;
+  col.mn = mins[b];
+  col.mx = maxs[b];
+  col.col_off = col_off[c];
+  const int32_t nk = e.nbuckets != nullptr ? e.nbuckets[c] : 0;
+  col.nk = nk > 1 ? static_cast<uint32_t>(nk) : 0u;
+  col.mk = col.nk > 1 ? fastmod_m(col.nk) : 0;
+  // the live in-range values' table loads together, then the epilogue
+  int32_t code[kUnit];
+#pragma unroll
+  for (int k = 0; k < kUnit; ++k) {
+    code[k] = -1;  // no hit
+    if (u.live[k] && u.v[k] >= col.mn && u.v[k] <= col.mx) {
+      const int64_t idx = static_cast<int64_t>(u.v[k]) - col.mn;  // >= 0
+      code[k] = __ldg(col.table + (idx < col.last ? idx : col.last));
+    }
+  }
+  int32_t res[kUnit];
+#pragma unroll
+  for (int k = 0; k < kUnit; ++k) {
+    const int32_t miss = col.nk > 1 ? hashed_miss(u.v[k], col.nk, col.mk) : e.miss;
+    res[k] = (u.live[k] ? (code[k] >= 0 ? code[k] : miss) : e.null) + col.col_off;
+  }
+  store_unit<VEC>(out, i0, cnt, res);
 }
 
 __device__ __forceinline__ void probe(const int4& k, const int4& v, int32_t key, int32_t& code,
@@ -745,10 +793,17 @@ extern "C" int nvt_direct_lookup(const int32_t* values, const uint8_t* valid, co
                                  const int32_t* col_off, int32_t* out, int num_cols, int64_t n,
                                  int miss, int null_code, const int32_t* nbuckets, void* stream) {
   if (num_cols == 0 || n == 0) return 0;
-  dim3 grid(blocks_for(n, kThreads), num_cols);
-  direct_lookup_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, valid, table, mins, maxs, lens, table_off, sel, col_off, out, n,
-      Epilogue{miss, null_code, nbuckets});
+  const bool vec = reinterpret_cast<uintptr_t>(values) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(valid) % 4 == 0 && n % kUnit == 0;
+  const dim3 grid(blocks_for(n, kThreads * kUnit), num_cols);
+  const Epilogue e{miss, null_code, nbuckets};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    direct_lookup_kernel<true><<<grid, kThreads, 0, s>>>(values, valid, table, mins, maxs, lens, table_off, sel,
+                                                         col_off, out, n, e);
+  else
+    direct_lookup_kernel<false><<<grid, kThreads, 0, s>>>(values, valid, table, mins, maxs, lens, table_off, sel,
+                                                          col_off, out, n, e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,10 +51,11 @@
 // backward, the transpose of csrc/embedding_bag.cu's bag. Bound: bytes —
 // the values, mask and gradient rows once each, and the gradient written.
 //
-// One thread copies or sums VEC floats of an output row (a float4 when
-// D % 4 == 0 and the pointers are 16-byte aligned); consecutive threads
-// write consecutive addresses. Bound: bytes — the ids (and mask), the
-// distinct local rows touched and the output, once each.
+// nvt_range_gather: one thread copies VEC floats of an output row (a float4
+// when D % 4 == 0 and the pointers are 16-byte aligned); consecutive threads
+// write consecutive addresses. Bound: bytes — the ids, the distinct local
+// rows touched and the output, once each. nvt_range_bag: see
+// range_bag_kernel below.
 //
 // Kernel K15d: the lookup and its gradient inside the sharded DLRM train
 // step (nvtabular_tpu/parallel/train.py:39-81 with the P("model", None)
@@ -118,6 +119,8 @@ constexpr int kSmemOptIn = 227 * 1024;  // the shared memory an H100 block can o
 constexpr int64_t kElsewhere = -1;  // a row another rank holds
 constexpr int64_t kNoRank = -2;     // an id outside [-Vp, Vp): no rank holds it
 
+unsigned blocks_for(int64_t threads) { return static_cast<unsigned>((threads + kThreads - 1) / kThreads); }
+
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* __restrict__ src, float (&v)[VEC]) {
   if constexpr (VEC == 4) {
@@ -168,11 +171,170 @@ __device__ __forceinline__ int64_t bag_shard_row(int32_t v, int64_t start, int64
   return (local >= 0 && local < rows_local) ? local : kElsewhere;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(kThreads)
+// nvt_range_bag, both rules. Bound: bytes: the ids and mask, the distinct
+// shard rows the bags touch and the output, once each. A thread a float4 of
+// an output row (16 of a bag at D = 64) repeated its bag's id work (a 64-bit
+// division, L id and mask loads, jnp.take's 64-bit tests) and summed a
+// chain of L dependent row loads: 0.0126 ms at phase 23's [65536, 4]
+// against a bound of 0.0056 on an H100 80GB HBM3 at 700 W. Design, where
+// the wrapper's plan (bag_fwd_plan) gives tiles: a shard of at most
+// kBagStageFloats floats (genres' 6 x 64 at phase 23) and bags of at most
+// kBagTileIds ids:
+// * The block copies the shard into shared memory once; every term reads it
+//   there.
+// * A persistent grid's blocks walk tiles of `tile_bags` bags. A tile's ids
+//   and masks are read once, coalesced (16 bytes a thread where L % 4 == 0
+//   and both are aligned, else kBagStageIds loads in flight a thread), and
+//   each id's term is decided once: the offset of its shard row
+//   (row * D) or, in take mode, kElsewhere / kNoRank, and its weight, into
+//   shared memory.
+// * The sums: thread k takes vector k % per_row of bags k / per_row + j *
+//   (kThreads / per_row) of the tile, so consecutive threads write each
+//   output row's vectors whole (rows out_row_stride floats apart, streaming
+//   stores); kBagLoads row loads are issued before they are summed in l
+//   order.
+// Otherwise (K15b's 5.59M rows of 16 floats at phase 19) a thread takes a
+// vector of an output row and decides its bag's ids itself
+// (range_bag_vectors_kernel): the tiles, the shard read from global memory,
+// were slower there.
+constexpr int kBagTileIds = 2048;      // ids a tile decides at once (int64 offset and weight each: 24 KB)
+constexpr int kBagStageFloats = 4096;  // the largest shard staged in shared memory (16 KB)
+constexpr int kBagLoads = 4;           // row loads in flight a sum
+constexpr int kBagStageIds = 8;        // ids and masks a thread loads at once while a tile is decided
+constexpr int kBagMinBlocks = 4;       // resident blocks an SM the registers must allow
+
+// A bag id's term: the offset of its shard row (row * D), or kElsewhere /
+// kNoRank in take mode (jnp.take's rule on the padded table), and its
+// weight; in the zero rule the clipped row, weighted mask * in_range.
+__device__ __forceinline__ void bag_term(int32_t v, float m, int take, int64_t start, int64_t rows_local,
+                                         int64_t padded, int D, int64_t& off, float& w) {
+  if (take) {
+    const int64_t row = bag_shard_row(v, start, rows_local, padded, 1);
+    off = row < 0 ? row : row * D;
+    w = m;
+  } else {
+    int64_t local = static_cast<int64_t>(v) - start;
+    const bool in_range = local >= 0 && local < rows_local;
+    w = __fmul_rn(m, in_range ? 1.0f : 0.0f);
+    local = local < 0 ? 0 : (local >= rows_local ? rows_local - 1 : local);
+    off = local * D;
+  }
+}
+
+// kVecIds: L % 4 == 0 and values and mask 16-byte aligned. Dynamic shared
+// memory: the shard (rows_local * D floats, rounded up to 16 bytes), then
+// the tile's tile_bags * L offsets and weights.
+template <int VEC, bool kVecIds>
+__global__ void __launch_bounds__(kThreads, kBagMinBlocks)
 range_bag_kernel(const float* __restrict__ table, int64_t rows_local, int64_t start, int D,
                  const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L, int take,
-                 int64_t padded, int write_nan, float* __restrict__ out, int64_t out_row_stride) {
+                 int64_t padded, int write_nan, float* __restrict__ out, int64_t out_row_stride, int tile_bags) {
+  extern __shared__ float4 bag_smem4[];
+  const int cells = static_cast<int>(rows_local) * D;
+  float* shard = reinterpret_cast<float*>(bag_smem4);
+  int64_t* offs = reinterpret_cast<int64_t*>(shard + ((cells + 3) & ~3));
+  float* ws = reinterpret_cast<float*>(offs + tile_bags * L);
+  // visible after the first tile's barrier
+  if constexpr (VEC == 4) {
+    for (int k = threadIdx.x; k < cells / 4; k += kThreads) bag_smem4[k] = __ldg(reinterpret_cast<const float4*>(table) + k);
+  } else {
+    for (int k = threadIdx.x; k < cells; k += kThreads) shard[k] = __ldg(table + k);
+  }
+  // this thread's sums of a tile: vectors q0 + j qstep of bags r0 + i rstep
+  const int per_row = D / VEC;
+  int r0 = 0, rstep = 1, q0 = threadIdx.x, qstep = kThreads;
+  if (per_row <= kThreads) {
+    rstep = kThreads / per_row;
+    r0 = threadIdx.x / per_row;
+    q0 = threadIdx.x - r0 * per_row;
+    qstep = per_row;
+    if (r0 >= rstep) r0 = tile_bags;  // past the last whole row of vectors: no sum
+  }
+  const int64_t tiles = (B + tile_bags - 1) / tile_bags;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t b0 = t * tile_bags;
+    const int n = B - b0 < tile_bags ? static_cast<int>(B - b0) : tile_bags;
+    const int64_t base = b0 * L;  // the tile's ids: [b0 L, (b0 + n) L)
+    const int m = n * L;
+    __syncthreads();  // the sums before are done with offs and ws
+    if constexpr (kVecIds) {
+      for (int e4 = threadIdx.x; e4 < m / 4; e4 += kThreads) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(values + base) + e4);
+        const float4 w = __ldg(reinterpret_cast<const float4*>(mask + base) + e4);
+        const int e = 4 * e4;
+        bag_term(v.x, w.x, take, start, rows_local, padded, D, offs[e], ws[e]);
+        bag_term(v.y, w.y, take, start, rows_local, padded, D, offs[e + 1], ws[e + 1]);
+        bag_term(v.z, w.z, take, start, rows_local, padded, D, offs[e + 2], ws[e + 2]);
+        bag_term(v.w, w.w, take, start, rows_local, padded, D, offs[e + 3], ws[e + 3]);
+      }
+    } else {
+      for (int e0 = threadIdx.x; e0 < m; e0 += kThreads * kBagStageIds) {
+        int32_t v[kBagStageIds];
+        float w[kBagStageIds];
+#pragma unroll
+        for (int j = 0; j < kBagStageIds; ++j) {
+          const int e = e0 + j * kThreads;
+          v[j] = e < m ? __ldg(values + base + e) : 0;
+          w[j] = e < m ? __ldg(mask + base + e) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < kBagStageIds; ++j) {
+          const int e = e0 + j * kThreads;
+          if (e < m) bag_term(v[j], w[j], take, start, rows_local, padded, D, offs[e], ws[e]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = r0; r < n; r += rstep) {
+      const int64_t* bo = offs + r * L;
+      const float* bw = ws + r * L;
+      float* o = out + (b0 + r) * out_row_stride;
+      for (int q = q0; q < per_row; q += qstep) {
+        float acc[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
+        bool no_rank = false;
+        for (int l = 0; l < L; l += kBagLoads) {
+          float v[kBagLoads][VEC];
+          unsigned loaded = 0;  // the terms of this round that add to the sum
+#pragma unroll
+          for (int j = 0; j < kBagLoads; ++j) {
+            const int64_t off = l + j < L ? bo[l + j] : kElsewhere;
+            no_rank |= off == kNoRank;
+            if (off >= 0) {
+              load_vec<VEC>(shard + off + q * VEC, v[j]);
+              loaded |= 1u << j;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kBagLoads; ++j) {
+            if (!(loaded >> j & 1u)) continue;  // another rank's row, no rank's, or past the bag
+            const float w = bw[l + j];
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(v[j][k], w));
+          }
+        }
+        if (no_rank && write_nan) {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] = __int_as_float(0x7fc00000);
+        }
+        if constexpr (VEC == 4) {
+          __stcs(reinterpret_cast<float4*>(o + q * 4), make_float4(acc[0], acc[1], acc[2], acc[3]));
+        } else {
+          __stcs(o + q, acc[0]);
+        }
+      }
+    }
+  }
+}
+
+// A thread a vector of an output row, which decides each of its bag's ids
+// itself: where the plan gives no tiles.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+range_bag_vectors_kernel(const float* __restrict__ table, int64_t rows_local, int64_t start, int D,
+                         const int32_t* __restrict__ values, const float* __restrict__ mask, int64_t B, int L,
+                         int take, int64_t padded, int write_nan, float* __restrict__ out, int64_t out_row_stride) {
   const int per_row = D / VEC;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= B * per_row) return;
@@ -206,6 +368,25 @@ range_bag_kernel(const float* __restrict__ table, int64_t rows_local, int64_t st
     for (int k = 0; k < VEC; ++k) acc[k] = __int_as_float(0x7fc00000);
   }
   store_vec<VEC>(out + b * out_row_stride + q * VEC, acc);
+}
+
+// A launch of range_bag_kernel<VEC, kVecIds> on a persistent grid: as many
+// blocks as the card holds at once, at most one a tile.
+template <int VEC, bool kVecIds>
+int launch_range_bag_tiles(const float* table, int64_t rows_local, int64_t start, int D, const int32_t* values,
+                           const float* mask, int64_t B, int L, int take, int64_t padded, int write_nan, float* out,
+                           int64_t out_row_stride, int tile_bags, cudaStream_t stream) {
+  static nvt::ResidentCache cache;
+  const int smem = 4 * ((static_cast<int>(rows_local) * D + 3) & ~3) +
+                   tile_bags * L * static_cast<int>(sizeof(int64_t) + sizeof(float));
+  unsigned blocks = 0;
+  if (int rc = nvt::cached_resident_blocks(cache, range_bag_kernel<VEC, kVecIds>, kThreads, smem,
+                                           (B + tile_bags - 1) / tile_bags, &blocks))
+    return rc;
+  range_bag_kernel<VEC, kVecIds><<<blocks, kThreads, smem, stream>>>(table, rows_local, start, D, values, mask, B, L,
+                                                                    take, padded, write_nan, out, out_row_stride,
+                                                                    tile_bags);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // max(sum_l m[l], 1), summed in l order as the forward's counts are.
@@ -358,8 +539,6 @@ range_bag_grad_global_kernel(const float* __restrict__ grad, int64_t grad_row_st
     }
   }
 }
-
-unsigned blocks_for(int64_t threads) { return static_cast<unsigned>((threads + kThreads - 1) / kThreads); }
 
 constexpr int kMaxCols = 64;
 
@@ -585,21 +764,31 @@ extern "C" int nvt_range_gather(const float* table, int64_t rows_local, int64_t 
 // table float32 [rows_local, D] (rows_local >= 1), values int32 [B, L], mask
 // float32 [B, L] → out float32 [B, D] (rows out_row_stride floats apart), the
 // weighted sums; take = 0: the zero rule, take = 1: jnp.take's rule on the
-// padded table of `padded` rows, NaN bags written when write_nan.
+// padded table of `padded` rows, NaN bags written when write_nan. The plan
+// (the wrapper's bag_fwd_plan): tiles of tile_bags bags with the shard
+// staged, or none (0).
 extern "C" int nvt_range_bag(const float* table, int64_t rows_local, int64_t start, int D, const int32_t* values,
                              const float* mask, int64_t B, int L, int take, int64_t padded, int write_nan, float* out,
-                             int64_t out_row_stride, int vec, void* stream_ptr) {
+                             int64_t out_row_stride, int vec, int tile_bags, void* stream_ptr) {
   if (B == 0 || D == 0) return 0;
-  if (bad_range_shape(D, B, vec) || L < 0 || (take && start + rows_local > padded))
+  if (bad_range_shape(D, B, vec) || L < 0 || (take && start + rows_local > padded) || tile_bags < 0 ||
+      (tile_bags && (static_cast<int64_t>(tile_bags) * L > kBagTileIds || rows_local * D > kBagStageFloats)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (tile_bags) {
+    const bool vec_ids = L % 4 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+    const auto launch = vec == 4 ? (vec_ids ? launch_range_bag_tiles<4, true> : launch_range_bag_tiles<4, false>)
+                                 : (vec_ids ? launch_range_bag_tiles<1, true> : launch_range_bag_tiles<1, false>);
+    return launch(table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out_row_stride,
+                  tile_bags, stream);
+  }
   if (vec == 4)
-    range_bag_kernel<4><<<blocks_for(B * (D / 4)), kThreads, 0, stream>>>(table, rows_local, start, D, values, mask,
-                                                                         B, L, take, padded, write_nan, out,
-                                                                         out_row_stride);
+    range_bag_vectors_kernel<4><<<blocks_for(B * (D / 4)), kThreads, 0, stream>>>(
+        table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out_row_stride);
   else
-    range_bag_kernel<1><<<blocks_for(B * D), kThreads, 0, stream>>>(table, rows_local, start, D, values, mask, B, L,
-                                                                    take, padded, write_nan, out, out_row_stride);
+    range_bag_vectors_kernel<1><<<blocks_for(B * D), kThreads, 0, stream>>>(
+        table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out_row_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

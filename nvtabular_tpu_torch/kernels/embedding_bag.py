@@ -41,11 +41,12 @@ _FWD_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
 ]
-# table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out row stride, vec, stream
+# table, rows_local, start, D, values, mask, B, L, take, padded, write_nan, out, out row stride, vec, tile bags,
+# stream
 _RANGE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 # grad, grad row stride, values, mask, B, L, D, start, rows_local, padded, wrap, mean, dtable, vec, S, blocks,
 # stream
@@ -76,6 +77,32 @@ def bag_grad_plan(B: int, D: int, rows_local: int, vec: int, sms: int = H100_SMS
         return 0, 0
     per_sm = min(2048 // BAG_GRAD_THREADS, SMEM_PER_SM // (smem + 1024))
     return S, max(1, min(sms * per_sm, -(-B // groups)))
+
+
+BAG_TILE_IDS = 2048  # csrc/sharded_embedding.cu kBagTileIds: the ids a range_bag tile decides at once
+BAG_STAGE_FLOATS = 4096  # csrc/sharded_embedding.cu kBagStageFloats: the largest shard range_bag stages
+BAG_THREADS = 256  # csrc/sharded_embedding.cu kThreads: range_bag's block
+BAG_TILE_SUMS = 1024  # the (bag, vector) sums a range_bag tile aims at: 4 a thread
+
+
+def bag_fwd_plan(L: int, D: int, rows_local: int, vec: int) -> int:
+    """The bags of a tile of the range bag's kernel (``range_bag``,
+    ``embedding_range_bag``), or 0 for a thread a vector. Tiles stage the
+    shard in shared memory, so they need its rows_local x D floats within
+    BAG_STAGE_FLOATS and a tile's ids within BAG_TILE_IDS; a tile holds
+    enough bags for BAG_TILE_SUMS sums of ``vec`` floats, rounded down to a
+    whole number of the block's passes (BAG_THREADS // (D // vec) bags) where
+    one fits, so that every thread takes as many sums."""
+    if rows_local * D > BAG_STAGE_FLOATS or L > BAG_TILE_IDS:
+        return 0
+    per_row = max(D // vec, 1)
+    bags = -(-BAG_TILE_SUMS // per_row)
+    if L:
+        bags = min(bags, BAG_TILE_IDS // L)
+    a_pass = BAG_THREADS // per_row
+    if a_pass and bags >= a_pass:
+        bags -= bags % a_pass
+    return max(bags, 1)
 
 
 def _check_bag(values: torch.Tensor, mask: torch.Tensor, combiner: str, device) -> Tuple[int, int]:
@@ -163,8 +190,9 @@ def _launch_range_bag(name, table, values, mask, start, take, padded, write_nan,
     if fn.argtypes is None:
         fn.argtypes = _RANGE_ARGTYPES
         fn.restype = ctypes.c_int
+    vec = vec_width(D, table, out)
     rc = fn(ptr(table), table.shape[0], start, D, ptr(values), ptr(mask), B, L, int(take), padded, int(write_nan),
-            ptr(out), out.stride(0), vec_width(D, table, out), stream_ptr(table.device))
+            ptr(out), out.stride(0), vec, bag_fwd_plan(L, D, table.shape[0], vec), stream_ptr(table.device))
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
 

@@ -974,6 +974,69 @@ def test_lookup_kernels_hashed_miss_match_plain(with_validity):
         assert len(torch.unique(misses)) > 900, type(blut).__name__
 
 
+def _direct_edge_case(rng, C, n):
+    """A bin of direct maps (1 key; 300,000 keys ending at INT32_MAX; every
+    third key from INT32_MIN; 62,000 keys with holes) and C value rows over
+    them, several rows on one table row: hits, misses across int32 (v - min
+    past int32 where a table lies at the other end), the extremes."""
+    keysets = [
+        np.array([5], np.int64),
+        np.arange(I32_MAX - 299_999, I32_MAX + 1, dtype=np.int64),
+        np.arange(I32_MIN, I32_MIN + 15_000, 3, dtype=np.int64),
+        np.sort(rng.choice(np.arange(1_000, 80_000), 62_000, replace=False)).astype(np.int64),
+    ]
+    direct = plookup.BatchedDirect([plookup.build_direct(k, rng.permutation(len(k)) + 3) for k in keysets])
+    assert [int(x) for x in direct.lens] == [1, 300_000, 14_998, int(keysets[3][-1] - keysets[3][0] + 1)]
+    sel = [(3 * c + 1) % len(keysets) for c in range(C)]
+    return direct, _queries(rng, [keysets[s] for s in sel], n), torch.tensor(sel, dtype=torch.int32)
+
+
+def _offset_view(t: torch.Tensor, by: int = 1) -> torch.Tensor:
+    """A contiguous copy of t that starts ``by`` elements into a buffer: no
+    longer 16-byte aligned."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = buf[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("codes", ["categorify", "group_index", "hashed"])
+@pytest.mark.parametrize("with_validity", [False, True])
+@pytest.mark.parametrize("C", [1, 70])
+def test_direct_lookup_kernel_matches_plain_at_its_edges(C, with_validity, codes, aligned):
+    """K2's codes torch.equal to direct_lookup_plain's: tables of 1 and
+    300,000 keys, a table row shared by several value rows, keys at
+    INT32_MIN and INT32_MAX, misses; Categorify's codes, a group index's
+    (num_groups for miss and null, no offsets) and hashed misses
+    (nbuckets 1000, 1, 2**31 - 1, 7); C = 1 (the solo branch's shape) and
+    70 columns; N = 100,003 (no multiple of 4, so the persistent grid's
+    segments start unaligned), and values, validity at offset views."""
+    _require_cuda()
+    rng = np.random.default_rng(C + 2 * with_validity)
+    n = 100_003
+    direct, values, sel = _direct_edge_case(rng, C, n)
+    validity = torch.from_numpy(rng.random(values.shape) > 0.1) if with_validity else None
+    miss, null = (123_457, 123_457) if codes == "group_index" else (2, 1)
+    offs = torch.tensor([0 if codes == "group_index" else 11 * c for c in range(C)], dtype=torch.int32)
+    nbs = torch.tensor(([1000, 1, 2**31 - 1, 7] * C)[:C], dtype=torch.int32) if codes == "hashed" else None
+    dev = direct.to("cuda")
+    dv = values.cuda() if aligned else _offset_view(values.cuda())
+    dvalid = None if validity is None else (validity.cuda() if aligned else _offset_view(validity.cuda(), 3))
+    args = (dv, dvalid, dev.table, dev.mins, dev.maxs, dev.lens, dev.offsets, sel.cuda(), offs.cuda(), miss, null,
+            None if nbs is None else nbs.cuda())
+    counter = "direct_lookup_solo" if C == 1 else None
+    kernels.reset_launches()
+    got = klk.direct_lookup(*args, counter=counter)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter or "direct_lookup"] == 1
+    want = klk.direct_lookup_plain(values, validity, direct.table, direct.mins, direct.maxs, direct.lens,
+                                   direct.offsets, sel, offs, miss, null, nbs)
+    assert torch.equal(got.cpu(), want)
+    if codes == "hashed":
+        assert len(torch.unique(want[0][(want[0] >= 2) & (want[0] < 1002)])) > 900
+
+
 def _float_probe(rng, keys, n):
     miss = rng.normal(0.0, 50.0, n).astype(np.float32)
     v = np.where(rng.random(n) < 0.3, miss, rng.choice(keys, n) if len(keys) else miss).astype(np.float32)
@@ -1775,6 +1838,50 @@ def test_range_bag_on_one_rank_is_the_whole_bag_bit_for_bit():
     torch.cuda.synchronize()
     assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize(
+    "L,D",
+    [(0, 64), (1, 16), (3, 5), (4, 64), (4, 1), (4, 16), (26, 16), (26, 64), (2048, 16), (4500, 5)],
+    ids=["L0", "L1", "L3_scalar", "L4_genres", "L4_d1", "L4_d16", "L26_k15b", "L26_d64", "L2048_one_bag_a_tile",
+         "L4500_past_a_tile"],
+)
+def test_range_bag_kernels_match_plain_at_their_edges(L, D):
+    """The range bag in both modes, bit-equal to range_bag_plain and
+    embedding_range_bag_plain with NaN in the same places: L of 0 to 26, of
+    a whole tile's BAG_TILE_IDS ids and past it, D of 1, 5, 16 and 64; for
+    each, model ranks 0 and 1 of 4, the shard just inside and just past
+    BAG_STAGE_FLOATS (tiles with the shard staged in shared memory, or a
+    thread a vector), ids and mask aligned and at offset views, B no
+    multiple of a tile's bags; take mode writes into a strided slot of a
+    [B, 3, D] buffer and leaves the other slots alone."""
+    _require_cuda()
+    B = 37 if L > 100 else 10_007
+    inside = kbag.BAG_STAGE_FLOATS // D
+    for m, rows, aligned in [(m, rows, a) for m in (0, 1) for rows in (inside, inside + 1) for a in (True, False)]:
+        g = torch.Generator().manual_seed(L + D + m + rows)
+        vp = 4 * rows
+        local, values, mask, start = _bag_shard(g, B, L, vp, 4, m, D) if L else (
+            torch.randn((rows, D), generator=g), torch.zeros((B, 0), dtype=torch.int32), torch.zeros((B, 0)), m * rows)
+        bags = kbag.bag_fwd_plan(L, D, rows, 4 if D % 4 == 0 else 1)
+        assert bool(bags) == (rows == inside and L <= kbag.BAG_TILE_IDS) and (bags <= 1 or B % bags)
+        dl = local.cuda()
+        dv, dm = (values.cuda(), mask.cuda()) if aligned else (_offset_view(values.cuda()), _offset_view(mask.cuda()))
+        buf = torch.zeros((B, 3, D), device="cuda")
+        kernels.reset_launches()
+        kbag.range_bag(dl, dv, dm, start, vp, m, out=buf[:, 1])
+        got_zero = kbag.embedding_range_bag(dl, dv, dm, start)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["range_bag"] == 1 and kernels.LAUNCHES["embedding_range_bag"] == 1
+        what = f"rank {m}, {rows} rows, aligned {aligned}"
+        want = kbag.range_bag_plain(local, values, mask, start, vp, m)
+        got = buf[:, 1].cpu()
+        assert torch.equal(got.isnan(), want.isnan()), what
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)), what
+        assert bool(want.isnan().any()) == (m == 0 and L > 0), what
+        assert not bool(buf[:, [0, 2]].any()), what
+        want_zero = kbag.embedding_range_bag_plain(local, values, mask, start)
+        assert torch.equal(got_zero.cpu(), want_zero), what
 
 
 @pytest.mark.parametrize(

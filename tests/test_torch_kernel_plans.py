@@ -1,6 +1,6 @@
 """The host-side launch plans of K13b's forward and backward, of K13d's
 kernels, of ``range_bag_grad`` (K15d's bag gradient, also K13c's
-backward), of K11c's merge-path tiles, K3's fastmod, K1's key bound, and
+backward) and the range bag's forward (``bag_fwd_plan``), of K11c's merge-path tiles, K3's fastmod, K1's key bound, and
 K14's element widths, on the CPU.
 
 Both CUDA kernels take their shapes of work from a plan the wrapper computes
@@ -128,6 +128,100 @@ def test_bag_grad_plan_at_the_phase_shapes():
     assert kbag.bag_grad_plan(65_536, 64, 6, 4) == (16, 528)
     assert kbag.bag_grad_plan(65_536, 16, 23, 4) == (4, 132)
     assert kbag.bag_grad_plan(65_536, 16, 23, 4, sms=114) == (4, 114)
+
+
+# (L, D, rows_local, vec): phase 23's genres shard, K15b's shard at phases 18-19, no ids, the GPU tests' edges
+BAG_FWD_SHAPES = [(4, 64, 6, 4), (26, 16, 5_585_751, 4), (0, 64, 6, 4), (1, 16, 256, 4), (3, 5, 819, 1),
+                  (3, 5, 820, 1), (4, 1, 4096, 1), (26, 64, 65, 4), (2048, 16, 6, 4), (2049, 16, 6, 4),
+                  (4, 2048, 1, 4), (40, 40, 100, 1)]
+
+
+def test_bag_fwd_constants_match_the_source():
+    """BAG_TILE_IDS, BAG_STAGE_FLOATS and BAG_THREADS, which the range
+    bag's plan repeats, are csrc/sharded_embedding.cu's kBagTileIds,
+    kBagStageFloats (the C entry refuses tiles past them) and kThreads."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kbag.__file__).parent.parent / "csrc" / "sharded_embedding.cu").read_text()
+    assert int(re.search(r"constexpr int kBagTileIds = (\d+);", src).group(1)) == kbag.BAG_TILE_IDS
+    assert int(re.search(r"constexpr int kBagStageFloats = (\d+);", src).group(1)) == kbag.BAG_STAGE_FLOATS
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == kbag.BAG_THREADS
+
+
+@pytest.mark.parametrize("L,D,rows,vec", BAG_FWD_SHAPES)
+def test_bag_fwd_plan_fits_a_tile(L, D, rows, vec):
+    """Tiles only where the shard's rows x D floats fit BAG_STAGE_FLOATS and
+    a bag's ids BAG_TILE_IDS; a tile's bags x ids fit BAG_TILE_IDS, and are
+    a whole number of the block's passes where one fits (every thread sums
+    as many bags), the most such up to BAG_TILE_SUMS sums of ``vec``
+    floats."""
+    bags = kbag.bag_fwd_plan(L, D, rows, vec)
+    if rows * D > kbag.BAG_STAGE_FLOATS or L > kbag.BAG_TILE_IDS:
+        assert bags == 0
+        return
+    assert bags >= 1 and bags * L <= kbag.BAG_TILE_IDS
+    per_row = D // vec
+    most = min(-(-kbag.BAG_TILE_SUMS // per_row), kbag.BAG_TILE_IDS // L if L else 2**31)
+    a_pass = kbag.BAG_THREADS // per_row
+    if a_pass and most >= a_pass:
+        assert bags % a_pass == 0 and most - a_pass < bags <= most
+    else:
+        assert bags == max(most, 1)
+
+
+def test_bag_fwd_plan_at_the_phase_shapes():
+    """Phase 23's [65536, 4] against the genres shard [6, 64]: tiles of 64
+    bags (1,024 float4 sums, 4 a thread), the shard's 1.5 KB staged; K15b's
+    [65536, 26] against shard 1 of 4 ([5585751, 16]): a thread a vector."""
+    assert kbag.bag_fwd_plan(4, 64, 6, 4) == 64
+    assert kbag.bag_fwd_plan(26, 16, 5_585_751, 4) == 0
+
+
+@pytest.mark.parametrize("D", [64, 16, 5, 1])
+def test_bag_fwd_stage_limit_at_its_edge(D):
+    """Tiles stage the shard up to BAG_STAGE_FLOATS (16 KB) and no further;
+    bags up to BAG_TILE_IDS ids."""
+    rows = kbag.BAG_STAGE_FLOATS // D
+    vec = 4 if D % 4 == 0 else 1
+    assert kbag.bag_fwd_plan(4, D, rows, vec) and not kbag.bag_fwd_plan(4, D, rows + 1, vec)
+    assert kbag.bag_fwd_plan(kbag.BAG_TILE_IDS, D, 1, vec) and not kbag.bag_fwd_plan(kbag.BAG_TILE_IDS + 1, D, 1, vec)
+
+
+def _bag_walk(B, L, D, vec):
+    """The sums range_bag_kernel's threads take (csrc/sharded_embedding.cu,
+    modelled loop for loop): for each tile of the plan's bags, thread k
+    takes vectors q0 + j qstep of bags r0 + i rstep. Returns how often each
+    (bag, vector) sum is taken."""
+    import numpy as np
+
+    bags = kbag.bag_fwd_plan(L, D, 1, vec)
+    per_row = D // vec
+    seen = np.zeros((B, per_row), dtype=np.int64)
+    for b0 in range(0, B, bags):
+        n = min(bags, B - b0)
+        for k in range(kbag.BAG_THREADS):
+            if per_row <= kbag.BAG_THREADS:
+                rstep, r0 = kbag.BAG_THREADS // per_row, k // per_row
+                q0, qstep = k - r0 * per_row, per_row
+                if r0 >= rstep:
+                    continue
+            else:
+                r0, rstep, q0, qstep = 0, 1, k, kbag.BAG_THREADS
+            for r in range(r0, n, rstep):
+                for q in range(q0, per_row, qstep):
+                    seen[b0 + r, q] += 1
+    return seen
+
+
+@pytest.mark.parametrize("B,L,D,vec", [(200, 4, 64, 4), (130, 26, 16, 4), (70, 0, 64, 4), (9, 3, 5, 1),
+                                       (1100, 4, 1, 1), (3, 2048, 16, 4), (5, 4, 2048, 4), (7, 2, 2052, 4),
+                                       (90, 40, 40, 1)])
+def test_bag_fwd_walk_takes_every_sum_once(B, L, D, vec):
+    """Under the plan, range_bag_kernel's walk (tiles, each thread's bags
+    and vectors) takes every (bag, vector) sum exactly once, B no multiple
+    of a tile's bags included."""
+    assert (_bag_walk(B, L, D, vec) == 1).all()
 
 
 # K13b's shapes that the reference computes and that one-item-a-thread or 48 KB plans refused
