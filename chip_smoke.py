@@ -42,15 +42,25 @@ a nonzero exit:
    367-512-256-1, 26 tables at the fitted cardinalities) with Adagrad(1e-2):
    one warm-up chunk, then TRAIN_REPEATS timed passes of 64 steps, with the
    launch counters zeroed before the loader's staging and read after the
-   last step; every code is below its table's cardinality and every loss
-   finite; one batch's loss, logits and gradients through the kernels are
-   held against the plain versions on the card (in bfloat16 compute, as
-   trained, and in float32);
+   last step (each step one gather, scatter, interaction forward and
+   backward and one Adagrad update, K18); every code is below its table's
+   cardinality and every loss finite; one batch's loss, logits and
+   gradients through the kernels are held against the plain versions on
+   the card (in bfloat16 compute, as trained, and in float32); the step's
+   forward + backward and its Adagrad update timed apart (fwd_bwd_ms,
+   adagrad_ms);
 8. the kernels of the training path at its shapes — permute_rows,
    embedding_gather, embedding_scatter_grad, interaction_fwd and
    interaction_bwd — each against its plain version on the card, timed
    beside its bound and, where one PyTorch call computes the same function,
-   that call (--profile: interaction_bwd's device time by kernel);
+   that call (--profile: interaction_bwd's device time by kernel); then
+   adagrad_update (K18) over phase 7's 13 tensors, the Criteo table
+   [22343004, 16] among them, with the gradient of a training batch, one
+   launch, against adagrad_update_plain from the same cloned state: every
+   element whose gradient bits are all zero bit-unchanged, the rest
+   bit-equal, NaN where NaN; timed beside its bound (g read in full, 16 B
+   for each nonzero element's parameter and accumulator) and the plain
+   version;
 9. the advanced MovieLens path (BASELINE config 2, bench/movielens_bench.py:
    73-85) at ml-25m size — 162,000 users, 62,000 movies, 50 partitions of
    500,000 rows made by the bench's generator — through TargetEncoding
@@ -76,7 +86,8 @@ a nonzero exit:
    through DeviceLoader(sparse_max={"genres": 4}), which pads genres (K11)
    and permutes each chunk (K14), into TabularMLP (1041 -> 512 -> 256 -> 1,
    tables at the fitted cardinalities) with Adagrad(1e-2): a warm-up chunk,
-   then TRAIN_REPEATS timed passes of MH_STEPS steps, counters read after;
+   then TRAIN_REPEATS timed passes of MH_STEPS steps, counters read after
+   (one Adagrad update a step among them);
    one step through the kernels against the plain versions on the card in
    bfloat16 and float32; and ListSlice(0, 3, pad=True) of the genres codes
    over every batch (K11's slice);
@@ -126,9 +137,9 @@ a nonzero exit:
    K17, deep tower 429 -> 256 -> 128, output 557 -> 1) — with
    Adagrad(1e-2): one warm-up chunk, then TRAIN_REPEATS timed passes of
    64 steps beside phase 7's DLRM step, the launch counters zeroed before
-   the staging and read after the last step (a gather, a scatter and
-   DeepFM's fm_fwd and fm_bwd, or DCN's three cross_fwd and three
-   cross_bwd, each step; no plain version on the card); every loss
+   the staging and read after the last step (a gather, a scatter, an
+   Adagrad update and DeepFM's fm_fwd and fm_bwd, or DCN's three cross_fwd
+   and three cross_bwd, each step; no plain version on the card); every loss
    finite; one batch's loss, logits and gradients through the kernels
    held against the reference forward on the card in bfloat16 and
    float32 (DeepFM's gradients for the plain path's logits gradient:
@@ -168,8 +179,8 @@ a nonzero exit:
    and TRAIN_REPEATS timed passes of 64 steps beside phase 7's; the launch
    counters zeroed before the staging and read after the last step (one
    range_gather_columns and one range_scatter_grad a sharded step, K13a
-   only in the 8 unsharded steps, no plain version on the card); every
-   loss finite;
+   only in the 8 unsharded steps, one Adagrad update a step of either, no
+   plain version on the card); every loss finite;
 21. K15d's range_gather_columns and range_scatter_grad on model shard 1 of
    4 of phase 20's padded tables with [65536, 26] ids of its first batch
    and D = 16, each against its plain version on the card and timed beside
@@ -183,13 +194,13 @@ a nonzero exit:
    multihot table, 4 features), Adagrad(1e-2), batch 65,536: a warm-up
    chunk and TRAIN_REPEATS timed passes of MH_STEPS steps (one K13a gather
    and scatter, one K13c bag forward and backward, one K13b forward and
-   backward a step), one step kernels-vs-plain; then the same model with
-   vocab_pad_multiple=4 through shard_params / shard_batch /
-   make_train_step on a one-rank NCCL group: 8 steps beside an unsharded
-   DLRM (losses within STEP_TOL, both tables within SUM_TOL) and timed
-   passes (one range_gather_columns, range_scatter_grad, range_bag and
-   range_bag_grad a step), the bag forward on a step's batch bit-equal to
-   its plain version;
+   backward, one Adagrad update a step), one step kernels-vs-plain; then
+   the same model with vocab_pad_multiple=4 through shard_params /
+   shard_batch / make_train_step on a one-rank NCCL group: 8 steps beside
+   an unsharded DLRM (losses within STEP_TOL, both tables within SUM_TOL)
+   and timed passes (one range_gather_columns, range_scatter_grad,
+   range_bag, range_bag_grad and Adagrad update a step), the bag forward
+   on a step's batch bit-equal to its plain version;
 23. the layer entry points: dot_product_interaction(self_interaction=True)
    on [65536, 27, 16] and a two-layer CIN (xdeepfm_outer_product, 26
    fields of dim 16, 200 maps) at batch 8,192, forward and backward, held
@@ -247,8 +258,10 @@ a nonzero exit:
    cpus))) (bench.py:337): seconds, rows/s, bytes a row, the card's busy
    share in the transform; the rows equal phase 3's transformed rows as a
    multiset, bit for bit; then Dataset(out) feeds DeviceLoader(65536,
-   shuffle=True) into DLRM (dim 16) for 16 steps, one step held against
-   the plain versions (STEP_TOL); 27d fits and transforms the 16 files with
+   shuffle=True) into DLRM (dim 16) for 16 steps, the counters zeroed
+   before the first step and read after the last (TRAIN_STEP_KERNELS once
+   a step), one step held against the plain versions (STEP_TOL); 27d fits
+   and transforms the 16 files with
    Categorify(max_size=10_000_000, cat_cache=...) with the 16 smallest
    vocabularies on the disk tier (K1 or K3 solo, the counters zeroed
    before and read after) and the rest on the device tier, codes equal
@@ -262,7 +275,7 @@ a nonzero exit:
    at the largest vocabulary of their kind, each against its plain version
    on the card, timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 50 kernels'
+The line before the last is {"kernels": [...]} with the 51 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -300,8 +313,10 @@ CPU_TOL = dict(rtol=1e-5, atol=1e-5)  # card vs CPU: log1p ULPs differ
 # scatter, atomics whose order varies from run to run)
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 
-# bench.py:636-706: the training chain
+# bench.py:636-706: the training chain, and the kernels a DLRM step launches once each
 TRAIN_PARTS, TRAIN_BS, TRAIN_STEPS, TRAIN_REPEATS, TRAIN_DIM = 4, 65536, 64, 3, 16
+TRAIN_STEP_KERNELS = ("embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd",
+                      "adagrad_update")
 # kernel path vs plain path, one step on one batch: (loss rtol, largest
 # logit difference, largest gradient difference over the gradient's largest
 # entry). float32: only summation orders differ. bfloat16 (as trained): the
@@ -786,7 +801,7 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
 
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
-    per_step = {"embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd"}
+    per_step = set(TRAIN_STEP_KERNELS)
     for name, count in launches.items():
         want = len(staged) if name in per_chunk else total_steps if name in per_step else 0
         if count != want:
@@ -826,7 +841,7 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
             f"({p['busy_share']:.1%}), top device kernels {p['top']}, top operators {p['top_ops']}")
 
     # the step's two halves, timed apart on the device: forward + backward
-    # (the gradient's allocation included), then the dense Adagrad update
+    # (the gradient's allocation included), then the Adagrad update (K18)
     def fwd_bwd():
         opt.zero_grad()
         models.dlrm_loss(model, batch).backward()
@@ -835,7 +850,7 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
     log(f"train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
-    rec.update(model=model, staged=staged, loader=loader)
+    rec.update(model=model, opt=opt, staged=staged, loader=loader)
     return rec
 
 
@@ -972,7 +987,64 @@ def training_kernel_records(nvt, wf, parts, train, profile: bool) -> dict:
     records["interaction_bwd"] = rec
     if profile:
         profile_split(rec, "interaction_bwd", lambda: kint.interaction_bwd(x, g))
+    records["adagrad_update"] = adagrad_record(model, train["opt"], batch)
     return records
+
+
+def adagrad_record(model, opt, batch) -> dict:
+    """K18 over every tensor of phase 7's DLRM (the Criteo table and the
+    MLPs, 13 tensors, one launch) with the gradient of one training batch,
+    against its plain version from the same state (the optimizer's
+    parameters and accumulators, cloned twice): every element whose
+    gradient bits are all zero bit-unchanged, the rest bit-equal, NaN where
+    NaN. Timed beside its bound: g read in full, and 16 B for each nonzero
+    element's p and acc read and written."""
+    from nvtabular_tpu_torch import kernels, models
+    from nvtabular_tpu_torch.kernels import adagrad as kada
+
+    opt.zero_grad()
+    models.dlrm_loss(model, batch).backward()
+    grads = [p.grad for p in opt.params]
+    opt.zero_grad()
+    before = [t.detach().clone() for t in [*opt.params, *opt.sum_of_squares]]
+    got, want = [t.clone() for t in before], [t.clone() for t in before]
+    k = len(grads)
+    launches0 = kernels.LAUNCHES["adagrad_update"]
+    kada.adagrad_update(got[:k], got[k:], grads, opt.lr)
+    kada.adagrad_update_plain(want[:k], want[k:], grads, opt.lr)
+    torch.cuda.synchronize()
+    launched = kernels.LAUNCHES["adagrad_update"] - launches0
+    if launched != 1:
+        fail(f"adagrad_update: {launched} launches for {k} tensors, expected 1")
+    nonzero, max_err = 0, 0.0
+    for g, t0, t, w in zip(grads * 2, before, got, want):
+        zero = g.view(torch.int32) == 0
+        if not torch.equal(t[zero].view(torch.int32), t0[zero].view(torch.int32)):
+            fail("adagrad_update: an element whose gradient bits are all zero changed")
+        same = (t.view(torch.int32) == w.view(torch.int32)) | (torch.isnan(t) & torch.isnan(w))
+        max_err = max(max_err, float((t - w).abs().nan_to_num().max()))
+        if not bool(same.all()):
+            fail(f"adagrad_update kernel differs from plain in {int((~same).sum())} elements: max abs {max_err}")
+        nonzero += int((~zero).sum())
+    nonzero //= 2
+    del before, want
+    rows, D = model.table.shape
+    touched_rows = int((grads[0].view(torch.int32) != 0).any(dim=1).sum())
+    rec = {
+        "max_abs_err": max_err, "shape": [int(rows), int(D)], "tensors": k, "touched_rows": touched_rows,
+        "nonzero_elements": nonzero, "bytes": sum(g.numel() for g in grads) * 4 + nonzero * 16,
+        "ms": time_ms(lambda: kada.adagrad_update(got[:k], got[k:], grads, opt.lr), iters=10),
+        "plain_ms": time_ms(lambda: kada.adagrad_update_plain(got[:k], got[k:], grads, opt.lr), iters=10),
+        "library_ms": None, "library_what": LIBRARY_WHAT["adagrad_update"],
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 0)
+    log(f"train: adagrad_update over {k} tensors ({rows} x {D} table, {touched_rows:,} rows touched, "
+        f"{nonzero:,} nonzero gradient elements): {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bytes']:,} bytes); bit-equal to the plain version, zero-gradient "
+        f"elements bit-unchanged")
+    del got, grads
+    torch.cuda.empty_cache()
+    return rec
 
 
 def movielens_graph(ops):
@@ -1267,9 +1339,9 @@ def multihot_train(nvt, wf, batches, profile: bool) -> dict:
 
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
-    # a gather and a scatter per id table, a bag and its gradient per step
+    # a gather and a scatter per id table, a bag and its gradient and one Adagrad update per step
     per_step = {"embedding_gather": len(model.tables), "embedding_scatter_grad": len(model.tables),
-                "embedding_bag_fwd": 1, "embedding_bag_bwd": 1}
+                "embedding_bag_fwd": 1, "embedding_bag_bwd": 1, "adagrad_update": 1}
     check_launches(launches, {**{k: len(staged) for k in per_chunk},
                               **{k: n * total_steps for k, n in per_step.items()}}, "multihot train")
     if wf.executor.host_handoffs - handoffs0 != len(staged):
@@ -1876,6 +1948,7 @@ LIBRARY_WHAT = {
     "range_gather_columns": "index_select of each id's row clamped into its column's shard, no zeros or NaN",
     "range_scatter_grad": "zeros + index_add_ of the held ids' rows",
     "interaction_bwd": "bmm of the symmetric pair gradient, zero diagonal, built outside the timing",
+    "adagrad_update": "none: torch.optim.Adagrad puts eps outside the square root and starts the accumulator at 0",
 }
 
 
@@ -2155,7 +2228,7 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
     launches = dict(kernels.LAUNCHES)
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
-    per_step = {"embedding_gather": 1, "embedding_scatter_grad": 1, **own}
+    per_step = {"embedding_gather": 1, "embedding_scatter_grad": 1, "adagrad_update": 1, **own}
     for name, count in launches.items():
         want = len(staged) if name in per_chunk else total_steps * per_step.get(name, 0)
         if count != want:
@@ -2698,7 +2771,8 @@ def sharded_train_path(feed, schema, dlrm_steps_per_s: float, smi: str, profile:
         want_launches = {k: len(staged) for k in per_chunk}
         want_launches.update(range_gather_columns=sharded_steps, range_scatter_grad=sharded_steps,
                              embedding_gather=len(parity), embedding_scatter_grad=len(parity),
-                             interaction_fwd=sharded_steps + len(parity), interaction_bwd=sharded_steps + len(parity))
+                             interaction_fwd=sharded_steps + len(parity), interaction_bwd=sharded_steps + len(parity),
+                             adagrad_update=sharded_steps + len(parity))
         check_launches(launches, want_launches, "sharded train")
         all_losses = torch.cat(losses)
         if not bool(torch.isfinite(all_losses).all()):
@@ -2872,7 +2946,7 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
     per_step = {"embedding_gather", "embedding_scatter_grad", "embedding_bag_fwd", "embedding_bag_bwd",
-                "interaction_fwd", "interaction_bwd"}
+                "interaction_fwd", "interaction_bwd", "adagrad_update"}
     check_launches(launches, {**{k: len(staged) for k in per_chunk}, **{k: total_steps for k in per_step}},
                    "multihot dlrm")
     all_losses = torch.cat(losses)
@@ -2970,6 +3044,7 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
             "range_bag_grad": sharded_steps, "embedding_gather": len(parity), "embedding_scatter_grad": len(parity),
             "embedding_bag_fwd": len(parity), "embedding_bag_bwd": len(parity),
             "interaction_fwd": sharded_steps + len(parity), "interaction_bwd": sharded_steps + len(parity),
+            "adagrad_update": sharded_steps + len(parity),
         }, "multihot dlrm, sharded")
         all_s = torch.cat([got, *slosses])
         if not bool(torch.isfinite(all_s).all()):
@@ -3831,6 +3906,7 @@ def parquet_path(nvt, ops, dev, wf, parts, cat_names, cont_names, compact, dwf, 
     staged = [c for _, c in zip(range(chunks), loader.chunks())]
     torch.cuda.synchronize()
     rec["stage_s"] = time.perf_counter() - t0
+    kernels.reset_launches()
     losses = [models.train_chunk(model, opt, staged[0], TRAIN_BS)]  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3843,6 +3919,9 @@ def parquet_path(nvt, ops, dev, wf, parts, cat_names, cont_names, compact, dwf, 
     torch.cuda.synchronize()
     rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
     all_losses = torch.cat(losses)
+    step_launches = dict(kernels.LAUNCHES)
+    check_launches(step_launches, {k: all_losses.numel() for k in TRAIN_STEP_KERNELS}, "parquet training")
+    rec["train_launches"] = step_launches
     if not bool(torch.isfinite(all_losses).all()):
         fail(f"parquet: non-finite losses {all_losses.tolist()}")
     batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
@@ -4248,7 +4327,7 @@ def main():
     # --- 8. the training path's kernels at its shapes -----------------------------------
     records.update(training_kernel_records(nvt, wf, parts, train, opts.profile))
     train_launches = train["launches"]
-    train_record = {k: v for k, v in train.items() if k not in ("model", "staged", "loader")}
+    train_record = {k: v for k, v in train.items() if k not in ("model", "opt", "staged", "loader")}
     feed = train["loader"]  # phase 16 trains DeepFM and DCN-v2 on it
     del train
 
@@ -4319,7 +4398,7 @@ def main():
     fm_launches = {k: sum(r["launches"][k] for r in factorized.values()) for k in factorized["deepfm"]["launches"]}
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += fm_launches[k]
-    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad"):
+    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "adagrad_update"):
         train_launches[k] += fm_launches[k]
 
     # --- 18. the multi-GPU fit on a one-rank NCCL group, at full width -------------------------------
@@ -4342,7 +4421,7 @@ def main():
     st_launches = sharded_train["launches"]
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += st_launches[k]
-    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd"):
+    for k in ("permute_rows", *TRAIN_STEP_KERNELS):
         train_launches[k] += st_launches[k]
 
     # --- 21. K15d against its plain versions on model shard 1 of 4 ------------------------------------
@@ -4359,7 +4438,7 @@ def main():
             main_launches[k] += launches[k]
         for k in ("ragged_to_padded", "embedding_bag_fwd", "embedding_bag_bwd"):
             mh_launches[k] += launches[k]
-        for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd"):
+        for k in ("permute_rows", *TRAIN_STEP_KERNELS):
             train_launches[k] += launches[k]
         for k in ("range_gather_columns", "range_scatter_grad"):
             st_launches[k] += launches[k]
@@ -4401,6 +4480,8 @@ def main():
     solo_launches = pq_rec["launches"]
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += pq_rec["main_launches"][k]
+    for k in TRAIN_STEP_KERNELS:  # 27c's DLRM steps on the written files
+        train_launches[k] += pq_rec["train_launches"][k]
 
     # --- kernels line and result ---------------------------------------------------
     meta = {
@@ -4451,6 +4532,7 @@ def main():
         "interaction_self_bwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
         "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
+        "adagrad_update": ("adagrad.cu", "nvtabular_tpu/models/training.py:25", train_launches),
         "tiny_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:119", solo_launches),
         "direct_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:196", solo_launches),
         "cuckoo_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:261", solo_launches),

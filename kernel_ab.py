@@ -2,7 +2,7 @@
 that two versions of a kernel are compared in one call at the shapes of
 chip_smoke.py's main paths:
 
-    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--cases k2,bag] [--out FILE]
+    python3 kernel_ab.py --tree OLD --tree NEW --tree NEW --tree OLD [--cases k2,bag,adagrad] [--out FILE]
 
 The cases, by group (``--cases``; all by default):
 
@@ -63,7 +63,13 @@ The cases, by group (``--cases``; all by default):
   genres table, written into a slot of a [65536, 3, 64] buffer; and in the
   zero rule (``embedding_range_bag``, K15b) at phase 19's shape: phase
   18's [65536, 26] Criteo ids (each column's codes moved by its table's
-  offset, mask 0.7) against shard 1 of 4 of the [sum V, 16] table.
+  offset, mask 0.7) against shard 1 of 4 of the [sum V, 16] table;
+- ``adagrad``: one ``Adagrad.step`` of phase 7's DLRM (dim 16, MLPs
+  512-256, 13 tensors, the tables [sum V, 16] of the Criteo-like columns
+  below) with the gradient of one batch of their ids: K18
+  (``kernels.adagrad.adagrad_update``) on a tree that has it, held bit for
+  bit against ``adagrad_update_plain`` from the same state; on a tree
+  without it, the plain update that ``Adagrad.step`` ran there.
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -145,7 +151,8 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 ]
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
-GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14", "k2", "bag")
+GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14", "k2", "bag",
+          "adagrad")
 ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
 ML_MOVIES, ML_GENRES, ML_ROWS_PER_PART, MH_SPARSE_MAX = 62_000, 20, 500_000, 4  # chip_smoke.py
 K3_CACHE = Path("build") / "kernel_ab_k3.pt"
@@ -295,7 +302,8 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             del x0, xk, w
             torch.cuda.empty_cache()
 
-    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag"} & set(groups) else (None, None)
+    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad"} & set(groups) \
+        else (None, None)
     F, D, nd = len(CRITEO_TB_CARDINALITIES), TRAIN_DIM, NUM_CONTS
     if "k16" in groups:
         from nvtabular_tpu_torch.kernels import fm as kfm
@@ -591,7 +599,45 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
              lambda: equal(kbag.embedding_range_bag(clocal, cvals, cmask, crows),
                            kbag.embedding_range_bag_plain(clocal, cvals, cmask, crows), "embedding_range_bag"))
         del buf, clocal
+    if "adagrad" in groups:
+        adagrad_case(torch, dev, gen, ids, sizes, case)
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
+
+
+def adagrad_case(torch, dev, gen, ids, sizes, case) -> None:
+    """One Adagrad.step of phase 7's DLRM over tables of ``sizes`` rows with
+    the gradient of the batch ``ids``; where the tree has K18, first held
+    bit for bit against its plain version from the same state."""
+    import importlib.util
+
+    from nvtabular_tpu_torch import models
+
+    names = [f"C{i}" for i in range(len(sizes))]
+    config = models.DLRMConfig(dict(zip(names, sizes)), num_dense=NUM_CONTS, embedding_dim=TRAIN_DIM)
+    model = models.DLRM(config, seed=0, device=dev)
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    batch = {**dict(zip(names, ids)), "dense": torch.randn((BATCH, NUM_CONTS), device=dev, generator=gen),
+             "label": (torch.rand(BATCH, device=dev, generator=gen) < 0.25).float()}
+    models.dlrm_loss(model, batch).backward()
+    check = None
+    if importlib.util.find_spec("nvtabular_tpu_torch.kernels.adagrad") is not None:
+        from nvtabular_tpu_torch.kernels import adagrad as kada
+
+        def check():
+            state = [t.detach().clone() for t in [*opt.params, *opt.sum_of_squares]]
+            k, grads = len(opt.params), [p.grad for p in opt.params]
+            want = [t.clone() for t in state]
+            kada.adagrad_update(state[:k], state[k:], grads, opt.lr)
+            kada.adagrad_update_plain(want[:k], want[k:], grads, opt.lr)
+            for a, b in zip(state, want):
+                if not (torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())):
+                    raise SystemExit("adagrad_update differs from plain")
+            return 0.0
+
+    rows = sum(sizes)
+    case(f"Adagrad.step [{rows}, {TRAIN_DIM}] + MLPs, {len(opt.params)} tensors", opt.step, check, iters=10)
+    del model, opt, batch
+    torch.cuda.empty_cache()
 
 
 def cuckoo_sectors(torch, klk, values, table, nb, ro) -> dict:

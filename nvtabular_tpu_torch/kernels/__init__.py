@@ -68,6 +68,7 @@ LAUNCHES: Dict[str, int] = {
     "column_moments": 0,
     "cin_fwd": 0,
     "cin_bwd": 0,
+    "adagrad_update": 0,
 }
 
 

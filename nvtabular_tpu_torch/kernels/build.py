@@ -47,6 +47,7 @@ SOURCES = {
     "moments": _PKG / "csrc" / "moments.cu",
     "sharded_embedding": _PKG / "csrc" / "sharded_embedding.cu",
     "cin": _PKG / "csrc" / "cin.cu",
+    "adagrad": _PKG / "csrc" / "adagrad.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

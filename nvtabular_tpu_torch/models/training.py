@@ -17,11 +17,11 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..kernels.adagrad import adagrad_update
 from .dlrm import dlrm_loss
 
 
-INITIAL_ACCUMULATOR = 0.1  # optax.adagrad's defaults
-EPS = 1e-7
+INITIAL_ACCUMULATOR = 0.1  # optax.adagrad's default
 
 
 class Adagrad:
@@ -31,10 +31,13 @@ class Adagrad:
         acc = g * g + acc
         update = -lr * g * (rsqrt(acc + EPS) where acc > 0 else 0)
 
-    The update is dense, as optax's: every row of an embedding table is
-    read and written each step. Rows whose gradient is zero keep their value
-    (acc > 0 from the start), so a sparse update would give the same result.
-    Updates are in place."""
+    ``step`` is one fused pass over every parameter with a gradient
+    (``kernels.adagrad.adagrad_update``: kernel K18 on the card, one launch
+    for up to 64 tensors; the plain version on the CPU). The gradient is
+    dense, as optax's, and read in full; the kernel reads and writes a
+    parameter and its accumulator only where the gradient's bits are not
+    all zero, which changes nothing in the result: a zero gradient leaves
+    both as they are. Updates are in place."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-2):
         self.params: List[torch.Tensor] = list(params)
@@ -57,14 +60,9 @@ class Adagrad:
 
     @torch.no_grad()
     def step(self) -> None:
-        for p, acc in zip(self.params, self.sum_of_squares):
-            g = p.grad
-            if g is None:  # a zero gradient: optax would leave p unchanged
-                continue
-            acc.addcmul_(g, g)
-            scale = acc.add(EPS).rsqrt_()
-            scale.masked_fill_(~(acc > 0), 0.0)
-            p.add_(scale.mul_(g), alpha=-self.lr)
+        # a parameter without a gradient has a zero one: optax would leave it unchanged
+        live = [(p, acc) for p, acc in zip(self.params, self.sum_of_squares) if p.grad is not None]
+        adagrad_update([p for p, _ in live], [acc for _, acc in live], [p.grad for p, _ in live], self.lr)
 
 
 LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor]], torch.Tensor]

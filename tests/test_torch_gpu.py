@@ -2106,8 +2106,9 @@ def test_sharded_multihot_step_on_one_rank_nccl_matches_unsharded(tmp_path):
     make_train_step take three Adagrad steps of a DLRM with two multihot
     tables through K15d and its bag (one range_gather_columns,
     range_scatter_grad a step, one range_bag and range_bag_grad a multihot
-    table a step, no K13a or K13c) from the parameters of an unsharded DLRM
-    that takes the same steps through K13a and K13c: losses within rtol
+    table a step, one K18 update a step, no K13a or K13c) from the
+    parameters of an unsharded DLRM that takes the same steps through K13a
+    and K13c: losses within rtol
     1e-5, tables and MLPs within 1e-5 (atomics in varying orders)."""
     _require_cuda()
     import torch.distributed as dist
@@ -2135,7 +2136,8 @@ def test_sharded_multihot_step_on_one_rank_nccl_matches_unsharded(tmp_path):
     finally:
         dist.destroy_process_group()
     assert launches == {**{k: 0 for k in launches}, "range_gather_columns": 3, "range_scatter_grad": 3,
-                        "range_bag": 6, "range_bag_grad": 6, "interaction_fwd": 3, "interaction_bwd": 3}
+                        "range_bag": 6, "range_bag_grad": 6, "interaction_fwd": 3, "interaction_bwd": 3,
+                        "adagrad_update": 3}
     np.testing.assert_allclose(got, want, rtol=1e-5)
     for (name, p), q in zip(model.named_parameters(), want_model.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5, msg=name)
@@ -3246,3 +3248,139 @@ def test_permute_rows_kernel_tiles_every_row_count():
         torch.cuda.synchronize()
         for k, v in kperm.permute_rows_plain(arrays, perm).items():
             assert torch.equal(got[k], v), (n, k)
+
+
+# --- K18: the training step's Adagrad update ---------------------------------------------------------------------
+def _adagrad_inputs(case, gen):
+    """(params, accumulators, gradients) on the card for a case of
+    test_adagrad_kernel_matches_plain."""
+    def rand(n):
+        return torch.randn(n, device="cuda", generator=gen)
+
+    if case == "one":
+        lengths = [999_983]  # a prime near 10^6: a tail unit of 3 floats
+    elif case == "lengths_1_to_7":
+        lengths = list(range(1, 8))
+    elif case == "70_tensors":  # two launches: 64 tensors, then 6
+        lengths = [int(n) for n in torch.randint(1, 300, (70,), generator=torch.Generator().manual_seed(0))]
+    else:
+        lengths = [4099, 16, 5, 1]
+    if case == "offset_views":  # contiguous views 1-3 floats into their buffers: no 16-byte alignment, the scalar path
+        ps = [rand(n + 3)[1:][:n] for n in lengths]
+        accs = [(rand(n + 3).abs() + 0.1)[2:][:n] for n in lengths]
+        gs = [rand(n + 3)[3:][:n] for n in lengths]
+    else:
+        ps = [rand(n) for n in lengths]
+        accs = [rand(n).abs() + 0.1 for n in lengths]
+        gs = [rand(n) for n in lengths]
+    for g in gs:  # rows of 16 floats with an all-zero gradient, as an embedding table's untouched rows
+        rows = g[: g.numel() // 16 * 16].view(-1, 16)
+        rows[torch.rand(rows.shape[0], device="cuda", generator=gen) < 0.7] = 0.0
+        g[torch.rand(g.shape, device="cuda", generator=gen) < 0.2] = 0.0
+    if case == "nonfinite":
+        ps[0][:8] = -0.0
+        gs[0][:8] = torch.tensor([-0.0, 0.0, -0.0, 0.0, 1.0, -0.0, 0.0, 0.0], device="cuda")
+        gs[0][100:104] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1.0], device="cuda")
+        accs[0][200:204] = float("nan")
+        gs[0][200:204] = torch.tensor([0.5, 0.0, 0.0, 0.0], device="cuda")
+        accs[1][3] = float("nan")  # in a unit whose gradient is nonzero
+        gs[1][3] = 2.0
+        gs[2][:4] = float("nan")
+    return ps, accs, gs
+
+
+def _bits_equal_nan(got, want):
+    """Equal bits, NaN where NaN (the plain step's adds give the card's canonical NaN)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(
+        torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("case", ["one", "lengths_1_to_7", "70_tensors", "offset_views", "nonfinite"])
+def test_adagrad_kernel_matches_plain(case):
+    """K18 against adagrad_update_plain on the card from the same state,
+    three steps: parameters and accumulators bit-equal, NaN where the plain
+    step has NaN (NaN or inf gradients, NaN accumulators), -0.0 and +0.0
+    as the plain step leaves them; one launch a step for each 64 tensors."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import adagrad as kada
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ps, accs, gs = _adagrad_inputs(case, gen)
+    want_p, want_a = [p.clone() for p in ps], [a.clone() for a in accs]
+    kernels.reset_launches()
+    for _ in range(3):
+        kada.adagrad_update(ps, accs, gs, 1e-2)
+        kada.adagrad_update_plain(want_p, want_a, gs, 1e-2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["adagrad_update"] == 3 * -(-len(ps) // kada.MAX_SEGMENTS)
+    for i, (p, a, wp, wa) in enumerate(zip(ps, accs, want_p, want_a)):
+        assert _bits_equal_nan(p, wp), (i, float((p - wp).abs().nan_to_num().max()))
+        assert _bits_equal_nan(a, wa), (i, float((a - wa).abs().nan_to_num().max()))
+    if case == "nonfinite":
+        assert torch.equal(torch.signbit(ps[0][:8]), torch.signbit(want_p[0][:8]))
+        assert bool(torch.isnan(ps[0][100:102]).all()) and bool(torch.isnan(ps[2][:4]).all())
+
+
+def test_adagrad_kernel_leaves_zero_gradient_bytes():
+    """An all-zero gradient: K18 reads it in full and leaves every byte of
+    the parameters and accumulators as it was, -0.0 and NaN payloads
+    included."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import adagrad as kada
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ps = [torch.randn(n, device="cuda", generator=gen) for n in (1_000_003, 16, 3)]
+    accs = [torch.rand(n, device="cuda", generator=gen) + 0.1 for n in (1_000_003, 16, 3)]
+    ps[0][:3] = torch.tensor([-0.0, float("nan"), float("inf")], device="cuda")
+    ps[0].view(torch.int32)[5] = 0x7FC00123  # a NaN with a payload
+    accs[0][:2] = torch.tensor([-0.0, float("nan")], device="cuda")
+    before_p, before_a = [p.clone() for p in ps], [a.clone() for a in accs]
+    kada.adagrad_update(ps, accs, [torch.zeros_like(p) for p in ps], 1e-2)
+    torch.cuda.synchronize()
+    for p, a, bp, ba in zip(ps, accs, before_p, before_a):
+        assert torch.equal(p.view(torch.int32), bp.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), ba.view(torch.int32))
+
+
+def test_adagrad_update_on_the_card_rejects_mixed_devices():
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import adagrad as kada
+
+    p, a = torch.zeros(8, device="cuda"), torch.full((8,), 0.1, device="cuda")
+    for g in (torch.ones(8), torch.ones(16, device="cuda")[::2], torch.ones(8, device="cuda", dtype=torch.float64)):
+        with pytest.raises((TypeError, ValueError)):
+            kada.adagrad_update([p], [a], [g], 1e-2)
+    kernels.reset_launches()
+    kada.adagrad_update([torch.zeros(0, device="cuda")], [torch.zeros(0, device="cuda")],
+                        [torch.zeros(0, device="cuda")], 1e-2)
+    assert kernels.LAUNCHES["adagrad_update"] == 0  # nothing to launch
+
+
+def test_dlrm_adagrad_steps_through_the_kernel_match_plain():
+    """Three Adagrad steps of a small DLRM through Adagrad.step (K18, one
+    launch a step for its 13 tensors) against the same steps through
+    adagrad_update_plain on a copy of the model given the same gradients:
+    every parameter and accumulator bit-equal."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import adagrad as kada
+
+    config = models.DLRMConfig({"a": 3, "b": 500, "c": 40_000}, num_dense=13, embedding_dim=16)
+    model, copy = models.DLRM(config, seed=1), models.DLRM(config, seed=1)
+    opt = models.Adagrad(model.parameters())
+    accs = [torch.full_like(p, 0.1) for p in copy.parameters()]
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in models.make_synthetic_batch(config, 4096, seed=s).items()}
+               for s in range(3)]
+    kernels.reset_launches()
+    for batch in batches:
+        opt.zero_grad()
+        models.dlrm_loss(model, batch).backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.step()
+        with torch.no_grad():
+            kada.adagrad_update_plain(list(copy.parameters()), accs, grads, opt.lr)
+    torch.cuda.synchronize()
+    assert len(opt.params) == 13 and kernels.LAUNCHES["adagrad_update"] == 3
+    for (name, p), q, a, b in zip(model.named_parameters(), copy.parameters(), opt.sum_of_squares, accs):
+        assert torch.equal(p.detach(), q.detach()), name
+        assert torch.equal(a, b), name
