@@ -43,12 +43,16 @@ a nonzero exit:
    one warm-up chunk, then TRAIN_REPEATS timed passes of 64 steps, with the
    launch counters zeroed before the loader's staging and read after the
    last step (each step one gather, scatter, interaction forward and
-   backward and one Adagrad update, K18); every code is below its table's
-   cardinality and every loss finite; one batch's loss, logits and
-   gradients through the kernels are held against the plain versions on
-   the card (in bfloat16 compute, as trained, and in float32); the step's
-   forward + backward and its Adagrad update timed apart (fwd_bwd_ms,
-   adagrad_ms);
+   backward and one Adagrad update, K18; and K19 and K20 as the model's
+   layers give them, step_launches: an epilogue forward and backward a
+   layer, 6 each, a round of each MLP's input and weights each way, 4, and
+   the loss each way); every code is below its table's cardinality and
+   every loss finite; one batch's loss, logits and gradients through the
+   kernels are held against the plain versions (the reference forward and
+   K20's plain loss) on the card (in bfloat16 compute, as trained, and in
+   float32); the step's forward + backward and its Adagrad update timed
+   apart (fwd_bwd_ms, adagrad_ms; --profile: forward + backward by layer,
+   the products, K13a, K13b, K19, K20 and the rest);
 8. the kernels of the training path at its shapes — permute_rows,
    embedding_gather, embedding_scatter_grad, interaction_fwd and
    interaction_bwd — each against its plain version on the card, timed
@@ -60,7 +64,16 @@ a nonzero exit:
    element whose gradient bits are all zero bit-unchanged, the rest
    bit-equal, NaN where NaN; timed beside its bound (g read in full, 16 B
    for each nonzero element's parameter and accumulator) and the plain
-   version;
+   version; then K19 on the products the two MLPs hand it for a training
+   batch (top [65536, 512] and [65536, 256] with ReLU and the bfloat16
+   round, bottom [65536, 16] with ReLU, top [65536, 1] with the bias
+   alone), forward in place and backward (dz, and db by fixed-order
+   partials), K19's round of the top MLP's input [65536, 367] and its
+   weights in one launch, and K20's loss and gradient on the model's
+   logits: each against its plain version (outputs, masks, dz and dlogits
+   bit-equal, NaN where NaN; db within SUM_TOL and the same bits twice; the
+   loss within rtol 1e-6), timed beside its bound, K20 beside
+   F.binary_cross_entropy_with_logits and its backward;
 9. the advanced MovieLens path (BASELINE config 2, bench/movielens_bench.py:
    73-85) at ml-25m size — 162,000 users, 62,000 movies, 50 partitions of
    500,000 rows made by the bench's generator — through TargetEncoding
@@ -87,7 +100,8 @@ a nonzero exit:
    and permutes each chunk (K14), into TabularMLP (1041 -> 512 -> 256 -> 1,
    tables at the fitted cardinalities) with Adagrad(1e-2): a warm-up chunk,
    then TRAIN_REPEATS timed passes of MH_STEPS steps, counters read after
-   (one Adagrad update a step among them);
+   (one Adagrad update a step among them, and K19 and K20 as its layers
+   give them);
    one step through the kernels against the plain versions on the card in
    bfloat16 and float32; and ListSlice(0, 3, pad=True) of the genres codes
    over every batch (K11's slice);
@@ -139,7 +153,9 @@ a nonzero exit:
    64 steps beside phase 7's DLRM step, the launch counters zeroed before
    the staging and read after the last step (a gather, a scatter, an
    Adagrad update and DeepFM's fm_fwd and fm_bwd, or DCN's three cross_fwd
-   and three cross_bwd, each step; no plain version on the card); every loss
+   and three cross_bwd, each step, with K19 and K20 as the layers give
+   them: DCN rounds x and W of each cross layer in one launch each way; no
+   plain version on the card); every loss
    finite; one batch's loss, logits and gradients through the kernels
    held against the reference forward on the card in bfloat16 and
    float32 (DeepFM's gradients for the plain path's logits gradient:
@@ -179,8 +195,8 @@ a nonzero exit:
    and TRAIN_REPEATS timed passes of 64 steps beside phase 7's; the launch
    counters zeroed before the staging and read after the last step (one
    range_gather_columns and one range_scatter_grad a sharded step, K13a
-   only in the 8 unsharded steps, one Adagrad update a step of either, no
-   plain version on the card); every loss finite;
+   only in the 8 unsharded steps, one Adagrad update and K19's and K20's a
+   step of either, no plain version on the card); every loss finite;
 21. K15d's range_gather_columns and range_scatter_grad on model shard 1 of
    4 of phase 20's padded tables with [65536, 26] ids of its first batch
    and D = 16, each against its plain version on the card and timed beside
@@ -199,8 +215,9 @@ a nonzero exit:
    shard_batch / make_train_step on a one-rank NCCL group: 8 steps beside
    an unsharded DLRM (losses within STEP_TOL, both tables within SUM_TOL)
    and timed passes (one range_gather_columns, range_scatter_grad,
-   range_bag, range_bag_grad and Adagrad update a step), the bag forward
-   on a step's batch bit-equal to its plain version;
+   range_bag, range_bag_grad and Adagrad update a step; K19 and K20 as
+   the layers give them in both), the bag forward on a step's batch
+   bit-equal to its plain version;
 23. the layer entry points: dot_product_interaction(self_interaction=True)
    on [65536, 27, 16] and a two-layer CIN (xdeepfm_outer_product, 26
    fields of dim 16, 200 maps) at batch 8,192, forward and backward, held
@@ -260,7 +277,8 @@ a nonzero exit:
    multiset, bit for bit; then Dataset(out) feeds DeviceLoader(65536,
    shuffle=True) into DLRM (dim 16) for 16 steps, the counters zeroed
    before the first step and read after the last (TRAIN_STEP_KERNELS once
-   a step), one step held against the plain versions (STEP_TOL); 27d fits
+   a step, K19 and K20 as phase 7's), one step held against the plain
+   versions (STEP_TOL); 27d fits
    and transforms the 16 files with
    Categorify(max_size=10_000_000, cat_cache=...) with the 16 smallest
    vocabularies on the disk tier (K1 or K3 solo, the counters zeroed
@@ -275,7 +293,7 @@ a nonzero exit:
    at the largest vocabulary of their kind, each against its plain version
    on the card, timed beside its bound.
 
-The line before the last is {"kernels": [...]} with the 51 kernels'
+The line before the last is {"kernels": [...]} with the 56 kernels'
 launches, error, times and bound; the last line is {"ok": true,
 "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -292,6 +310,7 @@ import json
 import math
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 import time
@@ -317,6 +336,10 @@ SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 TRAIN_PARTS, TRAIN_BS, TRAIN_STEPS, TRAIN_REPEATS, TRAIN_DIM = 4, 65536, 64, 3, 16
 TRAIN_STEP_KERNELS = ("embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd",
                       "adagrad_update")
+# K19 (an epilogue a layer, a round an MLP and a cross layer each way) and
+# K20 (the loss each way): their launches a step follow from the model's
+# layers (step_launches)
+LAYER_KERNELS = ("mlp_epilogue_fwd", "mlp_epilogue_bwd", "round_group", "bce_fwd", "bce_bwd")
 # kernel path vs plain path, one step on one batch: (loss rtol, largest
 # logit difference, largest gradient difference over the gradient's largest
 # entry). float32: only summation orders differ. bfloat16 (as trained): the
@@ -678,6 +701,45 @@ def profile_pass(fn) -> dict:
 
 
 PROFILE_CALLS = 20  # a trace of a single short call can come back with no device events
+# phase 7's forward + backward by layer: patterns of the device kernels'
+# names (cuBLAS's products; the port's kernels by their names in csrc/); any
+# other kernel, fill or copy is "rest"
+LAYER_OF_KERNEL = (
+    ("products", (r"gemm", r"xmma", r"cutlass", r"splitK")),
+    ("K13a", (r"\bgather_kernel\b", r"\bscatter_grad_kernel\b")),
+    ("K13b", (r"\binteraction_(fwd|bwd)",)),
+    ("K19", (r"\bepilogue_(fwd|bwd)_kernel\b", r"\bround_kernel\b")),
+    ("K20", (r"\bbce_(fwd|bwd)_kernel\b",)),
+)
+
+
+def layer_of(kernel_name: str) -> str:
+    return next((layer for layer, pats in LAYER_OF_KERNEL if any(re.search(p, kernel_name) for p in pats)), "rest")
+
+
+def layer_split(fn, calls=PROFILE_CALLS) -> dict:
+    """torch.profiler's device time a call of ``fn`` by layer (LAYER_OF_KERNEL),
+    over ``calls`` calls after one more, and the rest's largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {layer: 0.0 for layer, _ in LAYER_OF_KERNEL} | {"rest": 0.0}
+    rest = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3 / calls
+        layer = layer_of(e.key)
+        split[layer] += ms
+        if layer == "rest":
+            rest.append((e.key[:70], round(ms, 4), e.count // calls))
+    return {"ms": split, "device_ms": sum(split.values()), "rest_top": sorted(rest, key=lambda r: -r[1])[:8]}
 
 
 def profiled_calls(fn):
@@ -695,14 +757,43 @@ def profile_split(rec: dict, name: str, fn) -> None:
     log(f"profile {name}: device time by kernel {rec['profile']}")
 
 
-def step_grads(model, forward, batch, dz=None):
+def step_launches(model) -> dict:
+    """K19's and K20's launches in one training step of ``model``, from its
+    layers: an epilogue forward and backward a layer of each MLP; a round
+    forward and backward an MLP and a cross layer where the compute dtype
+    rounds (bfloat16, as trained); one loss each way."""
+    from nvtabular_tpu_torch.models.deepfm import CrossNetwork
+    from nvtabular_tpu_torch.models.layers import MLP
+
+    n = dict.fromkeys(LAYER_KERNELS, 0)
+    n["bce_fwd"] = n["bce_bwd"] = 1
+    for m in model.modules():
+        rounds = isinstance(m, (MLP, CrossNetwork)) and m.compute_dtype != torch.float32
+        if isinstance(m, MLP):
+            n["mlp_epilogue_fwd"] += len(m.weights)
+            n["mlp_epilogue_bwd"] += len(m.weights)
+            n["round_group"] += 2 * rounds
+        elif isinstance(m, CrossNetwork):
+            n["round_group"] += 2 * len(m.weights) * rounds
+    return n
+
+
+def per_step_launches(model, own=None) -> dict:
+    """Every kernel's launches in one training step of ``model``: a DLRM's
+    TRAIN_STEP_KERNELS once (``own`` in place of them for another family),
+    then K19 and K20 as its layers give them."""
+    return {**({k: 1 for k in TRAIN_STEP_KERNELS} if own is None else own), **step_launches(model)}
+
+
+def step_grads(model, forward, batch, dz=None, plain=False):
     """Logits, loss and every parameter's gradient of one batch: of the
-    loss, or, given ``dz``, of the logits for the output gradient ``dz``."""
+    loss, or, given ``dz``, of the logits for the output gradient ``dz``;
+    ``plain``: the loss through K20's plain version."""
     from nvtabular_tpu_torch import models
 
     model.zero_grad(set_to_none=True)
     logits = forward(batch)
-    loss = models.bce_with_logits(logits, batch["label"])
+    loss = models.bce_with_logits(logits, batch["label"], plain=plain)
     if dz is None:
         loss.backward()
     else:
@@ -714,8 +805,9 @@ def step_grads(model, forward, batch, dz=None):
 
 def check_step_parity(model, batch, reference, mlps, same_output_grad=False) -> dict:
     """One step's loss, logits and gradients through the kernels against the
-    plain versions (``reference(model, batch)``) on the card, from the same
-    state, in the trained bfloat16 compute and in float32 (set on ``mlps``).
+    plain versions (``reference(model, batch)`` and K20's plain loss) on the
+    card, from the same state, in the trained bfloat16 compute and in
+    float32 (set on ``mlps``).
 
     With ``same_output_grad`` both paths' gradients are taken for one output
     gradient, the plain path's dloss/dlogits: where a kernel sums the
@@ -731,12 +823,12 @@ def check_step_parity(model, batch, reference, mlps, same_output_grad=False) -> 
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         for mlp in mlps:
             mlp.compute_dtype = dtype
-        p_logits, p_loss, p_grads = step_grads(model, lambda b: reference(model, b), batch)
+        p_logits, p_loss, p_grads = step_grads(model, lambda b: reference(model, b), batch, plain=True)
         dz = None
         if same_output_grad:
             z = p_logits.clone().requires_grad_(True)
-            (dz,) = torch.autograd.grad(models.bce_with_logits(z, batch["label"]), z)
-            p_grads = step_grads(model, lambda b: reference(model, b), batch, dz)[2]
+            (dz,) = torch.autograd.grad(models.bce_with_logits(z, batch["label"], plain=True), z)
+            p_grads = step_grads(model, lambda b: reference(model, b), batch, dz, plain=True)[2]
         k_logits, k_loss, k_grads = step_grads(model, model, batch, dz)
         loss_rtol, logit_atol, grad_rel = STEP_TOL[name]
         loss_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
@@ -801,9 +893,9 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
 
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
-    per_step = set(TRAIN_STEP_KERNELS)
+    per_step = per_step_launches(model)
     for name, count in launches.items():
-        want = len(staged) if name in per_chunk else total_steps if name in per_step else 0
+        want = len(staged) if name in per_chunk else total_steps * per_step.get(name, 0)
         if count != want:
             fail(f"train: {name} launched {count} times, expected {want}")
     all_losses = torch.cat(losses)
@@ -850,6 +942,11 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
     log(f"train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
+    if profile:
+        rec["fwd_bwd_split"] = split = layer_split(fwd_bwd)
+        log(f"profile train forward + backward by layer (device ms a step, {PROFILE_CALLS} steps): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split["ms"].items())
+            + f"; total {split['device_ms']:.4f}; the rest's largest {split['rest_top']}")
     rec.update(model=model, opt=opt, staged=staged, loader=loader)
     return rec
 
@@ -988,6 +1085,157 @@ def training_kernel_records(nvt, wf, parts, train, profile: bool) -> dict:
     if profile:
         profile_split(rec, "interaction_bwd", lambda: kint.interaction_bwd(x, g))
     records["adagrad_update"] = adagrad_record(model, train["opt"], batch)
+    records.update(epilogue_loss_records(model, batch))
+    return records
+
+
+def epilogue_loss_records(model, batch) -> dict:
+    """Phase 8's K19 and K20 at DLRM's shapes, each against its plain
+    version on the card from the same inputs: the epilogue forward and
+    backward on the products the two MLPs hand it for one training batch
+    (top [65536, 512] and [65536, 256] with ReLU and round, bottom [65536,
+    16] with ReLU, top [65536, 1] with the bias alone; outputs, masks and dz
+    bit-equal, NaN where NaN, db within SUM_TOL of the sums of |dz|), the
+    round of the top MLP's input [65536, 367] and its three weights (one
+    launch, bit-equal), and the loss forward and backward on the model's
+    logits (the loss within rtol 1e-6, dlogits bit-equal), beside
+    F.binary_cross_entropy_with_logits and its backward. Timed beside their
+    bounds."""
+    import torch.nn.functional as F
+
+    from nvtabular_tpu_torch import kernels
+    from nvtabular_tpu_torch.kernels import bce as kbce
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    records = {}
+    dev = model.table.device
+    cdt = model.top.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(6)
+    inputs = {}
+
+    def keep_top_input(module, args):
+        inputs["top"] = args[0].detach().clone()
+
+    hook = model.top.register_forward_pre_hook(keep_top_input)
+    with torch.no_grad():
+        logits = model(batch)
+    hook.remove()
+    with torch.no_grad():
+        cases = []  # (name, y, b, relu, round): each layer's product as the main path computes it
+        for mlp, x in ((model.bottom, batch["dense"]), (model.top, inputs["top"])):
+            h, *ws = kep.round_group_plain([x, *mlp.weights], cdt)
+            for i, (w, b) in enumerate(zip(ws, mlp.biases)):
+                hidden = i < len(ws) - 1
+                y = h @ w
+                cases.append((mlp is model.top, y.clone(), b.detach(), hidden or mlp.final_activation,
+                              cdt if hidden else None))
+                kep.mlp_epilogue_fwd_plain(y, b, hidden or mlp.final_activation, cdt if hidden else None)
+                h = y
+    picked = [c for c in cases if c[0] and c[1].shape[1] in (512, 256, 1)] + [c for c in cases if
+                                                                                c[1].shape[1] == TRAIN_DIM]
+    for i, (_, y, b, relu, rnd) in enumerate(picked):
+        B, N = y.shape
+        suffix = "" if i == 0 else f" [{B}, {N}]"
+        got, want = y.clone(), y.clone()
+        mask = kep.mlp_epilogue_fwd(got, b, relu, rnd)
+        want_mask = kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
+        torch.cuda.synchronize()
+        if not bits_equal_nan(got, want) or (relu and not torch.equal(mask, want_mask)):
+            fail(f"mlp_epilogue_fwd{suffix} kernel differs from plain")
+        scratch, pscratch = y.clone(), y.clone()  # in place: each timed call writes over its own copy
+        rec = {
+            "max_abs_err": 0.0, "shape": [B, N], "mode": {"relu": relu, "round": str(rnd)},
+            "bytes": (9 if relu else 8) * B * N + 4 * N,
+            "ms": time_ms(lambda: kep.mlp_epilogue_fwd(scratch, b, relu, rnd)),
+            "plain_ms": time_ms(lambda: kep.mlp_epilogue_fwd_plain(pscratch, b, relu, rnd)),
+            "library_ms": None, "library_what": LIBRARY_WHAT["mlp_epilogue_fwd"],
+        }
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 3 * B * N)
+        records["mlp_epilogue_fwd" + suffix] = rec
+        del scratch, pscratch
+
+        g = torch.randn((B, N), device=dev, generator=gen)
+        dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
+        dz2, db2 = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
+        want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd)
+        magnitude = want_dz.abs().sum(0)
+        torch.cuda.synchronize()
+        if not bits_equal_nan(dz, want_dz):
+            fail(f"mlp_epilogue_bwd{suffix} kernel differs from plain in dz")
+        # a column sum of 65,536 terms in another order: 1e-5 of the sum of their magnitudes
+        if not bool(((db - want_db).abs() <= SUM_TOL["rtol"] * magnitude + SUM_TOL["atol"]).all()):
+            fail(f"mlp_epilogue_bwd{suffix} kernel differs from plain in db: max abs "
+                 f"{float((db - want_db).abs().max())}")
+        if not (bits_equal(db, db2) and bits_equal(dz, dz2)):
+            fail(f"mlp_epilogue_bwd{suffix}: two runs differ in their bits")
+        writes_dz = relu or rnd is not None
+        rec = {
+            "max_abs_err": float((db - want_db).abs().max()), "shape": [B, N],
+            "mode": {"relu": relu, "round": str(rnd)},
+            "bytes": (9 if relu else 8 if writes_dz else 4) * B * N + 4 * N,
+            "ms": time_ms(lambda: kep.mlp_epilogue_bwd(g, mask, relu, rnd)),
+            "plain_ms": time_ms(lambda: kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd)),
+            "library_ms": None, "library_what": LIBRARY_WHAT["mlp_epilogue_bwd"],
+        }
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 3 * B * N)
+        records["mlp_epilogue_bwd" + suffix] = rec
+        del g, dz, dz2, want_dz, mask, want_mask, got, want
+
+    group = [inputs["top"], *[w.detach() for w in model.top.weights]]
+    launches0 = kernels.LAUNCHES["round_group"]
+    got = kep.round_group(group, cdt)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["round_group"] - launches0 != 1:
+        fail("round_group: more than one launch for the top MLP's 4 tensors")
+    if not all(bits_equal_nan(a, w) for a, w in zip(got, kep.round_group_plain(group, cdt))):
+        fail("round_group kernel differs from plain")
+    floats = sum(t.numel() for t in group)
+    rec = {
+        "max_abs_err": 0.0, "shape": [list(t.shape) for t in group], "bytes": 8 * floats,
+        "ms": time_ms(lambda: kep.round_group(group, cdt)),
+        "plain_ms": time_ms(lambda: kep.round_group_plain(group, cdt)),
+        "library_ms": None, "library_what": LIBRARY_WHAT["round_group"],
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], floats)
+    records["round_group"] = rec
+    del got
+
+    labels = batch["label"].reshape(-1).float()
+    B = logits.shape[0]
+    loss, want = kbce.bce_fwd(logits, labels), kbce.bce_fwd_plain(logits, labels)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(loss) - float(want)) / abs(float(want))
+    if not loss_rel <= 1e-6:
+        fail(f"bce_fwd kernel differs from plain: {float(loss)} against {float(want)}")
+    lib_logits = logits.clone().requires_grad_(True)
+    lib_loss = F.binary_cross_entropy_with_logits(lib_logits, labels)
+    rec = {
+        "max_abs_err": abs(float(loss) - float(want)), "loss_rel": loss_rel, "shape": [B], "bytes": 8 * B + 4,
+        "ms": time_ms(lambda: kbce.bce_fwd(logits, labels)),
+        "plain_ms": time_ms(lambda: kbce.bce_fwd_plain(logits, labels)),
+        "library_ms": time_ms(lambda: F.binary_cross_entropy_with_logits(logits, labels)),
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 10 * B)
+    records["bce_fwd"] = rec
+    one = torch.ones((), device=dev)
+    dl, want_dl = kbce.bce_bwd(logits, labels, one), kbce.bce_bwd_plain(logits, labels, one)
+    torch.cuda.synchronize()
+    if not bits_equal_nan(dl, want_dl):
+        fail(f"bce_bwd kernel differs from plain: max abs {float((dl - want_dl).abs().max())}")
+    rec = {
+        "max_abs_err": 0.0, "shape": [B], "bytes": 12 * B + 4,
+        "ms": time_ms(lambda: kbce.bce_bwd(logits, labels, one)),
+        "plain_ms": time_ms(lambda: kbce.bce_bwd_plain(logits, labels, one)),
+        # the library call's backward alone, on a graph kept for it
+        "library_ms": time_ms(lambda: torch.autograd.grad(lib_loss, lib_logits, retain_graph=True)),
+        "library_what": LIBRARY_WHAT["bce_bwd"],
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 15 * B)
+    records["bce_bwd"] = rec
+    log("train: K19 and K20 at DLRM's shapes equal their plain versions (outputs, masks, dz and dlogits "
+        "bit-equal, db within SUM_TOL and the same bits twice, the loss within rtol 1e-6): " + ", ".join(
+            f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+            for name, r in records.items()))
     return records
 
 
@@ -1341,7 +1589,7 @@ def multihot_train(nvt, wf, batches, profile: bool) -> dict:
     per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
     # a gather and a scatter per id table, a bag and its gradient and one Adagrad update per step
     per_step = {"embedding_gather": len(model.tables), "embedding_scatter_grad": len(model.tables),
-                "embedding_bag_fwd": 1, "embedding_bag_bwd": 1, "adagrad_update": 1}
+                "embedding_bag_fwd": 1, "embedding_bag_bwd": 1, "adagrad_update": 1, **step_launches(model)}
     check_launches(launches, {**{k: len(staged) for k in per_chunk},
                               **{k: n * total_steps for k, n in per_step.items()}}, "multihot train")
     if wf.executor.host_handoffs - handoffs0 != len(staged):
@@ -1667,6 +1915,14 @@ def nan_equal(got, want) -> bool:
     return got.shape == want.shape and bool(((got == want) | (torch.isnan(got) & torch.isnan(want))).all())
 
 
+def bits_equal_nan(got, want) -> bool:
+    """float32 tensors of equal bits, -0.0 apart from 0.0, NaN where NaN (a
+    NaN's payload may differ)."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
 def crossed_path(nvt, dev, parts, profile: bool) -> dict:
     """Phase 12: the crossed-feature workflow on phase 3's partitions."""
     from nvtabular_tpu_torch import kernels, ops
@@ -1949,6 +2205,10 @@ LIBRARY_WHAT = {
     "range_scatter_grad": "zeros + index_add_ of the held ids' rows",
     "interaction_bwd": "bmm of the symmetric pair gradient, zero diagonal, built outside the timing",
     "adagrad_update": "none: torch.optim.Adagrad puts eps outside the square root and starts the accumulator at 0",
+    "mlp_epilogue_fwd": "none: no one call adds the bias, applies ReLU and rounds",
+    "mlp_epilogue_bwd": "none: no one call masks, rounds and sums the columns",
+    "round_group": "none: a round trip is two casts a tensor",
+    "bce_bwd": "the backward of F.binary_cross_entropy_with_logits alone, its graph kept",
 }
 
 
@@ -2191,7 +2451,7 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
     read after the last step, no plain version on the card; one step held
     against the plain versions; and the inputs of phase 17's kernels kept."""
     from nvtabular_tpu_torch import kernels, models
-    from nvtabular_tpu_torch.models.layers import _round_to
+    from nvtabular_tpu_torch.kernels.mlp_epilogue import round_group_plain
 
     phase_t0 = time.perf_counter()
     if family == "deepfm":
@@ -2228,7 +2488,8 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
     launches = dict(kernels.LAUNCHES)
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"permute_rows", "tiny_lookup", "cuckoo_lookup", "cont_chain"}
-    per_step = {"embedding_gather": 1, "embedding_scatter_grad": 1, "adagrad_update": 1, **own}
+    per_step = per_step_launches(model, {"embedding_gather": 1, "embedding_scatter_grad": 1, "adagrad_update": 1,
+                                         **own})
     for name, count in launches.items():
         want = len(staged) if name in per_chunk else total_steps * per_step.get(name, 0)
         if count != want:
@@ -2283,8 +2544,10 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
                                         linear=model.linear.detach().clone(), dense_w=model.dense_w.detach().clone())
         else:  # the second cross layer: x_1 from the first, its product and bias
             cross, cdt = model.cross, torch.bfloat16
-            x1 = (_round_to(x, cdt) @ _round_to(cross.weights[0], cdt)).add_(cross.biases[0]).mul_(x).add_(x)
-            xw1 = _round_to(x1, cdt) @ _round_to(cross.weights[1], cdt)
+            xr, w0 = round_group_plain([x, cross.weights[0]], cdt)
+            x1 = (xr @ w0).add_(cross.biases[0]).mul_(x).add_(x)
+            xr1, w1 = round_group_plain([x1, cross.weights[1]], cdt)
+            xw1 = xr1 @ w1
             rec["kernel_inputs"] = dict(xw=xw1, b=cross.biases[1].detach().clone(), x0=x, x=x1)
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"{family}: phase 16 took {rec['phase_s']:.1f} s")
@@ -2772,7 +3035,8 @@ def sharded_train_path(feed, schema, dlrm_steps_per_s: float, smi: str, profile:
         want_launches.update(range_gather_columns=sharded_steps, range_scatter_grad=sharded_steps,
                              embedding_gather=len(parity), embedding_scatter_grad=len(parity),
                              interaction_fwd=sharded_steps + len(parity), interaction_bwd=sharded_steps + len(parity),
-                             adagrad_update=sharded_steps + len(parity))
+                             adagrad_update=sharded_steps + len(parity),
+                             **{k: n * (sharded_steps + len(parity)) for k, n in step_launches(model).items()})
         check_launches(launches, want_launches, "sharded train")
         all_losses = torch.cat(losses)
         if not bool(torch.isfinite(all_losses).all()):
@@ -2945,9 +3209,8 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
     launches = dict(kernels.LAUNCHES)
     total_steps = sum(int(l.numel()) for l in losses)
     per_chunk = {"direct_lookup", "tiny_lookup", "cont_chain", "ragged_to_padded", "permute_rows"}
-    per_step = {"embedding_gather", "embedding_scatter_grad", "embedding_bag_fwd", "embedding_bag_bwd",
-                "interaction_fwd", "interaction_bwd", "adagrad_update"}
-    check_launches(launches, {**{k: len(staged) for k in per_chunk}, **{k: total_steps for k in per_step}},
+    per_step = {**per_step_launches(model), "embedding_bag_fwd": 1, "embedding_bag_bwd": 1}
+    check_launches(launches, {**{k: len(staged) for k in per_chunk}, **{k: n * total_steps for k, n in per_step.items()}},
                    "multihot dlrm")
     all_losses = torch.cat(losses)
     if not bool(torch.isfinite(all_losses).all()):
@@ -3045,6 +3308,7 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
             "embedding_bag_fwd": len(parity), "embedding_bag_bwd": len(parity),
             "interaction_fwd": sharded_steps + len(parity), "interaction_bwd": sharded_steps + len(parity),
             "adagrad_update": sharded_steps + len(parity),
+            **{k: n * (sharded_steps + len(parity)) for k, n in step_launches(smodel).items()},
         }, "multihot dlrm, sharded")
         all_s = torch.cat([got, *slosses])
         if not bool(torch.isfinite(all_s).all()):
@@ -3919,9 +4183,10 @@ def parquet_path(nvt, ops, dev, wf, parts, cat_names, cont_names, compact, dwf, 
     torch.cuda.synchronize()
     rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
     all_losses = torch.cat(losses)
-    step_launches = dict(kernels.LAUNCHES)
-    check_launches(step_launches, {k: all_losses.numel() for k in TRAIN_STEP_KERNELS}, "parquet training")
-    rec["train_launches"] = step_launches
+    train_launches = dict(kernels.LAUNCHES)
+    check_launches(train_launches, {k: n * all_losses.numel() for k, n in per_step_launches(model).items()},
+                   "parquet training")
+    rec["train_launches"] = train_launches
     if not bool(torch.isfinite(all_losses).all()):
         fail(f"parquet: non-finite losses {all_losses.tolist()}")
     batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
@@ -4398,7 +4663,7 @@ def main():
     fm_launches = {k: sum(r["launches"][k] for r in factorized.values()) for k in factorized["deepfm"]["launches"]}
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += fm_launches[k]
-    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "adagrad_update"):
+    for k in ("permute_rows", "embedding_gather", "embedding_scatter_grad", "adagrad_update", *LAYER_KERNELS):
         train_launches[k] += fm_launches[k]
 
     # --- 18. the multi-GPU fit on a one-rank NCCL group, at full width -------------------------------
@@ -4421,7 +4686,7 @@ def main():
     st_launches = sharded_train["launches"]
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += st_launches[k]
-    for k in ("permute_rows", *TRAIN_STEP_KERNELS):
+    for k in ("permute_rows", *TRAIN_STEP_KERNELS, *LAYER_KERNELS):
         train_launches[k] += st_launches[k]
 
     # --- 21. K15d against its plain versions on model shard 1 of 4 ------------------------------------
@@ -4438,7 +4703,7 @@ def main():
             main_launches[k] += launches[k]
         for k in ("ragged_to_padded", "embedding_bag_fwd", "embedding_bag_bwd"):
             mh_launches[k] += launches[k]
-        for k in ("permute_rows", *TRAIN_STEP_KERNELS):
+        for k in ("permute_rows", *TRAIN_STEP_KERNELS, *LAYER_KERNELS):
             train_launches[k] += launches[k]
         for k in ("range_gather_columns", "range_scatter_grad"):
             st_launches[k] += launches[k]
@@ -4480,7 +4745,7 @@ def main():
     solo_launches = pq_rec["launches"]
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += pq_rec["main_launches"][k]
-    for k in TRAIN_STEP_KERNELS:  # 27c's DLRM steps on the written files
+    for k in (*TRAIN_STEP_KERNELS, *LAYER_KERNELS):  # 27c's DLRM steps on the written files
         train_launches[k] += pq_rec["train_launches"][k]
 
     # --- kernels line and result ---------------------------------------------------
@@ -4533,6 +4798,11 @@ def main():
         "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "adagrad_update": ("adagrad.cu", "nvtabular_tpu/models/training.py:25", train_launches),
+        "mlp_epilogue_fwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),
+        "mlp_epilogue_bwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),
+        "round_group": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:56", train_launches),
+        "bce_fwd": ("bce.cu", "nvtabular_tpu/models/layers.py:148", train_launches),
+        "bce_bwd": ("bce.cu", "nvtabular_tpu/models/layers.py:148", train_launches),
         "tiny_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:119", solo_launches),
         "direct_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:196", solo_launches),
         "cuckoo_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:261", solo_launches),

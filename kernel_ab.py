@@ -69,7 +69,20 @@ The cases, by group (``--cases``; all by default):
   below) with the gradient of one batch of their ids: K18
   (``kernels.adagrad.adagrad_update``) on a tree that has it, held bit for
   bit against ``adagrad_update_plain`` from the same state; on a tree
-  without it, the plain update that ``Adagrad.step`` ran there.
+  without it, the plain update that ``Adagrad.step`` ran there;
+- ``k19``: K19 at phase 8's shapes: the epilogue forward (in place) and
+  backward at [65536, 512] and [65536, 256] with ReLU and the bfloat16
+  round, [65536, 16] with ReLU and [65536, 1] with the bias alone, and the
+  round of the top MLP's input [65536, 367] and its three weights; on a
+  tree without ``kernels/mlp_epilogue.py`` the plain ops that tree's MLP
+  ran (``y + b``, ``relu``, the two casts, and autograd's backward of
+  them). Then one forward + backward of phase 7's DLRM (as ``adagrad``
+  builds it), with its device time by layer (chip_smoke.py
+  ``layer_split``: the products, K13a, K13b, K19, K20, the rest);
+- ``k20``: K20's loss and gradient on [65536] logits, beside
+  ``F.binary_cross_entropy_with_logits`` and its backward alone; on a tree
+  without ``kernels/bce.py`` its ``bce_with_logits`` and autograd's
+  backward of it.
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -152,7 +165,7 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
 GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14", "k2", "bag",
-          "adagrad")
+          "adagrad", "k19", "k20")
 ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
 ML_MOVIES, ML_GENRES, ML_ROWS_PER_PART, MH_SPARSE_MAX = 62_000, 20, 500_000, 4  # chip_smoke.py
 K3_CACHE = Path("build") / "kernel_ab_k3.pt"
@@ -210,16 +223,20 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(16)
     rec = {}
 
-    def case(name, fn, check=None, iters=TIMED_ITERS):
+    def case(name, fn, check=None, iters=TIMED_ITERS, by_layer=False):
         """Times fn after check() (the max abs error, raising where the
         kernel differs); a tree whose wrapper refuses the case (ValueError,
         NotImplementedError) records its refusal. A failed launch raises
-        RuntimeError, which ends the tree's process with its error."""
+        RuntimeError, which ends the tree's process with its error.
+        ``by_layer``: its device time a call by layer (chip_smoke.py
+        layer_split)."""
         try:
             err = check() if check else None
             rec[name] = {"ms": time_ms(torch, fn, iters), "max_abs_err": err}
             if split:
                 rec[name]["device_us"] = device_split(torch, fn)
+            if by_layer:
+                rec[name]["by_layer"] = smoke_module().layer_split(fn, calls=10)
         except (ValueError, NotImplementedError) as e:
             rec[name] = {"ms": None, "error": f"{type(e).__name__}: {e}"[:300]}
 
@@ -302,7 +319,7 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             del x0, xk, w
             torch.cuda.empty_cache()
 
-    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad"} & set(groups) \
+    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad", "k19"} & set(groups) \
         else (None, None)
     F, D, nd = len(CRITEO_TB_CARDINALITIES), TRAIN_DIM, NUM_CONTS
     if "k16" in groups:
@@ -601,6 +618,10 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
         del buf, clocal
     if "adagrad" in groups:
         adagrad_case(torch, dev, gen, ids, sizes, case)
+    if "k19" in groups:
+        k19_cases(torch, dev, gen, ids, sizes, case)
+    if "k20" in groups:
+        k20_cases(torch, dev, gen, case)
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
 
 
@@ -612,12 +633,8 @@ def adagrad_case(torch, dev, gen, ids, sizes, case) -> None:
 
     from nvtabular_tpu_torch import models
 
-    names = [f"C{i}" for i in range(len(sizes))]
-    config = models.DLRMConfig(dict(zip(names, sizes)), num_dense=NUM_CONTS, embedding_dim=TRAIN_DIM)
-    model = models.DLRM(config, seed=0, device=dev)
+    model, batch = dlrm_batch(torch, dev, gen, ids, sizes)
     opt = models.Adagrad(model.parameters(), lr=1e-2)
-    batch = {**dict(zip(names, ids)), "dense": torch.randn((BATCH, NUM_CONTS), device=dev, generator=gen),
-             "label": (torch.rand(BATCH, device=dev, generator=gen) < 0.25).float()}
     models.dlrm_loss(model, batch).backward()
     check = None
     if importlib.util.find_spec("nvtabular_tpu_torch.kernels.adagrad") is not None:
@@ -638,6 +655,133 @@ def adagrad_case(torch, dev, gen, ids, sizes, case) -> None:
     case(f"Adagrad.step [{rows}, {TRAIN_DIM}] + MLPs, {len(opt.params)} tensors", opt.step, check, iters=10)
     del model, opt, batch
     torch.cuda.empty_cache()
+
+
+def bits_equal_nan(torch, got, want, what) -> float:
+    """0.0 where ``got`` has ``want``'s bits, NaN where NaN; raises otherwise."""
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan].view(torch.int32),
+                                                               want[~nan].view(torch.int32))):
+        raise SystemExit(f"{what} is not bit-equal to its plain version")
+    return 0.0
+
+
+def dlrm_batch(torch, dev, gen, ids, sizes):
+    """Phase 7's DLRM over tables of ``sizes`` rows and a batch of ``ids``."""
+    from nvtabular_tpu_torch import models
+
+    names = [f"C{i}" for i in range(len(sizes))]
+    config = models.DLRMConfig(dict(zip(names, sizes)), num_dense=NUM_CONTS, embedding_dim=TRAIN_DIM)
+    model = models.DLRM(config, seed=0, device=dev)
+    batch = {**dict(zip(names, ids)), "dense": torch.randn((BATCH, NUM_CONTS), device=dev, generator=gen),
+             "label": (torch.rand(BATCH, device=dev, generator=gen) < 0.25).float()}
+    return model, batch
+
+
+def k19_cases(torch, dev, gen, ids, sizes, case) -> None:
+    """K19 at phase 8's shapes, or the plain ops of a tree without it; then
+    phase 7's DLRM forward + backward, by kernel."""
+    import importlib.util
+
+    from nvtabular_tpu_torch import models
+
+    has = importlib.util.find_spec("nvtabular_tpu_torch.kernels.mlp_epilogue") is not None
+    cdt = torch.bfloat16
+    for N, relu, rnd in ((512, True, cdt), (256, True, cdt), (TRAIN_DIM, True, None), (1, False, None)):
+        y = torch.randn((BATCH, N), device=dev, generator=gen)
+        b = torch.randn(N, device=dev, generator=gen)
+        g = torch.randn((BATCH, N), device=dev, generator=gen)
+        tag = f"[{BATCH}, {N}] " + ("relu, round" if rnd else "relu" if relu else "bias")
+        if has:
+            from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+            def check_fwd(y=y, b=b, relu=relu, rnd=rnd):
+                got, want = y.clone(), y.clone()
+                mask, want_mask = kep.mlp_epilogue_fwd(got, b, relu, rnd), kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
+                if relu and not torch.equal(mask, want_mask):
+                    raise SystemExit("mlp_epilogue_fwd's mask differs from plain")
+                return bits_equal_nan(torch, got, want, "mlp_epilogue_fwd")
+
+            scratch = y.clone()  # in place: the timed calls write over a copy
+            case(f"mlp_epilogue_fwd {tag}", lambda s=scratch, b=b, r=relu, c=rnd: kep.mlp_epilogue_fwd(s, b, r, c),
+                 check_fwd)
+            mask = kep.mlp_epilogue_fwd(y.clone(), b, relu, rnd)
+
+            def check_bwd(g=g, mask=mask, relu=relu, rnd=rnd):
+                (dz, db), (want_dz, want_db) = (kep.mlp_epilogue_bwd(g, mask, relu, rnd),
+                                                kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd))
+                bits_equal_nan(torch, dz, want_dz, "mlp_epilogue_bwd's dz")
+                return within(db, want_db, want_dz.abs().sum(0))
+
+            case(f"mlp_epilogue_bwd {tag}", lambda g=g, m=mask, r=relu, c=rnd: kep.mlp_epilogue_bwd(g, m, r, c),
+                 check_bwd)
+        else:  # the tree's MLP: y + b, relu, the round's two casts, and autograd's backward of them
+            def plain(y, b, relu=relu, rnd=rnd):
+                z = y + b
+                z = torch.relu(z) if relu else z
+                return z if rnd is None else z.to(rnd).to(torch.float32)
+
+            case(f"mlp_epilogue_fwd {tag}", lambda y=y, b=b, f=plain: f(y, b))
+            yr, br = y.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            out = plain(yr, br)
+            case(f"mlp_epilogue_bwd {tag}",
+                 lambda o=out, yr=yr, br=br, g=g: torch.autograd.grad(o, (yr, br), g, retain_graph=True))
+        del y, g
+    group = [torch.randn((BATCH, TRAIN_DIM + 351), device=dev, generator=gen)]
+    group += [torch.randn(s, device=dev, generator=gen) for s in ((TRAIN_DIM + 351, 512), (512, 256), (256, 1))]
+    if has:
+        case(f"round_group [{BATCH}, {TRAIN_DIM + 351}] + 3 weights", lambda: kep.round_group(group, cdt),
+             lambda: max(bits_equal_nan(torch, a, w, "round_group")
+                         for a, w in zip(kep.round_group(group, cdt), kep.round_group_plain(group, cdt))))
+    else:
+        case(f"round_group [{BATCH}, {TRAIN_DIM + 351}] + 3 weights",
+             lambda: [t.to(cdt).to(torch.float32) for t in group])
+    del group
+    model, batch = dlrm_batch(torch, dev, gen, ids, sizes)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        models.dlrm_loss(model, batch).backward()
+
+    case(f"DLRM forward + backward [{BATCH}]", fwd_bwd, iters=10, by_layer=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+
+def k20_cases(torch, dev, gen, case) -> None:
+    """K20 on [BATCH] logits (or a tree's plain loss and autograd's backward
+    of it), beside F.binary_cross_entropy_with_logits and its backward."""
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    from nvtabular_tpu_torch import models
+
+    logits = torch.randn(BATCH, device=dev, generator=gen) * 2
+    labels = (torch.rand(BATCH, device=dev, generator=gen) < 0.25).float()
+    one = torch.ones((), device=dev)
+    if importlib.util.find_spec("nvtabular_tpu_torch.kernels.bce") is not None:
+        from nvtabular_tpu_torch.kernels import bce as kbce
+
+        def check_fwd():
+            got, want = float(kbce.bce_fwd(logits, labels)), float(kbce.bce_fwd_plain(logits, labels))
+            if not abs(got - want) <= 1e-6 * abs(want):
+                raise SystemExit(f"bce_fwd {got} differs from plain {want}")
+            return abs(got - want)
+
+        case(f"bce_fwd [{BATCH}]", lambda: kbce.bce_fwd(logits, labels), check_fwd)
+        case(f"bce_bwd [{BATCH}]", lambda: kbce.bce_bwd(logits, labels, one),
+             lambda: bits_equal_nan(torch, kbce.bce_bwd(logits, labels, one),
+                                    kbce.bce_bwd_plain(logits, labels, one), "bce_bwd"))
+    else:
+        case(f"bce_fwd [{BATCH}]", lambda: models.bce_with_logits(logits, labels))
+        lr = logits.clone().requires_grad_(True)
+        loss = models.bce_with_logits(lr, labels)
+        case(f"bce_bwd [{BATCH}]", lambda: torch.autograd.grad(loss, lr, retain_graph=True))
+    case(f"F.binary_cross_entropy_with_logits [{BATCH}]", lambda: F.binary_cross_entropy_with_logits(logits, labels))
+    lf = logits.clone().requires_grad_(True)
+    lib_loss = F.binary_cross_entropy_with_logits(lf, labels)
+    case(f"its backward [{BATCH}]", lambda: torch.autograd.grad(lib_loss, lf, retain_graph=True))
 
 
 def cuckoo_sectors(torch, klk, values, table, nb, ro) -> dict:
@@ -809,6 +953,10 @@ def main():
             raise SystemExit(f"{tree} failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
         recs.append({**json.loads(proc.stdout.strip().splitlines()[-1]), "tree": tree})
         print(json.dumps(recs[-1]), flush=True)
+    for rec in recs:
+        for name, r in rec["cases"].items():
+            if "by_layer" in r:
+                print(f"{rec['tree']}: {name}, device ms a call by layer {r['by_layer']}", flush=True)
     names = list(recs[0]["cases"])
     for rec in recs[1:]:
         names += [n for n in rec["cases"] if n not in names]

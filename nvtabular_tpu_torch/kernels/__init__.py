@@ -10,7 +10,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,6 +69,11 @@ LAUNCHES: Dict[str, int] = {
     "cin_fwd": 0,
     "cin_bwd": 0,
     "adagrad_update": 0,
+    "mlp_epilogue_fwd": 0,
+    "mlp_epilogue_bwd": 0,
+    "round_group": 0,
+    "bce_fwd": 0,
+    "bce_bwd": 0,
 }
 
 
@@ -132,6 +137,22 @@ def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def tickets(device: torch.device, stream: ctypes.c_void_p, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device``, all zero, for ``stream``
+    (``stream_ptr(device)``): a kernel whose last block sums the other
+    blocks' partials takes a ticket from one and leaves it at zero again.
+    One buffer a stream, so that launches on two streams never share a
+    counter."""
+    key = (device, stream.value)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 def raise_on_error(rc: int, name: str) -> None:

@@ -48,6 +48,8 @@ SOURCES = {
     "sharded_embedding": _PKG / "csrc" / "sharded_embedding.cu",
     "cin": _PKG / "csrc" / "cin.cu",
     "adagrad": _PKG / "csrc" / "adagrad.cu",
+    "mlp_epilogue": _PKG / "csrc" / "mlp_epilogue.cu",
+    "bce": _PKG / "csrc" / "bce.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

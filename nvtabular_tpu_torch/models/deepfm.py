@@ -14,9 +14,10 @@ and the dense features fill the rest (``embedding_row``), the JAX forwards'
   weights of every table live in one [sum V] parameter ``linear``.
 * ``DCN`` (DCN-v2, Wang et al. 2021): the row is x0; each cross layer is
   ``x0 * (bf16(x) @ bf16(W) + b) + x``, the product a plain ``torch.matmul``
-  of bfloat16-rounded float32 values (``MLP``'s numerics) and the rest
-  kernel K17 (``kernels/cross.py``); the deep tower reads x0, and the
-  output layer the cross output and the tower's side by side.
+  of bfloat16-rounded float32 values (``MLP``'s numerics: x and W rounded in
+  one K19 ``round_group`` launch) and the rest kernel K17
+  (``kernels/cross.py``); the deep tower reads x0, and the output layer the
+  cross output and the tower's side by side.
 
 ``compute_dtype`` (bfloat16 by default, as the JAX code) covers the MLPs
 and the cross products. Each table (and each ``linear`` block) has
@@ -37,8 +38,9 @@ from torch import nn
 from ..kernels.cross import cross_fwd_plain, cross_layer
 from ..kernels.embedding import embedding_gather_plain, embedding_row
 from ..kernels.fm import fm_fwd_plain, fm_terms
+from ..kernels.mlp_epilogue import round_tensors
 from ..workflow.workflow import resolve_device
-from .layers import MLP, _round_to, bce_with_logits
+from .layers import MLP, bce_with_logits
 
 
 class _TableConfig:
@@ -134,14 +136,14 @@ class DeepFM(_Tables):
 
 
 def deepfm_reference_forward(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``model``'s forward through the plain versions of K13a and K16, with
-    autograd through plain PyTorch operations, on any device: what the
+    """``model``'s forward through the plain versions of K13a, K16 and K19,
+    with autograd through plain PyTorch operations, on any device: what the
     kernel path is held against on the card."""
     x = model.reference_features(batch)
     FD = len(model.names) * model.config.embedding_dim
     v, dense = x[:, :FD].unflatten(1, (len(model.names), model.config.embedding_dim)), x[:, FD:]
     fm = fm_fwd_plain(v, dense, model.ids(batch), model.offsets, model.sizes, model.linear, model.dense_w)
-    return fm + model.deep(x).reshape(-1) + model.bias
+    return fm + model.deep(x, plain=True).reshape(-1) + model.bias
 
 
 def deepfm_loss(model: DeepFM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -153,7 +155,8 @@ class CrossNetwork(nn.Module):
     ``N(0, 1) / sqrt(N)``) and b [N] (zeros). Each product multiplies the
     ``compute_dtype``-rounded x and W as float32 tensors (TF32 off), as
     ``MLP`` does, giving JAX's ``preferred_element_type=float32`` result;
-    autograd of the casts rounds the gradients where JAX's transposes round."""
+    the rounds' transposes round the gradients where JAX's transposes round.
+    ``plain=True`` runs the plain versions of K19's round and of K17."""
 
     def __init__(self, dim: int, num_layers: int, compute_dtype=torch.bfloat16, generator=None, device=None):
         super().__init__()
@@ -164,11 +167,12 @@ class CrossNetwork(nn.Module):
         )
         self.biases = nn.ParameterList(nn.Parameter(torch.zeros(dim, device=device)) for _ in range(num_layers))
 
-    def forward(self, x0: torch.Tensor, epilogue=cross_layer) -> torch.Tensor:
+    def forward(self, x0: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        epilogue = cross_fwd_plain if plain else cross_layer
         x = x0
         for w, b in zip(self.weights, self.biases):
-            xw = _round_to(x, self.compute_dtype) @ _round_to(w, self.compute_dtype)
-            x = epilogue(xw, b, x0, x)
+            xr, wr = round_tensors([x, w], self.compute_dtype, plain)
+            x = epilogue(xr @ wr, b, x0, x)
         return x
 
 
@@ -194,15 +198,15 @@ class DCN(_Tables):
         x0 = self.features(batch)
         return self._head(x0, self.cross(x0))
 
-    def _head(self, x0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return self.out(torch.cat([x, self.deep(x0)], dim=1)).reshape(-1)
+    def _head(self, x0: torch.Tensor, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        return self.out(torch.cat([x, self.deep(x0, plain)], dim=1), plain).reshape(-1)
 
 
 def dcn_reference_forward(model: DCN, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``model``'s forward through the plain versions of K13a and K17, with
-    autograd through plain PyTorch operations, on any device."""
+    """``model``'s forward through the plain versions of K13a, K17 and K19,
+    with autograd through plain PyTorch operations, on any device."""
     x0 = model.reference_features(batch)
-    return model._head(x0, model.cross(x0, epilogue=cross_fwd_plain))
+    return model._head(x0, model.cross(x0, plain=True), plain=True)
 
 
 def dcn_loss(model: DCN, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -198,8 +198,8 @@ class DLRM(nn.Module):
 
 
 def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``model``'s forward through the plain versions of K13a, K13c and
-    K13b, on any device: what the kernel path is held against on the card.
+    """``model``'s forward through the plain versions of K13a, K13c, K13b
+    and K19, on any device: what the kernel path is held against on the card.
     The lookups' gradients are autograd's through plain PyTorch operations;
     the interaction's are ``interaction_bwd_plain`` (``PlainInteraction``).
     The interaction takes K13b's fmaf steps in K13b's order, so that a
@@ -208,13 +208,13 @@ def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tens
     for sharded tables."""
     if model.shard is not None:
         raise ValueError("reference_forward takes a model whose tables are not sharded")
-    bottom_out = model.bottom(batch["dense"])
+    bottom_out = model.bottom(batch["dense"], plain=True)
     ids = [batch[name] for name in model.names]
     feats = [bottom_out[:, None], embedding_gather_plain(model.table, ids, model.offsets, model.sizes)]
     feats += [embedding_bag_fwd_plain(t, v, m)[:, None] for t, v, m in model._bags(batch)]
     feats = torch.cat(feats, dim=1)
     top_in = torch.cat([bottom_out, dot_interaction_plain(feats)], dim=1)
-    return model.top(top_in).reshape(-1)
+    return model.top(top_in, plain=True).reshape(-1)
 
 
 def dlrm_loss(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

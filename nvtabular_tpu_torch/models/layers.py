@@ -2,13 +2,15 @@
 
 * ``MLP`` — ``mlp_init`` / ``mlp_apply`` (:30-67) as an ``nn.Module`` whose
   weights keep JAX's ``[in, out]`` layout (``h @ w + b``), so parameters
-  carry across without transposes.
+  carry across without transposes; its rounds and layer epilogues are
+  kernel K19 (``kernels/mlp_epilogue.py``).
 * ``embedding_lookup``, ``multihot_embedding_lookup``,
   ``dot_product_interaction`` and ``xdeepfm_outer_product`` over the
   hand-written kernels K13a, K13c, K13b and K13d (``kernels/embedding.py``,
   ``kernels/embedding_bag.py``, ``kernels/interaction.py``,
   ``kernels/cin.py``).
-* ``bce_with_logits`` with the same stable expression (:144-150).
+* ``bce_with_logits`` with the same stable expression (:144-150), kernel
+  K20 (``kernels/bce.py``).
 """
 
 from __future__ import annotations
@@ -19,15 +21,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..kernels.bce import BCEWithLogits
 from ..kernels.cin import cin
 from ..kernels.embedding import embedding_features
 from ..kernels.embedding_bag import embedding_bag
 from ..kernels.interaction import dot_interaction
-
-
-def _round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` rounded to ``dtype`` and held as float32."""
-    return t if dtype == torch.float32 else t.to(dtype).to(torch.float32)
+from ..kernels.mlp_epilogue import mlp_epilogue, round_tensors
 
 
 class MLP(nn.Module):
@@ -42,8 +41,17 @@ class MLP(nn.Module):
     needs float32 matrix products in full float32, which is PyTorch's default
     on CUDA (``torch.backends.cuda.matmul.allow_tf32`` False). A bfloat16
     ``torch.matmul`` would round its output to bfloat16 before the bias.
-    Gradients round where JAX's transposes round: autograd of each cast
-    rounds the gradient that flows back through it.
+    Gradients round where JAX's transposes round: the transpose of each
+    cast rounds the gradient that flows back through it. ReLU follows
+    ``jax.nn.relu``: +0.0 for -0.0, NaN for NaN, and its gradient
+    ``where(z > 0, g, 0)``.
+
+    The input and every weight are rounded in one ``round_group`` launch,
+    each product is ``torch.matmul`` and each layer's bias, ReLU and round
+    one ``mlp_epilogue_fwd`` launch (kernel K19; their gradients one
+    ``mlp_epilogue_bwd`` a layer and one ``round_group``). ``plain=True``
+    runs K19's plain versions instead, on any device: the reference
+    forwards that the kernels are held against.
 
     Init is He normal (``w ~ N(0, 2 / fan_in)``, ``b = 0``) from
     ``generator``.
@@ -67,16 +75,15 @@ class MLP(nn.Module):
             self.weights.append(nn.Parameter(w))
             self.biases.append(nn.Parameter(torch.zeros(fan_out, device=device)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         out_dtype = x.dtype
-        h = _round_to(x.float(), self.compute_dtype)
-        n = len(self.weights)
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            h = h @ _round_to(w, self.compute_dtype) + b
-            if i < n - 1 or self.final_activation:
-                h = torch.relu(h)
-            if i < n - 1:
-                h = _round_to(h, self.compute_dtype)
+        cdt = self.compute_dtype
+        h, *ws = round_tensors([x.float(), *self.weights], cdt, plain)
+        n = len(ws)
+        for i, (w, b) in enumerate(zip(ws, self.biases)):
+            hidden = i < n - 1
+            h = mlp_epilogue(torch.matmul(h, w), b, relu=hidden or self.final_activation,
+                             round_dtype=cdt if hidden and cdt != torch.float32 else None, plain=plain)
         return h.to(out_dtype)
 
 
@@ -115,10 +122,9 @@ def xdeepfm_outer_product(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor)
     return cin(x_k, x_0, w)
 
 
-def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy from logits (numerically stable)."""
-    logits = logits.reshape(-1).float()
-    labels = labels.reshape(-1).float()
-    # torch.maximum, like jnp.maximum, splits the gradient of a tie
-    zero = torch.zeros_like(logits)
-    return torch.mean(torch.maximum(logits, zero) - logits * labels + torch.log1p(torch.exp(-logits.abs())))
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Mean binary cross-entropy from logits (numerically stable), with
+    ``jax.grad``'s gradient: a tie of ``maximum`` at 0 splits it, and
+    ``abs``'s is +1 at 0. Through kernel K20; ``plain=True`` runs its plain
+    versions on any device (the reference side of a parity check)."""
+    return BCEWithLogits.apply(logits.reshape(-1).float(), labels.reshape(-1).float(), plain)

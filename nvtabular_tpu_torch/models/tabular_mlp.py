@@ -166,9 +166,9 @@ class TabularMLP(nn.Module):
 
 
 def tabular_reference_forward(model: TabularMLP, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``model``'s forward through the plain versions of K13a and K13c,
-    with autograd through plain PyTorch operations, on any device: what the
-    kernel path is held against on the card."""
+    """``model``'s forward through the plain versions of K13a, K13c and
+    K19, with autograd through plain PyTorch operations, on any device: what
+    the kernel path is held against on the card."""
     feats = []
     for name, table in zip(model.names, model.tables):
         feats.append(embedding_gather_plain(table, [batch[name]], [0], [table.shape[0]]).flatten(1))
@@ -178,7 +178,7 @@ def tabular_reference_forward(model: TabularMLP, batch: Dict[str, torch.Tensor])
     cont = model._continuous(batch, B)
     if cont is not None:
         feats.append(cont)
-    return model.mlp(torch.cat(feats, dim=1))
+    return model.mlp(torch.cat(feats, dim=1), plain=True)
 
 
 def tabular_mlp_loss(model: TabularMLP, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

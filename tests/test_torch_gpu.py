@@ -302,7 +302,7 @@ def test_dlrm_step_through_kernels_matches_plain_reference():
     grads = [p.grad.clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     ref_logits = models.reference_forward(model, batch)
-    ref_loss = models.bce_with_logits(ref_logits, batch["label"])
+    ref_loss = models.bce_with_logits(ref_logits, batch["label"], plain=True)
     ref_loss.backward()
     torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
@@ -710,7 +710,8 @@ def test_multihot_path_on_cuda_matches_cpu_and_counts_launches():
     assert {k: kernels.LAUNCHES[k] for k in want_launches} == want_launches
     grads = [p.grad.clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
-    ref = models.bce_with_logits(models.tabular_reference_forward(model, batch).reshape(-1), batch["label"])
+    ref = models.bce_with_logits(models.tabular_reference_forward(model, batch).reshape(-1), batch["label"],
+                                 plain=True)
     ref.backward()
     torch.testing.assert_close(loss, ref, rtol=1e-4, atol=1e-6)
     for g, p in zip(grads, model.parameters()):
@@ -1371,12 +1372,12 @@ def test_deepfm_and_dcn_steps_through_kernels_match_plain_reference(family):
     loss = models.bce_with_logits(logits, batch["label"])
     loss.backward()
     torch.cuda.synchronize()
-    want |= {"embedding_gather": 1, "embedding_scatter_grad": 1}
+    want |= {"embedding_gather": 1, "embedding_scatter_grad": 1, **_step_launches(model)}
     assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
     grads = [p.grad.clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     ref_logits = reference(model, batch)
-    ref_loss = models.bce_with_logits(ref_logits, batch["label"])
+    ref_loss = models.bce_with_logits(ref_logits, batch["label"], plain=True)
     ref_loss.backward()
     torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
@@ -2088,12 +2089,12 @@ def test_multihot_dlrm_step_through_kernels_matches_plain_reference():
     loss.backward()
     torch.cuda.synchronize()
     want = {"embedding_gather": 1, "embedding_scatter_grad": 1, "embedding_bag_fwd": 2, "embedding_bag_bwd": 2,
-            "interaction_fwd": 1, "interaction_bwd": 1}
+            "interaction_fwd": 1, "interaction_bwd": 1, **_step_launches(model)}
     assert kernels.LAUNCHES == {k: want.get(k, 0) for k in kernels.LAUNCHES}
     grads = [p.grad.clone() for p in model.parameters()]
     model.zero_grad(set_to_none=True)
     ref_logits = models.reference_forward(model, batch)
-    ref_loss = models.bce_with_logits(ref_logits, batch["label"])
+    ref_loss = models.bce_with_logits(ref_logits, batch["label"], plain=True)
     ref_loss.backward()
     torch.testing.assert_close(logits, ref_logits, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-6)
@@ -2137,7 +2138,7 @@ def test_sharded_multihot_step_on_one_rank_nccl_matches_unsharded(tmp_path):
         dist.destroy_process_group()
     assert launches == {**{k: 0 for k in launches}, "range_gather_columns": 3, "range_scatter_grad": 3,
                         "range_bag": 6, "range_bag_grad": 6, "interaction_fwd": 3, "interaction_bwd": 3,
-                        "adagrad_update": 3}
+                        "adagrad_update": 3, **{k: 3 * n for k, n in _step_launches(model).items()}}
     np.testing.assert_allclose(got, want, rtol=1e-5)
     for (name, p), q in zip(model.named_parameters(), want_model.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5, msg=name)
@@ -3384,3 +3385,248 @@ def test_dlrm_adagrad_steps_through_the_kernel_match_plain():
     for (name, p), q, a, b in zip(model.named_parameters(), copy.parameters(), opt.sum_of_squares, accs):
         assert torch.equal(p.detach(), q.detach()), name
         assert torch.equal(a, b), name
+
+
+# --- K19: the MLP layer epilogue and the rounds; K20: the loss ----------------------------------------------------
+EPILOGUE_MODES = {  # (relu, round_dtype): a hidden layer, a last layer with and without ReLU, float32, float16
+    "relu_round": (True, torch.bfloat16), "relu": (True, None), "bias": (False, None),
+    "relu_round_f16": (True, torch.float16), "round": (False, torch.bfloat16),
+}
+SUBNORMAL = 2.0**-140  # a positive float32 that rounds to bfloat16 zero
+
+
+def _epilogue_inputs(B, N, gen, row_pad=0):
+    """y [B, N] and b [N] on the card with the edges among them: -0.0 + -0.0,
+    NaN, +-inf, a value halfway between two bfloat16 values (round to
+    even), a positive subnormal pre-activation; and g [B, N], a view of a
+    [B, N + row_pad] buffer when row_pad, with NaN and +-inf."""
+    y = torch.randn((B, N), device="cuda", generator=gen) * 3
+    b = torch.randn(N, device="cuda", generator=gen)
+    edges = torch.tensor([-0.0, float("nan"), float("inf"), -float("inf"), 1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8,
+                          SUBNORMAL, -2.0], device="cuda")
+    flat = y.view(-1)
+    k = min(flat.numel(), edges.numel())
+    flat[:k] = edges[:k]
+    b[0] = -0.0 if N > 1 else 0.0
+    if B > 1:
+        y[2::5, N - 1] = -b[N - 1]  # exact cancellation: z = +0.0
+    gbuf = torch.randn((B, N + row_pad), device="cuda", generator=gen)
+    g = gbuf[:, :N]
+    gflat = g.reshape(-1) if row_pad == 0 else None
+    if gflat is not None and gflat.numel() > 12:
+        gflat[6:12] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1.0 + 2.0**-8, SUBNORMAL, -0.0],
+                                   device="cuda")
+    return y, b, g
+
+
+@pytest.mark.parametrize("mode", list(EPILOGUE_MODES))
+@pytest.mark.parametrize("N", [1, 3, 13, 367, 512])
+@pytest.mark.parametrize("B", [1, 7, 65536])
+def test_mlp_epilogue_kernels_match_plain(B, N, mode):
+    """K19's forward in place and its backward against their plain versions
+    on the card from the same inputs: outputs, masks and dz bit-equal (NaN
+    where NaN), db within 1e-5 of the sums of |dz| and the same bits over
+    two runs; one launch each."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    relu, rnd = EPILOGUE_MODES[mode]
+    gen = torch.Generator(device="cuda").manual_seed(B * 1000 + N)
+    y, b, g = _epilogue_inputs(B, N, gen)
+    want_y = y.clone()
+    kernels.reset_launches()
+    mask = kep.mlp_epilogue_fwd(y, b, relu, rnd)
+    want_mask = kep.mlp_epilogue_fwd_plain(want_y, b, relu, rnd)
+    dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
+    want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, want_mask, relu, rnd)
+    dz2, db2 = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mlp_epilogue_fwd"] == 1 and kernels.LAUNCHES["mlp_epilogue_bwd"] == 2
+    assert _bits_equal_nan(y, want_y)
+    assert (mask is None) == (not relu) and (mask is None or torch.equal(mask, want_mask))
+    assert _bits_equal_nan(dz, want_dz)
+    magnitude = want_dz.abs().nan_to_num(posinf=0.0).sum(0)
+    finite = torch.isfinite(want_db)
+    assert torch.equal(torch.isnan(db), torch.isnan(want_db)) and torch.equal(db[~finite].nan_to_num(),
+                                                                             want_db[~finite].nan_to_num())
+    assert bool(((db - want_db)[finite].abs() <= 1e-5 * magnitude[finite] + 1e-5).all())
+    assert torch.equal(db.view(torch.int32), db2.view(torch.int32)) and torch.equal(dz2.view(torch.int32),
+                                                                                   dz.view(torch.int32))
+    if relu and B * N > 8:
+        z = want_y.view(-1)[:8]
+        assert not torch.signbit(z[0])  # -0.0 + -0.0 -> +0.0, mask 0
+        if rnd is torch.bfloat16 and b.view(-1)[6 % N] == 0:  # the subnormal pre-activation: rounded to 0, mask 1
+            assert float(z[6]) == 0.0 and bool(mask.view(-1)[6])
+
+
+@pytest.mark.parametrize("mode", ["relu_round", "bias"])
+def test_mlp_epilogue_backward_takes_strided_rows(mode):
+    """g as a [B, N] view of a [B, N + 3] buffer (DCN's last deep layer
+    takes its gradient from a concatenation's)."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    relu, rnd = EPILOGUE_MODES[mode]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    y, b, g = _epilogue_inputs(4099, 128, gen, row_pad=3)
+    mask = kep.mlp_epilogue_fwd(y, b, relu, rnd)
+    dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
+    want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd)
+    assert _bits_equal_nan(dz, want_dz)
+    torch.testing.assert_close(db, want_db, rtol=1e-5, atol=1e-5)
+
+
+def _round_inputs(gen):
+    """Lengths 0, 1, 3, 5 and 999,983, a [4099, 367] tensor (DLRM's top
+    input: rows not 16-byte aligned), the tabular MLP's [4099, 1041] view of
+    a [4099, 1044] buffer, an offset view, each with the edges among its
+    values."""
+    ts = [torch.randn(n, device="cuda", generator=gen) * 3 for n in (0, 1, 3, 5, 999_983)]
+    ts.append(torch.randn((4099, 367), device="cuda", generator=gen))
+    ts.append(torch.randn((4099, 1044), device="cuda", generator=gen)[:, :1041])
+    ts.append(torch.randn(1003, device="cuda", generator=gen)[3:])
+    edges = [-0.0, float("nan"), float("inf"), -float("inf"), 1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, SUBNORMAL,
+             3.4e38, 65520.0, 2.0**-25]
+    for t in ts[4:]:
+        flat = t.view(-1) if t.is_contiguous() else t[0]
+        flat[: len(edges)] = torch.tensor(edges, device="cuda")
+    return ts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_round_group_kernel_matches_plain(dtype):
+    """One round_group launch over 8 tensors (lengths 0 to 999,983, rows of
+    367 floats, a row-strided [4099, 1041] view): bit-equal to the plain
+    casts, NaN where NaN, inputs untouched; 70 tensors take two launches."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ts = _round_inputs(gen)
+    before = [t.clone() for t in ts]
+    kernels.reset_launches()
+    got = kep.round_group(ts, dtype)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["round_group"] == 1
+    for t, b0, a, w in zip(ts, before, got, kep.round_group_plain(ts, dtype)):
+        assert a.shape == t.shape and a.is_contiguous() and _bits_equal_nan(a, w)
+        assert _bits_equal_nan(t, b0)
+    many = [torch.randn(int(n), device="cuda", generator=gen) for n in torch.randint(1, 300, (70,))]
+    kernels.reset_launches()
+    got = kep.round_group(many, dtype)
+    assert kernels.LAUNCHES["round_group"] == 2
+    assert all(_bits_equal_nan(a, w) for a, w in zip(got, kep.round_group_plain(many, dtype)))
+
+
+BCE_LOGITS = [0.0, -0.0, 1e-30, -1e-30, 100.0, -100.0, float("inf"), -float("inf"), float("nan"), 2.0, -3.0]
+
+
+@pytest.mark.parametrize("B", [1, 5, 7, 65536, 65537])
+@pytest.mark.parametrize("edges", [False, True])
+def test_bce_kernels_match_plain(B, edges):
+    """K20's loss within rtol 1e-6 of the plain version's (NaN where NaN)
+    and its gradient bit-equal for grad_output 2.5, labels 0, 1 and 0.3,
+    the edge logits among the rest; one launch each."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import bce as kbce
+
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    logits = torch.randn(B, device="cuda", generator=gen) * 4
+    labels = (torch.rand(B, device="cuda", generator=gen) < 0.3).float()
+    labels[::7] = 0.3
+    if edges:
+        k = min(B, len(BCE_LOGITS))
+        logits[:k] = torch.tensor(BCE_LOGITS[:k], device="cuda")
+    gout = torch.tensor(2.5, device="cuda")
+    kernels.reset_launches()
+    loss, dl = kbce.bce_fwd(logits, labels), kbce.bce_bwd(logits, labels, gout)
+    loss2 = kbce.bce_fwd(logits, labels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bce_fwd"] == 2 and kernels.LAUNCHES["bce_bwd"] == 1
+    want, want_dl = kbce.bce_fwd_plain(logits, labels), kbce.bce_bwd_plain(logits, labels, gout)
+    assert loss.shape == () and torch.equal(loss.view(torch.int32), loss2.view(torch.int32))
+    if torch.isnan(want):
+        assert torch.isnan(loss)
+    else:
+        torch.testing.assert_close(loss, want, rtol=1e-6, atol=0.0)
+    assert _bits_equal_nan(dl, want_dl)
+
+
+def test_bce_through_autograd_reads_grad_output_on_the_card():
+    """bce_with_logits on a strided [B] view: one K20 launch each way, the
+    gradient for a grad_output of 2.5 equal to the plain version's, labels
+    that require a gradient refused."""
+    _require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    buf = torch.randn((4097, 3), device="cuda", generator=gen)
+    labels = (torch.rand(4097, device="cuda", generator=gen) < 0.5).float()
+    grads = []
+    for plain in (False, True):
+        src = buf.clone().requires_grad_(True)
+        kernels.reset_launches()
+        loss = models.bce_with_logits(src[:, 1], labels, plain=plain)  # a [B] view of stride 3
+        (loss * 2.5).backward()
+        grads.append(src.grad[:, 1])
+        assert kernels.LAUNCHES["bce_fwd"] == kernels.LAUNCHES["bce_bwd"] == int(not plain)
+    assert _bits_equal_nan(grads[0], grads[1])
+    with pytest.raises(ValueError):
+        models.bce_with_logits(buf[:, 0], labels.clone().requires_grad_(True))
+
+
+def _step_launches(model):
+    """K19's and K20's launches in one training step of ``model``, from its
+    layers: an epilogue forward and backward a layer; a round forward and
+    backward an MLP and a cross layer, where the compute dtype rounds; one
+    loss each way."""
+    from nvtabular_tpu_torch.models.deepfm import CrossNetwork
+    from nvtabular_tpu_torch.models.layers import MLP
+
+    n = {"mlp_epilogue_fwd": 0, "mlp_epilogue_bwd": 0, "round_group": 0, "bce_fwd": 1, "bce_bwd": 1}
+    for m in model.modules():
+        rounds = m.compute_dtype != torch.float32 if isinstance(m, (MLP, CrossNetwork)) else False
+        if isinstance(m, MLP):
+            n["mlp_epilogue_fwd"] += len(m.weights)
+            n["mlp_epilogue_bwd"] += len(m.weights)
+            n["round_group"] += 2 * rounds
+        elif isinstance(m, CrossNetwork):
+            n["round_group"] += 2 * len(m.weights) * rounds
+    return n
+
+
+@pytest.mark.parametrize("family", ["dlrm", "dcn", "tabular"])
+def test_training_steps_through_k19_k20_match_plain(family):
+    """Three Adagrad steps in bfloat16 compute through the kernels (K19 a
+    layer, its rounds, K20) against three from the same parameters through
+    the reference forward and the plain loss: the losses within rtol 1e-5,
+    every parameter within 1e-3 of its largest entry (a hidden value at a
+    bfloat16 rounding boundary may round the other way, chip_smoke.py
+    STEP_TOL); the launches those the layers give."""
+    _require_cuda()
+    cards = {"a": 3, "b": 500, "c": 40_000}
+    if family == "dlrm":
+        make = lambda: models.DLRM(models.DLRMConfig(cards, num_dense=13, embedding_dim=16), seed=1)
+        reference, loss_fn = models.reference_forward, models.dlrm_loss
+    elif family == "dcn":
+        make = lambda: models.DCN(models.DCNConfig(cards, num_dense=13), seed=1)
+        reference, loss_fn = models.dcn_reference_forward, models.dcn_loss
+    else:
+        config = models.TabularMLPConfig({"a": (3, 8), "b": (500, 16), "c": (40_000, 16)}, num_continuous=13,
+                                         layer_sizes=(128, 64))
+        make = lambda: models.TabularMLP(config, seed=1)
+        reference, loss_fn = models.tabular_reference_forward, models.tabular_mlp_loss
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in models.make_synthetic_batch(
+        models.DLRMConfig(cards, num_dense=13), 4096, seed=s).items()} for s in range(3)]
+    for batch in batches:
+        batch["continuous"] = batch["dense"]
+    model, ref = make(), make()
+    opt, ref_opt = models.Adagrad(model.parameters()), models.Adagrad(ref.parameters())
+    kernels.reset_launches()
+    got = [float(models.train_step(model, opt, b, loss_fn)) for b in batches]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = [float(models.train_step(ref, ref_opt, b, lambda m, bt: models.bce_with_logits(
+        reference(m, bt).reshape(-1), bt["label"], plain=True))) for b in batches]
+    assert {k: launches[k] for k in _step_launches(model)} == {k: 3 * v for k, v in _step_launches(model).items()}
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
+        assert float((p - q).detach().abs().max()) <= 1e-3 * float(q.detach().abs().max()) + 1e-6, name
