@@ -321,6 +321,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bfloat16 rate (tensor cores)
 TIMED_ITERS = 25
 REPEATS = 5
 WARMUP_S = 0.3
@@ -368,6 +369,16 @@ SHARD_PAD, SHARD_PARITY_STEPS = 4, 8
 # 200 feature maps a layer); layer 2 at a smaller batch (the plain version
 # stores the [B, 200 * 26, 16] outer product)
 SELF_FEATURES, CIN_FIELDS, CIN_DIM, CIN_MAPS, CIN_L2_BATCH = 27, 26, 16, 200, 8192
+# K13d in bfloat16, kernels vs plain on the card. Both round at the
+# reference's points and sum in float32 in other orders (dw by atomics), so
+# a rounded value may land on bfloat16's neighbour of the plain version's
+# (one ULP: at most 2^-7 of it) and each term of dx's sums, a product with
+# a rounded dz, by one ULP of itself: within 1e-5 of the float32 terms'
+# magnitudes plus 1e-6, 2^-7 of the value and, for dx_k and dx_0, 2^-7 of
+# the terms' magnitudes (CIN16_ULP). Through phase 23's two layers and
+# autograd's bfloat16 sums of a gradient's up to three layer terms: the loss
+# within 2^-8 relative, each gradient within 2^-5 of its largest entry.
+CIN16_ULP, CIN16_LOSS_RTOL, CIN16_GRAD_REL = 2.0**-7, 2.0**-8, 2.0**-5
 # phase 23: K13b past 227 KB a sample (480 KB of X at [120, 1024]), its streamed kernels
 STREAM_BATCH, STREAM_FEATURES, STREAM_DIM = 512, 120, 1024
 
@@ -467,8 +478,10 @@ def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS) -> float:
     return float(np.median(samples))
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """The least time for the work: its bytes over the memory rate or its
+    operations over the peak rate of their type (float32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -920,6 +933,9 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
     batch = {k: v[:TRAIN_BS] for k, v in staged[0].items()}
     rec["parity"] = check_step_parity(model, batch, models.reference_forward, [model.bottom, model.top])
     log(f"train: one step through the kernels equals the plain versions on the card: {rec['parity']}")
+    rec["functional"] = functional_chunk_check(model, staged[:2])
+    log(f"train: make_chunk_train_fn over the module's parameter tree equals train_chunk through the module: "
+        f"{ {k: v for k, v in rec['functional'].items() if k != 'launches'} }")
     if profile:
 
         def train_two_chunks():
@@ -948,6 +964,64 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
             + ", ".join(f"{k} {v:.4f}" for k, v in split["ms"].items())
             + f"; total {split['device_ms']:.4f}; the rest's largest {split['rest_top']}")
     rec.update(model=model, opt=opt, staged=staged, loader=loader)
+    return rec
+
+
+def functional_chunk_check(model, chunks) -> dict:
+    """Phase 7's functional entry: the DLRM tree of ``model``'s current
+    parameters (``param_tree``, cloned) through ``make_chunk_train_fn(
+    dlrm_loss, adagrad(1e-2), TRAIN_BS)`` over ``chunks``, then, from the
+    same start state (a copy of the module and a fresh ``Adagrad``),
+    ``train_chunk`` through the module over the same chunks. Losses and
+    parameters held to STEP_TOL's bfloat16 limits (the loss rtol; each
+    parameter within the gradient limit of its largest entry); whether they
+    are bit-equal; every launch of both runs counted and checked, and no
+    plain version on the card."""
+    import copy
+
+    from nvtabular_tpu_torch import kernels, models
+    from nvtabular_tpu_torch.models.pytree import tree_leaves, tree_map
+
+    params = tree_map(lambda t: t.detach().clone(), model.param_tree())
+    twin = copy.deepcopy(model)
+    twin_opt = models.Adagrad(twin.parameters(), lr=1e-2)
+    opt = models.adagrad(1e-2)
+    state = opt.init(params)
+    train_chunk = models.make_chunk_train_fn(models.dlrm_loss, opt, TRAIN_BS)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    f_losses, m_losses, wall = [], [], {}
+    with plain_calls_on_card("train: the functional chunk"):
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            params, state, losses = train_chunk(params, state, chunk)
+            f_losses.append(losses)
+        torch.cuda.synchronize()
+        wall["functional"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            m_losses.append(models.train_chunk(twin, twin_opt, chunk, TRAIN_BS))
+        torch.cuda.synchronize()
+        wall["module"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    f, m = torch.cat(f_losses), torch.cat(m_losses)
+    steps = int(f.numel())
+    check_launches(launches, {k: 2 * steps * v for k, v in per_step_launches(model).items()},
+                   "train: the functional chunk")
+    pairs = [(a, b.detach()) for a, b in zip(tree_leaves(params), tree_leaves(twin.param_tree()))]
+    loss_rtol, _, rel_limit = STEP_TOL["bfloat16"]
+    rec = {
+        "steps": steps,
+        "loss_rel": float(((f - m).abs() / m.abs()).max()),
+        "param_rel_max": max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in pairs),
+        "bit_equal": bool(torch.equal(f, m) and all(torch.equal(a, b) for a, b in pairs)),
+        "step_ms": {k: 1e3 * v / steps for k, v in wall.items()},
+        "launches": launches,
+    }
+    if not (rec["loss_rel"] <= loss_rtol and rec["param_rel_max"] <= rel_limit):
+        fail(f"train: the functional chunk differs from the module's: {rec} (limits {loss_rtol}, {rel_limit})")
+    del params, state, twin, twin_opt
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3344,8 +3418,9 @@ def multihot_dlrm_path(feed, schema, smi: str, profile: bool) -> dict:
 def layer_entry_path(dev) -> dict:
     """Phase 23's entry points: dot_product_interaction(self_interaction=True)
     on [TRAIN_BS, 27, 16] features and a two-layer CIN (xdeepfm_outer_product,
-    26 fields of dim 16, 200 maps a layer) at batch CIN_L2_BATCH, forward and
-    backward through autograd, held against the plain layers on the card."""
+    26 fields of dim 16, 200 maps a layer) at batch CIN_L2_BATCH, in float32
+    and then in bfloat16 (x_0 and w rounded), forward and backward through
+    autograd, held against the plain layers on the card."""
     from nvtabular_tpu_torch import kernels, models
     from nvtabular_tpu_torch.kernels import cin as kcin
     from nvtabular_tpu_torch.kernels import interaction as kint
@@ -3387,7 +3462,40 @@ def layer_entry_path(dev) -> dict:
              "gradient's largest entry)")
     log(f"layer entry points: self-interaction and a two-layer CIN through the kernels equal the plain layers "
         f"(relative errors {rel}); launches {launches}")
-    del leaves, plain, x, x0, w1, w2
+
+    # K13d in bfloat16: the same two-layer CIN, x_0 and both layers' w rounded to bfloat16
+    leaves16 = [t.to(torch.bfloat16).requires_grad_(True) for t in (x0, w1, w2)]
+
+    def cin16_loss(cin, xz, a, b):
+        h1 = cin(xz, xz, a)
+        h2 = cin(h1, xz, b)
+        return h1.float().sum(dim=2).square().mean() + h2.float().sum(dim=2).square().mean()
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with plain_calls_on_card("layer entry points, bfloat16"):
+        loss16 = cin16_loss(models.xdeepfm_outer_product, *leaves16)
+        loss16.backward()
+        torch.cuda.synchronize()
+    launches16 = dict(kernels.LAUNCHES)
+    check_launches(launches16, {"cin_fwd_bf16": 2, "cin_bwd_bf16": 2}, "layer entry points, bfloat16")
+    plain16 = [t.detach().clone().requires_grad_(True) for t in leaves16]
+    want16 = cin16_loss(lambda a, b, c: kcin.cin(a, b, c, plain=True), *plain16)
+    want16.backward()
+    rel16 = {"loss": abs(float(loss16.detach()) - float(want16.detach())) / abs(float(want16.detach()))}
+    for name, got, ref in zip(("x0", "w1", "w2"), leaves16, plain16):
+        if got.grad.dtype != torch.bfloat16 or not bool(torch.isfinite(got.grad).all()):
+            fail(f"layer entry points, bfloat16: gradient of {name} is {got.grad.dtype} or not finite")
+        rel16[name] = float((got.grad.float() - ref.grad.float()).abs().max()) / float(ref.grad.float().abs().max())
+        rel16[f"{name}_bit_equal_share"] = float((got.grad == ref.grad).float().mean())
+    if not (rel16["loss"] <= CIN16_LOSS_RTOL and max(rel16[k] for k in ("x0", "w1", "w2")) <= CIN16_GRAD_REL):
+        fail(f"layer entry points, bfloat16: kernels vs plain layers differ: {rel16} (limits {CIN16_LOSS_RTOL} "
+             f"loss, {CIN16_GRAD_REL} of each gradient's largest entry)")
+    log(f"layer entry points: a two-layer CIN in bfloat16 through the kernels equals the plain layers (relative "
+        f"errors and bit-equal shares {rel16}); launches { {k: v for k, v in launches16.items() if v} }")
+    for k, v in launches16.items():
+        launches[k] += v
+    del leaves, plain, x, x0, w1, w2, leaves16, plain16
 
     # K13b past 227 KB a sample: the streamed kernels, both modes, through the same entry point
     xs = torch.randn((STREAM_BATCH, STREAM_FEATURES, STREAM_DIM), device=dev, generator=gen)
@@ -3421,7 +3529,7 @@ def layer_entry_path(dev) -> dict:
         f"{ {k: v for k, v in streamed.items() if v} }")
     for k, v in streamed.items():
         launches[k] += v
-    return {"launches": launches, "rel_err": rel, "streamed_rel_err": srel}
+    return {"launches": launches, "rel_err": rel, "bf16_rel_err": rel16, "streamed_rel_err": srel}
 
 
 def streamed_interaction_records(dev, gen) -> dict:
@@ -3635,7 +3743,82 @@ def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
             profile_split(rec, f"cin_bwd layer {layer}", lambda: kcin.cin_bwd(xk, x0, w, gout))
         del x0, xk, w, gout
         torch.cuda.empty_cache()
+    records.update(cin16_records(dev, gen, profile))
     log(f"layer kernels: phase 23 took {time.perf_counter() - phase_t0:.1f} s")
+    return records
+
+
+def cin16_close(got, want, mag, what, dx=False) -> float:
+    """K13d in bfloat16 against its plain version at CIN16_ULP's
+    tolerance; the largest absolute difference."""
+    got, want, mag = got.float(), want.float(), mag.float()
+    if not torch.equal(got.isnan(), want.isnan()):
+        fail(f"{what}: NaN where the plain version has none, or none where it has")
+    tol = 1e-5 * mag + 1e-6 + CIN16_ULP * torch.maximum(got.abs(), want.abs()) + (CIN16_ULP * mag if dx else 0)
+    diff = (got - want).abs()
+    if not bool(((diff <= tol) | want.isnan()).all()):
+        fail(f"{what} differs from plain: max abs {float(diff.nan_to_num().max())}")
+    return float(diff.nan_to_num().max())
+
+
+def cin16_records(dev, gen, profile: bool) -> dict:
+    """K13d in bfloat16 (x_k, x_0, g and w) at xDeepFM's layers 1 and 2
+    against its plain versions on the card (``cin16_close``), timed beside
+    its bound, the operations at the card's bfloat16 rate, and, for the
+    forward, ``torch.einsum`` in bfloat16 over z built outside the timing.
+    The plain versions and the library call (each tens of ms and GBs of
+    intermediates) are timed over fewer calls."""
+    from nvtabular_tpu_torch.kernels import cin as kcin
+
+    records = {}
+    bf = torch.bfloat16
+    for layer, (Bc, Hk) in enumerate(((TRAIN_BS, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
+        F, Dc, Hn = CIN_FIELDS, CIN_DIM, CIN_MAPS
+        x0 = torch.randn((Bc, F, Dc), device=dev, generator=gen).to(bf)
+        xk = x0 if layer == 1 else torch.randn((Bc, Hk, Dc), device=dev, generator=gen).to(bf)
+        w = (torch.randn((Hk * F, Hn), device=dev, generator=gen) / (Hk * F) ** 0.5).to(bf)
+        gout = torch.randn((Bc, Hn, Dc), device=dev, generator=gen).to(bf)
+        N, K = Bc * Dc, Hk * F
+        absx = [t.float().abs() for t in (xk, x0, w, gout)]
+        suffix = "_bf16" + ("" if layer == 1 else "_layer2")
+        got = kcin.cin_fwd(xk, x0, w)
+        want = kcin.cin_fwd_plain(xk, x0, w)
+        torch.cuda.synchronize()
+        err = cin16_close(got, want, kcin.cin_fwd_plain(*absx[:3]), f"cin_fwd bfloat16 (layer {layer})")
+        bit_equal = float((got == want).float().mean())
+        del got, want
+        z = kcin.outer_product_plain(xk.float(), x0.float()).to(bf)  # the library call's operand, untimed
+        in_bytes = (xk.numel() + (0 if xk is x0 else x0.numel())) * 2 + w.numel() * w.element_size()
+        rec = {"max_abs_err": err, "bit_equal_share": bit_equal, "shape": [Bc, Hk, F, Dc, Hn], "dtype": "bfloat16",
+               "bytes": in_bytes + Bc * Hn * Dc * 2,
+               "ms": time_ms(lambda: kcin.cin_fwd(xk, x0, w), iters=5),
+               "plain_ms": time_ms(lambda: kcin.cin_fwd_plain(xk, x0, w), iters=2, repeats=3),
+               "library_ms": time_ms(lambda: torch.einsum("bkd,kh->bhd", z, w), iters=2, repeats=3)}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (2 * Hn + 1), BF16_OPS_PER_S)
+        records["cin_fwd" + suffix] = rec
+        del z
+        log(f"cin_fwd bfloat16 layer {layer} {rec['shape']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"einsum {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
+            f"{bit_equal:.2%} of the outputs bit-equal to the plain version's")
+        grads = kcin.cin_bwd(xk, x0, w, gout)
+        wants = kcin.cin_bwd_plain(xk, x0, w, gout)
+        mags = kcin.cin_bwd_plain(*absx)
+        torch.cuda.synchronize()
+        errs = [cin16_close(g, wnt, m, f"cin_bwd bfloat16 (layer {layer}) {name}", dx=name != "dw")
+                for name, g, wnt, m in zip(("dx_k", "dx_0", "dw"), grads, wants, mags)]
+        del grads, wants, mags, absx
+        rec = {"max_abs_err": max(errs), "shape": [Bc, Hk, F, Dc, Hn], "dtype": "bfloat16",
+               # the inputs and g read, dx_k, dx_0 and dw written
+               "bytes": in_bytes + Bc * Hn * Dc * 2 + (xk.numel() + x0.numel()) * 2 + w.numel() * w.element_size(),
+               "ms": time_ms(lambda: kcin.cin_bwd(xk, x0, w, gout), iters=5),
+               "plain_ms": time_ms(lambda: kcin.cin_bwd_plain(xk, x0, w, gout), iters=2, repeats=3),
+               "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (4 * Hn + 5), BF16_OPS_PER_S)
+        records["cin_bwd" + suffix] = rec
+        if profile:  # cin_bwd_x, cin_bwd_w, the memset and the two rounds apart
+            profile_split(rec, f"cin_bwd bfloat16 layer {layer}", lambda: kcin.cin_bwd(xk, x0, w, gout))
+        del x0, xk, w, gout
+        torch.cuda.empty_cache()
     return records
 
 
@@ -4592,6 +4775,8 @@ def main():
     # --- 8. the training path's kernels at its shapes -----------------------------------
     records.update(training_kernel_records(nvt, wf, parts, train, opts.profile))
     train_launches = train["launches"]
+    for k, v in train["functional"]["launches"].items():  # phase 7's functional chunk and its module twin
+        train_launches[k] += v
     train_record = {k: v for k, v in train.items() if k not in ("model", "opt", "staged", "loader")}
     feed = train["loader"]  # phase 16 trains DeepFM and DCN-v2 on it
     del train
@@ -4797,6 +4982,8 @@ def main():
         "interaction_self_bwd_streamed": ("interaction.cu", "nvtabular_tpu/models/layers.py:97", entry_launches),
         "cin_fwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
+        "cin_fwd_bf16": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
+        "cin_bwd_bf16": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "adagrad_update": ("adagrad.cu", "nvtabular_tpu/models/training.py:25", train_launches),
         "mlp_epilogue_fwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),
         "mlp_epilogue_bwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),

@@ -12,7 +12,8 @@ The cases, by group (``--cases``; all by default):
   phase 23's [512, 120, 1024], both modes and directions, each beside
   ``bmm``: the forward's full 120 x 120 product, the backward's of the
   symmetric gradient matrix (built outside the timing);
-- ``k13d``: K13d's forward at xDeepFM's layers 1 and 2;
+- ``k13d``: K13d's forward and backward at xDeepFM's layers 1 and 2, in
+  float32 and in bfloat16 (x_k, x_0, w and g);
 - ``k16``: K16's forward and backward at phase 17's [65536, 26, 16] + 13
   dense features, and the backward's split by inputs, never by a change of
   source: its ids all out of range (no linear gradient), those ids and no
@@ -312,11 +313,22 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             x0 = torch.randn((Bc, CIN_FIELDS, CIN_DIM), device=dev, generator=gen)
             xk = x0 if layer == 1 else torch.randn((Bc, Hk, CIN_DIM), device=dev, generator=gen)
             w = torch.randn((Hk * CIN_FIELDS, CIN_MAPS), device=dev, generator=gen) / (Hk * CIN_FIELDS) ** 0.5
-            err = within(kcin.cin_fwd(xk, x0, w), kcin.cin_fwd_plain(xk, x0, w),
-                         kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs()))
-            rec[f"cin_fwd layer {layer} [{Bc}, {Hk}, {CIN_FIELDS}, {CIN_DIM}, {CIN_MAPS}]"] = {
-                "ms": time_ms(torch, lambda: kcin.cin_fwd(xk, x0, w), iters=5), "max_abs_err": err}
-            del x0, xk, w
+            g = torch.randn((Bc, CIN_MAPS, CIN_DIM), device=dev, generator=gen)
+            shape = f"[{Bc}, {Hk}, {CIN_FIELDS}, {CIN_DIM}, {CIN_MAPS}]"
+            case(f"cin_fwd layer {layer} {shape}", lambda: kcin.cin_fwd(xk, x0, w),
+                 lambda: within(kcin.cin_fwd(xk, x0, w), kcin.cin_fwd_plain(xk, x0, w),
+                                kcin.cin_fwd_plain(xk.abs(), x0.abs(), w.abs())), iters=5)
+            case(f"cin_bwd layer {layer} {shape}", lambda: kcin.cin_bwd(xk, x0, w, g),
+                 lambda: max(within(*t) for t in zip(kcin.cin_bwd(xk, x0, w, g), kcin.cin_bwd_plain(xk, x0, w, g),
+                                                     kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), g.abs()))),
+                 iters=5)
+            # bfloat16 (timed only: chip_smoke.py holds it to its plain versions); a tree without it refuses
+            x0h = x0.to(torch.bfloat16)
+            xkh = x0h if xk is x0 else xk.to(torch.bfloat16)
+            wh, gh = w.to(torch.bfloat16), g.to(torch.bfloat16)
+            case(f"cin_fwd bfloat16 layer {layer} {shape}", lambda: kcin.cin_fwd(xkh, x0h, wh), iters=5)
+            case(f"cin_bwd bfloat16 layer {layer} {shape}", lambda: kcin.cin_bwd(xkh, x0h, wh, gh), iters=5)
+            del x0, xk, w, g, x0h, xkh, wh, gh
             torch.cuda.empty_cache()
 
     ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad", "k19"} & set(groups) \

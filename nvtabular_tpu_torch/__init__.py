@@ -26,6 +26,7 @@ from .convert import (
     load_fitted_state,
     load_sharded_table,
     load_tabular_mlp_params,
+    params_from_jax,
     tabular_mlp_params,
 )
 from .dag import ColumnSelector, Graph, Node
@@ -61,5 +62,6 @@ __all__ = [
     "load_sharded_table",
     "load_tabular_mlp_params",
     "ops",
+    "params_from_jax",
     "tabular_mlp_params",
 ]

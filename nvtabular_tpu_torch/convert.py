@@ -49,8 +49,11 @@ of it), and tabular MLP parameters as
      "deep": [...], "out": [...]}
 
 (``load_dcn_params`` / ``dcn_params``); the port concatenates each of
-``tables`` and ``linear`` into one parameter in sorted column order. Nothing
-here imports the JAX package.
+``tables`` and ``linear`` into one parameter in sorted column order. The
+same trees, leaf by leaf as tensors, are the params of the functional
+entry points (``models.dlrm_init`` / ``dlrm_forward`` and their kin):
+``params_from_jax`` carries a JAX tree across. Nothing here imports the
+JAX package.
 
 A vocabulary fitted by the JAX package's multi-process or mesh fit is an
 ordinary fitted vocabulary and loads through ``load_fitted_state``. A table
@@ -66,6 +69,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .models.pytree import tree_map
 from .ops.categorify import Categorify, _Vocab
 from .ops.data_stats import DataStats
 from .ops.fill import FillMedian
@@ -365,29 +369,34 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _mlp_params(mlp):
-    return [{"w": _host(w), "b": _host(b)} for w, b in zip(mlp.weights, mlp.biases)]
+def _host_tree(model) -> Dict[str, Any]:
+    return tree_map(_host, model.param_tree())
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    """A JAX params tree (numpy or JAX arrays as leaves: any array
+    ``np.asarray`` takes) as the same tree of tensors, each leaf copied
+    with its dtype and shape onto ``cuda:0`` unless ``device`` says
+    otherwise: the params of ``models.dlrm_forward`` and its kin."""
+    dev = torch.device("cuda:0") if device is None else torch.device(device)
+
+    def leaf(a):
+        a = np.array(a)  # a writable copy
+        if a.dtype.name == "bfloat16":  # numpy's bfloat16 extension type: torch reads its bits
+            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
+
+    return tree_map(leaf, tree)
 
 
 def deepfm_params(model) -> Dict[str, Any]:
     """The port's ``DeepFM`` parameters as the JAX pytree of numpy arrays."""
-    return {
-        "tables": {n: _host(model.table_rows(n)) for n in model.names},
-        "linear": {n: _host(model.linear[o : o + s]) for n, o, s in zip(model.names, model.offsets, model.sizes)},
-        "dense_w": _host(model.dense_w),
-        "deep": _mlp_params(model.deep),
-        "bias": _host(model.bias),
-    }
+    return _host_tree(model)
 
 
 def dcn_params(model) -> Dict[str, Any]:
     """The port's ``DCN`` parameters as the JAX pytree of numpy arrays."""
-    return {
-        "tables": {n: _host(model.table_rows(n)) for n in model.names},
-        "cross": [{"w": _host(w), "b": _host(b)} for w, b in zip(model.cross.weights, model.cross.biases)],
-        "deep": _mlp_params(model.deep),
-        "out": _mlp_params(model.out),
-    }
+    return _host_tree(model)
 
 
 def dlrm_params(model) -> Dict[str, Any]:
@@ -395,18 +404,9 @@ def dlrm_params(model) -> Dict[str, Any]:
     for a row-sharded model each table, single-hot or multihot, is the
     rank's rows (stack the ranks' in model-rank order for the whole
     table)."""
-    return {
-        "tables": {n: _host(model.table_rows(n)) for n in model.names},
-        "mh_tables": {n: _host(t) for n, t in zip(model.mh_names, model.mh_tables)},
-        "bottom": _mlp_params(model.bottom),
-        "top": _mlp_params(model.top),
-    }
+    return _host_tree(model)
 
 
 def tabular_mlp_params(model) -> Dict[str, Any]:
     """The port's ``TabularMLP`` parameters as the JAX pytree of numpy arrays."""
-    return {
-        "tables": {n: _host(p) for n, p in zip(model.names, model.tables)},
-        "mh_tables": {n: _host(p) for n, p in zip(model.mh_names, model.mh_tables)},
-        "mlp": _mlp_params(model.mlp),
-    }
+    return _host_tree(model)

@@ -68,6 +68,11 @@ LAUNCHES: Dict[str, int] = {
     "column_moments": 0,
     "cin_fwd": 0,
     "cin_bwd": 0,
+    # K13d in 16 bits (x_k in bfloat16 or float16)
+    "cin_fwd_bf16": 0,
+    "cin_bwd_bf16": 0,
+    "cin_fwd_f16": 0,
+    "cin_bwd_f16": 0,
     "adagrad_update": 0,
     "mlp_epilogue_fwd": 0,
     "mlp_epilogue_bwd": 0,

@@ -20,6 +20,13 @@ lookups then go through kernel K15d and its bag and the model group's sum,
 and ``dlrm_param_specs`` / ``batch_specs`` give the JAX package's shardings
 as axis tuples.
 
+``dlrm_init`` / ``dlrm_forward`` are the JAX package's functional pair
+over a params tree ``{"tables": {col: [V, D]}, "mh_tables": {col: [V, D]},
+"bottom": [{"w", "b"}, ...], "top": [...]}``: the init draws what
+``DLRM(config, rng)`` draws (its tables views of one concatenated tensor),
+and the forward runs the module's forward (``_logits``) over the tree, its
+tables concatenated for K13a on each call (one copy of them a forward).
+
 ``self_interaction=True`` is refused: the JAX ``dlrm_forward`` itself fails
 for it (ROADMAP.md §3). The layer, ``dot_product_interaction(features,
 self_interaction=True)``, is ported.
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +45,8 @@ from torch import nn
 from ..kernels.embedding import RowShard, embedding_features, embedding_gather_plain, sharded_embedding_features
 from ..kernels.embedding_bag import embedding_bag_fwd_plain
 from ..kernels.interaction import dot_interaction, dot_interaction_plain
-from ..workflow.workflow import resolve_device
-from .layers import MLP, bce_with_logits
+from .layers import MLP, Rng, bce_with_logits, concatenate_tables, make_generator, mlp_apply
+from .pytree import tree_map
 
 
 @dataclass
@@ -106,19 +113,18 @@ SELF_INTERACTION_REFUSED = (
 class DLRM(nn.Module):
     """``forward(batch)`` is ``dlrm_forward``: logits [B]. Parameters are
     drawn on ``device`` (``cuda:0`` unless the caller passes another) from a
-    ``torch.Generator`` seeded with ``seed``, with ``dlrm_init``'s
-    distributions: tables ``N(0, 1) / sqrt(D)``, MLPs He normal. The MLPs
-    compute in ``compute_dtype`` as ``mlp_apply`` does (bfloat16 by default).
-    Each table, single-hot or multihot, has
-    ``config.padded_cardinality(V)`` rows."""
+    ``torch.Generator`` seeded with ``seed`` (or ``seed`` itself where it is
+    a generator), with ``dlrm_init``'s distributions: tables ``N(0, 1) /
+    sqrt(D)``, MLPs He normal. The MLPs compute in ``compute_dtype`` as
+    ``mlp_apply`` does (bfloat16 by default). Each table, single-hot or
+    multihot, has ``config.padded_cardinality(V)`` rows."""
 
-    def __init__(self, config: DLRMConfig, seed: int = 0, device=None, compute_dtype=torch.bfloat16):
+    def __init__(self, config: DLRMConfig, seed: Rng = 0, device=None, compute_dtype=torch.bfloat16):
         super().__init__()
         if config.self_interaction:
             raise ValueError(SELF_INTERACTION_REFUSED)
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = make_generator(seed, device)
+        dev = gen.device
         d = config.embedding_dim
         self.config = config
         self.names = sorted(config.cardinalities)
@@ -184,17 +190,60 @@ class DLRM(nn.Module):
         self.table = nn.Parameter(local.contiguous())
 
     def _bags(self, batch):
-        return [(t, batch[f"{n}__values"], batch[f"{n}__mask"]) for n, t in zip(self.mh_names, self.mh_tables)]
+        return _bags(self.mh_names, self.mh_tables, batch)
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters as ``dlrm_init``'s tree: each table a view of
+        ``self.table`` (the rank's rows where the tables are row-sharded),
+        the MLPs' layers as ``mlp_init``'s."""
+        return {
+            "tables": {n: self.table_rows(n) for n in self.names},
+            "mh_tables": dict(zip(self.mh_names, self.mh_tables)),
+            "bottom": self.bottom.layers(),
+            "top": self.top.layers(),
+        }
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        bottom_out = self.bottom(batch["dense"])  # [B, D]
-        ids = [batch[name] for name in self.names]
-        if self.shard is None:
-            feats = embedding_features(bottom_out, self.table, ids, self.offsets, self.sizes, self._bags(batch))
-        else:
-            feats = sharded_embedding_features(bottom_out, self.table, ids, self.shard, self._bags(batch))
-        top_in = dot_interaction(feats, bottom_out)  # [B, D + F(F-1)/2]
-        return self.top(top_in).reshape(-1)
+        return _logits(self.bottom, self.top, self.table, self.offsets, self.sizes, self.shard,
+                       [batch[name] for name in self.names], self._bags(batch), batch["dense"])
+
+
+def _bags(names, tables, batch):
+    return [(t, batch[f"{n}__values"], batch[f"{n}__mask"]) for n, t in zip(names, tables)]
+
+
+def _logits(bottom, top, table, offsets, sizes, shard: Optional[RowShard], ids, bags, dense) -> torch.Tensor:
+    """``dlrm_forward``: the bottom MLP (``bottom``) into slot 0 of the
+    features, the lookups (K13a, or K15d where ``shard`` is given) and bags
+    beside it, the interaction (K13b) after the bottom output, the top MLP
+    (``top``) → logits [B]."""
+    bottom_out = bottom(dense)  # [B, D]
+    if shard is None:
+        feats = embedding_features(bottom_out, table, ids, offsets, sizes, bags)
+    else:
+        feats = sharded_embedding_features(bottom_out, table, ids, shard, bags)
+    top_in = dot_interaction(feats, bottom_out)  # [B, D + F(F-1)/2]
+    return top(top_in).reshape(-1)
+
+
+def dlrm_init(rng: Rng, config: DLRMConfig, device=None) -> Dict[str, Any]:
+    """The JAX package's ``dlrm_init``: ``DLRM(config, rng, device)``'s
+    parameters as its tree (``param_tree``), detached. ``rng`` is a
+    ``torch.Generator`` or a seed; the values are torch's draws, not
+    ``jax.random``'s."""
+    return tree_map(torch.Tensor.detach, DLRM(config, rng, device).param_tree())
+
+
+def dlrm_forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``dlrm_forward`` over a params tree: ``DLRM``'s
+    forward, the tree's tables concatenated in sorted column order for
+    K13a (one copy of them a call) → logits [B]."""
+    names, table, offsets, sizes = concatenate_tables(params["tables"])
+    mh_names = sorted(params["mh_tables"])
+    return _logits(lambda x: mlp_apply(params["bottom"], x, final_activation=True),
+                   lambda x: mlp_apply(params["top"], x), table, offsets, sizes, None,
+                   [batch[name] for name in names], _bags(mh_names, [params["mh_tables"][n] for n in mh_names], batch),
+                   batch["dense"])
 
 
 def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -217,8 +266,11 @@ def reference_forward(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tens
     return model.top(top_in, plain=True).reshape(-1)
 
 
-def dlrm_loss(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return bce_with_logits(model(batch), batch["label"])
+def dlrm_loss(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``batch["label"]``, of a
+    ``DLRM`` or of a params tree (``dlrm_forward``)."""
+    logits = model(batch) if isinstance(model, nn.Module) else dlrm_forward(model, batch)
+    return bce_with_logits(logits, batch["label"])
 
 
 def dlrm_param_specs(model: DLRM, model_axis: str = "model") -> Dict[str, object]:

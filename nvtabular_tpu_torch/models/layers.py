@@ -1,9 +1,12 @@
 """Model layers: the counterpart of ``nvtabular_tpu/models/layers.py``.
 
-* ``MLP`` — ``mlp_init`` / ``mlp_apply`` (:30-67) as an ``nn.Module`` whose
-  weights keep JAX's ``[in, out]`` layout (``h @ w + b``), so parameters
-  carry across without transposes; its rounds and layer epilogues are
-  kernel K19 (``kernels/mlp_epilogue.py``).
+* ``mlp_init`` / ``mlp_apply`` (:30-67) over a list of ``{"w", "b"}``
+  layers, the weights in JAX's ``[in, out]`` layout (``h @ w + b``), so
+  parameters carry across without transposes; ``MLP`` is the same stack as
+  an ``nn.Module`` whose forward is ``mlp_apply`` of its own layers. The
+  rounds and layer epilogues are kernel K19 (``kernels/mlp_epilogue.py``).
+  ``rng`` is a ``torch.Generator`` or a seed (``make_generator``): the
+  values are torch's, not ``jax.random``'s.
 * ``embedding_lookup``, ``multihot_embedding_lookup``,
   ``dot_product_interaction`` and ``xdeepfm_outer_product`` over the
   hand-written kernels K13a, K13c, K13b and K13d (``kernels/embedding.py``,
@@ -16,7 +19,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -27,6 +30,67 @@ from ..kernels.embedding import embedding_features
 from ..kernels.embedding_bag import embedding_bag
 from ..kernels.interaction import dot_interaction
 from ..kernels.mlp_epilogue import mlp_epilogue, round_tensors
+from ..workflow.workflow import resolve_device
+
+Rng = Union[torch.Generator, int]
+
+
+def make_generator(rng: Rng, device=None) -> torch.Generator:
+    """``rng`` itself if it is a ``torch.Generator`` (the draws follow its
+    device), else a generator seeded with it on ``device`` (``cuda:0``
+    unless the caller passes another)."""
+    if isinstance(rng, torch.Generator):
+        if device is not None and torch.device(device) != rng.device:
+            raise ValueError(f"the generator lives on {rng.device}, not on {device}")
+        return rng
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(rng))
+    return gen
+
+
+def _he_normal(layer_sizes: Sequence[int], generator: Optional[torch.Generator], device,
+               dtype: torch.dtype = torch.float32) -> List[Dict[str, torch.Tensor]]:
+    """``w ~ N(0, 2 / fan_in)`` [in, out] and ``b = 0`` for each layer, drawn
+    from ``generator`` (torch's default one for ``device`` where None)."""
+    return [
+        {"w": torch.randn((fan_in, fan_out), generator=generator, device=device, dtype=dtype) * math.sqrt(2.0 / fan_in),
+         "b": torch.zeros(fan_out, device=device, dtype=dtype)}
+        for fan_in, fan_out in zip(layer_sizes[:-1], layer_sizes[1:])
+    ]
+
+
+def mlp_init(rng: Rng, layer_sizes: Sequence[int], dtype: torch.dtype = torch.float32,
+             device=None) -> List[Dict[str, torch.Tensor]]:
+    """He-initialized dense stack, ``layer_sizes = [in, h1, ..., out]``: a
+    list of ``{"w": [in, out], "b": [out]}``."""
+    gen = make_generator(rng, device)
+    return _he_normal(layer_sizes, gen, gen.device, dtype)
+
+
+def mlp_apply(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor, final_activation: bool = False,
+              compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
+    """The stack with ReLU between layers, numerics as ``MLP`` describes;
+    ``plain=True`` runs K19's plain versions."""
+    out_dtype = x.dtype
+    h, *ws = round_tensors([x.float(), *(layer["w"] for layer in params)], compute_dtype, plain)
+    n = len(ws)
+    for i, (w, layer) in enumerate(zip(ws, params)):
+        hidden = i < n - 1
+        h = mlp_epilogue(torch.matmul(h, w), layer["b"], relu=hidden or final_activation,
+                         round_dtype=compute_dtype if hidden and compute_dtype != torch.float32 else None,
+                         plain=plain)
+    return h.to(out_dtype)
+
+
+def concatenate_tables(tables: Dict[str, torch.Tensor]):
+    """A params tree's ``{column: [V, D]}`` tables as the modules keep them:
+    (the columns sorted, their tables concatenated in that order [sum V, D]
+    (one copy, a table alone none), each table's row offset, its rows)."""
+    names = sorted(tables)
+    parts = [tables[n] for n in names]
+    sizes = [int(t.shape[0]) for t in parts]
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    return names, parts[0] if len(parts) == 1 else torch.cat(parts), offsets, sizes
 
 
 class MLP(nn.Module):
@@ -53,8 +117,8 @@ class MLP(nn.Module):
     runs K19's plain versions instead, on any device: the reference
     forwards that the kernels are held against.
 
-    Init is He normal (``w ~ N(0, 2 / fan_in)``, ``b = 0``) from
-    ``generator``.
+    Init is ``mlp_init``'s from ``generator``; ``forward`` is ``mlp_apply``
+    of ``layers()``.
     """
 
     def __init__(
@@ -70,21 +134,16 @@ class MLP(nn.Module):
         self.compute_dtype = compute_dtype
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
-        for fan_in, fan_out in zip(layer_sizes[:-1], layer_sizes[1:]):
-            w = torch.randn((fan_in, fan_out), generator=generator, device=device) * math.sqrt(2.0 / fan_in)
-            self.weights.append(nn.Parameter(w))
-            self.biases.append(nn.Parameter(torch.zeros(fan_out, device=device)))
+        for layer in _he_normal(layer_sizes, generator, device):
+            self.weights.append(nn.Parameter(layer["w"]))
+            self.biases.append(nn.Parameter(layer["b"]))
+
+    def layers(self) -> List[Dict[str, torch.Tensor]]:
+        """The parameters as ``mlp_init``'s list of ``{"w", "b"}``."""
+        return [{"w": w, "b": b} for w, b in zip(self.weights, self.biases)]
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        out_dtype = x.dtype
-        cdt = self.compute_dtype
-        h, *ws = round_tensors([x.float(), *self.weights], cdt, plain)
-        n = len(ws)
-        for i, (w, b) in enumerate(zip(ws, self.biases)):
-            hidden = i < n - 1
-            h = mlp_epilogue(torch.matmul(h, w), b, relu=hidden or self.final_activation,
-                             round_dtype=cdt if hidden and cdt != torch.float32 else None, plain=plain)
-        return h.to(out_dtype)
+        return mlp_apply(self.layers(), x, self.final_activation, self.compute_dtype, plain)
 
 
 def embedding_lookup(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -117,8 +176,10 @@ def xdeepfm_outer_product(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor)
     """xDeepFM's Compressed Interaction Network layer: x_k [B, H_k, D] (the
     current layer), x_0 [B, F, D] (the raw embeddings; may be x_k itself)
     and w [H_k * F, H_next] → [B, H_next, D], ``sum_{i, j} w[i * F + j, h] *
-    x_k[b, i, d] * x_0[b, j, d]``. float32; other dtypes raise
-    NotImplementedError. Through kernel K13d."""
+    x_k[b, i, d] * x_0[b, j, d]``. x_k and x_0 in one of float32, bfloat16
+    and float16 (the output's dtype), w in theirs or float32; 16 bits round
+    where the reference's casts round (``kernels/cin.py``). Through kernel
+    K13d."""
     return cin(x_k, x_0, w)
 
 

@@ -16,21 +16,27 @@ straight into its slot, each bag one launch of kernel K13c into its slot,
 and the backward scatters the buffer's gradient back through the same
 kernels. The buffer's row is padded to a multiple of 4 floats so the
 kernels move float4s; the MLP reads the first ``input_dim`` columns.
+
+``tabular_mlp_init`` / ``tabular_mlp_forward`` are the JAX package's
+functional pair over its params tree ``{"tables", "mh_tables", "mlp"}``:
+the init draws what ``TabularMLP(config, rng)`` draws, and the forward runs
+the module's forward over the tree (its layout from the tables' widths and
+``batch["continuous"]``, which it reads where the batch has it, as JAX's).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels.embedding import embedding_gather, embedding_gather_plain, embedding_scatter_grad
 from ..kernels.embedding_bag import embedding_bag_bwd, embedding_bag_fwd, embedding_bag_fwd_plain
-from ..workflow.workflow import resolve_device
-from .layers import MLP, bce_with_logits
+from .layers import MLP, Rng, bce_with_logits, make_generator, mlp_apply
+from .pytree import tree_map
 
 
 @dataclass
@@ -56,6 +62,18 @@ class _Layout:
     num_continuous: int
     input_dim: int
     width: int  # input_dim padded to a multiple of 4
+
+
+def _layout(tables: Sequence[Tuple[str, int]], bags: Sequence[Tuple[str, int]], num_continuous: int) -> _Layout:
+    """The MLP input's slots: the tables' (column, dim) in order, then the
+    bags', then the continuous features."""
+    slots, col = ([], []), 0
+    for slot, entries in zip(slots, (tables, bags)):
+        for name, dim in entries:
+            slot.append((name, dim, col))
+            col += dim
+    input_dim = col + num_continuous
+    return _Layout(*slots, col, num_continuous, input_dim, -(-input_dim // 4) * 4)
 
 
 class _MLPInput(torch.autograd.Function):
@@ -115,32 +133,33 @@ class TabularMLP(nn.Module):
     The MLP computes in ``compute_dtype`` as ``mlp_apply`` does (bfloat16 by
     default)."""
 
-    def __init__(self, config: TabularMLPConfig, seed: int = 0, device=None, compute_dtype=torch.bfloat16):
+    def __init__(self, config: TabularMLPConfig, seed: Rng = 0, device=None, compute_dtype=torch.bfloat16):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = make_generator(seed, device)
+        dev = gen.device
         self.config = config
         self.names = sorted(config.embedding_sizes)
         self.mh_names = sorted(config.multihot_embedding_sizes)
         self.tables, self.mh_tables = nn.ParameterList(), nn.ParameterList()
-        slots, col = ([], []), 0
-        for params, slot, names, sizes in (
-            (self.tables, slots[0], self.names, config.embedding_sizes),
-            (self.mh_tables, slots[1], self.mh_names, config.multihot_embedding_sizes),
-        ):
+        for params, names, sizes in ((self.tables, self.names, config.embedding_sizes),
+                                     (self.mh_tables, self.mh_names, config.multihot_embedding_sizes)):
             for name in names:
                 card, dim = (int(v) for v in sizes[name])
-                table = torch.randn((card, dim), generator=gen, device=dev).mul_(1.0 / math.sqrt(dim))
-                params.append(nn.Parameter(table))
-                slot.append((name, dim, col))
-                col += dim
-        self.layout = _Layout(*slots, col, config.num_continuous, config.input_dim,
-                              -(-config.input_dim // 4) * 4)
+                params.append(nn.Parameter(torch.randn((card, dim), generator=gen, device=dev).mul_(1.0 / math.sqrt(dim))))
+        self.layout = _layout([(n, t.shape[1]) for n, t in zip(self.names, self.tables)],
+                              [(n, t.shape[1]) for n, t in zip(self.mh_names, self.mh_tables)], config.num_continuous)
         self.mlp = MLP(
             [config.input_dim, *config.layer_sizes, config.num_classes],
             compute_dtype=compute_dtype, generator=gen, device=dev,
         )
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters as ``tabular_mlp_init``'s tree."""
+        return {
+            "tables": dict(zip(self.names, self.tables)),
+            "mh_tables": dict(zip(self.mh_names, self.mh_tables)),
+            "mlp": self.mlp.layers(),
+        }
 
     def _continuous(self, batch, B: int):
         nc = self.config.num_continuous
@@ -157,12 +176,46 @@ class TabularMLP(nn.Module):
         return cont.to(torch.float32)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        lay = self.layout
-        ids = [batch[n] for n in self.names]
-        pads = [t for n in self.mh_names for t in (batch[f"{n}__values"], batch[f"{n}__mask"])]
-        B = (ids[0] if ids else pads[0] if pads else batch["continuous"]).shape[0]
-        x = _MLPInput.apply(lay, B, self._continuous(batch, B), *self.tables, *self.mh_tables, *ids, *pads)
-        return self.mlp(x[:, : lay.input_dim])
+        B = _batch_rows(self.names, self.mh_names, batch)
+        return _logits(self.layout, self.tables, self.mh_tables, self.names, self.mh_names, self._continuous(batch, B),
+                       B, self.mlp, batch)
+
+
+def _batch_rows(names, mh_names, batch) -> int:
+    first = batch[names[0]] if names else batch[f"{mh_names[0]}__values"] if mh_names else batch["continuous"]
+    return first.shape[0]
+
+
+def _logits(lay: _Layout, tables, mh_tables, names, mh_names, continuous: Optional[torch.Tensor], B: int, mlp,
+            batch) -> torch.Tensor:
+    """``tabular_mlp_forward``: the input row built by K13a and K13c in one
+    buffer, then the MLP (``mlp``) over its first ``input_dim`` columns →
+    logits [B, num_classes]."""
+    ids = [batch[n] for n in names]
+    pads = [t for n in mh_names for t in (batch[f"{n}__values"], batch[f"{n}__mask"])]
+    x = _MLPInput.apply(lay, B, continuous, *tables, *mh_tables, *ids, *pads)
+    return mlp(x[:, : lay.input_dim])
+
+
+def tabular_mlp_init(rng: Rng, config: TabularMLPConfig, device=None) -> Dict[str, Any]:
+    """The JAX package's ``tabular_mlp_init``: ``TabularMLP(config, rng,
+    device)``'s parameters as its tree, detached (torch's draws, not
+    ``jax.random``'s)."""
+    return tree_map(torch.Tensor.detach, TabularMLP(config, rng, device).param_tree())
+
+
+def tabular_mlp_forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``tabular_mlp_forward`` over a params tree →
+    logits [B, num_classes]; ``batch["continuous"]`` joins the input where
+    the batch has it."""
+    names, mh_names = sorted(params["tables"]), sorted(params["mh_tables"])
+    tables = [params["tables"][n] for n in names]
+    mh_tables = [params["mh_tables"][n] for n in mh_names]
+    cont = batch["continuous"].to(torch.float32) if "continuous" in batch else None
+    lay = _layout([(n, t.shape[1]) for n, t in zip(names, tables)],
+                  [(n, t.shape[1]) for n, t in zip(mh_names, mh_tables)], 0 if cont is None else cont.shape[1])
+    return _logits(lay, tables, mh_tables, names, mh_names, cont, _batch_rows(names, mh_names, batch),
+                   lambda x: mlp_apply(params["mlp"], x), batch)
 
 
 def tabular_reference_forward(model: TabularMLP, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -181,7 +234,9 @@ def tabular_reference_forward(model: TabularMLP, batch: Dict[str, torch.Tensor])
     return model.mlp(torch.cat(feats, dim=1), plain=True)
 
 
-def tabular_mlp_loss(model: TabularMLP, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Binary cross-entropy of the logits against ``batch["label"]``."""
-    return bce_with_logits(model(batch).reshape(-1), batch["label"])
+def tabular_mlp_loss(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Binary cross-entropy of the logits against ``batch["label"]``, of a
+    ``TabularMLP`` or of a params tree (``tabular_mlp_forward``)."""
+    logits = model(batch) if isinstance(model, nn.Module) else tabular_mlp_forward(model, batch)
+    return bce_with_logits(logits.reshape(-1), batch["label"])
 

@@ -1,24 +1,27 @@
 """Training helpers: the counterpart of ``nvtabular_tpu/models/training.py``.
 
-``Adagrad`` follows optax's ``adagrad`` (``scale_by_rss`` then the learning
-rate), not ``torch.optim.Adagrad``: the accumulator starts at 0.1 rather
-than 0, and eps sits inside the square root. ``train_step`` and ``train_chunk`` stand in for
-``make_step_fns`` and ``make_chunk_train_fn``; ``train_chunk`` is a Python
-loop over the chunk's batches that leaves every loss on the device (no host
-sync per step). Each takes the loss function, ``loss_fn(model, batch)``, as
-``make_step_fns(loss_fn, optimizer)`` does (``dlrm_loss`` by default).
-``process_epoch`` and ``roc_auc`` are copies.
+``adagrad`` and ``Adagrad`` follow optax's ``adagrad`` (``scale_by_rss``
+then the learning rate), not ``torch.optim.Adagrad``: the accumulator
+starts at 0.1 rather than 0, and eps sits inside the square root; both run
+kernel K18 in place. Over params trees (``dlrm_init`` and its kin) the JAX
+package's ``make_step_fns`` and ``make_chunk_train_fn`` take
+``loss_fn(params, batch)`` and ``adagrad(lr)``; over the ``nn.Module``s,
+``train_step`` and ``train_chunk`` take ``loss_fn(model, batch)``
+(``dlrm_loss`` by default) and an ``Adagrad``. Each chunk trainer is a
+Python loop over the chunk's batches that leaves every loss on the device
+(no host sync per step). ``process_epoch`` and ``roc_auc`` are copies.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.adagrad import adagrad_update
 from .dlrm import dlrm_loss
+from .pytree import tree_leaves, tree_map
 
 
 INITIAL_ACCUMULATOR = 0.1  # optax.adagrad's default
@@ -65,6 +68,101 @@ class Adagrad:
         adagrad_update([p for p, _ in live], [acc for _, acc in live], [p.grad for p, _ in live], self.lr)
 
 
+class GradientTransformation(NamedTuple):
+    """optax's pair: ``init(params) → state``; here ``update(grads, state,
+    params) → (params, state)`` applies the step in place, optax's
+    ``update`` and ``apply_updates`` in one."""
+
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Any]
+
+
+def adagrad(learning_rate: float) -> GradientTransformation:
+    """``optax.adagrad(learning_rate)`` over params trees: ``init`` gives
+    the accumulator tree at INITIAL_ACCUMULATOR; ``update`` runs
+    ``Adagrad``'s step (kernel K18, one launch for up to 64 tensors) on
+    every leaf in place. A gradient of None (a leaf the loss does not use)
+    leaves its parameter and accumulator as they are, as optax's zero
+    gradient does."""
+
+    def init(params):
+        return tree_map(lambda p: torch.full_like(p, INITIAL_ACCUMULATOR, memory_format=torch.contiguous_format),
+                        params)
+
+    def update(grads, state, params):
+        live = [(p, acc, g) for p, acc, g in zip(tree_leaves(params), tree_leaves(state), tree_leaves(grads))
+                if g is not None]
+        with torch.no_grad():
+            adagrad_update([p for p, _, _ in live], [acc for _, acc, _ in live], [g for _, _, g in live],
+                           learning_rate)
+        return params, state
+
+    return GradientTransformation(init, update)
+
+
+def make_step_fns(loss_fn: Callable, optimizer: GradientTransformation, forward_fn: Optional[Callable] = None):
+    """→ (train_step, eval_step), the JAX package's pair, eager.
+
+    ``train_step(params, opt_state, batch) → (params, opt_state, loss)``:
+    the gradient of ``loss_fn(params, batch)`` with respect to every leaf
+    of ``params``, then ``optimizer.update`` (in place); the loss is a 0-d
+    tensor on the device. ``eval_step(params, batch) → forward_fn(params,
+    batch)`` without gradients, or None without ``forward_fn``."""
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            loss = loss_fn(_like(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [None if g is None else g.contiguous() for g in grads]
+        params, opt_state = optimizer.update(_like(params, grads), opt_state, params)
+        return params, opt_state, loss.detach()
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return forward_fn(params, batch)
+
+    return train_step, (eval_step if forward_fn is not None else None)
+
+
+def make_chunk_train_fn(loss_fn: Callable, optimizer: GradientTransformation, batch_size: int):
+    """→ ``train_chunk(params, opt_state, chunk) → (params, opt_state,
+    losses)``: ``make_step_fns``' step over every full batch of the chunk's
+    [n, ...] arrays in order, losses [n // batch_size] on the device (rows
+    past the last full batch are dropped, as a drop_last loader would). An
+    eager loop of one step a batch; the JAX package's is one jitted
+    ``lax.scan``, whose counterpart, the chunk as one dispatch (a CUDA
+    graph), is not ported yet (ROADMAP.md queue 1 item 9)."""
+    train_step, _ = make_step_fns(loss_fn, optimizer)
+
+    def train_chunk(params, opt_state, chunk: Dict[str, torch.Tensor]):
+        losses = []
+        for batch in _batches(chunk, int(batch_size)):
+            params, opt_state, loss = train_step(params, opt_state, batch)
+            losses.append(loss)
+        return params, opt_state, _stacked(losses, chunk)
+
+    return train_chunk
+
+
+def _like(tree, leaves: List[Any]):
+    """``leaves`` in ``tree``'s structure, in ``tree_leaves``' order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _batches(chunk: Dict[str, torch.Tensor], batch_size: int) -> Iterator[Dict[str, torch.Tensor]]:
+    n = next(iter(chunk.values())).shape[0]
+    for start in range(0, n // batch_size * batch_size, batch_size):
+        yield {k: v[start : start + batch_size] for k, v in chunk.items()}
+
+
+def _stacked(losses: List[torch.Tensor], chunk: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if not losses:
+        return torch.empty(0, device=next(iter(chunk.values())).device)
+    return torch.stack(losses)
+
+
 LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor]], torch.Tensor]
 
 
@@ -83,14 +181,7 @@ def train_chunk(model, optimizer: Adagrad, chunk: Dict[str, torch.Tensor], batch
     """Trains over every full batch of a chunk's arrays in order → losses
     [n // batch_size] on the device (rows past the last full batch are
     dropped, as a drop_last loader would)."""
-    n = next(iter(chunk.values())).shape[0]
-    losses = []
-    for start in range(0, n // batch_size * batch_size, batch_size):
-        batch = {k: v[start : start + batch_size] for k, v in chunk.items()}
-        losses.append(train_step(model, optimizer, batch, loss_fn))
-    if not losses:
-        return torch.empty(0)
-    return torch.stack(losses)
+    return _stacked([train_step(model, optimizer, batch, loss_fn) for batch in _batches(chunk, batch_size)], chunk)
 
 
 def process_epoch(loader: Iterable[Dict[str, torch.Tensor]], model,

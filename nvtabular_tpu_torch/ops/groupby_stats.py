@@ -42,6 +42,7 @@ import torch
 from ..dispatch import hash_array, hash_lanes
 from ..kernels.hash_pair import hash_pair, hash_pair_verify
 from ..table import Column
+from ..unported import message
 from .lookup import BATCHED, build_lookup, fits_int32, int32_keys, kind_of
 
 _AGG_NEEDS = {
@@ -166,9 +167,7 @@ class GroupbyStatsAccum:
         dtypes = [k.dtype for k in key_arrays]
         for d in dtypes:
             if d.is_floating_point or d == torch.bool:
-                raise NotImplementedError(
-                    "non-integer group keys are not ported yet (ROADMAP.md queue 1: strings and hybrid execution)"
-                )
+                raise NotImplementedError(message("a non-integer group key", 4))
         self.key_dtypes = (
             dtypes if self.key_dtypes is None
             else [torch.promote_types(a, b) for a, b in zip(self.key_dtypes, dtypes)]

@@ -52,14 +52,12 @@ from ..kernels.lookup import (
     tiny_lookup,
 )
 from ..table import Column
+from ..unported import message
 
 DIRECT_MAX_RANGE = 1 << 22
 CUCKOO_LOAD = 0.8  # 10 B per key; two-choice 4-slot placement holds to ~0.97
 EMPTY = -1  # empty slot marker in a value lane (codes are >= 2)
-UNSUPPORTED_WIDE_KEYS = (
-    "vocabulary keys outside int32 are not ported yet "
-    "(ROADMAP.md queue 1: strings and hybrid execution)"
-)
+UNSUPPORTED_WIDE_KEYS = message("a vocabulary key outside int32", 4)
 UNSUPPORTED_KEYS = (
     "lookups of string, object or bool keys are not ported yet "
     "(ROADMAP.md queue 1 item 4: strings and hybrid execution)"

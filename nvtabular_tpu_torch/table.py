@@ -22,6 +22,7 @@ import torch
 
 from . import dtypes as md
 from .schema import ColumnSchema, Schema
+from .unported import message
 
 _TORCH_TO_NUMPY = {
     torch.bool: np.dtype(np.bool_),
@@ -36,10 +37,7 @@ _TORCH_TO_NUMPY = {
 }
 _NUMPY_TO_TORCH = {v: k for k, v in _TORCH_TO_NUMPY.items()}
 
-UNSUPPORTED_STRINGS = (
-    "string/object columns are not ported yet "
-    "(ROADMAP.md queue 1: strings and hybrid execution)"
-)
+UNSUPPORTED_STRINGS = message("a string/object column", 4)
 UNSUPPORTED_LISTS = (
     "list columns are not ported for this op yet (ROADMAP.md queue 1 item 5: lists)"
 )

@@ -11,8 +11,8 @@ from typing import Callable, Dict
 
 ITEMS = {
     2: "save/load and the Workflow facade",
+    4: "strings, wide keys and the hybrid frontier",
     8: "the rest of the loader",
-    9: "the rest of the models",
     11: "the hetero executor and its host engine",
     15: "tools, bridges and host helpers",
     16: "parquet beyond the native subset",

@@ -2064,6 +2064,122 @@ def test_new_layer_kernels_take_empty_inputs_and_the_current_stream():
         assert _within_terms(got.cpu(), want, mag)
 
 
+# K13d in 16 bits: x_k, x_0 and g in T, w in T or float32
+CIN16_TYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+               (torch.float16, torch.float32)]
+CIN16_IDS = ["bf16", "bf16_w32", "f16", "f16_w32"]
+ULP_REL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}  # one ULP of T relative to a value, at most
+
+
+def _cin16_inputs(g, B, Hk, F, D, Hn, same, dtype, wdtype):
+    xk, x0, w, grad = _cin_inputs(g, B, Hk, F, D, Hn, same)
+    x0 = x0.to(dtype)
+    return (x0 if same else xk.to(dtype)), x0, w.to(wdtype), grad.to(dtype)
+
+
+def _cin16_magnitudes(xk, x0, w, grad):
+    """float32 sums of the terms' magnitudes of out, dx_k, dx_0 and dw."""
+    a = [t.float().abs() for t in (xk, x0, w, grad)]
+    return (kcin.cin_fwd_plain(*a[:3]), *kcin.cin_bwd_plain(*a))
+
+
+def _cin16_close(got, want, mag, dtype, what):
+    """16-bit K13d against its plain version: both sum in float32 (in
+    other orders, and dw by atomics) and round to T at the same points, so
+    a rounded value may land on T's neighbour of the plain version's, and
+    each term of dx's sums (a product with dz, itself rounded) by one ULP
+    of itself: within 1e-5 of the float32 terms' magnitudes plus 1e-6, one
+    ULP of T at the value (16-bit outputs) and, for dx_k and dx_0, one ULP
+    of T of the terms' magnitudes. NaN where the plain version has NaN."""
+    got, want, mag = got.float(), want.float(), mag.float()
+    assert torch.equal(got.isnan(), want.isnan()), what
+    tol = 1e-5 * mag + 1e-6
+    if dtype in ULP_REL:
+        tol = tol + ULP_REL[dtype] * torch.maximum(got.abs(), want.abs())
+        if what in ("dx_k", "dx_0"):
+            tol = tol + ULP_REL[dtype] * mag
+    ok = ((got - want).abs() <= tol) | (got == want) | want.isnan()
+    assert bool(ok.all()), (what, float((got - want).abs().nan_to_num().max()))
+
+
+@pytest.mark.parametrize("dtype,wdtype", CIN16_TYPES, ids=CIN16_IDS)
+@pytest.mark.parametrize(
+    "B,Hk,F,D,Hn,same",
+    [(2053, 26, 26, 16, 200, True), (517, 200, 26, 16, 200, False), (301, 7, 5, 5, 9, False),
+     (64, 3, 2, 4, 1, False), (131, 5, 1, 1, 257, False), (45, 30, 17, 12, 36, False), (5, 900, 26, 4, 8, False),
+     (3, 1800, 26, 8, 16, False)],
+    ids=["layer1", "layer2", "odd", "tiny", "F1_D1_Hn257", "d12_hn36", "hk_f_926", "hk_f_1826"],
+)
+def test_cin16_kernels_match_plain(B, Hk, F, D, Hn, same, dtype, wdtype):
+    """K13d's 16-bit kernels against their plain versions on the card: out,
+    dx_k and dx_0 in T and dw in w's dtype at the tolerances of
+    ``_cin16_close``; xDeepFM's layers 1 and 2, odd shapes (D 1, 5 and 12:
+    no 16-byte copies; Hn 1, 9, 36 and 257), x_k the same tensor as x_0,
+    and Hk + F = 926 and 1,826 rows, past what the forward stages whole
+    (in float32 at 926, in 16 bits at 1,826: x_k in chunks)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(B + Hk)
+    xk, x0, w, grad = (t.cuda() for t in _cin16_inputs(g, B, Hk, F, D, Hn, same, dtype, wdtype))
+    suffix = kcin.COUNT_SUFFIX[dtype]
+    kernels.reset_launches()
+    out = kcin.cin_fwd(xk, x0, w)
+    grads = kcin.cin_bwd(xk, x0, w, grad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd" + suffix] == 1 and kernels.LAUNCHES["cin_bwd" + suffix] == 1
+    assert kernels.LAUNCHES["cin_fwd"] == 0 and kernels.LAUNCHES["cin_bwd"] == 0
+    assert out.dtype == dtype and [t.dtype for t in grads] == [dtype, dtype, wdtype]
+    if Hk + F > 1000:
+        assert kcin.fwd_plan(Hk, F, Hn, 2, w.element_size())[1] < Hk
+    mags = _cin16_magnitudes(xk, x0, w, grad)
+    _cin16_close(out, kcin.cin_fwd_plain(xk, x0, w), mags[0], dtype, "out")
+    for name, got, want, mag in zip(("dx_k", "dx_0", "dw"), grads, kcin.cin_bwd_plain(xk, x0, w, grad), mags[1:]):
+        _cin16_close(got, want, mag, wdtype if name == "dw" else dtype, name)
+
+
+@pytest.mark.parametrize("dtype,wdtype", CIN16_TYPES, ids=CIN16_IDS)
+def test_cin16_kernels_follow_plain_at_nonfinite_inputs(dtype, wdtype):
+    """NaN and infinities in x_k, x_0, w and g: the kernels' NaN where the
+    plain versions have NaN (each sum takes the same terms), the same
+    infinities, and the finite entries as in the test above."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(17)
+    xk, x0, w, grad = _cin16_inputs(g, 97, 6, 5, 8, 24, False, dtype, wdtype)
+    xk[3, 2, 1] = float("nan")
+    x0[5, 4, 7] = float("inf")
+    x0[6, 0, 0] = -float("inf")
+    w[7, 3] = float("nan")
+    grad[9, 11, 2] = float("inf")
+    xk, x0, w, grad = (t.cuda() for t in (xk, x0, w, grad))
+    out = kcin.cin_fwd(xk, x0, w)
+    grads = kcin.cin_bwd(xk, x0, w, grad)
+    wants = (kcin.cin_fwd_plain(xk, x0, w), *kcin.cin_bwd_plain(xk, x0, w, grad))
+    mags = _cin16_magnitudes(xk, x0, w, grad)
+    for name, got, want, mag in zip(("out", "dx_k", "dx_0", "dw"), (out, *grads), wants, mags):
+        assert bool(want.isnan().any()), name
+        finite = want.isfinite() & mag.isfinite()
+        assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf()), name
+        assert torch.equal(got[got.isinf()], want[want.isinf()]), name
+        _cin16_close(got[finite], want[finite], mag[finite], wdtype if name == "dw" else dtype, name)
+
+
+@pytest.mark.parametrize("dtype,wdtype", CIN16_TYPES, ids=CIN16_IDS)
+def test_cin16_backward_run_to_run(dtype, wdtype):
+    """dx_k and dx_0 sum in a fixed order: the same bits every run. dw's
+    float32 atomics add in an order that varies from run to run, so two
+    runs' dw differ as the kernel and its plain version may
+    (``_cin16_close``): a float32 sum moved within 1e-5 of its terms'
+    magnitudes (several ULPs of a 16-bit dw where the sum cancels), then
+    its round to w's dtype."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(29)
+    xk, x0, w, grad = (t.cuda() for t in _cin16_inputs(g, 4099, 26, 26, 16, 200, True, dtype, wdtype))
+    first = kcin.cin_bwd(xk, x0, w, grad)
+    second = kcin.cin_bwd(xk, x0, w, grad)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    _cin16_close(first[2], second[2], _cin16_magnitudes(xk, x0, w, grad)[3], wdtype, "dw")
+
+
 def _multihot_dlrm(seed=1, **kw):
     config = models.DLRMConfig({"a": 3, "b": 500, "c": 40_000}, num_dense=13, embedding_dim=16,
                                multihot_cardinalities={"g": 23, "m": 5000}, multihot_max_len=4, **kw)

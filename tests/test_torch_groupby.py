@@ -451,8 +451,8 @@ _STRINGS = dict(_DATA, a=np.array([f"s{i}" for i in range(10)], dtype=object))
         (lambda: [["a", "b"]] >> pops.TargetEncoding("y"), _transform_group_op, dict(_DATA, b=np.arange(10) << 32),
          "queue 1 item 4"),
         (lambda: [["a", "b"]] >> pops.JoinGroupby(cont_cols=["y"]), _transform_colliding_pair, _DATA, "queue 1 item 4"),
-        (lambda: ["a"] >> pops.TargetEncoding("y"), _fit_group_op, _STRINGS, "queue 1: strings"),
-        (lambda: ["a"] >> pops.JoinGroupby(cont_cols=["y"]), _transform_wide_keys, _DATA, "queue 1: strings"),
+        (lambda: ["a"] >> pops.TargetEncoding("y"), _fit_group_op, _STRINGS, "queue 1 item 4: strings"),
+        (lambda: ["a"] >> pops.JoinGroupby(cont_cols=["y"]), _transform_wide_keys, _DATA, "queue 1 item 4: strings"),
         (lambda: pops.TargetEncoding("y", out_path="x"), None, None, "queue 1 item 2: save/load"),
         (lambda: pops.JoinGroupby(cont_cols=["y"], out_path="x"), None, None, "queue 1 item 2: save/load"),
     ],

@@ -387,6 +387,27 @@ def test_cin_plans_chunk_x_k_where_it_does_not_fit(total):
     assert (jr, xk_rows) == (26, 11) and 2 * (smem + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("ws", [2, 4], ids=["w16", "w32"])
+@pytest.mark.parametrize("total", [52, 226, 926, 1726, 1826, 3026])
+def test_cin16_plans_stage_half_the_bytes(total, ws):
+    """K13d in 16 bits: x_k's and x_0's rows staged in 2 bytes an element
+    (w's tiles in ``ws``), so the forward stages all rows up to about twice
+    as many of them as float32 does (926 rows fit, 1,826 do not) and chunks
+    x_k past that; the backward's x rows and g tiles take half their bytes,
+    its plan's rows unchanged."""
+    F, Hk = 26, total - 26
+    for Hn in (200, 16):
+        rows, ci, cj = kcin.fwd_plan(Hk, F, Hn, 2, ws)
+        assert rows == kcin.pass_rows(Hn) and kcin.fwd_smem_bytes(rows, ci, cj, 2, ws) <= kcin.SMEM_OPT_IN
+        whole = kcin.fwd_smem_bytes(rows, Hk, F, 2, ws) <= kcin.SMEM_OPT_IN
+        assert (ci, cj) == (Hk, F) if whole else (cj == F and 16 <= ci < Hk)
+    if total <= 926 or total >= 1826:  # 1,726 rows fit beside 16-bit w tiles, not beside float32 ones
+        assert (kcin.fwd_plan(Hk, F, 16, 2, ws)[1] == Hk) == (total <= 926)
+    jr, xk_rows, smem = kcin.bwd_x_plan(F, 2)
+    assert (jr, xk_rows) == kcin.bwd_x_plan(F)[:2]
+    assert kcin.bwd_x_plan(F)[2] - smem == (2 * kcin.BX_DEPTH * kcin.BX_COLS + (jr + xk_rows) * kcin.BX_COLS) * 2
+
+
 @pytest.mark.parametrize("F", [1, 8, 9, 26, 128, 129, 256, 257, 900])
 def test_cin_bwd_x_plan_fits_any_field_count(F):
     """x_0 in ceil(F / 128) chunks of near-equal rows; a pass's 256 pairs

@@ -206,18 +206,23 @@ def test_cin_plain_versions_are_the_layer_and_its_vjp():
 @pytest.mark.parametrize(
     "call,error",
     [
-        (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4, dtype=torch.bfloat16),
-                                               torch.zeros(2, 5, 4, dtype=torch.bfloat16),
-                                               torch.zeros(15, 6, dtype=torch.bfloat16)), NotImplementedError),
+        (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4, dtype=torch.int32),
+                                               torch.zeros(2, 5, 4, dtype=torch.int32),
+                                               torch.zeros(15, 6)), TypeError),
         (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4), torch.zeros(2, 5, 4), torch.zeros(14, 6)),
          ValueError),
         (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4), torch.zeros(3, 5, 4), torch.zeros(15, 6)),
          ValueError),
         (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4), torch.zeros(2, 5, 4)[:, :, :3],
                                                torch.zeros(15, 6)), ValueError),
+        (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4, dtype=torch.bfloat16),
+                                               torch.zeros(2, 5, 4, dtype=torch.float16), torch.zeros(15, 6)),
+         TypeError),
+        (lambda: pmodels.xdeepfm_outer_product(torch.zeros(2, 3, 4), torch.zeros(2, 5, 4),
+                                               torch.zeros(15, 6, dtype=torch.bfloat16)), TypeError),
     ],
-    ids=["bfloat16", "w_rows", "batch_mismatch", "d_mismatch"],
+    ids=["int32", "w_rows", "batch_mismatch", "d_mismatch", "mixed_x_dtypes", "w_16_bit_under_float32"],
 )
 def test_xdeepfm_outer_product_rejects_wrong_inputs(call, error):
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError else None):
+    with pytest.raises(error):
         call()
