@@ -321,7 +321,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bfloat16 rate (tensor cores)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bfloat16 and float16 rate (tensor cores)
 TIMED_ITERS = 25
 REPEATS = 5
 WARMUP_S = 0.3
@@ -379,6 +379,8 @@ SELF_FEATURES, CIN_FIELDS, CIN_DIM, CIN_MAPS, CIN_L2_BATCH = 27, 26, 16, 200, 81
 # autograd's bfloat16 sums of a gradient's up to three layer terms: the loss
 # within 2^-8 relative, each gradient within 2^-5 of its largest entry.
 CIN16_ULP, CIN16_LOSS_RTOL, CIN16_GRAD_REL = 2.0**-7, 2.0**-8, 2.0**-5
+# the same tolerance for float16 K13d, at float16's ULP (2^-10 of a value)
+CIN16_ULPS = {torch.bfloat16: CIN16_ULP, torch.float16: 2.0**-10}
 # phase 23: K13b past 227 KB a sample (480 KB of X at [120, 1024]), its streamed kernels
 STREAM_BATCH, STREAM_FEATURES, STREAM_DIM = 512, 120, 1024
 
@@ -3748,13 +3750,13 @@ def layer_kernel_records(dev, mh: dict, profile: bool) -> dict:
     return records
 
 
-def cin16_close(got, want, mag, what, dx=False) -> float:
-    """K13d in bfloat16 against its plain version at CIN16_ULP's
-    tolerance; the largest absolute difference."""
+def cin16_close(got, want, mag, what, dx=False, ulp=CIN16_ULP) -> float:
+    """K13d in 16 bits against its plain version at CIN16_ULP's tolerance
+    (``ulp``: float16's in CIN16_ULPS); the largest absolute difference."""
     got, want, mag = got.float(), want.float(), mag.float()
     if not torch.equal(got.isnan(), want.isnan()):
         fail(f"{what}: NaN where the plain version has none, or none where it has")
-    tol = 1e-5 * mag + 1e-6 + CIN16_ULP * torch.maximum(got.abs(), want.abs()) + (CIN16_ULP * mag if dx else 0)
+    tol = 1e-5 * mag + 1e-6 + ulp * torch.maximum(got.abs(), want.abs()) + (ulp * mag if dx else 0)
     diff = (got - want).abs()
     if not bool(((diff <= tol) | want.isnan()).all()):
         fail(f"{what} differs from plain: max abs {float(diff.nan_to_num().max())}")
@@ -3762,63 +3764,72 @@ def cin16_close(got, want, mag, what, dx=False) -> float:
 
 
 def cin16_records(dev, gen, profile: bool) -> dict:
-    """K13d in bfloat16 (x_k, x_0, g and w) at xDeepFM's layers 1 and 2
-    against its plain versions on the card (``cin16_close``), timed beside
-    its bound, the operations at the card's bfloat16 rate, and, for the
-    forward, ``torch.einsum`` in bfloat16 over z built outside the timing.
-    The plain versions and the library call (each tens of ms and GBs of
-    intermediates) are timed over fewer calls."""
+    """K13d in bfloat16 and in float16 (x_k, x_0, g and w) at xDeepFM's
+    layers 1 and 2 against its plain versions on the card
+    (``cin16_close``), timed beside its bound, the operations at the card's
+    16-bit tensor-core rate, and, for the forward, ``torch.einsum`` in the
+    same type over z built outside the timing; each direction's share of
+    outputs bit-equal to the plain version's. The plain versions and the
+    library call (each tens of ms and GBs of intermediates) are timed over
+    fewer calls. ``profile``: the backward's device time by kernel
+    (cin_bwd_x, cin_bwd_w, the memset and the two rounds)."""
     from nvtabular_tpu_torch.kernels import cin as kcin
 
     records = {}
-    bf = torch.bfloat16
-    for layer, (Bc, Hk) in enumerate(((TRAIN_BS, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
-        F, Dc, Hn = CIN_FIELDS, CIN_DIM, CIN_MAPS
-        x0 = torch.randn((Bc, F, Dc), device=dev, generator=gen).to(bf)
-        xk = x0 if layer == 1 else torch.randn((Bc, Hk, Dc), device=dev, generator=gen).to(bf)
-        w = (torch.randn((Hk * F, Hn), device=dev, generator=gen) / (Hk * F) ** 0.5).to(bf)
-        gout = torch.randn((Bc, Hn, Dc), device=dev, generator=gen).to(bf)
-        N, K = Bc * Dc, Hk * F
-        absx = [t.float().abs() for t in (xk, x0, w, gout)]
-        suffix = "_bf16" + ("" if layer == 1 else "_layer2")
-        got = kcin.cin_fwd(xk, x0, w)
-        want = kcin.cin_fwd_plain(xk, x0, w)
-        torch.cuda.synchronize()
-        err = cin16_close(got, want, kcin.cin_fwd_plain(*absx[:3]), f"cin_fwd bfloat16 (layer {layer})")
-        bit_equal = float((got == want).float().mean())
-        del got, want
-        z = kcin.outer_product_plain(xk.float(), x0.float()).to(bf)  # the library call's operand, untimed
-        in_bytes = (xk.numel() + (0 if xk is x0 else x0.numel())) * 2 + w.numel() * w.element_size()
-        rec = {"max_abs_err": err, "bit_equal_share": bit_equal, "shape": [Bc, Hk, F, Dc, Hn], "dtype": "bfloat16",
-               "bytes": in_bytes + Bc * Hn * Dc * 2,
-               "ms": time_ms(lambda: kcin.cin_fwd(xk, x0, w), iters=5),
-               "plain_ms": time_ms(lambda: kcin.cin_fwd_plain(xk, x0, w), iters=2, repeats=3),
-               "library_ms": time_ms(lambda: torch.einsum("bkd,kh->bhd", z, w), iters=2, repeats=3)}
-        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (2 * Hn + 1), BF16_OPS_PER_S)
-        records["cin_fwd" + suffix] = rec
-        del z
-        log(f"cin_fwd bfloat16 layer {layer} {rec['shape']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-            f"einsum {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
-            f"{bit_equal:.2%} of the outputs bit-equal to the plain version's")
-        grads = kcin.cin_bwd(xk, x0, w, gout)
-        wants = kcin.cin_bwd_plain(xk, x0, w, gout)
-        mags = kcin.cin_bwd_plain(*absx)
-        torch.cuda.synchronize()
-        errs = [cin16_close(g, wnt, m, f"cin_bwd bfloat16 (layer {layer}) {name}", dx=name != "dw")
-                for name, g, wnt, m in zip(("dx_k", "dx_0", "dw"), grads, wants, mags)]
-        del grads, wants, mags, absx
-        rec = {"max_abs_err": max(errs), "shape": [Bc, Hk, F, Dc, Hn], "dtype": "bfloat16",
-               # the inputs and g read, dx_k, dx_0 and dw written
-               "bytes": in_bytes + Bc * Hn * Dc * 2 + (xk.numel() + x0.numel()) * 2 + w.numel() * w.element_size(),
-               "ms": time_ms(lambda: kcin.cin_bwd(xk, x0, w, gout), iters=5),
-               "plain_ms": time_ms(lambda: kcin.cin_bwd_plain(xk, x0, w, gout), iters=2, repeats=3),
-               "library_ms": None}
-        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (4 * Hn + 5), BF16_OPS_PER_S)
-        records["cin_bwd" + suffix] = rec
-        if profile:  # cin_bwd_x, cin_bwd_w, the memset and the two rounds apart
-            profile_split(rec, f"cin_bwd bfloat16 layer {layer}", lambda: kcin.cin_bwd(xk, x0, w, gout))
-        del x0, xk, w, gout
-        torch.cuda.empty_cache()
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        ulp, name = CIN16_ULPS[dt], str(dt).split(".")[-1]
+        for layer, (Bc, Hk) in enumerate(((TRAIN_BS, CIN_FIELDS), (CIN_L2_BATCH, CIN_MAPS)), start=1):
+            F, Dc, Hn = CIN_FIELDS, CIN_DIM, CIN_MAPS
+            x0 = torch.randn((Bc, F, Dc), device=dev, generator=gen).to(dt)
+            xk = x0 if layer == 1 else torch.randn((Bc, Hk, Dc), device=dev, generator=gen).to(dt)
+            w = (torch.randn((Hk * F, Hn), device=dev, generator=gen) / (Hk * F) ** 0.5).to(dt)
+            gout = torch.randn((Bc, Hn, Dc), device=dev, generator=gen).to(dt)
+            N, K = Bc * Dc, Hk * F
+            absx = [t.float().abs() for t in (xk, x0, w, gout)]
+            suffix = f"_{tag}" + ("" if layer == 1 else "_layer2")
+            got = kcin.cin_fwd(xk, x0, w)
+            want = kcin.cin_fwd_plain(xk, x0, w)
+            torch.cuda.synchronize()
+            err = cin16_close(got, want, kcin.cin_fwd_plain(*absx[:3]), f"cin_fwd {name} (layer {layer})", ulp=ulp)
+            bit_equal = float((got == want).float().mean())
+            del got, want
+            z = kcin.outer_product_plain(xk.float(), x0.float()).to(dt)  # the library call's operand, untimed
+            in_bytes = (xk.numel() + (0 if xk is x0 else x0.numel())) * 2 + w.numel() * w.element_size()
+            rec = {"max_abs_err": err, "bit_equal_share": bit_equal, "shape": [Bc, Hk, F, Dc, Hn], "dtype": name,
+                   "bytes": in_bytes + Bc * Hn * Dc * 2,
+                   "ms": time_ms(lambda: kcin.cin_fwd(xk, x0, w), iters=5),
+                   "plain_ms": time_ms(lambda: kcin.cin_fwd_plain(xk, x0, w), iters=2, repeats=3),
+                   "library_ms": time_ms(lambda: torch.einsum("bkd,kh->bhd", z, w), iters=2, repeats=3)}
+            rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (2 * Hn + 1), BF16_OPS_PER_S)
+            records["cin_fwd" + suffix] = rec
+            del z
+            log(f"cin_fwd {name} layer {layer} {rec['shape']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                f"einsum {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
+                f"{bit_equal:.4%} of the outputs bit-equal to the plain version's")
+            grads = kcin.cin_bwd(xk, x0, w, gout)
+            wants = kcin.cin_bwd_plain(xk, x0, w, gout)
+            mags = kcin.cin_bwd_plain(*absx)
+            torch.cuda.synchronize()
+            names = ("dx_k", "dx_0", "dw")
+            errs = [cin16_close(g, wnt, m, f"cin_bwd {name} (layer {layer}) {what}", dx=what != "dw", ulp=ulp)
+                    for what, g, wnt, m in zip(names, grads, wants, mags)]
+            shares = {what: float((g == wnt).float().mean()) for what, g, wnt in zip(names, grads, wants)}
+            del grads, wants, mags, absx
+            rec = {"max_abs_err": max(errs), "bit_equal_share": shares, "shape": [Bc, Hk, F, Dc, Hn], "dtype": name,
+                   # the inputs and g read, dx_k, dx_0 and dw written
+                   "bytes": in_bytes + Bc * Hn * Dc * 2 + (xk.numel() + x0.numel()) * 2
+                   + w.numel() * w.element_size(),
+                   "ms": time_ms(lambda: kcin.cin_bwd(xk, x0, w, gout), iters=5),
+                   "plain_ms": time_ms(lambda: kcin.cin_bwd_plain(xk, x0, w, gout), iters=2, repeats=3),
+                   "library_ms": None}
+            rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], N * K * (4 * Hn + 5), BF16_OPS_PER_S)
+            records["cin_bwd" + suffix] = rec
+            log(f"cin_bwd {name} layer {layer}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms; bit-equal shares {shares}")
+            if profile:  # cin_bwd_x, cin_bwd_w, the memset and the two rounds apart
+                profile_split(rec, f"cin_bwd {name} layer {layer}", lambda: kcin.cin_bwd(xk, x0, w, gout))
+            del x0, xk, w, gout
+            torch.cuda.empty_cache()
     return records
 
 

@@ -13,7 +13,7 @@ The cases, by group (``--cases``; all by default):
   ``bmm``: the forward's full 120 x 120 product, the backward's of the
   symmetric gradient matrix (built outside the timing);
 - ``k13d``: K13d's forward and backward at xDeepFM's layers 1 and 2, in
-  float32 and in bfloat16 (x_k, x_0, w and g);
+  float32, in bfloat16 and in float16 (x_k, x_0, w and g);
 - ``k16``: K16's forward and backward at phase 17's [65536, 26, 16] + 13
   dense features, and the backward's split by inputs, never by a change of
   source: its ids all out of range (no linear gradient), those ids and no
@@ -322,13 +322,16 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
                  lambda: max(within(*t) for t in zip(kcin.cin_bwd(xk, x0, w, g), kcin.cin_bwd_plain(xk, x0, w, g),
                                                      kcin.cin_bwd_plain(xk.abs(), x0.abs(), w.abs(), g.abs()))),
                  iters=5)
-            # bfloat16 (timed only: chip_smoke.py holds it to its plain versions); a tree without it refuses
-            x0h = x0.to(torch.bfloat16)
-            xkh = x0h if xk is x0 else xk.to(torch.bfloat16)
-            wh, gh = w.to(torch.bfloat16), g.to(torch.bfloat16)
-            case(f"cin_fwd bfloat16 layer {layer} {shape}", lambda: kcin.cin_fwd(xkh, x0h, wh), iters=5)
-            case(f"cin_bwd bfloat16 layer {layer} {shape}", lambda: kcin.cin_bwd(xkh, x0h, wh, gh), iters=5)
-            del x0, xk, w, g, x0h, xkh, wh, gh
+            # bfloat16 and float16 (timed only: chip_smoke.py holds them to their plain versions); a tree
+            # without them refuses
+            for name, dt in (("bfloat16", torch.bfloat16), ("float16", torch.float16)):
+                x0h = x0.to(dt)
+                xkh = x0h if xk is x0 else xk.to(dt)
+                wh, gh = w.to(dt), g.to(dt)
+                case(f"cin_fwd {name} layer {layer} {shape}", lambda: kcin.cin_fwd(xkh, x0h, wh), iters=5)
+                case(f"cin_bwd {name} layer {layer} {shape}", lambda: kcin.cin_bwd(xkh, x0h, wh, gh), iters=5)
+                del x0h, xkh, wh, gh
+            del x0, xk, w, g
             torch.cuda.empty_cache()
 
     ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad", "k19"} & set(groups) \

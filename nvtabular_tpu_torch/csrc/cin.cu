@@ -30,15 +30,23 @@
 // once; dw's float32 sum is rounded to w's type. For float32 every round is
 // the identity and the kernels compute what they computed before. Loads and
 // stores are in T (and w's type), the tiles in shared memory too, so a
-// 16-bit tile stages half the bytes; the sums and z stay float32.
+// 16-bit tile stages half the bytes.
 //
 // Bound: operations. The forward is 2 * Hn * K * N flops (the backward twice
-// that), against float32 outside the tensor cores (67 TFLOP/s): 283 GFLOP,
-// 4.2 ms, at layer 1 of xDeepFM's Criteo setting ([65536, 26, 16] x
-// [65536, 26, 16] -> 200), against 0.4 GB of bytes. Every kernel keeps an
-// 8 x 8 register tile, whose shared-memory reads (4 float4 for 64 fmaf) just
-// keep pace with the fmaf units. A 16-bit layer does the same float32
-// operations (its products are not on the tensor cores).
+// that): 283 GFLOP at layer 1 of xDeepFM's Criteo setting ([65536, 26, 16]
+// x [65536, 26, 16] -> 200), against 0.4 GB of bytes. In float32 (outside
+// the tensor cores, 67 TFLOP/s: 4.2 ms) every kernel keeps an 8 x 8 register
+// tile, whose shared-memory reads (4 float4 for 64 fmaf) just keep pace with
+// the fmaf units. In 16 bits (989 TFLOP/s: 0.29 ms) the products of two T
+// values run on the tensor cores (mma.sync m16n8k16, T operands, float32
+// sums: the forward's and dz's where w is in T, dw's for every 16-bit T):
+// z is an exact product of two T values rounded once to T, so it is a T
+// operand, and a product of two T values is exact in float32, so the
+// tensor cores compute the reference's sums in another order. The SIMT work
+// left is where the reference rounds each product: the z build and the dx
+// epilogue. A 16-bit forward or cin_bwd_x with w in float32 keeps the
+// float32 kernels (w is not a T operand). The tensor-core kernels are
+// described below their code ("the 16-bit kernels on the tensor cores").
 //
 // nvt_cin_fwd (cin_fwd_kernel): a block owns kFwdCols = 64 columns and every
 // output row, so each z tile is built once. Hn is cut into passes of at most
@@ -769,6 +777,754 @@ cin_bwd_w_kernel(const T* __restrict__ xk, const T* __restrict__ x0, const T* __
   }
 }
 
+// --- the 16-bit kernels on the tensor cores -------------------------------------------------------
+// wgmma.mma_async m64n128k16 on T operands (bfloat16 or float16) with float32
+// sums, both operands read from shared memory through matrix descriptors. A
+// block has 2 warpgroups (256 threads); warpgroup wg holds the 64-row tiles
+// wg and wg + 2 of a pass (those it reaches) by the block's 128 columns: 128
+// float32 sums a thread, so one block an SM. Every product is issued
+// unconditionally over zero-padded 256-row A tiles: ptxas serializes wgmmas
+// on a divergent path. The products are asynchronous: a step issues its
+// wgmmas, waits only for the step before's, then copies the tiles of two
+// steps ahead and builds the next step's z while the tensor cores work,
+// behind one barrier a step. The copies and z tiles go into rings (kCopyBufs,
+// kZBufs) whose slot for a step was last read two steps back: every
+// warpgroup waited for those products before the barrier.
+// Operands lie in shared memory as the canonical no-swizzle layout: 8 x 8
+// core matrices of 128 contiguous bytes (8 rows of 16 bytes), those along K
+// kGmmaK = 128 bytes apart (the descriptor's leading offset) and those along
+// M or N kGmmaMN = 512 apart (its stride offset: a step's 32-deep tile; the
+// encoding was checked on the card against a plain product). A
+// K-major operand's 16-byte rows run along K, an MN-major one's along M or N.
+// Every padded row, column and depth of an operand is zero in shared memory
+// (0 x NaN would be NaN): w's rows past the pairs and columns past Hn, z's
+// and g's columns past N, depths past K or Hn.
+//   * cin_fwd_tc: out^T's tiles, A = w's tile (M = h, MN-major), B = z's
+//     (N = the block's kTcCols = 128 columns, MN-major). A block owns 128
+//     columns and every output row (passes of at most 256), so each z tile
+//     is built once and w is read from L2 once a block (270 KB at layer 1;
+//     128 columns halve what 64 would read). x_k and x_0 are staged once (or
+//     in fwd_plan's chunks); a step is 32 consecutive pairs of the chunk
+//     (across i: K need not be a multiple of 16), its w tile copied by
+//     cp.async and its z tile built as T. The sums are rounded to T once,
+//     at the store.
+//   * cin_bwd_x_tc: cin_bwd_x's passes of 256 pairs for 128 columns, dz on
+//     the tensor cores (A = w's rows k, K-major; B = g's tile, MN-major),
+//     rounded to T in registers; the products dz x_0 and dz x_k are rounded
+//     to T and kept in 16 bits for the same fixed-order sums (no atomics:
+//     the same bits from run to run).
+//   * cin_bwd_w_tc: dw^T's tile of every row h by 128 k over a split of the
+//     columns (A = g's rows, B = z's rows k, both K-major), steps of 32
+//     columns through a 5-stage cp.async ring (step s + 3 is copied while
+//     step s multiplies and step s + 1's z is built); a step stages the rows
+//     of x_k and x_0 its k span (not one row a k) and g's rows. Each block
+//     adds its tile into dw by float32 atomics, which flush a subnormal
+//     addend or sum to zero (the plain version keeps them).
+constexpr int kTcThreads = 256;
+constexpr int kTcCols = 128;            // columns n of a forward or cin_bwd_x block; k of a cin_bwd_w block
+constexpr int kTcPad = 8;               // elements past a staged x row: an odd count of 16-byte units a row
+constexpr int kTcStride = kTcCols + kTcPad;
+constexpr int kTcDepth = 32;            // the depth of a step: two k16 slices
+constexpr int kZBufs = 3;               // z tiles: a ring of 3 (built a step ahead)
+constexpr int kCopyBufs = 4;            // the forward's w tiles, cin_bwd_x's w and g tiles: a ring of 4 (copied two
+                                        // steps ahead)
+constexpr int kGmmaK = 128;             // bytes between core matrices along K
+constexpr int kGmmaMN = kTcDepth / 8 * kGmmaK;  // bytes between core matrices along M or N (a step's depth apart)
+constexpr int kTileBytes = kTcCols / 8 * kGmmaMN;  // a step's tile of 128 rows or columns: 8 KB
+constexpr int kTcRows = 256;            // the A rows a step's products cover: 4 tiles of 64
+constexpr int kATileBytes = kTcRows / 8 * kGmmaMN;  // A's tile: 16 KB
+
+__host__ __device__ size_t round128(size_t b) { return (b + 127) / 128 * 128; }
+
+// The 64-row tiles of a pass with `live` rows
+__host__ __device__ int tiles64(int live) { return (live + 63) / 64; }
+
+// Byte offset of element (r, k) of a K-major tile: row r (of M or N), depth k
+__device__ __forceinline__ int kmaj_off(int r, int k) {
+  return (r >> 3) * kGmmaMN + (k >> 3) * kGmmaK + (r & 7) * 16 + (k & 7) * 2;
+}
+// ... of element (k, r) of an MN-major tile: depth k, row or column r
+__device__ __forceinline__ int mnmaj_off(int k, int r) {
+  return (r >> 3) * kGmmaMN + (k >> 3) * kGmmaK + (k & 7) * 16 + (r & 7) * 2;
+}
+
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  const uint64_t a = nvt::smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(kGmmaK >> 4) << 16) | (static_cast<uint64_t>(kGmmaMN >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+// waits until at most N of the warpgroup's product groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// this thread's writes to shared memory (stores and landed cp.async copies) visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// keeps the compiler from moving the sums' registers while a product is in flight
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define NVT_WGMMA_REGS                                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define NVT_WGMMA_OUTS                                                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),         \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),          \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),         \
+      "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),         \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d += A B over one k16 slice: A 64 x 16 (kTransA: MN-major), B 16 x 128 (kTransB: MN-major), d in float32 (the
+// accumulator layout: d[4 j + e] at row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2)
+template <class T, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " NVT_WGMMA_REGS
+                 ", %64, %65, p, 1, 1, %66, %67;\n}\n"
+                 : NVT_WGMMA_OUTS
+                 : "l"(da), "l"(db), "n"(kTransA), "n"(kTransB));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " NVT_WGMMA_REGS
+                 ", %64, %65, p, 1, 1, %66, %67;\n}\n"
+                 : NVT_WGMMA_OUTS
+                 : "l"(da), "l"(db), "n"(kTransA), "n"(kTransB));
+  }
+}
+
+// A step's products for this warpgroup's 64-row tiles wg and wg + 2 of A
+// (tile t at a + t 8 kGmmaMN: A's room always holds kTcRows rows, zero past
+// the pass's), B at b; two k16 slices, kGmmaK * 2 bytes apart along K. No
+// product is conditional: ptxas serializes wgmmas on a divergent path.
+template <class T, int kTransA, int kTransB>
+__device__ __forceinline__ void step_products(float (&acc0)[64], float (&acc1)[64], const char* a, const char* b,
+                                              int wg) {
+  wgmma_fence();
+#pragma unroll
+  for (int sl = 0; sl < kTcDepth / 16; ++sl) {
+    const uint64_t db = gmma_desc(b + sl * 2 * kGmmaK);
+    wgmma128<T, kTransA, kTransB>(acc0, gmma_desc(a + wg * 8 * kGmmaMN + sl * 2 * kGmmaK), db);
+    wgmma128<T, kTransA, kTransB>(acc1, gmma_desc(a + (wg + 2) * 8 * kGmmaMN + sl * 2 * kGmmaK), db);
+  }
+  wgmma_commit();
+}
+
+// Where d[i] lies in the warpgroup's 64 x 128 tile
+__device__ __forceinline__ int acc_row(int i, int lane, int wiw) { return wiw * 16 + (lane >> 2) + ((i >> 1) & 1) * 8; }
+__device__ __forceinline__ int acc_col(int i, int lane) { return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1); }
+
+__device__ __forceinline__ void zero64(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+}
+
+// 8 products of 8 consecutive elements (16-byte aligned), each rounded to T
+// from its exact float32 product, as the plain version's z
+template <class T>
+__device__ __forceinline__ uint4 mul8(const T* a, const T* b) {
+  const uint4 ua = *reinterpret_cast<const uint4*>(a);
+  const uint4 ub = *reinterpret_cast<const uint4*>(b);
+  T ea[8], eb[8], ez[8];
+  memcpy(ea, &ua, sizeof(ua));
+  memcpy(eb, &ub, sizeof(ub));
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ez[i] = from_f<T>(__fmul_rn(to_f(ea[i]), to_f(eb[i])));
+  uint4 r;
+  memcpy(&r, ez, sizeof(r));
+  return r;
+}
+
+// dst[r * stride + c] = src[base[c] + (r0 + r) * D] for r < nrows, c < kTcCols
+// (0 past N); rows [nrows, rows) zeroed. vec: 16-byte cp.async copies of 8
+// columns of one sample (D a multiple of 8, src aligned), which the caller
+// waits for; else synchronous element loads, several in flight a thread.
+template <class T>
+__device__ __forceinline__ void stage_cols(const T* __restrict__ src, const int64_t* base, int D, int r0, int nrows,
+                                           int rows, bool vec, T* dst) {
+  if (vec) {
+    constexpr int per_row = kTcCols / 8;
+    for (int e = threadIdx.x; e < rows * per_row; e += kTcThreads) {
+      const int r = e / per_row, c = (e - r * per_row) * 8;
+      const int64_t o = base[c];
+      T* d = dst + r * kTcStride + c;
+      if (r < nrows && o >= 0) copy16(d, src + o + static_cast<int64_t>(r0 + r) * D);
+      else zero16(d);
+    }
+    nvt::cp_async_commit();
+  } else {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < rows * kTcCols; e += kTcThreads) {
+      const int r = e / kTcCols, c = e - r * kTcCols;
+      const int64_t o = base[c];
+      dst[r * kTcStride + c] = (r < nrows && o >= 0) ? src[o + static_cast<int64_t>(r0 + r) * D] : from_f<T>(0.0f);
+    }
+  }
+}
+
+// A chunk e of a tile of `rows` (a multiple of 8) by kTcDepth whose 16-byte
+// rows run along the depth: its row and depth (a multiple of 8). A warp's
+// lanes take 8 rows by 4 chunks: 64 consecutive bytes of each of 8 rows in
+// device memory, 512 consecutive bytes of the tile.
+__device__ __forceinline__ void chunk_rk(int e, int& r, int& k) {
+  constexpr int kChunks = kTcDepth / 8;  // a row's chunks
+  const int lane = e & 31, j = (lane >> 3) + 4 * (e >> 5);
+  r = (lane & 7) + 8 * (j / kChunks);
+  k = (j % kChunks) * 8;
+}
+// ... of a tile of kTcDepth by `cols` whose 16-byte rows run along the
+// columns (MN-major): its depth and column (a multiple of 8). A warp's lanes
+// take 8 depths by 4 column chunks: 512 consecutive bytes of the tile.
+__device__ __forceinline__ void chunk_kc(int e, int& k, int& c) {
+  constexpr int kGroups = kTcDepth / 8;  // a column chunk's 8-deep groups
+  const int lane = e & 31, wid = e >> 5;
+  k = (lane & 7) + 8 * (wid % kGroups);
+  c = ((lane >> 3) + 4 * (wid / kGroups)) * 8;
+}
+
+// -- the forward: out[h, n] = sum_k w[k, h] z[k, n], A = w's tile, B = z's
+
+// Shared memory of a forward block: the columns' offsets, ci rows of x_k and
+// cj of x_0 [row][kTcStride], the rings of w tiles (kTcRows by kTcDepth)
+// and of z tiles (kTcDepth by kTcCols), in T.
+size_t tc_fwd_smem(int ci, int cj) {
+  return 3 * kTcCols * sizeof(int64_t) + round128(static_cast<size_t>(ci + cj) * kTcStride * 2) +
+         kCopyBufs * kATileBytes + kZBufs * kTileBytes;
+}
+
+// A step's w tile (MN-major: 16-byte rows of 8 h at one pair): pair q0 + kk
+// of the chunk (pair q: i = ic0 + q / cw, j = jc0 + q % cw, k = i F + j:
+// consecutive k where the chunk holds every j) at rows h0 .. h0 + kTcRows -
+// 1; zero past live and past the chunk's pairs. kVec: 16-byte copies (Hn a
+// multiple of 8, w aligned); else one element a copy.
+template <bool kVec, class T>
+__device__ __forceinline__ void tc_fwd_load_w(const T* __restrict__ w, const Shape& s, int ic0, int jc0, int cw,
+                                              int pairs, int q0, int h0, int live, char* dst) {
+  constexpr int rows64 = kTcRows;
+  auto row_k = [&](int q) -> int64_t {
+    if (cw == s.F) return static_cast<int64_t>(ic0) * s.F + q;
+    const int qi = q / cw;
+    return static_cast<int64_t>(ic0 + qi) * s.F + jc0 + (q - qi * cw);
+  };
+  if constexpr (kVec) {
+    for (int e = threadIdx.x; e < kTcDepth * rows64 / 8; e += kTcThreads) {
+      int kk, m;
+      chunk_kc(e, kk, m);
+      const int q = q0 + kk;
+      T* d = reinterpret_cast<T*>(dst + mnmaj_off(kk, m));
+      if (q < pairs && m < live) copy16(d, w + row_k(q) * s.Hn + h0 + m);
+      else zero16(d);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTcDepth * rows64; e += kTcThreads) {
+      const int kk = e / rows64, m = e - kk * rows64;
+      const int q = q0 + kk;
+      *reinterpret_cast<T*>(dst + mnmaj_off(kk, m)) = q < pairs && m < live ? w[row_k(q) * s.Hn + h0 + m]
+                                                                           : from_f<T>(0.0f);
+    }
+  }
+  nvt::cp_async_commit();
+}
+
+// A step's z tile (MN-major: 16-byte rows of 8 columns at one pair): z[kk][c]
+// = x_k[i][c] x_0[j][c] rounded to T for the chunk's pairs q0 + kk (0 past them).
+template <class T>
+__device__ __forceinline__ void tc_fwd_build_z(const T* xks, const T* x0s, int cw, int pairs, int q0, char* dst) {
+  for (int e = threadIdx.x; e < kTcDepth * kTcCols / 8; e += kTcThreads) {
+    int kk, c;
+    chunk_kc(e, kk, c);
+    const int q = q0 + kk;
+    uint4 z = make_uint4(0, 0, 0, 0);
+    if (q < pairs) {
+      const int qi = q / cw;
+      z = mul8(xks + qi * kTcStride + c, x0s + (q - qi * cw) * kTcStride + c);
+    }
+    *reinterpret_cast<uint4*>(dst + mnmaj_off(kk, c)) = z;
+  }
+}
+
+template <bool kVec, class T>
+__global__ void __launch_bounds__(kTcThreads, 1)
+cin_fwd_tc_kernel(const T* __restrict__ xk, const T* __restrict__ x0, const T* __restrict__ w, Shape s, int rows,
+                  int ci, int cj, bool xvec, T* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  int64_t* base_xk = reinterpret_cast<int64_t*>(smem4);
+  int64_t* base_x0 = base_xk + kTcCols;
+  int64_t* base_out = base_x0 + kTcCols;
+  T* xks = reinterpret_cast<T*>(base_out + kTcCols);  // [ci][kTcStride]
+  T* x0s = xks + ci * kTcStride;                      // [cj][kTcStride]
+  char* ws = reinterpret_cast<char*>(xks) + round128(static_cast<size_t>(ci + cj) * kTcStride * 2);  // [4][w tile]
+  char* zs = ws + kCopyBufs * kATileBytes;                                                             // [3][z tile]
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, wiw = (tid >> 5) & 3;
+  column_bases(s, static_cast<int64_t>(blockIdx.x) * kTcCols, kTcCols, base_xk, base_x0, base_out);
+  int staged_i = -1, staged_j = -1;  // the chunks in shared memory
+  for (int h0 = 0; h0 < s.Hn; h0 += rows) {
+    const int live = s.Hn - h0 < rows ? s.Hn - h0 : rows;
+    const int mtiles = tiles64(live);
+    float acc0[64], acc1[64];
+    zero64(acc0);
+    zero64(acc1);
+    // chunks of x_k outer, then x_0's (one of each where all rows fit); a
+    // chunk's pairs in steps of kTcDepth, across i
+    for (int ic0 = 0; ic0 < s.Hk; ic0 += ci) {
+      const int i_end = ic0 + ci < s.Hk ? ic0 + ci : s.Hk;
+      for (int jc0 = 0; jc0 < s.F; jc0 += cj) {
+        const int j_end = jc0 + cj < s.F ? jc0 + cj : s.F;
+        const int cw = j_end - jc0, pairs = (i_end - ic0) * cw;
+        const int steps = (pairs + kTcDepth - 1) / kTcDepth;
+        __syncthreads();  // every thread done with the chunk or pass before (and the offsets in place)
+        if (ic0 != staged_i || jc0 != staged_j) {
+          if (ic0 != staged_i) stage_cols(xk, base_xk, s.D, ic0, i_end - ic0, ci, xvec, xks);
+          if (jc0 != staged_j) stage_cols(x0, base_x0, s.D, jc0, j_end - jc0, cj, xvec, x0s);
+          staged_i = ic0;
+          staged_j = jc0;
+          nvt::cp_async_wait<0>();
+          __syncthreads();
+        }
+        // step st's w tile in slot st % kCopyBufs, its z tile in st % kZBufs.
+        // While step st's products run, step st + 2's w tile is copied and
+        // step st + 1's z built, each into the slot step st - 2 read: every
+        // warpgroup waited for those products before the last barrier.
+        tc_fwd_load_w<kVec>(w, s, ic0, jc0, cw, pairs, 0, h0, live, ws);
+        if (steps > 1) tc_fwd_load_w<kVec>(w, s, ic0, jc0, cw, pairs, kTcDepth, h0, live, ws + kATileBytes);
+        else nvt::cp_async_commit();
+        tc_fwd_build_z(xks, x0s, cw, pairs, 0, zs);
+        nvt::cp_async_wait<1>();
+        fence_async_smem();
+        __syncthreads();
+        for (int st = 0; st < steps; ++st) {
+          step_products<T, 1, 1>(acc0, acc1, ws + (st % kCopyBufs) * kATileBytes, zs + (st % kZBufs) * kTileBytes,
+                                 wg);
+          wgmma_wait<1>();  // this warpgroup's products of step st - 1 are done
+          pin(acc0);
+          pin(acc1);
+          if (st + 2 < steps)
+            tc_fwd_load_w<kVec>(w, s, ic0, jc0, cw, pairs, (st + 2) * kTcDepth, h0, live,
+                                ws + ((st + 2) % kCopyBufs) * kATileBytes);
+          else
+            nvt::cp_async_commit();
+          if (st + 1 < steps)
+            tc_fwd_build_z(xks, x0s, cw, pairs, (st + 1) * kTcDepth, zs + ((st + 1) % kZBufs) * kTileBytes);
+          nvt::cp_async_wait<1>();  // step st + 1's w tile landed (st + 2's may be in flight)
+          fence_async_smem();
+          __syncthreads();  // step st + 1's w and z in place
+        }
+        wgmma_wait<0>();  // the chunk's last products (the next chunk or pass refills the rings)
+        pin(acc0);
+        pin(acc1);
+        nvt::cp_async_wait<0>();
+      }
+    }
+    // out rounded to T: a pair of columns in one 4-byte store where both lie in one sample
+    auto store = [&](const float(&acc)[64], int mt) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int hr = mt * 64 + acc_row(i, lane, wiw);
+        if (hr >= live) continue;
+        const int64_t ho = static_cast<int64_t>(h0 + hr) * s.D;
+        const int c = acc_col(i, lane);
+        const int64_t o0 = base_out[c], o1 = base_out[c + 1];
+        if (s.D % 2 == 0 && o0 >= 0 && o1 == o0 + 1) {
+          const T pair[2] = {from_f<T>(acc[i]), from_f<T>(acc[i + 1])};
+          uint32_t u;
+          memcpy(&u, pair, sizeof(u));
+          *reinterpret_cast<uint32_t*>(out + o0 + ho) = u;
+        } else {
+          if (o0 >= 0) out[o0 + ho] = from_f<T>(acc[i]);
+          if (o1 >= 0) out[o1 + ho] = from_f<T>(acc[i + 1]);
+        }
+      }
+    };
+    if (wg < mtiles) store(acc0, wg);
+    if (wg + 2 < mtiles) store(acc1, wg + 2);
+  }
+}
+
+// -- cin_bwd_x: dz[k, n] = sum_h w[k, h] g[h, n], A = w's rows k, B = g's tile
+constexpr int kTxRows = 256;  // pairs of a pass
+// the ring of w tiles (kCopyBufs of kTcRows by kTcDepth), then a pass's products in T [kTxRows][kTcStride]
+constexpr size_t kTxWorkBytes = static_cast<size_t>(kTxRows) * kTcStride * 2 > kCopyBufs * kATileBytes
+                                    ? static_cast<size_t>(kTxRows) * kTcStride * 2
+                                    : kCopyBufs * kATileBytes;
+
+// cin_bwd_x_tc's plan (kernels/cin.py bwd_x_plan): as bx_layout, for
+// kTcCols columns. Shared memory: the columns' offsets; each pass row's k,
+// i and j; the work room; two g tiles; x_0's chunk's float32 dx_0 sums
+// [jr][kTcCols]; the chunk's rows of x_0 [jr][kTcStride] and x_k's rows of a
+// pass [xk_rows][kTcStride].
+BxLayout tx_layout(int F, int jr, int xk_rows) {
+  if (jr < 1 || jr > F) return {jr, xk_rows, 0};
+  const int narrowest = F - (F - 1) / jr * jr;
+  if (xk_rows < (kTxRows - 1 + narrowest - 1) / narrowest + 1) return {jr, xk_rows, 0};
+  const size_t smem = 3 * kTcCols * sizeof(int64_t) + 3 * kTxRows * sizeof(int) + kTxWorkBytes + kCopyBufs * kTileBytes +
+                      static_cast<size_t>(jr) * kTcCols * sizeof(float) +
+                      static_cast<size_t>(jr + xk_rows) * kTcStride * 2;
+  return {jr, xk_rows, smem};
+}
+
+// A step's tiles: w's rows rowk[m] (zero where -1) at h [h0, h0 + kTcDepth)
+// into wd (K-major: 16-byte rows of 8 h at one m); g's rows h of the block's
+// columns into gd (MN-major: 16-byte rows of 8 columns at one h); zero past
+// Hn and past N. kVec: 16-byte copies (Hn and D multiples of 8; aligned).
+template <bool kVec, class T>
+__device__ __forceinline__ void tx_load_tiles(const T* __restrict__ w, const T* __restrict__ g, const int64_t* base_g,
+                                              const int* rowk, const Shape& s, int h0, char* wd, char* gd) {
+  const int depth = s.Hn - h0 < kTcDepth ? s.Hn - h0 : kTcDepth;
+  if constexpr (kVec) {
+    for (int e = threadIdx.x; e < kTxRows * kTcDepth / 8; e += kTcThreads) {
+      int m, hh;
+      chunk_rk(e, m, hh);
+      const int k = rowk[m];
+      T* d = reinterpret_cast<T*>(wd + kmaj_off(m, hh));
+      if (k >= 0 && hh < depth) copy16(d, w + static_cast<int64_t>(k) * s.Hn + h0 + hh);
+      else zero16(d);
+    }
+    for (int e = threadIdx.x; e < kTcDepth * kTcCols / 8; e += kTcThreads) {
+      int hh, c;
+      chunk_kc(e, hh, c);
+      const int64_t o = base_g[c];
+      T* d = reinterpret_cast<T*>(gd + mnmaj_off(hh, c));
+      if (o >= 0 && hh < depth) copy16(d, g + o + static_cast<int64_t>(h0 + hh) * s.D);
+      else zero16(d);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTxRows * kTcDepth; e += kTcThreads) {
+      const int m = e / kTcDepth, hh = e - m * kTcDepth;
+      const int k = rowk[m];
+      *reinterpret_cast<T*>(wd + kmaj_off(m, hh)) =
+          k >= 0 && hh < depth ? w[static_cast<int64_t>(k) * s.Hn + h0 + hh] : from_f<T>(0.0f);
+    }
+    for (int e = threadIdx.x; e < kTcDepth * kTcCols; e += kTcThreads) {
+      const int hh = e / kTcCols, c = e - hh * kTcCols;
+      const int64_t o = base_g[c];
+      *reinterpret_cast<T*>(gd + mnmaj_off(hh, c)) =
+          o >= 0 && hh < depth ? g[o + static_cast<int64_t>(h0 + hh) * s.D] : from_f<T>(0.0f);
+    }
+  }
+  nvt::cp_async_commit();
+}
+
+// Each of the warpgroup's rows m of tile mt: dz (acc, already rounded to T)
+// times the staged row sel(m) at each of its columns, rounded to T, into
+// prod[m][c] (0 where rowk is -1).
+template <class T, class Sel>
+__device__ __forceinline__ void tx_products(const float (&acc)[64], int mt, const int* rowk, const T* rows, Sel sel,
+                                            int lane, int wiw, T* prod) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = mt * 64 + acc_row(2 * half, lane, wiw);
+    const bool kept = rowk[m] >= 0;
+    const T* xr = rows + (kept ? sel(m) : 0) * kTcStride;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = 4 * j + 2 * half, c = acc_col(i, lane);
+      T x[2];
+      memcpy(x, xr + c, sizeof(x));
+      const T p[2] = {from_f<T>(kept ? __fmul_rn(acc[i], to_f(x[0])) : 0.0f),
+                      from_f<T>(kept ? __fmul_rn(acc[i + 1], to_f(x[1])) : 0.0f)};
+      memcpy(prod + m * kTcStride + c, p, sizeof(p));
+    }
+  }
+}
+
+// dxk: float32 [B, Hk, D] (summed into across passes and chunks); dx0: T.
+template <bool kVec, class T>
+__global__ void __launch_bounds__(kTcThreads, 1)
+cin_bwd_x_tc_kernel(const T* __restrict__ xk, const T* __restrict__ x0, const T* __restrict__ w,
+                    const T* __restrict__ g, Shape s, BxLayout L, float* __restrict__ dxk, T* __restrict__ dx0) {
+  extern __shared__ float4 smem4[];
+  int64_t* base_xk = reinterpret_cast<int64_t*>(smem4);
+  int64_t* base_x0 = base_xk + kTcCols;
+  int64_t* base_g = base_x0 + kTcCols;
+  int* rowk = reinterpret_cast<int*>(base_g + kTcCols);  // [kTxRows]: a pass row's k (-1 past the chunk's pairs)
+  int* rowi = rowk + kTxRows;                            // its i
+  int* rowj = rowi + kTxRows;                            // its j within the chunk
+  char* work = reinterpret_cast<char*>(rowj + kTxRows);  // [4][w tile], then a pass's products
+  T* prod = reinterpret_cast<T*>(work);                  // [kTxRows][kTcStride]
+  char* gs = work + kTxWorkBytes;                        // [4][g tile]
+  float* dx0s = reinterpret_cast<float*>(gs + kCopyBufs * kTileBytes);  // [jr][kTcCols]
+  T* x0s = reinterpret_cast<T*>(dx0s + L.jr * kTcCols);  // [jr][kTcStride]
+  T* xks = x0s + L.jr * kTcStride;                       // [xk_rows][kTcStride]
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, wiw = (tid >> 5) & 3;
+  column_bases(s, static_cast<int64_t>(blockIdx.x) * kTcCols, kTcCols, base_xk, base_x0, base_g);
+  const int steps = (s.Hn + kTcDepth - 1) / kTcDepth;
+  for (int jc0 = 0; jc0 < s.F; jc0 += L.jr) {
+    const int jw = s.F - jc0 < L.jr ? s.F - jc0 : L.jr;  // the chunk's rows of x_0
+    const int64_t kc = static_cast<int64_t>(s.Hk) * jw;  // its pairs (i, j), row-major: the passes' rows
+    __syncthreads();  // the chunk before is done with x_0's rows and its sums
+    stage_cols(x0, base_x0, s.D, jc0, jw, L.jr, kVec, x0s);
+    for (int e = tid; e < L.jr * kTcCols; e += kTcThreads) dx0s[e] = 0.0f;
+    for (int64_t p0 = 0; p0 < kc; p0 += kTxRows) {
+      {
+        const int64_t kp = p0 + tid;  // kTcThreads == kTxRows: one row a thread
+        const int i = static_cast<int>(kp / jw), j = static_cast<int>(kp - static_cast<int64_t>(i) * jw);
+        rowi[tid] = i;
+        rowj[tid] = j;
+        rowk[tid] = kp < kc ? i * s.F + jc0 + j : -1;
+      }
+      const int i_lo = static_cast<int>(p0 / jw);
+      const int i_hi = static_cast<int>((p0 + kTxRows - 1 < kc ? p0 + kTxRows - 1 : kc - 1) / jw);
+      stage_cols(xk, base_xk, s.D, i_lo, i_hi - i_lo + 1, i_hi - i_lo + 1, kVec, xks);
+      nvt::cp_async_wait<0>();
+      __syncthreads();  // the rows' k, i, j and x_k's rows (and x_0's chunk) in place
+      const int mtiles = tiles64(kc - p0 < kTxRows ? static_cast<int>(kc - p0) : kTxRows);
+      float acc0[64], acc1[64];
+      zero64(acc0);
+      zero64(acc1);
+      // a ring of tiles copied two steps ahead, as the forward's
+      tx_load_tiles<kVec>(w, g, base_g, rowk, s, 0, work, gs);
+      if (steps > 1) tx_load_tiles<kVec>(w, g, base_g, rowk, s, kTcDepth, work + kATileBytes, gs + kTileBytes);
+      else nvt::cp_async_commit();
+      nvt::cp_async_wait<1>();
+      fence_async_smem();
+      __syncthreads();
+      for (int step = 0; step < steps; ++step) {
+        const int slot = step % kCopyBufs, ahead = (step + 2) % kCopyBufs;
+        step_products<T, 0, 1>(acc0, acc1, work + slot * kATileBytes, gs + slot * kTileBytes, wg);
+        wgmma_wait<1>();  // this warpgroup's products of step - 1 are done
+        pin(acc0);
+        pin(acc1);
+        if (step + 2 < steps)
+          tx_load_tiles<kVec>(w, g, base_g, rowk, s, (step + 2) * kTcDepth, work + ahead * kATileBytes,
+                              gs + ahead * kTileBytes);
+        else
+          nvt::cp_async_commit();
+        nvt::cp_async_wait<1>();  // step + 1's tiles landed
+        fence_async_smem();
+        __syncthreads();  // step + 1's tiles in place
+      }
+      wgmma_wait<0>();
+      pin(acc0);
+      pin(acc1);
+      nvt::cp_async_wait<0>();
+      __syncthreads();  // every warpgroup's products done: the w tiles' room takes the products
+      // acc = dz[rowk[m], column c], rounded to T as the reference's cast rounds it
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc0[i] = round_to<T>(acc0[i]);
+        acc1[i] = round_to<T>(acc1[i]);
+      }
+      // the products dz x_0 into the work room
+      if (wg < mtiles) tx_products(acc0, wg, rowk, x0s, [&](int m) { return rowj[m]; }, lane, wiw, prod);
+      if (wg + 2 < mtiles) tx_products(acc1, wg + 2, rowk, x0s, [&](int m) { return rowj[m]; }, lane, wiw, prod);
+      __syncthreads();
+      // dx_k: each (i, column) sums its row's products in j order, onto the passes and chunks before
+      for (int e = tid; e < (i_hi - i_lo + 1) * kTcCols; e += kTcThreads) {
+        const int u = e / kTcCols, c = e - u * kTcCols;
+        const int64_t o = base_xk[c];
+        if (o < 0) continue;
+        const int64_t first = static_cast<int64_t>(i_lo + u) * jw - p0;  // the row's j = 0, relative to the pass
+        const int m0 = first > 0 ? static_cast<int>(first) : 0;
+        const int m1 = first + jw < kTxRows ? static_cast<int>(first + jw) : kTxRows;
+        float sum = 0.0f;
+        for (int m = m0; m < m1; ++m) sum += to_f(prod[m * kTcStride + c]);
+        float* d = dxk + o + static_cast<int64_t>(i_lo + u) * s.D;
+        *d = (jc0 == 0 && first >= 0) ? sum : *d + sum;
+      }
+      __syncthreads();
+      if (wg < mtiles) tx_products(acc0, wg, rowk, xks, [&](int m) { return rowi[m] - i_lo; }, lane, wiw, prod);
+      if (wg + 2 < mtiles)
+        tx_products(acc1, wg + 2, rowk, xks, [&](int m) { return rowi[m] - i_lo; }, lane, wiw, prod);
+      __syncthreads();
+      // dx_0: each (j, column) sums the pass's products in i order
+      for (int e = tid; e < jw * kTcCols; e += kTcThreads) {
+        const int j = e / kTcCols, c = e - j * kTcCols;
+        int64_t m = static_cast<int64_t>(i_lo) * jw + j - p0;
+        if (m < 0) m += jw;
+        float sum = dx0s[e];
+        for (; m < kTxRows && rowk[m] >= 0; m += jw) sum += to_f(prod[m * kTcStride + c]);
+        dx0s[e] = sum;
+      }
+      __syncthreads();  // the next pass refills the tables, x_k's rows and the w tiles
+    }
+    for (int e = tid; e < jw * kTcCols; e += kTcThreads) {
+      const int j = e / kTcCols;
+      const int64_t o = base_x0[e % kTcCols];
+      if (o >= 0) dx0[o + static_cast<int64_t>(jc0 + j) * s.D] = from_f<T>(dx0s[e]);
+    }
+  }
+}
+
+// -- cin_bwd_w: dw^T[h, k] = sum_n g[h, n] z[k, n], A = g's rows, B = z's rows k
+constexpr int kTwStages = 5;     // the staging ring: step s + 3 copied while step s multiplies
+constexpr int kTwXStride = kTcDepth + kTcPad;  // a staged x row: a step's columns and the pad
+
+// The rows of x_k and of x_0 a step stages for kTcCols consecutive k: the
+// i they span, and every j (or, past kTcCols fields, the tile's j).
+__host__ __device__ int tw_xk_rows(int Hk, int F) {
+  const int r = (kTcCols - 1 + F - 1) / F + 1;
+  return r < Hk ? r : Hk;
+}
+__host__ __device__ int tw_x0_rows(int F) { return F < kTcCols ? F : kTcCols; }
+
+// Shared memory of cin_bwd_w_tc: each k's staged rows of x_k and x_0; the
+// staging ring's g tiles (kTcRows by kTcDepth); the ring of z tiles; the
+// staging ring's rows of x_k and x_0 [xr][kTwXStride]; all in T.
+size_t tw_smem(int Hk, int F) {
+  const size_t xr = tw_xk_rows(Hk, F) + tw_x0_rows(F);
+  return 2 * kTcCols * sizeof(int) + kTwStages * kATileBytes + kZBufs * kTileBytes +
+         kTwStages * xr * kTwXStride * 2;
+}
+
+// A step's staging: columns [c0, c0 + kTcDepth) (those below hi) of g's rows
+// [h0, h0 + rows64) into gd (K-major: 16-byte rows of 8 columns at one h),
+// of x_k's rows i_lo .. i_lo + nxi - 1 into xd[r][nn] and of x_0's staged
+// rows (j = r, or (k0 + r) mod F past kTcCols fields) into yd[r][nn]; zero
+// past hi and Hn. kVec: the consecutive columns of one sample in a 16-byte
+// copy (D a multiple of 8, aligned).
+template <bool kVec, class T>
+__device__ __forceinline__ void tw_stage(const T* __restrict__ xk, const T* __restrict__ x0, const T* __restrict__ g,
+                                         const Shape& s, int h0, int rows64, int k0, int i_lo, int nxi, int nxj,
+                                         int64_t c0, int64_t hi, char* gd, T* __restrict__ xd, T* __restrict__ yd) {
+  constexpr int v = kVec ? 8 : 1;
+  const int gchunks = rows64 * kTcDepth / v;  // g's copies, then x_k's and x_0's rows
+  const int total = gchunks + (nxi + nxj) * kTcDepth / v;
+  for (int e = threadIdx.x; e < total; e += kTcThreads) {
+    int row, nn;
+    T* dst;
+    if (e < gchunks) {
+      if constexpr (kVec) {
+        chunk_rk(e, row, nn);
+      } else {
+        row = e / kTcDepth;
+        nn = e - row * kTcDepth;
+      }
+      dst = reinterpret_cast<T*>(gd + kmaj_off(row, nn));
+    } else {
+      const int x = e - gchunks;
+      row = x / (kTcDepth / v);
+      nn = (x - row * (kTcDepth / v)) * v;
+      dst = row < nxi ? xd + row * kTwXStride + nn : yd + (row - nxi) * kTwXStride + nn;
+    }
+    const int64_t n = c0 + nn;
+    int64_t b, d;
+    column_of(s, n, b, d);
+    const T* src = nullptr;
+    if (n < hi) {
+      if (e < gchunks) {
+        if (h0 + row < s.Hn) src = g + (b * s.Hn + h0 + row) * s.D + d;
+      } else if (row < nxi) {
+        src = xk + (b * s.Hk + i_lo + row) * s.D + d;
+      } else {
+        const int r = row - nxi;
+        const int j = s.F <= kTcCols ? r : (k0 + r) % s.F;
+        src = x0 + (b * s.F + j) * s.D + d;
+      }
+    }
+    if constexpr (kVec) {
+      if (src) copy16(dst, src);
+      else zero16(dst);
+    } else {
+      *dst = src ? *src : from_f<T>(0.0f);
+    }
+  }
+  nvt::cp_async_commit();
+}
+
+// dw: float32 [K, Hn], zeroed before, summed into by atomics
+template <bool kVec, class T>
+__global__ void __launch_bounds__(kTcThreads, 1)
+cin_bwd_w_tc_kernel(const T* __restrict__ xk, const T* __restrict__ x0, const T* __restrict__ g, Shape s, int rows,
+                    int k_tiles, int64_t cols_per_split, float* __restrict__ dw) {
+  extern __shared__ float4 smem4[];
+  constexpr int rows64 = kTcRows, gtile = kATileBytes;
+  const int nxi_max = tw_xk_rows(s.Hk, s.F), nxj = tw_x0_rows(s.F), xr = nxi_max + nxj;
+  int* ri = reinterpret_cast<int*>(smem4);             // [kTcCols]: k's staged row of x_k, -1 past K
+  int* rj = ri + kTcCols;                              // [kTcCols]: k's staged row of x_0
+  char* gst = reinterpret_cast<char*>(rj + kTcCols);   // [kTwStages][g tile]
+  char* zs = gst + kTwStages * gtile;                  // [3][z tile]: K-major, 16-byte rows of 8 columns at one k
+  T* xst = reinterpret_cast<T*>(zs + kZBufs * kTileBytes);  // [kTwStages][xr][kTwXStride]
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, wiw = (tid >> 5) & 3;
+  const int k0 = static_cast<int>(blockIdx.x % k_tiles) * kTcCols;
+  const int64_t split = blockIdx.x / k_tiles;
+  const int64_t N = s.N();
+  const int K = s.K();
+  const int64_t lo = split * cols_per_split;
+  const int64_t hi = lo + cols_per_split < N ? lo + cols_per_split : N;
+  const int steps = static_cast<int>((hi - lo + kTcDepth - 1) / kTcDepth);
+  const int i_lo = k0 / s.F;
+  const int k_end = k0 + kTcCols < K ? k0 + kTcCols : K;
+  const int nxi = (k_end - 1) / s.F - i_lo + 1;
+  for (int kk = tid; kk < kTcCols; kk += kTcThreads) {
+    const int k = k0 + kk;
+    ri[kk] = k < K ? k / s.F - i_lo : -1;
+    rj[kk] = k < K ? (s.F <= kTcCols ? k % s.F : kk) : 0;
+  }
+  for (int h0 = 0; h0 < s.Hn; h0 += rows) {
+    const int live = s.Hn - h0 < rows ? s.Hn - h0 : rows;
+    const int mtiles = tiles64(live);
+    float acc0[64], acc1[64];
+    zero64(acc0);
+    zero64(acc1);
+    // step st's staging lives in stage st % kTwStages
+    auto stage_step = [&](int st) {
+      const int b = st % kTwStages;
+      T* xd = xst + b * xr * kTwXStride;
+      tw_stage<kVec>(xk, x0, g, s, h0, rows64, k0, i_lo, nxi, nxj, lo + static_cast<int64_t>(st) * kTcDepth, hi,
+                     gst + b * gtile, xd, xd + nxi_max * kTwXStride);
+    };
+    // z of step st from its staging into z tile st % kZBufs (0 past K; past hi the staged rows are 0)
+    auto build_z = [&](int st) {
+      const T* xd = xst + (st % kTwStages) * xr * kTwXStride;
+      const T* yd = xd + nxi_max * kTwXStride;
+      char* zd = zs + (st % kZBufs) * kTileBytes;
+      for (int e = tid; e < kTcCols * kTcDepth / 8; e += kTcThreads) {
+        int kk, nn;
+        chunk_rk(e, kk, nn);
+        const int r = ri[kk];
+        const uint4 z = r >= 0 ? mul8(xd + r * kTwXStride + nn, yd + rj[kk] * kTwXStride + nn) : make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(zd + kmaj_off(kk, nn)) = z;
+      }
+    };
+    __syncthreads();  // every thread done with the pass before (and the tables in place)
+    for (int st = 0; st < 3; ++st) {  // steps 0-2 in flight; a group each, empty past the steps
+      if (st < steps) stage_step(st);
+      else nvt::cp_async_commit();
+    }
+    nvt::cp_async_wait<2>();
+    __syncthreads();  // step 0's staging in place
+    if (steps > 0) build_z(0);
+    // The products of step st stay in flight while step st + 3 is staged
+    // and step st + 1's z built, into the stage and z tile that step st - 2
+    // read: every warpgroup waited for those products before this barrier.
+    for (int st = 0; st < steps; ++st) {
+      nvt::cp_async_wait<1>();  // step st + 1's staging landed (st + 2's may be in flight)
+      fence_async_smem();
+      __syncthreads();  // z of st and the staging of st + 1 in place
+      step_products<T, 0, 0>(acc0, acc1, gst + (st % kTwStages) * gtile, zs + (st % kZBufs) * kTileBytes, wg);
+      wgmma_wait<1>();  // this warpgroup's products of step st - 1 are done
+      pin(acc0);
+      pin(acc1);
+      if (st + 3 < steps) stage_step(st + 3);
+      else nvt::cp_async_commit();
+      if (st + 1 < steps) build_z(st + 1);
+    }
+    wgmma_wait<0>();
+    pin(acc0);
+    pin(acc1);
+    nvt::cp_async_wait<0>();
+    auto add = [&](const float(&acc)[64], int mt) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int hr = mt * 64 + acc_row(i, lane, wiw);
+        const int k = k0 + acc_col(i, lane);
+        if (hr < live && k < K) atomicAdd(&dw[static_cast<int64_t>(k) * s.Hn + h0 + hr], acc[i]);
+      }
+    };
+    if (wg < mtiles) add(acc0, wg);
+    if (wg + 2 < mtiles) add(acc1, wg + 2);
+  }
+}
+
 // --- the 16-bit outputs' one round: dst = src rounded to TO ------------------------------------
 template <class TO>
 __global__ void __launch_bounds__(256) cin_round_kernel(const float* __restrict__ src, TO* __restrict__ dst,
@@ -831,6 +1587,43 @@ int launch_bwd_w(const T* xk, const T* x0, const T* g, const Shape& s, float* dw
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kVec, class T>
+int launch_fwd_tc(const T* xk, const T* x0, const T* w, const Shape& s, int rows, int ci, int cj, size_t smem,
+                  int64_t blocks, T* out, cudaStream_t stream) {
+  if (int rc = launch_setup(cin_fwd_tc_kernel<kVec, T>, smem)) return rc;
+  const bool xvec = s.D % 8 == 0 && aligned16(xk) && aligned16(x0);
+  cin_fwd_tc_kernel<kVec, T><<<static_cast<unsigned>(blocks), kTcThreads, smem, stream>>>(xk, x0, w, s, rows, ci, cj,
+                                                                                        xvec, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec, class T>
+int launch_bwd_x_tc(const T* xk, const T* x0, const T* w, const T* g, const Shape& s, const BxLayout& L, float* dxk,
+                    T* dx0, cudaStream_t stream) {
+  if (int rc = launch_setup(cin_bwd_x_tc_kernel<kVec, T>, L.smem)) return rc;
+  cin_bwd_x_tc_kernel<kVec, T><<<static_cast<unsigned>(ceil_div(s.N(), kTcCols)), kTcThreads, L.smem, stream>>>(
+      xk, x0, w, g, s, L, dxk, dx0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec, class T>
+int launch_bwd_w_tc(const T* xk, const T* x0, const T* g, const Shape& s, float* dw, cudaStream_t stream) {
+  const int rows = fwd_rows(s.Hn);
+  const size_t smem = tw_smem(s.Hk, s.F);
+  if (int rc = launch_setup(cin_bwd_w_tc_kernel<kVec, T>, smem)) return rc;
+  // as launch_bwd_w: splits of at least 256 columns, a multiple of kTcDepth, to fill the card
+  const int64_t N = s.N();
+  const int64_t k_tiles = ceil_div(s.K(), kTcCols);
+  int64_t splits = kTargetBlocks / k_tiles;
+  if (splits < 1) splits = 1;
+  if (splits > ceil_div(N, 256)) splits = ceil_div(N, 256);
+  const int64_t cols = ceil_div(ceil_div(N, splits), kTcDepth) * kTcDepth;
+  splits = ceil_div(N, cols);
+  cin_bwd_w_tc_kernel<kVec, T><<<static_cast<unsigned>(k_tiles * splits), kTcThreads, smem, stream>>>(
+      xk, x0, g, s, rows, static_cast<int>(k_tiles), cols, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class TO>
 int launch_round(const float* src, TO* dst, int64_t n, cudaStream_t stream) {
   if (n == 0) return 0;
@@ -840,6 +1633,10 @@ int launch_round(const float* src, TO* dst, int64_t n, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// x and w both in 16 bits: the forward's and cin_bwd_x's products on the tensor cores
+template <class T, class TW>
+constexpr bool kTensorCores = !std::is_same_v<T, float> && std::is_same_v<T, TW>;
+
 template <class T, class TW>
 int fwd_typed(const void* xk_, const void* x0_, const void* w_, const Shape& s, int ci, int cj, void* out_,
               cudaStream_t stream) {
@@ -848,14 +1645,20 @@ int fwd_typed(const void* xk_, const void* x0_, const void* w_, const Shape& s, 
   const TW* w = static_cast<const TW*>(w_);
   T* out = static_cast<T*>(out_);
   const int rows = fwd_rows(s.Hn);
-  const size_t smem = fwd_smem(rows, ci, cj, sizeof(T), sizeof(TW));
+  constexpr bool kTc = kTensorCores<T, TW>;  // 16-bit x and w: the products on the tensor cores
+  const size_t smem = kTc ? tc_fwd_smem(ci, cj) : fwd_smem(rows, ci, cj, sizeof(T), sizeof(TW));
   if (ci < 1 || ci > s.Hk || cj < 1 || cj > s.F || smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   if (s.B == 0) return 0;
-  const int64_t blocks = ceil_div(s.N(), kFwdCols);
+  const int64_t blocks = ceil_div(s.N(), kTc ? kTcCols : kFwdCols);
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = s.Hn % kVecElems<TW> == 0 && aligned16(w);
-  return vec ? launch_fwd<true>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream)
-             : launch_fwd<false>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream);
+  if constexpr (kTc) {
+    return vec ? launch_fwd_tc<true>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream)
+               : launch_fwd_tc<false>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream);
+  } else {
+    return vec ? launch_fwd<true>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream)
+               : launch_fwd<false>(xk, x0, w, s, rows, ci, cj, smem, blocks, out, stream);
+  }
 }
 
 template <class T, class TW>
@@ -869,9 +1672,10 @@ int bwd_typed(const void* xk_, const void* x0_, const void* w_, const void* g_, 
   // float32 outputs are their own sums
   if constexpr (std::is_same_v<T, float>) dxk_acc = static_cast<float*>(dxk_);
   if constexpr (std::is_same_v<TW, float>) dw_acc = static_cast<float*>(dw_);
-  const BxLayout L = bx_layout(s.F, jr, xk_rows, sizeof(T));
-  if (L.smem == 0 || L.smem > kSmemOptIn || bw_smem(fwd_rows(s.Hn), sizeof(T)) > kSmemOptIn)
-    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool k16 = !std::is_same_v<T, float>;  // dw's products on the tensor cores, whatever w's type
+  const BxLayout L = kTensorCores<T, TW> ? tx_layout(s.F, jr, xk_rows) : bx_layout(s.F, jr, xk_rows, sizeof(T));
+  const size_t w_smem = k16 ? tw_smem(s.Hk, s.F) : bw_smem(fwd_rows(s.Hn), sizeof(T));
+  if (L.smem == 0 || L.smem > kSmemOptIn || w_smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t dw_elems = static_cast<int64_t>(s.K()) * s.Hn;
   cudaError_t err = cudaMemsetAsync(dw_acc, 0, dw_elems * sizeof(float), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -886,12 +1690,20 @@ int bwd_typed(const void* xk_, const void* x0_, const void* w_, const void* g_, 
                         : launch_bwd_x<true, false>(xk, x0, w, g, s, L, dxk_acc, dx0, stream))
                : (vec_g ? launch_bwd_x<false, true>(xk, x0, w, g, s, L, dxk_acc, dx0, stream)
                         : launch_bwd_x<false, false>(xk, x0, w, g, s, L, dxk_acc, dx0, stream));
-  } else {  // 16 bits: both copies vectorized or neither (half the template instances)
+  } else if constexpr (kTensorCores<T, TW>) {  // dz's products on the tensor cores; 16-byte copies of both or neither
+    rc = vec_w && vec_g ? launch_bwd_x_tc<true>(xk, x0, w, g, s, L, dxk_acc, dx0, stream)
+                        : launch_bwd_x_tc<false>(xk, x0, w, g, s, L, dxk_acc, dx0, stream);
+  } else {  // 16 bits, w in float32: both copies vectorized or neither (half the template instances)
     rc = vec_w && vec_g ? launch_bwd_x<true, true>(xk, x0, w, g, s, L, dxk_acc, dx0, stream)
                         : launch_bwd_x<false, false>(xk, x0, w, g, s, L, dxk_acc, dx0, stream);
   }
   if (rc) return rc;
-  rc = vec_g ? launch_bwd_w<true>(xk, x0, g, s, dw_acc, stream) : launch_bwd_w<false>(xk, x0, g, s, dw_acc, stream);
+  if constexpr (k16) {
+    rc = vec_g ? launch_bwd_w_tc<true>(xk, x0, g, s, dw_acc, stream)
+               : launch_bwd_w_tc<false>(xk, x0, g, s, dw_acc, stream);
+  } else {
+    rc = vec_g ? launch_bwd_w<true>(xk, x0, g, s, dw_acc, stream) : launch_bwd_w<false>(xk, x0, g, s, dw_acc, stream);
+  }
   if (rc) return rc;
   if constexpr (!std::is_same_v<T, float>) {
     rc = launch_round(dxk_acc, static_cast<T*>(dxk_), N * s.Hk, stream);

@@ -18,7 +18,10 @@ product z = x_k * x_0 to T, the float32 sum over pairs to T; in the
 backward, dz = sum_h w g (g widened to float32) to T, each product dz * x_0
 and dz * x_k to T before dx_k's and dx_0's float32 sums, which are
 rounded to T, and dw's float32 sum to w's dtype. In float32 every round
-is the identity.
+is the identity. The products of two T values run on the tensor cores
+(``wgmma`` with float32 sums, exact products): the forward's and dz's
+where w is in T too, dw's for any 16-bit T; the float32 layer and the
+forward and dz of a 16-bit layer with float32 w run in float32 ``fmaf``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,16 @@ SMEM_OPT_IN = 227 * 1024  # the H100's shared memory a block can opt into
 FWD_COLS, FWD_DEPTH = 64, 16  # csrc/cin.cu kFwdCols, kFwdDepth
 BX_COLS, BX_ROWS, BX_DEPTH, BX_CHUNK = 64, 256, 32, 128  # csrc/cin.cu kBxCols, kBxRows, kBxDepth, kBxChunk
 BX_WORK_BYTES = BX_ROWS * BX_COLS * 4  # csrc/cin.cu kBxWorkBytes: the w tiles' room, then a pass's products
+# the tensor-core kernels (csrc/cin.cu kTcCols, kTcPad, kTcDepth, kZBufs, kCopyBufs, kTwStages): columns of a
+# forward or cin_bwd_x block (k of a cin_bwd_w block), the pad of a staged x row, the depth of a step, the rings
+# of z tiles and of copied tiles, the stages of cin_bwd_w's staging ring; a step's tile of 128 rows or columns
+# takes TC_TILE bytes (kTileBytes)
+TC_COLS, TC_PAD, TC_DEPTH, TC_Z_BUFS, TC_COPY_BUFS, TW_STAGES = 128, 8, 32, 3, 4, 5
+TC_STRIDE = TC_COLS + TC_PAD
+TC_TILE = TC_COLS * TC_DEPTH * 2
+TC_A_TILE = 256 * TC_DEPTH * 2  # csrc/cin.cu kATileBytes: A's tile, 256 rows (4 wgmma tiles of 64) by TC_DEPTH
+# csrc/cin.cu kTxWorkBytes: the ring of w tiles, then a pass's products in 16 bits
+TX_WORK_BYTES = max(BX_ROWS * TC_STRIDE * 2, TC_COPY_BUFS * TC_A_TILE)
 # csrc/cin.cu with_types: the element types of x_k, x_0, g and the outputs,
 # and of w and dw (T or float32); the launch counts' key suffix of each T
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -51,10 +64,25 @@ def pass_rows(Hn: int) -> int:
     return 8 * min(32, -(-Hn // 8))
 
 
+def tensor_cores(es: int, ws: int) -> bool:
+    """Whether the forward and cin_bwd_x run on the tensor cores: x and w
+    both in 16 bits (``es``, ``ws``: their bytes an element)."""
+    return es == 2 and ws == 2
+
+
+def _round128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
 def fwd_smem_bytes(rows: int, ci: int, cj: int, es: int = 4, ws: int = 4) -> int:
     """csrc/cin.cu fwd_smem: the columns' offsets, ci rows of x_k and cj of
     x_0 (64 columns each, ``es`` bytes an element), two buffers of w tiles
-    (``ws`` bytes an element) and of float32 z tiles."""
+    (``ws`` bytes an element) and of float32 z tiles. On the tensor cores
+    (tc_fwd_smem): 128 columns, rows of TC_STRIDE 16-bit elements, w tiles
+    of 256 rows by 32 pairs (TC_COPY_BUFS) and z tiles (TC_Z_BUFS)."""
+    if tensor_cores(es, ws):
+        return (3 * TC_COLS * 8 + _round128((ci + cj) * TC_STRIDE * 2) + TC_COPY_BUFS * TC_A_TILE
+                + TC_Z_BUFS * TC_TILE)
     return 3 * FWD_COLS * 8 + (ci + cj) * FWD_COLS * es + 2 * FWD_DEPTH * rows * ws + 2 * FWD_DEPTH * FWD_COLS * 4
 
 
@@ -63,27 +91,54 @@ def fwd_plan(Hk: int, F: int, Hn: int, es: int = 4, ws: int = 4):
     SMEM_OPT_IN, else x_k in chunks of ci rows beside x_0 (all F rows where
     F leaves room for 16 rows of x_k, else halves of what fits). ``es`` and
     ``ws``: the bytes of an element of x and of w (a 16-bit row takes half
-    the room, so more rows fit)."""
+    the room, so more rows fit; both 16-bit: the tensor-core kernel's rows
+    of TC_STRIDE elements)."""
     rows = pass_rows(Hn)
     if fwd_smem_bytes(rows, Hk, F, es, ws) <= SMEM_OPT_IN:
         return rows, Hk, F
-    room = (SMEM_OPT_IN - fwd_smem_bytes(rows, 0, 0, es, ws)) // (FWD_COLS * es)  # rows of x a block holds
+    row_bytes = TC_STRIDE * 2 if tensor_cores(es, ws) else FWD_COLS * es
+    room = (SMEM_OPT_IN - fwd_smem_bytes(rows, 0, 0, es, ws)) // row_bytes  # rows of x a block holds
+    while fwd_smem_bytes(rows, room, 0, es, ws) > SMEM_OPT_IN:  # the tensor-core x rows' rounding
+        room -= 1
     cj = F if F + 16 <= room else room // 2
     return rows, min(Hk, room - cj), cj
 
 
-def bwd_x_plan(F: int, es: int = 4):
+def _tx_smem(jr: int, xk_rows: int) -> int:
+    """csrc/cin.cu tx_layout's shared memory."""
+    return (3 * TC_COLS * 8 + 3 * BX_ROWS * 4 + TX_WORK_BYTES + TC_COPY_BUFS * TC_TILE + jr * TC_COLS * 4
+            + (jr + xk_rows) * TC_STRIDE * 2)
+
+
+def bwd_x_plan(F: int, es: int = 4, ws: int = 4):
     """(jr, xk_rows, smem) of cin_bwd_x (csrc/cin.cu bx_layout): x_0 in n =
     ceil(F / BX_CHUNK) chunks of jr = ceil(F / n) rows, a pass's 256 pairs
     spanning at most xk_rows rows of x_k in the narrowest chunk; ``es`` the
-    bytes of an element of x and g (their staged rows and tiles)."""
+    bytes of an element of x and g (their staged rows and tiles). x and w
+    in 16 bits (``ws`` 2): cin_bwd_x_tc's plan (tx_layout), 128 columns a
+    block, jr lowered where the narrowest chunk's x_k rows pass 227 KB."""
     n = -(-F // BX_CHUNK)
     jr = -(-F // n)
+    if tensor_cores(es, ws):
+        for jr in range(jr, 0, -1):
+            narrowest = F - (F - 1) // jr * jr
+            xk_rows = -(-(BX_ROWS - 1) // narrowest) + 1
+            if _tx_smem(jr, xk_rows) <= SMEM_OPT_IN:
+                return jr, xk_rows, _tx_smem(jr, xk_rows)
     narrowest = F - (n - 1) * jr
     xk_rows = -(-(BX_ROWS - 1) // narrowest) + 1
     smem = (3 * BX_COLS * 8 + 3 * BX_ROWS * 4 + BX_WORK_BYTES + 2 * BX_DEPTH * BX_COLS * es + jr * BX_COLS * 4
             + (jr + xk_rows) * BX_COLS * es)
     return jr, xk_rows, smem
+
+
+def bwd_w_smem_bytes(Hk: int, F: int) -> int:
+    """csrc/cin.cu tw_smem, cin_bwd_w_tc's shared memory (any 16-bit x):
+    each k's staged rows, the staging ring's g tiles (256 rows by 32
+    columns), TC_Z_BUFS z tiles and the ring's rows of x_k and x_0 [xr]
+    [TC_DEPTH + TC_PAD]."""
+    xr = min(Hk, -(-(TC_COLS - 1) // F) + 1) + min(F, TC_COLS)
+    return 2 * TC_COLS * 4 + TW_STAGES * TC_A_TILE + TC_Z_BUFS * TC_TILE + TW_STAGES * xr * (TC_DEPTH + TC_PAD) * 2
 
 
 def _check(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor):
@@ -146,7 +201,7 @@ def cin_bwd(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor, grad: torch.T
     dw = torch.empty_like(w)
     dx_k_acc = None if x_k.dtype == torch.float32 else torch.empty(x_k.shape, device=x_k.device)
     dw_acc = None if w.dtype == torch.float32 else torch.empty(w.shape, device=w.device)
-    jr, xk_rows, _ = bwd_x_plan(F, x_k.element_size())
+    jr, xk_rows, _ = bwd_x_plan(F, x_k.element_size(), w.element_size())
     rc = lib.nvt_cin_bwd(ptr(x_k), ptr(x_0), ptr(w), ptr(grad), B, Hk, F, D, Hn, jr, xk_rows, DTYPES[x_k.dtype],
                          DTYPES[w.dtype], ptr(dx_k), ptr(dx_0), ptr(dw), ptr(dx_k_acc), ptr(dw_acc),
                          stream_ptr(x_k.device))

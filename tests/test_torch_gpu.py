@@ -2180,6 +2180,122 @@ def test_cin16_backward_run_to_run(dtype, wdtype):
     _cin16_close(first[2], second[2], _cin16_magnitudes(xk, x0, w, grad)[3], wdtype, "dw")
 
 
+# K13d's tensor-core kernels at their tiles' edges, (B, Hk, F, D, Hn, same): Hn 1 to 257 (16-row tiles, two
+# passes at 257), K = Hk * F not a multiple of 16 with 32-pair steps across i, B * D short of the 128-column
+# tiles, D 1 to 24 (no 16-byte copies at D 1), x_k the same tensor as x_0
+CIN16_EDGES = [(37, 3, 7, 1, 1, False), (29, 5, 26, 8, 9, False), (23, 26, 26, 16, 16, True),
+               (11, 4, 13, 24, 17, False), (9, 7, 26, 16, 200, False), (13, 3, 5, 8, 257, False)]
+CIN16_EDGE_IDS = ["hn1_d1", "hn9_d8", "hn16_same", "hn17_d24", "hn200", "hn257"]
+# x near these scales makes z = x_k x_0 subnormal in T (bfloat16 below 2^-126, float16 below 2^-14)
+SUBNORMAL_X = {torch.bfloat16: 2.0**-66, torch.float16: 2.0**-11}
+SUBNORMAL_STEP = {torch.bfloat16: 2.0**-133, torch.float16: 2.0**-24}  # T's spacing below its normal range
+
+
+def _cin16_edge_close(got, want, mag, dtype, n, dx, what):
+    """The tensor-core kernels against the plain versions with no absolute
+    floor above the subnormals: both sum exact products in float32 (n
+    terms, in other orders: n * 2^-24 of the terms' magnitudes, and n *
+    2^-149 where the sums are float32 subnormals) and round at the same
+    points, so a result may land on T's neighbour (one ULP of T at the
+    value, or T's subnormal spacing), and each product of dx's sums by one
+    ULP of dz and one of itself (2 ULPs of the terms' magnitudes). A flush
+    of subnormal operands or sums to zero fails it."""
+    got, want, mag = got.float(), want.float(), mag.float()
+    assert torch.equal(got.isnan(), want.isnan()), what
+    tol = n * 2.0**-24 * mag + n * 2.0**-149
+    if dtype in ULP_REL:
+        tol = tol + ULP_REL[dtype] * torch.maximum(got.abs(), want.abs()) + SUBNORMAL_STEP[dtype]
+        if dx:
+            tol = tol + 2 * ULP_REL[dtype] * mag
+    ok = ((got - want).abs() <= tol) | (got == want)
+    assert bool(ok.all()), (what, float((got - want).abs().max()), float(want.abs().max()))
+
+
+def _bwd_w_splits(N, K):
+    """(splits, columns a split) of K13d's 16-bit dw launch (csrc/cin.cu
+    launch_bwd_w_tc): enough splits of the N columns for about 1,056 blocks
+    of 128 k each, each split at least 256 columns, a multiple of 32."""
+    k_tiles = -(-K // 128)
+    splits = min(max(1, 1056 // k_tiles), -(-N // 256))
+    cols = -(-(-(-N // splits)) // 32) * 32
+    return -(-N // cols), cols
+
+
+def _cin16_dw_flushed(xk, x0, grad, wdtype):
+    """dw as K13d's 16-bit backward leaves it where its sums are float32
+    subnormals: each column split's float32 partial (_bwd_w_splits) is
+    added into dw by a float32 atomic, and the card's atomic add
+    (red.add.f32) flushes a subnormal addend or sum to zero; the plain
+    version's float32 sum keeps them. With at most two splits the order of
+    the adds does not matter."""
+    B, Hk, D = xk.shape
+    F, Hn = x0.shape[1], grad.shape[1]
+    splits, cols = _bwd_w_splits(B * D, Hk * F)
+    assert splits <= 2
+    z = kcin.outer_product_plain(xk.double(), x0.double()).to(xk.dtype).double()  # [B, K, D]
+    z = z.permute(1, 0, 2).reshape(Hk * F, B * D)
+    g = grad.double().permute(1, 0, 2).reshape(Hn, B * D)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def flush(t):
+        return torch.where(t.abs() < tiny, torch.zeros_like(t), t)
+
+    dw = torch.zeros((Hk * F, Hn), dtype=torch.float32, device=xk.device)
+    for s in range(splits):
+        part = (z[:, s * cols:(s + 1) * cols] @ g[:, s * cols:(s + 1) * cols].t()).float()
+        dw = flush(dw + flush(part))
+    return dw.to(wdtype)
+
+
+@pytest.mark.parametrize("dtype,wdtype", CIN16_TYPES, ids=CIN16_IDS)
+@pytest.mark.parametrize("subnormal", [False, True], ids=["normal", "subnormal"])
+@pytest.mark.parametrize("B,Hk,F,D,Hn,same", CIN16_EDGES, ids=CIN16_EDGE_IDS)
+def test_cin16_tensor_core_edges(B, Hk, F, D, Hn, same, subnormal, dtype, wdtype):
+    """K13d's 16-bit kernels at the edges of the tensor-core tiles (the
+    forward and dz with w in T, dw for every 16-bit x): padded rows,
+    depths and columns add nothing, at normal inputs and where every z is
+    a subnormal of T (x_k and x_0 near SUBNORMAL_X), held to the plain
+    versions by ``_cin16_edge_close``; x_k's NaN gives NaN where the plain
+    version has it. The tensor cores keep subnormal operands and sums; dw's
+    float32 atomics do not (``_cin16_dw_flushed``, a recorded difference:
+    in bfloat16 dw's sums are float32 subnormals here; in float16 they are
+    normal)."""
+    _require_cuda()
+    g = torch.Generator().manual_seed(B * 1000 + Hn)
+    xk, x0, w, grad = _cin_inputs(g, B, Hk, F, D, Hn, same)
+    if subnormal:
+        x0 = x0 * SUBNORMAL_X[dtype]
+        xk = x0 if same else xk * SUBNORMAL_X[dtype]
+    x0 = x0.to(dtype)
+    xk = x0 if same else xk.to(dtype)
+    w, grad = w.to(wdtype), grad.to(dtype)
+    if subnormal:
+        z = kcin.outer_product_plain(xk.float(), x0.float()).to(dtype).float()
+        assert bool(((z != 0) & (z.abs() < torch.finfo(dtype).tiny)).float().mean() > 0.5)
+    xk, x0, w, grad = (t.cuda() for t in (xk, x0, w, grad))
+    suffix = kcin.COUNT_SUFFIX[dtype]
+    kernels.reset_launches()
+    out = kcin.cin_fwd(xk, x0, w)
+    grads = kcin.cin_bwd(xk, x0, w, grad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cin_fwd" + suffix] == 1 and kernels.LAUNCHES["cin_bwd" + suffix] == 1
+    mags = _cin16_magnitudes(xk, x0, w, grad)
+    _cin16_edge_close(out, kcin.cin_fwd_plain(xk, x0, w), mags[0], dtype, Hk * F, False, "out")
+    wants = list(kcin.cin_bwd_plain(xk, x0, w, grad))
+    if subnormal and dtype == torch.bfloat16:  # dw's float32 sums subnormal: the atomics' flush shows
+        flushed = _cin16_dw_flushed(xk, x0, grad, wdtype)
+        assert not torch.equal(flushed == 0, wants[2] == 0)
+        wants[2] = flushed
+    for name, got, want, mag in zip(("dx_k", "dx_0", "dw"), grads, wants, mags[1:]):
+        n = B * D if name == "dw" else max(Hn, Hk, F)
+        _cin16_edge_close(got, want, mag, wdtype if name == "dw" else dtype, n, name != "dw", name)
+    if not same:  # one NaN in x_k: its column's outputs NaN in both
+        xk[B // 2, Hk - 1, D - 1] = float("nan")
+        out = kcin.cin_fwd(xk, x0, w)
+        want = kcin.cin_fwd_plain(xk, x0, w)
+        assert bool(want.isnan().any()) and torch.equal(out.isnan(), want.isnan())
+
+
 def _multihot_dlrm(seed=1, **kw):
     config = models.DLRMConfig({"a": 3, "b": 500, "c": 40_000}, num_dense=13, embedding_dim=16,
                                multihot_cardinalities={"g": 23, "m": 5000}, multihot_max_len=4, **kw)

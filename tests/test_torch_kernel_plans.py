@@ -392,17 +392,17 @@ def test_cin_plans_chunk_x_k_where_it_does_not_fit(total):
 def test_cin16_plans_stage_half_the_bytes(total, ws):
     """K13d in 16 bits: x_k's and x_0's rows staged in 2 bytes an element
     (w's tiles in ``ws``), so the forward stages all rows up to about twice
-    as many of them as float32 does (926 rows fit, 1,826 do not) and chunks
-    x_k past that; the backward's x rows and g tiles take half their bytes,
-    its plan's rows unchanged."""
+    as many of them as float32 does (1,724 rows of 64 columns beside
+    float32 w tiles; with 16-bit w the tensor-core kernel's rows of 128
+    columns, 512 of them) and chunks x_k past that; the backward's x rows
+    and g tiles take half their bytes, its plan's rows unchanged."""
     F, Hk = 26, total - 26
     for Hn in (200, 16):
         rows, ci, cj = kcin.fwd_plan(Hk, F, Hn, 2, ws)
         assert rows == kcin.pass_rows(Hn) and kcin.fwd_smem_bytes(rows, ci, cj, 2, ws) <= kcin.SMEM_OPT_IN
         whole = kcin.fwd_smem_bytes(rows, Hk, F, 2, ws) <= kcin.SMEM_OPT_IN
         assert (ci, cj) == (Hk, F) if whole else (cj == F and 16 <= ci < Hk)
-    if total <= 926 or total >= 1826:  # 1,726 rows fit beside 16-bit w tiles, not beside float32 ones
-        assert (kcin.fwd_plan(Hk, F, 16, 2, ws)[1] == Hk) == (total <= 926)
+    assert (kcin.fwd_plan(Hk, F, 16, 2, ws)[1] == Hk) == (total <= (1724 if ws == 4 else 512))
     jr, xk_rows, smem = kcin.bwd_x_plan(F, 2)
     assert (jr, xk_rows) == kcin.bwd_x_plan(F)[:2]
     assert kcin.bwd_x_plan(F)[2] - smem == (2 * kcin.BX_DEPTH * kcin.BX_COLS + (jr + xk_rows) * kcin.BX_COLS) * 2
@@ -420,6 +420,48 @@ def test_cin_bwd_x_plan_fits_any_field_count(F):
     for p0 in range(0, 3 * kcin.BX_ROWS, 7):  # the rows of x_k a pass spans
         assert (p0 + kcin.BX_ROWS - 1) // narrowest - p0 // narrowest + 1 <= xk_rows
     assert smem <= kcin.SMEM_OPT_IN
+
+
+# K13d's 16-bit shapes (Hk, F, Hn) in tests/test_torch_gpu.py (the cin16 tests and the tensor-core edges) and
+# xDeepFM's layers 1-2 ([65536, 26, 16]^2 and [8192, 200, 16] x [8192, 26, 16], 200 maps)
+CIN16_GPU_SHAPES = [(26, 26, 200), (200, 26, 200), (7, 5, 9), (3, 2, 1), (5, 1, 257), (30, 17, 36), (900, 26, 8),
+                    (1800, 26, 16), (6, 5, 24), (3, 7, 1), (5, 26, 9), (26, 26, 16), (4, 13, 17), (7, 26, 200),
+                    (3, 5, 257)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("Hk,F,Hn", CIN16_GPU_SHAPES, ids=[f"{hk}_{f}_{hn}" for hk, f, hn in CIN16_GPU_SHAPES])
+def test_cin16_tensor_core_plans_fit(Hk, F, Hn, dtype):
+    """The tensor-core kernels' plans (x and w in T) within the opt-in
+    limit at every GPU test shape and xDeepFM's layers: the forward's 128
+    columns of all rows or of x_k's chunks beside x_0, cin_bwd_x's chunks
+    of x_0 whose passes' x_k rows it stages, and cin_bwd_w's ring (any w
+    dtype: its products are 16-bit whatever w is)."""
+    es = 2  # both types' bytes an element
+    rows, ci, cj = kcin.fwd_plan(Hk, F, Hn, es, es)
+    assert rows == kcin.pass_rows(Hn) and 1 <= ci <= Hk and cj == F
+    assert kcin.fwd_smem_bytes(rows, ci, cj, es, es) <= kcin.SMEM_OPT_IN
+    assert (ci == Hk) == (kcin.fwd_smem_bytes(rows, Hk, F, es, es) <= kcin.SMEM_OPT_IN)
+    jr, xk_rows, smem = kcin.bwd_x_plan(F, es, es)
+    narrowest = F - (F - 1) // jr * jr
+    assert 1 <= jr <= min(F, kcin.BX_CHUNK) and xk_rows == -(-(kcin.BX_ROWS - 1) // narrowest) + 1
+    assert smem <= kcin.SMEM_OPT_IN and smem > kcin.bwd_x_plan(F, es)[2]  # 128 columns a block, not 64
+    assert kcin.bwd_w_smem_bytes(Hk, F) <= kcin.SMEM_OPT_IN
+
+
+@pytest.mark.parametrize("F", [1, 26, 127, 128, 129, 1000, 25_601])
+def test_cin16_bwd_x_plan_lowers_jr_until_it_fits(F):
+    """cin_bwd_x on the tensor cores holds x_0's chunk and x_k's rows a
+    pass spans in 128 columns: jr stays ceil(F / n) where that fits, and
+    is lowered where the narrowest chunk's rows would pass 227 KB (at F =
+    25,601 the 128-row chunks leave one row, whose passes span 256 rows of
+    x_k); every pass's rows within xk_rows."""
+    jr, xk_rows, smem = kcin.bwd_x_plan(F, 2, 2)
+    n = -(-F // kcin.BX_CHUNK)
+    assert smem <= kcin.SMEM_OPT_IN and (jr == -(-F // n)) == (F != 25_601)
+    narrowest = F - (F - 1) // jr * jr
+    for p0 in range(0, 3 * kcin.BX_ROWS, 7):
+        assert (p0 + kcin.BX_ROWS - 1) // narrowest - p0 // narrowest + 1 <= xk_rows
 
 
 # --- K14's launch groups and element widths, K12b's bound chunks, K17's row ranges, K13a / K13c row chunks ---
