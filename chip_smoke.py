@@ -43,16 +43,21 @@ a nonzero exit:
    one warm-up chunk, then TRAIN_REPEATS timed passes of 64 steps, with the
    launch counters zeroed before the loader's staging and read after the
    last step (each step one gather, scatter, interaction forward and
-   backward and one Adagrad update, K18; and K19 and K20 as the model's
-   layers give them, step_launches: an epilogue forward and backward a
-   layer, 6 each, a round of each MLP's input and weights each way, 4, and
-   the loss each way); every code is below its table's cardinality and
+   backward and one Adagrad update, K18; and K19, K20 and K21 as the
+   model's layers give them, step_launches: a K21 forward with the layer's
+   epilogue in its store, an epilogue backward and a K21 weight gradient a
+   layer, 6 each, a K21 input gradient a layer but the bottom MLP's first,
+   5, a round of each MLP's input and weights each way, 4, and the loss
+   each way); every code is below its table's cardinality and
    every loss finite; one batch's loss, logits and gradients through the
    kernels are held against the plain versions (the reference forward and
-   K20's plain loss) on the card (in bfloat16 compute, as trained, and in
-   float32); the step's forward + backward and its Adagrad update timed
+   K20's plain loss) on the card, in bfloat16 compute, as trained, and in
+   float32: with K21's products on both sides within STEP_TOL, and against
+   the plain step with cuBLAS's products within K21_STEP_FACTOR times what
+   a change of the products' order alone moves, plus STEP_TOL
+   (check_step_parity); the step's forward + backward and its Adagrad update timed
    apart (fwd_bwd_ms, adagrad_ms; --profile: forward + backward by layer,
-   the products, K13a, K13b, K19, K20 and the rest);
+   K21, any library product, K13a, K13b, K19, K20 and the rest);
 8. the kernels of the training path at its shapes — permute_rows,
    embedding_gather, embedding_scatter_grad, interaction_fwd and
    interaction_bwd — each against its plain version on the card, timed
@@ -64,16 +69,27 @@ a nonzero exit:
    element whose gradient bits are all zero bit-unchanged, the rest
    bit-equal, NaN where NaN; timed beside its bound (g read in full, 16 B
    for each nonzero element's parameter and accumulator) and the plain
-   version; then K19 on the products the two MLPs hand it for a training
-   batch (top [65536, 512] and [65536, 256] with ReLU and the bfloat16
-   round, bottom [65536, 16] with ReLU, top [65536, 1] with the bias
-   alone), forward in place and backward (dz, and db by fixed-order
-   partials), K19's round of the top MLP's input [65536, 367] and its
+   version; then K19's backward on the masks of the products the two MLPs
+   hand it for a training batch (top [65536, 512] and [65536, 256] with
+   ReLU and the bfloat16 round, bottom [65536, 16] with ReLU, top [65536,
+   1] with the bias alone; dz, and db by fixed-order partials), K19's round of the top MLP's input [65536, 367] and its
    weights in one launch, and K20's loss and gradient on the model's
-   logits: each against its plain version (outputs, masks, dz and dlogits
+   logits: each against its plain version (dz and dlogits
    bit-equal, NaN where NaN; db within SUM_TOL and the same bits twice; the
    loss within rtol 1e-6), timed beside its bound, K20 beside
-   F.binary_cross_entropy_with_logits and its backward;
+   F.binary_cross_entropy_with_logits and its backward; then K21 at the
+   six layers: the forward (the product alone, and with the layer's
+   epilogue in its store), the input gradient (not the bottom MLP's first
+   layer) and the weight gradient of an output gradient drawn for each
+   layer (dz through K19's plain backward: bfloat16 in a hidden layer,
+   float32 in the last, whose products take the split), each within 2
+   gamma_T (|A| |B|) of torch.matmul in float32 and within K21_LAMBDA
+   sqrt(T) u (|A| |B|) of float64 sums (T the terms a sum adds), the fused
+   store within one ULP of the round beyond the first, its mask equal
+   wherever |z| exceeds it, the weight gradient the same bits twice and,
+   with its last split's rows left out, rejected by the float64 check; timed beside its bound (bytes at 3.35
+   TB/s, the exact products at 989 TFLOP/s), cuBLAS in float32 and
+   torch.matmul on bfloat16 tensors;
 9. the advanced MovieLens path (BASELINE config 2, bench/movielens_bench.py:
    73-85) at ml-25m size — 162,000 users, 62,000 movies, 50 partitions of
    500,000 rows made by the bench's generator — through TargetEncoding
@@ -153,9 +169,10 @@ a nonzero exit:
    64 steps beside phase 7's DLRM step, the launch counters zeroed before
    the staging and read after the last step (a gather, a scatter, an
    Adagrad update and DeepFM's fm_fwd and fm_bwd, or DCN's three cross_fwd
-   and three cross_bwd, each step, with K19 and K20 as the layers give
-   them: DCN rounds x and W of each cross layer in one launch each way; no
-   plain version on the card); every loss
+   and three cross_bwd, each step, with K19, K20 and K21 as the layers
+   give them: DCN rounds x and W of each cross layer in one launch each
+   way and multiplies them through K21; no plain version on the card);
+   every loss
    finite; one batch's loss, logits and gradients through the kernels
    held against the reference forward on the card in bfloat16 and
    float32 (DeepFM's gradients for the plain path's logits gradient:
@@ -165,6 +182,8 @@ a nonzero exit:
    their plain versions on the card (the FM output and the scatter and
    column sums within 1e-5 of their terms' magnitudes; the cross epilogue
    and its elementwise gradients bit-equal), timed beside their bounds;
+   then K21's three modes at DCN's second cross layer [65536, 429] x [429,
+   429] (its gradient x0 * g in three bfloat16 pieces), as phase 8's;
 18. the multi-GPU fit on a one-rank NCCL group (one card): phase 3's
    workflow fitted by Workflow(executor=TorchExecutor(mesh=local_mesh())),
    its 26 columns counted through K15a (route, all_to_all, radix sort),
@@ -337,16 +356,37 @@ SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 TRAIN_PARTS, TRAIN_BS, TRAIN_STEPS, TRAIN_REPEATS, TRAIN_DIM = 4, 65536, 64, 3, 16
 TRAIN_STEP_KERNELS = ("embedding_gather", "embedding_scatter_grad", "interaction_fwd", "interaction_bwd",
                       "adagrad_update")
-# K19 (an epilogue a layer, a round an MLP and a cross layer each way) and
-# K20 (the loss each way): their launches a step follow from the model's
-# layers (step_launches)
-LAYER_KERNELS = ("mlp_epilogue_fwd", "mlp_epilogue_bwd", "round_group", "bce_fwd", "bce_bwd")
+# K19 (an epilogue gradient a layer, a round an MLP and a cross layer each
+# way), K20 (the loss each way) and K21 (a product a layer and a cross layer
+# each way: the forward with the layer's epilogue fused into its store, the
+# weight gradient, and the input gradient where autograd needs it): their
+# launches a step follow from the model's layers (step_launches);
+# mlp_mm_fwd_epilogue counts the K21 forwards whose store runs the epilogue.
+K21_MODES = ("mlp_mm_fwd", "mlp_mm_dgrad", "mlp_mm_wgrad")
+LAYER_KERNELS = ("mlp_epilogue_bwd", "round_group", "bce_fwd", "bce_bwd", *K21_MODES, "mlp_mm_fwd_epilogue")
 # kernel path vs plain path, one step on one batch: (loss rtol, largest
 # logit difference, largest gradient difference over the gradient's largest
 # entry). float32: only summation orders differ. bfloat16 (as trained): the
 # same, and a hidden value that close to a rounding boundary may round the
 # other way on the two paths, moving what it feeds by up to 2**-8 relative.
+# Held where both paths take the same MLP and cross products (K21's: the
+# plain path's through mlp_mm.plain_products("k21")), so that it holds every
+# other kernel of the step: any two float32 orders of those products move a
+# step past these limits at batch 65,536. In bfloat16 they flip hidden
+# rounds; in float32 they flip ReLU masks where |z| is within the sums'
+# error of 0, and one flipped row moves a weight's gradient, a sum over the
+# batch, by about 1 / sqrt(B) of its largest entry.
 STEP_TOL = {"float32": (1e-5, 1e-4, 1e-4), "bfloat16": (1e-5, 1e-3, 1e-3)}
+# K21 at the step, against the plain step with cuBLAS's products (a
+# reference without K21): each of STEP_TOL's three differences within
+# K21_STEP_FACTOR times what a change of order alone moves in the same run
+# (the largest of cuBLAS's against float64's, cuBLAS's over the reversed
+# depth against float64's, and the two float32 orders against each other),
+# plus STEP_TOL. The factor: K21's products carry 2-3x cuBLAS's rms error
+# (their sums' records, toward zero), and the kernel's step against
+# cuBLAS's moved up to 2.9x cuBLAS's against float64's (NVIDIA H100 80GB
+# HBM3 at 700 W).
+K21_STEP_FACTOR = 4.0
 
 # bench/movielens_bench.py:30-52 at ml-25m size: 25M ratings in the bench's
 # 500K-row partitions; config 2's Bucketize boundaries
@@ -454,7 +494,7 @@ def movielens_table(nvt, part: dict, columns=None):
     )
 
 
-def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS) -> float:
+def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS, warm=WARMUP_S) -> float:
     """Median over ``repeats`` CUDA-event windows of the mean device time of
     ``iters`` back-to-back calls (the L2 cache is not flushed between calls).
     The card first runs ``fn`` for WARMUP_S, so its clocks have ramped up
@@ -463,7 +503,7 @@ def time_ms(fn, iters=TIMED_ITERS, repeats=REPEATS) -> float:
     the events then time the device's work, not the host's launch rate (a
     wrapper's checks and ctypes call take longer than a 20 µs kernel)."""
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < WARMUP_S:
+    while time.perf_counter() - t0 < warm:
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
@@ -717,15 +757,40 @@ def profile_pass(fn) -> dict:
 
 PROFILE_CALLS = 20  # a trace of a single short call can come back with no device events
 # phase 7's forward + backward by layer: patterns of the device kernels'
-# names (cuBLAS's products; the port's kernels by their names in csrc/); any
+# names (the port's kernels by their names in csrc/, K21 first; a library
+# product by cuBLAS's or CUTLASS's names, gemv's among them, which no
+# training step runs); any
 # other kernel, fill or copy is "rest"
 LAYER_OF_KERNEL = (
-    ("products", (r"gemm", r"xmma", r"cutlass", r"splitK")),
+    ("K21", (r"\bmlp_mm_kernel\b",)),
+    ("products", (r"gemm", r"gemv", r"xmma", r"cutlass", r"splitK")),
     ("K13a", (r"\bgather_kernel\b", r"\bscatter_grad_kernel\b")),
     ("K13b", (r"\binteraction_(fwd|bwd)",)),
     ("K19", (r"\bepilogue_(fwd|bwd)_kernel\b", r"\bround_kernel\b")),
     ("K20", (r"\bbce_(fwd|bwd)_kernel\b",)),
 )
+
+
+def library_products(fn) -> list:
+    """The device kernels of one call of ``fn`` (after one more) that
+    LAYER_OF_KERNEL counts as library products (cuBLAS, CUTLASS): a
+    training step runs none since K21."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and layer_of(e.key) == "products"})
+
+
+def check_no_library_products(fn, what: str) -> None:
+    found = library_products(fn)
+    if found:
+        fail(f"{what}: a training step ran library products {found}")
 
 
 def layer_of(kernel_name: str) -> str:
@@ -773,19 +838,28 @@ def profile_split(rec: dict, name: str, fn) -> None:
 
 
 def step_launches(model) -> dict:
-    """K19's and K20's launches in one training step of ``model``, from its
-    layers: an epilogue forward and backward a layer of each MLP; a round
-    forward and backward an MLP and a cross layer where the compute dtype
-    rounds (bfloat16, as trained); one loss each way."""
+    """K19's, K20's and K21's launches in one training step of ``model``,
+    from its layers: a K21 forward (the layer's epilogue in its store), an epilogue
+    backward and a weight gradient a layer of each MLP, an input gradient a
+    layer but the first of DLRM's bottom MLP (its input is the dense
+    features); a K21 forward, input and weight gradient a cross layer; a
+    round forward and backward an MLP and a cross layer where the compute
+    dtype rounds (bfloat16, as trained); one loss each way."""
     from nvtabular_tpu_torch.models.deepfm import CrossNetwork
     from nvtabular_tpu_torch.models.layers import MLP
 
     n = dict.fromkeys(LAYER_KERNELS, 0)
     n["bce_fwd"] = n["bce_bwd"] = 1
+    dense_input = getattr(model, "bottom", None)
     for m in model.modules():
         rounds = isinstance(m, (MLP, CrossNetwork)) and m.compute_dtype != torch.float32
+        if isinstance(m, (MLP, CrossNetwork)):
+            layers = len(m.weights)
+            n["mlp_mm_fwd"] += layers
+            n["mlp_mm_wgrad"] += layers
+            n["mlp_mm_dgrad"] += layers - (m is dense_input)
         if isinstance(m, MLP):
-            n["mlp_epilogue_fwd"] += len(m.weights)
+            n["mlp_mm_fwd_epilogue"] += len(m.weights)
             n["mlp_epilogue_bwd"] += len(m.weights)
             n["round_group"] += 2 * rounds
         elif isinstance(m, CrossNetwork):
@@ -798,6 +872,17 @@ def per_step_launches(model, own=None) -> dict:
     TRAIN_STEP_KERNELS once (``own`` in place of them for another family),
     then K19 and K20 as its layers give them."""
     return {**({k: 1 for k in TRAIN_STEP_KERNELS} if own is None else own), **step_launches(model)}
+
+
+def step_errs(got, want, names) -> dict:
+    """STEP_TOL's three differences between two steps' (logits, loss, grads)."""
+    g_logits, g_loss, g_grads = got
+    w_logits, w_loss, w_grads = want
+    errs = [float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30) for k, p in zip(g_grads, w_grads)]
+    worst = int(np.argmax(errs))
+    return {"loss_rel": abs(float(g_loss) - float(w_loss)) / abs(float(w_loss)),
+            "logits_abs": float((g_logits - w_logits).abs().max()), "grads_rel_max": errs[worst],
+            "worst_grad": names[worst], "table_grad_rel": errs[0]}
 
 
 def step_grads(model, forward, batch, dz=None, plain=False):
@@ -830,33 +915,53 @@ def check_step_parity(model, batch, reference, mlps, same_output_grad=False) -> 
     ULP or so of its partial sums, and a gradient that is a sum over the
     batch cancelling to a fraction of its terms (the output bias's) moves by
     far more than that relative to itself, though every term agrees. The
-    logits themselves are held to the same limits either way."""
+    logits themselves are held to the same limits either way.
+
+    Two checks: the kernel step against the plain step with K21's products
+    (``plain_products("k21")``) within STEP_TOL, which holds every other
+    kernel; and against the plain step with cuBLAS's products, a reference
+    without K21, within K21_STEP_FACTOR times the largest move that a
+    change of the products' order alone makes in this run, plus STEP_TOL."""
     from nvtabular_tpu_torch import models
+    from nvtabular_tpu_torch.kernels.mlp_mm import plain_products
 
     names = [name for name, _ in model.named_parameters()]
+    keys = ("loss_rel", "logits_abs", "grads_rel_max")
     errs = {}
+
+    def plain_step(kind):
+        with plain_products(kind):
+            p = step_grads(model, lambda b: reference(model, b), batch, plain=True)
+            dz = None
+            if same_output_grad:
+                z = p[0].clone().requires_grad_(True)
+                (dz,) = torch.autograd.grad(models.bce_with_logits(z, batch["label"], plain=True), z)
+                p = (*p[:2], step_grads(model, lambda b: reference(model, b), batch, dz, plain=True)[2])
+        return p, dz
+
     for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         for mlp in mlps:
             mlp.compute_dtype = dtype
-        p_logits, p_loss, p_grads = step_grads(model, lambda b: reference(model, b), batch, plain=True)
-        dz = None
-        if same_output_grad:
-            z = p_logits.clone().requires_grad_(True)
-            (dz,) = torch.autograd.grad(models.bce_with_logits(z, batch["label"], plain=True), z)
-            p_grads = step_grads(model, lambda b: reference(model, b), batch, dz, plain=True)[2]
-        k_logits, k_loss, k_grads = step_grads(model, model, batch, dz)
-        loss_rtol, logit_atol, grad_rel = STEP_TOL[name]
-        loss_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
-        logit_err = float((k_logits - p_logits).abs().max())
-        grad_errs = [
-            float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30) for k, p in zip(k_grads, p_grads)
-        ]
-        worst = int(np.argmax(grad_errs))
-        errs[name] = {"loss_rel": loss_err, "logits_abs": logit_err, "grads_rel_max": grad_errs[worst],
-                      "worst_grad": names[worst], "table_grad_rel": grad_errs[0]}
-        if not (loss_err <= loss_rtol and logit_err <= logit_atol and grad_errs[worst] <= grad_rel):
-            fail(f"training step ({name}): kernels vs plain differ: {errs[name]} (limits {STEP_TOL[name]})")
-        del k_grads, p_grads
+        plain, dz = plain_step("k21")
+        kern = step_grads(model, model, batch, dz)
+        del dz
+        tol = dict(zip(keys, STEP_TOL[name]))
+        errs[name] = e = step_errs(kern, plain, names)
+        del plain
+        if not all(e[k] <= tol[k] for k in keys):
+            fail(f"training step ({name}): kernels vs plain differ: {e} (limits {STEP_TOL[name]})")
+        cublas, f64, rev = (plain_step(kind)[0] for kind in ("matmul", "float64", "reversed"))
+        e["vs_cublas_products"] = k21 = step_errs(kern, cublas, names)
+        e["cublas_vs_float64_products"] = step_errs(cublas, f64, names)
+        e["reversed_vs_float64_products"] = step_errs(rev, f64, names)
+        e["reversed_vs_cublas_products"] = step_errs(rev, cublas, names)
+        noise = {k: max(e[r][k] for r in ("cublas_vs_float64_products", "reversed_vs_float64_products",
+                                           "reversed_vs_cublas_products")) for k in keys}
+        e["vs_cublas_limits"] = lim = {k: K21_STEP_FACTOR * noise[k] + tol[k] for k in keys}
+        if not all(k21[k] <= lim[k] for k in keys):
+            fail(f"training step ({name}): kernels vs the plain step with cuBLAS's products differ: {k21} "
+                 f"(limits {lim}: {K21_STEP_FACTOR} x a change of order's {noise} + STEP_TOL)")
+        del kern, cublas, f64, rev
     for mlp in mlps:
         mlp.compute_dtype = torch.bfloat16
     return errs
@@ -958,6 +1063,7 @@ def train_path(nvt, wf, parts, cat_names, cont_names, profile: bool) -> dict:
 
     rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    check_no_library_products(fwd_bwd, "train")
     log(f"train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
     if profile:
@@ -1162,16 +1268,18 @@ def training_kernel_records(nvt, wf, parts, train, profile: bool) -> dict:
         profile_split(rec, "interaction_bwd", lambda: kint.interaction_bwd(x, g))
     records["adagrad_update"] = adagrad_record(model, train["opt"], batch)
     records.update(epilogue_loss_records(model, batch))
+    records.update(k21_records(model, batch))
     return records
 
 
 def epilogue_loss_records(model, batch) -> dict:
     """Phase 8's K19 and K20 at DLRM's shapes, each against its plain
-    version on the card from the same inputs: the epilogue forward and
-    backward on the products the two MLPs hand it for one training batch
-    (top [65536, 512] and [65536, 256] with ReLU and round, bottom [65536,
-    16] with ReLU, top [65536, 1] with the bias alone; outputs, masks and dz
-    bit-equal, NaN where NaN, db within SUM_TOL of the sums of |dz|), the
+    version on the card from the same inputs: the epilogue backward on the
+    masks of the products the two MLPs hand it for one training batch (top
+    [65536, 512] and [65536, 256] with ReLU and round, bottom [65536, 16]
+    with ReLU, top [65536, 1] with the bias alone; the forward epilogue runs
+    in K21's store, held in K21's records; dz bit-equal, NaN where NaN, db
+    within SUM_TOL of the sums of |dz|), the
     round of the top MLP's input [65536, 367] and its three weights (one
     launch, bit-equal), and the loss forward and backward on the model's
     logits (the loss within rtol 1e-6, dlogits bit-equal), beside
@@ -1212,24 +1320,7 @@ def epilogue_loss_records(model, batch) -> dict:
     for i, (_, y, b, relu, rnd) in enumerate(picked):
         B, N = y.shape
         suffix = "" if i == 0 else f" [{B}, {N}]"
-        got, want = y.clone(), y.clone()
-        mask = kep.mlp_epilogue_fwd(got, b, relu, rnd)
-        want_mask = kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
-        torch.cuda.synchronize()
-        if not bits_equal_nan(got, want) or (relu and not torch.equal(mask, want_mask)):
-            fail(f"mlp_epilogue_fwd{suffix} kernel differs from plain")
-        scratch, pscratch = y.clone(), y.clone()  # in place: each timed call writes over its own copy
-        rec = {
-            "max_abs_err": 0.0, "shape": [B, N], "mode": {"relu": relu, "round": str(rnd)},
-            "bytes": (9 if relu else 8) * B * N + 4 * N,
-            "ms": time_ms(lambda: kep.mlp_epilogue_fwd(scratch, b, relu, rnd)),
-            "plain_ms": time_ms(lambda: kep.mlp_epilogue_fwd_plain(pscratch, b, relu, rnd)),
-            "library_ms": None, "library_what": LIBRARY_WHAT["mlp_epilogue_fwd"],
-        }
-        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 3 * B * N)
-        records["mlp_epilogue_fwd" + suffix] = rec
-        del scratch, pscratch
-
+        mask = kep.mlp_epilogue_fwd_plain(y.clone(), b, relu, rnd)  # the mask K21's store writes
         g = torch.randn((B, N), device=dev, generator=gen)
         dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
         dz2, db2 = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
@@ -1255,7 +1346,7 @@ def epilogue_loss_records(model, batch) -> dict:
         }
         rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 3 * B * N)
         records["mlp_epilogue_bwd" + suffix] = rec
-        del g, dz, dz2, want_dz, mask, want_mask, got, want
+        del g, dz, dz2, want_dz, mask
 
     group = [inputs["top"], *[w.detach() for w in model.top.weights]]
     launches0 = kernels.LAUNCHES["round_group"]
@@ -1308,9 +1399,279 @@ def epilogue_loss_records(model, batch) -> dict:
     }
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 15 * B)
     records["bce_bwd"] = rec
-    log("train: K19 and K20 at DLRM's shapes equal their plain versions (outputs, masks, dz and dlogits "
+    log("train: K19 and K20 at DLRM's shapes equal their plain versions (dz and dlogits "
         "bit-equal, db within SUM_TOL and the same bits twice, the loss within rtol 1e-6): " + ", ".join(
             f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+            for name, r in records.items()))
+    return records
+
+
+# K21 against its plain version: |kernel - plain| <= 2 gamma_T (|A| |B|)
+# elementwise, gamma_T = T u / (1 - T u), u = 2^-24, with T the terms a sum
+# adds (3K where one operand is split into bfloat16 pieces, 9K where both
+# are): the two sum the same exact products in other orders. That bound
+# grows with T where a sum's error grows with sqrt(T) (the wgrad's T is the
+# batch), so each product is also held against float64 sums of the same
+# operands: |kernel - exact| <= K21_LAMBDA sqrt(T) u (|A| |B|), Higham and
+# Mary's probabilistic bound. K21 used at most 1.04 of it with lambda = 1
+# against cuBLAS (NVIDIA H100 80GB HBM3 at 700 W: bottom.0's forward, T =
+# 13; every weight gradient below 0.013). A weight gradient with its last
+# split's rows left out (a planted fault) must leave it. The bounds are
+# computed in float64 from the same operands.
+K21_LAMBDA = 4.0
+K21_WARMUP_S = 0.05  # the card is warm: K21's records run back to back
+
+
+def gamma_bound(mag: torch.Tensor, terms: int) -> torch.Tensor:
+    """2 gamma_T (|A| |B|) for ``mag`` = |A| |B| in float64."""
+    u = 2.0**-24
+    return 2 * (terms * u / (1 - terms * u)) * mag
+
+
+def product_bound(A: torch.Tensor, B: torch.Tensor, terms: int) -> torch.Tensor:
+    return gamma_bound(A.double().abs() @ B.double().abs(), terms)
+
+
+def probable_bound(mag: torch.Tensor, terms: int) -> torch.Tensor:
+    """K21_LAMBDA sqrt(T) u (|A| |B|)."""
+    return K21_LAMBDA * math.sqrt(terms) * 2.0**-24 * mag
+
+
+def k21_close(got: torch.Tensor, want: torch.Tensor, bnd: torch.Tensor) -> tuple:
+    """Within the bound where the plain product is finite, the same inf and
+    NaN where it is not → (ok, the largest share of the bound used)."""
+    fin = torch.isfinite(want)
+    same = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(got[~fin & ~torch.isnan(want)],
+                                                                          want[~fin & ~torch.isnan(want)])
+    diff = (got.double() - want.double()).abs()[fin]
+    lim = bnd[fin]
+    share = float((diff / lim.clamp_min(1e-300)).max()) if diff.numel() else 0.0
+    return same and bool((diff <= lim).all()), share
+
+
+def float64_share(got: torch.Tensor, exact: torch.Tensor, bnd: torch.Tensor) -> float:
+    """The largest share of ``bnd`` that |got - exact| uses (inf where a
+    finite sum came out non-finite)."""
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float(((got.double() - exact).abs() / bnd.clamp_min(1e-300)).max()) if got.numel() else 0.0
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16's spacing at |t| (its least subnormal 2^-133 near zero)."""
+    e = torch.frexp(t.abs().double())[1].double() - 1  # floor(log2 |t|)
+    return torch.exp2(torch.clamp(e, min=-126.0) - 7)
+
+
+def sum_errors(got: torch.Tensor, exact: torch.Tensor) -> dict:
+    """A product's error against its float64 sums: the signed error toward
+    each sum's sign over the sums' magnitudes (negative: toward zero) and
+    its root mean square over their mean magnitude."""
+    err = got.double() - exact
+    scale = exact.abs()
+    return {"bias_rel": float((err * torch.sign(exact)).sum() / scale.sum()),
+            "rms_rel": float(err.square().mean().sqrt() / scale.mean())}
+
+
+def k21_held(name, got, want, A, B, terms, planted=None) -> dict:
+    """A K21 product ``got`` = A B held to both bounds: against the plain
+    ``want`` within 2 gamma_T (|A| |B|) and against float64 sums within
+    K21_LAMBDA sqrt(T) u (|A| |B|); ``planted()``, a faulty product, must
+    leave the second. Returns the shares and the sums' errors."""
+    Ad, Bd = A.double(), B.double()
+    exact = Ad @ Bd
+    mag = Ad.abs() @ Bd.abs()
+    del Ad, Bd
+    ok, share = k21_close(got, want, gamma_bound(mag, terms))
+    if not ok:
+        fail(f"{name}: kernel differs from plain beyond 2 gamma_T (|A| |B|) (share {share})")
+    pbnd = probable_bound(mag, terms)
+    held = {"bound_share": share, "float64_share": float64_share(got, exact, pbnd),
+            "sum_errors": {"k21": sum_errors(got, exact), "cublas": sum_errors(want, exact)}}
+    if not held["float64_share"] <= 1.0:
+        fail(f"{name}: kernel differs from float64 sums beyond {K21_LAMBDA} sqrt(T) u (|A| |B|) "
+             f"(share {held['float64_share']})")
+    if planted is not None:
+        held["planted_fault_share"] = float64_share(planted(), exact, pbnd)
+        if not held["planted_fault_share"] > 1.0:
+            fail(f"{name}: the float64 check passes a product with a split left out "
+                 f"(share {held['planted_fault_share']})")
+    return held
+
+
+def k21_record(name, shape, terms, fns, nbytes, flops, held) -> dict:
+    """A K21 record: the kernel, its plain version, cuBLAS float32 and
+    bfloat16 torch.matmul timed beside the bound (bytes at 3.35 TB/s, the
+    split's exact products at the bfloat16 tensor-core rate), with what
+    ``k21_held`` found."""
+    kernel, plain, lib32, lib16 = fns
+    rec = {
+        "max_abs_err": held.pop("max_abs_err"), "terms": terms, "shape": shape, "bytes": nbytes, "flops": flops,
+        "ms": time_ms(kernel, warm=K21_WARMUP_S),
+        "plain_ms": time_ms(plain, warm=K21_WARMUP_S),
+        "library_ms": time_ms(lib32, warm=K21_WARMUP_S),
+        "library_bf16_ms": time_ms(lib16, warm=K21_WARMUP_S),
+        "library_what": "torch.matmul in float32 (cuBLAS, TF32 off); library_bf16_ms: torch.matmul on bfloat16 "
+                        "tensors, which rounds its output to bfloat16 (a yardstick of time only)",
+        **held,
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_OPS_PER_S)
+    return rec
+
+
+def k21_mode_records(tag, h, w, b, relu, rnd, g, h_exact, first) -> dict:
+    """K21's three modes for one layer of the main path: the forward of the
+    rounded input ``h`` and weight ``w`` (its product alone held to both
+    bounds, ``k21_held``; the fused store within one bfloat16 ULP of matmul
+    + K19's plain epilogue beyond the first bound, its mask equal wherever
+    |z| exceeds it), the input gradient (not for ``first``, whose input is
+    data) and the weight gradient of dz = K19's backward of the output
+    gradient ``g``, the weight gradient twice with the same bits and, with
+    its last split's rows left out, rejected by the float64 check. Returns
+    the layer's output (plain) and its records."""
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    records = {}
+    M, K = h.shape
+    N = w.shape[1]
+    pieces = kmm.operand_pieces(h_exact)
+    y = torch.matmul(h, w)
+    alone = kmm.mlp_mm_fwd(h, w, None, False, None, h_exact)[0]
+    name = f"mlp_mm_fwd {tag} [{M}, {K}, {N}]"
+    held = k21_held(name, alone, y, h, w, K * pieces * pieces)
+    held["max_abs_err"] = float((alone - y).abs().max())
+    if b is None:  # a cross layer's store is the product alone
+        out, mask, want, want_mask = alone, None, y, None
+    else:
+        out, mask = kmm.mlp_mm_fwd(h, w, b, relu, rnd, h_exact)
+        want = y.clone()
+        want_mask = kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
+        z = y + b
+        bnd = product_bound(h, w, K * pieces * pieces)
+        # rounding both sides to bfloat16 moves each by at most half an ULP: within one ULP beyond the bound
+        lim = bnd + (bf16_ulp(torch.maximum(out.abs(), want.abs())) if rnd is not None else 2.0**-23 * z.abs())
+        fused_ok = bool((((out.double() - want.double()).abs() <= lim) | (torch.isnan(out) & torch.isnan(want))).all())
+        if not fused_ok:
+            fail(f"mlp_mm_fwd {tag}: the fused store differs from matmul + K19 plain by more than one ULP beyond the "
+                 f"bound: max abs {float((out - want).abs().max())}")
+        if relu and not bool((mask == want_mask)[z.abs().double() > bnd].all()):
+            fail(f"mlp_mm_fwd {tag}: the mask differs where |z| exceeds the bound")
+        held["beyond_one_ulp"] = int(((out - want).abs() > bf16_ulp(torch.maximum(out.abs(), want.abs()))).sum()) \
+            if rnd is not None else None
+        del z, bnd, lim
+    torch.cuda.synchronize()
+    ebytes = M * N * (4 + (relu and b is not None)) + (4 * N if b is not None else 0)
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    held["mode"] = {"bias": b is not None, "relu": relu, "round": str(rnd)}
+    records[name] = k21_record(
+        name, [M, K, N], K * pieces * pieces,
+        (lambda: kmm.mlp_mm_fwd(h, w, b, relu, rnd, h_exact), lambda: kmm.mlp_mm_fwd_plain(h, w, b, relu, rnd),
+         lambda: torch.matmul(h, w), lambda: torch.matmul(hb, wb)),
+        4 * (M * K + K * N) + ebytes, 2 * M * N * K * pieces * pieces, held)
+    del alone, y
+
+    dz = kep.mlp_epilogue_bwd_plain(g, want_mask, relu, rnd)[0] if b is not None else g
+    dz_exact = rnd == torch.bfloat16
+    dp = kmm.operand_pieces(dz_exact) * pieces
+    dzb = dz.to(torch.bfloat16)
+    if not first:
+        got = kmm.mlp_mm_dgrad(dz, w, dz_exact, h_exact)
+        want_dh = torch.matmul(dz, w.t())
+        name = f"mlp_mm_dgrad {tag} [{M}, {N}, {K}]"
+        held = k21_held(name, got, want_dh, dz, w.t(), N * dp)
+        held.update(max_abs_err=float((got - want_dh).abs().max()), dz_pieces=kmm.operand_pieces(dz_exact))
+        del got, want_dh
+        records[name] = k21_record(
+            name, [M, N, K], N * dp,
+            (lambda: kmm.mlp_mm_dgrad(dz, w, dz_exact, h_exact), lambda: kmm.mlp_mm_dgrad_plain(dz, w),
+             lambda: torch.matmul(dz, w.t()), lambda: torch.matmul(dzb, wb.t())),
+            4 * (M * N + N * K + M * K), 2 * M * N * K * dp, held)
+    got = kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact)
+    again = kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact)
+    want_dw = torch.matmul(h.t(), dz)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        fail(f"mlp_mm_wgrad {tag}: two runs differ in their bits")
+    name = f"mlp_mm_wgrad {tag} [{K}, {M}, {N}]"
+    plan = kmm.mm_plan(K, N, M, pieces, kmm.operand_pieces(dz_exact))
+    kept = (plan.splits - 1) * plan.k_split  # the rows of every split but the last
+
+    def planted():  # the weight gradient of a kernel that leaves its last split out
+        return kmm.mlp_mm_wgrad(h[:kept], dz[:kept], h_exact, dz_exact)
+
+    held = k21_held(name, got, want_dw, h.t(), dz, M * dp, planted if plan.splits > 1 else None)
+    held.update(max_abs_err=float((got - want_dw).abs().max()), dz_pieces=kmm.operand_pieces(dz_exact),
+                splits=plan.splits, same_bits_twice=True)
+    del got, again, want_dw
+    records[name] = k21_record(
+        name, [K, M, N], M * dp,
+        (lambda: kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact), lambda: kmm.mlp_mm_wgrad_plain(h, dz),
+         lambda: torch.matmul(h.t(), dz), lambda: torch.matmul(hb.t(), dzb)),
+        4 * (M * K + M * N + K * N), 2 * M * N * K * dp, held)
+    return want, records
+
+
+def k21_records(model, batch) -> dict:
+    """Phase 8's K21 records at phase 7's six layers: each MLP's rounded
+    input and weights from the model's state on one training batch (the
+    top MLP's input as the model hands it), each layer's output as the
+    plain path computes it, and an output gradient drawn for each layer
+    (its dz through K19's plain backward: rounded to bfloat16 in a hidden
+    layer, float32 in the last). Every mode against its plain version, timed
+    beside its bound and both library products."""
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    records = {}
+    dev = model.table.device
+    cdt = model.top.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(8)
+    inputs = {}
+
+    def keep_top_input(module, args):
+        inputs["top"] = args[0].detach().clone()
+
+    hook = model.top.register_forward_pre_hook(keep_top_input)
+    with torch.no_grad():
+        model(batch)
+    hook.remove()
+    exact = cdt == torch.bfloat16
+    with torch.no_grad():
+        for part, mlp, x in (("bottom", model.bottom, batch["dense"]), ("top", model.top, inputs["top"])):
+            h, *ws = kep.round_group_plain([x.float(), *(w.detach() for w in mlp.weights)], cdt)
+            for i, (w, b) in enumerate(zip(ws, mlp.biases)):
+                hidden = i < len(ws) - 1
+                relu, rnd = hidden or mlp.final_activation, cdt if hidden else None
+                g = torch.randn((h.shape[0], w.shape[1]), device=dev, generator=gen).mul_(1e-3)
+                h, recs = k21_mode_records(f"{part}.{i}", h, w, b.detach(), relu, rnd, g, exact,
+                                           first=mlp is model.bottom and i == 0)
+                records.update(recs)
+    log("train: K21 at DLRM's six layers within 2 gamma_T (|A| |B|) of the plain products and within "
+        f"{K21_LAMBDA} sqrt(T) u (|A| |B|) of float64 sums: " + ", ".join(
+        f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bf16 "
+        f"{r['library_bf16_ms']:.4f}, bound {r['bound_ms']:.4f}, shares {r['bound_share']:.3g} of 2 gamma_T, "
+        f"{r['float64_share']:.3g} of the float64 bound"
+        + (f", planted fault {r['planted_fault_share']:.3g}" if "planted_fault_share" in r else "")
+        + f", sums against float64 {r['sum_errors']})"
+        for name, r in records.items()))
+    return records
+
+
+def cross_k21_records(inputs) -> dict:
+    """Phase 17's K21 records at DCN's second cross layer: the product of
+    its rounded x_1 and W_1 (the store without a bias), and both gradients
+    of dxw = x0 * g, a float32 operand in three bfloat16 pieces, for a drawn
+    output gradient g."""
+    xr, w, x0 = inputs["xr"], inputs["w"], inputs["x0"]
+    dev = xr.device
+    g = torch.randn(x0.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        dxw = x0 * g
+        _, records = k21_mode_records("cross.1", xr, w, None, False, None, dxw, True, first=False)
+    log("dcn: K21 at the cross layer within 2 gamma_T (|A| |B|) of the plain products and within "
+        f"{K21_LAMBDA} sqrt(T) u (|A| |B|) of float64 sums: " + ", ".join(
+            f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f}, shares {r['bound_share']:.3g} and {r['float64_share']:.3g}"
+            + (f", planted fault {r['planted_fault_share']:.3g}" if "planted_fault_share" in r else "") + ")"
             for name, r in records.items()))
     return records
 
@@ -1711,6 +2072,7 @@ def multihot_train(nvt, wf, batches, profile: bool) -> dict:
 
     rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    check_no_library_products(fwd_bwd, "multihot train")
     log(f"multihot train: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step; the timed passes' step was {1e3 * step_s:.3f} ms)")
     rec.update(model=model, batch=batch, loader=loader)
@@ -2281,7 +2643,6 @@ LIBRARY_WHAT = {
     "range_scatter_grad": "zeros + index_add_ of the held ids' rows",
     "interaction_bwd": "bmm of the symmetric pair gradient, zero diagonal, built outside the timing",
     "adagrad_update": "none: torch.optim.Adagrad puts eps outside the square root and starts the accumulator at 0",
-    "mlp_epilogue_fwd": "none: no one call adds the bias, applies ReLU and rounds",
     "mlp_epilogue_bwd": "none: no one call masks, rounds and sums the columns",
     "round_group": "none: a round trip is two casts a tensor",
     "bce_bwd": "the backward of F.binary_cross_entropy_with_logits alone, its graph kept",
@@ -2609,6 +2970,7 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
 
     rec["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=10)
     rec["adagrad_ms"] = time_ms(opt.step, iters=10)
+    check_no_library_products(fwd_bwd, family)
     log(f"{family}: forward + backward {rec['fwd_bwd_ms']:.3f} ms, Adagrad update {rec['adagrad_ms']:.3f} ms "
         f"(device time per step); {smi}")
 
@@ -2624,7 +2986,7 @@ def train_family(family, loader, cards, dlrm_step_ms: float, smi: str, profile: 
             x1 = (xr @ w0).add_(cross.biases[0]).mul_(x).add_(x)
             xr1, w1 = round_group_plain([x1, cross.weights[1]], cdt)
             xw1 = xr1 @ w1
-            rec["kernel_inputs"] = dict(xw=xw1, b=cross.biases[1].detach().clone(), x0=x, x=x1)
+            rec["kernel_inputs"] = dict(xw=xw1, b=cross.biases[1].detach().clone(), x0=x, x=x1, xr=xr1, w=w1)
     rec["phase_s"] = time.perf_counter() - phase_t0
     log(f"{family}: phase 16 took {rec['phase_s']:.1f} s")
     return rec
@@ -2728,6 +3090,7 @@ def factorized_kernel_records(recs) -> dict:
     }
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 4 * B * N)
     records["cross_bwd"] = rec
+    records.update(cross_k21_records(k))
     return records
 
 
@@ -4785,6 +5148,7 @@ def main():
 
     # --- 8. the training path's kernels at its shapes -----------------------------------
     records.update(training_kernel_records(nvt, wf, parts, train, opts.profile))
+    k21_paths = {"dlrm": {m: train["launches"][m] for m in K21_MODES}}  # K21's launches by training path
     train_launches = train["launches"]
     for k, v in train["functional"]["launches"].items():  # phase 7's functional chunk and its module twin
         train_launches[k] += v
@@ -4812,6 +5176,7 @@ def main():
     mh_feed, mh_schema = mh_train.pop("loader"), multihot.pop("schema")  # phase 22 trains DLRM on them
     del mh_train["model"], mh_train["batch"], multihot["genres_batch0"]
     multihot["train"] = mh_train
+    k21_paths["tabular"] = {m: mh_train["launches"][m] for m in K21_MODES}
     # every launch of phase 10's path: its transform, its loader and training, its ListSlice
     mh_launches = {k: multihot["launches"][k] + mh_train["launches"][k] + multihot["slice_launches"][k]
                    for k in multihot["launches"]}
@@ -4856,6 +5221,9 @@ def main():
 
     # --- 17. their kernels at their shapes -----------------------------------------------------------------------
     records.update(factorized_kernel_records(factorized))
+    k21_paths.update({f: {m: factorized[f]["launches"][m] for m in K21_MODES} for f in factorized})
+    if not all(n > 0 for launches in k21_paths.values() for n in launches.values()):
+        fail(f"K21: a training path launched a mode no time: {k21_paths}")
     fm_launches = {k: sum(r["launches"][k] for r in factorized.values()) for k in factorized["deepfm"]["launches"]}
     for k in ("tiny_lookup", "cuckoo_lookup", "cont_chain"):
         main_launches[k] += fm_launches[k]
@@ -4996,7 +5364,6 @@ def main():
         "cin_fwd_bf16": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "cin_bwd_bf16": ("cin.cu", "nvtabular_tpu/models/layers.py:120", entry_launches),
         "adagrad_update": ("adagrad.cu", "nvtabular_tpu/models/training.py:25", train_launches),
-        "mlp_epilogue_fwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),
         "mlp_epilogue_bwd": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:61", train_launches),
         "round_group": ("mlp_epilogue.cu", "nvtabular_tpu/models/layers.py:56", train_launches),
         "bce_fwd": ("bce.cu", "nvtabular_tpu/models/layers.py:148", train_launches),
@@ -5005,6 +5372,13 @@ def main():
         "direct_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:196", solo_launches),
         "cuckoo_lookup_solo": ("lookup.cu", "nvtabular_tpu/ops/lookup.py:261", solo_launches),
     }
+    # K21: a record for each mode at phase 7's six layers and DCN's cross layer, each with its mode's launches
+    for name, rec in records.items():
+        if name.startswith("mlp_mm_"):
+            mode = name.split()[0]
+            rec["launches_by_path"] = {path: launches[mode] for path, launches in k21_paths.items()}
+            replaces = "nvtabular_tpu/models/deepfm.py:126" if " cross." in name else "nvtabular_tpu/models/layers.py:59"
+            meta[name] = ("mlp_mm.cu", replaces, {name: train_launches[mode]})
     line = []
     for name, rec in records.items():  # the line's kernels, then the same kernels at other shapes
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
@@ -5032,6 +5406,7 @@ def main():
                 "library_ms": rec["library_ms"],
                 "bytes": rec["bytes"],
                 "shape": rec["shape"],
+                **{k: rec[k] for k in ("library_bf16_ms", "launches_by_path") if k in rec},
             }
         )
     if opts.out:

@@ -71,19 +71,38 @@ The cases, by group (``--cases``; all by default):
   (``kernels.adagrad.adagrad_update``) on a tree that has it, held bit for
   bit against ``adagrad_update_plain`` from the same state; on a tree
   without it, the plain update that ``Adagrad.step`` ran there;
-- ``k19``: K19 at phase 8's shapes: the epilogue forward (in place) and
-  backward at [65536, 512] and [65536, 256] with ReLU and the bfloat16
-  round, [65536, 16] with ReLU and [65536, 1] with the bias alone, and the
-  round of the top MLP's input [65536, 367] and its three weights; on a
-  tree without ``kernels/mlp_epilogue.py`` the plain ops that tree's MLP
-  ran (``y + b``, ``relu``, the two casts, and autograd's backward of
-  them). Then one forward + backward of phase 7's DLRM (as ``adagrad``
+- ``k19``: K19 at phase 8's shapes: the epilogue backward at [65536, 512]
+  and [65536, 256] with ReLU and the bfloat16 round, [65536, 16] with ReLU
+  and [65536, 1] with the bias alone (its forward runs in K21's store,
+  timed in ``k21``), and the round of the top MLP's input [65536, 367] and
+  its three weights; on a tree without ``kernels/mlp_epilogue.py`` the
+  plain ops that tree's MLP ran (autograd's backward of ``y + b``,
+  ``relu`` and the two casts). Then one forward + backward of phase 7's DLRM (as ``adagrad``
   builds it), with its device time by layer (chip_smoke.py
   ``layer_split``: the products, K13a, K13b, K19, K20, the rest);
 - ``k20``: K20's loss and gradient on [65536] logits, beside
   ``F.binary_cross_entropy_with_logits`` and its backward alone; on a tree
   without ``kernels/bce.py`` its ``bce_with_logits`` and autograd's
-  backward of it.
+  backward of it;
+- ``k21``: K21 (``kernels/mlp_mm.py``) at phase 7's six layers, the
+  forward with K19's epilogue in its store, the input gradient (not for
+  the bottom MLP's first layer) and the weight gradient, each first held
+  to 2 gamma_K (|A| |B|) of torch.matmul; on a tree without it what its
+  layers ran (torch.matmul in float32, K19's forward after the forward's).
+  Then one forward + backward of phase 7's DLRM, of DCN-v2 and DeepFM over
+  the same tables (phase 16's configs) and of phase 10's tabular MLP
+  (1041-512-256-1 over tables of MovieLens' users and movies and the
+  genres bag), each by layer.
+- ``steps``: the wall time a training step takes, the host's work
+  included (20 steps between two synchronizations, the median of 5): the
+  tree's ``models.train_step`` of phase 7's DLRM (as ``adagrad`` builds
+  it), the same DLRM on row-sharded tables through
+  ``parallel.make_train_step`` on a one-rank NCCL group (phase 20) and
+  phase 22's multihot DLRM (2 tables of MovieLens' users and movies and
+  the genres bag, dim 64, one dense feature) on a synthetic batch; then
+  the wall time a launch of K21's forward and of ``torch.matmul`` at [64,
+  64] x [64, 64] (500 calls between two synchronizations: the host's
+  cost of a call, the device's negligible).
 
 The ids are Criteo-like codes made on the card: each column's 16 x 262,144
 draws of floor(card * u**2.5) (chip_smoke.py make_part) coded by descending
@@ -150,6 +169,21 @@ def time_ms(torch, fn, iters=TIMED_ITERS) -> float:
     return sorted(samples)[REPEATS // 2]
 
 
+def wall_ms(torch, fn, iters) -> float:
+    """The median of REPEATS wall times of ``iters`` calls between two
+    synchronizations, a call: the host's work included."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3 / iters)
+    return sorted(samples)[REPEATS // 2]
+
+
 def within(got, want, magnitude) -> float:
     """The largest error; raises where an entry passes the tolerance."""
     err = (got - want).abs()
@@ -166,7 +200,7 @@ CRITEO_TB_CARDINALITIES = [  # chip_smoke.py
 FIT_ROWS, NUM_CONTS, TRAIN_DIM, MODEL_SHARDS, SHARD_PAD = 16 * 262144, 13, 16, 4, 4  # chip_smoke.py
 PERMUTE_ROWS, BUCKET_ROWS, TS_BOUNDS = 262144, 500_000, [60.0, 3600.0, 43200.0, 86400.0, 604800.0]
 GROUPS = ("k13b", "k13b_streamed", "k13d", "k16", "k15d", "repairs", "k11c", "k3", "k1", "k14", "k2", "bag",
-          "adagrad", "k19", "k20")
+          "adagrad", "k19", "k20", "k21", "steps")
 ML_USERS, SESSION_VALUES = 162_000, 12_372_651  # chip_smoke.py; phase 26's listed ratings
 ML_MOVIES, ML_GENRES, ML_ROWS_PER_PART, MH_SPARSE_MAX = 62_000, 20, 500_000, 4  # chip_smoke.py
 K3_CACHE = Path("build") / "kernel_ab_k3.pt"
@@ -224,16 +258,17 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(16)
     rec = {}
 
-    def case(name, fn, check=None, iters=TIMED_ITERS, by_layer=False):
+    def case(name, fn, check=None, iters=TIMED_ITERS, by_layer=False, wall=0):
         """Times fn after check() (the max abs error, raising where the
         kernel differs); a tree whose wrapper refuses the case (ValueError,
         NotImplementedError) records its refusal. A failed launch raises
         RuntimeError, which ends the tree's process with its error.
         ``by_layer``: its device time a call by layer (chip_smoke.py
-        layer_split)."""
+        layer_split); ``wall``: its wall time a call over that many calls
+        (wall_ms), not its device time."""
         try:
             err = check() if check else None
-            rec[name] = {"ms": time_ms(torch, fn, iters), "max_abs_err": err}
+            rec[name] = {"ms": wall_ms(torch, fn, wall) if wall else time_ms(torch, fn, iters), "max_abs_err": err}
             if split:
                 rec[name]["device_us"] = device_split(torch, fn)
             if by_layer:
@@ -334,8 +369,8 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
             del x0, xk, w, g
             torch.cuda.empty_cache()
 
-    ids, sizes = criteo_ids(torch, dev, gen) if {"k16", "k15d", "repairs", "bag", "adagrad", "k19"} & set(groups) \
-        else (None, None)
+    criteo = {"k16", "k15d", "repairs", "bag", "adagrad", "k19", "k21", "steps"}
+    ids, sizes = criteo_ids(torch, dev, gen) if criteo & set(groups) else (None, None)
     F, D, nd = len(CRITEO_TB_CARDINALITIES), TRAIN_DIM, NUM_CONTS
     if "k16" in groups:
         from nvtabular_tpu_torch.kernels import fm as kfm
@@ -637,6 +672,10 @@ def one_tree(tree: str, plans: dict, groups, split: bool = False) -> dict:
         k19_cases(torch, dev, gen, ids, sizes, case)
     if "k20" in groups:
         k20_cases(torch, dev, gen, case)
+    if "k21" in groups:
+        k21_cases(torch, dev, gen, ids, sizes, case)
+    if "steps" in groups:
+        steps_cases(torch, dev, gen, ids, sizes, case)
     return {"tree": tree, "plans": {f"{F},{D}": list(p) for (F, D), p in plans.items()}, "cases": rec}
 
 
@@ -710,17 +749,7 @@ def k19_cases(torch, dev, gen, ids, sizes, case) -> None:
         if has:
             from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
 
-            def check_fwd(y=y, b=b, relu=relu, rnd=rnd):
-                got, want = y.clone(), y.clone()
-                mask, want_mask = kep.mlp_epilogue_fwd(got, b, relu, rnd), kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
-                if relu and not torch.equal(mask, want_mask):
-                    raise SystemExit("mlp_epilogue_fwd's mask differs from plain")
-                return bits_equal_nan(torch, got, want, "mlp_epilogue_fwd")
-
-            scratch = y.clone()  # in place: the timed calls write over a copy
-            case(f"mlp_epilogue_fwd {tag}", lambda s=scratch, b=b, r=relu, c=rnd: kep.mlp_epilogue_fwd(s, b, r, c),
-                 check_fwd)
-            mask = kep.mlp_epilogue_fwd(y.clone(), b, relu, rnd)
+            mask = kep.mlp_epilogue_fwd_plain(y.clone(), b, relu, rnd)  # the mask the forward's store writes
 
             def check_bwd(g=g, mask=mask, relu=relu, rnd=rnd):
                 (dz, db), (want_dz, want_db) = (kep.mlp_epilogue_bwd(g, mask, relu, rnd),
@@ -736,7 +765,6 @@ def k19_cases(torch, dev, gen, ids, sizes, case) -> None:
                 z = torch.relu(z) if relu else z
                 return z if rnd is None else z.to(rnd).to(torch.float32)
 
-            case(f"mlp_epilogue_fwd {tag}", lambda y=y, b=b, f=plain: f(y, b))
             yr, br = y.clone().requires_grad_(True), b.clone().requires_grad_(True)
             out = plain(yr, br)
             case(f"mlp_epilogue_bwd {tag}",
@@ -761,6 +789,151 @@ def k19_cases(torch, dev, gen, ids, sizes, case) -> None:
     case(f"DLRM forward + backward [{BATCH}]", fwd_bwd, iters=10, by_layer=True)
     del model, batch
     torch.cuda.empty_cache()
+
+
+# phase 7's six layers: (input, output, tag, the first layer of the bottom MLP: no input gradient, the last layer
+# of an MLP: no ReLU unless final, no round, a float32 gradient)
+DLRM_LAYERS = ((NUM_CONTS, 512, "bottom.0", True, False, True), (512, 256, "bottom.1", False, False, True),
+               (256, TRAIN_DIM, "bottom.2", False, True, True), (TRAIN_DIM + 351, 512, "top.0", False, False, True),
+               (512, 256, "top.1", False, False, True), (256, 1, "top.2", False, True, False))
+TABULAR_SIZES = {"userId": (ML_USERS + 3, 512), "movieId": (ML_MOVIES + 3, 512)}  # phase 10's MLP input: 1041
+
+
+def k21_cases(torch, dev, gen, ids, sizes, case) -> None:
+    """K21 at phase 7's six layers, each mode, held to 2 gamma_K (|A| |B|)
+    of torch.matmul (chip_smoke.py product_bound); on a tree without
+    ``kernels/mlp_mm.py`` what its layers ran: torch.matmul in float32 and,
+    for the forward, K19's forward in place after it. Then one forward +
+    backward of phase 7's DLRM, DCN-v2 and DeepFM over the same tables
+    (phase 16's configs) and phase 10's tabular MLP (1041-512-256-1), each
+    by layer (chip_smoke.py layer_split)."""
+    import importlib.util
+
+    from nvtabular_tpu_torch import models
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+
+    smoke = smoke_module()
+    has = importlib.util.find_spec("nvtabular_tpu_torch.kernels.mlp_mm") is not None
+    cdt = torch.bfloat16
+    for K, N, tag, first, last, relu in DLRM_LAYERS:
+        h = torch.randn((BATCH, K), device=dev, generator=gen).to(cdt).float()
+        w = (torch.randn((K, N), device=dev, generator=gen) * K**-0.5).to(cdt).float()
+        b = torch.randn(N, device=dev, generator=gen)
+        dz = torch.randn((BATCH, N), device=dev, generator=gen) * 1e-3
+        rnd = None if last else cdt
+        if not last:
+            dz = dz.to(cdt).float()
+        names = (f"mlp_mm_fwd {tag} [{BATCH}, {K}, {N}]", f"mlp_mm_dgrad {tag} [{BATCH}, {N}, {K}]",
+                 f"mlp_mm_wgrad {tag} [{K}, {BATCH}, {N}]")
+        if has:
+            from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+            p = kmm.operand_pieces(not last)
+
+            def check(got, want, A, B, terms, what):
+                ok, share = smoke.k21_close(got, want, smoke.product_bound(A, B, terms))
+                if not ok:
+                    raise SystemExit(f"{what} differs from torch.matmul beyond 2 gamma_K (|A| |B|)")
+                return float((got - want).abs().max())
+
+            case(names[0], lambda h=h, w=w, b=b, r=relu, c=rnd: kmm.mlp_mm_fwd(h, w, b, r, c),
+                 lambda h=h, w=w, K=K: check(kmm.mlp_mm_fwd(h, w, None, False)[0], h @ w, h, w, K, names[0]))
+            if not first:
+                case(names[1], lambda dz=dz, w=w, e=not last: kmm.mlp_mm_dgrad(dz, w, e),
+                     lambda dz=dz, w=w, e=not last, N=N, p=p: check(kmm.mlp_mm_dgrad(dz, w, e), dz @ w.t(), dz, w.t(),
+                                                                    N * p, names[1]))
+            case(names[2], lambda h=h, dz=dz, e=not last: kmm.mlp_mm_wgrad(h, dz, True, e),
+                 lambda h=h, dz=dz, e=not last, p=p: check(kmm.mlp_mm_wgrad(h, dz, True, e), h.t() @ dz, h.t(), dz,
+                                                          BATCH * p, names[2]))
+        else:
+            def fwd(h=h, w=w, b=b, r=relu, c=rnd):
+                y = torch.matmul(h, w)
+                kep.mlp_epilogue_fwd(y, b, r, c)
+                return y
+
+            case(names[0], fwd)
+            if not first:
+                case(names[1], lambda dz=dz, w=w: torch.matmul(dz, w.t()))
+            case(names[2], lambda h=h, dz=dz: torch.matmul(h.t(), dz))
+        del h, w, dz
+    steps = {"DLRM": dlrm_batch(torch, dev, gen, ids, sizes)}
+    names = [f"C{i}" for i in range(len(sizes))]
+    cards = dict(zip(names, sizes))
+    for family, make, cfg in (("DeepFM", models.DeepFM, models.DeepFMConfig), ("DCN-v2", models.DCN, models.DCNConfig)):
+        model = make(cfg(cards, NUM_CONTS, embedding_dim=TRAIN_DIM), seed=0, device=dev)
+        steps[family] = (model, steps["DLRM"][1])
+    config = models.TabularMLPConfig(embedding_sizes=TABULAR_SIZES, num_continuous=1,
+                                     multihot_embedding_sizes={"genres": (ML_GENRES + 3, 16)})
+    lengths = torch.randint(1, MH_SPARSE_MAX + 1, (BATCH, 1), device=dev, generator=gen)
+    tab_batch = {n: torch.randint(3, c, (BATCH,), device=dev, generator=gen, dtype=torch.int32)
+                 for n, (c, _) in TABULAR_SIZES.items()}
+    tab_batch.update({"genres__values": torch.randint(3, ML_GENRES + 3, (BATCH, MH_SPARSE_MAX), device=dev,
+                                                      generator=gen, dtype=torch.int32),
+                      "genres__mask": (torch.arange(MH_SPARSE_MAX, device=dev) < lengths).float(),
+                      "continuous": torch.randn((BATCH, 1), device=dev, generator=gen),
+                      "label": (torch.rand(BATCH, device=dev, generator=gen) < 0.5).float()})
+    steps["tabular MLP"] = (models.TabularMLP(config, seed=0, device=dev), tab_batch)
+    for family, (model, batch) in steps.items():
+        def fwd_bwd(model=model, batch=batch):
+            model.zero_grad(set_to_none=True)
+            models.bce_with_logits(model(batch).reshape(-1), batch["label"]).backward()
+
+        case(f"{family} forward + backward [{BATCH}]", fwd_bwd, iters=10, by_layer=True)
+    del steps, model, batch
+    torch.cuda.empty_cache()
+
+
+def steps_cases(torch, dev, gen, ids, sizes, case) -> None:
+    """Training steps' wall times, the host's work included: phase 7's DLRM
+    through ``models.train_step``, row-sharded on a one-rank NCCL group
+    through ``parallel.make_train_step`` (phase 20), and phase 22's
+    multihot DLRM on a synthetic batch; then the wall time of one small
+    launch of K21's forward (a tree that has it) and of torch.matmul."""
+    import importlib.util
+    import os
+
+    import torch.distributed as dist
+
+    from nvtabular_tpu_torch import models, parallel
+
+    model, batch = dlrm_batch(torch, dev, gen, ids, sizes)
+    opt = models.Adagrad(model.parameters(), lr=1e-2)
+    case(f"DLRM train_step [{BATCH}] (wall)", lambda: models.train_step(model, opt, batch), wall=20)
+    del model, opt
+    names = [f"C{i}" for i in range(len(sizes))]
+    config = models.DLRMConfig(dict(zip(names, sizes)), num_dense=NUM_CONTS, embedding_dim=TRAIN_DIM,
+                               vocab_pad_multiple=SHARD_PAD)
+    store = Path("build") / f"kernel_ab_nccl_{os.getpid()}"
+    store.parent.mkdir(exist_ok=True)
+    parallel.initialize_distributed("nccl", f"file://{store.resolve()}", rank=0, world_size=1, timeout=300)
+    try:
+        mesh = parallel.local_mesh()
+        smodel = models.DLRM(config, seed=0, device=dev)
+        p_specs, b_specs = models.dlrm_param_specs(smodel), models.batch_specs(config)
+        parallel.shard_params(smodel, p_specs, mesh)
+        sopt = models.Adagrad(smodel.parameters(), lr=1e-2)
+        step = parallel.make_train_step(models.dlrm_loss, sopt, mesh=mesh, param_specs=p_specs, batch_specs=b_specs)
+        case(f"sharded DLRM step [{BATCH}] (wall)",
+             lambda: step(smodel, sopt, parallel.shard_batch(batch, b_specs, mesh)), wall=20)
+        del smodel, sopt, step
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    mh = models.DLRMConfig({"userId": ML_USERS + 3, "movieId": ML_MOVIES + 3}, num_dense=1,
+                           multihot_cardinalities={"genres": ML_GENRES + 3}, multihot_max_len=MH_SPARSE_MAX)
+    mh_model = models.DLRM(mh, seed=0, device=dev)
+    mh_opt = models.Adagrad(mh_model.parameters(), lr=1e-2)
+    mh_batch = {k: torch.from_numpy(v).to(dev) for k, v in models.make_synthetic_batch(mh, BATCH, seed=0).items()}
+    case(f"multihot DLRM train_step [{BATCH}] (wall)", lambda: models.train_step(mh_model, mh_opt, mh_batch),
+         wall=20)
+    del mh_model, mh_opt, mh_batch, batch
+    torch.cuda.empty_cache()
+    a = torch.randn((64, 64), device=dev, generator=gen).bfloat16().float()
+    if importlib.util.find_spec("nvtabular_tpu_torch.kernels.mlp_mm") is not None:
+        from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+        case("mlp_mm_fwd [64, 64, 64] (wall a launch)", lambda: kmm.mlp_mm_fwd(a, a, None, False), wall=500)
+    case("torch.matmul [64, 64, 64] (wall a launch)", lambda: torch.matmul(a, a), wall=500)
 
 
 def k20_cases(torch, dev, gen, case) -> None:

@@ -3,23 +3,16 @@
 //
 // Replaces the fusions XLA makes around each jnp.dot of mlp_apply,
 // nvtabular_tpu/models/layers.py:56-66: the casts of the input and of each
-// weight to compute_dtype, the bias add, ReLU and the hidden layer's cast,
-// and the transposes of each in the jitted train step; and DCN's operand
-// casts before each cross product (nvtabular_tpu/models/deepfm.py:126-131).
-// The products stay plain matrix products (torch.matmul), as the JAX
-// package leaves them to XLA.
-//
-// nvt_mlp_epilogue_fwd, over the float32 product y [B, N] (contiguous) and
-// the bias b [N], in place: out = round_c(relu(y + b)) and, where ReLU
-// applies, the byte mask z > 0 of the pre-activation z = y + b. relu is
-// jax.nn.relu's: z <= 0 gives +0.0 (also for z = -0.0) and NaN stays NaN.
-// The mask comes from z, never from the rounded output: a positive float32
-// below 2^-133 rounds to bfloat16 zero and keeps its gradient. round_c is
-// the round trip through bfloat16 or float16 (__float2bfloat16_rn,
-// __float2half_rn, both round to nearest even, as ATen's casts on the card)
-// or none. Every operation rounds on its own (__fadd_rn), as the plain
-// PyTorch version (kernels/mlp_epilogue.py mlp_epilogue_fwd_plain) does, so
-// the two agree bit for bit (a NaN's payload aside).
+// weight to compute_dtype, and the transposes of those casts and of the
+// bias add, ReLU and the hidden layer's cast in the jitted train step; and
+// DCN's operand casts before each cross product
+// (nvtabular_tpu/models/deepfm.py:126-131) and their transposes.
+// The products are kernel K21 (mlp_mm.cu), whose store runs the layer's
+// forward epilogue: round_c(relu(y + b)) and, where ReLU applies, the byte
+// mask z > 0 of the pre-activation z = y + b that the backward below reads
+// (relu is jax.nn.relu's: z <= 0 gives +0.0, also for z = -0.0, and NaN
+// stays NaN; the mask comes from z, never from the rounded output). Its
+// plain version is kernels/mlp_epilogue.py mlp_epilogue_fwd_plain.
 //
 // nvt_mlp_epilogue_bwd, given the output gradient g [B, N] (rows may be
 // strided, each row contiguous): dz = mask ? round_c(g) : 0 (a cast's
@@ -34,7 +27,7 @@
 // to run. ATen's sum(0) adds in another order, so db is held to a
 // tolerance, not to bits.
 //
-// Layout of both: a block's kThreads threads are tx lanes across a tile of
+// Layout: a block's kThreads threads are tx lanes across a tile of
 // tx * V columns (tx a power of two up to a warp, so that N = 16 or N = 1
 // does not leave a warp's lanes idle) by kThreads / tx rows; V = 4 (float4
 // and 4-byte mask accesses) where N and every row start are 16-byte
@@ -54,9 +47,7 @@
 // tabular MLP's input, x[:, :1041] of a [B, 1044] buffer), read float by
 // float at its row stride; the output is always contiguous.
 //
-// Bound: bytes. The forward reads y and writes out and a byte a mask
-// element (9 B an element with ReLU, 8 without); the backward reads g and
-// the mask and writes dz (9 B, or 4 B for the bias alone); the round reads
+// Bound: bytes. The backward reads g and the mask and writes dz (9 B, or 4 B for the bias alone); the round reads
 // and writes 8 B a float. A few operations a float, far below the float32
 // rate.
 
@@ -105,13 +96,6 @@ __device__ __forceinline__ unsigned load_m(const unsigned char* p) {
   else return *p;
 }
 
-// byte j of a mask word: element j's mask (0 or 1)
-template <int V>
-__device__ __forceinline__ void store_m(unsigned char* p, unsigned m) {
-  if constexpr (V == 4) *reinterpret_cast<unsigned*>(p) = m;
-  else *p = static_cast<unsigned char>(m);
-}
-
 struct Layout {
   int64_t B;
   int N;
@@ -121,40 +105,6 @@ struct Layout {
   __device__ __forceinline__ int rows() const { return kThreads >> tx_shift; }
   __device__ __forceinline__ int64_t steps() const { return (B + rows() - 1) / rows(); }
 };
-
-template <int V, int kRound, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-epilogue_fwd_kernel(const float* y, float* out, const float* __restrict__ bias, unsigned char* __restrict__ mask,
-                    Layout L) {
-  const int c = (blockIdx.x << L.tx_shift) * V + L.tx() * V;
-  if (c >= L.N) return;  // no barrier in the forward
-  float bv[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) bv[j] = bias[c + j];
-  const int64_t steps = L.steps(), G = gridDim.y;
-  for (int64_t s0 = blockIdx.y; s0 < steps; s0 += G * kSteps) {
-    float v[kSteps][V];
-    int64_t r[kSteps];
-#pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
-      r[k] = (s0 + k * G) * L.rows() + L.ty();
-      if (r[k] < L.B) load_f<V>(y + r[k] * L.N + c, v[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
-      if (r[k] >= L.B) continue;
-      unsigned m = 0;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float z = __fadd_rn(v[k][j], bv[j]);
-        m |= static_cast<unsigned>(z > 0.0f) << (8 * j);
-        v[k][j] = round_c<kRound>(kRelu && z <= 0.0f ? 0.0f : z);
-      }
-      store_f<V>(out + r[k] * L.N + c, v[k]);
-      if constexpr (kRelu) store_m<V>(mask + r[k] * L.N + c, m);
-    }
-  }
-}
 
 // part[ty][col] summed over ty into part[0][col] by a fixed tree; every
 // thread of the block takes part.
@@ -251,18 +201,10 @@ epilogue_bwd_kernel(const float* __restrict__ g, int64_t gs, const unsigned char
   if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
 }
 
-// --- dispatch: (vec, round kind, relu[, dz written]) to a template case -------------------
+// --- dispatch: (vec, round kind, relu, dz written) to a template case -------------------
 struct Launch {
   dim3 grid;
   cudaStream_t stream;
-};
-
-struct FwdArgs {
-  const float* y;
-  float* out;
-  const float* bias;
-  unsigned char* mask;
-  Layout L;
 };
 
 struct BwdArgs {
@@ -275,12 +217,6 @@ struct BwdArgs {
   float* db;
   Layout L;
 };
-
-template <int V, int R, bool Relu>
-int fwd(const Launch& k, const FwdArgs& a) {
-  epilogue_fwd_kernel<V, R, Relu><<<k.grid, kThreads, 0, k.stream>>>(a.y, a.out, a.bias, a.mask, a.L);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int V, int R, bool Relu>
 int bwd(const Launch& k, const BwdArgs& a) {
@@ -304,11 +240,6 @@ int by_mode(int mode, const Launch& k, const Args& a) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-template <int V, int R, bool Relu>
-struct Fwd {
-  static int run(const Launch& k, const FwdArgs& a) { return fwd<V, R, Relu>(k, a); }
-};
 
 template <int V, int R, bool Relu>
 struct Bwd {
@@ -410,23 +341,6 @@ int launch_round(const RoundSegments& s, int m, uint64_t total, cudaStream_t str
 }
 
 }  // namespace
-
-// The forward over y [B, N] (contiguous, float32) into out (y itself for
-// the in-place epilogue, or another [B, N]): mode bit 0 ReLU (mask [B, N]
-// bytes, not null), bits 1-2 the round (0 none, 1 bfloat16, 2 float16);
-// vec, tx, col_tiles and row_blocks as kernels/mlp_epilogue.py
-// epilogue_plan gives them.
-extern "C" int nvt_mlp_epilogue_fwd(const float* y, float* out, const float* bias, unsigned char* mask, int64_t B,
-                                    int N, int mode, int vec, int tx, int col_tiles, int row_blocks, void* stream) {
-  const int shift = check_plan(B, N, mode, vec, tx, col_tiles, row_blocks);
-  if (shift < 0 || !y || !out || !bias || ((mode & 1) && !mask)) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec == 4 && !(aligned(y, 16) && aligned(out, 16) && (!(mode & 1) || aligned(mask, 4))))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  const Launch k{dim3(col_tiles, row_blocks), static_cast<cudaStream_t>(stream)};
-  const FwdArgs a{y, out, bias, mask, Layout{B, N, shift}};
-  return vec == 4 ? by_mode<4, Fwd>(mode, k, a) : by_mode<1, Fwd>(mode, k, a);
-}
 
 // The backward for the output gradient g [B, N] (row stride gs floats, each
 // row contiguous): dz [B, N] contiguous (null only for mode 0: dz is g),

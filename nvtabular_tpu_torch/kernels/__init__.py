@@ -74,11 +74,16 @@ LAUNCHES: Dict[str, int] = {
     "cin_fwd_f16": 0,
     "cin_bwd_f16": 0,
     "adagrad_update": 0,
-    "mlp_epilogue_fwd": 0,
     "mlp_epilogue_bwd": 0,
     "round_group": 0,
     "bce_fwd": 0,
     "bce_bwd": 0,
+    # K21: the MLP and cross-layer products, forward (K19's epilogue fused), input and weight gradients
+    "mlp_mm_fwd": 0,
+    "mlp_mm_dgrad": 0,
+    "mlp_mm_wgrad": 0,
+    # the mlp_mm_fwd launches whose store runs the layer epilogue (bias, ReLU, round)
+    "mlp_mm_fwd_epilogue": 0,
 }
 
 

@@ -50,6 +50,7 @@ SOURCES = {
     "adagrad": _PKG / "csrc" / "adagrad.cu",
     "mlp_epilogue": _PKG / "csrc" / "mlp_epilogue.cu",
     "bce": _PKG / "csrc" / "bce.cu",
+    "mlp_mm": _PKG / "csrc" / "mlp_mm.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "nvt_torch_kernels"
 NVCC_FLAGS = [

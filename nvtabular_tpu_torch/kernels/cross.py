@@ -3,8 +3,8 @@ wrappers, plain versions.
 
 ``nvtabular_tpu/models/deepfm.py:126-134`` computes each cross layer as
 ``x0 * (xw + b) + x`` over [B, N] float32, where ``xw`` is the float32
-product of the bfloat16-rounded ``x`` and ``W``. The product stays a plain
-matrix product (``torch.matmul``); the kernels are everything after it
+product of the bfloat16-rounded ``x`` and ``W``. The product is kernel
+K21 (``kernels/mlp_mm.py``); these kernels are everything after it
 (``csrc/cross.cu``). Inputs may be strided views (each row contiguous);
 outputs are contiguous.
 """

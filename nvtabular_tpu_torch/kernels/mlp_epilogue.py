@@ -1,20 +1,21 @@
-"""The MLP layer epilogue and the compute-dtype rounds: CUDA kernel K19,
-wrappers, host plans, plain versions and the autograd functions ``MLP``
-and ``CrossNetwork`` go through.
+"""The MLP layer epilogue's gradient and the compute-dtype rounds: CUDA
+kernel K19, wrappers, host plans, plain versions and the rounds' autograd
+function ``MLP`` and ``CrossNetwork`` go through.
 
 ``nvtabular_tpu/models/layers.py:56-66`` (``mlp_apply``) casts its input
 and each weight to ``compute_dtype``, adds the bias to each float32
 product, applies ReLU and casts each hidden layer to ``compute_dtype``;
 DCN's cross layers cast ``x`` and ``W`` the same way
 (``nvtabular_tpu/models/deepfm.py:126-131``). XLA fuses all of it into the
-products' operands and epilogues; the products themselves stay plain
-matrix products (``torch.matmul``). Here:
+products' operands and epilogues; the products are kernel K21
+(``kernels/mlp_mm.py``), whose store runs the forward epilogue. Here:
 
-* ``mlp_epilogue_fwd(y, b, relu, round_dtype)``: in place over the product
-  ``y`` [B, N], ``round_c(relu(y + b))`` where ``round_c`` is the round trip
-  through ``round_dtype`` (None: no round), and the mask ``z > 0`` of the
+* ``mlp_epilogue_fwd_plain(y, b, relu, round_dtype)``: the forward
+  epilogue's plain version, in place over the product ``y`` [B, N]:
+  ``round_c(relu(y + b))`` where ``round_c`` is the round trip through
+  ``round_dtype`` (None: no round), and the mask ``z > 0`` of the
   pre-activation where ReLU applies. ``jax.nn.relu``'s edges: -0.0 gives
-  +0.0, NaN gives NaN.
+  +0.0, NaN gives NaN. K21's fused store is held against it.
 * ``mlp_epilogue_bwd(g, mask, relu, round_dtype)``: ``dz = mask ? round_c(g)
   : 0`` (a cast's transpose rounds the gradient that flows back through
   it; ReLU's is ``jax.nn.relu``'s select, so a NaN pre-activation takes no
@@ -25,9 +26,10 @@ matrix products (``torch.matmul``). Here:
   back, a group of them in one launch (K18's plan, ``adagrad_plan``), a
   2-D view with strided rows read as it lies.
 
-``MLPEpilogue`` and ``RoundGroup`` are their autograd functions; with
-``plain=True`` they run the plain versions on any device (the reference
-forwards that the kernels are held against on the card).
+``RoundGroup`` is the round's autograd function (K21's ``MLPProduct``
+runs the epilogue's backward); with ``plain=True`` it runs the plain
+version on any device (the reference forwards that the kernels are held
+against on the card).
 """
 
 from __future__ import annotations
@@ -50,8 +52,6 @@ TARGET_BLOCKS = 1056
 MAX_ROW_BLOCKS = 65535  # gridDim.y's limit
 ROUND_KINDS = {None: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc/mlp_epilogue.cu round_c
 
-# y, out, bias, mask, B, N, mode, vec, tx, col tiles, row blocks, stream
-_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # g, g row stride, mask, dz, partial, tickets, db, B, N, mode, vec, tx, col tiles, row blocks, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int]
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -88,41 +88,9 @@ def _round(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t if dtype is None else t.to(dtype).to(torch.float32)
 
 
-def _check_epilogue(y: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
-    if y.dim() != 2:
-        raise ValueError(f"y must be [B, N], got shape {tuple(y.shape)}")
-    B, N = y.shape
-    check(y, "y", torch.float32, y.device)
-    check(b, "b", torch.float32, y.device, (N,))
-    return B, N
-
-
-def mlp_epilogue_fwd(y: torch.Tensor, b: torch.Tensor, relu: bool, round_dtype: Optional[torch.dtype] = None,
-                     ) -> Optional[torch.Tensor]:
-    """``y`` = round_c(relu(y + b)) in place (ReLU only where ``relu``) →
-    the bool mask [B, N] of ``y + b > 0``, or None without ReLU."""
-    B, N = _check_epilogue(y, b)
-    mode = _mode(relu, round_dtype)
-    if not use_kernel(y):
-        return mlp_epilogue_fwd_plain(y, b, relu, round_dtype)
-    mask = torch.empty((B, N), dtype=torch.bool, device=y.device) if relu else None
-    if B == 0 or N == 0:
-        return mask
-    vec = vec_width(N, y, *([mask] if relu else []))
-    tx, col_tiles, row_blocks = epilogue_plan(B, N, vec)
-    fn = library("mlp_epilogue").nvt_mlp_epilogue_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _FWD_ARGTYPES
-        fn.restype = ctypes.c_int
-    rc = fn(ptr(y), ptr(y), ptr(b), ptr(mask), B, N, mode, vec, tx, col_tiles, row_blocks, stream_ptr(y.device))
-    raise_on_error(rc, "mlp_epilogue_fwd")
-    LAUNCHES["mlp_epilogue_fwd"] += 1
-    return mask
-
-
 def mlp_epilogue_bwd(g: torch.Tensor, mask: Optional[torch.Tensor], relu: bool,
                      round_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The gradient of ``mlp_epilogue_fwd`` for the output gradient ``g``
+    """The gradient of the forward epilogue for the output gradient ``g``
     [B, N] (rows may be strided, each row's floats contiguous) → (dz, db):
     dz = mask ? round_c(g) : 0 (``g`` itself with neither ReLU nor round),
     db its column sums."""
@@ -223,35 +191,6 @@ def round_group_plain(tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> Li
     return [_round(t, dtype).contiguous() for t in tensors]
 
 
-class MLPEpilogue(torch.autograd.Function):
-    """One layer after its product: (y, b) → round_c(relu(y + b)), in place
-    over ``y`` (``mm``'s backward keeps its inputs, not its output)."""
-
-    @staticmethod
-    def forward(ctx, y, b, relu, round_dtype, plain):
-        fwd = mlp_epilogue_fwd_plain if plain else mlp_epilogue_fwd
-        mask = fwd(y, b, relu, round_dtype)
-        ctx.mark_dirty(y)
-        ctx.relu, ctx.round_dtype, ctx.plain = relu, round_dtype, plain
-        ctx.save_for_backward(mask)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (mask,) = ctx.saved_tensors
-        if g.shape[1] > 1 and g.stride(1) != 1:  # an expanded gradient
-            g = g.contiguous()
-        bwd = mlp_epilogue_bwd_plain if ctx.plain else mlp_epilogue_bwd
-        dz, db = bwd(g, mask, ctx.relu, ctx.round_dtype)
-        need = ctx.needs_input_grad
-        return dz if need[0] else None, db if need[1] else None, None, None, None
-
-
-def mlp_epilogue(y: torch.Tensor, b: torch.Tensor, relu: bool, round_dtype: Optional[torch.dtype] = None,
-                 plain: bool = False) -> torch.Tensor:
-    return MLPEpilogue.apply(y, b, relu, round_dtype, plain)
-
-
 class RoundGroup(torch.autograd.Function):
     """(t_1, .., t_k) → each rounded to ``dtype`` and back; the backward
     rounds the gradients that arrive, one launch for all of them. An output
@@ -286,6 +225,5 @@ def round_tensors(tensors: Sequence[torch.Tensor], dtype: torch.dtype, plain: bo
     return list(RoundGroup.apply(dtype, plain, *tensors))
 
 
-__all__ = ["MLPEpilogue", "RoundGroup", "epilogue_plan", "mlp_epilogue", "mlp_epilogue_bwd",
-           "mlp_epilogue_bwd_plain", "mlp_epilogue_fwd", "mlp_epilogue_fwd_plain", "round_group",
-           "round_group_plain", "round_tensors"]
+__all__ = ["RoundGroup", "epilogue_plan", "mlp_epilogue_bwd", "mlp_epilogue_bwd_plain", "mlp_epilogue_fwd_plain",
+           "round_group", "round_group_plain", "round_tensors"]

@@ -13,11 +13,12 @@ and the dense features fill the rest (``embedding_row``), the JAX forwards'
   first- and second-order terms (``kernels/fm.py``), whose first-order
   weights of every table live in one [sum V] parameter ``linear``.
 * ``DCN`` (DCN-v2, Wang et al. 2021): the row is x0; each cross layer is
-  ``x0 * (bf16(x) @ bf16(W) + b) + x``, the product a plain ``torch.matmul``
-  of bfloat16-rounded float32 values (``MLP``'s numerics: x and W rounded in
-  one K19 ``round_group`` launch) and the rest kernel K17
-  (``kernels/cross.py``); the deep tower reads x0, and the output layer the
-  cross output and the tower's side by side.
+  ``x0 * (bf16(x) @ bf16(W) + b) + x``, the product kernel K21
+  (``kernels/mlp_mm.py``, without a bias in its store) of bfloat16-rounded
+  float32 values (``MLP``'s numerics: x and W rounded in one K19
+  ``round_group`` launch) and the rest kernel K17 (``kernels/cross.py``);
+  the deep tower reads x0, and the output layer the cross output and the
+  tower's side by side.
 
 ``compute_dtype`` (bfloat16 by default, as the JAX code) covers the MLPs
 and the cross products. Each table (and each ``linear`` block) has
@@ -45,6 +46,7 @@ from ..kernels.cross import cross_fwd_plain, cross_layer
 from ..kernels.embedding import embedding_gather_plain, embedding_row
 from ..kernels.fm import fm_fwd_plain, fm_terms
 from ..kernels.mlp_epilogue import round_tensors
+from ..kernels.mlp_mm import mlp_product
 from .layers import MLP, Rng, bce_with_logits, concatenate_tables, make_generator, mlp_apply
 from .pytree import tree_map
 
@@ -198,20 +200,23 @@ def cross_apply(layers, x0: torch.Tensor, compute_dtype=torch.bfloat16, plain: b
     """The DCN-v2 cross stack over ``[{"w": [N, N], "b": [N]}, ...]``: each
     layer ``x0 * (round(x) @ round(W) + b) + x``, as ``CrossNetwork`` says."""
     epilogue = cross_fwd_plain if plain else cross_layer
+    exact = compute_dtype == torch.bfloat16
     x = x0
     for layer in layers:
         xr, wr = round_tensors([x, layer["w"]], compute_dtype, plain)
-        x = epilogue(xr @ wr, layer["b"], x0, x)
+        x = epilogue(mlp_product(xr, wr, None, exact=exact, plain=plain), layer["b"], x0, x)
     return x
 
 
 class CrossNetwork(nn.Module):
     """The DCN-v2 cross stack: ``num_layers`` layers of W [N, N] (init
     ``N(0, 1) / sqrt(N)``) and b [N] (zeros). Each product multiplies the
-    ``compute_dtype``-rounded x and W as float32 tensors (TF32 off), as
-    ``MLP`` does, giving JAX's ``preferred_element_type=float32`` result;
+    ``compute_dtype``-rounded x and W through kernel K21, as ``MLP`` does,
+    giving JAX's ``preferred_element_type=float32`` result (its gradient
+    ``x0 * g`` is float32: K21 splits it into three exact bfloat16 pieces);
     the rounds' transposes round the gradients where JAX's transposes round.
-    ``plain=True`` runs the plain versions of K19's round and of K17."""
+    ``plain=True`` runs the plain versions of K19's round, of K21
+    (``torch.matmul`` in float32, TF32 off) and of K17."""
 
     def __init__(self, dim: int, num_layers: int, compute_dtype=torch.bfloat16, generator=None, device=None):
         super().__init__()

@@ -4,7 +4,9 @@
   layers, the weights in JAX's ``[in, out]`` layout (``h @ w + b``), so
   parameters carry across without transposes; ``MLP`` is the same stack as
   an ``nn.Module`` whose forward is ``mlp_apply`` of its own layers. The
-  rounds and layer epilogues are kernel K19 (``kernels/mlp_epilogue.py``).
+  products are kernel K21 (``kernels/mlp_mm.py``), with the layer
+  epilogues fused into their store; the rounds and the epilogues' gradient
+  are kernel K19 (``kernels/mlp_epilogue.py``).
   ``rng`` is a ``torch.Generator`` or a seed (``make_generator``): the
   values are torch's, not ``jax.random``'s.
 * ``embedding_lookup``, ``multihot_embedding_lookup``,
@@ -29,7 +31,8 @@ from ..kernels.cin import cin
 from ..kernels.embedding import embedding_features
 from ..kernels.embedding_bag import embedding_bag
 from ..kernels.interaction import dot_interaction
-from ..kernels.mlp_epilogue import mlp_epilogue, round_tensors
+from ..kernels.mlp_epilogue import round_tensors
+from ..kernels.mlp_mm import mlp_product
 from ..workflow.workflow import resolve_device
 
 Rng = Union[torch.Generator, int]
@@ -70,15 +73,16 @@ def mlp_init(rng: Rng, layer_sizes: Sequence[int], dtype: torch.dtype = torch.fl
 def mlp_apply(params: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor, final_activation: bool = False,
               compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> torch.Tensor:
     """The stack with ReLU between layers, numerics as ``MLP`` describes;
-    ``plain=True`` runs K19's plain versions."""
+    ``plain=True`` runs K19's and K21's plain versions."""
     out_dtype = x.dtype
     h, *ws = round_tensors([x.float(), *(layer["w"] for layer in params)], compute_dtype, plain)
     n = len(ws)
+    exact = compute_dtype == torch.bfloat16
     for i, (w, layer) in enumerate(zip(ws, params)):
         hidden = i < n - 1
-        h = mlp_epilogue(torch.matmul(h, w), layer["b"], relu=hidden or final_activation,
-                         round_dtype=compute_dtype if hidden and compute_dtype != torch.float32 else None,
-                         plain=plain)
+        h = mlp_product(h, w, layer["b"], relu=hidden or final_activation,
+                        round_dtype=compute_dtype if hidden and compute_dtype != torch.float32 else None,
+                        exact=exact, plain=plain)
     return h.to(out_dtype)
 
 
@@ -100,22 +104,27 @@ class MLP(nn.Module):
     ``compute_dtype`` (bfloat16 by default), each product accumulates in and
     returns float32, the bias is added in float32, then ReLU, and the result
     is rounded to ``compute_dtype`` between layers; the output is float32.
-    The rounded values are multiplied as float32 tensors, so every product
-    of two bfloat16 values is exact and only the float32 sums round: this
-    needs float32 matrix products in full float32, which is PyTorch's default
-    on CUDA (``torch.backends.cuda.matmul.allow_tf32`` False). A bfloat16
+    Every product of two bfloat16 values is exact in float32 and only the
+    float32 sums round: K21 multiplies the rounded values as bfloat16 on
+    the tensor cores with float32 sums (a float32 operand, such as the last
+    layer's unrounded gradient, in three exact bfloat16 pieces); the plain
+    version multiplies them as float32 tensors, which needs float32 matrix
+    products in full float32, PyTorch's default on CUDA
+    (``torch.backends.cuda.matmul.allow_tf32`` False). A bfloat16
     ``torch.matmul`` would round its output to bfloat16 before the bias.
     Gradients round where JAX's transposes round: the transpose of each
     cast rounds the gradient that flows back through it. ReLU follows
     ``jax.nn.relu``: +0.0 for -0.0, NaN for NaN, and its gradient
     ``where(z > 0, g, 0)``.
 
-    The input and every weight are rounded in one ``round_group`` launch,
-    each product is ``torch.matmul`` and each layer's bias, ReLU and round
-    one ``mlp_epilogue_fwd`` launch (kernel K19; their gradients one
-    ``mlp_epilogue_bwd`` a layer and one ``round_group``). ``plain=True``
-    runs K19's plain versions instead, on any device: the reference
-    forwards that the kernels are held against.
+    The input and every weight are rounded in one ``round_group`` launch
+    (kernel K19); each layer is one ``mlp_mm_fwd`` launch (kernel K21: the
+    product with the bias, ReLU and round fused into its store), and its
+    gradient one ``mlp_epilogue_bwd`` (K19), one ``mlp_mm_wgrad`` and, where
+    autograd needs the input's gradient, one ``mlp_mm_dgrad`` (K21); one
+    ``round_group`` rounds the gradients of the input and weights.
+    ``plain=True`` runs K19's and K21's plain versions instead, on any
+    device: the reference forwards that the kernels are held against.
 
     Init is ``mlp_init``'s from ``generator``; ``forward`` is ``mlp_apply``
     of ``layers()``.

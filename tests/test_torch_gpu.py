@@ -3655,27 +3655,26 @@ def _epilogue_inputs(B, N, gen, row_pad=0):
 @pytest.mark.parametrize("N", [1, 3, 13, 367, 512])
 @pytest.mark.parametrize("B", [1, 7, 65536])
 def test_mlp_epilogue_kernels_match_plain(B, N, mode):
-    """K19's forward in place and its backward against their plain versions
-    on the card from the same inputs: outputs, masks and dz bit-equal (NaN
-    where NaN), db within 1e-5 of the sums of |dz| and the same bits over
-    two runs; one launch each."""
+    """K19's backward against its plain version on the card from the same
+    inputs and the mask of the plain forward epilogue (the forward runs in
+    K21's store, held against that plain forward by
+    test_k21_fused_forward_matches_matmul_and_k19): dz bit-equal (NaN where
+    NaN), db within 1e-5 of the sums of |dz| and the same bits over two
+    runs, a launch each; the mask at the edges as the backward reads it."""
     _require_cuda()
     from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
 
     relu, rnd = EPILOGUE_MODES[mode]
     gen = torch.Generator(device="cuda").manual_seed(B * 1000 + N)
     y, b, g = _epilogue_inputs(B, N, gen)
-    want_y = y.clone()
     kernels.reset_launches()
-    mask = kep.mlp_epilogue_fwd(y, b, relu, rnd)
-    want_mask = kep.mlp_epilogue_fwd_plain(want_y, b, relu, rnd)
+    mask = kep.mlp_epilogue_fwd_plain(y, b, relu, rnd)
     dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
-    want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, want_mask, relu, rnd)
+    want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd)
     dz2, db2 = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["mlp_epilogue_fwd"] == 1 and kernels.LAUNCHES["mlp_epilogue_bwd"] == 2
-    assert _bits_equal_nan(y, want_y)
-    assert (mask is None) == (not relu) and (mask is None or torch.equal(mask, want_mask))
+    assert kernels.LAUNCHES["mlp_epilogue_bwd"] == 2
+    assert (mask is None) == (not relu)
     assert _bits_equal_nan(dz, want_dz)
     magnitude = want_dz.abs().nan_to_num(posinf=0.0).sum(0)
     finite = torch.isfinite(want_db)
@@ -3685,7 +3684,7 @@ def test_mlp_epilogue_kernels_match_plain(B, N, mode):
     assert torch.equal(db.view(torch.int32), db2.view(torch.int32)) and torch.equal(dz2.view(torch.int32),
                                                                                    dz.view(torch.int32))
     if relu and B * N > 8:
-        z = want_y.view(-1)[:8]
+        z = y.view(-1)[:8]
         assert not torch.signbit(z[0])  # -0.0 + -0.0 -> +0.0, mask 0
         if rnd is torch.bfloat16 and b.view(-1)[6 % N] == 0:  # the subnormal pre-activation: rounded to 0, mask 1
             assert float(z[6]) == 0.0 and bool(mask.view(-1)[6])
@@ -3701,7 +3700,7 @@ def test_mlp_epilogue_backward_takes_strided_rows(mode):
     relu, rnd = EPILOGUE_MODES[mode]
     gen = torch.Generator(device="cuda").manual_seed(3)
     y, b, g = _epilogue_inputs(4099, 128, gen, row_pad=3)
-    mask = kep.mlp_epilogue_fwd(y, b, relu, rnd)
+    mask = kep.mlp_epilogue_fwd_plain(y, b, relu, rnd)
     dz, db = kep.mlp_epilogue_bwd(g, mask, relu, rnd)
     want_dz, want_db = kep.mlp_epilogue_bwd_plain(g, mask, relu, rnd)
     assert _bits_equal_nan(dz, want_dz)
@@ -3806,18 +3805,26 @@ def test_bce_through_autograd_reads_grad_output_on_the_card():
 
 
 def _step_launches(model):
-    """K19's and K20's launches in one training step of ``model``, from its
-    layers: an epilogue forward and backward a layer; a round forward and
-    backward an MLP and a cross layer, where the compute dtype rounds; one
-    loss each way."""
+    """K19's, K20's and K21's launches in one training step of ``model``,
+    from its layers: a K21 forward (the layer's epilogue in its store), an epilogue
+    backward and a weight gradient a layer, an input gradient a layer but
+    the first of DLRM's bottom MLP (its input is data); a K21 forward, input
+    and weight gradient a cross layer; a round forward and backward an MLP
+    and a cross layer, where the compute dtype rounds; one loss each way."""
     from nvtabular_tpu_torch.models.deepfm import CrossNetwork
     from nvtabular_tpu_torch.models.layers import MLP
 
-    n = {"mlp_epilogue_fwd": 0, "mlp_epilogue_bwd": 0, "round_group": 0, "bce_fwd": 1, "bce_bwd": 1}
+    n = {"mlp_epilogue_bwd": 0, "round_group": 0, "bce_fwd": 1, "bce_bwd": 1, "mlp_mm_fwd": 0, "mlp_mm_dgrad": 0,
+         "mlp_mm_wgrad": 0, "mlp_mm_fwd_epilogue": 0}
+    dense_input = getattr(model, "bottom", None)
     for m in model.modules():
         rounds = m.compute_dtype != torch.float32 if isinstance(m, (MLP, CrossNetwork)) else False
+        if isinstance(m, (MLP, CrossNetwork)):
+            n["mlp_mm_fwd"] += len(m.weights)
+            n["mlp_mm_wgrad"] += len(m.weights)
+            n["mlp_mm_dgrad"] += len(m.weights) - (m is dense_input)
         if isinstance(m, MLP):
-            n["mlp_epilogue_fwd"] += len(m.weights)
+            n["mlp_mm_fwd_epilogue"] += len(m.weights)
             n["mlp_epilogue_bwd"] += len(m.weights)
             n["round_group"] += 2 * rounds
         elif isinstance(m, CrossNetwork):
@@ -3825,14 +3832,39 @@ def _step_launches(model):
     return n
 
 
+def _plain_steps(make, reference, batches, products):
+    """A model from ``make`` trained one Adagrad step a batch through the
+    reference forward and the plain loss, the plain path's products as
+    ``products`` makes them (mlp_mm.plain_products) → (losses, parameters)."""
+    from nvtabular_tpu_torch.kernels.mlp_mm import plain_products
+
+    ref = make()
+    opt = models.Adagrad(ref.parameters())
+    with plain_products(products):
+        losses = [float(models.train_step(ref, opt, b, lambda m, bt: models.bce_with_logits(
+            reference(m, bt).reshape(-1), bt["label"], plain=True))) for b in batches]
+    return losses, [p.detach() for p in ref.parameters()]
+
+
+def _steps_apart(a, b):
+    """(the largest loss difference over the loss, the largest parameter
+    difference over the parameter's largest entry) of two runs."""
+    loss = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
+    return loss, max(float((p - q).abs().max()) / max(float(q.abs().max()), 1e-30) for p, q in zip(a[1], b[1]))
+
+
 @pytest.mark.parametrize("family", ["dlrm", "dcn", "tabular"])
 def test_training_steps_through_k19_k20_match_plain(family):
-    """Three Adagrad steps in bfloat16 compute through the kernels (K19 a
-    layer, its rounds, K20) against three from the same parameters through
-    the reference forward and the plain loss: the losses within rtol 1e-5,
-    every parameter within 1e-3 of its largest entry (a hidden value at a
-    bfloat16 rounding boundary may round the other way, chip_smoke.py
-    STEP_TOL); the launches those the layers give."""
+    """Three Adagrad steps in bfloat16 compute through the kernels (K21 and
+    K19 a layer, its rounds, K20) against three from the same parameters
+    through the reference forward and the plain loss. With K21's products
+    on the plain path too: the losses within rtol 1e-5, every parameter
+    within 1e-3 of its largest entry (a hidden value at a bfloat16 rounding
+    boundary may round the other way, chip_smoke.py STEP_TOL). With
+    cuBLAS's products, a reference without K21: both within 4x the largest
+    that a change of the products' order alone moves (cuBLAS's, float64's
+    and cuBLAS's over the reversed depth, pairwise; chip_smoke.py
+    K21_STEP_FACTOR) plus those limits. The launches those the layers give."""
     _require_cuda()
     cards = {"a": 3, "b": 500, "c": 40_000}
     if family == "dlrm":
@@ -3850,15 +3882,301 @@ def test_training_steps_through_k19_k20_match_plain(family):
         models.DLRMConfig(cards, num_dense=13), 4096, seed=s).items()} for s in range(3)]
     for batch in batches:
         batch["continuous"] = batch["dense"]
-    model, ref = make(), make()
-    opt, ref_opt = models.Adagrad(model.parameters()), models.Adagrad(ref.parameters())
+    model = make()
+    opt = models.Adagrad(model.parameters())
     kernels.reset_launches()
     got = [float(models.train_step(model, opt, b, loss_fn)) for b in batches]
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = [float(models.train_step(ref, ref_opt, b, lambda m, bt: models.bce_with_logits(
-        reference(m, bt).reshape(-1), bt["label"], plain=True))) for b in batches]
+    got = (got, [p.detach() for p in model.parameters()])
+    want = _plain_steps(make, reference, batches, "k21")
     assert {k: launches[k] for k in _step_launches(model)} == {k: 3 * v for k, v in _step_launches(model).items()}
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-    for (name, p), q in zip(model.named_parameters(), ref.parameters()):
-        assert float((p - q).detach().abs().max()) <= 1e-3 * float(q.detach().abs().max()) + 1e-6, name
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for (name, _), p, q in zip(model.named_parameters(), got[1], want[1]):
+        assert float((p - q).abs().max()) <= 1e-3 * float(q.abs().max()) + 1e-6, name
+    cublas, f64, rev = (_plain_steps(make, reference, batches, kind) for kind in ("matmul", "float64", "reversed"))
+    noise = [max(x) for x in zip(_steps_apart(cublas, f64), _steps_apart(rev, f64), _steps_apart(rev, cublas))]
+    loss, params = _steps_apart(got, cublas)
+    assert loss <= 4 * noise[0] + 1e-5 and params <= 4 * noise[1] + 1e-3, (loss, params, noise)
+
+
+# --- K21: the MLP and cross-layer products on the tensor cores -------------------------------------------------
+# (M, K, N) of a layer: the forward h [M, K] w [K, N], the input gradient dz [M, N] w^T, the weight gradient
+# h^T dz. The main paths' layers: DLRM's (phase 7) and its multihot bottom, DeepFM's and DCN's deep towers, DCN's
+# output layer and cross layer, the tabular MLP's.
+K21_MAIN_SHAPES = [(65536, 13, 512), (65536, 512, 256), (65536, 256, 16), (65536, 367, 512), (65536, 256, 1),
+                   (65536, 1, 512), (65536, 256, 64), (65536, 429, 256), (65536, 256, 128), (65536, 128, 1),
+                   (65536, 557, 1), (65536, 429, 429), (65536, 1041, 512)]
+# tiles' edges: M not a multiple of 64 or 128, K not a multiple of 16 or 32, N past each tile width, K = 0
+K21_EDGE_SHAPES = [(1, 1, 1), (100, 13, 1), (77, 5, 3), (64, 16, 8), (130, 40, 70), (129, 33, 129),
+                   (200, 17, 65), (3, 0, 5), (1000, 1000, 9), (4097, 600, 17)]
+
+
+def _k21_bound(A, B, terms, split=False):
+    """2 gamma_terms (|A| |B|) in float64, and terms * 2^-149 where the sums
+    are float32 subnormals; with a split operand A, also 2^-134 (|B| summed)
+    for the pieces of A's values below 2^-110 (csrc/mlp_mm.cu split3)."""
+    u = 2.0**-24
+    mag = A.double().abs() @ B.double().abs()
+    bnd = 2 * terms * u / (1 - terms * u) * mag + terms * 2.0**-149
+    if split:
+        bnd = bnd + 2.0**-134 * B.double().abs().sum(0, keepdim=True)
+    return bnd
+
+
+def _k21_close(got, want, bnd, what):
+    """Within the bound where the plain product is finite; the same NaN and
+    inf where it is not."""
+    assert got.shape == want.shape, what
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf]), what
+    fin = torch.isfinite(want)
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff[fin] <= bnd[fin]).all()), (what, float(diff[fin].max()) if fin.any() else 0.0)
+
+
+def _k21_layer(M, K, N, gen, exact_dz=True, edges=False):
+    """A layer's bfloat16-valued h [M, K] and w [K, N], a bias [N], and an
+    output gradient [M, N]: bfloat16 values (a hidden layer's rounded dz) or
+    float32 ones (the last layer's, a cross layer's x0 * g). ``edges``: NaN,
+    +-inf and -0.0 among the operands."""
+    h = torch.randn((M, K), device="cuda", generator=gen).bfloat16().float()
+    w = (torch.randn((K, N), device="cuda", generator=gen) * max(K, 1) ** -0.5).bfloat16().float()
+    b = torch.randn(N, device="cuda", generator=gen)
+    g = torch.randn((M, N), device="cuda", generator=gen) * 1e-3
+    if exact_dz:
+        g = g.bfloat16().float()
+    if edges and M * K > 8 and K * N > 4 and M * N > 6:
+        h.view(-1)[:5] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0], device="cuda")
+        h[M - 1] = -0.0
+        w.view(-1)[K * N - 2 :] = torch.tensor([float("inf"), -0.0], device="cuda")
+        g.view(-1)[-3:] = torch.tensor([float("nan"), -float("inf"), -0.0], device="cuda")
+    return h, w, b, g
+
+
+@pytest.mark.parametrize("exact_dz", [True, False], ids=["dz_bf16", "dz_f32"])
+@pytest.mark.parametrize("M,K,N", K21_MAIN_SHAPES + K21_EDGE_SHAPES)
+def test_k21_modes_match_plain(M, K, N, exact_dz):
+    """K21's forward (the product alone), input gradient and weight gradient
+    against torch.matmul in float32 on the card from the same operands:
+    within 2 gamma_K (|A| |B|) elementwise (3K terms with the float32 dz
+    split into three bfloat16 pieces), the weight gradient the same bits on
+    two runs; one launch each."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    gen = torch.Generator(device="cuda").manual_seed(M * 31 + K * 7 + N)
+    h, w, _, g = _k21_layer(M, K, N, gen, exact_dz)
+    p = kmm.operand_pieces(exact_dz)
+    kernels.reset_launches()
+    y, mask = kmm.mlp_mm_fwd(h, w, None, False)
+    dh = kmm.mlp_mm_dgrad(g, w, exact_dz)
+    dw = kmm.mlp_mm_wgrad(h, g, True, exact_dz)
+    dw2 = kmm.mlp_mm_wgrad(h, g, True, exact_dz)
+    torch.cuda.synchronize()
+    assert mask is None
+    assert (kernels.LAUNCHES["mlp_mm_fwd"], kernels.LAUNCHES["mlp_mm_dgrad"],
+            kernels.LAUNCHES["mlp_mm_wgrad"]) == (int(M * N > 0), int(M * K > 0), 2 * int(K * N > 0))
+    _k21_close(y, h @ w, _k21_bound(h, w, K), "forward")
+    _k21_close(dh, g @ w.t(), _k21_bound(g, w.t(), N * p, not exact_dz), "dgrad")
+    _k21_close(dw, h.t() @ g, _k21_bound(h.t(), g, M * p), "wgrad")
+    assert torch.equal(dw.view(torch.int32), dw2.view(torch.int32))
+
+
+K21_LAMBDA = 4.0  # chip_smoke.py: the probabilistic bound's lambda
+
+
+@pytest.mark.parametrize("exact_dz", [True, False], ids=["dz_bf16", "dz_f32"])
+@pytest.mark.parametrize("M,K,N", [(65536, 13, 512), (65536, 512, 256), (65536, 256, 1), (65536, 429, 429)])
+def test_k21_wgrad_at_the_batch_within_the_probable_bound(M, K, N, exact_dz):
+    """The weight gradient, whose depth is the batch, against float64 sums
+    of the same operands within K21_LAMBDA sqrt(T) u (|A| |B|), T the terms
+    a sum adds (2 gamma_T grows with T and would pass a gradient with a
+    split left out): and the same product with its last split's rows left
+    out leaves that bound."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    gen = torch.Generator(device="cuda").manual_seed(K * 3 + N)
+    h, _, _, g = _k21_layer(M, K, N, gen, exact_dz)
+    p = kmm.operand_pieces(exact_dz)
+    plan = kmm.mm_plan(K, N, M, 1, p)
+    assert plan.splits > 1
+    exact = h.double().t() @ g.double()
+    bnd = K21_LAMBDA * (M * p) ** 0.5 * 2.0**-24 * (h.double().abs().t() @ g.double().abs())
+    dw = kmm.mlp_mm_wgrad(h, g, True, exact_dz)
+    assert bool(((dw.double() - exact).abs() <= bnd).all()), float(((dw.double() - exact).abs() / bnd).max())
+    kept = (plan.splits - 1) * plan.k_split
+    faulty = kmm.mlp_mm_wgrad(h[:kept], g[:kept], True, exact_dz)
+    assert not bool(((faulty.double() - exact).abs() <= bnd).all())
+
+
+@pytest.mark.parametrize("mode", list(EPILOGUE_MODES))
+@pytest.mark.parametrize("M,K,N", [(65536, 512, 256), (65536, 256, 16), (65536, 256, 1), (130, 40, 70), (77, 5, 3),
+                                   (1000, 1, 13)])
+def test_k21_fused_forward_matches_matmul_and_k19(M, K, N, mode):
+    """The forward with the layer's epilogue in its store against
+    torch.matmul + K19's plain forward: the output within the product's
+    bound and one ULP of the round (bfloat16 or float16) or of the bias add
+    beyond it, NaN where NaN; the mask equal wherever |z| exceeds the
+    product's bound. At K = 1 the product is exact and the pre-activations
+    hold the epilogue's edges (-0.0 + -0.0, NaN, +-inf, a bfloat16 halfway
+    value either side of even, an exact cancellation to +0.0, a positive
+    subnormal that rounds to bfloat16 zero with mask 1): the output equal
+    in value and the mask equal everywhere."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    relu, rnd = EPILOGUE_MODES[mode]
+    gen = torch.Generator(device="cuda").manual_seed(M + N)
+    h, w, b, _ = _k21_layer(M, K, N, gen)
+    b[: min(N, 2)] = torch.tensor([-0.0, float("nan")], device="cuda")[: min(N, 2)]
+    if K == 1:  # z = h w + b, the product exact: h's rows the edges (1.0 below them), w ones but 2^-10 in column 0
+        h.fill_(1.0)
+        h[:7, 0] = torch.tensor([-0.0, float("nan"), float("inf"), -float("inf"), 1.0, 2.0**-130, -2.0],
+                                device="cuda")
+        w.fill_(1.0)
+        w[0, 0] = 2.0**-10  # row 5, column 0: z = 2^-140 + -0.0
+        b[2:4] = torch.tensor([2.0**-8, 3 * 2.0**-8], device="cuda")  # 1 + 2^-8 and 1 + 3 2^-8: halfway
+        b[N - 1] = -1.0  # z = 1 - 1 = +0.0
+    kernels.reset_launches()
+    out, mask = kmm.mlp_mm_fwd(h, w, b, relu, rnd)
+    y = h @ w
+    want = y.clone()
+    want_mask = kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mlp_mm_fwd"] == 1 and kernels.LAUNCHES["mlp_mm_fwd_epilogue"] == 1
+    if K == 1:
+        assert bool(((out == want) | (torch.isnan(out) & torch.isnan(want))).all())
+        assert (mask is None) == (not relu) and (mask is None or torch.equal(mask, want_mask))
+        if relu:
+            assert bool(mask[5, 0]) and (rnd is not torch.bfloat16 or float(out[5, 0]) == 0.0)
+            assert not bool(mask[8:, N - 1].any()) and not bool(torch.signbit(out[8:, N - 1]).any())
+    bnd = _k21_bound(h, w, K)
+    big = torch.maximum(out.abs(), want.abs()).double()
+    ulp = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, None: 2.0**-23}[rnd] * big + 2.0**-133
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    fin = torch.isfinite(want)
+    assert bool(((out.double() - want.double()).abs()[fin] <= (bnd + ulp)[fin]).all())
+    assert (mask is None) == (not relu)
+    if relu:
+        z = (y + b).double()
+        sure = z.abs() > bnd
+        assert torch.equal(mask[sure], want_mask[sure])
+        assert not bool(torch.signbit(out[~mask & ~torch.isnan(out)]).any())  # relu gives +0.0
+
+
+@pytest.mark.parametrize("exact_dz", [True, False], ids=["dz_bf16", "dz_f32"])
+@pytest.mark.parametrize("M,K,N", [(130, 40, 70), (4097, 600, 17), (65536, 256, 1), (1000, 429, 429)])
+def test_k21_non_finite_and_signed_zeros(M, K, N, exact_dz):
+    """NaN, +-inf and -0.0 in h, w and dz reach every mode's output as the
+    float32 product gives them: no NaN from a padded lane or from a zero
+    piece of a split value times inf."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    gen = torch.Generator(device="cuda").manual_seed(M + 5)
+    h, w, _, g = _k21_layer(M, K, N, gen, exact_dz, edges=True)
+    p = kmm.operand_pieces(exact_dz)
+    _k21_close(kmm.mlp_mm_fwd(h, w, None, False)[0], h @ w, _k21_bound(h, w, K), "forward")
+    _k21_close(kmm.mlp_mm_dgrad(g, w, exact_dz), g @ w.t(), _k21_bound(g, w.t(), N * p, not exact_dz), "dgrad")
+    _k21_close(kmm.mlp_mm_wgrad(h, g, True, exact_dz), h.t() @ g, _k21_bound(h.t(), g, M * p), "wgrad")
+
+
+@pytest.mark.parametrize("scale", [2.0**-130, 2.0**-140, 2.0**-70], ids=["bf16_subnormal", "deep", "tiny_f32"])
+def test_k21_subnormal_operands(scale):
+    """Subnormal bfloat16 operands (the tensor cores keep them: K13d's 16-bit
+    kernels' tests show it) and float32 operands in bfloat16's and float32's
+    subnormal range through the split: within the bound with its
+    subnormal terms (terms * 2^-149, and 2^-134 a split value below
+    2^-110); no output flushed to zero where the plain product is not."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    M, K, N = 300, 40, 24
+    h = (torch.randn((M, K), device="cuda", generator=gen) * scale).bfloat16().float()
+    w = torch.randn((K, N), device="cuda", generator=gen).bfloat16().float()
+    _k21_close(kmm.mlp_mm_fwd(h, w, None, False)[0], h @ w, _k21_bound(h, w, K), "forward")
+    g = torch.randn((M, N), device="cuda", generator=gen) * scale  # float32 values, split
+    _k21_close(kmm.mlp_mm_dgrad(g, w, False), g @ w.t(), _k21_bound(g, w.t(), 3 * N, True), "dgrad")
+    _k21_close(kmm.mlp_mm_wgrad(w.t().contiguous(), g.t().contiguous(), True, False), w @ g.t(),
+               _k21_bound(w, g.t(), 3 * N) + 2.0**-134 * w.double().abs().sum(1, keepdim=True), "wgrad")
+    if scale >= 2.0**-130:
+        assert not bool(((kmm.mlp_mm_fwd(h, w, None, False)[0] == 0) & ((h @ w) != 0)).any())
+
+
+def test_k21_split_rebuilds_float32_values():
+    """Finite float32 values times the identity through the split path:
+    each output is hi + mid + lo of its value (csrc/mlp_mm.cu split3), the
+    exact sum of kmm.split_pieces' pieces, and the value itself for every
+    |x| >= 2^-110 (float32's largest among them)."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    rng = np.random.default_rng(3)  # random bit patterns over the whole exponent range, the non-finite redrawn
+    bits = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    x = bits.view(np.float32).copy()
+    bad = ~np.isfinite(x)
+    x[bad] = rng.standard_normal(int(bad.sum())).astype(np.float32)
+    f = np.finfo(np.float32)
+    x[:8] = [f.max, -f.max, 3.3961e38, f.tiny, f.smallest_subnormal, 2.0**-110, 2.0**-111, -0.0]
+    x = torch.from_numpy(x).cuda().view(64, 64)
+    eye = torch.eye(64, device="cuda")
+    got = kmm.mlp_mm_dgrad(x, eye, False, True)  # x @ I^T, x in three pieces
+    hi, mid, lo = kmm.split_pieces(x)
+    want = hi.double() + mid.double() + lo.double()  # exact (in float32, hi + mid may overflow before lo)
+    assert torch.equal(got.double(), want)
+    big = x.abs() >= 2.0**-110
+    assert torch.equal(got[big], x[big])
+
+
+def test_k21_strided_operands_and_autograd():
+    """MLPProduct on the card with a [B, 1041] view of a [B, 1044] input and
+    a gradient that arrives as a view: the kernels read both through their
+    strides; the layer's gradients against the plain function's (within the
+    products' bounds), K19's backward and K21's three launches once each."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    buf = torch.randn((1000, 1044), device="cuda", generator=gen).bfloat16().float()
+    w = (torch.randn((1041, 70), device="cuda", generator=gen) * 0.03).bfloat16().float()
+    b = torch.randn(70, device="cuda", generator=gen)
+    gbuf = torch.randn((1000, 73), device="cuda", generator=gen)
+    grads = []
+    for plain in (False, True):
+        x = buf.clone().requires_grad_(True)
+        wp, bp = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        kernels.reset_launches()
+        out = kmm.mlp_product(x[:, :1041], wp, bp, relu=False, round_dtype=None, exact=True, plain=plain)
+        out.backward(gbuf[:, 1:71])
+        torch.cuda.synchronize()
+        want = {"mlp_mm_fwd": 1, "mlp_mm_dgrad": 1, "mlp_mm_wgrad": 1, "mlp_epilogue_bwd": 1} if not plain else {}
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {**want, **({"mlp_mm_fwd_epilogue": 1}
+                                                                                if not plain else {})}
+        grads.append((x.grad, wp.grad, bp.grad))
+    g = gbuf[:, 1:71]
+    _k21_close(grads[0][0][:, :1041], grads[1][0][:, :1041], _k21_bound(g, w.t(), 3 * 70, True), "dx")
+    assert not bool(grads[0][0][:, 1041:].any())
+    _k21_close(grads[0][1], grads[1][1], _k21_bound(buf[:, :1041].t(), g, 3 * 1000), "dw")
+    torch.testing.assert_close(grads[0][2], grads[1][2], rtol=1e-5, atol=1e-5)
+
+
+def test_k21_refuses_what_it_cannot_read():
+    """A CUDA operand launches K21 or raises: an operand with no contiguous
+    dimension, a dtype or device other than the other's."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    h = torch.randn((64, 48), device="cuda")[:, ::2]  # strides (48, 2)
+    w = torch.randn((24, 8), device="cuda")
+    with pytest.raises(ValueError):
+        kmm.mlp_mm_fwd(h, w, None, False)
+    with pytest.raises(TypeError):
+        kmm.mlp_mm_fwd(torch.randn((4, 24), device="cuda").double(), w, None, False)
+    with pytest.raises(ValueError):
+        kmm.mlp_mm_fwd(torch.randn((4, 24), device="cuda"), w.cpu(), None, False)

@@ -1,7 +1,7 @@
 """The host-side launch plans of K13b's forward and backward, of K13d's
 kernels, of ``range_bag_grad`` (K15d's bag gradient, also K13c's
-backward) and the range bag's forward (``bag_fwd_plan``), of K11c's merge-path tiles, K3's fastmod, K1's key bound, and
-K14's element widths, on the CPU.
+backward) and the range bag's forward (``bag_fwd_plan``), of K11c's merge-path tiles, K3's fastmod, K1's key bound,
+K14's element widths, and K21's tiles and splits of K (``mlp_mm.mm_plan``), on the CPU.
 
 Both CUDA kernels take their shapes of work from a plan the wrapper computes
 in Python: the samples a group of K13b's backward and the columns a thread
@@ -646,3 +646,97 @@ def test_tiny_library_yardstick_finds_the_same_slots(lengths):
     assert torch.equal(torch.gather(t.codes[sel.long()], 1, pos.clamp(max=rows.shape[1] - 1))[hit], codes[hit])
     past = pos >= t.lens[sel.long()][:, None]
     assert bool((past | (at != values))[~hit].all())
+
+
+# --- K21: the MLP and cross-layer products ---------------------------------------------------------------------
+from nvtabular_tpu_torch.kernels import mlp_mm as kmm  # noqa: E402
+
+SMEM_OPT_IN = 232_448  # an H100 block's shared memory after the opt-in
+# (M, K, N, a_pieces, b_pieces) -> (bn, col_tiles, row_tiles, splits, k_split): phase 7's forwards, input and
+# weight gradients (the last layer's dz split into 3 pieces), DCN's cross layer, and the edges
+MM_PLANS = {
+    (65536, 13, 512, 1, 1): (128, 4, 512, 1, 32),  # DLRM bottom.0 forward
+    (65536, 256, 16, 1, 1): (16, 1, 512, 1, 256),  # bottom.2 forward
+    (65536, 256, 1, 1, 1): (8, 1, 512, 1, 256),  # top.2 forward
+    (65536, 16, 256, 3, 1): (64, 4, 512, 1, 32),  # bottom.2 dgrad: dz float32 in 3 pieces
+    (65536, 1, 256, 3, 1): (64, 4, 512, 1, 32),  # top.2 dgrad
+    (512, 65536, 256, 1, 1): (128, 2, 4, 33, 2016),  # bottom.1 / top.1 wgrad: K = the batch, split
+    (13, 65536, 512, 1, 1): (128, 4, 1, 64, 1024),  # bottom.0 wgrad
+    (256, 65536, 1, 1, 3): (8, 1, 2, 128, 512),  # top.2 wgrad: dz split
+    (256, 65536, 16, 1, 3): (16, 1, 2, 128, 512),  # bottom.2 wgrad
+    (65536, 429, 429, 1, 1): (128, 4, 512, 1, 448),  # DCN cross forward
+    (65536, 429, 429, 3, 1): (64, 7, 512, 1, 448),  # cross dgrad: x0 * g split
+    (429, 65536, 429, 1, 3): (64, 7, 4, 10, 6560),  # cross wgrad
+    (65536, 429, 429, 3, 3): (64, 7, 512, 1, 448),  # float32 compute: both split
+    (100, 13, 1, 1, 1): (8, 1, 1, 1, 32),
+    (3, 0, 5, 1, 1): (8, 1, 1, 1, 32),  # K = 0: one step of zeros
+    (0, 7, 9, 1, 1): (16, 1, 0, 1, 32),
+    (1000, 1000, 9, 1, 1): (16, 1, 8, 4, 256),
+}
+
+
+@pytest.mark.parametrize("shape", list(MM_PLANS), ids=["x".join(map(str, s)) for s in MM_PLANS])
+def test_mm_plan(shape):
+    """Tiles of 128 rows by the narrowest wgmma width that covers N (64 at
+    most with a split operand); K split only where the tiles leave the card
+    idle and K is deep, each split a multiple of 32 deep and none empty;
+    every plan within the opt-in shared memory."""
+    M, K, N, pa, pb = shape
+    plan = kmm.mm_plan(M, N, K, pa, pb)
+    assert (plan.bn, plan.col_tiles, plan.row_tiles, plan.splits, plan.k_split) == MM_PLANS[shape]
+    assert plan.k_split % kmm.DEPTH == 0 and plan.k_split >= kmm.DEPTH
+    assert (plan.splits - 1) * plan.k_split < max(K, 1) <= plan.splits * plan.k_split or K == 0
+    assert plan.col_tiles * plan.bn >= N and plan.row_tiles * kmm.ROWS >= M
+    assert plan.smem == kmm.BUFS * (pa * kmm.ROWS + pb * plan.bn) * kmm.DEPTH * 2 <= SMEM_OPT_IN
+    if plan.splits > 1:
+        assert plan.tiles < kmm.TARGET_BLOCKS and plan.splits <= -(-kmm.TARGET_BLOCKS // plan.tiles)
+        assert plan.k_split >= kmm.MIN_SPLIT_STEPS * kmm.DEPTH
+
+
+@pytest.mark.parametrize("N", range(1, 200, 7))
+@pytest.mark.parametrize("pieces", [(1, 1), (1, 3), (3, 1), (3, 3)])
+def test_mm_plan_widths(N, pieces):
+    plan = kmm.mm_plan(1000, N, 64, *pieces)
+    assert plan.bn in kmm.COLS and (plan.bn <= kmm.SPLIT_COLS or pieces == (1, 1))
+    assert plan.bn >= min(N, kmm.SPLIT_COLS if pieces != (1, 1) else kmm.COLS[-1])
+
+
+def test_mm_plan_depends_on_the_shape_alone():
+    """The splits, and so the wgrad's bits, are a function of the shape:
+    the same plan on every call and for every card."""
+    assert kmm.mm_plan(512, 256, 65536) == kmm.mm_plan(512, 256, 65536)
+    with pytest.raises(ValueError):
+        kmm.mm_plan(5, 5, 5, 2, 1)
+    with pytest.raises(ValueError):
+        kmm.mm_plan(-1, 5, 5)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_mm_operand_strides(transposed):
+    """An operand's (row, depth) strides as the kernel reads them: a row
+    stride of a strided view kept, a size-1 dimension's stride ignored, no
+    contiguous dimension refused."""
+    import torch
+
+    t = torch.zeros(8, 1044)[:, :1041]
+    want = (1, 1044) if transposed else (1044, 1)
+    assert kmm._operand(t, transposed, "a") == want
+    col = torch.zeros(8, 1)
+    assert kmm._operand(col, transposed, "a") == ((0, 1) if transposed else (1, 1))
+    row = torch.zeros(1, 8)
+    assert kmm._operand(row, transposed, "a") == ((1, 1) if transposed else (0, 1))
+    with pytest.raises(ValueError):
+        kmm._operand(torch.zeros(8, 8)[::2, ::2], transposed, "a")
+
+
+def test_mm_constants_match_the_source():
+    import re
+    from pathlib import Path
+
+    src = (Path(kmm.__file__).parent.parent / "csrc" / "mlp_mm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (const("kRows"), const("kDepth"), const("kBufs"), const("kMaxSplits")) == (
+        kmm.ROWS, kmm.DEPTH, kmm.BUFS, kmm.MAX_SPLITS)

@@ -30,6 +30,7 @@ from nvtabular_tpu_torch import models as pmodels
 from nvtabular_tpu_torch.kernels import LAUNCHES
 from nvtabular_tpu_torch.kernels import bce as kbce
 from nvtabular_tpu_torch.kernels import mlp_epilogue as kep
+from nvtabular_tpu_torch.kernels import mlp_mm as kmm
 from nvtabular_tpu_torch.kernels.adagrad import MAX_SEGMENTS, adagrad_plan
 
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16),
@@ -216,19 +217,20 @@ def test_mlp_vjp_follows_jax_at_a_nan_pre_activation(dtype):
 
 
 def test_epilogue_in_place_leaves_the_product_s_saved_inputs_intact():
-    """The epilogue writes over the product y in place (one launch a layer
-    on the card, no new [B, N] tensor): mm's saved inputs, the rounded h and
-    W, stay as they were, and the gradients equal those of the same layer
-    written out of place."""
+    """The epilogue runs in the product's store (K21's MLPProduct: one
+    launch a layer on the card, no second [B, N] pass): the product's saved
+    inputs, the rounded h and W, stay as they were, and the gradients equal
+    those of the same layer written out of place."""
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
     rng = np.random.default_rng(8)
     h0, w0 = rng.normal(size=(64, 13)).astype(np.float32), rng.normal(size=(13, 32)).astype(np.float32)
     b0, g = rng.normal(size=32).astype(np.float32), rng.normal(size=(64, 32)).astype(np.float32)
     h, w, b = (t(a).requires_grad_(True) for a in (h0, w0, b0))
     hr, wr = kep.round_tensors([h, w], torch.bfloat16)
     saved = hr.clone(), wr.clone()
-    y = torch.matmul(hr, wr)
-    out = kep.mlp_epilogue(y, b, relu=True, round_dtype=torch.bfloat16)
-    assert out.data_ptr() == y.data_ptr()
+    out = kmm.mlp_product(hr, wr, b, relu=True, round_dtype=torch.bfloat16)
+    assert out.data_ptr() not in (hr.data_ptr(), wr.data_ptr())
     assert torch.equal(hr, saved[0]) and torch.equal(wr, saved[1])
     out.backward(t(g))
     h2, w2, b2 = (t(a).requires_grad_(True) for a in (h0, w0, b0))
@@ -381,15 +383,15 @@ def test_epilogue_plan_refuses_bad_shapes():
 
 
 def test_wrappers_check_their_inputs():
-    y, b = torch.zeros(4, 3), torch.zeros(3)
-    for bad in ((torch.zeros(4, 3, dtype=torch.float64), b), (y, torch.zeros(4)), (torch.zeros(3, 4).t(), b),
-                (torch.zeros(12), b)):
+    y, w, b = torch.zeros(4, 3), torch.eye(3), torch.zeros(3)
+    for bad in ((torch.zeros(4, 3, dtype=torch.float64), w, b), (y, w, torch.zeros(4)), (y, torch.eye(4), b),
+                (torch.zeros(12), w, b)):
         with pytest.raises((TypeError, ValueError)):
-            kep.mlp_epilogue_fwd(*bad, relu=True)
+            kmm.mlp_mm_fwd(*bad, relu=True)  # the forward epilogue runs in K21's store
     with pytest.raises(ValueError):
         kep.mlp_epilogue_bwd(torch.zeros(4, 3), None, relu=True)  # ReLU's gradient needs the mask
     with pytest.raises(NotImplementedError):
-        kep.mlp_epilogue_fwd(y, b, True, torch.float64)
+        kmm.mlp_mm_fwd(y, w, b, True, torch.float64)
     with pytest.raises(ValueError):
         kep.round_group([torch.zeros(4), torch.zeros(4, dtype=torch.float64)], torch.bfloat16)
     with pytest.raises(ValueError):
@@ -401,7 +403,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         kbce.bce_bwd(torch.zeros(4), torch.zeros(4), torch.zeros(2))
     before = dict(LAUNCHES)
-    kep.mlp_epilogue_fwd(y, b, True, torch.bfloat16)
+    kmm.mlp_mm_fwd(y, w, b, True, torch.bfloat16)
     kbce.bce_fwd(torch.zeros(4), torch.zeros(4))
     assert LAUNCHES == before  # the plain versions count nothing
 
