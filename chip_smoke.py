@@ -757,12 +757,13 @@ def profile_pass(fn) -> dict:
 
 PROFILE_CALLS = 20  # a trace of a single short call can come back with no device events
 # phase 7's forward + backward by layer: patterns of the device kernels'
-# names (the port's kernels by their names in csrc/, K21 first; a library
-# product by cuBLAS's or CUTLASS's names, gemv's among them, which no
-# training step runs); any
+# names (the port's kernels by their names in csrc/, K21 first, with the
+# name of its first kernel so that kernel_ab.py splits an older tree too; a
+# library product by cuBLAS's or CUTLASS's names, gemv's among them, which
+# no training step runs); any
 # other kernel, fill or copy is "rest"
 LAYER_OF_KERNEL = (
-    ("K21", (r"\bmlp_mm_kernel\b",)),
+    ("K21", (r"\bmm_wide\b", r"\bmm_narrow\b", r"\bpack_b\b", r"\bmlp_mm_kernel\b")),
     ("products", (r"gemm", r"gemv", r"xmma", r"cutlass", r"splitK")),
     ("K13a", (r"\bgather_kernel\b", r"\bscatter_grad_kernel\b")),
     ("K13b", (r"\binteraction_(fwd|bwd)",)),
@@ -1499,14 +1500,21 @@ def k21_held(name, got, want, A, B, terms, planted=None) -> dict:
     return held
 
 
-def k21_record(name, shape, terms, fns, nbytes, flops, held) -> dict:
+def k21_record(name, shape, plan, pieces, fns, nbytes, held) -> dict:
     """A K21 record: the kernel, its plain version, cuBLAS float32 and
-    bfloat16 torch.matmul timed beside the bound (bytes at 3.35 TB/s, the
-    split's exact products at the bfloat16 tensor-core rate), with what
-    ``k21_held`` found."""
+    bfloat16 torch.matmul timed beside the bound, with what ``k21_held``
+    found. ``shape`` is [M, K, N] of C = A [M, K] B [K, N] and ``plan`` its
+    ``mm_plan``, whose path the record names and whose yardstick the bound
+    takes: bytes at 3.35 TB/s, or the operations, on the narrow path the
+    float32 products at 67 TFLOP/s, on the wide path the pieces' exact
+    products at the bfloat16 tensor-core rate."""
     kernel, plain, lib32, lib16 = fns
+    M, K, N = shape
+    terms = plan.terms(K, *pieces)
+    flops = 2 * M * N * terms
     rec = {
-        "max_abs_err": held.pop("max_abs_err"), "terms": terms, "shape": shape, "bytes": nbytes, "flops": flops,
+        "max_abs_err": held.pop("max_abs_err"), "path": plan.path, "tile": [plan.bm, plan.bn], "terms": terms,
+        "shape": shape, "bytes": nbytes, "flops": flops,
         "ms": time_ms(kernel, warm=K21_WARMUP_S),
         "plain_ms": time_ms(plain, warm=K21_WARMUP_S),
         "library_ms": time_ms(lib32, warm=K21_WARMUP_S),
@@ -1515,7 +1523,7 @@ def k21_record(name, shape, terms, fns, nbytes, flops, held) -> dict:
                         "tensors, which rounds its output to bfloat16 (a yardstick of time only)",
         **held,
     }
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_OPS_PER_S)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_OPS_PER_S if plan.path == "wide" else FP32_OPS_PER_S)
     return rec
 
 
@@ -1536,10 +1544,12 @@ def k21_mode_records(tag, h, w, b, relu, rnd, g, h_exact, first) -> dict:
     M, K = h.shape
     N = w.shape[1]
     pieces = kmm.operand_pieces(h_exact)
+    plan = kmm.mm_plan(M, N, K, pieces, pieces)
+    terms = plan.terms(K, pieces, pieces)
     y = torch.matmul(h, w)
     alone = kmm.mlp_mm_fwd(h, w, None, False, None, h_exact)[0]
     name = f"mlp_mm_fwd {tag} [{M}, {K}, {N}]"
-    held = k21_held(name, alone, y, h, w, K * pieces * pieces)
+    held = k21_held(name, alone, y, h, w, terms)
     held["max_abs_err"] = float((alone - y).abs().max())
     if b is None:  # a cross layer's store is the product alone
         out, mask, want, want_mask = alone, None, y, None
@@ -1548,7 +1558,7 @@ def k21_mode_records(tag, h, w, b, relu, rnd, g, h_exact, first) -> dict:
         want = y.clone()
         want_mask = kep.mlp_epilogue_fwd_plain(want, b, relu, rnd)
         z = y + b
-        bnd = product_bound(h, w, K * pieces * pieces)
+        bnd = product_bound(h, w, terms)
         # rounding both sides to bfloat16 moves each by at most half an ULP: within one ULP beyond the bound
         lim = bnd + (bf16_ulp(torch.maximum(out.abs(), want.abs())) if rnd is not None else 2.0**-23 * z.abs())
         fused_ok = bool((((out.double() - want.double()).abs() <= lim) | (torch.isnan(out) & torch.isnan(want))).all())
@@ -1565,49 +1575,50 @@ def k21_mode_records(tag, h, w, b, relu, rnd, g, h_exact, first) -> dict:
     hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
     held["mode"] = {"bias": b is not None, "relu": relu, "round": str(rnd)}
     records[name] = k21_record(
-        name, [M, K, N], K * pieces * pieces,
+        name, [M, K, N], plan, (pieces, pieces),
         (lambda: kmm.mlp_mm_fwd(h, w, b, relu, rnd, h_exact), lambda: kmm.mlp_mm_fwd_plain(h, w, b, relu, rnd),
          lambda: torch.matmul(h, w), lambda: torch.matmul(hb, wb)),
-        4 * (M * K + K * N) + ebytes, 2 * M * N * K * pieces * pieces, held)
+        4 * (M * K + K * N) + ebytes, held)
     del alone, y
 
     dz = kep.mlp_epilogue_bwd_plain(g, want_mask, relu, rnd)[0] if b is not None else g
     dz_exact = rnd == torch.bfloat16
-    dp = kmm.operand_pieces(dz_exact) * pieces
+    dzp = kmm.operand_pieces(dz_exact)
     dzb = dz.to(torch.bfloat16)
     if not first:
         got = kmm.mlp_mm_dgrad(dz, w, dz_exact, h_exact)
         want_dh = torch.matmul(dz, w.t())
         name = f"mlp_mm_dgrad {tag} [{M}, {N}, {K}]"
-        held = k21_held(name, got, want_dh, dz, w.t(), N * dp)
-        held.update(max_abs_err=float((got - want_dh).abs().max()), dz_pieces=kmm.operand_pieces(dz_exact))
+        dplan = kmm.mm_plan(M, K, N, dzp, pieces)
+        held = k21_held(name, got, want_dh, dz, w.t(), dplan.terms(N, dzp, pieces))
+        held.update(max_abs_err=float((got - want_dh).abs().max()), dz_pieces=dzp)
         del got, want_dh
         records[name] = k21_record(
-            name, [M, N, K], N * dp,
+            name, [M, N, K], dplan, (dzp, pieces),
             (lambda: kmm.mlp_mm_dgrad(dz, w, dz_exact, h_exact), lambda: kmm.mlp_mm_dgrad_plain(dz, w),
              lambda: torch.matmul(dz, w.t()), lambda: torch.matmul(dzb, wb.t())),
-            4 * (M * N + N * K + M * K), 2 * M * N * K * dp, held)
+            4 * (M * N + N * K + M * K), held)
     got = kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact)
     again = kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact)
     want_dw = torch.matmul(h.t(), dz)
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
         fail(f"mlp_mm_wgrad {tag}: two runs differ in their bits")
     name = f"mlp_mm_wgrad {tag} [{K}, {M}, {N}]"
-    plan = kmm.mm_plan(K, N, M, pieces, kmm.operand_pieces(dz_exact))
+    plan = kmm.mm_plan(K, N, M, pieces, dzp)
     kept = (plan.splits - 1) * plan.k_split  # the rows of every split but the last
 
     def planted():  # the weight gradient of a kernel that leaves its last split out
         return kmm.mlp_mm_wgrad(h[:kept], dz[:kept], h_exact, dz_exact)
 
-    held = k21_held(name, got, want_dw, h.t(), dz, M * dp, planted if plan.splits > 1 else None)
-    held.update(max_abs_err=float((got - want_dw).abs().max()), dz_pieces=kmm.operand_pieces(dz_exact),
-                splits=plan.splits, same_bits_twice=True)
+    held = k21_held(name, got, want_dw, h.t(), dz, plan.terms(M, pieces, dzp), planted if plan.splits > 1 else None)
+    held.update(max_abs_err=float((got - want_dw).abs().max()), dz_pieces=dzp, splits=plan.splits,
+                same_bits_twice=True)
     del got, again, want_dw
     records[name] = k21_record(
-        name, [K, M, N], M * dp,
+        name, [K, M, N], plan, (pieces, dzp),
         (lambda: kmm.mlp_mm_wgrad(h, dz, h_exact, dz_exact), lambda: kmm.mlp_mm_wgrad_plain(h, dz),
          lambda: torch.matmul(h.t(), dz), lambda: torch.matmul(hb.t(), dzb)),
-        4 * (M * K + M * N + K * N), 2 * M * N * K * dp, held)
+        4 * (M * K + M * N + K * N), held)
     return want, records
 
 
@@ -1647,7 +1658,7 @@ def k21_records(model, batch) -> dict:
                 records.update(recs)
     log("train: K21 at DLRM's six layers within 2 gamma_T (|A| |B|) of the plain products and within "
         f"{K21_LAMBDA} sqrt(T) u (|A| |B|) of float64 sums: " + ", ".join(
-        f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bf16 "
+        f"{name} {r['path']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bf16 "
         f"{r['library_bf16_ms']:.4f}, bound {r['bound_ms']:.4f}, shares {r['bound_share']:.3g} of 2 gamma_T, "
         f"{r['float64_share']:.3g} of the float64 bound"
         + (f", planted fault {r['planted_fault_share']:.3g}" if "planted_fault_share" in r else "")
@@ -1669,9 +1680,44 @@ def cross_k21_records(inputs) -> dict:
         _, records = k21_mode_records("cross.1", xr, w, None, False, None, dxw, True, first=False)
     log("dcn: K21 at the cross layer within 2 gamma_T (|A| |B|) of the plain products and within "
         f"{K21_LAMBDA} sqrt(T) u (|A| |B|) of float64 sums: " + ", ".join(
-            f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bound "
+            f"{name} {r['path']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuBLAS {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f}, shares {r['bound_share']:.3g} and {r['float64_share']:.3g}"
             + (f", planted fault {r['planted_fault_share']:.3g}" if "planted_fault_share" in r else "") + ")"
+            for name, r in records.items()))
+    return records
+
+
+# The main paths' layers that phases 8 and 17 do not time: the tabular MLP's (phase 10, 1041-512-256-1),
+# DeepFM's MLP (429-256-128-1) and DCN's deep (429-256-128, ReLU after its last layer) and out (557-1) MLPs (phase
+# 16): (tag, widths, ReLU after the last layer)
+K21_MORE_LAYERS = (("tabular", (1041, 512, 256, 1), False), ("deepfm", (429, 256, 128, 1), False),
+                   ("dcn.deep", (429, 256, 128), True), ("dcn.out", (557, 1), False))
+
+
+def more_k21_records(dev) -> dict:
+    """Phase 17's K21 records at K21_MORE_LAYERS, a batch of TRAIN_BS:
+    bfloat16-valued inputs and weights drawn at the layers' widths, each
+    layer's input the plain output of the one before, an output gradient
+    drawn for each layer (its dz through K19's plain backward: rounded to
+    bfloat16 in a hidden layer, float32 after the last, which the wide path
+    splits where the last layer is wide: DCN's deep tower). Every mode of
+    every layer held to both bounds and timed as ``k21_mode_records`` does."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    records = {}
+    with torch.no_grad():
+        for tag, widths, final_relu in K21_MORE_LAYERS:
+            h = torch.randn((TRAIN_BS, widths[0]), device=dev, generator=gen).bfloat16().float()
+            for i, (k, n) in enumerate(zip(widths, widths[1:])):
+                last = i == len(widths) - 2
+                w = (torch.randn((k, n), device=dev, generator=gen) * k**-0.5).bfloat16().float()
+                b = torch.randn(n, device=dev, generator=gen).mul_(0.1)
+                g = torch.randn((TRAIN_BS, n), device=dev, generator=gen).mul_(1e-3)
+                h, recs = k21_mode_records(f"{tag}.{i}", h, w, b, not last or final_relu,
+                                           None if last else torch.bfloat16, g, True, first=False)
+                records.update(recs)
+    log("layers: K21 at the tabular, DeepFM and DCN MLPs within 2 gamma_T (|A| |B|) of the plain products and "
+        f"within {K21_LAMBDA} sqrt(T) u (|A| |B|) of float64 sums: " + ", ".join(
+            f"{name} {r['path']} {r['ms']:.4f} ms (cuBLAS {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})"
             for name, r in records.items()))
     return records
 
@@ -3091,6 +3137,7 @@ def factorized_kernel_records(recs) -> dict:
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], 4 * B * N)
     records["cross_bwd"] = rec
     records.update(cross_k21_records(k))
+    records.update(more_k21_records(xw.device))
     return records
 
 
@@ -5406,7 +5453,7 @@ def main():
                 "library_ms": rec["library_ms"],
                 "bytes": rec["bytes"],
                 "shape": rec["shape"],
-                **{k: rec[k] for k in ("library_bf16_ms", "launches_by_path") if k in rec},
+                **{k: rec[k] for k in ("library_bf16_ms", "launches_by_path", "path", "tile") if k in rec},
             }
         )
     if opts.out:

@@ -797,11 +797,20 @@ DLRM_LAYERS = ((NUM_CONTS, 512, "bottom.0", True, False, True), (512, 256, "bott
                (256, TRAIN_DIM, "bottom.2", False, True, True), (TRAIN_DIM + 351, 512, "top.0", False, False, True),
                (512, 256, "top.1", False, False, True), (256, 1, "top.2", False, True, False))
 TABULAR_SIZES = {"userId": (ML_USERS + 3, 512), "movieId": (ML_MOVIES + 3, 512)}  # phase 10's MLP input: 1041
+# The other main paths' layers (chip_smoke.py K21_MORE_LAYERS and DCN's cross layer), as DLRM_LAYERS: the cross
+# layer's store has no bias (its dz, x0 * g, float32), the tabular MLP's (phase 10), DeepFM's MLP, DCN's deep tower
+# (ReLU after its last layer) and its out layer (phase 16)
+K21_MORE_LAYERS = ((429, 429, "cross.1", False, True, False), (1041, 512, "tabular.0", False, False, True),
+                   (512, 256, "tabular.1", False, False, True), (256, 1, "tabular.2", False, True, False),
+                   (429, 256, "deepfm.0", False, False, True), (256, 128, "deepfm.1", False, False, True),
+                   (128, 1, "deepfm.2", False, True, False), (429, 256, "dcn.deep.0", False, False, True),
+                   (256, 128, "dcn.deep.1", False, True, True), (557, 1, "dcn.out.0", False, True, False))
 
 
 def k21_cases(torch, dev, gen, ids, sizes, case) -> None:
-    """K21 at phase 7's six layers, each mode, held to 2 gamma_K (|A| |B|)
-    of torch.matmul (chip_smoke.py product_bound); on a tree without
+    """K21 at phase 7's six layers and K21_MORE_LAYERS, each mode, held to
+    2 gamma_K (|A| |B|) of torch.matmul (chip_smoke.py product_bound; K
+    times the split's pieces, the most terms either path sums); on a tree without
     ``kernels/mlp_mm.py`` what its layers ran: torch.matmul in float32 and,
     for the forward, K19's forward in place after it. Then one forward +
     backward of phase 7's DLRM, DCN-v2 and DeepFM over the same tables
@@ -815,12 +824,12 @@ def k21_cases(torch, dev, gen, ids, sizes, case) -> None:
     smoke = smoke_module()
     has = importlib.util.find_spec("nvtabular_tpu_torch.kernels.mlp_mm") is not None
     cdt = torch.bfloat16
-    for K, N, tag, first, last, relu in DLRM_LAYERS:
+    for K, N, tag, first, last, relu in DLRM_LAYERS + K21_MORE_LAYERS:
         h = torch.randn((BATCH, K), device=dev, generator=gen).to(cdt).float()
         w = (torch.randn((K, N), device=dev, generator=gen) * K**-0.5).to(cdt).float()
-        b = torch.randn(N, device=dev, generator=gen)
+        b = None if tag.startswith("cross.") else torch.randn(N, device=dev, generator=gen)
         dz = torch.randn((BATCH, N), device=dev, generator=gen) * 1e-3
-        rnd = None if last else cdt
+        rnd = None if last or b is None else cdt
         if not last:
             dz = dz.to(cdt).float()
         names = (f"mlp_mm_fwd {tag} [{BATCH}, {K}, {N}]", f"mlp_mm_dgrad {tag} [{BATCH}, {N}, {K}]",
@@ -848,7 +857,8 @@ def k21_cases(torch, dev, gen, ids, sizes, case) -> None:
         else:
             def fwd(h=h, w=w, b=b, r=relu, c=rnd):
                 y = torch.matmul(h, w)
-                kep.mlp_epilogue_fwd(y, b, r, c)
+                if b is not None:
+                    kep.mlp_epilogue_fwd(y, b, r, c)
                 return y
 
             case(names[0], fwd)

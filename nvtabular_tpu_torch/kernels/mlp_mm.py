@@ -19,12 +19,18 @@ bias, ReLU and the hidden layer's round into the product's epilogue. Here
   along the batch with the splits summed in a fixed order (the same bits
   from run to run).
 
-The products run in bfloat16 on the tensor cores with float32 sums. An
-operand whose values are bfloat16 (``exact``: the rounded inputs and
-weights, a hidden layer's rounded gradient) is converted exactly; any other
-float32 operand is split into three bfloat16 pieces whose sum is the value
-(``operand_pieces``), so every product is exact and only the float32 sums
-round, in another order than ``torch.matmul``'s.
+``mm_plan`` picks one of two paths by the shape alone. Where ``min(M, N,
+K) <= NARROW_MAX`` (16: at DLRM's layers the bottom MLP's first layer's
+forward and weight gradient and the three products of each MLP's last
+layer; every N = 1 last layer) the narrow path sums float32 ``fmaf``
+products of the operands as they are on the CUDA cores: the product is
+exact inside ``fmaf`` and only the sum rounds. Every other product takes
+the wide path, ``wgmma`` on the tensor cores in bfloat16 with float32
+sums: an operand whose values are bfloat16 (``exact``: the rounded inputs
+and weights, a hidden layer's rounded gradient) is converted exactly; any
+other float32 operand is split into three bfloat16 pieces whose sum is the
+value (``operand_pieces``). Either way every product is exact and only the
+float32 sums round, in another order than ``torch.matmul``'s.
 
 ``MLPProduct`` is the layer's autograd function: the backward runs K19's
 ``mlp_epilogue_bwd`` for dz (where the layer has a bias, ReLU or a round),
@@ -50,68 +56,128 @@ from . import LAUNCHES, ptr, raise_on_error, stream_ptr, tickets, use_kernel
 from .build import library
 from .mlp_epilogue import ROUND_KINDS, mlp_epilogue_bwd, mlp_epilogue_bwd_plain, mlp_epilogue_fwd_plain
 
-ROWS = 128  # csrc/mlp_mm.cu kRows: a tile's rows of C (64 a warpgroup)
-DEPTH = 32  # kDepth: a step's depth along K
-BUFS = 3  # kBufs: the ring of staged steps
-COLS = (8, 16, 64, 128)  # a tile's columns: wgmma's n-widths the kernel is built for
-SPLIT_COLS = 64  # the widest tile with a split operand (two accumulators a thread)
-# blocks a launch aims at when it splits K: 2 blocks on each of an H100's
-# 132 SMs (a constant, so that the splits, and so the bits, depend on the
-# shape alone)
-TARGET_BLOCKS = 264
-MIN_SPLIT_STEPS = 8  # the least depth of a split, in steps
-MAX_SPLITS = 65535  # gridDim.y's limit
-MAX_TILES = 2**31 - 1  # gridDim.x's limit
+NARROW_MAX = 16  # the narrow path where min(M, N, K) <= NARROW_MAX, else the wide path
+# The narrow path (csrc/mlp_mm.cu mm_narrow): tiles of C by the smallest dimension, a thread a TM x 4 block of
+# them (the "n" tile 128 threads, the others 256)
+NARROW_DEPTH = 16  # kNarrowDepth: a stage's depth
+NARROW_TILES = {"k": (64, 128), "n": (128, 16), "n4": (256, 4), "m": (16, 256)}
+# kNDepth: where N is the small side the stages stream A's rows 32 deep (more bytes in flight a stage)
+NARROW_DEPTHS = {"k": NARROW_DEPTH, "n": 32, "n4": 32, "m": NARROW_DEPTH}
+NARROW_TARGET_BLOCKS = 264  # blocks a split launch aims at: 2 on each of an H100's 132 SMs
+NARROW_MIN_SPLIT_STEPS = 8  # the least depth of a split, in stages
+# The wide path (mm_wide): a persistent grid of one block an SM, tiles by the operands' pieces
+DEPTH = 64  # kStageDepth: a stage's depth, one 128-byte swizzle row of bfloat16
+WIDE_TILES = {(1, 1): (128, 128), (3, 1): (64, 128), (1, 3): (128, 64), (3, 3): (64, 64)}
+WIDE_COLS = 256  # the widest tile with bfloat16 operands, taken where N > 128
+MIN_STAGES, MAX_STAGES = 4, 8  # kMinStages, kMaxStages: the ring of stages
+EPI_BYTES = 2 * 64 * 68 * 4  # kEpiBytes: the consumers' staging of the accumulators for their store
+BAR_BYTES = 2 * MAX_STAGES * 8 + 16  # kBarBytes: the full and empty barriers and the ticket flag
+SMEM_LIMIT = 232_448  # kSmemLimit: an H100 block's shared memory after the opt-in
+# units (a tile and a split) a split launch aims at: one wave of the persistent grid on an H100's 132 SMs (a
+# constant, so that the splits, and so the bits, depend on the shape alone)
+WAVE = 132
+MIN_SPLIT_STEPS = 4  # the least depth of a wide split, in stages
+SPLIT_GROUP = 16  # kSplitGroup: splits a group's ticket sums before the tile's ticket sums the groups
+MAX_SPLITS = 65535  # kMaxSplits: the narrow path's gridDim.y
+MAX_TILES = 2**31 - 1
 
-# a, a_sr, a_sk, a_vec, a_pieces, b, b_sr, b_sk, b_vec, b_pieces, M, N, K, bn, k_split, splits, c, bias, mask,
-# relu, round, partial, tickets, stream
+# a, a_sr, a_sk, a_vec, a_pieces, b, b_sr, b_sk, b_vec, b_pieces, M, N, K, path, bm, bn, stages, k_split, splits,
+# groups, c, bias, mask, relu, round, partial, tickets, packed, stream
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int] * 2
-             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3)
+             + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
 
 
 class MMPlan(NamedTuple):
+    path: str  # "narrow" (CUDA cores, fmaf) or "wide" (tensor cores)
+    bm: int  # a tile's rows
     bn: int  # a tile's columns
     col_tiles: int
     row_tiles: int
-    splits: int  # splits of K (gridDim.y)
-    k_split: int  # the depth of a split, a multiple of DEPTH
-    smem: int  # a block's dynamic shared memory in bytes
+    splits: int  # splits of K
+    k_split: int  # the depth of a split, a multiple of the path's stage depth
+    groups: int  # the splits' ticket groups: ceil(splits / SPLIT_GROUP)
+    stages: int  # the wide path's ring (0 on the narrow path)
+    smem: int  # a block's shared memory in bytes
+    packed: int  # the wide path's scratch for B packed into its stages, in bytes (0 on the narrow path)
 
     @property
     def tiles(self) -> int:
         return self.col_tiles * self.row_tiles
 
+    def terms(self, K: int, a_pieces: int, b_pieces: int) -> int:
+        """The products a sum of C adds: K on the narrow path (the float32
+        values as they are), K times both operands' pieces on the wide."""
+        return K * (a_pieces * b_pieces if self.path == "wide" else 1)
+
 
 def operand_pieces(exact: bool) -> int:
-    """The bfloat16 pieces an operand takes: 1 for bfloat16 values, 3
-    (hi, mid, lo) for any other float32 values."""
+    """The bfloat16 pieces an operand takes on the wide path: 1 for
+    bfloat16 values, 3 (hi, mid, lo) for any other float32 values."""
     return 1 if exact else 3
 
 
+def narrow_tile(M: int, N: int, K: int) -> str:
+    """The narrow path's tile (NARROW_TILES) by the smallest dimension."""
+    if K <= min(M, N):
+        return "k"
+    if N <= M:
+        return "n4" if N <= 4 else "n"
+    return "m"
+
+
+def _splits(tiles: int, steps: int, target: int, min_steps: int) -> Tuple[int, int]:
+    """(splits, steps a split) of K where the tiles leave the card idle
+    (fewer than ``target``) and K is deep (at least 2 ``min_steps``)."""
+    splits = 1
+    if 0 < tiles < target and steps >= 2 * min_steps:
+        splits = min(max(1, target // tiles), steps // min_steps, MAX_SPLITS)
+    split_steps = max(1, -(-steps // splits))
+    return max(1, -(-steps // split_steps)), split_steps
+
+
 def mm_plan(M: int, N: int, K: int, a_pieces: int = 1, b_pieces: int = 1) -> MMPlan:
-    """The launch of ``C[M, N] = A[M, K] B[K, N]``: tiles of ROWS rows by
-    ``bn`` columns (the narrowest of COLS that covers N, at most SPLIT_COLS
-    with a split operand), and K in ``splits`` splits of ``k_split`` where
-    the tiles leave the card idle (fewer than TARGET_BLOCKS) and K is deep
-    (at least 2 MIN_SPLIT_STEPS steps): the wgrad, whose K is the batch."""
+    """The launch of ``C[M, N] = A[M, K] B[K, N]``, by the shape alone: the
+    narrow path where ``min(M, N, K) <= NARROW_MAX`` (NARROW_TILES; K split
+    for about NARROW_TARGET_BLOCKS blocks where the tiles are few and K deep:
+    the wgrad, whose K is the batch), else the wide path (WIDE_TILES, 128 x
+    256 where N > 128 with bfloat16 operands; as many stages as shared memory
+    holds, at most MAX_STAGES; K split for about one WAVE of units; B packed
+    into its stages once a launch, ``packed`` bytes of scratch, where K is
+    not split or B takes three pieces)."""
     if min(M, N, K) < 0 or a_pieces not in (1, 3) or b_pieces not in (1, 3):
         raise ValueError(f"no product plan for [{M}, {K}] x [{K}, {N}] with pieces {a_pieces}, {b_pieces}")
-    widest = COLS[-1] if a_pieces == b_pieces == 1 else SPLIT_COLS
-    bn = next((c for c in COLS if c >= N), COLS[-1])
-    bn = min(bn, widest)
-    col_tiles, row_tiles = -(-N // bn), -(-M // ROWS)
-    steps = -(-K // DEPTH)
-    splits = 1
+    if min(M, N, K) <= NARROW_MAX:
+        tile = narrow_tile(M, N, K)
+        bm, bn = NARROW_TILES[tile]
+        depth, stages = NARROW_DEPTHS[tile], 0
+        # A's tile depth-major or, K-major, row-major: the larger of the two
+        smem = 2 * max(depth * (bm + 4), bm * (depth + 4)) * 4 + 2 * depth * (bn + 4) * 4
+    else:
+        bm, bn = WIDE_TILES[(a_pieces, b_pieces)]
+        if a_pieces == b_pieces == 1 and N > bn:
+            bn = WIDE_COLS
+        depth = DEPTH
+        stage = (a_pieces * bm + b_pieces * bn) * DEPTH * 2
+        stages = min(MAX_STAGES, (SMEM_LIMIT - EPI_BYTES - BAR_BYTES) // stage)
+        smem = stages * stage + EPI_BYTES + BAR_BYTES
+    col_tiles, row_tiles = -(-N // bn), -(-M // bm)
     tiles = col_tiles * row_tiles
-    if 0 < tiles < TARGET_BLOCKS and steps >= 2 * MIN_SPLIT_STEPS:
-        splits = min(-(-TARGET_BLOCKS // tiles), steps // MIN_SPLIT_STEPS, MAX_SPLITS)
-    split_steps = max(1, -(-steps // splits))
-    splits = max(1, -(-steps // split_steps))
-    if tiles > MAX_TILES:
-        raise ValueError(f"[{M}, {N}] needs {tiles} tiles, past gridDim.x's {MAX_TILES}")
-    smem = BUFS * (a_pieces * ROWS + b_pieces * bn) * DEPTH * 2
-    return MMPlan(bn, col_tiles, row_tiles, splits, split_steps * DEPTH, smem)
+    steps = -(-K // depth)
+    if stages:
+        splits, split_steps = _splits(tiles, steps, WAVE, MIN_SPLIT_STEPS)
+    else:
+        splits, split_steps = _splits(tiles, steps, NARROW_TARGET_BLOCKS, NARROW_MIN_SPLIT_STEPS)
+    if tiles > MAX_TILES or tiles * splits > MAX_TILES:
+        raise ValueError(f"[{M}, {N}] needs {tiles} tiles, past the grid's {MAX_TILES}")
+    # B packed once a launch where it is read again for every row tile (a forward's or input gradient's weights)
+    # or takes three pieces (DCN's split cross gradient); a weight gradient's bfloat16 dz streams through the
+    # producers as A does
+    pack = stages and (splits == 1 or b_pieces == 3)
+    packed = col_tiles * max(1, steps) * b_pieces * bn * DEPTH * 2 if pack else 0
+    return MMPlan("wide" if stages else "narrow", bm, bn, col_tiles, row_tiles, splits, split_steps * depth,
+                  -(-splits // SPLIT_GROUP), stages, smem, packed)
 
 
 def _operand(t: torch.Tensor, transposed: bool, what: str) -> Tuple[int, int]:
@@ -179,18 +245,22 @@ def mm_launch(name: str, a: torch.Tensor, a_t: bool, a_exact: bool, b: torch.Ten
         return out, mask
     stream = stream_ptr(dev)
     partial = torch.empty((plan.splits, M, N), dtype=torch.float32, device=dev) if plan.splits > 1 else None
-    counters = tickets(dev, stream, plan.tiles) if plan.splits > 1 else None
+    counters = tickets(dev, stream, plan.tiles * (plan.groups + 1)) if plan.splits > 1 else None
+    packed = torch.empty(plan.packed, dtype=torch.uint8, device=dev) if plan.packed else None
 
-    def vec(t, sr, sk, rows):
-        return int(sk == 1 and t.data_ptr() % 16 == 0 and (rows == 1 or sr % 4 == 0))
+    def vec(t, sr, sk, rows):  # 16-byte loads along the contiguous dimension
+        if t.data_ptr() % 16:
+            return 0
+        return int(rows <= 1 or sr % 4 == 0) if sk == 1 else int(K <= 1 or sk % 4 == 0)
 
     fn = library("mlp_mm").nvt_mlp_mm
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     rc = fn(ptr(a), a_sr, a_sk, vec(a, a_sr, a_sk, M), pa, ptr(b), b_sr, b_sk, vec(b, b_sr, b_sk, N), pb,
-            M, N, K, plan.bn, plan.k_split, plan.splits, ptr(out), ptr(bias), ptr(mask), int(relu),
-            ROUND_KINDS[round_dtype], ptr(partial), ptr(counters), stream)
+            M, N, K, int(plan.path == "wide"), plan.bm, plan.bn, plan.stages, plan.k_split, plan.splits,
+            plan.groups, ptr(out), ptr(bias), ptr(mask), int(relu), ROUND_KINDS[round_dtype], ptr(partial),
+            ptr(counters), ptr(packed), stream)
     raise_on_error(rc, name)
     LAUNCHES[name] += 1
     if bias is not None:
@@ -251,7 +321,7 @@ def mlp_mm_wgrad_plain(h: torch.Tensor, dz: torch.Tensor, h_exact: bool = True, 
 
 def split_pieces(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's three bfloat16 pieces of float32 values (csrc/mlp_mm.cu
-    split3): hi = bf16(x) (rounded toward zero past bfloat16's largest
+    split3x2): hi = bf16(x) (rounded toward zero past bfloat16's largest
     finite value), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
     rounded to nearest even; a non-finite x is hi alone. hi + mid + lo == x
     for every finite |x| >= 2^-110, and within 2^-134 of x below."""

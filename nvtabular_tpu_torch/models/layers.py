@@ -105,9 +105,14 @@ class MLP(nn.Module):
     returns float32, the bias is added in float32, then ReLU, and the result
     is rounded to ``compute_dtype`` between layers; the output is float32.
     Every product of two bfloat16 values is exact in float32 and only the
-    float32 sums round: K21 multiplies the rounded values as bfloat16 on
-    the tensor cores with float32 sums (a float32 operand, such as the last
-    layer's unrounded gradient, in three exact bfloat16 pieces); the plain
+    float32 sums round. K21 takes one of two paths by the product's shape:
+    where one of its dimensions is at most 16 (a last layer of one or 16
+    outputs, a first layer of 13 inputs, their gradients) it sums float32
+    ``fmaf`` products of the values as they are on the CUDA cores, exact
+    products for float32 operands too, such as the last layer's unrounded
+    gradient; every other product runs on the tensor cores in bfloat16 with
+    float32 sums (a float32 operand, such as DCN's cross gradient, in three
+    exact bfloat16 pieces). The plain
     version multiplies them as float32 tensors, which needs float32 matrix
     products in full float32, PyTorch's default on CUDA
     (``torch.backends.cuda.matmul.allow_tf32`` False). A bfloat16

@@ -3907,15 +3907,27 @@ def test_training_steps_through_k19_k20_match_plain(family):
 K21_MAIN_SHAPES = [(65536, 13, 512), (65536, 512, 256), (65536, 256, 16), (65536, 367, 512), (65536, 256, 1),
                    (65536, 1, 512), (65536, 256, 64), (65536, 429, 256), (65536, 256, 128), (65536, 128, 1),
                    (65536, 557, 1), (65536, 429, 429), (65536, 1041, 512)]
-# tiles' edges: M not a multiple of 64 or 128, K not a multiple of 16 or 32, N past each tile width, K = 0
+# tiles' edges: M not a multiple of 64 or 128, K not a multiple of 16 or 32, N past each tile width, K = 0; and the
+# paths' edges (kmm.NARROW_MAX = 16): K = 1, 13, 16, 17, N = 1, 16, 17, 257, M = 13, each product of a layer on
+# either side of it (the forward [M, K] x [K, N], the input gradient [M, N] x [N, K], the weight gradient [K, M]
+# x [M, N])
 K21_EDGE_SHAPES = [(1, 1, 1), (100, 13, 1), (77, 5, 3), (64, 16, 8), (130, 40, 70), (129, 33, 129),
-                   (200, 17, 65), (3, 0, 5), (1000, 1000, 9), (4097, 600, 17)]
+                   (200, 17, 65), (3, 0, 5), (1000, 1000, 9), (4097, 600, 17), (300, 16, 300), (300, 17, 300),
+                   (13, 300, 257), (17, 300, 257), (700, 300, 16), (700, 300, 17), (1000, 257, 1), (333, 1, 257)]
+
+
+def _k21_terms(M, N, K, a_pieces, b_pieces):
+    """The products a sum of ``C[M, N] = A[M, K] B[K, N]`` adds on the path
+    the plan takes (the narrow path sums the float32 values as they are)."""
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    return kmm.mm_plan(M, N, K, a_pieces, b_pieces).terms(K, a_pieces, b_pieces)
 
 
 def _k21_bound(A, B, terms, split=False):
     """2 gamma_terms (|A| |B|) in float64, and terms * 2^-149 where the sums
     are float32 subnormals; with a split operand A, also 2^-134 (|B| summed)
-    for the pieces of A's values below 2^-110 (csrc/mlp_mm.cu split3)."""
+    for the pieces of A's values below 2^-110 (csrc/mlp_mm.cu split3x2)."""
     u = 2.0**-24
     mag = A.double().abs() @ B.double().abs()
     bnd = 2 * terms * u / (1 - terms * u) * mag + terms * 2.0**-149
@@ -3980,8 +3992,9 @@ def test_k21_modes_match_plain(M, K, N, exact_dz):
     assert (kernels.LAUNCHES["mlp_mm_fwd"], kernels.LAUNCHES["mlp_mm_dgrad"],
             kernels.LAUNCHES["mlp_mm_wgrad"]) == (int(M * N > 0), int(M * K > 0), 2 * int(K * N > 0))
     _k21_close(y, h @ w, _k21_bound(h, w, K), "forward")
-    _k21_close(dh, g @ w.t(), _k21_bound(g, w.t(), N * p, not exact_dz), "dgrad")
-    _k21_close(dw, h.t() @ g, _k21_bound(h.t(), g, M * p), "wgrad")
+    split = not exact_dz and kmm.mm_plan(M, K, N, p, 1).path == "wide"
+    _k21_close(dh, g @ w.t(), _k21_bound(g, w.t(), _k21_terms(M, K, N, p, 1), split), "dgrad")
+    _k21_close(dw, h.t() @ g, _k21_bound(h.t(), g, _k21_terms(K, N, M, 1, p)), "wgrad")
     assert torch.equal(dw.view(torch.int32), dw2.view(torch.int32))
 
 
@@ -4005,7 +4018,7 @@ def test_k21_wgrad_at_the_batch_within_the_probable_bound(M, K, N, exact_dz):
     plan = kmm.mm_plan(K, N, M, 1, p)
     assert plan.splits > 1
     exact = h.double().t() @ g.double()
-    bnd = K21_LAMBDA * (M * p) ** 0.5 * 2.0**-24 * (h.double().abs().t() @ g.double().abs())
+    bnd = K21_LAMBDA * plan.terms(M, 1, p) ** 0.5 * 2.0**-24 * (h.double().abs().t() @ g.double().abs())
     dw = kmm.mlp_mm_wgrad(h, g, True, exact_dz)
     assert bool(((dw.double() - exact).abs() <= bnd).all()), float(((dw.double() - exact).abs() / bnd).max())
     kept = (plan.splits - 1) * plan.k_split
@@ -4070,24 +4083,58 @@ def test_k21_fused_forward_matches_matmul_and_k19(M, K, N, mode):
 
 
 @pytest.mark.parametrize("exact_dz", [True, False], ids=["dz_bf16", "dz_f32"])
-@pytest.mark.parametrize("M,K,N", [(130, 40, 70), (4097, 600, 17), (65536, 256, 1), (1000, 429, 429)])
+@pytest.mark.parametrize("M,K,N", [(130, 40, 70), (4097, 600, 17), (65536, 256, 1), (1000, 429, 429), (300, 16, 300),
+                                   (13, 300, 257), (1000, 1, 13)])
 def test_k21_non_finite_and_signed_zeros(M, K, N, exact_dz):
     """NaN, +-inf and -0.0 in h, w and dz reach every mode's output as the
-    float32 product gives them: no NaN from a padded lane or from a zero
-    piece of a split value times inf."""
+    float32 product gives them, on both paths: no NaN from a padded lane or
+    from a zero piece of a split value times inf."""
     _require_cuda()
     from nvtabular_tpu_torch.kernels import mlp_mm as kmm
 
     gen = torch.Generator(device="cuda").manual_seed(M + 5)
     h, w, _, g = _k21_layer(M, K, N, gen, exact_dz, edges=True)
     p = kmm.operand_pieces(exact_dz)
+    split = not exact_dz and kmm.mm_plan(M, K, N, p, 1).path == "wide"
     _k21_close(kmm.mlp_mm_fwd(h, w, None, False)[0], h @ w, _k21_bound(h, w, K), "forward")
-    _k21_close(kmm.mlp_mm_dgrad(g, w, exact_dz), g @ w.t(), _k21_bound(g, w.t(), N * p, not exact_dz), "dgrad")
-    _k21_close(kmm.mlp_mm_wgrad(h, g, True, exact_dz), h.t() @ g, _k21_bound(h.t(), g, M * p), "wgrad")
+    _k21_close(kmm.mlp_mm_dgrad(g, w, exact_dz), g @ w.t(), _k21_bound(g, w.t(), _k21_terms(M, K, N, p, 1), split),
+               "dgrad")
+    _k21_close(kmm.mlp_mm_wgrad(h, g, True, exact_dz), h.t() @ g, _k21_bound(h.t(), g, _k21_terms(K, N, M, 1, p)),
+               "wgrad")
 
 
+@pytest.mark.parametrize("M,K,N", [(100, 3, 200), (100, 16, 5), (13, 200, 40)])
+def test_k21_narrow_sums_are_ieee_sums(M, K, N):
+    """The narrow path's sums are float32 fmaf's over the operands as they
+    are: a sum of -0.0 products is -0.0 and one with a +0.0 product +0.0 (the
+    padded depth's -0.0 products leave both), an inf times a finite value
+    inf, inf - inf NaN, and float32 values that are not bfloat16 values
+    multiply exactly (against float64 sums rounded once, within one rounding
+    a term)."""
+    _require_cuda()
+    from nvtabular_tpu_torch.kernels import mlp_mm as kmm
+
+    assert kmm.mm_plan(M, N, K).path == "narrow"
+    gen = torch.Generator(device="cuda").manual_seed(M + K + N)
+    h = torch.randn((M, K), device="cuda", generator=gen)  # float32 values, not bfloat16
+    w = torch.rand((K, N), device="cuda", generator=gen) + 0.5  # positive
+    h[0] = -0.0  # every product -0.0: the sum -0.0
+    h[1] = -0.0
+    h[1, K - 1] = 0.0  # one +0.0 product: +0.0
+    h[2, 0] = float("inf")  # inf: inf, or NaN with an opposite inf
+    h[3, 0], h[3, K - 1] = float("inf"), -float("inf")
+    y = kmm.mlp_mm_fwd(h, w, None, False, None, False)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.signbit(y[0]).all()) and bool((y[0] == 0).all())
+    assert not bool(torch.signbit(y[1]).any()) and bool((y[1] == 0).all())
+    assert bool(torch.isposinf(y[2]).all()) and bool(torch.isnan(y[3]).all())
+    exact = h[4:].double() @ w.double()
+    assert bool(((y[4:].double() - exact).abs() <= _k21_bound(h[4:], w, K) / 2).all())
+
+
+@pytest.mark.parametrize("K", [40, 13], ids=["wide", "narrow"])
 @pytest.mark.parametrize("scale", [2.0**-130, 2.0**-140, 2.0**-70], ids=["bf16_subnormal", "deep", "tiny_f32"])
-def test_k21_subnormal_operands(scale):
+def test_k21_subnormal_operands(scale, K):
     """Subnormal bfloat16 operands (the tensor cores keep them: K13d's 16-bit
     kernels' tests show it) and float32 operands in bfloat16's and float32's
     subnormal range through the split: within the bound with its
@@ -4097,7 +4144,7 @@ def test_k21_subnormal_operands(scale):
     from nvtabular_tpu_torch.kernels import mlp_mm as kmm
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    M, K, N = 300, 40, 24
+    M, N = 300, 24
     h = (torch.randn((M, K), device="cuda", generator=gen) * scale).bfloat16().float()
     w = torch.randn((K, N), device="cuda", generator=gen).bfloat16().float()
     _k21_close(kmm.mlp_mm_fwd(h, w, None, False)[0], h @ w, _k21_bound(h, w, K), "forward")
@@ -4111,7 +4158,7 @@ def test_k21_subnormal_operands(scale):
 
 def test_k21_split_rebuilds_float32_values():
     """Finite float32 values times the identity through the split path:
-    each output is hi + mid + lo of its value (csrc/mlp_mm.cu split3), the
+    each output is hi + mid + lo of its value (csrc/mlp_mm.cu split3x2), the
     exact sum of kmm.split_pieces' pieces, and the value itself for every
     |x| >= 2^-110 (float32's largest among them)."""
     _require_cuda()
@@ -4134,33 +4181,38 @@ def test_k21_split_rebuilds_float32_values():
     assert torch.equal(got[big], x[big])
 
 
-def test_k21_strided_operands_and_autograd():
+@pytest.mark.parametrize("width", [70, 13], ids=["wide", "narrow"])
+def test_k21_strided_operands_and_autograd(width):
     """MLPProduct on the card with a [B, 1041] view of a [B, 1044] input and
     a gradient that arrives as a view: the kernels read both through their
-    strides; the layer's gradients against the plain function's (within the
-    products' bounds), K19's backward and K21's three launches once each."""
+    strides, on the wide path (70 outputs) and the narrow one (13: the
+    forward, input and weight gradient all narrow); the layer's gradients
+    against the plain function's (within the products' bounds), K19's
+    backward and K21's three launches once each."""
     _require_cuda()
     from nvtabular_tpu_torch.kernels import mlp_mm as kmm
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     buf = torch.randn((1000, 1044), device="cuda", generator=gen).bfloat16().float()
-    w = (torch.randn((1041, 70), device="cuda", generator=gen) * 0.03).bfloat16().float()
-    b = torch.randn(70, device="cuda", generator=gen)
-    gbuf = torch.randn((1000, 73), device="cuda", generator=gen)
+    w = (torch.randn((1041, width), device="cuda", generator=gen) * 0.03).bfloat16().float()
+    b = torch.randn(width, device="cuda", generator=gen)
+    gbuf = torch.randn((1000, width + 3), device="cuda", generator=gen)
+    assert {kmm.mm_plan(1000, width, 1041).path, kmm.mm_plan(1000, 1041, width).path,
+            kmm.mm_plan(1041, width, 1000).path} == {"wide" if width > kmm.NARROW_MAX else "narrow"}
     grads = []
     for plain in (False, True):
         x = buf.clone().requires_grad_(True)
         wp, bp = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
         kernels.reset_launches()
         out = kmm.mlp_product(x[:, :1041], wp, bp, relu=False, round_dtype=None, exact=True, plain=plain)
-        out.backward(gbuf[:, 1:71])
+        out.backward(gbuf[:, 1:width + 1])
         torch.cuda.synchronize()
         want = {"mlp_mm_fwd": 1, "mlp_mm_dgrad": 1, "mlp_mm_wgrad": 1, "mlp_epilogue_bwd": 1} if not plain else {}
         assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {**want, **({"mlp_mm_fwd_epilogue": 1}
                                                                                 if not plain else {})}
         grads.append((x.grad, wp.grad, bp.grad))
-    g = gbuf[:, 1:71]
-    _k21_close(grads[0][0][:, :1041], grads[1][0][:, :1041], _k21_bound(g, w.t(), 3 * 70, True), "dx")
+    g = gbuf[:, 1:width + 1]
+    _k21_close(grads[0][0][:, :1041], grads[1][0][:, :1041], _k21_bound(g, w.t(), 3 * width, True), "dx")
     assert not bool(grads[0][0][:, 1041:].any())
     _k21_close(grads[0][1], grads[1][1], _k21_bound(buf[:, :1041].t(), g, 3 * 1000), "dw")
     torch.testing.assert_close(grads[0][2], grads[1][2], rtol=1e-5, atol=1e-5)

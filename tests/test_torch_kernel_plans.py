@@ -652,59 +652,133 @@ def test_tiny_library_yardstick_finds_the_same_slots(lengths):
 from nvtabular_tpu_torch.kernels import mlp_mm as kmm  # noqa: E402
 
 SMEM_OPT_IN = 232_448  # an H100 block's shared memory after the opt-in
-# (M, K, N, a_pieces, b_pieces) -> (bn, col_tiles, row_tiles, splits, k_split): phase 7's forwards, input and
-# weight gradients (the last layer's dz split into 3 pieces), DCN's cross layer, and the edges
+# (M, K, N, a_pieces, b_pieces) -> (path, bm, bn, col_tiles, row_tiles, splits, k_split): phase 7's forwards, input
+# and weight gradients (the last layer's dz float32: 3 pieces on the wide path, read as it is on the narrow),
+# DCN's cross layer, and the edges
 MM_PLANS = {
-    (65536, 13, 512, 1, 1): (128, 4, 512, 1, 32),  # DLRM bottom.0 forward
-    (65536, 256, 16, 1, 1): (16, 1, 512, 1, 256),  # bottom.2 forward
-    (65536, 256, 1, 1, 1): (8, 1, 512, 1, 256),  # top.2 forward
-    (65536, 16, 256, 3, 1): (64, 4, 512, 1, 32),  # bottom.2 dgrad: dz float32 in 3 pieces
-    (65536, 1, 256, 3, 1): (64, 4, 512, 1, 32),  # top.2 dgrad
-    (512, 65536, 256, 1, 1): (128, 2, 4, 33, 2016),  # bottom.1 / top.1 wgrad: K = the batch, split
-    (13, 65536, 512, 1, 1): (128, 4, 1, 64, 1024),  # bottom.0 wgrad
-    (256, 65536, 1, 1, 3): (8, 1, 2, 128, 512),  # top.2 wgrad: dz split
-    (256, 65536, 16, 1, 3): (16, 1, 2, 128, 512),  # bottom.2 wgrad
-    (65536, 429, 429, 1, 1): (128, 4, 512, 1, 448),  # DCN cross forward
-    (65536, 429, 429, 3, 1): (64, 7, 512, 1, 448),  # cross dgrad: x0 * g split
-    (429, 65536, 429, 1, 3): (64, 7, 4, 10, 6560),  # cross wgrad
-    (65536, 429, 429, 3, 3): (64, 7, 512, 1, 448),  # float32 compute: both split
-    (100, 13, 1, 1, 1): (8, 1, 1, 1, 32),
-    (3, 0, 5, 1, 1): (8, 1, 1, 1, 32),  # K = 0: one step of zeros
-    (0, 7, 9, 1, 1): (16, 1, 0, 1, 32),
-    (1000, 1000, 9, 1, 1): (16, 1, 8, 4, 256),
+    (65536, 13, 512, 1, 1): ("narrow", 64, 128, 4, 1024, 1, 16),  # DLRM bottom.0 forward: K = 13
+    (65536, 256, 16, 1, 1): ("narrow", 128, 16, 1, 512, 1, 256),  # bottom.2 forward: N = 16
+    (65536, 256, 1, 1, 1): ("narrow", 256, 4, 1, 256, 1, 256),  # top.2 forward: N = 1
+    (65536, 16, 256, 3, 1): ("narrow", 64, 128, 2, 1024, 1, 16),  # bottom.2 dgrad: K = 16, dz float32
+    (65536, 1, 256, 3, 1): ("narrow", 64, 128, 2, 1024, 1, 16),  # top.2 dgrad: K = 1
+    (13, 65536, 512, 1, 1): ("narrow", 16, 256, 2, 1, 128, 512),  # bottom.0 wgrad: M = 13, K = the batch, split
+    (256, 65536, 16, 1, 3): ("narrow", 128, 16, 1, 2, 128, 512),  # bottom.2 wgrad
+    (256, 65536, 1, 1, 3): ("narrow", 256, 4, 1, 1, 256, 256),  # top.2 wgrad
+    (65536, 512, 256, 1, 1): ("wide", 128, 256, 1, 512, 1, 512),  # bottom.1 / top.1 forward
+    (65536, 256, 512, 1, 1): ("wide", 128, 256, 2, 512, 1, 256),  # bottom.1 / top.1 dgrad
+    (65536, 367, 512, 1, 1): ("wide", 128, 256, 2, 512, 1, 384),  # top.0 forward
+    (65536, 512, 367, 1, 1): ("wide", 128, 256, 2, 512, 1, 512),  # top.0 dgrad
+    (512, 65536, 256, 1, 1): ("wide", 128, 256, 1, 4, 32, 2048),  # bottom.1 / top.1 wgrad: K = the batch, split
+    (367, 65536, 512, 1, 1): ("wide", 128, 256, 2, 3, 22, 3008),  # top.0 wgrad
+    (65536, 429, 429, 1, 1): ("wide", 128, 256, 2, 512, 1, 448),  # DCN cross forward
+    (65536, 429, 429, 3, 1): ("wide", 64, 128, 4, 1024, 1, 448),  # cross dgrad: x0 * g split
+    (429, 65536, 429, 1, 3): ("wide", 128, 64, 7, 4, 4, 16384),  # cross wgrad
+    (65536, 429, 429, 3, 3): ("wide", 64, 64, 7, 1024, 1, 448),  # float32 compute: both split
+    (65536, 256, 128, 1, 1): ("wide", 128, 128, 1, 512, 1, 256),  # DCN deep.1 forward: N = 128
+    (100, 13, 1, 1, 1): ("narrow", 256, 4, 1, 1, 1, 32),
+    (3, 0, 5, 1, 1): ("narrow", 64, 128, 1, 1, 1, 16),  # K = 0: no step, the sums +0.0
+    (0, 7, 9, 1, 1): ("narrow", 16, 256, 1, 0, 1, 16),
+    (1000, 1000, 9, 1, 1): ("narrow", 128, 16, 1, 8, 4, 256),
+    (17, 17, 17, 1, 1): ("wide", 128, 128, 1, 1, 1, 64),  # just past NARROW_MAX
 }
 
 
 @pytest.mark.parametrize("shape", list(MM_PLANS), ids=["x".join(map(str, s)) for s in MM_PLANS])
 def test_mm_plan(shape):
-    """Tiles of 128 rows by the narrowest wgmma width that covers N (64 at
-    most with a split operand); K split only where the tiles leave the card
-    idle and K is deep, each split a multiple of 32 deep and none empty;
-    every plan within the opt-in shared memory."""
+    """The narrow path where min(M, N, K) <= NARROW_MAX, its tile by the
+    smallest dimension; else the wide path, 128 x 256 tiles for bfloat16
+    operands where N > 128, the split operand's side 64; K split only where
+    the tiles leave the card idle and K is deep, each split a multiple of the
+    path's stage depth and none empty; every plan within the opt-in shared
+    memory, the wide path's ring at least MIN_STAGES deep, its B packed once
+    a launch where K is not split or B takes three pieces."""
     M, K, N, pa, pb = shape
     plan = kmm.mm_plan(M, N, K, pa, pb)
-    assert (plan.bn, plan.col_tiles, plan.row_tiles, plan.splits, plan.k_split) == MM_PLANS[shape]
-    assert plan.k_split % kmm.DEPTH == 0 and plan.k_split >= kmm.DEPTH
+    assert (plan.path, plan.bm, plan.bn, plan.col_tiles, plan.row_tiles, plan.splits, plan.k_split) == MM_PLANS[shape]
+    assert plan.path == ("narrow" if min(M, N, K) <= kmm.NARROW_MAX else "wide")
+    depth = kmm.NARROW_DEPTHS[kmm.narrow_tile(M, N, K)] if plan.path == "narrow" else kmm.DEPTH
+    assert plan.k_split % depth == 0 and plan.k_split >= depth
     assert (plan.splits - 1) * plan.k_split < max(K, 1) <= plan.splits * plan.k_split or K == 0
-    assert plan.col_tiles * plan.bn >= N and plan.row_tiles * kmm.ROWS >= M
-    assert plan.smem == kmm.BUFS * (pa * kmm.ROWS + pb * plan.bn) * kmm.DEPTH * 2 <= SMEM_OPT_IN
+    assert plan.col_tiles * plan.bn >= N and plan.row_tiles * plan.bm >= M
+    assert plan.groups == -(-plan.splits // kmm.SPLIT_GROUP)
+    if plan.path == "wide":
+        assert (plan.bm, plan.bn) in (kmm.WIDE_TILES[(pa, pb)], (128, kmm.WIDE_COLS))
+        assert kmm.MIN_STAGES <= plan.stages <= kmm.MAX_STAGES
+        stage = (pa * plan.bm + pb * plan.bn) * kmm.DEPTH * 2
+        assert plan.smem == plan.stages * stage + kmm.EPI_BYTES + kmm.BAR_BYTES <= SMEM_OPT_IN
+        assert plan.smem + stage > SMEM_OPT_IN or plan.stages == kmm.MAX_STAGES  # as deep as memory allows
+        # B packed into its stages once a launch where K is not split (the weights) or B is split (DCN's x0 * g)
+        pack = plan.splits == 1 or pb == 3
+        stages_b = plan.col_tiles * max(1, -(-K // kmm.DEPTH))
+        assert plan.packed == (stages_b * pb * plan.bn * kmm.DEPTH * 2 if pack else 0)
+    else:
+        assert (plan.bm, plan.bn) == kmm.NARROW_TILES[kmm.narrow_tile(M, N, K)] and plan.stages == plan.packed == 0
+        a_floats = max(depth * (plan.bm + 4), plan.bm * (depth + 4))  # A's tile depth-major or row-major
+        assert plan.smem == 2 * a_floats * 4 + 2 * depth * (plan.bn + 4) * 4 <= SMEM_OPT_IN
     if plan.splits > 1:
-        assert plan.tiles < kmm.TARGET_BLOCKS and plan.splits <= -(-kmm.TARGET_BLOCKS // plan.tiles)
-        assert plan.k_split >= kmm.MIN_SPLIT_STEPS * kmm.DEPTH
+        target = kmm.WAVE if plan.path == "wide" else kmm.NARROW_TARGET_BLOCKS
+        min_steps = kmm.MIN_SPLIT_STEPS if plan.path == "wide" else kmm.NARROW_MIN_SPLIT_STEPS
+        assert plan.tiles < target and plan.splits <= max(1, target // plan.tiles)
+        assert plan.k_split >= min_steps * depth
+
+
+# The layers of every main path (M, K, N of the forward [M, K] x [K, N]): DLRM's six (phase 7), the multihot
+# DLRM's bottom (one dense feature) and its 512-256 MLPs, DCN's cross layer and its deep and out MLPs, DeepFM's
+# MLP, the tabular MLP's 1041-512-256-1
+MAIN_LAYERS = {
+    "dlrm.b0": (65536, 13, 512), "dlrm.b1": (65536, 512, 256), "dlrm.b2": (65536, 256, 16),
+    "dlrm.t0": (65536, 367, 512), "dlrm.t1": (65536, 512, 256), "dlrm.t2": (65536, 256, 1),
+    "multihot.b0": (65536, 1, 512), "multihot.b2": (65536, 256, 64),
+    "dcn.cross": (65536, 429, 429), "dcn.deep0": (65536, 429, 256), "dcn.deep1": (65536, 256, 128),
+    "dcn.out": (65536, 557, 1), "deepfm.mlp0": (65536, 416, 400), "deepfm.out": (65536, 400, 1),
+    "tabular.0": (65536, 1041, 512), "tabular.1": (65536, 512, 256), "tabular.2": (65536, 256, 1),
+}
+# The products of DLRM's layers on the narrow path: eight of seventeen (the bottom MLP's first layer has no dgrad)
+DLRM_NARROW = {("dlrm.b0", "fwd"), ("dlrm.b0", "wgrad"), ("dlrm.b2", "fwd"), ("dlrm.b2", "dgrad"),
+               ("dlrm.b2", "wgrad"), ("dlrm.t2", "fwd"), ("dlrm.t2", "dgrad"), ("dlrm.t2", "wgrad")}
+
+
+@pytest.mark.parametrize("layer", list(MAIN_LAYERS))
+@pytest.mark.parametrize("mode", ["fwd", "dgrad", "wgrad"])
+def test_mm_plan_routes_the_main_paths(layer, mode):
+    """Every main path's layer, in each mode, on the path its shape names:
+    the narrow path exactly where one of M, N and K is at most NARROW_MAX
+    (at DLRM's layers the eight products of DLRM_NARROW), with the last
+    layer's float32 dz split only where the wide path takes it."""
+    M, K, N = MAIN_LAYERS[layer]
+    dz_pieces = 3 if layer.endswith(("2", "out", "cross")) else 1
+    shape = {"fwd": (M, N, K, 1, 1), "dgrad": (M, K, N, dz_pieces, 1), "wgrad": (K, N, M, 1, dz_pieces)}[mode]
+    plan = kmm.mm_plan(*shape)
+    want = "narrow" if min(shape[:3]) <= kmm.NARROW_MAX else "wide"
+    assert plan.path == want
+    if layer.startswith("dlrm.") and (layer, mode) != ("dlrm.b0", "dgrad"):  # not launched: its input is data
+        assert (plan.path == "narrow") == ((layer, mode) in DLRM_NARROW)
+    if layer in ("dlrm.b2", "dlrm.t2", "tabular.2", "deepfm.out", "dcn.out"):
+        assert plan.path == "narrow" and plan.terms(shape[2], *shape[3:]) == shape[2]
+    if layer == "dcn.cross" and mode != "fwd":
+        assert plan.terms(shape[2], *shape[3:]) == 3 * shape[2]
 
 
 @pytest.mark.parametrize("N", range(1, 200, 7))
 @pytest.mark.parametrize("pieces", [(1, 1), (1, 3), (3, 1), (3, 3)])
 def test_mm_plan_widths(N, pieces):
-    plan = kmm.mm_plan(1000, N, 64, *pieces)
-    assert plan.bn in kmm.COLS and (plan.bn <= kmm.SPLIT_COLS or pieces == (1, 1))
-    assert plan.bn >= min(N, kmm.SPLIT_COLS if pieces != (1, 1) else kmm.COLS[-1])
+    """Every shape plans on exactly one path, its tile from that path's
+    table, across the narrow-wide edge on each dimension."""
+    for M, K in [(1000, 64), (1, 64), (13, 64), (16, 64), (17, 64), (65, 64), (64, 0), (64, 1), (64, 15), (64, 16),
+                 (64, 17), (64, 100)]:
+        plan = kmm.mm_plan(M, N, K, *pieces)
+        if min(M, N, K) <= kmm.NARROW_MAX:
+            assert plan.path == "narrow" and (plan.bm, plan.bn) in kmm.NARROW_TILES.values()
+        else:
+            assert plan.path == "wide" and (plan.bm, plan.bn) in (kmm.WIDE_TILES[pieces], (128, kmm.WIDE_COLS))
+            assert plan.bn == kmm.WIDE_COLS or pieces != (1, 1) or N <= 128
 
 
 def test_mm_plan_depends_on_the_shape_alone():
     """The splits, and so the wgrad's bits, are a function of the shape:
     the same plan on every call and for every card."""
     assert kmm.mm_plan(512, 256, 65536) == kmm.mm_plan(512, 256, 65536)
+    assert kmm.mm_plan(13, 512, 65536) == kmm.mm_plan(13, 512, 65536)
     with pytest.raises(ValueError):
         kmm.mm_plan(5, 5, 5, 2, 1)
     with pytest.raises(ValueError):
@@ -738,5 +812,21 @@ def test_mm_constants_match_the_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert (const("kRows"), const("kDepth"), const("kBufs"), const("kMaxSplits")) == (
-        kmm.ROWS, kmm.DEPTH, kmm.BUFS, kmm.MAX_SPLITS)
+    assert (const("kStageDepth"), const("kNarrowDepth"), const("kMinStages"), const("kMaxStages"),
+            const("kMaxSplits"), const("kSplitGroup"), const("kSmemLimit")) == (
+        kmm.DEPTH, kmm.NARROW_DEPTH, kmm.MIN_STAGES, kmm.MAX_STAGES, kmm.MAX_SPLITS, kmm.SPLIT_GROUP, kmm.SMEM_LIMIT)
+    assert const("kNDepth") == kmm.NARROW_DEPTHS["n"]
+    assert kmm.NARROW_DEPTHS == {"k": kmm.NARROW_DEPTH, "n": 32, "n4": 32, "m": kmm.NARROW_DEPTH}
+    assert 2 * 64 * const("kEpiStride") * 4 == kmm.EPI_BYTES
+    assert 2 * kmm.MAX_STAGES * 8 + 16 == kmm.BAR_BYTES
+    # setmaxnreg moves registers within the block's launch allocation: 65536 / threads a thread, a multiple of 8
+    for producers in (1, 2):
+        threads = 256 + 128 * producers
+        assert 128 * producers * const(f"kProducerRegs{producers}") + 256 * const(f"kConsumerRegs{producers}") <= (
+            threads * (65536 // threads // 8 * 8))
+    # the tiles the C entry launches are the plan's
+    for (pa, pb), (bm, bn) in kmm.WIDE_TILES.items():
+        assert f"pa == {pa} && pb == {pb} && bm == {bm} && bn == {bn}" in src
+    assert "pa == 1 && pb == 1 && bm == 128 && bn == 256" in src
+    for bm, bn in kmm.NARROW_TILES.values():
+        assert f"bm == {bm} && bn == {bn}" in src
